@@ -1,0 +1,231 @@
+"""Building blocks of the fusion model (counterpart of
+maavss_tpu/models/layers.py, the part the serving slice uses).
+
+Parameter names follow the flax tree one to one, so `convert.from_flax`
+maps a flax checkpoint onto `state_dict()` leaf by leaf:
+
+- `ConvStack` registers `Conv_i` / `ConvTranspose_i` (torch weight layouts
+  [out,in,kh,kw] / [in,out,kh,kw]) and `TorchBatchNorm_i/BatchNorm_0` with
+  flax's per-class counters.
+- `KernelConvStack1x9` (counterpart of `PallasConvStack1x9`) has the same
+  tree as a `ConvStack` of the same specs, so `--pgenc_kernel` is a pure
+  compute switch, and runs every layer through `ops/cuda_pgenc.py`.
+- `LSTM` keeps flax's `w_i` [D,4H] and `w_h` [H,4H] (gate columns i,f,g,o):
+  the recurrence kernel reads w_h in that layout.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from maavss_tpu_torch.models.shape_plan import ConvSpec
+from maavss_tpu_torch.ops.cuda_lstm import lstm_recurrence, lstm_recurrence_plain
+from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer
+
+
+def activate(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    if act is None:
+        return x
+    if act == "tanh":
+        return torch.tanh(x)
+    if act == "relu":
+        return F.relu(x)
+    if act == "leaky_relu":
+        return F.leaky_relu(x, negative_slope=0.3)  # reference slope (avse_model.py:71)
+    if act == "sigmoid":
+        return torch.sigmoid(x)
+    raise ValueError(f"unknown activation {act}")
+
+
+class _BatchNormEval(nn.Module):
+    """Holder of one BatchNorm's affine parameters and running statistics
+    (flax names scale/bias/mean/var -> weight/bias/running_mean/running_var)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+
+class TorchBatchNorm(nn.Module):
+    """BatchNorm over the channel axis 1, eps 1e-5, normalized with the
+    running statistics, computed as flax's eval BatchNorm does.
+
+    Eval mode only. Training needs flax's running-statistics rule (biased
+    batch variance, momentum 0.9), which differs from nn.BatchNorm2d's
+    unbiased one: that comes with the train step (ROADMAP M3)."""
+
+    EPS = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.BatchNorm_0 = _BatchNormEval(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "train-mode BatchNorm is not ported yet (ROADMAP M3); call "
+                ".eval() on the model")
+        bn = self.BatchNorm_0
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = bn.weight * torch.rsqrt(bn.running_var + self.EPS)
+        return ((x - bn.running_mean.view(shape)) * mul.view(shape)
+                + bn.bias.view(shape))
+
+
+def _conv_names(specs: Sequence[ConvSpec]):
+    """flax auto-names: one counter per class (Conv, ConvTranspose,
+    TorchBatchNorm)."""
+    names, n_conv, n_convt, n_bn = [], 0, 0, 0
+    for spec in specs:
+        if spec.transpose:
+            conv, n_convt = f"ConvTranspose_{n_convt}", n_convt + 1
+        else:
+            conv, n_conv = f"Conv_{n_conv}", n_conv + 1
+        bn = None
+        if spec.norm:
+            bn, n_bn = f"TorchBatchNorm_{n_bn}", n_bn + 1
+        names.append((conv, bn))
+    return names
+
+
+class ConvStack(nn.Module):
+    """Sequential 2D conv / transposed-conv stack from planned specs, NCHW.
+
+    A transposed conv runs at padding 0 (flax's VALID) and is then cropped
+    to torch's ConvTranspose2d geometry: `padding` off both sides,
+    `output_padding` kept on the far side (maavss_tpu/models/layers.py:81-85).
+    """
+
+    def __init__(self, specs: Sequence[ConvSpec]):
+        super().__init__()
+        self.specs = tuple(specs)
+        self.names = _conv_names(self.specs)
+        for spec, (conv, bn) in zip(self.specs, self.names):
+            cls = nn.ConvTranspose2d if spec.transpose else nn.Conv2d
+            pad = (0, 0) if spec.transpose else spec.padding
+            self.add_module(conv, cls(spec.in_ch, spec.out_ch, spec.kernel,
+                                      stride=spec.stride, padding=pad))
+            if bn is not None:
+                self.add_module(bn, TorchBatchNorm(spec.out_ch))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for spec, (conv, bn) in zip(self.specs, self.names):
+            x = getattr(self, conv)(x)
+            if spec.transpose:
+                (ph, pw), (oph, opw) = spec.padding, spec.output_padding
+                h, w = x.shape[2], x.shape[3]
+                x = x[:, :, ph:h - ph + oph, pw:w - pw + opw]
+            if bn is not None:
+                x = getattr(self, bn)(x)
+            x = activate(x, spec.act)
+        return x
+
+
+class KernelConvStack1x9(ConvStack):
+    """The planned phasegram-encoder stack (every layer conv(1,9) /
+    stride (1,2) / pad (0,4) + BN + tanh), each layer one fused kernel launch
+    (ops/cuda_pgenc.py; its plain version on CPU tensors).
+
+    Channel-first [C, B*T, S] across the whole stack: one transpose on
+    entry (C=1, a reshape) and one on exit. w2 [Co, 9*Cin] is derived from
+    the conv weight per call with the column order k*Cin + ci of
+    maavss_tpu/models/layers.py:205-207."""
+
+    def __init__(self, specs: Sequence[ConvSpec]):
+        for spec in specs:
+            if not (not spec.transpose and spec.kernel == (1, 9)
+                    and spec.stride == (1, 2) and spec.padding == (0, 4)
+                    and spec.norm and spec.act == "tanh"):
+                raise ValueError(
+                    f"KernelConvStack1x9 supports only the planned "
+                    f"(1,9)/s(1,2)/p(0,4)+BN+tanh layers, got {spec}")
+        super().__init__(specs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, t, s = x.shape
+        if c != self.specs[0].in_ch:
+            raise ValueError(f"input has {c} channels, specs expect "
+                             f"{self.specs[0].in_ch}")
+        h = x.permute(1, 0, 2, 3).reshape(c, b * t, s).contiguous()
+        for spec, (conv_name, bn_name) in zip(self.specs, self.names):
+            conv = getattr(self, conv_name)
+            bn = getattr(self, bn_name).BatchNorm_0
+            w2 = conv.weight[:, :, 0, :].permute(0, 2, 1).reshape(
+                spec.out_ch, 9 * spec.in_ch).to(h.dtype).contiguous()
+            h = pgenc_layer(h, w2, conv.bias.float(), bn.weight.float(),
+                            bn.bias.float(), bn.running_mean.float(),
+                            bn.running_var.float())
+        co = self.specs[-1].out_ch
+        return h.reshape(co, b, t, h.shape[-1]).permute(1, 0, 2, 3)
+
+
+class LSTM(nn.Module):
+    """One direction's parameters: w_i [D,4H], w_h [H,4H] (flax layout)."""
+
+    def __init__(self, in_features: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        self.w_i = nn.Parameter(torch.empty(in_features, 4 * hidden))
+        self.w_h = nn.Parameter(torch.empty(hidden, 4 * hidden))
+
+
+def lstm_backend(x: torch.Tensor, backend: Optional[str] = None) -> str:
+    """'kernel' or 'scan' for this input: the MAAVSS_LSTM counterpart.
+    'auto' (the default) is the kernel for CUDA tensors and the per-step
+    loop for CPU tensors; 'kernel' on a CPU tensor raises in the wrapper."""
+    backend = backend or os.environ.get("MAAVSS_LSTM", "auto")
+    if backend == "auto":
+        return "kernel" if x.is_cuda else "scan"
+    if backend not in ("scan", "kernel"):
+        raise ValueError(f"MAAVSS_LSTM={backend!r} (auto|scan|kernel)")
+    return backend
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional LSTM without biases: [B,T,D] -> [B,T,2H]
+    (nn.LSTM(hidden_size=256, bias=False, bidirectional=True) semantics,
+    avse_model.py:542-546 in the reference).
+
+    The input projection x @ w_i stays one torch.matmul per direction, as the
+    JAX package leaves it to XLA; the recurrence of both directions is one
+    kernel launch (ops/cuda_lstm.py) or, with backend 'scan', the plain
+    per-step loop."""
+
+    def __init__(self, in_features: int, hidden: int,
+                 backend: Optional[str] = None):
+        super().__init__()
+        self.fwd = LSTM(in_features, hidden)
+        self.bwd = LSTM(in_features, hidden)
+        self.backend = backend
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xw_f = torch.matmul(x, self.fwd.w_i)
+        xw_b = torch.matmul(x, self.bwd.w_i)
+        if lstm_backend(x, self.backend) == "kernel":
+            (ys_f, _), (ys_b, _) = lstm_recurrence(
+                [xw_f, xw_b], [self.fwd.w_h.detach(), self.bwd.w_h.detach()],
+                [False, True], backend="kernel")
+        else:
+            ys_f, _ = lstm_recurrence_plain(xw_f, self.fwd.w_h, reverse=False)
+            ys_b, _ = lstm_recurrence_plain(xw_b, self.bwd.w_h, reverse=True)
+        return torch.cat([ys_f, ys_b], dim=-1)
+
+
+def make_birnn(cell: str, in_features: int, hidden: int) -> nn.Module:
+    """Bidirectional recurrence of the fusion core. Only 'lstm' (reference
+    parity) is ported; 'gru' and 'none' are ROADMAP M2."""
+    if cell == "lstm":
+        return BiLSTM(in_features, hidden)
+    if cell in ("gru", "none"):
+        raise NotImplementedError(
+            f"--rnn_cell {cell} is not ported yet (ROADMAP M2: GRU/BiGRU, "
+            "ParallelMixer)")
+    raise ValueError(f"unknown rnn cell {cell!r} (lstm|gru|none)")

@@ -1,0 +1,92 @@
+"""Separation + SI-SDR evaluation (counterpart of
+maavss_tpu/train/infer.py:make_separator, window mode).
+
+The separator runs the fusion model over every sliding window of a clip
+(a Python loop in place of `lax.scan`), overlap-averages the predicted STFT
+on the shared hops, and resynthesizes audio through the exact-inverse iSTFT.
+Feature preparation matches the JAX package's `_prep_stft_pair` and
+`_pflat_from_batch`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from maavss_tpu_torch.config import RunConfig
+from maavss_tpu_torch.ops.metrics import si_sdr
+from maavss_tpu_torch.ops.phasegram import phasegram_cumsum, phasegram_window
+from maavss_tpu_torch.ops.stft import istft_features, stft_features
+from maavss_tpu_torch.train.setup import check_supported
+
+
+def norm_per_example(feats: torch.Tensor) -> torch.Tensor:
+    """Per-example max-abs STFT normalization (--normalize_output_fft)."""
+    m = torch.amax(torch.abs(feats) + 1e-7, dim=tuple(range(1, feats.ndim)),
+                   keepdim=True)
+    return feats / m
+
+
+def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
+                     frames: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """audio [B, S], frames [B, T_total, H, W] float in [0, 1] ->
+    (separated audio [B, S],
+    the model's input features x_full [B, 2, T, F]).
+
+    x_full is the clean STFT plus noise_scalar-scaled gaussian noise drawn
+    from `generator` (required when noise_scalar != 0)."""
+    a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
+    y_full = stft_features(audio, cfg.fft_len, cfg.hop,
+                           normalized=cfg.normalize_fft, trim_end=True)
+    if cfg.normalize_output_fft:
+        y_full = norm_per_example(y_full)
+    x_full = y_full
+    if cfg.noise_scalar != 0.0:
+        noise = torch.randn(y_full.shape, generator=generator,
+                            dtype=y_full.dtype, device=y_full.device)
+        x_full = y_full + noise * cfg.noise_scalar
+    resize = None if frames.shape[-1] == cfg.p_size else (cfg.p_size, cfg.p_size)
+    p_flat = phasegram_cumsum(frames, resize=resize)
+
+    t_total = y_full.shape[2]
+    acc = torch.zeros_like(y_full)
+    cnt = torch.zeros(t_total, dtype=y_full.dtype, device=y_full.device)
+    for j in range(ns):
+        pg = phasegram_window(p_flat[:, j:j + nf])
+        win = slice(j * a, (j + nf) * a)
+        yh, _, _ = model(x_full[:, :, win], pg)
+        acc[:, :, win] += yh
+        cnt[win] += 1.0
+    yh_full = acc / torch.clamp(cnt, min=1.0)[:, None]
+    yh_audio = istft_features(yh_full, cfg.fft_len, cfg.hop,
+                              normalized=cfg.normalize_fft, trim_end=True,
+                              length=audio.shape[-1])
+    return yh_audio, x_full
+
+
+def make_separator(model, cfg: RunConfig):
+    """`separate(batch, generator=None) -> dict` over batch =
+    {'audio': [B, S_total], 'frames': [B, T_total, p, p]} tensors on the
+    model's device; returns audio_out, audio_in, si_sdr, si_sdr_noisy and
+    si_sdr_gain like the JAX separator."""
+    check_supported(cfg)
+
+    @torch.inference_mode()
+    def separate(batch, generator: Optional[torch.Generator] = None
+                 ) -> Dict[str, torch.Tensor]:
+        audio = batch["audio"]
+        yh_audio, x_full = separate_windows(model, cfg, audio, batch["frames"],
+                                            generator)
+        x_audio = istft_features(x_full, cfg.fft_len, cfg.hop,
+                                 normalized=cfg.normalize_fft, trim_end=True,
+                                 length=audio.shape[-1])
+        sdr_out = si_sdr(yh_audio, audio)
+        sdr_in = si_sdr(x_audio, audio)
+        return {"audio_out": yh_audio, "audio_in": x_audio,
+                "si_sdr": sdr_out, "si_sdr_noisy": sdr_in,
+                "si_sdr_gain": sdr_out - sdr_in}
+
+    return separate

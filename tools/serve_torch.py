@@ -1,0 +1,100 @@
+#!/usr/bin/env python
+"""Serving daemon of the PyTorch port: HTTP separation endpoint with dynamic
+batching, on one CUDA device (the port's counterpart of tools/serve.py).
+
+Keeps the fusion model's weights on the device, coalesces concurrent
+requests into batches of `--batch_size` rows, and serves:
+
+  POST /v1/separate   npz{audio [b,S], visual [b,T,p,p]}  ->  npz{audio_out [b,S]}
+  GET  /healthz       geometry + input specs
+  GET  /stats         request/batch counters + latency percentiles
+
+`--weights file.npz` loads a flax checkpoint saved with
+maavss_tpu_torch.convert.save_npz; without it the weights are a seeded
+init (--seed). The model is the fusion model only; its CUDA kernels build on
+the first request's launch (or at startup, through a warm-up call).
+
+Usage: python tools/serve_torch.py [--port 8423] [--max_wait_ms 5]
+       [--weights w.npz] [--device cuda] [model flags...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import sys
+import threading
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main() -> None:
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--model", choices=("fusion", "frames"), default="fusion")
+    pre.add_argument("--host", default="127.0.0.1")
+    pre.add_argument("--port", type=int, default=8423)
+    pre.add_argument("--max_wait_ms", type=float, default=5.0,
+                     help="max time a partial batch waits for more rows")
+    pre.add_argument("--weights", default=None,
+                     help="flax weights as npz (convert.save_npz)")
+    pre.add_argument("--device", default="cuda")
+    own, rest = pre.parse_known_args()
+    if own.model == "frames":
+        raise NotImplementedError("the frames model is not ported to "
+                                  "maavss_tpu_torch yet (ROADMAP M7)")
+
+    import torch
+
+    from maavss_tpu_torch.config import model_args
+    from maavss_tpu_torch.convert import from_flax, load_npz
+    from maavss_tpu_torch.exp.export import (
+        make_serving_fn, random_serving_inputs, serving_input_specs,
+    )
+    from maavss_tpu_torch.exp.serving import BatchingExecutor, SeparationServer
+    from maavss_tpu_torch.train.setup import build_fusion
+
+    cfg = model_args(rest)
+    device = torch.device(own.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("serve_torch: CUDA is not available (pass --device "
+                         "cpu to serve with the plain PyTorch versions)")
+    model = build_fusion(cfg, cfg.batch_size, device)
+    if own.weights:
+        params, batch_stats = load_npz(own.weights)
+        model.load_state_dict(from_flax(params, batch_stats), strict=True)
+    serving_fn = make_serving_fn(model, cfg)
+    audio_spec, visual_spec = serving_input_specs(cfg, cfg.batch_size)
+    # warm-up: builds the kernels and the library handles before the first
+    # request arrives
+    serving_fn(*[torch.from_numpy(x).to(device)
+                 for x in random_serving_inputs(cfg, cfg.batch_size)])
+    executor = BatchingExecutor(serving_fn, cfg.batch_size, audio_spec,
+                                visual_spec, device,
+                                max_wait_ms=own.max_wait_ms)
+    info = {
+        "model": own.model,
+        "batch": cfg.batch_size,
+        "platform": device.type,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "audio_shape": list(audio_spec.shape),
+        "visual_shape": list(visual_spec.shape),
+        "visual_dtype": str(visual_spec.dtype),
+    }
+    server = SeparationServer(executor, info, host=own.host,
+                              port=own.port).start()
+    print(json.dumps({"serving": f"http://{own.host}:{server.address[1]}",
+                      **info}), flush=True)
+
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait()
+    print(json.dumps({"shutdown": True, **executor.snapshot()}), flush=True)
+    server.stop()
+
+
+if __name__ == "__main__":
+    main()
