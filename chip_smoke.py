@@ -3,29 +3,42 @@
 
     python3 chip_smoke.py
 
-Phases, one line each, any failure exits non-zero (nothing is caught):
+Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 
 1. device: needs CUDA; prints the card's name and power limit (nvidia-smi),
    the torch / CUDA versions, and turns TF32 off for matmuls and cuDNN so
-   the fp32 slice is held in fp32.
-2. build: compiles every kernel of the serving path from `csrc/` (nvcc).
-3. K1 (LSTM recurrence): the kernel against its plain version at the slice
-   shapes (T=8, B=8 and 32, H=256, fp32 and bf16, both directions in one
-   launch), with errors, tolerance and median times.
-4. K2 (fused phasegram-encoder layer): the kernel against its plain version
-   at each of the 10 planned layers of the flagship encoder (R=64 rows).
-5. slice: the full-width fusion model (seeded random weights) behind the
-   HTTP SeparationServer on 127.0.0.1; 8 requests of 1..8 rows; every
-   response checked for shape, finiteness and agreement with the direct
-   separator built from the plain versions on the same weights; request
-   p50/p90 and both kernels' launch counts from that run; before it, the
-   direct serving call's time (kernels vs plain versions) and a
-   torch.profiler breakdown of it by CUDA kernel.
-6. golden: the small-geometry JAX reference of
+   the fp32 slices are held in fp32.
+2. build: compiles every kernel of the serving and train paths from `csrc/`
+   (one nvcc per source, in parallel, then one link).
+3. k1_lstm (K1-fwd, LSTM recurrence): the kernel against its plain version
+   at T=8, B=8 and 32, H=256, fp32 and bf16, both directions in one launch;
+   cuDNN's bidirectional nn.LSTM timed beside it.
+4. k2_pgenc (K2-eval, fused phasegram-encoder layer): the kernel against
+   its plain version at each of the 10 planned layers (R=64 rows).
+5. k1_bwd (K1-bwd, LSTM BPTT): against the plain BPTT and autograd through
+   the plain recurrence, at the shapes of k1_lstm.
+6. k2_train (K2-train and K2-bwd, the train-mode layer and its backward):
+   at each of the 10 layers, R 64 and 256, fp32 and bf16, against the plain
+   versions and autograd through the plain forward; dcbias exactly 0.
+7. k3_adam (K3, fused Adam): 3 steps over the flagship's parameter leaves
+   against the plain formula; torch.optim.Adam(fused=True) timed beside it.
+8. slice: the full-width fusion model (seeded random weights) behind the
+   HTTP SeparationServer on 127.0.0.1; 8 requests of 1..8 rows checked
+   against the direct separator built from the plain versions; request
+   p50/p90 and K1-fwd/K2-eval launch counts from that run; the direct
+   serving call's time (kernels vs plain) and a torch.profiler breakdown.
+9. golden: the small-geometry JAX reference of
    tests/fixtures/torch_port_golden.npz, run through the port's kernels.
+10. train: the full-width fusion train step (batch 8, scan windows, mode
+   2) with every kernel, against the plain versions from one state_dict:
+   per-step losses, parameters after step 1, exact launch counts per step;
+   step times, clips/s, one vectorized step and a torch.profiler breakdown.
+11. train_golden: the small-geometry JAX train trajectory of
+   tests/fixtures/torch_port_train_golden.npz, run through the kernels.
 
-The line before the last is one JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+The line before the last two is one JSON object with each kernel's
+launches, error, times and bound; then the nvidia-smi line; the last line
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -39,6 +52,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "torch_port_golden.npz")
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
+                            "torch_port_train_golden.npz")
+# published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
+# fp32 FLOP/s outside the tensor cores (every kernel here is fp32 math)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def phase(label: str, **fields) -> None:
@@ -63,6 +82,30 @@ def cuda_ms(fn, reps: int = 5, iters: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / iters)
     return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, flops: float):
+    """(least time in ms, what sets it): the larger of bytes over the HBM
+    rate and operations over the fp32 rate."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    f_ms = flops / FP32_FLOP_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_close(what, got, want, atol, rtol, scale_atol=False):
+    """Raise unless |got - want| <= atol' + rtol * |want| elementwise, with
+    atol' = atol * max|want| when `scale_atol`; return max abs error."""
+    got, want = got.float(), want.float()
+    a = atol * want.abs().max().item() if scale_atol else atol
+    err = (got - want).abs()
+    if not bool((err <= a + rtol * want.abs()).all()):
+        raise SystemExit(f"{what}: max abs err {err.max().item()} over "
+                         f"atol {a} + rtol {rtol}")
+    return err.max().item()
 
 
 def max_err(got, want):
@@ -137,12 +180,38 @@ def lstm_phase():
                                          f"{dtype}: {max_err(a, w)}")
                     err = max(err, max_err(a, w)[0])
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            # the bytes the function must move: xw and w_h read, ys and cs
+            # written, per direction; h @ w_h each step
+            bnd = bound_ms(2 * (nbytes(xws[0], whs[0]) + 2 * nbytes(got[0][0])),
+                           2 * t_len * 2 * b * h * 4 * h)
+            lib_ms = cudnn_lstm_ms(xws, whs) if dtype == torch.float32 \
+                else None
             phase("k1_lstm", B=b, T=t_len, H=h, dtype=str(dtype),
                   directions=2, max_abs_err=err, atol=atol, rtol=rtol,
-                  ms=ms, plain_ms=plain_ms)
+                  ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                  library_ms=lib_ms)
             if b == 8 and dtype == torch.float32:
-                report = (err, ms, plain_ms)
+                report = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd,
+                              library_ms=lib_ms)
     return report
+
+
+def cudnn_lstm_ms(xws, whs, d_in: int = 512):
+    """cuDNN's bidirectional nn.LSTM(bias=False) on the same recurrent
+    weights, as a yardstick: one call computes the recurrence AND the input
+    projection (x [B, T, d_in] @ w_i, d_in 512 as the flagship's fusion
+    input), so it does more work than K1-fwd."""
+    import torch
+
+    b, t_len, four_h = xws[0].shape
+    lstm = torch.nn.LSTM(d_in, four_h // 4, bias=False, batch_first=True,
+                         bidirectional=True).cuda()
+    with torch.no_grad():
+        lstm.weight_hh_l0.copy_(whs[0].T)
+        lstm.weight_hh_l0_reverse.copy_(whs[1].T)
+    x = torch.randn(b, t_len, d_in, device="cuda")
+    with torch.no_grad():
+        return cuda_ms(lambda: lstm(x))
 
 
 def pgenc_phase():
@@ -160,7 +229,7 @@ def pgenc_phase():
                          f"{len(specs)}")
     g = torch.Generator(device="cuda").manual_seed(2)
     r = 8 * cfg.num_frames
-    totals = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    totals = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
         s = cfg.p_size ** 2
         for i, sp in enumerate(specs):
@@ -188,16 +257,20 @@ def pgenc_phase():
                 totals["err"] = max(totals["err"], err)
                 totals["ms"] += ms
                 totals["plain_ms"] += plain_ms
+                totals["bytes"] += nbytes(x, w2, y) + 5 * 4 * co
+                totals["flops"] += 2 * co * 9 * c * r * (s // 2)
             s //= 2
+    totals["bound"] = bound_ms(totals["bytes"], totals["flops"])
     phase("k2_pgenc_stack", layers=len(specs), R=r, dtype="torch.float32",
-          ms=totals["ms"], plain_ms=totals["plain_ms"])
+          ms=totals["ms"], plain_ms=totals["plain_ms"],
+          bound_ms=totals["bound"][0], bound_by=totals["bound"][1])
     return totals
 
 
-def profile_phase(serve, dev, calls: int = 3):
-    """Where a direct batch-8 serving call spends its time: torch.profiler's
-    CUDA kernel events over `calls` calls, summed by kernel name, against the
-    host-clock wall time of the same window (the device's idle share)."""
+def profile_phase(label: str, fn, calls: int = 3):
+    """Where `calls` calls of `fn` spend their time: torch.profiler's CUDA
+    kernel events summed by kernel name, against the host-clock wall time
+    of the same window (the device's idle share)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -207,18 +280,293 @@ def profile_phase(serve, dev, calls: int = 3):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            serve(*dev)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
-    phase("profile", calls=calls, wall_ms=wall_ms, device_busy_ms=busy_ms,
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:14]
+    phase(label, calls=calls, wall_ms=wall_ms, device_busy_ms=busy_ms,
           idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
           kernel_launches=sum(e.count for e in kernels),
           top=[{"kernel": e.key[:80], "ms": e.device_time_total / 1e3,
                 "count": e.count} for e in top])
+
+
+def lstm_bwd_phase():
+    """K1-bwd against the plain BPTT and against autograd through the plain
+    recurrence. Tolerances: fp32 dxw 1e-5 absolute + 1e-5 relative (the
+    gate recompute and dh_prev sum in another order than cuBLAS); dW_h, a
+    sum of B*T terms, 1e-4 of its largest entry + 1e-4 relative; bf16 2^-7
+    of the largest entry + 2^-7 relative (one bf16 rounding of each)."""
+    import torch
+
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        lstm_recurrence,
+        lstm_recurrence_bwd,
+        lstm_recurrence_bwd_plain,
+        lstm_recurrence_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    t_len, h = 8, 256
+    report = None
+    for b in (8, 32):
+        for dtype in (torch.float32, torch.bfloat16):
+            xws = [torch.randn(b, t_len, 4 * h, device="cuda", generator=g)
+                   .to(dtype) for _ in range(2)]
+            whs = [(torch.randn(h, 4 * h, device="cuda", generator=g) / 16)
+                   .to(dtype) for _ in range(2)]
+            dys = [torch.randn(b, t_len, h, device="cuda", generator=g)
+                   .to(dtype) for _ in range(2)]
+            rev = [False, True]
+            fwd = lstm_recurrence(xws, whs, rev, backend="kernel")
+            yss, css = [o[0] for o in fwd], [o[1] for o in fwd]
+
+            def kernel():
+                return lstm_recurrence_bwd(xws, whs, yss, css, dys, rev,
+                                           backend="kernel")
+
+            def plain():
+                return [lstm_recurrence_bwd_plain(*a) for a in
+                        zip(xws, whs, yss, css, dys, rev)]
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            fp32 = dtype == torch.float32
+            e_dx = e_dw = 0.0
+            for (dxw, dwh), (dxw_r, dwh_r) in zip(got, want):
+                e_dx = max(e_dx, check_close(
+                    f"K1-bwd dxw B={b} {dtype}", dxw, dxw_r,
+                    1e-5 if fp32 else 2.0 ** -7, 1e-5 if fp32 else 2.0 ** -7,
+                    scale_atol=not fp32))
+                e_dw = max(e_dw, check_close(
+                    f"K1-bwd dW_h B={b} {dtype}", dwh, dwh_r,
+                    1e-4 if fp32 else 2.0 ** -7, 1e-4 if fp32 else 2.0 ** -7,
+                    scale_atol=True))
+            e_auto = None
+            if fp32:  # autograd through the plain forward loop
+                e_auto = 0.0
+                for k in range(2):
+                    xw = xws[k].clone().requires_grad_(True)
+                    wh = whs[k].clone().requires_grad_(True)
+                    ys, _ = lstm_recurrence_plain(xw, wh, rev[k])
+                    ys.backward(dys[k])
+                    e_auto = max(e_auto, check_close(
+                        "K1-bwd dxw vs autograd", got[k][0], xw.grad, 1e-5,
+                        1e-5))
+                    e_auto = max(e_auto, check_close(
+                        "K1-bwd dW_h vs autograd", got[k][1], wh.grad, 1e-4,
+                        1e-4, scale_atol=True))
+            ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            n_bytes = 2 * (nbytes(xws[0], whs[0], yss[0], css[0], dys[0])
+                           + nbytes(got[0][0], got[0][1]))
+            bnd = bound_ms(n_bytes, 2 * t_len * 3 * 2 * b * h * 4 * h)
+            phase("k1_bwd", B=b, T=t_len, H=h, dtype=str(dtype), directions=2,
+                  max_abs_err_dxw=e_dx, max_abs_err_dwh=e_dw,
+                  max_abs_err_vs_autograd=e_auto, ms=ms, plain_ms=plain_ms,
+                  bound_ms=bnd[0], bound_by=bnd[1])
+            if b == 8 and fp32:
+                report = dict(err=max(e_dx, e_dw), ms=ms, plain_ms=plain_ms,
+                              bound=bnd, library_ms=None)
+    return report
+
+
+def _pgenc_inputs(c, co, r, s, dtype, g):
+    import torch
+
+    x = torch.randn(c, r, s, device="cuda", generator=g).to(dtype)
+    w2 = (torch.randn(co, 9 * c, device="cuda", generator=g)
+          / (3.0 * c ** 0.5)).to(dtype)
+    cb, beta = (torch.randn(co, device="cuda", generator=g) * 0.1
+                for _ in range(2))
+    gamma = 1.0 + 0.1 * torch.randn(co, device="cuda", generator=g)
+    dy = torch.randn(co, r, s // 2, device="cuda", generator=g).to(dtype)
+    return x, w2, cb, gamma, beta, dy
+
+
+def pgenc_train_phase():
+    """K2-train and K2-bwd at each of the 10 flagship layers, R 64 (scan
+    windows) and 256 (vectorized), fp32 and bf16, against the plain versions
+    and (fp32, R=64) autograd through the plain forward. Tolerances: fp32 y
+    2e-5 absolute (tanh outputs; conv and statistics sums in another
+    order), mu and var 1e-4 relative + 1e-5 absolute; dx, dw2, dgamma and
+    dbeta, sums of up to R*S/2 terms, 1e-4 of their largest entry + 1e-4
+    relative; bf16 2^-7 (one bf16 rounding), statistics as fp32 (they are
+    fp32 from the same inputs). dcbias must be exactly 0."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.models.shape_plan import plan_phasegram_encoder
+    from maavss_tpu_torch.ops.cuda_pgenc import (
+        pgenc_bwd,
+        pgenc_bwd_plain,
+        pgenc_train,
+        pgenc_train_plain,
+    )
+
+    cfg = RunConfig()
+    specs, _ = plan_phasegram_encoder(
+        (8, 1, cfg.num_frames, cfg.p_size ** 2), cfg.latent_chan, cfg.fc_size)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    totals = {}
+    for r in (8 * cfg.num_frames, 8 * cfg.num_seq * cfg.num_frames):
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            tol = 2e-5 if fp32 else 2.0 ** -7
+            gtol = 1e-4 if fp32 else 2.0 ** -7
+            tot = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "bwd_ms",
+                                    "bwd_plain_ms", "fwd_err", "bwd_err",
+                                    "fwd_bytes", "fwd_flops", "bwd_bytes",
+                                    "bwd_flops")}
+            s = cfg.p_size ** 2
+            for i, sp in enumerate(specs):
+                c, co = sp.in_ch, sp.out_ch
+                x, w2, cb, gamma, beta, dy = _pgenc_inputs(c, co, r, s, dtype,
+                                                           g)
+                vecs = (cb, gamma, beta)
+                y, mu, var = pgenc_train(x, w2, *vecs, backend="kernel")
+                y_r, mu_r, var_r = pgenc_train_plain(x, w2, *vecs)
+                grads = pgenc_bwd(x, w2, *vecs, mu, var, dy, backend="kernel")
+                grads_r = pgenc_bwd_plain(x, w2, *vecs, mu, var, dy)
+                torch.cuda.synchronize()
+                where = f"layer {i} R={r} {dtype}"
+                e_f = max(check_close(f"K2-train y {where}", y, y_r, tol, 0.0),
+                          check_close(f"K2-train mu {where}", mu, mu_r, 1e-5,
+                                      1e-4),
+                          check_close(f"K2-train var {where}", var, var_r,
+                                      1e-5, 1e-4))
+                if bool((grads[2] != 0).any()):
+                    raise SystemExit(f"K2-bwd dcbias is not exactly 0 at "
+                                     f"{where}")
+                e_b = 0.0
+                for name, a, b_ in zip(("dx", "dw2", "dgamma", "dbeta"),
+                                       (grads[0], grads[1], grads[3],
+                                        grads[4]),
+                                       (grads_r[0], grads_r[1], grads_r[3],
+                                        grads_r[4])):
+                    e_b = max(e_b, check_close(f"K2-bwd {name} {where}", a,
+                                               b_, gtol, gtol,
+                                               scale_atol=True))
+                if fp32 and r == 8 * cfg.num_frames:
+                    leaves = [t.clone().requires_grad_(True)
+                              for t in (x, w2, gamma, beta)]
+                    y_a, _, _ = pgenc_train_plain(leaves[0], leaves[1], cb,
+                                                  leaves[2], leaves[3])
+                    y_a.backward(dy)
+                    for name, a, leaf in zip(
+                            ("dx", "dw2", "dgamma", "dbeta"),
+                            (grads[0], grads[1], grads[3], grads[4]), leaves):
+                        e_b = max(e_b, check_close(
+                            f"K2-bwd {name} vs autograd {where}", a,
+                            leaf.grad, gtol, gtol, scale_atol=True))
+                fwd_ms = cuda_ms(lambda: pgenc_train(x, w2, *vecs,
+                                                     backend="kernel"),
+                                 reps=3, iters=10)
+                fwd_plain = cuda_ms(lambda: pgenc_train_plain(x, w2, *vecs),
+                                    reps=3, iters=10)
+                bwd_ms = cuda_ms(lambda: pgenc_bwd(x, w2, *vecs, mu, var, dy,
+                                                   backend="kernel"),
+                                 reps=3, iters=10)
+                bwd_plain = cuda_ms(lambda: pgenc_bwd_plain(
+                    x, w2, *vecs, mu, var, dy), reps=3, iters=10)
+                conv_flops = 2 * co * 9 * c * r * (s // 2)
+                tot["fwd_bytes"] += nbytes(x, w2, y, mu, var) + 3 * 4 * co
+                tot["fwd_flops"] += conv_flops
+                tot["bwd_bytes"] += (nbytes(x, w2, dy, mu, var, grads[0],
+                                            grads[1]) + 7 * 4 * co)
+                tot["bwd_flops"] += 3 * conv_flops  # recompute, dx, dw2
+                tot["fwd_ms"] += fwd_ms
+                tot["fwd_plain_ms"] += fwd_plain
+                tot["bwd_ms"] += bwd_ms
+                tot["bwd_plain_ms"] += bwd_plain
+                tot["fwd_err"] = max(tot["fwd_err"], e_f)
+                tot["bwd_err"] = max(tot["bwd_err"], e_b)
+                phase("k2_train", layer=i, C=c, Co=co, R=r, S=s,
+                      dtype=str(dtype), max_abs_err_fwd=e_f,
+                      max_abs_err_bwd=e_b, fwd_ms=fwd_ms,
+                      fwd_plain_ms=fwd_plain, bwd_ms=bwd_ms,
+                      bwd_plain_ms=bwd_plain)
+                s //= 2
+            tot["fwd_bound"] = bound_ms(tot["fwd_bytes"], tot["fwd_flops"])
+            tot["bwd_bound"] = bound_ms(tot["bwd_bytes"], tot["bwd_flops"])
+            phase("k2_train_stack", layers=len(specs), R=r, dtype=str(dtype),
+                  fwd_ms=tot["fwd_ms"], fwd_plain_ms=tot["fwd_plain_ms"],
+                  fwd_bound_ms=tot["fwd_bound"][0],
+                  fwd_bound_by=tot["fwd_bound"][1], bwd_ms=tot["bwd_ms"],
+                  bwd_plain_ms=tot["bwd_plain_ms"],
+                  bwd_bound_ms=tot["bwd_bound"][0],
+                  bwd_bound_by=tot["bwd_bound"][1])
+            totals[(r, str(dtype))] = tot
+    return totals[(8 * cfg.num_frames, "torch.float32")]
+
+
+def adam_phase(steps: int = 3):
+    """K3 over the flagship's parameter leaves (shapes from build_fusion),
+    the decoders' leaves without a gradient as on the train path, from
+    seeded g, m and v: `steps` steps against the plain formula, m, v and p
+    at 1e-6 absolute + 1e-5 relative (the same fp32 formula; the compiler
+    may contract a multiply-add into an fma)."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.ops.cuda_adam import (
+        AdamTable,
+        adam_multi_tensor,
+        adam_update_plain,
+        bias_corrections,
+    )
+    from maavss_tpu_torch.train.setup import build_fusion
+
+    model = build_fusion(RunConfig(), 8, "cuda")
+    named = list(model.named_parameters())
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ps = [p.detach().clone() for _, p in named]
+    grads = [None if "decoder" in n else
+             torch.randn(p.shape, device="cuda", generator=g) * 1e-3
+             for n, p in named]
+    ms = [torch.randn(p.shape, device="cuda", generator=g) * 1e-4 for p in ps]
+    vs = [torch.rand(p.shape, device="cuda", generator=g) * 1e-6 for p in ps]
+    ref = [[t.clone() for t in col] for col in (ms, vs, ps)]
+    lr, b1, b2, eps = 1e-3, 0.9, 0.999, 1e-8
+    table = AdamTable(ms, vs, ps)
+    err = 0.0
+    for count in range(1, steps + 1):
+        c1, c2 = bias_corrections(count, b1, b2)
+        adam_multi_tensor(grads, ms, vs, ps, c1, c2, lr, b1, b2, eps,
+                          table=table, backend="kernel")
+        for gr, m, v, p in zip(grads, *ref):
+            adam_update_plain(gr, m, v, p, c1, c2, lr, b1, b2, eps)
+        torch.cuda.synchronize()
+        for name, got_col, want_col in zip("mvp", (ms, vs, ps), ref):
+            for a, b_ in zip(got_col, want_col):
+                err = max(err, check_close(f"K3 {name} step {count}", a, b_,
+                                           1e-6, 1e-5))
+    c1, c2 = bias_corrections(steps + 1, b1, b2)
+    ms_k = cuda_ms(lambda: adam_multi_tensor(
+        grads, ms, vs, ps, c1, c2, lr, b1, b2, eps, table=table,
+        backend="kernel"), reps=5, iters=10)
+
+    def plain():
+        for gr, m, v, p in zip(grads, *ref):
+            adam_update_plain(gr, m, v, p, c1, c2, lr, b1, b2, eps)
+
+    plain_ms = cuda_ms(plain, reps=3, iters=3)
+    lib_params = [p.clone().requires_grad_(True) for p in ps]
+    for p, gr in zip(lib_params, grads):
+        p.grad = torch.zeros_like(p) if gr is None else gr.clone()
+    opt = torch.optim.Adam(lib_params, lr=lr, eps=eps, fused=True)
+    library_ms = cuda_ms(opt.step, reps=5, iters=10)
+    n = sum(p.numel() for p in ps)
+    n_grad = sum(gr.numel() for gr in grads if gr is not None)
+    bnd = bound_ms(4 * (6 * n + n_grad), 12 * n)
+    phase("k3_adam", leaves=len(ps), params=n, params_with_grad=n_grad,
+          steps=steps, max_abs_err=err, atol=1e-6, rtol=1e-5, ms=ms_k,
+          plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd[0],
+          bound_by=bnd[1])
+    return dict(err=err, ms=ms_k, plain_ms=plain_ms, bound=bnd,
+                library_ms=library_ms)
 
 
 def _rel_l2(a, b) -> float:
@@ -280,7 +628,7 @@ def slice_phase():
     torch.cuda.synchronize()
     direct_ms = cuda_ms(lambda: serve(*dev), reps=3, iters=5)
     direct_plain_ms = cuda_ms(lambda: serve_ref(*dev), reps=3, iters=5)
-    profile_phase(serve, dev)
+    profile_phase("profile", lambda: serve(*dev))
 
     executor = BatchingExecutor(serve, batch, a_spec, v_spec, "cuda",
                                 max_wait_ms=5.0)
@@ -371,29 +719,244 @@ def golden_phase():
     phase("golden", cfg=meta["cfg"], rel_l2_vs_jax=err, tol=tol)
 
 
+def _params_close(model, ref, lr: float, tol: float):
+    """Every state_dict leaf of `model` against `ref`: relative L2 <= tol,
+    except the conv biases that feed a train-mode BatchNorm, whose true
+    gradient is 0 and whose Adam update from float noise is up to lr per
+    step (absolute <= lr). Returns (worst rel L2, worst bias abs diff)."""
+    import torch
+
+    fed = set(model.bn_fed_biases())
+    sd, sd_ref = model.state_dict(), ref.state_dict()
+    worst, worst_bias = 0.0, 0.0
+    for k, v in sd.items():
+        a, b = v.float(), sd_ref[k].float()
+        if k in fed:
+            d = (a - b).abs().max().item()
+            worst_bias = max(worst_bias, d)
+            if d > lr * 1.0001:
+                raise SystemExit(f"train: {k} differs by {d} > lr {lr}")
+            continue
+        rel = (torch.linalg.vector_norm(a - b)
+               / torch.linalg.vector_norm(b).clamp(min=1e-12)).item()
+        worst = max(worst, rel)
+        if rel > tol:
+            raise SystemExit(f"train: {k} rel L2 {rel} > {tol} after step 1")
+    return worst, worst_bias
+
+
+def train_phase(steps: int = 3):
+    """The full-width train step: kernels (every gate auto) against the
+    plain versions (pgenc_kernel xla, LSTM scan, opt_kernel xla) from one
+    state_dict, batch 8, scan windows, mode 2, noise_scalar 0, lr 1e-3 (so
+    that one Adam step moves every parameter well past the tolerance)."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.ops.cuda_adam import adam_multi_tensor
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        lstm_recurrence,
+        lstm_recurrence_bwd,
+    )
+    from maavss_tpu_torch.ops.cuda_pgenc import pgenc_bwd, pgenc_train
+    from maavss_tpu_torch.train.setup import build_fusion, build_fusion_state
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_fusion_step
+
+    batch_size, lr, tol = 8, 1e-3, 1e-4
+    cfg = RunConfig(batch_size=batch_size, noise_scalar=0.0, learning_rate=lr)
+    model, state = build_fusion_state(cfg, batch_size, "cuda",
+                                      torch.Generator().manual_seed(cfg.seed))
+    if model.pgenc_kernel != "pallas" or state.tx.kernel != "pallas":
+        raise SystemExit("the auto gates did not take the kernels on CUDA")
+    plain_cfg = cfg.replace(pgenc_kernel="xla", opt_kernel="xla")
+    ref = build_fusion(plain_cfg, batch_size, "cuda",
+                       torch.Generator().manual_seed(cfg.seed + 1))
+    ref.load_state_dict(model.state_dict())
+    ref.lstm.backend = "scan"
+    ref_state = create_train_state(ref, plain_cfg, "cuda")
+    step = make_fusion_step(model, cfg, device="cuda")
+    ref_step = make_fusion_step(ref, plain_cfg, device="cuda")
+    n_layers = len(model.phasegram_encoder.specs)
+    names = ("lstm_fwd", "lstm_bwd", "pgenc_train", "pgenc_bwd", "adam")
+    counters = (lstm_recurrence, lstm_recurrence_bwd, pgenc_train, pgenc_bwd,
+                adam_multi_tensor)
+    ns = cfg.num_seq
+    want = dict(zip(names, (ns, ns, ns * n_layers, ns * n_layers, 1)))
+    batches = [synthetic_av_batch(cfg, batch_size, seed=cfg.seed + i)
+               for i in range(steps)]
+
+    def run(fn, st, batch):
+        for c in counters:
+            c.launches = 0
+        st, metrics = fn(st, batch, 2)
+        torch.cuda.synchronize()
+        return st, metrics, dict(zip(names, (c.launches for c in counters)))
+
+    losses, ref_losses, worst = [], [], None
+    for i, batch in enumerate(batches):
+        state, m, launches = run(step, state, batch)
+        if launches != want:
+            raise SystemExit(f"train step {i + 1}: launches {launches} != "
+                             f"{want}")
+        ref_state, rm, ref_launches = run(ref_step, ref_state, batch)
+        if any(ref_launches.values()):
+            raise SystemExit(f"the plain train step launched kernels: "
+                             f"{ref_launches}")
+        losses.append(float(m["loss"]))
+        ref_losses.append(float(rm["loss"]))
+        if i == 0:
+            worst = _params_close(model, ref, lr, tol)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    if max(rel) > tol:
+        raise SystemExit(f"train losses {losses} vs plain {ref_losses}: rel "
+                         f"{rel} > {tol}")
+
+    def step_ms(fn, st):
+        """Median over 3 rounds of the mean of 2 back-to-back steps, from
+        CUDA events; the step is host-bound, so the events span the host's
+        launch time as well as the device's work."""
+        return cuda_ms(lambda: fn(st, batches[0], 2), reps=3, iters=2)
+
+    # kernels, plain, kernels, plain: two readings of each side in turns
+    ms, plain_ms = step_ms(step, state), step_ms(ref_step, ref_state)
+    ms_2, plain_ms_2 = step_ms(step, state), step_ms(ref_step, ref_state)
+    vec = make_fusion_step(model, cfg, window_mode="vectorized",
+                           device="cuda")
+    _, _, vec_launches = run(vec, state, batches[0])
+    vec_ms = step_ms(vec, state)
+    phase("train", batch=batch_size, window_mode="scan", mode=2, lr=lr,
+          steps=steps, params=sum(p.numel() for p in model.parameters()),
+          leaves=len(list(model.parameters())), losses=losses,
+          plain_losses=ref_losses, loss_rel_diff=max(rel), tol=tol,
+          step1_worst_rel_l2=worst[0], step1_worst_bn_fed_bias_abs=worst[1],
+          launches_per_step=want, step_ms=[ms, ms_2],
+          plain_step_ms=[plain_ms, plain_ms_2],
+          clips_per_s=batch_size / (min(ms, ms_2) / 1e3),
+          plain_clips_per_s=batch_size / (min(plain_ms, plain_ms_2) / 1e3),
+          vectorized_step_ms=vec_ms,
+          vectorized_clips_per_s=batch_size / (vec_ms / 1e3),
+          vectorized_launches=vec_launches)
+    profile_phase("train_profile", lambda: step(state, batches[0], 2),
+                  calls=1)
+    return want
+
+
+def train_golden_phase():
+    """The small-geometry JAX train trajectory (3 steps, scan, mode 2,
+    noise 0) through the port's kernels: per-step losses at relative 1e-4,
+    and the per-leaf sums of the final parameters and statistics at 1e-4 of
+    each leaf's sum of absolute values, the conv biases that feed a
+    train-mode BatchNorm and their running means left out."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.convert import (
+        flatten_tree,
+        from_flax,
+        random_flax_tree,
+        to_flax,
+        unflatten_tree,
+    )
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.ops.cuda_lstm import lstm_recurrence_bwd
+    from maavss_tpu_torch.ops.cuda_pgenc import pgenc_bwd
+    from maavss_tpu_torch.train.setup import build_fusion_state
+    from maavss_tpu_torch.train.steps import make_fusion_step
+
+    tol = 1e-4
+    with np.load(TRAIN_GOLDEN) as z:
+        meta = json.loads(str(z["meta"]))
+    flat = random_flax_tree({k: tuple(v) for k, v in meta["shapes"].items()},
+                            meta["seed"])
+    for path, total in meta["checksums"].items():
+        if not np.isclose(float(flat[path].astype(np.float64).sum()), total,
+                          rtol=1e-6, atol=1e-6):
+            raise SystemExit(f"train golden weights do not regenerate: {path}")
+    tree = unflatten_tree(flat)
+    cfg = RunConfig(**meta["cfg"])
+    model, state = build_fusion_state(cfg, cfg.batch_size, "cuda")
+    model.load_state_dict(from_flax(tree["params"], tree["batch_stats"]))
+    batch = synthetic_av_batch(cfg, cfg.batch_size, seed=meta["batch_seed"])
+    noise = np.random.default_rng(meta["frames_noise_seed"]).standard_normal(
+        batch["frames"].shape).astype(np.float32)
+    batch["frames"] = np.clip(batch["frames"] + meta["frames_noise"] * noise,
+                              0.0, 1.0)
+    step = make_fusion_step(model, cfg, device="cuda")
+    before = (lstm_recurrence_bwd.launches, pgenc_bwd.launches)
+    losses = []
+    for _ in meta["losses"]:
+        state, m = step(state, batch, meta["mode"])
+        losses.append(float(m["loss"]))
+    if (lstm_recurrence_bwd.launches, pgenc_bwd.launches) <= before:
+        raise SystemExit("the train golden run did not go through the "
+                         "backward kernels")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, meta["losses"]))
+    if rel > tol:
+        raise SystemExit(f"train golden losses {losses} vs JAX "
+                         f"{meta['losses']}: rel {rel} > {tol}")
+    params, stats = to_flax(model.state_dict())
+    got = flatten_tree({"params": params, "batch_stats": stats})
+    worst = 0.0
+    for path, (total, abs_total) in meta["sums"].items():
+        d = abs(float(got[path].astype(np.float64).sum()) - total)
+        worst = max(worst, d / max(abs_total, 1e-12))
+        if d > tol * abs_total + 1e-7:
+            raise SystemExit(f"train golden leaf {path}: sum off by {d}")
+    phase("train_golden", cfg=meta["cfg"], losses=losses,
+          jax_losses=meta["losses"], loss_rel_diff=rel,
+          worst_leaf_sum_rel=worst, leaves=len(meta["sums"]),
+          left_out=len(meta["bn_fed"]), tol=tol)
+
+
+def kernel_entry(name, source, replaces, launches, rep):
+    return {"name": name, "route": "cuda",
+            "source": f"maavss_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": rep["err"], "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound"][0],
+            "bound_by": rep["bound"][1], "library_ms": rep["library_ms"]}
+
+
 def main() -> None:
     sys.path.insert(0, ROOT)
     smi = device_phase()
     build_phase()
-    k1 = lstm_phase()
-    k2 = pgenc_phase()
-    launches = slice_phase()
+    k1, k2 = lstm_phase(), pgenc_phase()
+    k1b, k2t, k3 = lstm_bwd_phase(), pgenc_train_phase(), adam_phase()
+    serve = slice_phase()
     golden_phase()
+    train = train_phase()
+    train_golden_phase()
     if any(m in sys.modules for m in ("jax", "flax", "maavss_tpu")):
         raise SystemExit("the port loaded jax or maavss_tpu")
     import torch
 
     print(json.dumps({"kernels": [
-        {"name": "lstm_fwd", "route": "cuda",
-         "source": "maavss_tpu_torch/csrc/lstm_fwd.cu",
-         "replaces": "maavss_tpu/ops/pallas_lstm.py:80",
-         "launches": launches["lstm"], "max_abs_err": k1[0],
-         "ms": k1[1], "plain_ms": k1[2]},
-        {"name": "pgenc_eval", "route": "cuda",
-         "source": "maavss_tpu_torch/csrc/pgenc_eval.cu",
-         "replaces": "maavss_tpu/ops/pallas_pgenc.py:171",
-         "launches": launches["pgenc"], "max_abs_err": k2["err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        kernel_entry("lstm_fwd", "lstm_fwd.cu",
+                     "maavss_tpu/ops/pallas_lstm.py:80", serve["lstm"], k1),
+        kernel_entry("pgenc_eval", "pgenc_eval.cu",
+                     "maavss_tpu/ops/pallas_pgenc.py:171", serve["pgenc"],
+                     dict(err=k2["err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
+                          bound=k2["bound"], library_ms=None)),
+        kernel_entry("lstm_bwd", "lstm_bwd.cu",
+                     "maavss_tpu/ops/pallas_lstm.py:105", train["lstm_bwd"],
+                     k1b),
+        kernel_entry("pgenc_train", "pgenc_train.cu",
+                     "maavss_tpu/ops/pallas_pgenc.py:137",
+                     train["pgenc_train"],
+                     dict(err=k2t["fwd_err"], ms=k2t["fwd_ms"],
+                          plain_ms=k2t["fwd_plain_ms"], bound=k2t["fwd_bound"],
+                          library_ms=None)),
+        kernel_entry("pgenc_bwd", "pgenc_train.cu",
+                     "maavss_tpu/ops/pallas_pgenc.py:184", train["pgenc_bwd"],
+                     dict(err=k2t["bwd_err"], ms=k2t["bwd_ms"],
+                          plain_ms=k2t["bwd_plain_ms"], bound=k2t["bwd_bound"],
+                          library_ms=None)),
+        kernel_entry("adam", "adam.cu", "maavss_tpu/ops/pallas_adam.py:49",
+                     train["adam"], k3),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

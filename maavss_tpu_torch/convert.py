@@ -1,5 +1,6 @@
 """Weights across frameworks: a flax variable tree (as numpy) -> the port's
-`state_dict`, and an npz file format for flax trees.
+`state_dict` (`from_flax`) and back (`to_flax`), and an npz file format for
+flax trees.
 
 Works on numpy trees only, so a process without jax can load weights that a
 JAX process saved with `save_npz`. Mapping (generalised from
@@ -112,6 +113,43 @@ def from_flax(params: Tree, batch_stats: Optional[Tree] = None
         out[".".join(parts[:-1] + [_STATS[parts[-1]]])] = torch.tensor(
             np.ascontiguousarray(value, dtype=np.float32))
     return out
+
+
+def _flax_leaf(parts, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    """(flax leaf name, flax-layout value) for one torch param leaf: the
+    inverse of `_param_leaf`."""
+    parent, leaf = parts[-2] if len(parts) > 1 else "", parts[-1]
+    if leaf == "weight":
+        if parent.startswith("ConvTranspose_"):
+            return "kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
+        if parent.startswith("Conv_"):
+            return "kernel", value.transpose(2, 3, 1, 0)
+        if parent == "BatchNorm_0":
+            return "scale", value
+        if value.ndim == 2:  # Dense
+            return "kernel", value.T
+        raise ValueError(f"unmapped weight {'.'.join(parts)} {value.shape}")
+    if leaf in ("bias", "w_i", "w_h"):
+        return leaf, value
+    raise ValueError(f"unmapped torch param {'.'.join(parts)}")
+
+
+def to_flax(state_dict: Mapping[str, torch.Tensor]
+            ) -> Tuple[Dict[str, object], Dict[str, object]]:
+    """A state_dict of the port's modules -> flax (params, batch_stats)
+    numpy trees, the inverse of `from_flax`."""
+    stats = {v: k for k, v in _STATS.items()}
+    params: Dict[str, np.ndarray] = {}
+    batch_stats: Dict[str, np.ndarray] = {}
+    for name, tensor in state_dict.items():
+        parts = name.split(".")
+        value = tensor.detach().cpu().numpy()
+        if parts[-1] in stats:
+            batch_stats["/".join(parts[:-1] + [stats[parts[-1]]])] = value
+            continue
+        leaf, arr = _flax_leaf(parts, value)
+        params["/".join(parts[:-1] + [leaf])] = np.ascontiguousarray(arr)
+    return unflatten_tree(params), unflatten_tree(batch_stats)
 
 
 def random_flax_tree(shapes: Mapping[str, Tuple[int, ...]], seed: int

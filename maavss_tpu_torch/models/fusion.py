@@ -95,6 +95,13 @@ class AVFusionModel(nn.Module):
         if device is not None:
             self.to(device)
 
+    def bn_fed_biases(self):
+        """state_dict names of every conv bias that feeds a BatchNorm (see
+        ConvStack.bn_fed_biases): two implementations of the train step
+        legitimately differ there by up to the learning rate per step."""
+        return [f"{name}.{leaf}" for name, mod in self.named_children()
+                if isinstance(mod, ConvStack) for leaf in mod.bn_fed_biases()]
+
     def av_fusion_forward(self, x_a_enc: torch.Tensor,
                           x_v_enc: torch.Tensor) -> torch.Tensor:
         """Latents [B,C,t,s] -> fused [B,512] (avse_model.py:658-670)."""

@@ -1,5 +1,5 @@
 """Building blocks of the fusion model (counterpart of
-maavss_tpu/models/layers.py, the part the serving slice uses).
+maavss_tpu/models/layers.py, the part the fusion model uses).
 
 Parameter names follow the flax tree one to one, so `convert.from_flax`
 maps a flax checkpoint onto `state_dict()` leaf by leaf:
@@ -7,6 +7,8 @@ maps a flax checkpoint onto `state_dict()` leaf by leaf:
 - `ConvStack` registers `Conv_i` / `ConvTranspose_i` (torch weight layouts
   [out,in,kh,kw] / [in,out,kh,kw]) and `TorchBatchNorm_i/BatchNorm_0` with
   flax's per-class counters.
+- Train or eval mode comes from the module's `.training` flag (`.train()` /
+  `.eval()`), PyTorch's idiom, where flax passes `train=`.
 - `KernelConvStack1x9` (counterpart of `PallasConvStack1x9`) has the same
   tree as a `ConvStack` of the same specs, so `--pgenc_kernel` is a pure
   compute switch, and runs every layer through `ops/cuda_pgenc.py`.
@@ -24,8 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from maavss_tpu_torch.models.shape_plan import ConvSpec
-from maavss_tpu_torch.ops.cuda_lstm import lstm_recurrence, lstm_recurrence_plain
-from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer
+from maavss_tpu_torch.ops.cuda_lstm import lstm_bidir, lstm_recurrence_plain
+from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer, pgenc_layer_train
 
 
 def activate(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -55,29 +57,43 @@ class _BatchNormEval(nn.Module):
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm over the channel axis 1, eps 1e-5, normalized with the
-    running statistics, computed as flax's eval BatchNorm does.
+    """BatchNorm over the channel axis 1, eps 1e-5, as flax's BatchNorm
+    (maavss_tpu/models/layers.py:43-53) computes it.
 
-    Eval mode only. Training needs flax's running-statistics rule (biased
-    batch variance, momentum 0.9), which differs from nn.BatchNorm2d's
-    unbiased one: that comes with the train step (ROADMAP M3)."""
+    Eval: normalise with the running statistics. Train: normalise with the
+    batch mean and the biased batch variance max(0, E[x^2] - E[x]^2) in fp32,
+    then, under no_grad, running = 0.9 * running + 0.1 * batch with the
+    biased variance. nn.BatchNorm2d would update with the unbiased variance
+    (and momentum 0.1 in its own convention), so it is not used."""
 
     EPS = 1e-5
+    MOMENTUM = 0.9
 
     def __init__(self, features: int):
         super().__init__()
         self.BatchNorm_0 = _BatchNormEval(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet (ROADMAP M3); call "
-                ".eval() on the model")
         bn = self.BatchNorm_0
         shape = (1, -1) + (1,) * (x.ndim - 2)
-        mul = bn.weight * torch.rsqrt(bn.running_var + self.EPS)
-        return ((x - bn.running_mean.view(shape)) * mul.view(shape)
-                + bn.bias.view(shape))
+        if self.training:
+            axes = (0,) + tuple(range(2, x.ndim))
+            mean = x.mean(dim=axes)
+            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            update_running_stats(bn, mean, var)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        mul = bn.weight * torch.rsqrt(var + self.EPS)
+        return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+
+
+@torch.no_grad()
+def update_running_stats(bn: _BatchNormEval, mean: torch.Tensor,
+                         var: torch.Tensor) -> None:
+    """flax's running update: 0.9 * running + 0.1 * batch (biased var)."""
+    m = TorchBatchNorm.MOMENTUM
+    bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean.detach())
+    bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var.detach())
 
 
 def _conv_names(specs: Sequence[ConvSpec]):
@@ -116,6 +132,12 @@ class ConvStack(nn.Module):
             if bn is not None:
                 self.add_module(bn, TorchBatchNorm(spec.out_ch))
 
+    def bn_fed_biases(self):
+        """Names of the conv biases that feed a BatchNorm. In train mode the
+        batch mean cancels them, so their true gradient is exactly 0 (the
+        fused kernel returns 0, autodiff returns float noise)."""
+        return [f"{conv}.bias" for conv, bn in self.names if bn is not None]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for spec, (conv, bn) in zip(self.specs, self.names):
             x = getattr(self, conv)(x)
@@ -131,8 +153,11 @@ class ConvStack(nn.Module):
 
 class KernelConvStack1x9(ConvStack):
     """The planned phasegram-encoder stack (every layer conv(1,9) /
-    stride (1,2) / pad (0,4) + BN + tanh), each layer one fused kernel launch
-    (ops/cuda_pgenc.py; its plain version on CPU tensors).
+    stride (1,2) / pad (0,4) + BN + tanh), each layer one fused kernel call
+    (ops/cuda_pgenc.py; its plain version on CPU tensors): the eval layer
+    with the running statistics, or in `.train()` mode the train layer,
+    differentiable, whose batch (mu, var) update the running statistics as
+    maavss_tpu/models/layers.py:211-217 does.
 
     Channel-first [C, B*T, S] across the whole stack: one transpose on
     entry (C=1, a reshape) and one on exit. w2 [Co, 9*Cin] is derived from
@@ -160,9 +185,15 @@ class KernelConvStack1x9(ConvStack):
             bn = getattr(self, bn_name).BatchNorm_0
             w2 = conv.weight[:, :, 0, :].permute(0, 2, 1).reshape(
                 spec.out_ch, 9 * spec.in_ch).to(h.dtype).contiguous()
-            h = pgenc_layer(h, w2, conv.bias.float(), bn.weight.float(),
-                            bn.bias.float(), bn.running_mean.float(),
-                            bn.running_var.float())
+            if self.training:
+                h, mu, var = pgenc_layer_train(h, w2, conv.bias.float(),
+                                               bn.weight.float(),
+                                               bn.bias.float())
+                update_running_stats(bn, mu, var)
+            else:
+                h = pgenc_layer(h, w2, conv.bias.float(), bn.weight.float(),
+                                bn.bias.float(), bn.running_mean.float(),
+                                bn.running_var.float())
         co = self.specs[-1].out_ch
         return h.reshape(co, b, t, h.shape[-1]).permute(1, 0, 2, 3)
 
@@ -196,8 +227,8 @@ class BiLSTM(nn.Module):
 
     The input projection x @ w_i stays one torch.matmul per direction, as the
     JAX package leaves it to XLA; the recurrence of both directions is one
-    kernel launch (ops/cuda_lstm.py) or, with backend 'scan', the plain
-    per-step loop."""
+    kernel launch, and its backward one more (ops/cuda_lstm.py:lstm_bidir),
+    or, with backend 'scan', the plain per-step loop under autograd."""
 
     def __init__(self, in_features: int, hidden: int,
                  backend: Optional[str] = None):
@@ -210,9 +241,8 @@ class BiLSTM(nn.Module):
         xw_f = torch.matmul(x, self.fwd.w_i)
         xw_b = torch.matmul(x, self.bwd.w_i)
         if lstm_backend(x, self.backend) == "kernel":
-            (ys_f, _), (ys_b, _) = lstm_recurrence(
-                [xw_f, xw_b], [self.fwd.w_h.detach(), self.bwd.w_h.detach()],
-                [False, True], backend="kernel")
+            ys_f, ys_b = lstm_bidir(xw_f, xw_b, self.fwd.w_h, self.bwd.w_h,
+                                    backend="kernel")
         else:
             ys_f, _ = lstm_recurrence_plain(xw_f, self.fwd.w_h, reverse=False)
             ys_b, _ = lstm_recurrence_plain(xw_b, self.bwd.w_h, reverse=True)

@@ -2,9 +2,11 @@
 
 `nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
 interface, for Hopper only (`sm_90a`), the first time a kernel is launched:
+one nvcc process per source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o libmaavss_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+         -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o     (each, in parallel)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libmaavss_kernels.so *.o
 
 The library is loaded with `ctypes`; every pointer and the stream are passed
 as `c_void_p`. It lands in `build/maavss_tpu_torch/<hash>/` at the root of
@@ -29,8 +31,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "maavss_tpu_torch")
 LIB_NAME = "libmaavss_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,16 +77,34 @@ def build() -> BuildResult:
     if os.path.exists(lib):
         return BuildResult(lib, 0.0, "")
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    jobs = []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = os.path.join(out_dir, os.path.basename(src)[:-3] +
+                           f".{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = ""
+    failed = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *[o for _, o, _ in jobs]]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log += proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log}")
+    for _, obj, _ in jobs:
+        os.remove(obj)
+    seconds = time.perf_counter() - t0
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return BuildResult(lib, seconds, log)
 
@@ -101,6 +122,15 @@ def library():
     lib.maavss_pgenc_eval.argtypes = [p, p, p, p, p, p, p, p,
                                       i, i, i, i, i, p]
     lib.maavss_pgenc_eval.restype = i
+    lib.maavss_lstm_bwd.argtypes = ([p] * 8 + [i]) * 2 + [i, i, i, i, i, p]
+    lib.maavss_lstm_bwd.restype = i
+    lib.maavss_pgenc_train_fwd.argtypes = [p] * 9 + [i, i, i, i, i, p]
+    lib.maavss_pgenc_train_fwd.restype = i
+    lib.maavss_pgenc_train_bwd.argtypes = [p] * 14 + [i] * 6 + [p]
+    lib.maavss_pgenc_train_bwd.restype = i
+    f = ctypes.c_float
+    lib.maavss_adam.argtypes = [p] * 5 + [i, i, i] + [f] * 8 + [p]
+    lib.maavss_adam.restype = i
     return lib
 
 

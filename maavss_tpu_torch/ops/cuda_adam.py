@@ -1,0 +1,146 @@
+"""Fused Adam update: the hand-written CUDA kernel (`csrc/adam.cu`) and its
+plain PyTorch version.
+
+Counterpart of maavss_tpu/ops/pallas_adam.py:adam_leaf_update. The formula,
+in this order, fp32:
+
+    m' = b1 * m + (1 - b1) * g
+    v' = b2 * v + (1 - b2) * g^2
+    p' = p - lr * (m' / c1) / (sqrt(v' / c2) + eps)
+
+with the bias corrections c1 = 1 - b1^count, c2 = 1 - b2^count taken by the
+caller after the count increment. Both versions update m, v and p in place.
+
+`adam_multi_tensor` runs every leaf in ONE launch on CUDA tensors, from an
+`AdamTable` (device tables of the leaves' pointers, sizes and block map,
+built once: the parameters and moments never move). A leaf whose gradient
+is None is updated with g = 0, as optax does. On CPU tensors it runs the
+plain version leaf by leaf. There is no fallback from the kernel on the
+card.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+
+# elements per block of the kernel; a multiple of 4 keeps every block's
+# start 16-byte aligned inside a leaf
+_CHUNK = 8192
+
+
+def adam_update_plain(g: Optional[torch.Tensor], m: torch.Tensor,
+                      v: torch.Tensor, p: torch.Tensor, c1: float, c2: float,
+                      lr: float, b1: float, b2: float, eps: float) -> None:
+    """One leaf, in place: the fallback formula of
+    maavss_tpu/ops/pallas_adam.py:82-89. g None is g = 0."""
+    if g is None:
+        g = torch.zeros_like(p)
+    gd = g.to(m.dtype)
+    m.copy_(b1 * m + (1.0 - b1) * gd)
+    v.copy_(b2 * v + (1.0 - b2) * (gd * gd))
+    u = lr * (m / c1) / (torch.sqrt(v / c2) + eps)
+    p.sub_(u.to(p.dtype))
+
+
+class AdamTable:
+    """Device tables of the kernel for a fixed list of (m, v, p) leaves:
+    pointers [3, n] (rows m, v, p), sizes [n], and the block map (leaf,
+    first element) of every block. The gradient pointers are a separate
+    [n] table, re-sent when they change."""
+
+    def __init__(self, ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
+                 ps: Sequence[torch.Tensor]):
+        device = ps[0].device
+        for t in list(ms) + list(vs) + list(ps):
+            if t.dtype != torch.float32:
+                raise TypeError(f"the adam kernel takes float32 leaves only, "
+                                f"got {t.dtype}")
+            if t.device != device or not t.is_contiguous():
+                raise ValueError("the adam kernel needs contiguous leaves on "
+                                 "one CUDA device")
+        for m, v, p in zip(ms, vs, ps):
+            if not m.shape == v.shape == p.shape:
+                raise ValueError("adam kernel: m, v, p shapes differ")
+        self.device = device
+        self.leaves = [(m, v, p) for m, v, p in zip(ms, vs, ps)]
+        self.n = len(ps)
+        sizes = [p.numel() for p in ps]
+        leaf_of, start_of = [], []
+        for i, size in enumerate(sizes):
+            for start in range(0, max(size, 1), _CHUNK):
+                leaf_of.append(i)
+                start_of.append(start)
+        self.n_blocks = len(leaf_of)
+        i64 = torch.int64
+        self.ptrs = torch.tensor([[t.data_ptr() for t in col] for col in
+                                  (ms, vs, ps)], dtype=i64, device=device)
+        self.sizes = torch.tensor(sizes, dtype=i64, device=device)
+        self.block_leaf = torch.tensor(leaf_of, dtype=torch.int32,
+                                       device=device)
+        self.block_start = torch.tensor(start_of, dtype=i64, device=device)
+        self._gkey = None
+        self.gptrs = None
+
+    def grad_table(self, grads: Sequence[Optional[torch.Tensor]]
+                   ) -> torch.Tensor:
+        for g, (_, _, p) in zip(grads, self.leaves):
+            if g is not None and (g.dtype != torch.float32 or g.shape != p.shape
+                                  or g.device != self.device
+                                  or not g.is_contiguous()):
+                raise ValueError("adam kernel: every gradient must be a "
+                                 "contiguous float32 tensor of its leaf's "
+                                 "shape on the leaves' device")
+        key = tuple(0 if g is None else g.data_ptr() for g in grads)
+        if key != self._gkey:
+            self.gptrs = torch.tensor(key, dtype=torch.int64,
+                                      device=self.device)
+            self._gkey = key
+        return self.gptrs
+
+
+def adam_multi_tensor(grads: Sequence[Optional[torch.Tensor]],
+                      ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
+                      ps: Sequence[torch.Tensor], c1: float, c2: float,
+                      lr: float, b1: float, b2: float, eps: float,
+                      table: Optional[AdamTable] = None,
+                      backend: str = "auto") -> None:
+    """Every leaf, in place. backend 'auto': the kernel for CUDA leaves (one
+    launch, through `table`, built here when None), the plain version for
+    CPU leaves. 'kernel': the kernel, and a CPU leaf raises."""
+    if backend not in ("auto", "kernel"):
+        raise ValueError(f"unknown adam backend {backend!r} (auto|kernel)")
+    if not ps[0].is_cuda:
+        if backend == "kernel":
+            raise RuntimeError("the CUDA adam kernel needs CUDA tensors")
+        for g, m, v, p in zip(grads, ms, vs, ps):
+            adam_update_plain(g, m, v, p, c1, c2, lr, b1, b2, eps)
+        return
+    if table is None:
+        table = AdamTable(ms, vs, ps)
+    gptrs = table.grad_table(grads)
+    from maavss_tpu_torch.ops import _build
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    # (1 - b) in double, then rounded to fp32, as the TPU kernel's constants
+    with torch.cuda.device(table.device):
+        err = lib.maavss_adam(
+            table.ptrs.data_ptr(), gptrs.data_ptr(), table.sizes.data_ptr(),
+            table.block_leaf.data_ptr(), table.block_start.data_ptr(),
+            table.n, table.n_blocks, _CHUNK, lr, b1, 1.0 - b1, b2, 1.0 - b2,
+            eps, c1, c2, stream)
+    _build.check(err, "maavss_adam")
+    adam_multi_tensor.launches += 1
+
+
+adam_multi_tensor.launches = 0
+
+
+def bias_corrections(count: int, b1: float, b2: float) -> List[float]:
+    """c1 = 1 - b1^count, c2 = 1 - b2^count in fp32, as
+    maavss_tpu/train/fused_adam.py:52-54 computes them."""
+    c = torch.tensor(float(count), dtype=torch.float32)
+    return [float(1.0 - torch.tensor(b, dtype=torch.float32) ** c)
+            for b in (b1, b2)]

@@ -1,20 +1,26 @@
-"""Fused phasegram-encoder layer in eval mode: the hand-written CUDA kernel
-(`csrc/pgenc_eval.cu`) and its plain PyTorch version.
+"""Fused phasegram-encoder layer: the hand-written CUDA kernels
+(`csrc/pgenc_eval.cu` in eval mode, `csrc/pgenc_train.cu` in train mode,
+forward and backward) and their plain PyTorch versions.
 
-Counterpart of maavss_tpu/ops/pallas_pgenc.py:fused_conv_bn_tanh_eval (the
-train-mode kernels and their backward are a later port). Same channel-first
+Counterpart of maavss_tpu/ops/pallas_pgenc.py: `fused_conv_bn_tanh_eval`,
+and `fused_conv_bn_tanh_train` with its custom VJP. Same channel-first
 dataflow and argument layout:
 
     y = pgenc_layer(x [C, R, S], w2 [Co, 9*C], cbias, gamma, beta, mean, var)
-        -> [Co, R, S // 2]
+        -> [Co, R, S // 2]                                      (eval)
+    y, mu, var = pgenc_layer_train(x, w2, cbias, gamma, beta)    (train)
 
-conv(1,9) / stride 2 / zero pad 4 + BatchNorm with running statistics
-(eps 1e-5) + tanh; w2 column k*C + ci holds the flax kernel[0, k, ci, co]
-(maavss_tpu/models/layers.py:205-207); the five per-channel vectors are fp32;
-sums are fp32 and y has x's type (fp32 or bf16).
+conv(1,9) / stride 2 / zero pad 4 + BatchNorm (eps 1e-5) + tanh; w2 column
+k*C + ci holds the flax kernel[0, k, ci, co] (maavss_tpu/models/layers.py:
+205-207); the per-channel vectors are fp32; sums are fp32 and y has x's type
+(fp32 or bf16). In train mode the layer normalises with the batch mean and
+the biased batch variance E[yc^2] - E[yc]^2 over the R * S/2 outputs of each
+channel and returns them for the caller's running-statistics update; they
+carry no gradient. The backward recomputes the conv from x, and the conv
+bias's gradient is exactly 0 (it cancels in yc - mu).
 
-On a CUDA tensor `pgenc_layer` launches the kernel; on a CPU tensor it runs
-the plain version. There is no fallback from the kernel on the card.
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
+the plain version. There is no fallback from a kernel on the card.
 """
 
 from __future__ import annotations
@@ -114,3 +120,199 @@ def pgenc_layer(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
 
 
 pgenc_layer.launches = 0
+
+
+# the train backward's dW2 is a tiled product over the R * S/2 axis, split
+# into chunks so that about two waves of blocks fill the card's 132 SMs;
+# its fp32 partial sums are [chunks, Co, 9*C], summed in order by the
+# kernel's last pass. Tile sizes as csrc/pgenc_train.cu's kTM, kTN, kTK.
+_DW_TILE = (32, 64, 32)
+_DW_TARGET_BLOCKS = 264
+
+
+def _dw_chunks(c_in: int, c_out: int, r: int, s: int) -> int:
+    tm, tn, tk = _DW_TILE
+    tiles = -(-c_out // tm) * -(-(TAPS * c_in) // tn)
+    k_steps = -(-(r * (s // STRIDE)) // tk)
+    return max(1, min(-(-_DW_TARGET_BLOCKS // tiles), k_steps))
+
+
+def _conv_plain(x: torch.Tensor, w2: torch.Tensor,
+                cbias: torch.Tensor) -> torch.Tensor:
+    """fp32 yc [Co, R, S/2] = conv(x) + cbias through F.conv2d."""
+    c_in = x.shape[0]
+    c_out = w2.shape[0]
+    weight = w2.to(torch.float32).reshape(c_out, TAPS, c_in)
+    weight = weight.permute(0, 2, 1).unsqueeze(2)  # [Co, C, 1, 9]
+    xr = x.to(torch.float32).permute(1, 0, 2).unsqueeze(2)  # [R, C, 1, S]
+    y = F.conv2d(xr, weight, cbias.to(torch.float32), stride=(1, STRIDE),
+                 padding=(0, PAD))[:, :, 0, :]  # [R, Co, S/2]
+    return y.permute(1, 0, 2)
+
+
+def pgenc_train_plain(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
+                      gamma: torch.Tensor, beta: torch.Tensor):
+    """F.conv2d + batch statistics (biased, E[yc^2] - E[yc]^2) + normalise
+    + tanh -> (y, mu, var). Differentiable through autograd in x, w2, cbias,
+    gamma and beta (mu and var as well, which the fused layer's are not)."""
+    yc = _conv_plain(x, w2, cbias)
+    mu = yc.mean(dim=(1, 2))
+    var = (yc * yc).mean(dim=(1, 2)) - mu * mu
+    inv = torch.rsqrt(var + EPS)
+    y = torch.tanh(gamma[:, None, None] * (yc - mu[:, None, None])
+                   * inv[:, None, None] + beta[:, None, None])
+    return y.to(x.dtype), mu, var
+
+
+def pgenc_bwd_plain(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
+                    gamma: torch.Tensor, beta: torch.Tensor, mu: torch.Tensor,
+                    var: torch.Tensor, dy: torch.Tensor):
+    """The explicit backward of maavss_tpu/ops/pallas_pgenc.py:208-245 in
+    fp32: (dx, dw2, dcbias = 0, dgamma, dbeta). dx and dw2 follow the TPU
+    kernel's form, an upsample of dyc with zeros, the tap matrix and the
+    untap of W2^T @ upsample(dyc)."""
+    c_in, r, s = x.shape
+    c_out = w2.shape[0]
+    with torch.no_grad():
+        yc = _conv_plain(x, w2, cbias)
+        n_total = float(r * (s // STRIDE))
+        mu_, inv = mu[:, None, None], torch.rsqrt(var + EPS)[:, None, None]
+        g_, b_ = gamma[:, None, None], beta[:, None, None]
+        z = (yc - mu_) * inv
+        out = torch.tanh(g_ * z + b_)
+        dq = dy.to(torch.float32) * (1.0 - out * out)
+        dgamma = (dq * z).sum(dim=(1, 2))
+        dbeta = dq.sum(dim=(1, 2))
+        dyc = (g_ * inv) * (dq - dbeta[:, None, None] / n_total
+                            - z * (dgamma[:, None, None] / n_total))
+        u = torch.stack([dyc, torch.zeros_like(dyc)], dim=-1).reshape(
+            c_out, r * s)
+        xp = F.pad(x.to(torch.float32), (PAD, PAD))
+        taps = torch.cat([xp[:, :, k:k + s] for k in range(TAPS)], dim=0)
+        dw2 = u @ taps.reshape(TAPS * c_in, r * s).T
+        dtaps = (w2.to(torch.float32).T @ u).reshape(TAPS, c_in, r, s)
+        dx = torch.zeros(c_in, r, s + 2 * PAD, dtype=torch.float32,
+                         device=x.device)
+        for k in range(TAPS):
+            dx[:, :, k:k + s] += dtaps[k]
+        dx = dx[:, :, PAD:PAD + s]
+    return (dx.to(x.dtype), dw2.to(w2.dtype), torch.zeros_like(cbias),
+            dgamma.to(gamma.dtype), dbeta.to(beta.dtype))
+
+
+def _check_train_args(x, w2, vecs, tensors=()) -> None:
+    _check_kernel_args(x, w2, vecs)
+    for t in tensors:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("pgenc kernel needs contiguous tensors on one "
+                             "CUDA device")
+
+
+def pgenc_train(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
+                gamma: torch.Tensor, beta: torch.Tensor, backend: str = "auto"):
+    """Train-mode forward -> (y, mu, var). backend as `pgenc_layer`."""
+    if backend not in ("auto", "kernel"):
+        raise ValueError(f"unknown pgenc backend {backend!r} (auto|kernel)")
+    c_in, r, s = x.shape
+    if not pgenc_fits(c_in, s):
+        raise ValueError(f"pgenc kernel needs even lane width, got S={s}")
+    if not x.is_cuda:
+        if backend == "kernel":
+            raise RuntimeError("the CUDA pgenc kernel needs CUDA tensors")
+        with torch.no_grad():
+            return pgenc_train_plain(x, w2, cbias, gamma, beta)
+    _check_train_args(x, w2, (cbias, gamma, beta))
+    from maavss_tpu_torch.ops import _build
+
+    lib = _build.library()
+    c_out = w2.shape[0]
+    so = s // STRIDE
+    yc = torch.empty(c_out, r, so, dtype=torch.float32, device=x.device)
+    y = torch.empty(c_out, r, so, dtype=x.dtype, device=x.device)
+    mu = torch.empty(c_out, dtype=torch.float32, device=x.device)
+    var = torch.empty_like(mu)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.maavss_pgenc_train_fwd(
+            x.data_ptr(), w2.data_ptr(), cbias.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), yc.data_ptr(), y.data_ptr(), mu.data_ptr(),
+            var.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype], stream)
+    _build.check(err, "maavss_pgenc_train_fwd")
+    pgenc_train.launches += 1
+    return y, mu, var
+
+
+pgenc_train.launches = 0
+
+
+def pgenc_bwd(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
+              gamma: torch.Tensor, beta: torch.Tensor, mu: torch.Tensor,
+              var: torch.Tensor, dy: torch.Tensor, backend: str = "auto"):
+    """Train-mode backward -> (dx, dw2, dcbias = 0, dgamma, dbeta). backend
+    as `pgenc_layer`."""
+    if backend not in ("auto", "kernel"):
+        raise ValueError(f"unknown pgenc backend {backend!r} (auto|kernel)")
+    if not x.is_cuda:
+        if backend == "kernel":
+            raise RuntimeError("the CUDA pgenc kernel needs CUDA tensors")
+        return pgenc_bwd_plain(x, w2, cbias, gamma, beta, mu, var, dy)
+    c_in, r, s = x.shape
+    c_out = w2.shape[0]
+    so = s // STRIDE
+    _check_train_args(x, w2, (cbias, gamma, beta, mu, var), (dy,))
+    if dy.shape != (c_out, r, so) or dy.dtype != x.dtype:
+        raise ValueError(f"pgenc bwd kernel: dy {tuple(dy.shape)} {dy.dtype}"
+                         f" != [{c_out}, {r}, {so}] {x.dtype}")
+    from maavss_tpu_torch.ops import _build
+
+    lib = _build.library()
+    n_chunks = _dw_chunks(c_in, c_out, r, s)
+    yc = torch.empty(c_out, r, so, dtype=torch.float32, device=x.device)
+    partial = torch.empty(n_chunks, c_out * TAPS * c_in, dtype=torch.float32,
+                          device=x.device)
+    dx = torch.empty_like(x)
+    dw2 = torch.empty_like(w2)
+    dgamma = torch.empty(c_out, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty_like(dgamma)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.maavss_pgenc_train_bwd(
+            x.data_ptr(), w2.data_ptr(), cbias.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), mu.data_ptr(), var.data_ptr(), dy.data_ptr(),
+            yc.data_ptr(), partial.data_ptr(), dx.data_ptr(), dw2.data_ptr(),
+            dgamma.data_ptr(), dbeta.data_ptr(), c_in, r, s, c_out, n_chunks,
+            _DTYPE_CODES[x.dtype], stream)
+    _build.check(err, "maavss_pgenc_train_bwd")
+    pgenc_bwd.launches += 1
+    return dx, dw2, torch.zeros_like(cbias), dgamma, dbeta
+
+
+pgenc_bwd.launches = 0
+
+
+class _TrainLayer(torch.autograd.Function):
+    """(x, w2, cbias, gamma, beta) -> (y, mu, var), as
+    `fused_conv_bn_tanh_train`: mu and var carry no gradient; the backward
+    gives (dx, dw2, zeros for cbias, dgamma, dbeta)."""
+
+    @staticmethod
+    def forward(ctx, x, w2, cbias, gamma, beta, backend):
+        y, mu, var = pgenc_train(x, w2, cbias, gamma, beta, backend=backend)
+        ctx.mark_non_differentiable(mu, var)
+        ctx.save_for_backward(x, w2, cbias, gamma, beta, mu, var)
+        ctx.backend = backend
+        return y, mu, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmu, _dvar):
+        x, w2, cbias, gamma, beta, mu, var = ctx.saved_tensors
+        grads = pgenc_bwd(x, w2, cbias, gamma, beta, mu, var, dy.contiguous(),
+                          backend=ctx.backend)
+        return (*grads, None)
+
+
+def pgenc_layer_train(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
+                      gamma: torch.Tensor, beta: torch.Tensor,
+                      backend: str = "auto"):
+    """One fused train-mode layer, differentiable -> (y, mu, var)."""
+    return _TrainLayer.apply(x, w2, cbias, gamma, beta, backend)

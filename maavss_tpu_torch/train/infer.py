@@ -4,8 +4,8 @@ maavss_tpu/train/infer.py:make_separator, window mode).
 The separator runs the fusion model over every sliding window of a clip
 (a Python loop in place of `lax.scan`), overlap-averages the predicted STFT
 on the shared hops, and resynthesizes audio through the exact-inverse iSTFT.
-Feature preparation matches the JAX package's `_prep_stft_pair` and
-`_pflat_from_batch`.
+Feature preparation is the train step's `_prep_stft_pair`, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -17,15 +17,9 @@ import torch
 from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.ops.metrics import si_sdr
 from maavss_tpu_torch.ops.phasegram import phasegram_cumsum, phasegram_window
-from maavss_tpu_torch.ops.stft import istft_features, stft_features
+from maavss_tpu_torch.ops.stft import istft_features
 from maavss_tpu_torch.train.setup import check_supported
-
-
-def norm_per_example(feats: torch.Tensor) -> torch.Tensor:
-    """Per-example max-abs STFT normalization (--normalize_output_fft)."""
-    m = torch.amax(torch.abs(feats) + 1e-7, dim=tuple(range(1, feats.ndim)),
-                   keepdim=True)
-    return feats / m
+from maavss_tpu_torch.train.steps import _prep_stft_pair
 
 
 def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
@@ -39,15 +33,8 @@ def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
     x_full is the clean STFT plus noise_scalar-scaled gaussian noise drawn
     from `generator` (required when noise_scalar != 0)."""
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
-    y_full = stft_features(audio, cfg.fft_len, cfg.hop,
-                           normalized=cfg.normalize_fft, trim_end=True)
-    if cfg.normalize_output_fft:
-        y_full = norm_per_example(y_full)
-    x_full = y_full
-    if cfg.noise_scalar != 0.0:
-        noise = torch.randn(y_full.shape, generator=generator,
-                            dtype=y_full.dtype, device=y_full.device)
-        x_full = y_full + noise * cfg.noise_scalar
+    x_full, y_full = _prep_stft_pair(audio, cfg, generator, trim_end=True,
+                                     max_norm=cfg.normalize_output_fft)
     resize = None if frames.shape[-1] == cfg.p_size else (cfg.p_size, cfg.p_size)
     p_flat = phasegram_cumsum(frames, resize=resize)
 

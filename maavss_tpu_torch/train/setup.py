@@ -1,8 +1,10 @@
 """Model construction (counterpart of maavss_tpu/train/setup.py:build_fusion).
 
-`build_fusion(cfg, batch_size, device, generator)` plans the fusion model
-from the run config, initialises it from an explicit `torch.Generator` with
-flax's distributions, and returns it on `device` in eval mode:
+`build_fusion(cfg, batch_size, device="cuda", generator)` plans the fusion
+model from the run config, initialises it from an explicit `torch.Generator`
+with flax's distributions, and returns it on `device` in eval mode;
+`build_fusion_state` also returns its `TrainState` (the JAX `build_fusion`'s
+pair). The initialisation:
 
 - conv, transposed-conv and dense kernels: lecun-normal (variance 1/fan_in,
   normal truncated at two standard deviations, flax's rescaled stddev);
@@ -17,7 +19,7 @@ generators); `convert.from_flax` carries a flax init across exactly.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,15 +27,17 @@ from torch import nn
 from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.models.fusion import AVFusionModel, resolve_pgenc_kernel
 from maavss_tpu_torch.models.layers import LSTM
+from maavss_tpu_torch.train.state import TrainState, create_train_state
 
 # flax's truncated_normal initializer rescales so the truncated
 # distribution has the requested variance
 _TRUNC_STD = 0.87962566103423978
 
 
-def check_supported(cfg: RunConfig) -> None:
+def check_supported(cfg: RunConfig, train: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every option
-    the serving slice does not implement yet."""
+    the port does not implement yet; `train=True` adds the train step's
+    flags."""
     todo = [
         (cfg.rnn_cell != "lstm", f"--rnn_cell {cfg.rnn_cell}", "M2"),
         (cfg.mask_head, "--mask_head", "queue 2, K4"),
@@ -44,6 +48,18 @@ def check_supported(cfg: RunConfig) -> None:
         (cfg.attn_diff, "--attn_diff", "M4"),
         (cfg.dtype != "float32", f"--dtype {cfg.dtype}", "M5 (bf16 slice)"),
     ]
+    if train:
+        todo += [
+            (cfg.microbatch > 1, f"--microbatch {cfg.microbatch}", "M3-rest"),
+            (cfg.remat, "--remat", "M3-rest"),
+            (bool(cfg.noise_schedule), "--noise_schedule", "M3-rest"),
+            (cfg.lr_schedule != "constant",
+             f"--lr_schedule {cfg.lr_schedule}", "M3-rest (LR schedules)"),
+            (cfg.steps_per_dispatch > 1,
+             f"--steps_per_dispatch {cfg.steps_per_dispatch}",
+             "M5 (CUDA graphs)"),
+            (cfg.fused_opt, "--fused_opt", "queue 1, 'Not carried'"),
+        ]
     for missing, flag, item in todo:
         if missing:
             raise NotImplementedError(
@@ -79,7 +95,7 @@ def init_flax_like(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(mod.bias)
 
 
-def build_fusion(cfg: RunConfig, batch_size: int, device="cpu",
+def build_fusion(cfg: RunConfig, batch_size: int, device="cuda",
                  generator: Optional[torch.Generator] = None) -> AVFusionModel:
     """The fusion model for `cfg`, seeded-initialised, on `device`, in eval
     mode. `generator` defaults to a CPU generator seeded with cfg.seed; the
@@ -98,3 +114,13 @@ def build_fusion(cfg: RunConfig, batch_size: int, device="cpu",
         stft_fold=cfg.stft_fold)
     init_flax_like(model, generator)
     return model.to(device).eval()
+
+
+def build_fusion_state(cfg: RunConfig, batch_size: int, device="cuda",
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[AVFusionModel, TrainState]:
+    """(model, train state) for `cfg` on `device`: `build_fusion` and Adam
+    with the --opt_kernel gate; the model is left in train mode."""
+    check_supported(cfg, train=True)
+    model = build_fusion(cfg, batch_size, device, generator)
+    return model, create_train_state(model, cfg, device)

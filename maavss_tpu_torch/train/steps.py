@@ -1,0 +1,252 @@
+"""The fusion model's train step and eval pass (counterpart of
+maavss_tpu/train/steps.py:make_fusion_step and make_fusion_eval, with their
+helpers).
+
+`make_fusion_step(model, cfg)` returns `step(state, batch, mode,
+generator=None) -> (state, metrics)`, the whole per-step pipeline on the
+model's device:
+
+    raw audio / frames -> STFT + noise + normalisation + phasegram rows
+    -> windowed forward / backward with gradient accumulation
+    -> one optimizer update (in place).
+
+Window modes, as in the JAX package:
+- 'scan' (RunConfig's default): the num_seq windows run one after another;
+  each window's loss / num_seq gets its own `.backward()`, the gradients
+  accumulate in `.grad`, and BatchNorm's running statistics update window
+  by window (train.py:136-162 in the reference). A Python loop takes the
+  place of `lax.scan`.
+- 'vectorized': the windows fold into the batch dimension (B * num_seq
+  rows) and run as one forward / backward; BatchNorm's batch statistics
+  then cover all windows at once.
+
+`mode` is the modality curriculum (0 audio only, 1 visual only, 2 AV): the
+inactive input is multiplied by 0, as the reference zeroes its tensors. The
+metrics are those of `_watch_metrics` plus loss, a_loss and v_loss (the
+mean over windows), as 0-d tensors on the device.
+
+Not ported yet, and raising NotImplementedError: `--microbatch > 1`,
+`--fusion_encode full`, `--remat`, `--noise_schedule` (ROADMAP M3-rest) and
+`--steps_per_dispatch > 1` (ROADMAP M5, CUDA graphs).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from maavss_tpu_torch.config import RunConfig
+from maavss_tpu_torch.ops.phasegram import phasegram_cumsum, phasegram_window
+from maavss_tpu_torch.ops.stft import stft_features
+from maavss_tpu_torch.train.setup import check_supported
+from maavss_tpu_torch.train.state import TrainState
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.square(a - b))
+
+
+def _watch_metrics(model: torch.nn.Module) -> Metrics:
+    """Global l2 norms of the gradients and parameters, and the gradient
+    norm of each top-level module (maavss_tpu/train/steps.py:65-75). A
+    parameter without a gradient counts as a zero gradient, as jax.grad
+    gives one. The per-leaf norms come from one multi-tensor call each
+    (`torch._foreach_norm`), not three launches per leaf."""
+    params, grads = [], []
+    spans: Dict[str, list] = {}  # module -> [start, end) runs in `grads`
+    for name, p in model.named_parameters():
+        params.append(p.detach())
+        runs = spans.setdefault(name.split(".", 1)[0], [])
+        if p.grad is not None:
+            if runs and runs[-1][1] == len(grads):
+                runs[-1][1] += 1
+            else:
+                runs.append([len(grads), len(grads) + 1])
+            grads.append(p.grad)
+    p_sq = torch.stack(torch._foreach_norm(params)).square()
+    g_sq = torch.stack(torch._foreach_norm(grads)).square() if grads \
+        else p_sq[:0]
+    m = {"grad_norm": torch.sqrt(g_sq.sum()),
+         "param_norm": torch.sqrt(p_sq.sum())}
+    for k, runs in spans.items():
+        m[f"grad_norm/{k}"] = torch.sqrt(
+            sum((g_sq[a:b].sum() for a, b in runs), g_sq[:0].sum()))
+    return m
+
+
+def norm_per_example(feats: torch.Tensor) -> torch.Tensor:
+    """Per-example max-abs STFT normalization (--normalize_output_fft)."""
+    m = torch.amax(torch.abs(feats) + 1e-7, dim=tuple(range(1, feats.ndim)),
+                   keepdim=True)
+    return feats / m
+
+
+def frames_f32(frames: torch.Tensor) -> torch.Tensor:
+    """uint8 [0, 255] or float [0, 1] frames -> float32 [0, 1]."""
+    if frames.dtype == torch.uint8:
+        return frames.to(torch.float32) * (1.0 / 255.0)
+    return frames
+
+
+def _prep_stft_pair(audio: torch.Tensor, cfg: RunConfig,
+                    generator: Optional[torch.Generator], trim_end: bool,
+                    max_norm: bool, noise_scalar: Optional[float] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """audio [B, S] -> (x_stft, y_stft) [B, 2, T, F]: STFT, optional
+    per-example max-norm, then the additive-noise input x = y + noise *
+    noise_scalar with the noise drawn from `generator`
+    (maavss_tpu/train/steps.py:294-321). A noise_scalar of 0 draws nothing:
+    x is then y, as the JAX step's y + 0 * noise is."""
+    if noise_scalar is None:
+        noise_scalar = cfg.noise_scalar
+    y = stft_features(audio, cfg.fft_len, cfg.hop, normalized=cfg.normalize_fft,
+                      trim_end=trim_end)
+    if max_norm:
+        y = norm_per_example(y)
+    if noise_scalar == 0.0:
+        return y, y
+    noise = torch.randn(y.shape, generator=generator, dtype=y.dtype,
+                        device=y.device)
+    return y + noise * noise_scalar, y
+
+
+def _pflat_from_batch(batch, cfg: RunConfig) -> torch.Tensor:
+    """Per-frame phasegram cumsum rows [B, T, p^2] from the raw frames (the
+    frames path of maavss_tpu/train/steps.py:145-159; precomputed
+    --pgram_cache rows are ROADMAP M4)."""
+    frames = frames_f32(batch["frames"])
+    resize = None if frames.shape[-1] == cfg.p_size else (cfg.p_size,
+                                                          cfg.p_size)
+    return phasegram_cumsum(frames, resize=resize)
+
+
+def _masks(mode: int, objective_zeros: bool) -> Tuple[float, float, float]:
+    """(audio-input, visual-input, audio-target) multipliers for `mode`
+    (maavss_tpu/train/steps.py:487-490)."""
+    mode = int(mode)
+    return (0.0 if mode == 1 else 1.0,
+            0.0 if mode == 0 else 1.0,
+            0.0 if (mode == 1 and objective_zeros) else 1.0)
+
+
+def _to_device(batch, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
+                     device="cuda"):
+    """Train step for the fusion model over `batch = {'audio': [B, S_total],
+    'frames': [B, T_total, p, p]}` (numpy arrays or tensors; moved to
+    `device`), T_total = num_frames + num_seq frames at phasegram
+    resolution. `window_mode` defaults to cfg.window_mode."""
+    check_supported(cfg, train=True)
+    window_mode = window_mode or cfg.window_mode
+    if window_mode not in ("scan", "vectorized"):
+        raise ValueError(f"unknown window_mode {window_mode}")
+    a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
+    coeff = cfg.loss_coeff
+
+    def prep(batch, generator):
+        batch = _to_device(batch, device)
+        x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
+                                         trim_end=True,
+                                         max_norm=cfg.normalize_output_fft)
+        return x_full, y_full, _pflat_from_batch(batch, cfg)
+
+    def losses(state, xs, ys, y_pg, masks):
+        a_mask, v_mask, ya_mask = masks
+        yh_a, yh_v, _ = state.model(xs * a_mask, y_pg * v_mask)
+        a_loss = mse(yh_a, ys * ya_mask)
+        v_loss = mse(yh_v, y_pg)
+        return a_loss + coeff * v_loss, a_loss, v_loss
+
+    def finish(state, metrics) -> Tuple[TrainState, Metrics]:
+        metrics.update(_watch_metrics(state.model))
+        state.apply_gradients()
+        return state, metrics
+
+    def step_scan(state: TrainState, batch, mode: int,
+                  generator: Optional[torch.Generator] = None):
+        state.model.train()
+        x_full, y_full, p_flat = prep(batch, generator)
+        masks = _masks(mode, cfg.objective_zeros)
+        state.zero_grad()
+        macc = {k: torch.zeros((), device=x_full.device)
+                for k in ("loss", "a_loss", "v_loss")}
+        for j in range(ns):
+            y_pg = phasegram_window(p_flat[:, j:j + nf])
+            win = slice(j * a, (j + nf) * a)
+            loss, a_loss, v_loss = losses(state, x_full[:, :, win],
+                                          y_full[:, :, win], y_pg, masks)
+            (loss / ns).backward()
+            for k, v in (("loss", loss), ("a_loss", a_loss),
+                         ("v_loss", v_loss)):
+                macc[k] = macc[k] + v.detach() / ns
+        return finish(state, macc)
+
+    def step_vectorized(state: TrainState, batch, mode: int,
+                        generator: Optional[torch.Generator] = None):
+        state.model.train()
+        x_full, y_full, p_flat = prep(batch, generator)
+        masks = _masks(mode, cfg.objective_zeros)
+
+        def fold(full):
+            wins = torch.stack([full[:, :, j * a:(j + nf) * a]
+                                for j in range(ns)], dim=1)  # [B, ns, ...]
+            return wins.reshape((-1,) + wins.shape[2:])
+
+        # per-window phasegram finishing keeps per-window normalization
+        pg_wins = torch.stack([phasegram_window(p_flat[:, j:j + nf])
+                               for j in range(ns)], dim=1)
+        y_pg = pg_wins.reshape((-1,) + pg_wins.shape[2:])
+        state.zero_grad()
+        loss, a_loss, v_loss = losses(state, fold(x_full), fold(y_full), y_pg,
+                                      masks)
+        loss.backward()
+        return finish(state, {"loss": loss.detach(), "a_loss": a_loss.detach(),
+                              "v_loss": v_loss.detach()})
+
+    return step_vectorized if window_mode == "vectorized" else step_scan
+
+
+def make_fusion_eval(model, cfg: RunConfig, device="cuda"):
+    """Validation pass: the same windowed objective, no gradients, BatchNorm
+    with the running statistics (maavss_tpu/train/steps.py:991-1037).
+    `evaluate(state, batch, mode, generator=None) -> {loss, a_loss,
+    v_loss}`; the model's train/eval mode is restored afterwards."""
+    check_supported(cfg)
+    a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
+    coeff = cfg.loss_coeff
+
+    @torch.no_grad()
+    def evaluate(state: TrainState, batch, mode: int,
+                 generator: Optional[torch.Generator] = None) -> Metrics:
+        was_training = state.model.training
+        state.model.eval()
+        try:
+            batch = _to_device(batch, device)
+            x_full, y_full = _prep_stft_pair(
+                batch["audio"], cfg, generator, trim_end=True,
+                max_norm=cfg.normalize_output_fft)
+            a_mask, v_mask, _ = _masks(mode, False)
+            p_flat = _pflat_from_batch(batch, cfg)
+            out = {k: torch.zeros((), device=x_full.device)
+                   for k in ("loss", "a_loss", "v_loss")}
+            for j in range(ns):
+                y_pg = phasegram_window(p_flat[:, j:j + nf])
+                win = slice(j * a, (j + nf) * a)
+                yh_a, yh_v, _ = state.model(x_full[:, :, win] * a_mask,
+                                            y_pg * v_mask)
+                a_loss = mse(yh_a, y_full[:, :, win])
+                v_loss = mse(yh_v, y_pg)
+                for k, v in (("loss", a_loss + coeff * v_loss),
+                             ("a_loss", a_loss), ("v_loss", v_loss)):
+                    out[k] = out[k] + v
+            return {k: v / ns for k, v in out.items()}
+        finally:
+            state.model.train(was_training)
+
+    return evaluate

@@ -1,8 +1,10 @@
-"""The port's LSTM recurrence (ops/cuda_lstm.py) and BiLSTM against the JAX
-package: the Pallas kernel `_forward` in interpret mode and flax's lax.scan
-LSTM (maavss_tpu/models/layers.py:722-737), both directions, fp32, on the
-same numpy inputs. Tolerance 1e-5 absolute (h and c are O(1); only the
-summation order of h @ w_h differs)."""
+"""The port's LSTM recurrence (ops/cuda_lstm.py), its BPTT and BiLSTM
+against the JAX package: the Pallas kernel `_forward` and `pallas_lstm`'s
+custom VJP in interpret mode, and flax's lax.scan LSTM
+(maavss_tpu/models/layers.py:722-737) under jax.grad, both directions,
+fp32, on the same numpy inputs. Tolerance 1e-5 absolute (h and c are O(1);
+only the summation order of h @ w_h differs), relative to the largest entry
+for the weight gradients (sums over B*T terms)."""
 
 import numpy as np
 import pytest
@@ -13,8 +15,15 @@ import jax.numpy as jnp
 
 from maavss_tpu.models.layers import BiLSTM as JaxBiLSTM
 from maavss_tpu.ops.pallas_lstm import _forward as pallas_forward
+from maavss_tpu.ops.pallas_lstm import pallas_lstm
 from maavss_tpu_torch.models.layers import BiLSTM, lstm_backend
-from maavss_tpu_torch.ops.cuda_lstm import lstm_recurrence, lstm_recurrence_plain
+from maavss_tpu_torch.ops.cuda_lstm import (
+    lstm_bidir,
+    lstm_recurrence,
+    lstm_recurrence_bwd,
+    lstm_recurrence_bwd_plain,
+    lstm_recurrence_plain,
+)
 
 ATOL = 1e-5
 B, T, D, H = 2, 5, 24, 256  # H is the fusion model's fixed 256
@@ -89,3 +98,129 @@ def test_kernel_matches_plain_on_card():
         ys_p, cs_p = lstm_recurrence_plain(xws[0], whs[0], rev)
         torch.testing.assert_close(ys, ys_p, atol=ATOL, rtol=0)
         torch.testing.assert_close(cs, cs_p, atol=ATOL, rtol=0)
+
+
+def _bwd_inputs(seed=3):
+    rng = np.random.default_rng(seed)
+    xw, w_h = _inputs(seed)
+    dys = rng.standard_normal((B, T, H)).astype(np.float32)
+    return xw, w_h, dys
+
+
+def _jax_vjp(xw, w_h, dys, reverse):
+    """jax.vjp of the Pallas LSTM (interpret) in the port's batch-major
+    layout; the reverse direction is flip / vjp / flip as
+    maavss_tpu/models/layers.py:704-705,718-719 runs it."""
+    def f(xw_bm, wh):
+        xw_tm = jnp.swapaxes(xw_bm, 0, 1)
+        if reverse:
+            xw_tm = jnp.flip(xw_tm, 0)
+        ys = pallas_lstm(xw_tm, wh)
+        if reverse:
+            ys = jnp.flip(ys, 0)
+        return jnp.swapaxes(ys, 0, 1)
+
+    _, vjp = jax.vjp(f, jnp.asarray(xw), jnp.asarray(w_h))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dys))]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_bptt_matches_pallas_vjp(reverse):
+    """The explicit BPTT against jax.vjp of `pallas_lstm`; dW_h is a sum of
+    B*T terms, so it is held to 1e-5 of its largest entry."""
+    xw, w_h, dys = _bwd_inputs()
+    dxw_j, dwh_j = _jax_vjp(xw, w_h, dys, reverse)
+    ys, cs = lstm_recurrence_plain(torch.from_numpy(xw),
+                                   torch.from_numpy(w_h), reverse)
+    dxw, dwh = lstm_recurrence_bwd_plain(
+        torch.from_numpy(xw), torch.from_numpy(w_h), ys, cs,
+        torch.from_numpy(dys), reverse)
+    np.testing.assert_allclose(dxw.numpy(), dxw_j, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(dwh.numpy(), dwh_j,
+                               atol=ATOL * np.abs(dwh_j).max(), rtol=0)
+
+
+def test_function_backward_matches_pallas_vjp():
+    """`lstm_bidir` on CPU tensors (the autograd Function with its plain
+    bodies): both directions, gradients in argument order."""
+    xw, w_h, dys = _bwd_inputs(4)
+    xw_b, w_hb, dys_b = _bwd_inputs(5)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (xw, xw_b, w_h, w_hb)]
+    lstm_recurrence_bwd.launches = 0
+    ys_f, ys_b = lstm_bidir(*leaves)
+    torch.autograd.backward([ys_f, ys_b], [torch.from_numpy(dys),
+                                           torch.from_numpy(dys_b)])
+    assert lstm_recurrence_bwd.launches == 0  # plain bodies on the CPU
+    for (x_, wh_, d_), rev, (gx, gw) in (
+            ((xw, w_h, dys), False, (leaves[0], leaves[2])),
+            ((xw_b, w_hb, dys_b), True, (leaves[1], leaves[3]))):
+        dxw_j, dwh_j = _jax_vjp(x_, wh_, d_, rev)
+        np.testing.assert_allclose(gx.grad.numpy(), dxw_j, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(gw.grad.numpy(), dwh_j,
+                                   atol=ATOL * np.abs(dwh_j).max(), rtol=0)
+
+
+def test_bilstm_grads_match_flax_scan():
+    """BiLSTM's gradients (x, w_i and w_h of both directions) against
+    jax.grad through flax's scan LSTM, with the port's per-step loop under
+    autograd ('scan') and with the autograd Function (its plain bodies on
+    the CPU)."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((B, T, D)).astype(np.float32)
+    cot = rng.standard_normal((B, T, 2 * H)).astype(np.float32)
+    module = JaxBiLSTM(H)
+    variables = module.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("MAAVSS_LSTM", "scan")
+        g_params, g_x = jax.grad(
+            lambda p, xin: jnp.sum(module.apply({"params": p}, xin)
+                                   * jnp.asarray(cot)),
+            argnums=(0, 1))(variables["params"], jnp.asarray(x))
+    g_params = jax.tree_util.tree_map(np.asarray, g_params)
+    params = jax.tree_util.tree_map(np.asarray, variables["params"])
+    port = BiLSTM(D, H, backend="scan")
+    with torch.no_grad():
+        for name in ("fwd", "bwd"):
+            getattr(port, name).w_i.copy_(torch.tensor(params[name]["w_i"]))
+            getattr(port, name).w_h.copy_(torch.tensor(params[name]["w_h"]))
+    for path in ("scan", "function"):
+        port.zero_grad(set_to_none=True)
+        xin = torch.from_numpy(x).requires_grad_(True)
+        if path == "scan":
+            out = port(xin)
+        else:  # the kernel path's Function, on CPU tensors
+            ys_f, ys_b = lstm_bidir(xin @ port.fwd.w_i, xin @ port.bwd.w_i,
+                                    port.fwd.w_h, port.bwd.w_h)
+            out = torch.cat([ys_f, ys_b], dim=-1)
+        (out * torch.from_numpy(cot)).sum().backward()
+        np.testing.assert_allclose(xin.grad.numpy(), np.asarray(g_x),
+                                   atol=ATOL, rtol=0, err_msg=path)
+        for name in ("fwd", "bwd"):
+            for leaf in ("w_i", "w_h"):
+                want = g_params[name][leaf]
+                got = getattr(getattr(port, name), leaf).grad.numpy()
+                np.testing.assert_allclose(
+                    got, want, atol=ATOL * np.abs(want).max(), rtol=0,
+                    err_msg=f"{path} {name}.{leaf}")
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode); "
+                    "chip_smoke.py runs this comparison on the card")
+    xw, w_h, dys = _bwd_inputs(7)
+    xws = [torch.from_numpy(xw).cuda()] * 2
+    whs = [torch.from_numpy(w_h).cuda()] * 2
+    dyss = [torch.from_numpy(dys).cuda()] * 2
+    fwd = lstm_recurrence(xws, whs, [False, True], backend="kernel")
+    got = lstm_recurrence_bwd(xws, whs, [f[0] for f in fwd],
+                              [f[1] for f in fwd], dyss, [False, True],
+                              backend="kernel")
+    for (dxw, dwh), (ys, cs), rev in zip(got, fwd, (False, True)):
+        dxw_p, dwh_p = lstm_recurrence_bwd_plain(xws[0], whs[0], ys, cs,
+                                                 dyss[0], rev)
+        torch.testing.assert_close(dxw, dxw_p, atol=ATOL, rtol=1e-5)
+        torch.testing.assert_close(dwh, dwh_p, atol=1e-4 * dwh_p.abs().max(),
+                                   rtol=1e-4)

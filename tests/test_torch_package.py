@@ -1,10 +1,12 @@
 """Guards of the PyTorch port `maavss_tpu_torch`: it never loads jax, its
 copies of the JAX package's plain-Python modules stay equal to their
-originals, the weight converter covers the whole flax tree, the kernel
-wrappers take their plain versions on CPU tensors only, and chip_smoke.py
-refuses to run without a card."""
+originals, the weight converter covers the whole flax tree both ways, the
+kernel wrappers take their plain versions on CPU tensors only, the entry
+points default to the card, and chip_smoke.py refuses to run without a
+card."""
 
 import dataclasses
+import inspect
 import os
 import shutil
 import subprocess
@@ -18,6 +20,7 @@ import jax
 import jax.numpy as jnp
 
 from maavss_tpu import config as jax_config
+from maavss_tpu.data import synthetic as jax_synthetic
 from maavss_tpu.models import shape_plan as jax_plan
 from maavss_tpu.models.fusion import AVFusionModel as JaxFusion
 from maavss_tpu_torch import config as port_config
@@ -25,11 +28,28 @@ from maavss_tpu_torch.convert import (
     flatten_tree,
     from_flax,
     load_npz,
+    random_flax_tree,
     save_npz,
+    to_flax,
+    unflatten_tree,
 )
+from maavss_tpu_torch.data import synthetic as port_synthetic
 from maavss_tpu_torch.models import shape_plan as port_plan
-from maavss_tpu_torch.ops.cuda_lstm import lstm_recurrence, lstm_recurrence_plain
-from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer, pgenc_layer_plain
+from maavss_tpu_torch.ops.cuda_adam import adam_multi_tensor
+from maavss_tpu_torch.ops.cuda_lstm import (
+    lstm_recurrence,
+    lstm_recurrence_bwd,
+    lstm_recurrence_plain,
+)
+from maavss_tpu_torch.ops.cuda_pgenc import (
+    pgenc_bwd,
+    pgenc_layer,
+    pgenc_layer_plain,
+    pgenc_train,
+)
+from maavss_tpu_torch.train import setup as port_setup
+from maavss_tpu_torch.train import state as port_state
+from maavss_tpu_torch.train import steps as port_steps
 from maavss_tpu_torch.train.setup import build_fusion
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -47,7 +67,11 @@ def test_port_imports_without_jax():
         "bad = [m for m in ('jax', 'flax', 'optax', 'maavss_tpu') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 27, names\n"
+        "new = {'maavss_tpu_torch.ops.cuda_adam', "
+        "'maavss_tpu_torch.train.fused_adam', 'maavss_tpu_torch.train.state', "
+        "'maavss_tpu_torch.train.steps', 'maavss_tpu_torch.data.synthetic'}\n"
+        "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -156,6 +180,97 @@ def test_kernel_wrappers_take_plain_path_on_cpu():
         lstm_recurrence([xw], [wh], [False], backend="kernel")
     with pytest.raises(RuntimeError, match="CUDA"):
         pgenc_layer(x, w2, *vecs, backend="kernel")
+
+
+def test_new_wrappers_count_no_launch_on_cpu():
+    """The train path's wrappers take their plain versions on CPU tensors
+    and count no launch there."""
+    g = torch.Generator().manual_seed(1)
+    counters = (lstm_recurrence_bwd, pgenc_train, pgenc_bwd,
+                adam_multi_tensor)
+    for c in counters:
+        c.launches = 0
+    xw = torch.randn(2, 3, 128, generator=g)
+    wh = torch.randn(32, 128, generator=g) * 0.1
+    (ys, cs), = lstm_recurrence([xw], [wh], [False])
+    lstm_recurrence_bwd([xw], [wh], [ys], [cs], [torch.ones_like(ys)],
+                        [False])
+    x = torch.randn(2, 6, 16, generator=g)
+    w2 = torch.randn(4, 18, generator=g)
+    vecs = [torch.randn(4, generator=g) for _ in range(2)] + [torch.ones(4)]
+    y, mu, var = pgenc_train(x, w2, *vecs)
+    pgenc_bwd(x, w2, *vecs, mu, var, torch.ones_like(y))
+    p = [torch.randn(5, generator=g)]
+    adam_multi_tensor([None], [torch.zeros(5)], [torch.zeros(5)], p, 0.1,
+                      0.001, 1e-3, 0.9, 0.999, 1e-8)
+    assert [c.launches for c in counters] == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_synthetic_copy_matches_jax(seed):
+    for kwargs in (dict(), dict(num_frames=4, num_seq=2, p_size=16,
+                                fft_len=64)):
+        cfg_j = jax_config.RunConfig(**kwargs)
+        cfg_p = port_config.RunConfig(**kwargs)
+        a = jax_synthetic.synthetic_av_batch(cfg_j, 2, seed=seed)
+        b = port_synthetic.synthetic_av_batch(cfg_p, 2, seed=seed)
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    np.testing.assert_array_equal(
+        jax_synthetic.sine_sweep_audio(seed, 3, 1000),
+        port_synthetic.sine_sweep_audio(seed, 3, 1000))
+    np.testing.assert_array_equal(
+        jax_synthetic.moving_blob_frames(seed, 2, 5, 12),
+        port_synthetic.moving_blob_frames(seed, 2, 5, 12))
+
+
+def test_to_flax_round_trip_on_flagship_tree():
+    """from_flax then to_flax gives back every leaf of the flagship fusion
+    model's tree (shapes from jax.eval_shape of its init, values from the
+    seeded recipe), in flax's layout."""
+    cfg = jax_config.RunConfig()
+    t_stft = cfg.hops_per_frame * cfg.num_frames
+    model = JaxFusion(stft_shape=(8, 2, t_stft, cfg.fft_len // 2),
+                      pgram_shape=(8, 1, cfg.num_frames, cfg.p_size ** 2),
+                      latent_channels=cfg.latent_chan, fc_size=cfg.fc_size,
+                      pgenc_kernel="xla")
+    abstract = jax.eval_shape(lambda key: model.init(
+        key, jnp.zeros(model.stft_shape), jnp.zeros(model.pgram_shape),
+        method=model.init_all), jax.random.PRNGKey(0))
+    shapes = {
+        "/".join(str(k.key) for k in path): tuple(leaf.shape)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(
+            {"params": abstract["params"],
+             "batch_stats": abstract["batch_stats"]})[0]}
+    flat = random_flax_tree(shapes, 0)
+    n_params = sum(int(np.prod(s)) for k, s in shapes.items()
+                   if k.startswith("params/"))
+    assert n_params == 36_716_731
+    tree = unflatten_tree(flat)
+    sd = from_flax(tree["params"], tree["batch_stats"])
+    params, stats = to_flax(sd)
+    back = flatten_tree({"params": params, "batch_stats": stats})
+    assert set(back) == set(flat)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+
+
+def test_entry_points_default_to_cuda():
+    for fn in (build_fusion, port_setup.build_fusion_state,
+               port_state.create_train_state, port_steps.make_fusion_step,
+               port_steps.make_fusion_eval):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", \
+            fn.__name__
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            build_fusion(port_config.RunConfig(**SMALL), 2)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["CUDA_VISIBLE_DEVICES"] = ""
+        out = subprocess.run([sys.executable, "tools/train_torch.py", "-s",
+                              "1"], cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode != 0 and "CUDA is not available" in out.stderr
 
 
 def _run_chip_smoke(cwd):

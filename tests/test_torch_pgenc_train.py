@@ -1,0 +1,220 @@
+"""The port's train-mode phasegram-encoder layer (ops/cuda_pgenc.py: the
+plain forward and backward, and the autograd Function around them) and the
+train-mode stacks (KernelConvStack1x9 and ConvStack in `.train()`) against
+the JAX package, on the same numpy inputs:
+
+- `fused_conv_bn_tanh_train` and its custom VJP in interpret mode;
+- flax's ConvStack(train=True) on converted weights: outputs, updated
+  running statistics and gradients.
+
+fp32. Tolerances: 2e-5 absolute on tanh outputs (conv and statistics sums in
+another order); batch statistics and gradients 1e-4 relative to each
+tensor's largest entry (sums over up to R*S/2 terms). The conv bias's
+gradient is exactly 0 from the fused layer (the JAX kernel's too); flax's
+autodiff returns float noise there (a few 1e-6 here), so the stacks'
+conv-bias gradients are held to 1e-4 of the same layer's largest kernel
+gradient instead.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from maavss_tpu.models.layers import ConvStack as JaxConvStack
+from maavss_tpu.models.shape_plan import ConvSpec
+from maavss_tpu.ops.pallas_pgenc import fused_conv_bn_tanh_train
+from maavss_tpu_torch.convert import flatten_tree, from_flax, to_flax
+from maavss_tpu_torch.models.layers import ConvStack, KernelConvStack1x9
+from maavss_tpu_torch.models.shape_plan import ConvSpec as PortConvSpec
+from maavss_tpu_torch.ops.cuda_pgenc import (
+    pgenc_bwd,
+    pgenc_bwd_plain,
+    pgenc_layer_train,
+    pgenc_train,
+    pgenc_train_plain,
+)
+
+ATOL = 2e-5
+GRAD_RTOL = 1e-4
+
+
+def _inputs(c, co, r, s, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((c, r, s)).astype(np.float32)
+    w2 = (rng.standard_normal((co, 9 * c)) / (3 * np.sqrt(c))).astype(
+        np.float32)
+    cbias, beta = (rng.standard_normal(co).astype(np.float32) * 0.1
+                   for _ in range(2))
+    gamma = (1.0 + 0.2 * rng.standard_normal(co)).astype(np.float32)
+    dy = rng.standard_normal((co, r, s // 2)).astype(np.float32)
+    return x, w2, (cbias, gamma, beta), dy
+
+
+def _close(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-12)
+    np.testing.assert_allclose(got, want, atol=GRAD_RTOL * scale, rtol=0,
+                               err_msg=what)
+
+
+def _jax_vjp(x, w2, vecs, dy):
+    (y, mu, var), vjp = jax.vjp(
+        lambda *a: fused_conv_bn_tanh_train("dense", *a),
+        jnp.asarray(x), jnp.asarray(w2), *map(jnp.asarray, vecs))
+    grads = vjp((jnp.asarray(dy), jnp.zeros_like(mu), jnp.zeros_like(var)))
+    return (y, mu, var), grads
+
+
+@pytest.mark.parametrize("c,co,s", [(1, 2, 64), (4, 8, 16), (8, 8, 8)])
+def test_plain_train_layer_matches_pallas_interpret(c, co, s):
+    x, w2, vecs, dy = _inputs(c, co, 6, s)
+    (y_j, mu_j, var_j), grads_j = _jax_vjp(x, w2, vecs, dy)
+    t = [torch.from_numpy(a) for a in (x, w2) + vecs]
+    y, mu, var = pgenc_train_plain(*t)
+    assert y.shape == (co, 6, s // 2)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=ATOL, rtol=0)
+    _close(mu.numpy(), mu_j, "mu")
+    _close(var.numpy(), var_j, "var")
+    grads = pgenc_bwd_plain(*t, mu, var, torch.from_numpy(dy))
+    for name, g, gj in zip(("dx", "dw2", "dcbias", "dgamma", "dbeta"), grads,
+                           grads_j):
+        _close(g.numpy(), gj, name)
+    assert not grads[2].any() and not np.asarray(grads_j[2]).any()
+
+
+@pytest.mark.parametrize("c,co,s", [(1, 2, 64), (4, 8, 16)])
+def test_function_backward_matches_pallas_vjp(c, co, s):
+    """The autograd Function on CPU tensors (its plain bodies): saved
+    tensors, gradient order, mu/var without gradient, dcbias exactly 0."""
+    x, w2, vecs, dy = _inputs(c, co, 6, s, seed=1)
+    (y_j, _, _), grads_j = _jax_vjp(x, w2, vecs, dy)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (x, w2) + vecs]
+    y, mu, var = pgenc_layer_train(*leaves)
+    assert not mu.requires_grad and not var.requires_grad
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_j), atol=ATOL,
+                               rtol=0)
+    y.backward(torch.from_numpy(dy))
+    for name, leaf, gj in zip(("dx", "dw2", "dcbias", "dgamma", "dbeta"),
+                              leaves, grads_j):
+        _close(leaf.grad.numpy(), gj, name)
+    assert torch.count_nonzero(leaves[2].grad) == 0
+
+
+def test_wrappers_take_plain_path_on_cpu():
+    x, w2, vecs, dy = _inputs(2, 4, 5, 16, seed=2)
+    t = [torch.from_numpy(a) for a in (x, w2) + vecs]
+    pgenc_train.launches = pgenc_bwd.launches = 0
+    got = pgenc_train(*t)
+    for a, b in zip(got, pgenc_train_plain(*t)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    g = pgenc_bwd(*t, got[1], got[2], torch.from_numpy(dy))
+    for a, b in zip(g, pgenc_bwd_plain(*t, got[1], got[2],
+                                       torch.from_numpy(dy))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert pgenc_train.launches == 0 and pgenc_bwd.launches == 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pgenc_train(*t, backend="kernel")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pgenc_bwd(*t, got[1], got[2], torch.from_numpy(dy), backend="kernel")
+
+
+def test_odd_width_raises_like_jax():
+    x, w2, vecs, _ = _inputs(2, 2, 3, 9)
+    with pytest.raises(ValueError, match="even lane width"):
+        pgenc_layer_train(*[torch.from_numpy(a) for a in (x, w2) + vecs])
+    with pytest.raises(ValueError, match="even lane width"):
+        fused_conv_bn_tanh_train("dense", jnp.asarray(x), jnp.asarray(w2),
+                                 *map(jnp.asarray, vecs))
+
+
+def _specs(cls):
+    return (cls(1, 2, (1, 9), (1, 2), (0, 4), act="tanh"),
+            cls(2, 4, (1, 9), (1, 2), (0, 4), act="tanh"),
+            cls(4, 8, (1, 9), (1, 2), (0, 4), act="tanh"))
+
+
+@pytest.fixture(scope="module")
+def flax_train():
+    """flax ConvStack(train=True): output, updated batch_stats, and the
+    gradients of sum(out * cot) w.r.t. the params and the input."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 1, 4, 64)).astype(np.float32)
+    cot = rng.standard_normal((2, 8, 4, 8)).astype(np.float32)
+    module = JaxConvStack(_specs(ConvSpec))
+    variables = module.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    # move the running stats and the BN affine off their init
+    _, mut = module.apply(variables, jnp.asarray(x) * 0.5 + 0.1, train=True,
+                          mutable=["batch_stats"])
+    params = jax.tree_util.tree_map(
+        lambda p: p + 0.05 * jnp.asarray(
+            rng.standard_normal(p.shape).astype(np.float32)),
+        variables["params"])
+
+    def loss(params, xin):
+        out, m = module.apply({"params": params,
+                               "batch_stats": mut["batch_stats"]}, xin,
+                              train=True, mutable=["batch_stats"])
+        return jnp.sum(out * cot), (out, m["batch_stats"])
+
+    (_, (out, stats)), (g_params, g_x) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(params, jnp.asarray(x))
+    tree = jax.tree_util.tree_map(np.asarray, {
+        "params": params, "batch_stats": mut["batch_stats"],
+        "out": out, "new_stats": stats, "g_params": g_params})
+    return x, cot, tree, np.asarray(g_x)
+
+
+@pytest.mark.parametrize("cls", [KernelConvStack1x9, ConvStack])
+def test_train_stack_matches_flax(flax_train, cls):
+    x, cot, tree, g_x = flax_train
+    port = cls(_specs(PortConvSpec)).train()
+    port.load_state_dict(from_flax(tree["params"], tree["batch_stats"]),
+                         strict=True)
+    xin = torch.from_numpy(x).requires_grad_(True)
+    out = port(xin)
+    np.testing.assert_allclose(out.detach().numpy(), tree["out"], atol=ATOL,
+                               rtol=0)
+    (out * torch.from_numpy(cot)).sum().backward()
+    _close(xin.grad.numpy(), g_x, "dx")
+    grads = {n: p.grad for n, p in port.named_parameters()}
+    g_params, _ = to_flax(grads)
+    g_flat, want = flatten_tree(g_params), flatten_tree(tree["g_params"])
+    assert set(g_flat) == set(want)
+    for path, w in want.items():
+        if path.endswith("/bias") and path.startswith("Conv_"):
+            # true gradient 0: the fused layer gives 0, autodiff noise
+            scale = np.abs(want[path.replace("/bias", "/kernel")]).max()
+            np.testing.assert_allclose(g_flat[path], w,
+                                       atol=GRAD_RTOL * scale, rtol=0,
+                                       err_msg=path)
+            if cls is KernelConvStack1x9:
+                assert not g_flat[path].any()
+            continue
+        _close(g_flat[path], w, path)
+    _, stats = to_flax(port.state_dict())
+    got_stats, want_stats = flatten_tree(stats), flatten_tree(
+        tree["new_stats"])
+    for path, w in want_stats.items():
+        _close(got_stats[path], w, path)
+
+
+@pytest.mark.cuda
+def test_train_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs this comparison on the card")
+    x, w2, vecs, dy = _inputs(4, 8, 64, 256)
+    t = [torch.from_numpy(a).cuda() for a in (x, w2) + vecs]
+    y, mu, var = pgenc_train(*t, backend="kernel")
+    for a, b in zip((y, mu, var), pgenc_train_plain(*t)):
+        torch.testing.assert_close(a, b, atol=ATOL, rtol=1e-4)
+    d = torch.from_numpy(dy).cuda()
+    got = pgenc_bwd(*t, mu, var, d, backend="kernel")
+    want = pgenc_bwd_plain(*t, mu, var, d)
+    assert torch.count_nonzero(got[2]) == 0
+    for a, b in zip(got, want):
+        _close(a.cpu().numpy(), b.cpu().numpy(), "grad")
