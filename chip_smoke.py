@@ -35,6 +35,21 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    step times, clips/s, one vectorized step and a torch.profiler breakdown.
 11. train_golden: the small-geometry JAX train trajectory of
    tests/fixtures/torch_port_train_golden.npz, run through the kernels.
+12. k5_epilogue (K5, the frames encoder's fused BN + 2x2 max pool +
+   LeakyReLU: stats, apply, bwd reduce, bwd dy): each kernel against its
+   plain version at the flagship's stage-0 and stage-1 shapes, with a third
+   of gamma negative, and again on a tensor of exact ties; PyTorch's unfused
+   tail (F.batch_norm, F.max_pool3d, F.leaky_relu under autograd) timed
+   beside.
+13. frames_train: the full-width frames train step (framesize 256, batch 8,
+   4 windows, mode 2) with every kernel, against the plain versions from
+   one state_dict: per-step losses, parameters after step 1, exact launch
+   counts per step; step times, clips/s and a torch.profiler breakdown.
+14. frames_slice: the full-width frames model behind the HTTP server, 6
+   requests of uint8 frames checked against the plain separator.
+15. frames_golden: the small-geometry JAX frames fixture of
+   tests/fixtures/torch_port_frames_golden.npz (separator audio and 3
+   train steps with K5 at stages 0 and 1), run through the kernels.
 
 The line before the last two is one JSON object with each kernel's
 launches, error, times and bound; then the nvidia-smi line; the last line
@@ -44,6 +59,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -54,6 +70,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "fixtures", "torch_port_golden.npz")
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
                             "torch_port_train_golden.npz")
+FRAMES_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
+                             "torch_port_frames_golden.npz")
 # published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # fp32 FLOP/s outside the tensor cores (every kernel here is fp32 math)
 HBM_BYTES_PER_S = 3.35e12
@@ -267,10 +285,11 @@ def pgenc_phase():
     return totals
 
 
-def profile_phase(label: str, fn, calls: int = 3):
+def profile_phase(label: str, fn, calls: int = 3, watch=()):
     """Where `calls` calls of `fn` spend their time: torch.profiler's CUDA
     kernel events summed by kernel name, against the host-clock wall time
-    of the same window (the device's idle share)."""
+    of the same window (the device's idle share). The 14 largest kernels
+    are listed, and every kernel whose name contains a `watch` string."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -286,7 +305,8 @@ def profile_phase(label: str, fn, calls: int = 3):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:14]
+    top = sorted(kernels, key=lambda e: -e.device_time_total)
+    top = top[:14] + [e for e in top[14:] if any(w in e.key for w in watch)]
     phase(label, calls=calls, wall_ms=wall_ms, device_busy_ms=busy_ms,
           idle_share=(1.0 - busy_ms / wall_ms) if busy_ms else None,
           kernel_launches=sum(e.count for e in kernels),
@@ -911,6 +931,541 @@ def train_golden_phase():
           left_out=len(meta["bn_fed"]), tol=tol)
 
 
+def _rel_check(what, got, want, tol):
+    """Raise unless the relative L2 error of `got` against `want` is at
+    most `tol`; return the max abs error."""
+    import torch
+
+    d = (got.double() - want.double())
+    rel = (torch.linalg.vector_norm(d)
+           / torch.linalg.vector_norm(want.double()).clamp(min=1e-30)).item()
+    if rel > tol:
+        raise SystemExit(f"{what}: relative L2 error {rel} > {tol}")
+    return d.abs().max().item()
+
+
+def _k5_inputs(shape, g, ties):
+    import torch
+
+    b, c, t, h, w = shape
+    y = torch.randn(shape, device="cuda", generator=g) * 0.7
+    if ties:  # a coarse grid: ~1/3 of the windows hold their max twice
+        y = torch.round(y * 2.0) / 2.0
+    gamma = 0.8 * torch.randn(c, device="cuda", generator=g)
+    gamma[: c // 3] = -gamma[: c // 3].abs() - 0.1
+    beta = 0.3 * torch.randn(c, device="cuda", generator=g)
+    g_out = torch.randn((b, c, t, h // 2, w // 2), device="cuda", generator=g)
+    g_mu, g_var = (torch.randn(c, device="cuda", generator=g)
+                   for _ in range(2))
+    return y, gamma, beta, g_out, g_mu, g_var
+
+
+K5_SHAPES = ((8, 16, 8, 256, 256), (8, 32, 8, 128, 128))
+
+
+def k5_phase():
+    """K5's four kernels against their plain versions at the flagship
+    frames encoder's stage-0 and stage-1 conv outputs (batch 8, 8 frames,
+    K5_SHAPES), each on gaussian y and on a tensor of exact ties (y rounded
+    to 0.5: about a third of the windows tie at their max, and the
+    first-match routing decides dy there), a
+    third of gamma negative, nonzero cotangents on mu and var. Each kernel
+    and its plain version get the same inputs (the kernels' own upstream
+    results). Tolerances: mu, var, rstd and out relative L2 1e-5 (fp32 sums
+    in another order); sel bitwise; dgamma, dbeta and the dy constants k
+    relative L2 1e-4 (sums over 1/4 of the elements); dy within 1e-4 of its
+    largest entry + 1e-4 relative. Times (gaussian case) are median of 5 x
+    20 calls; the unfused PyTorch tail and the fused autograd Function are
+    timed forward + backward beside."""
+    import torch
+    import torch.nn.functional as F
+
+    from maavss_tpu_torch.ops.cuda_epilogue import (
+        epilogue_apply,
+        epilogue_apply_plain,
+        epilogue_bwd_dy,
+        epilogue_bwd_dy_plain,
+        epilogue_bwd_reduce,
+        epilogue_bwd_reduce_plain,
+        epilogue_stats,
+        epilogue_stats_plain,
+        fused_bn_pool_leaky,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    names = ("stats", "apply", "bwd_reduce", "bwd_dy")
+    rep = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0)
+           for n in names}
+    tails = []
+    for stage, shape in enumerate(K5_SHAPES):
+        for ties in (False, True):
+            y, gamma, beta, g_out, g_mu, g_var = _k5_inputs(shape, g, ties)
+            where = f"stage {stage} {'ties' if ties else 'gaussian'}"
+            mu, var, rstd = epilogue_stats(y)
+            stats_p = epilogue_stats_plain(y)
+            out, sel = epilogue_apply(y, gamma, beta, mu, rstd)
+            out_p, sel_p = epilogue_apply_plain(y, gamma, beta, mu, rstd)
+            red = epilogue_bwd_reduce(g_out, sel, gamma, beta, mu, rstd,
+                                      g_mu, g_var)
+            red_p = epilogue_bwd_reduce_plain(g_out, sel, gamma, beta, mu,
+                                              rstd, g_mu, g_var)
+            dy = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd,
+                                 red[2])
+            dy_p = epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu,
+                                         rstd, red[2])
+            torch.cuda.synchronize()
+            if not torch.equal(sel, sel_p):
+                raise SystemExit(f"K5 apply sel differs at {where}")
+            errs = {
+                "stats": max(_rel_check(f"K5 stats {n} {where}", a, b, 1e-5)
+                             for n, a, b in zip(("mu", "var", "rstd"),
+                                                (mu, var, rstd), stats_p)),
+                "apply": _rel_check(f"K5 apply out {where}", out, out_p,
+                                    1e-5),
+                "bwd_reduce": max(_rel_check(f"K5 bwd reduce {n} {where}",
+                                             a, b, 1e-4)
+                                  for n, a, b in zip(("dgamma", "dbeta", "k"),
+                                                     red, red_p)),
+                "bwd_dy": check_close(f"K5 dy {where}", dy, dy_p, 1e-4, 1e-4,
+                                      scale_atol=True),
+            }
+            y4 = y.view(shape[:3] + (shape[3] // 2, 2, shape[4] // 2, 2))
+            m = y4.amax(dim=(4, 6), keepdim=True)
+            tied = ((y4 == m).sum(dim=(4, 6)) > 1).float().mean().item()
+            for n in names:
+                rep[n]["err"] = max(rep[n]["err"], errs[n])
+            phase("k5_check", stage=stage, shape=list(shape), ties=ties,
+                  tied_window_share=tied, **{f"max_abs_err_{n}": errs[n]
+                                             for n in names})
+            if ties:
+                continue
+            calls = {
+                "stats": (lambda: epilogue_stats(y),
+                          lambda: epilogue_stats_plain(y)),
+                "apply": (lambda: epilogue_apply(y, gamma, beta, mu, rstd),
+                          lambda: epilogue_apply_plain(y, gamma, beta, mu,
+                                                       rstd)),
+                "bwd_reduce": (
+                    lambda: epilogue_bwd_reduce(g_out, sel, gamma, beta, mu,
+                                                rstd, g_mu, g_var),
+                    lambda: epilogue_bwd_reduce_plain(g_out, sel, gamma, beta,
+                                                      mu, rstd, g_mu, g_var)),
+                "bwd_dy": (
+                    lambda: epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu,
+                                            rstd, red[2]),
+                    lambda: epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta,
+                                                  mu, rstd, red[2])),
+            }
+            n_el, c = y.numel(), shape[1]
+            moved = {"stats": nbytes(y, mu, var, rstd),
+                     "apply": nbytes(y, out, sel) + 4 * 4 * c,
+                     "bwd_reduce": nbytes(g_out, sel) + 12 * 4 * c,
+                     "bwd_dy": nbytes(y, g_out, sel, dy) + 8 * 4 * c}
+            ops = {"stats": 3 * n_el, "apply": 9 * n_el // 4,
+                   "bwd_reduce": 8 * n_el // 4, "bwd_dy": 10 * n_el}
+            times = {}
+            for n in names:
+                times[n] = (cuda_ms(calls[n][0]), cuda_ms(calls[n][1]))
+                rep[n]["ms"] += times[n][0]
+                rep[n]["plain_ms"] += times[n][1]
+                rep[n]["bytes"] += moved[n]
+                rep[n]["flops"] += ops[n]
+            leaves = [t.clone().requires_grad_(True) for t in (y, gamma, beta)]
+
+            def unfused():
+                for t in leaves:
+                    t.grad = None
+                z = F.batch_norm(leaves[0], None, None, leaves[1], leaves[2],
+                                 training=True, eps=1e-5)
+                o = F.leaky_relu(F.max_pool3d(z, (1, 2, 2)), 0.01)
+                o.backward(g_out)
+
+            def fused():
+                for t in leaves:
+                    t.grad = None
+                o, _, _ = fused_bn_pool_leaky(*leaves)
+                o.backward(g_out)
+
+            tail_ms, fused_ms = cuda_ms(unfused), cuda_ms(fused)
+            tails.append((tail_ms, fused_ms))
+            phase("k5_time", stage=stage, shape=list(shape),
+                  **{f"{n}_ms": times[n][0] for n in names},
+                  **{f"{n}_plain_ms": times[n][1] for n in names},
+                  **{f"{n}_bound_ms": bound_ms(moved[n], ops[n])[0]
+                     for n in names},
+                  fused_fwd_bwd_ms=fused_ms, unfused_torch_fwd_bwd_ms=tail_ms)
+    for n in names:
+        rep[n]["bound"] = bound_ms(rep[n]["bytes"], rep[n]["flops"])
+        rep[n]["library_ms"] = None
+    phase("k5_epilogue", shapes=[list(s) for s in K5_SHAPES],
+          **{n: {k: v for k, v in r.items() if k not in ("bytes", "flops")}
+             for n, r in rep.items()},
+          fused_fwd_bwd_ms=sum(f for _, f in tails),
+          unfused_torch_fwd_bwd_ms=sum(t for t, _ in tails))
+    return rep
+
+
+def _epilogue_counters():
+    from maavss_tpu_torch.ops import cuda_epilogue as ep
+
+    return (ep.epilogue_stats, ep.epilogue_apply, ep.epilogue_bwd_reduce,
+            ep.epilogue_bwd_dy)
+
+
+def _unfused(fn):
+    """`fn` run with every frames stage on the unfused tail (no stage is
+    large enough for the fused epilogue): TorchBatchNorm, F.max_pool3d and
+    F.leaky_relu under autograd, the PyTorch model without K5."""
+    def run(*args):
+        old = os.environ.get("MAAVSS_S2D_MIN_HW")
+        os.environ["MAAVSS_S2D_MIN_HW"] = str(1 << 30)
+        try:
+            return fn(*args)
+        finally:
+            if old is None:
+                os.environ.pop("MAAVSS_S2D_MIN_HW")
+            else:
+                os.environ["MAAVSS_S2D_MIN_HW"] = old
+    return run
+
+
+def _plain_k5(fn):
+    """`fn` run with the fused stages on K5's plain versions (forward and
+    explicit backward) in place of its kernels."""
+    from maavss_tpu_torch.models import layers
+    from maavss_tpu_torch.ops.cuda_epilogue import fused_bn_pool_leaky_plain
+
+    def run(*args):
+        kernels = layers.fused_bn_pool_leaky
+        layers.fused_bn_pool_leaky = fused_bn_pool_leaky_plain
+        try:
+            return fn(*args)
+        finally:
+            layers.fused_bn_pool_leaky = kernels
+    return run
+
+
+def _frames_params_close(model, ref, tol: float, enc_tol: float):
+    """Every state_dict leaf of `model` against `ref` after one step:
+    relative L2 <= tol, the visual encoder's <= enc_tol. Those are
+    ill-conditioned at full width: the frames are flat over most of their
+    area, so each conv weight gradient after a train-mode BN is a near-total
+    cancellation, and a 4e-7 relative change of one stage's batch variance
+    (fp32 sums in another order) moves Conv_0's gradient by ~2e-3 relative,
+    while the plain versions fed the kernels' statistics agree with the
+    kernels to ~1e-6 (tools/frames_grad_probe.py measures both). enc_tol is
+    the JAX package's own tolerance between its fused epilogue and XLA's
+    unfused tail on the encoder's gradients
+    (tests/test_pallas_epilogue.py:176-178). Returns the worst relative L2
+    (encoder, rest)."""
+    import torch
+
+    sd, sd_ref = model.state_dict(), ref.state_dict()
+    worst = [0.0, 0.0]
+    for k, v in sd.items():
+        a, b = v.float(), sd_ref[k].float()
+        enc = k.startswith("visual_encoder.")
+        rel = (torch.linalg.vector_norm(a - b)
+               / torch.linalg.vector_norm(b).clamp(min=1e-12)).item()
+        worst[1 - enc] = max(worst[1 - enc], rel)
+        if rel > (enc_tol if enc else tol):
+            raise SystemExit(f"frames train: {k} rel L2 {rel} after step 1")
+    return worst
+
+
+def frames_train_phase(steps: int = 3):
+    """The full-width frames train step (framesize 256, batch 8, 4 windows
+    of 8 frames, mode 2, noise_scalar 0, lr 1e-3): every kernel on its path
+    (K5 at stages 0 and 1 of each window, K1-fwd, K1-bwd, K3), against the
+    plain versions from one state_dict (K5's plain forward and explicit
+    backward, the LSTM scan, the plain Adam formula): per-step losses at
+    relative 1e-4, the leaves after step 1 as `_frames_params_close`, launch
+    counts exactly, per step. Timed in turns: kernels, the PyTorch model
+    without K5 (the unfused tail, every other kernel on), plain versions."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.ops.cuda_adam import adam_multi_tensor
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        lstm_recurrence,
+        lstm_recurrence_bwd,
+    )
+    from maavss_tpu_torch.ops.cuda_pgenc import (
+        pgenc_bwd,
+        pgenc_layer,
+        pgenc_train,
+    )
+    from maavss_tpu_torch.train.setup import (
+        build_frames_model,
+        build_frames_state,
+    )
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_frames_step
+
+    os.environ.pop("MAAVSS_S2D_MIN_HW", None)  # the default, 128
+    batch_size, lr, tol, enc_tol = 8, 1e-3, 1e-4, 2e-3
+    cfg = RunConfig(batch_size=batch_size, noise_scalar=0.0, learning_rate=lr)
+    t0 = time.perf_counter()
+    model, state = build_frames_state(
+        cfg, batch_size, generator=torch.Generator().manual_seed(cfg.seed))
+    if state.tx.kernel != "pallas":
+        raise SystemExit("the auto optimizer gate did not take K3 on CUDA")
+    plain_cfg = cfg.replace(opt_kernel="xla")
+    ref = build_frames_model(plain_cfg, batch_size, generator=torch.Generator()
+                             .manual_seed(cfg.seed + 1))
+    ref.load_state_dict(model.state_dict())
+    ref.lstm.backend = "scan"
+    ref_state = create_train_state(ref, plain_cfg, "cuda")
+    build_s = time.perf_counter() - t0
+    step = make_frames_step(model, cfg)
+    ref_step = _plain_k5(make_frames_step(ref, plain_cfg))
+    ns = cfg.num_seq
+    names = ("lstm_fwd", "lstm_bwd", "adam", "epilogue_stats",
+             "epilogue_apply", "epilogue_bwd_reduce", "epilogue_bwd_dy",
+             "pgenc_eval", "pgenc_train", "pgenc_bwd")
+    counters = (lstm_recurrence, lstm_recurrence_bwd, adam_multi_tensor,
+                *_epilogue_counters(), pgenc_layer, pgenc_train, pgenc_bwd)
+    # stages 0 and 1 (inputs 256^2 and 128^2) take K5 in every window
+    want = dict(zip(names, (ns, ns, 1) + (2 * ns,) * 4 + (0, 0, 0)))
+    batches = [synthetic_av_batch(cfg, batch_size, seed=cfg.seed + i,
+                                  frame_size=cfg.framesize)
+               for i in range(steps)]
+
+    def run(fn, st, batch):
+        for c in counters:
+            c.launches = 0
+        st, metrics = fn(st, batch, 2)
+        torch.cuda.synchronize()
+        return st, metrics, dict(zip(names, (c.launches for c in counters)))
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, ref_losses, worst = [], [], None
+    for i, batch in enumerate(batches):
+        state, m, launches = run(step, state, batch)
+        if launches != want:
+            raise SystemExit(f"frames train step {i + 1}: launches "
+                             f"{launches} != {want}")
+        ref_state, rm, ref_launches = run(ref_step, ref_state, batch)
+        if any(ref_launches.values()):
+            raise SystemExit(f"the plain frames step launched kernels: "
+                             f"{ref_launches}")
+        losses.append(float(m["loss"]))
+        ref_losses.append(float(rm["loss"]))
+        if i == 0:
+            worst = _frames_params_close(model, ref, tol, enc_tol)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    if max(rel) > tol or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"frames train losses {losses} vs plain "
+                         f"{ref_losses}: rel {rel} > {tol}")
+
+    def step_ms(fn, st):
+        """Median over 3 rounds of the mean of 2 back-to-back steps, from
+        CUDA events."""
+        return cuda_ms(lambda: fn(st, batches[0], 2), reps=3, iters=2)
+
+    unfused_step = _unfused(step)
+    times = {"kernels": [], "unfused_tail": [], "plain": []}
+    for _ in range(2):  # in turns: kernels, unfused tail, plain, twice
+        times["kernels"].append(step_ms(step, state))
+        times["unfused_tail"].append(step_ms(unfused_step, state))
+        times["plain"].append(step_ms(ref_step, ref_state))
+    clips = {k: batch_size / (min(v) / 1e3) for k, v in times.items()}
+    phase("frames_train", batch=batch_size, framesize=cfg.framesize,
+          windows=ns, mode=2, lr=lr, steps=steps,
+          params=sum(p.numel() for p in model.parameters()),
+          leaves=len(list(model.parameters())), build_s=round(build_s, 3),
+          losses=losses, plain_losses=ref_losses, loss_rel_diff=max(rel),
+          tol=tol, encoder_tol=enc_tol, step1_worst_rel_l2_encoder=worst[0],
+          step1_worst_rel_l2_rest=worst[1], launches_per_step=want,
+          step_ms=times["kernels"], unfused_tail_step_ms=times["unfused_tail"],
+          plain_step_ms=times["plain"], clips_per_s=clips["kernels"],
+          unfused_tail_clips_per_s=clips["unfused_tail"],
+          plain_clips_per_s=clips["plain"],
+          peak_mem_gib_both_models=peak_gb)
+    k5_names = ("partials_kernel", "combine_kernel", "apply_kernel",
+                "dy_kernel")
+    profile_phase("frames_train_profile",
+                  lambda: step(state, batches[0], 2), calls=1, watch=k5_names)
+    profile_phase("frames_unfused_profile",
+                  lambda: unfused_step(state, batches[0], 2), calls=1)
+    return want
+
+
+def frames_slice_phase():
+    """The full-width frames model (seeded random weights, eval mode)
+    behind the HTTP server: 6 requests of 1..8 rows of uint8 frames at
+    256^2, checked against the plain separator (the LSTM scan) at relative
+    L2 1e-4. Eval mode runs K1-fwd and no K5."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.exp.export import (
+        make_serving_fn,
+        random_serving_inputs,
+        serving_input_specs,
+    )
+    from maavss_tpu_torch.exp.serving import (
+        BatchingExecutor,
+        SeparationClient,
+        SeparationServer,
+    )
+    from maavss_tpu_torch.ops.cuda_lstm import lstm_recurrence
+    from maavss_tpu_torch.train.setup import build_frames_model
+
+    batch, tol = 8, 1e-4
+    cfg = RunConfig(batch_size=batch)
+    model = build_frames_model(cfg, batch, generator=torch.Generator()
+                               .manual_seed(cfg.seed))
+    ref = build_frames_model(cfg, batch, generator=torch.Generator()
+                             .manual_seed(cfg.seed + 1))
+    ref.load_state_dict(model.state_dict())
+    ref.lstm.backend = "scan"
+    serve = make_serving_fn(model, cfg, frames_model=True)
+    serve_ref = make_serving_fn(ref, cfg, frames_model=True)
+    a_spec, v_spec = serving_input_specs(cfg, batch, frames_model=True)
+    rows_list = [1, 8, 3, 5, 2, 7]
+    requests = [random_serving_inputs(cfg, rows, frames_model=True,
+                                      seed=200 + i)
+                for i, rows in enumerate(rows_list)]
+    dev = [torch.from_numpy(x).cuda()
+           for x in random_serving_inputs(cfg, batch, frames_model=True)]
+    serve(*dev)
+    torch.cuda.synchronize()
+    direct_ms = cuda_ms(lambda: serve(*dev), reps=3, iters=3)
+    direct_plain_ms = cuda_ms(lambda: serve_ref(*dev), reps=3, iters=3)
+    executor = BatchingExecutor(serve, batch, a_spec, v_spec, "cuda",
+                                max_wait_ms=5.0)
+    server = SeparationServer(executor, {"model": "frames", "batch": batch},
+                              host="127.0.0.1", port=0).start()
+    host, port = server.address
+    client = SeparationClient(f"http://{host}:{port}")
+    counters = (lstm_recurrence,) + _epilogue_counters()
+    for c in counters:
+        c.launches = 0
+    responses, lat_ms = [], []
+    try:
+        for audio, frames in requests:
+            t = time.perf_counter()
+            responses.append(client.separate(audio, frames))
+            lat_ms.append((time.perf_counter() - t) * 1e3)
+        launches = [c.launches for c in counters]
+        stats = client.get_json("/stats")
+    finally:
+        client.close()
+        server.stop()
+    batches = stats["batches"]
+    if launches != [batches * cfg.num_seq, 0, 0, 0, 0] or batches < 1:
+        raise SystemExit(f"frames serving launches {launches} for "
+                         f"{batches} batches of {cfg.num_seq} windows")
+    worst = 0.0
+    for (audio, frames), out in zip(requests, responses):
+        rows = audio.shape[0]
+        if out.shape != audio.shape or not np.all(np.isfinite(out)):
+            raise SystemExit(f"bad frames response {out.shape}")
+        pad_a = np.zeros(a_spec.shape, a_spec.dtype)
+        pad_v = np.zeros(v_spec.shape, v_spec.dtype)
+        pad_a[:rows], pad_v[:rows] = audio, frames
+        exp = serve_ref(torch.from_numpy(pad_a).cuda(),
+                        torch.from_numpy(pad_v).cuda())[:rows].cpu().numpy()
+        worst = max(worst, _rel_l2(out, exp))
+    if worst > tol:
+        raise SystemExit(f"frames served audio vs plain separator rel L2 "
+                         f"{worst} > {tol}")
+    lat = sorted(lat_ms)
+    phase("frames_slice", requests=len(requests), rows=rows_list,
+          batches=batches, rel_l2_vs_plain=worst, tol=tol,
+          p50_ms=statistics.median(lat),
+          p90_ms=lat[min(len(lat) - 1, int(0.9 * len(lat)))],
+          direct_batch8_ms=direct_ms, direct_batch8_plain_ms=direct_plain_ms,
+          lstm_launches=launches[0])
+
+
+def frames_golden_phase():
+    """The small-geometry JAX frames fixture through the kernels, with
+    MAAVSS_S2D_MIN_HW as the fixture was made (stages 0 and 1 on K5): the
+    separator's audio at relative L2 1e-4, 3 train steps' losses at relative
+    1e-4, the final leaf sums within 1e-4 of each leaf's absolute sum."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.convert import (
+        flatten_tree,
+        from_flax,
+        random_flax_tree,
+        to_flax,
+        unflatten_tree,
+    )
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.ops.cuda_epilogue import epilogue_bwd_dy
+    from maavss_tpu_torch.ops.cuda_lstm import lstm_recurrence
+    from maavss_tpu_torch.train.infer import make_frames_separator
+    from maavss_tpu_torch.train.setup import build_frames_state
+    from maavss_tpu_torch.train.steps import make_frames_step
+
+    tol = 1e-4
+    with np.load(FRAMES_GOLDEN) as z:
+        meta = json.loads(str(z["meta"]))
+        want_audio = z["audio_out"]
+    flat = random_flax_tree({k: tuple(v) for k, v in meta["shapes"].items()},
+                            meta["seed"])
+    for path, total in meta["checksums"].items():
+        if not np.isclose(float(flat[path].astype(np.float64).sum()), total,
+                          rtol=1e-6, atol=1e-6):
+            raise SystemExit(f"frames golden weights do not regenerate: "
+                             f"{path}")
+    tree = unflatten_tree(flat)
+    cfg = RunConfig(**meta["cfg"])
+    os.environ["MAAVSS_S2D_MIN_HW"] = str(meta["s2d_min_hw"])
+    try:
+        model, state = build_frames_state(cfg, cfg.batch_size,
+                                          latent_channels=meta["latent"])
+        model.load_state_dict(from_flax(tree["params"],
+                                        tree["batch_stats"]))
+        batch = synthetic_av_batch(cfg, cfg.batch_size,
+                                   seed=meta["batch_seed"],
+                                   frame_size=cfg.framesize)
+        noise = np.random.default_rng(meta["frames_noise_seed"])
+        noise = noise.standard_normal(batch["frames"].shape)
+        batch["frames"] = np.clip(batch["frames"] + meta["frames_noise"]
+                                  * noise.astype(np.float32), 0.0, 1.0)
+        dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        before = (lstm_recurrence.launches, epilogue_bwd_dy.launches)
+        audio = make_frames_separator(model, cfg)(dev)["audio_out"]
+        audio = audio.cpu().numpy()
+        err = _rel_l2(audio, want_audio)
+        if audio.shape != want_audio.shape or err > tol:
+            raise SystemExit(f"frames golden audio rel L2 {err} > {tol}")
+        step = make_frames_step(model, cfg)
+        losses = []
+        for _ in meta["losses"]:
+            state, m = step(state, dev, meta["mode"])
+            losses.append(float(m["loss"]))
+    finally:
+        os.environ.pop("MAAVSS_S2D_MIN_HW")
+    after = (lstm_recurrence.launches, epilogue_bwd_dy.launches)
+    if not all(a > b for a, b in zip(after, before)):
+        raise SystemExit("the frames golden run did not go through K1 and K5")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, meta["losses"]))
+    if rel > tol:
+        raise SystemExit(f"frames golden losses {losses} vs JAX "
+                         f"{meta['losses']}: rel {rel} > {tol}")
+    params, stats = to_flax(model.state_dict())
+    got = flatten_tree({"params": params, "batch_stats": stats})
+    worst = 0.0
+    for path, (total, abs_total) in meta["sums"].items():
+        d = abs(float(got[path].astype(np.float64).sum()) - total)
+        worst = max(worst, d / max(abs_total, 1e-12))
+        if d > tol * abs_total + 1e-7:
+            raise SystemExit(f"frames golden leaf {path}: sum off by {d}")
+    phase("frames_golden", cfg=meta["cfg"], audio_rel_l2_vs_jax=err,
+          losses=losses, jax_losses=meta["losses"], loss_rel_diff=rel,
+          worst_leaf_sum_rel=worst, leaves=len(meta["sums"]), tol=tol)
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -930,6 +1485,10 @@ def main() -> None:
     golden_phase()
     train = train_phase()
     train_golden_phase()
+    k5 = k5_phase()
+    frames = frames_train_phase()
+    frames_slice_phase()
+    frames_golden_phase()
     if any(m in sys.modules for m in ("jax", "flax", "maavss_tpu")):
         raise SystemExit("the port loaded jax or maavss_tpu")
     import torch
@@ -957,6 +1516,11 @@ def main() -> None:
                           library_ms=None)),
         kernel_entry("adam", "adam.cu", "maavss_tpu/ops/pallas_adam.py:49",
                      train["adam"], k3),
+        *(kernel_entry(f"epilogue_{n}", "epilogue.cu",
+                       f"maavss_tpu/ops/pallas_epilogue.py:{line}",
+                       frames[f"epilogue_{n}"], k5[n])
+          for n, line in (("stats", 141), ("apply", 159),
+                          ("bwd_reduce", 183), ("bwd_dy", 206))),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ Works on numpy trees only, so a process without jax can load weights that a
 JAX process saved with `save_npz`. Mapping (generalised from
 benchmarks/torch_baseline.py:89-148), path component by component:
 
-- `Conv_i/kernel` [kh,kw,in,out] -> `Conv_i.weight` [out,in,kh,kw]
+- `Conv_i/kernel` [kh,kw,in,out] -> `Conv_i.weight` [out,in,kh,kw]; a
+  conv3d kernel [kd,kh,kw,in,out] -> [out,in,kd,kh,kw] (the frames model's
+  visual encoder)
 - `ConvTranspose_i/kernel` [kh,kw,in,out] -> spatially flipped,
   `ConvTranspose_i.weight` [in,out,kh,kw] (flax's ConvTranspose is a conv of
   the dilated input with the unflipped kernel)
@@ -82,7 +84,9 @@ def _param_leaf(parts, value: np.ndarray) -> Tuple[str, np.ndarray]:
         if parent.startswith("ConvTranspose_"):
             return "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
         if parent.startswith("Conv_"):
-            return "weight", value.transpose(3, 2, 0, 1)
+            spatial = tuple(range(value.ndim - 2))
+            return "weight", value.transpose(
+                (value.ndim - 1, value.ndim - 2) + spatial)
         if value.ndim == 2:  # Dense
             return "weight", value.T
         raise ValueError(f"unmapped kernel {'/'.join(parts)} {value.shape}")
@@ -123,7 +127,8 @@ def _flax_leaf(parts, value: np.ndarray) -> Tuple[str, np.ndarray]:
         if parent.startswith("ConvTranspose_"):
             return "kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
         if parent.startswith("Conv_"):
-            return "kernel", value.transpose(2, 3, 1, 0)
+            spatial = tuple(range(2, value.ndim))
+            return "kernel", value.transpose(spatial + (1, 0))
         if parent == "BatchNorm_0":
             return "scale", value
         if value.ndim == 2:  # Dense

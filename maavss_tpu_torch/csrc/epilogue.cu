@@ -1,0 +1,396 @@
+// Fused train-mode BatchNorm + 2x2 max pool + LeakyReLU(0.01): the tail of
+// an eligible conv3d stage of the frames model's visual encoder, forward and
+// backward, in four kernels (plus two one-block-per-channel combines).
+//
+// Replaces the TPU kernels of maavss_tpu/ops/pallas_epilogue.py:
+//   stats      _stats_kernel       (the pl.pallas_call in _stats)
+//   apply      _apply_kernel       (the one in _apply)
+//   bwd reduce _bwd_reduce_kernel  (the first one in _fused_bwd)
+//   bwd dy     _bwd_dy_kernel      (the second one in _fused_bwd)
+// Same contract, on PyTorch's layout: y [B, C, T, H, W] fp32 (the conv3d
+// output as cuDNN writes it, NCDHW, H and W even), gamma, beta [C] fp32.
+//   stats:   mu = sum(y)/N, var = sum(y^2)/N - mu^2 (biased, not clamped),
+//            rstd = rsqrt(var + 1e-5) per channel, N = B*T*H*W
+//   apply:   per 2x2 window, sel = max of the 4 raw values if gamma > 0,
+//            else their min (the BN map is monotone in y with the sign of
+//            gamma, and LeakyReLU is increasing, so pooling the raw values
+//            selects the same element as pooling the activations);
+//            out = leaky(gamma * (sel - mu) * rstd + beta)
+//            -> out, sel [B, C, T, H/2, W/2]
+//   bwd reduce (g = d out, g_mu, g_var the cotangents of mu and var):
+//            xhat = (sel - mu) * rstd, o = gamma * xhat + beta,
+//            dsel = g * (o >= 0 ? 1 : 0.01)
+//            S1 = sum(dsel), S2 = sum(dsel * xhat) over the pooled domain;
+//            dbeta = S1, dgamma = S2, and the per-channel constants
+//            k = [gamma*S1/N, gamma*S2/N, g_mu/N - 2*g_var*mu/N, 2*g_var/N]
+//   bwd dy:  dxhat = dsel * gamma at the window's selected element, 0 at
+//            the other three; ties go to the first match in phase order
+//            ph = 2*py + px, compared in fp32 (the TPU kernel's eq & ~prefix)
+//            dy = rstd * (dxhat - k0 - xhat * k1) + k2 + y * k3
+// The arithmetic follows the TPU kernels' order of operations.
+//
+// Design. The TPU kernels read a space-to-depth folded conv output ([N, 4C]
+// rows, the 4 phases of a window in 4 lane groups) and carry the channel
+// sums across sequential grid steps in VMEM scratch. Here:
+//   - y is read in its native NCDHW layout: a pooled row reads two adjacent
+//     input rows, one float2 from each, so a warp reads 256 contiguous bytes
+//     of each row; there is no relayout.
+//   - Blocks run in parallel and in no order, so each channel sum is a
+//     fixed partition of the channel's values over `nblk` blocks writing
+//     fp32 partials, then one block per channel combining them in a fixed
+//     order. No atomics: every run gives the same bits.
+//   - The channel's values are B contiguous segments of L = T*H*W floats
+//     ((b*C + c)*L); a block walks its share segment by segment, 16-byte
+//     loads where L is a multiple of 4 (always, for y).
+//   - apply and dy run one thread per window, the channel from the index.
+//
+// What bounds it on Hopper: bytes. Every pass is a stream over the conv
+// output or its pooled quarter with a few FLOPs per element: stats reads y
+// (4 B per element of y), apply reads y and writes out and sel (6 B), bwd
+// reduce reads g and sel (2 B), dy reads y, g, sel and writes dy (10 B):
+// 22 B per element of y, 2.2 GB per window at the frames flagship's stages
+// 0 and 1, 0.66 ms at 3.35 TB/s.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr float kSlope = 0.01f;
+constexpr float kEps = 1e-5f;
+
+// Block-wide sum of two values in a fixed order; every thread gets the sums.
+__device__ void block_sum2(float& a, float& b, float* red) {
+  const int tid = threadIdx.x;
+  red[tid] = a;
+  red[blockDim.x + tid] = b;
+  __syncthreads();
+  for (int half = blockDim.x / 2; half > 0; half >>= 1) {
+    if (tid < half) {
+      red[tid] += red[tid + half];
+      red[blockDim.x + tid] += red[blockDim.x + tid + half];
+    }
+    __syncthreads();
+  }
+  a = red[0];
+  b = red[blockDim.x];
+}
+
+// (y, y^2) of one element.
+struct StatsOp {
+  __device__ void operator()(const float* y, const float*, long long i, int,
+                             float& s, float& ss) const {
+    const float v = y[i];
+    s += v;
+    ss += v * v;
+  }
+};
+
+// (dsel, dsel * xhat) of one pooled element, from g and sel.
+struct BwdOp {
+  const float* gamma;
+  const float* beta;
+  const float* mu;
+  const float* rstd;
+  __device__ void operator()(const float* g, const float* sel, long long i,
+                             int c, float& s1, float& s2) const {
+    const float xhat = (sel[i] - mu[c]) * rstd[c];
+    const float o = gamma[c] * xhat + beta[c];
+    const float dsel = g[i] * (o >= 0.0f ? 1.0f : kSlope);
+    s1 += dsel;
+    s2 += dsel * xhat;
+  }
+};
+
+// Partial channel sums: grid (nblk, C). Block j of channel c sums the
+// values [j*chunk, min(n, (j+1)*chunk)) of the channel's n = B*L values,
+// value i at ((i/L)*C + c)*L + i%L, and writes partial[(c*nblk + j)*2 + 0/1].
+// VEC = 4 needs L and chunk multiples of 4 (the wrapper checks).
+template <int VEC, typename Op>
+__global__ void __launch_bounds__(kThreads)
+partials_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                Op op, float* __restrict__ partial, int C, long long L,
+                long long n, long long chunk, int nblk) {
+  __shared__ float red[2 * kThreads];
+  const int c = blockIdx.y;
+  const long long begin = static_cast<long long>(blockIdx.x) * chunk;
+  const long long end = min(n, begin + chunk);
+  float s = 0.0f, ss = 0.0f;
+  for (long long s0 = begin; s0 < end;) {
+    const long long seg = s0 / L;
+    const long long seg_end = min(end, (seg + 1) * L);
+    // element i of the channel (seg*L <= i < seg_end) lies at base + i
+    const long long base = (seg * C + c) * L - seg * L;
+    const float* pa = a + base;
+    const float* pb = b ? b + base : nullptr;
+#pragma unroll 4
+    for (long long i = s0 + static_cast<long long>(threadIdx.x) * VEC;
+         i < seg_end; i += static_cast<long long>(blockDim.x) * VEC) {
+      if constexpr (VEC == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(pa + i);
+        const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) op(vv, nullptr, k, c, s, ss);
+      } else {
+        op(pa, pb, i, c, s, ss);
+      }
+    }
+    s0 = seg_end;
+  }
+  block_sum2(s, ss, red);
+  if (threadIdx.x == 0) {
+    float* out = partial + (static_cast<size_t>(c) * nblk + blockIdx.x) * 2;
+    out[0] = s;
+    out[1] = ss;
+  }
+}
+
+// Sum channel c's nblk partials in a fixed order; grid C.
+__device__ void combine(const float* partial, int nblk, float& s, float& ss,
+                        float* red) {
+  const float* p = partial + static_cast<size_t>(blockIdx.x) * nblk * 2;
+  s = 0.0f;
+  ss = 0.0f;
+  for (int j = threadIdx.x; j < nblk; j += blockDim.x) {
+    s += p[2 * j];
+    ss += p[2 * j + 1];
+  }
+  block_sum2(s, ss, red);
+}
+
+__global__ void __launch_bounds__(kThreads)
+stats_combine_kernel(const float* __restrict__ partial, int nblk, float ntot,
+                     float* __restrict__ mu, float* __restrict__ var,
+                     float* __restrict__ rstd) {
+  __shared__ float red[2 * kThreads];
+  float s, ss;
+  combine(partial, nblk, s, ss, red);
+  if (threadIdx.x == 0) {
+    const int c = blockIdx.x;
+    const float m = s / ntot;
+    const float v = ss / ntot - m * m;
+    mu[c] = m;
+    var[c] = v;
+    rstd[c] = rsqrtf(v + kEps);
+  }
+}
+
+struct Cot {
+  const float* gamma;
+  const float* mu;
+  const float* g_mu;
+  const float* g_var;
+};
+
+__global__ void __launch_bounds__(kThreads)
+bwd_combine_kernel(const float* __restrict__ partial, int nblk, float ntot,
+                   Cot cot, float* __restrict__ dgamma,
+                   float* __restrict__ dbeta, float* __restrict__ k, int C) {
+  __shared__ float red[2 * kThreads];
+  float s1, s2;
+  combine(partial, nblk, s1, s2, red);
+  if (threadIdx.x == 0) {
+    const int c = blockIdx.x;
+    const float gm = cot.gamma[c];
+    dbeta[c] = s1;
+    dgamma[c] = s2;
+    k[c] = gm * s1 / ntot;
+    k[C + c] = gm * s2 / ntot;
+    k[2 * C + c] = cot.g_mu[c] / ntot - 2.0f * cot.g_var[c] * cot.mu[c] / ntot;
+    k[3 * C + c] = 2.0f * cot.g_var[c] / ntot;
+  }
+}
+
+// Window geometry: pooled index -> (plane, i, j), the channel of the plane
+// and the offset of the window's top-left input element.
+struct Window {
+  long long plane;
+  int c;
+  long long in_off;
+};
+
+__device__ __forceinline__ Window window_of(long long idx, int C, int T,
+                                            int H, int W) {
+  const int w2 = W / 2;
+  const long long hw2 = static_cast<long long>(H / 2) * w2;
+  Window win;
+  win.plane = idx / hw2;
+  const int rem = static_cast<int>(idx - win.plane * hw2);
+  const int i = rem / w2;
+  const int j = rem - i * w2;
+  win.c = static_cast<int>((win.plane / T) % C);
+  win.in_off = win.plane * H * W + static_cast<long long>(2 * i) * W + 2 * j;
+  return win;
+}
+
+struct Affine {
+  const float* gamma;
+  const float* beta;
+  const float* mu;
+  const float* rstd;
+};
+
+__global__ void __launch_bounds__(kThreads)
+apply_kernel(const float* __restrict__ y, Affine aff, float* __restrict__ out,
+             float* __restrict__ sel, long long n_pool, int C, int T, int H,
+             int W) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n_pool) return;
+  const Window win = window_of(idx, C, T, H, W);
+  const float2 r0 = *reinterpret_cast<const float2*>(y + win.in_off);
+  const float2 r1 = *reinterpret_cast<const float2*>(y + win.in_off + W);
+  const float gm = aff.gamma[win.c];
+  const float s = gm > 0.0f ? fmaxf(fmaxf(r0.x, r0.y), fmaxf(r1.x, r1.y))
+                            : fminf(fminf(r0.x, r0.y), fminf(r1.x, r1.y));
+  const float o = gm * (s - aff.mu[win.c]) * aff.rstd[win.c] + aff.beta[win.c];
+  out[idx] = o >= 0.0f ? o : kSlope * o;
+  sel[idx] = s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+dy_kernel(const float* __restrict__ y, const float* __restrict__ g,
+          const float* __restrict__ sel, Affine aff,
+          const float* __restrict__ k, float* __restrict__ dy,
+          long long n_pool, int C, int T, int H, int W) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= n_pool) return;
+  const Window win = window_of(idx, C, T, H, W);
+  const int c = win.c;
+  const float mu = aff.mu[c];
+  const float rstd = aff.rstd[c];
+  const float gm = aff.gamma[c];
+  const float s = sel[idx];
+  const float xhat_sel = (s - mu) * rstd;
+  const float o = gm * xhat_sel + aff.beta[c];
+  const float dsg = g[idx] * (o >= 0.0f ? 1.0f : kSlope) * gm;
+  const float k0 = k[c], k1 = k[C + c], k2 = k[2 * C + c], k3 = k[3 * C + c];
+  const float2 r0 = *reinterpret_cast<const float2*>(y + win.in_off);
+  const float2 r1 = *reinterpret_cast<const float2*>(y + win.in_off + W);
+  float v[4] = {r0.x, r0.y, r1.x, r1.y};  // phase order 2*py + px
+  bool found = false;
+#pragma unroll
+  for (int ph = 0; ph < 4; ++ph) {
+    const bool hit = !found && v[ph] == s;
+    found = found || hit;
+    const float dxhat = hit ? dsg : 0.0f;
+    const float xhat = (v[ph] - mu) * rstd;
+    v[ph] = rstd * (dxhat - k0 - xhat * k1) + k2 + v[ph] * k3;
+  }
+  *reinterpret_cast<float2*>(dy + win.in_off) = make_float2(v[0], v[1]);
+  *reinterpret_cast<float2*>(dy + win.in_off + W) = make_float2(v[2], v[3]);
+}
+
+bool bad_geometry(int B, int C, int T, int H, int W) {
+  return B < 1 || C < 1 || T < 1 || H < 2 || W < 2 || H % 2 || W % 2;
+}
+
+unsigned blocks_for(long long n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+// Batch statistics of y [B, C, T, H, W]: mu, var, rstd [C]. partial is an
+// fp32 [C, nblk, 2] scratch; chunk * nblk >= B*T*H*W, chunk a multiple of 4.
+// Two kernels on `stream`. Returns the first non-zero cudaError_t, else 0.
+extern "C" int maavss_epilogue_stats(const void* y, void* partial, void* mu,
+                                     void* var, void* rstd, int B, int C,
+                                     int T, int H, int W, int nblk,
+                                     long long chunk, void* stream) {
+  const long long L = static_cast<long long>(T) * H * W;
+  const long long n = L * B;
+  if (bad_geometry(B, C, T, H, W) || nblk < 1 || chunk % 4 ||
+      chunk * nblk < n || C > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pf = static_cast<float*>(partial);
+  partials_kernel<4, StatsOp><<<dim3(nblk, C), kThreads, 0, s>>>(
+      static_cast<const float*>(y), nullptr, StatsOp{}, pf, C, L, n, chunk,
+      nblk);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  stats_combine_kernel<<<C, kThreads, 0, s>>>(
+      pf, nblk, static_cast<float>(n), static_cast<float*>(mu),
+      static_cast<float*>(var), static_cast<float*>(rstd));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out, sel [B, C, T, H/2, W/2] from y and the per-channel gamma, beta, mu,
+// rstd [C]. One kernel on `stream`.
+extern "C" int maavss_epilogue_apply(const void* y, const void* gamma,
+                                     const void* beta, const void* mu,
+                                     const void* rstd, void* out, void* sel,
+                                     int B, int C, int T, int H, int W,
+                                     void* stream) {
+  if (bad_geometry(B, C, T, H, W)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_pool =
+      static_cast<long long>(B) * C * T * (H / 2) * (W / 2);
+  Affine aff{static_cast<const float*>(gamma), static_cast<const float*>(beta),
+             static_cast<const float*>(mu), static_cast<const float*>(rstd)};
+  apply_kernel<<<blocks_for(n_pool), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), aff, static_cast<float*>(out),
+      static_cast<float*>(sel), n_pool, C, T, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pooled-domain sums of the backward: dgamma = S2, dbeta = S1 [C] and the
+// constants k [4, C], from g and sel [B, C, T, H/2, W/2] and the cotangents
+// g_mu, g_var [C]. partial is an fp32 [C, nblk, 2] scratch; chunk * nblk >=
+// B*T*(H/2)*(W/2). Two kernels on `stream`.
+extern "C" int maavss_epilogue_bwd_reduce(
+    const void* g, const void* sel, const void* gamma, const void* beta,
+    const void* mu, const void* rstd, const void* g_mu, const void* g_var,
+    void* partial, void* dgamma, void* dbeta, void* k, int B, int C, int T,
+    int H, int W, int nblk, long long chunk, void* stream) {
+  const long long L = static_cast<long long>(T) * (H / 2) * (W / 2);
+  const long long n = L * B;
+  if (bad_geometry(B, C, T, H, W) || nblk < 1 || chunk * nblk < n ||
+      C > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pf = static_cast<float*>(partial);
+  BwdOp op{static_cast<const float*>(gamma), static_cast<const float*>(beta),
+           static_cast<const float*>(mu), static_cast<const float*>(rstd)};
+  partials_kernel<1, BwdOp><<<dim3(nblk, C), kThreads, 0, s>>>(
+      static_cast<const float*>(g), static_cast<const float*>(sel), op, pf, C,
+      L, n, chunk, nblk);
+  int e = static_cast<int>(cudaGetLastError());
+  if (e) return e;
+  Cot cot{static_cast<const float*>(gamma), static_cast<const float*>(mu),
+          static_cast<const float*>(g_mu), static_cast<const float*>(g_var)};
+  bwd_combine_kernel<<<C, kThreads, 0, s>>>(
+      pf, nblk, 4.0f * static_cast<float>(n), cot, static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), static_cast<float*>(k), C);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dy [B, C, T, H, W] from y, g and sel [B, C, T, H/2, W/2], the per-channel
+// vectors and the constants k [4, C] of maavss_epilogue_bwd_reduce. One
+// kernel on `stream`.
+extern "C" int maavss_epilogue_bwd_dy(const void* y, const void* g,
+                                      const void* sel, const void* gamma,
+                                      const void* beta, const void* mu,
+                                      const void* rstd, const void* k,
+                                      void* dy, int B, int C, int T, int H,
+                                      int W, void* stream) {
+  if (bad_geometry(B, C, T, H, W)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_pool =
+      static_cast<long long>(B) * C * T * (H / 2) * (W / 2);
+  Affine aff{static_cast<const float*>(gamma), static_cast<const float*>(beta),
+             static_cast<const float*>(mu), static_cast<const float*>(rstd)};
+  dy_kernel<<<blocks_for(n_pool), kThreads, 0,
+              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(y), static_cast<const float*>(g),
+      static_cast<const float*>(sel), aff, static_cast<const float*>(k),
+      static_cast<float*>(dy), n_pool, C, T, H, W);
+  return static_cast<int>(cudaGetLastError());
+}

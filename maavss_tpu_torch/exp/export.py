@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from maavss_tpu_torch.config import RunConfig
-from maavss_tpu_torch.train.infer import separate_windows
+from maavss_tpu_torch.train.infer import separate_frames_windows, separate_windows
 from maavss_tpu_torch.train.setup import check_supported
 
 
@@ -28,38 +28,51 @@ class TensorSpec(NamedTuple):
     dtype: np.dtype
 
 
-def make_serving_fn(model, cfg: RunConfig):
-    """Mixture in, separated audio out: fn(audio [B, S_total],
-    visual [B, T_total, p, p]) -> [B, S_total], tensors on the model's
-    device. The fusion model only (the frames model is ROADMAP M7)."""
+def make_serving_fn(model, cfg: RunConfig, frames_model: bool = False):
+    """Mixture in, separated audio out: fn(audio [B, S_total], visual) ->
+    [B, S_total], tensors on the model's device; visual is frames
+    [B, T_total, p, p] for the fusion model, raw uint8 frames
+    [B, T_total, framesize, framesize] for the frames model."""
     serve_cfg = cfg.replace(noise_scalar=0.0)
-    check_supported(serve_cfg)
+    check_supported(serve_cfg, frames=frames_model)
+    windows = separate_frames_windows if frames_model else separate_windows
 
     @torch.inference_mode()
     def serving_fn(audio: torch.Tensor, visual: torch.Tensor) -> torch.Tensor:
-        out, _ = separate_windows(model, serve_cfg, audio, visual)
+        out, _ = windows(model, serve_cfg, audio, visual)
         return out
 
     return serving_fn
 
 
-def serving_input_specs(cfg: RunConfig, batch: int
+def serving_input_specs(cfg: RunConfig, batch: int, frames_model: bool = False
                         ) -> Tuple[TensorSpec, TensorSpec]:
-    """(audio, visual) specs at the sweep's clip geometry: float32 audio
-    and float32 frames in [0, 1] (the fusion model's wire)."""
-    check_supported(cfg)
+    """(audio, visual) specs at the sweep's clip geometry: float32 audio;
+    float32 frames in [0, 1] for the fusion model, uint8 frames at
+    framesize for the frames model (its wire format, converted on the
+    device, maavss_tpu/exp/export.py:83-89)."""
+    check_supported(cfg, frames=frames_model)
     t_total = cfg.num_frames + cfg.num_seq
     s_total = cfg.hop * cfg.hops_per_frame * t_total
-    return (TensorSpec((batch, s_total), np.dtype(np.float32)),
-            TensorSpec((batch, t_total, cfg.p_size, cfg.p_size),
-                       np.dtype(np.float32)))
+    audio = TensorSpec((batch, s_total), np.dtype(np.float32))
+    if frames_model:
+        return audio, TensorSpec((batch, t_total, cfg.framesize,
+                                  cfg.framesize), np.dtype(np.uint8))
+    return audio, TensorSpec((batch, t_total, cfg.p_size, cfg.p_size),
+                             np.dtype(np.float32))
 
 
-def random_serving_inputs(cfg: RunConfig, batch: int, seed: int = 0):
-    """(audio, visual) numpy payloads at the serving specs; the same draws
-    as the JAX package's random_serving_inputs for the fusion model."""
-    a_spec, v_spec = serving_input_specs(cfg, batch)
+def random_serving_inputs(cfg: RunConfig, batch: int,
+                          frames_model: bool = False, seed: int = 0):
+    """(audio, visual) numpy payloads at the serving specs, the same draws
+    as the JAX package's random_serving_inputs: uint8 frames over [0, 255],
+    float ones small gaussians."""
+    a_spec, v_spec = serving_input_specs(cfg, batch, frames_model)
     rng = np.random.default_rng(seed)
     audio = (rng.standard_normal(a_spec.shape) * 0.1).astype(a_spec.dtype)
-    visual = (rng.standard_normal(v_spec.shape) * 0.1).astype(v_spec.dtype)
+    if np.issubdtype(v_spec.dtype, np.integer):
+        visual = rng.integers(0, 256, v_spec.shape).astype(v_spec.dtype)
+    else:
+        visual = (rng.standard_normal(v_spec.shape) * 0.1).astype(
+            v_spec.dtype)
     return audio, visual

@@ -14,9 +14,10 @@ function (counterpart of maavss_tpu/exp/serving.py).
   waiting for company. A zero frame has a zero phasegram, so padding rows
   do not move the batch's phasegram max-norm.
 - **Wire format: npz**, unchanged from the JAX daemon: POST /v1/separate
-  with `audio` [b, S] and `visual` [b, T, p, p]; the reply holds
-  `audio_out` [b, S]. The handler, server and client below are the JAX
-  package's, which never touched jax.
+  with `audio` [b, S] and `visual` [b, T, p, p] (the frames model: uint8
+  [b, T, framesize, framesize]); the reply holds `audio_out` [b, S]. The
+  handler, server and client below are the JAX package's, which never
+  touched jax.
 """
 
 from __future__ import annotations

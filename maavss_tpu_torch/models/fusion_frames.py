@@ -1,0 +1,155 @@
+"""AVFusionFramesModel — the frames model family (counterpart of
+maavss_tpu/models/fusion_frames.py).
+
+Raw attention frames go through a fixed 5-stage conv3d / BatchNorm /
+max-pool / LeakyReLU(0.01) encoder; the untrimmed STFT (F = fft_len/2 + 1)
+through a bias-free conv2d autoencoder. The two latents are concatenated
+along their time axis, a BiLSTM(256) runs over the CHANNEL axis (the
+reference's dataflow, avse_model_final.py:124-128), two bias-free FC layers
+with tanh fuse them, and linear heads emit the middle frame only:
+hops_per_frame STFT columns (tanh) and one attention frame (sigmoid).
+
+The visual encoder runs the direct conv3d path. In `.train()` mode, the
+stages that `layers.epilogue_eligible` admits (at framesize 256 the 256^2
+and 128^2 inputs) run their BN + pool + leaky tail as the fused epilogue
+kernels of `ops/cuda_epilogue.py`; every other stage, and eval mode, runs
+the unfused tail. The JAX package's space-to-depth fold, which fed the
+TPU's matrix unit, is not carried: the pooling windows are read from the
+NCDHW conv output directly.
+
+Parameter names follow the flax tree (`visual_encoder.Conv_i`,
+`visual_encoder.TorchBatchNorm_i.BatchNorm_0`, `stft_encoder`,
+`stft_decoder`, `lstm.fwd|bwd`, `fc1`, `fc2`, `a_fc1`, `v_fc1`), so
+`convert.from_flax` carries a JAX checkpoint across.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from maavss_tpu_torch.models.layers import (
+    ConvStack,
+    TorchBatchNorm,
+    epilogue_eligible,
+    epilogue_min_hw,
+    frames_conv3d_stage,
+    make_birnn,
+)
+from maavss_tpu_torch.models.shape_plan import (
+    frames_visual_encoder_out_hw,
+    plan_stft_decoder_frames,
+    plan_stft_encoder_frames,
+)
+
+LSTM_HIDDEN = 256
+# (out channels, spatial conv padding (lo, hi), pool) per stage; None is the
+# latent width (maavss_tpu/models/fusion_frames.py:97-103)
+STAGES = ((16, (2, 2), 2), (32, (2, 2), 2), (64, (2, 2), 2), (64, (2, 2), 3),
+          (None, (3, 3), 3))
+
+
+class FramesVisualEncoder(nn.Module):
+    """[B, 1, T, H, W] -> latent [B, C, T, hw*hw]."""
+
+    def __init__(self, latent_channels: int = 16):
+        super().__init__()
+        self.stages = []
+        in_ch = 1
+        for i, (out_ch, pad, pool) in enumerate(STAGES):
+            out_ch = out_ch or latent_channels
+            self.add_module(f"Conv_{i}", nn.Conv3d(
+                in_ch, out_ch, (3, 5, 5), padding=(1, pad[0], pad[0]),
+                bias=False))
+            self.add_module(f"TorchBatchNorm_{i}", TorchBatchNorm(out_ch))
+            self.stages.append((pad, pool))
+            in_ch = out_ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        min_hw = epilogue_min_hw()
+        for i, (pad, pool) in enumerate(self.stages):
+            fused = self.training and epilogue_eligible(x.shape, pad, pool,
+                                                        min_hw)
+            x = frames_conv3d_stage(x, getattr(self, f"Conv_{i}"),
+                                    getattr(self, f"TorchBatchNorm_{i}"),
+                                    pool, fused)
+        b, c, t = x.shape[:3]
+        return x.reshape(b, c, t, -1)
+
+
+class AVFusionFramesModel(nn.Module):
+    """(stft [B,2,T,F], frames [B,1,Tf,H,W]) ->
+    (ŷ_stft [B,2,hops_per_frame,F], ŷ_frame [B,1,H,W], fused [B,512]).
+
+    The FC widths follow the latent width (the JAX model's fc_size is
+    unused). `device` is where the parameters end up."""
+
+    def __init__(self, stft_shape: Sequence[int], frame_shape: Sequence[int],
+                 hops_per_frame: int = 8, latent_channels: int = 16,
+                 rnn_cell: str = "lstm", mask_head: bool = False,
+                 device=None):
+        super().__init__()
+        if mask_head:
+            raise NotImplementedError(
+                "--mask_head is not ported yet (ROADMAP queue 2, K4 "
+                "complex_mask_apply)")
+        self.stft_shape = tuple(stft_shape)
+        self.frame_shape = tuple(frame_shape)
+        self.hops_per_frame = hops_per_frame
+        hw = frames_visual_encoder_out_hw(self.frame_shape[-1])
+        t_frames = self.frame_shape[2]
+        target = (t_frames, hw * hw)
+        a_enc, a_hw = plan_stft_encoder_frames(stft_shape, target,
+                                               latent_channels)
+        a_dec, _ = plan_stft_decoder_frames(a_hw, stft_shape, latent_channels)
+        self.latent_hw = a_hw
+        self.visual_encoder = FramesVisualEncoder(latent_channels)
+        self.stft_encoder = ConvStack(a_enc, use_bias=False)
+        self.stft_decoder = ConvStack(a_dec, use_bias=False)
+        self.lstm = make_birnn(rnn_cell, 2 * t_frames * hw * hw, LSTM_HIDDEN)
+        flat = latent_channels * 2 * LSTM_HIDDEN
+        self.fc1 = nn.Linear(flat, flat, bias=False)
+        self.fc2 = nn.Linear(flat, 512, bias=False)
+        self.a_fc1 = nn.Linear(512, 2 * hops_per_frame * self.stft_shape[-1],
+                               bias=False)
+        self.v_fc1 = nn.Linear(
+            512, self.frame_shape[1] * self.frame_shape[-2]
+            * self.frame_shape[-1], bias=False)
+        if device is not None:
+            self.to(device)
+
+    def av_fusion_forward(self, x_a_enc: torch.Tensor,
+                          x_v_enc: torch.Tensor) -> torch.Tensor:
+        """Latents [B,C,T,S] -> fused [B,512]: the LSTM runs over the
+        channel axis C (avse_model_final.py:235-251)."""
+        cat = torch.cat([x_v_enc, x_a_enc], dim=2)  # [B,C,2T,S]
+        av = self.lstm(cat.reshape(cat.shape[0], cat.shape[1], -1))
+        av = torch.tanh(self.fc1(av.reshape(av.shape[0], -1)))
+        return torch.tanh(self.fc2(av))
+
+    def audio_ae_forward(self, x_a: torch.Tensor) -> torch.Tensor:
+        return self.stft_decoder(self.stft_encoder(x_a))
+
+    def encode_frames(self, x_v: torch.Tensor) -> torch.Tensor:
+        """Visual trunk only: [B,1,T,H,W] -> latent [B,C,T,S]."""
+        return self.visual_encoder(x_v)
+
+    def forward_with_visual_latent(self, x_a: torch.Tensor,
+                                   x_v_enc: torch.Tensor
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+        """The heads given a visual latent [B,C,T,S]."""
+        fused = self.av_fusion_forward(self.stft_encoder(x_a), x_v_enc)
+        b = x_a.shape[0]
+        x_a_out = torch.tanh(self.a_fc1(fused)).reshape(
+            b, 2, self.hops_per_frame, self.stft_shape[-1])
+        x_v_out = torch.sigmoid(self.v_fc1(fused)).reshape(
+            b, self.frame_shape[1], self.frame_shape[-2],
+            self.frame_shape[-1])
+        return x_a_out, x_v_out, fused
+
+    def forward(self, x_a: torch.Tensor, x_v: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return self.forward_with_visual_latent(x_a, self.visual_encoder(x_v))

@@ -1,5 +1,5 @@
-"""Building blocks of the fusion model (counterpart of
-maavss_tpu/models/layers.py, the part the fusion model uses).
+"""Building blocks of the fusion and frames models (counterpart of
+maavss_tpu/models/layers.py, the part those two models use).
 
 Parameter names follow the flax tree one to one, so `convert.from_flax`
 maps a flax checkpoint onto `state_dict()` leaf by leaf:
@@ -14,6 +14,10 @@ maps a flax checkpoint onto `state_dict()` leaf by leaf:
   compute switch, and runs every layer through `ops/cuda_pgenc.py`.
 - `LSTM` keeps flax's `w_i` [D,4H] and `w_h` [H,4H] (gate columns i,f,g,o):
   the recurrence kernel reads w_h in that layout.
+- `frames_conv3d_stage` is one stage of the frames model's visual encoder on
+  the direct path: conv3d, then BatchNorm, the max pool and LeakyReLU(0.01),
+  or in train mode, where `epilogue_eligible` admits the stage, the fused
+  tail of `ops/cuda_epilogue.py`.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from maavss_tpu_torch.models.shape_plan import ConvSpec
+from maavss_tpu_torch.ops.cuda_epilogue import fused_bn_pool_leaky
 from maavss_tpu_torch.ops.cuda_lstm import lstm_bidir, lstm_recurrence_plain
 from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer, pgenc_layer_train
 
@@ -118,17 +123,20 @@ class ConvStack(nn.Module):
     A transposed conv runs at padding 0 (flax's VALID) and is then cropped
     to torch's ConvTranspose2d geometry: `padding` off both sides,
     `output_padding` kept on the far side (maavss_tpu/models/layers.py:81-85).
+    `use_bias=False` drops every conv bias, as the frames model's stacks do.
     """
 
-    def __init__(self, specs: Sequence[ConvSpec]):
+    def __init__(self, specs: Sequence[ConvSpec], use_bias: bool = True):
         super().__init__()
         self.specs = tuple(specs)
         self.names = _conv_names(self.specs)
+        self.use_bias = use_bias
         for spec, (conv, bn) in zip(self.specs, self.names):
             cls = nn.ConvTranspose2d if spec.transpose else nn.Conv2d
             pad = (0, 0) if spec.transpose else spec.padding
             self.add_module(conv, cls(spec.in_ch, spec.out_ch, spec.kernel,
-                                      stride=spec.stride, padding=pad))
+                                      stride=spec.stride, padding=pad,
+                                      bias=use_bias))
             if bn is not None:
                 self.add_module(bn, TorchBatchNorm(spec.out_ch))
 
@@ -136,6 +144,8 @@ class ConvStack(nn.Module):
         """Names of the conv biases that feed a BatchNorm. In train mode the
         batch mean cancels them, so their true gradient is exactly 0 (the
         fused kernel returns 0, autodiff returns float noise)."""
+        if not self.use_bias:
+            return []
         return [f"{conv}.bias" for conv, bn in self.names if bn is not None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -196,6 +206,45 @@ class KernelConvStack1x9(ConvStack):
                                 bn.running_var.float())
         co = self.specs[-1].out_ch
         return h.reshape(co, b, t, h.shape[-1]).permute(1, 0, 2, 3)
+
+
+def epilogue_min_hw() -> int:
+    """$MAAVSS_S2D_MIN_HW (default 128): the smallest stage input H and W
+    that takes the fused epilogue. The JAX package reads the same variable
+    for its space-to-depth stages, so one setting picks the same stages in
+    both packages."""
+    return int(os.environ.get("MAAVSS_S2D_MIN_HW", "128"))
+
+
+def epilogue_eligible(shape, pad, pool: int, min_hw: int) -> bool:
+    """Does a frames stage with input `shape` [B, C, T, H, W], spatial conv
+    padding `pad` (lo, hi) and pool `pool` take the fused epilogue? The rule
+    of maavss_tpu/models/layers.py:s2d_fold_eligible: pool 2, pad (2, 2),
+    even H and W, both at least min_hw."""
+    h, w = shape[3], shape[4]
+    return (pool == 2 and tuple(pad) == (2, 2) and h % 2 == 0 and w % 2 == 0
+            and min(h, w) >= min_hw)
+
+
+def frames_conv3d_stage(x: torch.Tensor, conv: nn.Conv3d,
+                        bn: TorchBatchNorm, pool: int,
+                        fused: bool) -> torch.Tensor:
+    """One frames-encoder stage (maavss_tpu/models/layers.py:621-638, the
+    direct path): conv3d (3,5,5) / stride 1, then BatchNorm, a (1, pool,
+    pool) max pool and LeakyReLU(0.01), [B, C, T, H, W] throughout.
+
+    `fused` (train mode, an eligible stage) runs the tail as the fused
+    epilogue instead and updates the running statistics with its batch mean
+    and biased, unclamped variance by flax's rule, as
+    maavss_tpu/models/fusion_frames.py:176-183 does."""
+    y = conv(x)
+    if fused:
+        stats = bn.BatchNorm_0
+        out, mu, var = fused_bn_pool_leaky(y, stats.weight, stats.bias)
+        update_running_stats(stats, mu, var)
+        return out
+    y = F.max_pool3d(bn(y), (1, pool, pool))
+    return F.leaky_relu(y, negative_slope=0.01)
 
 
 class LSTM(nn.Module):

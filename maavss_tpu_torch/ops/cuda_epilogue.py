@@ -1,0 +1,320 @@
+"""Fused train-mode BatchNorm + 2x2 max pool + LeakyReLU(0.01) of the frames
+encoder's eligible conv3d stages: the hand-written CUDA kernels of
+`csrc/epilogue.cu` and their plain PyTorch versions.
+
+Counterpart of maavss_tpu/ops/pallas_epilogue.py:fused_bn_phasemax_leaky,
+on PyTorch's layout: the conv3d output y [B, C, T, H, W] (NCDHW, H and W
+even, fp32) is read as it is, where the JAX package folds it to phase-major
+channels first.
+
+    out, mu, var = fused_bn_pool_leaky(y, gamma, beta)
+
+    out [B, C, T, H/2, W/2] = leaky_0.01(max_2x2(BN_train(y)))
+    mu, var [C] fp32        = the batch mean and the biased variance
+                              E[y^2] - mu^2, not clamped (the caller updates
+                              the running statistics with them)
+
+The four kernels, each behind a wrapper that launches it on a CUDA tensor
+and runs its plain version on a CPU tensor (no fallback on the card), and
+that counts its launches in `.launches`:
+
+- `epilogue_stats(y) -> mu, var, rstd`
+- `epilogue_apply(y, gamma, beta, mu, rstd) -> out, sel`: a window's raw
+  max if gamma > 0, else its min, is the element BN + leaky map to the
+  window's max (the monotonicity rule of pallas_epilogue.py:44-52); `sel`,
+  a quarter of y, is the only residual besides y
+- `epilogue_bwd_reduce(g, sel, gamma, beta, mu, rstd, g_mu, g_var)
+  -> dgamma, dbeta, k`: the pooled-domain sums S2 and S1 and the per-channel
+  constants of the dy pass
+- `epilogue_bwd_dy(y, g, sel, gamma, beta, mu, rstd, k) -> dy`: the whole
+  dy in one pass; ties within a window go to the first match in phase
+  order 2*py + px, compared in fp32
+
+`fused_bn_pool_leaky` joins them in a `torch.autograd.Function` whose
+backward is the complete VJP of pallas_epilogue.py:_fused_bwd, the
+cotangents of mu and var included (zero in training, where the running
+statistics take mu and var detached).
+"""
+
+from __future__ import annotations
+
+import torch
+
+SLOPE = 0.01
+EPS = 1e-5
+# each channel sum is split over about this many blocks in all (8 per SM of
+# the H100's 132), at least 4096 values per block
+_TARGET_BLOCKS = 1056
+_MIN_PER_BLOCK = 4096
+
+
+def _chan(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """[C] -> broadcastable against a [B, C, ...] tensor of `ndim` dims."""
+    return v.view((1, -1) + (1,) * (ndim - 2))
+
+
+def _windows(y: torch.Tensor) -> torch.Tensor:
+    """[B, C, T, H, W] -> [B, C, T, H/2, W/2, 4], phase 2*py + px last."""
+    b, c, t, h, w = y.shape
+    y = y.reshape(b, c, t, h // 2, 2, w // 2, 2).permute(0, 1, 2, 3, 5, 4, 6)
+    return y.reshape(b, c, t, h // 2, w // 2, 4)
+
+
+def _unwindows(y4: torch.Tensor) -> torch.Tensor:
+    """Inverse of `_windows`."""
+    b, c, t, h2, w2, _ = y4.shape
+    y = y4.reshape(b, c, t, h2, w2, 2, 2).permute(0, 1, 2, 3, 5, 4, 6)
+    return y.reshape(b, c, t, 2 * h2, 2 * w2)
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def epilogue_stats_plain(y: torch.Tensor):
+    y = y.to(torch.float32)
+    axes = (0, 2, 3, 4)
+    mu = y.mean(dim=axes)
+    var = (y * y).mean(dim=axes) - mu * mu
+    return mu, var, torch.rsqrt(var + EPS)
+
+
+def epilogue_apply_plain(y, gamma, beta, mu, rstd):
+    y4 = _windows(y.to(torch.float32))
+    pos = _chan(gamma > 0, 5)
+    sel = torch.where(pos, y4.amax(dim=-1), y4.amin(dim=-1))
+    o = (_chan(gamma, 5) * (sel - _chan(mu, 5)) * _chan(rstd, 5)
+         + _chan(beta, 5))
+    return torch.where(o >= 0, o, SLOPE * o), sel
+
+
+def _dsel(g, sel, gamma, beta, mu, rstd):
+    """(dsel, xhat) of the selected elements."""
+    xhat = (sel - _chan(mu, 5)) * _chan(rstd, 5)
+    o = _chan(gamma, 5) * xhat + _chan(beta, 5)
+    return g * torch.where(o >= 0, 1.0, SLOPE), xhat, o
+
+
+def epilogue_bwd_reduce_plain(g, sel, gamma, beta, mu, rstd, g_mu, g_var):
+    dsel, xhat, _ = _dsel(g.to(torch.float32), sel, gamma, beta, mu, rstd)
+    axes = (0, 2, 3, 4)
+    s1 = dsel.sum(dim=axes)
+    s2 = (dsel * xhat).sum(dim=axes)
+    ntot = float(4 * sel.numel() // sel.shape[1])
+    k = torch.stack([gamma * s1 / ntot, gamma * s2 / ntot,
+                     g_mu / ntot - 2.0 * g_var * mu / ntot,
+                     2.0 * g_var / ntot])
+    return s2, s1, k
+
+
+def epilogue_bwd_dy_plain(y, g, sel, gamma, beta, mu, rstd, k):
+    g = g.to(torch.float32)
+    xs = (sel - _chan(mu, 5)) * _chan(rstd, 5)
+    o = _chan(gamma, 5) * xs + _chan(beta, 5)
+    dsg = g * torch.where(o >= 0, 1.0, SLOPE) * _chan(gamma, 5)
+    y4 = _windows(y.to(torch.float32))
+    eq = y4 == sel.unsqueeze(-1)
+    prefix = (torch.cumsum(eq.to(torch.int32), dim=-1) - eq.to(torch.int32)) > 0
+    dxhat = torch.where(eq & ~prefix, dsg.unsqueeze(-1), 0.0)
+    ch = [_chan(v, 6) for v in (mu, rstd, *k)]
+    xhat = (y4 - ch[0]) * ch[1]
+    dy4 = ch[1] * (dxhat - ch[2] - xhat * ch[3]) + ch[4] + y4 * ch[5]
+    return _unwindows(dy4)
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def _check_y(y: torch.Tensor) -> None:
+    if y.ndim != 5 or y.shape[3] % 2 or y.shape[4] % 2:
+        raise ValueError(f"epilogue: y must be [B, C, T, H, W] with H and W "
+                         f"even, got {tuple(y.shape)}")
+
+
+def _check_kernel_args(tensors, vecs, c: int) -> None:
+    dev = tensors[0].device
+    for t in tuple(tensors) + tuple(vecs):
+        if t.dtype != torch.float32:
+            raise TypeError(f"epilogue kernel takes float32 tensors, got "
+                            f"{t.dtype}")
+        if not t.is_cuda or t.device != dev:
+            raise ValueError("epilogue kernel needs every tensor on one CUDA "
+                             "device")
+        if not t.is_contiguous():
+            raise ValueError("epilogue kernel needs contiguous tensors")
+    for v in vecs:
+        if v.shape != (c,):
+            raise ValueError(f"epilogue kernel: per-channel vectors must be "
+                             f"[{c}], got {tuple(v.shape)}")
+
+
+def _split(n: int, c: int):
+    """(blocks per channel, values per block, a multiple of 4) for a channel
+    sum over n values: a fixed partition, so the sums are deterministic."""
+    nblk = max(1, min(-(-_TARGET_BLOCKS // c), -(-n // _MIN_PER_BLOCK)))
+    chunk = -(-n // nblk)
+    chunk = -(-chunk // 4) * 4
+    return -(-n // chunk), chunk
+
+
+def _lib():
+    from maavss_tpu_torch.ops import _build
+
+    return _build
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def epilogue_stats(y: torch.Tensor):
+    """-> (mu, var, rstd) [C] fp32 of y [B, C, T, H, W]."""
+    _check_y(y)
+    if not y.is_cuda:
+        return epilogue_stats_plain(y)
+    b, c, t, h, w = y.shape
+    _check_kernel_args((y,), (), c)
+    build = _lib()
+    nblk, chunk = _split(b * t * h * w, c)
+    partial = torch.empty(c, nblk, 2, dtype=torch.float32, device=y.device)
+    mu, var, rstd = (torch.empty(c, dtype=torch.float32, device=y.device)
+                     for _ in range(3))
+    with torch.cuda.device(y.device):
+        err = build.library().maavss_epilogue_stats(
+            y.data_ptr(), partial.data_ptr(), mu.data_ptr(), var.data_ptr(),
+            rstd.data_ptr(), b, c, t, h, w, nblk, chunk, _stream(y))
+    build.check(err, "maavss_epilogue_stats")
+    epilogue_stats.launches += 1
+    return mu, var, rstd
+
+
+epilogue_stats.launches = 0
+
+
+def epilogue_apply(y, gamma, beta, mu, rstd):
+    """-> (out, sel) [B, C, T, H/2, W/2]."""
+    _check_y(y)
+    if not y.is_cuda:
+        return epilogue_apply_plain(y, gamma, beta, mu, rstd)
+    b, c, t, h, w = y.shape
+    _check_kernel_args((y,), (gamma, beta, mu, rstd), c)
+    build = _lib()
+    out = torch.empty(b, c, t, h // 2, w // 2, dtype=torch.float32,
+                      device=y.device)
+    sel = torch.empty_like(out)
+    with torch.cuda.device(y.device):
+        err = build.library().maavss_epilogue_apply(
+            y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mu.data_ptr(),
+            rstd.data_ptr(), out.data_ptr(), sel.data_ptr(), b, c, t, h, w,
+            _stream(y))
+    build.check(err, "maavss_epilogue_apply")
+    epilogue_apply.launches += 1
+    return out, sel
+
+
+epilogue_apply.launches = 0
+
+
+def epilogue_bwd_reduce(g, sel, gamma, beta, mu, rstd, g_mu, g_var):
+    """-> (dgamma, dbeta, k [4, C]) from g, sel [B, C, T, H/2, W/2]."""
+    if not sel.is_cuda:
+        return epilogue_bwd_reduce_plain(g, sel, gamma, beta, mu, rstd, g_mu,
+                                         g_var)
+    b, c, t, h2, w2 = sel.shape
+    if g.shape != sel.shape:
+        raise ValueError(f"epilogue bwd: g {tuple(g.shape)} != sel "
+                         f"{tuple(sel.shape)}")
+    _check_kernel_args((g, sel), (gamma, beta, mu, rstd, g_mu, g_var), c)
+    build = _lib()
+    nblk, chunk = _split(b * t * h2 * w2, c)
+    partial = torch.empty(c, nblk, 2, dtype=torch.float32, device=g.device)
+    dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=g.device)
+                     for _ in range(2))
+    k = torch.empty(4, c, dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        err = build.library().maavss_epilogue_bwd_reduce(
+            g.data_ptr(), sel.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            mu.data_ptr(), rstd.data_ptr(), g_mu.data_ptr(), g_var.data_ptr(),
+            partial.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+            k.data_ptr(), b, c, t, 2 * h2, 2 * w2, nblk, chunk, _stream(g))
+    build.check(err, "maavss_epilogue_bwd_reduce")
+    epilogue_bwd_reduce.launches += 1
+    return dgamma, dbeta, k
+
+
+epilogue_bwd_reduce.launches = 0
+
+
+def epilogue_bwd_dy(y, g, sel, gamma, beta, mu, rstd, k):
+    """-> dy [B, C, T, H, W]."""
+    _check_y(y)
+    if not y.is_cuda:
+        return epilogue_bwd_dy_plain(y, g, sel, gamma, beta, mu, rstd, k)
+    b, c, t, h, w = y.shape
+    pooled = (b, c, t, h // 2, w // 2)
+    if g.shape != pooled or sel.shape != pooled or k.shape != (4, c):
+        raise ValueError(f"epilogue bwd: g {tuple(g.shape)}, sel "
+                         f"{tuple(sel.shape)}, k {tuple(k.shape)} do not fit "
+                         f"y {tuple(y.shape)}")
+    _check_kernel_args((y, g, sel, k), (gamma, beta, mu, rstd), c)
+    build = _lib()
+    dy = torch.empty_like(y)
+    with torch.cuda.device(y.device):
+        err = build.library().maavss_epilogue_bwd_dy(
+            y.data_ptr(), g.data_ptr(), sel.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), mu.data_ptr(), rstd.data_ptr(), k.data_ptr(),
+            dy.data_ptr(), b, c, t, h, w, _stream(y))
+    build.check(err, "maavss_epilogue_bwd_dy")
+    epilogue_bwd_dy.launches += 1
+    return dy
+
+
+epilogue_bwd_dy.launches = 0
+
+
+def _ops(plain: bool):
+    """(stats, apply, bwd reduce, bwd dy): the wrappers, or the plain
+    versions on any device."""
+    if plain:
+        return (epilogue_stats_plain, epilogue_apply_plain,
+                epilogue_bwd_reduce_plain, epilogue_bwd_dy_plain)
+    return (epilogue_stats, epilogue_apply, epilogue_bwd_reduce,
+            epilogue_bwd_dy)
+
+
+class _FusedEpilogue(torch.autograd.Function):
+    """(y, gamma, beta) -> (out, mu, var), as `_fused_core` with its
+    custom VJP: y, sel, mu, rstd, gamma and beta are the residuals."""
+
+    @staticmethod
+    def forward(ctx, y, gamma, beta, plain):
+        stats, apply, _, _ = _ops(plain)
+        mu, var, rstd = stats(y)
+        out, sel = apply(y, gamma, beta, mu, rstd)
+        ctx.save_for_backward(y, sel, gamma, beta, mu, rstd)
+        ctx.plain = plain
+        return out, mu, var
+
+    @staticmethod
+    def backward(ctx, g_out, g_mu, g_var):
+        y, sel, gamma, beta, mu, rstd = ctx.saved_tensors
+        _, _, reduce, dy_pass = _ops(ctx.plain)
+        g_out = g_out.contiguous()
+        dgamma, dbeta, k = reduce(g_out, sel, gamma, beta, mu, rstd,
+                                  g_mu.contiguous(), g_var.contiguous())
+        dy = dy_pass(y, g_out, sel, gamma, beta, mu, rstd, k)
+        return dy, dgamma, dbeta, None
+
+
+def fused_bn_pool_leaky(y: torch.Tensor, gamma: torch.Tensor,
+                        beta: torch.Tensor):
+    """Differentiable fused tail -> (out, mu, var); see the module
+    docstring."""
+    return _FusedEpilogue.apply(y, gamma, beta, False)
+
+
+def fused_bn_pool_leaky_plain(y: torch.Tensor, gamma: torch.Tensor,
+                              beta: torch.Tensor):
+    """The same function and explicit backward through the plain versions
+    on any device: the reference the kernels are held against on the
+    card."""
+    return _FusedEpilogue.apply(y, gamma, beta, True)

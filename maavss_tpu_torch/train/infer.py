@@ -1,11 +1,15 @@
 """Separation + SI-SDR evaluation (counterpart of
-maavss_tpu/train/infer.py:make_separator, window mode).
+maavss_tpu/train/infer.py:make_separator and make_frames_separator, window
+mode).
 
-The separator runs the fusion model over every sliding window of a clip
-(a Python loop in place of `lax.scan`), overlap-averages the predicted STFT
-on the shared hops, and resynthesizes audio through the exact-inverse iSTFT.
-Feature preparation is the train step's `_prep_stft_pair`, as in the JAX
-package.
+The fusion separator runs the fusion model over every sliding window of a
+clip (a Python loop in place of `lax.scan`), overlap-averages the predicted
+STFT on the shared hops, and resynthesizes audio through the exact-inverse
+iSTFT. The frames separator runs the frames model over every window and
+writes each window's predicted middle-frame columns into the mixture's
+untrimmed spectrogram (columns no window predicts keep the mixture), then
+resynthesizes. Feature preparation is the train step's `_prep_stft_pair`,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from maavss_tpu_torch.ops.metrics import si_sdr
 from maavss_tpu_torch.ops.phasegram import phasegram_cumsum, phasegram_window
 from maavss_tpu_torch.ops.stft import istft_features
 from maavss_tpu_torch.train.setup import check_supported
-from maavss_tpu_torch.train.steps import _prep_stft_pair
+from maavss_tpu_torch.train.steps import _prep_stft_pair, frames_f32
 
 
 def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
@@ -54,21 +58,54 @@ def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
     return yh_audio, x_full
 
 
-def make_separator(model, cfg: RunConfig):
+def separate_frames_windows(model, cfg: RunConfig, audio: torch.Tensor,
+                            frames: torch.Tensor,
+                            generator: Optional[torch.Generator] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """audio [B, S], raw frames [B, T_total, H, W] (uint8, or float in
+    [0, 1]) -> (separated audio [B, S], the model's input features x_full
+    [B, 2, T, F], F = fft_len/2 + 1). The model runs in eval mode (its mode
+    is restored afterwards), as the JAX separator applies it with
+    train=False."""
+    a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
+    mid = (ns - 1) // 2
+    x_full, _ = _prep_stft_pair(audio, cfg, generator, trim_end=False,
+                                max_norm=cfg.normalize_output_fft)
+    frames = frames_f32(frames).unsqueeze(2)  # [B,T,1,H,W]
+    yh_full = x_full.clone()
+    was_training = model.training
+    model.eval()
+    try:
+        for j in range(ns):
+            x_v = frames[:, j:j + nf].transpose(1, 2)  # [B,1,nf,H,W]
+            yh_mid, _, _ = model(x_full[:, :, j * a:(j + nf) * a], x_v)
+            yh_full[:, :, (j + mid) * a:(j + mid + 1) * a] = yh_mid
+    finally:
+        model.train(was_training)
+    yh_audio = istft_features(yh_full, cfg.fft_len, cfg.hop,
+                              normalized=cfg.normalize_fft, trim_end=False,
+                              length=audio.shape[-1])
+    return yh_audio, x_full
+
+
+def make_separator(model, cfg: RunConfig, frames_model: bool = False):
     """`separate(batch, generator=None) -> dict` over batch =
     {'audio': [B, S_total], 'frames': [B, T_total, p, p]} tensors on the
-    model's device; returns audio_out, audio_in, si_sdr, si_sdr_noisy and
-    si_sdr_gain like the JAX separator."""
-    check_supported(cfg)
+    model's device (raw [B, T_total, H, W] frames for the frames model);
+    returns audio_out, audio_in, si_sdr, si_sdr_noisy and si_sdr_gain like
+    the JAX separator."""
+    check_supported(cfg, frames=frames_model)
+    windows = separate_frames_windows if frames_model else separate_windows
 
     @torch.inference_mode()
     def separate(batch, generator: Optional[torch.Generator] = None
                  ) -> Dict[str, torch.Tensor]:
         audio = batch["audio"]
-        yh_audio, x_full = separate_windows(model, cfg, audio, batch["frames"],
-                                            generator)
+        yh_audio, x_full = windows(model, cfg, audio, batch["frames"],
+                                   generator)
         x_audio = istft_features(x_full, cfg.fft_len, cfg.hop,
-                                 normalized=cfg.normalize_fft, trim_end=True,
+                                 normalized=cfg.normalize_fft,
+                                 trim_end=not frames_model,
                                  length=audio.shape[-1])
         sdr_out = si_sdr(yh_audio, audio)
         sdr_in = si_sdr(x_audio, audio)
@@ -77,3 +114,9 @@ def make_separator(model, cfg: RunConfig):
                 "si_sdr_gain": sdr_out - sdr_in}
 
     return separate
+
+
+def make_frames_separator(model, cfg: RunConfig):
+    """The frames model's separator (maavss_tpu/train/infer.py:26-96,
+    window mode): `make_separator(model, cfg, frames_model=True)`."""
+    return make_separator(model, cfg, frames_model=True)

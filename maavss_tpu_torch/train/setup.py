@@ -1,14 +1,16 @@
-"""Model construction (counterpart of maavss_tpu/train/setup.py:build_fusion).
+"""Model construction (counterpart of maavss_tpu/train/setup.py:build_fusion
+and build_frames_model).
 
 `build_fusion(cfg, batch_size, device="cuda", generator)` plans the fusion
 model from the run config, initialises it from an explicit `torch.Generator`
 with flax's distributions, and returns it on `device` in eval mode;
 `build_fusion_state` also returns its `TrainState` (the JAX `build_fusion`'s
-pair). The initialisation:
+pair). `build_frames_model` / `build_frames_state` do the same for the frames
+model. The initialisation:
 
-- conv, transposed-conv and dense kernels: lecun-normal (variance 1/fan_in,
-  normal truncated at two standard deviations, flax's rescaled stddev);
-  biases zero;
+- conv (2-D and 3-D), transposed-conv and dense kernels: lecun-normal
+  (variance 1/fan_in, normal truncated at two standard deviations, flax's
+  rescaled stddev); biases zero;
 - LSTM w_i / w_h: U(-1/sqrt(H), 1/sqrt(H));
 - BatchNorm: scale 1, bias 0, running mean 0, running variance 1.
 
@@ -26,6 +28,7 @@ from torch import nn
 
 from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.models.fusion import AVFusionModel, resolve_pgenc_kernel
+from maavss_tpu_torch.models.fusion_frames import AVFusionFramesModel
 from maavss_tpu_torch.models.layers import LSTM
 from maavss_tpu_torch.train.state import TrainState, create_train_state
 
@@ -34,23 +37,35 @@ from maavss_tpu_torch.train.state import TrainState, create_train_state
 _TRUNC_STD = 0.87962566103423978
 
 
-def check_supported(cfg: RunConfig, train: bool = False) -> None:
+def check_supported(cfg: RunConfig, train: bool = False,
+                    frames: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every option
     the port does not implement yet; `train=True` adds the train step's
-    flags."""
+    flags, `frames=True` checks the frames model's options in place of the
+    fusion model's."""
     todo = [
         (cfg.rnn_cell != "lstm", f"--rnn_cell {cfg.rnn_cell}", "M2"),
         (cfg.mask_head, "--mask_head", "queue 2, K4"),
         (cfg.use_polar, "--use_polar", "queue 2, K4"),
-        (cfg.fusion_encode != "window", "--fusion_encode full", "M4"),
-        (cfg.pgram_cache, "--pgram_cache", "M4"),
         (cfg.compress_audio, "--compress_audio", "M9 (ops/audio.py)"),
         (cfg.attn_diff, "--attn_diff", "M4"),
         (cfg.dtype != "float32", f"--dtype {cfg.dtype}", "M5 (bf16 slice)"),
     ]
+    if frames:
+        todo += [
+            (cfg.frames_encode != "window",
+             f"--frames_encode {cfg.frames_encode}", "M7-rest"),
+            (cfg.frames_halo > 0, "--frames_halo", "M7-rest"),
+        ]
+    else:
+        todo += [
+            (cfg.fusion_encode != "window", "--fusion_encode full", "M4"),
+            (cfg.pgram_cache, "--pgram_cache", "M4"),
+        ]
     if train:
         todo += [
-            (cfg.microbatch > 1, f"--microbatch {cfg.microbatch}", "M3-rest"),
+            (cfg.microbatch > 1, f"--microbatch {cfg.microbatch}",
+             "M7-rest" if frames else "M3-rest"),
             (cfg.remat, "--remat", "M3-rest"),
             (bool(cfg.noise_schedule), "--noise_schedule", "M3-rest"),
             (cfg.lr_schedule != "constant",
@@ -79,9 +94,8 @@ def init_flax_like(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(mod, nn.ConvTranspose2d):  # weight [in, out, kh, kw]
             kh, kw = mod.kernel_size
             _lecun_normal_(mod.weight, mod.weight.shape[0] * kh * kw, generator)
-        elif isinstance(mod, nn.Conv2d):  # weight [out, in, kh, kw]
-            kh, kw = mod.kernel_size
-            _lecun_normal_(mod.weight, mod.weight.shape[1] * kh * kw, generator)
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d)):  # weight [out, in, k..]
+            _lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
         elif isinstance(mod, nn.Linear):
             _lecun_normal_(mod.weight, mod.in_features, generator)
         elif isinstance(mod, LSTM):
@@ -123,4 +137,41 @@ def build_fusion_state(cfg: RunConfig, batch_size: int, device="cuda",
     with the --opt_kernel gate; the model is left in train mode."""
     check_supported(cfg, train=True)
     model = build_fusion(cfg, batch_size, device, generator)
+    return model, create_train_state(model, cfg, device)
+
+
+def build_frames_model(cfg: RunConfig, batch_size: int,
+                       frame_size: Optional[int] = None,
+                       latent_channels: int = 16, device="cuda",
+                       generator: Optional[torch.Generator] = None
+                       ) -> AVFusionFramesModel:
+    """The frames model for `cfg` (maavss_tpu/train/setup.py:262-281: the
+    untrimmed STFT, F = fft_len/2 + 1; frames at `frame_size`, default
+    cfg.framesize; latent width 16, the JAX function's default, not
+    cfg.latent_chan), seeded-initialised as `build_fusion`, on `device`, in
+    eval mode."""
+    check_supported(cfg, frames=True)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    frame_size = frame_size or cfg.framesize
+    t_stft = cfg.hops_per_frame * cfg.num_frames
+    model = AVFusionFramesModel(
+        stft_shape=(batch_size, 2, t_stft, cfg.fft_len // 2 + 1),
+        frame_shape=(batch_size, 1, cfg.num_frames, frame_size, frame_size),
+        hops_per_frame=cfg.hops_per_frame, latent_channels=latent_channels,
+        rnn_cell=cfg.rnn_cell, mask_head=cfg.mask_head)
+    init_flax_like(model, generator)
+    return model.to(device).eval()
+
+
+def build_frames_state(cfg: RunConfig, batch_size: int,
+                       frame_size: Optional[int] = None,
+                       latent_channels: int = 16, device="cuda",
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[AVFusionFramesModel, TrainState]:
+    """(frames model, train state) on `device`: `build_frames_model` and
+    Adam with the --opt_kernel gate; the model is left in train mode."""
+    check_supported(cfg, train=True, frames=True)
+    model = build_frames_model(cfg, batch_size, frame_size, latent_channels,
+                               device, generator)
     return model, create_train_state(model, cfg, device)

@@ -1,6 +1,6 @@
-"""The fusion model's train step and eval pass (counterpart of
-maavss_tpu/train/steps.py:make_fusion_step and make_fusion_eval, with their
-helpers).
+"""The fusion model's train step and eval pass, and the frames model's
+train step (counterpart of maavss_tpu/train/steps.py:make_fusion_step,
+make_fusion_eval and make_frames_step, with their helpers).
 
 `make_fusion_step(model, cfg)` returns `step(state, batch, mode,
 generator=None) -> (state, metrics)`, the whole per-step pipeline on the
@@ -25,8 +25,15 @@ inactive input is multiplied by 0, as the reference zeroes its tensors. The
 metrics are those of `_watch_metrics` plus loss, a_loss and v_loss (the
 mean over windows), as 0-d tensors on the device.
 
+`make_frames_step(model, cfg)` is the frames model's window-mode step: each
+of the num_seq windows encodes its num_frames raw frames and predicts the
+middle frame's hops_per_frame STFT columns (untrimmed, F = fft_len/2 + 1)
+and that attention frame; one `.backward()` per window, as the fusion scan
+step.
+
 Not ported yet, and raising NotImplementedError: `--microbatch > 1`,
-`--fusion_encode full`, `--remat`, `--noise_schedule` (ROADMAP M3-rest) and
+`--fusion_encode full`, `--remat`, `--noise_schedule` (ROADMAP M3-rest),
+`--frames_encode full` and `--frames_halo` (M7-rest) and
 `--steps_per_dispatch > 1` (ROADMAP M5, CUDA graphs).
 """
 
@@ -54,7 +61,9 @@ def _watch_metrics(model: torch.nn.Module) -> Metrics:
     norm of each top-level module (maavss_tpu/train/steps.py:65-75). A
     parameter without a gradient counts as a zero gradient, as jax.grad
     gives one. The per-leaf norms come from one multi-tensor call each
-    (`torch._foreach_norm`), not three launches per leaf."""
+    (`torch._foreach_norm`), not three launches per leaf. The norms
+    accumulate in fp64: on the CPU, torch's fp32 norm of a 16.7 M-element
+    leaf (the frames model's fc1) is off by ~6e-4 relative."""
     params, grads = [], []
     spans: Dict[str, list] = {}  # module -> [start, end) runs in `grads`
     for name, p in model.named_parameters():
@@ -66,15 +75,16 @@ def _watch_metrics(model: torch.nn.Module) -> Metrics:
             else:
                 runs.append([len(grads), len(grads) + 1])
             grads.append(p.grad)
-    p_sq = torch.stack(torch._foreach_norm(params)).square()
-    g_sq = torch.stack(torch._foreach_norm(grads)).square() if grads \
-        else p_sq[:0]
+    f64 = torch.float64
+    p_sq = torch.stack(torch._foreach_norm(params, 2, dtype=f64)).square()
+    g_sq = torch.stack(torch._foreach_norm(grads, 2, dtype=f64)).square() \
+        if grads else p_sq[:0]
     m = {"grad_norm": torch.sqrt(g_sq.sum()),
          "param_norm": torch.sqrt(p_sq.sum())}
     for k, runs in spans.items():
         m[f"grad_norm/{k}"] = torch.sqrt(
             sum((g_sq[a:b].sum() for a, b in runs), g_sq[:0].sum()))
-    return m
+    return {k: v.float() for k, v in m.items()}
 
 
 def norm_per_example(feats: torch.Tensor) -> torch.Tensor:
@@ -123,13 +133,16 @@ def _pflat_from_batch(batch, cfg: RunConfig) -> torch.Tensor:
     return phasegram_cumsum(frames, resize=resize)
 
 
-def _masks(mode: int, objective_zeros: bool) -> Tuple[float, float, float]:
-    """(audio-input, visual-input, audio-target) multipliers for `mode`
-    (maavss_tpu/train/steps.py:487-490)."""
+def _masks(mode: int, objective_zeros: bool
+           ) -> Tuple[float, float, float, float]:
+    """(audio-input, visual-input, audio-target, visual-target) multipliers
+    for `mode` (maavss_tpu/train/steps.py:487-490 and :914-917; the fusion
+    objective has no visual-target mask)."""
     mode = int(mode)
     return (0.0 if mode == 1 else 1.0,
             0.0 if mode == 0 else 1.0,
-            0.0 if (mode == 1 and objective_zeros) else 1.0)
+            0.0 if (mode == 1 and objective_zeros) else 1.0,
+            0.0 if (mode == 0 and objective_zeros) else 1.0)
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
@@ -157,7 +170,7 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
         return x_full, y_full, _pflat_from_batch(batch, cfg)
 
     def losses(state, xs, ys, y_pg, masks):
-        a_mask, v_mask, ya_mask = masks
+        a_mask, v_mask, ya_mask, _ = masks
         yh_a, yh_v, _ = state.model(xs * a_mask, y_pg * v_mask)
         a_loss = mse(yh_a, ys * ya_mask)
         v_loss = mse(yh_v, y_pg)
@@ -212,6 +225,51 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
     return step_vectorized if window_mode == "vectorized" else step_scan
 
 
+def make_frames_step(model, cfg: RunConfig, device="cuda"):
+    """Train step for the frames model over `batch = {'audio': [B, S_total],
+    'frames': [B, T_total, H, W]}` (raw attention frames at the model's
+    framesize, uint8 or float in [0, 1]; numpy arrays or tensors, moved to
+    `device`), window mode: `step(state, batch, mode, generator=None) ->
+    (state, metrics)`, metrics as `make_fusion_step`'s
+    (maavss_tpu/train/steps.py:782-949 with --frames_encode window and
+    --microbatch 1)."""
+    check_supported(cfg, train=True, frames=True)
+    a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
+    coeff = cfg.loss_coeff
+    mid = (ns - 1) // 2  # train_avse_frames.py:105 in the reference
+
+    def step(state: TrainState, batch, mode: int,
+             generator: Optional[torch.Generator] = None):
+        state.model.train()
+        batch = _to_device(batch, device)
+        x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
+                                         trim_end=False,
+                                         max_norm=cfg.normalize_output_fft)
+        frames = frames_f32(batch["frames"]).unsqueeze(2)  # [B,T,1,H,W]
+        a_in, v_in, ya_mask, yv_mask = _masks(mode, cfg.objective_zeros)
+        state.zero_grad()
+        macc = {k: torch.zeros((), device=x_full.device)
+                for k in ("loss", "a_loss", "v_loss")}
+        for j in range(ns):
+            x_v = frames[:, j:j + nf].transpose(1, 2)  # [B,1,nf,H,W]
+            y_v = frames[:, j + mid]  # [B,1,H,W]
+            xs = x_full[:, :, j * a:(j + nf) * a]
+            ys = y_full[:, :, (j + mid) * a:(j + mid + 1) * a]
+            yh_a, yh_v, _ = state.model(xs * a_in, x_v * v_in)
+            a_loss = mse(yh_a, ys * ya_mask)
+            v_loss = mse(yh_v, y_v * yv_mask)
+            loss = a_loss + coeff * v_loss
+            (loss / ns).backward()
+            for k, v in (("loss", loss), ("a_loss", a_loss),
+                         ("v_loss", v_loss)):
+                macc[k] = macc[k] + v.detach() / ns
+        macc.update(_watch_metrics(state.model))
+        state.apply_gradients()
+        return state, macc
+
+    return step
+
+
 def make_fusion_eval(model, cfg: RunConfig, device="cuda"):
     """Validation pass: the same windowed objective, no gradients, BatchNorm
     with the running statistics (maavss_tpu/train/steps.py:991-1037).
@@ -231,7 +289,7 @@ def make_fusion_eval(model, cfg: RunConfig, device="cuda"):
             x_full, y_full = _prep_stft_pair(
                 batch["audio"], cfg, generator, trim_end=True,
                 max_norm=cfg.normalize_output_fft)
-            a_mask, v_mask, _ = _masks(mode, False)
+            a_mask, v_mask, _, _ = _masks(mode, False)
             p_flat = _pflat_from_batch(batch, cfg)
             out = {k: torch.zeros((), device=x_full.device)
                    for k in ("loss", "a_loss", "v_loss")}

@@ -1,0 +1,221 @@
+"""The port's fused BN + 2x2 max pool + LeakyReLU epilogue
+(maavss_tpu_torch/ops/cuda_epilogue.py: the plain forward and explicit
+backward, and the autograd Function around them) against the JAX package's
+`fused_bn_phasemax_leaky` in interpret mode, on the same numpy inputs.
+
+The port reads the conv output as NCDHW [B, C, T, H, W]; JAX reads it
+space-to-depth folded, [B, T, H/2, W/2, 4C] with channel ph*C + c, ph =
+2*py + px (layers.space_to_depth_2x2). The tests map one onto the other.
+
+Tolerances are those of tests/test_pallas_epilogue.py:64-99: out and var
+1e-5, mu 1e-6; the VJP (dy, dgamma, dbeta, with cotangents on out, mu and
+var) rtol 2e-4, atol 2e-5. C in {16, 32}, the frames encoder's stage-0 and
+stage-1 widths, with a third of gamma negative (the min branch).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from maavss_tpu.models.layers import space_to_depth_2x2
+from maavss_tpu.ops.pallas_epilogue import fused_bn_phasemax_leaky
+from maavss_tpu_torch.ops.cuda_epilogue import (
+    epilogue_apply,
+    epilogue_apply_plain,
+    epilogue_bwd_dy,
+    epilogue_bwd_dy_plain,
+    epilogue_bwd_reduce,
+    epilogue_bwd_reduce_plain,
+    epilogue_stats,
+    epilogue_stats_plain,
+    fused_bn_pool_leaky,
+    fused_bn_pool_leaky_plain,
+)
+
+SHAPE = (2, 3, 8, 12)  # B, T, H, W
+
+
+def _inputs(c, seed, ties=False):
+    rng = np.random.default_rng(seed)
+    b, t, h, w = SHAPE
+    y = rng.standard_normal((b, c, t, h, w)) * 0.7
+    if ties:
+        # a coarse grid: about a third of the 2x2 windows hold their max or
+        # min more than once, so the gradient's routing decides the result
+        y = np.round(y * 2.0) / 2.0
+    g = rng.standard_normal(c) * 0.8
+    g[: c // 3] = -np.abs(g[: c // 3]) - 0.1
+    beta = rng.standard_normal(c) * 0.3
+    return (y.astype(np.float32), g.astype(np.float32),
+            beta.astype(np.float32))
+
+
+def _to_jax(y):
+    """NCDHW [B, C, T, H, W] -> JAX's phase-major [B, T, H/2, W/2, 4C]."""
+    return space_to_depth_2x2(jnp.moveaxis(jnp.asarray(y), 1, -1))
+
+
+def _from_jax_pooled(o):
+    """[B, T, H/2, W/2, C] -> [B, C, T, H/2, W/2]."""
+    return np.moveaxis(np.asarray(o), -1, 1)
+
+
+def _from_jax_full(d):
+    """Inverse of `_to_jax` on a gradient: [B, T, H/2, W/2, 4C] -> NCDHW."""
+    b, t, h2, w2, c4 = d.shape
+    c = c4 // 4
+    d = np.asarray(d).reshape(b, t, h2, w2, 2, 2, c)
+    d = d.transpose(0, 6, 1, 2, 4, 3, 5)  # b c t h2 py w2 px
+    return d.reshape(b, c, t, 2 * h2, 2 * w2)
+
+
+@pytest.mark.parametrize("c", [16, 32])
+def test_forward_matches_jax(c):
+    y, gamma, beta = _inputs(c, seed=c)
+    out_j, mu_j, var_j = fused_bn_phasemax_leaky(_to_jax(y), gamma, beta)
+    out, mu, var = fused_bn_pool_leaky(*map(torch.from_numpy,
+                                            (y, gamma, beta)))
+    np.testing.assert_allclose(mu.numpy(), mu_j, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), var_j, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), _from_jax_pooled(out_j),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _vjp_case(c, seed, ties):
+    y, gamma, beta = _inputs(c, seed, ties)
+    b, t, h, w = SHAPE
+    rng = np.random.default_rng(99 + seed)
+    w_out = rng.standard_normal((b, c, t, h // 2, w // 2)).astype(np.float32)
+    w_mu, w_var = (rng.standard_normal(c).astype(np.float32) for _ in range(2))
+
+    def loss_j(yj, gm, bt):
+        out, mu, var = fused_bn_phasemax_leaky(yj, gm, bt)
+        return (jnp.sum(out * jnp.moveaxis(jnp.asarray(w_out), 1, -1))
+                + jnp.sum(mu * w_mu) + jnp.sum(var * w_var))
+
+    want = jax.grad(loss_j, argnums=(0, 1, 2))(_to_jax(y), gamma, beta)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (y, gamma, beta)]
+    out, mu, var = fused_bn_pool_leaky(*leaves)
+    (torch.sum(out * torch.from_numpy(w_out))
+     + torch.sum(mu * torch.from_numpy(w_mu))
+     + torch.sum(var * torch.from_numpy(w_var))).backward()
+    got = [leaf.grad.numpy() for leaf in leaves]
+    return got, [_from_jax_full(want[0]), np.asarray(want[1]),
+                 np.asarray(want[2])], y
+
+
+@pytest.mark.parametrize("c", [16, 32])
+def test_full_vjp_matches_jax(c):
+    got, want, _ = _vjp_case(c, seed=10 + c, ties=False)
+    for a, b, name in zip(got, want, ("dy", "dgamma", "dbeta")):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+def test_exact_ties_route_like_jax():
+    """With about a third of the windows tied, the gradient of each window
+    reaches the same (first-matching) phase in both packages."""
+    got, want, y = _vjp_case(16, seed=3, ties=True)
+    y4 = y.reshape(y.shape[:3] + (y.shape[3] // 2, 2, y.shape[4] // 2, 2))
+    m = y4.max(axis=(4, 6), keepdims=True)
+    assert ((y4 == m).sum(axis=(4, 6)) > 1).mean() > 0.2  # ties are common
+    for a, b, name in zip(got, want, ("dy", "dgamma", "dbeta")):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+def test_explicit_backward_matches_autograd_of_plain_forward():
+    """Without ties, the explicit backward equals autograd through the plain
+    forward (BN statistics with their own gradients, max/min pooling)."""
+    y, gamma, beta = _inputs(16, seed=5)
+    leaves = [torch.from_numpy(a).double().requires_grad_(True)
+              for a in (y, gamma, beta)]
+    rng = np.random.default_rng(6)
+    w_out = torch.from_numpy(rng.standard_normal(
+        (2, 16, 3, 4, 6)).astype(np.float32))
+
+    def unfused(yy, gm, bt):
+        mu = yy.mean(dim=(0, 2, 3, 4))
+        var = (yy * yy).mean(dim=(0, 2, 3, 4)) - mu * mu
+        z = ((yy - mu.view(1, -1, 1, 1, 1)) * torch.rsqrt(var + 1e-5).view(
+            1, -1, 1, 1, 1) * gm.view(1, -1, 1, 1, 1) + bt.view(1, -1, 1, 1, 1))
+        pooled = torch.nn.functional.max_pool3d(z, (1, 2, 2))
+        return torch.nn.functional.leaky_relu(pooled, 0.01), mu, var
+
+    out, mu, var = unfused(*leaves)
+    (torch.sum(out * w_out.double()) + mu.sum() + 2.0 * var.sum()).backward()
+    want = [leaf.grad.float() for leaf in leaves]
+    leaves32 = [torch.from_numpy(a).requires_grad_(True)
+                for a in (y, gamma, beta)]
+    out32, mu32, var32 = fused_bn_pool_leaky(*leaves32)
+    (torch.sum(out32 * w_out) + mu32.sum() + 2.0 * var32.sum()).backward()
+    torch.testing.assert_close(out32, out.float(), rtol=1e-5, atol=1e-5)
+    for leaf, w in zip(leaves32, want):
+        torch.testing.assert_close(leaf.grad, w, rtol=2e-4, atol=2e-5)
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    y, gamma, beta = map(torch.from_numpy, _inputs(16, seed=7))
+    counters = (epilogue_stats, epilogue_apply, epilogue_bwd_reduce,
+                epilogue_bwd_dy)
+    for c in counters:
+        c.launches = 0
+    mu, var, rstd = epilogue_stats(y)
+    for a, b in zip((mu, var, rstd), epilogue_stats_plain(y)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    out, sel = epilogue_apply(y, gamma, beta, mu, rstd)
+    g = torch.ones_like(out)
+    z = torch.zeros(16)
+    red = epilogue_bwd_reduce(g, sel, gamma, beta, mu, rstd, z, z)
+    for a, b in zip(red, epilogue_bwd_reduce_plain(g, sel, gamma, beta, mu,
+                                                   rstd, z, z)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    dy = epilogue_bwd_dy(y, g, sel, gamma, beta, mu, rstd, red[2])
+    torch.testing.assert_close(dy, epilogue_bwd_dy_plain(
+        y, g, sel, gamma, beta, mu, rstd, red[2]), rtol=0, atol=0)
+    assert [c.launches for c in counters] == [0, 0, 0, 0]
+    with pytest.raises(ValueError, match="even"):
+        epilogue_stats(y[..., :11])
+
+
+def test_plain_function_is_the_cpu_path():
+    """`fused_bn_pool_leaky_plain`, the reference the kernels are held
+    against on the card, is what `fused_bn_pool_leaky` runs on the CPU:
+    the same outputs and gradients, bit for bit."""
+    y, gamma, beta = _inputs(32, seed=9)
+    results = []
+    for fn in (fused_bn_pool_leaky, fused_bn_pool_leaky_plain):
+        leaves = [torch.from_numpy(a).requires_grad_(True)
+                  for a in (y, gamma, beta)]
+        out, mu, var = fn(*leaves)
+        (out.sum() + mu.sum() - var.sum()).backward()
+        results.append([out, mu, var] + [t.grad for t in leaves])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_epilogue_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs this comparison on the card")
+    y, gamma, beta = (torch.from_numpy(a).cuda()
+                      for a in _inputs(32, seed=8, ties=True))
+    mu, var, rstd = epilogue_stats(y)
+    for a, b in zip((mu, var, rstd), epilogue_stats_plain(y)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    out, sel = epilogue_apply(y, gamma, beta, mu, rstd)
+    out_p, sel_p = epilogue_apply_plain(y, gamma, beta, mu, rstd)
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sel, sel_p, rtol=0, atol=0)
+    g = torch.randn_like(out)
+    gm, gv = torch.randn_like(mu), torch.randn_like(mu)
+    red = epilogue_bwd_reduce(g, sel, gamma, beta, mu, rstd, gm, gv)
+    red_p = epilogue_bwd_reduce_plain(g, sel, gamma, beta, mu, rstd, gm, gv)
+    for a, b in zip(red, red_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    dy = epilogue_bwd_dy(y, g, sel, gamma, beta, mu, rstd, red_p[2])
+    dy_p = epilogue_bwd_dy_plain(y, g, sel, gamma, beta, mu, rstd, red_p[2])
+    torch.testing.assert_close(dy, dy_p, rtol=1e-5, atol=1e-5)

@@ -1,9 +1,9 @@
 """Guards of the PyTorch port `maavss_tpu_torch`: it never loads jax, its
-copies of the JAX package's plain-Python modules stay equal to their
-originals, the weight converter covers the whole flax tree both ways, the
-kernel wrappers take their plain versions on CPU tensors only, the entry
-points default to the card, and chip_smoke.py refuses to run without a
-card."""
+copies of the JAX package's plain-Python modules (the fusion and frames
+planners included) stay equal to their originals, the weight converter
+covers the whole flax tree both ways, the kernel wrappers take their plain
+versions on CPU tensors only, the entry points default to the card, and
+chip_smoke.py refuses to run without a card."""
 
 import dataclasses
 import inspect
@@ -50,7 +50,11 @@ from maavss_tpu_torch.ops.cuda_pgenc import (
 from maavss_tpu_torch.train import setup as port_setup
 from maavss_tpu_torch.train import state as port_state
 from maavss_tpu_torch.train import steps as port_steps
-from maavss_tpu_torch.train.setup import build_fusion
+from maavss_tpu_torch.train.setup import (
+    build_frames_model,
+    build_frames_state,
+    build_fusion,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,
@@ -67,10 +71,12 @@ def test_port_imports_without_jax():
         "bad = [m for m in ('jax', 'flax', 'optax', 'maavss_tpu') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 27, names\n"
+        "assert len(names) >= 29, names\n"
         "new = {'maavss_tpu_torch.ops.cuda_adam', "
         "'maavss_tpu_torch.train.fused_adam', 'maavss_tpu_torch.train.state', "
-        "'maavss_tpu_torch.train.steps', 'maavss_tpu_torch.data.synthetic'}\n"
+        "'maavss_tpu_torch.train.steps', 'maavss_tpu_torch.data.synthetic', "
+        "'maavss_tpu_torch.ops.cuda_epilogue', "
+        "'maavss_tpu_torch.models.fusion_frames'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -85,6 +91,8 @@ def test_port_imports_without_jax():
      "--fc_size", "256", "--num_frames", "4", "--pgenc_kernel", "pallas"],
     ["--rnn_cell", "gru", "--mask_head", "--use_polar", "true",
      "--fusion_encode", "full", "--dtype", "bfloat16", "-a", "4"],
+    ["--framesize", "24", "--frames_encode", "full", "--frames_halo", "1",
+     "--objective_zeros", "true", "--num_seq", "2", "--microbatch", "2"],
 ])
 def test_config_copy_parses_like_jax(argv):
     jax_cfg = jax_config.model_args(argv)
@@ -113,6 +121,24 @@ def test_shape_plan_copy_matches_jax(geom):
                                                 geom["latent"])
         plans.append([[dataclasses.astuple(s) for s in p]
                       for p in (enc, dec, a_enc, a_dec)] + [hw, a_hw])
+    assert plans[0] == plans[1]
+
+
+@pytest.mark.parametrize("geom", [
+    dict(fs=256, nf=8, fft=256, a=8, latent=16),  # flagship
+    dict(fs=24, nf=2, fft=64, a=4, latent=8),  # the frames tests' geometry
+    dict(fs=96, nf=4, fft=128, a=4, latent=16),
+])
+def test_frames_shape_plan_copy_matches_jax(geom):
+    st_shape = (2, 2, geom["a"] * geom["nf"], geom["fft"] // 2 + 1)
+    plans = []
+    for mod in (jax_plan, port_plan):
+        hw = mod.frames_visual_encoder_out_hw(geom["fs"])
+        enc, a_hw = mod.plan_stft_encoder_frames(st_shape, (geom["nf"], hw * hw),
+                                                 geom["latent"])
+        dec, _ = mod.plan_stft_decoder_frames(a_hw, st_shape, geom["latent"])
+        plans.append([[dataclasses.astuple(s) for s in p] for p in (enc, dec)]
+                     + [hw, a_hw])
     assert plans[0] == plans[1]
 
 
@@ -259,7 +285,8 @@ def test_to_flax_round_trip_on_flagship_tree():
 def test_entry_points_default_to_cuda():
     for fn in (build_fusion, port_setup.build_fusion_state,
                port_state.create_train_state, port_steps.make_fusion_step,
-               port_steps.make_fusion_eval):
+               port_steps.make_fusion_eval, build_frames_model,
+               build_frames_state, port_steps.make_frames_step):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__name__
     if not torch.cuda.is_available():
@@ -267,10 +294,12 @@ def test_entry_points_default_to_cuda():
             build_fusion(port_config.RunConfig(**SMALL), 2)
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["CUDA_VISIBLE_DEVICES"] = ""
-        out = subprocess.run([sys.executable, "tools/train_torch.py", "-s",
-                              "1"], cwd=ROOT, env=env, capture_output=True,
-                             text=True, timeout=120)
-        assert out.returncode != 0 and "CUDA is not available" in out.stderr
+        for argv in (["-s", "1"], ["--model", "frames", "-s", "1"]):
+            out = subprocess.run([sys.executable, "tools/train_torch.py",
+                                  *argv], cwd=ROOT, env=env,
+                                 capture_output=True, text=True, timeout=120)
+            assert out.returncode != 0
+            assert "CUDA is not available" in out.stderr
 
 
 def _run_chip_smoke(cwd):

@@ -2,20 +2,22 @@
 """Serving daemon of the PyTorch port: HTTP separation endpoint with dynamic
 batching, on one CUDA device (the port's counterpart of tools/serve.py).
 
-Keeps the fusion model's weights on the device, coalesces concurrent
-requests into batches of `--batch_size` rows, and serves:
+Keeps the model's weights on the device, coalesces concurrent requests
+into batches of `--batch_size` rows, and serves:
 
   POST /v1/separate   npz{audio [b,S], visual [b,T,p,p]}  ->  npz{audio_out [b,S]}
+                      (--model frames: visual uint8 [b,T,framesize,framesize])
   GET  /healthz       geometry + input specs
   GET  /stats         request/batch counters + latency percentiles
 
 `--weights file.npz` loads a flax checkpoint saved with
 maavss_tpu_torch.convert.save_npz; without it the weights are a seeded
-init (--seed). The model is the fusion model only; its CUDA kernels build on
-the first request's launch (or at startup, through a warm-up call).
+init (--seed). `--model` picks the fusion model (default) or the frames
+model (latent width 16, frames at --framesize). The CUDA kernels build at
+startup, through a warm-up call.
 
-Usage: python tools/serve_torch.py [--port 8423] [--max_wait_ms 5]
-       [--weights w.npz] [--device cuda] [model flags...]
+Usage: python tools/serve_torch.py [--model fusion|frames] [--port 8423]
+       [--max_wait_ms 5] [--weights w.npz] [--device cuda] [model flags...]
 """
 
 from __future__ import annotations
@@ -41,9 +43,7 @@ def main() -> None:
                      help="flax weights as npz (convert.save_npz)")
     pre.add_argument("--device", default="cuda")
     own, rest = pre.parse_known_args()
-    if own.model == "frames":
-        raise NotImplementedError("the frames model is not ported to "
-                                  "maavss_tpu_torch yet (ROADMAP M7)")
+    frames_model = own.model == "frames"
 
     import torch
 
@@ -53,23 +53,25 @@ def main() -> None:
         make_serving_fn, random_serving_inputs, serving_input_specs,
     )
     from maavss_tpu_torch.exp.serving import BatchingExecutor, SeparationServer
-    from maavss_tpu_torch.train.setup import build_fusion
+    from maavss_tpu_torch.train.setup import build_frames_model, build_fusion
 
     cfg = model_args(rest)
     device = torch.device(own.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("serve_torch: CUDA is not available (pass --device "
                          "cpu to serve with the plain PyTorch versions)")
-    model = build_fusion(cfg, cfg.batch_size, device)
+    build = build_frames_model if frames_model else build_fusion
+    model = build(cfg, cfg.batch_size, device=device)
     if own.weights:
         params, batch_stats = load_npz(own.weights)
         model.load_state_dict(from_flax(params, batch_stats), strict=True)
-    serving_fn = make_serving_fn(model, cfg)
-    audio_spec, visual_spec = serving_input_specs(cfg, cfg.batch_size)
+    serving_fn = make_serving_fn(model, cfg, frames_model)
+    audio_spec, visual_spec = serving_input_specs(cfg, cfg.batch_size,
+                                                  frames_model)
     # warm-up: builds the kernels and the library handles before the first
     # request arrives
-    serving_fn(*[torch.from_numpy(x).to(device)
-                 for x in random_serving_inputs(cfg, cfg.batch_size)])
+    serving_fn(*[torch.from_numpy(x).to(device) for x in
+                 random_serving_inputs(cfg, cfg.batch_size, frames_model)])
     executor = BatchingExecutor(serving_fn, cfg.batch_size, audio_spec,
                                 visual_spec, device,
                                 max_wait_ms=own.max_wait_ms)

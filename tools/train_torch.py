@@ -1,20 +1,26 @@
 #!/usr/bin/env python
-"""Train the fusion model with the PyTorch port for a few steps on synthetic
-batches (the port's counterpart of `train.py --data_path synthetic`, up to
-the trainer, which is ROADMAP M6).
+"""Train the fusion or frames model with the PyTorch port for a few steps on
+synthetic batches (the port's counterpart of `train.py` and
+`train_avse_frames.py` with `--data_path synthetic`, up to the trainer,
+which is ROADMAP M6).
 
 Builds the model and its train state on the card (`--device cpu` runs the
 plain PyTorch versions on the CPU), then takes `-s` steps of
-`make_fusion_step` in mode 2 (audio + visual; the mode curriculum comes with
-the trainer) on `synthetic_av_batch` batches seeded `--seed + step`. Prints
+`make_fusion_step` (`--model fusion`, the default) or `make_frames_step`
+(`--model frames`: latent width 16, frames at --framesize) in mode 2
+(audio + visual; the mode curriculum comes with the trainer) on
+`synthetic_av_batch` batches seeded `--seed + step`. Prints
 one JSON line per step (loss, a_loss, v_loss, grad_norm, ms), then a final
 line with the steps, the mean step time over the steps after the first (the
 first builds the kernels) and clips/s.
 
-Usage: python tools/train_torch.py [-s 3] [--device cuda] [model flags...]
+Usage: python tools/train_torch.py [--model fusion|frames] [-s 3]
+       [--device cuda] [model flags...]
   e.g. on the CPU at the small geometry:
   python tools/train_torch.py --device cpu -s 3 -b 2 --num_frames 4
       --fft_len 64 --p_size 16 --latent_chan 8 --fc_size 256 -lr 1e-3
+  python tools/train_torch.py --model frames --device cpu -s 3 -b 2
+      --num_frames 2 --num_seq 2 -a 4 --fft_len 64 --framesize 24 -lr 1e-3
 """
 
 from __future__ import annotations
@@ -30,15 +36,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main(argv=None) -> None:
     pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--model", choices=("fusion", "frames"),
+                     default="fusion")
     pre.add_argument("--device", default="cuda")
     own, rest = pre.parse_known_args(argv)
+    frames_model = own.model == "frames"
 
     import torch
 
     from maavss_tpu_torch.config import model_args
     from maavss_tpu_torch.data.synthetic import synthetic_av_batch
-    from maavss_tpu_torch.train.setup import build_fusion_state
-    from maavss_tpu_torch.train.steps import make_fusion_step
+    from maavss_tpu_torch.train.setup import (
+        build_frames_state,
+        build_fusion_state,
+    )
+    from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
 
     cfg = model_args(rest)
     device = torch.device(own.device)
@@ -49,9 +61,15 @@ def main(argv=None) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    _, state = build_fusion_state(cfg, cfg.batch_size, device,
-                                  torch.Generator().manual_seed(cfg.seed))
-    step = make_fusion_step(state.model, cfg, device=device)
+    init = torch.Generator().manual_seed(cfg.seed)
+    if frames_model:
+        _, state = build_frames_state(cfg, cfg.batch_size, device=device,
+                                      generator=init)
+        step = make_frames_step(state.model, cfg, device=device)
+    else:
+        _, state = build_fusion_state(cfg, cfg.batch_size, device, init)
+        step = make_fusion_step(state.model, cfg, device=device)
+    frame_size = cfg.framesize if frames_model else None
 
     def sync():
         if device.type == "cuda":
@@ -59,7 +77,8 @@ def main(argv=None) -> None:
 
     times = []
     for i in range(cfg.steps_per_epoch):
-        batch = synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i)
+        batch = synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i,
+                                   frame_size=frame_size)
         sync()
         t0 = time.perf_counter()
         state, metrics = step(state, batch, 2, generator)
@@ -77,7 +96,8 @@ def main(argv=None) -> None:
         "clips_per_s": cfg.batch_size / (mean_ms / 1e3),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
-        "window_mode": cfg.window_mode, "batch": cfg.batch_size}),
+        "model": own.model, "window_mode": cfg.window_mode,
+        "batch": cfg.batch_size}),
         flush=True)
 
 
