@@ -50,6 +50,21 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 15. frames_golden: the small-geometry JAX frames fixture of
    tests/fixtures/torch_port_frames_golden.npz (separator audio and 3
    train steps with K5 at stages 0 and 1), run through the kernels.
+16. k4 (K4: the complex-mask product, magphase, polar): each kernel
+   against its plain version at the flagships' shapes, on gaussian data
+   and on strided operands holding exact zeros, atan2's branch cut and
+   phases of +-pi; the mask product also in conjugate mode (its backward);
+   torch.polar timed beside the polar kernel.
+17. mask_train: --mask_head on the fusion and frames flagships, 3 steps
+   each against the plain versions (the gates of phases 10 and 13, exact
+   launch counts per step); the default-head fusion step timed in turns.
+18. mask_slice: the fusion flagship with --mask_head behind the HTTP
+   server, 8 requests checked against the plain separator.
+19. polar: --use_polar, 3 train steps of each family against the plain
+   versions, and each family's serving function against the plain one.
+20. k4_golden: the small-geometry JAX fixture of
+   tests/fixtures/torch_port_k4_golden.npz (the --mask_head separator and
+   3 train steps, the --use_polar separator), run through the kernels.
 
 The line before the last two is one JSON object with each kernel's
 launches, error, times and bound; then the nvidia-smi line; the last line
@@ -72,6 +87,7 @@ TRAIN_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
                             "torch_port_train_golden.npz")
 FRAMES_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
                              "torch_port_frames_golden.npz")
+K4_GOLDEN = os.path.join(ROOT, "tests", "fixtures", "torch_port_k4_golden.npz")
 # published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # fp32 FLOP/s outside the tensor cores (every kernel here is fp32 math)
 HBM_BYTES_PER_S = 3.35e12
@@ -1466,6 +1482,807 @@ def frames_golden_phase():
           worst_leaf_sum_rel=worst, leaves=len(meta["sums"]), tol=tol)
 
 
+def _k4_counters():
+    from maavss_tpu_torch.ops import cuda_complex as cc
+
+    return cc.mask_mul, cc.magphase_fwd, cc.polar_fwd
+
+
+def _plain_k4(fn):
+    """`fn` run with K4's plain versions (forward and explicit backward) in
+    place of its kernels, in both models and in the STFT features."""
+    from maavss_tpu_torch.models import fusion, fusion_frames
+    from maavss_tpu_torch.ops import cuda_complex as cc
+    from maavss_tpu_torch.ops import stft
+
+    swaps = ((fusion, "complex_mask_apply", cc.complex_mask_apply_plain),
+             (fusion_frames, "complex_mask_apply",
+              cc.complex_mask_apply_plain),
+             (stft, "magphase", cc.magphase_plain),
+             (stft, "polar_to_rect", cc.polar_to_rect_plain))
+
+    def run(*args):
+        kept = [getattr(mod, name) for mod, name, _ in swaps]
+        for mod, name, plain in swaps:
+            setattr(mod, name, plain)
+        try:
+            return fn(*args)
+        finally:
+            for (mod, name, _), k in zip(swaps, kept):
+                setattr(mod, name, k)
+    return run
+
+
+# (the tensor an operand is sliced from, the slice along T) at the two
+# flagships: the fusion window of the clip's STFT (T 96, window 64 at hop
+# 16 of the 2nd window) and the frames model's middle-frame columns of its
+# window (T 64, frame 1 of 8 hops); the whole clip for magphase and polar
+K4_MASK = (((8, 2, 96, 128), slice(16, 80)), ((8, 2, 64, 129), slice(8, 16)))
+K4_CLIP = ((8, 2, 96, 128), (8, 2, 96, 129))
+
+
+def _k4_special(x, g):
+    """x with the cases a kernel must not get wrong: exact zeros (both
+    planes), negative real parts with imaginary parts +0.0 and -0.0 (atan2's
+    branch cut: +pi and -pi), and phases of exactly +-pi and +-0."""
+    import torch
+
+    u = torch.rand(x.shape[:-3] + x.shape[-2:], device="cuda", generator=g)
+    re, im = x[..., 0, :, :], x[..., 1, :, :]
+    re[u < 0.1] = 0.0
+    im[u < 0.1] = 0.0
+    cut = (u >= 0.1) & (u < 0.3)
+    re[cut] = -re[cut].abs() - 0.01
+    im[cut & (u < 0.2)] = 0.0
+    im[cut & (u >= 0.2)] = -0.0
+    im[(u >= 0.3) & (u < 0.35)] = math.pi
+    im[(u >= 0.35) & (u < 0.4)] = -math.pi
+    return x
+
+
+def k4_phase():
+    """K4's three kernels against their plain versions at the flagships'
+    shapes (K4_MASK, K4_CLIP), each on gaussian data and on `_k4_special`
+    data through strided (sliced) operands, the mask product forward and
+    in conjugate mode (its backward). Tolerance relative L2 1e-6 (each
+    product and sum is rounded as the plain version rounds it; atan2f,
+    sqrtf and sincosf against PyTorch's CUDA functions); the branch-cut
+    bins' phases must equal +-pi exactly, by the sign of the zero. Times
+    (gaussian, main-path layout) are median of 5 x 20 calls; bound = the
+    bytes each call must move over 3.35 TB/s; torch.polar timed beside the
+    polar kernel (it writes interleaved complex)."""
+    import torch
+
+    from maavss_tpu_torch.ops.cuda_complex import (
+        magphase_fwd,
+        magphase_fwd_plain,
+        mask_mul,
+        mask_mul_plain,
+        polar_fwd,
+        polar_fwd_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    tol = 1e-6
+    rep = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0,
+                   library_ms=None) for n in ("mask_mul", "magphase", "polar")}
+
+    def account(name, kernel, plain, n_bytes, flops, lib=None):
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        r = rep[name]
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bytes"] += n_bytes
+        r["flops"] += flops
+        if lib is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + cuda_ms(lib)
+        return ms, plain_ms
+
+    for full, win in K4_MASK:
+        for special in (False, True):
+            x = torch.randn(full, device="cuda", generator=g)
+            m_full = torch.randn(full, device="cuda", generator=g)
+            if special:
+                x, m_full = _k4_special(x, g), _k4_special(m_full, g)
+            a = x[:, :, win]  # strided, as the models read it
+            # the mask is the head's contiguous output; the special case
+            # reads a strided slice
+            b = m_full[:, :, win] if special else m_full[:, :, win].clone()
+            gr = torch.randn(a.shape, device="cuda", generator=g)
+            where = f"{tuple(a.shape)} {'special' if special else 'gaussian'}"
+            errs = []
+            for args in ((a, b, False), (gr, a, True)):
+                got, want = mask_mul(*args), mask_mul_plain(*args)
+                torch.cuda.synchronize()
+                errs.append(_rel_check(f"K4 mask_mul conj={args[2]} {where}",
+                                       got, want, tol))
+            rep["mask_mul"]["err"] = max(rep["mask_mul"]["err"], *errs)
+            times = {}
+            if not special:
+                n_bytes = 3 * a.numel() * 4
+                times["fwd"] = account(
+                    "mask_mul", lambda: mask_mul(a, b),
+                    lambda: mask_mul_plain(a, b), n_bytes, 3 * a.numel())
+                times["conj"] = (cuda_ms(lambda: mask_mul(gr, a, True)),
+                                 cuda_ms(lambda: mask_mul_plain(gr, a, True)))
+            phase("k4_mask_mul", shape=list(a.shape), special=special,
+                  operand_strides=list(a.stride()), max_abs_err=errs[0],
+                  max_abs_err_conj=errs[1], tol_rel_l2=tol,
+                  **({"ms": times["fwd"][0], "plain_ms": times["fwd"][1],
+                      "conj_ms": times["conj"][0],
+                      "conj_plain_ms": times["conj"][1],
+                      "bound_ms": bound_ms(3 * a.numel() * 4,
+                                           3 * a.numel())[0]}
+                     if times else {}))
+
+    for shape in K4_CLIP:
+        for special in (False, True):
+            big = (shape[0], 2, shape[2] + 8, shape[3])
+            x = torch.randn(big if special else shape, device="cuda",
+                            generator=g)
+            if special:
+                x = _k4_special(x, g)[:, :, 4:4 + shape[2]]  # strided
+            where = f"{shape} {'special' if special else 'gaussian'}"
+            mp, mp_p = magphase_fwd(x), magphase_fwd_plain(x)
+            rt, rt_p = polar_fwd(x), polar_fwd_plain(x)
+            torch.cuda.synchronize()
+            e_mp = _rel_check(f"K4 magphase {where}", mp, mp_p, tol)
+            e_rt = _rel_check(f"K4 polar {where}", rt, rt_p, tol)
+            n_cut = 0
+            if special:
+                re, im = x[:, 0], x[:, 1]
+                cut = (im == 0) & (re < 0)
+                want = torch.where(torch.signbit(im[cut]), -math.pi,
+                                   math.pi).float()
+                for what, ph in (("kernel", mp[:, 1]), ("plain", mp_p[:, 1])):
+                    if not torch.equal(ph[cut], want):
+                        raise SystemExit(f"K4 magphase {what}: the branch-cut"
+                                         f" phases are not +-pi at {where}")
+                zero = (re == 0) & (im == 0)
+                if not bool((mp[:, 0][zero] == 0).all()):
+                    raise SystemExit(f"K4 magphase |0| != 0 at {where}")
+                n_cut = int(cut.sum())
+            rep["magphase"]["err"] = max(rep["magphase"]["err"], e_mp)
+            rep["polar"]["err"] = max(rep["polar"]["err"], e_rt)
+            fields = {}
+            if not special:
+                n_bytes = 2 * x.numel() * 4
+                t_mp = account("magphase", lambda: magphase_fwd(x),
+                               lambda: magphase_fwd_plain(x), n_bytes,
+                               5 * x.numel() // 2)
+                t_rt = account("polar", lambda: polar_fwd(x),
+                               lambda: polar_fwd_plain(x), n_bytes,
+                               2 * x.numel(),
+                               lib=lambda: torch.polar(x[:, 0], x[:, 1]))
+                fields = dict(magphase_ms=t_mp[0], magphase_plain_ms=t_mp[1],
+                              polar_ms=t_rt[0], polar_plain_ms=t_rt[1],
+                              bound_ms=bound_ms(n_bytes, 5 * x.numel() // 2)[0])
+            phase("k4_polar", shape=list(shape), special=special,
+                  operand_strides=list(x.stride()), branch_cut_bins=n_cut,
+                  max_abs_err_magphase=e_mp, max_abs_err_polar=e_rt,
+                  tol_rel_l2=tol, **fields)
+    for r in rep.values():
+        r["bound"] = bound_ms(r["bytes"], r["flops"])
+    phase("k4", mask_shapes=[[s[0], 2, w.stop - w.start, s[3]]
+                             for s, w in K4_MASK],
+          clip_shapes=[list(s) for s in K4_CLIP],
+          **{n: {k: v for k, v in r.items() if k not in ("bytes", "flops")}
+             for n, r in rep.items()})
+    return rep
+
+
+def _fusion_counters():
+    from maavss_tpu_torch.ops.cuda_adam import adam_multi_tensor
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        lstm_recurrence,
+        lstm_recurrence_bwd,
+    )
+    from maavss_tpu_torch.ops.cuda_pgenc import pgenc_bwd, pgenc_train
+
+    return (("lstm_fwd", "lstm_bwd", "pgenc_train", "pgenc_bwd", "adam",
+             "mask_mul", "magphase", "polar"),
+            (lstm_recurrence, lstm_recurrence_bwd, pgenc_train, pgenc_bwd,
+             adam_multi_tensor, *_k4_counters()))
+
+
+def _frames_counters():
+    from maavss_tpu_torch.ops.cuda_adam import adam_multi_tensor
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        lstm_recurrence,
+        lstm_recurrence_bwd,
+    )
+
+    return (("lstm_fwd", "lstm_bwd", "adam", "epilogue_stats",
+             "epilogue_apply", "epilogue_bwd_reduce", "epilogue_bwd_dy",
+             "mask_mul", "magphase", "polar"),
+            (lstm_recurrence, lstm_recurrence_bwd, adam_multi_tensor,
+             *_epilogue_counters(), *_k4_counters()))
+
+
+def _plain_cfg(cfg, frames_model: bool, k2_plain: bool = True):
+    """cfg of the plain versions: the plain Adam formula, and ConvStack in
+    place of K2 for the fusion model unless `k2_plain` is False."""
+    if frames_model or not k2_plain:
+        return cfg.replace(opt_kernel="xla")
+    return cfg.replace(pgenc_kernel="xla", opt_kernel="xla")
+
+
+def _train_pair(cfg, frames_model: bool, k2_plain: bool = True):
+    """(model, state, step, ref, ref_state, ref_step) at batch 8: the
+    flagship of `cfg` with every kernel, and the plain versions from the same
+    state_dict (ConvStack unless `k2_plain` is False, the LSTM scan, the
+    plain Adam formula, K5's and K4's plain versions)."""
+    import torch
+
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
+
+    if frames_model:
+        build_state, build = setup.build_frames_state, setup.build_frames_model
+        make_step = make_frames_step
+    else:
+        build_state, build = setup.build_fusion_state, setup.build_fusion
+        make_step = make_fusion_step
+    plain_cfg = _plain_cfg(cfg, frames_model, k2_plain)
+    model, state = build_state(cfg, cfg.batch_size, device="cuda",
+                               generator=torch.Generator().manual_seed(
+                                   cfg.seed))
+    ref = build(plain_cfg, cfg.batch_size, device="cuda",
+                generator=torch.Generator().manual_seed(cfg.seed + 1))
+    ref.load_state_dict(model.state_dict())
+    ref.lstm.backend = "scan"
+    ref_state = create_train_state(ref, plain_cfg, "cuda")
+    ref_step = _plain_k4(make_step(ref, plain_cfg, device="cuda"))
+    if frames_model:
+        ref_step = _plain_k5(ref_step)
+    return (model, state, make_step(model, cfg, device="cuda"), ref,
+            ref_state, ref_step)
+
+
+def _grab_step1_grads(state, model):
+    """A dict that the next optimizer update of `state` fills with a copy
+    of every parameter's gradient, by state_dict name, before it updates."""
+    grads = {}
+    update = state.tx.step
+
+    def grab_then_update():
+        grads.update({n: p.grad.detach().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+        del state.tx.step  # the optimizer's own method again
+        update()
+
+    state.tx.step = grab_then_update
+    return grads
+
+
+def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True):
+    """The step-1 gradients of the plain versions once more, from `ref`'s
+    state_dict, on `batch` with its rows in reverse order and with the
+    batch statistics of every TorchBatchNorm summed in fp64: the same
+    gradients in exact arithmetic, every sum over the batch (weight
+    gradients, the loss) taken in another fp32 order, and the statistics,
+    whose E[x^2] - E[x]^2 cancels digits, without their fp32 rounding. How
+    far these stand from the plain versions' is how far the rounding of one
+    correct fp32 step moves its gradients."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.models import layers
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
+
+    plain_cfg = _plain_cfg(cfg, frames_model, k2_plain)
+    build = setup.build_frames_model if frames_model else setup.build_fusion
+    alt = build(plain_cfg, cfg.batch_size, device="cuda",
+                generator=torch.Generator().manual_seed(0))
+    alt.load_state_dict(ref.state_dict())
+    alt.lstm.backend = "scan"
+    alt_state = create_train_state(alt, plain_cfg, "cuda")
+    grads = _grab_step1_grads(alt_state, alt)
+    step = _plain_k4((make_frames_step if frames_model else make_fusion_step)(
+        alt, plain_cfg, device="cuda"))
+    if frames_model:
+        step = _plain_k5(step)
+
+    def bn_fp64(self, x):
+        bn = self.BatchNorm_0
+        if not self.training:
+            return bn_fp32(self, x)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        axes = (0,) + tuple(range(2, x.ndim))
+        x64 = x.double()
+        mean = x64.mean(dim=axes)
+        var = torch.clamp((x64 * x64).mean(dim=axes) - mean * mean, min=0.0)
+        mean, var = mean.float(), var.float()
+        layers.update_running_stats(bn, mean, var)
+        mul = bn.weight * torch.rsqrt(var + self.EPS)
+        return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+
+    bn_fp32 = layers.TorchBatchNorm.forward
+    layers.TorchBatchNorm.forward = bn_fp64
+    try:
+        step(alt_state, {k: np.ascontiguousarray(v[::-1])
+                         for k, v in batch.items()}, 2)
+    finally:
+        layers.TorchBatchNorm.forward = bn_fp32
+    torch.cuda.synchronize()
+    return grads
+
+
+def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
+                 alt_grads):
+    """The leaves after step 1, kernels (`model`) against plain (`ref`):
+    the gates of `_params_close` (enc_tol None: the fusion model, the conv
+    biases that feed a train-mode BatchNorm within lr) or of
+    `_frames_params_close` (the visual encoder's leaves at enc_tol), and
+    one more way for a leaf to pass. Adam's first step moves each element
+    by lr * g / (|g| + 1e-8), so a leaf whose gradient holds elements near 0
+    (a BatchNorm shift ahead of LeakyReLU, a conv and another train-mode
+    BatchNorm is a near-total cancellation) carries those elements' last
+    digits into its parameters whole. Such a leaf passes if its gradient
+    agrees at the leaf's tolerance and each element ends no further from
+    the plain one than Adam's first step makes of the gradients'
+    difference: lr * |g - g_ref| / (min(|g|, |g_ref|) + 1e-8), at most 2 lr
+    (plus 1e-6 of the parameter and of lr for rounding). Where a leaf's
+    gradient is a near-total cancellation (PERF.md, Findings) the fp32 order
+    of its sums alone moves it: its gradient may then differ by up to
+    twice the spread of the plain step against itself with its batch
+    statistics in fp64 and the batch in reverse row order (`alt_grads`,
+    `_reordered_step1_grads`). Returns the
+    worst relative L2s and the leaves that passed by their gradients."""
+    import torch
+
+    fed = set() if enc_tol is not None else set(model.bn_fed_biases())
+    sd, sd_ref = model.state_dict(), ref.state_dict()
+    worst = {"step1_worst_rel_l2": 0.0}
+    if enc_tol is None:
+        worst["step1_worst_bn_fed_bias_abs"] = 0.0
+    else:
+        worst["step1_worst_rel_l2_encoder"] = 0.0
+    by_grads = []
+
+    def rel_l2(a, b):
+        return (torch.linalg.vector_norm(a - b)
+                / torch.linalg.vector_norm(b).clamp(min=1e-12)).item()
+
+    for k, v in sd.items():
+        a, b = v.float(), sd_ref[k].float()
+        if k in fed:
+            d = (a - b).abs().max().item()
+            worst["step1_worst_bn_fed_bias_abs"] = max(
+                worst["step1_worst_bn_fed_bias_abs"], d)
+            if d > lr * 1.0001:
+                raise SystemExit(f"{what}: {k} differs by {d} > lr {lr}")
+            continue
+        enc = enc_tol is not None and k.startswith("visual_encoder.")
+        limit = enc_tol if enc else tol
+        rel = rel_l2(a, b)
+        if rel <= limit:
+            key = "step1_worst_rel_l2_encoder" if enc else "step1_worst_rel_l2"
+            worst[key] = max(worst[key], rel)
+            continue
+        if k not in grads:
+            raise SystemExit(f"{what}: {k} rel L2 {rel} > {limit} after "
+                             f"step 1")
+        g, g_ref = grads[k].float(), ref_grads[k].float()
+        g_rel = rel_l2(g, g_ref)
+        spread = rel_l2(alt_grads[k].float(), g_ref)
+        g_limit = max(limit, 2 * spread)
+        step_lim = torch.clamp(lr * (g - g_ref).abs()
+                               / (torch.minimum(g.abs(), g_ref.abs()) + 1e-8),
+                               max=2 * lr)
+        excess = ((a - b).abs() - step_lim * 1.0001
+                  - 1e-6 * (b.abs() + lr)).max().item()
+        if g_rel > g_limit or excess > 0:
+            raise SystemExit(f"{what}: {k} rel L2 {rel} > {limit} after step "
+                             f"1; its gradient's rel L2 {g_rel} (limit "
+                             f"{g_limit}, the plain step's own spread "
+                             f"{spread}), elements past Adam's step of the "
+                             f"gradient difference by up to {excess}")
+        by_grads.append({"leaf": k, "param_rel_l2": rel,
+                         "grad_rel_l2": g_rel, "plain_spread": spread,
+                         "min_abs_grad": g_ref.abs().min().item(),
+                         "grad_rms": g_ref.square().mean().sqrt().item()})
+    worst["step1_passed_by_gradient"] = by_grads
+    return worst
+
+
+def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
+                    k2_plain=True):
+    """`steps` steps of the flagship of `cfg` (mode 2) with every kernel
+    against the plain versions from one state_dict: exact launch counts per
+    step (`want`, by counter name; the plain run launches none but K2's
+    when `k2_plain` is False), per-step losses at relative 1e-4, the leaves
+    after step 1 as `_step1_close`. Then the step times, in turns, of the
+    kernel step and of each (label, fn, state) of `timed`."""
+    import torch
+
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+
+    lr, tol, enc_tol = cfg.learning_rate, 1e-4, 2e-3
+    model, state, step, ref, ref_state, ref_step = _train_pair(
+        cfg, frames_model, k2_plain)
+    names, counters = _frames_counters() if frames_model \
+        else _fusion_counters()
+    want = {n: want.get(n, 0) for n in names}
+    frame_size = cfg.framesize if frames_model else None
+    batches = [synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i,
+                                  frame_size=frame_size)
+               for i in range(steps)]
+
+    def run(fn, st, batch):
+        for c in counters:
+            c.launches = 0
+        st, metrics = fn(st, batch, 2)
+        torch.cuda.synchronize()
+        return st, metrics, dict(zip(names, (c.launches for c in counters)))
+
+    losses, ref_losses, worst = [], [], None
+    grads = [_grab_step1_grads(st, mod) for st, mod in ((state, model),
+                                                         (ref_state, ref))]
+    alt_grads = _reordered_step1_grads(cfg, ref, batches[0], frames_model,
+                                       k2_plain)
+    for i, batch in enumerate(batches):
+        state, m, launches = run(step, state, batch)
+        if launches != want:
+            raise SystemExit(f"{what} step {i + 1}: launches {launches} != "
+                             f"{want}")
+        ref_state, rm, ref_launches = run(ref_step, ref_state, batch)
+        if not k2_plain:
+            for n in ("pgenc_train", "pgenc_bwd"):
+                ref_launches[n] -= want[n]
+        if any(ref_launches.values()):
+            raise SystemExit(f"{what}: the plain step launched kernels: "
+                             f"{ref_launches}")
+        losses.append(float(m["loss"]))
+        ref_losses.append(float(rm["loss"]))
+        if i == 0:
+            worst = _step1_close(what, model, ref, *grads, lr, tol,
+                                 enc_tol if frames_model else None,
+                                 alt_grads)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    if max(rel) > tol or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"{what} losses {losses} vs plain {ref_losses}: "
+                         f"rel {rel} > {tol}")
+    times = {}
+    turns = (("kernels", step, state),) + tuple(timed)
+    for _ in range(2 if timed else 1):
+        for label, fn, st in turns:
+            times.setdefault(label, []).append(
+                cuda_ms(lambda: fn(st, batches[0], 2), reps=3, iters=1))
+    out = dict(batch=cfg.batch_size, mode=2, lr=lr, steps=steps,
+               losses=losses, plain_losses=ref_losses, loss_rel_diff=max(rel),
+               tol=tol, launches_per_step=want, **worst)
+    for label, ms in times.items():
+        key = "step_ms" if label == "kernels" else f"{label}_step_ms"
+        out[key] = ms
+        out[key.replace("step_ms", "clips_per_s")] = (
+            cfg.batch_size / (min(ms) / 1e3))
+    return out
+
+
+def mask_train_phase():
+    """--mask_head at full width: the fusion flagship (batch 8, scan
+    windows, mode 2, lr 1e-3, noise 0) and the frames flagship, 3 steps
+    each with every kernel against the plain versions from one state_dict,
+    under the gates of the train and frames_train phases. The STFT input of
+    the mask is data, so each window launches the mask product once forward
+    and once backward (d_mask only). The fusion step with the default head
+    (a model of the same width and seed) is timed in turns beside."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.train.setup import build_fusion_state
+    from maavss_tpu_torch.train.steps import make_fusion_step
+
+    ns = RunConfig().num_seq
+    cfg = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=1e-3,
+                    mask_head=True)
+    default_cfg = cfg.replace(mask_head=False)
+    default, default_state = build_fusion_state(
+        default_cfg, 8, "cuda", torch.Generator().manual_seed(cfg.seed))
+    fusion = _train_vs_plain(
+        "mask_train fusion", cfg, False,
+        dict(lstm_fwd=ns, lstm_bwd=ns, pgenc_train=10 * ns,
+             pgenc_bwd=10 * ns, adam=1, mask_mul=2 * ns),
+        timed=(("default_head", make_fusion_step(default, default_cfg,
+                                                 device="cuda"),
+                default_state),))
+    del default, default_state
+    os.environ.pop("MAAVSS_S2D_MIN_HW", None)  # the default, 128
+    frames = _train_vs_plain(
+        "mask_train frames", cfg, True,
+        dict(lstm_fwd=ns, lstm_bwd=ns, adam=1, epilogue_stats=2 * ns,
+             epilogue_apply=2 * ns, epilogue_bwd_reduce=2 * ns,
+             epilogue_bwd_dy=2 * ns, mask_mul=2 * ns))
+    phase("mask_train", fusion=fusion, frames=frames)
+    return fusion["launches_per_step"]["mask_mul"] + \
+        frames["launches_per_step"]["mask_mul"]
+
+
+def _serve_pair(cfg, frames_model: bool):
+    """(serve, serve_ref, model) at batch 8: the serving function of the
+    flagship of `cfg` with every kernel, and of the plain versions from the
+    same state_dict."""
+    import torch
+
+    from maavss_tpu_torch.exp.export import make_serving_fn
+    from maavss_tpu_torch.train.setup import build_frames_model, build_fusion
+
+    build = build_frames_model if frames_model else build_fusion
+    plain_cfg = cfg if frames_model else cfg.replace(pgenc_kernel="xla")
+    model = build(cfg, cfg.batch_size, device="cuda",
+                  generator=torch.Generator().manual_seed(cfg.seed))
+    ref = build(plain_cfg, cfg.batch_size, device="cuda",
+                generator=torch.Generator().manual_seed(cfg.seed + 1))
+    ref.load_state_dict(model.state_dict())
+    ref.lstm.backend = "scan"
+    return (make_serving_fn(model, cfg, frames_model),
+            _plain_k4(make_serving_fn(ref, plain_cfg, frames_model)), model)
+
+
+def mask_slice_phase():
+    """The full-width fusion model with --mask_head (seeded random weights)
+    behind the HTTP server: 8 requests of 1..8 rows against the plain
+    separator (the plain versions of K1, K2 and K4) at relative L2 1e-4;
+    the mask product reads each window of the clip's STFT in place, once per
+    window of every batch."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.exp.export import (
+        random_serving_inputs,
+        serving_input_specs,
+    )
+    from maavss_tpu_torch.exp.serving import (
+        BatchingExecutor,
+        SeparationClient,
+        SeparationServer,
+    )
+
+    batch, tol = 8, 1e-4
+    cfg = RunConfig(batch_size=batch, mask_head=True)
+    serve, serve_ref, _ = _serve_pair(cfg, False)
+    a_spec, v_spec = serving_input_specs(cfg, batch)
+    rng = np.random.default_rng(8)
+    rows_list = [1, 8, 3, 5, 2, 8, 4, 7]
+    requests = []
+    for i, rows in enumerate(rows_list):
+        audio, _ = random_serving_inputs(cfg, rows, seed=400 + i)
+        frames = rng.uniform(0, 1, (rows,) + v_spec.shape[1:]).astype(
+            np.float32)
+        requests.append((audio, frames))
+    dev = [torch.from_numpy(x).cuda() for x in random_serving_inputs(cfg, batch)]
+    serve(*dev)
+    torch.cuda.synchronize()
+    direct_ms = cuda_ms(lambda: serve(*dev), reps=3, iters=5)
+    direct_plain_ms = cuda_ms(lambda: serve_ref(*dev), reps=3, iters=5)
+    executor = BatchingExecutor(serve, batch, a_spec, v_spec, "cuda",
+                                max_wait_ms=5.0)
+    server = SeparationServer(executor, {"model": "fusion", "batch": batch,
+                                         "mask_head": True},
+                              host="127.0.0.1", port=0).start()
+    host, port = server.address
+    client = SeparationClient(f"http://{host}:{port}")
+    names, counters = _fusion_counters()
+    for c in counters:
+        c.launches = 0
+    responses, lat_ms = [], []
+    try:
+        for audio, frames in requests:
+            t = time.perf_counter()
+            responses.append(client.separate(audio, frames))
+            lat_ms.append((time.perf_counter() - t) * 1e3)
+        launches = dict(zip(names, (c.launches for c in counters)))
+        stats = client.get_json("/stats")
+    finally:
+        client.close()
+        server.stop()
+    batches = stats["batches"]
+    if (batches < 1 or launches["mask_mul"] != batches * cfg.num_seq
+            or launches["lstm_fwd"] != batches * cfg.num_seq
+            or launches["magphase"] or launches["polar"]):
+        raise SystemExit(f"mask_slice launches {launches} for {batches} "
+                         f"batches of {cfg.num_seq} windows")
+    worst = 0.0
+    for (audio, frames), out in zip(requests, responses):
+        rows = audio.shape[0]
+        if out.shape != audio.shape or not np.all(np.isfinite(out)):
+            raise SystemExit(f"bad mask_slice response {out.shape}")
+        pad_a = np.zeros(a_spec.shape, np.float32)
+        pad_v = np.zeros(v_spec.shape, np.float32)
+        pad_a[:rows], pad_v[:rows] = audio, frames
+        exp = serve_ref(torch.from_numpy(pad_a).cuda(),
+                        torch.from_numpy(pad_v).cuda())[:rows].cpu().numpy()
+        worst = max(worst, _rel_l2(out, exp))
+    if worst > tol:
+        raise SystemExit(f"mask_slice audio vs plain separator rel L2 "
+                         f"{worst} > {tol}")
+    lat = sorted(lat_ms)
+    phase("mask_slice", requests=len(requests), rows=rows_list,
+          batches=batches, rel_l2_vs_plain=worst, tol=tol,
+          p50_ms=statistics.median(lat),
+          p90_ms=lat[min(len(lat) - 1, int(0.9 * len(lat)))],
+          direct_batch8_ms=direct_ms, direct_batch8_plain_ms=direct_plain_ms,
+          launches=launches)
+    return launches["mask_mul"]
+
+
+def polar_phase():
+    """--use_polar at full width: 3 fusion train steps and 3 frames train
+    steps (the features through the magphase kernel once per step) with
+    every kernel against the plain versions, under the gates of
+    `_train_vs_plain`; then the serving function of each family (magphase
+    on the clip, the polar kernel before the iSTFT, once per call) against
+    the plain versions at relative L2 1e-4. The fusion steps run K2 on both
+    sides: under this loss the step-1 gradients of both encoders move by up
+    to ~3e-4 when the phasegram latent moves by the ~3e-6 that K2 and
+    ConvStack differ by in fp32, and the plain step fed K2's latent moves
+    the same (tools/polar_grad_probe.py); K2 is held against ConvStack in
+    the k2_train and train phases."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.exp.export import random_serving_inputs
+
+    ns = RunConfig().num_seq
+    cfg = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=1e-3,
+                    use_polar=True)
+    fusion = _train_vs_plain(
+        "polar fusion train", cfg, False,
+        dict(lstm_fwd=ns, lstm_bwd=ns, pgenc_train=10 * ns,
+             pgenc_bwd=10 * ns, adam=1, magphase=1), k2_plain=False)
+    os.environ.pop("MAAVSS_S2D_MIN_HW", None)
+    frames = _train_vs_plain(
+        "polar frames train", cfg, True,
+        dict(lstm_fwd=ns, lstm_bwd=ns, adam=1, epilogue_stats=2 * ns,
+             epilogue_apply=2 * ns, epilogue_bwd_reduce=2 * ns,
+             epilogue_bwd_dy=2 * ns, magphase=1))
+    served, tol = {}, 1e-4
+    launches = {"magphase": fusion["launches_per_step"]["magphase"]
+                + frames["launches_per_step"]["magphase"], "polar": 0}
+    for frames_model in (False, True):
+        family = "frames" if frames_model else "fusion"
+        serve, serve_ref, _ = _serve_pair(cfg.replace(noise_scalar=0.0),
+                                          frames_model)
+        inputs = [torch.from_numpy(x).cuda() for x in random_serving_inputs(
+            cfg, 8, frames_model, seed=500)]
+        for c in _k4_counters():
+            c.launches = 0
+        got = serve(*inputs)
+        torch.cuda.synchronize()
+        counts = [c.launches for c in _k4_counters()]
+        if counts != [0, 1, 1]:
+            raise SystemExit(f"polar {family} serving: K4 launches {counts} "
+                             f"!= [0, 1, 1]")
+        launches["polar"] += counts[2]
+        got = got.cpu().numpy()
+        want = serve_ref(*inputs).cpu().numpy()
+        err = _rel_l2(got, want)
+        if got.shape != want.shape or not np.all(np.isfinite(got)) \
+                or err > tol:
+            raise SystemExit(f"polar {family} served audio vs plain rel L2 "
+                             f"{err} > {tol}")
+        served[family] = dict(
+            rel_l2_vs_plain=err, tol=tol, k4_launches=counts,
+            direct_batch8_ms=cuda_ms(lambda: serve(*inputs), reps=3,
+                                     iters=3),
+            direct_batch8_plain_ms=cuda_ms(lambda: serve_ref(*inputs),
+                                           reps=3, iters=3))
+    phase("polar", fusion_train=fusion, frames_train=frames, serving=served)
+    return launches
+
+
+def k4_golden_phase():
+    """The small-geometry JAX fixture tests/fixtures/torch_port_k4_golden.npz
+    through the kernels: the fusion --mask_head separator's audio and 3
+    train steps (losses at relative 1e-4, leaf sums within 1e-4 of each
+    leaf's absolute sum, the conv biases that feed a train-mode BatchNorm
+    and their running means left out), and the fusion --use_polar
+    separator's audio, each at relative L2 1e-4. The JAX side ran its
+    complex-mask and polar Pallas kernels (interpret mode). The polar
+    separator takes the fixture's JAX features in place of its own: the
+    clip's first frame is real (even-symmetric after reflect padding), and
+    the sign of its rounding-noise imaginary parts, so a phase of +pi or
+    -pi, differs between cuFFT and the CPU FFT (tests/test_torch_k4.py);
+    the magphase kernel is held against its plain version in the k4 and
+    polar phases."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.convert import (
+        flatten_tree,
+        from_flax,
+        random_flax_tree,
+        to_flax,
+        unflatten_tree,
+    )
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.train import steps
+    from maavss_tpu_torch.train.infer import make_separator
+    from maavss_tpu_torch.train.setup import build_fusion, build_fusion_state
+
+    tol = 1e-4
+    with np.load(K4_GOLDEN) as z:
+        meta = json.loads(str(z["meta"]))
+        want_mask, want_polar = z["audio_mask"], z["audio_polar"]
+        feats_polar = z["feats_polar"]
+    flat = random_flax_tree({k: tuple(v) for k, v in meta["shapes"].items()},
+                            meta["seed"])
+    for path, total in meta["checksums"].items():
+        if not np.isclose(float(flat[path].astype(np.float64).sum()), total,
+                          rtol=1e-6, atol=1e-6):
+            raise SystemExit(f"k4 golden weights do not regenerate: {path}")
+    tree = unflatten_tree(flat)
+    sd = from_flax(tree["params"], tree["batch_stats"])
+    cfg = RunConfig(**meta["cfg"])
+    batch = synthetic_av_batch(cfg, cfg.batch_size, seed=meta["batch_seed"])
+    rng = np.random.default_rng(meta["noise_seed"])
+    batch["frames"] = np.clip(batch["frames"] + meta["frames_noise"] *
+                              rng.standard_normal(batch["frames"].shape)
+                              .astype(np.float32), 0.0, 1.0)
+    batch["audio"] = (batch["audio"] + meta["audio_dc"] + meta["audio_noise"]
+                      * rng.standard_normal(batch["audio"].shape)
+                      .astype(np.float32)).astype(np.float32)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    for c in _k4_counters():
+        c.launches = 0
+    mask_cfg = cfg.replace(mask_head=True)
+    model, state = build_fusion_state(mask_cfg, cfg.batch_size, "cuda")
+    model.load_state_dict(sd)
+    audio = make_separator(model, mask_cfg)(dev)["audio_out"].cpu().numpy()
+    err_mask = _rel_l2(audio, want_mask)
+    if audio.shape != want_mask.shape or err_mask > tol:
+        raise SystemExit(f"k4 golden --mask_head audio rel L2 {err_mask} > "
+                         f"{tol}")
+    step = steps.make_fusion_step(model, mask_cfg, device="cuda")
+    losses = []
+    for _ in meta["losses"]:
+        state, m = step(state, batch, meta["mode"])
+        losses.append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, meta["losses"]))
+    if rel > tol:
+        raise SystemExit(f"k4 golden losses {losses} vs JAX "
+                         f"{meta['losses']}: rel {rel} > {tol}")
+    params, stats = to_flax(model.state_dict())
+    got = flatten_tree({"params": params, "batch_stats": stats})
+    worst = 0.0
+    for path, (total, abs_total) in meta["sums"].items():
+        d = abs(float(got[path].astype(np.float64).sum()) - total)
+        worst = max(worst, d / max(abs_total, 1e-12))
+        if d > tol * abs_total + 1e-7:
+            raise SystemExit(f"k4 golden leaf {path}: sum off by {d}")
+    polar_cfg = cfg.replace(use_polar=True)
+    polar_model = build_fusion(polar_cfg, cfg.batch_size, "cuda")
+    polar_model.load_state_dict(sd)
+    own = steps.stft_features
+    steps.stft_features = lambda *args, **kwargs: torch.from_numpy(
+        feats_polar).cuda()
+    try:
+        audio = make_separator(polar_model, polar_cfg)(dev)["audio_out"]
+    finally:
+        steps.stft_features = own
+    audio = audio.cpu().numpy()
+    err_polar = _rel_l2(audio, want_polar)
+    if audio.shape != want_polar.shape or err_polar > tol:
+        raise SystemExit(f"k4 golden --use_polar audio rel L2 {err_polar} > "
+                         f"{tol}")
+    counts = [c.launches for c in _k4_counters()]
+    if not (counts[0] and counts[2]):
+        raise SystemExit(f"the k4 golden run missed a K4 kernel: {counts}")
+    phase("k4_golden", cfg=meta["cfg"], mask_audio_rel_l2_vs_jax=err_mask,
+          losses=losses, jax_losses=meta["losses"], loss_rel_diff=rel,
+          worst_leaf_sum_rel=worst, leaves=len(meta["sums"]),
+          left_out=len(meta["bn_fed"]), polar_audio_rel_l2_vs_jax=err_polar,
+          k4_launches=counts, tol=tol)
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -1489,6 +2306,11 @@ def main() -> None:
     frames = frames_train_phase()
     frames_slice_phase()
     frames_golden_phase()
+    k4 = k4_phase()
+    mask_launches = mask_train_phase()
+    mask_slice_phase()
+    polar_launches = polar_phase()
+    k4_golden_phase()
     if any(m in sys.modules for m in ("jax", "flax", "maavss_tpu")):
         raise SystemExit("the port loaded jax or maavss_tpu")
     import torch
@@ -1521,6 +2343,15 @@ def main() -> None:
                        frames[f"epilogue_{n}"], k5[n])
           for n, line in (("stats", 141), ("apply", 159),
                           ("bwd_reduce", 183), ("bwd_dy", 206))),
+        kernel_entry("mask_mul", "spectral.cu",
+                     "maavss_tpu/ops/pallas_kernels.py:44", mask_launches,
+                     k4["mask_mul"]),
+        kernel_entry("magphase", "spectral.cu",
+                     "maavss_tpu/ops/pallas_kernels.py:101",
+                     polar_launches["magphase"], k4["magphase"]),
+        kernel_entry("polar", "spectral.cu",
+                     "maavss_tpu/ops/pallas_kernels.py:143",
+                     polar_launches["polar"], k4["polar"]),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,10 @@ are concatenated time-major, fused by a bidirectional LSTM(256) and two FC
 layers into a 512-d latent, from which per-modality linear heads
 reconstruct the input-shaped STFT and phasegram (avse_model.py:410-711 in
 the reference). Every stack is planned by models/shape_plan.py, the same
-closed-form planner the JAX package uses.
+closed-form planner the JAX package uses. With `mask_head` (--mask_head)
+the audio head predicts a complex ratio mask applied to the noisy input
+STFT instead; in the visual-only mode, whose audio input is zeroed, that
+head outputs exactly 0.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from maavss_tpu_torch.models.shape_plan import (
     plan_stft_decoder_fusion,
     plan_stft_encoder_fusion,
 )
+from maavss_tpu_torch.ops.cuda_complex import complex_mask_apply
 
 LSTM_HIDDEN = 256
 
@@ -59,10 +63,6 @@ class AVFusionModel(nn.Module):
                  pgenc_kernel: str = "auto", stft_fold: str = "auto",
                  device=None):
         super().__init__()
-        if mask_head:
-            raise NotImplementedError(
-                "--mask_head is not ported yet (ROADMAP queue 2, K4 "
-                "complex_mask_apply)")
         if stft_fold == "fold":
             raise NotImplementedError(
                 "--stft_fold fold is a TPU lane-folding of the same math and "
@@ -71,6 +71,7 @@ class AVFusionModel(nn.Module):
             raise ValueError(f"unknown stft_fold {stft_fold!r} (auto|xla|fold)")
         self.stft_shape = tuple(stft_shape)
         self.pgram_shape = tuple(pgram_shape)
+        self.mask_head = mask_head
         pg_enc, pg_hw = plan_phasegram_encoder(pgram_shape, latent_channels,
                                                fc_size)
         pg_dec, _ = plan_phasegram_decoder(pg_hw, pgram_shape, latent_channels)
@@ -130,10 +131,16 @@ class AVFusionModel(nn.Module):
                            x_a: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Window latents [B,C,t,s] + the window's STFT input ->
-        (ŷ_stft, ŷ_pgram, fused); heads are linear + LeakyReLU(0.3)."""
+        (ŷ_stft, ŷ_pgram, fused); heads are linear + LeakyReLU(0.3), or,
+        with `mask_head`, the audio head's output is a complex ratio mask
+        applied to the input STFT (the complex-mask kernel)."""
         fused = self.av_fusion_forward(x_a_enc, x_v_enc)
-        x_a_out = F.leaky_relu(self.a_fc1(fused), negative_slope=0.3)
-        x_a_out = x_a_out.reshape(x_a.shape)
+        x_a_head = self.a_fc1(fused)
+        if self.mask_head:
+            x_a_out = complex_mask_apply(x_a, x_a_head.reshape(x_a.shape))
+        else:
+            x_a_out = F.leaky_relu(x_a_head, negative_slope=0.3).reshape(
+                x_a.shape)
         x_v_out = F.leaky_relu(self.v_fc1(fused), negative_slope=0.3)
         x_v_out = x_v_out.reshape((-1,) + self.pgram_shape[1:])
         return x_a_out, x_v_out, fused

@@ -7,7 +7,10 @@ through a bias-free conv2d autoencoder. The two latents are concatenated
 along their time axis, a BiLSTM(256) runs over the CHANNEL axis (the
 reference's dataflow, avse_model_final.py:124-128), two bias-free FC layers
 with tanh fuse them, and linear heads emit the middle frame only:
-hops_per_frame STFT columns (tanh) and one attention frame (sigmoid).
+hops_per_frame STFT columns (tanh) and one attention frame (sigmoid). With
+`mask_head` (--mask_head) the audio head is a complex ratio mask applied to
+the mixture's columns of that frame, frame `mask_mid_frame` of the window
+((num_seq - 1) // 2 as the train step and separator pick it), no tanh.
 
 The visual encoder runs the direct conv3d path. In `.train()` mode, the
 stages that `layers.epilogue_eligible` admits (at framesize 256 the 256^2
@@ -43,6 +46,7 @@ from maavss_tpu_torch.models.shape_plan import (
     plan_stft_decoder_frames,
     plan_stft_encoder_frames,
 )
+from maavss_tpu_torch.ops.cuda_complex import complex_mask_apply
 
 LSTM_HIDDEN = 256
 # (out channels, spatial conv padding (lo, hi), pool) per stage; None is the
@@ -89,12 +93,10 @@ class AVFusionFramesModel(nn.Module):
     def __init__(self, stft_shape: Sequence[int], frame_shape: Sequence[int],
                  hops_per_frame: int = 8, latent_channels: int = 16,
                  rnn_cell: str = "lstm", mask_head: bool = False,
-                 device=None):
+                 mask_mid_frame: int = 0, device=None):
         super().__init__()
-        if mask_head:
-            raise NotImplementedError(
-                "--mask_head is not ported yet (ROADMAP queue 2, K4 "
-                "complex_mask_apply)")
+        self.mask_head = mask_head
+        self.mask_mid_frame = mask_mid_frame
         self.stft_shape = tuple(stft_shape)
         self.frame_shape = tuple(frame_shape)
         self.hops_per_frame = hops_per_frame
@@ -143,8 +145,16 @@ class AVFusionFramesModel(nn.Module):
         """The heads given a visual latent [B,C,T,S]."""
         fused = self.av_fusion_forward(self.stft_encoder(x_a), x_v_enc)
         b = x_a.shape[0]
-        x_a_out = torch.tanh(self.a_fc1(fused)).reshape(
-            b, 2, self.hops_per_frame, self.stft_shape[-1])
+        a_shape = (b, 2, self.hops_per_frame, self.stft_shape[-1])
+        if self.mask_head:
+            # the mask multiplies the mixture's middle-frame columns, read
+            # in place by the complex-mask kernel
+            lo = self.mask_mid_frame * self.hops_per_frame
+            x_mid = x_a[:, :, lo:lo + self.hops_per_frame]
+            x_a_out = complex_mask_apply(x_mid,
+                                         self.a_fc1(fused).reshape(a_shape))
+        else:
+            x_a_out = torch.tanh(self.a_fc1(fused)).reshape(a_shape)
         x_v_out = torch.sigmoid(self.v_fc1(fused)).reshape(
             b, self.frame_shape[1], self.frame_shape[-2],
             self.frame_shape[-1])

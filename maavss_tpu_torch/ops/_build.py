@@ -140,6 +140,12 @@ def library():
     lib.maavss_epilogue_bwd_reduce.restype = i
     lib.maavss_epilogue_bwd_dy.argtypes = [p] * 9 + [i] * 5 + [p]
     lib.maavss_epilogue_bwd_dy.restype = i
+    planar = [p, ll, ll, ll]  # pointer, item / plane / row strides
+    lib.maavss_mask_mul.argtypes = planar * 3 + [i] * 4 + [p]
+    lib.maavss_mask_mul.restype = i
+    for name in ("maavss_magphase", "maavss_polar"):
+        getattr(lib, name).argtypes = planar * 2 + [i] * 3 + [p]
+        getattr(lib, name).restype = i
     return lib
 
 

@@ -7,6 +7,10 @@ last time frame always dropped and the Nyquist bin dropped under `trim_end`.
 `istft` is the exact inverse of `stft` (overlap-add with division by the
 summed squared-window envelope), not torch.istft's normalization.
 
+Polar features (`polar=True`, --use_polar) are (magnitude, phase) from the
+magphase kernel, and go back through the polar kernel (ops/cuda_complex.py)
+before the inverse.
+
 Only the gather + rfft form of the forward is carried: the JAX package's
 conv-STFT is a TPU matrix-unit execution of the same math.
 """
@@ -18,6 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from maavss_tpu_torch.ops.cuda_complex import magphase, polar_to_rect
 from maavss_tpu_torch.ops.windows import hamming_window
 
 
@@ -84,26 +89,37 @@ def istft(spec: torch.Tensor, fft_len: int, hop: int,
 
 
 def stft_features(audio: torch.Tensor, fft_len: int, hop: int,
-                  normalized: bool = True, trim_end: bool = True
-                  ) -> torch.Tensor:
-    """Audio `[..., samples]` -> features `[..., 2, T, F]` of (real, imag).
+                  normalized: bool = True, trim_end: bool = True,
+                  polar: bool = False) -> torch.Tensor:
+    """Audio `[..., samples]` -> features `[..., 2, T, F]` of (real, imag),
+    or (magnitude, phase) through the magphase kernel when `polar`.
 
     The last time frame is always dropped; the Nyquist bin is dropped when
-    `trim_end` (av_dataset.py:171-174 in the reference). Polar features
-    (--use_polar) are not ported yet (ROADMAP queue 2, K4)."""
+    `trim_end` (av_dataset.py:171-174 in the reference)."""
     spec = stft(audio, fft_len, hop, normalized=normalized)[..., :-1, :]
     if trim_end:
         spec = spec[..., :, :-1]
-    return torch.stack([spec.real, spec.imag], dim=-3)
+    feats = torch.stack([spec.real, spec.imag], dim=-3)
+    return magphase(feats) if polar else feats
 
 
 def istft_features(feats: torch.Tensor, fft_len: int, hop: int,
                    normalized: bool = True, trim_end: bool = True,
-                   length: Optional[int] = None) -> torch.Tensor:
-    """Features `[..., 2, T, F]` of (real, imag) -> audio `[..., samples]`;
-    re-pads the trimmed Nyquist bin with zeros."""
+                   polar: bool = False, length: Optional[int] = None
+                   ) -> torch.Tensor:
+    """Features `[..., 2, T, F]` -> audio `[..., samples]`; (magnitude,
+    phase) features go to (real, imag) through the polar kernel when
+    `polar`. Re-pads the trimmed Nyquist bin with zeros."""
+    if polar:
+        feats = polar_to_rect_features(feats)
     spec = torch.complex(feats[..., 0, :, :].contiguous(),
                          feats[..., 1, :, :].contiguous())
     if trim_end:
         spec = F.pad(spec, (0, 1))
     return istft(spec, fft_len, hop, normalized=normalized, length=length)
+
+
+def polar_to_rect_features(feats: torch.Tensor) -> torch.Tensor:
+    """(magnitude, phase) channels -> (real, imag), through the polar
+    kernel."""
+    return polar_to_rect(feats)

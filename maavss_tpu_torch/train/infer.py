@@ -9,7 +9,9 @@ iSTFT. The frames separator runs the frames model over every window and
 writes each window's predicted middle-frame columns into the mixture's
 untrimmed spectrogram (columns no window predicts keep the mixture), then
 resynthesizes. Feature preparation is the train step's `_prep_stft_pair`,
-as in the JAX package.
+as in the JAX package; under --use_polar the features are (magnitude,
+phase), averaged and stitched as such, and resynthesized through the polar
+kernel.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
     the model's input features x_full [B, 2, T, F]).
 
     x_full is the clean STFT plus noise_scalar-scaled gaussian noise drawn
-    from `generator` (required when noise_scalar != 0)."""
+    from `generator` (required when noise_scalar != 0). The model runs in
+    eval mode (its mode is restored afterwards), as the JAX separator
+    applies it with train=False."""
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
     x_full, y_full = _prep_stft_pair(audio, cfg, generator, trim_end=True,
                                      max_norm=cfg.normalize_output_fft)
@@ -45,16 +49,21 @@ def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
     t_total = y_full.shape[2]
     acc = torch.zeros_like(y_full)
     cnt = torch.zeros(t_total, dtype=y_full.dtype, device=y_full.device)
-    for j in range(ns):
-        pg = phasegram_window(p_flat[:, j:j + nf])
-        win = slice(j * a, (j + nf) * a)
-        yh, _, _ = model(x_full[:, :, win], pg)
-        acc[:, :, win] += yh
-        cnt[win] += 1.0
+    was_training = model.training
+    model.eval()
+    try:
+        for j in range(ns):
+            pg = phasegram_window(p_flat[:, j:j + nf])
+            win = slice(j * a, (j + nf) * a)
+            yh, _, _ = model(x_full[:, :, win], pg)
+            acc[:, :, win] += yh
+            cnt[win] += 1.0
+    finally:
+        model.train(was_training)
     yh_full = acc / torch.clamp(cnt, min=1.0)[:, None]
     yh_audio = istft_features(yh_full, cfg.fft_len, cfg.hop,
                               normalized=cfg.normalize_fft, trim_end=True,
-                              length=audio.shape[-1])
+                              polar=cfg.use_polar, length=audio.shape[-1])
     return yh_audio, x_full
 
 
@@ -84,7 +93,7 @@ def separate_frames_windows(model, cfg: RunConfig, audio: torch.Tensor,
         model.train(was_training)
     yh_audio = istft_features(yh_full, cfg.fft_len, cfg.hop,
                               normalized=cfg.normalize_fft, trim_end=False,
-                              length=audio.shape[-1])
+                              polar=cfg.use_polar, length=audio.shape[-1])
     return yh_audio, x_full
 
 
@@ -106,6 +115,7 @@ def make_separator(model, cfg: RunConfig, frames_model: bool = False):
         x_audio = istft_features(x_full, cfg.fft_len, cfg.hop,
                                  normalized=cfg.normalize_fft,
                                  trim_end=not frames_model,
+                                 polar=cfg.use_polar,
                                  length=audio.shape[-1])
         sdr_out = si_sdr(yh_audio, audio)
         sdr_in = si_sdr(x_audio, audio)

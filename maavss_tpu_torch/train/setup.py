@@ -45,8 +45,6 @@ def check_supported(cfg: RunConfig, train: bool = False,
     fusion model's."""
     todo = [
         (cfg.rnn_cell != "lstm", f"--rnn_cell {cfg.rnn_cell}", "M2"),
-        (cfg.mask_head, "--mask_head", "queue 2, K4"),
-        (cfg.use_polar, "--use_polar", "queue 2, K4"),
         (cfg.compress_audio, "--compress_audio", "M9 (ops/audio.py)"),
         (cfg.attn_diff, "--attn_diff", "M4"),
         (cfg.dtype != "float32", f"--dtype {cfg.dtype}", "M5 (bf16 slice)"),
@@ -79,6 +77,14 @@ def check_supported(cfg: RunConfig, train: bool = False,
         if missing:
             raise NotImplementedError(
                 f"{flag} is not ported to maavss_tpu_torch yet (ROADMAP {item})")
+
+
+def _check_mask_head(cfg: RunConfig) -> None:
+    """--mask_head multiplies rectangular features: the JAX builders refuse
+    it with --use_polar, with this exit."""
+    if cfg.mask_head and cfg.use_polar:
+        raise SystemExit("--mask_head needs rectangular (re,im) STFT "
+                         "features; drop --use_polar")
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
@@ -115,6 +121,7 @@ def build_fusion(cfg: RunConfig, batch_size: int, device="cuda",
     mode. `generator` defaults to a CPU generator seeded with cfg.seed; the
     parameters are drawn on the CPU and then moved, so one seed gives the
     same weights on every device."""
+    _check_mask_head(cfg)
     check_supported(cfg)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
@@ -149,7 +156,9 @@ def build_frames_model(cfg: RunConfig, batch_size: int,
     untrimmed STFT, F = fft_len/2 + 1; frames at `frame_size`, default
     cfg.framesize; latent width 16, the JAX function's default, not
     cfg.latent_chan), seeded-initialised as `build_fusion`, on `device`, in
-    eval mode."""
+    eval mode. With --mask_head the mask multiplies the middle frame of
+    the window, (num_seq - 1) // 2, as the train step picks it."""
+    _check_mask_head(cfg)
     check_supported(cfg, frames=True)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
@@ -159,7 +168,8 @@ def build_frames_model(cfg: RunConfig, batch_size: int,
         stft_shape=(batch_size, 2, t_stft, cfg.fft_len // 2 + 1),
         frame_shape=(batch_size, 1, cfg.num_frames, frame_size, frame_size),
         hops_per_frame=cfg.hops_per_frame, latent_channels=latent_channels,
-        rnn_cell=cfg.rnn_cell, mask_head=cfg.mask_head)
+        rnn_cell=cfg.rnn_cell, mask_head=cfg.mask_head,
+        mask_mid_frame=(cfg.num_seq - 1) // 2)
     init_flax_like(model, generator)
     return model.to(device).eval()
 

@@ -105,15 +105,16 @@ def _prep_stft_pair(audio: torch.Tensor, cfg: RunConfig,
                     generator: Optional[torch.Generator], trim_end: bool,
                     max_norm: bool, noise_scalar: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """audio [B, S] -> (x_stft, y_stft) [B, 2, T, F]: STFT, optional
-    per-example max-norm, then the additive-noise input x = y + noise *
-    noise_scalar with the noise drawn from `generator`
+    """audio [B, S] -> (x_stft, y_stft) [B, 2, T, F]: STFT ((magnitude,
+    phase) features under --use_polar), optional per-example max-norm,
+    then the additive-noise input x = y + noise * noise_scalar with the
+    noise drawn from `generator`
     (maavss_tpu/train/steps.py:294-321). A noise_scalar of 0 draws nothing:
     x is then y, as the JAX step's y + 0 * noise is."""
     if noise_scalar is None:
         noise_scalar = cfg.noise_scalar
     y = stft_features(audio, cfg.fft_len, cfg.hop, normalized=cfg.normalize_fft,
-                      trim_end=trim_end)
+                      trim_end=trim_end, polar=cfg.use_polar)
     if max_norm:
         y = norm_per_example(y)
     if noise_scalar == 0.0:

@@ -30,6 +30,7 @@ from maavss_tpu.exp.export import serving_input_specs as jax_specs
 from maavss_tpu.models.fusion_frames import AVFusionFramesModel as JaxFrames
 from maavss_tpu.models.fusion_frames import FramesVisualEncoder as JaxEncoder
 from maavss_tpu.train.infer import make_frames_separator as jax_separator
+from maavss_tpu.train.setup import build_frames_model as jax_build_frames
 from maavss_tpu.train.state import create_train_state, make_optimizer
 from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.convert import (
@@ -273,8 +274,6 @@ def test_serving_fn_specs_and_payloads_match_jax(fused_env):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (dict(mask_head=True), "queue 2, K4"),
-    (dict(use_polar=True), "queue 2, K4"),
     (dict(frames_encode="full"), "M7-rest"),
     (dict(frames_encode="full", frames_halo=1), "M7-rest"),
     (dict(microbatch=2), "M7-rest"), (dict(remat=True), "M3-rest"),
@@ -291,3 +290,16 @@ def test_unported_frames_flags_raise(flags, item):
         build_frames_state(cfg, 2, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         make_frames_step(None, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("build", [build_frames_model, build_frames_state],
+                         ids=["build_frames_model", "build_frames_state"])
+def test_mask_head_with_use_polar_raises(build):
+    """--mask_head multiplies (re, im) features: with --use_polar the port's
+    builders exit as the JAX build_frames_model does, with its message."""
+    flags = dict(mask_head=True, use_polar=True)
+    with pytest.raises(SystemExit) as want:
+        jax_build_frames(JaxRunConfig(**GEOMETRY).replace(**flags), 2, 24)
+    with pytest.raises(SystemExit) as got:
+        build(RunConfig(**GEOMETRY).replace(**flags), 2, device="cpu")
+    assert str(got.value) == str(want.value)

@@ -12,11 +12,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from maavss_tpu.config import RunConfig as JaxRunConfig
 from maavss_tpu.models.fusion import AVFusionModel as JaxFusion
+from maavss_tpu.train.setup import build_fusion as jax_build_fusion
 from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.convert import from_flax
 from maavss_tpu_torch.models.fusion import AVFusionModel
-from maavss_tpu_torch.train.setup import build_fusion
+from maavss_tpu_torch.train.setup import build_fusion, build_fusion_state
 
 SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,
              fc_size=256, batch_size=2)
@@ -94,11 +96,24 @@ def test_auto_gate_is_convstack_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [
-    dict(rnn_cell="gru"), dict(rnn_cell="none"), dict(mask_head=True),
-    dict(use_polar=True), dict(fusion_encode="full"), dict(pgram_cache=True),
+    dict(rnn_cell="gru"), dict(rnn_cell="none"),
+    dict(fusion_encode="full"), dict(pgram_cache=True),
     dict(compress_audio=True), dict(attn_diff=True), dict(dtype="bfloat16"),
     dict(pgenc_kernel="fold"), dict(stft_fold="fold"),
 ])
 def test_unported_options_raise_at_build(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_fusion(RunConfig(**SMALL).replace(**flags), 2, "cpu")
+
+
+@pytest.mark.parametrize("build", [build_fusion, build_fusion_state],
+                         ids=["build_fusion", "build_fusion_state"])
+def test_mask_head_with_use_polar_raises(build):
+    """--mask_head multiplies (re, im) features: with --use_polar the port's
+    builders exit as the JAX build_fusion does, with its message."""
+    flags = dict(mask_head=True, use_polar=True)
+    with pytest.raises(SystemExit) as want:
+        jax_build_fusion(JaxRunConfig(**SMALL).replace(**flags), 2)
+    with pytest.raises(SystemExit) as got:
+        build(RunConfig(**SMALL).replace(**flags), 2, "cpu")
+    assert str(got.value) == str(want.value)
