@@ -19,7 +19,9 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    the plain recurrence, at the shapes of k1_lstm.
 6. k2_train (K2-train and K2-bwd, the train-mode layer and its backward):
    at each of the 10 layers, R 64 and 256, fp32 and bf16, against the plain
-   versions and autograd through the plain forward; dcbias exactly 0.
+   versions and autograd through the plain forward; dcbias exactly 0; the
+   backward reads the forward's yc and leaves it as it was, two calls give
+   the same bits, and a retain_graph double backward repeats.
 7. k3_adam (K3, fused Adam): 3 steps over the flagship's parameter leaves
    against the plain formula; torch.optim.Adam(fused=True) timed beside it.
 8. slice: the full-width fusion model (seeded random weights) behind the
@@ -32,7 +34,10 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 10. train: the full-width fusion train step (batch 8, scan windows, mode
    2) with every kernel, against the plain versions from one state_dict:
    per-step losses, parameters after step 1, exact launch counts per step;
-   step times, clips/s, one vectorized step and a torch.profiler breakdown.
+   step times, clips/s, one vectorized step and a torch.profiler breakdown,
+   from which train_k2_launches checks K2's device launches per step
+   (conv_kernel once per layer call: the forward only; at most 3 device
+   launches per pgenc_bwd call).
 11. train_golden: the small-geometry JAX train trajectory of
    tests/fixtures/torch_port_train_golden.npz, run through the kernels.
 12. k5_epilogue (K5, the frames encoder's fused BN + 2x2 max pool +
@@ -54,21 +59,28 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    against its plain version at the flagships' shapes, on gaussian data
    and on strided operands holding exact zeros, atan2's branch cut and
    phases of +-pi; the mask product also in conjugate mode (its backward);
-   torch.polar timed beside the polar kernel.
+   the polar kernel's spectrum form (the iSTFT's input) equal to its planar
+   form bit for bit; torch.polar timed beside the polar kernel.
 17. mask_train: --mask_head on the fusion and frames flagships, 3 steps
    each against the plain versions (the gates of phases 10 and 13, exact
    launch counts per step); the default-head fusion step timed in turns.
 18. mask_slice: the fusion flagship with --mask_head behind the HTTP
    server, 8 requests checked against the plain separator.
 19. polar: --use_polar, 3 train steps of each family against the plain
-   versions, and each family's serving function against the plain one.
+   versions, and each family's serving function against the plain one;
+   istft_features(polar=True) must run one device launch and no copy
+   (torch.complex, pad, contiguous) beyond the iSTFT of its spectrum.
 20. k4_golden: the small-geometry JAX fixture of
    tests/fixtures/torch_port_k4_golden.npz (the --mask_head separator and
    3 train steps, the --use_polar separator), run through the kernels.
 
 The line before the last two is one JSON object with each kernel's
 launches, error, times and bound; then the nvidia-smi line; the last line
-is {"ok": true, "device": {...}}.
+is {"ok": true, "device": {...}}. A kernel's `ms` is CUDA events over
+back-to-back wrapper calls (the host's launch cost included); `device_ms`
+the same calls queued behind a torch.cuda._sleep so that only the card's
+work is timed, and `host_ms` their enqueue time on the host clock
+(`split_ms`).
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +129,61 @@ def cuda_ms(fn, reps: int = 5, iters: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / iters)
     return statistics.median(times)
+
+
+def split_ms(fn, reps: int = 5, iters: int = 20):
+    """(device ms, host ms) per call. The `iters` calls are enqueued behind
+    torch.cuda._sleep, long enough (three times the host's enqueue time of
+    a calibration round, at 2 GHz) that the host runs ahead and the events
+    around the calls see only the card's work; the host's enqueue time per
+    call is taken with time.perf_counter. Median over `reps`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(3 * host_s * 2e9) + 200_000
+    dev, host = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / iters)
+        stop.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(stop) / iters)
+    return statistics.median(dev), statistics.median(host)
+
+
+def kernel_us(fn, calls: int = 5):
+    """{kernel name: mean device microseconds per launch} over `calls`
+    calls of `fn`, from torch.profiler (the name without its namespace,
+    template arguments and parameters)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            name = re.search(r"(\w+)(<[^(]*)?\(", e.key)
+            out[name.group(1) if name else e.key[:40]] = (
+                e.device_time_total / e.count)
+    return out
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -225,8 +293,10 @@ def lstm_phase():
                   ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
                   library_ms=lib_ms)
             if b == 8 and dtype == torch.float32:
+                dev_ms, host_ms = split_ms(kernel)
                 report = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd,
-                              library_ms=lib_ms)
+                              library_ms=lib_ms, device_ms=dev_ms,
+                              host_ms=host_ms)
     return report
 
 
@@ -263,7 +333,8 @@ def pgenc_phase():
                          f"{len(specs)}")
     g = torch.Generator(device="cuda").manual_seed(2)
     r = 8 * cfg.num_frames
-    totals = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}
+    totals = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
+              "device_ms": 0.0, "host_ms": 0.0}
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
         s = cfg.p_size ** 2
         for i, sp in enumerate(specs):
@@ -288,6 +359,10 @@ def pgenc_phase():
             phase("k2_pgenc", layer=i, C=c, Co=co, R=r, S=s, dtype=str(dtype),
                   max_abs_err=err, atol=atol, ms=ms, plain_ms=plain_ms)
             if dtype == torch.float32:
+                split = split_ms(lambda: pgenc_layer(x, w2, *vecs,
+                                                     backend="kernel"))
+                totals["device_ms"] += split[0]
+                totals["host_ms"] += split[1]
                 totals["err"] = max(totals["err"], err)
                 totals["ms"] += ms
                 totals["plain_ms"] += plain_ms
@@ -305,7 +380,8 @@ def profile_phase(label: str, fn, calls: int = 3, watch=()):
     """Where `calls` calls of `fn` spend their time: torch.profiler's CUDA
     kernel events summed by kernel name, against the host-clock wall time
     of the same window (the device's idle share). The 14 largest kernels
-    are listed, and every kernel whose name contains a `watch` string."""
+    are listed, and every kernel whose name contains a `watch` string.
+    Returns {kernel name: launches}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -328,6 +404,7 @@ def profile_phase(label: str, fn, calls: int = 3, watch=()):
           kernel_launches=sum(e.count for e in kernels),
           top=[{"kernel": e.key[:80], "ms": e.device_time_total / 1e3,
                 "count": e.count} for e in top])
+    return {e.key: e.count for e in kernels}
 
 
 def lstm_bwd_phase():
@@ -404,8 +481,10 @@ def lstm_bwd_phase():
                   max_abs_err_vs_autograd=e_auto, ms=ms, plain_ms=plain_ms,
                   bound_ms=bnd[0], bound_by=bnd[1])
             if b == 8 and fp32:
+                dev_ms, host_ms = split_ms(kernel)
                 report = dict(err=max(e_dx, e_dw), ms=ms, plain_ms=plain_ms,
-                              bound=bnd, library_ms=None)
+                              bound=bnd, library_ms=None, device_ms=dev_ms,
+                              host_ms=host_ms)
     return report
 
 
@@ -430,7 +509,15 @@ def pgenc_train_phase():
     order), mu and var 1e-4 relative + 1e-5 absolute; dx, dw2, dgamma and
     dbeta, sums of up to R*S/2 terms, 1e-4 of their largest entry + 1e-4
     relative; bf16 2^-7 (one bf16 rounding), statistics as fp32 (they are
-    fp32 from the same inputs). dcbias must be exactly 0."""
+    fp32 from the same inputs). dcbias must be exactly 0. The backward reads
+    the forward's yc; two calls must give the same bits (fixed-order sums;
+    an atomic counter only elects the last block of a dW2 tile), and a
+    second backward through pgenc_layer_train under retain_graph the same
+    gradients as the first. x, w2, yc and dy at an offset of one element
+    (their 16-byte loads then off) must pass the same gates. Bound of the
+    backward: the dx and dw2 products
+    (2*Co*9C*R*S/2 FLOPs each) and x, w2, yc, dy read and dx, dw2 written
+    once."""
     import torch
 
     from maavss_tpu_torch.config import RunConfig
@@ -438,6 +525,7 @@ def pgenc_train_phase():
     from maavss_tpu_torch.ops.cuda_pgenc import (
         pgenc_bwd,
         pgenc_bwd_plain,
+        pgenc_layer_train,
         pgenc_train,
         pgenc_train_plain,
     )
@@ -455,41 +543,67 @@ def pgenc_train_phase():
             tot = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "bwd_ms",
                                     "bwd_plain_ms", "fwd_err", "bwd_err",
                                     "fwd_bytes", "fwd_flops", "bwd_bytes",
-                                    "bwd_flops")}
+                                    "bwd_flops", "fwd_device_ms",
+                                    "fwd_host_ms", "bwd_device_ms",
+                                    "bwd_host_ms")}
             s = cfg.p_size ** 2
             for i, sp in enumerate(specs):
                 c, co = sp.in_ch, sp.out_ch
                 x, w2, cb, gamma, beta, dy = _pgenc_inputs(c, co, r, s, dtype,
                                                            g)
                 vecs = (cb, gamma, beta)
-                y, mu, var = pgenc_train(x, w2, *vecs, backend="kernel")
-                y_r, mu_r, var_r = pgenc_train_plain(x, w2, *vecs)
-                grads = pgenc_bwd(x, w2, *vecs, mu, var, dy, backend="kernel")
-                grads_r = pgenc_bwd_plain(x, w2, *vecs, mu, var, dy)
+                y, mu, var, yc = pgenc_train(x, w2, *vecs, backend="kernel")
+                y_r, mu_r, var_r, yc_r = pgenc_train_plain(x, w2, *vecs)
+                bwd_args = (x, w2, yc, gamma, beta, mu, var, dy)
+                yc_kept = yc.clone()
+                grads = pgenc_bwd(*bwd_args, backend="kernel")
+                grads_2 = pgenc_bwd(*bwd_args, backend="kernel")
+                grads_r = pgenc_bwd_plain(*bwd_args)
+                # x, w2, yc and dy one element into their storage: the
+                # kernel's one-value copies in place of its 16-byte ones
+                grads_u = pgenc_bwd(*[_at_offset(t) if k in (0, 1, 2, 7)
+                                      else t for k, t in enumerate(bwd_args)],
+                                    backend="kernel")
                 torch.cuda.synchronize()
                 where = f"layer {i} R={r} {dtype}"
                 e_f = max(check_close(f"K2-train y {where}", y, y_r, tol, 0.0),
                           check_close(f"K2-train mu {where}", mu, mu_r, 1e-5,
                                       1e-4),
                           check_close(f"K2-train var {where}", var, var_r,
-                                      1e-5, 1e-4))
+                                      1e-5, 1e-4),
+                          check_close(f"K2-train yc {where}", yc, yc_r, 1e-5,
+                                      1e-4, scale_atol=True))
+                if not torch.equal(yc, yc_kept):
+                    raise SystemExit(f"K2-bwd wrote over the saved yc at "
+                                     f"{where}")
+                if not all(torch.equal(a, b) for a, b in zip(grads, grads_2)):
+                    raise SystemExit(f"K2-bwd: two calls differ at {where}")
+                leaves = [t.clone().requires_grad_(True)
+                          for t in (x, w2, cb, gamma, beta)]
+                y_l, _, _ = pgenc_layer_train(*leaves, backend="kernel")
+                first = torch.autograd.grad(y_l, leaves, dy, retain_graph=True)
+                second = torch.autograd.grad(y_l, leaves, dy)
+                if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                    raise SystemExit(f"K2-bwd: the retain_graph double "
+                                     f"backward differs at {where}")
                 if bool((grads[2] != 0).any()):
                     raise SystemExit(f"K2-bwd dcbias is not exactly 0 at "
                                      f"{where}")
+                if bool((grads_u[2] != 0).any()):
+                    raise SystemExit(f"K2-bwd dcbias is not exactly 0 at "
+                                     f"{where}, unaligned")
                 e_b = 0.0
-                for name, a, b_ in zip(("dx", "dw2", "dgamma", "dbeta"),
-                                       (grads[0], grads[1], grads[3],
-                                        grads[4]),
-                                       (grads_r[0], grads_r[1], grads_r[3],
-                                        grads_r[4])):
-                    e_b = max(e_b, check_close(f"K2-bwd {name} {where}", a,
-                                               b_, gtol, gtol,
-                                               scale_atol=True))
+                for name, k in (("dx", 0), ("dw2", 1), ("dgamma", 3),
+                                ("dbeta", 4)):
+                    for got, tag in ((grads, ""), (grads_u, " unaligned")):
+                        e_b = max(e_b, check_close(
+                            f"K2-bwd {name} {where}{tag}", got[k], grads_r[k],
+                            gtol, gtol, scale_atol=True))
                 if fp32 and r == 8 * cfg.num_frames:
                     leaves = [t.clone().requires_grad_(True)
                               for t in (x, w2, gamma, beta)]
-                    y_a, _, _ = pgenc_train_plain(leaves[0], leaves[1], cb,
-                                                  leaves[2], leaves[3])
+                    y_a = pgenc_train_plain(leaves[0], leaves[1], cb,
+                                            leaves[2], leaves[3])[0]
                     y_a.backward(dy)
                     for name, a, leaf in zip(
                             ("dx", "dw2", "dgamma", "dbeta"),
@@ -497,22 +611,33 @@ def pgenc_train_phase():
                         e_b = max(e_b, check_close(
                             f"K2-bwd {name} vs autograd {where}", a,
                             leaf.grad, gtol, gtol, scale_atol=True))
-                fwd_ms = cuda_ms(lambda: pgenc_train(x, w2, *vecs,
-                                                     backend="kernel"),
-                                 reps=3, iters=10)
+
+                def fwd():
+                    return pgenc_train(x, w2, *vecs, backend="kernel")
+
+                def bwd():
+                    return pgenc_bwd(*bwd_args, backend="kernel")
+
+                fwd_ms = cuda_ms(fwd, reps=3, iters=10)
                 fwd_plain = cuda_ms(lambda: pgenc_train_plain(x, w2, *vecs),
                                     reps=3, iters=10)
-                bwd_ms = cuda_ms(lambda: pgenc_bwd(x, w2, *vecs, mu, var, dy,
-                                                   backend="kernel"),
-                                 reps=3, iters=10)
-                bwd_plain = cuda_ms(lambda: pgenc_bwd_plain(
-                    x, w2, *vecs, mu, var, dy), reps=3, iters=10)
+                bwd_ms = cuda_ms(bwd, reps=3, iters=10)
+                bwd_plain = cuda_ms(lambda: pgenc_bwd_plain(*bwd_args),
+                                    reps=3, iters=10)
+                split = {}
+                if fp32 and r == 8 * cfg.num_frames:
+                    for key, fn in (("fwd", fwd), ("bwd", bwd)):
+                        split[key] = split_ms(fn, reps=3, iters=10)
+                        tot[f"{key}_device_ms"] += split[key][0]
+                        tot[f"{key}_host_ms"] += split[key][1]
+                if fp32:
+                    split["bwd_kernel_us"] = kernel_us(bwd)
                 conv_flops = 2 * co * 9 * c * r * (s // 2)
                 tot["fwd_bytes"] += nbytes(x, w2, y, mu, var) + 3 * 4 * co
                 tot["fwd_flops"] += conv_flops
-                tot["bwd_bytes"] += (nbytes(x, w2, dy, mu, var, grads[0],
+                tot["bwd_bytes"] += (nbytes(x, w2, yc, dy, mu, var, grads[0],
                                             grads[1]) + 7 * 4 * co)
-                tot["bwd_flops"] += 3 * conv_flops  # recompute, dx, dw2
+                tot["bwd_flops"] += 2 * conv_flops  # dx, dw2
                 tot["fwd_ms"] += fwd_ms
                 tot["fwd_plain_ms"] += fwd_plain
                 tot["bwd_ms"] += bwd_ms
@@ -523,12 +648,15 @@ def pgenc_train_phase():
                       dtype=str(dtype), max_abs_err_fwd=e_f,
                       max_abs_err_bwd=e_b, fwd_ms=fwd_ms,
                       fwd_plain_ms=fwd_plain, bwd_ms=bwd_ms,
-                      bwd_plain_ms=bwd_plain)
+                      bwd_plain_ms=bwd_plain, **split)
                 s //= 2
             tot["fwd_bound"] = bound_ms(tot["fwd_bytes"], tot["fwd_flops"])
             tot["bwd_bound"] = bound_ms(tot["bwd_bytes"], tot["bwd_flops"])
             phase("k2_train_stack", layers=len(specs), R=r, dtype=str(dtype),
                   fwd_ms=tot["fwd_ms"], fwd_plain_ms=tot["fwd_plain_ms"],
+                  fwd_device_ms=tot["fwd_device_ms"] or None,
+                  bwd_device_ms=tot["bwd_device_ms"] or None,
+                  bwd_host_ms=tot["bwd_host_ms"] or None,
                   fwd_bound_ms=tot["fwd_bound"][0],
                   fwd_bound_by=tot["fwd_bound"][1], bwd_ms=tot["bwd_ms"],
                   bwd_plain_ms=tot["bwd_plain_ms"],
@@ -536,6 +664,16 @@ def pgenc_train_phase():
                   bwd_bound_by=tot["bwd_bound"][1])
             totals[(r, str(dtype))] = tot
     return totals[(8 * cfg.num_frames, "torch.float32")]
+
+
+def _at_offset(t):
+    """A contiguous copy of t that starts one element into its storage."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def adam_phase(steps: int = 3):
@@ -594,6 +732,9 @@ def adam_phase(steps: int = 3):
         p.grad = torch.zeros_like(p) if gr is None else gr.clone()
     opt = torch.optim.Adam(lib_params, lr=lr, eps=eps, fused=True)
     library_ms = cuda_ms(opt.step, reps=5, iters=10)
+    dev_ms, host_ms = split_ms(lambda: adam_multi_tensor(
+        grads, ms, vs, ps, c1, c2, lr, b1, b2, eps, table=table,
+        backend="kernel"), iters=10)
     n = sum(p.numel() for p in ps)
     n_grad = sum(gr.numel() for gr in grads if gr is not None)
     bnd = bound_ms(4 * (6 * n + n_grad), 12 * n)
@@ -602,7 +743,7 @@ def adam_phase(steps: int = 3):
           plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd[0],
           bound_by=bnd[1])
     return dict(err=err, ms=ms_k, plain_ms=plain_ms, bound=bnd,
-                library_ms=library_ms)
+                library_ms=library_ms, device_ms=dev_ms, host_ms=host_ms)
 
 
 def _rel_l2(a, b) -> float:
@@ -874,8 +1015,25 @@ def train_phase(steps: int = 3):
           vectorized_step_ms=vec_ms,
           vectorized_clips_per_s=batch_size / (vec_ms / 1e3),
           vectorized_launches=vec_launches)
-    profile_phase("train_profile", lambda: step(state, batches[0], 2),
-                  calls=1)
+    counts = profile_phase("train_profile",
+                           lambda: step(state, batches[0], 2), calls=1,
+                           watch=("conv_kernel", "bn_bwd_kernel",
+                                  "grads_kernel"))
+
+    def launches_of(name):
+        return sum(n for k, n in counts.items()
+                   if re.search(rf"\b{name}\b", k))
+
+    k2 = {"conv_kernel": launches_of("conv_kernel"),
+          "pgenc_bwd_device": launches_of("bn_bwd_kernel")
+          + launches_of("grads_kernel")}
+    calls = want["pgenc_bwd"]
+    if k2["conv_kernel"] != calls or k2["pgenc_bwd_device"] > 3 * calls:
+        raise SystemExit(f"train step K2 device launches {k2} for {calls} "
+                         f"layer calls: want conv_kernel == {calls} (the "
+                         f"forward only) and <= 3 per pgenc_bwd call")
+    phase("train_k2_launches", per_step=k2, pgenc_bwd_calls=calls,
+          device_launches_per_pgenc_bwd=k2["pgenc_bwd_device"] / calls)
     return want
 
 
@@ -1010,8 +1168,9 @@ def k5_phase():
 
     g = torch.Generator(device="cuda").manual_seed(6)
     names = ("stats", "apply", "bwd_reduce", "bwd_dy")
-    rep = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0)
-           for n in names}
+    rep = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0,
+                   device_ms=0.0, host_ms=0.0) for n in names}
+    rep["stats"]["library_ms"] = 0.0
     tails = []
     for stage, shape in enumerate(K5_SHAPES):
         for ties in (False, True):
@@ -1082,10 +1241,16 @@ def k5_phase():
             times = {}
             for n in names:
                 times[n] = (cuda_ms(calls[n][0]), cuda_ms(calls[n][1]))
+                split = split_ms(calls[n][0])
+                rep[n]["device_ms"] += split[0]
+                rep[n]["host_ms"] += split[1]
                 rep[n]["ms"] += times[n][0]
                 rep[n]["plain_ms"] += times[n][1]
                 rep[n]["bytes"] += moved[n]
                 rep[n]["flops"] += ops[n]
+            # the biased per-channel statistics in one PyTorch call
+            rep["stats"]["library_ms"] += cuda_ms(lambda: torch.var_mean(
+                y, dim=(0, 2, 3, 4), correction=0))
             leaves = [t.clone().requires_grad_(True) for t in (y, gamma, beta)]
 
             def unfused():
@@ -1112,7 +1277,7 @@ def k5_phase():
                   fused_fwd_bwd_ms=fused_ms, unfused_torch_fwd_bwd_ms=tail_ms)
     for n in names:
         rep[n]["bound"] = bound_ms(rep[n]["bytes"], rep[n]["flops"])
-        rep[n]["library_ms"] = None
+        rep[n].setdefault("library_ms", None)
     phase("k5_epilogue", shapes=[list(s) for s in K5_SHAPES],
           **{n: {k: v for k, v in r.items() if k not in ("bytes", "flops")}
              for n, r in rep.items()},
@@ -1485,7 +1650,7 @@ def frames_golden_phase():
 def _k4_counters():
     from maavss_tpu_torch.ops import cuda_complex as cc
 
-    return cc.mask_mul, cc.magphase_fwd, cc.polar_fwd
+    return cc.mask_mul, cc.magphase_fwd, cc.polar_spectrum_fwd
 
 
 def _plain_k4(fn):
@@ -1499,7 +1664,7 @@ def _plain_k4(fn):
              (fusion_frames, "complex_mask_apply",
               cc.complex_mask_apply_plain),
              (stft, "magphase", cc.magphase_plain),
-             (stft, "polar_to_rect", cc.polar_to_rect_plain))
+             (stft, "polar_to_spectrum", cc.polar_to_spectrum_plain))
 
     def run(*args):
         kept = [getattr(mod, name) for mod, name, _ in swaps]
@@ -1550,7 +1715,10 @@ def k4_phase():
     bins' phases must equal +-pi exactly, by the sign of the zero. Times
     (gaussian, main-path layout) are median of 5 x 20 calls; bound = the
     bytes each call must move over 3.35 TB/s; torch.polar timed beside the
-    polar kernel (it writes interleaved complex)."""
+    polar kernel. The polar kernel's main-path form writes the complex
+    spectrum the iSTFT reads (the fusion clip's with a zero Nyquist bin, the
+    frames clip's as it is): it must equal the planar form bit for bit; its
+    row times that form, as torch.polar writes interleaved complex."""
     import torch
 
     from maavss_tpu_torch.ops.cuda_complex import (
@@ -1560,16 +1728,22 @@ def k4_phase():
         mask_mul_plain,
         polar_fwd,
         polar_fwd_plain,
+        polar_spectrum_fwd,
+        polar_spectrum_fwd_plain,
     )
 
     g = torch.Generator(device="cuda").manual_seed(9)
     tol = 1e-6
     rep = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0,
-                   library_ms=None) for n in ("mask_mul", "magphase", "polar")}
+                   library_ms=None, device_ms=0.0, host_ms=0.0)
+           for n in ("mask_mul", "magphase", "polar")}
 
     def account(name, kernel, plain, n_bytes, flops, lib=None):
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         r = rep[name]
+        dev_ms, host_ms = split_ms(kernel)
+        r["device_ms"] += dev_ms
+        r["host_ms"] += host_ms
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bytes"] += n_bytes
@@ -1623,11 +1797,23 @@ def k4_phase():
             if special:
                 x = _k4_special(x, g)[:, :, 4:4 + shape[2]]  # strided
             where = f"{shape} {'special' if special else 'gaussian'}"
+            pad = 1 if shape[3] == 128 else 0  # fusion trims Nyquist
             mp, mp_p = magphase_fwd(x), magphase_fwd_plain(x)
             rt, rt_p = polar_fwd(x), polar_fwd_plain(x)
+            sp = polar_spectrum_fwd(x, pad)
+            sp_p = polar_spectrum_fwd_plain(x, pad)
             torch.cuda.synchronize()
             e_mp = _rel_check(f"K4 magphase {where}", mp, mp_p, tol)
-            e_rt = _rel_check(f"K4 polar {where}", rt, rt_p, tol)
+            e_rt = max(_rel_check(f"K4 polar {where}", rt, rt_p, tol),
+                       _rel_check(f"K4 polar spectrum {where}",
+                                  torch.view_as_real(sp),
+                                  torch.view_as_real(sp_p), tol))
+            f_in = shape[3]
+            if not torch.equal(torch.view_as_real(sp[..., :f_in]),
+                               torch.stack([rt[:, 0], rt[:, 1]], dim=-1)) \
+                    or bool(sp[..., f_in:].any()):
+                raise SystemExit(f"K4 polar spectrum is not the planar "
+                                 f"form bit for bit (pad {pad}) at {where}")
             n_cut = 0
             if special:
                 re, im = x[:, 0], x[:, 1]
@@ -1650,12 +1836,15 @@ def k4_phase():
                 t_mp = account("magphase", lambda: magphase_fwd(x),
                                lambda: magphase_fwd_plain(x), n_bytes,
                                5 * x.numel() // 2)
-                t_rt = account("polar", lambda: polar_fwd(x),
-                               lambda: polar_fwd_plain(x), n_bytes,
-                               2 * x.numel(),
+                t_rt = account("polar", lambda: polar_spectrum_fwd(x, pad),
+                               lambda: polar_spectrum_fwd_plain(x, pad),
+                               x.numel() * 4 + sp.numel() * 8, 2 * x.numel(),
                                lib=lambda: torch.polar(x[:, 0], x[:, 1]))
                 fields = dict(magphase_ms=t_mp[0], magphase_plain_ms=t_mp[1],
-                              polar_ms=t_rt[0], polar_plain_ms=t_rt[1],
+                              polar_spectrum_ms=t_rt[0],
+                              polar_spectrum_plain_ms=t_rt[1],
+                              polar_planar_ms=cuda_ms(lambda: polar_fwd(x)),
+                              nyquist_pad=pad,
                               bound_ms=bound_ms(n_bytes, 5 * x.numel() // 2)[0])
             phase("k4_polar", shape=list(shape), special=special,
                   operand_strides=list(x.stride()), branch_cut_bins=n_cut,
@@ -2112,6 +2301,45 @@ def mask_slice_phase():
     return launches["mask_mul"]
 
 
+def _istft_polar_extra(cfg):
+    """What istft_features(polar=True) runs beyond the iSTFT of the
+    spectrum itself, at the fusion flagship's clip ([8, 2, 96, 128]
+    features, Nyquist trimmed): ({aten op: count} from torch.profiler over
+    one call of each after a warm-up, the polar kernel's launches per
+    call)."""
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from maavss_tpu_torch.ops import cuda_complex as cc
+    from maavss_tpu_torch.ops.stft import istft, istft_features
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    feats = torch.randn(8, 2, 96, cfg.fft_len // 2, device="cuda",
+                        generator=g)
+    spec = cc.polar_to_spectrum(feats, 1)
+    length = 96 * cfg.hop
+
+    def ops(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return Counter({e.key: e.count for e in prof.key_averages()
+                        if e.key.startswith("aten::")})
+
+    before = cc.polar_spectrum_fwd.launches
+    full = ops(lambda: istft_features(
+        feats, cfg.fft_len, cfg.hop, normalized=cfg.normalize_fft,
+        trim_end=True, polar=True, length=length))
+    launches = (cc.polar_spectrum_fwd.launches - before) / 2
+    base = ops(lambda: istft(spec, cfg.fft_len, cfg.hop,
+                             normalized=cfg.normalize_fft, length=length))
+    return dict(full - base), launches
+
+
 def polar_phase():
     """--use_polar at full width: 3 fusion train steps and 3 frames train
     steps (the features through the magphase kernel once per step) with
@@ -2174,7 +2402,17 @@ def polar_phase():
                                      iters=3),
             direct_batch8_plain_ms=cuda_ms(lambda: serve_ref(*inputs),
                                            reps=3, iters=3))
-    phase("polar", fusion_train=fusion, frames_train=frames, serving=served)
+    extra_ops, extra_launches = _istft_polar_extra(cfg)
+    copies = {"aten::complex", "aten::pad", "aten::constant_pad_nd",
+              "aten::contiguous", "aten::clone", "aten::copy_"}
+    if extra_launches != 1 or copies & set(extra_ops):
+        raise SystemExit(f"istft_features(polar=True) runs the polar kernel "
+                         f"{extra_launches} times per call and the ops "
+                         f"{extra_ops} beyond the iSTFT: want one launch "
+                         f"and no copy")
+    phase("polar", fusion_train=fusion, frames_train=frames, serving=served,
+          istft_polar_extra_ops=extra_ops,
+          istft_polar_launches_per_call=extra_launches)
     return launches
 
 
@@ -2288,6 +2526,7 @@ def kernel_entry(name, source, replaces, launches, rep):
             "source": f"maavss_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": rep["err"], "ms": rep["ms"],
+            "device_ms": rep["device_ms"], "host_ms": rep["host_ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound"][0],
             "bound_by": rep["bound"][1], "library_ms": rep["library_ms"]}
 
@@ -2320,8 +2559,7 @@ def main() -> None:
                      "maavss_tpu/ops/pallas_lstm.py:80", serve["lstm"], k1),
         kernel_entry("pgenc_eval", "pgenc_eval.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:171", serve["pgenc"],
-                     dict(err=k2["err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
-                          bound=k2["bound"], library_ms=None)),
+                     dict(k2, library_ms=None)),
         kernel_entry("lstm_bwd", "lstm_bwd.cu",
                      "maavss_tpu/ops/pallas_lstm.py:105", train["lstm_bwd"],
                      k1b),
@@ -2330,12 +2568,14 @@ def main() -> None:
                      train["pgenc_train"],
                      dict(err=k2t["fwd_err"], ms=k2t["fwd_ms"],
                           plain_ms=k2t["fwd_plain_ms"], bound=k2t["fwd_bound"],
-                          library_ms=None)),
+                          device_ms=k2t["fwd_device_ms"],
+                          host_ms=k2t["fwd_host_ms"], library_ms=None)),
         kernel_entry("pgenc_bwd", "pgenc_train.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:184", train["pgenc_bwd"],
                      dict(err=k2t["bwd_err"], ms=k2t["bwd_ms"],
                           plain_ms=k2t["bwd_plain_ms"], bound=k2t["bwd_bound"],
-                          library_ms=None)),
+                          device_ms=k2t["bwd_device_ms"],
+                          host_ms=k2t["bwd_host_ms"], library_ms=None)),
         kernel_entry("adam", "adam.cu", "maavss_tpu/ops/pallas_adam.py:49",
                      train["adam"], k3),
         *(kernel_entry(f"epilogue_{n}", "epilogue.cu",

@@ -16,49 +16,77 @@
 //             dx[ci,r,j] = sum_{co,k} w2[co,k*C+ci] * dyc[co,r,(j+4-k)/2]
 //                          over the k with j+4-k even and in range
 //             dw2[co,k*C+ci] = sum_{r,so} dyc[co,r,so] * xpad[ci,r,2so+k]
-//             dcbias = 0 exactly (the bias cancels in yc - mu; the wrapper
-//             returns zeros)
+//             dcbias = 0 exactly (the bias cancels in yc - mu)
 // with fp32 sums and statistics; x, w2, y, dy, dx, dw2 in x's type (fp32 or
 // bf16).
 //
-// Design. The TPU kernels carry the per-channel sums (stats_ref, dgb_ref)
-// and dW2 (dw_acc) across sequential grid steps in VMEM. Hopper's blocks run
-// in parallel and in no order, so each cross-block sum is its own pass, in a
-// fixed order, with no atomics (every run gives the same bits):
-//   forward:  (1) conv -> fp32 yc scratch, one block per (row, output chunk),
-//                 the zero-padded input row staged in shared memory, stride 2
-//                 by index arithmetic (as csrc/pgenc_eval.cu);
-//             (2) one block per channel sums yc and yc^2 over its contiguous
-//                 R*So values (per-thread partials, then a shared-memory
-//                 tree) and writes mu, var; E[y^2] - E[y]^2 as the TPU
-//                 kernel and flax compute it;
-//             (3) elementwise normalise + tanh -> y.
-//   backward: (1) conv recomputed from x -> yc scratch (the TPU kernel also
-//                 recomputes rather than storing residuals);
-//             (2) one block per channel sums dq*z and dq -> dgamma, dbeta;
-//             (3) dyc, elementwise, over yc in place;
-//             (4) dx: one block per (row, input chunk) stages the row's dyc
-//                 [Co, So] in shared memory; an output j gathers the taps k
-//                 of its parity (the TPU kernel upsamples with zeros and
-//                 untaps; a gather by parity is the same sum without the
-//                 zeros);
-//             (5) dw2 as a tiled product dyc [Co, R*So] x B [R*So, 9C],
-//                 B gathered from x by (row, so, tap), the R*So axis split
-//                 into P chunks so that enough blocks are in flight: one
-//                 fp32 partial tile per (chunk, tile);
-//             (6) dw2 = the partials summed over the chunks in order.
+// Forward, three launches. The TPU kernel carries the per-channel sums
+// across its sequential grid in VMEM; Hopper's blocks run in parallel, so:
+// (1) conv -> fp32 yc, one block per (row, output chunk), the zero-padded
+// input row staged in shared memory, stride 2 by index arithmetic (as
+// csrc/pgenc_eval.cu); (2) one block per channel sums yc and yc^2 in a fixed
+// order and writes mu, var (E[y^2] - E[y]^2 as the TPU kernel and flax);
+// (3) elementwise normalise + tanh -> y. yc is returned: it is the
+// backward's residual.
 //
-// What bounds it on Hopper: at R = 64 a layer's tensors are under 2 MB and
-// stay in the 50 MB L2, so the floor from device memory (x and dy read once,
-// y or dx written once) is a microsecond or two; the conv is 5 to 151 MFLOP
-// of fp32 on the CUDA cores (twice that in the backward, for dx and dw2).
-// The passes are short and dependent, so launch latency and the per-channel
-// reductions (one block per channel, 2 to 64 blocks) bound the shallow
-// layers; load issue bounds the deep ones, as in the eval kernel. Tensor
-// cores (implicit GEMM) and fewer passes are the later step.
+// Backward, two launches, every sum in a fixed order (two runs give the
+// same bits). The TPU kernel recomputes the conv from x to spare VMEM; here
+// the forward's fp32 yc is kept (7.3 MB per scan window of the fusion
+// flagship's 10 layers at R = 64), so the backward reads yc, dy, x, w2 and
+// the per-channel vectors, and never writes over yc (autograd saves it; a
+// second backward must read it again).
+//   (1) bn_bwd_kernel: one thread-block cluster of P <= 8 blocks of 1024
+//       threads per channel (P from the channel's R*So values, 4096 per
+//       block, read four at a time). Each block sums dq*z and dq over its
+//       slice; the partials combine in rank order through distributed
+//       shared memory, so every block holds the channel's dgamma and dbeta
+//       and writes dyc over its slice into a buffer of its own. dyc is
+//       written once because both products read it; forming it in each
+//       would repeat the tanh and read yc and dy twice. Rank 0 writes
+//       (0, dgamma, dbeta); block (0, 0) zeroes the tile counters of (2).
+//   (2) grads_kernel: dx and dw2 in one grid, blocks [0, nbx) for dx, the
+//       rest for dw2.
+//       dx, per block a tile of rows x input channels x output pairs
+//       (j = 2m, 2m+1): w2's column block and the rows' dyc window are
+//       staged in shared memory, 32 output channels at a time; each thread
+//       holds 4 channels x TM pairs in registers (the even output takes the
+//       five even taps, the odd one the four odd taps, over dyc[m-2..m+2]).
+//       dw2 = dyc [Co, R*So] x taps [R*So, 9C]: per block a tile of output
+//       x input channels (all 9 taps); a K stage stages dyc for the tile's
+//       output channels and the x rows (padded by 4) for its input
+//       channels, and a thread reads its 9 taps from the staged row by
+//       offset 2*so + k, with no division per element. K is split over G
+//       thread groups in a block, combined in a fixed tree in shared
+//       memory, and over `splits` blocks (about 264 dw2 blocks in all, so
+//       that the shallow layers' [2, 9]- and [4, 18]-sized outputs over
+//       131k and 65k terms are read by the whole card): each writes its
+//       partial tile, and the last of a tile's blocks to count itself in
+//       (an atomic counter, zeroed by (1)) sums the partial tiles in a
+//       fixed tree over the split index. Which block is last varies; the
+//       order of the sums does not.
+//       Every stage is copied by cp.async, 16 bytes where the rows and the
+//       operands' alignment allow (a view at an odd offset takes 4-byte
+//       copies; bf16 operands are loaded and converted), so that a thread
+//       has all its copies of a stage in flight at once and a stage costs one
+//       memory latency.
+//       The dx grid aims at >= 132 blocks (TM = 1 when TM = 2 gives fewer).
+//
+// What bounds it on Hopper: the work is the two products, 2*Co*9C*R*So
+// FLOPs each, fp32 on the CUDA cores (1.16 GFLOP over the flagship's 10
+// layers at R = 64: 0.017 ms at 67 TFLOP/s), and x, yc, dy read and dx, dw2
+// written once (about 31 MB: 0.009 ms at 3.35 TB/s). At R = 64 every
+// layer's tensors sit in the 50 MB L2; the 20 launches of a 10-layer
+// backward, each a chain of dependent stages (stage, compute, tree, count
+// in, sum), and the deep layers' dx on 16-64 blocks bound it.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <algorithm>
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -181,182 +209,525 @@ apply_kernel(const float* __restrict__ yc, const float* __restrict__ mu,
           tanhf(aff.gamma[co] * (yc[i] - mu[co]) * inv + aff.beta[co]));
 }
 
-// dgamma = sum(dq * z), dbeta = sum(dq) per channel; grid Co.
+constexpr int kBnThreads = 1024;
+constexpr int kGradThreads = 256;
+constexpr int kMaxCluster = 8;     // portable cluster size
+constexpr int kBnPerBlock = 4096;  // values of a channel per BN block
+constexpr int kDxChunk = 32;       // output channels staged per dx pass
+constexpr int kTargetBlocks = 132;
+constexpr int kDwBlocks = 264;     // dw2 blocks to aim at: two per SM
+constexpr size_t kStageBytes = 100 * 1024;  // dw2's K stage
+
+// Stage one fp32 value of global memory into shared memory: fp32 sources
+// by cp.async (4 bytes, zero-filled when !ok), so that a thread has all its
+// copies of a stage in flight at once; bf16 sources by a load and a store.
+// cp_wait() completes the thread's copies; a __syncthreads() must follow.
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
+                                      bool ok) {
+  *dst = ok ? __bfloat162float(*src) : 0.0f;
+}
+// The same for four consecutive values (16-byte cp.async; 8-byte bf16
+// loads), all in range or none; src and dst 16-byte (bf16: 8-byte) aligned.
+__device__ __forceinline__ void stage4(float* dst, const float* src,
+                                       bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
+                                       bool ok);
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Four consecutive values as fp32 (16-byte fp32 or 8-byte bf16 loads).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
+                                       bool ok) {
+  *reinterpret_cast<float4*>(dst) =
+      ok ? load4(src) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+struct BnChannel {
+  float m, inv, g, b;
+  // z and dq of one value
+  __device__ __forceinline__ void terms(float y, float d, float& z,
+                                        float& dq) const {
+    z = (y - m) * inv;
+    const float out = tanhf(g * z + b);
+    dq = d * (1.0f - out * out);
+  }
+};
+
+// BN backward, grid (P, Co), cluster (P, 1, 1): the cluster of channel co
+// sums dq*z and dq, then writes dyc over the channel; rank 0 writes
+// vec3 [3, Co] = (0, dgamma, dbeta). Each block takes a slice of the
+// channel's n values, four at a time when `vec` (n % 4 == 0 and yc, dy
+// aligned for it). Block (0, 0) also zeroes the grads kernel's n_count tile
+// counters.
 template <typename T>
-__global__ void __launch_bounds__(kStatThreads)
-bwd_stats_kernel(const float* __restrict__ yc, const T* __restrict__ dy,
-                 const float* __restrict__ mu, const float* __restrict__ var,
-                 Affine aff, float* __restrict__ dgamma,
-                 float* __restrict__ dbeta, int n) {
-  __shared__ float red[2 * kStatThreads];
-  const int co = blockIdx.x;
-  const size_t base = static_cast<size_t>(co) * n;
-  const float m = mu[co];
-  const float inv = rsqrtf(var[co] + kEps);
-  const float gamma = aff.gamma[co];
-  const float beta = aff.beta[co];
-  float sdg = 0.0f, sdb = 0.0f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float z = (yc[base + i] - m) * inv;
-    const float out = tanhf(gamma * z + beta);
-    const float dq = load_f(dy + base + i) * (1.0f - out * out);
-    sdg += dq * z;
-    sdb += dq;
+__global__ void __launch_bounds__(kBnThreads)
+bn_bwd_kernel(const float* __restrict__ yc, const T* __restrict__ dy,
+              const float* __restrict__ mu, const float* __restrict__ var,
+              const float* __restrict__ gamma,
+              const float* __restrict__ beta, float* __restrict__ dyc,
+              float* __restrict__ vec3, int* __restrict__ counts,
+              int n_count, int n, int Co, bool vec) {
+  __shared__ float red[2 * kBnThreads];
+  __shared__ float part[2];
+  __shared__ float tot[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int P = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int co = blockIdx.y;
+  if (co == 0 && rank == 0) {
+    for (int i = threadIdx.x; i < n_count; i += blockDim.x) counts[i] = 0;
+  }
+  const int per = ((n + P - 1) / P + 3) / 4 * 4;
+  const int begin = min(n, rank * per);
+  const int end = min(n, begin + per);
+  const BnChannel ch{mu[co], rsqrtf(var[co] + kEps), gamma[co], beta[co]};
+  const float* y = yc + static_cast<size_t>(co) * n;
+  const T* d = dy + static_cast<size_t>(co) * n;
+  float* out = dyc + static_cast<size_t>(co) * n;
+  const int step = vec ? 4 * blockDim.x : blockDim.x;
+  const int first = begin + (vec ? 4 : 1) * threadIdx.x;
+  float sdg = 0.0f, sdb = 0.0f, z, dq;
+#pragma unroll 4
+  for (int i = first; i < end; i += step) {
+    if (vec) {
+      const float4 yv = load4(y + i);
+      const float4 dv = load4(d + i);
+      ch.terms(yv.x, dv.x, z, dq);
+      sdg += dq * z;
+      sdb += dq;
+      ch.terms(yv.y, dv.y, z, dq);
+      sdg += dq * z;
+      sdb += dq;
+      ch.terms(yv.z, dv.z, z, dq);
+      sdg += dq * z;
+      sdb += dq;
+      ch.terms(yv.w, dv.w, z, dq);
+      sdg += dq * z;
+      sdb += dq;
+    } else {
+      ch.terms(y[i], load_f(d + i), z, dq);
+      sdg += dq * z;
+      sdb += dq;
+    }
   }
   block_sum2(sdg, sdb, red);
   if (threadIdx.x == 0) {
-    dgamma[co] = sdg;
-    dbeta[co] = sdb;
+    part[0] = sdg;
+    part[1] = sdb;
   }
-}
-
-// dyc = (gamma*inv) * (dq - dbeta/N - z * (dgamma/N)), written over yc in
-// place; one thread per element.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dyc_kernel(float* __restrict__ yc, const T* __restrict__ dy,
-           const float* __restrict__ mu, const float* __restrict__ var,
-           Affine aff, const float* __restrict__ dgamma,
-           const float* __restrict__ dbeta, int n, int Co) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<size_t>(n) * Co) return;
-  const int co = static_cast<int>(i / n);
+  cluster.sync();
+  if (threadIdx.x == 0) {
+    float dg = 0.0f, db = 0.0f;
+    for (int q = 0; q < P; ++q) {
+      const float* pq = cluster.map_shared_rank(part, q);
+      dg += pq[0];
+      db += pq[1];
+    }
+    tot[0] = dg;
+    tot[1] = db;
+    if (rank == 0) {
+      vec3[co] = 0.0f;
+      vec3[Co + co] = dg;
+      vec3[2 * Co + co] = db;
+    }
+  }
+  cluster.sync();  // no block leaves while another reads its partials
   const float nf = static_cast<float>(n);
-  const float inv = rsqrtf(var[co] + kEps);
-  const float gamma = aff.gamma[co];
-  const float z = (yc[i] - mu[co]) * inv;
-  const float out = tanhf(gamma * z + aff.beta[co]);
-  const float dq = load_f(dy + i) * (1.0f - out * out);
-  yc[i] = (gamma * inv) * (dq - dbeta[co] / nf - z * (dgamma[co] / nf));
+  const float dgn = tot[0] / nf;
+  const float dbn = tot[1] / nf;
+  const float ginv = ch.g * ch.inv;
+#pragma unroll 4
+  for (int i = first; i < end; i += step) {
+    if (vec) {
+      const float4 yv = load4(y + i);
+      const float4 dv = load4(d + i);
+      float4 o;
+      ch.terms(yv.x, dv.x, z, dq);
+      o.x = ginv * (dq - dbn - z * dgn);
+      ch.terms(yv.y, dv.y, z, dq);
+      o.y = ginv * (dq - dbn - z * dgn);
+      ch.terms(yv.z, dv.z, z, dq);
+      o.z = ginv * (dq - dbn - z * dgn);
+      ch.terms(yv.w, dv.w, z, dq);
+      o.w = ginv * (dq - dbn - z * dgn);
+      *reinterpret_cast<float4*>(out + i) = o;
+    } else {
+      ch.terms(y[i], load_f(d + i), z, dq);
+      out[i] = ginv * (dq - dbn - z * dgn);
+    }
+  }
 }
 
-// dx [C, R, S]; grid (R, input chunks). blockIdx.x is the row, whose dyc
-// [Co][So] is staged in shared memory.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dx_kernel(const float* __restrict__ dyc, const T* __restrict__ w2,
-          T* __restrict__ dx, int C, int R, int S, int Co) {
-  extern __shared__ float ds[];  // [Co][So]
-  const int So = S / 2;
-  const int r = blockIdx.x;
-  for (int i = threadIdx.x; i < Co * So; i += blockDim.x) {
-    const int co = i / So;
-    ds[i] = dyc[(static_cast<size_t>(co) * R + r) * So + (i - co * So)];
-  }
-  __syncthreads();
-  const int total = C * S;
-  const int chunk = kThreads * kOutputsPerThread;
-  const int begin = blockIdx.y * chunk;
-  const int end = min(total, begin + chunk);
-  const int nine_c = kTaps * C;
-  for (int o = begin + threadIdx.x; o < end; o += blockDim.x) {
-    const int ci = o / S;
-    const int j = o - ci * S;
-    float acc = 0.0f;
-    for (int k = j & 1; k < kTaps; k += 2) {
-      const int so = (j + kPad - k) >> 1;
-      if (so < 0 || so >= So) continue;
-      const T* wk = w2 + k * C + ci;
-      for (int co = 0; co < Co; ++co) {
-        acc = fmaf(load_f(wk + static_cast<size_t>(co) * nine_c),
-                   ds[co * So + so], acc);
+struct Dims {
+  int C, R, S, Co, So;
+  bool vec;  // x and w2 allow 16-byte (bf16: 8-byte) loads
+};
+
+// dx blocks: threads tm (pairs) x tc (groups of 4 input channels) x br
+// (rows), tm fastest; nb_* blocks along pairs, channels and rows.
+struct DxPlan {
+  int tm, tc, br;
+  int nb_m, nb_c, nb_r;
+  int blocks;  // nb_m * nb_c * nb_r
+  int kc;      // output channels per staged pass
+};
+
+// dw2 blocks: a tile of bmo output x bci input channels (x 9 taps), the K
+// axis (R*So) cut into nt stages of 2^kr_log rows x 2^ks_log so's (n_seg
+// segments per row), split over `splits` blocks per tile, whose partial
+// tiles the last block of the tile to finish sums in split order.
+struct DwPlan {
+  int bmo, bci, n_ct, tiles, splits, splits_p2;  // splits_p2: next power of 2
+  int ks_log, kr_log, n_seg, nt;
+};
+
+template <typename T, int TM>
+__device__ void dx_role(const float* __restrict__ dyc,
+                        const T* __restrict__ w2, T* __restrict__ dx,
+                        const Dims d, const DxPlan p, int b, float* smem) {
+  const int bm = b % p.nb_m;
+  const int bc = (b / p.nb_m) % p.nb_c;
+  const int brow = b / (p.nb_m * p.nb_c);
+  const int BM = TM * p.tm;  // output pairs per block
+  const int BC = 4 * p.tc;   // input channels per block (a power of 2)
+  const int DL = BM + 8;     // staged dyc row: so = m0 - 4 .. m0 + BM + 3
+  const int m0 = bm * BM, c0 = bc * BC, r0 = brow * p.br;
+  float* ws = smem;                       // [kc][9][BC]
+  float* ds = smem + p.kc * kTaps * BC;   // [kc][br][DL]
+  const int tid = threadIdx.x;
+  const int tmid = tid % p.tm;
+  const int tcid = (tid / p.tm) % p.tc;
+  const int trid = tid / (p.tm * p.tc);
+  const int nine_c = kTaps * d.C;
+  // whole groups of 4 where rows of w2 and dyc allow 16-byte copies
+  const bool vw = d.vec && d.C % 4 == 0;
+  const bool vd = d.So % 4 == 0 && BM % 4 == 0;
+  float acc_e[4][TM] = {}, acc_o[4][TM] = {};
+  for (int co0 = 0; co0 < d.Co; co0 += p.kc) {
+    const int kc_n = min(p.kc, d.Co - co0);
+    __syncthreads();  // the previous pass is consumed
+    if (vw) {
+      const int g4 = BC / 4;
+#pragma unroll 4
+      for (int i = tid; i < kc_n * kTaps * g4; i += blockDim.x) {
+        const int cg = i & (g4 - 1);
+        const int kk = i / g4;
+        const int kc = kk / kTaps;
+        const int ci = c0 + 4 * cg;
+        const bool ok = ci < d.C;
+        stage4(ws + kk * BC + 4 * cg,
+               w2 + (ok ? static_cast<size_t>(co0 + kc) * nine_c +
+                              (kk - kc * kTaps) * d.C + ci
+                        : 0),
+               ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = tid; i < kc_n * kTaps * BC; i += blockDim.x) {
+        const int ci = c0 + (i & (BC - 1));
+        const int kk = i / BC;
+        const int kc = kk / kTaps;
+        const bool ok = ci < d.C;
+        stage(ws + i,
+              w2 + (ok ? static_cast<size_t>(co0 + kc) * nine_c +
+                             (kk - kc * kTaps) * d.C + ci
+                       : 0),
+              ok);
       }
     }
-    store_f(dx + (static_cast<size_t>(ci) * R + r) * S + j, acc);
-  }
-}
-
-// dw2 as a tiled product: dw2 [Co, 9C] = dyc [Co, K] x B [K, 9C] over the
-// K = R*So (row, so) pairs, with B[(r, so), k*C + ci] = xpad[ci, r, 2so+k]
-// gathered from x. Block (nt, mt, p) computes a kTM x kTN output tile over
-// the p-th chunk of K (split K, so that enough blocks are in flight when
-// Co x 9C is small) and writes it to partial[p]; each thread owns 2 x 4
-// outputs and sums its chunk's terms in order.
-constexpr int kTM = 32;
-constexpr int kTN = 64;
-constexpr int kTK = 32;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dw2_tile_kernel(const float* __restrict__ dyc, const T* __restrict__ x,
-                float* __restrict__ partial, int C, int R, int S, int Co,
-                int k_chunk) {
-  __shared__ float a_sh[kTK][kTM + 1];
-  __shared__ float b_sh[kTK][kTN];
-  const int So = S / 2;
-  const int K = R * So;
-  const int n_cols = kTaps * C;
-  const int n0 = blockIdx.x * kTN;
-  const int m0 = blockIdx.y * kTM;
-  const int k_begin = blockIdx.z * k_chunk;
-  const int k_end = min(K, k_begin + k_chunk);
-  const int tx = threadIdx.x % 16;  // columns tx*4 .. tx*4+3
-  const int ty = threadIdx.x / 16;  // rows ty*2, ty*2+1
-  float acc[2][4] = {};
-
-  for (int kk0 = k_begin; kk0 < k_end; kk0 += kTK) {
-    for (int e = threadIdx.x; e < kTK * kTM; e += kThreads) {
-      const int i = e / kTK;
-      const int t = e - i * kTK;
-      const int kk = kk0 + t;
-      a_sh[t][i] = (m0 + i < Co && kk < k_end)
-                       ? dyc[static_cast<size_t>(m0 + i) * K + kk]
-                       : 0.0f;
+    const int per = vd ? DL / 4 : DL;  // copies per staged row
+#pragma unroll 4
+    for (int i = tid; i < kc_n * p.br * per; i += blockDim.x) {
+      const int kr = i / per;
+      const int q = (i - kr * per) * (vd ? 4 : 1);
+      const int kc = kr / p.br;
+      const int r = r0 + kr - kc * p.br;
+      const int so = m0 - 4 + q;
+      const bool ok = r < d.R && so >= 0 && so < d.So;
+      const float* src =
+          dyc + (ok ? (static_cast<size_t>(co0 + kc) * d.R + r) * d.So + so
+                    : 0);
+      if (vd) {
+        stage4(ds + kr * DL + q, src, ok);
+      } else {
+        stage(ds + kr * DL + q, src, ok);
+      }
     }
-    for (int e = threadIdx.x; e < kTK * kTN; e += kThreads) {
-      const int jn = e / kTK;
-      const int t = e - jn * kTK;
-      const int kk = kk0 + t;
-      const int n = n0 + jn;
-      float v = 0.0f;
-      if (n < n_cols && kk < k_end) {
-        const int k = n / C;
-        const int ci = n - k * C;
-        const int r = kk / So;
-        const int s = 2 * (kk - r * So) + k - kPad;
-        if (s >= 0 && s < S) {
-          v = load_f(x + (static_cast<size_t>(ci) * R + r) * S + s);
+    cp_wait();
+    __syncthreads();
+    for (int kc = 0; kc < kc_n; ++kc) {
+      float w[kTaps][4];
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            ws + (kc * kTaps + k) * BC + tcid * 4);
+        w[k][0] = v.x;
+        w[k][1] = v.y;
+        w[k][2] = v.z;
+        w[k][3] = v.w;
+      }
+      const float* drow = ds + (kc * p.br + trid) * DL + tmid * TM + 2;
+      float dv[TM + 4];
+#pragma unroll
+      for (int q = 0; q < TM + 4; ++q) dv[q] = drow[q];
+      // pair m: dx[2m] = sum_t w[2t] dyc[m+2-t], dx[2m+1] = sum_t w[2t+1]
+      // dyc[m+2-t]; dyc[m+2-t] is dv[i + 4 - t]
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int t = 0; t < 5; ++t) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc_e[c][i] = fmaf(w[2 * t][c], dv[i + 4 - t], acc_e[c][i]);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc_o[c][i] = fmaf(w[2 * t + 1][c], dv[i + 4 - t], acc_o[c][i]);
+          }
         }
       }
-      b_sh[t][jn] = v;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int t = 0; t < kTK; ++t) {
-      const float a0 = a_sh[t][ty * 2];
-      const float a1 = a_sh[t][ty * 2 + 1];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float b = b_sh[t][tx * 4 + c];
-        acc[0][c] = fmaf(a0, b, acc[0][c]);
-        acc[1][c] = fmaf(a1, b, acc[1][c]);
-      }
-    }
-    __syncthreads();
   }
-  float* out = partial + static_cast<size_t>(blockIdx.z) * Co * n_cols;
+  const int r = r0 + trid;
+  if (r >= d.R) return;
 #pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int co = m0 + ty * 2 + a;
+  for (int c = 0; c < 4; ++c) {
+    const int ci = c0 + tcid * 4 + c;
+    if (ci >= d.C) continue;
+    T* row = dx + (static_cast<size_t>(ci) * d.R + r) * d.S;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + tx * 4 + c;
-      if (co < Co && n < n_cols) out[static_cast<size_t>(co) * n_cols + n] =
-          acc[a][c];
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + tmid * TM + i;
+      if (m < d.So) {
+        store_f(row + 2 * m, acc_e[c][i]);
+        store_f(row + 2 * m + 1, acc_o[c][i]);
+      }
     }
   }
 }
 
-// dw2[o] = sum_p partial[p, o], p in order.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dw2_reduce_kernel(const float* __restrict__ partial, T* __restrict__ dw2,
-                  int n_out, int P) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n_out) return;
-  float s = 0.0f;
-  for (int p = 0; p < P; ++p) s += partial[static_cast<size_t>(p) * n_out + o];
-  store_f(dw2 + o, s);
+// One split of one dw2 tile; `partial` holds tiles x splits fp32 tiles,
+// `counts` one counter per tile (zeroed by the BN kernel).
+template <typename T, int TMO, int TCI>
+__device__ void dw_role(const float* __restrict__ dyc,
+                        const T* __restrict__ x, T* __restrict__ dw2,
+                        float* __restrict__ partial, int* __restrict__ counts,
+                        const Dims d, const DwPlan p, int tile, int split,
+                        float* smem) {
+  __shared__ bool last;
+  const int KS = 1 << p.ks_log;
+  const int KR = 1 << p.kr_log;
+  const int ke_log = p.ks_log + p.kr_log;
+  const int KE = 1 << ke_log;
+  const int AS = KE + 4;                // staged dyc row stride
+  const int XL = 2 * KS + 2 * kPad;     // staged x row: positions 2*s0-4 ..
+  const int XCS = KR * XL + 4;          // per input channel
+  float* as = smem;                     // [bmo][AS]
+  float* xs = smem + p.bmo * AS;        // [bci][KR][XL] (+4)
+  const int co0 = (tile / p.n_ct) * p.bmo;
+  const int ci0 = (tile % p.n_ct) * p.bci;
+  const int n_om = p.bmo / TMO;
+  const int nto = n_om * (p.bci / TCI);
+  const int G = blockDim.x / nto;       // K groups in the block
+  const int ot = threadIdx.x % nto;
+  const int g = threadIdx.x / nto;
+  const int om = ot % n_om;
+  const int oc = ot / n_om;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nwarp = blockDim.x / 32;
+  // 16-byte copies: dyc rows of whole groups of 4 so's, x rows of 4 s's
+  const bool va = d.So % 4 == 0 && KS >= 4;
+  const bool vx = d.vec && d.S % 4 == 0 && KS >= 2;
+  float acc[TMO][TCI][kTaps] = {};
+  const int st_end = (split + 1) * p.nt / p.splits;
+  for (int st = split * p.nt / p.splits; st < st_end; ++st) {
+    const int rb = (st / p.n_seg) * KR;
+    const int s0 = (st % p.n_seg) * KS;
+    __syncthreads();  // the previous stage is consumed
+    const int a_log = va ? ke_log - 2 : ke_log;
+    const int a_w = va ? 4 : 1;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < (p.bmo << a_log); i += blockDim.x) {
+      const int col = i >> a_log;
+      const int e = (i & ((1 << a_log) - 1)) * a_w;
+      const int r = rb + (e >> p.ks_log);
+      const int so = s0 + (e & (KS - 1));
+      const int co = co0 + col;
+      const bool ok = co < d.Co && r < d.R && so < d.So;
+      const float* src =
+          dyc + (ok ? (static_cast<size_t>(co) * d.R + r) * d.So + so : 0);
+      if (va) {
+        stage4(as + col * AS + e, src, ok);
+      } else {
+        stage(as + col * AS + e, src, ok);
+      }
+    }
+    const int x_w = vx ? 4 : 1;
+    for (int row = warp; row < p.bci * KR; row += nwarp) {
+      const int cl = row >> p.kr_log;
+      const int rr = row & (KR - 1);
+      const int ci = ci0 + cl, r = rb + rr;
+      float* dst = xs + cl * XCS + rr * XL;
+      const bool row_ok = ci < d.C && r < d.R;
+      const size_t base = row_ok ? (static_cast<size_t>(ci) * d.R + r) * d.S
+                                 : 0;
+#pragma unroll 4
+      for (int q = lane * x_w; q < XL; q += 32 * x_w) {
+        const int s = 2 * s0 - kPad + q;
+        const bool ok = row_ok && s >= 0 && s < d.S;
+        const T* src = x + (ok ? base + s : 0);
+        if (vx) {
+          stage4(dst + q, src, ok);
+        } else {
+          stage(dst + q, src, ok);
+        }
+      }
+    }
+    cp_wait();
+    __syncthreads();
+    for (int e = g; e < KE; e += G) {
+      const int rr = e >> p.ks_log;
+      const int s = e & (KS - 1);
+      float a[TMO];
+#pragma unroll
+      for (int i = 0; i < TMO; ++i) a[i] = as[(om * TMO + i) * AS + e];
+#pragma unroll
+      for (int j = 0; j < TCI; ++j) {
+        const float* xr = xs + (oc * TCI + j) * XCS + rr * XL + 2 * s;
+        float xv[kTaps];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const float2 v = *reinterpret_cast<const float2*>(xr + 2 * h);
+          xv[2 * h] = v.x;
+          xv[2 * h + 1] = v.y;
+        }
+        xv[8] = xr[8];
+#pragma unroll
+        for (int i = 0; i < TMO; ++i) {
+#pragma unroll
+          for (int k = 0; k < kTaps; ++k) {
+            acc[i][j][k] = fmaf(a[i], xv[k], acc[i][j][k]);
+          }
+        }
+      }
+    }
+  }
+  // the block's G partial tiles red[g][o], o = (co_l * bci + ci_l) * 9 + k,
+  // summed in a fixed tree, then written as this split's partial tile
+  const int nout = p.bmo * p.bci * kTaps;
+  float* red = smem;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TMO; ++i) {
+#pragma unroll
+    for (int j = 0; j < TCI; ++j) {
+#pragma unroll
+      for (int k = 0; k < kTaps; ++k) {
+        red[g * nout + ((om * TMO + i) * p.bci + oc * TCI + j) * kTaps + k] =
+            acc[i][j][k];
+      }
+    }
+  }
+  __syncthreads();
+  for (int half = G / 2; half > 0; half >>= 1) {
+    for (int i = threadIdx.x; i < half * nout; i += blockDim.x) {
+      red[i] += red[i + half * nout];
+    }
+    __syncthreads();
+  }
+  float* mine = partial + (static_cast<size_t>(tile) * p.splits + split) *
+                              nout;
+  for (int o = threadIdx.x; o < nout; o += blockDim.x) mine[o] = red[o];
+  __threadfence();  // this split's tile is visible before it is counted
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counts + tile, 1) == p.splits - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last split of the tile sums the splits' tiles [splits][nout] in a
+  // fixed tree over the split axis (zero-padded to splits_p2); the tiles
+  // come in by 16-byte cp.async (through L2, where the other blocks wrote
+  // them) when nout % 4 == 0, all in flight at once
+  __threadfence();
+  const float* all = partial + static_cast<size_t>(tile) * p.splits * nout;
+  const int n_all = p.splits * nout;
+  if (nout % 4 == 0) {
+#pragma unroll 4
+    for (int i = 4 * threadIdx.x; i < n_all; i += 4 * blockDim.x) {
+      stage4(red + i, all + i, true);
+    }
+  } else {
+#pragma unroll 8
+    for (int i = threadIdx.x; i < n_all; i += blockDim.x) {
+      red[i] = __ldcg(all + i);
+    }
+  }
+  for (int i = n_all + threadIdx.x; i < p.splits_p2 * nout;
+       i += blockDim.x) {
+    red[i] = 0.0f;
+  }
+  cp_wait();
+  __syncthreads();
+  for (int half = p.splits_p2 / 2; half > 0; half >>= 1) {
+    for (int i = threadIdx.x; i < half * nout; i += blockDim.x) {
+      red[i] += red[i + half * nout];
+    }
+    __syncthreads();
+  }
+  for (int o = threadIdx.x; o < nout; o += blockDim.x) {
+    const float sum = red[o];
+    const int col = o / (p.bci * kTaps);
+    const int rem = o - col * p.bci * kTaps;
+    const int cl = rem / kTaps;
+    const int k = rem - cl * kTaps;
+    const int co = co0 + col, ci = ci0 + cl;
+    if (co < d.Co && ci < d.C) {
+      store_f(dw2 + static_cast<size_t>(co) * kTaps * d.C + k * d.C + ci, sum);
+    }
+  }
+}
+
+// dx blocks first, then dw2's tiles x splits.
+template <typename T, int TM, int TMO, int TCI>
+__global__ void __launch_bounds__(kGradThreads)
+grads_kernel(const float* __restrict__ dyc, const T* __restrict__ x,
+             const T* __restrict__ w2, T* __restrict__ dx,
+             T* __restrict__ dw2, float* __restrict__ partial,
+             int* __restrict__ counts, Dims d, DxPlan px, DwPlan pw) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  if (b < px.blocks) {
+    dx_role<T, TM>(dyc, w2, dx, d, px, b, smem);
+    return;
+  }
+  const int t = b - px.blocks;
+  dw_role<T, TMO, TCI>(dyc, x, dw2, partial, counts, d, pw, t / pw.splits,
+                       t % pw.splits, smem);
 }
 
 template <typename K>
@@ -396,51 +767,193 @@ int train_fwd(const void* x, const void* w2, Affine aff, float* yc, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+int pow2ceil(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+int log2i(int v) {  // v a power of 2
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+DxPlan dx_plan(const Dims& d, int tm_pairs) {
+  DxPlan p;
+  p.tm = std::min(pow2ceil(ceil_div(d.So, tm_pairs)), 64);
+  p.tc = std::min(pow2ceil(ceil_div(d.C, 4)), kGradThreads / p.tm);
+  p.br = kGradThreads / (p.tm * p.tc);
+  p.nb_m = ceil_div(d.So, tm_pairs * p.tm);
+  p.nb_c = ceil_div(d.C, 4 * p.tc);
+  p.nb_r = ceil_div(d.R, p.br);
+  p.blocks = p.nb_m * p.nb_c * p.nb_r;
+  p.kc = std::min(kDxChunk, d.Co);
+  return p;
+}
+
+size_t dx_smem(const DxPlan& p, int tm_pairs) {
+  return sizeof(float) * p.kc *
+         (kTaps * 4 * p.tc + p.br * (tm_pairs * p.tm + 8));
+}
+
+size_t dw_stage_bytes(int bmo, int bci, int ke, int ks) {
+  return sizeof(float) * (static_cast<size_t>(bmo) * (ke + 4) +
+                          static_cast<size_t>(bci) *
+                              ((ke / ks) * (2 * ks + 2 * kPad) + 4));
+}
+
+// Tiles as large as 16 x 8 channels, halved (the larger side first) while
+// fewer than 16 tiles; about kDwBlocks blocks split K (as many as the last
+// block's tree over the splits fits in 100 KB); a K stage as large as
+// 100 KB of shared memory and the block's share of K allow.
+DwPlan dw_plan(const Dims& d, int tmo, int tci) {
+  DwPlan p;
+  p.bmo = std::max(tmo, std::min(pow2ceil(d.Co), 16));
+  p.bci = std::max(tci, std::min(pow2ceil(d.C), 8));
+  auto tiles = [&]() {
+    return ceil_div(d.Co, p.bmo) * ceil_div(d.C, p.bci);
+  };
+  while (tiles() < 16 && (p.bmo > tmo || p.bci > tci)) {
+    if (p.bci > tci && (p.bci / tci > p.bmo / tmo || p.bmo == tmo)) {
+      p.bci /= 2;
+    } else {
+      p.bmo /= 2;
+    }
+  }
+  p.n_ct = ceil_div(d.C, p.bci);
+  p.tiles = tiles();
+  p.splits = ceil_div(kDwBlocks, p.tiles);
+  const int ks = std::min(pow2ceil(d.So), 64);
+  p.ks_log = log2i(ks);
+  p.n_seg = ceil_div(d.So, ks);
+  const long long k_pad = static_cast<long long>(d.R) * p.n_seg * ks;
+  const long long share = (k_pad + p.splits - 1) / p.splits;
+  int ke = std::max(ks, pow2ceil(static_cast<int>(std::min(share, 4096LL))));
+  while (ke > ks && dw_stage_bytes(p.bmo, p.bci, ke, ks) > kStageBytes) {
+    ke /= 2;
+  }
+  p.kr_log = log2i(ke / ks);
+  p.nt = ceil_div(d.R, ke / ks) * p.n_seg;
+  // the last block's tree over the splits fits in kStageBytes
+  const int nout = p.bmo * p.bci * kTaps;
+  p.splits = std::max(1, std::min(p.splits, p.nt));
+  while (p.splits > 1 &&
+         sizeof(float) * pow2ceil(p.splits) * nout > kStageBytes) {
+    --p.splits;
+  }
+  p.splits_p2 = pow2ceil(p.splits);
+  return p;
+}
+
+size_t dw_smem(const DwPlan& p, int tmo, int tci) {
+  const int ks = 1 << p.ks_log;
+  const size_t stage = dw_stage_bytes(p.bmo, p.bci, ks << p.kr_log, ks);
+  const size_t red = sizeof(float) * kGradThreads * tmo * tci * kTaps;
+  const size_t splits = sizeof(float) * p.splits_p2 * p.bmo * p.bci * kTaps;
+  return std::max(stage, std::max(red, splits));
+}
+
+// The plans of one layer; narrow layers (Co <= 2 or C = 1) take 2 x 1 dw2
+// thread tiles, the others 4 x 2; dx takes 2 pairs a thread when that
+// still gives kTargetBlocks blocks, else 1.
+struct BwdPlan {
+  Dims d;
+  DxPlan px;
+  DwPlan pw;
+  bool narrow, tm2;
+  size_t dyc_floats, partial_floats;  // scratch: dyc, partial tiles, counts
+};
+
+BwdPlan bwd_plan(int C, int R, int S, int Co) {
+  BwdPlan b;
+  b.d = Dims{C, R, S, Co, S / 2, false};
+  b.narrow = Co <= 2 || C == 1;
+  b.px = dx_plan(b.d, 2);
+  b.tm2 = b.px.blocks >= kTargetBlocks;
+  if (!b.tm2) b.px = dx_plan(b.d, 1);
+  b.pw = b.narrow ? dw_plan(b.d, 2, 1) : dw_plan(b.d, 4, 2);
+  // dyc, then the partial tiles from a 16-byte boundary
+  b.dyc_floats = (static_cast<size_t>(Co) * R * b.d.So + 3) / 4 * 4;
+  b.partial_floats = static_cast<size_t>(b.pw.tiles) * b.pw.splits *
+                     b.pw.bmo * b.pw.bci * kTaps;
+  return b;
+}
+
+size_t scratch_bytes(const BwdPlan& b) {
+  return sizeof(float) * (b.dyc_floats + b.partial_floats) +
+         sizeof(int) * b.pw.tiles;
+}
+
+template <typename T, int TM, int TMO, int TCI>
+int launch_grads(const float* dyc, const T* x, const T* w2, T* dx, T* dw2,
+                 float* partial, int* counts, const BwdPlan& b,
+                 cudaStream_t s) {
+  const size_t smem = std::max(dx_smem(b.px, TM), dw_smem(b.pw, TMO, TCI));
+  auto kernel = grads_kernel<T, TM, TMO, TCI>;
+  int e = set_smem(kernel, smem);
+  if (e) return e;
+  const int blocks = b.px.blocks + b.pw.tiles * b.pw.splits;
+  kernel<<<blocks, kGradThreads, smem, s>>>(dyc, x, w2, dx, dw2, partial,
+                                            counts, b.d, b.px, b.pw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-int train_bwd(const void* x_, const void* w2_, Affine aff, const float* mu,
-              const float* var, const void* dy_, float* yc, float* partial,
-              void* dx_, void* dw2_, float* dgamma, float* dbeta, int C,
-              int R, int S, int Co, int P, cudaStream_t s) {
+int train_bwd(const void* x_, const void* w2_, const float* yc,
+              const float* gamma, const float* beta, const float* mu,
+              const float* var, const void* dy_, void* scratch, void* dx_,
+              void* dw2_, float* vec3, int C, int R, int S, int Co,
+              cudaStream_t s) {
   const T* x = static_cast<const T*>(x_);
   const T* w2 = static_cast<const T*>(w2_);
   const T* dy = static_cast<const T*>(dy_);
-  int e = conv(x, w2, aff.cbias, yc, C, R, S, Co, s);
+  T* dx = static_cast<T*>(dx_);
+  T* dw2 = static_cast<T*>(dw2_);
+  BwdPlan b = bwd_plan(C, R, S, Co);
+  // a view at an odd offset takes the one-value copies (dyc and the
+  // partial tiles lie in the scratch, 16-byte aligned)
+  const size_t v4 = 4 * sizeof(T);
+  b.d.vec = aligned(x, v4) && aligned(w2, v4);
+  float* dyc = static_cast<float*>(scratch);
+  float* partial = dyc + b.dyc_floats;
+  int* counts = reinterpret_cast<int*>(partial + b.partial_floats);
+  const int n = R * b.d.So;
+  const bool bn_vec = n % 4 == 0 && aligned(yc, 16) && aligned(dy, v4);
+  const int P1 = std::max(1, std::min(kMaxCluster, ceil_div(n, kBnPerBlock)));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P1, Co);
+  cfg.blockDim = dim3(kBnThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = P1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int e = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, bn_bwd_kernel<T>, yc, dy, mu, var, gamma, beta, dyc, vec3,
+      counts, b.pw.tiles, n, Co, bn_vec));
   if (e) return e;
-  const int So = S / 2;
-  const int n = R * So;
-  bwd_stats_kernel<T><<<Co, kStatThreads, 0, s>>>(yc, dy, mu, var, aff,
-                                                  dgamma, dbeta, n);
   e = static_cast<int>(cudaGetLastError());
   if (e) return e;
-
-  const size_t total = static_cast<size_t>(n) * Co;
-  dyc_kernel<T><<<(total + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      yc, dy, mu, var, aff, dgamma, dbeta, n, Co);
-  e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
-
-  const size_t smem_dx = sizeof(float) * static_cast<size_t>(Co) * So;
-  e = set_smem(dx_kernel<T>, smem_dx);
-  if (e) return e;
-  const int chunk = kThreads * kOutputsPerThread;
-  dim3 grid_dx(R, (C * S + chunk - 1) / chunk);
-  dx_kernel<T><<<grid_dx, kThreads, smem_dx, s>>>(yc, w2, static_cast<T*>(dx_),
-                                                  C, R, S, Co);
-  e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
-
-  // split K into at most P chunks of whole kTK steps, none empty
-  const int n_out = Co * kTaps * C;
-  const int k_chunk = ((n + P - 1) / P + kTK - 1) / kTK * kTK;
-  P = (n + k_chunk - 1) / k_chunk;
-  dim3 grid_dw((kTaps * C + kTN - 1) / kTN, (Co + kTM - 1) / kTM, P);
-  dw2_tile_kernel<T><<<grid_dw, kThreads, 0, s>>>(yc, x, partial, C, R, S, Co,
-                                                  k_chunk);
-  e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
-  dw2_reduce_kernel<T><<<(n_out + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      partial, static_cast<T*>(dw2_), n_out, P);
-  return static_cast<int>(cudaGetLastError());
+  if (b.tm2) {
+    return b.narrow ? launch_grads<T, 2, 2, 1>(dyc, x, w2, dx, dw2, partial,
+                                               counts, b, s)
+                    : launch_grads<T, 2, 4, 2>(dyc, x, w2, dx, dw2, partial,
+                                               counts, b, s);
+  }
+  return b.narrow ? launch_grads<T, 1, 2, 1>(dyc, x, w2, dx, dw2, partial,
+                                             counts, b, s)
+                  : launch_grads<T, 1, 4, 2>(dyc, x, w2, dx, dw2, partial,
+                                             counts, b, s);
 }
 
 bool bad_shape(int C, int R, int S, int Co, int dtype) {
@@ -475,32 +988,39 @@ extern "C" int maavss_pgenc_train_fwd(const void* x, const void* w2,
                                   s);
 }
 
-// Train-mode backward from x and the forward's (mu, var). yc is an fp32
-// [Co, R, S/2] scratch, partial an fp32 [P, Co*9*C] scratch (at most P
-// chunks of the R*S/2 axis for dw2); dx [C, R, S] and dw2 [Co, 9*C] in x's
-// type, dgamma and dbeta fp32 [Co]. Six kernels on `stream`. Returns the first non-zero cudaError_t, else 0.
+// Bytes of the fp32/int scratch `maavss_pgenc_train_bwd` needs for a layer:
+// dyc [Co, R, S/2], dw2's partial tiles and the tiles' counters.
+extern "C" long long maavss_pgenc_train_bwd_scratch(int C, int R, int S,
+                                                    int Co) {
+  if (bad_shape(C, R, S, Co, 0)) return -1;
+  return static_cast<long long>(scratch_bytes(bwd_plan(C, R, S, Co)));
+}
+
+// Train-mode backward from the forward's fp32 yc [Co, R, S/2] (read only)
+// and (mu, var). scratch holds maavss_pgenc_train_bwd_scratch bytes (16-byte
+// aligned); dx [C, R, S] and dw2 [Co, 9*C] in x's type; vec3 an fp32
+// [3, Co] output (dcbias = 0, dgamma, dbeta). dtype: 0 = float32,
+// 1 = bfloat16. Two kernels on `stream`. Returns the first non-zero
+// cudaError_t, else 0.
 extern "C" int maavss_pgenc_train_bwd(
-    const void* x, const void* w2, const void* cbias, const void* gamma,
+    const void* x, const void* w2, const void* yc, const void* gamma,
     const void* beta, const void* mu, const void* var, const void* dy,
-    void* yc, void* partial, void* dx, void* dw2, void* dgamma, void* dbeta,
-    int C, int R, int S, int Co, int P, int dtype, void* stream) {
-  if (bad_shape(C, R, S, Co, dtype) || P < 1) {
+    void* scratch, void* dx, void* dw2, void* vec3, int C, int R, int S,
+    int Co, int dtype, void* stream) {
+  if (bad_shape(C, R, S, Co, dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Affine aff{static_cast<const float*>(cbias),
-             static_cast<const float*>(gamma),
-             static_cast<const float*>(beta)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* muf = static_cast<const float*>(mu);
-  const float* varf = static_cast<const float*>(var);
-  float* ycf = static_cast<float*>(yc);
-  float* pf = static_cast<float*>(partial);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
+  const float* f[5] = {static_cast<const float*>(yc),
+                       static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta),
+                       static_cast<const float*>(mu),
+                       static_cast<const float*>(var)};
+  float* v3 = static_cast<float*>(vec3);
   if (dtype == 0) {
-    return train_bwd<float>(x, w2, aff, muf, varf, dy, ycf, pf, dx, dw2, dg,
-                            db, C, R, S, Co, P, s);
+    return train_bwd<float>(x, w2, f[0], f[1], f[2], f[3], f[4], dy, scratch,
+                            dx, dw2, v3, C, R, S, Co, s);
   }
-  return train_bwd<__nv_bfloat16>(x, w2, aff, muf, varf, dy, ycf, pf, dx, dw2,
-                                  dg, db, C, R, S, Co, P, s);
+  return train_bwd<__nv_bfloat16>(x, w2, f[0], f[1], f[2], f[3], f[4], dy,
+                                  scratch, dx, dw2, v3, C, R, S, Co, s);
 }

@@ -8,7 +8,11 @@
 //   magphase  _magphase_kernel  (the one in magphase)
 //             (re, im) -> (sqrt(re*re + im*im), atan2(im, re))
 //   polar     _polar_kernel     (the one in polar_to_rect)
-//             (mag, ph) -> (mag * cos(ph), mag * sin(ph))
+//             (mag, ph) -> (mag * cos(ph), mag * sin(ph)), in two output
+//             forms: planar like the others, or the interleaved complex64
+//             spectrum [n, t, f_out] that the iSTFT's irfft reads, with the
+//             bins f .. f_out-1 (the Nyquist bin the features trim) written
+//             as 0; the values are the planar form's, bit for bit
 // The arithmetic follows the TPU kernels' formulas. Every product and sum is
 // rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn, which nvcc never
 // contracts into an fma), in the order the plain PyTorch versions round
@@ -31,7 +35,10 @@
 // flagships' shapes the largest operand is 0.79 MB ([8, 2, 96, 129]), so
 // the byte bound is under 1 us; a launch costs a few microseconds of
 // fixed latency, so in practice these kernels are bound by the launch. The
-// design keeps each to one launch over the whole operand.
+// design keeps each to one launch over the whole operand. The spectrum
+// form of the polar kernel takes the place of four more launches in the
+// iSTFT (two plane copies, torch.complex, the Nyquist pad): one thread per
+// output bin, 8-byte stores of (re, im), 8 + 8 bytes per bin.
 
 #include <cuda_runtime.h>
 
@@ -135,6 +142,24 @@ planar_kernel(In a, In b, Out o, int n, int t, int fv, Op op) {
   }
 }
 
+// (mag, ph) planar [n, 2, t, f] -> interleaved complex [n, t, f_out],
+// f_out >= f, bins f.. of each row 0; one thread per output bin.
+__global__ void __launch_bounds__(kThreads)
+spectrum_kernel(In a, float2* __restrict__ o, int t, int f, int f_out,
+                unsigned total) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const unsigned row_all = i / f_out;  // item * t + row
+  const int col = static_cast<int>(i - row_all * f_out);
+  float2 v = make_float2(0.0f, 0.0f);
+  if (col < f) {
+    const unsigned item = row_all / t;
+    const long long e = offset(a.bs, a.rs, item, row_all - item * t, col);
+    Polar{}(a.p[e], a.p[e + a.ps], 0.0f, 0.0f, v.x, v.y);
+  }
+  o[i] = v;
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -204,4 +229,22 @@ extern "C" int maavss_polar(const float* x, long long x_bs, long long x_ps,
                             int f, void* stream) {
   const In in{x, x_bs, x_ps, x_rs};
   return launch(in, in, Out{o, o_bs, o_ps, o_rs}, n, t, f, Polar{}, stream);
+}
+
+// (mag, phase) planar -> the complex64 spectrum [n, t, f_out] (interleaved
+// re, im; f_out - f trailing zero bins per row).
+extern "C" int maavss_polar_spectrum(const float* x, long long x_bs,
+                                     long long x_ps, long long x_rs, void* o,
+                                     int n, int t, int f, int f_out,
+                                     void* stream) {
+  const long long total = static_cast<long long>(n) * t * f_out;
+  if (n < 1 || t < 1 || f < 1 || f_out < f || total >= 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned blocks =
+      static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  spectrum_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      In{x, x_bs, x_ps, x_rs}, static_cast<float2*>(o), t, f, f_out,
+      static_cast<unsigned>(total));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -126,8 +126,10 @@ def library():
     lib.maavss_lstm_bwd.restype = i
     lib.maavss_pgenc_train_fwd.argtypes = [p] * 9 + [i, i, i, i, i, p]
     lib.maavss_pgenc_train_fwd.restype = i
-    lib.maavss_pgenc_train_bwd.argtypes = [p] * 14 + [i] * 6 + [p]
+    lib.maavss_pgenc_train_bwd.argtypes = [p] * 12 + [i] * 5 + [p]
     lib.maavss_pgenc_train_bwd.restype = i
+    lib.maavss_pgenc_train_bwd_scratch.argtypes = [i] * 4
+    lib.maavss_pgenc_train_bwd_scratch.restype = ctypes.c_longlong
     f = ctypes.c_float
     lib.maavss_adam.argtypes = [p] * 5 + [i, i, i] + [f] * 8 + [p]
     lib.maavss_adam.restype = i
@@ -146,7 +148,34 @@ def library():
     for name in ("maavss_magphase", "maavss_polar"):
         getattr(lib, name).argtypes = planar * 2 + [i] * 3 + [p]
         getattr(lib, name).restype = i
+    lib.maavss_polar_spectrum.argtypes = planar + [p] + [i] * 4 + [p]
+    lib.maavss_polar_spectrum.restype = i
     return lib
+
+
+def launch(symbol: str, device, args) -> None:
+    """Call the launcher `symbol` with `args` and the current stream of
+    `device` (switching to the device only when it is not the current one);
+    raise on a non-zero cudaError_t."""
+    import torch
+
+    fn = getattr(library(), symbol)
+    index = device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _raw_stream(index))
+    check(err, symbol)
+
+
+def _raw_stream(index: int) -> int:
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -122,16 +122,12 @@ def adam_multi_tensor(grads: Sequence[Optional[torch.Tensor]],
     gptrs = table.grad_table(grads)
     from maavss_tpu_torch.ops import _build
 
-    lib = _build.library()
-    stream = torch.cuda.current_stream(table.device).cuda_stream
     # (1 - b) in double, then rounded to fp32, as the TPU kernel's constants
-    with torch.cuda.device(table.device):
-        err = lib.maavss_adam(
-            table.ptrs.data_ptr(), gptrs.data_ptr(), table.sizes.data_ptr(),
-            table.block_leaf.data_ptr(), table.block_start.data_ptr(),
-            table.n, table.n_blocks, _CHUNK, lr, b1, 1.0 - b1, b2, 1.0 - b2,
-            eps, c1, c2, stream)
-    _build.check(err, "maavss_adam")
+    _build.launch("maavss_adam", table.device, (
+        table.ptrs.data_ptr(), gptrs.data_ptr(), table.sizes.data_ptr(),
+        table.block_leaf.data_ptr(), table.block_start.data_ptr(),
+        table.n, table.n_blocks, _CHUNK, lr, b1, 1.0 - b1, b2, 1.0 - b2,
+        eps, c1, c2))
     adam_multi_tensor.launches += 1
 
 

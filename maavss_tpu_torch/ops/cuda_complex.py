@@ -11,12 +11,17 @@ axis -3 holding (real, imag) or (magnitude, phase):
   input needs a gradient, d_stft = g * conj(mask).
 - `magphase(stft_ri)`: (re, im) -> (sqrt(re^2 + im^2), atan2(im, re)), the
   `--use_polar` features.
-- `polar_to_rect(stft_mp)`: (mag, ph) -> (mag cos ph, mag sin ph), the
-  `--use_polar` resynthesis.
+- `polar_to_rect(stft_mp)`: (mag, ph) -> (mag cos ph, mag sin ph), planar
+  as the JAX function returns it.
+- `polar_to_spectrum(stft_mp, pad_bins)`: the same conversion written as
+  the complex64 spectrum `[..., T, F + pad_bins]` that `torch.fft.irfft`
+  reads, the `pad_bins` trailing bins 0 (the Nyquist bin the features
+  trim): the `--use_polar` resynthesis, one launch of the polar kernel in
+  its second output form.
 
-The backward of `magphase` and `polar_to_rect` is plain PyTorch, the JAX
-VJPs (pallas_kernels.py:126-137,169-177) with the same 1e-24 guard at the
-origin: the JAX package has no backward kernel for them, and no path of
+The backward of `magphase`, `polar_to_rect` and `polar_to_spectrum` is
+plain PyTorch, the JAX VJPs (pallas_kernels.py:126-137,169-177) with the
+same 1e-24 guard at the origin: the JAX package has no backward kernel for them, and no path of
 the system differentiates them. Every function raises unless axis -3 has
 size 2 (the JAX functions read channels 0 and 1 of any width).
 
@@ -24,7 +29,8 @@ The three kernels sit behind wrappers that launch them on CUDA tensors
 (fp32; the leading axes must collapse into one stride and the last axis be
 contiguous; no copy is made and nothing falls back) and run the plain
 versions on CPU tensors, and that count their launches in `.launches`:
-`mask_mul(a, b, conj=False)`, `magphase_fwd(x)`, `polar_fwd(x)`. The
+`mask_mul(a, b, conj=False)`, `magphase_fwd(x)`, `polar_fwd(x)`,
+`polar_spectrum_fwd(x, pad_bins)`. The
 `*_plain` public functions are the same functions and backward through the
 plain versions on any device: the reference the kernels are held against
 on the card.
@@ -35,6 +41,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def _check_planar(what: str, x: torch.Tensor) -> None:
@@ -71,6 +78,13 @@ def polar_fwd_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([mag * torch.cos(ph), mag * torch.sin(ph)], dim=-3)
 
 
+def polar_spectrum_fwd_plain(x: torch.Tensor,
+                             pad_bins: int = 0) -> torch.Tensor:
+    mag, ph = _planes(x)
+    spec = torch.complex(mag * torch.cos(ph), mag * torch.sin(ph))
+    return F.pad(spec, (0, pad_bins)) if pad_bins else spec
+
+
 # ---------------------------------------------------------------- wrappers
 
 
@@ -78,7 +92,11 @@ def _layout(x: torch.Tensor) -> Optional[Tuple[int, int, int, int]]:
     """(items, item stride, plane stride, row stride) of a [..., 2, T, F]
     tensor whose last axis is contiguous and whose leading axes collapse
     into one stride; None if it has no such layout."""
-    if x.shape[-1] > 1 and x.stride(-1) != 1:
+    t, f = x.shape[-2], x.shape[-1]
+    if x.is_contiguous():
+        return x.numel() // (2 * t * f) if x.numel() else 0, 2 * t * f, \
+            t * f, f
+    if f > 1 and x.stride(-1) != 1:
         return None
     n, item_stride, span = 1, 0, None
     for size, stride in reversed(list(zip(x.shape[:-3], x.stride()[:-3]))):
@@ -107,30 +125,24 @@ def _kernel_layout(what: str, x: torch.Tensor, device) -> Tuple[int, ...]:
     return lay
 
 
-def _lib():
-    from maavss_tpu_torch.ops import _build
-
-    return _build
-
-
 def _launch(what: str, symbol: str, inputs, extra=()) -> torch.Tensor:
     """Run the launcher `symbol` on planar `inputs` into a new contiguous
-    output of their shape; returns the output."""
+    output of their shape; returns the output. Each operand's layout is
+    resolved once; the output's is its shape's."""
+    from maavss_tpu_torch.ops import _build
+
     x = inputs[0]
-    lays = [_kernel_layout(what, t, x.device) for t in inputs]
+    args = []
+    for tensor in inputs:
+        args += [tensor.data_ptr(), *_kernel_layout(what, tensor,
+                                                    x.device)[1:]]
     out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    n, t, f = lays[0][0], x.shape[-2], x.shape[-1]
-    args = []
-    for tensor, lay in zip(inputs, lays):
-        args += [tensor.data_ptr(), *lay[1:]]
-    args += [out.data_ptr(), *_layout(out)[1:], n, t, f, *extra]
-    build = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(build.library(), symbol)(*args, stream)
-    build.check(err, symbol)
+    t, f = x.shape[-2], x.shape[-1]
+    args += [out.data_ptr(), 2 * t * f, t * f, f, out.numel() // (2 * t * f),
+             t, f, *extra]
+    _build.launch(symbol, x.device, args)
     return out
 
 
@@ -176,6 +188,32 @@ def polar_fwd(x: torch.Tensor) -> torch.Tensor:
 
 
 polar_fwd.launches = 0
+
+
+def polar_spectrum_fwd(x: torch.Tensor, pad_bins: int = 0) -> torch.Tensor:
+    """(mag, phase) planar [..., 2, T, F] -> complex64 [..., T, F + pad_bins]
+    with the last pad_bins bins 0."""
+    _check_planar("polar_to_spectrum", x)
+    if pad_bins < 0:
+        raise ValueError(f"polar_to_spectrum: pad_bins {pad_bins} < 0")
+    if not x.is_cuda:
+        return polar_spectrum_fwd_plain(x, pad_bins)
+    from maavss_tpu_torch.ops import _build
+
+    n, bs, ps, rs = _kernel_layout("polar_to_spectrum", x, x.device)
+    t, f = x.shape[-2], x.shape[-1]
+    out = torch.empty(x.shape[:-3] + (t, f + pad_bins),
+                      dtype=torch.complex64, device=x.device)
+    if out.numel() == 0:
+        return out
+    _build.launch("maavss_polar_spectrum", x.device,
+                  (x.data_ptr(), bs, ps, rs, out.data_ptr(), n, t, f,
+                   f + pad_bins))
+    polar_spectrum_fwd.launches += 1
+    return out
+
+
+polar_spectrum_fwd.launches = 0
 
 
 # ------------------------------------------------------- autograd Functions
@@ -243,6 +281,25 @@ class _Polar(torch.autograd.Function):
                            dim=-3), None
 
 
+class _PolarSpectrum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, stft_mp, pad_bins, plain):
+        ctx.save_for_backward(stft_mp)
+        fwd = polar_spectrum_fwd_plain if plain else polar_spectrum_fwd
+        return fwd(stft_mp, pad_bins)
+
+    @staticmethod
+    def backward(ctx, g):
+        (stft_mp,) = ctx.saved_tensors
+        mag, ph = _planes(stft_mp)
+        g = torch.view_as_real(g)[..., :mag.shape[-1], :]
+        gre, gim = g[..., 0], g[..., 1]
+        c, s = torch.cos(ph), torch.sin(ph)
+        return torch.stack([gre * c + gim * s, mag * (gim * c - gre * s)],
+                           dim=-3), None, None
+
+
 def complex_mask_apply(stft_ri: torch.Tensor,
                        mask_ri: torch.Tensor) -> torch.Tensor:
     """Apply a complex ratio mask: [..., 2, T, F] x [..., 2, T, F] complex
@@ -263,6 +320,14 @@ def polar_to_rect(stft_mp: torch.Tensor) -> torch.Tensor:
     return _Polar.apply(stft_mp, False)
 
 
+def polar_to_spectrum(stft_mp: torch.Tensor,
+                      pad_bins: int = 0) -> torch.Tensor:
+    """[..., 2(mag, phase), T, F] -> complex64 [..., T, F + pad_bins], the
+    trailing pad_bins bins 0: the spectrum the iSTFT reads."""
+    _check_planar("polar_to_spectrum", stft_mp)
+    return _PolarSpectrum.apply(stft_mp, pad_bins, False)
+
+
 def complex_mask_apply_plain(stft_ri: torch.Tensor,
                              mask_ri: torch.Tensor) -> torch.Tensor:
     _check_planar("complex_mask_apply", stft_ri)
@@ -277,3 +342,9 @@ def magphase_plain(stft_ri: torch.Tensor) -> torch.Tensor:
 def polar_to_rect_plain(stft_mp: torch.Tensor) -> torch.Tensor:
     _check_planar("polar_to_rect", stft_mp)
     return _Polar.apply(stft_mp, True)
+
+
+def polar_to_spectrum_plain(stft_mp: torch.Tensor,
+                            pad_bins: int = 0) -> torch.Tensor:
+    _check_planar("polar_to_spectrum", stft_mp)
+    return _PolarSpectrum.apply(stft_mp, pad_bins, True)

@@ -156,14 +156,10 @@ def _split(n: int, c: int):
     return -(-n // chunk), chunk
 
 
-def _lib():
+def _launch(symbol: str, device, args) -> None:
     from maavss_tpu_torch.ops import _build
 
-    return _build
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    _build.launch(symbol, device, args)
 
 
 def epilogue_stats(y: torch.Tensor):
@@ -173,16 +169,13 @@ def epilogue_stats(y: torch.Tensor):
         return epilogue_stats_plain(y)
     b, c, t, h, w = y.shape
     _check_kernel_args((y,), (), c)
-    build = _lib()
     nblk, chunk = _split(b * t * h * w, c)
     partial = torch.empty(c, nblk, 2, dtype=torch.float32, device=y.device)
     mu, var, rstd = (torch.empty(c, dtype=torch.float32, device=y.device)
                      for _ in range(3))
-    with torch.cuda.device(y.device):
-        err = build.library().maavss_epilogue_stats(
-            y.data_ptr(), partial.data_ptr(), mu.data_ptr(), var.data_ptr(),
-            rstd.data_ptr(), b, c, t, h, w, nblk, chunk, _stream(y))
-    build.check(err, "maavss_epilogue_stats")
+    _launch("maavss_epilogue_stats", y.device, (
+        y.data_ptr(), partial.data_ptr(), mu.data_ptr(), var.data_ptr(),
+        rstd.data_ptr(), b, c, t, h, w, nblk, chunk))
     epilogue_stats.launches += 1
     return mu, var, rstd
 
@@ -197,16 +190,12 @@ def epilogue_apply(y, gamma, beta, mu, rstd):
         return epilogue_apply_plain(y, gamma, beta, mu, rstd)
     b, c, t, h, w = y.shape
     _check_kernel_args((y,), (gamma, beta, mu, rstd), c)
-    build = _lib()
     out = torch.empty(b, c, t, h // 2, w // 2, dtype=torch.float32,
                       device=y.device)
     sel = torch.empty_like(out)
-    with torch.cuda.device(y.device):
-        err = build.library().maavss_epilogue_apply(
-            y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mu.data_ptr(),
-            rstd.data_ptr(), out.data_ptr(), sel.data_ptr(), b, c, t, h, w,
-            _stream(y))
-    build.check(err, "maavss_epilogue_apply")
+    _launch("maavss_epilogue_apply", y.device, (
+        y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mu.data_ptr(),
+        rstd.data_ptr(), out.data_ptr(), sel.data_ptr(), b, c, t, h, w))
     epilogue_apply.launches += 1
     return out, sel
 
@@ -224,19 +213,16 @@ def epilogue_bwd_reduce(g, sel, gamma, beta, mu, rstd, g_mu, g_var):
         raise ValueError(f"epilogue bwd: g {tuple(g.shape)} != sel "
                          f"{tuple(sel.shape)}")
     _check_kernel_args((g, sel), (gamma, beta, mu, rstd, g_mu, g_var), c)
-    build = _lib()
     nblk, chunk = _split(b * t * h2 * w2, c)
     partial = torch.empty(c, nblk, 2, dtype=torch.float32, device=g.device)
     dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=g.device)
                      for _ in range(2))
     k = torch.empty(4, c, dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        err = build.library().maavss_epilogue_bwd_reduce(
-            g.data_ptr(), sel.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            mu.data_ptr(), rstd.data_ptr(), g_mu.data_ptr(), g_var.data_ptr(),
-            partial.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-            k.data_ptr(), b, c, t, 2 * h2, 2 * w2, nblk, chunk, _stream(g))
-    build.check(err, "maavss_epilogue_bwd_reduce")
+    _launch("maavss_epilogue_bwd_reduce", g.device, (
+        g.data_ptr(), sel.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        mu.data_ptr(), rstd.data_ptr(), g_mu.data_ptr(), g_var.data_ptr(),
+        partial.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        k.data_ptr(), b, c, t, 2 * h2, 2 * w2, nblk, chunk))
     epilogue_bwd_reduce.launches += 1
     return dgamma, dbeta, k
 
@@ -256,14 +242,11 @@ def epilogue_bwd_dy(y, g, sel, gamma, beta, mu, rstd, k):
                          f"{tuple(sel.shape)}, k {tuple(k.shape)} do not fit "
                          f"y {tuple(y.shape)}")
     _check_kernel_args((y, g, sel, k), (gamma, beta, mu, rstd), c)
-    build = _lib()
     dy = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        err = build.library().maavss_epilogue_bwd_dy(
-            y.data_ptr(), g.data_ptr(), sel.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), mu.data_ptr(), rstd.data_ptr(), k.data_ptr(),
-            dy.data_ptr(), b, c, t, h, w, _stream(y))
-    build.check(err, "maavss_epilogue_bwd_dy")
+    _launch("maavss_epilogue_bwd_dy", y.device, (
+        y.data_ptr(), g.data_ptr(), sel.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), mu.data_ptr(), rstd.data_ptr(), k.data_ptr(),
+        dy.data_ptr(), b, c, t, h, w))
     epilogue_bwd_dy.launches += 1
     return dy
 

@@ -98,7 +98,6 @@ def lstm_recurrence(xws: Sequence[torch.Tensor], w_hs: Sequence[torch.Tensor],
     _check_kernel_args(xws, w_hs)
     from maavss_tpu_torch.ops import _build
 
-    lib = _build.library()
     b, t_len, four_h = xws[0].shape
     outs = [(torch.empty(b, t_len, four_h // 4, dtype=x.dtype, device=x.device),
              torch.empty(b, t_len, four_h // 4, dtype=x.dtype, device=x.device))
@@ -108,11 +107,8 @@ def lstm_recurrence(xws: Sequence[torch.Tensor], w_hs: Sequence[torch.Tensor],
         j = min(k, len(xws) - 1)
         args += [xws[j].data_ptr(), w_hs[j].data_ptr(), outs[j][0].data_ptr(),
                  outs[j][1].data_ptr(), int(bool(reverses[j]))]
-    stream = torch.cuda.current_stream(xws[0].device).cuda_stream
-    with torch.cuda.device(xws[0].device):
-        err = lib.maavss_lstm_fwd(*args, len(xws), b, t_len, four_h // 4,
-                                  _DTYPE_CODES[xws[0].dtype], stream)
-    _build.check(err, "maavss_lstm_fwd")
+    _build.launch("maavss_lstm_fwd", xws[0].device, (
+        *args, len(xws), b, t_len, four_h // 4, _DTYPE_CODES[xws[0].dtype]))
     lstm_recurrence.launches += 1
     return outs
 
@@ -188,7 +184,6 @@ def lstm_recurrence_bwd(xws: Sequence[torch.Tensor],
                              f"{xws[0].device}, got {tuple(t.shape)} {t.dtype}")
     from maavss_tpu_torch.ops import _build
 
-    lib = _build.library()
     b, t_len, four_h = xws[0].shape
     outs, args = [], []
     for xw, w_h in zip(xws, w_hs):
@@ -204,11 +199,8 @@ def lstm_recurrence_bwd(xws: Sequence[torch.Tensor],
                  css[j].data_ptr(), dyss[j].data_ptr(), outs[j][0].data_ptr(),
                  outs[j][2].data_ptr(), outs[j][1].data_ptr(),
                  int(bool(reverses[j]))]
-    stream = torch.cuda.current_stream(xws[0].device).cuda_stream
-    with torch.cuda.device(xws[0].device):
-        err = lib.maavss_lstm_bwd(*args, len(xws), b, t_len, four_h // 4,
-                                  _DTYPE_CODES[xws[0].dtype], stream)
-    _build.check(err, "maavss_lstm_bwd")
+    _build.launch("maavss_lstm_bwd", xws[0].device, (
+        *args, len(xws), b, t_len, four_h // 4, _DTYPE_CODES[xws[0].dtype]))
     lstm_recurrence_bwd.launches += 1
     return [(dxw, dwh) for dxw, dwh, _ in outs]
 

@@ -9,6 +9,8 @@ dataflow and argument layout:
     y = pgenc_layer(x [C, R, S], w2 [Co, 9*C], cbias, gamma, beta, mean, var)
         -> [Co, R, S // 2]                                      (eval)
     y, mu, var = pgenc_layer_train(x, w2, cbias, gamma, beta)    (train)
+    y, mu, var, yc = pgenc_train(...); pgenc_bwd(x, w2, yc, gamma, beta,
+        mu, var, dy) -> (dx, dw2, dcbias = 0, dgamma, dbeta)   (its halves)
 
 conv(1,9) / stride 2 / zero pad 4 + BatchNorm (eps 1e-5) + tanh; w2 column
 k*C + ci holds the flax kernel[0, k, ci, co] (maavss_tpu/models/layers.py:
@@ -16,14 +18,17 @@ k*C + ci holds the flax kernel[0, k, ci, co] (maavss_tpu/models/layers.py:
 (fp32 or bf16). In train mode the layer normalises with the batch mean and
 the biased batch variance E[yc^2] - E[yc]^2 over the R * S/2 outputs of each
 channel and returns them for the caller's running-statistics update; they
-carry no gradient. The backward recomputes the conv from x, and the conv
-bias's gradient is exactly 0 (it cancels in yc - mu).
+carry no gradient. The train forward also returns its fp32 conv output yc,
+which the backward reads in place of recomputing the conv; the conv bias's
+gradient is exactly 0 (it cancels in yc - mu).
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 the plain version. There is no fallback from a kernel on the card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -106,35 +111,16 @@ def pgenc_layer(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
     _check_kernel_args(x, w2, vecs)
     from maavss_tpu_torch.ops import _build
 
-    lib = _build.library()
     c_out = w2.shape[0]
     y = torch.empty(c_out, r, s // STRIDE, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.maavss_pgenc_eval(
-            x.data_ptr(), w2.data_ptr(), *[v.data_ptr() for v in vecs],
-            y.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype], stream)
-    _build.check(err, "maavss_pgenc_eval")
+    _build.launch("maavss_pgenc_eval", x.device, (
+        x.data_ptr(), w2.data_ptr(), *[v.data_ptr() for v in vecs],
+        y.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype]))
     pgenc_layer.launches += 1
     return y
 
 
 pgenc_layer.launches = 0
-
-
-# the train backward's dW2 is a tiled product over the R * S/2 axis, split
-# into chunks so that about two waves of blocks fill the card's 132 SMs;
-# its fp32 partial sums are [chunks, Co, 9*C], summed in order by the
-# kernel's last pass. Tile sizes as csrc/pgenc_train.cu's kTM, kTN, kTK.
-_DW_TILE = (32, 64, 32)
-_DW_TARGET_BLOCKS = 264
-
-
-def _dw_chunks(c_in: int, c_out: int, r: int, s: int) -> int:
-    tm, tn, tk = _DW_TILE
-    tiles = -(-c_out // tm) * -(-(TAPS * c_in) // tn)
-    k_steps = -(-(r * (s // STRIDE)) // tk)
-    return max(1, min(-(-_DW_TARGET_BLOCKS // tiles), k_steps))
 
 
 def _conv_plain(x: torch.Tensor, w2: torch.Tensor,
@@ -153,7 +139,8 @@ def _conv_plain(x: torch.Tensor, w2: torch.Tensor,
 def pgenc_train_plain(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
                       gamma: torch.Tensor, beta: torch.Tensor):
     """F.conv2d + batch statistics (biased, E[yc^2] - E[yc]^2) + normalise
-    + tanh -> (y, mu, var). Differentiable through autograd in x, w2, cbias,
+    + tanh -> (y, mu, var, yc), yc the fp32 conv output [Co, R, S/2] that
+    the backward reads. Differentiable through autograd in x, w2, cbias,
     gamma and beta (mu and var as well, which the fused layer's are not)."""
     yc = _conv_plain(x, w2, cbias)
     mu = yc.mean(dim=(1, 2))
@@ -161,20 +148,20 @@ def pgenc_train_plain(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
     inv = torch.rsqrt(var + EPS)
     y = torch.tanh(gamma[:, None, None] * (yc - mu[:, None, None])
                    * inv[:, None, None] + beta[:, None, None])
-    return y.to(x.dtype), mu, var
+    return y.to(x.dtype), mu, var, yc
 
 
-def pgenc_bwd_plain(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
+def pgenc_bwd_plain(x: torch.Tensor, w2: torch.Tensor, yc: torch.Tensor,
                     gamma: torch.Tensor, beta: torch.Tensor, mu: torch.Tensor,
                     var: torch.Tensor, dy: torch.Tensor):
     """The explicit backward of maavss_tpu/ops/pallas_pgenc.py:208-245 in
-    fp32: (dx, dw2, dcbias = 0, dgamma, dbeta). dx and dw2 follow the TPU
+    fp32, from the forward's yc in place of the TPU kernel's recomputed
+    conv: (dx, dw2, dcbias = 0, dgamma, dbeta). dx and dw2 follow the TPU
     kernel's form, an upsample of dyc with zeros, the tap matrix and the
     untap of W2^T @ upsample(dyc)."""
     c_in, r, s = x.shape
     c_out = w2.shape[0]
     with torch.no_grad():
-        yc = _conv_plain(x, w2, cbias)
         n_total = float(r * (s // STRIDE))
         mu_, inv = mu[:, None, None], torch.rsqrt(var + EPS)[:, None, None]
         g_, b_ = gamma[:, None, None], beta[:, None, None]
@@ -196,7 +183,7 @@ def pgenc_bwd_plain(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
         for k in range(TAPS):
             dx[:, :, k:k + s] += dtaps[k]
         dx = dx[:, :, PAD:PAD + s]
-    return (dx.to(x.dtype), dw2.to(w2.dtype), torch.zeros_like(cbias),
+    return (dx.to(x.dtype), dw2.to(w2.dtype), torch.zeros_like(gamma),
             dgamma.to(gamma.dtype), dbeta.to(beta.dtype))
 
 
@@ -210,7 +197,7 @@ def _check_train_args(x, w2, vecs, tensors=()) -> None:
 
 def pgenc_train(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
                 gamma: torch.Tensor, beta: torch.Tensor, backend: str = "auto"):
-    """Train-mode forward -> (y, mu, var). backend as `pgenc_layer`."""
+    """Train-mode forward -> (y, mu, var, yc). backend as `pgenc_layer`."""
     if backend not in ("auto", "kernel"):
         raise ValueError(f"unknown pgenc backend {backend!r} (auto|kernel)")
     c_in, r, s = x.shape
@@ -224,67 +211,71 @@ def pgenc_train(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
     _check_train_args(x, w2, (cbias, gamma, beta))
     from maavss_tpu_torch.ops import _build
 
-    lib = _build.library()
     c_out = w2.shape[0]
     so = s // STRIDE
     yc = torch.empty(c_out, r, so, dtype=torch.float32, device=x.device)
     y = torch.empty(c_out, r, so, dtype=x.dtype, device=x.device)
     mu = torch.empty(c_out, dtype=torch.float32, device=x.device)
     var = torch.empty_like(mu)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.maavss_pgenc_train_fwd(
-            x.data_ptr(), w2.data_ptr(), cbias.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), yc.data_ptr(), y.data_ptr(), mu.data_ptr(),
-            var.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype], stream)
-    _build.check(err, "maavss_pgenc_train_fwd")
+    _build.launch("maavss_pgenc_train_fwd", x.device, (
+        x.data_ptr(), w2.data_ptr(), cbias.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), yc.data_ptr(), y.data_ptr(), mu.data_ptr(),
+        var.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype]))
     pgenc_train.launches += 1
-    return y, mu, var
+    return y, mu, var, yc
 
 
 pgenc_train.launches = 0
 
 
-def pgenc_bwd(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
+@functools.lru_cache(maxsize=64)
+def _bwd_scratch_bytes(c_in: int, r: int, s: int, c_out: int) -> int:
+    from maavss_tpu_torch.ops import _build
+
+    n = _build.library().maavss_pgenc_train_bwd_scratch(c_in, r, s, c_out)
+    if n < 0:
+        raise ValueError(f"pgenc bwd kernel: bad shape C={c_in} R={r} S={s} "
+                         f"Co={c_out}")
+    return n
+
+
+def pgenc_bwd(x: torch.Tensor, w2: torch.Tensor, yc: torch.Tensor,
               gamma: torch.Tensor, beta: torch.Tensor, mu: torch.Tensor,
               var: torch.Tensor, dy: torch.Tensor, backend: str = "auto"):
-    """Train-mode backward -> (dx, dw2, dcbias = 0, dgamma, dbeta). backend
-    as `pgenc_layer`."""
+    """Train-mode backward from the forward's fp32 yc -> (dx, dw2,
+    dcbias = 0, dgamma, dbeta). yc is read, never written. backend as
+    `pgenc_layer`."""
     if backend not in ("auto", "kernel"):
         raise ValueError(f"unknown pgenc backend {backend!r} (auto|kernel)")
     if not x.is_cuda:
         if backend == "kernel":
             raise RuntimeError("the CUDA pgenc kernel needs CUDA tensors")
-        return pgenc_bwd_plain(x, w2, cbias, gamma, beta, mu, var, dy)
+        return pgenc_bwd_plain(x, w2, yc, gamma, beta, mu, var, dy)
     c_in, r, s = x.shape
     c_out = w2.shape[0]
     so = s // STRIDE
-    _check_train_args(x, w2, (cbias, gamma, beta, mu, var), (dy,))
+    _check_train_args(x, w2, (gamma, beta, mu, var), (dy, yc))
     if dy.shape != (c_out, r, so) or dy.dtype != x.dtype:
         raise ValueError(f"pgenc bwd kernel: dy {tuple(dy.shape)} {dy.dtype}"
                          f" != [{c_out}, {r}, {so}] {x.dtype}")
+    if yc.shape != (c_out, r, so) or yc.dtype != torch.float32:
+        raise ValueError(f"pgenc bwd kernel: yc {tuple(yc.shape)} {yc.dtype}"
+                         f" != [{c_out}, {r}, {so}] torch.float32")
     from maavss_tpu_torch.ops import _build
 
-    lib = _build.library()
-    n_chunks = _dw_chunks(c_in, c_out, r, s)
-    yc = torch.empty(c_out, r, so, dtype=torch.float32, device=x.device)
-    partial = torch.empty(n_chunks, c_out * TAPS * c_in, dtype=torch.float32,
-                          device=x.device)
+    # dyc, dW2's partial tiles and their counters, in one allocation
+    scratch = torch.empty(_bwd_scratch_bytes(c_in, r, s, c_out),
+                          dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     dw2 = torch.empty_like(w2)
-    dgamma = torch.empty(c_out, dtype=torch.float32, device=x.device)
-    dbeta = torch.empty_like(dgamma)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = lib.maavss_pgenc_train_bwd(
-            x.data_ptr(), w2.data_ptr(), cbias.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), mu.data_ptr(), var.data_ptr(), dy.data_ptr(),
-            yc.data_ptr(), partial.data_ptr(), dx.data_ptr(), dw2.data_ptr(),
-            dgamma.data_ptr(), dbeta.data_ptr(), c_in, r, s, c_out, n_chunks,
-            _DTYPE_CODES[x.dtype], stream)
-    _build.check(err, "maavss_pgenc_train_bwd")
+    vec3 = torch.empty(3, c_out, dtype=torch.float32, device=x.device)
+    _build.launch("maavss_pgenc_train_bwd", x.device, (
+        x.data_ptr(), w2.data_ptr(), yc.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), mu.data_ptr(), var.data_ptr(), dy.data_ptr(),
+        scratch.data_ptr(), dx.data_ptr(), dw2.data_ptr(), vec3.data_ptr(),
+        c_in, r, s, c_out, _DTYPE_CODES[x.dtype]))
     pgenc_bwd.launches += 1
-    return dx, dw2, torch.zeros_like(cbias), dgamma, dbeta
+    return dx, dw2, vec3[0], vec3[1], vec3[2]
 
 
 pgenc_bwd.launches = 0
@@ -292,21 +283,23 @@ pgenc_bwd.launches = 0
 
 class _TrainLayer(torch.autograd.Function):
     """(x, w2, cbias, gamma, beta) -> (y, mu, var), as
-    `fused_conv_bn_tanh_train`: mu and var carry no gradient; the backward
-    gives (dx, dw2, zeros for cbias, dgamma, dbeta)."""
+    `fused_conv_bn_tanh_train`: mu and var carry no gradient; the forward's
+    fp32 yc is saved as the backward's residual (read only, so a second
+    backward under retain_graph reads it unchanged); the backward gives
+    (dx, dw2, zeros for cbias, dgamma, dbeta)."""
 
     @staticmethod
     def forward(ctx, x, w2, cbias, gamma, beta, backend):
-        y, mu, var = pgenc_train(x, w2, cbias, gamma, beta, backend=backend)
+        y, mu, var, yc = pgenc_train(x, w2, cbias, gamma, beta,
+                                     backend=backend)
         ctx.mark_non_differentiable(mu, var)
-        ctx.save_for_backward(x, w2, cbias, gamma, beta, mu, var)
+        ctx.save_for_backward(x, w2, yc, gamma, beta, mu, var)
         ctx.backend = backend
         return y, mu, var
 
     @staticmethod
     def backward(ctx, dy, _dmu, _dvar):
-        x, w2, cbias, gamma, beta, mu, var = ctx.saved_tensors
-        grads = pgenc_bwd(x, w2, cbias, gamma, beta, mu, var, dy.contiguous(),
+        grads = pgenc_bwd(*ctx.saved_tensors, dy.contiguous(),
                           backend=ctx.backend)
         return (*grads, None)
 

@@ -8,8 +8,8 @@ last time frame always dropped and the Nyquist bin dropped under `trim_end`.
 summed squared-window envelope), not torch.istft's normalization.
 
 Polar features (`polar=True`, --use_polar) are (magnitude, phase) from the
-magphase kernel, and go back through the polar kernel (ops/cuda_complex.py)
-before the inverse.
+magphase kernel, and go back through the polar kernel (ops/cuda_complex.py),
+which writes the complex spectrum the inverse reads, Nyquist bin included.
 
 Only the gather + rfft form of the forward is carried: the JAX package's
 conv-STFT is a TPU matrix-unit execution of the same math.
@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from maavss_tpu_torch.ops.cuda_complex import magphase, polar_to_rect
+from maavss_tpu_torch.ops.cuda_complex import magphase, polar_to_spectrum
 from maavss_tpu_torch.ops.windows import hamming_window
 
 
@@ -107,19 +107,14 @@ def istft_features(feats: torch.Tensor, fft_len: int, hop: int,
                    normalized: bool = True, trim_end: bool = True,
                    polar: bool = False, length: Optional[int] = None
                    ) -> torch.Tensor:
-    """Features `[..., 2, T, F]` -> audio `[..., samples]`; (magnitude,
-    phase) features go to (real, imag) through the polar kernel when
-    `polar`. Re-pads the trimmed Nyquist bin with zeros."""
+    """Features `[..., 2, T, F]` -> audio `[..., samples]`. (magnitude,
+    phase) features become the complex spectrum in one launch of the polar
+    kernel when `polar`. Re-pads the trimmed Nyquist bin with zeros."""
     if polar:
-        feats = polar_to_rect_features(feats)
-    spec = torch.complex(feats[..., 0, :, :].contiguous(),
-                         feats[..., 1, :, :].contiguous())
-    if trim_end:
-        spec = F.pad(spec, (0, 1))
+        spec = polar_to_spectrum(feats, 1 if trim_end else 0)
+    else:
+        spec = torch.complex(feats[..., 0, :, :].contiguous(),
+                             feats[..., 1, :, :].contiguous())
+        if trim_end:
+            spec = F.pad(spec, (0, 1))
     return istft(spec, fft_len, hop, normalized=normalized, length=length)
-
-
-def polar_to_rect_features(feats: torch.Tensor) -> torch.Tensor:
-    """(magnitude, phase) channels -> (real, imag), through the polar
-    kernel."""
-    return polar_to_rect(feats)

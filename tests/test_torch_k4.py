@@ -205,6 +205,35 @@ def test_polar_to_rect_matches_jax(path, shape):
     assert _rel_l2(got_d, want_d) <= TOL
 
 
+@pytest.mark.parametrize("pad_bins", [1, 0], ids=["trim_end", "untrimmed"])
+def test_polar_to_spectrum_is_polar_to_rect_as_complex(pad_bins):
+    """The iSTFT's spectrum form equals torch.complex of polar_to_rect's
+    planes, padded with pad_bins zero bins (the trimmed Nyquist bin), on a
+    strided view; its gradient equals autograd's through that composition."""
+    full = torch.from_numpy(_special((2, 2, 20, 33), 18))
+    x = full[:, :, 2:18].clone().requires_grad_(True)
+    got = cc.polar_to_spectrum(x, pad_bins)
+    rect = cc.polar_to_rect(x)
+    want = torch.nn.functional.pad(
+        torch.complex(rect[:, 0], rect[:, 1]), (0, pad_bins))
+    assert got.dtype == torch.complex64 and got.shape == (2, 16, 33 + pad_bins)
+    assert torch.equal(got, want)
+    if pad_bins:
+        assert not got[..., -1].any()
+    g = torch.from_numpy(_rand((2, 16, 33 + pad_bins), 19)) * (1 + 0.5j)
+    (got_d,) = torch.autograd.grad(got, x, g.to(torch.complex64))
+    y = x.detach().clone().requires_grad_(True)
+    want = torch.nn.functional.pad(
+        torch.complex(y[:, 0] * torch.cos(y[:, 1]),
+                      y[:, 0] * torch.sin(y[:, 1])), (0, pad_bins))
+    (want_d,) = torch.autograd.grad(want, y, g.to(torch.complex64))
+    torch.testing.assert_close(got_d, want_d, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(cc.polar_spectrum_fwd(x.detach(), pad_bins),
+                               cc.polar_spectrum_fwd_plain(x.detach(),
+                                                           pad_bins),
+                               rtol=0, atol=0)
+
+
 def test_branch_cut_and_zeros_match_jax():
     """Exact zeros give magnitude 0; a negative real part over +0.0 / -0.0
     gives +pi / -pi, in the port and in the JAX kernel alike; the polar
@@ -232,8 +261,10 @@ def test_branch_cut_and_zeros_match_jax():
 @pytest.mark.parametrize("fn", [
     lambda x: cc.complex_mask_apply(x, x), cc.magphase, cc.polar_to_rect,
     lambda x: cc.mask_mul(x, x), cc.magphase_fwd, cc.polar_fwd,
+    cc.polar_to_spectrum, cc.polar_spectrum_fwd,
 ], ids=["complex_mask_apply", "magphase", "polar_to_rect", "mask_mul",
-        "magphase_fwd", "polar_fwd"])
+        "magphase_fwd", "polar_fwd", "polar_to_spectrum",
+        "polar_spectrum_fwd"])
 def test_axis_minus_3_must_have_size_2(fn):
     """The JAX functions read channels 0 and 1 of any width (ROADMAP queue
     3); the port refuses anything but two."""
@@ -246,7 +277,9 @@ def test_axis_minus_3_must_have_size_2(fn):
 def test_wrappers_take_plain_path_on_cpu():
     """On CPU tensors the wrappers run their plain versions, strided
     operands included, and count no launch."""
-    for c in (cc.mask_mul, cc.magphase_fwd, cc.polar_fwd):
+    counters = (cc.mask_mul, cc.magphase_fwd, cc.polar_fwd,
+                cc.polar_spectrum_fwd)
+    for c in counters:
         c.launches = 0
     full = torch.from_numpy(_rand((2, 2, 24, 32), 10))
     a, b = full[:, :, 4:20], torch.from_numpy(_rand((2, 2, 16, 32), 11))
@@ -258,8 +291,10 @@ def test_wrappers_take_plain_path_on_cpu():
                                rtol=0, atol=0)
     torch.testing.assert_close(cc.polar_fwd(a), cc.polar_fwd_plain(a),
                                rtol=0, atol=0)
-    assert [c.launches for c in (cc.mask_mul, cc.magphase_fwd,
-                                 cc.polar_fwd)] == [0, 0, 0]
+    torch.testing.assert_close(cc.polar_spectrum_fwd(a, 1),
+                               cc.polar_spectrum_fwd_plain(a, 1), rtol=0,
+                               atol=0)
+    assert [c.launches for c in counters] == [0, 0, 0, 0]
     with pytest.raises(ValueError, match="shapes"):
         cc.mask_mul(a, b[:, :, :8])
 
@@ -369,6 +404,22 @@ def test_polar_kernel_matches_plain_on_card():
     (x,) = _card(_special((4, 2, 24, 33), 17))
     assert _card_rel(cc.polar_fwd(x[:, :, 2:]),
                      cc.polar_fwd_plain(x[:, :, 2:])) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pad_bins", [1, 0], ids=["trim_end", "untrimmed"])
+def test_polar_spectrum_kernel_matches_planar_on_card(pad_bins):
+    """The spectrum form gives the planar form's values bit for bit, the
+    padded bins 0, and agrees with its plain version."""
+    (x,) = _card(_special((4, 2, 24, 33), 20))
+    v = x[:, :, 2:]
+    got = cc.polar_spectrum_fwd(v, pad_bins)
+    rect = cc.polar_fwd(v)
+    assert torch.equal(torch.view_as_real(got[..., :33]),
+                       torch.stack([rect[:, 0], rect[:, 1]], dim=-1))
+    assert not got[..., 33:].any()
+    want = cc.polar_spectrum_fwd_plain(v, pad_bins)
+    assert _card_rel(torch.view_as_real(got), torch.view_as_real(want)) <= TOL
 
 
 # ---------------------------------------------------------------- the golden

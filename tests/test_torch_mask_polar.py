@@ -402,10 +402,10 @@ def test_separators_match_jax(mask_kernel, frames, flag):
             jax.random.PRNGKey(0))
     model, _ = _port_state(cfg, frames, variables)
     polar_calls = []
-    real = cc.polar_fwd
+    real = cc.polar_spectrum_fwd
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(cc, "polar_fwd",
-                   lambda x: polar_calls.append(1) or real(x))
+        mp.setattr(cc, "polar_spectrum_fwd",
+                   lambda *a: polar_calls.append(1) or real(*a))
         sep = make_frames_separator if frames else make_separator
         got = sep(model, cfg)({k: torch.from_numpy(v)
                                for k, v in batch.items()})

@@ -224,8 +224,8 @@ def test_new_wrappers_count_no_launch_on_cpu():
     x = torch.randn(2, 6, 16, generator=g)
     w2 = torch.randn(4, 18, generator=g)
     vecs = [torch.randn(4, generator=g) for _ in range(2)] + [torch.ones(4)]
-    y, mu, var = pgenc_train(x, w2, *vecs)
-    pgenc_bwd(x, w2, *vecs, mu, var, torch.ones_like(y))
+    y, mu, var, yc = pgenc_train(x, w2, *vecs)
+    pgenc_bwd(x, w2, yc, *vecs[1:], mu, var, torch.ones_like(y))
     p = [torch.randn(5, generator=g)]
     adam_multi_tensor([None], [torch.zeros(5)], [torch.zeros(5)], p, 0.1,
                       0.001, 1e-3, 0.9, 0.999, 1e-8)

@@ -73,12 +73,15 @@ def test_plain_train_layer_matches_pallas_interpret(c, co, s):
     x, w2, vecs, dy = _inputs(c, co, 6, s)
     (y_j, mu_j, var_j), grads_j = _jax_vjp(x, w2, vecs, dy)
     t = [torch.from_numpy(a) for a in (x, w2) + vecs]
-    y, mu, var = pgenc_train_plain(*t)
-    assert y.shape == (co, 6, s // 2)
+    y, mu, var, yc = pgenc_train_plain(*t)
+    assert y.shape == yc.shape == (co, 6, s // 2)
+    assert yc.dtype == torch.float32
     np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=ATOL, rtol=0)
     _close(mu.numpy(), mu_j, "mu")
     _close(var.numpy(), var_j, "var")
-    grads = pgenc_bwd_plain(*t, mu, var, torch.from_numpy(dy))
+    # the backward from the forward's yc, as the fused layer saves it
+    grads = pgenc_bwd_plain(t[0], t[1], yc, *t[3:], mu, var,
+                            torch.from_numpy(dy))
     for name, g, gj in zip(("dx", "dw2", "dcbias", "dgamma", "dbeta"), grads,
                            grads_j):
         _close(g.numpy(), gj, name)
@@ -111,15 +114,31 @@ def test_wrappers_take_plain_path_on_cpu():
     got = pgenc_train(*t)
     for a, b in zip(got, pgenc_train_plain(*t)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    g = pgenc_bwd(*t, got[1], got[2], torch.from_numpy(dy))
-    for a, b in zip(g, pgenc_bwd_plain(*t, got[1], got[2],
-                                       torch.from_numpy(dy))):
+    y, mu, var, yc = got
+    args = (t[0], t[1], yc, *t[3:], mu, var, torch.from_numpy(dy))
+    g = pgenc_bwd(*args)
+    for a, b in zip(g, pgenc_bwd_plain(*args)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert pgenc_train.launches == 0 and pgenc_bwd.launches == 0
     with pytest.raises(RuntimeError, match="CUDA"):
         pgenc_train(*t, backend="kernel")
     with pytest.raises(RuntimeError, match="CUDA"):
-        pgenc_bwd(*t, got[1], got[2], torch.from_numpy(dy), backend="kernel")
+        pgenc_bwd(*args, backend="kernel")
+
+
+def test_double_backward_repeats_and_keeps_yc():
+    """Under retain_graph a second backward through the fused layer gives
+    the same gradients bit for bit: the saved yc is read, never written."""
+    x, w2, vecs, dy = _inputs(2, 4, 5, 16, seed=4)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (x, w2) + vecs]
+    y, _, _ = pgenc_layer_train(*leaves)
+    d = torch.from_numpy(dy)
+    first = torch.autograd.grad(y, leaves, d, retain_graph=True)
+    second = torch.autograd.grad(y, leaves, d)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.count_nonzero(first[2]) == 0
 
 
 def test_odd_width_raises_like_jax():
@@ -209,12 +228,57 @@ def test_train_kernels_match_plain_on_card():
                     "mode); chip_smoke.py runs this comparison on the card")
     x, w2, vecs, dy = _inputs(4, 8, 64, 256)
     t = [torch.from_numpy(a).cuda() for a in (x, w2) + vecs]
-    y, mu, var = pgenc_train(*t, backend="kernel")
-    for a, b in zip((y, mu, var), pgenc_train_plain(*t)):
+    y, mu, var, yc = pgenc_train(*t, backend="kernel")
+    for a, b in zip((y, mu, var, yc), pgenc_train_plain(*t)):
         torch.testing.assert_close(a, b, atol=ATOL, rtol=1e-4)
-    d = torch.from_numpy(dy).cuda()
-    got = pgenc_bwd(*t, mu, var, d, backend="kernel")
-    want = pgenc_bwd_plain(*t, mu, var, d)
+    args = (t[0], t[1], yc, *t[3:], mu, var, torch.from_numpy(dy).cuda())
+    got = pgenc_bwd(*args, backend="kernel")
+    want = pgenc_bwd_plain(*args)
     assert torch.count_nonzero(got[2]) == 0
     for a, b in zip(got, want):
         _close(a.cpu().numpy(), b.cpu().numpy(), "grad")
+    # fixed-order sums: a second call gives the same bits
+    for a, b in zip(got, pgenc_bwd(*args, backend="kernel")):
+        assert torch.equal(a, b)
+
+
+def _at_offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t that starts one element into its storage."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_takes_unaligned_views_on_card(dtype):
+    """x, w2, yc and dy at an odd offset take the backward's one-value
+    copies instead of its 16-byte ones. The copies do not change the sums:
+    x and w2 at an offset give the aligned call's bits; with yc and dy too
+    (the BN sums then take one value a thread) it still matches the plain
+    version at chip_smoke's K2-bwd tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs the aligned comparison")
+    x, w2, vecs, dy = _inputs(4, 8, 64, 256)
+    t = [torch.from_numpy(a).cuda() for a in (x, w2) + vecs]
+    t[0], t[1] = t[0].to(dtype), t[1].to(dtype)
+    _, mu, var, yc = pgenc_train(*t, backend="kernel")
+    dy = torch.from_numpy(dy).cuda().to(dtype)
+    args = [t[0], t[1], yc, *t[3:], mu, var, dy]
+    aligned = pgenc_bwd(*args, backend="kernel")
+    want = pgenc_bwd_plain(*args)
+    for i in (0, 1, 2, 7):  # x, w2, then yc, dy
+        args[i] = _at_offset(args[i])
+        assert args[i].data_ptr() % 8 != 0
+        if i == 1:
+            for a, b in zip(pgenc_bwd(*args, backend="kernel"), aligned):
+                assert torch.equal(a, b)
+    got = pgenc_bwd(*args, backend="kernel")
+    assert torch.count_nonzero(got[2]) == 0
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        scale = b.abs().max().item()
+        torch.testing.assert_close(a, b, atol=tol * scale, rtol=tol)
