@@ -11,12 +11,18 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 2. build: compiles every kernel of the serving and train paths from `csrc/`
    (one nvcc per source, in parallel, then one link).
 3. k1_lstm (K1-fwd, LSTM recurrence): the kernel against its plain version
-   at T=8, B=8 and 32, H=256, fp32 and bf16, both directions in one launch;
-   cuDNN's bidirectional nn.LSTM timed beside it.
+   at (B, T) = (8, 8), (32, 8), (8, 16) and (256, 8), H=256, fp32 and bf16,
+   both directions in one cluster launch, two calls bitwise equal; cuDNN's
+   bidirectional nn.LSTM timed beside it.
 4. k2_pgenc (K2-eval, fused phasegram-encoder layer): the kernel against
    its plain version at each of the 10 planned layers (R=64 rows).
 5. k1_bwd (K1-bwd, LSTM BPTT): against the plain BPTT and autograd through
-   the plain recurrence, at the shapes of k1_lstm.
+   the plain recurrence, at the shapes of k1_lstm, two calls bitwise equal;
+   the sweep's and dW_h's device times apart; cuDNN's nn.LSTM backward
+   timed beside it.
+   k1_gate: both K1 kernels, correctness only, at (B, T, H) = (2, 8, 256),
+   (4, 8, 256), (8, 8, 448) and (12, 8, 96), fp32 and bf16: one and two
+   rows per cluster, the largest H, a slice loaded one value at a time.
 6. k2_train (K2-train and K2-bwd, the train-mode layer and its backward):
    at each of the 10 layers, R 64 and 256, fp32 and bf16, against the plain
    versions and autograd through the plain forward; dcbias exactly 0; the
@@ -43,9 +49,10 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 12. k5_epilogue (K5, the frames encoder's fused BN + 2x2 max pool +
    LeakyReLU: stats, apply, bwd reduce, bwd dy): each kernel against its
    plain version at the flagship's stage-0 and stage-1 shapes, with a third
-   of gamma negative, and again on a tensor of exact ties; PyTorch's unfused
-   tail (F.batch_norm, F.max_pool3d, F.leaky_relu under autograd) timed
-   beside.
+   of gamma negative, again on a tensor of exact ties, and with y at an odd
+   offset (stats, apply and bwd dy then take 4-byte loads); PyTorch's
+   unfused tail (F.batch_norm, F.max_pool3d, F.leaky_relu under autograd)
+   timed beside.
 13. frames_train: the full-width frames train step (framesize 256, batch 8,
    4 windows, mode 2) with every kernel, against the plain versions from
    one state_dict: per-step losses, parameters after step 1, exact launch
@@ -243,7 +250,51 @@ def build_phase():
         res.path, ROOT), ptxas=regs)
 
 
+K1_SHAPES = ((8, 8), (32, 8), (8, 16), (256, 8))  # (B, T): fusion window
+# and vectorized batches, the frames family's channel axis, bench.py's batch
+
+
+def _k1_inputs(b, t_len, dtype, g, h=256):
+    import torch
+
+    xws = [torch.randn(b, t_len, 4 * h, device="cuda", generator=g).to(dtype)
+           for _ in range(2)]
+    whs = [(torch.randn(h, 4 * h, device="cuda", generator=g) / 16).to(dtype)
+           for _ in range(2)]
+    dys = [torch.randn(b, t_len, h, device="cuda", generator=g).to(dtype)
+           for _ in range(2)]
+    return xws, whs, dys
+
+
+def _k1_geometry(b, h):
+    """The geometry the K1 wrappers launch at batch b on this card, with
+    the count of clusters it runs side by side that set it."""
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        _clusters_at_once,
+        lstm_geometry,
+    )
+
+    clusters = _clusters_at_once(0)
+    return dict(lstm_geometry(b, h, clusters=clusters)._asdict(),
+                clusters_at_once=clusters)
+
+
+def _same_bits(what, first, second):
+    """Raise unless two calls' outputs are bitwise equal."""
+    import torch
+
+    for a, b in zip(first, second):
+        for x, y in zip(a, b):
+            if not torch.equal(x, y):
+                raise SystemExit(f"{what}: two calls differ in their bits")
+
+
 def lstm_phase():
+    """K1-fwd against its plain version at K1_SHAPES, H=256, fp32 and bf16,
+    both directions in one launch: ys, cs and the saved fp32 gate
+    activations (atol 1e-5; rtol 1e-5 fp32, 2^-7 bf16: one bf16 rounding),
+    two calls bitwise equal. cuDNN's bidirectional nn.LSTM timed beside
+    (fp32)."""
     import torch
 
     from maavss_tpu_torch.ops.cuda_lstm import (
@@ -252,15 +303,12 @@ def lstm_phase():
     )
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    t_len, h = 8, 256
+    h = 256
     report = None
-    for b in (8, 32):
+    for b, t_len in K1_SHAPES:
         for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5),
                                   (torch.bfloat16, 1e-5, 2.0 ** -7)):
-            xws = [torch.randn(b, t_len, 4 * h, device="cuda", generator=g)
-                   .to(dtype) for _ in range(2)]
-            whs = [(torch.randn(h, 4 * h, device="cuda", generator=g) / 16)
-                   .to(dtype) for _ in range(2)]
+            xws, whs, _ = _k1_inputs(b, t_len, dtype, g, h)
             rev = [False, True]
 
             def kernel():
@@ -270,30 +318,40 @@ def lstm_phase():
                 return [lstm_recurrence_plain(x, w, r)
                         for x, w, r in zip(xws, whs, rev)]
 
-            got, want = kernel(), plain()
+            got, again, want = kernel(), kernel(), plain()
             torch.cuda.synchronize()
+            _same_bits(f"K1 lstm B={b} T={t_len} {dtype}", got, again)
             err = 0.0
-            for (ys, cs), (ys_r, cs_r) in zip(got, want):
-                for a, w in ((ys, ys_r), (cs, cs_r)):
+            for outs, refs in zip(got, want):
+                for a, w in zip(outs, refs):
                     ok = torch.allclose(a.float(), w.float(), atol=atol,
                                         rtol=rtol)
                     if not ok:
                         raise SystemExit(f"K1 lstm disagrees at B={b} "
-                                         f"{dtype}: {max_err(a, w)}")
+                                         f"T={t_len} {dtype}: {max_err(a, w)}")
                     err = max(err, max_err(a, w)[0])
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
             # the bytes the function must move: xw and w_h read, ys and cs
-            # written, per direction; h @ w_h each step
-            bnd = bound_ms(2 * (nbytes(xws[0], whs[0]) + 2 * nbytes(got[0][0])),
+            # written, per direction (acts are this design's residual, not
+            # the function's); h @ w_h each step
+            bnd = bound_ms(2 * (nbytes(xws[0], whs[0])
+                                + nbytes(got[0][0], got[0][1])),
                            2 * t_len * 2 * b * h * 4 * h)
-            lib_ms = cudnn_lstm_ms(xws, whs) if dtype == torch.float32 \
-                else None
+            fp32 = dtype == torch.float32
+            lib_ms = cudnn_lstm_ms(xws, whs) if fp32 else None
+            dev_ms, host_ms = split_ms(kernel) if fp32 else (None, None)
+            # the serving path's launch: no gate activations written
+            eval_dev_ms = split_ms(lambda: lstm_recurrence(
+                xws, whs, rev, backend="kernel", save_acts=False))[0] \
+                if fp32 else None
             phase("k1_lstm", B=b, T=t_len, H=h, dtype=str(dtype),
-                  directions=2, max_abs_err=err, atol=atol, rtol=rtol,
-                  ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
+                  directions=2, geometry=_k1_geometry(b, h),
+                  max_abs_err=err, atol=atol, rtol=rtol, bitwise_repeat=True,
+                  ms=ms, device_ms=dev_ms, host_ms=host_ms,
+                  device_ms_without_acts=eval_dev_ms,
+                  plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
                   library_ms=lib_ms)
-            if b == 8 and dtype == torch.float32:
-                dev_ms, host_ms = split_ms(kernel)
+            if (b, t_len) == (8, 8) and fp32:
                 report = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd,
                               library_ms=lib_ms, device_ms=dev_ms,
                               host_ms=host_ms)
@@ -307,15 +365,38 @@ def cudnn_lstm_ms(xws, whs, d_in: int = 512):
     input), so it does more work than K1-fwd."""
     import torch
 
+    lstm, x = _cudnn_lstm(xws, whs, d_in)
+    with torch.no_grad():
+        return cuda_ms(lambda: lstm(x))
+
+
+def _cudnn_lstm(xws, whs, d_in):
+    import torch
+
     b, t_len, four_h = xws[0].shape
     lstm = torch.nn.LSTM(d_in, four_h // 4, bias=False, batch_first=True,
                          bidirectional=True).cuda()
     with torch.no_grad():
         lstm.weight_hh_l0.copy_(whs[0].T)
         lstm.weight_hh_l0_reverse.copy_(whs[1].T)
-    x = torch.randn(b, t_len, d_in, device="cuda")
-    with torch.no_grad():
-        return cuda_ms(lambda: lstm(x))
+    return lstm, torch.randn(b, t_len, d_in, device="cuda")
+
+
+def cudnn_lstm_bwd_ms(xws, whs, dys, d_in: int = 512):
+    """cuDNN's backward of the same bidirectional nn.LSTM, as a yardstick
+    for K1-bwd: torch.autograd.grad of its output against (dys_f | dys_b)
+    for x and both weight_hh, over one retained forward graph. It does more
+    work than K1-bwd: dx through w_i, and cuDNN's weight-gradient pass
+    covers w_i too."""
+    import torch
+
+    lstm, x = _cudnn_lstm(xws, whs, d_in)
+    x.requires_grad_(True)
+    out, _ = lstm(x)
+    dy = torch.cat([d.float() for d in dys], dim=-1)
+    leaves = (x, lstm.weight_hh_l0, lstm.weight_hh_l0_reverse)
+    return cuda_ms(lambda: torch.autograd.grad(out, leaves, dy,
+                                               retain_graph=True))
 
 
 def pgenc_phase():
@@ -409,10 +490,13 @@ def profile_phase(label: str, fn, calls: int = 3, watch=()):
 
 def lstm_bwd_phase():
     """K1-bwd against the plain BPTT and against autograd through the plain
-    recurrence. Tolerances: fp32 dxw 1e-5 absolute + 1e-5 relative (the
-    gate recompute and dh_prev sum in another order than cuBLAS); dW_h, a
-    sum of B*T terms, 1e-4 of its largest entry + 1e-4 relative; bf16 2^-7
-    of the largest entry + 2^-7 relative (one bf16 rounding of each)."""
+    recurrence, at the shapes of k1_lstm, from the kernel forward's saved
+    ys, cs and gate activations; two calls bitwise equal. Tolerances: fp32
+    dxw 1e-5 absolute + 1e-5 relative (dh_prev sums in another order than
+    cuBLAS); dW_h, a sum of B*T terms, 1e-4 of its largest entry + 1e-4
+    relative; bf16 2^-7 of the largest entry + 2^-7 relative (one bf16
+    rounding of each). The sweep's and dW_h's device times per launch come
+    from torch.profiler; cuDNN's nn.LSTM backward is timed beside (fp32)."""
     import torch
 
     from maavss_tpu_torch.ops.cuda_lstm import (
@@ -423,39 +507,36 @@ def lstm_bwd_phase():
     )
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    t_len, h = 8, 256
+    h = 256
     report = None
-    for b in (8, 32):
+    for b, t_len in K1_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            xws = [torch.randn(b, t_len, 4 * h, device="cuda", generator=g)
-                   .to(dtype) for _ in range(2)]
-            whs = [(torch.randn(h, 4 * h, device="cuda", generator=g) / 16)
-                   .to(dtype) for _ in range(2)]
-            dys = [torch.randn(b, t_len, h, device="cuda", generator=g)
-                   .to(dtype) for _ in range(2)]
+            xws, whs, dys = _k1_inputs(b, t_len, dtype, g, h)
             rev = [False, True]
             fwd = lstm_recurrence(xws, whs, rev, backend="kernel")
-            yss, css = [o[0] for o in fwd], [o[1] for o in fwd]
+            yss, css, actss = ([o[i] for o in fwd] for i in range(3))
 
             def kernel():
-                return lstm_recurrence_bwd(xws, whs, yss, css, dys, rev,
+                return lstm_recurrence_bwd(actss, whs, yss, css, dys, rev,
                                            backend="kernel")
 
             def plain():
                 return [lstm_recurrence_bwd_plain(*a) for a in
-                        zip(xws, whs, yss, css, dys, rev)]
+                        zip(actss, whs, yss, css, dys, rev)]
 
-            got, want = kernel(), plain()
+            got, again, want = kernel(), kernel(), plain()
             torch.cuda.synchronize()
+            where = f"B={b} T={t_len} {dtype}"
+            _same_bits(f"K1-bwd {where}", got, again)
             fp32 = dtype == torch.float32
             e_dx = e_dw = 0.0
             for (dxw, dwh), (dxw_r, dwh_r) in zip(got, want):
                 e_dx = max(e_dx, check_close(
-                    f"K1-bwd dxw B={b} {dtype}", dxw, dxw_r,
+                    f"K1-bwd dxw {where}", dxw, dxw_r,
                     1e-5 if fp32 else 2.0 ** -7, 1e-5 if fp32 else 2.0 ** -7,
                     scale_atol=not fp32))
                 e_dw = max(e_dw, check_close(
-                    f"K1-bwd dW_h B={b} {dtype}", dwh, dwh_r,
+                    f"K1-bwd dW_h {where}", dwh, dwh_r,
                     1e-4 if fp32 else 2.0 ** -7, 1e-4 if fp32 else 2.0 ** -7,
                     scale_atol=True))
             e_auto = None
@@ -464,7 +545,7 @@ def lstm_bwd_phase():
                 for k in range(2):
                     xw = xws[k].clone().requires_grad_(True)
                     wh = whs[k].clone().requires_grad_(True)
-                    ys, _ = lstm_recurrence_plain(xw, wh, rev[k])
+                    ys = lstm_recurrence_plain(xw, wh, rev[k])[0]
                     ys.backward(dys[k])
                     e_auto = max(e_auto, check_close(
                         "K1-bwd dxw vs autograd", got[k][0], xw.grad, 1e-5,
@@ -473,19 +554,91 @@ def lstm_bwd_phase():
                         "K1-bwd dW_h vs autograd", got[k][1], wh.grad, 1e-4,
                         1e-4, scale_atol=True))
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+            # the function's bytes: xw, w_h, ys, cs and dys read, dxw and
+            # dW_h written, per direction (this design reads acts for xw)
             n_bytes = 2 * (nbytes(xws[0], whs[0], yss[0], css[0], dys[0])
-                           + nbytes(got[0][0], got[0][1]))
-            bnd = bound_ms(n_bytes, 2 * t_len * 3 * 2 * b * h * 4 * h)
-            phase("k1_bwd", B=b, T=t_len, H=h, dtype=str(dtype), directions=2,
-                  max_abs_err_dxw=e_dx, max_abs_err_dwh=e_dw,
-                  max_abs_err_vs_autograd=e_auto, ms=ms, plain_ms=plain_ms,
-                  bound_ms=bnd[0], bound_by=bnd[1])
-            if b == 8 and fp32:
+                           + nbytes(*got[0]))
+            # two products a step: dh_prev = dgates @ w_h^T and dW_h's share
+            bnd = bound_ms(n_bytes, 2 * t_len * 2 * 2 * b * h * 4 * h)
+            lib_ms = dev_ms = host_ms = split_us = None
+            if fp32:
+                lib_ms = cudnn_lstm_bwd_ms(xws, whs, dys)
                 dev_ms, host_ms = split_ms(kernel)
+                split_us = {k: v for k, v in kernel_us(kernel).items()
+                            if k.startswith("lstm_bwd")}
+            phase("k1_bwd", B=b, T=t_len, H=h, dtype=str(dtype),
+                  directions=2, geometry=_k1_geometry(b, h),
+                  max_abs_err_dxw=e_dx, max_abs_err_dwh=e_dw,
+                  max_abs_err_vs_autograd=e_auto, bitwise_repeat=True,
+                  ms=ms, device_ms=dev_ms, host_ms=host_ms,
+                  device_us_per_launch=split_us, plain_ms=plain_ms,
+                  bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
+                  library="cuDNN nn.LSTM backward (more work: dx through "
+                          "w_i, dW_i)")
+            if (b, t_len) == (8, 8) and fp32:
                 report = dict(err=max(e_dx, e_dw), ms=ms, plain_ms=plain_ms,
-                              bound=bnd, library_ms=None, device_ms=dev_ms,
+                              bound=bnd, library_ms=lib_ms, device_ms=dev_ms,
                               host_ms=host_ms)
     return report
+
+
+K1_GATE_SHAPES = ((2, 8, 256), (4, 8, 256), (8, 8, 448), (12, 8, 96))
+# (B, T, H): one and two rows per cluster (K1_SHAPES take four and eight),
+# the largest H, and an H whose w_h slice is loaded one value at a time
+
+
+def k1_gate_phase():
+    """Both K1 kernels at K1_GATE_SHAPES, fp32 and bf16, against their plain
+    versions at k1_lstm's and k1_bwd's tolerances, two calls bitwise equal;
+    correctness only, so that every instantiation lstm_geometry can pick
+    and both slice loads are held on the card."""
+    import torch
+
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        lstm_recurrence,
+        lstm_recurrence_bwd,
+        lstm_recurrence_bwd_plain,
+        lstm_recurrence_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rev = [False, True]
+    for b, t_len, h in K1_GATE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            tol = 1e-5 if fp32 else 2.0 ** -7
+            where = f"B={b} T={t_len} H={h} {dtype}"
+            xws, whs, dys = _k1_inputs(b, t_len, dtype, g, h)
+            fwd = lstm_recurrence(xws, whs, rev, backend="kernel")
+            again = lstm_recurrence(xws, whs, rev, backend="kernel")
+            torch.cuda.synchronize()
+            _same_bits(f"K1 lstm {where}", fwd, again)
+            e_fwd = 0.0
+            for outs, x, w, r in zip(fwd, xws, whs, rev):
+                for a, want in zip(outs, lstm_recurrence_plain(x, w, r)):
+                    e_fwd = max(e_fwd, check_close(
+                        f"K1 lstm {where}", a, want, 1e-5, tol))
+            args = ([f[2] for f in fwd], whs, [f[0] for f in fwd],
+                    [f[1] for f in fwd], dys, rev)
+            got = lstm_recurrence_bwd(*args, backend="kernel")
+            again = lstm_recurrence_bwd(*args, backend="kernel")
+            torch.cuda.synchronize()
+            _same_bits(f"K1-bwd {where}", got, again)
+            e_dx = e_dw = 0.0
+            for k, (dxw, dwh) in enumerate(got):
+                dxw_r, dwh_r = lstm_recurrence_bwd_plain(
+                    *(a[k] for a in args))
+                e_dx = max(e_dx, check_close(
+                    f"K1-bwd dxw {where}", dxw, dxw_r, tol, tol,
+                    scale_atol=not fp32))
+                e_dw = max(e_dw, check_close(
+                    f"K1-bwd dW_h {where}", dwh, dwh_r,
+                    1e-4 if fp32 else tol, 1e-4 if fp32 else tol,
+                    scale_atol=True))
+            phase("k1_gate", B=b, T=t_len, H=h, dtype=str(dtype),
+                  geometry=_k1_geometry(b, h),
+                  max_abs_err_fwd=e_fwd, max_abs_err_dxw=e_dx,
+                  max_abs_err_dwh=e_dw, bitwise_repeat=True)
 
 
 def _pgenc_inputs(c, co, r, s, dtype, g):
@@ -1212,6 +1365,9 @@ def k5_phase():
             phase("k5_check", stage=stage, shape=list(shape), ties=ties,
                   tied_window_share=tied, **{f"max_abs_err_{n}": errs[n]
                                              for n in names})
+            if not ties:
+                _k5_unaligned(where, y, gamma, beta, g_out, red[2],
+                              (mu, rstd), (out, sel, dy))
             if ties:
                 continue
             calls = {
@@ -1284,6 +1440,51 @@ def k5_phase():
           fused_fwd_bwd_ms=sum(f for _, f in tails),
           unfused_torch_fwd_bwd_ms=sum(t for t, _ in tails))
     return rep
+
+
+def _k5_unaligned(where, y, gamma, beta, g_out, k, stats, aligned):
+    """K5's stats, apply and bwd dy on a y one float into its storage (not
+    8- or 16-byte aligned, so the kernels take 4-byte loads) against the
+    plain versions at k5_phase's gates; apply and dy are elementwise, so
+    they also give the aligned call's bits."""
+    import torch
+
+    from maavss_tpu_torch.ops.cuda_epilogue import (
+        epilogue_apply,
+        epilogue_apply_plain,
+        epilogue_bwd_dy,
+        epilogue_bwd_dy_plain,
+        epilogue_stats,
+        epilogue_stats_plain,
+    )
+
+    yo = _at_offset(y)
+    if yo.data_ptr() % 8 == 0:
+        raise SystemExit("K5 unaligned check: y is aligned")
+    where = f"{where} y at an odd offset"
+    mu, var, rstd = epilogue_stats(yo)
+    errs = [_rel_check(f"K5 stats {n} {where}", a, b, 1e-5)
+            for n, a, b in zip(("mu", "var", "rstd"), (mu, var, rstd),
+                               epilogue_stats_plain(yo))]
+    out, sel = epilogue_apply(yo, gamma, beta, mu, rstd)
+    out_p, sel_p = epilogue_apply_plain(yo, gamma, beta, mu, rstd)
+    dy = epilogue_bwd_dy(yo, g_out, sel, gamma, beta, mu, rstd, k)
+    dy_p = epilogue_bwd_dy_plain(yo, g_out, sel, gamma, beta, mu, rstd, k)
+    torch.cuda.synchronize()
+    if not torch.equal(sel, sel_p):
+        raise SystemExit(f"K5 apply sel differs at {where}")
+    errs.append(_rel_check(f"K5 apply out {where}", out, out_p, 1e-5))
+    errs.append(check_close(f"K5 dy {where}", dy, dy_p, 1e-4, 1e-4,
+                            scale_atol=True))
+    # with the aligned call's statistics, apply and dy are the same bits
+    out, sel = epilogue_apply(yo, gamma, beta, *stats)
+    dy = epilogue_bwd_dy(yo, g_out, sel, gamma, beta, *stats, k)
+    same = all(torch.equal(a, b) for a, b in zip((out, sel, dy), aligned))
+    if not same:
+        raise SystemExit(f"K5 at an odd offset: apply/dy differ from the "
+                         f"aligned call's bits at {where}")
+    phase("k5_unaligned", where=where, y_offset_bytes=yo.data_ptr() % 16,
+          max_abs_err=max(errs), same_bits_as_aligned=same)
 
 
 def _epilogue_counters():
@@ -2536,7 +2737,9 @@ def main() -> None:
     smi = device_phase()
     build_phase()
     k1, k2 = lstm_phase(), pgenc_phase()
-    k1b, k2t, k3 = lstm_bwd_phase(), pgenc_train_phase(), adam_phase()
+    k1b = lstm_bwd_phase()
+    k1_gate_phase()
+    k2t, k3 = pgenc_train_phase(), adam_phase()
     serve = slice_phase()
     golden_phase()
     train = train_phase()

@@ -41,7 +41,9 @@
 //     order. No atomics: every run gives the same bits.
 //   - The channel's values are B contiguous segments of L = T*H*W floats
 //     ((b*C + c)*L); a block walks its share segment by segment, 16-byte
-//     loads where L is a multiple of 4 (always, for y).
+//     loads where L is a multiple of 4 (always, for y) and y is 16-byte
+//     aligned. apply and dy read a window row as one float2 where y (and
+//     dy) are 8-byte aligned; a view at another offset takes 4-byte loads.
 //   - apply and dy run one thread per window, the channel from the index.
 //
 // What bounds it on Hopper: bytes. Every pass is a stream over the conv
@@ -52,6 +54,8 @@
 // 0 and 1, 0.66 ms at 3.35 TB/s.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -230,16 +234,32 @@ struct Affine {
   const float* rstd;
 };
 
+// The two values of a window row at p (an even offset): one float2 when
+// `vec` (the base pointer 8-byte aligned), else two 4-byte loads.
+__device__ __forceinline__ float2 load_pair(const float* p, bool vec) {
+  return vec ? *reinterpret_cast<const float2*>(p) : make_float2(p[0], p[1]);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b,
+                                           bool vec) {
+  if (vec) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    p[0] = a;
+    p[1] = b;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 apply_kernel(const float* __restrict__ y, Affine aff, float* __restrict__ out,
              float* __restrict__ sel, long long n_pool, int C, int T, int H,
-             int W) {
+             int W, bool vec) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n_pool) return;
   const Window win = window_of(idx, C, T, H, W);
-  const float2 r0 = *reinterpret_cast<const float2*>(y + win.in_off);
-  const float2 r1 = *reinterpret_cast<const float2*>(y + win.in_off + W);
+  const float2 r0 = load_pair(y + win.in_off, vec);
+  const float2 r1 = load_pair(y + win.in_off + W, vec);
   const float gm = aff.gamma[win.c];
   const float s = gm > 0.0f ? fmaxf(fmaxf(r0.x, r0.y), fmaxf(r1.x, r1.y))
                             : fminf(fminf(r0.x, r0.y), fminf(r1.x, r1.y));
@@ -252,7 +272,7 @@ __global__ void __launch_bounds__(kThreads)
 dy_kernel(const float* __restrict__ y, const float* __restrict__ g,
           const float* __restrict__ sel, Affine aff,
           const float* __restrict__ k, float* __restrict__ dy,
-          long long n_pool, int C, int T, int H, int W) {
+          long long n_pool, int C, int T, int H, int W, bool vec) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n_pool) return;
@@ -266,8 +286,8 @@ dy_kernel(const float* __restrict__ y, const float* __restrict__ g,
   const float o = gm * xhat_sel + aff.beta[c];
   const float dsg = g[idx] * (o >= 0.0f ? 1.0f : kSlope) * gm;
   const float k0 = k[c], k1 = k[C + c], k2 = k[2 * C + c], k3 = k[3 * C + c];
-  const float2 r0 = *reinterpret_cast<const float2*>(y + win.in_off);
-  const float2 r1 = *reinterpret_cast<const float2*>(y + win.in_off + W);
+  const float2 r0 = load_pair(y + win.in_off, vec);
+  const float2 r1 = load_pair(y + win.in_off + W, vec);
   float v[4] = {r0.x, r0.y, r1.x, r1.y};  // phase order 2*py + px
   bool found = false;
 #pragma unroll
@@ -278,8 +298,12 @@ dy_kernel(const float* __restrict__ y, const float* __restrict__ g,
     const float xhat = (v[ph] - mu) * rstd;
     v[ph] = rstd * (dxhat - k0 - xhat * k1) + k2 + v[ph] * k3;
   }
-  *reinterpret_cast<float2*>(dy + win.in_off) = make_float2(v[0], v[1]);
-  *reinterpret_cast<float2*>(dy + win.in_off + W) = make_float2(v[2], v[3]);
+  store_pair(dy + win.in_off, v[0], v[1], vec);
+  store_pair(dy + win.in_off + W, v[2], v[3], vec);
+}
+
+bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 bool bad_geometry(int B, int C, int T, int H, int W) {
@@ -307,9 +331,16 @@ extern "C" int maavss_epilogue_stats(const void* y, void* partial, void* mu,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(partial);
-  partials_kernel<4, StatsOp><<<dim3(nblk, C), kThreads, 0, s>>>(
-      static_cast<const float*>(y), nullptr, StatsOp{}, pf, C, L, n, chunk,
-      nblk);
+  const float* yf = static_cast<const float*>(y);
+  // 16-byte loads need y 16-byte aligned (L and chunk are multiples of 4);
+  // a view at another offset takes one value a load
+  if (aligned(y, 16)) {
+    partials_kernel<4, StatsOp><<<dim3(nblk, C), kThreads, 0, s>>>(
+        yf, nullptr, StatsOp{}, pf, C, L, n, chunk, nblk);
+  } else {
+    partials_kernel<1, StatsOp><<<dim3(nblk, C), kThreads, 0, s>>>(
+        yf, nullptr, StatsOp{}, pf, C, L, n, chunk, nblk);
+  }
   int e = static_cast<int>(cudaGetLastError());
   if (e) return e;
   stats_combine_kernel<<<C, kThreads, 0, s>>>(
@@ -335,7 +366,7 @@ extern "C" int maavss_epilogue_apply(const void* y, const void* gamma,
   apply_kernel<<<blocks_for(n_pool), kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y), aff, static_cast<float*>(out),
-      static_cast<float*>(sel), n_pool, C, T, H, W);
+      static_cast<float*>(sel), n_pool, C, T, H, W, aligned(y, 8));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,6 +422,7 @@ extern "C" int maavss_epilogue_bwd_dy(const void* y, const void* g,
               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(y), static_cast<const float*>(g),
       static_cast<const float*>(sel), aff, static_cast<const float*>(k),
-      static_cast<float*>(dy), n_pool, C, T, H, W);
+      static_cast<float*>(dy), n_pool, C, T, H, W,
+      aligned(y, 8) && aligned(dy, 8));
   return static_cast<int>(cudaGetLastError());
 }

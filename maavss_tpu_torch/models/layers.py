@@ -293,8 +293,8 @@ class BiLSTM(nn.Module):
             ys_f, ys_b = lstm_bidir(xw_f, xw_b, self.fwd.w_h, self.bwd.w_h,
                                     backend="kernel")
         else:
-            ys_f, _ = lstm_recurrence_plain(xw_f, self.fwd.w_h, reverse=False)
-            ys_b, _ = lstm_recurrence_plain(xw_b, self.bwd.w_h, reverse=True)
+            ys_f = lstm_recurrence_plain(xw_f, self.fwd.w_h, reverse=False)[0]
+            ys_b = lstm_recurrence_plain(xw_b, self.bwd.w_h, reverse=True)[0]
         return torch.cat([ys_f, ys_b], dim=-1)
 
 

@@ -116,14 +116,16 @@ def library():
 
     lib = ctypes.CDLL(build().path)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.maavss_lstm_fwd.argtypes = [p, p, p, p, i, p, p, p, p, i,
-                                    i, i, i, i, i, p]
+    # ..., n_dir, B, T, H, dtype, rows per cluster, stream
+    lib.maavss_lstm_fwd.argtypes = ([p] * 5 + [i]) * 2 + [i] * 6 + [p]
     lib.maavss_lstm_fwd.restype = i
     lib.maavss_pgenc_eval.argtypes = [p, p, p, p, p, p, p, p,
                                       i, i, i, i, i, p]
     lib.maavss_pgenc_eval.restype = i
-    lib.maavss_lstm_bwd.argtypes = ([p] * 8 + [i]) * 2 + [i, i, i, i, i, p]
+    lib.maavss_lstm_bwd.argtypes = ([p] * 8 + [i]) * 2 + [i] * 6 + [p]
     lib.maavss_lstm_bwd.restype = i
+    lib.maavss_lstm_clusters_at_once.argtypes = []
+    lib.maavss_lstm_clusters_at_once.restype = i
     lib.maavss_pgenc_train_fwd.argtypes = [p] * 9 + [i, i, i, i, i, p]
     lib.maavss_pgenc_train_fwd.restype = i
     lib.maavss_pgenc_train_bwd.argtypes = [p] * 12 + [i] * 5 + [p]

@@ -219,3 +219,43 @@ def test_epilogue_kernels_match_plain_on_card():
     dy = epilogue_bwd_dy(y, g, sel, gamma, beta, mu, rstd, red_p[2])
     dy_p = epilogue_bwd_dy_plain(y, g, sel, gamma, beta, mu, rstd, red_p[2])
     torch.testing.assert_close(dy, dy_p, rtol=1e-5, atol=1e-5)
+
+
+def _at_offset(t):
+    """A contiguous copy of t that starts one element into its storage."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+def test_epilogue_kernels_take_unaligned_y_on_card():
+    """A y one float into its storage (not 8- or 16-byte aligned) takes the
+    stats, apply and bwd dy kernels' 4-byte loads instead of faulting: the
+    same gates against the plain versions as the aligned test, and apply
+    and dy (elementwise) give the aligned call's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs this comparison on the card")
+    y, gamma, beta = (torch.from_numpy(a).cuda()
+                      for a in _inputs(32, seed=9))
+    yo = _at_offset(y)
+    assert yo.data_ptr() % 8 != 0
+    mu, var, rstd = epilogue_stats(yo)
+    for a, b in zip((mu, var, rstd), epilogue_stats_plain(yo)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    out, sel = epilogue_apply(yo, gamma, beta, mu, rstd)
+    out_p, sel_p = epilogue_apply_plain(yo, gamma, beta, mu, rstd)
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(sel, sel_p, rtol=0, atol=0)
+    for a, b in zip((out, sel), epilogue_apply(y, gamma, beta, mu, rstd)):
+        assert torch.equal(a, b)
+    g = torch.randn_like(out)
+    k = epilogue_bwd_reduce_plain(g, sel, gamma, beta, mu, rstd,
+                                  torch.randn_like(mu), torch.randn_like(mu))[2]
+    dy = epilogue_bwd_dy(yo, g, sel, gamma, beta, mu, rstd, k)
+    dy_p = epilogue_bwd_dy_plain(yo, g, sel, gamma, beta, mu, rstd, k)
+    torch.testing.assert_close(dy, dy_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(dy, epilogue_bwd_dy(y, g, sel, gamma, beta, mu, rstd,
+                                           k))

@@ -18,7 +18,12 @@ from maavss_tpu.ops.pallas_lstm import _forward as pallas_forward
 from maavss_tpu.ops.pallas_lstm import pallas_lstm
 from maavss_tpu_torch.models.layers import BiLSTM, lstm_backend
 from maavss_tpu_torch.ops.cuda_lstm import (
+    CLUSTER,
+    CLUSTERS_AT_ONCE,
+    H_MAX,
+    SMEM_MAX,
     lstm_bidir,
+    lstm_geometry,
     lstm_recurrence,
     lstm_recurrence_bwd,
     lstm_recurrence_bwd_plain,
@@ -39,8 +44,8 @@ def _inputs(seed=0):
 @pytest.mark.parametrize("reverse", [False, True])
 def test_plain_recurrence_matches_pallas_interpret(reverse):
     xw, w_h = _inputs()
-    ys, cs = lstm_recurrence_plain(torch.from_numpy(xw), torch.from_numpy(w_h),
-                                   reverse=reverse)
+    ys, cs, _ = lstm_recurrence_plain(torch.from_numpy(xw),
+                                      torch.from_numpy(w_h), reverse=reverse)
     # the JAX kernel is time-major and forward only; the reverse direction
     # is the flip around it (layers.py:704-705,718-719)
     xw_tm = np.swapaxes(xw, 0, 1)
@@ -76,6 +81,90 @@ def test_bilstm_matches_flax_scan():
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_forward_saves_gate_activations(reverse):
+    """The saved acts are sigmoid/tanh(xw + h_prev @ w_h) with h_prev the
+    forward's own ys of the step before (0 at its first step)."""
+    xw, w_h = (torch.from_numpy(a) for a in _inputs(8))
+    ys, _, acts = lstm_recurrence_plain(xw, w_h, reverse)
+    assert acts.dtype == torch.float32 and acts.shape == (B, T, 4 * H)
+    for t in range(T):
+        tp = t + 1 if reverse else t - 1
+        h_prev = ys[:, tp] if 0 <= tp < T else torch.zeros(B, H)
+        i, f, g, o = (xw[:, t] + h_prev @ w_h).chunk(4, dim=-1)
+        want = torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                          torch.sigmoid(o)], dim=-1)
+        torch.testing.assert_close(acts[:, t], want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 32, 256])
+def test_geometry_fits_the_card(b, dtype):
+    """At the system's H = 256: every CTA's shared memory under the 227 KB
+    a block may use, one cluster per (direction, rows), every batch row
+    covered; at B <= 32 every CTA on an SM of its own (132 SMs)."""
+    geo = lstm_geometry(b, 256, dtype)
+    assert max(geo.fwd_smem, geo.bwd_smem) <= SMEM_MAX == 227 * 1024
+    assert geo.rows in (1, 2, 4, 8) and CLUSTER == 16
+    assert geo.groups == -(-b // geo.rows)
+    # the forward's 16*U = H threads and the backward's H, U = H / 16
+    # units a CTA: 64 KB of w_h columns, rows padded by 4 floats
+    assert geo.fwd_smem >= 256 * (64 + 4) * 4 and geo.bwd_smem >= 256 * 68 * 4
+    if b <= 32:
+        assert 2 * geo.groups * CLUSTER <= 132
+
+
+@pytest.mark.parametrize("b,rows", [(1, 1), (3, 1), (4, 2), (6, 2), (8, 4),
+                                    (9, 4), (12, 4), (13, 8), (24, 8),
+                                    (32, 8), (256, 8)])
+def test_geometry_rows_per_batch(b, rows):
+    """Rows per cluster at H = 256, two directions: the fewest whose
+    clusters the card runs side by side (7 on an H100 SXM, one CTA an SM),
+    8 beyond that. chip_smoke.py and the card tests below hold each of the
+    four kernel instantiations."""
+    assert CLUSTERS_AT_ONCE == 7
+    geo = lstm_geometry(b, 256)
+    assert (geo.rows, geo.groups) == (rows, -(-b // rows))
+    if b <= 24:
+        assert 2 * geo.groups <= CLUSTERS_AT_ONCE
+    # one direction, or a card that runs more clusters at once, takes
+    # fewer rows a cluster
+    assert lstm_geometry(b, 256, n_dir=1).rows <= rows
+    assert lstm_geometry(b, 256, clusters=16).rows <= rows
+
+
+def test_geometry_limits():
+    """H up to H_MAX = 448 fits (fewer rows per cluster there); above it,
+    or off a multiple of 32, the helper raises with the limit, and another
+    dtype raises. The kernels never take the plain version instead."""
+    geo = lstm_geometry(32, H_MAX)
+    assert max(geo.fwd_smem, geo.bwd_smem) <= SMEM_MAX and geo.rows < 8
+    for h in (H_MAX + 32, 512, 100, 16):
+        with pytest.raises(ValueError, match=str(H_MAX)):
+            lstm_geometry(8, h)
+    with pytest.raises(TypeError):
+        lstm_geometry(8, 256, torch.float16)
+
+
+def test_forward_saves_gate_activations_only_for_a_gradient():
+    """`save_acts=False` returns None for acts and the same ys and cs;
+    lstm_bidir asks for them only where grad mode is on and an input
+    requires a gradient, and gives the same ys either way."""
+    xw, w_h = (torch.from_numpy(a) for a in _inputs(9))
+    (ys, cs, acts), = lstm_recurrence([xw], [w_h], [True], save_acts=False)
+    want = lstm_recurrence_plain(xw, w_h, True)
+    assert acts is None
+    torch.testing.assert_close(ys, want[0], atol=0, rtol=0)
+    torch.testing.assert_close(cs, want[1], atol=0, rtol=0)
+    with torch.no_grad():
+        eval_ys = lstm_bidir(xw, xw, w_h, w_h)
+    w_g = w_h.clone().requires_grad_(True)
+    train_ys = lstm_bidir(xw, xw, w_g, w_g)
+    for a, b in zip(eval_ys, train_ys):
+        torch.testing.assert_close(a, b.detach(), atol=0, rtol=0)
+    assert train_ys[0].grad_fn is not None and eval_ys[0].grad_fn is None
+
+
 def test_backend_gate():
     x = torch.zeros(1)
     assert lstm_backend(x) in ("scan", "kernel")
@@ -94,10 +183,65 @@ def test_kernel_matches_plain_on_card():
     xws = [torch.from_numpy(xw).cuda()] * 2
     whs = [torch.from_numpy(w_h).cuda()] * 2
     got = lstm_recurrence(xws, whs, [False, True], backend="kernel")
-    for (ys, cs), rev in zip(got, (False, True)):
-        ys_p, cs_p = lstm_recurrence_plain(xws[0], whs[0], rev)
+    for (ys, cs, acts), rev in zip(got, (False, True)):
+        ys_p, cs_p, acts_p = lstm_recurrence_plain(xws[0], whs[0], rev)
         torch.testing.assert_close(ys, ys_p, atol=ATOL, rtol=0)
         torch.testing.assert_close(cs, cs_p, atol=ATOL, rtol=0)
+        torch.testing.assert_close(acts, acts_p, atol=ATOL, rtol=0)
+
+
+def _card_inputs(b, t_len, dtype, seed, h=H):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xws = [torch.randn(b, t_len, 4 * h, device="cuda", generator=g).to(dtype)
+           for _ in range(2)]
+    whs = [(torch.randn(h, 4 * h, device="cuda", generator=g) / 16).to(dtype)
+           for _ in range(2)]
+    dys = [torch.randn(b, t_len, h, device="cuda", generator=g).to(dtype)
+           for _ in range(2)]
+    return xws, whs, dys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t_len,h", [(8, 8, 256), (32, 8, 256),
+                                       (8, 16, 256), (256, 8, 256),
+                                       (2, 8, 256), (4, 8, 256),
+                                       (8, 8, 448), (12, 8, 96)])
+def test_cluster_kernels_at_card_shapes(b, t_len, h, dtype):
+    """Both kernels at the main path's shapes (fusion B 8 and 32, frames'
+    T 16, bench.py's B 256: four and eight rows per cluster), at B 2 and 4
+    (one and two rows, so every instantiation is held), at the largest H
+    and at an H whose slice is loaded one value at a time, against the
+    plain versions at chip_smoke's tolerances; two calls of each give the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs this comparison on the card")
+    xws, whs, dys = _card_inputs(b, t_len, dtype, b + t_len, h)
+    rev = [False, True]
+    fp32 = dtype == torch.float32
+    tol = 1e-5 if fp32 else 2.0 ** -7
+    fwd = lstm_recurrence(xws, whs, rev, backend="kernel")
+    again = lstm_recurrence(xws, whs, rev, backend="kernel")
+    for k in range(2):
+        want = lstm_recurrence_plain(xws[k], whs[k], rev[k])
+        for got, rep, ref in zip(fwd[k], again[k], want):
+            assert torch.equal(got, rep)
+            torch.testing.assert_close(got.float(), ref.float(), atol=1e-5,
+                                       rtol=tol)
+    args = ([f[2] for f in fwd], whs, [f[0] for f in fwd],
+            [f[1] for f in fwd], dys, rev)
+    bwd = lstm_recurrence_bwd(*args, backend="kernel")
+    again = lstm_recurrence_bwd(*args, backend="kernel")
+    for k in range(2):
+        want = lstm_recurrence_bwd_plain(*(a[k] for a in args))
+        for got, rep, ref, rel in zip(bwd[k], again[k], want,
+                                      (1e-5, 1e-4) if fp32 else (tol, tol)):
+            assert torch.equal(got, rep)
+            scale = ref.abs().max().item()
+            atol = 1e-5 if fp32 and rel == 1e-5 else rel * scale
+            torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                       rtol=rel)
 
 
 def _bwd_inputs(seed=3):
@@ -130,11 +274,10 @@ def test_plain_bptt_matches_pallas_vjp(reverse):
     B*T terms, so it is held to 1e-5 of its largest entry."""
     xw, w_h, dys = _bwd_inputs()
     dxw_j, dwh_j = _jax_vjp(xw, w_h, dys, reverse)
-    ys, cs = lstm_recurrence_plain(torch.from_numpy(xw),
-                                   torch.from_numpy(w_h), reverse)
+    ys, cs, acts = lstm_recurrence_plain(torch.from_numpy(xw),
+                                         torch.from_numpy(w_h), reverse)
     dxw, dwh = lstm_recurrence_bwd_plain(
-        torch.from_numpy(xw), torch.from_numpy(w_h), ys, cs,
-        torch.from_numpy(dys), reverse)
+        acts, torch.from_numpy(w_h), ys, cs, torch.from_numpy(dys), reverse)
     np.testing.assert_allclose(dxw.numpy(), dxw_j, atol=ATOL, rtol=0)
     np.testing.assert_allclose(dwh.numpy(), dwh_j,
                                atol=ATOL * np.abs(dwh_j).max(), rtol=0)
@@ -215,11 +358,11 @@ def test_bwd_kernel_matches_plain_on_card():
     whs = [torch.from_numpy(w_h).cuda()] * 2
     dyss = [torch.from_numpy(dys).cuda()] * 2
     fwd = lstm_recurrence(xws, whs, [False, True], backend="kernel")
-    got = lstm_recurrence_bwd(xws, whs, [f[0] for f in fwd],
+    got = lstm_recurrence_bwd([f[2] for f in fwd], whs, [f[0] for f in fwd],
                               [f[1] for f in fwd], dyss, [False, True],
                               backend="kernel")
-    for (dxw, dwh), (ys, cs), rev in zip(got, fwd, (False, True)):
-        dxw_p, dwh_p = lstm_recurrence_bwd_plain(xws[0], whs[0], ys, cs,
+    for (dxw, dwh), (ys, cs, acts), rev in zip(got, fwd, (False, True)):
+        dxw_p, dwh_p = lstm_recurrence_bwd_plain(acts, whs[0], ys, cs,
                                                  dyss[0], rev)
         torch.testing.assert_close(dxw, dxw_p, atol=ATOL, rtol=1e-5)
         torch.testing.assert_close(dwh, dwh_p, atol=1e-4 * dwh_p.abs().max(),

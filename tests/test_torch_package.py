@@ -192,10 +192,9 @@ def test_kernel_wrappers_take_plain_path_on_cpu():
     g = torch.Generator().manual_seed(0)
     xw = torch.randn(2, 3, 128, generator=g)
     wh = torch.randn(32, 128, generator=g) * 0.1
-    (ys, cs), = lstm_recurrence([xw], [wh], [True])
-    ys_p, cs_p = lstm_recurrence_plain(xw, wh, True)
-    torch.testing.assert_close(ys, ys_p, rtol=0, atol=0)
-    torch.testing.assert_close(cs, cs_p, rtol=0, atol=0)
+    got, = lstm_recurrence([xw], [wh], [True])
+    for a, b in zip(got, lstm_recurrence_plain(xw, wh, True)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     x = torch.randn(2, 6, 16, generator=g)
     w2 = torch.randn(4, 18, generator=g)
     vecs = [torch.randn(4, generator=g) for _ in range(4)] + [torch.ones(4)]
@@ -218,8 +217,8 @@ def test_new_wrappers_count_no_launch_on_cpu():
         c.launches = 0
     xw = torch.randn(2, 3, 128, generator=g)
     wh = torch.randn(32, 128, generator=g) * 0.1
-    (ys, cs), = lstm_recurrence([xw], [wh], [False])
-    lstm_recurrence_bwd([xw], [wh], [ys], [cs], [torch.ones_like(ys)],
+    (ys, cs, acts), = lstm_recurrence([xw], [wh], [False])
+    lstm_recurrence_bwd([acts], [wh], [ys], [cs], [torch.ones_like(ys)],
                         [False])
     x = torch.randn(2, 6, 16, generator=g)
     w2 = torch.randn(4, 18, generator=g)
