@@ -15,7 +15,9 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    both directions in one cluster launch, two calls bitwise equal; cuDNN's
    bidirectional nn.LSTM timed beside it.
 4. k2_pgenc (K2-eval, fused phasegram-encoder layer): the kernel against
-   its plain version at each of the 10 planned layers (R=64 rows).
+   its plain version at each of the 10 planned layers (R=64 rows); two
+   calls, x and w2 at an odd offset and a CUDA graph replay give the same
+   bits; cuDNN's conv alone timed beside (conv_library_ms).
 5. k1_bwd (K1-bwd, LSTM BPTT): against the plain BPTT and autograd through
    the plain recurrence, at the shapes of k1_lstm, two calls bitwise equal;
    the sweep's and dW_h's device times apart; cuDNN's nn.LSTM backward
@@ -27,7 +29,12 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    at each of the 10 layers, R 64 and 256, fp32 and bf16, against the plain
    versions and autograd through the plain forward; dcbias exactly 0; the
    backward reads the forward's yc and leaves it as it was, two calls give
-   the same bits, and a retain_graph double backward repeats.
+   the same bits, and a retain_graph double backward repeats; the forward
+   holds k2_pgenc's bit checks at R 64 (y, mu, var, yc).
+   k2_gate: K2's forward kernels, correctness only, at C=3 -> Co=5, R in
+   {1, 3, 17, 2048, 8192}, S in {2, 6, 4098}, fp32 and bf16; the 10
+   layers at R 2048 and 8192 (the bit checks at 8192); a cooperative grid
+   over the resident blocks is refused.
 7. k3_adam (K3, fused Adam): 3 steps over the flagship's parameter leaves
    against the plain formula; torch.optim.Adam(fused=True) timed beside it.
 8. slice: the full-width fusion model (seeded random weights) behind the
@@ -39,11 +46,13 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    tests/fixtures/torch_port_golden.npz, run through the port's kernels.
 10. train: the full-width fusion train step (batch 8, scan windows, mode
    2) with every kernel, against the plain versions from one state_dict:
-   per-step losses, parameters after step 1, exact launch counts per step;
+   per-step losses, parameters after step 1 (as the K4 phases: a leaf past
+   1e-4 passes only by its gradient and Adam's bound), exact launch counts
+   per step;
    step times, clips/s, one vectorized step and a torch.profiler breakdown,
    from which train_k2_launches checks K2's device launches per step
-   (conv_kernel once per layer call: the forward only; at most 3 device
-   launches per pgenc_bwd call).
+   (conv_bn_train_kernel once per forward layer call and no kernel of the
+   three-launch forward; at most 3 device launches per pgenc_bwd call).
 11. train_golden: the small-geometry JAX train trajectory of
    tests/fixtures/torch_port_train_golden.npz, run through the kernels.
 12. k5_epilogue (K5, the frames encoder's fused BN + 2x2 max pool +
@@ -112,6 +121,7 @@ K4_GOLDEN = os.path.join(ROOT, "tests", "fixtures", "torch_port_k4_golden.npz")
 # fp32 FLOP/s outside the tensor cores (every kernel here is fp32 math)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+ADAM_EPS = 1e-8  # the optimizer's eps (train/fused_adam.py)
 
 
 def phase(label: str, **fields) -> None:
@@ -280,13 +290,13 @@ def _k1_geometry(b, h):
 
 
 def _same_bits(what, first, second):
-    """Raise unless two calls' outputs are bitwise equal."""
+    """Raise unless two runs' outputs are bitwise equal."""
     import torch
 
     for a, b in zip(first, second):
         for x, y in zip(a, b):
             if not torch.equal(x, y):
-                raise SystemExit(f"{what}: two calls differ in their bits")
+                raise SystemExit(f"{what}: the outputs differ in their bits")
 
 
 def lstm_phase():
@@ -399,7 +409,56 @@ def cudnn_lstm_bwd_ms(xws, whs, dys, d_in: int = 512):
                                                retain_graph=True))
 
 
+def _k2_contract(where, call, args):
+    """K2's forward contract on the card: two calls of `call(*args)` give
+    the same bits; x and w2 (args 0 and 1) one element into their storage,
+    which takes the forward's 4-byte copies, give the aligned call's bits;
+    one call captured in a torch.cuda.CUDAGraph and replayed three times
+    gives them too. Returns the first call's outputs."""
+    import torch
+
+    def run(*a):
+        out = call(*a)
+        return out if isinstance(out, tuple) else (out,)
+
+    first = run(*args)
+    _same_bits(f"{where}: a second call", [run(*args)], [first])
+    _same_bits(f"{where}: x and w2 at an odd offset",
+               [run(_at_offset(args[0]), _at_offset(args[1]), *args[2:])],
+               [first])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run(*args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_bits(f"{where}: a CUDA graph replay", [captured], [first])
+    return first
+
+
+def conv_library_ms(x, w2, cbias):
+    """cuDNN's F.conv2d (TF32 off, with bias) of the layer's conv alone, on
+    the NCHW view [R, C, 1, S]: a yardstick of K2's conv without BN or
+    tanh."""
+    import torch.nn.functional as F
+
+    c, r, s = x.shape
+    xr = x.float().permute(1, 0, 2).unsqueeze(2).contiguous()
+    weight = w2.float().reshape(-1, 9, c).permute(0, 2, 1).unsqueeze(2)
+    weight = weight.contiguous()
+    return cuda_ms(lambda: F.conv2d(xr, weight, cbias, stride=(1, 2),
+                                    padding=(0, 4)))
+
+
 def pgenc_phase():
+    """K2-eval against its plain version at each of the 10 flagship layers,
+    R = 64, fp32 (1e-5 absolute on the tanh outputs) and bf16 (2^-7), and
+    its contract (_k2_contract); cuDNN's conv alone timed beside."""
     import torch
 
     from maavss_tpu_torch.config import RunConfig
@@ -415,7 +474,7 @@ def pgenc_phase():
     g = torch.Generator(device="cuda").manual_seed(2)
     r = 8 * cfg.num_frames
     totals = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
-              "device_ms": 0.0, "host_ms": 0.0}
+              "device_ms": 0.0, "host_ms": 0.0, "conv_library_ms": 0.0}
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
         s = cfg.p_size ** 2
         for i, sp in enumerate(specs):
@@ -428,7 +487,9 @@ def pgenc_phase():
             gamma = 1.0 + 0.1 * torch.randn(co, device="cuda", generator=g)
             var = 0.5 + torch.rand(co, device="cuda", generator=g)
             vecs = (cb, gamma, beta, mean, var)
-            y = pgenc_layer(x, w2, *vecs, backend="kernel")
+            y, = _k2_contract(
+                f"K2-eval layer {i} R={r} {dtype}",
+                lambda *a: pgenc_layer(*a, backend="kernel"), (x, w2, *vecs))
             y_ref = pgenc_layer_plain(x, w2, *vecs)
             torch.cuda.synchronize()
             err = max_err(y, y_ref)[0]
@@ -449,11 +510,16 @@ def pgenc_phase():
                 totals["plain_ms"] += plain_ms
                 totals["bytes"] += nbytes(x, w2, y) + 5 * 4 * co
                 totals["flops"] += 2 * co * 9 * c * r * (s // 2)
+                totals["conv_library_ms"] += conv_library_ms(x, w2, cb)
             s //= 2
     totals["bound"] = bound_ms(totals["bytes"], totals["flops"])
     phase("k2_pgenc_stack", layers=len(specs), R=r, dtype="torch.float32",
           ms=totals["ms"], plain_ms=totals["plain_ms"],
-          bound_ms=totals["bound"][0], bound_by=totals["bound"][1])
+          device_ms=totals["device_ms"], host_ms=totals["host_ms"],
+          bound_ms=totals["bound"][0], bound_by=totals["bound"][1],
+          conv_library_ms=totals["conv_library_ms"],
+          contract="two calls, x and w2 at an odd offset and a CUDA graph "
+                   "replay give the same bits")
     return totals
 
 
@@ -667,8 +733,10 @@ def pgenc_train_phase():
     an atomic counter only elects the last block of a dW2 tile), and a
     second backward through pgenc_layer_train under retain_graph the same
     gradients as the first. x, w2, yc and dy at an offset of one element
-    (their 16-byte loads then off) must pass the same gates. Bound of the
-    backward: the dx and dw2 products
+    (their 16-byte loads then off) must pass the same gates. At R 64 the
+    forward holds its contract (_k2_contract: y, mu, var and yc). cuDNN's
+    conv alone is timed beside (fp32). Bound of the backward: the dx and
+    dw2 products
     (2*Co*9C*R*S/2 FLOPs each) and x, w2, yc, dy read and dx, dw2 written
     once."""
     import torch
@@ -698,14 +766,22 @@ def pgenc_train_phase():
                                     "fwd_bytes", "fwd_flops", "bwd_bytes",
                                     "bwd_flops", "fwd_device_ms",
                                     "fwd_host_ms", "bwd_device_ms",
-                                    "bwd_host_ms")}
+                                    "bwd_host_ms", "conv_library_ms")}
             s = cfg.p_size ** 2
             for i, sp in enumerate(specs):
                 c, co = sp.in_ch, sp.out_ch
                 x, w2, cb, gamma, beta, dy = _pgenc_inputs(c, co, r, s, dtype,
                                                            g)
                 vecs = (cb, gamma, beta)
-                y, mu, var, yc = pgenc_train(x, w2, *vecs, backend="kernel")
+                where = f"layer {i} R={r} {dtype}"
+                if r == 8 * cfg.num_frames:
+                    y, mu, var, yc = _k2_contract(
+                        f"K2-train forward {where}",
+                        lambda *a: pgenc_train(*a, backend="kernel"),
+                        (x, w2, *vecs))
+                else:
+                    y, mu, var, yc = pgenc_train(x, w2, *vecs,
+                                                 backend="kernel")
                 y_r, mu_r, var_r, yc_r = pgenc_train_plain(x, w2, *vecs)
                 bwd_args = (x, w2, yc, gamma, beta, mu, var, dy)
                 yc_kept = yc.clone()
@@ -718,7 +794,6 @@ def pgenc_train_phase():
                                       else t for k, t in enumerate(bwd_args)],
                                     backend="kernel")
                 torch.cuda.synchronize()
-                where = f"layer {i} R={r} {dtype}"
                 e_f = max(check_close(f"K2-train y {where}", y, y_r, tol, 0.0),
                           check_close(f"K2-train mu {where}", mu, mu_r, 1e-5,
                                       1e-4),
@@ -785,6 +860,8 @@ def pgenc_train_phase():
                         tot[f"{key}_host_ms"] += split[key][1]
                 if fp32:
                     split["bwd_kernel_us"] = kernel_us(bwd)
+                    split["fwd_kernel_us"] = kernel_us(fwd)
+                    tot["conv_library_ms"] += conv_library_ms(x, w2, cb)
                 conv_flops = 2 * co * 9 * c * r * (s // 2)
                 tot["fwd_bytes"] += nbytes(x, w2, y, mu, var) + 3 * 4 * co
                 tot["fwd_flops"] += conv_flops
@@ -808,8 +885,10 @@ def pgenc_train_phase():
             phase("k2_train_stack", layers=len(specs), R=r, dtype=str(dtype),
                   fwd_ms=tot["fwd_ms"], fwd_plain_ms=tot["fwd_plain_ms"],
                   fwd_device_ms=tot["fwd_device_ms"] or None,
+                  fwd_host_ms=tot["fwd_host_ms"] or None,
                   bwd_device_ms=tot["bwd_device_ms"] or None,
                   bwd_host_ms=tot["bwd_host_ms"] or None,
+                  conv_library_ms=tot["conv_library_ms"] or None,
                   fwd_bound_ms=tot["fwd_bound"][0],
                   fwd_bound_by=tot["fwd_bound"][1], bwd_ms=tot["bwd_ms"],
                   bwd_plain_ms=tot["bwd_plain_ms"],
@@ -817,6 +896,154 @@ def pgenc_train_phase():
                   bwd_bound_by=tot["bwd_bound"][1])
             totals[(r, str(dtype))] = tot
     return totals[(8 * cfg.num_frames, "torch.float32")]
+
+
+K2_GATE_ROWS = (1, 3, 17, 2048, 8192)
+K2_GATE_WIDTHS = (2, 6, 4098)
+
+
+# (C, Co) at R 8192, S 64: layer 6 of the fusion flagship (4 channel
+# blocks) and a layer of 5 channel blocks
+K2_CROSSING = ((64, 64), (64, 80))
+
+
+def _crossing_grid(tiles: int, per_cb: int, limit: int) -> int:
+    """The largest prime grid under `limit` and `tiles` in which a block's
+    contiguous run of tiles crosses from one channel block (per_cb tiles)
+    into the next, as pgenc_train.cu's conv_bn_train_kernel splits them."""
+    for grid in range(min(limit, tiles) - 1, 1, -1):
+        if any(grid % f == 0 for f in range(2, int(grid ** 0.5) + 1)):
+            continue
+        if any(b * tiles // grid // per_cb
+               != ((b + 1) * tiles // grid - 1) // per_cb
+               for b in range(grid)):
+            return grid
+    raise SystemExit(f"no crossing grid under {limit} for {tiles} tiles")
+
+
+def _k2_crossing_check(c, co, s, g):
+    """K2-train's forward at R 8192 on a grid whose blocks walk across
+    channel blocks, so that a block sums a new channel block's statistics
+    while its last tile of the previous one may still be normalised: the
+    sums' order depends on the plan alone, so it must give the default
+    grid's bits (y, mu, var, yc)."""
+    import torch
+
+    from maavss_tpu_torch.ops import cuda_pgenc as k2
+
+    r = 8192
+    x, w2, cb, gamma, beta, _ = _pgenc_inputs(c, co, r, s, torch.float32, g)
+    plan = k2.pgenc_plan(c, r, s, co)
+    resident = k2._resident_blocks(x.device.index, plan.tc, 0, plan.threads,
+                                   plan.smem)
+    grid = _crossing_grid(plan.tiles, plan.per_cb, resident)
+    want = k2.pgenc_train(x, w2, cb, gamma, beta, backend="kernel")
+    got = k2._train_launch(x, w2, (cb, gamma, beta), plan, grid)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("y", "mu", "var", "yc"), got, want):
+        if not torch.equal(a, b):
+            raise SystemExit(f"K2-train forward C={c} Co={co} R={r} S={s}: "
+                             f"{name} on a grid of {grid} differs from the "
+                             f"default grid's by "
+                             f"{(a - b).abs().max().item()}")
+    return {"C": c, "Co": co, "R": r, "S": s, "grid": grid,
+            "default_grid": k2.train_grid(plan, resident),
+            "channel_blocks": plan.tiles // plan.per_cb}
+
+
+def k2_gate_phase():
+    """K2's forward kernels, correctness only, at the ragged edges of the
+    tile plan and at the rows the system runs beyond k2_train's: x [3, R, S]
+    -> Co = 5 at every R of K2_GATE_ROWS and S of K2_GATE_WIDTHS, fp32 and
+    bf16 (K2-train at k2_train's tolerances, K2-eval at k2_pgenc's); the 10
+    flagship layers at R 2048 and 8192 (bench.py's batch 256 in scan and
+    vectorized mode), fp32, with the contract (_k2_contract) at R 8192; and
+    grids whose blocks walk across channel blocks (_k2_crossing_check);
+    and a cooperative grid one block over what the card keeps resident,
+    which must be refused."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.models.shape_plan import plan_phasegram_encoder
+    from maavss_tpu_torch.ops import cuda_pgenc as k2
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+
+    def check(c, co, r, s, dtype, contract=False):
+        x, w2, cb, gamma, beta, _ = _pgenc_inputs(c, co, r, s, dtype, g)
+        mean = torch.randn(co, device="cuda", generator=g) * 0.1
+        var = 0.5 + torch.rand(co, device="cuda", generator=g)
+        where = f"C={c} Co={co} R={r} S={s} {dtype}"
+        train_args = (x, w2, cb, gamma, beta)
+        eval_args = train_args + (mean, var)
+
+        def train(*a):
+            return k2.pgenc_train(*a, backend="kernel")
+
+        def evl(*a):
+            return k2.pgenc_layer(*a, backend="kernel")
+
+        if contract:
+            got = _k2_contract(f"K2-train forward {where}", train, train_args)
+            y_e = _k2_contract(f"K2-eval {where}", evl, eval_args)[0]
+        else:
+            got, y_e = train(*train_args), evl(*eval_args)
+        want = k2.pgenc_train_plain(*train_args)
+        y_e_ref = k2.pgenc_layer_plain(*eval_args)
+        torch.cuda.synchronize()
+        fp32 = dtype == torch.float32
+        return max(
+            check_close(f"K2-train y {where}", got[0], want[0],
+                        2e-5 if fp32 else 2.0 ** -7, 0.0),
+            check_close(f"K2-train mu {where}", got[1], want[1], 1e-5, 1e-4),
+            check_close(f"K2-train var {where}", got[2], want[2], 1e-5,
+                        1e-4),
+            check_close(f"K2-train yc {where}", got[3], want[3], 1e-5, 1e-4,
+                        scale_atol=True),
+            check_close(f"K2-eval y {where}", y_e, y_e_ref,
+                        1e-5 if fp32 else 2.0 ** -7, 0.0))
+
+    err, shapes = 0.0, 0
+    for r in K2_GATE_ROWS:
+        for s in K2_GATE_WIDTHS:
+            for dtype in (torch.float32, torch.bfloat16):
+                err = max(err, check(3, 5, r, s, dtype))
+                shapes += 1
+    cfg = RunConfig()
+    specs, _ = plan_phasegram_encoder(
+        (8, 1, cfg.num_frames, cfg.p_size ** 2), cfg.latent_chan, cfg.fc_size)
+    flagship_err = 0.0
+    for r in (2048, 8192):
+        s = cfg.p_size ** 2
+        for sp in specs:
+            flagship_err = max(flagship_err, check(
+                sp.in_ch, sp.out_ch, r, s, torch.float32, contract=r == 8192))
+            s //= 2
+    crossing = [_k2_crossing_check(c, co, 64, g) for c, co in K2_CROSSING]
+    # layer 0 at R 8192: more tiles than resident blocks, so a grid of one
+    # block more than the card keeps resident is a grid the kernel takes
+    # but a cooperative launch may not run
+    x, w2, cb, gamma, beta, _ = _pgenc_inputs(1, 2, 8192, 4096, torch.float32,
+                                              g)
+    plan = k2.pgenc_plan(1, 8192, 4096, 2)
+    resident = k2._resident_blocks(x.device.index, plan.tc, 0, plan.threads,
+                                   plan.smem)
+    if plan.tiles <= resident:
+        raise SystemExit(f"k2_gate: {plan.tiles} tiles, {resident} resident")
+    try:
+        k2._train_launch(x, w2, (cb, gamma, beta), plan, resident + 1)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise SystemExit("K2-train: a cooperative grid over the resident "
+                         "blocks was launched")
+    phase("k2_gate", C=3, Co=5, rows=K2_GATE_ROWS, widths=K2_GATE_WIDTHS,
+          shapes=shapes, max_abs_err=err, flagship_rows=[2048, 8192],
+          flagship_max_abs_err=flagship_err,
+          contract_rows=[64, 8192], crossing_grids=crossing,
+          layer0_r8192_plan=plan._asdict(),
+          resident_blocks=resident, over_resident_grid=refused)
 
 
 def _at_offset(t):
@@ -1049,37 +1276,17 @@ def golden_phase():
     phase("golden", cfg=meta["cfg"], rel_l2_vs_jax=err, tol=tol)
 
 
-def _params_close(model, ref, lr: float, tol: float):
-    """Every state_dict leaf of `model` against `ref`: relative L2 <= tol,
-    except the conv biases that feed a train-mode BatchNorm, whose true
-    gradient is 0 and whose Adam update from float noise is up to lr per
-    step (absolute <= lr). Returns (worst rel L2, worst bias abs diff)."""
-    import torch
-
-    fed = set(model.bn_fed_biases())
-    sd, sd_ref = model.state_dict(), ref.state_dict()
-    worst, worst_bias = 0.0, 0.0
-    for k, v in sd.items():
-        a, b = v.float(), sd_ref[k].float()
-        if k in fed:
-            d = (a - b).abs().max().item()
-            worst_bias = max(worst_bias, d)
-            if d > lr * 1.0001:
-                raise SystemExit(f"train: {k} differs by {d} > lr {lr}")
-            continue
-        rel = (torch.linalg.vector_norm(a - b)
-               / torch.linalg.vector_norm(b).clamp(min=1e-12)).item()
-        worst = max(worst, rel)
-        if rel > tol:
-            raise SystemExit(f"train: {k} rel L2 {rel} > {tol} after step 1")
-    return worst, worst_bias
-
-
 def train_phase(steps: int = 3):
     """The full-width train step: kernels (every gate auto) against the
     plain versions (pgenc_kernel xla, LSTM scan, opt_kernel xla) from one
     state_dict, batch 8, scan windows, mode 2, noise_scalar 0, lr 1e-3 (so
-    that one Adam step moves every parameter well past the tolerance)."""
+    that one Adam step moves every parameter well past the tolerance); the
+    leaves after step 1 as `_step1_close`, the gate of the K4 phases' steps
+    of the same model, with the gradient's way open only to a leaf whose
+    step-1 gradient has an rms under Adam's eps (v_fc1.bias, rms ~2e-9,
+    whose update carries the gradient's last digits whole:
+    tools/fusion_step1_probe_torch.py); every other leaf at relative L2
+    1e-4."""
     import torch
 
     from maavss_tpu_torch.config import RunConfig
@@ -1125,6 +1332,9 @@ def train_phase(steps: int = 3):
         return st, metrics, dict(zip(names, (c.launches for c in counters)))
 
     losses, ref_losses, worst = [], [], None
+    grads = [_grab_step1_grads(st, mod) for st, mod in ((state, model),
+                                                         (ref_state, ref))]
+    alt_grads = _reordered_step1_grads(cfg, ref, batches[0], False)
     for i, batch in enumerate(batches):
         state, m, launches = run(step, state, batch)
         if launches != want:
@@ -1137,7 +1347,8 @@ def train_phase(steps: int = 3):
         losses.append(float(m["loss"]))
         ref_losses.append(float(rm["loss"]))
         if i == 0:
-            worst = _params_close(model, ref, lr, tol)
+            worst = _step1_close("train", model, ref, *grads, lr, tol, None,
+                                 alt_grads, grad_rms_max=ADAM_EPS)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     if max(rel) > tol:
         raise SystemExit(f"train losses {losses} vs plain {ref_losses}: rel "
@@ -1160,8 +1371,7 @@ def train_phase(steps: int = 3):
           steps=steps, params=sum(p.numel() for p in model.parameters()),
           leaves=len(list(model.parameters())), losses=losses,
           plain_losses=ref_losses, loss_rel_diff=max(rel), tol=tol,
-          step1_worst_rel_l2=worst[0], step1_worst_bn_fed_bias_abs=worst[1],
-          launches_per_step=want, step_ms=[ms, ms_2],
+          **worst, launches_per_step=want, step_ms=[ms, ms_2],
           plain_step_ms=[plain_ms, plain_ms_2],
           clips_per_s=batch_size / (min(ms, ms_2) / 1e3),
           plain_clips_per_s=batch_size / (min(plain_ms, plain_ms_2) / 1e3),
@@ -1170,23 +1380,33 @@ def train_phase(steps: int = 3):
           vectorized_launches=vec_launches)
     counts = profile_phase("train_profile",
                            lambda: step(state, batches[0], 2), calls=1,
-                           watch=("conv_kernel", "bn_bwd_kernel",
+                           watch=("conv_bn_train_kernel", "bn_bwd_kernel",
                                   "grads_kernel"))
 
     def launches_of(name):
         return sum(n for k, n in counts.items()
                    if re.search(rf"\b{name}\b", k))
 
-    k2 = {"conv_kernel": launches_of("conv_kernel"),
+    # the forward is one cooperative launch a layer call; the kernels of
+    # the kernels of its earlier three-launch form must not run
+    k2 = {"pgenc_train_device": launches_of("conv_bn_train_kernel"),
+          "three_launch_form": launches_of("conv_kernel")
+          + launches_of("stats_kernel") + launches_of("apply_kernel"),
           "pgenc_bwd_device": launches_of("bn_bwd_kernel")
           + launches_of("grads_kernel")}
-    calls = want["pgenc_bwd"]
-    if k2["conv_kernel"] != calls or k2["pgenc_bwd_device"] > 3 * calls:
+    calls = want["pgenc_train"]
+    if (k2["pgenc_train_device"] != calls or k2["three_launch_form"]
+            or k2["pgenc_bwd_device"] > 3 * want["pgenc_bwd"]):
         raise SystemExit(f"train step K2 device launches {k2} for {calls} "
-                         f"layer calls: want conv_kernel == {calls} (the "
-                         f"forward only) and <= 3 per pgenc_bwd call")
-    phase("train_k2_launches", per_step=k2, pgenc_bwd_calls=calls,
-          device_launches_per_pgenc_bwd=k2["pgenc_bwd_device"] / calls)
+                         f"layer calls: want conv_bn_train_kernel == {calls} "
+                         f"(one a forward call), no conv_kernel, "
+                         f"stats_kernel or apply_kernel, and <= 3 per "
+                         f"pgenc_bwd call")
+    phase("train_k2_launches", per_step=k2, pgenc_train_calls=calls,
+          device_launches_per_pgenc_train=k2["pgenc_train_device"] / calls,
+          pgenc_bwd_calls=want["pgenc_bwd"],
+          device_launches_per_pgenc_bwd=k2["pgenc_bwd_device"]
+          / want["pgenc_bwd"])
     return want
 
 
@@ -2203,12 +2423,12 @@ def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True):
 
 
 def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
-                 alt_grads):
+                 alt_grads, grad_rms_max=None):
     """The leaves after step 1, kernels (`model`) against plain (`ref`):
-    the gates of `_params_close` (enc_tol None: the fusion model, the conv
-    biases that feed a train-mode BatchNorm within lr) or of
-    `_frames_params_close` (the visual encoder's leaves at enc_tol), and
-    one more way for a leaf to pass. Adam's first step moves each element
+    each at relative L2 `tol` (enc_tol None: the fusion model, whose conv
+    biases that feed a train-mode BatchNorm move within lr of each other)
+    or as `_frames_params_close` (the visual encoder's leaves at enc_tol),
+    and one more way for a leaf to pass. Adam's first step moves each element
     by lr * g / (|g| + 1e-8), so a leaf whose gradient holds elements near 0
     (a BatchNorm shift ahead of LeakyReLU, a conv and another train-mode
     BatchNorm is a near-total cancellation) carries those elements' last
@@ -2221,8 +2441,10 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
     of its sums alone moves it: its gradient may then differ by up to
     twice the spread of the plain step against itself with its batch
     statistics in fp64 and the batch in reverse row order (`alt_grads`,
-    `_reordered_step1_grads`). Returns the
-    worst relative L2s and the leaves that passed by their gradients."""
+    `_reordered_step1_grads`). With `grad_rms_max`, only a leaf whose
+    plain step-1 gradient has an rms under it may pass by its gradient.
+    Returns the worst relative L2s and the leaves that passed by their
+    gradients."""
     import torch
 
     fed = set() if enc_tol is not None else set(model.bn_fed_biases())
@@ -2258,6 +2480,11 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
             raise SystemExit(f"{what}: {k} rel L2 {rel} > {limit} after "
                              f"step 1")
         g, g_ref = grads[k].float(), ref_grads[k].float()
+        g_rms = g_ref.square().mean().sqrt().item()
+        if grad_rms_max is not None and g_rms >= grad_rms_max:
+            raise SystemExit(f"{what}: {k} rel L2 {rel} > {limit} after "
+                             f"step 1 (its gradient's rms {g_rms} is not "
+                             f"under {grad_rms_max})")
         g_rel = rel_l2(g, g_ref)
         spread = rel_l2(alt_grads[k].float(), g_ref)
         g_limit = max(limit, 2 * spread)
@@ -2275,7 +2502,7 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
         by_grads.append({"leaf": k, "param_rel_l2": rel,
                          "grad_rel_l2": g_rel, "plain_spread": spread,
                          "min_abs_grad": g_ref.abs().min().item(),
-                         "grad_rms": g_ref.square().mean().sqrt().item()})
+                         "grad_rms": g_rms})
     worst["step1_passed_by_gradient"] = by_grads
     return worst
 
@@ -2739,7 +2966,9 @@ def main() -> None:
     k1, k2 = lstm_phase(), pgenc_phase()
     k1b = lstm_bwd_phase()
     k1_gate_phase()
-    k2t, k3 = pgenc_train_phase(), adam_phase()
+    k2t = pgenc_train_phase()
+    k2_gate_phase()
+    k3 = adam_phase()
     serve = slice_phase()
     golden_phase()
     train = train_phase()

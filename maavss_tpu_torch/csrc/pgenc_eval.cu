@@ -9,123 +9,114 @@
 //                              + cbias - mean) * rsqrt(var + 1e-5) + beta)
 // with fp32 sums and IO in x's type (fp32 or bf16).
 //
-// Design: one block per (row r, chunk of the Co*S/2 outputs of that row).
-// The block stages the row's C x (S+8) zero-padded input in shared memory
-// once; each thread then computes whole outputs, reading only the even
-// input positions 2*so+k. So the stride-2 subsample is index arithmetic,
-// which Mosaic on the TPU could not express and which costs nothing here.
-// One launch shape serves the stack's first layer (C=1, S=4096) and its
-// last (C=64, S=8): the staged row is C*(S+8) floats either way, and the
-// output chunking keeps at least R blocks in flight.
+// Design: one block per tile of the register-tiled conv of pgenc_conv.cuh
+// (the tile plan is ops/cuda_pgenc.py:pgenc_plan's, the same as K2-train's
+// forward), the running-statistics affine and tanh applied to the sums in
+// registers, y written once. The stride-2 subsample is index arithmetic.
 //
-// What bounds it on Hopper: at the serving shapes (R = 64) a layer moves
-// under 1 MB and does 5 to 151 MFLOP in fp32 on the CUDA cores. The inner
-// loop issues two loads per FMA (w2 through the read-only cache, x from
-// shared memory), so the deep layers are bound by load issue, and the
-// shallow ones by launch latency. Outputs of neighbouring threads are
-// neighbouring addresses. Tensor cores (an implicit GEMM of
-// [Co, 9C] x [9C, R*S/2]) are the later step.
+// What bounds it on Hopper: the flagship's 10 layers at R = 64 do 580
+// MFLOP in fp32 on the CUDA cores (8.7 us at 67 TFLOP/s) and move ~6 MB; a
+// layer is a chain of one launch, one staging round trip to L2, the FMAs
+// and the stores, so the ten launches and their stages bound it, not the
+// FMA rate. The plan keeps about a block an SM busy at every layer:
+// position and row tiles at the shallow layers (9-36-term sums over 131-262
+// k outputs), the contraction split over groups of threads at the deep
+// ones (576-term sums over 16-131 k outputs).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "pgenc_conv.cuh"
 
 namespace {
 
-constexpr int kTaps = 9;
-constexpr int kPad = 4;
-constexpr int kThreads = 256;
-constexpr int kOutputsPerThread = 4;
-constexpr float kEps = 1e-5f;
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using namespace pgenc;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pgenc_eval_kernel(const T* __restrict__ x, const T* __restrict__ w2,
-                  const float* __restrict__ cbias,
-                  const float* __restrict__ gamma,
-                  const float* __restrict__ beta,
-                  const float* __restrict__ mean,
-                  const float* __restrict__ var, T* __restrict__ y, int C,
-                  int R, int S, int Co) {
-  extern __shared__ float xs[];  // [C][S + 2*kPad]
-  const int r = blockIdx.x;
-  const int sp = S + 2 * kPad;
-  for (int i = threadIdx.x; i < C * sp; i += blockDim.x) {
-    const int ci = i / sp;
-    const int s = i - ci * sp - kPad;
-    xs[i] = (s >= 0 && s < S)
-                ? load_f(x + (static_cast<size_t>(ci) * R + r) * S + s)
-                : 0.0f;
-  }
-  __syncthreads();
+struct EvalArgs {
+  const T* x;
+  const T* w2;
+  const float* cbias;
+  const float* gamma;
+  const float* beta;
+  const float* mean;
+  const float* var;
+  T* y;
+  Shape d;
+  TilePlan p;
+  bool vec;  // 16-byte (bf16: 8-byte) copies of x
+};
 
-  const int so_len = S / 2;
-  const int total = Co * so_len;
-  const int chunk = kThreads * kOutputsPerThread;
-  const int begin = blockIdx.y * chunk;
-  const int end = min(total, begin + chunk);
-  for (int o = begin + threadIdx.x; o < end; o += blockDim.x) {
-    const int co = o / so_len;
-    const int so = o - co * so_len;
-    const T* wr = w2 + static_cast<size_t>(co) * kTaps * C;
-    const float* xk = xs + 2 * so;
-    float acc = 0.0f;
+template <typename T, int TC>
+__global__ void __launch_bounds__(kMaxThreads)
+conv_bn_eval_kernel(const EvalArgs<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  const Shape& d = a.d;
+  const TilePlan& p = a.p;
+  const Role t = role_of(p);
+  const Tile q = tile_at(p, blockIdx.x);
+  // the thread's channels' affine, loaded while the tile stages
+  float cb[TC], m[TC], g[TC], b[TC], inv[TC];
 #pragma unroll
-    for (int k = 0; k < kTaps; ++k) {
-      for (int ci = 0; ci < C; ++ci) {
-        acc = fmaf(load_f(wr + k * C + ci), xk[ci * sp + k], acc);
-      }
+  for (int c = 0; c < TC; ++c) {
+    const int co = min(q.c0 + t.cg * TC + c, d.Co - 1);
+    cb[c] = a.cbias[co];
+    m[c] = a.mean[co];
+    g[c] = a.gamma[co];
+    b[c] = a.beta[co];
+    inv[c] = rsqrtf(a.var[co] + kEps);
+  }
+  stage_tile(a.x, a.w2, d, p, q, smem, a.vec);
+  __syncthreads();
+  float acc[TC][kTso];
+  conv_tile<TC>(smem, d, p, t, acc);
+  group_sum<TC>(smem, p, t, acc);
+  const int r = q.r0 + t.rl;
+  const int so0 = q.s0 + kTso * t.sq;
+  if (t.g != 0 || r >= d.R || so0 >= d.So) return;
+#pragma unroll
+  for (int c = 0; c < TC; ++c) {
+    const int co = q.c0 + t.cg * TC + c;
+    if (co >= d.Co) break;
+    float v[kTso];
+#pragma unroll
+    for (int j = 0; j < kTso; ++j) {
+      v[j] = tanhf(g[c] * (acc[c][j] + cb[c] - m[c]) * inv[c] + b[c]);
     }
-    const float yc = acc + cbias[co];
-    const float v =
-        gamma[co] * (yc - mean[co]) * rsqrtf(var[co] + kEps) + beta[co];
-    store_f(y + (static_cast<size_t>(co) * R + r) * so_len + so, tanhf(v));
+    store_run(a.y + (static_cast<size_t>(co) * d.R + r) * d.So, so0, d.So, v);
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w2, const float* cbias,
-           const float* gamma, const float* beta, const float* mean,
-           const float* var, void* y, int C, int R, int S, int Co,
-           size_t smem, cudaStream_t stream) {
-  auto kernel = pgenc_eval_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int chunk = kThreads * kOutputsPerThread;
-  dim3 grid(R, (Co * (S / 2) + chunk - 1) / chunk);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w2), cbias, gamma, beta,
-      mean, var, static_cast<T*>(y), C, R, S, Co);
+template <typename T, int TC>
+int launch(const EvalArgs<T>& a, cudaStream_t s) {
+  static std::atomic<unsigned long long> configured{0};
+  auto kernel = conv_bn_eval_kernel<T, TC>;
+  cudaError_t e = configure(kernel, configured);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<a.p.tiles, a.p.threads, a.p.smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const EvalArgs<T>& a, cudaStream_t s) {
+  return a.p.tc == 4 ? launch<T, 4>(a, s) : launch<T, 2>(a, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The row needs 4*C*(S+8) bytes of shared
-// memory, which the wrapper checks against the per-block limit. Returns the
-// cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16. (tc, bc, br, bs, g) is the tile plan of
+// ops/cuda_pgenc.py:pgenc_plan; one block per tile on `stream`. Returns
+// cudaErrorInvalidValue for a shape or plan the kernel does not take, else
+// the launch's cudaError_t.
 extern "C" int maavss_pgenc_eval(const void* x, const void* w2,
                                  const void* cbias, const void* gamma,
                                  const void* beta, const void* mean,
                                  const void* var, void* y, int C, int R, int S,
-                                 int Co, int dtype, void* stream) {
+                                 int Co, int dtype, int tc, int bc, int br,
+                                 int bs, int g, void* stream) {
+  const Shape d{C, R, S, Co, S / 2};
+  TilePlan p;
   if (C < 1 || R < 1 || Co < 1 || S < 2 || S % 2 != 0 || dtype < 0 ||
-      dtype > 1) {
+      dtype > 1 || !make_plan(d, tc, bc, br, bs, g, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(float) * static_cast<size_t>(C) * (S + 2 * kPad);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f[5] = {static_cast<const float*>(cbias),
                        static_cast<const float*>(gamma),
@@ -133,9 +124,15 @@ extern "C" int maavss_pgenc_eval(const void* x, const void* w2,
                        static_cast<const float*>(mean),
                        static_cast<const float*>(var)};
   if (dtype == 0) {
-    return launch<float>(x, w2, f[0], f[1], f[2], f[3], f[4], y, C, R, S, Co,
-                         smem, s);
+    const EvalArgs<float> a{static_cast<const float*>(x),
+                            static_cast<const float*>(w2), f[0], f[1], f[2],
+                            f[3], f[4], static_cast<float*>(y), d, p,
+                            S % 4 == 0 && aligned(x, 16)};
+    return dispatch(a, s);
   }
-  return launch<__nv_bfloat16>(x, w2, f[0], f[1], f[2], f[3], f[4], y, C, R,
-                               S, Co, smem, s);
+  const EvalArgs<__nv_bfloat16> a{
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w2), f[0], f[1], f[2], f[3], f[4],
+      static_cast<__nv_bfloat16*>(y), d, p, S % 4 == 0 && aligned(x, 8)};
+  return dispatch(a, s);
 }

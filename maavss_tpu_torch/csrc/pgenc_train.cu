@@ -20,13 +20,13 @@
 // with fp32 sums and statistics; x, w2, y, dy, dx, dw2 in x's type (fp32 or
 // bf16).
 //
-// Forward, three launches. The TPU kernel carries the per-channel sums
-// across its sequential grid in VMEM; Hopper's blocks run in parallel, so:
-// (1) conv -> fp32 yc, one block per (row, output chunk), the zero-padded
-// input row staged in shared memory, stride 2 by index arithmetic (as
-// csrc/pgenc_eval.cu); (2) one block per channel sums yc and yc^2 in a fixed
-// order and writes mu, var (E[y^2] - E[y]^2 as the TPU kernel and flax);
-// (3) elementwise normalise + tanh -> y. yc is returned: it is the
+// Forward, one launch. The TPU kernel carries the per-channel sums across
+// its sequential grid in VMEM; Hopper's blocks run in parallel, so the
+// forward is one cooperative launch of at most the blocks the card keeps
+// resident, with one grid barrier between the register-tiled conv of
+// pgenc_conv.cuh, which writes yc and each tile's per-channel partial
+// sums, and the normalise + tanh, which reads the partials in one fixed
+// order (conv_bn_train_kernel, below). yc is returned: it is the
 // backward's residual.
 //
 // Backward, two launches, every sum in a fixed order (two runs give the
@@ -78,10 +78,13 @@
 // layer's tensors sit in the 50 MB L2; the 20 launches of a 10-layer
 // backward, each a chain of dependent stages (stage, compute, tree, count
 // in, sum), and the deep layers' dx on 16-64 blocks bound it.
+//
+// What bounds the forward: the flagship's 10 layers at R = 64 do 580 MFLOP
+// (8.7 us at 67 TFLOP/s fp32) and move ~7 MB; each layer is a chain of one
+// launch, a stage from L2, the FMAs, a grid barrier and the stores, so the
+// ten launches and barriers bound it (see pgenc_eval.cu for the tile plan).
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "pgenc_conv.cuh"
 
 #include <algorithm>
 #include <cstdint>
@@ -90,73 +93,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTaps = 9;
-constexpr int kPad = 4;
-constexpr int kThreads = 256;
-constexpr int kOutputsPerThread = 4;
-constexpr int kStatThreads = 512;
-constexpr float kEps = 1e-5f;
-
-__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-struct Affine {
-  const float* cbias;
-  const float* gamma;
-  const float* beta;
-};
-
-// Stage x's row r, zero-padded by kPad on both sides, as fp32 [C][S + 8].
-template <typename T>
-__device__ void stage_row(const T* __restrict__ x, float* xs, int C, int R,
-                          int S, int r) {
-  const int sp = S + 2 * kPad;
-  for (int i = threadIdx.x; i < C * sp; i += blockDim.x) {
-    const int ci = i / sp;
-    const int s = i - ci * sp - kPad;
-    xs[i] = (s >= 0 && s < S)
-                ? load_f(x + (static_cast<size_t>(ci) * R + r) * S + s)
-                : 0.0f;
-  }
-}
-
-// yc = conv(x) + cbias -> fp32 [Co, R, So]; grid (R, output chunks).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-conv_kernel(const T* __restrict__ x, const T* __restrict__ w2,
-            const float* __restrict__ cbias, float* __restrict__ yc, int C,
-            int R, int S, int Co) {
-  extern __shared__ float xs[];
-  const int r = blockIdx.x;
-  const int sp = S + 2 * kPad;
-  stage_row(x, xs, C, R, S, r);
-  __syncthreads();
-  const int so_len = S / 2;
-  const int total = Co * so_len;
-  const int chunk = kThreads * kOutputsPerThread;
-  const int begin = blockIdx.y * chunk;
-  const int end = min(total, begin + chunk);
-  for (int o = begin + threadIdx.x; o < end; o += blockDim.x) {
-    const int co = o / so_len;
-    const int so = o - co * so_len;
-    const T* wr = w2 + static_cast<size_t>(co) * kTaps * C;
-    const float* xk = xs + 2 * so;
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < kTaps; ++k) {
-      for (int ci = 0; ci < C; ++ci) {
-        acc = fmaf(load_f(wr + k * C + ci), xk[ci * sp + k], acc);
-      }
-    }
-    yc[(static_cast<size_t>(co) * R + r) * so_len + so] = acc + cbias[co];
-  }
-}
+using namespace pgenc;
 
 // Block-wide sum of two values in a fixed order; every thread gets the sums.
 __device__ void block_sum2(float& a, float& b, float* red) {
@@ -175,38 +112,270 @@ __device__ void block_sum2(float& a, float& b, float* red) {
   b = red[blockDim.x];
 }
 
-// mu, var per channel; grid Co.
-__global__ void __launch_bounds__(kStatThreads)
-stats_kernel(const float* __restrict__ yc, float* __restrict__ mu,
-             float* __restrict__ var, int n) {
-  __shared__ float red[2 * kStatThreads];
-  const float* row = yc + static_cast<size_t>(blockIdx.x) * n;
-  float s = 0.0f, ss = 0.0f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float v = row[i];
-    s += v;
-    ss += v * v;
+// K2-train's forward, one cooperative launch. Phase 1: the block walks its
+// share of the tiles, [t0, t1) in tile order; for each it stages, sums,
+// writes yc = sums + cbias, and writes the tile's per-channel sum and sum of
+// squares of yc (the thread's run, then its channel group's threads by a
+// fixed xor butterfly, then its warps in order) to partial [Co][2][per_cb].
+// grid.sync(). Phase 2: for each channel block it meets, the block sums
+// that channel block's partials, all its channels at once, in one fixed
+// order (channel_stats), so every block gets the same bits, and
+// mu = s / N, var = ss / N - mu^2
+// (biased, as the TPU kernel and flax); the block that owns the channel
+// block's tile 0 writes them out. It then normalises its tiles: the last
+// from the sums it still holds in registers, the others from the yc it
+// wrote (read back through L2), and writes y. No counter: the grid barrier
+// is the launch's own, so a replayed CUDA graph needs no reset.
+template <typename T>
+struct TrainArgs {
+  const T* x;
+  const T* w2;
+  const float* cbias;
+  const float* gamma;
+  const float* beta;
+  float* yc;
+  T* y;
+  float* mu;
+  float* var;
+  float* partial;  // [Co][2][per_cb]
+  Shape d;
+  TilePlan p;
+  bool vec;  // 16-byte (bf16: 8-byte) copies of x
+};
+
+// acc += cbias; yc written; the tile's per-channel partial sums written.
+// Every thread of the block calls it.
+template <typename T, int TC>
+__device__ void tile_sums(const TrainArgs<T>& a, const Role& t, const Tile& q,
+                          const float (&cb)[TC], float (&acc)[TC][kTso],
+                          float (&wsum)[kMaxWarps][2 * 4]) {
+  const Shape& d = a.d;
+  const TilePlan& p = a.p;
+  const int r = q.r0 + t.rl;
+  const int so0 = q.s0 + kTso * t.sq;
+  const bool mine = t.g == 0 && r < d.R && so0 < d.So;
+  float s[TC], ss[TC];
+#pragma unroll
+  for (int c = 0; c < TC; ++c) {
+    s[c] = 0.0f;
+    ss[c] = 0.0f;
+    const int co = q.c0 + t.cg * TC + c;
+    if (!mine || co >= d.Co) continue;
+#pragma unroll
+    for (int j = 0; j < kTso; ++j) {
+      acc[c][j] += cb[c];
+      if (so0 + j < d.So) {
+        s[c] += acc[c][j];
+        ss[c] += acc[c][j] * acc[c][j];
+      }
+    }
+    store_run(a.yc + (static_cast<size_t>(co) * d.R + r) * d.So, so0, d.So,
+              acc[c]);
   }
-  block_sum2(s, ss, red);
-  if (threadIdx.x == 0) {
-    const float m = s / static_cast<float>(n);
-    mu[blockIdx.x] = m;
-    var[blockIdx.x] = ss / static_cast<float>(n) - m * m;
+  // the npc threads of a channel group are consecutive and aligned to npc
+  const int npc = p.br * p.nsg;
+  const int width = npc < 32 ? npc : 32;
+  for (int off = 1; off < width; off <<= 1) {
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      s[c] += __shfl_xor_sync(0xffffffffu, s[c], off);
+      ss[c] += __shfl_xor_sync(0xffffffffu, ss[c], off);
+    }
+  }
+  float* part = a.partial;
+  if (npc <= 32) {
+    if (t.g != 0 || (t.ot & (npc - 1)) != 0) return;
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      const int co = q.c0 + t.cg * TC + c;
+      if (co >= d.Co) break;
+      part[static_cast<size_t>(2 * co) * p.per_cb + q.p] = s[c];
+      part[static_cast<size_t>(2 * co + 1) * p.per_cb + q.p] = ss[c];
+    }
+    return;
+  }
+  const int warp = threadIdx.x / 32;
+  if (t.g == 0 && threadIdx.x % 32 == 0) {
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      wsum[warp][2 * c] = s[c];
+      wsum[warp][2 * c + 1] = ss[c];
+    }
+  }
+  __syncthreads();
+  const int col = threadIdx.x;
+  if (col >= p.bc || q.c0 + col >= d.Co) return;
+  const int wpc = npc / 32;  // warps of a channel group
+  const int w0 = col / TC * wpc, c = col % TC;
+  float st = 0.0f, sst = 0.0f;
+  for (int w = 0; w < wpc; ++w) {
+    st += wsum[w0 + w][2 * c];
+    sst += wsum[w0 + w][2 * c + 1];
+  }
+  const int co = q.c0 + col;
+  part[static_cast<size_t>(2 * co) * p.per_cb + q.p] = st;
+  part[static_cast<size_t>(2 * co + 1) * p.per_cb + q.p] = sst;
+}
+
+// The statistics of the tile's channel block from every tile's partials
+// into cmu, cinv (and mu, var out from the block that owns tile 0 of the
+// channel block). The block's threads split into runs of L lanes (L a
+// power of 2 that depends on the plan alone), run c for the block's
+// channel c: lane l adds partials l, l + L, ... in order, then the run's
+// lanes meet in a fixed xor butterfly and, where a run spans warps, its
+// warps in order. So every block gets the same bits for a channel. Every
+// thread of the block calls it.
+constexpr int kBatch = 8;  // partials a lane loads at once
+
+template <typename T>
+__device__ void channel_stats(const TrainArgs<T>& a, const Tile& q,
+                              float (&csum)[kMaxWarps][2], float* cmu,
+                              float* cinv, float* cgam, float* cbet) {
+  const Shape& d = a.d;
+  const TilePlan& p = a.p;
+  int runs = 1;
+  while (runs < p.bc) runs <<= 1;
+  int lanes = 1;
+  while (2 * lanes * runs <= static_cast<int>(blockDim.x)) lanes <<= 1;
+  const int c = threadIdx.x / lanes, l = threadIdx.x % lanes;
+  const bool mine = c < min(p.bc, d.Co - q.c0);
+  __syncthreads();  // every warp is done normalising the previous tile
+  if (mine && l == 0) {
+    cgam[c] = a.gamma[q.c0 + c];
+    cbet[c] = a.beta[q.c0 + c];
+  }
+  float s = 0.0f, ss = 0.0f;
+  if (mine) {
+    // kBatch partials in flight at once, then added in index order
+    const float* ps = a.partial + static_cast<size_t>(2 * (q.c0 + c)) *
+                                      p.per_cb;
+    for (int i0 = l; i0 < p.per_cb; i0 += kBatch * lanes) {
+      float v[kBatch], vv[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = i0 + u * lanes;
+        v[u] = i < p.per_cb ? __ldcg(ps + i) : 0.0f;
+        vv[u] = i < p.per_cb ? __ldcg(ps + p.per_cb + i) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        s += v[u];
+        ss += vv[u];
+      }
+    }
+  }
+  for (int off = 1; off < lanes && off < 32; off <<= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  }
+  if (lanes > 32) {
+    const int warp = threadIdx.x / 32;
+    if (threadIdx.x % 32 == 0) {
+      csum[warp][0] = s;
+      csum[warp][1] = ss;
+    }
+    __syncthreads();
+    if (mine && l == 0) {
+      s = 0.0f;
+      ss = 0.0f;
+      for (int w = warp; w < warp + lanes / 32; ++w) {
+        s += csum[w][0];
+        ss += csum[w][1];
+      }
+    }
+  }
+  if (mine && l == 0) {
+    const float n = static_cast<float>(static_cast<long long>(d.R) * d.So);
+    const float m = s / n;
+    const float v = ss / n - m * m;
+    cmu[c] = m;
+    cinv[c] = rsqrtf(v + kEps);
+    if (q.p == 0) {
+      a.mu[q.c0 + c] = m;
+      a.var[q.c0 + c] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// y = tanh(gamma * (yc - mu) * inv + beta) over the thread's run of the
+// tile, from the sums it holds (`held`) or from the yc it wrote.
+template <typename T, int TC>
+__device__ void normalise(const TrainArgs<T>& a, const Role& t, const Tile& q,
+                          const float (&acc)[TC][kTso], bool held,
+                          const float* cmu, const float* cinv,
+                          const float* cgam, const float* cbet) {
+  const Shape& d = a.d;
+  const int r = q.r0 + t.rl;
+  const int so0 = q.s0 + kTso * t.sq;
+  if (t.g != 0 || r >= d.R || so0 >= d.So) return;
+#pragma unroll
+  for (int c = 0; c < TC; ++c) {
+    const int cl = t.cg * TC + c;
+    const int co = q.c0 + cl;
+    if (co >= d.Co) break;
+    const size_t row = (static_cast<size_t>(co) * d.R + r) * d.So;
+    float v[kTso];
+    if (held) {
+#pragma unroll
+      for (int j = 0; j < kTso; ++j) v[j] = acc[c][j];
+    } else if (d.So % kTso == 0) {
+      const float4 u = __ldcg(reinterpret_cast<const float4*>(a.yc + row +
+                                                              so0));
+      v[0] = u.x;
+      v[1] = u.y;
+      v[2] = u.z;
+      v[3] = u.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kTso; ++j) {
+        v[j] = so0 + j < d.So ? __ldcg(a.yc + row + so0 + j) : 0.0f;
+      }
+    }
+    const float g = cgam[cl], b = cbet[cl], m = cmu[cl], inv = cinv[cl];
+#pragma unroll
+    for (int j = 0; j < kTso; ++j) v[j] = tanhf(g * (v[j] - m) * inv + b);
+    store_run(a.y + row, so0, d.So, v);
   }
 }
 
-// y = tanh(gamma * (yc - mu) * inv + beta); one thread per element.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-apply_kernel(const float* __restrict__ yc, const float* __restrict__ mu,
-             const float* __restrict__ var, Affine aff, T* __restrict__ y,
-             int n, int Co) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<size_t>(n) * Co) return;
-  const int co = static_cast<int>(i / n);
-  const float inv = rsqrtf(var[co] + kEps);
-  store_f(y + i,
-          tanhf(aff.gamma[co] * (yc[i] - mu[co]) * inv + aff.beta[co]));
+template <typename T, int TC>
+__global__ void __launch_bounds__(kMaxThreads)
+conv_bn_train_kernel(const TrainArgs<T> a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float wsum[kMaxWarps][2 * 4];
+  __shared__ float csum[kMaxWarps][2];
+  __shared__ float cmu[kMaxBc], cinv[kMaxBc], cgam[kMaxBc], cbet[kMaxBc];
+  const TilePlan& p = a.p;
+  const Role t = role_of(p);
+  const long long n = p.tiles;
+  const int t0 = static_cast<int>(blockIdx.x * n / gridDim.x);
+  const int t1 = static_cast<int>((blockIdx.x + 1) * n / gridDim.x);
+  float acc[TC][kTso];
+  for (int ti = t0; ti < t1; ++ti) {
+    const Tile q = tile_at(p, ti);
+    float cbias[TC];  // loaded while the tile stages
+#pragma unroll
+    for (int c = 0; c < TC; ++c) {
+      cbias[c] = a.cbias[min(q.c0 + t.cg * TC + c, a.d.Co - 1)];
+    }
+    __syncthreads();  // the previous tile's shared memory is consumed
+    stage_tile(a.x, a.w2, a.d, p, q, smem, a.vec);
+    __syncthreads();
+    conv_tile<TC>(smem, a.d, p, t, acc);
+    group_sum<TC>(smem, p, t, acc);
+    tile_sums<T, TC>(a, t, q, cbias, acc, wsum);
+  }
+  cg::this_grid().sync();
+  int cb = -1;
+  for (int ti = t0; ti < t1; ++ti) {
+    const Tile q = tile_at(p, ti);
+    if (q.cb != cb) {
+      channel_stats(a, q, csum, cmu, cinv, cgam, cbet);
+      cb = q.cb;
+    }
+    normalise<T, TC>(a, t, q, acc, ti == t1 - 1, cmu, cinv, cgam, cbet);
+  }
 }
 
 constexpr int kBnThreads = 1024;
@@ -217,53 +386,6 @@ constexpr int kDxChunk = 32;       // output channels staged per dx pass
 constexpr int kTargetBlocks = 132;
 constexpr int kDwBlocks = 264;     // dw2 blocks to aim at: two per SM
 constexpr size_t kStageBytes = 100 * 1024;  // dw2's K stage
-
-// Stage one fp32 value of global memory into shared memory: fp32 sources
-// by cp.async (4 bytes, zero-filled when !ok), so that a thread has all its
-// copies of a stage in flight at once; bf16 sources by a load and a store.
-// cp_wait() completes the thread's copies; a __syncthreads() must follow.
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
-                                      bool ok) {
-  *dst = ok ? __bfloat162float(*src) : 0.0f;
-}
-// The same for four consecutive values (16-byte cp.async; 8-byte bf16
-// loads), all in range or none; src and dst 16-byte (bf16: 8-byte) aligned.
-__device__ __forceinline__ void stage4(float* dst, const float* src,
-                                       bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
-                                       bool ok);
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
-
-// Four consecutive values as fp32 (16-byte fp32 or 8-byte bf16 loads).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
-                                       bool ok) {
-  *reinterpret_cast<float4*>(dst) =
-      ok ? load4(src) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
 
 struct BnChannel {
   float m, inv, g, b;
@@ -738,40 +860,64 @@ int set_smem(K kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <typename T>
-int conv(const T* x, const T* w2, const float* cbias, float* yc, int C, int R,
-         int S, int Co, cudaStream_t s) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(C) * (S + 2 * kPad);
-  int e = set_smem(conv_kernel<T>, smem);
+// Sets conv_bn_train_kernel<T, TC>'s shared memory limit, once a device.
+template <typename T, int TC>
+cudaError_t configure_train() {
+  static std::atomic<unsigned long long> configured{0};
+  return configure(conv_bn_train_kernel<T, TC>, configured);
+}
+
+// Blocks of conv_bn_train_kernel<T, TC> the current device keeps resident
+// at (threads, smem): the largest cooperative grid.
+template <typename T, int TC>
+int train_resident(int threads, int smem, int* n) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = configure_train<T, TC>();
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, conv_bn_train_kernel<T, TC>, threads, smem);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *n = per_sm * sms;
+  return 0;
+}
+
+// One cooperative launch of `grid` blocks; the runtime refuses a grid over
+// the resident count (cudaErrorCooperativeLaunchTooLarge), and it is not
+// run another way.
+template <typename T, int TC>
+int train_fwd(const TrainArgs<T>& a, int grid, cudaStream_t s) {
+  int e = static_cast<int>(configure_train<T, TC>());
   if (e) return e;
-  const int chunk = kThreads * kOutputsPerThread;
-  dim3 grid(R, (Co * (S / 2) + chunk - 1) / chunk);
-  conv_kernel<T><<<grid, kThreads, smem, s>>>(x, w2, cbias, yc, C, R, S, Co);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(a.p.threads);
+  cfg.dynamicSmemBytes = a.p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = static_cast<int>(
+      cudaLaunchKernelEx(&cfg, conv_bn_train_kernel<T, TC>, a));
+  // read (and so clear) the launch's error even when refused, so that a
+  // later launcher's cudaGetLastError does not see it
+  const int last = static_cast<int>(cudaGetLastError());
+  return e ? e : last;
 }
 
 template <typename T>
-int train_fwd(const void* x, const void* w2, Affine aff, float* yc, void* y,
-              float* mu, float* var, int C, int R, int S, int Co,
-              cudaStream_t s) {
-  int e = conv(static_cast<const T*>(x), static_cast<const T*>(w2), aff.cbias,
-               yc, C, R, S, Co, s);
-  if (e) return e;
-  const int n = R * (S / 2);
-  stats_kernel<<<Co, kStatThreads, 0, s>>>(yc, mu, var, n);
-  e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
-  const size_t total = static_cast<size_t>(n) * Co;
-  apply_kernel<T><<<(total + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      yc, mu, var, aff, static_cast<T*>(y), n, Co);
-  return static_cast<int>(cudaGetLastError());
+int train_fwd(const TrainArgs<T>& a, int grid, cudaStream_t s) {
+  return a.p.tc == 4 ? train_fwd<T, 4>(a, grid, s)
+                     : train_fwd<T, 2>(a, grid, s);
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-bool aligned(const void* p, size_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
 
 int pow2ceil(int v) {
   int p = 1;
@@ -963,29 +1109,66 @@ bool bad_shape(int C, int R, int S, int Co, int dtype) {
 
 }  // namespace
 
-// Train-mode forward. yc is an fp32 [Co, R, S/2] scratch; mu, var are fp32
-// [Co] outputs. dtype: 0 = float32, 1 = bfloat16. Three kernels on `stream`.
-// Returns the first non-zero cudaError_t, else 0.
-extern "C" int maavss_pgenc_train_fwd(const void* x, const void* w2,
-                                      const void* cbias, const void* gamma,
-                                      const void* beta, void* yc, void* y,
-                                      void* mu, void* var, int C, int R, int S,
-                                      int Co, int dtype, void* stream) {
-  if (bad_shape(C, R, S, Co, dtype)) {
+// Train-mode forward, one cooperative launch of `grid` blocks (at least 1,
+// at most the tiles and the blocks the device keeps resident: see
+// maavss_pgenc_train_resident). (tc, bc, br, bs, g) is the tile plan of
+// ops/cuda_pgenc.py:pgenc_plan. yc is an fp32 [Co, R, S/2] output, the
+// backward's residual; mu, var fp32 [Co] outputs; partial an fp32 scratch
+// of 2 * Co * per_cb floats (per_cb: the plan's tiles of one channel
+// block). dtype: 0 = float32, 1 = bfloat16. Returns cudaErrorInvalidValue
+// for a shape, plan or grid the kernel does not take, else the launch's
+// cudaError_t.
+extern "C" int maavss_pgenc_train_fwd(
+    const void* x, const void* w2, const void* cbias, const void* gamma,
+    const void* beta, void* yc, void* y, void* mu, void* var, void* partial,
+    int C, int R, int S, int Co, int dtype, int tc, int bc, int br, int bs,
+    int g, int grid, void* stream) {
+  const Shape d{C, R, S, Co, S / 2};
+  TilePlan p;
+  if (bad_shape(C, R, S, Co, dtype) || !make_plan(d, tc, bc, br, bs, g, &p) ||
+      grid < 1 || grid > p.tiles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Affine aff{static_cast<const float*>(cbias),
-             static_cast<const float*>(gamma),
-             static_cast<const float*>(beta)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* ycf = static_cast<float*>(yc);
-  float* muf = static_cast<float*>(mu);
-  float* varf = static_cast<float*>(var);
+  const float* f[3] = {static_cast<const float*>(cbias),
+                       static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta)};
+  float* out[4] = {static_cast<float*>(yc), static_cast<float*>(mu),
+                   static_cast<float*>(var), static_cast<float*>(partial)};
   if (dtype == 0) {
-    return train_fwd<float>(x, w2, aff, ycf, y, muf, varf, C, R, S, Co, s);
+    const TrainArgs<float> a{static_cast<const float*>(x),
+                             static_cast<const float*>(w2), f[0], f[1], f[2],
+                             out[0], static_cast<float*>(y), out[1], out[2],
+                             out[3], d, p, S % 4 == 0 && aligned(x, 16)};
+    return train_fwd(a, grid, s);
   }
-  return train_fwd<__nv_bfloat16>(x, w2, aff, ycf, y, muf, varf, C, R, S, Co,
-                                  s);
+  const TrainArgs<__nv_bfloat16> a{
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w2), f[0], f[1], f[2], out[0],
+      static_cast<__nv_bfloat16*>(y), out[1], out[2], out[3], d, p,
+      S % 4 == 0 && aligned(x, 8)};
+  return train_fwd(a, grid, s);
+}
+
+// The blocks of the train forward's kernel for tc and dtype that the
+// current device keeps resident at `threads` threads and `smem` dynamic
+// shared bytes (the plan's): the largest grid maavss_pgenc_train_fwd takes.
+// A negative cudaError_t on failure.
+extern "C" int maavss_pgenc_train_resident(int tc, int dtype, int threads,
+                                           int smem) {
+  if ((tc != 2 && tc != 4) || dtype < 0 || dtype > 1 || threads < 32 ||
+      threads > kMaxThreads || smem < 0 || smem > kMaxDynSmem) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  int n = 0, e;
+  if (dtype == 0) {
+    e = tc == 4 ? train_resident<float, 4>(threads, smem, &n)
+                : train_resident<float, 2>(threads, smem, &n);
+  } else {
+    e = tc == 4 ? train_resident<__nv_bfloat16, 4>(threads, smem, &n)
+                : train_resident<__nv_bfloat16, 2>(threads, smem, &n);
+  }
+  return e ? -e : n;
 }
 
 // Bytes of the fp32/int scratch `maavss_pgenc_train_bwd` needs for a layer:

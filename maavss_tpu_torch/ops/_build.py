@@ -119,15 +119,18 @@ def library():
     # ..., n_dir, B, T, H, dtype, rows per cluster, stream
     lib.maavss_lstm_fwd.argtypes = ([p] * 5 + [i]) * 2 + [i] * 6 + [p]
     lib.maavss_lstm_fwd.restype = i
-    lib.maavss_pgenc_eval.argtypes = [p, p, p, p, p, p, p, p,
-                                      i, i, i, i, i, p]
+    # ..., C, R, S, Co, dtype, tile plan (tc, bc, br, bs, g), stream
+    lib.maavss_pgenc_eval.argtypes = [p] * 8 + [i] * 10 + [p]
     lib.maavss_pgenc_eval.restype = i
     lib.maavss_lstm_bwd.argtypes = ([p] * 8 + [i]) * 2 + [i] * 6 + [p]
     lib.maavss_lstm_bwd.restype = i
     lib.maavss_lstm_clusters_at_once.argtypes = []
     lib.maavss_lstm_clusters_at_once.restype = i
-    lib.maavss_pgenc_train_fwd.argtypes = [p] * 9 + [i, i, i, i, i, p]
+    # ..., C, R, S, Co, dtype, tile plan, grid, stream
+    lib.maavss_pgenc_train_fwd.argtypes = [p] * 10 + [i] * 11 + [p]
     lib.maavss_pgenc_train_fwd.restype = i
+    lib.maavss_pgenc_train_resident.argtypes = [i] * 4
+    lib.maavss_pgenc_train_resident.restype = i
     lib.maavss_pgenc_train_bwd.argtypes = [p] * 12 + [i] * 5 + [p]
     lib.maavss_pgenc_train_bwd.restype = i
     lib.maavss_pgenc_train_bwd_scratch.argtypes = [i] * 4

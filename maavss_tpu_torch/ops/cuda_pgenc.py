@@ -22,6 +22,12 @@ carry no gradient. The train forward also returns its fp32 conv output yc,
 which the backward reads in place of recomputing the conv; the conv bias's
 gradient is exactly 0 (it cancels in yc - mu).
 
+The eval layer and the train forward share one register-tiled conv
+(`csrc/pgenc_conv.cuh`) and its tile plan, `pgenc_plan`; the train forward
+is one cooperative launch whose grid is at most the blocks the card keeps
+resident (`_resident_blocks`), with the batch statistics summed in its
+epilogue.
+
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 the plain version. There is no fallback from a kernel on the card.
 """
@@ -29,6 +35,7 @@ the plain version. There is no fallback from a kernel on the card.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -38,9 +45,156 @@ PAD = 4
 STRIDE = 2
 EPS = 1e-5
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Hopper's per-block shared memory limit (232,448 bytes); the kernel stages
-# one padded input row, 4*C*(S+8) bytes
-_SMEM_LIMIT = 232448
+# pgenc_conv.cuh: outputs a thread holds, threads a block, output channels
+# a tile, dynamic shared bytes a block (the 232,448 of an H100 block less 4
+# KB for the kernels' static arrays)
+TSO = 4
+MAX_THREADS = 256
+MAX_BC = 32
+_SMEM_LIMIT = 232448 - 4096
+# the plan's aims (pgenc_plan), from the sweep of
+# tools/pgenc_fwd_probe_torch.py on an H100 (PERF.md, Findings): rows halved
+# until there are at least TARGET_TILES tiles (so 66-131), at least MIN_CI
+# input channels a contraction group, at most BC_MAX output channels a tile
+# (half that where a channel has fewer than WIDE_CHANNEL outputs) and
+# BS_MAX positions, and shared bytes that leave room for two blocks an SM
+TARGET_TILES = 66
+MIN_CI = 2
+BC_MAX = 16
+WIDE_CHANNEL = 4096
+BS_MAX = 128
+SMEM_AIM = 96 * 1024
+
+
+class PgencPlan(NamedTuple):
+    """A tile plan of the K2 forward kernels (csrc/pgenc_conv.cuh): a block
+    owns bc output channels x br rows x bs output positions; a thread tc
+    channels x TSO positions of one row, summed over one of g groups of
+    input channels. The rest follows: threads a block, dynamic shared
+    bytes, tiles of one channel block and in all."""
+    tc: int
+    bc: int
+    br: int
+    bs: int
+    g: int
+    threads: int
+    smem: int
+    per_cb: int
+    tiles: int
+
+
+def _pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
+
+
+def _pow2floor(v: int) -> int:
+    return 1 << (max(1, v).bit_length() - 1)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_of(c_in: int, r: int, s: int, c_out: int, tc: int, bc: int,
+            br: int, bs: int, g: int) -> PgencPlan:
+    """The plan (tc, bc, br, bs, g) for the layer shape, with what follows
+    from it, as pgenc_conv.cuh:make_plan computes it; ValueError where the
+    kernels do not take it."""
+    so = s // 2
+    ok = (tc in (2, 4) and tc <= bc <= MAX_BC and bc % tc == 0
+          and _pow2(br) and _pow2(bs) and bs >= TSO and _pow2(g)
+          and g <= c_in)
+    nto = (bc // tc) * br * (bs // TSO) if ok else 0
+    if not ok or nto * g > MAX_THREADS:
+        raise ValueError(f"pgenc plan (tc={tc}, bc={bc}, br={br}, bs={bs}, "
+                         f"g={g}) is not one the kernels take for C={c_in}")
+    per_cb = _cdiv(r, br) * _cdiv(so, bs)
+    stage = c_in * (br * (2 * bs + 2 * PAD) + TAPS * bc)
+    red = g * nto * tc * TSO if g > 1 else 0
+    smem = 4 * max(stage, red)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"pgenc plan (tc={tc}, bc={bc}, br={br}, bs={bs}, "
+                         f"g={g}) needs {smem} bytes of shared memory for "
+                         f"C={c_in}, over {_SMEM_LIMIT}")
+    return PgencPlan(tc, bc, br, bs, g, _cdiv(nto * g, 32) * 32, smem,
+                     per_cb, per_cb * _cdiv(c_out, bc))
+
+
+@functools.lru_cache(maxsize=256)
+def pgenc_plan(c_in: int, r: int, s: int, c_out: int) -> PgencPlan:
+    """The tile plan of the K2 forward kernels for x [c_in, r, s] and c_out
+    output channels (eval and train take the same).
+
+    Thread tiles of tc = 4 output channels (2 where c_out <= 2) x TSO
+    positions. A tile holds up to BC_MAX channels (half that below
+    WIDE_CHANNEL outputs a channel: the deep layers at small R restage less
+    of w2 and get more rows a tile) and BS_MAX positions, and as many rows
+    as give MAX_THREADS threads; while there are fewer than TARGET_TILES
+    tiles it holds half the rows. The contraction is then split over g
+    groups of at least MIN_CI input channels while the block has room (the
+    deep layers' 576-term sums over few outputs); the groups' sums meet in
+    a fixed tree. A plan over SMEM_AIM shared bytes holds
+    fewer rows; one over the limit fewer rows, then positions, then
+    channels. Raises ValueError for an odd or empty width, or a c_in whose
+    smallest tile does not fit."""
+    if not pgenc_fits(c_in, s) or min(c_in, r, c_out) < 1:
+        raise ValueError(f"pgenc kernel needs even lane width S >= 2 and "
+                         f"C, R, Co >= 1, got C={c_in} R={r} S={s} "
+                         f"Co={c_out}")
+    so = s // 2
+    bc_max = BC_MAX if r * so >= WIDE_CHANNEL else BC_MAX // 2
+    tc = 4 if c_out >= 3 else 2
+    bc = min(_cdiv(c_out, tc) * tc, bc_max)
+    bs = min(max(TSO, 1 << (so - 1).bit_length()), BS_MAX)
+    row_threads = (bc // tc) * (bs // TSO)
+    br = min(_pow2floor(MAX_THREADS // row_threads), 1 << (r - 1).bit_length())
+    while br > 1 and _cdiv(c_out, bc) * _cdiv(r, br) * _cdiv(so, bs) < TARGET_TILES:
+        br //= 2
+    g_max = _pow2floor(c_in // MIN_CI)
+    while True:
+        nto = (bc // tc) * br * (bs // TSO)
+        g = 1
+        while nto * g * 2 <= MAX_THREADS and g * 2 <= g_max:
+            g *= 2
+        try:
+            plan = plan_of(c_in, r, s, c_out, tc, bc, br, bs, g)
+            if plan.smem <= SMEM_AIM or br == 1:
+                return plan
+            br //= 2
+        except ValueError:
+            if br > 1:
+                br //= 2
+            elif bs > TSO:
+                bs //= 2
+            elif bc > tc:
+                bc = max(tc, bc // 2 // tc * tc)
+            else:
+                raise
+
+
+def train_grid(plan: PgencPlan, resident: int) -> int:
+    """Blocks of the train forward's cooperative launch: one a tile, at
+    most the `resident` blocks the card keeps at once (each then walks
+    over a contiguous run of tiles)."""
+    if resident < 1:
+        raise ValueError(f"pgenc train kernel: no block of {plan.threads} "
+                         f"threads and {plan.smem} shared bytes fits an SM")
+    return min(plan.tiles, resident)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(index: int, tc: int, dtype_code: int, threads: int,
+                     smem: int) -> int:
+    """Blocks of the train forward's kernel the card `index` keeps resident
+    at the plan's threads and shared bytes (the C occupancy query)."""
+    from maavss_tpu_torch.ops import _build
+
+    with torch.cuda.device(index):
+        n = _build.library().maavss_pgenc_train_resident(tc, dtype_code,
+                                                         threads, smem)
+    if n < 0:
+        raise RuntimeError(f"maavss_pgenc_train_resident: cudaError_t {-n}")
+    return n
 
 
 def pgenc_fits(c_in: int, s: int) -> bool:
@@ -66,7 +220,7 @@ def pgenc_layer_plain(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
 
 
 def _check_kernel_args(x, w2, vecs) -> None:
-    c_in, r, s = x.shape
+    c_in = x.shape[0]
     c_out = w2.shape[0]
     if w2.shape != (c_out, TAPS * c_in):
         raise ValueError(f"pgenc kernel: w2 {tuple(w2.shape)} != "
@@ -84,12 +238,6 @@ def _check_kernel_args(x, w2, vecs) -> None:
         raise ValueError("pgenc kernel needs every tensor on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("pgenc kernel needs contiguous tensors")
-    smem = 4 * c_in * (s + 2 * PAD)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"pgenc kernel: a row of C={c_in} x S={s} needs "
-                         f"{smem} bytes of shared memory, over {_SMEM_LIMIT}")
-    if (c_out * (s // 2) + 1023) // 1024 > 65535:
-        raise ValueError("pgenc kernel: too many outputs per row for the grid")
 
 
 def pgenc_layer(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
@@ -109,18 +257,26 @@ def pgenc_layer(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
             raise RuntimeError("the CUDA pgenc kernel needs CUDA tensors")
         return pgenc_layer_plain(x, w2, *vecs)
     _check_kernel_args(x, w2, vecs)
-    from maavss_tpu_torch.ops import _build
-
-    c_out = w2.shape[0]
-    y = torch.empty(c_out, r, s // STRIDE, dtype=x.dtype, device=x.device)
-    _build.launch("maavss_pgenc_eval", x.device, (
-        x.data_ptr(), w2.data_ptr(), *[v.data_ptr() for v in vecs],
-        y.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype]))
+    y = _eval_launch(x, w2, vecs, pgenc_plan(c_in, r, s, w2.shape[0]))
     pgenc_layer.launches += 1
     return y
 
 
 pgenc_layer.launches = 0
+
+
+def _eval_launch(x, w2, vecs, plan: PgencPlan) -> torch.Tensor:
+    """K2-eval at `plan`, on checked arguments -> y."""
+    from maavss_tpu_torch.ops import _build
+
+    c_in, r, s = x.shape
+    c_out = w2.shape[0]
+    y = torch.empty(c_out, r, s // STRIDE, dtype=x.dtype, device=x.device)
+    _build.launch("maavss_pgenc_eval", x.device, (
+        x.data_ptr(), w2.data_ptr(), *[v.data_ptr() for v in vecs],
+        y.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype], plan.tc,
+        plan.bc, plan.br, plan.bs, plan.g))
+    return y
 
 
 def _conv_plain(x: torch.Tensor, w2: torch.Tensor,
@@ -209,23 +365,40 @@ def pgenc_train(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
         with torch.no_grad():
             return pgenc_train_plain(x, w2, cbias, gamma, beta)
     _check_train_args(x, w2, (cbias, gamma, beta))
+    plan = pgenc_plan(c_in, r, s, w2.shape[0])
+    grid = train_grid(plan, _resident_blocks(
+        x.device.index, plan.tc, _DTYPE_CODES[x.dtype], plan.threads,
+        plan.smem))
+    out = _train_launch(x, w2, (cbias, gamma, beta), plan, grid)
+    pgenc_train.launches += 1
+    return out
+
+
+pgenc_train.launches = 0
+
+
+def _train_launch(x, w2, vecs, plan: PgencPlan, grid: int):
+    """K2-train's forward at `plan` in one cooperative launch of `grid`
+    blocks, on checked arguments -> (y, mu, var, yc). A grid over what the
+    card keeps resident raises."""
     from maavss_tpu_torch.ops import _build
 
+    c_in, r, s = x.shape
     c_out = w2.shape[0]
     so = s // STRIDE
     yc = torch.empty(c_out, r, so, dtype=torch.float32, device=x.device)
     y = torch.empty(c_out, r, so, dtype=x.dtype, device=x.device)
-    mu = torch.empty(c_out, dtype=torch.float32, device=x.device)
-    var = torch.empty_like(mu)
+    # mu, var, then each tile's per-channel sum and sum of squares
+    stats = torch.empty(2 * c_out * (1 + plan.per_cb), dtype=torch.float32,
+                        device=x.device)
+    mu, var = stats[:c_out], stats[c_out:2 * c_out]
     _build.launch("maavss_pgenc_train_fwd", x.device, (
-        x.data_ptr(), w2.data_ptr(), cbias.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), yc.data_ptr(), y.data_ptr(), mu.data_ptr(),
-        var.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype]))
-    pgenc_train.launches += 1
+        x.data_ptr(), w2.data_ptr(), *[v.data_ptr() for v in vecs],
+        yc.data_ptr(), y.data_ptr(), mu.data_ptr(), var.data_ptr(),
+        stats[2 * c_out:].data_ptr(), c_in, r, s, c_out,
+        _DTYPE_CODES[x.dtype], plan.tc, plan.bc, plan.br, plan.bs, plan.g,
+        grid))
     return y, mu, var, yc
-
-
-pgenc_train.launches = 0
 
 
 @functools.lru_cache(maxsize=64)

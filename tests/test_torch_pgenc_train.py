@@ -30,9 +30,12 @@ from maavss_tpu_torch.convert import flatten_tree, from_flax, to_flax
 from maavss_tpu_torch.models.layers import ConvStack, KernelConvStack1x9
 from maavss_tpu_torch.models.shape_plan import ConvSpec as PortConvSpec
 from maavss_tpu_torch.ops.cuda_pgenc import (
+    _resident_blocks,
+    _train_launch,
     pgenc_bwd,
     pgenc_bwd_plain,
     pgenc_layer_train,
+    pgenc_plan,
     pgenc_train,
     pgenc_train_plain,
 )
@@ -282,3 +285,107 @@ def test_bwd_kernel_takes_unaligned_views_on_card(dtype):
         a, b = a.float(), b.float()
         scale = b.abs().max().item()
         torch.testing.assert_close(a, b, atol=tol * scale, rtol=tol)
+
+
+def _card_inputs(c, co, r, s, dtype, seed=6):
+    x, w2, vecs, _ = _inputs(c, co, r, s, seed)
+    dev = [torch.from_numpy(a).cuda() for a in (x, w2) + vecs]
+    return [dev[0].to(dtype), dev[1].to(dtype)] + dev[2:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [64, 8192])
+def test_train_forward_contract_on_card(r):
+    """The one-launch forward: two calls give the same bits (y, mu, var,
+    yc); x and w2 one element into their storage (the 4-byte copies) give
+    the aligned call's bits; one call captured in a CUDA graph and replayed
+    three times gives them too (the launch leaves no counter to reset)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode); chip_smoke.py holds the same contract")
+    args = _card_inputs(64, 64, r, 16, torch.float32)
+    first = pgenc_train(*args, backend="kernel")
+    shifted = [_at_offset(args[0]), _at_offset(args[1])] + args[2:]
+    for again in (pgenc_train(*args, backend="kernel"),
+                  pgenc_train(*shifted, backend="kernel")):
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pgenc_train(*args, backend="kernel")
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, first))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_forward_ragged_shapes_on_card(dtype):
+    """chip_smoke's k2_gate shapes (C = 3 -> Co = 5, R in {1, 3, 17, 2048,
+    8192}, S in {2, 6, 4098}) against the plain version at k2_train's
+    tolerances: y 2e-5 fp32 / 2^-7 bf16 absolute, mu and var 1e-5 + 1e-4
+    relative, yc 1e-5 of its largest entry + 1e-4 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode); chip_smoke.py's k2_gate runs these shapes")
+    tol = ATOL if dtype == torch.float32 else 2.0 ** -7
+    for r in (1, 3, 17, 2048, 8192):
+        for s in (2, 6, 4098):
+            args = _card_inputs(3, 5, r, s, dtype)
+            y, mu, var, yc = pgenc_train(*args, backend="kernel")
+            y_r, mu_r, var_r, yc_r = pgenc_train_plain(*args)
+            torch.testing.assert_close(y.float(), y_r.float(), atol=tol,
+                                       rtol=0)
+            for a, b in ((mu, mu_r), (var, var_r)):
+                torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+            torch.testing.assert_close(
+                yc, yc_r, atol=1e-5 * yc_r.abs().max().item(), rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_train_forward_refuses_a_grid_over_the_resident_blocks_on_card():
+    """A cooperative grid one block over what the card keeps resident
+    raises; the forward does not run it another way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode); chip_smoke.py's k2_gate makes the same check")
+    args = _card_inputs(1, 2, 8192, 4096, torch.float32)
+    plan = pgenc_plan(1, 8192, 4096, 2)
+    resident = _resident_blocks(args[0].device.index, plan.tc, 0,
+                                plan.threads, plan.smem)
+    assert plan.tiles > resident
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        _train_launch(args[0], args[1], args[2:], plan, resident + 1)
+
+
+def _crossing_grid(tiles, per_cb, limit):
+    """The largest prime grid under `limit` and `tiles` in which a block's
+    contiguous run of tiles crosses from one channel block (per_cb tiles)
+    into the next, as conv_bn_train_kernel splits them."""
+    for grid in range(min(limit, tiles) - 1, 1, -1):
+        if any(grid % f == 0 for f in range(2, int(grid ** 0.5) + 1)):
+            continue
+        if any(b * tiles // grid // per_cb
+               != ((b + 1) * tiles // grid - 1) // per_cb
+               for b in range(grid)):
+            return grid
+    raise AssertionError(f"no crossing grid under {limit}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("co", [64, 80])
+def test_train_forward_crossing_grid_gives_default_bits_on_card(co):
+    """At R = 8192, C = 64, S = 64 (4 or 5 channel blocks), a prime grid
+    whose blocks walk from one channel block into the next gives the
+    default grid's bits: the sums' order depends on the plan alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU "
+                    "mode); chip_smoke.py's k2_gate makes the same check")
+    args = _card_inputs(64, co, 8192, 64, torch.float32)
+    plan = pgenc_plan(64, 8192, 64, co)
+    resident = _resident_blocks(args[0].device.index, plan.tc, 0,
+                                plan.threads, plan.smem)
+    grid = _crossing_grid(plan.tiles, plan.per_cb, resident)
+    want = pgenc_train(*args, backend="kernel")
+    got = _train_launch(args[0], args[1], args[2:], plan, grid)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

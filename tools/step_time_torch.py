@@ -13,8 +13,9 @@ change, change, parent. Each tree builds its kernels into its own
 mode 2: the fusion step (scan windows) and the serving function timed by
 CUDA events (median of 3 rounds of 2 steps / 5 calls, after a warm-up),
 the frames step (median of 3 single steps); then one torch.profiler window
-of each gives the device busy ms (CUDA kernel time summed) and the K1
-kernels' (names starting `lstm`). Before them, the host microseconds of
+of each gives the device busy ms (CUDA kernel time summed), the kernel
+launches, the K1 kernels' ms (names starting `lstm`) and, for the fusion
+model, K2's (`K2_KERNELS`). Before them, the host microseconds of
 one call of the K1 forward's wrapper, `lstm_bidir` at B = 8, T = 8,
 H = 256 fp32, as serving calls it (no_grad) and as training does (w_h
 requires a gradient): the median of 5 rounds of 200 calls enqueued without
@@ -27,6 +28,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -53,8 +55,19 @@ def cuda_ms(fn, reps: int, iters: int) -> float:
     return statistics.median(times)
 
 
+# K2's kernels in either form: the three-launch forward and the earlier
+# K2-eval (pgenc_eval_kernel, conv_kernel, stats_kernel, apply_kernel), the
+# one-launch forms (conv_bn_eval_kernel, conv_bn_train_kernel), and
+# K2-bwd (bn_bwd_kernel, grads_kernel); read on the fusion model only (K5
+# of the frames model has an apply_kernel too)
+K2_KERNELS = re.compile(r"\b(pgenc_eval_kernel|conv_kernel|stats_kernel|"
+                        r"apply_kernel|conv_bn_\w+_kernel|bn_bwd_kernel|"
+                        r"grads_kernel)\b")
+
+
 def busy_ms(fn):
-    """(device busy ms, K1 device ms, wall ms) of one call of `fn`."""
+    """(device busy ms, K1 device ms, wall ms, kernel launches, K2 device
+    ms) of one call of `fn`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -69,8 +82,11 @@ def busy_ms(fn):
     ev = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     k1 = [e for e in ev if "lstm" in e.key]
+    k2 = [e for e in ev if K2_KERNELS.search(e.key)]
     return (sum(e.device_time_total for e in ev) / 1e3,
-            sum(e.device_time_total for e in k1) / 1e3, wall)
+            sum(e.device_time_total for e in k1) / 1e3, wall,
+            sum(e.count for e in ev),
+            sum(e.device_time_total for e in k2) / 1e3)
 
 
 def wrapper_host_us(fn, rounds: int = 5, calls: int = 200) -> float:
@@ -138,13 +154,15 @@ def main() -> None:
     data = synthetic_av_batch(cfg, batch, seed=cfg.seed)
     out["fusion_step_ms"] = cuda_ms(lambda: step(state, data, 2), 3, 2)
     (out["fusion_device_busy_ms"], out["fusion_k1_device_ms"],
-     out["fusion_traced_wall_ms"]) = busy_ms(lambda: step(state, data, 2))
+     out["fusion_traced_wall_ms"], out["fusion_launches"],
+     out["fusion_k2_device_ms"]) = busy_ms(lambda: step(state, data, 2))
     serve = make_serving_fn(model, cfg)
     dev = [torch.from_numpy(x).cuda()
            for x in random_serving_inputs(cfg, batch)]
     out["serve_ms"] = cuda_ms(lambda: serve(*dev), 3, 5)
     (out["serve_device_busy_ms"], out["serve_k1_device_ms"],
-     out["serve_traced_wall_ms"]) = busy_ms(lambda: serve(*dev))
+     out["serve_traced_wall_ms"], out["serve_launches"],
+     out["serve_k2_device_ms"]) = busy_ms(lambda: serve(*dev))
     del model, state, step, serve
 
     model, state = build_frames_state(
@@ -154,7 +172,8 @@ def main() -> None:
                               frame_size=cfg.framesize)
     out["frames_step_ms"] = cuda_ms(lambda: step(state, data, 2), 3, 1)
     (out["frames_device_busy_ms"], out["frames_k1_device_ms"],
-     out["frames_traced_wall_ms"]) = busy_ms(lambda: step(state, data, 2))
+     out["frames_traced_wall_ms"], out["frames_launches"],
+     _) = busy_ms(lambda: step(state, data, 2))
     print(json.dumps(out), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
