@@ -71,24 +71,44 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 15. frames_golden: the small-geometry JAX frames fixture of
    tests/fixtures/torch_port_frames_golden.npz (separator audio and 3
    train steps with K5 at stages 0 and 1), run through the kernels.
-16. k4 (K4: the complex-mask product, magphase, polar): each kernel
-   against its plain version at the flagships' shapes, on gaussian data
-   and on strided operands holding exact zeros, atan2's branch cut and
-   phases of +-pi; the mask product also in conjugate mode (its backward);
-   the polar kernel's spectrum form (the iSTFT's input) equal to its planar
-   form bit for bit; torch.polar timed beside the polar kernel.
-17. mask_train: --mask_head on the fusion and frames flagships, 3 steps
+16. k4 (K4's standalone kernels: the complex-mask product, magphase,
+   polar): each kernel against its plain version at the flagships' shapes,
+   on gaussian data and on strided operands holding exact zeros, atan2's
+   branch cut and phases of +-pi; the mask product also in conjugate mode;
+   polar_to_rect (the real view of the polar kernel's spectrum form, the
+   iSTFT's input) holding the spectrum's values bit for bit; torch.polar
+   timed beside the polar kernel.
+17. k4_head (the --mask_head head with K4's mask product fused in, forward
+   and backward): against the plain version (F.linear, then the plain mask
+   product) at fusion M = 1, 8, 32, 256 (a bias, the STFT a window view)
+   and frames M = 8 (no bias, F = 129); two calls and a CUDA-graph replay
+   give the same bits; cuBLAS' addmm alone and addmm + the standalone mask
+   product timed beside.
+18. k4_stft (the one-launch STFT frontend, magphase fused in): against
+   stft_features_plain at fft_len 64, 256 and 2048, trim on and off,
+   normalized on and off, (re, im) and polar, on gaussian, zero and DC-only
+   audio, phases compared wrapped; torch.stft timed beside.
+19. mask_train: --mask_head on the fusion and frames flagships, 3 steps
    each against the plain versions (the gates of phases 10 and 13, exact
-   launch counts per step); the default-head fusion step timed in turns.
-18. mask_slice: the fusion flagship with --mask_head behind the HTTP
+   launch counts per step: the fused head once forward and once backward a
+   window, no standalone mask product, the STFT kernel once); the
+   default-head fusion step timed in turns.
+20. mask_slice: the fusion flagship with --mask_head behind the HTTP
    server, 8 requests checked against the plain separator.
-19. polar: --use_polar, 3 train steps of each family against the plain
-   versions, and each family's serving function against the plain one;
+21. polar: --use_polar, 3 train steps of each family against the plain
+   versions, and each family's serving function against the plain one,
+   both sides on the STFT kernel's features (held against the plain
+   features with phases wrapped); no magphase launch;
    istft_features(polar=True) must run one device launch and no copy
    (torch.complex, pad, contiguous) beyond the iSTFT of its spectrum.
-20. k4_golden: the small-geometry JAX fixture of
+22. k4_golden: the small-geometry JAX fixture of
    tests/fixtures/torch_port_k4_golden.npz (the --mask_head separator and
    3 train steps, the --use_polar separator), run through the kernels.
+
+Every phase that drives a train step or a serving batch counts the STFT
+kernel's launches exactly (one a step or a batch) and runs its plain
+reference on stft_features_plain (cuFFT); the profiled train steps must
+run no cuFFT rfft kernel (the iSTFT's irfft serves only separation).
 
 The line before the last two is one JSON object with each kernel's
 launches, error, times and bound; then the nvidia-smi line; the last line
@@ -1149,6 +1169,7 @@ def slice_phase():
     )
     from maavss_tpu_torch.ops.cuda_lstm import lstm_recurrence
     from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer
+    from maavss_tpu_torch.ops.stft import stft_features
     from maavss_tpu_torch.train.setup import build_fusion
 
     batch, tol = 8, 1e-4
@@ -1165,7 +1186,8 @@ def slice_phase():
     if model.pgenc_kernel != "pallas":
         raise SystemExit("the auto phasegram-encoder gate did not take the "
                          "kernel stack on CUDA")
-    serve, serve_ref = make_serving_fn(model, cfg), make_serving_fn(ref, cfg)
+    serve = make_serving_fn(model, cfg)
+    serve_ref = _plain_k4(make_serving_fn(ref, cfg))
     a_spec, v_spec = serving_input_specs(cfg, batch)
     n_layers = len(model.phasegram_encoder.specs)
 
@@ -1195,6 +1217,7 @@ def slice_phase():
     client = SeparationClient(f"http://{host}:{port}")
     lstm_recurrence.launches = 0
     pgenc_layer.launches = 0
+    stft_features.launches = 0
     responses, lat_ms = [], []
     try:
         for audio, frames in requests:
@@ -1202,7 +1225,8 @@ def slice_phase():
             responses.append(client.separate(audio, frames))
             lat_ms.append((time.perf_counter() - t) * 1e3)
         launches = {"lstm": lstm_recurrence.launches,
-                    "pgenc": pgenc_layer.launches}
+                    "pgenc": pgenc_layer.launches,
+                    "stft": stft_features.launches}
         stats = client.get_json("/stats")
     finally:
         client.close()
@@ -1210,7 +1234,7 @@ def slice_phase():
 
     batches = stats["batches"]
     want = {"lstm": batches * cfg.num_seq,
-            "pgenc": batches * cfg.num_seq * n_layers}
+            "pgenc": batches * cfg.num_seq * n_layers, "stft": batches}
     if launches != want or batches < 1:
         raise SystemExit(f"kernel launches {launches} != {want} for "
                          f"{batches} batches of {cfg.num_seq} windows")
@@ -1297,6 +1321,7 @@ def train_phase(steps: int = 3):
         lstm_recurrence_bwd,
     )
     from maavss_tpu_torch.ops.cuda_pgenc import pgenc_bwd, pgenc_train
+    from maavss_tpu_torch.ops.stft import stft_features
     from maavss_tpu_torch.train.setup import build_fusion, build_fusion_state
     from maavss_tpu_torch.train.state import create_train_state
     from maavss_tpu_torch.train.steps import make_fusion_step
@@ -1314,13 +1339,14 @@ def train_phase(steps: int = 3):
     ref.lstm.backend = "scan"
     ref_state = create_train_state(ref, plain_cfg, "cuda")
     step = make_fusion_step(model, cfg, device="cuda")
-    ref_step = make_fusion_step(ref, plain_cfg, device="cuda")
+    ref_step = _plain_k4(make_fusion_step(ref, plain_cfg, device="cuda"))
     n_layers = len(model.phasegram_encoder.specs)
-    names = ("lstm_fwd", "lstm_bwd", "pgenc_train", "pgenc_bwd", "adam")
+    names = ("lstm_fwd", "lstm_bwd", "pgenc_train", "pgenc_bwd", "adam",
+             "stft")
     counters = (lstm_recurrence, lstm_recurrence_bwd, pgenc_train, pgenc_bwd,
-                adam_multi_tensor)
+                adam_multi_tensor, stft_features)
     ns = cfg.num_seq
-    want = dict(zip(names, (ns, ns, ns * n_layers, ns * n_layers, 1)))
+    want = dict(zip(names, (ns, ns, ns * n_layers, ns * n_layers, 1, 1)))
     batches = [synthetic_av_batch(cfg, batch_size, seed=cfg.seed + i)
                for i in range(steps)]
 
@@ -1382,6 +1408,8 @@ def train_phase(steps: int = 3):
                            lambda: step(state, batches[0], 2), calls=1,
                            watch=("conv_bn_train_kernel", "bn_bwd_kernel",
                                   "grads_kernel"))
+
+    _no_rfft_kernels("train step", counts)
 
     def launches_of(name):
         return sum(n for k, n in counts.items()
@@ -1798,6 +1826,7 @@ def frames_train_phase(steps: int = 3):
         pgenc_layer,
         pgenc_train,
     )
+    from maavss_tpu_torch.ops.stft import stft_features
     from maavss_tpu_torch.train.setup import (
         build_frames_model,
         build_frames_state,
@@ -1821,15 +1850,16 @@ def frames_train_phase(steps: int = 3):
     ref_state = create_train_state(ref, plain_cfg, "cuda")
     build_s = time.perf_counter() - t0
     step = make_frames_step(model, cfg)
-    ref_step = _plain_k5(make_frames_step(ref, plain_cfg))
+    ref_step = _plain_k4(_plain_k5(make_frames_step(ref, plain_cfg)))
     ns = cfg.num_seq
     names = ("lstm_fwd", "lstm_bwd", "adam", "epilogue_stats",
              "epilogue_apply", "epilogue_bwd_reduce", "epilogue_bwd_dy",
-             "pgenc_eval", "pgenc_train", "pgenc_bwd")
+             "pgenc_eval", "pgenc_train", "pgenc_bwd", "stft")
     counters = (lstm_recurrence, lstm_recurrence_bwd, adam_multi_tensor,
-                *_epilogue_counters(), pgenc_layer, pgenc_train, pgenc_bwd)
+                *_epilogue_counters(), pgenc_layer, pgenc_train, pgenc_bwd,
+                stft_features)
     # stages 0 and 1 (inputs 256^2 and 128^2) take K5 in every window
-    want = dict(zip(names, (ns, ns, 1) + (2 * ns,) * 4 + (0, 0, 0)))
+    want = dict(zip(names, (ns, ns, 1) + (2 * ns,) * 4 + (0, 0, 0, 1)))
     batches = [synthetic_av_batch(cfg, batch_size, seed=cfg.seed + i,
                                   frame_size=cfg.framesize)
                for i in range(steps)]
@@ -1915,6 +1945,7 @@ def frames_slice_phase():
         SeparationServer,
     )
     from maavss_tpu_torch.ops.cuda_lstm import lstm_recurrence
+    from maavss_tpu_torch.ops.stft import stft_features
     from maavss_tpu_torch.train.setup import build_frames_model
 
     batch, tol = 8, 1e-4
@@ -1926,7 +1957,7 @@ def frames_slice_phase():
     ref.load_state_dict(model.state_dict())
     ref.lstm.backend = "scan"
     serve = make_serving_fn(model, cfg, frames_model=True)
-    serve_ref = make_serving_fn(ref, cfg, frames_model=True)
+    serve_ref = _plain_k4(make_serving_fn(ref, cfg, frames_model=True))
     a_spec, v_spec = serving_input_specs(cfg, batch, frames_model=True)
     rows_list = [1, 8, 3, 5, 2, 7]
     requests = [random_serving_inputs(cfg, rows, frames_model=True,
@@ -1944,7 +1975,7 @@ def frames_slice_phase():
                               host="127.0.0.1", port=0).start()
     host, port = server.address
     client = SeparationClient(f"http://{host}:{port}")
-    counters = (lstm_recurrence,) + _epilogue_counters()
+    counters = (lstm_recurrence,) + _epilogue_counters() + (stft_features,)
     for c in counters:
         c.launches = 0
     responses, lat_ms = [], []
@@ -1959,7 +1990,8 @@ def frames_slice_phase():
         client.close()
         server.stop()
     batches = stats["batches"]
-    if launches != [batches * cfg.num_seq, 0, 0, 0, 0] or batches < 1:
+    if launches != [batches * cfg.num_seq, 0, 0, 0, 0, batches] \
+            or batches < 1:
         raise SystemExit(f"frames serving launches {launches} for "
                          f"{batches} batches of {cfg.num_seq} windows")
     worst = 0.0
@@ -1982,7 +2014,8 @@ def frames_slice_phase():
           p50_ms=statistics.median(lat),
           p90_ms=lat[min(len(lat) - 1, int(0.9 * len(lat)))],
           direct_batch8_ms=direct_ms, direct_batch8_plain_ms=direct_plain_ms,
-          lstm_launches=launches[0])
+          lstm_launches=launches[0], stft_launches=launches[5])
+    return {"stft": launches[5]}
 
 
 def frames_golden_phase():
@@ -2068,24 +2101,57 @@ def frames_golden_phase():
           worst_leaf_sum_rel=worst, leaves=len(meta["sums"]), tol=tol)
 
 
+class _Count:
+    """A launch counter kept in attribute `attr` of `obj`, read and reset
+    through `.launches` as the wrappers' own counters are."""
+
+    def __init__(self, obj, attr):
+        self.obj, self.attr = obj, attr
+
+    @property
+    def launches(self):
+        return getattr(self.obj, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.obj, self.attr, value)
+
+
+K4_NAMES = ("mask_mul", "magphase", "polar", "mask_head", "mask_head_bwd",
+            "stft")
+
+
 def _k4_counters():
+    """The counters of K4_NAMES: the standalone mask product and magphase,
+    the polar kernel, the fused head forward and backward, the STFT."""
     from maavss_tpu_torch.ops import cuda_complex as cc
+    from maavss_tpu_torch.ops.cuda_mask_head import mask_head_apply
+    from maavss_tpu_torch.ops.stft import stft_features
 
-    return cc.mask_mul, cc.magphase_fwd, cc.polar_spectrum_fwd
+    return (cc.mask_mul, cc.magphase_fwd, cc.polar_spectrum_fwd,
+            mask_head_apply, _Count(mask_head_apply, "bwd_launches"),
+            stft_features)
 
 
-def _plain_k4(fn):
+def _plain_k4(fn, kernel_features=False):
     """`fn` run with K4's plain versions (forward and explicit backward) in
-    place of its kernels, in both models and in the STFT features."""
+    place of its kernels: the mask head of both models, the STFT features
+    (unless `kernel_features`: the --use_polar gates feed both sides the
+    STFT kernel's features, since the sign of a real bin's rounding-noise
+    imaginary part, a phase of +pi or -pi, differs between cuFFT and the
+    kernel; k4_stft holds the kernel against its plain version with phases
+    wrapped) and the polar kernel before the iSTFT."""
     from maavss_tpu_torch.models import fusion, fusion_frames
     from maavss_tpu_torch.ops import cuda_complex as cc
     from maavss_tpu_torch.ops import stft
+    from maavss_tpu_torch.ops.cuda_mask_head import mask_head_apply_plain
+    from maavss_tpu_torch.train import steps
 
-    swaps = ((fusion, "complex_mask_apply", cc.complex_mask_apply_plain),
-             (fusion_frames, "complex_mask_apply",
-              cc.complex_mask_apply_plain),
-             (stft, "magphase", cc.magphase_plain),
+    swaps = ((fusion, "mask_head_apply", mask_head_apply_plain),
+             (fusion_frames, "mask_head_apply", mask_head_apply_plain),
              (stft, "polar_to_spectrum", cc.polar_to_spectrum_plain))
+    if not kernel_features:
+        swaps += ((steps, "stft_features", stft.stft_features_plain),)
 
     def run(*args):
         kept = [getattr(mod, name) for mod, name, _ in swaps]
@@ -2138,8 +2204,9 @@ def k4_phase():
     bytes each call must move over 3.35 TB/s; torch.polar timed beside the
     polar kernel. The polar kernel's main-path form writes the complex
     spectrum the iSTFT reads (the fusion clip's with a zero Nyquist bin, the
-    frames clip's as it is): it must equal the planar form bit for bit; its
-    row times that form, as torch.polar writes interleaved complex."""
+    frames clip's as it is): polar_to_rect, its real view in planar order,
+    must hold its values bit for bit; its row times that form, as
+    torch.polar writes interleaved complex."""
     import torch
 
     from maavss_tpu_torch.ops.cuda_complex import (
@@ -2147,10 +2214,10 @@ def k4_phase():
         magphase_fwd_plain,
         mask_mul,
         mask_mul_plain,
-        polar_fwd,
         polar_fwd_plain,
         polar_spectrum_fwd,
         polar_spectrum_fwd_plain,
+        polar_to_rect,
     )
 
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -2220,7 +2287,7 @@ def k4_phase():
             where = f"{shape} {'special' if special else 'gaussian'}"
             pad = 1 if shape[3] == 128 else 0  # fusion trims Nyquist
             mp, mp_p = magphase_fwd(x), magphase_fwd_plain(x)
-            rt, rt_p = polar_fwd(x), polar_fwd_plain(x)
+            rt, rt_p = polar_to_rect(x), polar_fwd_plain(x)
             sp = polar_spectrum_fwd(x, pad)
             sp_p = polar_spectrum_fwd_plain(x, pad)
             torch.cuda.synchronize()
@@ -2264,7 +2331,8 @@ def k4_phase():
                 fields = dict(magphase_ms=t_mp[0], magphase_plain_ms=t_mp[1],
                               polar_spectrum_ms=t_rt[0],
                               polar_spectrum_plain_ms=t_rt[1],
-                              polar_planar_ms=cuda_ms(lambda: polar_fwd(x)),
+                              polar_to_rect_ms=cuda_ms(
+                                  lambda: polar_to_rect(x)),
                               nyquist_pad=pad,
                               bound_ms=bound_ms(n_bytes, 5 * x.numel() // 2)[0])
             phase("k4_polar", shape=list(shape), special=special,
@@ -2281,6 +2349,364 @@ def k4_phase():
     return rep
 
 
+# (M, frames family): the fusion head at one row, a scan window's batch,
+# the vectorized windows' batch and bench.py's batch, and the frames head
+K4_HEAD = ((1, False), (8, False), (32, False), (256, False), (8, True))
+K4_HEAD_MAIN = ((8, False), (8, True))  # the main path's shapes
+
+
+def _head_inputs(m, frames_model, g):
+    """(h, W, b or None, stft view, cotangent) of the --mask_head head at
+    the flagship's widths: K 512; the fusion window (rows 16:80 of the
+    clip's [m, 2, 96, 128] STFT, 2P = 16384, a bias) or the frames model's
+    middle-frame columns (rows 8:16 of [m, 2, 64, 129], 2P = 2064, no
+    bias)."""
+    import torch
+
+    full, win = K4_MASK[1 if frames_model else 0]
+    full = (m,) + full[1:]
+    t, f = win.stop - win.start, full[3]
+    h = torch.randn(m, 512, device="cuda", generator=g)
+    w = torch.randn(2 * t * f, 512, device="cuda", generator=g) / 512 ** 0.5
+    b = None if frames_model else 0.1 * torch.randn(2 * t * f, device="cuda",
+                                                    generator=g)
+    clip = torch.randn(full, device="cuda", generator=g)
+    gr = torch.randn((m, 2, t, f), device="cuda", generator=g)
+    return h, w, b, clip[:, :, win], gr
+
+
+def _head_graph_bits(where, fwd, bwd, first):
+    """One forward and one backward wrapper call captured in a
+    torch.cuda.CUDAGraph and replayed three times give `first`'s bits."""
+    import torch
+
+    def run():
+        out, _ = fwd()
+        return (out,) + tuple(x for x in bwd() if x is not None)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        _same_bits(f"{where}: a CUDA graph replay", [captured], [first])
+
+
+def k4_head_phase():
+    """The fused --mask_head head (csrc/mask_head.cu) against its plain
+    version (F.linear, then the plain mask product, under autograd) at
+    K4_HEAD's shapes: the output and d_h, dW, db at relative L2 1e-5 (fp32
+    dot products of 512 terms forward, 16384 terms for d_h, summed in
+    another order than cuBLAS'); two calls and a CUDA-graph replay give the
+    same bits. Times of the forward and the backward against the plain
+    version's, the bound (bytes: h, W, b, the STFT window and the output
+    forward; g, the STFT, h and W in, d_h, dW and db out backward;
+    operations: 2 M K 2P FMAs each), cuBLAS' addmm (mm without a bias)
+    alone as the library call, and the route it replaces, addmm and the
+    standalone K4 mask product (two launches), and that route's backward
+    (K4's conjugate product, two cuBLAS products and the bias sum),
+    beside. The main-path shapes
+    (K4_HEAD_MAIN) are summed into the kernels line's entries."""
+    import torch
+
+    from maavss_tpu_torch.ops import cuda_complex as cc
+    from maavss_tpu_torch.ops import cuda_mask_head as cmh
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    tol = 1e-5
+    rep = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0,
+                   library_ms=None, device_ms=0.0, host_ms=0.0)
+           for n in ("fwd", "bwd")}
+    for m, frames_model in K4_HEAD:
+        h, w, b, stft, gr = _head_inputs(m, frames_model, g)
+        where = f"K4 head M={m} {'frames' if frames_model else 'fusion'}"
+        leaves = [x.clone().requires_grad_(True) for x in (h, w, b)
+                  if x is not None]
+
+        def grads(fn):
+            args = [x.detach().clone().requires_grad_(True) for x in leaves]
+            hh, ww = args[0], args[1]
+            bb = args[2] if b is not None else None
+            out = fn(hh, ww, bb, stft)
+            out.backward(gr)
+            return [out.detach()] + [x.grad for x in args]
+
+        got, again = grads(cmh.mask_head_apply), grads(cmh.mask_head_apply)
+        want = grads(cmh.mask_head_apply_plain)
+        torch.cuda.synchronize()
+        _same_bits(f"{where}: a second call", [got], [again])
+        errs = [_rel_check(f"{where} {name}", x, y, tol)
+                for name, x, y in zip(("out", "d_h", "dW", "db"), got, want)]
+        has_b = b is not None
+        fwd = lambda: cmh.mask_head_fwd(h, w, b, stft)  # noqa: E731
+        bwd = lambda: cmh.mask_head_bwd(gr, h, w, stft, has_b)  # noqa: E731
+        _head_graph_bits(where, fwd, bwd, got)
+        p2 = w.shape[0]
+        n_fwd = nbytes(h, w, stft, got[0]) + (nbytes(b) if has_b else 0)
+        n_bwd = nbytes(gr, stft, h, w, *got[1:])
+        flops = 2 * m * h.shape[1] * p2
+        lib = ((lambda: torch.addmm(b, h, w.t())) if has_b
+               else (lambda: torch.mm(h, w.t())))
+        two = lambda: cc.mask_mul(stft, lib().view(gr.shape))  # noqa: E731
+
+        def old_bwd():
+            """The replaced route's backward: K4 in conjugate mode, then
+            cuBLAS' two products and the bias reduction."""
+            d_mask = cc.mask_mul(gr, stft, conj=True).view(m, -1)
+            return (d_mask.mm(w), d_mask.t().mm(h),
+                    d_mask.sum(0) if has_b else None)
+        t = dict(
+            fwd_ms=cuda_ms(fwd),
+            fwd_plain_ms=cuda_ms(
+                lambda: cmh.mask_head_fwd_plain(h, w, b, stft)),
+            bwd_ms=cuda_ms(bwd),
+            bwd_plain_ms=cuda_ms(
+                lambda: cmh.mask_head_bwd_plain(gr, h, w, stft, has_b)),
+            addmm_ms=cuda_ms(lib), addmm_then_mask_mul_ms=cuda_ms(two),
+            replaced_bwd_ms=cuda_ms(old_bwd))
+        dev = dict(zip(("fwd", "bwd"), (split_ms(fwd), split_ms(bwd))))
+        lib_dev, _ = split_ms(lib)
+        t.update(addmm_then_mask_mul_device_ms=split_ms(two)[0],
+                 replaced_bwd_device_ms=split_ms(old_bwd)[0])
+        bounds = {"fwd": bound_ms(n_fwd, flops),
+                  "bwd": bound_ms(n_bwd, 2 * flops)}
+        if (m, frames_model) in K4_HEAD_MAIN:
+            for n, nb, fl in (("fwd", n_fwd, flops), ("bwd", n_bwd,
+                                                       2 * flops)):
+                r = rep[n]
+                r["err"] = max(r["err"], *errs)
+                r["ms"] += t[f"{n}_ms"]
+                r["plain_ms"] += t[f"{n}_plain_ms"]
+                r["device_ms"] += dev[n][0]
+                r["host_ms"] += dev[n][1]
+                r["bytes"] += nb
+                r["flops"] += fl
+            rep["fwd"]["library_ms"] = ((rep["fwd"]["library_ms"] or 0.0)
+                                        + t["addmm_ms"])
+        phase("k4_head", m=m, family="frames" if frames_model else "fusion",
+              k=h.shape[1], out_cols=p2, bias=has_b,
+              stft_strides=list(stft.stride()), max_abs_err=dict(
+                  zip(("out", "d_h", "dW", "db"), errs)), tol_rel_l2=tol,
+              same_bits_two_calls=True, same_bits_graph_replay=True, **t,
+              fwd_device_ms=dev["fwd"][0], fwd_host_ms=dev["fwd"][1],
+              bwd_device_ms=dev["bwd"][0], bwd_host_ms=dev["bwd"][1],
+              addmm_device_ms=lib_dev,
+              fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
+              bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1])
+    for r in rep.values():
+        r["bound"] = bound_ms(r["bytes"], r["flops"])
+    phase("k4_head_main", shapes=[list(s) for s in K4_HEAD_MAIN],
+          **{n: {k: v for k, v in r.items() if k not in ("bytes", "flops")}
+             for n, r in rep.items()})
+    return rep
+
+
+def _wrapped_phase_err(ph, ph_ref, mag_ref):
+    """(max |wrapped phase difference| * magnitude / max magnitude, max
+    |wrapped difference| on bins above 1e-3 of the largest magnitude)."""
+    import torch
+
+    d = torch.remainder(ph.double() - ph_ref.double() + math.pi,
+                        2 * math.pi) - math.pi
+    top = mag_ref.max().clamp(min=1e-30)
+    keep = mag_ref > 1e-3 * top
+    return ((d.abs() * mag_ref).max() / top).item(), \
+        (d[keep].abs().max().item() if bool(keep.any()) else 0.0)
+
+
+def _kernel_names(fn):
+    """The names (namespace, template arguments and parameters cut) of the
+    device kernels one call of `fn` runs, from torch.profiler with CPU and
+    CUDA activities, as profile_phase traces."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = set()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            name = re.search(r"(\w+)(<[^(]*)?\(", e.key)
+            names.add(name.group(1) if name else e.key[:40])
+    return names
+
+
+def _no_rfft_kernels(what, counts):
+    """Raise if a profile's kernels ({name: launches}) hold a cuFFT
+    real-to-complex kernel: in a train step only the forward STFT's rfft
+    would run one (the phasegram's fft2 runs complex-to-complex kernels),
+    and the STFT kernel does that transform."""
+    rfft = {k: n for k, n in counts.items()
+            if "fft" in k.lower() and "r2c" in k.lower()}
+    if rfft:
+        raise SystemExit(f"{what}: cuFFT's rfft ran in the forward STFT: "
+                         f"{rfft}")
+
+
+def _polar_features_close(what, cfg, audio, frames_model):
+    """The STFT kernel's polar features of `audio` against
+    stft_features_plain: magnitudes at relative L2 1e-6, phases as wrapped
+    differences weighted by magnitude within 1e-5 of the largest; returns
+    the measured values."""
+    from maavss_tpu_torch.ops.stft import stft_features, stft_features_plain
+
+    args = (audio, cfg.fft_len, cfg.hop, cfg.normalize_fft, not frames_model,
+            True)
+    got, want = stft_features(*args), stft_features_plain(*args)
+    mag_err = _rel_check(f"{what} features: magnitude", got[:, 0],
+                         want[:, 0], 1e-6)
+    weighted, top_bins = _wrapped_phase_err(got[:, 1], want[:, 1], want[:, 0])
+    if weighted > 1e-5:
+        raise SystemExit(f"{what} features: phase error weighted by "
+                         f"magnitude {weighted} > 1e-5")
+    return dict(mag_max_abs_err=mag_err, phase_err_weighted=weighted,
+                phase_err_bins_above_1e3_of_max=top_bins)
+
+
+# (fft_len, hop, samples): the tests' geometry, the flagships' (T 96) and
+# the kernel's largest fft_len
+K4_STFT = ((64, 16, 16 * 96), (256, 66, 66 * 96), (2048, 512, 512 * 24))
+
+
+def k4_stft_phase():
+    """The STFT kernel (csrc/stft_feat.cu) against stft_features_plain
+    (cuFFT's rfft) at K4_STFT's geometries, batch 8, trim_end on and off,
+    normalized on and off, (re, im) and polar, on gaussian audio and on
+    special audio (all zeros; a constant, DC-only signal). (re, im) at
+    relative L2 1e-6 and the DC bin's (and, untrimmed, the Nyquist bin's)
+    imaginary part exactly 0; polar: magnitudes at relative L2 1e-6, phases
+    as wrapped differences weighted by magnitude within 1e-5 of the largest
+    (the first frame is real: its phases of +pi or -pi follow the FFT's
+    rounding noise); zero audio gives exact zeros. Times at the flagships'
+    (re, im) features (fusion trimmed, frames untrimmed) against the plain
+    version and torch.stft (the complex spectrum alone, the window given)
+    as the library call; bound = (audio + features) bytes over 3.35 TB/s
+    against the FFT's operations."""
+    import torch
+
+    from maavss_tpu_torch.ops.stft import (
+        stft_features,
+        stft_features_plain,
+        stft_kernel_refusal,
+    )
+    from maavss_tpu_torch.ops.windows import hamming_window
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    tol = 1e-6
+    rep = dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0,
+               library_ms=0.0, device_ms=0.0, host_ms=0.0)
+    worst = dict(rect_rel_l2=0.0, phase_err_weighted=0.0)
+    for n, hop, samples in K4_STFT:
+        if stft_kernel_refusal(n, hop, samples) is not None:
+            raise SystemExit(f"k4_stft geometry {n, hop, samples} refused")
+        gauss = torch.randn(8, samples, device="cuda", generator=g)
+        data = {"gaussian": gauss,
+                "zeros": torch.zeros(8, samples, device="cuda"),
+                "dc": torch.full((8, samples), 0.25, device="cuda")}
+        for kind, audio in data.items():
+            for trim in (True, False):
+                for normalized in (True, False):
+                    args = (audio, n, hop, normalized, trim)
+                    where = (f"K4 stft N={n} {kind} trim={trim} "
+                             f"normalized={normalized}")
+                    got = stft_features(*args)
+                    want = stft_features_plain(*args)
+                    mp = stft_features(*args, polar=True)
+                    torch.cuda.synchronize()
+                    if kind == "zeros":
+                        if bool(got.any()) or bool(mp[:, 0].any()):
+                            raise SystemExit(f"{where}: zero audio gave "
+                                             f"non-zero features")
+                        continue
+                    err = _rel_check(f"{where} (re, im)", got, want, tol)
+                    d = got.double() - want.double()
+                    rel = (torch.linalg.vector_norm(d) / torch.linalg
+                           .vector_norm(want.double())).item()
+                    worst["rect_rel_l2"] = max(worst["rect_rel_l2"], rel)
+                    rep["err"] = max(rep["err"], err)
+                    zero_bins = [0] + ([] if trim else [n // 2])
+                    if bool(got[:, 1, :, zero_bins].any()):
+                        raise SystemExit(f"{where}: the DC / Nyquist bins' "
+                                         f"imaginary parts are not 0")
+                    mag = want.square().sum(1).sqrt()
+                    _rel_check(f"{where} magnitude", mp[:, 0], mag, tol)
+                    ph_ref = torch.atan2(want[:, 1], want[:, 0])
+                    weighted, top = _wrapped_phase_err(mp[:, 1], ph_ref, mag)
+                    if weighted > 1e-5:
+                        raise SystemExit(f"{where}: phase error weighted by "
+                                         f"magnitude {weighted} > 1e-5")
+                    worst["phase_err_weighted"] = max(
+                        worst["phase_err_weighted"], weighted)
+            if kind == "gaussian":
+                fields = {}
+                for trim in (True, False):
+                    args = (audio, n, hop, True, trim)
+                    out = stft_features(*args)
+                    window = hamming_window(n, device="cuda")
+                    kernel = lambda: stft_features(*args)  # noqa: E731
+                    lib = lambda: torch.stft(  # noqa: E731
+                        audio, n, hop, window=window, center=True,
+                        pad_mode="reflect", return_complex=True)
+                    t = dict(ms=cuda_ms(kernel),
+                             plain_ms=cuda_ms(
+                                 lambda: stft_features_plain(*args)),
+                             polar_ms=cuda_ms(
+                                 lambda: stft_features(*args, polar=True)),
+                             polar_plain_ms=cuda_ms(
+                                 lambda: stft_features_plain(*args,
+                                                             polar=True)),
+                             library_ms=cuda_ms(lib))
+                    dev_ms, host_ms = split_ms(kernel)
+                    frames = out.shape[0] * out.shape[2]
+                    half = n // 2
+                    n_bytes = nbytes(audio, out)
+                    flops = frames * (n + 5 * half * math.log2(half)
+                                      + 12 * out.shape[-1])
+                    key = "trim" if trim else "untrimmed"
+                    fields[key] = dict(t, device_ms=dev_ms, host_ms=host_ms,
+                                       bound_ms=bound_ms(n_bytes, flops)[0],
+                                       shape=list(out.shape))
+                    if n == 256:  # the flagships: fusion trims, frames not
+                        for k in ("ms", "plain_ms", "library_ms"):
+                            rep[k] += t[k]
+                        rep["device_ms"] += dev_ms
+                        rep["host_ms"] += host_ms
+                        rep["bytes"] += n_bytes
+                        rep["flops"] += flops
+                phase("k4_stft", fft_len=n, hop=hop, samples=samples,
+                      batch=8, **fields)
+    rep["bound"] = bound_ms(rep["bytes"], rep["flops"])
+    # the profile names of each route's device kernels: the plain route's
+    # rfft is a cuFFT kernel named *fft*r2c* (what _no_rfft_kernels reads);
+    # the kernel route runs no other kernel (its one launch a call is the
+    # wrapper's count; late in a long process the profiler may list no
+    # kernel for it at all)
+    audio = torch.randn(8, 66 * 96, device="cuda", generator=g)
+    routes = {name: sorted(_kernel_names(lambda fn=fn: fn(audio, 256, 66)))
+              for name, fn in (("kernel", stft_features),
+                               ("plain", stft_features_plain))}
+    if (not set(routes["kernel"]) <= {"stft_feat_kernel"}
+            or not any("fft" in k.lower() and "r2c" in k.lower()
+                       for k in routes["plain"])):
+        raise SystemExit(f"k4_stft: device kernels by route {routes}")
+    phase("k4_stft_checks", geometries=[list(x) for x in K4_STFT],
+          data=["gaussian", "zeros", "dc"], tol_rel_l2=tol,
+          phase_tol_weighted=1e-5, **worst, device_kernels=routes,
+          main={k: v for k, v in rep.items() if k not in ("bytes", "flops")})
+    return rep
+
+
 def _fusion_counters():
     from maavss_tpu_torch.ops.cuda_adam import adam_multi_tensor
     from maavss_tpu_torch.ops.cuda_lstm import (
@@ -2290,7 +2716,7 @@ def _fusion_counters():
     from maavss_tpu_torch.ops.cuda_pgenc import pgenc_bwd, pgenc_train
 
     return (("lstm_fwd", "lstm_bwd", "pgenc_train", "pgenc_bwd", "adam",
-             "mask_mul", "magphase", "polar"),
+             *K4_NAMES),
             (lstm_recurrence, lstm_recurrence_bwd, pgenc_train, pgenc_bwd,
              adam_multi_tensor, *_k4_counters()))
 
@@ -2304,7 +2730,7 @@ def _frames_counters():
 
     return (("lstm_fwd", "lstm_bwd", "adam", "epilogue_stats",
              "epilogue_apply", "epilogue_bwd_reduce", "epilogue_bwd_dy",
-             "mask_mul", "magphase", "polar"),
+             *K4_NAMES),
             (lstm_recurrence, lstm_recurrence_bwd, adam_multi_tensor,
              *_epilogue_counters(), *_k4_counters()))
 
@@ -2317,11 +2743,13 @@ def _plain_cfg(cfg, frames_model: bool, k2_plain: bool = True):
     return cfg.replace(pgenc_kernel="xla", opt_kernel="xla")
 
 
-def _train_pair(cfg, frames_model: bool, k2_plain: bool = True):
+def _train_pair(cfg, frames_model: bool, k2_plain: bool = True,
+                kernel_features: bool = False):
     """(model, state, step, ref, ref_state, ref_step) at batch 8: the
     flagship of `cfg` with every kernel, and the plain versions from the same
     state_dict (ConvStack unless `k2_plain` is False, the LSTM scan, the
-    plain Adam formula, K5's and K4's plain versions)."""
+    plain Adam formula, K5's and K4's plain versions; the STFT kernel's
+    features on both sides with `kernel_features`)."""
     import torch
 
     from maavss_tpu_torch.train import setup
@@ -2343,7 +2771,8 @@ def _train_pair(cfg, frames_model: bool, k2_plain: bool = True):
     ref.load_state_dict(model.state_dict())
     ref.lstm.backend = "scan"
     ref_state = create_train_state(ref, plain_cfg, "cuda")
-    ref_step = _plain_k4(make_step(ref, plain_cfg, device="cuda"))
+    ref_step = _plain_k4(make_step(ref, plain_cfg, device="cuda"),
+                         kernel_features)
     if frames_model:
         ref_step = _plain_k5(ref_step)
     return (model, state, make_step(model, cfg, device="cuda"), ref,
@@ -2367,7 +2796,8 @@ def _grab_step1_grads(state, model):
     return grads
 
 
-def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True):
+def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
+                           kernel_features=False):
     """The step-1 gradients of the plain versions once more, from `ref`'s
     state_dict, on `batch` with its rows in reverse order and with the
     batch statistics of every TorchBatchNorm summed in fp64: the same
@@ -2393,7 +2823,7 @@ def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True):
     alt_state = create_train_state(alt, plain_cfg, "cuda")
     grads = _grab_step1_grads(alt_state, alt)
     step = _plain_k4((make_frames_step if frames_model else make_fusion_step)(
-        alt, plain_cfg, device="cuda"))
+        alt, plain_cfg, device="cuda"), kernel_features)
     if frames_model:
         step = _plain_k5(step)
 
@@ -2508,20 +2938,22 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
 
 
 def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
-                    k2_plain=True):
+                    k2_plain=True, kernel_features=False, profile=None):
     """`steps` steps of the flagship of `cfg` (mode 2) with every kernel
     against the plain versions from one state_dict: exact launch counts per
     step (`want`, by counter name; the plain run launches none but K2's
-    when `k2_plain` is False), per-step losses at relative 1e-4, the leaves
-    after step 1 as `_step1_close`. Then the step times, in turns, of the
-    kernel step and of each (label, fn, state) of `timed`."""
+    when `k2_plain` is False and the STFT kernel's with `kernel_features`),
+    per-step losses at relative 1e-4, the leaves after step 1 as
+    `_step1_close`. Then the step times, in turns, of the kernel step and of
+    each (label, fn, state) of `timed`, and with `profile` a torch.profiler
+    breakdown of one kernel step under that label."""
     import torch
 
     from maavss_tpu_torch.data.synthetic import synthetic_av_batch
 
     lr, tol, enc_tol = cfg.learning_rate, 1e-4, 2e-3
     model, state, step, ref, ref_state, ref_step = _train_pair(
-        cfg, frames_model, k2_plain)
+        cfg, frames_model, k2_plain, kernel_features)
     names, counters = _frames_counters() if frames_model \
         else _fusion_counters()
     want = {n: want.get(n, 0) for n in names}
@@ -2541,7 +2973,7 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
     grads = [_grab_step1_grads(st, mod) for st, mod in ((state, model),
                                                          (ref_state, ref))]
     alt_grads = _reordered_step1_grads(cfg, ref, batches[0], frames_model,
-                                       k2_plain)
+                                       k2_plain, kernel_features)
     for i, batch in enumerate(batches):
         state, m, launches = run(step, state, batch)
         if launches != want:
@@ -2551,6 +2983,8 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
         if not k2_plain:
             for n in ("pgenc_train", "pgenc_bwd"):
                 ref_launches[n] -= want[n]
+        if kernel_features:
+            ref_launches["stft"] -= want["stft"]
         if any(ref_launches.values()):
             raise SystemExit(f"{what}: the plain step launched kernels: "
                              f"{ref_launches}")
@@ -2570,6 +3004,9 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
         for label, fn, st in turns:
             times.setdefault(label, []).append(
                 cuda_ms(lambda: fn(st, batches[0], 2), reps=3, iters=1))
+    if profile:
+        _no_rfft_kernels(what, profile_phase(
+            profile, lambda: step(state, batches[0], 2), calls=1))
     out = dict(batch=cfg.batch_size, mode=2, lr=lr, steps=steps,
                losses=losses, plain_losses=ref_losses, loss_rel_diff=max(rel),
                tol=tol, launches_per_step=want, **worst)
@@ -2586,9 +3023,11 @@ def mask_train_phase():
     windows, mode 2, lr 1e-3, noise 0) and the frames flagship, 3 steps
     each with every kernel against the plain versions from one state_dict,
     under the gates of the train and frames_train phases. The STFT input of
-    the mask is data, so each window launches the mask product once forward
-    and once backward (d_mask only). The fusion step with the default head
-    (a model of the same width and seed) is timed in turns beside."""
+    the mask is data, so each window launches the fused head once forward
+    and once backward (d_h, dW, db; no d_stft) and the standalone mask
+    product never; the STFT kernel runs once a step. The fusion step with
+    the default head (a model of the same width and seed) is timed in turns
+    beside."""
     import torch
 
     from maavss_tpu_torch.config import RunConfig
@@ -2604,26 +3043,27 @@ def mask_train_phase():
     fusion = _train_vs_plain(
         "mask_train fusion", cfg, False,
         dict(lstm_fwd=ns, lstm_bwd=ns, pgenc_train=10 * ns,
-             pgenc_bwd=10 * ns, adam=1, mask_mul=2 * ns),
+             pgenc_bwd=10 * ns, adam=1, mask_head=ns, mask_head_bwd=ns,
+             stft=1),
         timed=(("default_head", make_fusion_step(default, default_cfg,
                                                  device="cuda"),
-                default_state),))
+                default_state),), profile="mask_train_profile")
     del default, default_state
     os.environ.pop("MAAVSS_S2D_MIN_HW", None)  # the default, 128
     frames = _train_vs_plain(
         "mask_train frames", cfg, True,
         dict(lstm_fwd=ns, lstm_bwd=ns, adam=1, epilogue_stats=2 * ns,
              epilogue_apply=2 * ns, epilogue_bwd_reduce=2 * ns,
-             epilogue_bwd_dy=2 * ns, mask_mul=2 * ns))
+             epilogue_bwd_dy=2 * ns, mask_head=ns, mask_head_bwd=ns, stft=1))
     phase("mask_train", fusion=fusion, frames=frames)
-    return fusion["launches_per_step"]["mask_mul"] + \
-        frames["launches_per_step"]["mask_mul"]
+    return {n: fusion["launches_per_step"][n] + frames["launches_per_step"][n]
+            for n in K4_NAMES}
 
 
-def _serve_pair(cfg, frames_model: bool):
+def _serve_pair(cfg, frames_model: bool, kernel_features: bool = False):
     """(serve, serve_ref, model) at batch 8: the serving function of the
     flagship of `cfg` with every kernel, and of the plain versions from the
-    same state_dict."""
+    same state_dict (the STFT kernel's features with `kernel_features`)."""
     import torch
 
     from maavss_tpu_torch.exp.export import make_serving_fn
@@ -2638,15 +3078,17 @@ def _serve_pair(cfg, frames_model: bool):
     ref.load_state_dict(model.state_dict())
     ref.lstm.backend = "scan"
     return (make_serving_fn(model, cfg, frames_model),
-            _plain_k4(make_serving_fn(ref, plain_cfg, frames_model)), model)
+            _plain_k4(make_serving_fn(ref, plain_cfg, frames_model),
+                      kernel_features), model)
 
 
 def mask_slice_phase():
     """The full-width fusion model with --mask_head (seeded random weights)
     behind the HTTP server: 8 requests of 1..8 rows against the plain
     separator (the plain versions of K1, K2 and K4) at relative L2 1e-4;
-    the mask product reads each window of the clip's STFT in place, once per
-    window of every batch."""
+    the fused head reads each window of the clip's STFT in place, one
+    launch per window of every batch, and the STFT kernel runs once a
+    batch."""
     import numpy as np
     import torch
 
@@ -2700,9 +3142,11 @@ def mask_slice_phase():
         client.close()
         server.stop()
     batches = stats["batches"]
-    if (batches < 1 or launches["mask_mul"] != batches * cfg.num_seq
+    if (batches < 1 or launches["mask_head"] != batches * cfg.num_seq
             or launches["lstm_fwd"] != batches * cfg.num_seq
-            or launches["magphase"] or launches["polar"]):
+            or launches["stft"] != batches or launches["mask_head_bwd"]
+            or launches["mask_mul"] or launches["magphase"]
+            or launches["polar"]):
         raise SystemExit(f"mask_slice launches {launches} for {batches} "
                          f"batches of {cfg.num_seq} windows")
     worst = 0.0
@@ -2726,7 +3170,7 @@ def mask_slice_phase():
           p90_ms=lat[min(len(lat) - 1, int(0.9 * len(lat)))],
           direct_batch8_ms=direct_ms, direct_batch8_plain_ms=direct_plain_ms,
           launches=launches)
-    return launches["mask_mul"]
+    return launches
 
 
 def _istft_polar_extra(cfg):
@@ -2770,12 +3214,16 @@ def _istft_polar_extra(cfg):
 
 def polar_phase():
     """--use_polar at full width: 3 fusion train steps and 3 frames train
-    steps (the features through the magphase kernel once per step) with
-    every kernel against the plain versions, under the gates of
-    `_train_vs_plain`; then the serving function of each family (magphase
-    on the clip, the polar kernel before the iSTFT, once per call) against
-    the plain versions at relative L2 1e-4. The fusion steps run K2 on both
-    sides: under this loss the step-1 gradients of both encoders move by up
+    steps (the polar features from the STFT kernel once per step, no
+    standalone magphase) with every kernel against the plain versions,
+    under the gates of `_train_vs_plain`; then the serving function of each
+    family (the STFT kernel on the clip, the polar kernel before the iSTFT,
+    once per call) against the plain versions at relative L2 1e-4. Both
+    sides take the STFT kernel's features (`_plain_k4`): the clip's first
+    frame is real, and the sign of its rounding-noise imaginary parts, a
+    phase of +pi or -pi, is the FFT's own; each family's features are held
+    against stft_features_plain here with phases wrapped, as in k4_stft.
+    The fusion steps run K2 on both sides: under this loss the step-1 gradients of both encoders move by up
     to ~3e-4 when the phasegram latent moves by the ~3e-6 that K2 and
     ConvStack differ by in fp32, and the plain step fed K2's latent moves
     the same (tools/polar_grad_probe.py); K2 is held against ConvStack in
@@ -2792,31 +3240,36 @@ def polar_phase():
     fusion = _train_vs_plain(
         "polar fusion train", cfg, False,
         dict(lstm_fwd=ns, lstm_bwd=ns, pgenc_train=10 * ns,
-             pgenc_bwd=10 * ns, adam=1, magphase=1), k2_plain=False)
+             pgenc_bwd=10 * ns, adam=1, stft=1), k2_plain=False,
+        kernel_features=True)
     os.environ.pop("MAAVSS_S2D_MIN_HW", None)
     frames = _train_vs_plain(
         "polar frames train", cfg, True,
         dict(lstm_fwd=ns, lstm_bwd=ns, adam=1, epilogue_stats=2 * ns,
              epilogue_apply=2 * ns, epilogue_bwd_reduce=2 * ns,
-             epilogue_bwd_dy=2 * ns, magphase=1))
+             epilogue_bwd_dy=2 * ns, stft=1), kernel_features=True)
     served, tol = {}, 1e-4
-    launches = {"magphase": fusion["launches_per_step"]["magphase"]
-                + frames["launches_per_step"]["magphase"], "polar": 0}
+    launches = {n: fusion["launches_per_step"][n]
+                + frames["launches_per_step"][n] for n in K4_NAMES}
     for frames_model in (False, True):
         family = "frames" if frames_model else "fusion"
         serve, serve_ref, _ = _serve_pair(cfg.replace(noise_scalar=0.0),
-                                          frames_model)
+                                          frames_model, kernel_features=True)
         inputs = [torch.from_numpy(x).cuda() for x in random_serving_inputs(
             cfg, 8, frames_model, seed=500)]
         for c in _k4_counters():
             c.launches = 0
         got = serve(*inputs)
         torch.cuda.synchronize()
-        counts = [c.launches for c in _k4_counters()]
-        if counts != [0, 1, 1]:
+        counts = dict(zip(K4_NAMES, (c.launches for c in _k4_counters())))
+        if counts != dict(mask_mul=0, magphase=0, polar=1, mask_head=0,
+                          mask_head_bwd=0, stft=1):
             raise SystemExit(f"polar {family} serving: K4 launches {counts} "
-                             f"!= [0, 1, 1]")
-        launches["polar"] += counts[2]
+                             f"!= one polar and one STFT launch")
+        for n in K4_NAMES:
+            launches[n] += counts[n]
+        feats = _polar_features_close(f"polar {family}", cfg, inputs[0],
+                                      frames_model)
         got = got.cpu().numpy()
         want = serve_ref(*inputs).cpu().numpy()
         err = _rel_l2(got, want)
@@ -2825,7 +3278,7 @@ def polar_phase():
             raise SystemExit(f"polar {family} served audio vs plain rel L2 "
                              f"{err} > {tol}")
         served[family] = dict(
-            rel_l2_vs_plain=err, tol=tol, k4_launches=counts,
+            rel_l2_vs_plain=err, tol=tol, k4_launches=counts, features=feats,
             direct_batch8_ms=cuda_ms(lambda: serve(*inputs), reps=3,
                                      iters=3),
             direct_batch8_plain_ms=cuda_ms(lambda: serve_ref(*inputs),
@@ -2855,8 +3308,8 @@ def k4_golden_phase():
     separator takes the fixture's JAX features in place of its own: the
     clip's first frame is real (even-symmetric after reflect padding), and
     the sign of its rounding-noise imaginary parts, so a phase of +pi or
-    -pi, differs between cuFFT and the CPU FFT (tests/test_torch_k4.py);
-    the magphase kernel is held against its plain version in the k4 and
+    -pi, differs between FFTs (tests/test_torch_k4.py); the STFT kernel's
+    polar features are held against their plain version in the k4_stft and
     polar phases."""
     import numpy as np
     import torch
@@ -2939,8 +3392,9 @@ def k4_golden_phase():
     if audio.shape != want_polar.shape or err_polar > tol:
         raise SystemExit(f"k4 golden --use_polar audio rel L2 {err_polar} > "
                          f"{tol}")
-    counts = [c.launches for c in _k4_counters()]
-    if not (counts[0] and counts[2]):
+    counts = dict(zip(K4_NAMES, (c.launches for c in _k4_counters())))
+    if not (counts["mask_head"] and counts["mask_head_bwd"]
+            and counts["polar"] and counts["stft"]):
         raise SystemExit(f"the k4 golden run missed a K4 kernel: {counts}")
     phase("k4_golden", cfg=meta["cfg"], mask_audio_rel_l2_vs_jax=err_mask,
           losses=losses, jax_losses=meta["losses"], loss_rel_diff=rel,
@@ -2975,12 +3429,14 @@ def main() -> None:
     train_golden_phase()
     k5 = k5_phase()
     frames = frames_train_phase()
-    frames_slice_phase()
+    frames_serve = frames_slice_phase()
     frames_golden_phase()
     k4 = k4_phase()
-    mask_launches = mask_train_phase()
-    mask_slice_phase()
-    polar_launches = polar_phase()
+    head = k4_head_phase()
+    stft = k4_stft_phase()
+    mask_train = mask_train_phase()
+    mask_serve = mask_slice_phase()
+    polar = polar_phase()
     k4_golden_phase()
     if any(m in sys.modules for m in ("jax", "flax", "maavss_tpu")):
         raise SystemExit("the port loaded jax or maavss_tpu")
@@ -3015,15 +3471,21 @@ def main() -> None:
                        frames[f"epilogue_{n}"], k5[n])
           for n, line in (("stats", 141), ("apply", 159),
                           ("bwd_reduce", 183), ("bwd_dy", 206))),
-        kernel_entry("mask_mul", "spectral.cu",
-                     "maavss_tpu/ops/pallas_kernels.py:44", mask_launches,
-                     k4["mask_mul"]),
-        kernel_entry("magphase", "spectral.cu",
+        kernel_entry("mask_head", "mask_head.cu",
+                     "maavss_tpu/ops/pallas_kernels.py:44",
+                     mask_train["mask_head"] + mask_serve["mask_head"],
+                     head["fwd"]),
+        kernel_entry("mask_head_bwd", "mask_head.cu",
+                     "maavss_tpu/ops/pallas_kernels.py:44",
+                     mask_train["mask_head_bwd"], head["bwd"]),
+        kernel_entry("stft_feat", "stft_feat.cu",
                      "maavss_tpu/ops/pallas_kernels.py:101",
-                     polar_launches["magphase"], k4["magphase"]),
+                     serve["stft"] + train["stft"] + frames["stft"]
+                     + frames_serve["stft"] + mask_train["stft"]
+                     + mask_serve["stft"] + polar["stft"], stft),
         kernel_entry("polar", "spectral.cu",
-                     "maavss_tpu/ops/pallas_kernels.py:143",
-                     polar_launches["polar"], k4["polar"]),
+                     "maavss_tpu/ops/pallas_kernels.py:143", polar["polar"],
+                     k4["polar"]),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

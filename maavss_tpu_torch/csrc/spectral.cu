@@ -8,11 +8,13 @@
 //   magphase  _magphase_kernel  (the one in magphase)
 //             (re, im) -> (sqrt(re*re + im*im), atan2(im, re))
 //   polar     _polar_kernel     (the one in polar_to_rect)
-//             (mag, ph) -> (mag * cos(ph), mag * sin(ph)), in two output
-//             forms: planar like the others, or the interleaved complex64
-//             spectrum [n, t, f_out] that the iSTFT's irfft reads, with the
-//             bins f .. f_out-1 (the Nyquist bin the features trim) written
-//             as 0; the values are the planar form's, bit for bit
+//             (mag, ph) -> (mag * cos(ph), mag * sin(ph)), written as the
+//             interleaved complex64 spectrum [n, t, f_out] that the iSTFT's
+//             irfft reads, with the bins f .. f_out-1 (the Nyquist bin the
+//             features trim) written as 0; polar_to_rect is its real view
+// On the models' paths the mask product runs inside the --mask_head head's
+// kernel (csrc/mask_head.cu) and magphase inside the STFT's
+// (csrc/stft_feat.cu); these launchers are the standalone forms.
 // The arithmetic follows the TPU kernels' formulas. Every product and sum is
 // rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn, which nvcc never
 // contracts into an fma), in the order the plain PyTorch versions round
@@ -220,15 +222,6 @@ extern "C" int maavss_magphase(const float* x, long long x_bs, long long x_ps,
   const In in{x, x_bs, x_ps, x_rs};
   return launch(in, in, Out{o, o_bs, o_ps, o_rs}, n, t, f, MagPhase{},
                 stream);
-}
-
-// (mag, phase) -> (re, im).
-extern "C" int maavss_polar(const float* x, long long x_bs, long long x_ps,
-                            long long x_rs, float* o, long long o_bs,
-                            long long o_ps, long long o_rs, int n, int t,
-                            int f, void* stream) {
-  const In in{x, x_bs, x_ps, x_rs};
-  return launch(in, in, Out{o, o_bs, o_ps, o_rs}, n, t, f, Polar{}, stream);
 }
 
 // (mag, phase) planar -> the complex64 spectrum [n, t, f_out] (interleaved

@@ -31,7 +31,7 @@ from maavss_tpu_torch.models.shape_plan import (
     plan_stft_decoder_fusion,
     plan_stft_encoder_fusion,
 )
-from maavss_tpu_torch.ops.cuda_complex import complex_mask_apply
+from maavss_tpu_torch.ops.cuda_mask_head import mask_head_apply
 
 LSTM_HIDDEN = 256
 
@@ -133,14 +133,15 @@ class AVFusionModel(nn.Module):
         """Window latents [B,C,t,s] + the window's STFT input ->
         (ŷ_stft, ŷ_pgram, fused); heads are linear + LeakyReLU(0.3), or,
         with `mask_head`, the audio head's output is a complex ratio mask
-        applied to the input STFT (the complex-mask kernel)."""
+        applied to the input STFT, in the head's own kernel
+        (ops/cuda_mask_head.py)."""
         fused = self.av_fusion_forward(x_a_enc, x_v_enc)
-        x_a_head = self.a_fc1(fused)
         if self.mask_head:
-            x_a_out = complex_mask_apply(x_a, x_a_head.reshape(x_a.shape))
+            x_a_out = mask_head_apply(fused, self.a_fc1.weight,
+                                      self.a_fc1.bias, x_a)
         else:
-            x_a_out = F.leaky_relu(x_a_head, negative_slope=0.3).reshape(
-                x_a.shape)
+            x_a_out = F.leaky_relu(self.a_fc1(fused),
+                                   negative_slope=0.3).reshape(x_a.shape)
         x_v_out = F.leaky_relu(self.v_fc1(fused), negative_slope=0.3)
         x_v_out = x_v_out.reshape((-1,) + self.pgram_shape[1:])
         return x_a_out, x_v_out, fused

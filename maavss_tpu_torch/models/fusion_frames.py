@@ -46,7 +46,7 @@ from maavss_tpu_torch.models.shape_plan import (
     plan_stft_decoder_frames,
     plan_stft_encoder_frames,
 )
-from maavss_tpu_torch.ops.cuda_complex import complex_mask_apply
+from maavss_tpu_torch.ops.cuda_mask_head import mask_head_apply
 
 LSTM_HIDDEN = 256
 # (out channels, spatial conv padding (lo, hi), pool) per stage; None is the
@@ -148,11 +148,10 @@ class AVFusionFramesModel(nn.Module):
         a_shape = (b, 2, self.hops_per_frame, self.stft_shape[-1])
         if self.mask_head:
             # the mask multiplies the mixture's middle-frame columns, read
-            # in place by the complex-mask kernel
+            # in place by the head's kernel
             lo = self.mask_mid_frame * self.hops_per_frame
             x_mid = x_a[:, :, lo:lo + self.hops_per_frame]
-            x_a_out = complex_mask_apply(x_mid,
-                                         self.a_fc1(fused).reshape(a_shape))
+            x_a_out = mask_head_apply(fused, self.a_fc1.weight, None, x_mid)
         else:
             x_a_out = torch.tanh(self.a_fc1(fused)).reshape(a_shape)
         x_v_out = torch.sigmoid(self.v_fc1(fused)).reshape(

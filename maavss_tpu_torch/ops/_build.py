@@ -150,11 +150,23 @@ def library():
     planar = [p, ll, ll, ll]  # pointer, item / plane / row strides
     lib.maavss_mask_mul.argtypes = planar * 3 + [i] * 4 + [p]
     lib.maavss_mask_mul.restype = i
-    for name in ("maavss_magphase", "maavss_polar"):
-        getattr(lib, name).argtypes = planar * 2 + [i] * 3 + [p]
-        getattr(lib, name).restype = i
+    lib.maavss_magphase.argtypes = planar * 2 + [i] * 3 + [p]
+    lib.maavss_magphase.restype = i
     lib.maavss_polar_spectrum.argtypes = planar + [p] + [i] * 4 + [p]
     lib.maavss_polar_spectrum.restype = i
+    # h, W, bias, stft (planar), out, mask, M, K, T, F, stream
+    lib.maavss_mask_head_fwd.argtypes = [p] * 3 + planar + [p, p] + [i] * 4 \
+        + [p]
+    lib.maavss_mask_head_fwd.restype = i
+    # g, stft (planar), h, W, dh, dW, db, scratch, M, K, T, F, stream
+    lib.maavss_mask_head_bwd.argtypes = planar * 2 + [p] * 6 + [i] * 4 + [p]
+    lib.maavss_mask_head_bwd.restype = i
+    lib.maavss_mask_head_bwd_scratch.argtypes = [i] * 4
+    lib.maavss_mask_head_bwd_scratch.restype = ll
+    # audio, row stride, B, S, N, hop, T, F, window, twiddles, norm, polar,
+    # out, stream
+    lib.maavss_stft_feat.argtypes = [p, ll] + [i] * 6 + [p, p, f, i, p, p]
+    lib.maavss_stft_feat.restype = i
     return lib
 
 

@@ -12,15 +12,16 @@ axis -3 holding (real, imag) or (magnitude, phase):
 - `magphase(stft_ri)`: (re, im) -> (sqrt(re^2 + im^2), atan2(im, re)), the
   `--use_polar` features.
 - `polar_to_rect(stft_mp)`: (mag, ph) -> (mag cos ph, mag sin ph), planar
-  as the JAX function returns it.
+  as the JAX function returns it: the real view of `polar_to_spectrum`'s
+  spectrum with its last axis moved to -3 (one launch, no copy; the planes
+  then interleave).
 - `polar_to_spectrum(stft_mp, pad_bins)`: the same conversion written as
   the complex64 spectrum `[..., T, F + pad_bins]` that `torch.fft.irfft`
   reads, the `pad_bins` trailing bins 0 (the Nyquist bin the features
   trim): the `--use_polar` resynthesis, one launch of the polar kernel in
   its second output form.
 
-The backward of `magphase`, `polar_to_rect` and `polar_to_spectrum` is
-plain PyTorch, the JAX VJPs (pallas_kernels.py:126-137,169-177) with the
+The backward of `magphase` and `polar_to_spectrum` is plain PyTorch, the JAX VJPs (pallas_kernels.py:126-137,169-177) with the
 same 1e-24 guard at the origin: the JAX package has no backward kernel for them, and no path of
 the system differentiates them. Every function raises unless axis -3 has
 size 2 (the JAX functions read channels 0 and 1 of any width).
@@ -29,8 +30,11 @@ The three kernels sit behind wrappers that launch them on CUDA tensors
 (fp32; the leading axes must collapse into one stride and the last axis be
 contiguous; no copy is made and nothing falls back) and run the plain
 versions on CPU tensors, and that count their launches in `.launches`:
-`mask_mul(a, b, conj=False)`, `magphase_fwd(x)`, `polar_fwd(x)`,
-`polar_spectrum_fwd(x, pad_bins)`. The
+`mask_mul(a, b, conj=False)`, `magphase_fwd(x)`,
+`polar_spectrum_fwd(x, pad_bins)`. The models' `--mask_head` runs the mask
+product inside the head's kernel (ops/cuda_mask_head.py) and the STFT
+features run magnitude and phase inside the STFT kernel (ops/stft.py);
+these functions stay the public counterparts of the JAX ones. The
 `*_plain` public functions are the same functions and backward through the
 plain versions on any device: the reference the kernels are held against
 on the card.
@@ -177,19 +181,6 @@ def magphase_fwd(x: torch.Tensor) -> torch.Tensor:
 magphase_fwd.launches = 0
 
 
-def polar_fwd(x: torch.Tensor) -> torch.Tensor:
-    """(mag, phase) -> (re, im), planar [..., 2, T, F]."""
-    _check_planar("polar_to_rect", x)
-    if not x.is_cuda:
-        return polar_fwd_plain(x)
-    out = _launch("polar_to_rect", "maavss_polar", (x,))
-    polar_fwd.launches += 1
-    return out
-
-
-polar_fwd.launches = 0
-
-
 def polar_spectrum_fwd(x: torch.Tensor, pad_bins: int = 0) -> torch.Tensor:
     """(mag, phase) planar [..., 2, T, F] -> complex64 [..., T, F + pad_bins]
     with the last pad_bins bins 0."""
@@ -249,9 +240,9 @@ class _MaskApply(torch.autograd.Function):
 class _MagPhase(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, stft_ri, plain):
+    def forward(ctx, stft_ri):
         ctx.save_for_backward(stft_ri)
-        return (magphase_fwd_plain if plain else magphase_fwd)(stft_ri)
+        return magphase_fwd(stft_ri)
 
     @staticmethod
     def backward(ctx, g):
@@ -261,24 +252,7 @@ class _MagPhase(torch.autograd.Function):
         m2 = torch.clamp(re * re + im * im, min=1e-24)
         m = torch.sqrt(m2)
         return torch.stack([gm * re / m - gp * im / m2,
-                            gm * im / m + gp * re / m2], dim=-3), None
-
-
-class _Polar(torch.autograd.Function):
-
-    @staticmethod
-    def forward(ctx, stft_mp, plain):
-        ctx.save_for_backward(stft_mp)
-        return (polar_fwd_plain if plain else polar_fwd)(stft_mp)
-
-    @staticmethod
-    def backward(ctx, g):
-        (stft_mp,) = ctx.saved_tensors
-        mag, ph = _planes(stft_mp)
-        gre, gim = _planes(g)
-        c, s = torch.cos(ph), torch.sin(ph)
-        return torch.stack([gre * c + gim * s, mag * (gim * c - gre * s)],
-                           dim=-3), None
+                            gm * im / m + gp * re / m2], dim=-3)
 
 
 class _PolarSpectrum(torch.autograd.Function):
@@ -311,13 +285,14 @@ def complex_mask_apply(stft_ri: torch.Tensor,
 def magphase(stft_ri: torch.Tensor) -> torch.Tensor:
     """[..., 2(re, im), T, F] -> [..., 2(mag, phase), T, F]."""
     _check_planar("magphase", stft_ri)
-    return _MagPhase.apply(stft_ri, False)
+    return _MagPhase.apply(stft_ri)
 
 
 def polar_to_rect(stft_mp: torch.Tensor) -> torch.Tensor:
-    """[..., 2(mag, phase), T, F] -> [..., 2(re, im), T, F]."""
+    """[..., 2(mag, phase), T, F] -> [..., 2(re, im), T, F], a view of the
+    spectrum `polar_to_spectrum(stft_mp, 0)` writes."""
     _check_planar("polar_to_rect", stft_mp)
-    return _Polar.apply(stft_mp, False)
+    return torch.view_as_real(polar_to_spectrum(stft_mp, 0)).movedim(-1, -3)
 
 
 def polar_to_spectrum(stft_mp: torch.Tensor,
@@ -334,14 +309,10 @@ def complex_mask_apply_plain(stft_ri: torch.Tensor,
     return _MaskApply.apply(stft_ri, mask_ri, True)
 
 
-def magphase_plain(stft_ri: torch.Tensor) -> torch.Tensor:
-    _check_planar("magphase", stft_ri)
-    return _MagPhase.apply(stft_ri, True)
-
-
 def polar_to_rect_plain(stft_mp: torch.Tensor) -> torch.Tensor:
     _check_planar("polar_to_rect", stft_mp)
-    return _Polar.apply(stft_mp, True)
+    return torch.view_as_real(polar_to_spectrum_plain(stft_mp, 0)).movedim(
+        -1, -3)
 
 
 def polar_to_spectrum_plain(stft_mp: torch.Tensor,

@@ -7,22 +7,32 @@ last time frame always dropped and the Nyquist bin dropped under `trim_end`.
 `istft` is the exact inverse of `stft` (overlap-add with division by the
 summed squared-window envelope), not torch.istft's normalization.
 
-Polar features (`polar=True`, --use_polar) are (magnitude, phase) from the
-magphase kernel, and go back through the polar kernel (ops/cuda_complex.py),
+`stft_features` runs on CUDA tensors as one launch of the hand-written
+kernel of `csrc/stft_feat.cu` (window, reflect padding, a shared-memory
+FFT, the norm and, for polar features (--use_polar), magnitude and phase in
+its epilogue; power-of-two `fft_len` from 16 to 2048, forward only) and
+counts its launches in `stft_features.launches`; on CPU tensors it runs
+`stft_features_plain`, the gather + rfft form with K4's plain magphase.
+Polar features go back through the polar kernel (ops/cuda_complex.py),
 which writes the complex spectrum the inverse reads, Nyquist bin included.
 
-Only the gather + rfft form of the forward is carried: the JAX package's
-conv-STFT is a TPU matrix-unit execution of the same math.
+Only the gather + rfft form of the plain forward is carried: the JAX
+package's conv-STFT is a TPU matrix-unit execution of the same math.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from maavss_tpu_torch.ops.cuda_complex import magphase, polar_to_spectrum
+from maavss_tpu_torch.ops.cuda_complex import (
+    magphase_fwd_plain,
+    polar_to_spectrum,
+)
 from maavss_tpu_torch.ops.windows import hamming_window
 
 
@@ -88,19 +98,101 @@ def istft(spec: torch.Tensor, fft_len: int, hop: int,
     return sig[..., :length]
 
 
-def stft_features(audio: torch.Tensor, fft_len: int, hop: int,
-                  normalized: bool = True, trim_end: bool = True,
-                  polar: bool = False) -> torch.Tensor:
-    """Audio `[..., samples]` -> features `[..., 2, T, F]` of (real, imag),
-    or (magnitude, phase) through the magphase kernel when `polar`.
-
-    The last time frame is always dropped; the Nyquist bin is dropped when
-    `trim_end` (av_dataset.py:171-174 in the reference)."""
+def stft_features_plain(audio: torch.Tensor, fft_len: int, hop: int,
+                        normalized: bool = True, trim_end: bool = True,
+                        polar: bool = False) -> torch.Tensor:
+    """`stft_features` in plain PyTorch, on any device, any fft_len, under
+    autograd: framing, rfft, norm, trim, stack, and K4's plain magphase."""
     spec = stft(audio, fft_len, hop, normalized=normalized)[..., :-1, :]
     if trim_end:
         spec = spec[..., :, :-1]
     feats = torch.stack([spec.real, spec.imag], dim=-3)
-    return magphase(feats) if polar else feats
+    return magphase_fwd_plain(feats) if polar else feats
+
+
+STFT_KERNEL_FFT_LENS = (16, 2048)  # the power-of-two fft_len the kernel takes
+
+
+def stft_kernel_refusal(fft_len: int, hop: int, samples: int
+                        ) -> Optional[str]:
+    """Why the STFT kernel cannot take this geometry, or None if it can."""
+    lo, hi = STFT_KERNEL_FFT_LENS
+    if not lo <= fft_len <= hi or fft_len & (fft_len - 1):
+        return (f"the STFT kernel takes a power-of-two fft_len from {lo} to "
+                f"{hi}, got {fft_len}")
+    if hop < 1:
+        return f"the STFT kernel needs hop >= 1, got {hop}"
+    if samples <= fft_len // 2:
+        return (f"reflect padding by fft_len // 2 = {fft_len // 2} needs "
+                f"more than that many samples, got {samples}")
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _stft_tables(fft_len: int, device: torch.device):
+    """(window [N] fp32, twiddles exp(-2 pi i k / N) [N / 2, 2] fp32, the
+    window's norm as a float) on `device`: the window and its norm by the
+    plain path's own code on the same device, so the same fp32 values; the
+    twiddles rounded from fp64."""
+    window = hamming_window(fft_len, dtype=torch.float32, device=device)
+    k = torch.arange(fft_len // 2, dtype=torch.float64)
+    ang = -2.0 * math.pi * k / fft_len
+    tw = torch.stack([torch.cos(ang), torch.sin(ang)], dim=-1).float()
+    return window, tw.to(device), float(_window_norm(window).item())
+
+
+def stft_features(audio: torch.Tensor, fft_len: int, hop: int,
+                  normalized: bool = True, trim_end: bool = True,
+                  polar: bool = False) -> torch.Tensor:
+    """Audio `[..., samples]` -> features `[..., 2, T, F]` of (real, imag),
+    or (magnitude, phase) when `polar`; T = samples // hop.
+
+    The last time frame is always dropped; the Nyquist bin is dropped when
+    `trim_end` (av_dataset.py:171-174 in the reference). On CUDA one launch
+    of the STFT kernel (fp32 audio whose last axis is contiguous and whose
+    leading axes collapse into one stride, no gradient; it raises on
+    anything else, an fft_len outside its limit included); on the CPU the
+    plain version."""
+    if not audio.is_cuda:
+        return stft_features_plain(audio, fft_len, hop, normalized,
+                                   trim_end, polar)
+    from maavss_tpu_torch.ops import _build
+
+    samples = audio.shape[-1]
+    refusal = stft_kernel_refusal(fft_len, hop, samples)
+    if refusal is not None:
+        raise ValueError(f"stft_features: {refusal}")
+    if audio.dtype != torch.float32:
+        raise TypeError(f"stft_features: the STFT kernel takes float32 "
+                        f"audio, got {audio.dtype}")
+    if audio.requires_grad:
+        raise ValueError("stft_features: the STFT kernel is forward only; "
+                         "audio that needs a gradient takes "
+                         "stft_features_plain")
+    try:
+        rows = audio.view(-1, samples)
+    except RuntimeError:
+        rows = None
+    if rows is None or (samples > 1 and rows.stride(1) != 1):
+        raise ValueError(f"stft_features: the STFT kernel needs a contiguous "
+                         f"last axis and leading axes of one stride, got "
+                         f"strides {audio.stride()}")
+    t_len = samples // hop
+    f_len = fft_len // 2 if trim_end else fft_len // 2 + 1
+    out = torch.empty(audio.shape[:-1] + (2, t_len, f_len),
+                      dtype=torch.float32, device=audio.device)
+    if out.numel() == 0:
+        return out
+    window, tw, norm = _stft_tables(fft_len, audio.device)
+    _build.launch("maavss_stft_feat", audio.device, (
+        rows.data_ptr(), rows.stride(0), rows.shape[0], samples, fft_len,
+        hop, t_len, f_len, window.data_ptr(), tw.data_ptr(),
+        norm if normalized else 0.0, int(polar), out.data_ptr()))
+    stft_features.launches += 1
+    return out
+
+
+stft_features.launches = 0
 
 
 def istft_features(feats: torch.Tensor, fft_len: int, hop: int,

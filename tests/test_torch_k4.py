@@ -260,10 +260,10 @@ def test_branch_cut_and_zeros_match_jax():
 
 @pytest.mark.parametrize("fn", [
     lambda x: cc.complex_mask_apply(x, x), cc.magphase, cc.polar_to_rect,
-    lambda x: cc.mask_mul(x, x), cc.magphase_fwd, cc.polar_fwd,
+    lambda x: cc.mask_mul(x, x), cc.magphase_fwd, cc.polar_to_rect_plain,
     cc.polar_to_spectrum, cc.polar_spectrum_fwd,
 ], ids=["complex_mask_apply", "magphase", "polar_to_rect", "mask_mul",
-        "magphase_fwd", "polar_fwd", "polar_to_spectrum",
+        "magphase_fwd", "polar_to_rect_plain", "polar_to_spectrum",
         "polar_spectrum_fwd"])
 def test_axis_minus_3_must_have_size_2(fn):
     """The JAX functions read channels 0 and 1 of any width (ROADMAP queue
@@ -277,8 +277,7 @@ def test_axis_minus_3_must_have_size_2(fn):
 def test_wrappers_take_plain_path_on_cpu():
     """On CPU tensors the wrappers run their plain versions, strided
     operands included, and count no launch."""
-    counters = (cc.mask_mul, cc.magphase_fwd, cc.polar_fwd,
-                cc.polar_spectrum_fwd)
+    counters = (cc.mask_mul, cc.magphase_fwd, cc.polar_spectrum_fwd)
     for c in counters:
         c.launches = 0
     full = torch.from_numpy(_rand((2, 2, 24, 32), 10))
@@ -289,12 +288,12 @@ def test_wrappers_take_plain_path_on_cpu():
                                    atol=0)
     torch.testing.assert_close(cc.magphase_fwd(a), cc.magphase_fwd_plain(a),
                                rtol=0, atol=0)
-    torch.testing.assert_close(cc.polar_fwd(a), cc.polar_fwd_plain(a),
+    torch.testing.assert_close(cc.polar_to_rect(a), cc.polar_fwd_plain(a),
                                rtol=0, atol=0)
     torch.testing.assert_close(cc.polar_spectrum_fwd(a, 1),
                                cc.polar_spectrum_fwd_plain(a, 1), rtol=0,
                                atol=0)
-    assert [c.launches for c in counters] == [0, 0, 0, 0]
+    assert [c.launches for c in counters] == [0, 0, 0]
     with pytest.raises(ValueError, match="shapes"):
         cc.mask_mul(a, b[:, :, :8])
 
@@ -402,19 +401,19 @@ def test_magphase_kernel_matches_plain_on_card():
 @pytest.mark.cuda
 def test_polar_kernel_matches_plain_on_card():
     (x,) = _card(_special((4, 2, 24, 33), 17))
-    assert _card_rel(cc.polar_fwd(x[:, :, 2:]),
+    assert _card_rel(cc.polar_to_rect(x[:, :, 2:]),
                      cc.polar_fwd_plain(x[:, :, 2:])) <= TOL
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pad_bins", [1, 0], ids=["trim_end", "untrimmed"])
 def test_polar_spectrum_kernel_matches_planar_on_card(pad_bins):
-    """The spectrum form gives the planar form's values bit for bit, the
-    padded bins 0, and agrees with its plain version."""
+    """polar_to_rect is the spectrum's values bit for bit in planar order,
+    the padded bins 0, and the spectrum agrees with its plain version."""
     (x,) = _card(_special((4, 2, 24, 33), 20))
     v = x[:, :, 2:]
     got = cc.polar_spectrum_fwd(v, pad_bins)
-    rect = cc.polar_fwd(v)
+    rect = cc.polar_to_rect(v)
     assert torch.equal(torch.view_as_real(got[..., :33]),
                        torch.stack([rect[:, 0], rect[:, 1]], dim=-1))
     assert not got[..., 33:].any()

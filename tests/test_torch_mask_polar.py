@@ -55,6 +55,7 @@ from maavss_tpu_torch.convert import (
 )
 from maavss_tpu_torch.data.synthetic import synthetic_av_batch
 from maavss_tpu_torch.ops import cuda_complex as cc
+from maavss_tpu_torch.ops import cuda_mask_head as cmh
 from maavss_tpu_torch.ops.stft import istft_features, stft_features
 from maavss_tpu_torch.train import steps as port_steps
 from maavss_tpu_torch.train.infer import make_frames_separator, make_separator
@@ -273,17 +274,20 @@ def _track(frames, flags, feed_features=False):
                     "batch_stats": state.batch_stats}))
     model, pstate = _port_state(cfg, frames, variables)
     step = _port_step(model, cfg, frames)
-    calls = {"mask_mul": 0, "magphase_fwd": 0, "polar_fwd": 0}
+    spied = {"mask_mul": cc, "magphase_fwd": cc, "polar_spectrum_fwd": cc,
+             "mask_head_fwd": cmh, "mask_head_bwd": cmh,
+             "stft_features": port_steps}
+    calls = dict.fromkeys(spied, 0)
     got, got1 = [], None
     with pytest.MonkeyPatch.context() as mp:
-        for name in calls:
-            real = getattr(cc, name)
+        for name, mod in spied.items():
+            real = getattr(mod, name)
 
             def spy(*args, _real=real, _name=name, **kwargs):
                 calls[_name] += 1
                 return _real(*args, **kwargs)
 
-            mp.setattr(cc, name, spy)
+            mp.setattr(mod, name, spy)
         for i in range(STEPS):
             pstate, m = step(pstate, batch, 2)
             got.append({k: float(v) for k, v in m.items()})
@@ -319,23 +323,29 @@ def _check_track(frames, got, want, got1, want1, init, model):
 
 @pytest.mark.parametrize("frames", [False, True], ids=["fusion", "frames"])
 def test_mask_head_steps_track_jax(mask_kernel, frames):
-    """3 mode-2 steps with --mask_head; the mask product runs once forward
-    and once backward per window (the STFT input is data)."""
+    """3 mode-2 steps with --mask_head; the fused head runs once forward
+    and once backward per window (the STFT input is data), the standalone
+    mask product never, the STFT features once per step."""
     got, want, got1, want1, init, model, calls = _track(
         frames, dict(mask_head=True))
     _check_track(frames, got, want, got1, want1, init, model)
     ns = (FRAMES if frames else FUSION)["num_seq"]
-    assert calls == {"mask_mul": 2 * ns, "magphase_fwd": 0, "polar_fwd": 0}
+    assert calls == {"mask_mul": 0, "magphase_fwd": 0,
+                     "polar_spectrum_fwd": 0, "mask_head_fwd": ns,
+                     "mask_head_bwd": ns, "stft_features": 1}
 
 
 @pytest.mark.parametrize("frames", [False, True], ids=["fusion", "frames"])
 def test_polar_steps_track_jax(frames):
     """3 mode-2 steps with --use_polar, the JAX side fed the port's
-    features; the features run the magphase wrapper once per step."""
+    features; the STFT features (magnitude and phase in their own kernel)
+    run once per step, the standalone magphase never."""
     got, want, got1, want1, init, model, calls = _track(
         frames, dict(use_polar=True), feed_features=True)
     _check_track(frames, got, want, got1, want1, init, model)
-    assert calls == {"mask_mul": 0, "magphase_fwd": 1, "polar_fwd": 0}
+    assert calls == {"mask_mul": 0, "magphase_fwd": 0,
+                     "polar_spectrum_fwd": 0, "mask_head_fwd": 0,
+                     "mask_head_bwd": 0, "stft_features": 1}
 
 
 # ------------------------------------------------------- features, audio

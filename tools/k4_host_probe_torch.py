@@ -8,8 +8,9 @@ synchronisation inside the loop), the host cost per call of each piece of
 `ops/cuda_complex.polar_spectrum_fwd` at the fusion flagship's clip
 features [8, 2, 96, 128] (Nyquist trimmed, one zero bin padded), of the
 whole wrapper, of `torch.polar` on the same planes, and of the iSTFT
-prelude the spectrum form replaces (the planar polar kernel, two plane
-copies, torch.complex and F.pad). Prints one JSON line, and the card's
+prelude the spectrum form replaces (planar (re, im), here `polar_to_rect`,
+the spectrum's real view, then two plane copies, torch.complex and
+F.pad). Prints one JSON line, and the card's
 name and power limit.
 """
 
@@ -67,7 +68,7 @@ def main() -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def old_prelude():
-        rect = cc.polar_fwd(x)
+        rect = cc.polar_to_rect(x)
         spec = torch.complex(rect[..., 0, :, :].contiguous(),
                              rect[..., 1, :, :].contiguous())
         return F.pad(spec, (0, 1))
@@ -89,9 +90,10 @@ def main() -> None:
             "maavss_polar_spectrum", dev, launch_args),
         "polar_spectrum_fwd (whole wrapper)": lambda: cc.polar_spectrum_fwd(
             x, 1),
-        "polar_fwd (planar wrapper)": lambda: cc.polar_fwd(x),
+        "polar_to_rect (the spectrum's planar view)":
+            lambda: cc.polar_to_rect(x),
         "torch.polar": lambda: torch.polar(x[:, 0], x[:, 1]),
-        "old iSTFT prelude (polar_fwd + 2 copies + complex + pad)":
+        "planar iSTFT prelude (polar_to_rect + 2 copies + complex + pad)":
             old_prelude,
     }
     us = {k: per_call_us(v, args.calls) for k, v in pieces.items()}

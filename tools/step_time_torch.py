@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """End-to-end times of a tree of the port on the card: the fusion train
 step, the direct serving call and the frames train step, each with its
-device busy time and the K1 kernels' share of it.
+device busy time and the K1 kernels' share of it; then the fusion step with
+`--mask_head` and the fusion serving call with `--use_polar` (K4's paths).
 
     python3 tools/step_time_torch.py [--tree DIR]
 
@@ -12,10 +13,11 @@ change, change, parent. Each tree builds its kernels into its own
 `build/`. The flagships at full width with seeded random weights, batch 8,
 mode 2: the fusion step (scan windows) and the serving function timed by
 CUDA events (median of 3 rounds of 2 steps / 5 calls, after a warm-up),
-the frames step (median of 3 single steps); then one torch.profiler window
-of each gives the device busy ms (CUDA kernel time summed), the kernel
-launches, the K1 kernels' ms (names starting `lstm`) and, for the fusion
-model, K2's (`K2_KERNELS`). Before them, the host microseconds of
+the frames step (median of 3 single steps), the --mask_head fusion step
+and the --use_polar serving call as their default-head counterparts; then
+one torch.profiler window of each gives the device busy ms (CUDA kernel
+time summed), the kernel launches, the K1 kernels' ms (names starting
+`lstm`) and, for the fusion model, K2's (`K2_KERNELS`). Before them, the host microseconds of
 one call of the K1 forward's wrapper, `lstm_bidir` at B = 8, T = 8,
 H = 256 fp32, as serving calls it (no_grad) and as training does (w_h
 requires a gradient): the median of 5 rounds of 200 calls enqueued without
@@ -122,8 +124,9 @@ def main() -> None:
         random_serving_inputs,
     )
     from maavss_tpu_torch.train.setup import (
-        build_fusion_state,
         build_frames_state,
+        build_fusion,
+        build_fusion_state,
     )
     from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
 
@@ -174,6 +177,24 @@ def main() -> None:
     (out["frames_device_busy_ms"], out["frames_k1_device_ms"],
      out["frames_traced_wall_ms"], out["frames_launches"],
      _) = busy_ms(lambda: step(state, data, 2))
+    del model, state, step
+
+    mask_cfg = cfg.replace(mask_head=True)
+    model, state = build_fusion_state(mask_cfg, batch, "cuda",
+                                      torch.Generator().manual_seed(cfg.seed))
+    step = make_fusion_step(model, mask_cfg, device="cuda")
+    data = synthetic_av_batch(cfg, batch, seed=cfg.seed)
+    out["mask_fusion_step_ms"] = cuda_ms(lambda: step(state, data, 2), 3, 2)
+    (out["mask_fusion_device_busy_ms"], _, out["mask_fusion_traced_wall_ms"],
+     out["mask_fusion_launches"], _) = busy_ms(lambda: step(state, data, 2))
+    del model, state, step
+    polar_cfg = cfg.replace(use_polar=True)
+    model = build_fusion(polar_cfg, batch, "cuda",
+                         torch.Generator().manual_seed(cfg.seed))
+    serve = make_serving_fn(model, polar_cfg)
+    out["polar_serve_ms"] = cuda_ms(lambda: serve(*dev), 3, 5)
+    (out["polar_serve_device_busy_ms"], _, out["polar_serve_traced_wall_ms"],
+     out["polar_serve_launches"], _) = busy_ms(lambda: serve(*dev))
     print(json.dumps(out), flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
