@@ -12,10 +12,12 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    (one nvcc per source, in parallel, then one link).
 3. k1_lstm (K1-fwd, LSTM recurrence): the kernel against its plain version
    at (B, T) = (8, 8), (32, 8), (8, 16) and (256, 8), H=256, fp32 and bf16,
+   and (1024, 8) (B x num_seq of the full-encode step at batch 256) fp32,
    both directions in one cluster launch, two calls bitwise equal; cuDNN's
    bidirectional nn.LSTM timed beside it.
 4. k2_pgenc (K2-eval, fused phasegram-encoder layer): the kernel against
-   its plain version at each of the 10 planned layers (R=64 rows); two
+   its plain version at each of the 10 planned layers (R=64 rows, and R=88,
+   the full-encode separator's span at batch 8, fp32); two
    calls, x and w2 at an odd offset and a CUDA graph replay give the same
    bits; cuDNN's conv alone timed beside (conv_library_ms).
 5. k1_bwd (K1-bwd, LSTM BPTT): against the plain BPTT and autograd through
@@ -26,7 +28,8 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    (4, 8, 256), (8, 8, 448) and (12, 8, 96), fp32 and bf16: one and two
    rows per cluster, the largest H, a slice loaded one value at a time.
 6. k2_train (K2-train and K2-bwd, the train-mode layer and its backward):
-   at each of the 10 layers, R 64 and 256, fp32 and bf16, against the plain
+   at each of the 10 layers, R 64 and 256, fp32 and bf16, and R 88 and 2816
+   (the full-encode span at batch 8 and 256), fp32, against the plain
    versions and autograd through the plain forward; dcbias exactly 0; the
    backward reads the forward's yc and leaves it as it was, two calls give
    the same bits, and a retain_graph double backward repeats; the forward
@@ -55,53 +58,73 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    three-launch forward; at most 3 device launches per pgenc_bwd call).
 11. train_golden: the small-geometry JAX train trajectory of
    tests/fixtures/torch_port_train_golden.npz, run through the kernels.
-12. k5_epilogue (K5, the frames encoder's fused BN + 2x2 max pool +
+12. fullenc_train: --fusion_encode full --pgram_cache (bench.py's fusion
+   regime) on the full-width flagship, batch 8, mode 2, 3 steps with every
+   kernel against the plain versions under the train phase's gates; exact
+   launch counts per step (K1-fwd, K1-bwd, K3 and the STFT once, K2-train
+   and K2-bwd once a layer), step times in turns with the scan window-mode
+   step, a torch.profiler breakdown; one step from the frames in place of
+   their float16 rows (loss within 2^-10 relative), and the fold and slice
+   losses of MAAVSS_FULLENC_LOSS (equal within 1e-6 relative), timed in
+   turns.
+13. fullenc_slice: the full-width model with both flags behind the HTTP
+   server, 8 requests of 1..8 rows of float16 phasegram rows checked
+   against the plain separator; K1-fwd once and K2-eval once a layer per
+   batch.
+14. fullenc_golden: the small-geometry JAX fixture of
+   tests/fixtures/torch_port_fullenc_golden.npz (the full-encode separator
+   on float16 rows, 3 train steps), run through the kernels.
+15. bench: tools/bench_torch.py's measure function at batch 8, 2 windows of
+   5 steps (its defaults otherwise: full encode, rows, fp32), its JSON
+   line as a phase; its kernel counts per step must be the full-encode
+   step's.
+16. k5_epilogue (K5, the frames encoder's fused BN + 2x2 max pool +
    LeakyReLU: stats, apply, bwd reduce, bwd dy): each kernel against its
    plain version at the flagship's stage-0 and stage-1 shapes, with a third
    of gamma negative, again on a tensor of exact ties, and with y at an odd
    offset (stats, apply and bwd dy then take 4-byte loads); PyTorch's
    unfused tail (F.batch_norm, F.max_pool3d, F.leaky_relu under autograd)
    timed beside.
-13. frames_train: the full-width frames train step (framesize 256, batch 8,
+17. frames_train: the full-width frames train step (framesize 256, batch 8,
    4 windows, mode 2) with every kernel, against the plain versions from
    one state_dict: per-step losses, parameters after step 1, exact launch
    counts per step; step times, clips/s and a torch.profiler breakdown.
-14. frames_slice: the full-width frames model behind the HTTP server, 6
+18. frames_slice: the full-width frames model behind the HTTP server, 6
    requests of uint8 frames checked against the plain separator.
-15. frames_golden: the small-geometry JAX frames fixture of
+19. frames_golden: the small-geometry JAX frames fixture of
    tests/fixtures/torch_port_frames_golden.npz (separator audio and 3
    train steps with K5 at stages 0 and 1), run through the kernels.
-16. k4 (K4's standalone kernels: the complex-mask product, magphase,
+20. k4 (K4's standalone kernels: the complex-mask product, magphase,
    polar): each kernel against its plain version at the flagships' shapes,
    on gaussian data and on strided operands holding exact zeros, atan2's
    branch cut and phases of +-pi; the mask product also in conjugate mode;
    polar_to_rect (the real view of the polar kernel's spectrum form, the
    iSTFT's input) holding the spectrum's values bit for bit; torch.polar
    timed beside the polar kernel.
-17. k4_head (the --mask_head head with K4's mask product fused in, forward
+21. k4_head (the --mask_head head with K4's mask product fused in, forward
    and backward): against the plain version (F.linear, then the plain mask
    product) at fusion M = 1, 8, 32, 256 (a bias, the STFT a window view)
    and frames M = 8 (no bias, F = 129); two calls and a CUDA-graph replay
    give the same bits; cuBLAS' addmm alone and addmm + the standalone mask
    product timed beside.
-18. k4_stft (the one-launch STFT frontend, magphase fused in): against
+22. k4_stft (the one-launch STFT frontend, magphase fused in): against
    stft_features_plain at fft_len 64, 256 and 2048, trim on and off,
    normalized on and off, (re, im) and polar, on gaussian, zero and DC-only
    audio, phases compared wrapped; torch.stft timed beside.
-19. mask_train: --mask_head on the fusion and frames flagships, 3 steps
-   each against the plain versions (the gates of phases 10 and 13, exact
+23. mask_train: --mask_head on the fusion and frames flagships, 3 steps
+   each against the plain versions (the gates of phases 10 and 17, exact
    launch counts per step: the fused head once forward and once backward a
    window, no standalone mask product, the STFT kernel once); the
    default-head fusion step timed in turns.
-20. mask_slice: the fusion flagship with --mask_head behind the HTTP
+24. mask_slice: the fusion flagship with --mask_head behind the HTTP
    server, 8 requests checked against the plain separator.
-21. polar: --use_polar, 3 train steps of each family against the plain
+25. polar: --use_polar, 3 train steps of each family against the plain
    versions, and each family's serving function against the plain one,
    both sides on the STFT kernel's features (held against the plain
    features with phases wrapped); no magphase launch;
    istft_features(polar=True) must run one device launch and no copy
    (torch.complex, pad, contiguous) beyond the iSTFT of its spectrum.
-22. k4_golden: the small-geometry JAX fixture of
+26. k4_golden: the small-geometry JAX fixture of
    tests/fixtures/torch_port_k4_golden.npz (the --mask_head separator and
    3 train steps, the --use_polar separator), run through the kernels.
 
@@ -137,6 +160,8 @@ TRAIN_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
 FRAMES_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
                              "torch_port_frames_golden.npz")
 K4_GOLDEN = os.path.join(ROOT, "tests", "fixtures", "torch_port_k4_golden.npz")
+FULLENC_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
+                              "torch_port_fullenc_golden.npz")
 # published H100 SXM peaks (NVIDIA H100 datasheet): HBM bytes/s and
 # fp32 FLOP/s outside the tensor cores (every kernel here is fp32 math)
 HBM_BYTES_PER_S = 3.35e12
@@ -280,8 +305,11 @@ def build_phase():
         res.path, ROOT), ptxas=regs)
 
 
-K1_SHAPES = ((8, 8), (32, 8), (8, 16), (256, 8))  # (B, T): fusion window
-# and vectorized batches, the frames family's channel axis, bench.py's batch
+K1_SHAPES = ((8, 8), (32, 8), (8, 16), (256, 8), (1024, 8))
+# (B, T): the fusion window at batch 8; its vectorized and full-encode
+# windows (B x num_seq); the frames family's channel axis; bench.py's batch
+# 256 a window and B x num_seq in full encode
+K1_FP32_ONLY = {(1024, 8)}  # the main path's dtype alone: the phase's time
 
 
 def _k1_inputs(b, t_len, dtype, g, h=256):
@@ -338,6 +366,8 @@ def lstm_phase():
     for b, t_len in K1_SHAPES:
         for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5),
                                   (torch.bfloat16, 1e-5, 2.0 ** -7)):
+            if (b, t_len) in K1_FP32_ONLY and dtype != torch.float32:
+                continue
             xws, whs, _ = _k1_inputs(b, t_len, dtype, g, h)
             rev = [False, True]
 
@@ -478,6 +508,7 @@ def conv_library_ms(x, w2, cbias):
 def pgenc_phase():
     """K2-eval against its plain version at each of the 10 flagship layers,
     R = 64, fp32 (1e-5 absolute on the tanh outputs) and bf16 (2^-7), and
+    R = 88 (the full-encode separator's 11 frames at batch 8), fp32, with
     its contract (_k2_contract); cuDNN's conv alone timed beside."""
     import torch
 
@@ -495,7 +526,11 @@ def pgenc_phase():
     r = 8 * cfg.num_frames
     totals = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
               "device_ms": 0.0, "host_ms": 0.0, "conv_library_ms": 0.0}
-    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):
+    # R = 64: a window at batch 8; R = 88: the full-encode span at batch 8
+    # (B x (num_frames + num_seq - 1)), fp32 only
+    runs = ((r, torch.float32, 1e-5), (r, torch.bfloat16, 2.0 ** -7),
+            (8 * (cfg.num_frames + cfg.num_seq - 1), torch.float32, 1e-5))
+    for r, dtype, atol in runs:
         s = cfg.p_size ** 2
         for i, sp in enumerate(specs):
             c, co = sp.in_ch, sp.out_ch
@@ -520,7 +555,7 @@ def pgenc_phase():
             plain_ms = cuda_ms(lambda: pgenc_layer_plain(x, w2, *vecs))
             phase("k2_pgenc", layer=i, C=c, Co=co, R=r, S=s, dtype=str(dtype),
                   max_abs_err=err, atol=atol, ms=ms, plain_ms=plain_ms)
-            if dtype == torch.float32:
+            if dtype == torch.float32 and r == 8 * cfg.num_frames:
                 split = split_ms(lambda: pgenc_layer(x, w2, *vecs,
                                                      backend="kernel"))
                 totals["device_ms"] += split[0]
@@ -533,7 +568,8 @@ def pgenc_phase():
                 totals["conv_library_ms"] += conv_library_ms(x, w2, cb)
             s //= 2
     totals["bound"] = bound_ms(totals["bytes"], totals["flops"])
-    phase("k2_pgenc_stack", layers=len(specs), R=r, dtype="torch.float32",
+    phase("k2_pgenc_stack", layers=len(specs), R=8 * cfg.num_frames,
+          dtype="torch.float32",
           ms=totals["ms"], plain_ms=totals["plain_ms"],
           device_ms=totals["device_ms"], host_ms=totals["host_ms"],
           bound_ms=totals["bound"][0], bound_by=totals["bound"][1],
@@ -597,6 +633,8 @@ def lstm_bwd_phase():
     report = None
     for b, t_len in K1_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
+            if (b, t_len) in K1_FP32_ONLY and dtype != torch.float32:
+                continue
             xws, whs, dys = _k1_inputs(b, t_len, dtype, g, h)
             rev = [False, True]
             fwd = lstm_recurrence(xws, whs, rev, backend="kernel")
@@ -742,7 +780,9 @@ def _pgenc_inputs(c, co, r, s, dtype, g):
 
 def pgenc_train_phase():
     """K2-train and K2-bwd at each of the 10 flagship layers, R 64 (scan
-    windows) and 256 (vectorized), fp32 and bf16, against the plain versions
+    windows) and 256 (vectorized), fp32 and bf16, and R 88 and 2816 (the
+    full-encode span of 11 frames at batch 8 and 256), fp32, against the
+    plain versions
     and (fp32, R=64) autograd through the plain forward. Tolerances: fp32 y
     2e-5 absolute (tanh outputs; conv and statistics sums in another
     order), mu and var 1e-4 relative + 1e-5 absolute; dx, dw2, dgamma and
@@ -776,8 +816,12 @@ def pgenc_train_phase():
         (8, 1, cfg.num_frames, cfg.p_size ** 2), cfg.latent_chan, cfg.fc_size)
     g = torch.Generator(device="cuda").manual_seed(4)
     totals = {}
-    for r in (8 * cfg.num_frames, 8 * cfg.num_seq * cfg.num_frames):
-        for dtype in (torch.float32, torch.bfloat16):
+    span = cfg.num_frames + cfg.num_seq - 1  # the full-encode step's frames
+    both = (torch.float32, torch.bfloat16)
+    for r, dtypes in ((8 * cfg.num_frames, both),
+                      (8 * cfg.num_seq * cfg.num_frames, both),
+                      (8 * span, both[:1]), (256 * span, both[:1])):
+        for dtype in dtypes:
             fp32 = dtype == torch.float32
             tol = 2e-5 if fp32 else 2.0 ** -7
             gtol = 1e-4 if fp32 else 2.0 ** -7
@@ -2944,12 +2988,17 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
     step (`want`, by counter name; the plain run launches none but K2's
     when `k2_plain` is False and the STFT kernel's with `kernel_features`),
     per-step losses at relative 1e-4, the leaves after step 1 as
-    `_step1_close`. Then the step times, in turns, of the kernel step and of
-    each (label, fn, state) of `timed`, and with `profile` a torch.profiler
-    breakdown of one kernel step under that label."""
+    `_step1_close`. The batches are synthetic frames, or under
+    --pgram_cache their float16 phasegram rows. Then the step times, in
+    turns, of the kernel step and of each (label, fn, state) of `timed`, and
+    with `profile` a torch.profiler breakdown of one kernel step under that
+    label."""
     import torch
 
-    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.data.synthetic import (
+        synthetic_av_batch,
+        with_pgram_rows,
+    )
 
     lr, tol, enc_tol = cfg.learning_rate, 1e-4, 2e-3
     model, state, step, ref, ref_state, ref_step = _train_pair(
@@ -2961,6 +3010,8 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
     batches = [synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i,
                                   frame_size=frame_size)
                for i in range(steps)]
+    if cfg.pgram_cache and not frames_model:
+        batches = [with_pgram_rows(b, "cuda") for b in batches]
 
     def run(fn, st, batch):
         for c in counters:
@@ -3403,6 +3454,309 @@ def k4_golden_phase():
           k4_launches=counts, tol=tol)
 
 
+FULLENC_LAYERS = 10  # the flagship phasegram encoder's layers
+
+
+def _fullenc_want():
+    """Launches per full-encode train step: the encoders and heads once."""
+    return dict(lstm_fwd=1, lstm_bwd=1, pgenc_train=FULLENC_LAYERS,
+                pgenc_bwd=FULLENC_LAYERS, adam=1, stft=1)
+
+
+def _fullenc_kernel_step(cfg, loss_impl):
+    """(step, state) of the kernel model of `cfg` from its seed (the init
+    `_train_pair` draws), with MAAVSS_FULLENC_LOSS set to `loss_impl` while
+    the step is made."""
+    import torch
+
+    from maavss_tpu_torch.train.setup import build_fusion_state
+    from maavss_tpu_torch.train.steps import make_fusion_step
+
+    model, state = build_fusion_state(
+        cfg, cfg.batch_size, "cuda", torch.Generator().manual_seed(cfg.seed))
+    old = os.environ.get("MAAVSS_FULLENC_LOSS")
+    os.environ["MAAVSS_FULLENC_LOSS"] = loss_impl
+    try:
+        step = make_fusion_step(model, cfg, device="cuda")
+    finally:
+        if old is None:
+            del os.environ["MAAVSS_FULLENC_LOSS"]
+        else:
+            os.environ["MAAVSS_FULLENC_LOSS"] = old
+    return step, state
+
+
+def fullenc_train_phase(steps: int = 3):
+    """--fusion_encode full --pgram_cache, the bench's fusion regime, on
+    the full-width flagship at batch 8, mode 2, lr 1e-3, noise 0: `steps`
+    steps with every kernel against the plain versions from one state_dict
+    under the gates of the K4 phases' steps of the same model (losses at
+    relative 1e-4; the leaves after step 1 at relative L2 1e-4, or by
+    their gradient as `_step1_close` lets a BatchNorm shift ahead of
+    another train-mode BatchNorm pass, phasegram_encoder.TorchBatchNorm_7's
+    here; the BatchNorm-fed conv biases within lr). Both
+    sides take the STFT kernel's features, as the polar phase's do: the
+    full-encode step's step-1 gradients move by up to 3.5e-4 between the
+    kernel's features and cuFFT's, which stand 2e-7 apart, while K1 and K2
+    in place of their plain versions move them by at most 8e-6
+    (tools/fusion_step1_probe_torch.py, PERF.md, PR 9); the features are
+    held against cuFFT's in k4_stft. Exact launch counts per step (K1-fwd,
+    K1-bwd,
+    K3 and the STFT kernel once, K2-train and K2-bwd once a layer), step
+    times in turns with the scan window-mode step of a model of the same
+    width and seed, and a torch.profiler breakdown. Then, each from the
+    seeded state, one step on the frames in place of their rows, whose
+    loss must be within 2^-10 relative of the rows' (twice float16's
+    relative rounding of the rows, 2^-11), and one step with each loss of
+    MAAVSS_FULLENC_LOSS, fold and slice, equal within 1e-6 relative; the
+    two steps are timed in turns."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.synthetic import (
+        synthetic_av_batch,
+        with_pgram_rows,
+    )
+    from maavss_tpu_torch.train.setup import build_fusion_state
+    from maavss_tpu_torch.train.steps import make_fusion_step
+
+    cfg = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=1e-3,
+                    fusion_encode="full", pgram_cache=True)
+    scan_cfg = cfg.replace(fusion_encode="window", pgram_cache=False)
+    scan, scan_state = build_fusion_state(
+        scan_cfg, 8, "cuda", torch.Generator().manual_seed(cfg.seed))
+    out = _train_vs_plain(
+        "fullenc_train", cfg, False, _fullenc_want(), steps=steps,
+        timed=(("scan_window", make_fusion_step(scan, scan_cfg,
+                                                device="cuda"),
+                scan_state),),
+        kernel_features=True, profile="fullenc_train_profile")
+    del scan, scan_state
+    frames = synthetic_av_batch(cfg, 8, seed=cfg.seed)
+    rows = with_pgram_rows(frames, "cuda")
+    first = {}
+    for label, batch, loss_impl in (("rows_fold", rows, "fold"),
+                                    ("rows_slice", rows, "slice"),
+                                    ("frames_fold", frames, "fold")):
+        step, state = _fullenc_kernel_step(cfg, loss_impl)
+        state, m = step(state, batch, 2)
+        first[label] = (float(m["loss"]), step, state)
+    frames_rel = abs(first["frames_fold"][0] - first["rows_fold"][0]) \
+        / abs(first["rows_fold"][0])
+    fold_slice_rel = abs(first["rows_slice"][0] - first["rows_fold"][0]) \
+        / abs(first["rows_fold"][0])
+    if frames_rel > 2.0 ** -10 or fold_slice_rel > 1e-6:
+        raise SystemExit(f"fullenc_train: step-1 loss from frames vs rows "
+                         f"rel {frames_rel} (limit 2^-10), slice vs fold rel "
+                         f"{fold_slice_rel} (limit 1e-6)")
+    loss_ms = {}
+    for _ in range(2):
+        for label in ("rows_fold", "rows_slice"):
+            _, step, state = first[label]
+            loss_ms.setdefault(label, []).append(cuda_ms(
+                lambda: step(state, rows, 2), reps=3, iters=1))
+    del first
+    phase("fullenc_train", fusion_encode="full", pgram_cache=True,
+          window_mode_superseded=cfg.window_mode, **out,
+          step1_loss_rel_frames_vs_rows=frames_rel,
+          frames_vs_rows_tol=2.0 ** -10,
+          step1_loss_rel_slice_vs_fold=fold_slice_rel,
+          slice_vs_fold_tol=1e-6, fold_step_ms=loss_ms["rows_fold"],
+          slice_step_ms=loss_ms["rows_slice"])
+    return out["launches_per_step"]
+
+
+def fullenc_slice_phase():
+    """The full-width fusion model with --fusion_encode full and
+    --pgram_cache behind the HTTP server: 8 requests of 1..8 rows of float16
+    phasegram rows (of uniform random frames) against the plain separator
+    (the plain versions of K1, K2 and the STFT) at relative L2 1e-4; each
+    batch launches K1-fwd once, K2-eval once a layer and the STFT kernel
+    once, and no train-mode kernel."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.exp.export import (
+        random_serving_inputs,
+        serving_input_specs,
+    )
+    from maavss_tpu_torch.exp.serving import (
+        BatchingExecutor,
+        SeparationClient,
+        SeparationServer,
+    )
+    from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer
+    from maavss_tpu_torch.ops.phasegram import phasegram_cumsum
+
+    batch, tol = 8, 1e-4
+    cfg = RunConfig(batch_size=batch, fusion_encode="full", pgram_cache=True)
+    serve, serve_ref, _ = _serve_pair(cfg, False)
+    a_spec, v_spec = serving_input_specs(cfg, batch)
+    if v_spec.dtype != np.float16:
+        raise SystemExit(f"fullenc_slice: visual spec {v_spec}")
+    rng = np.random.default_rng(9)
+    t_total = cfg.num_frames + cfg.num_seq
+    rows_list = [1, 8, 3, 5, 2, 8, 4, 7]
+    requests = []
+    for i, rows in enumerate(rows_list):
+        audio, _ = random_serving_inputs(cfg, rows, seed=600 + i)
+        frames = rng.uniform(0, 1, (rows, t_total, cfg.p_size, cfg.p_size))
+        visual = phasegram_cumsum(torch.from_numpy(frames.astype(
+            np.float32)).cuda()).to(torch.float16).cpu().numpy()
+        requests.append((audio, visual))
+    dev = [torch.from_numpy(x).cuda() for x in random_serving_inputs(cfg, batch)]
+    serve(*dev)
+    torch.cuda.synchronize()
+    direct_ms = cuda_ms(lambda: serve(*dev), reps=3, iters=5)
+    direct_plain_ms = cuda_ms(lambda: serve_ref(*dev), reps=3, iters=5)
+    executor = BatchingExecutor(serve, batch, a_spec, v_spec, "cuda",
+                                max_wait_ms=5.0)
+    server = SeparationServer(executor, {"model": "fusion", "batch": batch,
+                                         "fusion_encode": "full",
+                                         "pgram_cache": True},
+                              host="127.0.0.1", port=0).start()
+    host, port = server.address
+    client = SeparationClient(f"http://{host}:{port}")
+    names, counters = _fusion_counters()
+    names, counters = names + ("pgenc_eval",), counters + (pgenc_layer,)
+    for c in counters:
+        c.launches = 0
+    responses, lat_ms = [], []
+    try:
+        for audio, visual in requests:
+            t = time.perf_counter()
+            responses.append(client.separate(audio, visual))
+            lat_ms.append((time.perf_counter() - t) * 1e3)
+        launches = dict(zip(names, (c.launches for c in counters)))
+        stats = client.get_json("/stats")
+    finally:
+        client.close()
+        server.stop()
+    batches = stats["batches"]
+    want = {n: 0 for n in names}
+    want.update(lstm_fwd=batches, pgenc_eval=batches * FULLENC_LAYERS,
+                stft=batches)
+    if batches < 1 or launches != want:
+        raise SystemExit(f"fullenc_slice launches {launches} != {want} for "
+                         f"{batches} batches")
+    worst = 0.0
+    for (audio, visual), out in zip(requests, responses):
+        rows = audio.shape[0]
+        if out.shape != audio.shape or not np.all(np.isfinite(out)):
+            raise SystemExit(f"bad fullenc_slice response {out.shape}")
+        pad_a = np.zeros(a_spec.shape, np.float32)
+        pad_v = np.zeros(v_spec.shape, np.float16)
+        pad_a[:rows], pad_v[:rows] = audio, visual
+        exp = serve_ref(torch.from_numpy(pad_a).cuda(),
+                        torch.from_numpy(pad_v).cuda())[:rows].cpu().numpy()
+        worst = max(worst, _rel_l2(out, exp))
+    if worst > tol:
+        raise SystemExit(f"fullenc_slice audio vs plain separator rel L2 "
+                         f"{worst} > {tol}")
+    lat = sorted(lat_ms)
+    phase("fullenc_slice", requests=len(requests), rows=rows_list,
+          batches=batches, visual=f"{list(v_spec.shape)} float16",
+          rel_l2_vs_plain=worst, tol=tol, p50_ms=statistics.median(lat),
+          p90_ms=lat[min(len(lat) - 1, int(0.9 * len(lat)))],
+          direct_batch8_ms=direct_ms, direct_batch8_plain_ms=direct_plain_ms,
+          launches=launches)
+    return launches
+
+
+def fullenc_golden_phase():
+    """The small-geometry JAX fixture tests/fixtures/
+    torch_port_fullenc_golden.npz through the kernels: the --fusion_encode
+    full separator's audio on the fixture's float16 rows at relative L2
+    1e-4, then 3 train steps (MAAVSS_FULLENC_LOSS fold, mode 2): losses at
+    relative 1e-4 and the per-leaf sums of the final parameters and
+    statistics within 1e-4 of each leaf's absolute sum, the BatchNorm-fed
+    conv biases and their running means left out."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.convert import (
+        flatten_tree,
+        from_flax,
+        random_flax_tree,
+        to_flax,
+        unflatten_tree,
+    )
+    from maavss_tpu_torch.train.infer import make_separator
+
+    tol = 1e-4
+    with np.load(FULLENC_GOLDEN) as z:
+        meta = json.loads(str(z["meta"]))
+        audio, rows, want = z["audio"], z["pgram"], z["audio_out"]
+    flat = random_flax_tree({k: tuple(v) for k, v in meta["shapes"].items()},
+                            meta["seed"])
+    for path, total in meta["checksums"].items():
+        if not np.isclose(float(flat[path].astype(np.float64).sum()), total,
+                          rtol=1e-6, atol=1e-6):
+            raise SystemExit(f"fullenc golden weights do not regenerate: "
+                             f"{path}")
+    tree = unflatten_tree(flat)
+    cfg = RunConfig(**meta["cfg"])
+    step, state = _fullenc_kernel_step(cfg, meta["fullenc_loss"])
+    model = state.model
+    model.load_state_dict(from_flax(tree["params"], tree["batch_stats"]))
+    dev = {"audio": torch.from_numpy(audio).cuda(),
+           "pgram": torch.from_numpy(rows).cuda()}
+    names, counters = _fusion_counters()
+    for c in counters:
+        c.launches = 0
+    got = make_separator(model, cfg)(dev)["audio_out"].cpu().numpy()
+    err = _rel_l2(got, want)
+    if got.shape != want.shape or not np.all(np.isfinite(got)) or err > tol:
+        raise SystemExit(f"fullenc golden audio rel L2 {err} > {tol}")
+    losses = []
+    for _ in meta["losses"]:
+        state, m = step(state, dev, meta["mode"])
+        losses.append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, meta["losses"]))
+    if rel > tol:
+        raise SystemExit(f"fullenc golden losses {losses} vs JAX "
+                         f"{meta['losses']}: rel {rel} > {tol}")
+    params, stats = to_flax(model.state_dict())
+    flat = flatten_tree({"params": params, "batch_stats": stats})
+    worst = 0.0
+    for path, (total, abs_total) in meta["sums"].items():
+        d = abs(float(flat[path].astype(np.float64).sum()) - total)
+        worst = max(worst, d / max(abs_total, 1e-12))
+        if d > tol * abs_total + 1e-7:
+            raise SystemExit(f"fullenc golden leaf {path}: sum off by {d}")
+    launches = dict(zip(names, (c.launches for c in counters)))
+    if not all(launches[n] for n in ("lstm_fwd", "lstm_bwd", "pgenc_train",
+                                     "pgenc_bwd", "adam", "stft")):
+        raise SystemExit(f"the fullenc golden run missed a kernel: "
+                         f"{launches}")
+    phase("fullenc_golden", cfg=meta["cfg"], audio_rel_l2_vs_jax=err,
+          losses=losses, jax_losses=meta["losses"], loss_rel_diff=rel,
+          worst_leaf_sum_rel=worst, leaves=len(meta["sums"]),
+          left_out=len(meta["bn_fed"]), launches=launches, tol=tol)
+
+
+def bench_phase():
+    """tools/bench_torch.py's measure function in this process at batch 8,
+    2 windows of 5 steps, its defaults otherwise (full encode, float16
+    rows, fp32), with its profiled step: its JSON line as a phase. The
+    value must be finite and the kernels it counts per step those of the
+    full-encode step."""
+    from tools import bench_torch
+
+    line = bench_torch.with_baseline(bench_torch.measure(
+        8, steps=5, windows=2, device="cuda", env={}, profile=True))
+    k = line["kernels"]
+    want = _fullenc_want()
+    want["stft_feat"] = want.pop("stft")
+    if (not math.isfinite(line["value"]) or line["value"] <= 0
+            or any(k[n] != v for n, v in want.items())):
+        raise SystemExit(f"bench: value {line['value']}, kernels per step "
+                         f"{k}, want {want}")
+    phase("bench", **line)
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -3427,6 +3781,10 @@ def main() -> None:
     golden_phase()
     train = train_phase()
     train_golden_phase()
+    fullenc = fullenc_train_phase()
+    fullenc_serve = fullenc_slice_phase()
+    fullenc_golden_phase()
+    bench_phase()
     k5 = k5_phase()
     frames = frames_train_phase()
     frames_serve = frames_slice_phase()
@@ -3444,28 +3802,31 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         kernel_entry("lstm_fwd", "lstm_fwd.cu",
-                     "maavss_tpu/ops/pallas_lstm.py:80", serve["lstm"], k1),
+                     "maavss_tpu/ops/pallas_lstm.py:80",
+                     serve["lstm"] + fullenc_serve["lstm_fwd"], k1),
         kernel_entry("pgenc_eval", "pgenc_eval.cu",
-                     "maavss_tpu/ops/pallas_pgenc.py:171", serve["pgenc"],
+                     "maavss_tpu/ops/pallas_pgenc.py:171",
+                     serve["pgenc"] + fullenc_serve["pgenc_eval"],
                      dict(k2, library_ms=None)),
         kernel_entry("lstm_bwd", "lstm_bwd.cu",
-                     "maavss_tpu/ops/pallas_lstm.py:105", train["lstm_bwd"],
-                     k1b),
+                     "maavss_tpu/ops/pallas_lstm.py:105",
+                     train["lstm_bwd"] + fullenc["lstm_bwd"], k1b),
         kernel_entry("pgenc_train", "pgenc_train.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:137",
-                     train["pgenc_train"],
+                     train["pgenc_train"] + fullenc["pgenc_train"],
                      dict(err=k2t["fwd_err"], ms=k2t["fwd_ms"],
                           plain_ms=k2t["fwd_plain_ms"], bound=k2t["fwd_bound"],
                           device_ms=k2t["fwd_device_ms"],
                           host_ms=k2t["fwd_host_ms"], library_ms=None)),
         kernel_entry("pgenc_bwd", "pgenc_train.cu",
-                     "maavss_tpu/ops/pallas_pgenc.py:184", train["pgenc_bwd"],
+                     "maavss_tpu/ops/pallas_pgenc.py:184",
+                     train["pgenc_bwd"] + fullenc["pgenc_bwd"],
                      dict(err=k2t["bwd_err"], ms=k2t["bwd_ms"],
                           plain_ms=k2t["bwd_plain_ms"], bound=k2t["bwd_bound"],
                           device_ms=k2t["bwd_device_ms"],
                           host_ms=k2t["bwd_host_ms"], library_ms=None)),
         kernel_entry("adam", "adam.cu", "maavss_tpu/ops/pallas_adam.py:49",
-                     train["adam"], k3),
+                     train["adam"] + fullenc["adam"], k3),
         *(kernel_entry(f"epilogue_{n}", "epilogue.cu",
                        f"maavss_tpu/ops/pallas_epilogue.py:{line}",
                        frames[f"epilogue_{n}"], k5[n])
@@ -3480,7 +3841,8 @@ def main() -> None:
                      mask_train["mask_head_bwd"], head["bwd"]),
         kernel_entry("stft_feat", "stft_feat.cu",
                      "maavss_tpu/ops/pallas_kernels.py:101",
-                     serve["stft"] + train["stft"] + frames["stft"]
+                     serve["stft"] + train["stft"] + fullenc["stft"]
+                     + fullenc_serve["stft"] + frames["stft"]
                      + frames_serve["stft"] + mask_train["stft"]
                      + mask_serve["stft"] + polar["stft"], stft),
         kernel_entry("polar", "spectral.cu",

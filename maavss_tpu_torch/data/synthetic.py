@@ -4,8 +4,10 @@ tests/test_torch_package.py).
 
 Harmonic sine-sweep audio paired with a moving Gaussian blob whose position
 follows the audio envelope, so audio and visual streams are correlated.
-Host-side numpy, deterministic per seed. The on-disk synthetic store
-(`build_synthetic_store`) comes with the trainer (ROADMAP M6).
+Host-side numpy, deterministic per seed. `with_pgram_rows` turns a batch's
+frames into --pgram_cache phasegram rows. The on-disk synthetic store
+(`build_synthetic_store`) and the phasegram store come with the trainer
+(ROADMAP M6).
 """
 
 from __future__ import annotations
@@ -13,8 +15,10 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
 from maavss_tpu_torch.config import RunConfig
+from maavss_tpu_torch.ops.phasegram import phasegram_cumsum
 
 
 def sine_sweep_audio(seed: int, batch: int, num_samples: int, sr: int = 16000) -> np.ndarray:
@@ -74,3 +78,13 @@ def synthetic_av_batch(cfg: RunConfig, batch: int, seed: int = 0,
     fs = frame_size or cfg.p_size
     frames = moving_blob_frames(seed, batch, t_total, fs, envelope=frame_env)
     return {"audio": audio, "frames": frames}
+
+
+def with_pgram_rows(batch: Dict[str, np.ndarray], device="cpu"
+                    ) -> Dict[str, np.ndarray]:
+    """`batch` with its frames [B, T, p, p] replaced by their --pgram_cache
+    rows: 'pgram' [B, T, p^2] float16, the frames' phasegram_cumsum
+    computed on `device`, as bench.py:145-153 makes them."""
+    frames = torch.from_numpy(batch["frames"]).to(device)
+    rows = phasegram_cumsum(frames).to(torch.float16).cpu().numpy()
+    return {"audio": batch["audio"], "pgram": rows}

@@ -31,15 +31,19 @@ class TensorSpec(NamedTuple):
 def make_serving_fn(model, cfg: RunConfig, frames_model: bool = False):
     """Mixture in, separated audio out: fn(audio [B, S_total], visual) ->
     [B, S_total], tensors on the model's device; visual is frames
-    [B, T_total, p, p] for the fusion model, raw uint8 frames
+    [B, T_total, p, p] for the fusion model, or its float16 phasegram rows
+    [B, T_total, p^2] under --pgram_cache, and raw uint8 frames
     [B, T_total, framesize, framesize] for the frames model."""
     serve_cfg = cfg.replace(noise_scalar=0.0)
     check_supported(serve_cfg, frames=frames_model)
     windows = separate_frames_windows if frames_model else separate_windows
+    visual_key = "pgram" if (cfg.pgram_cache and not frames_model) \
+        else "frames"
 
     @torch.inference_mode()
     def serving_fn(audio: torch.Tensor, visual: torch.Tensor) -> torch.Tensor:
-        out, _ = windows(model, serve_cfg, audio, visual)
+        out, _ = windows(model, serve_cfg, {"audio": audio,
+                                            visual_key: visual})
         return out
 
     return serving_fn
@@ -48,9 +52,10 @@ def make_serving_fn(model, cfg: RunConfig, frames_model: bool = False):
 def serving_input_specs(cfg: RunConfig, batch: int, frames_model: bool = False
                         ) -> Tuple[TensorSpec, TensorSpec]:
     """(audio, visual) specs at the sweep's clip geometry: float32 audio;
-    float32 frames in [0, 1] for the fusion model, uint8 frames at
+    float32 frames in [0, 1] for the fusion model, or float16 phasegram
+    rows [batch, T_total, p^2] under --pgram_cache, and uint8 frames at
     framesize for the frames model (its wire format, converted on the
-    device, maavss_tpu/exp/export.py:83-89)."""
+    device, maavss_tpu/exp/export.py:83-92)."""
     check_supported(cfg, frames=frames_model)
     t_total = cfg.num_frames + cfg.num_seq
     s_total = cfg.hop * cfg.hops_per_frame * t_total
@@ -58,6 +63,9 @@ def serving_input_specs(cfg: RunConfig, batch: int, frames_model: bool = False
     if frames_model:
         return audio, TensorSpec((batch, t_total, cfg.framesize,
                                   cfg.framesize), np.dtype(np.uint8))
+    if cfg.pgram_cache:
+        return audio, TensorSpec((batch, t_total, cfg.p_size * cfg.p_size),
+                                 np.dtype(np.float16))
     return audio, TensorSpec((batch, t_total, cfg.p_size, cfg.p_size),
                              np.dtype(np.float32))
 

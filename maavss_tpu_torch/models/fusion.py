@@ -71,6 +71,8 @@ class AVFusionModel(nn.Module):
             raise ValueError(f"unknown stft_fold {stft_fold!r} (auto|xla|fold)")
         self.stft_shape = tuple(stft_shape)
         self.pgram_shape = tuple(pgram_shape)
+        self.latent_channels = latent_channels
+        self.fc_size = fc_size
         self.mask_head = mask_head
         pg_enc, pg_hw = plan_phasegram_encoder(pgram_shape, latent_channels,
                                                fc_size)

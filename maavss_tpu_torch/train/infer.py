@@ -1,17 +1,21 @@
 """Separation + SI-SDR evaluation (counterpart of
 maavss_tpu/train/infer.py:make_separator and make_frames_separator, window
-mode).
+mode and, for the fusion model, --fusion_encode full).
 
 The fusion separator runs the fusion model over every sliding window of a
 clip (a Python loop in place of `lax.scan`), overlap-averages the predicted
 STFT on the shared hops, and resynthesizes audio through the exact-inverse
-iSTFT. The frames separator runs the frames model over every window and
-writes each window's predicted middle-frame columns into the mixture's
-untrimmed spectrogram (columns no window predicts keep the mixture), then
-resynthesizes. Feature preparation is the train step's `_prep_stft_pair`,
-as in the JAX package; under --use_polar the features are (magnitude,
-phase), averaged and stitched as such, and resynthesized through the polar
-kernel.
+iSTFT. Under --fusion_encode full both encoders run once over the clip's
+span and the heads once over its B * num_seq latent windows, as the
+full-encode train step does; the overlap-average is the same. The visual
+input is frames or, where the batch holds `pgram`, precomputed phasegram
+rows (--pgram_cache). The frames separator runs the frames model over every
+window and writes each window's predicted middle-frame columns into the
+mixture's untrimmed spectrogram (columns no window predicts keep the
+mixture), then resynthesizes. Feature preparation is the train step's
+`_prep_stft_pair`, as in the JAX package; under --use_polar the features
+are (magnitude, phase), averaged and stitched as such, and resynthesized
+through the polar kernel.
 """
 
 from __future__ import annotations
@@ -22,17 +26,23 @@ import torch
 
 from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.ops.metrics import si_sdr
-from maavss_tpu_torch.ops.phasegram import phasegram_cumsum, phasegram_window
+from maavss_tpu_torch.ops.phasegram import phasegram_window
 from maavss_tpu_torch.ops.stft import istft_features
 from maavss_tpu_torch.train.setup import check_supported
-from maavss_tpu_torch.train.steps import _prep_stft_pair, frames_f32
+from maavss_tpu_torch.train.steps import (
+    _fusion_full_geometry,
+    _pflat_from_batch,
+    _prep_stft_pair,
+    _windows,
+    frames_f32,
+)
 
 
-def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
-                     frames: torch.Tensor,
+def separate_windows(model, cfg: RunConfig, batch: Dict[str, torch.Tensor],
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """audio [B, S], frames [B, T_total, H, W] float in [0, 1] ->
+    """batch = {'audio': [B, S], 'frames': [B, T_total, H, W] float in
+    [0, 1] or 'pgram': [B, T_total, p^2] phasegram rows} ->
     (separated audio [B, S],
     the model's input features x_full [B, 2, T, F]).
 
@@ -41,10 +51,10 @@ def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
     eval mode (its mode is restored afterwards), as the JAX separator
     applies it with train=False."""
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
+    audio = batch["audio"]
     x_full, y_full = _prep_stft_pair(audio, cfg, generator, trim_end=True,
                                      max_norm=cfg.normalize_output_fft)
-    resize = None if frames.shape[-1] == cfg.p_size else (cfg.p_size, cfg.p_size)
-    p_flat = phasegram_cumsum(frames, resize=resize)
+    p_flat = _pflat_from_batch(batch, cfg)
 
     t_total = y_full.shape[2]
     acc = torch.zeros_like(y_full)
@@ -52,10 +62,22 @@ def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
     was_training = model.training
     model.eval()
     try:
-        for j in range(ns):
-            pg = phasegram_window(p_flat[:, j:j + nf])
+        if cfg.fusion_encode == "full":
+            hop_a, hop_v, t_win = _fusion_full_geometry(model, cfg)
+            a_lat, v_lat = model.encode_both(
+                x_full[:, :, :(nf + ns - 1) * a],
+                phasegram_window(p_flat[:, :nf + ns - 1]))
+            yh_b, _, _ = model.heads_from_latents(
+                _windows(a_lat, ns, hop_a, t_win),
+                _windows(v_lat, ns, hop_v, t_win),
+                _windows(x_full, ns, a, nf * a))
+            yh_wins = yh_b.reshape((-1, ns) + yh_b.shape[1:]).unbind(1)
+        else:
+            yh_wins = (model(x_full[:, :, j * a:(j + nf) * a],
+                             phasegram_window(p_flat[:, j:j + nf]))[0]
+                       for j in range(ns))
+        for j, yh in enumerate(yh_wins):
             win = slice(j * a, (j + nf) * a)
-            yh, _, _ = model(x_full[:, :, win], pg)
             acc[:, :, win] += yh
             cnt[win] += 1.0
     finally:
@@ -67,20 +89,21 @@ def separate_windows(model, cfg: RunConfig, audio: torch.Tensor,
     return yh_audio, x_full
 
 
-def separate_frames_windows(model, cfg: RunConfig, audio: torch.Tensor,
-                            frames: torch.Tensor,
+def separate_frames_windows(model, cfg: RunConfig,
+                            batch: Dict[str, torch.Tensor],
                             generator: Optional[torch.Generator] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """audio [B, S], raw frames [B, T_total, H, W] (uint8, or float in
-    [0, 1]) -> (separated audio [B, S], the model's input features x_full
-    [B, 2, T, F], F = fft_len/2 + 1). The model runs in eval mode (its mode
-    is restored afterwards), as the JAX separator applies it with
-    train=False."""
+    """batch = {'audio': [B, S], 'frames': raw frames [B, T_total, H, W]
+    (uint8, or float in [0, 1])} -> (separated audio [B, S], the model's
+    input features x_full [B, 2, T, F], F = fft_len/2 + 1). The model runs
+    in eval mode (its mode is restored afterwards), as the JAX separator
+    applies it with train=False."""
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
     mid = (ns - 1) // 2
+    audio = batch["audio"]
     x_full, _ = _prep_stft_pair(audio, cfg, generator, trim_end=False,
                                 max_norm=cfg.normalize_output_fft)
-    frames = frames_f32(frames).unsqueeze(2)  # [B,T,1,H,W]
+    frames = frames_f32(batch["frames"]).unsqueeze(2)  # [B,T,1,H,W]
     yh_full = x_full.clone()
     was_training = model.training
     model.eval()
@@ -100,7 +123,8 @@ def separate_frames_windows(model, cfg: RunConfig, audio: torch.Tensor,
 def make_separator(model, cfg: RunConfig, frames_model: bool = False):
     """`separate(batch, generator=None) -> dict` over batch =
     {'audio': [B, S_total], 'frames': [B, T_total, p, p]} tensors on the
-    model's device (raw [B, T_total, H, W] frames for the frames model);
+    model's device ('pgram': [B, T_total, p^2] phasegram rows in place of
+    the frames; raw [B, T_total, H, W] frames for the frames model);
     returns audio_out, audio_in, si_sdr, si_sdr_noisy and si_sdr_gain like
     the JAX separator."""
     check_supported(cfg, frames=frames_model)
@@ -110,8 +134,7 @@ def make_separator(model, cfg: RunConfig, frames_model: bool = False):
     def separate(batch, generator: Optional[torch.Generator] = None
                  ) -> Dict[str, torch.Tensor]:
         audio = batch["audio"]
-        yh_audio, x_full = windows(model, cfg, audio, batch["frames"],
-                                   generator)
+        yh_audio, x_full = windows(model, cfg, batch, generator)
         x_audio = istft_features(x_full, cfg.fft_len, cfg.hop,
                                  normalized=cfg.normalize_fft,
                                  trim_end=not frames_model,

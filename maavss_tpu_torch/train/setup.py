@@ -41,8 +41,7 @@ def check_supported(cfg: RunConfig, train: bool = False,
                     frames: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every option
     the port does not implement yet; `train=True` adds the train step's
-    flags, `frames=True` checks the frames model's options in place of the
-    fusion model's."""
+    flags, `frames=True` the frames model's options."""
     todo = [
         (cfg.rnn_cell != "lstm", f"--rnn_cell {cfg.rnn_cell}", "M2"),
         (cfg.compress_audio, "--compress_audio", "M9 (ops/audio.py)"),
@@ -54,11 +53,6 @@ def check_supported(cfg: RunConfig, train: bool = False,
             (cfg.frames_encode != "window",
              f"--frames_encode {cfg.frames_encode}", "M7-rest"),
             (cfg.frames_halo > 0, "--frames_halo", "M7-rest"),
-        ]
-    else:
-        todo += [
-            (cfg.fusion_encode != "window", "--fusion_encode full", "M4"),
-            (cfg.pgram_cache, "--pgram_cache", "M4"),
         ]
     if train:
         todo += [

@@ -20,6 +20,14 @@ Window modes, as in the JAX package:
   rows) and run as one forward / backward; BatchNorm's batch statistics
   then cover all windows at once.
 
+`cfg.fusion_encode == 'full'` (bench.py's throughput default) supersedes
+the window mode: both encoders run once over the clip's num_frames +
+num_seq - 1 frames, and the num_seq latent windows run through the heads
+as B * num_seq rows (see `make_fusion_step`). The visual input is raw
+frames (`batch['frames']`) or, under --pgram_cache, precomputed float16
+phasegram rows (`batch['pgram']` [B, T_total, p^2]), cast to fp32 on the
+device.
+
 `mode` is the modality curriculum (0 audio only, 1 visual only, 2 AV): the
 inactive input is multiplied by 0, as the reference zeroes its tensors. The
 metrics are those of `_watch_metrics` plus loss, a_loss and v_loss (the
@@ -32,18 +40,24 @@ and that attention frame; one `.backward()` per window, as the fusion scan
 step.
 
 Not ported yet, and raising NotImplementedError: `--microbatch > 1`,
-`--fusion_encode full`, `--remat`, `--noise_schedule` (ROADMAP M3-rest),
-`--frames_encode full` and `--frames_halo` (M7-rest) and
-`--steps_per_dispatch > 1` (ROADMAP M5, CUDA graphs).
+`--remat`, `--noise_schedule` (ROADMAP M3-rest), `--frames_encode full` and
+`--frames_halo` (M7-rest) and `--steps_per_dispatch > 1` (ROADMAP M5, CUDA
+graphs).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from maavss_tpu_torch.config import RunConfig
+from maavss_tpu_torch.models.shape_plan import (
+    conv_out,
+    plan_phasegram_encoder,
+    plan_stft_encoder_fusion,
+)
 from maavss_tpu_torch.ops.phasegram import phasegram_cumsum, phasegram_window
 from maavss_tpu_torch.ops.stft import stft_features
 from maavss_tpu_torch.train.setup import check_supported
@@ -125,9 +139,17 @@ def _prep_stft_pair(audio: torch.Tensor, cfg: RunConfig,
 
 
 def _pflat_from_batch(batch, cfg: RunConfig) -> torch.Tensor:
-    """Per-frame phasegram cumsum rows [B, T, p^2] from the raw frames (the
-    frames path of maavss_tpu/train/steps.py:145-159; precomputed
-    --pgram_cache rows are ROADMAP M4)."""
+    """Per-frame phasegram cumsum rows [B, T, p^2]
+    (maavss_tpu/train/steps.py:145-159): precomputed --pgram_cache rows
+    (`batch['pgram']`, float16, cast to fp32 where they lie) or computed
+    from the raw frames."""
+    if "pgram" in batch:
+        if cfg.attn_diff:
+            raise ValueError(
+                "--attn_diff differentiates the raw attention frames before "
+                "the phasegram fft2, which precomputed --pgram_cache rows "
+                "skip; drop one of the two flags")
+        return batch["pgram"].to(torch.float32)
     frames = frames_f32(batch["frames"])
     resize = None if frames.shape[-1] == cfg.p_size else (cfg.p_size,
                                                           cfg.p_size)
@@ -150,16 +172,102 @@ def _to_device(batch, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def _fusion_full_geometry(model, cfg: RunConfig) -> Tuple[int, int, int]:
+    """Latent-window geometry for --fusion_encode full: (hop_a, hop_v, t_win)
+    (a copy of maavss_tpu/train/steps.py:_fusion_full_geometry).
+
+    Re-derives the encoder plans (models/shape_plan.py, the planner the
+    model's own construction uses) to map the window hop from input time to
+    latent time. The STFT encoder's time-stride product divides
+    hops_per_frame at the reference geometry (both are the power-of-2
+    halving chain); anything else is rejected loudly rather than silently
+    mis-sliced."""
+    a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
+    pg_enc, pg_hw = plan_phasegram_encoder(
+        model.pgram_shape, model.latent_channels, model.fc_size)
+    a_enc, _ = plan_stft_encoder_fusion(
+        model.stft_shape, pg_hw, model.latent_channels)
+    t_win = pg_hw[0]  # == num_frames (the pgram encoder never strides time)
+
+    def sim_t(specs, t: int) -> int:
+        for sp in specs:
+            t = conv_out(t, sp.kernel[0], sp.stride[0], sp.padding[0])
+        return t
+
+    s_a = 1
+    for sp in a_enc:
+        s_a *= sp.stride[0]
+    if s_a == 0 or a % s_a != 0:
+        raise ValueError(
+            f"--fusion_encode full: the STFT encoder's time-stride product "
+            f"{s_a} does not divide hops_per_frame={a}; latent windows "
+            f"cannot be sliced at this geometry — use fusion_encode=window")
+    hop_a, hop_v = a // s_a, 1
+    t_full_a = sim_t(a_enc, (nf + ns - 1) * a)
+    t_full_v = sim_t(pg_enc, nf + ns - 1)
+    if t_full_a != t_win + (ns - 1) * hop_a or t_full_v != nf + ns - 1:
+        raise ValueError(
+            f"--fusion_encode full: full-sequence latent lengths "
+            f"(a={t_full_a}, v={t_full_v}) do not tile {ns} windows of "
+            f"t={t_win} at hops ({hop_a},{hop_v}) — the conv chain's "
+            f"rounding broke alignment; use fusion_encode=window")
+    return hop_a, hop_v, t_win
+
+
+def fullenc_loss_impl() -> str:
+    """$MAAVSS_FULLENC_LOSS for the full-encode step: 'fold' stacks the
+    targets' windows as the head outputs are stacked, 'slice' reduces each
+    window of the head outputs against a slice of the span. 'auto' (the
+    default) is 'fold', as the JAX package resolves it off the TPU."""
+    impl = os.environ.get("MAAVSS_FULLENC_LOSS", "auto")
+    if impl == "auto":
+        impl = "fold"
+    if impl not in ("fold", "slice"):
+        raise ValueError(f"MAAVSS_FULLENC_LOSS={impl!r} (auto|fold|slice)")
+    return impl
+
+
+def _windows(full: torch.Tensor, ns: int, hop: int, width: int
+             ) -> torch.Tensor:
+    """The ns windows full[:, :, j*hop : j*hop + width] stacked into the
+    batch dimension: [B * ns, ...], example-major."""
+    st = torch.stack([full[:, :, j * hop:j * hop + width] for j in range(ns)],
+                     dim=1)
+    return st.reshape((-1,) + st.shape[2:])
+
+
 def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
                      device="cuda"):
     """Train step for the fusion model over `batch = {'audio': [B, S_total],
-    'frames': [B, T_total, p, p]}` (numpy arrays or tensors; moved to
+    'frames': [B, T_total, p, p]}` or, under --pgram_cache, `{'audio',
+    'pgram': [B, T_total, p^2] float16}` (numpy arrays or tensors; moved to
     `device`), T_total = num_frames + num_seq frames at phasegram
-    resolution. `window_mode` defaults to cfg.window_mode."""
+    resolution. `window_mode` defaults to cfg.window_mode.
+
+    With cfg.fusion_encode 'full' the step is the full-encode step
+    (maavss_tpu/train/steps.py:493-618), whatever the window mode: both
+    encoders run once, in train mode, over the first num_frames + num_seq -
+    1 frames of the clip (the span the windows cover), the num_seq latent
+    windows at hops (hop_a, hop_v) and the STFT input windows are stacked
+    into B * num_seq rows, the heads run once over them, and one
+    `.backward()` feeds one optimizer update. Its loss is
+    `fullenc_loss_impl()`'s. It deviates from the windowed reference by
+    design, as the JAX step documents:
+    (a) interior windows see real temporal neighbours through the STFT
+        encoder's time padding at the window seams, not each window's zero
+        pad (the phasegram encoder has no temporal context either way);
+    (b) BatchNorm's statistics are one full-span update a step, not one
+        per window;
+    (c) the phasegram's temporal diff and max-abs normalisation run once
+        over the full span (a true diff at the window seams, one global
+        max), not per window."""
     check_supported(cfg, train=True)
     window_mode = window_mode or cfg.window_mode
     if window_mode not in ("scan", "vectorized"):
         raise ValueError(f"unknown window_mode {window_mode}")
+    if cfg.fusion_encode not in ("window", "full"):
+        raise ValueError(f"unknown fusion_encode {cfg.fusion_encode!r} "
+                         "(window|full)")
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
     coeff = cfg.loss_coeff
 
@@ -223,6 +331,44 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
         return finish(state, {"loss": loss.detach(), "a_loss": a_loss.detach(),
                               "v_loss": v_loss.detach()})
 
+    if cfg.fusion_encode == "full":
+        hop_a, hop_v, t_win = _fusion_full_geometry(model, cfg)
+        loss_impl = fullenc_loss_impl()
+
+        def step_full(state: TrainState, batch, mode: int,
+                      generator: Optional[torch.Generator] = None):
+            state.model.train()
+            x_full, y_full, p_flat = prep(batch, generator)
+            a_mask, v_mask, ya_mask, _ = _masks(mode, cfg.objective_zeros)
+            state.zero_grad()
+            # encode exactly the span the windows cover: a longer tail would
+            # leak context into the last window's conv pad and shift the
+            # BatchNorm statistics
+            pg_full = phasegram_window(p_flat[:, :nf + ns - 1])
+            a_lat, v_lat = state.model.encode_both(
+                x_full[:, :, :(nf + ns - 1) * a] * a_mask, pg_full * v_mask)
+            yh_a, yh_v, _ = state.model.heads_from_latents(
+                _windows(a_lat, ns, hop_a, t_win),
+                _windows(v_lat, ns, hop_v, t_win),
+                _windows(x_full, ns, a, nf * a) * a_mask)
+            if loss_impl == "slice":
+                yh_aw = yh_a.reshape((-1, ns) + yh_a.shape[1:])
+                yh_vw = yh_v.reshape((-1, ns) + yh_v.shape[1:])
+                a_loss = sum(mse(yh_aw[:, j],
+                                 y_full[:, :, j * a:(j + nf) * a] * ya_mask)
+                             for j in range(ns)) / ns
+                v_loss = sum(mse(yh_vw[:, j], pg_full[:, :, j:j + nf])
+                             for j in range(ns)) / ns
+            else:
+                a_loss = mse(yh_a, _windows(y_full, ns, a, nf * a) * ya_mask)
+                v_loss = mse(yh_v, _windows(pg_full, ns, 1, nf))
+            loss = a_loss + coeff * v_loss
+            loss.backward()
+            return finish(state, {"loss": loss.detach(),
+                                  "a_loss": a_loss.detach(),
+                                  "v_loss": v_loss.detach()})
+
+        return step_full
     return step_vectorized if window_mode == "vectorized" else step_scan
 
 

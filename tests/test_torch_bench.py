@@ -1,0 +1,112 @@
+"""tools/bench_torch.py, the port's counterpart of bench.py, on the CPU:
+its measure function at a tiny geometry (2 windows of 2 steps, the plain
+versions), the JSON line's keys against bench.py's, the variables the port
+lacks raising by their ROADMAP labels, and the refusal to time anything
+without a card."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from tools import bench_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = dict(num_frames=4, num_seq=4, hops_per_frame=4, fft_len=64, p_size=16,
+            latent_chan=8, fc_size=256)
+NEW_KEYS = {"torch", "cuda", "name", "power_limit", "kernels",
+            "peak_memory_bytes", "step_ms", "device", "differs_from_bench_py"}
+
+
+def bench_py_keys():
+    """The keys of the JSON object bench.py's main() prints."""
+    tree = ast.parse(open(os.path.join(ROOT, "bench.py")).read())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    for node in ast.walk(main):
+        if (isinstance(node, ast.Call)
+                and getattr(node.func, "attr", None) == "dumps"):
+            return {k.value for k in node.args[0].keys}
+    raise AssertionError("bench.py prints no json.dumps object")
+
+
+@pytest.fixture(scope="module")
+def line():
+    result = bench_torch.measure(2, steps=2, windows=2, warmup=1,
+                                 device="cpu", env={}, geometry=TINY)
+    return json.loads(json.dumps(bench_torch.with_baseline(result)))
+
+
+def test_line_has_bench_py_keys_and_the_port_s(line):
+    keys = bench_py_keys()
+    assert {"metric", "value", "spread", "windows", "vs_baseline",
+            "fusion_encode", "pgram_cache", "host_load"} <= keys
+    # host_load / host_contended are added by main(), around the windows
+    assert keys - {"host_load", "host_contended"} <= set(line)
+    assert NEW_KEYS <= set(line)
+    assert line["metric"] == "av_clips_per_sec_cpu_plain"
+    assert line["device"] == {"platform": "cpu", "kind": "cpu", "count": 0}
+    assert line["value"] > 0 and len(line["windows"]) == 2
+    assert line["vs_baseline"] == pytest.approx(line["value"] / 3.669)
+    assert line["vs_baseline_fresh"] is None
+    assert line["baseline_pinned_cps"] == 3.669
+
+
+def test_line_records_the_fusion_defaults(line):
+    assert (line["batch"], line["dtype"], line["regime"]) == (2, "float32",
+                                                               "fusion")
+    assert line["fusion_encode"] == "full" and line["pgram_cache"] is True
+    assert line["fullenc_loss_resolved"] == "fold"
+    assert (line["steps"], line["n_windows"], line["warmup"]) == (2, 2, 1)
+    # the plain versions on the CPU: every counter stays at 0
+    assert set(line["kernels"]) >= {"lstm_fwd", "lstm_bwd", "pgenc_train",
+                                    "pgenc_bwd", "adam", "stft_feat"}
+    assert not any(line["kernels"].values())
+    assert line["peak_memory_bytes"] is None
+
+
+@pytest.mark.parametrize("env, label", [
+    (dict(MAAVSS_BENCH_MULTISTEP="2"), "M5 (CUDA graphs)"),
+    (dict(MAAVSS_BENCH_MICROBATCH="2"), "M3-rest"),
+    (dict(MAAVSS_BENCH_MICROBATCH="2", MAAVSS_BENCH_REGIME="frames"),
+     "M7-rest"),
+    (dict(MAAVSS_BENCH_REMAT="1"), "M3-rest"),
+    (dict(MAAVSS_BENCH_FUSED_OPT="1"), "Not carried"),
+    (dict(MAAVSS_BENCH_DTYPE="bfloat16"), "M5 (bf16 slice)"),
+    (dict(MAAVSS_BENCH_RNN="gru"), "M2"),
+    (dict(MAAVSS_BENCH_FRAMES_ENCODE="full", MAAVSS_BENCH_REGIME="frames"),
+     "M7-rest"),
+])
+def test_unported_variables_raise_by_label(env, label):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
+        bench_torch.bench_config(env, 2, TINY)
+    assert label in str(err.value)
+
+
+def test_config_follows_bench_py_defaults():
+    cfg, regime, window_mode = bench_torch.bench_config({}, 256)
+    assert (regime, window_mode) == ("fusion", "vectorized")
+    assert (cfg.fusion_encode, cfg.pgram_cache, cfg.dtype,
+            cfg.opt_kernel) == ("full", True, "float32", "auto")
+    cfg, regime, window_mode = bench_torch.bench_config(
+        dict(MAAVSS_BENCH_REGIME="frames"), 8)
+    assert (regime, window_mode, cfg.pgram_cache) == ("frames", None, False)
+
+
+def _run(env_extra):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(CUDA_VISIBLE_DEVICES="", **env_extra)
+    return subprocess.run([sys.executable, "tools/bench_torch.py"], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_refuses_without_a_card():
+    out = _run({})
+    assert out.returncode != 0 and "CUDA is not available" in out.stderr
+    assert out.stdout == ""
+    out = _run({"MAAVSS_BENCH_WINDOWS": "scan"})
+    assert out.returncode != 0 and "window COUNT" in out.stderr

@@ -17,8 +17,10 @@ from maavss_tpu.models.fusion import AVFusionModel as JaxFusion
 from maavss_tpu.train.setup import build_fusion as jax_build_fusion
 from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.convert import from_flax
+from maavss_tpu_torch.data.synthetic import synthetic_av_batch, with_pgram_rows
 from maavss_tpu_torch.models.fusion import AVFusionModel
 from maavss_tpu_torch.train.setup import build_fusion, build_fusion_state
+from maavss_tpu_torch.train.steps import make_fusion_step
 
 SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,
              fc_size=256, batch_size=2)
@@ -97,13 +99,31 @@ def test_auto_gate_is_convstack_on_cpu():
 
 @pytest.mark.parametrize("flags", [
     dict(rnn_cell="gru"), dict(rnn_cell="none"),
-    dict(fusion_encode="full"), dict(pgram_cache=True),
     dict(compress_audio=True), dict(attn_diff=True), dict(dtype="bfloat16"),
     dict(pgenc_kernel="fold"), dict(stft_fold="fold"),
 ])
 def test_unported_options_raise_at_build(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_fusion(RunConfig(**SMALL).replace(**flags), 2, "cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    dict(fusion_encode="full"), dict(pgram_cache=True),
+])
+def test_ported_options_build_and_step(flags):
+    """Options that no longer raise: the model and its state build, and
+    one CPU train step runs on the batch the option reads (--pgram_cache:
+    float16 phasegram rows; tests/test_torch_fullenc.py holds the path
+    against JAX)."""
+    cfg = RunConfig(**SMALL).replace(**flags)
+    model, state = build_fusion_state(cfg, 2, "cpu",
+                                      torch.Generator().manual_seed(0))
+    batch = synthetic_av_batch(cfg, 2, seed=4)
+    if cfg.pgram_cache:
+        batch = with_pgram_rows(batch)
+        assert batch["pgram"].dtype == np.float16
+    state, m = make_fusion_step(model, cfg, device="cpu")(state, batch, 2)
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
 
 
 @pytest.mark.parametrize("build", [build_fusion, build_fusion_state],

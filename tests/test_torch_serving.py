@@ -79,3 +79,40 @@ def test_bad_shape_is_400(server):
     np.savez(buf, audio=audio[:, :-5], visual=visual)
     status, body = client._roundtrip("POST", "/v1/separate", buf.getvalue())
     assert status == 400 and b"audio row shape" in body
+
+
+def test_float16_rows_cross_the_wire_unchanged():
+    """Under --pgram_cache the visual payload is float16 phasegram rows: the
+    npz wire and the executor hand them to the serving function bit for
+    bit (zero rows padding the batch), and a float32 payload is refused by
+    the spec's dtype check."""
+    cfg = RunConfig(**SMALL, pgram_cache=True)
+    a_spec, v_spec = serving_input_specs(cfg, 2)
+    assert v_spec.dtype == np.float16 and v_spec.shape == (2, 8, 256)
+    seen = []
+
+    def record(audio, visual):
+        seen.append(visual.clone())
+        return audio
+
+    executor = BatchingExecutor(record, 2, a_spec, v_spec, "cpu",
+                                max_wait_ms=1.0)
+    srv = SeparationServer(executor, {"model": "fusion", "batch": 2},
+                           host="127.0.0.1", port=0).start()
+    client = SeparationClient("http://%s:%d" % srv.address)
+    try:
+        audio, rows = random_serving_inputs(cfg, 1, seed=5)
+        assert rows.dtype == np.float16
+        out = client.separate(audio, rows)
+        np.testing.assert_array_equal(out, audio)
+        assert seen[0].dtype == torch.float16
+        np.testing.assert_array_equal(seen[0][:1].numpy(), rows)
+        assert not seen[0][1:].any()
+        buf = io.BytesIO()
+        np.savez(buf, audio=audio, visual=rows.astype(np.float32))
+        status, body = client._roundtrip("POST", "/v1/separate",
+                                         buf.getvalue())
+        assert status == 400 and b"dtype" in body
+    finally:
+        client.close()
+        srv.stop()

@@ -242,7 +242,7 @@ def test_eval_matches_jax(jax_setup):
 @pytest.mark.parametrize("flags", [
     dict(microbatch=2), dict(remat=True), dict(noise_schedule="linear:0.1:0"),
     dict(lr_schedule="cosine"), dict(steps_per_dispatch=2),
-    dict(fused_opt=True), dict(fusion_encode="full"),
+    dict(fused_opt=True),
 ])
 def test_unported_train_flags_raise(flags):
     cfg = RunConfig(**GEOMETRY).replace(**flags)
@@ -250,6 +250,19 @@ def test_unported_train_flags_raise(flags):
         check_supported(cfg, train=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_fusion_state(cfg, 2, "cpu")
+
+
+@pytest.mark.parametrize("flags", [dict(fusion_encode="full")])
+def test_ported_train_flags_take_a_step(flags):
+    """Flags that no longer raise: the model and state build and take one
+    CPU step (tests/test_torch_fullenc.py holds the step against JAX)."""
+    cfg = RunConfig(**GEOMETRY).replace(**flags)
+    check_supported(cfg, train=True)
+    model, state = build_fusion_state(cfg, cfg.batch_size, "cpu",
+                                      torch.Generator().manual_seed(0))
+    batch = synthetic_av_batch(cfg, cfg.batch_size, seed=3)
+    state, m = make_fusion_step(model, cfg, device="cpu")(state, batch, 2)
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
 
 
 def test_build_fusion_state_pairs_model_and_state():

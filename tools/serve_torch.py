@@ -6,13 +6,15 @@ Keeps the model's weights on the device, coalesces concurrent requests
 into batches of `--batch_size` rows, and serves:
 
   POST /v1/separate   npz{audio [b,S], visual [b,T,p,p]}  ->  npz{audio_out [b,S]}
-                      (--model frames: visual uint8 [b,T,framesize,framesize])
+                      (--pgram_cache: visual float16 phasegram rows [b,T,p*p];
+                      --model frames: visual uint8 [b,T,framesize,framesize])
   GET  /healthz       geometry + input specs
   GET  /stats         request/batch counters + latency percentiles
 
 `--weights file.npz` loads a flax checkpoint saved with
 maavss_tpu_torch.convert.save_npz; without it the weights are a seeded
-init (--seed). `--model` picks the fusion model (default) or the frames
+init (--seed). `--fusion_encode full` serves the full-encode separator.
+`--model` picks the fusion model (default) or the frames
 model (latent width 16, frames at --framesize). The CUDA kernels build at
 startup, through a warm-up call.
 

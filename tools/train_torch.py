@@ -9,7 +9,9 @@ plain PyTorch versions on the CPU), then takes `-s` steps of
 `make_fusion_step` (`--model fusion`, the default) or `make_frames_step`
 (`--model frames`: latent width 16, frames at --framesize) in mode 2
 (audio + visual; the mode curriculum comes with the trainer) on
-`synthetic_av_batch` batches seeded `--seed + step`. Prints
+`synthetic_av_batch` batches seeded `--seed + step` (under --pgram_cache
+the frames become their float16 phasegram rows, `with_pgram_rows`;
+`--fusion_encode full` takes the full-encode step). Prints
 one JSON line per step (loss, a_loss, v_loss, grad_norm, ms), then a final
 line with the steps, the mean step time over the steps after the first (the
 first builds the kernels) and clips/s.
@@ -19,6 +21,9 @@ Usage: python tools/train_torch.py [--model fusion|frames] [-s 3]
   e.g. on the CPU at the small geometry:
   python tools/train_torch.py --device cpu -s 3 -b 2 --num_frames 4
       --fft_len 64 --p_size 16 --latent_chan 8 --fc_size 256 -lr 1e-3
+  python tools/train_torch.py --device cpu -s 3 -b 2 --num_frames 4
+      --fft_len 64 --p_size 16 --latent_chan 8 --fc_size 256 -lr 1e-3
+      --fusion_encode full --pgram_cache
   python tools/train_torch.py --model frames --device cpu -s 3 -b 2
       --num_frames 2 --num_seq 2 -a 4 --fft_len 64 --framesize 24 -lr 1e-3
 """
@@ -45,7 +50,10 @@ def main(argv=None) -> None:
     import torch
 
     from maavss_tpu_torch.config import model_args
-    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.data.synthetic import (
+        synthetic_av_batch,
+        with_pgram_rows,
+    )
     from maavss_tpu_torch.train.setup import (
         build_frames_state,
         build_fusion_state,
@@ -79,6 +87,8 @@ def main(argv=None) -> None:
     for i in range(cfg.steps_per_epoch):
         batch = synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i,
                                    frame_size=frame_size)
+        if cfg.pgram_cache and not frames_model:
+            batch = with_pgram_rows(batch, device)
         sync()
         t0 = time.perf_counter()
         state, metrics = step(state, batch, 2, generator)
@@ -97,6 +107,7 @@ def main(argv=None) -> None:
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "model": own.model, "window_mode": cfg.window_mode,
+        "fusion_encode": cfg.fusion_encode, "pgram_cache": cfg.pgram_cache,
         "batch": cfg.batch_size}),
         flush=True)
 
