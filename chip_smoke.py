@@ -11,13 +11,13 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 2. build: compiles every kernel of the serving and train paths from `csrc/`
    (one nvcc per source, in parallel, then one link).
 3. k1_lstm (K1-fwd, LSTM recurrence): the kernel against its plain version
-   at (B, T) = (8, 8), (32, 8), (8, 16) and (256, 8), H=256, fp32 and bf16,
-   and (1024, 8) (B x num_seq of the full-encode step at batch 256) fp32,
+   at (B, T) = (8, 8), (32, 8), (8, 16), (256, 8) and (1024, 8) (B x num_seq
+   of the full-encode step at batch 256), H=256, fp32 and bf16,
    both directions in one cluster launch, two calls bitwise equal; cuDNN's
    bidirectional nn.LSTM timed beside it.
 4. k2_pgenc (K2-eval, fused phasegram-encoder layer): the kernel against
    its plain version at each of the 10 planned layers (R=64 rows, and R=88,
-   the full-encode separator's span at batch 8, fp32); two
+   the full-encode separator's span at batch 8; fp32 and bf16); two
    calls, x and w2 at an odd offset and a CUDA graph replay give the same
    bits; cuDNN's conv alone timed beside (conv_library_ms).
 5. k1_bwd (K1-bwd, LSTM BPTT): against the plain BPTT and autograd through
@@ -28,8 +28,8 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    (4, 8, 256), (8, 8, 448) and (12, 8, 96), fp32 and bf16: one and two
    rows per cluster, the largest H, a slice loaded one value at a time.
 6. k2_train (K2-train and K2-bwd, the train-mode layer and its backward):
-   at each of the 10 layers, R 64 and 256, fp32 and bf16, and R 88 and 2816
-   (the full-encode span at batch 8 and 256), fp32, against the plain
+   at each of the 10 layers, R 64 and 256, and R 88 and 2816 (the
+   full-encode span at batch 8 and 256), fp32 and bf16, against the plain
    versions and autograd through the plain forward; dcbias exactly 0; the
    backward reads the forward's yc and leaves it as it was, two calls give
    the same bits, and a retain_graph double backward repeats; the forward
@@ -75,9 +75,9 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    tests/fixtures/torch_port_fullenc_golden.npz (the full-encode separator
    on float16 rows, 3 train steps), run through the kernels.
 15. bench: tools/bench_torch.py's measure function at batch 8, 2 windows of
-   5 steps (its defaults otherwise: full encode, rows, fp32), its JSON
-   line as a phase; its kernel counts per step must be the full-encode
-   step's.
+   5 steps (its defaults otherwise: full encode, rows, bf16), and once
+   more in fp32, each JSON line as a phase; its kernel counts per step
+   must be the full-encode step's.
 16. k5_epilogue (K5, the frames encoder's fused BN + 2x2 max pool +
    LeakyReLU: stats, apply, bwd reduce, bwd dy): each kernel against its
    plain version at the flagship's stage-0 and stage-1 shapes, with a third
@@ -127,6 +127,27 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 26. k4_golden: the small-geometry JAX fixture of
    tests/fixtures/torch_port_k4_golden.npz (the --mask_head separator and
    3 train steps, the --use_polar separator), run through the kernels.
+27. k5_epilogue_bf16 (--dtype bfloat16): K5's four kernels on a bf16 y
+   against their plain versions at the stage-0 and stage-1 shapes,
+   gaussian and tied data, and y at an odd offset: sel and the tie
+   routing exact, out and dy within one bf16 ulp; timed, bounds in bf16
+   bytes.
+28. bf16_train: the full-width fusion step (--fusion_encode full
+   --pgram_cache, batch 8) and frames step in bf16, 3 steps each, and one
+   --mask_head step of each (the standalone mask product in fp32 after a
+   bf16 a_fc1), kernels against the plain versions under the bf16 gates
+   of tests/test_torch_bf16.py (losses within 5e-4; step-1 gradients at
+   most 2x, and no further from the fp32 plain step's than 1.5x, the plain
+   bf16 step's distance to it; the bf16 LSTM leaves within one ulp);
+   exact launch counts; each family's bf16 step timed in turns with its
+   fp32 step.
+29. bf16_slice: HTTP serving in bf16, the fusion flagship on float16 rows
+   (full encode) and the frames flagship on uint8 frames, against the
+   plain bf16 serving function, at most its distance to the plain fp32
+   one and as accurate; /healthz reports the compute dtype.
+30. bf16_golden: the small-geometry JAX bf16 fixture of
+   tests/fixtures/torch_port_bf16_golden.npz (separator audio, 3 train
+   steps) through the kernels.
 
 Every phase that drives a train step or a serving batch counts the STFT
 kernel's launches exactly (one a step or a batch) and runs its plain
@@ -309,7 +330,6 @@ K1_SHAPES = ((8, 8), (32, 8), (8, 16), (256, 8), (1024, 8))
 # (B, T): the fusion window at batch 8; its vectorized and full-encode
 # windows (B x num_seq); the frames family's channel axis; bench.py's batch
 # 256 a window and B x num_seq in full encode
-K1_FP32_ONLY = {(1024, 8)}  # the main path's dtype alone: the phase's time
 
 
 def _k1_inputs(b, t_len, dtype, g, h=256):
@@ -348,8 +368,9 @@ def _same_bits(what, first, second):
 
 
 def lstm_phase():
-    """K1-fwd against its plain version at K1_SHAPES, H=256, fp32 and bf16,
-    both directions in one launch: ys, cs and the saved fp32 gate
+    """K1-fwd against its plain version at K1_SHAPES (bf16 at B = 1024 too,
+    the full-encode step's rows at batch 256 under --dtype bfloat16), H=256,
+    fp32 and bf16, both directions in one launch: ys, cs and the saved fp32 gate
     activations (atol 1e-5; rtol 1e-5 fp32, 2^-7 bf16: one bf16 rounding),
     two calls bitwise equal. cuDNN's bidirectional nn.LSTM timed beside
     (fp32)."""
@@ -366,8 +387,6 @@ def lstm_phase():
     for b, t_len in K1_SHAPES:
         for dtype, atol, rtol in ((torch.float32, 1e-5, 1e-5),
                                   (torch.bfloat16, 1e-5, 2.0 ** -7)):
-            if (b, t_len) in K1_FP32_ONLY and dtype != torch.float32:
-                continue
             xws, whs, _ = _k1_inputs(b, t_len, dtype, g, h)
             rev = [False, True]
 
@@ -507,8 +526,8 @@ def conv_library_ms(x, w2, cbias):
 
 def pgenc_phase():
     """K2-eval against its plain version at each of the 10 flagship layers,
-    R = 64, fp32 (1e-5 absolute on the tanh outputs) and bf16 (2^-7), and
-    R = 88 (the full-encode separator's 11 frames at batch 8), fp32, with
+    R = 64 and R = 88 (the full-encode separator's 11 frames at batch 8),
+    fp32 (1e-5 absolute on the tanh outputs) and bf16 (2^-7), with
     its contract (_k2_contract); cuDNN's conv alone timed beside."""
     import torch
 
@@ -527,9 +546,10 @@ def pgenc_phase():
     totals = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
               "device_ms": 0.0, "host_ms": 0.0, "conv_library_ms": 0.0}
     # R = 64: a window at batch 8; R = 88: the full-encode span at batch 8
-    # (B x (num_frames + num_seq - 1)), fp32 only
+    # (B x (num_frames + num_seq - 1))
+    r88 = 8 * (cfg.num_frames + cfg.num_seq - 1)
     runs = ((r, torch.float32, 1e-5), (r, torch.bfloat16, 2.0 ** -7),
-            (8 * (cfg.num_frames + cfg.num_seq - 1), torch.float32, 1e-5))
+            (r88, torch.float32, 1e-5), (r88, torch.bfloat16, 2.0 ** -7))
     for r, dtype, atol in runs:
         s = cfg.p_size ** 2
         for i, sp in enumerate(specs):
@@ -633,8 +653,6 @@ def lstm_bwd_phase():
     report = None
     for b, t_len in K1_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
-            if (b, t_len) in K1_FP32_ONLY and dtype != torch.float32:
-                continue
             xws, whs, dys = _k1_inputs(b, t_len, dtype, g, h)
             rev = [False, True]
             fwd = lstm_recurrence(xws, whs, rev, backend="kernel")
@@ -780,9 +798,9 @@ def _pgenc_inputs(c, co, r, s, dtype, g):
 
 def pgenc_train_phase():
     """K2-train and K2-bwd at each of the 10 flagship layers, R 64 (scan
-    windows) and 256 (vectorized), fp32 and bf16, and R 88 and 2816 (the
-    full-encode span of 11 frames at batch 8 and 256), fp32, against the
-    plain versions
+    windows) and 256 (vectorized), and R 88 and 2816 (the full-encode span
+    of 11 frames at batch 8 and 256), fp32 and bf16, against the plain
+    versions
     and (fp32, R=64) autograd through the plain forward. Tolerances: fp32 y
     2e-5 absolute (tanh outputs; conv and statistics sums in another
     order), mu and var 1e-4 relative + 1e-5 absolute; dx, dw2, dgamma and
@@ -820,7 +838,7 @@ def pgenc_train_phase():
     both = (torch.float32, torch.bfloat16)
     for r, dtypes in ((8 * cfg.num_frames, both),
                       (8 * cfg.num_seq * cfg.num_frames, both),
-                      (8 * span, both[:1]), (256 * span, both[:1])):
+                      (8 * span, both), (256 * span, both)):
         for dtype in dtypes:
             fp32 = dtype == torch.float32
             tol = 2e-5 if fp32 else 2.0 ** -7
@@ -2179,7 +2197,8 @@ def _k4_counters():
 
 def _plain_k4(fn, kernel_features=False):
     """`fn` run with K4's plain versions (forward and explicit backward) in
-    place of its kernels: the mask head of both models, the STFT features
+    place of its kernels: the mask head of both models (the fused head, or
+    under --dtype bfloat16 the standalone mask product), the STFT features
     (unless `kernel_features`: the --use_polar gates feed both sides the
     STFT kernel's features, since the sign of a real bin's rounding-noise
     imaginary part, a phase of +pi or -pi, differs between cuFFT and the
@@ -2193,6 +2212,9 @@ def _plain_k4(fn, kernel_features=False):
 
     swaps = ((fusion, "mask_head_apply", mask_head_apply_plain),
              (fusion_frames, "mask_head_apply", mask_head_apply_plain),
+             (fusion, "complex_mask_apply", cc.complex_mask_apply_plain),
+             (fusion_frames, "complex_mask_apply",
+              cc.complex_mask_apply_plain),
              (stft, "polar_to_spectrum", cc.polar_to_spectrum_plain))
     if not kernel_features:
         swaps += ((steps, "stft_features", stft.stft_features_plain),)
@@ -3740,21 +3762,635 @@ def fullenc_golden_phase():
 def bench_phase():
     """tools/bench_torch.py's measure function in this process at batch 8,
     2 windows of 5 steps, its defaults otherwise (full encode, float16
-    rows, fp32), with its profiled step: its JSON line as a phase. The
-    value must be finite and the kernels it counts per step those of the
-    full-encode step."""
+    rows, bf16), with its profiled step, and once more at
+    MAAVSS_BENCH_DTYPE=float32: each JSON line as a phase. The value must
+    be finite and the kernels it counts per step those of the full-encode
+    step."""
     from tools import bench_torch
 
-    line = bench_torch.with_baseline(bench_torch.measure(
-        8, steps=5, windows=2, device="cuda", env={}, profile=True))
-    k = line["kernels"]
     want = _fullenc_want()
     want["stft_feat"] = want.pop("stft")
-    if (not math.isfinite(line["value"]) or line["value"] <= 0
-            or any(k[n] != v for n, v in want.items())):
-        raise SystemExit(f"bench: value {line['value']}, kernels per step "
-                         f"{k}, want {want}")
-    phase("bench", **line)
+    for env in ({}, {"MAAVSS_BENCH_DTYPE": "float32"}):
+        line = bench_torch.with_baseline(bench_torch.measure(
+            8, steps=5, windows=2, device="cuda", env=env,
+            profile=not env))
+        k = line["kernels"]
+        if (not math.isfinite(line["value"]) or line["value"] <= 0
+                or any(k[n] != v for n, v in want.items())
+                or line["dtype"] != env.get("MAAVSS_BENCH_DTYPE",
+                                            "bfloat16")):
+            raise SystemExit(f"bench: value {line['value']}, dtype "
+                             f"{line['dtype']}, kernels per step {k}, want "
+                             f"{want}")
+        phase("bench", **line)
+
+
+# ------------------------------------------------------------ --dtype bf16
+
+# the bf16 gates (tests/test_torch_bf16.py states them against JAX): a
+# bf16 result of the kernels is at most RATIO (forward values) or
+# GRAD_RATIO (gradients) times as far from the plain versions' bf16 result
+# as that is from the plain versions' fp32 one, no further from the fp32
+# one than ACCURATE times, and at least DIFFERS times as far from the fp32
+# one (it ran in bf16: an fp32 path reads 0 there and 1.0 on the ratio);
+# losses within LOSS_RTOL of the plain bf16 losses; the bf16 LSTM leaves
+# after Adam within one bf16 ulp for at least BF16_LEAVES_SHARE of their
+# elements and within 2 lr + 2 ulp for all. GRAD_RATIO is the card's own:
+# step-1 gradients (Adam's first moments) of the kernels read 0.04x
+# (fusion) and 0.21x (frames) the plain bf16-vs-fp32 distance on an NVIDIA
+# H100, where JAX's own VJPs take 2.0x on the CPU. The bf16 LSTM leaves'
+# moments take LOW_GRAD_RATIO: both sides round them to bf16, and where
+# the kernel's and the plain gradient differ in their last bits a rounding
+# flips one ulp, which reads 0.59x on the frames step (NVIDIA H100); a
+# gradient 1 % off in magnitude reads about 2x
+BF16_RATIO, BF16_GRAD_RATIO, BF16_ACCURATE, BF16_DIFFERS = 0.5, 0.5, 1.5, 0.1
+BF16_LOW_GRAD_RATIO = 1.0
+# kernels against plain versions on the card, forward values: the kernels'
+# fp32 sums in another order flip a bf16 rounding here and there, and the
+# flips grow through the model's chain of bf16 roundings (serving on an
+# NVIDIA H100: 0.50 of the fp32 distance for the fusion flagship, 0.16 for
+# the frames flagship), so the served audio is held at most as far from the
+# plain bf16 audio as that is from the fp32 audio, and as accurate
+BF16_SERVE_RATIO = 1.0
+BF16_LOSS_RTOL, BF16_LEAVES_SHARE = 5e-4, 0.99
+BF16_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
+                           "torch_port_bf16_golden.npz")
+
+
+def _bf16_ratio(what, got, want, want32, ratio):
+    """The ratio gate on flattened tensors or arrays; returns the ratio."""
+    import numpy as np
+
+    def f64(a):
+        a = a.detach().float().cpu().numpy() if hasattr(a, "detach") else a
+        return np.asarray(a, np.float64).ravel()
+
+    got, want, want32 = f64(got), f64(want), f64(want32)
+    near, base = _rel_l2(got, want), _rel_l2(want, want32)
+    if base == 0.0:
+        if near != 0.0:
+            raise SystemExit(f"{what}: {near} from an exact reference")
+        return 0.0
+    far = _rel_l2(got, want32)
+    if near > ratio * base or far < BF16_DIFFERS * base or (
+            ratio > BF16_RATIO and far > BF16_ACCURATE * base):
+        raise SystemExit(f"{what}: {near} from the plain bf16 result and "
+                         f"{far} from the fp32 one, which are {base} apart "
+                         f"(ratio {ratio}, differs {BF16_DIFFERS})")
+    return near / base
+
+
+def k5_bf16_phase():
+    """K5's four kernels on a bf16 y [B, C, T, H, W] (out, sel, g and dy in
+    bf16, every sum and BN expression in fp32) against their plain versions
+    at K5_SHAPES, gaussian and tied data (y rounded to 0.25: bf16 holds the
+    grid exactly, and about a third of the windows tie), and stats, apply
+    and bwd dy on a y one element into its storage (2-byte aligned: one
+    value a load). Gates: mu, var, rstd, dgamma, dbeta and k as the fp32
+    phase's (fp32 sums); sel exact; the tie routing exact (bwd dy with k = 0
+    is nonzero only where the gradient is routed: the same elements);
+    out and dy within one bf16 rounding (one ulp, relative 2^-7; dy also
+    1e-3 of its largest entry). Times on the gaussian data; bounds in bf16 bytes."""
+    import torch
+
+    from maavss_tpu_torch.ops.cuda_epilogue import (
+        epilogue_apply,
+        epilogue_apply_plain,
+        epilogue_bwd_dy,
+        epilogue_bwd_dy_plain,
+        epilogue_bwd_reduce,
+        epilogue_bwd_reduce_plain,
+        epilogue_stats,
+        epilogue_stats_plain,
+    )
+
+    bf16 = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(16)
+    names = ("stats", "apply", "bwd_reduce", "bwd_dy")
+    rep = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0,
+                   device_ms=0.0, host_ms=0.0) for n in names}
+    rep["stats"]["library_ms"] = 0.0
+
+    def one_rounding(what, got, want, atol=0.0):
+        err = (got.float() - want.float()).abs()
+        if not bool((err <= atol + 2.0 ** -7 * want.float().abs()).all()):
+            raise SystemExit(f"{what}: {err.max().item()} past one bf16 "
+                             f"rounding")
+        return err.max().item()
+
+    def check(where, y, gamma, beta, g_out, g_mu, g_var):
+        mu, var, rstd = epilogue_stats(y)
+        for n, a, b in zip(("mu", "var", "rstd"), (mu, var, rstd),
+                           epilogue_stats_plain(y)):
+            _rel_check(f"K5 bf16 stats {n} {where}", a, b, 1e-5)
+        out, sel = epilogue_apply(y, gamma, beta, mu, rstd)
+        out_p, sel_p = epilogue_apply_plain(y, gamma, beta, mu, rstd)
+        torch.cuda.synchronize()
+        if out.dtype != bf16 or not torch.equal(sel, sel_p):
+            raise SystemExit(f"K5 bf16 apply: sel differs at {where}")
+        errs = {"stats": 0.0,
+                "apply": one_rounding(f"K5 bf16 out {where}", out, out_p)}
+        red = epilogue_bwd_reduce(g_out, sel, gamma, beta, mu, rstd, g_mu,
+                                  g_var)
+        red_p = epilogue_bwd_reduce_plain(g_out, sel, gamma, beta, mu, rstd,
+                                          g_mu, g_var)
+        errs["bwd_reduce"] = max(
+            _rel_check(f"K5 bf16 bwd reduce {n} {where}", a, b, 1e-4)
+            for n, a, b in zip(("dgamma", "dbeta", "k"), red, red_p))
+        dy = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd, red[2])
+        dy_p = epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu, rstd,
+                                     red[2])
+        errs["bwd_dy"] = one_rounding(
+            f"K5 bf16 dy {where}", dy, dy_p,
+            1e-3 * dy_p.float().abs().max().item())
+        k0 = torch.zeros_like(red[2])
+        hit = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd, k0) != 0
+        hit_p = epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu, rstd,
+                                      k0) != 0
+        if not torch.equal(hit, hit_p):
+            raise SystemExit(f"K5 bf16 tie routing differs at {where}")
+        return errs, (mu, var, rstd, out, sel, red, dy)
+
+    for stage, shape in enumerate(K5_SHAPES):
+        for ties in (False, True):
+            y, gamma, beta, g_out, g_mu, g_var = _k5_inputs(shape, g, False)
+            if ties:
+                y = torch.round(y * 4.0) / 4.0
+            y, g_out = y.to(bf16), g_out.to(bf16)
+            where = f"stage {stage} {'ties' if ties else 'gaussian'}"
+            errs, res = check(where, y, gamma, beta, g_out, g_mu, g_var)
+            for n in names:
+                rep[n]["err"] = max(rep[n]["err"], errs[n])
+            y4 = y.float().view(shape[:3] + (shape[3] // 2, 2,
+                                             shape[4] // 2, 2))
+            m = y4.amax(dim=(4, 6), keepdim=True)
+            tied = ((y4 == m).sum(dim=(4, 6)) > 1).float().mean().item()
+            phase("k5_bf16_check", stage=stage, shape=list(shape), ties=ties,
+                  tied_window_share=tied,
+                  **{f"max_abs_err_{n}": errs[n] for n in names})
+            if not ties:
+                yo = _at_offset(y)
+                if yo.data_ptr() % 4 == 0:
+                    raise SystemExit("K5 bf16 unaligned check: y aligned")
+                check(f"{where} y at an odd offset", yo, gamma, beta, g_out,
+                      g_mu, g_var)
+                phase("k5_bf16_unaligned", where=where,
+                      y_offset_bytes=yo.data_ptr() % 16)
+            if ties:
+                continue
+            mu, var, rstd, out, sel, red, dy = res
+            calls = {
+                "stats": (lambda: epilogue_stats(y),
+                          lambda: epilogue_stats_plain(y)),
+                "apply": (lambda: epilogue_apply(y, gamma, beta, mu, rstd),
+                          lambda: epilogue_apply_plain(y, gamma, beta, mu,
+                                                       rstd)),
+                "bwd_reduce": (
+                    lambda: epilogue_bwd_reduce(g_out, sel, gamma, beta, mu,
+                                                rstd, g_mu, g_var),
+                    lambda: epilogue_bwd_reduce_plain(g_out, sel, gamma, beta,
+                                                      mu, rstd, g_mu, g_var)),
+                "bwd_dy": (
+                    lambda: epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu,
+                                            rstd, red[2]),
+                    lambda: epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta,
+                                                  mu, rstd, red[2])),
+            }
+            n_el, c = y.numel(), shape[1]
+            moved = {"stats": nbytes(y, mu, var, rstd),
+                     "apply": nbytes(y, out, sel) + 4 * 4 * c,
+                     "bwd_reduce": nbytes(g_out, sel) + 12 * 4 * c,
+                     "bwd_dy": nbytes(y, g_out, sel, dy) + 8 * 4 * c}
+            ops = {"stats": 3 * n_el, "apply": 9 * n_el // 4,
+                   "bwd_reduce": 8 * n_el // 4, "bwd_dy": 10 * n_el}
+            for n in names:
+                ms, plain_ms = cuda_ms(calls[n][0]), cuda_ms(calls[n][1])
+                dev_ms, host_ms = split_ms(calls[n][0])
+                r = rep[n]
+                r["ms"] += ms
+                r["plain_ms"] += plain_ms
+                r["device_ms"] += dev_ms
+                r["host_ms"] += host_ms
+                r["bytes"] += moved[n]
+                r["flops"] += ops[n]
+            rep["stats"]["library_ms"] += cuda_ms(lambda: torch.var_mean(
+                y, dim=(0, 2, 3, 4), correction=0))
+    for n in names:
+        rep[n]["bound"] = bound_ms(rep[n]["bytes"], rep[n]["flops"])
+        rep[n].setdefault("library_ms", None)
+    phase("k5_epilogue_bf16", shapes=[list(s) for s in K5_SHAPES],
+          **{n: {k: v for k, v in r.items() if k not in ("bytes", "flops")}
+             for n, r in rep.items()})
+    return rep
+
+
+def _plain_k2(fn):
+    """`fn` run with K2-eval's plain version in place of its kernel (the
+    serving path; the train path's K2 is held by k2_train)."""
+    from maavss_tpu_torch.models import layers
+    from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer_plain
+
+    def run(*args):
+        kernel = layers.pgenc_layer
+        layers.pgenc_layer = lambda *a: pgenc_layer_plain(*a)
+        try:
+            return fn(*args)
+        finally:
+            layers.pgenc_layer = kernel
+    return run
+
+
+def _bf16_moments(state, model, skip, low):
+    """Adam's first moment, upcast to fp32, by name, of every leaf not in
+    `skip` that is bf16 in `model` (`low`, the LSTM's) or fp32 (not
+    `low`)."""
+    import torch
+
+    return {n: m.float() for (n, p), m in zip(model.named_parameters(),
+                                              state.tx.m)
+            if (p.dtype == torch.bfloat16) == low and n not in skip}
+
+
+def _bf16_train_vs_plain(what, cfg, frames_model, want, steps=3):
+    """`steps` bf16 steps of the flagship of `cfg` (mode 2) with every
+    kernel against the plain versions in bf16 (the LSTM scan, the plain Adam
+    formula, K5's and K4's plain versions; K2's kernels on both sides, held
+    by k2_train; the STFT kernel's features on both sides) from one
+    state_dict, and one step of the plain versions in fp32 from it. Exact
+    launch counts per kernel step (`want`); losses within BF16_LOSS_RTOL of
+    the plain bf16 losses; after step 1 Adam's first moment (0.1 x the
+    gradient) of the fp32 leaves under BF16_GRAD_RATIO (the conv biases
+    that feed a train-mode BatchNorm left out) and apart that of the bf16
+    LSTM leaves under BF16_LOW_GRAD_RATIO (their bf16 moments upcast: the
+    one place their gradient's magnitude shows, since Adam's first step
+    moves a bf16 leaf by its sign); the bf16 LSTM leaves within one ulp
+    (BF16_LEAVES_SHARE) and
+    2 lr + 2 ulp of the plain ones."""
+    import torch
+
+    from maavss_tpu_torch.data.synthetic import (
+        synthetic_av_batch,
+        with_pgram_rows,
+    )
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
+
+    model, state, step, ref, ref_state, ref_step = _train_pair(
+        cfg, frames_model, k2_plain=False, kernel_features=True)
+    build = setup.build_frames_model if frames_model else setup.build_fusion
+    make = make_frames_step if frames_model else make_fusion_step
+    cfg32 = _plain_cfg(cfg, frames_model, False).replace(dtype="float32")
+    ref32 = build(cfg32, cfg.batch_size, device="cuda")
+    ref32.load_state_dict(model.state_dict())
+    ref32.lstm.backend = "scan"
+    state32 = create_train_state(ref32, cfg32, "cuda")
+    step32 = _plain_k4(make(ref32, cfg32, device="cuda"), True)
+    if frames_model:
+        step32 = _plain_k5(step32)
+    names, counters = _frames_counters() if frames_model \
+        else _fusion_counters()
+    want = {n: want.get(n, 0) for n in names}
+    frame_size = cfg.framesize if frames_model else None
+    batches = [synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i,
+                                  frame_size=frame_size)
+               for i in range(steps)]
+    if cfg.pgram_cache and not frames_model:
+        batches = [with_pgram_rows(b, "cuda") for b in batches]
+    skip = set() if frames_model else set(model.bn_fed_biases())
+    losses, ref_losses = [], []
+    for i, batch in enumerate(batches):
+        for c in counters:
+            c.launches = 0
+        state, m = step(state, batch, 2)
+        torch.cuda.synchronize()
+        launches = dict(zip(names, (c.launches for c in counters)))
+        if launches != want:
+            raise SystemExit(f"{what} step {i + 1}: launches {launches} != "
+                             f"{want}")
+        ref_state, rm = ref_step(ref_state, batch, 2)
+        losses.append(float(m["loss"]))
+        ref_losses.append(float(rm["loss"]))
+        if i == 0:
+            state32, _ = step32(state32, batch, 2)
+            grad_ratio = []
+            for low in (False, True):
+                moms = [_bf16_moments(s, model, skip, low) for s in (
+                    state, ref_state, state32)]
+                grad_ratio.append(_bf16_ratio(
+                    f"{what} step-1 gradients of the "
+                    f"{'bf16' if low else 'fp32'} leaves",
+                    *(torch.cat([d[n].flatten() for n in sorted(moms[0])])
+                      for d in moms),
+                    BF16_LOW_GRAD_RATIO if low else BF16_GRAD_RATIO))
+            lr = cfg.learning_rate
+            share = 1.0
+            sd, sd_ref = model.state_dict(), ref.state_dict()
+            for n in ("lstm.fwd.w_i", "lstm.fwd.w_h", "lstm.bwd.w_i",
+                      "lstm.bwd.w_h"):
+                a, b = sd[n].float(), sd_ref[n].float()
+                if sd[n].dtype != torch.bfloat16:
+                    raise SystemExit(f"{what}: {n} is {sd[n].dtype}")
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    b.abs().clamp(min=2.0 ** -126))) - 7)
+                d = (a - b).abs()
+                share = min(share, (d <= ulp).float().mean().item())
+                if share < BF16_LEAVES_SHARE or bool(
+                        (d > 2 * lr + 2 * ulp).any()):
+                    raise SystemExit(f"{what}: {n} after Adam: {share} of "
+                                     f"it within one bf16 ulp")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    if max(rel) > BF16_LOSS_RTOL or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"{what} losses {losses} vs plain {ref_losses}: "
+                         f"rel {rel} > {BF16_LOSS_RTOL}")
+    del ref, ref_state, ref32, state32
+    return dict(batch=cfg.batch_size, steps=steps, losses=losses,
+                plain_losses=ref_losses, loss_rel_diff=max(rel),
+                step1_grad_ratio=grad_ratio[0],
+                step1_grad_ratio_bf16_leaves=grad_ratio[1],
+                lstm_leaves_within_one_ulp=share,
+                launches_per_step=want), (model, state, step, batches[0])
+
+
+def bf16_train_phase():
+    """--dtype bfloat16 at full width: the fusion flagship with
+    --fusion_encode full --pgram_cache (bench.py's regime, batch 8) and the
+    frames flagship (framesize 256, batch 8, window mode), 3 steps each
+    with every kernel against the plain versions under the bf16 gates
+    (`_bf16_train_vs_plain`); one step of each family with --mask_head
+    (bf16 a_fc1, then the standalone mask product in fp32: once forward and
+    once in conjugate mode a step in full encode, once each a window in the
+    frames step; the fused head never). Each family's bf16 step is timed in
+    turns with its fp32 step (kernels, same width and seed), and the mask
+    product at the full-encode head's shape."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.ops.cuda_complex import mask_mul, mask_mul_plain
+    from maavss_tpu_torch.train.setup import (
+        build_frames_state,
+        build_fusion_state,
+    )
+    from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
+
+    ns = RunConfig().num_seq
+    fusion_cfg = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=1e-4,
+                           fusion_encode="full", pgram_cache=True,
+                           dtype="bfloat16")
+    fullenc = dict(lstm_fwd=1, lstm_bwd=1, pgenc_train=FULLENC_LAYERS,
+                   pgenc_bwd=FULLENC_LAYERS, adam=1, stft=1)
+    fusion, (model, state, step, batch) = _bf16_train_vs_plain(
+        "bf16_train fusion", fusion_cfg, False, fullenc)
+    cfg32 = fusion_cfg.replace(dtype="float32")
+    m32, s32 = build_fusion_state(cfg32, 8, "cuda",
+                                  torch.Generator().manual_seed(cfg32.seed))
+    step32 = make_fusion_step(m32, cfg32, device="cuda")
+    times = {"bf16": [], "fp32": []}
+    for _ in range(2):
+        times["bf16"].append(cuda_ms(lambda: step(state, batch, 2),
+                                     reps=3, iters=3))
+        times["fp32"].append(cuda_ms(lambda: step32(s32, batch, 2),
+                                     reps=3, iters=3))
+    fusion["step_ms"], fusion["fp32_step_ms"] = times["bf16"], times["fp32"]
+    del model, state, step, m32, s32, step32
+    mask, (model, state, _, batch) = _bf16_train_vs_plain(
+        "bf16_train fusion --mask_head", fusion_cfg.replace(mask_head=True),
+        False, dict(fullenc, mask_mul=2), steps=1)
+    # the standalone mask product at the full-encode head's shape: the
+    # B * num_seq windows of the clip's STFT, read in place, and the mask
+    g = torch.Generator(device="cuda").manual_seed(12)
+    hop, width = fusion_cfg.hops_per_frame, fusion_cfg.hops_per_frame \
+        * fusion_cfg.num_frames
+    clip = torch.randn(8, 2, hop * (fusion_cfg.num_frames + ns), 128,
+                       device="cuda", generator=g)
+    a = torch.stack([clip[:, :, hop * j:hop * j + width] for j in range(ns)],
+                    dim=1).reshape(8 * ns, 2, width, 128)
+    b = torch.randn(a.shape, device="cuda", generator=g)
+    err = _rel_check("bf16_train mask_mul", mask_mul(a, b),
+                     mask_mul_plain(a, b), 1e-6)
+    dev_ms, host_ms = split_ms(lambda: mask_mul(a, b))
+    mask_rep = dict(err=err, ms=cuda_ms(lambda: mask_mul(a, b)),
+                    plain_ms=cuda_ms(lambda: mask_mul_plain(a, b)),
+                    device_ms=dev_ms, host_ms=host_ms,
+                    bound=bound_ms(3 * a.numel() * 4, 3 * a.numel()),
+                    library_ms=None)
+    del model, state
+    os.environ.pop("MAAVSS_S2D_MIN_HW", None)  # the default, 128
+    frames_cfg = RunConfig(batch_size=8, noise_scalar=0.0,
+                           learning_rate=1e-4, dtype="bfloat16")
+    k5 = {n: 2 * ns for n in ("epilogue_stats", "epilogue_apply",
+                              "epilogue_bwd_reduce", "epilogue_bwd_dy")}
+    frames_want = dict(lstm_fwd=ns, lstm_bwd=ns, adam=1, stft=1, **k5)
+    frames, (model, state, step, batch) = _bf16_train_vs_plain(
+        "bf16_train frames", frames_cfg, True, frames_want)
+    cfg32 = frames_cfg.replace(dtype="float32")
+    m32, s32 = build_frames_state(cfg32, 8, device="cuda",
+                                  generator=torch.Generator().manual_seed(
+                                      cfg32.seed))
+    step32 = make_frames_step(m32, cfg32, device="cuda")
+    times = {"bf16": [], "fp32": []}
+    for _ in range(2):
+        times["bf16"].append(cuda_ms(lambda: step(state, batch, 2),
+                                     reps=2, iters=1))
+        times["fp32"].append(cuda_ms(lambda: step32(s32, batch, 2),
+                                     reps=2, iters=1))
+    frames["step_ms"], frames["fp32_step_ms"] = times["bf16"], times["fp32"]
+    frames["clips_per_s"] = 8 / (min(times["bf16"]) / 1e3)
+    frames["fp32_clips_per_s"] = 8 / (min(times["fp32"]) / 1e3)
+    del model, state, step, m32, s32, step32
+    frames_mask, _ = _bf16_train_vs_plain(
+        "bf16_train frames --mask_head", frames_cfg.replace(mask_head=True),
+        True, dict(frames_want, mask_mul=2 * ns), steps=1)
+    phase("bf16_train", fusion=fusion, fusion_mask_head=mask, frames=frames,
+          frames_mask_head=frames_mask, mask_mul=mask_rep)
+    launches = {n: frames["launches_per_step"][n] * frames["steps"]
+                for n in ("epilogue_stats", "epilogue_apply",
+                          "epilogue_bwd_reduce", "epilogue_bwd_dy")}
+    launches["mask_mul"] = (mask["launches_per_step"]["mask_mul"]
+                            + frames_mask["launches_per_step"]["mask_mul"])
+    return launches, mask_rep
+
+
+def bf16_slice_phase():
+    """HTTP serving in bf16 at full width: the fusion flagship with
+    --fusion_encode full --pgram_cache (float16 rows) and the frames
+    flagship (uint8 frames), 4 requests of 1..8 rows each, against the
+    plain bf16 serving function (the plain versions of K1, K2-eval and K4;
+    the STFT kernel's features on both sides) under BF16_SERVE_RATIO against
+    the plain fp32 serving function; each batch launches K1-fwd once (fusion)
+    or once a window (frames), K2-eval once a layer (fusion) and the STFT
+    kernel once. The replies keep their wire dtype, float32."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.exp.export import (
+        make_serving_fn,
+        random_serving_inputs,
+        serving_info,
+        serving_input_specs,
+    )
+    from maavss_tpu_torch.exp.serving import (
+        BatchingExecutor,
+        SeparationClient,
+        SeparationServer,
+    )
+    from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer
+    from maavss_tpu_torch.ops.phasegram import phasegram_cumsum
+    from maavss_tpu_torch.train.setup import build_frames_model, build_fusion
+
+    batch = 8
+    out = {}
+    for family in ("fusion", "frames"):
+        frames_model = family == "frames"
+        cfg = RunConfig(batch_size=batch, dtype="bfloat16")
+        if not frames_model:
+            cfg = cfg.replace(fusion_encode="full", pgram_cache=True)
+        build = build_frames_model if frames_model else build_fusion
+        model = build(cfg, batch, device="cuda",
+                      generator=torch.Generator().manual_seed(cfg.seed))
+        refs = {}
+        for dtype in ("bfloat16", "float32"):
+            rcfg = cfg.replace(dtype=dtype)
+            ref = build(rcfg, batch, device="cuda")
+            ref.load_state_dict(model.state_dict())
+            ref.lstm.backend = "scan"
+            refs[dtype] = _plain_k2(_plain_k4(make_serving_fn(
+                ref, rcfg, frames_model), True))
+        serve = make_serving_fn(model, cfg, frames_model)
+        a_spec, v_spec = serving_input_specs(cfg, batch, frames_model)
+        rng = np.random.default_rng(19)
+        t_total = cfg.num_frames + cfg.num_seq
+        rows_list = [1, 8, 3, 6]
+        requests = []
+        for i, rows in enumerate(rows_list):
+            audio, visual = random_serving_inputs(cfg, rows, frames_model,
+                                                  seed=700 + i)
+            if not frames_model:
+                frames = rng.uniform(0, 1, (rows, t_total, cfg.p_size,
+                                            cfg.p_size)).astype(np.float32)
+                visual = phasegram_cumsum(torch.from_numpy(
+                    frames).cuda()).to(torch.float16).cpu().numpy()
+            requests.append((audio, visual))
+        executor = BatchingExecutor(serve, batch, a_spec, v_spec, "cuda",
+                                    max_wait_ms=5.0)
+        info = {"model": family, **serving_info(cfg, batch, frames_model)}
+        server = SeparationServer(executor, info, host="127.0.0.1",
+                                  port=0).start()
+        host, port = server.address
+        client = SeparationClient(f"http://{host}:{port}")
+        names, counters = _frames_counters() if frames_model \
+            else _fusion_counters()
+        names, counters = names + ("pgenc_eval",), counters + (pgenc_layer,)
+        for c in counters:
+            c.launches = 0
+        try:
+            health = client.get_json("/healthz")
+            responses = [client.separate(a, v) for a, v in requests]
+            launches = dict(zip(names, (c.launches for c in counters)))
+            stats = client.get_json("/stats")
+        finally:
+            client.close()
+            server.stop()
+        if health.get("compute_dtype") != "bfloat16":
+            raise SystemExit(f"bf16_slice {family}: /healthz {health}")
+        batches = stats["batches"]
+        want = {n: 0 for n in names}
+        want.update(stft=batches,
+                    lstm_fwd=batches * (cfg.num_seq if frames_model else 1))
+        if not frames_model:
+            want["pgenc_eval"] = batches * FULLENC_LAYERS
+        if batches < 1 or launches != want:
+            raise SystemExit(f"bf16_slice {family} launches {launches} != "
+                             f"{want}")
+        worst = 0.0
+        for (audio, visual), got in zip(requests, responses):
+            rows = audio.shape[0]
+            if got.shape != audio.shape or got.dtype != np.float32 \
+                    or not np.all(np.isfinite(got)):
+                raise SystemExit(f"bad bf16_slice {family} response")
+            pad_a = np.zeros(a_spec.shape, a_spec.dtype)
+            pad_v = np.zeros(v_spec.shape, v_spec.dtype)
+            pad_a[:rows], pad_v[:rows] = audio, visual
+            dev = (torch.from_numpy(pad_a).cuda(),
+                   torch.from_numpy(pad_v).cuda())
+            want_b, want_f = (refs[d](*dev)[:rows].cpu().numpy()
+                              for d in ("bfloat16", "float32"))
+            worst = max(worst, _bf16_ratio(f"bf16_slice {family}", got,
+                                           want_b, want_f, BF16_SERVE_RATIO))
+        out[family] = dict(requests=len(requests), rows=rows_list,
+                           batches=batches, visual=str(v_spec.dtype),
+                           worst_ratio=worst, launches=launches)
+        del model, refs, serve
+    phase("bf16_slice", **out)
+    return out
+
+
+def bf16_golden_phase():
+    """The small-geometry JAX fixture tests/fixtures/
+    torch_port_bf16_golden.npz (bf16; --fusion_encode full on float16 rows,
+    the phasegram encoder as ConvStack, the JAX package's CPU path) through
+    the card's kernels (K1, K3, the STFT kernel; cuDNN and cuBLAS in bf16):
+    the separator's audio under BF16_RATIO against the fixture's JAX bf16
+    and fp32 audio, then 3 train steps with losses within BF16_LOSS_RTOL of
+    JAX's bf16 losses (tests/test_torch_bf16.py holds the CPU path to the
+    same gates)."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.convert import (
+        from_flax,
+        random_flax_tree,
+        unflatten_tree,
+    )
+    from maavss_tpu_torch.train.infer import make_separator
+    from maavss_tpu_torch.train.setup import build_fusion_state
+    from maavss_tpu_torch.train.steps import make_fusion_step
+
+    with np.load(BF16_GOLDEN) as z:
+        meta = json.loads(str(z["meta"]))
+        arrays = {k: z[k] for k in z.files if k != "meta"}
+    flat = random_flax_tree({k: tuple(v) for k, v in meta["shapes"].items()},
+                            meta["seed"])
+    for k in flat:  # the LSTM's leaves are bf16 values
+        if k.endswith(("w_i", "w_h")):
+            flat[k] = torch.from_numpy(flat[k]).to(
+                torch.bfloat16).float().numpy()
+    for path, total in meta["checksums"].items():
+        if not np.isclose(float(flat[path].astype(np.float64).sum()), total,
+                          rtol=1e-6, atol=1e-6):
+            raise SystemExit(f"bf16 golden weights do not regenerate: {path}")
+    tree = unflatten_tree(flat)
+    cfg = RunConfig(**meta["cfg"])
+    model, state = build_fusion_state(cfg, cfg.batch_size, "cuda")
+    model.load_state_dict(from_flax(tree["params"], tree["batch_stats"]))
+    dev = {"audio": torch.from_numpy(arrays["audio"]).cuda(),
+           "pgram": torch.from_numpy(arrays["pgram"]).cuda()}
+    names, counters = _fusion_counters()
+    for c in counters:
+        c.launches = 0
+    got = make_separator(model, cfg)(dev)["audio_out"].cpu().numpy()
+    ratio = _bf16_ratio("bf16 golden audio", got, arrays["audio_out"],
+                        arrays["audio_out_f32"], BF16_RATIO)
+    step = make_fusion_step(model, cfg, device="cuda")
+    losses = []
+    for _ in meta["losses_bfloat16"]:
+        state, m = step(state, dev, meta["mode"])
+        losses.append(float(m["loss"]))
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses, meta["losses_bfloat16"]))
+    if rel > BF16_LOSS_RTOL or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"bf16 golden losses {losses} vs JAX "
+                         f"{meta['losses_bfloat16']}: rel {rel}")
+    launches = dict(zip(names, (c.launches for c in counters)))
+    if not all(launches[n] for n in ("lstm_fwd", "lstm_bwd", "adam",
+                                     "stft")):
+        raise SystemExit(f"the bf16 golden run missed a kernel: {launches}")
+    phase("bf16_golden", cfg=meta["cfg"], audio_ratio=ratio, losses=losses,
+          jax_losses=meta["losses_bfloat16"],
+          jax_fp32_losses=meta["losses_float32"], loss_rel_diff=rel,
+          launches=launches, ratio=BF16_RATIO, loss_rtol=BF16_LOSS_RTOL)
 
 
 def kernel_entry(name, source, replaces, launches, rep):
@@ -3796,7 +4432,12 @@ def main() -> None:
     mask_serve = mask_slice_phase()
     polar = polar_phase()
     k4_golden_phase()
-    if any(m in sys.modules for m in ("jax", "flax", "maavss_tpu")):
+    k5_bf16 = k5_bf16_phase()
+    bf16_launches, mask_mul_rep = bf16_train_phase()
+    bf16_slice_phase()
+    bf16_golden_phase()
+    if any(m in sys.modules for m in ("jax", "flax", "ml_dtypes",
+                                      "maavss_tpu")):
         raise SystemExit("the port loaded jax or maavss_tpu")
     import torch
 
@@ -3848,6 +4489,14 @@ def main() -> None:
         kernel_entry("polar", "spectral.cu",
                      "maavss_tpu/ops/pallas_kernels.py:143", polar["polar"],
                      k4["polar"]),
+        *(kernel_entry(f"epilogue_{n}_bf16", "epilogue.cu",
+                       f"maavss_tpu/ops/pallas_epilogue.py:{line}",
+                       bf16_launches[f"epilogue_{n}"], k5_bf16[n])
+          for n, line in (("stats", 141), ("apply", 159),
+                          ("bwd_reduce", 183), ("bwd_dy", 206))),
+        kernel_entry("mask_mul", "spectral.cu",
+                     "maavss_tpu/ops/pallas_kernels.py:44",
+                     bf16_launches["mask_mul"], mask_mul_rep),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,12 @@ benchmarks/torch_baseline.py:89-148), path component by component:
 The phasegram kernel stack's w2 [Co, 9*Cin] is not stored: the module
 derives it from `Conv_i.weight` per call, with column k*Cin + ci, the order
 maavss_tpu/models/layers.py:205-207 builds from the flax kernel.
+
+Arrays are float32 on the numpy side: numpy has no bfloat16, so a
+bfloat16 leaf (the LSTM's w_i and w_h under --dtype bfloat16) crosses as
+its exact float32 upcast: `load_state_dict` casts it back to the
+parameter's dtype (exact, for values a bfloat16 holds), and `to_flax`
+upcasts such leaves to float32.
 """
 
 from __future__ import annotations
@@ -142,13 +148,15 @@ def _flax_leaf(parts, value: np.ndarray) -> Tuple[str, np.ndarray]:
 def to_flax(state_dict: Mapping[str, torch.Tensor]
             ) -> Tuple[Dict[str, object], Dict[str, object]]:
     """A state_dict of the port's modules -> flax (params, batch_stats)
-    numpy trees, the inverse of `from_flax`."""
+    numpy trees, the inverse of `from_flax`; a bfloat16 leaf becomes its
+    float32 upcast (a copy), a float32 leaf shares the tensor's memory on
+    the CPU."""
     stats = {v: k for k, v in _STATS.items()}
     params: Dict[str, np.ndarray] = {}
     batch_stats: Dict[str, np.ndarray] = {}
     for name, tensor in state_dict.items():
         parts = name.split(".")
-        value = tensor.detach().cpu().numpy()
+        value = tensor.detach().cpu().float().numpy()
         if parts[-1] in stats:
             batch_stats["/".join(parts[:-1] + [stats[parts[-1]]])] = value
             continue

@@ -7,8 +7,11 @@
 //   apply      _apply_kernel       (the one in _apply)
 //   bwd reduce _bwd_reduce_kernel  (the first one in _fused_bwd)
 //   bwd dy     _bwd_dy_kernel      (the second one in _fused_bwd)
-// Same contract, on PyTorch's layout: y [B, C, T, H, W] fp32 (the conv3d
-// output as cuDNN writes it, NCDHW, H and W even), gamma, beta [C] fp32.
+// Same contract, on PyTorch's layout: y [B, C, T, H, W] (the conv3d output
+// as cuDNN writes it, NCDHW, H and W even) in the IO type, fp32 or bf16;
+// gamma, beta [C] fp32. out, sel, g and dy are in the IO type too; every sum
+// and every BN expression runs in fp32, as the TPU kernels upcast their
+// blocks (pallas_epilogue.py:151,171-176,200-203,217-242).
 //   stats:   mu = sum(y)/N, var = sum(y^2)/N - mu^2 (biased, not clamped),
 //            rstd = rsqrt(var + 1e-5) per channel, N = B*T*H*W
 //   apply:   per 2x2 window, sel = max of the 4 raw values if gamma > 0,
@@ -25,7 +28,8 @@
 //            k = [gamma*S1/N, gamma*S2/N, g_mu/N - 2*g_var*mu/N, 2*g_var/N]
 //   bwd dy:  dxhat = dsel * gamma at the window's selected element, 0 at
 //            the other three; ties go to the first match in phase order
-//            ph = 2*py + px, compared in fp32 (the TPU kernel's eq & ~prefix)
+//            ph = 2*py + px, compared in fp32 after the exact upcast (the TPU
+//            kernel's eq & ~prefix)
 //            dy = rstd * (dxhat - k0 - xhat * k1) + k2 + y * k3
 // The arithmetic follows the TPU kernels' order of operations.
 //
@@ -39,25 +43,44 @@
 //     fixed partition of the channel's values over `nblk` blocks writing
 //     fp32 partials, then one block per channel combining them in a fixed
 //     order. No atomics: every run gives the same bits.
-//   - The channel's values are B contiguous segments of L = T*H*W floats
+//   - The channel's values are B contiguous segments of L = T*H*W values
 //     ((b*C + c)*L); a block walks its share segment by segment, 16-byte
-//     loads where L is a multiple of 4 (always, for y) and y is 16-byte
-//     aligned. apply and dy read a window row as one float2 where y (and
-//     dy) are 8-byte aligned; a view at another offset takes 4-byte loads.
+//     loads (4 floats or 8 bf16) where L and the chunk are multiples of
+//     that count and y is 16-byte aligned. apply and dy read a window row
+//     as one pair (a float2, or a bf16x2) where y (and dy) are aligned to
+//     two values; a view at another offset takes one value a load.
+//   - In bf16 the selection is exact: max and min compare the upcast
+//     values (bf16 -> fp32 is exact and order-preserving), sel is the
+//     selected value itself, and out and dy round once, to nearest even.
 //   - apply and dy run one thread per window, the channel from the index.
 //
 // What bounds it on Hopper: bytes. Every pass is a stream over the conv
 // output or its pooled quarter with a few FLOPs per element: stats reads y
 // (4 B per element of y), apply reads y and writes out and sel (6 B), bwd
 // reduce reads g and sel (2 B), dy reads y, g, sel and writes dy (10 B):
-// 22 B per element of y, 2.2 GB per window at the frames flagship's stages
-// 0 and 1, 0.66 ms at 3.35 TB/s.
+// 22 B per element of y in fp32, 2.2 GB per window at the frames flagship's
+// stages 0 and 1, 0.66 ms at 3.35 TB/s; half of that in bf16.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 constexpr int kThreads = 256;
 constexpr float kSlope = 0.01f;
@@ -82,9 +105,10 @@ __device__ void block_sum2(float& a, float& b, float* red) {
 
 // (y, y^2) of one element.
 struct StatsOp {
-  __device__ void operator()(const float* y, const float*, long long i, int,
+  template <typename T>
+  __device__ void operator()(const T* y, const T*, long long i, int,
                              float& s, float& ss) const {
-    const float v = y[i];
+    const float v = to_f(y[i]);
     s += v;
     ss += v * v;
   }
@@ -96,11 +120,12 @@ struct BwdOp {
   const float* beta;
   const float* mu;
   const float* rstd;
-  __device__ void operator()(const float* g, const float* sel, long long i,
-                             int c, float& s1, float& s2) const {
-    const float xhat = (sel[i] - mu[c]) * rstd[c];
+  template <typename T>
+  __device__ void operator()(const T* g, const T* sel, long long i, int c,
+                             float& s1, float& s2) const {
+    const float xhat = (to_f(sel[i]) - mu[c]) * rstd[c];
     const float o = gamma[c] * xhat + beta[c];
-    const float dsel = g[i] * (o >= 0.0f ? 1.0f : kSlope);
+    const float dsel = to_f(g[i]) * (o >= 0.0f ? 1.0f : kSlope);
     s1 += dsel;
     s2 += dsel * xhat;
   }
@@ -109,10 +134,11 @@ struct BwdOp {
 // Partial channel sums: grid (nblk, C). Block j of channel c sums the
 // values [j*chunk, min(n, (j+1)*chunk)) of the channel's n = B*L values,
 // value i at ((i/L)*C + c)*L + i%L, and writes partial[(c*nblk + j)*2 + 0/1].
-// VEC = 4 needs L and chunk multiples of 4 (the wrapper checks).
-template <int VEC, typename Op>
+// VEC > 1 reads 16 bytes a load (VEC = 16 / sizeof(T)) and needs L, chunk
+// and the pointer's offset multiples of VEC (the launcher checks).
+template <int VEC, typename Op, typename T>
 __global__ void __launch_bounds__(kThreads)
-partials_kernel(const float* __restrict__ a, const float* __restrict__ b,
+partials_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 Op op, float* __restrict__ partial, int C, long long L,
                 long long n, long long chunk, int nblk) {
   __shared__ float red[2 * kThreads];
@@ -125,16 +151,17 @@ partials_kernel(const float* __restrict__ a, const float* __restrict__ b,
     const long long seg_end = min(end, (seg + 1) * L);
     // element i of the channel (seg*L <= i < seg_end) lies at base + i
     const long long base = (seg * C + c) * L - seg * L;
-    const float* pa = a + base;
-    const float* pb = b ? b + base : nullptr;
+    const T* pa = a + base;
+    const T* pb = b ? b + base : nullptr;
 #pragma unroll 4
     for (long long i = s0 + static_cast<long long>(threadIdx.x) * VEC;
          i < seg_end; i += static_cast<long long>(blockDim.x) * VEC) {
-      if constexpr (VEC == 4) {
-        const float4 v = *reinterpret_cast<const float4*>(pa + i);
-        const float vv[4] = {v.x, v.y, v.z, v.w};
+      if constexpr (VEC > 1) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(pa + i);
+        const T* vv = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) op(vv, nullptr, k, c, s, ss);
+        for (int k = 0; k < VEC; ++k) op(vv, static_cast<const T*>(nullptr),
+                                         k, c, s, ss);
       } else {
         op(pa, pb, i, c, s, ss);
       }
@@ -234,10 +261,16 @@ struct Affine {
   const float* rstd;
 };
 
-// The two values of a window row at p (an even offset): one float2 when
-// `vec` (the base pointer 8-byte aligned), else two 4-byte loads.
+// The two values of a window row at p (an even offset), upcast: one pair
+// load (float2, bf16x2) when `vec` (the base pointer aligned to two
+// values), else one value a load.
 __device__ __forceinline__ float2 load_pair(const float* p, bool vec) {
   return vec ? *reinterpret_cast<const float2*>(p) : make_float2(p[0], p[1]);
+}
+
+__device__ __forceinline__ float2 load_pair(const bf16* p, bool vec) {
+  return vec ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p))
+             : make_float2(__bfloat162float(p[0]), __bfloat162float(p[1]));
 }
 
 __device__ __forceinline__ void store_pair(float* p, float a, float b,
@@ -250,41 +283,53 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b,
   }
 }
 
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b,
+                                           bool vec) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    p[0] = __float2bfloat16_rn(a);
+    p[1] = __float2bfloat16_rn(b);
+  }
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-apply_kernel(const float* __restrict__ y, Affine aff, float* __restrict__ out,
-             float* __restrict__ sel, long long n_pool, int C, int T, int H,
+apply_kernel(const T* __restrict__ y, Affine aff, T* __restrict__ out,
+             T* __restrict__ sel, long long n_pool, int C, int T_, int H,
              int W, bool vec) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n_pool) return;
-  const Window win = window_of(idx, C, T, H, W);
+  const Window win = window_of(idx, C, T_, H, W);
   const float2 r0 = load_pair(y + win.in_off, vec);
   const float2 r1 = load_pair(y + win.in_off + W, vec);
   const float gm = aff.gamma[win.c];
   const float s = gm > 0.0f ? fmaxf(fmaxf(r0.x, r0.y), fmaxf(r1.x, r1.y))
                             : fminf(fminf(r0.x, r0.y), fminf(r1.x, r1.y));
   const float o = gm * (s - aff.mu[win.c]) * aff.rstd[win.c] + aff.beta[win.c];
-  out[idx] = o >= 0.0f ? o : kSlope * o;
-  sel[idx] = s;
+  out[idx] = from_f<T>(o >= 0.0f ? o : kSlope * o);
+  sel[idx] = from_f<T>(s);  // exact: s is one of the window's values
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-dy_kernel(const float* __restrict__ y, const float* __restrict__ g,
-          const float* __restrict__ sel, Affine aff,
-          const float* __restrict__ k, float* __restrict__ dy,
-          long long n_pool, int C, int T, int H, int W, bool vec) {
+dy_kernel(const T* __restrict__ y, const T* __restrict__ g,
+          const T* __restrict__ sel, Affine aff,
+          const float* __restrict__ k, T* __restrict__ dy,
+          long long n_pool, int C, int T_, int H, int W, bool vec) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n_pool) return;
-  const Window win = window_of(idx, C, T, H, W);
+  const Window win = window_of(idx, C, T_, H, W);
   const int c = win.c;
   const float mu = aff.mu[c];
   const float rstd = aff.rstd[c];
   const float gm = aff.gamma[c];
-  const float s = sel[idx];
+  const float s = to_f(sel[idx]);
   const float xhat_sel = (s - mu) * rstd;
   const float o = gm * xhat_sel + aff.beta[c];
-  const float dsg = g[idx] * (o >= 0.0f ? 1.0f : kSlope) * gm;
+  const float dsg = to_f(g[idx]) * (o >= 0.0f ? 1.0f : kSlope) * gm;
   const float k0 = k[c], k1 = k[C + c], k2 = k[2 * C + c], k3 = k[3 * C + c];
   const float2 r0 = load_pair(y + win.in_off, vec);
   const float2 r1 = load_pair(y + win.in_off + W, vec);
@@ -314,32 +359,23 @@ unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-}  // namespace
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
 
-// Batch statistics of y [B, C, T, H, W]: mu, var, rstd [C]. partial is an
-// fp32 [C, nblk, 2] scratch; chunk * nblk >= B*T*H*W, chunk a multiple of 4.
-// Two kernels on `stream`. Returns the first non-zero cudaError_t, else 0.
-extern "C" int maavss_epilogue_stats(const void* y, void* partial, void* mu,
-                                     void* var, void* rstd, int B, int C,
-                                     int T, int H, int W, int nblk,
-                                     long long chunk, void* stream) {
-  const long long L = static_cast<long long>(T) * H * W;
-  const long long n = L * B;
-  if (bad_geometry(B, C, T, H, W) || nblk < 1 || chunk % 4 ||
-      chunk * nblk < n || C > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pf = static_cast<float*>(partial);
-  const float* yf = static_cast<const float*>(y);
-  // 16-byte loads need y 16-byte aligned (L and chunk are multiples of 4);
-  // a view at another offset takes one value a load
-  if (aligned(y, 16)) {
-    partials_kernel<4, StatsOp><<<dim3(nblk, C), kThreads, 0, s>>>(
-        yf, nullptr, StatsOp{}, pf, C, L, n, chunk, nblk);
+template <typename T>
+int stats_impl(const void* y, float* pf, void* mu, void* var, void* rstd,
+               int C, long long L, long long n, int nblk, long long chunk,
+               cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* yt = static_cast<const T*>(y);
+  // 16-byte loads need y 16-byte aligned and L and chunk multiples of the
+  // values a load holds; otherwise one value a load
+  if (aligned(y, 16) && L % kVec == 0 && chunk % kVec == 0) {
+    partials_kernel<kVec, StatsOp, T><<<dim3(nblk, C), kThreads, 0, s>>>(
+        yt, nullptr, StatsOp{}, pf, C, L, n, chunk, nblk);
   } else {
-    partials_kernel<1, StatsOp><<<dim3(nblk, C), kThreads, 0, s>>>(
-        yf, nullptr, StatsOp{}, pf, C, L, n, chunk, nblk);
+    partials_kernel<1, StatsOp, T><<<dim3(nblk, C), kThreads, 0, s>>>(
+        yt, nullptr, StatsOp{}, pf, C, L, n, chunk, nblk);
   }
   int e = static_cast<int>(cudaGetLastError());
   if (e) return e;
@@ -349,50 +385,111 @@ extern "C" int maavss_epilogue_stats(const void* y, void* partial, void* mu,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int apply_impl(const void* y, Affine aff, void* out, void* sel,
+               long long n_pool, int C, int T_, int H, int W,
+               cudaStream_t s) {
+  apply_kernel<T><<<blocks_for(n_pool), kThreads, 0, s>>>(
+      static_cast<const T*>(y), aff, static_cast<T*>(out),
+      static_cast<T*>(sel), n_pool, C, T_, H, W, aligned(y, 2 * sizeof(T)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_partials_impl(const void* g, const void* sel, BwdOp op, float* pf,
+                      int C, long long L, long long n, long long chunk,
+                      int nblk, cudaStream_t s) {
+  partials_kernel<1, BwdOp, T><<<dim3(nblk, C), kThreads, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const T*>(sel), op, pf, C, L, n,
+      chunk, nblk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dy_impl(const void* y, const void* g, const void* sel, Affine aff,
+            const void* k, void* dy, long long n_pool, int C, int T_, int H,
+            int W, cudaStream_t s) {
+  dy_kernel<T><<<blocks_for(n_pool), kThreads, 0, s>>>(
+      static_cast<const T*>(y), static_cast<const T*>(g),
+      static_cast<const T*>(sel), aff, static_cast<const float*>(k),
+      static_cast<T*>(dy), n_pool, C, T_, H, W,
+      aligned(y, 2 * sizeof(T)) && aligned(dy, 2 * sizeof(T)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_dtype(int dtype) { return dtype != kFloat32 && dtype != kBFloat16; }
+
+}  // namespace
+
+// In every launcher, `dtype` is the IO type of y, out, sel, g and dy: 0 fp32,
+// 1 bf16. Each returns the first non-zero cudaError_t, else 0.
+
+// Batch statistics of y [B, C, T, H, W]: mu, var, rstd [C] fp32. partial is
+// an fp32 [C, nblk, 2] scratch; chunk * nblk >= B*T*H*W, chunk a multiple of
+// 4 (of 8 for bf16's 16-byte loads). Two kernels on `stream`.
+extern "C" int maavss_epilogue_stats(const void* y, void* partial, void* mu,
+                                     void* var, void* rstd, int B, int C,
+                                     int T, int H, int W, int nblk,
+                                     long long chunk, int dtype,
+                                     void* stream) {
+  const long long L = static_cast<long long>(T) * H * W;
+  const long long n = L * B;
+  if (bad_geometry(B, C, T, H, W) || bad_dtype(dtype) || nblk < 1 ||
+      chunk % 4 || chunk * nblk < n || C > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pf = static_cast<float*>(partial);
+  return dtype == kBFloat16
+             ? stats_impl<bf16>(y, pf, mu, var, rstd, C, L, n, nblk, chunk, s)
+             : stats_impl<float>(y, pf, mu, var, rstd, C, L, n, nblk, chunk,
+                                 s);
+}
+
 // out, sel [B, C, T, H/2, W/2] from y and the per-channel gamma, beta, mu,
 // rstd [C]. One kernel on `stream`.
 extern "C" int maavss_epilogue_apply(const void* y, const void* gamma,
                                      const void* beta, const void* mu,
                                      const void* rstd, void* out, void* sel,
                                      int B, int C, int T, int H, int W,
-                                     void* stream) {
-  if (bad_geometry(B, C, T, H, W)) {
+                                     int dtype, void* stream) {
+  if (bad_geometry(B, C, T, H, W) || bad_dtype(dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n_pool =
       static_cast<long long>(B) * C * T * (H / 2) * (W / 2);
   Affine aff{static_cast<const float*>(gamma), static_cast<const float*>(beta),
              static_cast<const float*>(mu), static_cast<const float*>(rstd)};
-  apply_kernel<<<blocks_for(n_pool), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), aff, static_cast<float*>(out),
-      static_cast<float*>(sel), n_pool, C, T, H, W, aligned(y, 8));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == kBFloat16
+             ? apply_impl<bf16>(y, aff, out, sel, n_pool, C, T, H, W, s)
+             : apply_impl<float>(y, aff, out, sel, n_pool, C, T, H, W, s);
 }
 
 // Pooled-domain sums of the backward: dgamma = S2, dbeta = S1 [C] and the
-// constants k [4, C], from g and sel [B, C, T, H/2, W/2] and the cotangents
-// g_mu, g_var [C]. partial is an fp32 [C, nblk, 2] scratch; chunk * nblk >=
-// B*T*(H/2)*(W/2). Two kernels on `stream`.
+// constants k [4, C] (fp32), from g and sel [B, C, T, H/2, W/2] and the
+// cotangents g_mu, g_var [C]. partial is an fp32 [C, nblk, 2] scratch;
+// chunk * nblk >= B*T*(H/2)*(W/2). Two kernels on `stream`.
 extern "C" int maavss_epilogue_bwd_reduce(
     const void* g, const void* sel, const void* gamma, const void* beta,
     const void* mu, const void* rstd, const void* g_mu, const void* g_var,
     void* partial, void* dgamma, void* dbeta, void* k, int B, int C, int T,
-    int H, int W, int nblk, long long chunk, void* stream) {
+    int H, int W, int nblk, long long chunk, int dtype, void* stream) {
   const long long L = static_cast<long long>(T) * (H / 2) * (W / 2);
   const long long n = L * B;
-  if (bad_geometry(B, C, T, H, W) || nblk < 1 || chunk * nblk < n ||
-      C > 65535) {
+  if (bad_geometry(B, C, T, H, W) || bad_dtype(dtype) || nblk < 1 ||
+      chunk * nblk < n || C > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(partial);
   BwdOp op{static_cast<const float*>(gamma), static_cast<const float*>(beta),
            static_cast<const float*>(mu), static_cast<const float*>(rstd)};
-  partials_kernel<1, BwdOp><<<dim3(nblk, C), kThreads, 0, s>>>(
-      static_cast<const float*>(g), static_cast<const float*>(sel), op, pf, C,
-      L, n, chunk, nblk);
-  int e = static_cast<int>(cudaGetLastError());
+  int e = dtype == kBFloat16
+              ? bwd_partials_impl<bf16>(g, sel, op, pf, C, L, n, chunk, nblk,
+                                        s)
+              : bwd_partials_impl<float>(g, sel, op, pf, C, L, n, chunk, nblk,
+                                         s);
   if (e) return e;
   Cot cot{static_cast<const float*>(gamma), static_cast<const float*>(mu),
           static_cast<const float*>(g_mu), static_cast<const float*>(g_var)};
@@ -403,26 +500,23 @@ extern "C" int maavss_epilogue_bwd_reduce(
 }
 
 // dy [B, C, T, H, W] from y, g and sel [B, C, T, H/2, W/2], the per-channel
-// vectors and the constants k [4, C] of maavss_epilogue_bwd_reduce. One
+// vectors and the fp32 constants k [4, C] of maavss_epilogue_bwd_reduce. One
 // kernel on `stream`.
 extern "C" int maavss_epilogue_bwd_dy(const void* y, const void* g,
                                       const void* sel, const void* gamma,
                                       const void* beta, const void* mu,
                                       const void* rstd, const void* k,
                                       void* dy, int B, int C, int T, int H,
-                                      int W, void* stream) {
-  if (bad_geometry(B, C, T, H, W)) {
+                                      int W, int dtype, void* stream) {
+  if (bad_geometry(B, C, T, H, W) || bad_dtype(dtype)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n_pool =
       static_cast<long long>(B) * C * T * (H / 2) * (W / 2);
   Affine aff{static_cast<const float*>(gamma), static_cast<const float*>(beta),
              static_cast<const float*>(mu), static_cast<const float*>(rstd)};
-  dy_kernel<<<blocks_for(n_pool), kThreads, 0,
-              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<const float*>(g),
-      static_cast<const float*>(sel), aff, static_cast<const float*>(k),
-      static_cast<float*>(dy), n_pool, C, T, H, W,
-      aligned(y, 8) && aligned(dy, 8));
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == kBFloat16
+             ? dy_impl<bf16>(y, g, sel, aff, k, dy, n_pool, C, T, H, W, s)
+             : dy_impl<float>(y, g, sel, aff, k, dy, n_pool, C, T, H, W, s);
 }

@@ -5,12 +5,14 @@ random_serving_inputs).
 The serving function receives the mixture directly (noise_scalar forced to
 0) and returns only the separated waveform. It closes over the model, whose
 weights live on its device; there is no exported artifact yet (a
-`torch.export` artifact is ROADMAP M10).
+`torch.export` artifact is ROADMAP M10). `serving_info` is what the JAX
+package's artifact sidecar records (maavss_tpu/exp/export.py:135-150), the
+compute dtype among it; the daemon serves it on /healthz.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +20,16 @@ import torch
 from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.train.infer import separate_frames_windows, separate_windows
 from maavss_tpu_torch.train.setup import check_supported
+
+
+# the run-config fields the JAX artifact's sidecar records
+# (maavss_tpu/exp/export.py:43-49)
+GEOMETRY_FIELDS = (
+    "fft_len", "hop", "hops_per_frame", "num_frames", "num_seq", "p_size",
+    "framesize", "samplerate", "latent_chan", "fc_size", "use_polar",
+    "normalize_fft", "normalize_output_fft", "mask_head", "rnn_cell",
+    "pgram_cache", "frames_encode", "fusion_encode",
+)
 
 
 class TensorSpec(NamedTuple):
@@ -68,6 +80,19 @@ def serving_input_specs(cfg: RunConfig, batch: int, frames_model: bool = False
                                  np.dtype(np.float16))
     return audio, TensorSpec((batch, t_total, cfg.p_size, cfg.p_size),
                              np.dtype(np.float32))
+
+
+def serving_info(cfg: RunConfig, batch: int, frames_model: bool = False
+                 ) -> Dict[str, Any]:
+    """The served model's description: batch, compute dtype, the input
+    specs and the geometry flags the JAX sidecar keeps."""
+    audio, visual = serving_input_specs(cfg, batch, frames_model)
+    return {"batch": int(batch), "frames_model": bool(frames_model),
+            "compute_dtype": cfg.dtype,
+            "audio_shape": list(audio.shape),
+            "visual_shape": list(visual.shape),
+            "visual_dtype": str(visual.dtype),
+            "geometry": {k: getattr(cfg, k) for k in GEOMETRY_FIELDS}}
 
 
 def random_serving_inputs(cfg: RunConfig, batch: int,

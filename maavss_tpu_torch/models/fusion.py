@@ -10,6 +10,13 @@ closed-form planner the JAX package uses. With `mask_head` (--mask_head)
 the audio head predicts a complex ratio mask applied to the noisy input
 STFT instead; in the visual-only mode, whose audio input is zeroed, that
 head outputs exactly 0.
+
+`dtype` (--dtype) is the compute dtype, float32 or bfloat16, with flax's
+mixed-precision semantics (models/layers.py). Under bfloat16 the
+`--mask_head` head is JAX's own structure: `a_fc1` in bf16, the mask cast
+to the STFT features' fp32 (maavss_tpu/models/fusion.py:203) and applied
+by K4's standalone mask product (ops/cuda_complex.py); the fused fp32 head
+(ops/cuda_mask_head.py) is the float32 route.
 """
 
 from __future__ import annotations
@@ -17,12 +24,13 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from maavss_tpu_torch.models.layers import (
     ConvStack,
     KernelConvStack1x9,
+    dense,
+    leaky,
     make_birnn,
 )
 from maavss_tpu_torch.models.shape_plan import (
@@ -31,6 +39,7 @@ from maavss_tpu_torch.models.shape_plan import (
     plan_stft_decoder_fusion,
     plan_stft_encoder_fusion,
 )
+from maavss_tpu_torch.ops.cuda_complex import complex_mask_apply
 from maavss_tpu_torch.ops.cuda_mask_head import mask_head_apply
 
 LSTM_HIDDEN = 256
@@ -61,8 +70,9 @@ class AVFusionModel(nn.Module):
                  latent_channels: int = 64, fc_size: int = 4096,
                  rnn_cell: str = "lstm", mask_head: bool = False,
                  pgenc_kernel: str = "auto", stft_fold: str = "auto",
-                 device=None):
+                 device=None, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if stft_fold == "fold":
             raise NotImplementedError(
                 "--stft_fold fold is a TPU lane-folding of the same math and "
@@ -83,13 +93,13 @@ class AVFusionModel(nn.Module):
         self.latent_hw = pg_hw
         self.pgenc_kernel = resolve_pgenc_kernel(pgenc_kernel, device)
         enc_cls = KernelConvStack1x9 if self.pgenc_kernel == "pallas" else ConvStack
-        self.phasegram_encoder = enc_cls(pg_enc)
-        self.phasegram_decoder = ConvStack(pg_dec)
-        self.stft_encoder = ConvStack(a_enc)
-        self.stft_decoder = ConvStack(a_dec)
+        self.phasegram_encoder = enc_cls(pg_enc, dtype=dtype)
+        self.phasegram_decoder = ConvStack(pg_dec, dtype=dtype)
+        self.stft_encoder = ConvStack(a_enc, dtype=dtype)
+        self.stft_decoder = ConvStack(a_dec, dtype=dtype)
 
         lstm_in = (pg_enc[-1].out_ch + a_enc[-1].out_ch) * pg_hw[1]
-        self.lstm = make_birnn(rnn_cell, lstm_in, LSTM_HIDDEN)
+        self.lstm = make_birnn(rnn_cell, lstm_in, LSTM_HIDDEN, dtype)
         t_stft, f_stft = stft_shape[-2], stft_shape[-1]
         self.fc1 = nn.Linear(pg_hw[0] * 2 * LSTM_HIDDEN, fc_size // 2)
         self.fc2 = nn.Linear(fc_size // 2, 512)
@@ -114,8 +124,8 @@ class AVFusionModel(nn.Module):
         cat = cat.reshape(cat.shape[0], cat.shape[1], -1)
         av = self.lstm(cat)  # [B,t,512]
         av = av.reshape(av.shape[0], -1)
-        av = F.leaky_relu(self.fc1(av), negative_slope=0.3)
-        return F.leaky_relu(self.fc2(av), negative_slope=0.3)
+        av = leaky(dense(self.fc1, av, self.dtype), 0.3, self.dtype)
+        return leaky(dense(self.fc2, av, self.dtype), 0.3, self.dtype)
 
     def audio_ae_forward(self, x_a: torch.Tensor) -> torch.Tensor:
         """STFT autoencoder path (avse_model.py:676-678)."""
@@ -136,15 +146,20 @@ class AVFusionModel(nn.Module):
         (ŷ_stft, ŷ_pgram, fused); heads are linear + LeakyReLU(0.3), or,
         with `mask_head`, the audio head's output is a complex ratio mask
         applied to the input STFT, in the head's own kernel
-        (ops/cuda_mask_head.py)."""
+        (ops/cuda_mask_head.py), or below float32 the bf16 `a_fc1`, then
+        the standalone mask product in the features' fp32."""
         fused = self.av_fusion_forward(x_a_enc, x_v_enc)
-        if self.mask_head:
+        if self.mask_head and self.dtype == torch.float32:
             x_a_out = mask_head_apply(fused, self.a_fc1.weight,
                                       self.a_fc1.bias, x_a)
+        elif self.mask_head:
+            mask = dense(self.a_fc1, fused, self.dtype).reshape(x_a.shape)
+            x_a_out = complex_mask_apply(x_a, mask.to(x_a.dtype))
         else:
-            x_a_out = F.leaky_relu(self.a_fc1(fused),
-                                   negative_slope=0.3).reshape(x_a.shape)
-        x_v_out = F.leaky_relu(self.v_fc1(fused), negative_slope=0.3)
+            x_a_out = leaky(dense(self.a_fc1, fused, self.dtype), 0.3,
+                            self.dtype).reshape(x_a.shape)
+        x_v_out = leaky(dense(self.v_fc1, fused, self.dtype), 0.3,
+                        self.dtype)
         x_v_out = x_v_out.reshape((-1,) + self.pgram_shape[1:])
         return x_a_out, x_v_out, fused
 

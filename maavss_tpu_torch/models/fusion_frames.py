@@ -24,6 +24,11 @@ Parameter names follow the flax tree (`visual_encoder.Conv_i`,
 `visual_encoder.TorchBatchNorm_i.BatchNorm_0`, `stft_encoder`,
 `stft_decoder`, `lstm.fwd|bwd`, `fc1`, `fc2`, `a_fc1`, `v_fc1`), so
 `convert.from_flax` carries a JAX checkpoint across.
+
+`dtype` (--dtype) is the compute dtype, as in the fusion model: under
+bfloat16 the conv3d stages run in bf16 and K5 takes their bf16 output, and
+the `--mask_head` mask is cast to fp32 for K4's standalone mask product
+(maavss_tpu/models/fusion_frames.py:284).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from torch import nn
 from maavss_tpu_torch.models.layers import (
     ConvStack,
     TorchBatchNorm,
+    dense,
     epilogue_eligible,
     epilogue_min_hw,
     frames_conv3d_stage,
@@ -46,6 +52,7 @@ from maavss_tpu_torch.models.shape_plan import (
     plan_stft_decoder_frames,
     plan_stft_encoder_frames,
 )
+from maavss_tpu_torch.ops.cuda_complex import complex_mask_apply
 from maavss_tpu_torch.ops.cuda_mask_head import mask_head_apply
 
 LSTM_HIDDEN = 256
@@ -58,8 +65,10 @@ STAGES = ((16, (2, 2), 2), (32, (2, 2), 2), (64, (2, 2), 2), (64, (2, 2), 3),
 class FramesVisualEncoder(nn.Module):
     """[B, 1, T, H, W] -> latent [B, C, T, hw*hw]."""
 
-    def __init__(self, latent_channels: int = 16):
+    def __init__(self, latent_channels: int = 16,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.stages = []
         in_ch = 1
         for i, (out_ch, pad, pool) in enumerate(STAGES):
@@ -67,7 +76,8 @@ class FramesVisualEncoder(nn.Module):
             self.add_module(f"Conv_{i}", nn.Conv3d(
                 in_ch, out_ch, (3, 5, 5), padding=(1, pad[0], pad[0]),
                 bias=False))
-            self.add_module(f"TorchBatchNorm_{i}", TorchBatchNorm(out_ch))
+            self.add_module(f"TorchBatchNorm_{i}",
+                            TorchBatchNorm(out_ch, dtype))
             self.stages.append((pad, pool))
             in_ch = out_ch
 
@@ -78,9 +88,17 @@ class FramesVisualEncoder(nn.Module):
                                                         min_hw)
             x = frames_conv3d_stage(x, getattr(self, f"Conv_{i}"),
                                     getattr(self, f"TorchBatchNorm_{i}"),
-                                    pool, fused)
+                                    pool, fused, self.dtype)
         b, c, t = x.shape[:3]
         return x.reshape(b, c, t, -1)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """sigmoid as XLA expands it, 1 / (1 + exp(-x)): below float32 the exp
+    and the sum round to x's dtype and the quotient stays fp32."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x)).float()
 
 
 class AVFusionFramesModel(nn.Module):
@@ -93,8 +111,10 @@ class AVFusionFramesModel(nn.Module):
     def __init__(self, stft_shape: Sequence[int], frame_shape: Sequence[int],
                  hops_per_frame: int = 8, latent_channels: int = 16,
                  rnn_cell: str = "lstm", mask_head: bool = False,
-                 mask_mid_frame: int = 0, device=None):
+                 mask_mid_frame: int = 0, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.mask_head = mask_head
         self.mask_mid_frame = mask_mid_frame
         self.stft_shape = tuple(stft_shape)
@@ -107,10 +127,11 @@ class AVFusionFramesModel(nn.Module):
                                                latent_channels)
         a_dec, _ = plan_stft_decoder_frames(a_hw, stft_shape, latent_channels)
         self.latent_hw = a_hw
-        self.visual_encoder = FramesVisualEncoder(latent_channels)
-        self.stft_encoder = ConvStack(a_enc, use_bias=False)
-        self.stft_decoder = ConvStack(a_dec, use_bias=False)
-        self.lstm = make_birnn(rnn_cell, 2 * t_frames * hw * hw, LSTM_HIDDEN)
+        self.visual_encoder = FramesVisualEncoder(latent_channels, dtype)
+        self.stft_encoder = ConvStack(a_enc, use_bias=False, dtype=dtype)
+        self.stft_decoder = ConvStack(a_dec, use_bias=False, dtype=dtype)
+        self.lstm = make_birnn(rnn_cell, 2 * t_frames * hw * hw, LSTM_HIDDEN,
+                               dtype)
         flat = latent_channels * 2 * LSTM_HIDDEN
         self.fc1 = nn.Linear(flat, flat, bias=False)
         self.fc2 = nn.Linear(flat, 512, bias=False)
@@ -128,8 +149,9 @@ class AVFusionFramesModel(nn.Module):
         channel axis C (avse_model_final.py:235-251)."""
         cat = torch.cat([x_v_enc, x_a_enc], dim=2)  # [B,C,2T,S]
         av = self.lstm(cat.reshape(cat.shape[0], cat.shape[1], -1))
-        av = torch.tanh(self.fc1(av.reshape(av.shape[0], -1)))
-        return torch.tanh(self.fc2(av))
+        av = torch.tanh(dense(self.fc1, av.reshape(av.shape[0], -1),
+                              self.dtype))
+        return torch.tanh(dense(self.fc2, av, self.dtype))
 
     def audio_ae_forward(self, x_a: torch.Tensor) -> torch.Tensor:
         return self.stft_decoder(self.stft_encoder(x_a))
@@ -148,13 +170,23 @@ class AVFusionFramesModel(nn.Module):
         a_shape = (b, 2, self.hops_per_frame, self.stft_shape[-1])
         if self.mask_head:
             # the mask multiplies the mixture's middle-frame columns, read
-            # in place by the head's kernel
+            # in place by the head's kernel (or, below float32, by the
+            # standalone mask product in the features' fp32)
             lo = self.mask_mid_frame * self.hops_per_frame
             x_mid = x_a[:, :, lo:lo + self.hops_per_frame]
-            x_a_out = mask_head_apply(fused, self.a_fc1.weight, None, x_mid)
+            if self.dtype == torch.float32:
+                x_a_out = mask_head_apply(fused, self.a_fc1.weight, None,
+                                          x_mid)
+            else:
+                mask = dense(self.a_fc1, fused, self.dtype).reshape(a_shape)
+                x_a_out = complex_mask_apply(x_mid, mask.to(x_a.dtype))
         else:
-            x_a_out = torch.tanh(self.a_fc1(fused)).reshape(a_shape)
-        x_v_out = torch.sigmoid(self.v_fc1(fused)).reshape(
+            # the heads' activations end in fp32: their consumers (the loss,
+            # the separator's stitch) upcast, and XLA drops the round trip
+            # through bf16 (excess precision)
+            x_a_out = torch.tanh(dense(self.a_fc1, fused, self.dtype).float(
+            )).reshape(a_shape)
+        x_v_out = _sigmoid(dense(self.v_fc1, fused, self.dtype)).reshape(
             b, self.frame_shape[1], self.frame_shape[-2],
             self.frame_shape[-1])
         return x_a_out, x_v_out, fused

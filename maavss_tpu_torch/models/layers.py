@@ -18,6 +18,13 @@ maps a flax checkpoint onto `state_dict()` leaf by leaf:
   the direct path: conv3d, then BatchNorm, the max pool and LeakyReLU(0.01),
   or in train mode, where `epilogue_eligible` admits the stage, the fused
   tail of `ops/cuda_epilogue.py`.
+
+The compute dtype (`dtype`, --dtype; float32 or bfloat16) follows flax's
+mixed precision: conv and dense parameters stay fp32 and are cast per call
+(`conv`, `dense`); BatchNorm computes in fp32 and casts its output; the
+LSTM's w_i and w_h are parameters of the compute dtype itself, as flax
+creates them (maavss_tpu/models/layers.py:693-697). In float32 every
+helper is the plain module call.
 """
 
 from __future__ import annotations
@@ -35,7 +42,63 @@ from maavss_tpu_torch.ops.cuda_lstm import lstm_bidir, lstm_recurrence_plain
 from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer, pgenc_layer_train
 
 
-def activate(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+def leaky(x: torch.Tensor, slope: float,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """LeakyReLU in `dtype` as the JAX package computes it: below float32 x
+    rounds to `dtype` first (see `dense`), the slope, a weak-typed Python
+    scalar in JAX, rounds to `dtype`, and the product rounds to `dtype`."""
+    if dtype != torch.float32:
+        x = x.to(dtype)
+        slope = float(torch.tensor(slope, dtype=dtype))
+    return F.leaky_relu(x, negative_slope=slope)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """flax `nn.Dense(dtype=)`: below float32 the input and the fp32 kernel
+    are cast to `dtype`, the product rounds to `dtype`, and the bias, cast
+    to `dtype`, is added in `dtype` (a second rounding), as XLA runs it
+    when the sum's consumer computes in `dtype` (every dense layer's here:
+    an activation, or the mask head's round trip, which XLA keeps at a
+    kernel boundary)."""
+    if dtype == torch.float32:
+        return layer(x)
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y if layer.bias is None else y + layer.bias.to(dtype)
+
+
+def conv(layer: nn.Module, x: torch.Tensor,
+         dtype: torch.dtype = torch.float32,
+         to_bn: bool = False) -> torch.Tensor:
+    """flax `nn.Conv` / `nn.ConvTranspose(dtype=)` on a torch Conv2d, Conv3d
+    or ConvTranspose2d, with `dense`'s casts and roundings. `to_bn`: the
+    consumer is a BatchNorm, which upcasts, and XLA drops a round trip
+    fp32 -> bf16 -> fp32 into an upcast (excess precision, on by default):
+    the bias is then added in fp32 and the sum returned unrounded, and a
+    conv without a bias returns its fp32 accumulation of the bf16
+    operands' products. tests/test_torch_bf16.py holds the port's bf16
+    forwards to JAX's bit for bit with these rules."""
+    if dtype == torch.float32:
+        return layer(x)
+    x, w = x.to(dtype), layer.weight.to(dtype)
+    if to_bn and layer.bias is None:
+        x, w = x.float(), w.float()
+    if isinstance(layer, nn.ConvTranspose2d):
+        y = F.conv_transpose2d(x, w, None, layer.stride, layer.padding,
+                               layer.output_padding, layer.groups,
+                               layer.dilation)
+    else:
+        y = layer._conv_forward(x, w, None)
+    if layer.bias is None:
+        return y
+    bias = layer.bias.to(dtype).view((-1,) + (1,) * (y.ndim - 2))
+    return y.float() + bias.float() if to_bn else y + bias
+
+
+def activate(x: torch.Tensor, act: Optional[str],
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The activation in `dtype`, on x rounded to `dtype`."""
+    x = x.to(dtype)
     if act is None:
         return x
     if act == "tanh":
@@ -43,7 +106,7 @@ def activate(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     if act == "relu":
         return F.relu(x)
     if act == "leaky_relu":
-        return F.leaky_relu(x, negative_slope=0.3)  # reference slope (avse_model.py:71)
+        return leaky(x, 0.3, dtype)  # reference slope (avse_model.py:71)
     if act == "sigmoid":
         return torch.sigmoid(x)
     raise ValueError(f"unknown activation {act}")
@@ -69,27 +132,40 @@ class TorchBatchNorm(nn.Module):
     batch mean and the biased batch variance max(0, E[x^2] - E[x]^2) in fp32,
     then, under no_grad, running = 0.9 * running + 0.1 * batch with the
     biased variance. nn.BatchNorm2d would update with the unbiased variance
-    (and momentum 0.1 in its own convention), so it is not used."""
+    (and momentum 0.1 in its own convention), so it is not used.
+
+    With a `dtype` below float32 the input is upcast, statistics and the
+    normalisation run in fp32 and the result is cast to `dtype` at the end,
+    as flax's BatchNorm(dtype=) does (flax/linen/normalization.py:109-112,
+    212-233); the parameters and running statistics stay fp32."""
 
     EPS = 1e-5
     MOMENTUM = 0.9
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.BatchNorm_0 = _BatchNormEval(features)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bn = self.BatchNorm_0
         shape = (1, -1) + (1,) * (x.ndim - 2)
         if self.training:
+            # the statistics upcast x on their own, as flax does, so below
+            # float32 x's gradient is the sum of two rounded parts, one
+            # through the statistics and one through the normalisation
+            xs = x.to(torch.float32)
             axes = (0,) + tuple(range(2, x.ndim))
-            mean = x.mean(dim=axes)
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            mean = xs.mean(dim=axes)
+            var = torch.clamp((xs * xs).mean(dim=axes) - mean * mean,
+                              min=0.0)
             update_running_stats(bn, mean, var)
         else:
             mean, var = bn.running_mean, bn.running_var
+        x = x.to(torch.float32)
         mul = bn.weight * torch.rsqrt(var + self.EPS)
-        return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+        out = (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+        return out.to(self.dtype)
 
 
 @torch.no_grad()
@@ -124,21 +200,24 @@ class ConvStack(nn.Module):
     to torch's ConvTranspose2d geometry: `padding` off both sides,
     `output_padding` kept on the far side (maavss_tpu/models/layers.py:81-85).
     `use_bias=False` drops every conv bias, as the frames model's stacks do.
+    `dtype` is the compute dtype (module docstring).
     """
 
-    def __init__(self, specs: Sequence[ConvSpec], use_bias: bool = True):
+    def __init__(self, specs: Sequence[ConvSpec], use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.specs = tuple(specs)
         self.names = _conv_names(self.specs)
         self.use_bias = use_bias
-        for spec, (conv, bn) in zip(self.specs, self.names):
+        self.dtype = dtype
+        for spec, (conv_name, bn) in zip(self.specs, self.names):
             cls = nn.ConvTranspose2d if spec.transpose else nn.Conv2d
             pad = (0, 0) if spec.transpose else spec.padding
-            self.add_module(conv, cls(spec.in_ch, spec.out_ch, spec.kernel,
+            self.add_module(conv_name, cls(spec.in_ch, spec.out_ch, spec.kernel,
                                       stride=spec.stride, padding=pad,
                                       bias=use_bias))
             if bn is not None:
-                self.add_module(bn, TorchBatchNorm(spec.out_ch))
+                self.add_module(bn, TorchBatchNorm(spec.out_ch, dtype))
 
     def bn_fed_biases(self):
         """Names of the conv biases that feed a BatchNorm. In train mode the
@@ -149,15 +228,16 @@ class ConvStack(nn.Module):
         return [f"{conv}.bias" for conv, bn in self.names if bn is not None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for spec, (conv, bn) in zip(self.specs, self.names):
-            x = getattr(self, conv)(x)
+        for spec, (conv_name, bn) in zip(self.specs, self.names):
+            x = conv(getattr(self, conv_name), x, self.dtype,
+                     to_bn=bn is not None)
             if spec.transpose:
                 (ph, pw), (oph, opw) = spec.padding, spec.output_padding
                 h, w = x.shape[2], x.shape[3]
                 x = x[:, :, ph:h - ph + oph, pw:w - pw + opw]
             if bn is not None:
                 x = getattr(self, bn)(x)
-            x = activate(x, spec.act)
+            x = activate(x, spec.act, self.dtype)
         return x
 
 
@@ -172,9 +252,12 @@ class KernelConvStack1x9(ConvStack):
     Channel-first [C, B*T, S] across the whole stack: one transpose on
     entry (C=1, a reshape) and one on exit. w2 [Co, 9*Cin] is derived from
     the conv weight per call with the column order k*Cin + ci of
-    maavss_tpu/models/layers.py:205-207."""
+    maavss_tpu/models/layers.py:205-207. Below float32 the input and w2 are
+    cast to the compute dtype (maavss_tpu/models/layers.py:193,207), the
+    kernels' IO dtype."""
 
-    def __init__(self, specs: Sequence[ConvSpec]):
+    def __init__(self, specs: Sequence[ConvSpec],
+                 dtype: torch.dtype = torch.float32):
         for spec in specs:
             if not (not spec.transpose and spec.kernel == (1, 9)
                     and spec.stride == (1, 2) and spec.padding == (0, 4)
@@ -182,14 +265,15 @@ class KernelConvStack1x9(ConvStack):
                 raise ValueError(
                     f"KernelConvStack1x9 supports only the planned "
                     f"(1,9)/s(1,2)/p(0,4)+BN+tanh layers, got {spec}")
-        super().__init__(specs)
+        super().__init__(specs, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, t, s = x.shape
         if c != self.specs[0].in_ch:
             raise ValueError(f"input has {c} channels, specs expect "
                              f"{self.specs[0].in_ch}")
-        h = x.permute(1, 0, 2, 3).reshape(c, b * t, s).contiguous()
+        h = x.to(self.dtype).permute(1, 0, 2, 3).reshape(c, b * t,
+                                                         s).contiguous()
         for spec, (conv_name, bn_name) in zip(self.specs, self.names):
             conv = getattr(self, conv_name)
             bn = getattr(self, bn_name).BatchNorm_0
@@ -226,35 +310,40 @@ def epilogue_eligible(shape, pad, pool: int, min_hw: int) -> bool:
             and min(h, w) >= min_hw)
 
 
-def frames_conv3d_stage(x: torch.Tensor, conv: nn.Conv3d,
-                        bn: TorchBatchNorm, pool: int,
-                        fused: bool) -> torch.Tensor:
+def frames_conv3d_stage(x: torch.Tensor, conv3d: nn.Conv3d,
+                        bn: TorchBatchNorm, pool: int, fused: bool,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One frames-encoder stage (maavss_tpu/models/layers.py:621-638, the
-    direct path): conv3d (3,5,5) / stride 1, then BatchNorm, a (1, pool,
-    pool) max pool and LeakyReLU(0.01), [B, C, T, H, W] throughout.
+    direct path): conv3d (3,5,5) / stride 1 in `dtype`, then BatchNorm, a
+    (1, pool, pool) max pool and LeakyReLU(0.01), [B, C, T, H, W]
+    throughout. The bf16 conv3d rounds its output (cuDNN's tensor cores,
+    most of the frames step) where XLA on the CPU hands the BatchNorm its
+    fp32 accumulation (ROADMAP §3).
 
     `fused` (train mode, an eligible stage) runs the tail as the fused
-    epilogue instead and updates the running statistics with its batch mean
-    and biased, unclamped variance by flax's rule, as
-    maavss_tpu/models/fusion_frames.py:176-183 does."""
-    y = conv(x)
+    epilogue instead, on the conv output in `dtype`, and updates the running
+    statistics with its batch mean and biased, unclamped variance by flax's
+    rule, as maavss_tpu/models/fusion_frames.py:176-183 does."""
+    y = conv(conv3d, x, dtype)
     if fused:
         stats = bn.BatchNorm_0
         out, mu, var = fused_bn_pool_leaky(y, stats.weight, stats.bias)
         update_running_stats(stats, mu, var)
         return out
-    y = F.max_pool3d(bn(y), (1, pool, pool))
-    return F.leaky_relu(y, negative_slope=0.01)
+    return leaky(F.max_pool3d(bn(y), (1, pool, pool)), 0.01, dtype)
 
 
 class LSTM(nn.Module):
-    """One direction's parameters: w_i [D,4H], w_h [H,4H] (flax layout)."""
+    """One direction's parameters: w_i [D,4H], w_h [H,4H] (flax layout), of
+    the compute dtype, as flax creates them."""
 
-    def __init__(self, in_features: int, hidden: int):
+    def __init__(self, in_features: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.hidden = hidden
-        self.w_i = nn.Parameter(torch.empty(in_features, 4 * hidden))
-        self.w_h = nn.Parameter(torch.empty(hidden, 4 * hidden))
+        self.w_i = nn.Parameter(torch.empty(in_features, 4 * hidden,
+                                            dtype=dtype))
+        self.w_h = nn.Parameter(torch.empty(hidden, 4 * hidden, dtype=dtype))
 
 
 def lstm_backend(x: torch.Tensor, backend: Optional[str] = None) -> str:
@@ -277,16 +366,20 @@ class BiLSTM(nn.Module):
     The input projection x @ w_i stays one torch.matmul per direction, as the
     JAX package leaves it to XLA; the recurrence of both directions is one
     kernel launch, and its backward one more (ops/cuda_lstm.py:lstm_bidir),
-    or, with backend 'scan', the plain per-step loop under autograd."""
+    or, with backend 'scan', the plain per-step loop under autograd. Both
+    carry h and c in fp32 with IO in the parameters' dtype, as the TPU
+    kernel does (maavss_tpu/ops/pallas_lstm.py:84-88)."""
 
     def __init__(self, in_features: int, hidden: int,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fwd = LSTM(in_features, hidden)
-        self.bwd = LSTM(in_features, hidden)
+        self.fwd = LSTM(in_features, hidden, dtype)
+        self.bwd = LSTM(in_features, hidden, dtype)
         self.backend = backend
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.fwd.w_i.dtype)
         xw_f = torch.matmul(x, self.fwd.w_i)
         xw_b = torch.matmul(x, self.bwd.w_i)
         if lstm_backend(x, self.backend) == "kernel":
@@ -298,11 +391,12 @@ class BiLSTM(nn.Module):
         return torch.cat([ys_f, ys_b], dim=-1)
 
 
-def make_birnn(cell: str, in_features: int, hidden: int) -> nn.Module:
+def make_birnn(cell: str, in_features: int, hidden: int,
+               dtype: torch.dtype = torch.float32) -> nn.Module:
     """Bidirectional recurrence of the fusion core. Only 'lstm' (reference
     parity) is ported; 'gru' and 'none' are ROADMAP M2."""
     if cell == "lstm":
-        return BiLSTM(in_features, hidden)
+        return BiLSTM(in_features, hidden, dtype=dtype)
     if cell in ("gru", "none"):
         raise NotImplementedError(
             f"--rnn_cell {cell} is not ported yet (ROADMAP M2: GRU/BiGRU, "

@@ -139,13 +139,14 @@ def library():
     lib.maavss_adam.argtypes = [p] * 5 + [i, i, i] + [f] * 8 + [p]
     lib.maavss_adam.restype = i
     ll = ctypes.c_longlong
-    lib.maavss_epilogue_stats.argtypes = [p] * 5 + [i] * 6 + [ll, p]
+    # ..., geometry, (nblk, chunk,) IO dtype, stream
+    lib.maavss_epilogue_stats.argtypes = [p] * 5 + [i] * 6 + [ll, i, p]
     lib.maavss_epilogue_stats.restype = i
-    lib.maavss_epilogue_apply.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.maavss_epilogue_apply.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.maavss_epilogue_apply.restype = i
-    lib.maavss_epilogue_bwd_reduce.argtypes = [p] * 12 + [i] * 6 + [ll, p]
+    lib.maavss_epilogue_bwd_reduce.argtypes = [p] * 12 + [i] * 6 + [ll, i, p]
     lib.maavss_epilogue_bwd_reduce.restype = i
-    lib.maavss_epilogue_bwd_dy.argtypes = [p] * 9 + [i] * 5 + [p]
+    lib.maavss_epilogue_bwd_dy.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.maavss_epilogue_bwd_dy.restype = i
     planar = [p, ll, ll, ll]  # pointer, item / plane / row strides
     lib.maavss_mask_mul.argtypes = planar * 3 + [i] * 4 + [p]

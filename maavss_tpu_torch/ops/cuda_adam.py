@@ -44,6 +44,43 @@ def adam_update_plain(g: Optional[torch.Tensor], m: torch.Tensor,
     p.sub_(u.to(p.dtype))
 
 
+def _in_dtype(x: float, dtype: torch.dtype) -> float:
+    """x rounded to `dtype`: a weak-typed Python scalar meeting an array of
+    that dtype in JAX."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def adam_update_low(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
+                    vs: Sequence[torch.Tensor], ps: Sequence[torch.Tensor],
+                    c1: float, c2: float, lr: float, b1: float, b2: float,
+                    eps: float) -> None:
+    """The formula of `adam_update_plain` over leaves of one dtype below
+    float32 (the bf16 LSTM leaves under --dtype bfloat16, with moments of
+    that dtype), in place, as maavss_tpu/ops/pallas_adam.py:82-89 computes
+    it there: every constant takes the moments' dtype first (b1, 1 - b1,
+    b2, 1 - b2, lr and eps as JAX's weak-typed scalars, c1 and c2 by
+    `astype`) and each operation rounds to it. One multi-tensor call an
+    operation over all the leaves."""
+    dtype = ms[0].dtype
+    b1r, k1, b2r, k2, c1, c2, lr, eps = (
+        _in_dtype(x, dtype) for x in (b1, 1.0 - b1, b2, 1.0 - b2, c1, c2, lr,
+                                      eps))
+    gd = [g.to(dtype) for g in gs]
+    torch._foreach_mul_(ms, b1r)
+    torch._foreach_add_(ms, torch._foreach_mul(gd, k1))
+    sq = torch._foreach_mul(gd, gd)
+    torch._foreach_mul_(sq, k2)
+    torch._foreach_mul_(vs, b2r)
+    torch._foreach_add_(vs, sq)
+    u = torch._foreach_div(ms, c1)
+    torch._foreach_mul_(u, lr)
+    den = torch._foreach_div(vs, c2)
+    torch._foreach_sqrt_(den)
+    torch._foreach_add_(den, eps)
+    torch._foreach_div_(u, den)
+    torch._foreach_sub_(ps, u)
+
+
 class AdamTable:
     """Device tables of the kernel for a fixed list of (m, v, p) leaves:
     pointers [3, n] (rows m, v, p), sizes [n], and the block map (leaf,

@@ -4,12 +4,12 @@ encoder's eligible conv3d stages: the hand-written CUDA kernels of
 
 Counterpart of maavss_tpu/ops/pallas_epilogue.py:fused_bn_phasemax_leaky,
 on PyTorch's layout: the conv3d output y [B, C, T, H, W] (NCDHW, H and W
-even, fp32) is read as it is, where the JAX package folds it to phase-major
-channels first.
+even, fp32 or bf16) is read as it is, where the JAX package folds it to
+phase-major channels first.
 
     out, mu, var = fused_bn_pool_leaky(y, gamma, beta)
 
-    out [B, C, T, H/2, W/2] = leaky_0.01(max_2x2(BN_train(y)))
+    out [B, C, T, H/2, W/2] = leaky_0.01(max_2x2(BN_train(y))), y's dtype
     mu, var [C] fp32        = the batch mean and the biased variance
                               E[y^2] - mu^2, not clamped (the caller updates
                               the running statistics with them)
@@ -34,6 +34,12 @@ that counts its launches in `.launches`:
 backward is the complete VJP of pallas_epilogue.py:_fused_bwd, the
 cotangents of mu and var included (zero in training, where the running
 statistics take mu and var detached).
+
+y's dtype is the IO dtype of out, sel, the cotangent g and dy, as in the
+JAX kernels: a bf16 y gives bf16 out, sel and dy. Every sum and every BN
+expression runs in fp32 on the exact upcast of the IO values; out and dy
+round once at the end, and sel, a selected value, is exact. mu, var, rstd,
+gamma, beta and the constants k stay fp32.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ EPS = 1e-5
 # the H100's 132), at least 4096 values per block
 _TARGET_BLOCKS = 1056
 _MIN_PER_BLOCK = 4096
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _chan(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -84,7 +91,7 @@ def epilogue_apply_plain(y, gamma, beta, mu, rstd):
     sel = torch.where(pos, y4.amax(dim=-1), y4.amin(dim=-1))
     o = (_chan(gamma, 5) * (sel - _chan(mu, 5)) * _chan(rstd, 5)
          + _chan(beta, 5))
-    return torch.where(o >= 0, o, SLOPE * o), sel
+    return torch.where(o >= 0, o, SLOPE * o).to(y.dtype), sel.to(y.dtype)
 
 
 def _dsel(g, sel, gamma, beta, mu, rstd):
@@ -95,7 +102,8 @@ def _dsel(g, sel, gamma, beta, mu, rstd):
 
 
 def epilogue_bwd_reduce_plain(g, sel, gamma, beta, mu, rstd, g_mu, g_var):
-    dsel, xhat, _ = _dsel(g.to(torch.float32), sel, gamma, beta, mu, rstd)
+    dsel, xhat, _ = _dsel(g.to(torch.float32), sel.to(torch.float32), gamma,
+                          beta, mu, rstd)
     axes = (0, 2, 3, 4)
     s1 = dsel.sum(dim=axes)
     s2 = (dsel * xhat).sum(dim=axes)
@@ -107,7 +115,7 @@ def epilogue_bwd_reduce_plain(g, sel, gamma, beta, mu, rstd, g_mu, g_var):
 
 
 def epilogue_bwd_dy_plain(y, g, sel, gamma, beta, mu, rstd, k):
-    g = g.to(torch.float32)
+    g, sel = g.to(torch.float32), sel.to(torch.float32)
     xs = (sel - _chan(mu, 5)) * _chan(rstd, 5)
     o = _chan(gamma, 5) * xs + _chan(beta, 5)
     dsg = g * torch.where(o >= 0, 1.0, SLOPE) * _chan(gamma, 5)
@@ -118,7 +126,7 @@ def epilogue_bwd_dy_plain(y, g, sel, gamma, beta, mu, rstd, k):
     ch = [_chan(v, 6) for v in (mu, rstd, *k)]
     xhat = (y4 - ch[0]) * ch[1]
     dy4 = ch[1] * (dxhat - ch[2] - xhat * ch[3]) + ch[4] + y4 * ch[5]
-    return _unwindows(dy4)
+    return _unwindows(dy4).to(y.dtype)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -131,10 +139,17 @@ def _check_y(y: torch.Tensor) -> None:
 
 
 def _check_kernel_args(tensors, vecs, c: int) -> None:
+    """`tensors` (y, g, sel) share one IO dtype, float32 or bfloat16; the
+    per-channel `vecs` are float32 [C]."""
     dev = tensors[0].device
+    io = tensors[0].dtype
+    if io not in _DTYPE_CODES:
+        raise TypeError(f"epilogue kernel takes float32 or bfloat16 tensors, "
+                        f"got {io}")
     for t in tuple(tensors) + tuple(vecs):
-        if t.dtype != torch.float32:
-            raise TypeError(f"epilogue kernel takes float32 tensors, got "
+        want = io if any(t is x for x in tensors) else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"epilogue kernel: expected {want}, got "
                             f"{t.dtype}")
         if not t.is_cuda or t.device != dev:
             raise ValueError("epilogue kernel needs every tensor on one CUDA "
@@ -147,12 +162,13 @@ def _check_kernel_args(tensors, vecs, c: int) -> None:
                              f"[{c}], got {tuple(v.shape)}")
 
 
-def _split(n: int, c: int):
-    """(blocks per channel, values per block, a multiple of 4) for a channel
-    sum over n values: a fixed partition, so the sums are deterministic."""
+def _split(n: int, c: int, vec: int = 4):
+    """(blocks per channel, values per block, a multiple of `vec`, the
+    values of one 16-byte load: 4 floats, 8 bf16) for a channel sum over n
+    values: a fixed partition, so the sums are deterministic."""
     nblk = max(1, min(-(-_TARGET_BLOCKS // c), -(-n // _MIN_PER_BLOCK)))
     chunk = -(-n // nblk)
-    chunk = -(-chunk // 4) * 4
+    chunk = -(-chunk // vec) * vec
     return -(-n // chunk), chunk
 
 
@@ -169,13 +185,13 @@ def epilogue_stats(y: torch.Tensor):
         return epilogue_stats_plain(y)
     b, c, t, h, w = y.shape
     _check_kernel_args((y,), (), c)
-    nblk, chunk = _split(b * t * h * w, c)
+    nblk, chunk = _split(b * t * h * w, c, 16 // y.element_size())
     partial = torch.empty(c, nblk, 2, dtype=torch.float32, device=y.device)
     mu, var, rstd = (torch.empty(c, dtype=torch.float32, device=y.device)
                      for _ in range(3))
     _launch("maavss_epilogue_stats", y.device, (
         y.data_ptr(), partial.data_ptr(), mu.data_ptr(), var.data_ptr(),
-        rstd.data_ptr(), b, c, t, h, w, nblk, chunk))
+        rstd.data_ptr(), b, c, t, h, w, nblk, chunk, _DTYPE_CODES[y.dtype]))
     epilogue_stats.launches += 1
     return mu, var, rstd
 
@@ -190,12 +206,13 @@ def epilogue_apply(y, gamma, beta, mu, rstd):
         return epilogue_apply_plain(y, gamma, beta, mu, rstd)
     b, c, t, h, w = y.shape
     _check_kernel_args((y,), (gamma, beta, mu, rstd), c)
-    out = torch.empty(b, c, t, h // 2, w // 2, dtype=torch.float32,
+    out = torch.empty(b, c, t, h // 2, w // 2, dtype=y.dtype,
                       device=y.device)
     sel = torch.empty_like(out)
     _launch("maavss_epilogue_apply", y.device, (
         y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mu.data_ptr(),
-        rstd.data_ptr(), out.data_ptr(), sel.data_ptr(), b, c, t, h, w))
+        rstd.data_ptr(), out.data_ptr(), sel.data_ptr(), b, c, t, h, w,
+        _DTYPE_CODES[y.dtype]))
     epilogue_apply.launches += 1
     return out, sel
 
@@ -222,7 +239,8 @@ def epilogue_bwd_reduce(g, sel, gamma, beta, mu, rstd, g_mu, g_var):
         g.data_ptr(), sel.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         mu.data_ptr(), rstd.data_ptr(), g_mu.data_ptr(), g_var.data_ptr(),
         partial.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        k.data_ptr(), b, c, t, 2 * h2, 2 * w2, nblk, chunk))
+        k.data_ptr(), b, c, t, 2 * h2, 2 * w2, nblk, chunk,
+        _DTYPE_CODES[g.dtype]))
     epilogue_bwd_reduce.launches += 1
     return dgamma, dbeta, k
 
@@ -241,12 +259,16 @@ def epilogue_bwd_dy(y, g, sel, gamma, beta, mu, rstd, k):
         raise ValueError(f"epilogue bwd: g {tuple(g.shape)}, sel "
                          f"{tuple(sel.shape)}, k {tuple(k.shape)} do not fit "
                          f"y {tuple(y.shape)}")
-    _check_kernel_args((y, g, sel, k), (gamma, beta, mu, rstd), c)
+    _check_kernel_args((y, g, sel), (gamma, beta, mu, rstd), c)
+    if k.dtype != torch.float32 or not k.is_contiguous() \
+            or k.device != y.device:
+        raise ValueError("epilogue bwd: k must be a contiguous float32 "
+                         "tensor on y's device")
     dy = torch.empty_like(y)
     _launch("maavss_epilogue_bwd_dy", y.device, (
         y.data_ptr(), g.data_ptr(), sel.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), mu.data_ptr(), rstd.data_ptr(), k.data_ptr(),
-        dy.data_ptr(), b, c, t, h, w))
+        dy.data_ptr(), b, c, t, h, w, _DTYPE_CODES[y.dtype]))
     epilogue_bwd_dy.launches += 1
     return dy
 

@@ -7,8 +7,16 @@ The optimizer keeps `count` and, per parameter, the moments `m` and `v`;
 every parameter and its moments in place:
 
 - kernel 'pallas' (the JAX flag's name): ONE launch of the fused CUDA kernel
-  over all leaves (ops/cuda_adam.py); a CPU parameter raises;
-- kernel 'xla': the plain formula leaf by leaf, an explicit choice;
+  over all float32 leaves (ops/cuda_adam.py); a CPU parameter raises. The
+  leaves below float32 (the LSTM's w_i and w_h under --dtype bfloat16, with
+  their bf16 moments) take the plain formula, in multi-tensor calls
+  (`adam_update_low`), as the JAX kernel's own gate sends them to its jnp
+  formula
+  (maavss_tpu/ops/pallas_adam.py:62-64,80-89): the reference's split, not
+  a fallback;
+- kernel 'xla': the plain formula leaf by leaf for the float32 leaves, an
+  explicit choice, and the same multi-tensor calls as 'pallas' for the
+  leaves below float32;
 - kernel 'auto': the kernel for CUDA parameters, the plain formula for CPU
   ones.
 
@@ -26,6 +34,7 @@ import torch
 from maavss_tpu_torch.ops.cuda_adam import (
     AdamTable,
     adam_multi_tensor,
+    adam_update_low,
     adam_update_plain,
     bias_corrections,
 )
@@ -56,27 +65,44 @@ class FusedAdam:
         self.count = 0
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
+        # the kernel's leaves (float32) and the plain formula's (below it)
+        self._f32 = [i for i, p in enumerate(self.params)
+                     if p.dtype == torch.float32]
+        self._low = [i for i, p in enumerate(self.params)
+                     if p.dtype != torch.float32]
         self._table = None
 
     @torch.no_grad()
     def step(self) -> None:
         self.count += 1
         c1, c2 = bias_corrections(self.count, self.b1, self.b2)
-        grads = [p.grad for p in self.params]
-        if self.kernel == "pallas":
-            if self._table is None and self.params[0].is_cuda:
-                self._table = AdamTable(self.m, self.v, self.params)
-            adam_multi_tensor(grads, self.m, self.v, self.params, c1, c2,
-                              self.lr, self.b1, self.b2, self.eps,
+        hyper = (c1, c2, self.lr, self.b1, self.b2, self.eps)
+        if self.kernel != "pallas":
+            for i in self._f32:
+                p = self.params[i]
+                adam_update_plain(p.grad, self.m[i], self.v[i], p, *hyper)
+        elif self._f32:
+            ms, vs, ps = ([col[i] for i in self._f32]
+                          for col in (self.m, self.v, self.params))
+            if self._table is None and ps[0].is_cuda:
+                self._table = AdamTable(ms, vs, ps)
+            adam_multi_tensor([p.grad for p in ps], ms, vs, ps, *hyper,
                               table=self._table, backend="kernel")
-        else:
-            for g, m, v, p in zip(grads, self.m, self.v, self.params):
-                adam_update_plain(g, m, v, p, c1, c2, self.lr, self.b1,
-                                  self.b2, self.eps)
+        for dtype in {self.params[i].dtype for i in self._low}:
+            idx = [i for i in self._low if self.params[i].dtype == dtype]
+            ps = [self.params[i] for i in idx]
+            adam_update_low([p.grad if p.grad is not None else
+                             torch.zeros_like(p) for p in ps],
+                            [self.m[i] for i in idx],
+                            [self.v[i] for i in idx], ps, *hyper)
 
     def zero_grad(self) -> None:
         """Zero every existing gradient in place (the kernel's gradient
-        table then keeps its pointers); None stays None."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        if grads:
+        table then keeps its pointers), one multi-tensor call per dtype;
+        None stays None."""
+        by_dtype = {}
+        for p in self.params:
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
             torch._foreach_zero_(grads)

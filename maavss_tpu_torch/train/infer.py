@@ -15,7 +15,10 @@ mixture's untrimmed spectrogram (columns no window predicts keep the
 mixture), then resynthesizes. Feature preparation is the train step's
 `_prep_stft_pair`, as in the JAX package; under --use_polar the features
 are (magnitude, phase), averaged and stitched as such, and resynthesized
-through the polar kernel.
+through the polar kernel. Under --dtype bfloat16 the model's bf16 outputs
+are cast to the features' fp32 before the overlap-add or the stitch, so
+the average, the polar kernel and the iSTFT run in fp32
+(maavss_tpu/train/infer.py:67,77,161).
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ def separate_windows(model, cfg: RunConfig, batch: Dict[str, torch.Tensor],
                        for j in range(ns))
         for j, yh in enumerate(yh_wins):
             win = slice(j * a, (j + nf) * a)
-            acc[:, :, win] += yh
+            acc[:, :, win] += yh.to(acc.dtype)
             cnt[win] += 1.0
     finally:
         model.train(was_training)
@@ -111,7 +114,8 @@ def separate_frames_windows(model, cfg: RunConfig,
         for j in range(ns):
             x_v = frames[:, j:j + nf].transpose(1, 2)  # [B,1,nf,H,W]
             yh_mid, _, _ = model(x_full[:, :, j * a:(j + nf) * a], x_v)
-            yh_full[:, :, (j + mid) * a:(j + mid + 1) * a] = yh_mid
+            yh_full[:, :, (j + mid) * a:(j + mid + 1) * a] = yh_mid.to(
+                yh_full.dtype)
     finally:
         model.train(was_training)
     yh_audio = istft_features(yh_full, cfg.fft_len, cfg.hop,

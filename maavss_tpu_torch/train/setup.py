@@ -11,8 +11,13 @@ model. The initialisation:
 - conv (2-D and 3-D), transposed-conv and dense kernels: lecun-normal
   (variance 1/fan_in, normal truncated at two standard deviations, flax's
   rescaled stddev); biases zero;
-- LSTM w_i / w_h: U(-1/sqrt(H), 1/sqrt(H));
+- LSTM w_i / w_h: U(-1/sqrt(H), 1/sqrt(H)), drawn in fp32 and rounded to
+  the parameters' dtype, so a bfloat16 model holds its float32 twin's
+  weights rounded;
 - BatchNorm: scale 1, bias 0, running mean 0, running variance 1.
+
+`--dtype` picks the compute dtype (`compute_dtype`): float32, or bfloat16
+with flax's mixed-precision semantics (models/layers.py).
 
 The numbers differ from a flax init with the same seed (different
 generators); `convert.from_flax` carries a flax init across exactly.
@@ -35,6 +40,17 @@ from maavss_tpu_torch.train.state import TrainState, create_train_state
 # flax's truncated_normal initializer rescales so the truncated
 # distribution has the requested variance
 _TRUNC_STD = 0.87962566103423978
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: RunConfig) -> torch.dtype:
+    """The torch dtype of --dtype; any other than float32 and bfloat16
+    raises NotImplementedError."""
+    if cfg.dtype not in _DTYPES:
+        raise NotImplementedError(
+            f"--dtype {cfg.dtype} is not ported to maavss_tpu_torch yet "
+            "(ROADMAP M5 (float16))")
+    return _DTYPES[cfg.dtype]
 
 
 def check_supported(cfg: RunConfig, train: bool = False,
@@ -46,7 +62,7 @@ def check_supported(cfg: RunConfig, train: bool = False,
         (cfg.rnn_cell != "lstm", f"--rnn_cell {cfg.rnn_cell}", "M2"),
         (cfg.compress_audio, "--compress_audio", "M9 (ops/audio.py)"),
         (cfg.attn_diff, "--attn_diff", "M4"),
-        (cfg.dtype != "float32", f"--dtype {cfg.dtype}", "M5 (bf16 slice)"),
+        (cfg.dtype not in _DTYPES, f"--dtype {cfg.dtype}", "M5 (float16)"),
     ]
     if frames:
         todo += [
@@ -100,8 +116,9 @@ def init_flax_like(model: nn.Module, generator: torch.Generator) -> None:
             _lecun_normal_(mod.weight, mod.in_features, generator)
         elif isinstance(mod, LSTM):
             bound = 1.0 / math.sqrt(mod.hidden)
-            nn.init.uniform_(mod.w_i, -bound, bound, generator=generator)
-            nn.init.uniform_(mod.w_h, -bound, bound, generator=generator)
+            for w in (mod.w_i, mod.w_h):
+                w.copy_(torch.empty(w.shape).uniform_(-bound, bound,
+                                                      generator=generator))
             continue
         else:
             continue
@@ -126,7 +143,7 @@ def build_fusion(cfg: RunConfig, batch_size: int, device="cuda",
         latent_channels=cfg.latent_chan, fc_size=cfg.fc_size,
         rnn_cell=cfg.rnn_cell, mask_head=cfg.mask_head,
         pgenc_kernel=resolve_pgenc_kernel(cfg.pgenc_kernel, device),
-        stft_fold=cfg.stft_fold)
+        stft_fold=cfg.stft_fold, dtype=compute_dtype(cfg))
     init_flax_like(model, generator)
     return model.to(device).eval()
 
@@ -163,7 +180,7 @@ def build_frames_model(cfg: RunConfig, batch_size: int,
         frame_shape=(batch_size, 1, cfg.num_frames, frame_size, frame_size),
         hops_per_frame=cfg.hops_per_frame, latent_channels=latent_channels,
         rnn_cell=cfg.rnn_cell, mask_head=cfg.mask_head,
-        mask_mid_frame=(cfg.num_seq - 1) // 2)
+        mask_mid_frame=(cfg.num_seq - 1) // 2, dtype=compute_dtype(cfg))
     init_flax_like(model, generator)
     return model.to(device).eval()
 

@@ -74,8 +74,8 @@ def _watch_metrics(model: torch.nn.Module) -> Metrics:
     """Global l2 norms of the gradients and parameters, and the gradient
     norm of each top-level module (maavss_tpu/train/steps.py:65-75). A
     parameter without a gradient counts as a zero gradient, as jax.grad
-    gives one. The per-leaf norms come from one multi-tensor call each
-    (`torch._foreach_norm`), not three launches per leaf. The norms
+    gives one. The per-leaf norms come from one multi-tensor call per
+    dtype (`torch._foreach_norm`), not three launches per leaf. The norms
     accumulate in fp64: on the CPU, torch's fp32 norm of a 16.7 M-element
     leaf (the frames model's fc1) is off by ~6e-4 relative."""
     params, grads = [], []
@@ -89,16 +89,30 @@ def _watch_metrics(model: torch.nn.Module) -> Metrics:
             else:
                 runs.append([len(grads), len(grads) + 1])
             grads.append(p.grad)
-    f64 = torch.float64
-    p_sq = torch.stack(torch._foreach_norm(params, 2, dtype=f64)).square()
-    g_sq = torch.stack(torch._foreach_norm(grads, 2, dtype=f64)).square() \
-        if grads else p_sq[:0]
+    p_sq = torch.stack(_norms(params)).square()
+    g_sq = torch.stack(_norms(grads)).square() if grads else p_sq[:0]
     m = {"grad_norm": torch.sqrt(g_sq.sum()),
          "param_norm": torch.sqrt(p_sq.sum())}
     for k, runs in spans.items():
         m[f"grad_norm/{k}"] = torch.sqrt(
             sum((g_sq[a:b].sum() for a, b in runs), g_sq[:0].sum()))
     return {k: v.float() for k, v in m.items()}
+
+
+def _norms(tensors):
+    """fp64 L2 norms of `tensors`, in their order, one multi-tensor call
+    per dtype (a list of mixed dtypes, as under --dtype bfloat16, would
+    take the per-tensor path)."""
+    groups: Dict[torch.dtype, list] = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    out = [None] * len(tensors)
+    for idx in groups.values():
+        norms = torch._foreach_norm([tensors[i] for i in idx], 2,
+                                    dtype=torch.float64)
+        for i, n in zip(idx, norms):
+            out[i] = n
+    return out
 
 
 def norm_per_example(feats: torch.Tensor) -> torch.Tensor:

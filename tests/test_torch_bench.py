@@ -56,7 +56,7 @@ def test_line_has_bench_py_keys_and_the_port_s(line):
 
 
 def test_line_records_the_fusion_defaults(line):
-    assert (line["batch"], line["dtype"], line["regime"]) == (2, "float32",
+    assert (line["batch"], line["dtype"], line["regime"]) == (2, "bfloat16",
                                                                "fusion")
     assert line["fusion_encode"] == "full" and line["pgram_cache"] is True
     assert line["fullenc_loss_resolved"] == "fold"
@@ -75,7 +75,7 @@ def test_line_records_the_fusion_defaults(line):
      "M7-rest"),
     (dict(MAAVSS_BENCH_REMAT="1"), "M3-rest"),
     (dict(MAAVSS_BENCH_FUSED_OPT="1"), "Not carried"),
-    (dict(MAAVSS_BENCH_DTYPE="bfloat16"), "M5 (bf16 slice)"),
+    (dict(MAAVSS_BENCH_DTYPE="float16"), "M5 (float16)"),
     (dict(MAAVSS_BENCH_RNN="gru"), "M2"),
     (dict(MAAVSS_BENCH_FRAMES_ENCODE="full", MAAVSS_BENCH_REGIME="frames"),
      "M7-rest"),
@@ -90,7 +90,7 @@ def test_config_follows_bench_py_defaults():
     cfg, regime, window_mode = bench_torch.bench_config({}, 256)
     assert (regime, window_mode) == ("fusion", "vectorized")
     assert (cfg.fusion_encode, cfg.pgram_cache, cfg.dtype,
-            cfg.opt_kernel) == ("full", True, "float32", "auto")
+            cfg.opt_kernel) == ("full", True, "bfloat16", "auto")
     cfg, regime, window_mode = bench_torch.bench_config(
         dict(MAAVSS_BENCH_REGIME="frames"), 8)
     assert (regime, window_mode, cfg.pgram_cache) == ("frames", None, False)

@@ -278,7 +278,7 @@ def test_serving_fn_specs_and_payloads_match_jax(fused_env):
     (dict(frames_encode="full", frames_halo=1), "M7-rest"),
     (dict(microbatch=2), "M7-rest"), (dict(remat=True), "M3-rest"),
     (dict(attn_diff=True), "M4"), (dict(rnn_cell="gru"), "M2"),
-    (dict(rnn_cell="none"), "M2"), (dict(dtype="bfloat16"), "M5"),
+    (dict(rnn_cell="none"), "M2"), (dict(dtype="float16"), "M5"),
 ])
 def test_unported_frames_flags_raise(flags, item):
     """Each frames option not ported yet raises NotImplementedError

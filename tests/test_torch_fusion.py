@@ -99,7 +99,7 @@ def test_auto_gate_is_convstack_on_cpu():
 
 @pytest.mark.parametrize("flags", [
     dict(rnn_cell="gru"), dict(rnn_cell="none"),
-    dict(compress_audio=True), dict(attn_diff=True), dict(dtype="bfloat16"),
+    dict(compress_audio=True), dict(attn_diff=True), dict(dtype="float16"),
     dict(pgenc_kernel="fold"), dict(stft_fold="fold"),
 ])
 def test_unported_options_raise_at_build(flags):

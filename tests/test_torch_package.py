@@ -63,7 +63,8 @@ SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,
 
 def test_port_imports_without_jax():
     """Every module of the port, and tools/bench_torch.py with the modules
-    it reaches, load in a fresh process without jax or maavss_tpu."""
+    it reaches, load in a fresh process without jax, ml_dtypes (which the
+    card's machine lacks) or maavss_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import maavss_tpu_torch\n"
@@ -72,7 +73,7 @@ def test_port_imports_without_jax():
         "for n in names: importlib.import_module(n)\n"
         "from tools import bench_torch\n"
         "bench_torch.kernel_counters(); bench_torch.bench_config({}, 8)\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'maavss_tpu') "
+        "bad = [m for m in ('jax', 'flax', 'optax', 'ml_dtypes', 'maavss_tpu') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
         "assert len(names) >= 29, names\n"

@@ -22,10 +22,13 @@ MAAVSS_BENCH_WINDOWS windows of MAAVSS_BENCH_STEPS steps, each closed by
 torch.cuda.synchronize() and a host fetch of the last step's loss, and
 reports the median window, the spread and the windows.
 
+MAAVSS_BENCH_DTYPE defaults to bfloat16, as bench.py's does
+(bench.py:233): the number of record is the bf16 step;
+MAAVSS_BENCH_DTYPE=float32 measures the fp32 step. float16 raises
+"M5 (float16)".
+
 Where it differs from bench.py (also listed under `differs_from_bench_py`
 in its JSON line):
-- MAAVSS_BENCH_DTYPE defaults to float32: the port is fp32, and bfloat16
-  raises "M5 (bf16 slice)" through check_supported.
 - MAAVSS_BENCH_OPT_KERNEL defaults to auto, so K3 (csrc/adam.cu) runs;
   xla is the plain formula.
 - MAAVSS_BENCH_MULTISTEP > 1, MAAVSS_BENCH_MICROBATCH > 1,
@@ -43,7 +46,8 @@ card's name and power limit (nvidia-smi), peak device memory, the median
 step's ms, and `kernels`: each hand-written kernel's launches per step over
 the timed windows, from the wrappers' counters (no profiler runs in them).
 `--profile` adds one step under torch.profiler after the windows
-(`profile`: device busy, idle share, launches, top kernels).
+(`profile`: device busy, idle share, launches, top kernels, and the host
+ops' self time, in all and for the top ops).
 
 `--device cpu` runs the plain versions on the CPU, for the tests only: its
 value is then named av_clips_per_sec_cpu_plain, not a device metric. On
@@ -67,8 +71,6 @@ PIN = os.path.join(ROOT, "benchmarks", "baseline_pin.json")
 WARMUP = 5
 MODE = 2
 DIFFERS = (
-    "MAAVSS_BENCH_DTYPE defaults to float32 (bfloat16 raises 'M5 (bf16 "
-    "slice)')",
     "MAAVSS_BENCH_OPT_KERNEL defaults to auto (K3; xla is the plain formula)",
     "MULTISTEP > 1, MICROBATCH > 1, REMAT=1 and FUSED_OPT=1 raise by their "
     "ROADMAP labels; UNROLL is not read",
@@ -142,7 +144,7 @@ def bench_config(env: Mapping[str, str], batch_size: int,
                                               "vectorized")
     cfg = RunConfig(**dict(geometry or {})).replace(
         batch_size=batch_size,
-        dtype=env.get("MAAVSS_BENCH_DTYPE", "float32"),
+        dtype=env.get("MAAVSS_BENCH_DTYPE", "bfloat16"),
         pgram_cache=env.get("MAAVSS_BENCH_PGRAM", "1") == "1" and not frames,
         microbatch=int(env.get("MAAVSS_BENCH_MICROBATCH", "1")),
         remat=env.get("MAAVSS_BENCH_REMAT", "0") == "1",
@@ -164,8 +166,10 @@ def bench_config(env: Mapping[str, str], batch_size: int,
 def profile_step(fn) -> Dict:
     """One call of `fn` under torch.profiler, after the timed windows:
     device busy ms (CUDA kernel time summed), the host-clock wall ms of the
-    same window, the device's idle share, kernel launches and the 12
-    kernels with the most device time."""
+    same window, the device's idle share, kernel launches, the 12 kernels
+    with the most device time, and on the host the ops' self time summed
+    (`host_op_ms`; the Python between them is the rest of the wall) and
+    the 12 ops with the most of it (`host_top`, each with its calls)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -181,11 +185,17 @@ def profile_step(fn) -> Dict:
                if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:12]
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    host_top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "launches": sum(e.count for e in kernels),
             "top": [{"kernel": e.key[:80], "ms": e.device_time_total / 1e3,
-                     "count": e.count} for e in top]}
+                     "count": e.count} for e in top],
+            "host_op_ms": sum(e.self_cpu_time_total for e in ops) / 1e3,
+            "host_top": [{"op": e.key[:80], "ms": e.self_cpu_time_total / 1e3,
+                          "count": e.count} for e in host_top]}
 
 
 def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,

@@ -15,8 +15,9 @@ into batches of `--batch_size` rows, and serves:
 maavss_tpu_torch.convert.save_npz; without it the weights are a seeded
 init (--seed). `--fusion_encode full` serves the full-encode separator.
 `--model` picks the fusion model (default) or the frames
-model (latent width 16, frames at --framesize). The CUDA kernels build at
-startup, through a warm-up call.
+model (latent width 16, frames at --framesize). `--dtype bfloat16` serves
+the bf16 model (the replies keep their wire dtypes). The CUDA kernels build
+at startup, through a warm-up call.
 
 Usage: python tools/serve_torch.py [--model fusion|frames] [--port 8423]
        [--max_wait_ms 5] [--weights w.npz] [--device cuda] [model flags...]
@@ -52,7 +53,8 @@ def main() -> None:
     from maavss_tpu_torch.config import model_args
     from maavss_tpu_torch.convert import from_flax, load_npz
     from maavss_tpu_torch.exp.export import (
-        make_serving_fn, random_serving_inputs, serving_input_specs,
+        make_serving_fn, random_serving_inputs, serving_info,
+        serving_input_specs,
     )
     from maavss_tpu_torch.exp.serving import BatchingExecutor, SeparationServer
     from maavss_tpu_torch.train.setup import build_frames_model, build_fusion
@@ -79,13 +81,10 @@ def main() -> None:
                                 max_wait_ms=own.max_wait_ms)
     info = {
         "model": own.model,
-        "batch": cfg.batch_size,
         "platform": device.type,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
-        "audio_shape": list(audio_spec.shape),
-        "visual_shape": list(visual_spec.shape),
-        "visual_dtype": str(visual_spec.dtype),
+        **serving_info(cfg, cfg.batch_size, frames_model),
     }
     server = SeparationServer(executor, info, host=own.host,
                               port=own.port).start()

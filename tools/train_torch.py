@@ -26,6 +26,8 @@ Usage: python tools/train_torch.py [--model fusion|frames] [-s 3]
       --fusion_encode full --pgram_cache
   python tools/train_torch.py --model frames --device cpu -s 3 -b 2
       --num_frames 2 --num_seq 2 -a 4 --fft_len 64 --framesize 24 -lr 1e-3
+  `--dtype bfloat16` trains in bf16 (flax's mixed precision, as the JAX
+  package's --dtype bfloat16), with every other flag.
 """
 
 from __future__ import annotations
@@ -108,7 +110,7 @@ def main(argv=None) -> None:
                    if device.type == "cuda" else "cpu"),
         "model": own.model, "window_mode": cfg.window_mode,
         "fusion_encode": cfg.fusion_encode, "pgram_cache": cfg.pgram_cache,
-        "batch": cfg.batch_size}),
+        "batch": cfg.batch_size, "dtype": cfg.dtype}),
         flush=True)
 
 
