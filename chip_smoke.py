@@ -82,9 +82,12 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    LeakyReLU: stats, apply, bwd reduce, bwd dy): each kernel against its
    plain version at the flagship's stage-0 and stage-1 shapes, with a third
    of gamma negative, again on a tensor of exact ties, and with y at an odd
-   offset (stats, apply and bwd dy then take 4-byte loads); PyTorch's
-   unfused tail (F.batch_norm, F.max_pool3d, F.leaky_relu under autograd)
-   timed beside.
+   offset (stats, apply and bwd dy then take 4-byte loads); apply and bwd
+   reduce also at K5_EDGES (apply's scalar path where W/2 is not a multiple
+   of 4, bwd reduce's one value a load), aligned and at an odd offset; two
+   bwd reduce calls give the same bits; PyTorch's unfused tail
+   (F.batch_norm, F.max_pool3d, F.leaky_relu under autograd) timed beside,
+   and the earlier design's device times printed beside.
 17. frames_train: the full-width frames train step (framesize 256, batch 8,
    4 windows, mode 2) with every kernel, against the plain versions from
    one state_dict: per-step losses, parameters after step 1, exact launch
@@ -131,7 +134,7 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    against their plain versions at the stage-0 and stage-1 shapes,
    gaussian and tied data, and y at an odd offset: sel and the tie
    routing exact, out and dy within one bf16 ulp; timed, bounds in bf16
-   bytes.
+   bytes; the edges and bit checks of phase 16.
 28. bf16_train: the full-width fusion step (--fusion_encode full
    --pgram_cache, batch 8) and frames step in bf16, 3 steps each, and one
    --mask_head step of each (the standalone mask product in fp32 after a
@@ -148,11 +151,19 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 30. bf16_golden: the small-geometry JAX bf16 fixture of
    tests/fixtures/torch_port_bf16_golden.npz (separator audio, 3 train
    steps) through the kernels.
+31. stft_route: --fft_len 4096, which the STFT kernel refuses (its
+   launcher is called and must refuse): the STFT goes to cuFFT and, under
+   --use_polar, to the standalone magphase kernel; 3 fusion train steps and
+   one separator batch, default head and --use_polar, against the plain
+   versions under the train phase's gates, no STFT kernel launch, one
+   magphase launch a polar step or batch; magphase held and timed on those
+   features.
 
 Every phase that drives a train step or a serving batch counts the STFT
-kernel's launches exactly (one a step or a batch) and runs its plain
-reference on stft_features_plain (cuFFT); the profiled train steps must
-run no cuFFT rfft kernel (the iSTFT's irfft serves only separation).
+kernel's launches exactly (one a step or a batch; none in stft_route) and
+runs its plain reference on stft_features_plain (cuFFT); the profiled train
+steps must run no cuFFT rfft kernel (the iSTFT's irfft serves only
+separation).
 
 The line before the last two is one JSON object with each kernel's
 launches, error, times and bound; then the nvidia-smi line; the last line
@@ -187,6 +198,10 @@ FULLENC_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
 # fp32 FLOP/s outside the tensor cores (every kernel here is fp32 math)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# dense bf16 products on the tensor cores (bf16 in, fp32 sums): the rate of
+# the JAX kernels' bf16 x bf16 -> fp32 dots, a second bound for the bf16
+# K1 and K2 lines (the kernels here compute in fp32)
+BF16_TC_FLOP_PER_S = 989e12
 ADAM_EPS = 1e-8  # the optimizer's eps (train/fused_adam.py)
 
 
@@ -269,11 +284,12 @@ def kernel_us(fn, calls: int = 5):
     return out
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float,
+             flop_rate: float = FP32_FLOP_PER_S):
     """(least time in ms, what sets it): the larger of bytes over the HBM
-    rate and operations over the fp32 rate."""
+    rate and operations over the fp32 rate (or `flop_rate`)."""
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    f_ms = flops / FP32_FLOP_PER_S * 1e3
+    f_ms = flops / flop_rate * 1e3
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
@@ -413,10 +429,12 @@ def lstm_phase():
             # the bytes the function must move: xw and w_h read, ys and cs
             # written, per direction (acts are this design's residual, not
             # the function's); h @ w_h each step
-            bnd = bound_ms(2 * (nbytes(xws[0], whs[0])
-                                + nbytes(got[0][0], got[0][1])),
-                           2 * t_len * 2 * b * h * 4 * h)
+            work = (2 * (nbytes(xws[0], whs[0])
+                         + nbytes(got[0][0], got[0][1])),
+                    2 * t_len * 2 * b * h * 4 * h)
+            bnd = bound_ms(*work)
             fp32 = dtype == torch.float32
+            tc = None if fp32 else bound_ms(*work, BF16_TC_FLOP_PER_S)
             lib_ms = cudnn_lstm_ms(xws, whs) if fp32 else None
             dev_ms, host_ms = split_ms(kernel) if fp32 else (None, None)
             # the serving path's launch: no gate activations written
@@ -429,7 +447,7 @@ def lstm_phase():
                   ms=ms, device_ms=dev_ms, host_ms=host_ms,
                   device_ms_without_acts=eval_dev_ms,
                   plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1],
-                  library_ms=lib_ms)
+                  bound_tensor_core=tc, library_ms=lib_ms)
             if (b, t_len) == (8, 8) and fp32:
                 report = dict(err=err, ms=ms, plain_ms=plain_ms, bound=bnd,
                               library_ms=lib_ms, device_ms=dev_ms,
@@ -702,6 +720,9 @@ def lstm_bwd_phase():
                            + nbytes(*got[0]))
             # two products a step: dh_prev = dgates @ w_h^T and dW_h's share
             bnd = bound_ms(n_bytes, 2 * t_len * 2 * 2 * b * h * 4 * h)
+            tc = None if fp32 else bound_ms(
+                n_bytes, 2 * t_len * 2 * 2 * b * h * 4 * h,
+                BF16_TC_FLOP_PER_S)
             lib_ms = dev_ms = host_ms = split_us = None
             if fp32:
                 lib_ms = cudnn_lstm_bwd_ms(xws, whs, dys)
@@ -714,7 +735,8 @@ def lstm_bwd_phase():
                   max_abs_err_vs_autograd=e_auto, bitwise_repeat=True,
                   ms=ms, device_ms=dev_ms, host_ms=host_ms,
                   device_us_per_launch=split_us, plain_ms=plain_ms,
-                  bound_ms=bnd[0], bound_by=bnd[1], library_ms=lib_ms,
+                  bound_ms=bnd[0], bound_by=bnd[1], bound_tensor_core=tc,
+                  library_ms=lib_ms,
                   library="cuDNN nn.LSTM backward (more work: dx through "
                           "w_i, dW_i)")
             if (b, t_len) == (8, 8) and fp32:
@@ -964,6 +986,9 @@ def pgenc_train_phase():
                 s //= 2
             tot["fwd_bound"] = bound_ms(tot["fwd_bytes"], tot["fwd_flops"])
             tot["bwd_bound"] = bound_ms(tot["bwd_bytes"], tot["bwd_flops"])
+            tc = None if fp32 else {
+                k: bound_ms(tot[f"{k}_bytes"], tot[f"{k}_flops"],
+                            BF16_TC_FLOP_PER_S) for k in ("fwd", "bwd")}
             phase("k2_train_stack", layers=len(specs), R=r, dtype=str(dtype),
                   fwd_ms=tot["fwd_ms"], fwd_plain_ms=tot["fwd_plain_ms"],
                   fwd_device_ms=tot["fwd_device_ms"] or None,
@@ -975,7 +1000,7 @@ def pgenc_train_phase():
                   fwd_bound_by=tot["fwd_bound"][1], bwd_ms=tot["bwd_ms"],
                   bwd_plain_ms=tot["bwd_plain_ms"],
                   bwd_bound_ms=tot["bwd_bound"][0],
-                  bwd_bound_by=tot["bwd_bound"][1])
+                  bwd_bound_by=tot["bwd_bound"][1], bound_tensor_core=tc)
             totals[(r, str(dtype))] = tot
     return totals[(8 * cfg.num_frames, "torch.float32")]
 
@@ -1598,6 +1623,19 @@ def _k5_inputs(shape, g, ties):
 
 
 K5_SHAPES = ((8, 16, 8, 256, 256), (8, 32, 8, 128, 128))
+# edge geometries of apply and bwd reduce: W/2 of 1, 3, 9 and 65 (not a
+# multiple of apply's 4 windows a thread: its scalar path; and L not a
+# multiple of a 16-byte load: bwd reduce's one value a load), H = 2, C = 1
+# and 3 windows a row on the vector path
+K5_EDGES = ((2, 3, 2, 6, 2), (2, 3, 2, 6, 6), (2, 3, 2, 6, 18),
+            (2, 3, 2, 6, 130), (2, 3, 2, 2, 16), (2, 1, 2, 6, 16),
+            (3, 5, 2, 4, 24))
+# the earlier design's device ms of the two redesigned K5 kernels at
+# stages 0+1, (fp32, bf16): one thread a window for apply, one value a load
+# and a second combine launch for bwd reduce (PERF.md's kernel table, NVIDIA
+# H100 80GB HBM3, 700.00 W)
+K5_EARLIER_DEVICE_MS = {"apply": (0.218, 0.194),
+                        "bwd_reduce": (0.095, 0.0622)}
 
 
 def k5_phase():
@@ -1667,6 +1705,8 @@ def k5_phase():
                 "bwd_dy": check_close(f"K5 dy {where}", dy, dy_p, 1e-4, 1e-4,
                                       scale_atol=True),
             }
+            _k5_reduce_bits(where, (g_out, sel, gamma, beta, mu, rstd, g_mu,
+                                    g_var))
             y4 = y.view(shape[:3] + (shape[3] // 2, 2, shape[4] // 2, 2))
             m = y4.amax(dim=(4, 6), keepdim=True)
             tied = ((y4 == m).sum(dim=(4, 6)) > 1).float().mean().item()
@@ -1741,12 +1781,18 @@ def k5_phase():
                   **{f"{n}_bound_ms": bound_ms(moved[n], ops[n])[0]
                      for n in names},
                   fused_fwd_bwd_ms=fused_ms, unfused_torch_fwd_bwd_ms=tail_ms)
+    edges = _k5_edges(torch.float32, lambda what, a, b: _rel_check(
+        what, a, b, 1e-5))
+    for n, err in edges.items():
+        rep[n]["err"] = max(rep[n]["err"], err)
     for n in names:
         rep[n]["bound"] = bound_ms(rep[n]["bytes"], rep[n]["flops"])
         rep[n].setdefault("library_ms", None)
     phase("k5_epilogue", shapes=[list(s) for s in K5_SHAPES],
           **{n: {k: v for k, v in r.items() if k not in ("bytes", "flops")}
              for n, r in rep.items()},
+          earlier_design_device_ms={n: v[0] for n, v in
+                                    K5_EARLIER_DEVICE_MS.items()},
           fused_fwd_bwd_ms=sum(f for _, f in tails),
           unfused_torch_fwd_bwd_ms=sum(t for t, _ in tails))
     return rep
@@ -1795,6 +1841,69 @@ def _k5_unaligned(where, y, gamma, beta, g_out, k, stats, aligned):
                          f"aligned call's bits at {where}")
     phase("k5_unaligned", where=where, y_offset_bytes=yo.data_ptr() % 16,
           max_abs_err=max(errs), same_bits_as_aligned=same)
+
+
+def _k5_reduce_bits(where, args):
+    """bwd reduce twice: the same bits (fixed-order sums, no atomics on
+    them). Returns the first call's (dgamma, dbeta, k)."""
+    from maavss_tpu_torch.ops.cuda_epilogue import epilogue_bwd_reduce
+
+    first = epilogue_bwd_reduce(*args)
+    _same_bits(f"K5 bwd reduce, two calls, {where}", [first],
+               [epilogue_bwd_reduce(*args)])
+    return first
+
+
+def _k5_edges(dtype, out_close):
+    """apply and bwd reduce at K5_EDGES, each with y (and g) aligned and
+    one element into its storage, against the plain versions: apply's plan
+    takes the vector path exactly where W/2 is a multiple of 4 and y is
+    aligned; sel bitwise, out by `out_close(what, got, want)`; dgamma,
+    dbeta and k at relative L2 1e-4; two bwd reduce calls bitwise equal.
+    Returns the worst errors of apply and bwd reduce."""
+    import torch
+
+    from maavss_tpu_torch.ops.cuda_epilogue import (
+        apply_plan,
+        epilogue_apply,
+        epilogue_apply_plain,
+        epilogue_bwd_reduce_plain,
+        epilogue_stats,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(26)
+    worst = {"apply": 0.0, "bwd_reduce": 0.0}
+    paths = []
+    for shape in K5_EDGES:
+        y, gamma, beta, g_out, g_mu, g_var = _k5_inputs(shape, g, False)
+        y, g_out = y.to(dtype), g_out.to(dtype)
+        for odd in (False, True):
+            yy, gg = (_at_offset(y), _at_offset(g_out)) if odd else (y, g_out)
+            where = f"{list(shape)} {dtype} {'odd offset' if odd else ''}"
+            mu, _, rstd = epilogue_stats(yy)
+            out, sel = epilogue_apply(yy, gamma, beta, mu, rstd)
+            out_p, sel_p = epilogue_apply_plain(yy, gamma, beta, mu, rstd)
+            plan = apply_plan(yy.shape, yy.element_size(), yy.data_ptr(),
+                              out.data_ptr(), sel.data_ptr())
+            vector = shape[4] // 2 % 4 == 0 and not odd
+            if (plan.windows == 4) != vector:
+                raise SystemExit(f"K5 apply plan {plan} at {where}")
+            args = (gg, sel, gamma, beta, mu, rstd, g_mu, g_var)
+            red = _k5_reduce_bits(where, args)
+            red_p = epilogue_bwd_reduce_plain(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(sel, sel_p):
+                raise SystemExit(f"K5 apply sel differs at {where}")
+            worst["apply"] = max(worst["apply"], out_close(
+                f"K5 apply out {where}", out, out_p))
+            worst["bwd_reduce"] = max(worst["bwd_reduce"], *(
+                _rel_check(f"K5 bwd reduce {n} {where}", a, b, 1e-4)
+                for n, a, b in zip(("dgamma", "dbeta", "k"), red, red_p)))
+            paths.append("vector" if plan.windows == 4 else "scalar")
+    phase("k5_edges", dtype=str(dtype), shapes=[list(s) for s in K5_EDGES],
+          apply_paths=paths, **{f"max_abs_err_{n}": e
+                                for n, e in worst.items()})
+    return worst
 
 
 def _epilogue_counters():
@@ -1979,7 +2088,7 @@ def frames_train_phase(steps: int = 3):
           plain_clips_per_s=clips["plain"],
           peak_mem_gib_both_models=peak_gb)
     k5_names = ("partials_kernel", "combine_kernel", "apply_kernel",
-                "dy_kernel")
+                "apply_vec_kernel", "dy_kernel")
     profile_phase("frames_train_profile",
                   lambda: step(state, batches[0], 2), calls=1, watch=k5_names)
     profile_phase("frames_unfused_profile",
@@ -2919,7 +3028,7 @@ def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
 
 
 def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
-                 alt_grads, grad_rms_max=None):
+                 alt_grads, grad_rms_max=None, fed_by_gradient=False):
     """The leaves after step 1, kernels (`model`) against plain (`ref`):
     each at relative L2 `tol` (enc_tol None: the fusion model, whose conv
     biases that feed a train-mode BatchNorm move within lr of each other)
@@ -2939,6 +3048,11 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
     statistics in fp64 and the batch in reverse row order (`alt_grads`,
     `_reordered_step1_grads`). With `grad_rms_max`, only a leaf whose
     plain step-1 gradient has an rms under it may pass by its gradient.
+    With `fed_by_gradient`, a conv bias that feeds a train-mode BatchNorm
+    (true gradient 0: its gradient is the rounding noise of a cancelling
+    sum, and where that noise reaches Adam's eps the two steps can move it
+    apart by up to 2 lr, Adam's first step in opposite directions) and
+    differs by more than lr may also pass by its gradient.
     Returns the worst relative L2s and the leaves that passed by their
     gradients."""
     import torch
@@ -2962,9 +3076,10 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
             d = (a - b).abs().max().item()
             worst["step1_worst_bn_fed_bias_abs"] = max(
                 worst["step1_worst_bn_fed_bias_abs"], d)
-            if d > lr * 1.0001:
+            if d <= lr * 1.0001:
+                continue
+            if not fed_by_gradient:
                 raise SystemExit(f"{what}: {k} differs by {d} > lr {lr}")
-            continue
         enc = enc_tol is not None and k.startswith("visual_encoder.")
         limit = enc_tol if enc else tol
         rel = rel_l2(a, b)
@@ -3004,7 +3119,8 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
 
 
 def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
-                    k2_plain=True, kernel_features=False, profile=None):
+                    k2_plain=True, kernel_features=False, profile=None,
+                    fed_by_gradient=False):
     """`steps` steps of the flagship of `cfg` (mode 2) with every kernel
     against the plain versions from one state_dict: exact launch counts per
     step (`want`, by counter name; the plain run launches none but K2's
@@ -3066,7 +3182,7 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
         if i == 0:
             worst = _step1_close(what, model, ref, *grads, lr, tol,
                                  enc_tol if frames_model else None,
-                                 alt_grads)
+                                 alt_grads, fed_by_gradient=fed_by_gradient)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
     if max(rel) > tol or not all(map(math.isfinite, losses)):
         raise SystemExit(f"{what} losses {losses} vs plain {ref_losses}: "
@@ -3368,6 +3484,108 @@ def polar_phase():
           istft_polar_extra_ops=extra_ops,
           istft_polar_launches_per_call=extra_launches)
     return launches
+
+
+STFT_ROUTE_FFT_LEN = 4096  # refused by the STFT kernel; the fusion plan
+# reaches its latent from its 2048 bins
+
+
+def stft_route_phase(steps: int = 3):
+    """--fft_len 4096, which the STFT kernel refuses: `stft_route` sends
+    the STFT to cuFFT (the plain framing and rfft) and, under --use_polar,
+    magnitude and phase to K4's standalone magphase kernel. 3 fusion train
+    steps (scan windows, fp32, batch 8, noise 0, lr 1e-3) of the default
+    head and of --use_polar, each against the plain versions from one
+    state_dict under `_train_vs_plain`'s gates (the polar steps run K2 on
+    both sides, as the polar phase does). At 2048 bins the STFT encoder's
+    BatchNorm-fed conv biases carry gradient noise at Adam's eps, so one
+    of them may also pass by its gradient (`fed_by_gradient`); then one
+    separator batch of each
+    against the plain separator at relative L2 1e-4. Each counts no STFT
+    kernel launch, and exactly one magphase launch a polar step or batch.
+    The STFT kernel's launcher itself refuses fft_len 4096. The magphase
+    kernel is held against its plain version and timed on the features it
+    gets here."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.exp.export import random_serving_inputs
+    from maavss_tpu_torch.ops import _build, stft
+    from maavss_tpu_torch.ops.cuda_complex import (
+        magphase_fwd,
+        magphase_fwd_plain,
+    )
+
+    n = STFT_ROUTE_FFT_LEN
+    ns = RunConfig().num_seq
+    base = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=1e-3,
+                     fft_len=n)
+    audio = torch.from_numpy(synthetic_av_batch(
+        base, 8, seed=base.seed)["audio"]).cuda()  # the train step's clip
+    samples = audio.shape[-1]
+    if stft.stft_route(n, base.hop, samples) != "fft":
+        raise SystemExit(f"stft_route takes fft_len {n} to the kernel")
+    window, tw, norm = stft._stft_tables(n, audio.device)
+    t_len = samples // base.hop
+    out = torch.empty(8, 2, t_len, n // 2, device="cuda")
+    try:
+        _build.launch("maavss_stft_feat", audio.device, (
+            audio.data_ptr(), samples, 8, samples, n, base.hop, t_len,
+            n // 2, window.data_ptr(), tw.data_ptr(), norm, 0,
+            out.data_ptr()))
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise SystemExit(f"the STFT kernel took fft_len {n}")
+    result = {"kernel_refuses": refused}
+    launches = dict.fromkeys(K4_NAMES, 0)
+    for polar in (False, True):
+        label = "polar" if polar else "rect"
+        cfg = base.replace(use_polar=polar)
+        res = _train_vs_plain(
+            f"stft_route {label} train", cfg, False,
+            dict(lstm_fwd=ns, lstm_bwd=ns, pgenc_train=10 * ns,
+                 pgenc_bwd=10 * ns, adam=1, magphase=int(polar)),
+            steps=steps, k2_plain=not polar, fed_by_gradient=True)
+        serve, serve_ref, _ = _serve_pair(cfg, False)
+        inputs = [torch.from_numpy(x).cuda() for x in random_serving_inputs(
+            cfg, 8, False, seed=600)]
+        for c in _k4_counters():
+            c.launches = 0
+        got = serve(*inputs)
+        torch.cuda.synchronize()
+        counts = dict(zip(K4_NAMES, (c.launches for c in _k4_counters())))
+        if counts != dict(mask_mul=0, magphase=int(polar), polar=int(polar),
+                          mask_head=0, mask_head_bwd=0, stft=0):
+            raise SystemExit(f"stft_route {label} serving: K4 launches "
+                             f"{counts}")
+        got = got.cpu().numpy()
+        want = serve_ref(*inputs).cpu().numpy()
+        err = _rel_l2(got, want)
+        if got.shape != want.shape or not np.all(np.isfinite(got)) \
+                or err > 1e-4:
+            raise SystemExit(f"stft_route {label} served audio vs plain rel "
+                             f"L2 {err} > 1e-4")
+        for k in K4_NAMES:
+            launches[k] += res["launches_per_step"][k] + counts[k]
+        result[label] = dict(train=res, serving_rel_l2_vs_plain=err,
+                             serving_k4_launches=counts)
+    feats = stft.stft_features(audio, n, base.hop)
+    got, want = magphase_fwd(feats), magphase_fwd_plain(feats)
+    torch.cuda.synchronize()
+    rep = dict(err=_rel_check("magphase on the fft route's features", got,
+                              want, 1e-6),
+               ms=cuda_ms(lambda: magphase_fwd(feats)),
+               plain_ms=cuda_ms(lambda: magphase_fwd_plain(feats)),
+               bound=bound_ms(2 * feats.numel() * 4, 5 * feats.numel() // 2),
+               library_ms=None)
+    rep["device_ms"], rep["host_ms"] = split_ms(lambda: magphase_fwd(feats))
+    phase("stft_route", fft_len=n, route="fft", steps=steps, **result,
+          magphase_shape=list(feats.shape),
+          magphase={k: v for k, v in rep.items()})
+    return launches, rep
 
 
 def k4_golden_phase():
@@ -3903,6 +4121,8 @@ def k5_bf16_phase():
         errs["bwd_dy"] = one_rounding(
             f"K5 bf16 dy {where}", dy, dy_p,
             1e-3 * dy_p.float().abs().max().item())
+        _k5_reduce_bits(where, (g_out, sel, gamma, beta, mu, rstd, g_mu,
+                                g_var))
         k0 = torch.zeros_like(red[2])
         hit = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd, k0) != 0
         hit_p = epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu, rstd,
@@ -3975,12 +4195,17 @@ def k5_bf16_phase():
                 r["flops"] += ops[n]
             rep["stats"]["library_ms"] += cuda_ms(lambda: torch.var_mean(
                 y, dim=(0, 2, 3, 4), correction=0))
+    edges = _k5_edges(bf16, one_rounding)
+    for n, err in edges.items():
+        rep[n]["err"] = max(rep[n]["err"], err)
     for n in names:
         rep[n]["bound"] = bound_ms(rep[n]["bytes"], rep[n]["flops"])
         rep[n].setdefault("library_ms", None)
     phase("k5_epilogue_bf16", shapes=[list(s) for s in K5_SHAPES],
           **{n: {k: v for k, v in r.items() if k not in ("bytes", "flops")}
-             for n, r in rep.items()})
+             for n, r in rep.items()},
+          earlier_design_device_ms={n: v[1] for n, v in
+                                    K5_EARLIER_DEVICE_MS.items()})
     return rep
 
 
@@ -4436,6 +4661,7 @@ def main() -> None:
     bf16_launches, mask_mul_rep = bf16_train_phase()
     bf16_slice_phase()
     bf16_golden_phase()
+    route_launches, magphase_rep = stft_route_phase()
     if any(m in sys.modules for m in ("jax", "flax", "ml_dtypes",
                                       "maavss_tpu")):
         raise SystemExit("the port loaded jax or maavss_tpu")
@@ -4497,6 +4723,9 @@ def main() -> None:
         kernel_entry("mask_mul", "spectral.cu",
                      "maavss_tpu/ops/pallas_kernels.py:44",
                      bf16_launches["mask_mul"], mask_mul_rep),
+        kernel_entry("magphase", "spectral.cu",
+                     "maavss_tpu/ops/pallas_kernels.py:101",
+                     route_launches["magphase"], magphase_rep),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 // Fused train-mode BatchNorm + 2x2 max pool + LeakyReLU(0.01): the tail of
 // an eligible conv3d stage of the frames model's visual encoder, forward and
-// backward, in four kernels (plus two one-block-per-channel combines).
+// backward, in four kernels (plus stats' one-block-per-channel combine).
 //
 // Replaces the TPU kernels of maavss_tpu/ops/pallas_epilogue.py:
 //   stats      _stats_kernel       (the pl.pallas_call in _stats)
@@ -52,7 +52,25 @@
 //   - In bf16 the selection is exact: max and min compare the upcast
 //     values (bf16 -> fp32 is exact and order-preserving), sel is the
 //     selected value itself, and out and dy round once, to nearest even.
-//   - apply and dy run one thread per window, the channel from the index.
+//   - dy runs one thread per window, the channel from the index.
+//   - apply is tiled by plane (redesigned for Hopper): a block takes a band
+//     of pooled rows of one (b, c, t) plane, so the channel, the plane's
+//     offset and the four per-channel constants come once per block, with
+//     no division per window; a thread takes 4 adjacent windows, one
+//     16-byte load of each input row (two in fp32), and writes out and sel
+//     as one 8-byte (16-byte) store each. The plan (vector or scalar path,
+//     grid, block, band) comes from the wrapper (ops/cuda_epilogue.py:
+//     apply_plan); the launcher refuses a plan the pointers or W do not
+//     allow. W/2 not a multiple of 4, or y, out or sel off their alignment,
+//     take the scalar kernel: one thread per window, the channel and
+//     offsets from the index.
+//   - bwd reduce (redesigned for Hopper) reads g and sel 16 bytes a load
+//     (8 bf16 or 4 fp32) where aligned and divisible, else one value a
+//     load; the channel's constants sit in registers; the block's sums meet
+//     by warp shuffles in a fixed order. The channel's last block to finish
+//     (found through a per-channel counter that it resets) sums the
+//     channel's partials in a fixed order: one launch, where a second
+//     launch of one block per channel measured 2-4 % slower on an H100.
 //
 // What bounds it on Hopper: bytes. Every pass is a stream over the conv
 // output or its pooled quarter with a few FLOPs per element: stats reads y
@@ -111,23 +129,6 @@ struct StatsOp {
     const float v = to_f(y[i]);
     s += v;
     ss += v * v;
-  }
-};
-
-// (dsel, dsel * xhat) of one pooled element, from g and sel.
-struct BwdOp {
-  const float* gamma;
-  const float* beta;
-  const float* mu;
-  const float* rstd;
-  template <typename T>
-  __device__ void operator()(const T* g, const T* sel, long long i, int c,
-                             float& s1, float& s2) const {
-    const float xhat = (to_f(sel[i]) - mu[c]) * rstd[c];
-    const float o = gamma[c] * xhat + beta[c];
-    const float dsel = to_f(g[i]) * (o >= 0.0f ? 1.0f : kSlope);
-    s1 += dsel;
-    s2 += dsel * xhat;
   }
 };
 
@@ -206,30 +207,155 @@ stats_combine_kernel(const float* __restrict__ partial, int nblk, float ntot,
   }
 }
 
-struct Cot {
+// 16 bytes at p (16-byte aligned), through the read-only path. (Measured:
+// L1::no_allocate on these loads, and st.global.cs on apply's sel, made
+// apply and bwd reduce no faster and up to 9 % slower on an H100;
+// tools/k5_probe_torch.py builds that variant.)
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return __ldg(static_cast<const uint4*>(p));
+}
+
+// Sum of a and b over the warp, in a fixed order, in lane 0.
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, off);
+    b += __shfl_down_sync(0xffffffffu, b, off);
+  }
+}
+
+// Block-wide sum of a and b in a fixed order, in thread 0: each warp by
+// shuffles, then warp 0 over the warps' sums. red holds 64 floats.
+__device__ __forceinline__ void block_sum2_shfl(float& a, float& b,
+                                                float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  warp_sum2(a, b);
+  if (lane == 0) {
+    red[warp] = a;
+    red[32 + warp] = b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nw = blockDim.x >> 5;
+    a = lane < nw ? red[lane] : 0.0f;
+    b = lane < nw ? red[32 + lane] : 0.0f;
+    warp_sum2(a, b);
+  }
+}
+
+// The per-channel vectors of the backward reduce.
+struct BwdArgs {
   const float* gamma;
+  const float* beta;
   const float* mu;
+  const float* rstd;
   const float* g_mu;
   const float* g_var;
 };
 
-__global__ void __launch_bounds__(kThreads)
-bwd_combine_kernel(const float* __restrict__ partial, int nblk, float ntot,
-                   Cot cot, float* __restrict__ dgamma,
-                   float* __restrict__ dbeta, float* __restrict__ k, int C) {
-  __shared__ float red[2 * kThreads];
-  float s1, s2;
-  combine(partial, nblk, s1, s2, red);
+// (dsel, dsel * xhat) of one pooled element added to (s1, s2), from its
+// g and sel and the channel's gamma, beta, mu, rstd.
+__device__ __forceinline__ void bwd_acc(float g, float s, float gm, float bt,
+                                        float mu, float rstd, float& s1,
+                                        float& s2) {
+  const float xhat = (s - mu) * rstd;
+  const float o = gm * xhat + bt;
+  const float dsel = g * (o >= 0.0f ? 1.0f : kSlope);
+  s1 += dsel;
+  s2 += dsel * xhat;
+}
+
+// Channel c's nblk partials summed in a fixed order (thread t takes j = t,
+// t + blockDim, ...; then block_sum2_shfl), and its dgamma, dbeta and k
+// written by thread 0. Reads the partials through L2: other blocks of this
+// launch wrote them.
+__device__ void bwd_finish(const float* partial, int nblk, int c, int C,
+                           float ntot, const BwdArgs& args,
+                           float* __restrict__ dgamma,
+                           float* __restrict__ dbeta, float* __restrict__ k,
+                           float* red) {
+  const float* p = partial + static_cast<size_t>(c) * nblk * 2;
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int j = threadIdx.x; j < nblk; j += blockDim.x) {
+    s1 += __ldcg(p + 2 * j);
+    s2 += __ldcg(p + 2 * j + 1);
+  }
+  block_sum2_shfl(s1, s2, red);
   if (threadIdx.x == 0) {
-    const int c = blockIdx.x;
-    const float gm = cot.gamma[c];
+    const float gm = args.gamma[c];
     dbeta[c] = s1;
     dgamma[c] = s2;
     k[c] = gm * s1 / ntot;
     k[C + c] = gm * s2 / ntot;
-    k[2 * C + c] = cot.g_mu[c] / ntot - 2.0f * cot.g_var[c] * cot.mu[c] / ntot;
-    k[3 * C + c] = 2.0f * cot.g_var[c] / ntot;
+    k[2 * C + c] =
+        args.g_mu[c] / ntot - 2.0f * args.g_var[c] * args.mu[c] / ntot;
+    k[3 * C + c] = 2.0f * args.g_var[c] / ntot;
   }
+}
+
+// Backward partial sums (S1, S2) of channel c = blockIdx.y over the values
+// [j*chunk, min(n, (j+1)*chunk)) of its n = B*L pooled values, j =
+// blockIdx.x, laid out as in partials_kernel; written to
+// partial[(c*nblk + j)*2 + 0/1]. VEC > 1 reads g and sel 16 bytes a load
+// and needs L, chunk and both pointers' offsets multiples of VEC (the
+// launcher checks). The channel's last block to finish, counted in
+// count[c] (0 between launches), also runs bwd_finish and resets count[c].
+template <int VEC, typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_partials_kernel(const T* __restrict__ g, const T* __restrict__ sel,
+                    BwdArgs args, float* partial, unsigned* count,
+                    float* __restrict__ dgamma, float* __restrict__ dbeta,
+                    float* __restrict__ k, int C,
+                    long long L, long long n, long long chunk, int nblk) {
+  __shared__ float red[64];
+  __shared__ bool last;
+  const int c = blockIdx.y;
+  const float gm = args.gamma[c], bt = args.beta[c], mu = args.mu[c],
+              rstd = args.rstd[c];
+  const long long begin = static_cast<long long>(blockIdx.x) * chunk;
+  const long long end = min(n, begin + chunk);
+  float s1 = 0.0f, s2 = 0.0f;
+  for (long long s0 = begin; s0 < end;) {
+    const long long seg = s0 / L;
+    const long long seg_end = min(end, (seg + 1) * L);
+    // element i of the channel (seg*L <= i < seg_end) lies at base + i
+    const long long base = (seg * C + c) * L - seg * L;
+    const T* pg = g + base;
+    const T* ps = sel + base;
+#pragma unroll 4
+    for (long long i = s0 + static_cast<long long>(threadIdx.x) * VEC;
+         i < seg_end; i += static_cast<long long>(blockDim.x) * VEC) {
+      if constexpr (VEC > 1) {
+        const uint4 rg = ld16(pg + i);
+        const uint4 rs = ld16(ps + i);
+        const T* vg = reinterpret_cast<const T*>(&rg);
+        const T* vs = reinterpret_cast<const T*>(&rs);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          bwd_acc(to_f(vg[e]), to_f(vs[e]), gm, bt, mu, rstd, s1, s2);
+        }
+      } else {
+        bwd_acc(to_f(pg[i]), to_f(ps[i]), gm, bt, mu, rstd, s1, s2);
+      }
+    }
+    s0 = seg_end;
+  }
+  block_sum2_shfl(s1, s2, red);
+  if (threadIdx.x == 0) {
+    float* out = partial + (static_cast<size_t>(c) * nblk + blockIdx.x) * 2;
+    out[0] = s1;
+    out[1] = s2;
+  }
+  if (threadIdx.x == 0) {
+    __threadfence();  // the partial is visible before the count says so
+    last = atomicAdd(count + c, 1u) == static_cast<unsigned>(nblk - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  bwd_finish(partial, nblk, c, C, 4.0f * static_cast<float>(n), args, dgamma,
+             dbeta, k, red);
+  if (threadIdx.x == 0) count[c] = 0;
 }
 
 // Window geometry: pooled index -> (plane, i, j), the channel of the plane
@@ -293,6 +419,21 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b,
   }
 }
 
+// A window's max if gamma > 0, else its min, from its two rows.
+__device__ __forceinline__ float pool2x2(float2 r0, float2 r1, float gm) {
+  return gm > 0.0f ? fmaxf(fmaxf(r0.x, r0.y), fmaxf(r1.x, r1.y))
+                   : fminf(fminf(r0.x, r0.y), fminf(r1.x, r1.y));
+}
+
+// leaky(gamma * (s - mu) * rstd + beta), rounded as written (one product,
+// then one fused multiply-add), so both apply kernels give the same bits.
+__device__ __forceinline__ float bn_leaky(float s, float gm, float mu,
+                                          float rstd, float bt) {
+  const float o = __fmaf_rn(__fmul_rn(gm, s - mu), rstd, bt);
+  return o >= 0.0f ? o : kSlope * o;
+}
+
+// apply's scalar path: one thread per window.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 apply_kernel(const T* __restrict__ y, Affine aff, T* __restrict__ out,
@@ -302,14 +443,88 @@ apply_kernel(const T* __restrict__ y, Affine aff, T* __restrict__ out,
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= n_pool) return;
   const Window win = window_of(idx, C, T_, H, W);
-  const float2 r0 = load_pair(y + win.in_off, vec);
-  const float2 r1 = load_pair(y + win.in_off + W, vec);
   const float gm = aff.gamma[win.c];
-  const float s = gm > 0.0f ? fmaxf(fmaxf(r0.x, r0.y), fmaxf(r1.x, r1.y))
-                            : fminf(fminf(r0.x, r0.y), fminf(r1.x, r1.y));
-  const float o = gm * (s - aff.mu[win.c]) * aff.rstd[win.c] + aff.beta[win.c];
-  out[idx] = from_f<T>(o >= 0.0f ? o : kSlope * o);
+  const float s = pool2x2(load_pair(y + win.in_off, vec),
+                          load_pair(y + win.in_off + W, vec), gm);
+  out[idx] = from_f<T>(
+      bn_leaky(s, gm, aff.mu[win.c], aff.rstd[win.c], aff.beta[win.c]));
   sel[idx] = from_f<T>(s);  // exact: s is one of the window's values
+}
+
+// The 8 values of 4 adjacent windows' row at p (16-byte aligned), upcast.
+__device__ __forceinline__ void load_row8(const float* p, float (&v)[8]) {
+  const uint4 a = ld16(p);
+  const uint4 b = ld16(p + 4);
+  const unsigned u[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) v[e] = __uint_as_float(u[e]);
+}
+
+__device__ __forceinline__ void load_row8(const bf16* p, float (&v)[8]) {
+  const uint4 a = ld16(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
+// 4 values to p (aligned to 4 values) as one store.
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<const unsigned*>(&lo);
+  q.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = q;
+}
+
+// apply's vector path: grid (planes, bands), block (bx, by). Block (p, b)
+// takes the pooled rows [b*band, min(H/2, (b+1)*band)) of plane p = (n*C +
+// c)*T + t; its threads step along a row by bx groups of 4 windows and
+// across rows by by. Needs W/2 a multiple of 4, y 16-byte aligned and out
+// and sel aligned to 4 values (the launcher checks). Same arithmetic as
+// apply_kernel, so the same bits.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+apply_vec_kernel(const T* __restrict__ y, Affine aff, T* __restrict__ out,
+                 T* __restrict__ sel, int C, int T_, int H, int W,
+                 int band) {
+  const long long plane = blockIdx.x;
+  const int c = static_cast<int>((plane / T_) % C);
+  const float gm = aff.gamma[c], mu = aff.mu[c], rstd = aff.rstd[c],
+              bt = aff.beta[c];
+  const int h2 = H / 2, w2 = W / 2, groups = w2 / 4;
+  const T* yp = y + plane * H * W;
+  const long long pooled = plane * h2 * w2;
+  T* op = out + pooled;
+  T* sp = sel + pooled;
+  const int row_end = min(h2, static_cast<int>(blockIdx.y + 1) * band);
+  for (int r = blockIdx.y * band + threadIdx.y; r < row_end;
+       r += blockDim.y) {
+    const T* row = yp + static_cast<long long>(2 * r) * W;
+    for (int q = threadIdx.x; q < groups; q += blockDim.x) {
+      float a[8], b[8];
+      load_row8(row + 8 * q, a);
+      load_row8(row + W + 8 * q, b);
+      float o[4], s[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[j] = pool2x2(make_float2(a[2 * j], a[2 * j + 1]),
+                       make_float2(b[2 * j], b[2 * j + 1]), gm);
+        o[j] = bn_leaky(s[j], gm, mu, rstd, bt);
+      }
+      const long long at = static_cast<long long>(r) * w2 + 4 * q;
+      store4(op + at, o);
+      store4(sp + at, s);  // exact: each s is one of its window's values
+    }
+  }
 }
 
 template <typename T>
@@ -385,23 +600,58 @@ int stats_impl(const void* y, float* pf, void* mu, void* var, void* rstd,
   return static_cast<int>(cudaGetLastError());
 }
 
+// apply on the plan the wrapper made (ops/cuda_epilogue.py:apply_plan):
+// windows 4, the vector path, grid (planes, bands) of blocks (bx, by), each
+// taking `band` pooled rows; windows 1, the scalar path, grid gx of blocks
+// bx, with pair loads when `pairs`. A plan the geometry or the pointers do
+// not allow is refused.
 template <typename T>
-int apply_impl(const void* y, Affine aff, void* out, void* sel,
-               long long n_pool, int C, int T_, int H, int W,
-               cudaStream_t s) {
-  apply_kernel<T><<<blocks_for(n_pool), kThreads, 0, s>>>(
-      static_cast<const T*>(y), aff, static_cast<T*>(out),
-      static_cast<T*>(sel), n_pool, C, T_, H, W, aligned(y, 2 * sizeof(T)));
+int apply_impl(const void* y, Affine aff, void* out, void* sel, int B, int C,
+               int T_, int H, int W, int windows, int pairs, dim3 grid,
+               dim3 block, int band, cudaStream_t s) {
+  const long long planes = static_cast<long long>(B) * C * T_;
+  const long long n_pool = planes * (H / 2) * (W / 2);
+  const unsigned four = 4 * sizeof(T);  // the bytes of 4 values
+  const bool fits = block.x >= 1 && block.y >= 1 && block.z == 1 &&
+                    block.x * block.y <= kThreads && grid.z == 1;
+  if (windows == 4 && fits && (W / 2) % 4 == 0 && aligned(y, 16) &&
+      aligned(out, four) && aligned(sel, four) && grid.x == planes &&
+      band >= 1 && grid.y >= 1 && grid.y <= 65535 &&
+      static_cast<long long>(grid.y) * band >= H / 2) {
+    apply_vec_kernel<T><<<grid, block, 0, s>>>(
+        static_cast<const T*>(y), aff, static_cast<T*>(out),
+        static_cast<T*>(sel), C, T_, H, W, band);
+  } else if (windows == 1 && fits && block.y == 1 && grid.y == 1 &&
+             static_cast<long long>(grid.x) * block.x >= n_pool &&
+             (!pairs || aligned(y, 2 * sizeof(T)))) {
+    apply_kernel<T><<<grid, block, 0, s>>>(
+        static_cast<const T*>(y), aff, static_cast<T*>(out),
+        static_cast<T*>(sel), n_pool, C, T_, H, W, pairs != 0);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int bwd_partials_impl(const void* g, const void* sel, BwdOp op, float* pf,
-                      int C, long long L, long long n, long long chunk,
-                      int nblk, cudaStream_t s) {
-  partials_kernel<1, BwdOp, T><<<dim3(nblk, C), kThreads, 0, s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(sel), op, pf, C, L, n,
-      chunk, nblk);
+int bwd_reduce_impl(const void* g, const void* sel, BwdArgs args, float* pf,
+                    unsigned* count, float* dgamma, float* dbeta, float* k,
+                    int C, long long L, long long n, long long chunk,
+                    int nblk, cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* gt = static_cast<const T*>(g);
+  const T* st = static_cast<const T*>(sel);
+  const dim3 grid(nblk, C);
+  // 16-byte loads need g and sel 16-byte aligned and L and chunk multiples
+  // of the values a load holds; otherwise one value a load
+  if (aligned(g, 16) && aligned(sel, 16) && L % kVec == 0 &&
+      chunk % kVec == 0) {
+    bwd_partials_kernel<kVec, T><<<grid, kThreads, 0, s>>>(
+        gt, st, args, pf, count, dgamma, dbeta, k, C, L, n, chunk, nblk);
+  } else {
+    bwd_partials_kernel<1, T><<<grid, kThreads, 0, s>>>(
+        gt, st, args, pf, count, dgamma, dbeta, k, C, L, n, chunk, nblk);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -447,56 +697,65 @@ extern "C" int maavss_epilogue_stats(const void* y, void* partial, void* mu,
 }
 
 // out, sel [B, C, T, H/2, W/2] from y and the per-channel gamma, beta, mu,
-// rstd [C]. One kernel on `stream`.
+// rstd [C], on the plan (windows, pairs, grid, block, band) of
+// ops/cuda_epilogue.py:apply_plan; cudaErrorInvalidValue for a plan the
+// geometry or the pointers do not allow. One kernel on `stream`.
 extern "C" int maavss_epilogue_apply(const void* y, const void* gamma,
                                      const void* beta, const void* mu,
                                      const void* rstd, void* out, void* sel,
                                      int B, int C, int T, int H, int W,
-                                     int dtype, void* stream) {
-  if (bad_geometry(B, C, T, H, W) || bad_dtype(dtype)) {
+                                     int dtype, int windows, int pairs,
+                                     int gx, int gy, int bx, int by, int band,
+                                     void* stream) {
+  if (bad_geometry(B, C, T, H, W) || bad_dtype(dtype) || gx < 1 || gy < 1 ||
+      bx < 1 || by < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long n_pool =
-      static_cast<long long>(B) * C * T * (H / 2) * (W / 2);
   Affine aff{static_cast<const float*>(gamma), static_cast<const float*>(beta),
              static_cast<const float*>(mu), static_cast<const float*>(rstd)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(gx, gy), block(bx, by);
   return dtype == kBFloat16
-             ? apply_impl<bf16>(y, aff, out, sel, n_pool, C, T, H, W, s)
-             : apply_impl<float>(y, aff, out, sel, n_pool, C, T, H, W, s);
+             ? apply_impl<bf16>(y, aff, out, sel, B, C, T, H, W, windows,
+                                pairs, grid, block, band, s)
+             : apply_impl<float>(y, aff, out, sel, B, C, T, H, W, windows,
+                                 pairs, grid, block, band, s);
 }
 
 // Pooled-domain sums of the backward: dgamma = S2, dbeta = S1 [C] and the
 // constants k [4, C] (fp32), from g and sel [B, C, T, H/2, W/2] and the
 // cotangents g_mu, g_var [C]. partial is an fp32 [C, nblk, 2] scratch;
-// chunk * nblk >= B*T*(H/2)*(W/2). Two kernels on `stream`.
+// chunk * nblk >= B*T*(H/2)*(W/2); count is C unsigned counters, all 0,
+// left 0. One kernel on `stream`.
 extern "C" int maavss_epilogue_bwd_reduce(
     const void* g, const void* sel, const void* gamma, const void* beta,
     const void* mu, const void* rstd, const void* g_mu, const void* g_var,
-    void* partial, void* dgamma, void* dbeta, void* k, int B, int C, int T,
-    int H, int W, int nblk, long long chunk, int dtype, void* stream) {
+    void* partial, void* count, void* dgamma, void* dbeta, void* k, int B,
+    int C, int T, int H, int W, int nblk, long long chunk, int dtype,
+    void* stream) {
   const long long L = static_cast<long long>(T) * (H / 2) * (W / 2);
   const long long n = L * B;
   if (bad_geometry(B, C, T, H, W) || bad_dtype(dtype) || nblk < 1 ||
-      chunk * nblk < n || C > 65535) {
+      chunk < 1 || chunk * nblk < n || C > 65535 || count == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs args{static_cast<const float*>(gamma),
+               static_cast<const float*>(beta),
+               static_cast<const float*>(mu),
+               static_cast<const float*>(rstd),
+               static_cast<const float*>(g_mu),
+               static_cast<const float*>(g_var)};
   float* pf = static_cast<float*>(partial);
-  BwdOp op{static_cast<const float*>(gamma), static_cast<const float*>(beta),
-           static_cast<const float*>(mu), static_cast<const float*>(rstd)};
-  int e = dtype == kBFloat16
-              ? bwd_partials_impl<bf16>(g, sel, op, pf, C, L, n, chunk, nblk,
-                                        s)
-              : bwd_partials_impl<float>(g, sel, op, pf, C, L, n, chunk, nblk,
-                                         s);
-  if (e) return e;
-  Cot cot{static_cast<const float*>(gamma), static_cast<const float*>(mu),
-          static_cast<const float*>(g_mu), static_cast<const float*>(g_var)};
-  bwd_combine_kernel<<<C, kThreads, 0, s>>>(
-      pf, nblk, 4.0f * static_cast<float>(n), cot, static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta), static_cast<float*>(k), C);
-  return static_cast<int>(cudaGetLastError());
+  unsigned* cnt = static_cast<unsigned*>(count);
+  float* dg = static_cast<float*>(dgamma);
+  float* db = static_cast<float*>(dbeta);
+  float* kk = static_cast<float*>(k);
+  return dtype == kBFloat16
+             ? bwd_reduce_impl<bf16>(g, sel, args, pf, cnt, dg, db, kk, C, L,
+                                     n, chunk, nblk, s)
+             : bwd_reduce_impl<float>(g, sel, args, pf, cnt, dg, db, kk, C,
+                                      L, n, chunk, nblk, s);
 }
 
 // dy [B, C, T, H, W] from y, g and sel [B, C, T, H/2, W/2], the per-channel

@@ -142,9 +142,11 @@ def library():
     # ..., geometry, (nblk, chunk,) IO dtype, stream
     lib.maavss_epilogue_stats.argtypes = [p] * 5 + [i] * 6 + [ll, i, p]
     lib.maavss_epilogue_stats.restype = i
-    lib.maavss_epilogue_apply.argtypes = [p] * 7 + [i] * 6 + [p]
+    # ..., geometry, IO dtype, plan (windows, pairs, grid, block, band),
+    # stream
+    lib.maavss_epilogue_apply.argtypes = [p] * 7 + [i] * 13 + [p]
     lib.maavss_epilogue_apply.restype = i
-    lib.maavss_epilogue_bwd_reduce.argtypes = [p] * 12 + [i] * 6 + [ll, i, p]
+    lib.maavss_epilogue_bwd_reduce.argtypes = [p] * 13 + [i] * 6 + [ll, i, p]
     lib.maavss_epilogue_bwd_reduce.restype = i
     lib.maavss_epilogue_bwd_dy.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.maavss_epilogue_bwd_dy.restype = i

@@ -30,6 +30,14 @@ that counts its launches in `.launches`:
   dy in one pass; ties within a window go to the first match in phase
   order 2*py + px, compared in fp32
 
+apply's launch is planned in Python (`apply_plan`, a pure function of the
+shape, the item size and the pointers): tiled by plane with 4 windows a
+thread and 16-byte loads where W/2 and the alignment allow, one thread a
+window otherwise. bwd reduce reads 16 bytes a load where it can, and each
+channel's last block combines the partials, in one launch; it finds that
+block through per-channel counters kept per device that the kernel leaves
+0, so bwd reduce calls on one device must not run on two streams at once.
+
 `fused_bn_pool_leaky` joins them in a `torch.autograd.Function` whose
 backward is the complete VJP of pallas_epilogue.py:_fused_bwd, the
 cotangents of mu and var included (zero in training, where the running
@@ -44,6 +52,9 @@ gamma, beta and the constants k stay fp32.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Tuple
+
 import torch
 
 SLOPE = 0.01
@@ -53,6 +64,13 @@ EPS = 1e-5
 _TARGET_BLOCKS = 1056
 _MIN_PER_BLOCK = 4096
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_THREADS = 256  # a block's threads in csrc/epilogue.cu (kThreads)
+APPLY_WINDOWS = 4  # adjacent windows a thread of apply's vector path takes
+# pooled rows each thread of apply's vector path takes, the band of a block
+# being this many times its rows of threads (1, 2, 4 and 8 measured within
+# 1 % of each other on an H100: tools/k5_probe_torch.py)
+APPLY_ROW_STEPS = 1
+_COUNTERS = {}  # device -> bwd reduce's per-channel int32 counters, kept 0
 
 
 def _chan(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -162,7 +180,7 @@ def _check_kernel_args(tensors, vecs, c: int) -> None:
                              f"[{c}], got {tuple(v.shape)}")
 
 
-def _split(n: int, c: int, vec: int = 4):
+def _split(n: int, c: int, vec: int):
     """(blocks per channel, values per block, a multiple of `vec`, the
     values of one 16-byte load: 4 floats, 8 bf16) for a channel sum over n
     values: a fixed partition, so the sums are deterministic."""
@@ -170,6 +188,54 @@ def _split(n: int, c: int, vec: int = 4):
     chunk = -(-n // nblk)
     chunk = -(-chunk // vec) * vec
     return -(-n // chunk), chunk
+
+
+@dataclasses.dataclass(frozen=True)
+class ApplyPlan:
+    """How `epilogue_apply` launches. windows 4: the vector path, grid
+    (planes, bands) of blocks (bx, by), a block taking `band` pooled rows
+    of one (b, c, t) plane and a thread 4 adjacent windows a step; windows
+    1: the scalar path, grid (n, 1) of blocks (256, 1), a thread a window,
+    a window row as one pair load when `pairs`."""
+
+    windows: int
+    pairs: bool
+    grid: Tuple[int, int]
+    block: Tuple[int, int]
+    band: int
+
+
+def apply_plan(shape, itemsize: int, y_addr: int, out_addr: int,
+               sel_addr: int) -> ApplyPlan:
+    """The plan of `epilogue_apply` for y of `shape` [B, C, T, H, W] with
+    `itemsize`-byte values at address y_addr, out and sel at theirs. The
+    vector path needs W/2 a multiple of 4 (a thread's 4 windows are 8
+    values of each input row: one 16-byte load in bf16, two in fp32), y
+    16-byte aligned and out and sel aligned to 4 values (one store each);
+    anything else takes the scalar path."""
+    b, c, t, h, w = shape
+    h2, w2 = h // 2, w // 2
+    out_align = APPLY_WINDOWS * itemsize
+    if (w2 % APPLY_WINDOWS or y_addr % 16 or out_addr % out_align
+            or sel_addr % out_align):
+        n_pool = b * c * t * h2 * w2
+        return ApplyPlan(1, y_addr % (2 * itemsize) == 0,
+                         (-(-n_pool // _THREADS), 1), (_THREADS, 1), 0)
+    bx = min(w2 // APPLY_WINDOWS, _THREADS)
+    by = max(1, min(_THREADS // bx, h2))
+    band = max(by * APPLY_ROW_STEPS, -(-h2 // 65535))  # <= 65535 bands
+    return ApplyPlan(APPLY_WINDOWS, False, (b * c * t, -(-h2 // band)),
+                     (bx, by), band)
+
+
+def _counters(device, c: int) -> torch.Tensor:
+    """bwd reduce's per-channel counters on `device`: zeros that each call
+    leaves zero."""
+    cnt = _COUNTERS.get(device)
+    if cnt is None or cnt.numel() < c:
+        cnt = torch.zeros(max(c, 64), dtype=torch.int32, device=device)
+        _COUNTERS[device] = cnt
+    return cnt
 
 
 def _launch(symbol: str, device, args) -> None:
@@ -209,10 +275,13 @@ def epilogue_apply(y, gamma, beta, mu, rstd):
     out = torch.empty(b, c, t, h // 2, w // 2, dtype=y.dtype,
                       device=y.device)
     sel = torch.empty_like(out)
+    plan = apply_plan(y.shape, y.element_size(), y.data_ptr(),
+                      out.data_ptr(), sel.data_ptr())
     _launch("maavss_epilogue_apply", y.device, (
         y.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mu.data_ptr(),
         rstd.data_ptr(), out.data_ptr(), sel.data_ptr(), b, c, t, h, w,
-        _DTYPE_CODES[y.dtype]))
+        _DTYPE_CODES[y.dtype], plan.windows, int(plan.pairs), *plan.grid,
+        *plan.block, plan.band))
     epilogue_apply.launches += 1
     return out, sel
 
@@ -230,7 +299,7 @@ def epilogue_bwd_reduce(g, sel, gamma, beta, mu, rstd, g_mu, g_var):
         raise ValueError(f"epilogue bwd: g {tuple(g.shape)} != sel "
                          f"{tuple(sel.shape)}")
     _check_kernel_args((g, sel), (gamma, beta, mu, rstd, g_mu, g_var), c)
-    nblk, chunk = _split(b * t * h2 * w2, c)
+    nblk, chunk = _split(b * t * h2 * w2, c, 16 // g.element_size())
     partial = torch.empty(c, nblk, 2, dtype=torch.float32, device=g.device)
     dgamma, dbeta = (torch.empty(c, dtype=torch.float32, device=g.device)
                      for _ in range(2))
@@ -238,7 +307,8 @@ def epilogue_bwd_reduce(g, sel, gamma, beta, mu, rstd, g_mu, g_var):
     _launch("maavss_epilogue_bwd_reduce", g.device, (
         g.data_ptr(), sel.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         mu.data_ptr(), rstd.data_ptr(), g_mu.data_ptr(), g_var.data_ptr(),
-        partial.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
+        partial.data_ptr(), _counters(g.device, c).data_ptr(),
+        dgamma.data_ptr(), dbeta.data_ptr(),
         k.data_ptr(), b, c, t, 2 * h2, 2 * w2, nblk, chunk,
         _DTYPE_CODES[g.dtype]))
     epilogue_bwd_reduce.launches += 1

@@ -7,12 +7,18 @@ last time frame always dropped and the Nyquist bin dropped under `trim_end`.
 `istft` is the exact inverse of `stft` (overlap-add with division by the
 summed squared-window envelope), not torch.istft's normalization.
 
-`stft_features` runs on CUDA tensors as one launch of the hand-written
-kernel of `csrc/stft_feat.cu` (window, reflect padding, a shared-memory
-FFT, the norm and, for polar features (--use_polar), magnitude and phase in
-its epilogue; power-of-two `fft_len` from 16 to 2048, forward only) and
-counts its launches in `stft_features.launches`; on CPU tensors it runs
-`stft_features_plain`, the gather + rfft form with K4's plain magphase.
+`stft_features` on CUDA tensors takes one of two routes, picked by the
+geometry alone (`stft_route`, as `lstm_backend` picks K1's):
+- "kernel": one launch of the hand-written kernel of `csrc/stft_feat.cu`
+  (window, reflect padding, a shared-memory FFT, the norm and, for polar
+  features (--use_polar), magnitude and phase in its epilogue;
+  power-of-two `fft_len` from 16 to 2048, forward only), counted in
+  `stft_features.launches`;
+- "fft": every other `fft_len` (`stft_features_fft`): the plain framing and
+  `torch.fft.rfft` (cuFFT; the JAX package leaves its FFT to XLA too), then
+  for polar features K4's standalone magphase kernel (ops/cuda_complex.py).
+On CPU tensors it runs `stft_features_plain`, the gather + rfft form with
+K4's plain magphase.
 Polar features go back through the polar kernel (ops/cuda_complex.py),
 which writes the complex spectrum the inverse reads, Nyquist bin included.
 
@@ -30,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from maavss_tpu_torch.ops.cuda_complex import (
+    magphase,
     magphase_fwd_plain,
     polar_to_spectrum,
 )
@@ -141,6 +148,21 @@ def _stft_tables(fft_len: int, device: torch.device):
     return window, tw.to(device), float(_window_norm(window).item())
 
 
+def stft_route(fft_len: int, hop: int, samples: int) -> str:
+    """"kernel" where the STFT kernel takes the geometry, else "fft"."""
+    return "kernel" if stft_kernel_refusal(fft_len, hop, samples) is None \
+        else "fft"
+
+
+def stft_features_fft(audio: torch.Tensor, fft_len: int, hop: int,
+                      normalized: bool = True, trim_end: bool = True,
+                      polar: bool = False) -> torch.Tensor:
+    """The "fft" route: the plain framing and rfft (cuFFT on the card), and
+    under `polar` the magphase kernel (its plain version on the CPU)."""
+    feats = stft_features_plain(audio, fft_len, hop, normalized, trim_end)
+    return magphase(feats) if polar else feats
+
+
 def stft_features(audio: torch.Tensor, fft_len: int, hop: int,
                   normalized: bool = True, trim_end: bool = True,
                   polar: bool = False) -> torch.Tensor:
@@ -148,20 +170,16 @@ def stft_features(audio: torch.Tensor, fft_len: int, hop: int,
     or (magnitude, phase) when `polar`; T = samples // hop.
 
     The last time frame is always dropped; the Nyquist bin is dropped when
-    `trim_end` (av_dataset.py:171-174 in the reference). On CUDA one launch
-    of the STFT kernel (fp32 audio whose last axis is contiguous and whose
-    leading axes collapse into one stride, no gradient; it raises on
-    anything else, an fft_len outside its limit included); on the CPU the
+    `trim_end` (av_dataset.py:171-174 in the reference). On CUDA it takes
+    fp32 audio with no gradient and raises on anything else; by
+    `stft_route`, one launch of the STFT kernel (whose audio's leading axes
+    must collapse into one stride) or `stft_features_fft`. On the CPU the
     plain version."""
     if not audio.is_cuda:
         return stft_features_plain(audio, fft_len, hop, normalized,
                                    trim_end, polar)
     from maavss_tpu_torch.ops import _build
 
-    samples = audio.shape[-1]
-    refusal = stft_kernel_refusal(fft_len, hop, samples)
-    if refusal is not None:
-        raise ValueError(f"stft_features: {refusal}")
     if audio.dtype != torch.float32:
         raise TypeError(f"stft_features: the STFT kernel takes float32 "
                         f"audio, got {audio.dtype}")
@@ -169,6 +187,10 @@ def stft_features(audio: torch.Tensor, fft_len: int, hop: int,
         raise ValueError("stft_features: the STFT kernel is forward only; "
                          "audio that needs a gradient takes "
                          "stft_features_plain")
+    samples = audio.shape[-1]
+    if stft_route(fft_len, hop, samples) == "fft":
+        return stft_features_fft(audio, fft_len, hop, normalized, trim_end,
+                                 polar)
     try:
         rows = audio.view(-1, samples)
     except RuntimeError:

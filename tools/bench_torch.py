@@ -59,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +71,10 @@ sys.path.insert(0, ROOT)
 PIN = os.path.join(ROOT, "benchmarks", "baseline_pin.json")
 WARMUP = 5
 MODE = 2
+# the kernels of the frames encoder's fused epilogue (K5, csrc/epilogue.cu)
+EPILOGUE_KERNELS = ("partials_kernel", "stats_combine_kernel",
+                    "apply_kernel", "apply_vec_kernel", "bwd_partials_kernel",
+                    "bwd_combine_kernel", "dy_kernel")
 DIFFERS = (
     "MAAVSS_BENCH_OPT_KERNEL defaults to auto (K3; xla is the plain formula)",
     "MULTISTEP > 1, MICROBATCH > 1, REMAT=1 and FUSED_OPT=1 raise by their "
@@ -163,13 +168,22 @@ def bench_config(env: Mapping[str, str], batch_size: int,
     return cfg, regime, window_mode
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler kernel key's name, without namespace, template arguments
+    and parameters."""
+    m = re.search(r"::(\w+)[<(]", key)
+    return m.group(1) if m else key
+
+
 def profile_step(fn) -> Dict:
     """One call of `fn` under torch.profiler, after the timed windows:
     device busy ms (CUDA kernel time summed), the host-clock wall ms of the
     same window, the device's idle share, kernel launches, the 12 kernels
     with the most device time, and on the host the ops' self time summed
     (`host_op_ms`; the Python between them is the rest of the wall) and
-    the 12 ops with the most of it (`host_top`, each with its calls)."""
+    the 12 ops with the most of it (`host_top`, each with its calls);
+    `epilogue`: K5's kernels, their device ms and share of the busy time,
+    and each by name (with its template arguments) and launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -188,6 +202,8 @@ def profile_step(fn) -> Dict:
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
     host_top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]
+    epi = [e for e in kernels if _kernel_name(e.key) in EPILOGUE_KERNELS]
+    epi_ms = sum(e.device_time_total for e in epi) / 1e3
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "launches": sum(e.count for e in kernels),
@@ -195,7 +211,11 @@ def profile_step(fn) -> Dict:
                      "count": e.count} for e in top],
             "host_op_ms": sum(e.self_cpu_time_total for e in ops) / 1e3,
             "host_top": [{"op": e.key[:80], "ms": e.self_cpu_time_total / 1e3,
-                          "count": e.count} for e in host_top]}
+                          "count": e.count} for e in host_top],
+            "epilogue": {"ms": epi_ms, "share": epi_ms / busy_ms,
+                         "kernels": [{"kernel": e.key[:100],
+                                      "ms": e.device_time_total / 1e3,
+                                      "count": e.count} for e in epi]}}
 
 
 def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
