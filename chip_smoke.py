@@ -39,7 +39,9 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    layers at R 2048 and 8192 (the bit checks at 8192); a cooperative grid
    over the resident blocks is refused.
 7. k3_adam (K3, fused Adam): 3 steps over the flagship's parameter leaves
-   against the plain formula; torch.optim.Adam(fused=True) timed beside it.
+   against the plain formula, the count and the bias corrections [c1, c2]
+   on the card (the kernel reads them through a pointer; held against the
+   host formula); torch.optim.Adam(fused=True) timed beside it.
 8. slice: the full-width fusion model (seeded random weights) behind the
    HTTP SeparationServer on 127.0.0.1; 8 requests of 1..8 rows checked
    against the direct separator built from the plain versions; request
@@ -75,9 +77,10 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    tests/fixtures/torch_port_fullenc_golden.npz (the full-encode separator
    on float16 rows, 3 train steps), run through the kernels.
 15. bench: tools/bench_torch.py's measure function at batch 8, 2 windows of
-   5 steps (its defaults otherwise: full encode, rows, bf16), and once
-   more in fp32, each JSON line as a phase; its kernel counts per step
-   must be the full-encode step's.
+   5 steps (its defaults otherwise: full encode, rows, bf16), once more in
+   fp32 and once at MAAVSS_BENCH_MULTISTEP=5 (one CUDA-graph replay a
+   window), each JSON line as a phase; its kernel counts per optimizer
+   step must be the full-encode step's.
 16. k5_epilogue (K5, the frames encoder's fused BN + 2x2 max pool +
    LeakyReLU: stats, apply, bwd reduce, bwd dy): each kernel against its
    plain version at the flagship's stage-0 and stage-1 shapes, with a third
@@ -158,6 +161,21 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    versions under the train phase's gates, no STFT kernel launch, one
    magphase launch a polar step or batch; magphase held and timed on those
    features.
+32. graphs (--steps_per_dispatch, train/cuda_graph.py): K = 3 steps a
+   dispatch as one CUDA-graph replay against K eager steps of a twin from
+   one state_dict and one noise seed (noise_scalar 0.1, mode 2), three
+   dispatches (the first runs eagerly and captures, two replay), for the
+   full-encode fusion step at batch 8 (fp32, bf16) and 256 (bf16), the
+   scan window step and the frames step at batch 8 (fp32, bf16), one
+   --mask_head and one --use_polar step, and --noise_schedule (a new value
+   a dispatch, no re-capture): with cuDNN's deterministic algorithms bit
+   for bit (metrics, parameters, BatchNorm statistics, Adam's m, v and
+   count), launches K times the eager step's, one capture. cuDNN's
+   default fp32 conv weight gradient differs call to call, eagerly as
+   under capture (shown alone); the batch-8 and batch-256 full-encode
+   cases and the fp32 frames case run again with the default algorithms
+   at the train gates, the fusion ones timed eager against graphed in
+   turns with peak memory and one profile each.
 
 Every phase that drives a train step or a serving batch counts the STFT
 kernel's launches exactly (one a step or a batch; none in stft_route) and
@@ -1168,7 +1186,11 @@ def adam_phase(steps: int = 3):
     the decoders' leaves without a gradient as on the train path, from
     seeded g, m and v: `steps` steps against the plain formula, m, v and p
     at 1e-6 absolute + 1e-5 relative (the same fp32 formula; the compiler
-    may contract a multiply-add into an fma)."""
+    may contract a multiply-add into an fma). The count lives on the card,
+    as the optimizer keeps it: both sides read the bias corrections [c1, c2]
+    that `device_bias_corrections` makes there (the kernel through its
+    pointer), and those are held against the host formula
+    (`bias_corrections`): the powers b^count within 2 fp32 ulp."""
     import torch
 
     from maavss_tpu_torch.config import RunConfig
@@ -1177,6 +1199,7 @@ def adam_phase(steps: int = 3):
         adam_multi_tensor,
         adam_update_plain,
         bias_corrections,
+        device_bias_corrections,
     )
     from maavss_tpu_torch.train.setup import build_fusion
 
@@ -1192,26 +1215,36 @@ def adam_phase(steps: int = 3):
     ref = [[t.clone() for t in col] for col in (ms, vs, ps)]
     lr, b1, b2, eps = 1e-3, 0.9, 0.999, 1e-8
     table = AdamTable(ms, vs, ps)
-    err = 0.0
-    for count in range(1, steps + 1):
-        c1, c2 = bias_corrections(count, b1, b2)
-        adam_multi_tensor(grads, ms, vs, ps, c1, c2, lr, b1, b2, eps,
+    count = torch.zeros((), dtype=torch.float32, device="cuda")
+    betas = torch.tensor([b1, b2], dtype=torch.float32).cuda()
+    err = bc_ulps = 0.0
+    for step in range(1, steps + 1):
+        count.add_(1.0)
+        bc = device_bias_corrections(count, betas)
+        host = torch.tensor(bias_corrections(step, b1, b2))
+        # in ulps of the powers b^count (1 - c is exact for b^count >= 1/2)
+        ulp = torch.finfo(torch.float32).eps * (1.0 - host)
+        bc_ulps = max(bc_ulps, ((bc.cpu() - host).abs() / ulp).max().item())
+        if bc_ulps > 2:
+            raise SystemExit(f"K3 step {step}: device [c1, c2] {bc.tolist()} "
+                             f"vs host {host.tolist()}: {bc_ulps} ulp")
+        adam_multi_tensor(grads, ms, vs, ps, bc, lr, b1, b2, eps,
                           table=table, backend="kernel")
         for gr, m, v, p in zip(grads, *ref):
-            adam_update_plain(gr, m, v, p, c1, c2, lr, b1, b2, eps)
+            adam_update_plain(gr, m, v, p, bc[0], bc[1], lr, b1, b2, eps)
         torch.cuda.synchronize()
         for name, got_col, want_col in zip("mvp", (ms, vs, ps), ref):
             for a, b_ in zip(got_col, want_col):
-                err = max(err, check_close(f"K3 {name} step {count}", a, b_,
+                err = max(err, check_close(f"K3 {name} step {step}", a, b_,
                                            1e-6, 1e-5))
-    c1, c2 = bias_corrections(steps + 1, b1, b2)
+    bc = device_bias_corrections(count + 1.0, betas)
     ms_k = cuda_ms(lambda: adam_multi_tensor(
-        grads, ms, vs, ps, c1, c2, lr, b1, b2, eps, table=table,
+        grads, ms, vs, ps, bc, lr, b1, b2, eps, table=table,
         backend="kernel"), reps=5, iters=10)
 
     def plain():
         for gr, m, v, p in zip(grads, *ref):
-            adam_update_plain(gr, m, v, p, c1, c2, lr, b1, b2, eps)
+            adam_update_plain(gr, m, v, p, bc[0], bc[1], lr, b1, b2, eps)
 
     plain_ms = cuda_ms(plain, reps=3, iters=3)
     lib_params = [p.clone().requires_grad_(True) for p in ps]
@@ -1220,15 +1253,16 @@ def adam_phase(steps: int = 3):
     opt = torch.optim.Adam(lib_params, lr=lr, eps=eps, fused=True)
     library_ms = cuda_ms(opt.step, reps=5, iters=10)
     dev_ms, host_ms = split_ms(lambda: adam_multi_tensor(
-        grads, ms, vs, ps, c1, c2, lr, b1, b2, eps, table=table,
+        grads, ms, vs, ps, bc, lr, b1, b2, eps, table=table,
         backend="kernel"), iters=10)
     n = sum(p.numel() for p in ps)
     n_grad = sum(gr.numel() for gr in grads if gr is not None)
     bnd = bound_ms(4 * (6 * n + n_grad), 12 * n)
     phase("k3_adam", leaves=len(ps), params=n, params_with_grad=n_grad,
-          steps=steps, max_abs_err=err, atol=1e-6, rtol=1e-5, ms=ms_k,
+          steps=steps, max_abs_err=err, atol=1e-6, rtol=1e-5,
+          bias_corrections="device", bc_max_ulps_vs_host=bc_ulps, ms=ms_k,
           plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd[0],
-          bound_by=bnd[1])
+          bound_by=bnd[1], device_ms=dev_ms, host_ms=host_ms)
     return dict(err=err, ms=ms_k, plain_ms=plain_ms, bound=bnd,
                 library_ms=library_ms, device_ms=dev_ms, host_ms=host_ms)
 
@@ -3980,26 +4014,31 @@ def fullenc_golden_phase():
 def bench_phase():
     """tools/bench_torch.py's measure function in this process at batch 8,
     2 windows of 5 steps, its defaults otherwise (full encode, float16
-    rows, bf16), with its profiled step, and once more at
-    MAAVSS_BENCH_DTYPE=float32: each JSON line as a phase. The value must
-    be finite and the kernels it counts per step those of the full-encode
-    step."""
+    rows, bf16), with its profiled step, once more at
+    MAAVSS_BENCH_DTYPE=float32, and once at MAAVSS_BENCH_MULTISTEP=5 (one
+    CUDA-graph replay of 5 steps a window, its profiled dispatch): each
+    JSON line as a phase. The value must be finite and the kernels it
+    counts per optimizer step those of the full-encode step."""
     from tools import bench_torch
 
     want = _fullenc_want()
     want["stft_feat"] = want.pop("stft")
-    for env in ({}, {"MAAVSS_BENCH_DTYPE": "float32"}):
+    for env in ({}, {"MAAVSS_BENCH_DTYPE": "float32"},
+                {"MAAVSS_BENCH_MULTISTEP": "5"}):
         line = bench_torch.with_baseline(bench_torch.measure(
             8, steps=5, windows=2, device="cuda", env=env,
-            profile=not env))
+            profile="MAAVSS_BENCH_DTYPE" not in env))
         k = line["kernels"]
         if (not math.isfinite(line["value"]) or line["value"] <= 0
                 or any(k[n] != v for n, v in want.items())
                 or line["dtype"] != env.get("MAAVSS_BENCH_DTYPE",
-                                            "bfloat16")):
+                                            "bfloat16")
+                or line["multistep"] != int(env.get(
+                    "MAAVSS_BENCH_MULTISTEP", "1"))):
             raise SystemExit(f"bench: value {line['value']}, dtype "
-                             f"{line['dtype']}, kernels per step {k}, want "
-                             f"{want}")
+                             f"{line['dtype']}, multistep "
+                             f"{line['multistep']}, kernels per step {k}, "
+                             f"want {want}")
         phase("bench", **line)
 
 
@@ -4618,6 +4657,336 @@ def bf16_golden_phase():
           launches=launches, ratio=BF16_RATIO, loss_rtol=BF16_LOSS_RTOL)
 
 
+# ------------------------------------------------------------ CUDA graphs
+
+GRAPH_K = 3  # optimizer steps a dispatch in the graphs phase
+GRAPH_DISPATCHES = 3
+# the cases run a second time with cuDNN's default algorithms (the
+# product's setting), held at the train gates; the fusion ones timed in
+# turns and profiled
+GRAPH_DEFAULT = ("fullenc_b8", "fullenc_b8_bf16", "fullenc_b256_bf16",
+                 "frames_b8")
+# Adam's update of one element in one step is at most about this many lr
+# over the phase's first 3 K steps (b1 0.9, b2 0.999: Cauchy-Schwarz on
+# m / sqrt(v) with the bias corrections gives 1.12 at step 9)
+ADAM_STEP_BOUND = 1.25
+
+
+def _graph_cases():
+    """(label, frames model, cfg) of the graphs phase: the default RunConfig
+    (noise_scalar 0.1, lr 1e-5) at full width."""
+    from maavss_tpu_torch.config import RunConfig
+
+    full = dict(fusion_encode="full", pgram_cache=True)
+    bf16 = dict(dtype="bfloat16")
+    return (
+        ("fullenc_b8", False, RunConfig(batch_size=8, **full)),
+        ("fullenc_b8_bf16", False, RunConfig(batch_size=8, **full, **bf16)),
+        ("fullenc_b256_bf16", False,
+         RunConfig(batch_size=256, **full, **bf16)),
+        ("scan_b8", False, RunConfig(batch_size=8)),
+        ("scan_b8_bf16", False, RunConfig(batch_size=8, **bf16)),
+        ("frames_b8", True, RunConfig(batch_size=8)),
+        ("frames_b8_bf16", True, RunConfig(batch_size=8, **bf16)),
+        ("mask_head_b8", False, RunConfig(batch_size=8, mask_head=True,
+                                          **full)),
+        ("polar_b8", False, RunConfig(batch_size=8, use_polar=True, **full)),
+        ("schedule_b8", False, RunConfig(
+            batch_size=8, noise_schedule="linear:0.1:0.0", **full)),
+    )
+
+
+def _graph_state_diff(state, ref_state):
+    """Names of the leaves where two train states differ in any bit (value
+    equality: -0.0 equals 0.0): parameters, buffers (BatchNorm's running
+    statistics and counts), Adam's m, v and device count, and the host
+    counts."""
+    import torch
+
+    bad = []
+    model, ref = state.model, ref_state.model
+    for (n, a), (_, b) in zip(model.named_parameters(),
+                              ref.named_parameters()):
+        if not torch.equal(a, b):
+            bad.append(n)
+    for (n, a), (_, b) in zip(model.named_buffers(), ref.named_buffers()):
+        if not torch.equal(a, b):
+            bad.append(n)
+    names = [n for n, _ in model.named_parameters()]
+    for col, a_list, b_list in (("m", state.tx.m, ref_state.tx.m),
+                                ("v", state.tx.v, ref_state.tx.v)):
+        bad += [f"adam.{col}.{n}" for n, a, b in zip(names, a_list, b_list)
+                if not torch.equal(a, b)]
+    if not torch.equal(state.tx.count_tensor, ref_state.tx.count_tensor):
+        bad.append("adam.count (device)")
+    if (state.tx.count, state.step) != (ref_state.tx.count, ref_state.step):
+        bad.append("host counts")
+    return bad
+
+
+def _graph_train_gates(label, d, state, ref_state, got, ref_metrics, lr):
+    """The train gates for a dispatch of cuDNN's default algorithms: each
+    step's loss within 1e-4 relative of the eager twin's, and every
+    parameter within Adam's elementwise bound of its twin's (both moved
+    at most ADAM_STEP_BOUND lr a step from one start). Returns (loss rel,
+    worst parameter distance in units of that bound)."""
+    import torch
+
+    want = torch.stack([m["loss"] for m in ref_metrics])
+    rel = ((got["loss"] - want).abs() / want.abs()).max().item()
+    bound = 2 * ADAM_STEP_BOUND * lr * state.step
+    worst = max((a - b).abs().max().item() for a, b in zip(
+        state.model.parameters(), ref_state.model.parameters())) / bound
+    if rel > 1e-4 or worst > 1.0:
+        raise SystemExit(f"graphs {label} (cuDNN's default algorithms) "
+                         f"dispatch {d + 1}: losses {got['loss'].tolist()} "
+                         f"vs {want.tolist()} (rel {rel}, gate 1e-4), "
+                         f"parameters {worst} of Adam's bound")
+    return rel, worst
+
+
+def _graph_case(label, frames_model, cfg, exact: bool):
+    """One case of the graphs phase (see graphs_phase); `exact`: with
+    cuDNN's deterministic algorithms, bit for bit, else cuDNN's default
+    ones, at the train gates, then timed and profiled. Returns its record
+    and the graphed dispatches' launches by counter name."""
+    import torch
+
+    from maavss_tpu_torch.data.synthetic import (
+        synthetic_av_batch,
+        with_pgram_rows,
+    )
+    from maavss_tpu_torch.ops.counters import kernel_counters
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
+
+    k = GRAPH_K
+    torch.backends.cudnn.deterministic = exact
+    if frames_model:
+        build, make = setup.build_frames_state, make_frames_step
+    else:
+        build, make = setup.build_fusion_state, make_fusion_step
+    model, state = build(cfg, cfg.batch_size, device="cuda",
+                         generator=torch.Generator().manual_seed(cfg.seed))
+    ref, ref_state = build(cfg, cfg.batch_size, device="cuda",
+                           generator=torch.Generator().manual_seed(
+                               cfg.seed + 1))
+    ref.load_state_dict(model.state_dict())
+    kstep = make(model, cfg, device="cuda", k_steps=k)
+    step = make(ref, cfg, device="cuda", k_steps=1)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ref_gen = torch.Generator(device="cuda").manual_seed(7)
+    frame_size = cfg.framesize if frames_model else None
+    batches = [synthetic_av_batch(cfg, cfg.batch_size, seed=i,
+                                  frame_size=frame_size)
+               for i in range(k * GRAPH_DISPATCHES)]
+    if cfg.pgram_cache:
+        batches = [with_pgram_rows(b, "cuda") for b in batches]
+    dispatches = [{key: torch.from_numpy(v).cuda() for key, v in
+                   setup.stack_batches(batches[d * k:(d + 1) * k]).items()}
+                  for d in range(GRAPH_DISPATCHES)]
+    del batches
+    noise_fn = setup.resolve_noise_schedule(cfg)
+    counters = kernel_counters()
+
+    def counts():
+        return {n: getattr(o, a) for n, (o, a) in counters.items()}
+
+    def zero():
+        for o, a in counters.values():
+            setattr(o, a, 0)
+
+    per_step, totals, noises, gates, bit_equal = None, {}, [], [], True
+    for d, dispatch in enumerate(dispatches):
+        noise = None if noise_fn is None else noise_fn(state.step)
+        noises.append(noise)
+        ref_metrics = []
+        for j in range(k):
+            zero()
+            ref_state, m = step(ref_state, {key: v[j] for key, v in
+                                            dispatch.items()}, 2, ref_gen,
+                                noise=noise)
+            torch.cuda.synchronize()
+            if per_step is None:
+                per_step = counts()
+            elif counts() != per_step:
+                raise SystemExit(f"graphs {label}: eager step launches "
+                                 f"{counts()} != {per_step}")
+            ref_metrics.append(m)
+        zero()
+        state, got = kstep(state, dispatch, 2, gen, noise=noise)
+        torch.cuda.synchronize()
+        launched = counts()
+        if launched != {n: k * c for n, c in per_step.items()}:
+            raise SystemExit(f"graphs {label} dispatch {d + 1}: launches "
+                             f"{launched}, want {k} x {per_step}")
+        for n, c in launched.items():
+            totals[n] = totals.get(n, 0) + c
+        bad = [key for key in ref_metrics[0] if not torch.equal(
+            got[key], torch.stack([m[key] for m in ref_metrics]))]
+        bad += _graph_state_diff(state, ref_state)
+        bit_equal = bit_equal and not bad
+        if not exact:
+            gates.append(_graph_train_gates(label, d, state, ref_state, got,
+                                            ref_metrics, cfg.learning_rate))
+        elif bad:
+            raise SystemExit(
+                f"graphs {label} dispatch {d + 1} (steps {d * k + 1}-"
+                f"{(d + 1) * k}{', a capture' if d == 0 else ', a replay'})"
+                f" differs from {k} eager steps in: {bad[:12]} "
+                f"({len(bad)} in all); losses {got['loss'].tolist()} vs "
+                f"{[float(m['loss']) for m in ref_metrics]}")
+    if kstep.captures != 1:
+        raise SystemExit(f"graphs {label}: {kstep.captures} captures over "
+                         f"{GRAPH_DISPATCHES} dispatches, want 1")
+    if noise_fn is not None and len(set(noises)) < 2:
+        raise SystemExit(f"graphs {label}: noise values {noises} do not "
+                         f"change")
+    out = dict(case=label, model="frames" if frames_model else "fusion",
+               batch=cfg.batch_size, dtype=cfg.dtype,
+               fusion_encode=None if frames_model else cfg.fusion_encode,
+               window_mode=cfg.window_mode, mask_head=cfg.mask_head,
+               use_polar=cfg.use_polar, noise=noises if noise_fn else
+               cfg.noise_scalar, k=k, dispatches=GRAPH_DISPATCHES,
+               captures=kstep.captures, cudnn_deterministic=exact,
+               bit_equal=bit_equal,
+               launches_per_step={n: c for n, c in per_step.items() if c})
+    if not exact:
+        out.update(loss_rel_diff=max(g[0] for g in gates),
+                   params_of_adam_bound=max(g[1] for g in gates))
+    if not exact and not frames_model:
+        last = dispatches[-1]
+
+        def eager():
+            for j in range(k):
+                step(ref_state, {key: v[j] for key, v in last.items()}, 2,
+                     ref_gen)
+
+        def graphed():
+            kstep(state, last, 2, gen)
+
+        times, peaks = {}, {}
+        for _ in range(2):
+            for name, fn in (("eager", eager), ("graphed", graphed)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                fn()
+                torch.cuda.synchronize()
+                times.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3 / (2 * k))
+        # peaks with both models resident; a replay allocates nothing, so
+        # the graph's private pool shows in the reserved bytes alone
+        for name, fn in (("eager", eager), ("graphed", graphed)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = dict(allocated=torch.cuda.max_memory_allocated(),
+                               reserved=torch.cuda.max_memory_reserved())
+        out.update(
+            step_ms=times, peak_memory_bytes=peaks,
+            clips_per_s={n: cfg.batch_size / (min(t) / 1e3)
+                         for n, t in times.items()})
+        for name, fn in (("eager", eager), ("graphed", graphed)):
+            profile_phase(f"graphs_profile_{label}_{name}", fn, calls=1)
+    torch.backends.cudnn.deterministic = False
+    return out, totals
+
+
+def _cudnn_wgrad_alone(calls: int = 8):
+    """The library call that keeps a step's bits from repeating, alone:
+    cuDNN's fp32 convolution weight gradient (aten.convolution_backward) at
+    the fusion STFT encoder's first conv of the batch-8 full-encode step
+    (x [8, 2, 88, 128], w [8, 2, 5, 5], stride 2, pad 2), `calls` eager
+    calls and `calls` replays of one captured call, with cuDNN's default
+    algorithms and with its deterministic ones. The deterministic ones must
+    give one result, eager and replayed alike."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(8, 2, 88, 128, device="cuda", generator=g)
+    w = torch.randn(8, 2, 5, 5, device="cuda", generator=g)
+    dy = torch.randn(8, 8, 44, 64, device="cuda", generator=g)
+
+    def wgrad():
+        return torch.ops.aten.convolution_backward(
+            dy, x, w, None, [2, 2], [2, 2], [1, 1], False, [0, 0], 1,
+            [False, True, False])[1]
+
+    out = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        first = wgrad()
+        eager = sum(not torch.equal(wgrad(), first)
+                    for _ in range(calls - 1))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            wgrad()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            captured = wgrad()
+        replayed = 0
+        for _ in range(calls):
+            graph.replay()
+            torch.cuda.synchronize()
+            replayed += not torch.equal(captured, first)
+        out["deterministic" if det else "default"] = dict(
+            eager_calls_differing=eager, replays_differing=replayed,
+            calls=calls)
+    torch.backends.cudnn.deterministic = False
+    if (out["deterministic"]["eager_calls_differing"]
+            or out["deterministic"]["replays_differing"]):
+        raise SystemExit(f"cuDNN's deterministic fp32 wgrad differs: {out}")
+    return out
+
+
+def graphs_phase():
+    """--steps_per_dispatch on the card (train/cuda_graph.py). Each case of
+    `_graph_cases` (the full-encode fusion step on float16 rows at batch 8
+    in fp32 and bf16 and at batch 256 in bf16, the scan window step and
+    the frames step at batch 8 in fp32 and bf16, one --mask_head and one
+    --use_polar full-encode step, and the full-encode step under
+    --noise_schedule) builds a model from its seed and a twin from its
+    state_dict, takes one noise generator seed, mode 2 and K = 3, and runs
+    three K-step dispatches (the first runs its K steps eagerly and
+    captures, the next two replay) against 3 K eager steps of the twin,
+    with cuDNN's deterministic algorithms: each dispatch must equal its K
+    eager steps bit for bit (the [K] metrics, every parameter, BatchNorm's
+    running statistics, Adam's m, v and count); its kernel launches must be
+    K times the eager step's, and the three dispatches make one capture.
+    Under --noise_schedule each dispatch takes the schedule's value at its
+    global step (the three differ) and never re-captures.
+    cuDNN's default fp32 conv weight gradient differs from call to call,
+    eagerly as under capture (`_cudnn_wgrad_alone` shows it alone), so the
+    cases of GRAPH_DEFAULT run again with cuDNN's default algorithms (the
+    product's setting) at the train gates, and the fusion ones are timed
+    there, eager K steps and one dispatch in turns (per-step wall ms; peak
+    memory allocated and reserved, the graph's private pool in the
+    latter), with one of each profiled. Returns each kernel's launches
+    over the graphed dispatches by the bf16 and fp32 cases."""
+    wgrad = _cudnn_wgrad_alone()
+    phase("graphs_cudnn_wgrad", op="aten.convolution_backward (cuDNN, "
+          "fp32 weight gradient)", x=[8, 2, 88, 128], w=[8, 2, 5, 5],
+          stride=2, padding=2, **wgrad)
+    cases, by_dtype = [], {"float32": {}, "bfloat16": {}}
+    for exact in (True, False):
+        for label, frames_model, cfg in _graph_cases():
+            if not exact and label not in GRAPH_DEFAULT:
+                continue
+            out, totals = _graph_case(label, frames_model, cfg, exact)
+            for n, c in totals.items():
+                by_dtype[cfg.dtype][n] = by_dtype[cfg.dtype].get(n, 0) + c
+            phase("graphs_case", **out)
+            cases.append(label if exact else f"{label}_default")
+    phase("graphs", cases=cases, k=GRAPH_K, dispatches=GRAPH_DISPATCHES,
+          launches=by_dtype)
+    return by_dtype
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -4662,6 +5031,12 @@ def main() -> None:
     bf16_slice_phase()
     bf16_golden_phase()
     route_launches, magphase_rep = stft_route_phase()
+    graphs = graphs_phase()
+    g32, g16 = graphs["float32"], graphs["bfloat16"]
+
+    def graphed(name, dtypes=(g32, g16)):
+        return sum(g.get(name, 0) for g in dtypes)
+
     if any(m in sys.modules for m in ("jax", "flax", "ml_dtypes",
                                       "maavss_tpu")):
         raise SystemExit("the port loaded jax or maavss_tpu")
@@ -4670,54 +5045,63 @@ def main() -> None:
     print(json.dumps({"kernels": [
         kernel_entry("lstm_fwd", "lstm_fwd.cu",
                      "maavss_tpu/ops/pallas_lstm.py:80",
-                     serve["lstm"] + fullenc_serve["lstm_fwd"], k1),
+                     serve["lstm"] + fullenc_serve["lstm_fwd"]
+                     + graphed("lstm_fwd"), k1),
         kernel_entry("pgenc_eval", "pgenc_eval.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:171",
                      serve["pgenc"] + fullenc_serve["pgenc_eval"],
                      dict(k2, library_ms=None)),
         kernel_entry("lstm_bwd", "lstm_bwd.cu",
                      "maavss_tpu/ops/pallas_lstm.py:105",
-                     train["lstm_bwd"] + fullenc["lstm_bwd"], k1b),
+                     train["lstm_bwd"] + fullenc["lstm_bwd"]
+                     + graphed("lstm_bwd"), k1b),
         kernel_entry("pgenc_train", "pgenc_train.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:137",
-                     train["pgenc_train"] + fullenc["pgenc_train"],
+                     train["pgenc_train"] + fullenc["pgenc_train"]
+                     + graphed("pgenc_train"),
                      dict(err=k2t["fwd_err"], ms=k2t["fwd_ms"],
                           plain_ms=k2t["fwd_plain_ms"], bound=k2t["fwd_bound"],
                           device_ms=k2t["fwd_device_ms"],
                           host_ms=k2t["fwd_host_ms"], library_ms=None)),
         kernel_entry("pgenc_bwd", "pgenc_train.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:184",
-                     train["pgenc_bwd"] + fullenc["pgenc_bwd"],
+                     train["pgenc_bwd"] + fullenc["pgenc_bwd"]
+                     + graphed("pgenc_bwd"),
                      dict(err=k2t["bwd_err"], ms=k2t["bwd_ms"],
                           plain_ms=k2t["bwd_plain_ms"], bound=k2t["bwd_bound"],
                           device_ms=k2t["bwd_device_ms"],
                           host_ms=k2t["bwd_host_ms"], library_ms=None)),
         kernel_entry("adam", "adam.cu", "maavss_tpu/ops/pallas_adam.py:49",
-                     train["adam"] + fullenc["adam"], k3),
+                     train["adam"] + fullenc["adam"] + graphed("adam"), k3),
         *(kernel_entry(f"epilogue_{n}", "epilogue.cu",
                        f"maavss_tpu/ops/pallas_epilogue.py:{line}",
-                       frames[f"epilogue_{n}"], k5[n])
+                       frames[f"epilogue_{n}"]
+                       + graphed(f"epilogue_{n}", (g32,)), k5[n])
           for n, line in (("stats", 141), ("apply", 159),
                           ("bwd_reduce", 183), ("bwd_dy", 206))),
         kernel_entry("mask_head", "mask_head.cu",
                      "maavss_tpu/ops/pallas_kernels.py:44",
-                     mask_train["mask_head"] + mask_serve["mask_head"],
+                     mask_train["mask_head"] + mask_serve["mask_head"]
+                     + graphed("mask_head", (g32,)),
                      head["fwd"]),
         kernel_entry("mask_head_bwd", "mask_head.cu",
                      "maavss_tpu/ops/pallas_kernels.py:44",
-                     mask_train["mask_head_bwd"], head["bwd"]),
+                     mask_train["mask_head_bwd"]
+                     + graphed("mask_head_bwd", (g32,)), head["bwd"]),
         kernel_entry("stft_feat", "stft_feat.cu",
                      "maavss_tpu/ops/pallas_kernels.py:101",
                      serve["stft"] + train["stft"] + fullenc["stft"]
                      + fullenc_serve["stft"] + frames["stft"]
                      + frames_serve["stft"] + mask_train["stft"]
-                     + mask_serve["stft"] + polar["stft"], stft),
+                     + mask_serve["stft"] + polar["stft"]
+                     + graphed("stft_feat"), stft),
         kernel_entry("polar", "spectral.cu",
                      "maavss_tpu/ops/pallas_kernels.py:143", polar["polar"],
                      k4["polar"]),
         *(kernel_entry(f"epilogue_{n}_bf16", "epilogue.cu",
                        f"maavss_tpu/ops/pallas_epilogue.py:{line}",
-                       bf16_launches[f"epilogue_{n}"], k5_bf16[n])
+                       bf16_launches[f"epilogue_{n}"]
+                       + graphed(f"epilogue_{n}", (g16,)), k5_bf16[n])
           for n, line in (("stats", 141), ("apply", 159),
                           ("bwd_reduce", 183), ("bwd_dy", 206))),
         kernel_entry("mask_mul", "spectral.cu",

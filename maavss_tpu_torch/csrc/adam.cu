@@ -7,7 +7,10 @@
 //   v' = b2 * v + (1 - b2) * g^2
 //   p' = p - lr * (m' / c1) / (sqrt(v' / c2) + eps)
 // with c1 = 1 - b1^count, c2 = 1 - b2^count computed by the caller after the
-// count increment. m, v and p are updated in place (the TPU kernel aliases
+// count increment and read from device memory (`bc` = [c1, c2]), so that a
+// CUDA graph that captured the launch reads each replay's values; the
+// launch's arguments never change from step to step. m, v and p are updated
+// in place (the TPU kernel aliases
 // them to its outputs). A leaf without a gradient (null g pointer) is updated
 // with g = 0, as optax does; its moments then decay.
 //
@@ -18,7 +21,7 @@
 // writes neighbouring addresses; 16-byte vector loads where the chunk is
 // aligned. The table is built once by the wrapper (the parameters and
 // moments never move; the gradient pointers are re-sent only when they
-// change).
+// change, and must not change once a CUDA graph holds the launch).
 //
 // What bounds it on Hopper: bytes. 4 reads and 3 writes of 4 bytes per
 // parameter, 1.03 GB for the 36.7 M-parameter fusion model, 0.31 ms at
@@ -34,22 +37,23 @@ namespace {
 constexpr int kThreads = 256;
 
 struct Hyper {
-  float lr, b1, omb1, b2, omb2, eps, c1, c2;
+  float lr, b1, omb1, b2, omb2, eps;
 };
 
 __device__ __forceinline__ void adam_one(float g, float& m, float& v, float& p,
-                                         const Hyper& h) {
+                                         const Hyper& h, float c1, float c2) {
   m = h.b1 * m + h.omb1 * g;
   v = h.b2 * v + h.omb2 * (g * g);
-  p = p - h.lr * (m / h.c1) / (sqrtf(v / h.c2) + h.eps);
+  p = p - h.lr * (m / c1) / (sqrtf(v / c2) + h.eps);
 }
 
 __global__ void __launch_bounds__(kThreads)
 adam_kernel(const int64_t* __restrict__ ptrs, const int64_t* __restrict__ gptrs,
             const int64_t* __restrict__ sizes,
             const int32_t* __restrict__ block_leaf,
-            const int64_t* __restrict__ block_start, int n_leaves, int chunk,
-            Hyper h) {
+            const int64_t* __restrict__ block_start,
+            const float* __restrict__ bc, int n_leaves, int chunk, Hyper h) {
+  const float c1 = bc[0], c2 = bc[1];
   const int leaf = block_leaf[blockIdx.x];
   const int64_t start = block_start[blockIdx.x];
   const int64_t size = sizes[leaf];
@@ -73,10 +77,10 @@ adam_kernel(const int64_t* __restrict__ ptrs, const int64_t* __restrict__ gptrs,
       float4 pp = *reinterpret_cast<float4*>(p + e);
       float4 gg = g ? *reinterpret_cast<const float4*>(g + e)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      adam_one(gg.x, mm.x, vv.x, pp.x, h);
-      adam_one(gg.y, mm.y, vv.y, pp.y, h);
-      adam_one(gg.z, mm.z, vv.z, pp.z, h);
-      adam_one(gg.w, mm.w, vv.w, pp.w, h);
+      adam_one(gg.x, mm.x, vv.x, pp.x, h, c1, c2);
+      adam_one(gg.y, mm.y, vv.y, pp.y, h, c1, c2);
+      adam_one(gg.z, mm.z, vv.z, pp.z, h, c1, c2);
+      adam_one(gg.w, mm.w, vv.w, pp.w, h, c1, c2);
       *reinterpret_cast<float4*>(m + e) = mm;
       *reinterpret_cast<float4*>(v + e) = vv;
       *reinterpret_cast<float4*>(p + e) = pp;
@@ -85,7 +89,7 @@ adam_kernel(const int64_t* __restrict__ ptrs, const int64_t* __restrict__ gptrs,
   }
   for (int64_t e = i + threadIdx.x; e < end; e += blockDim.x) {
     float mm = m[e], vv = v[e], pp = p[e];
-    adam_one(g ? g[e] : 0.0f, mm, vv, pp, h);
+    adam_one(g ? g[e] : 0.0f, mm, vv, pp, h, c1, c2);
     m[e] = mm;
     v[e] = vv;
     p[e] = pp;
@@ -97,22 +101,24 @@ adam_kernel(const int64_t* __restrict__ ptrs, const int64_t* __restrict__ gptrs,
 // ptrs: device int64 [3, n_leaves] (rows m, v, p); gptrs: device int64
 // [n_leaves] (0 = no gradient); sizes: device int64 [n_leaves]; block_leaf
 // (int32) and block_start (int64): device [n_blocks], block i updates
-// elements [block_start[i], block_start[i] + chunk) of leaf block_leaf[i].
-// Every leaf is fp32 and contiguous. Returns the cudaError_t of the launch.
+// elements [block_start[i], block_start[i] + chunk) of leaf block_leaf[i];
+// bc: device fp32 [2], the bias corrections [c1, c2] of this step. Every
+// leaf is fp32 and contiguous. Returns the cudaError_t of the launch.
 extern "C" int maavss_adam(const void* ptrs, const void* gptrs,
                            const void* sizes, const void* block_leaf,
-                           const void* block_start, int n_leaves, int n_blocks,
-                           int chunk, float lr, float b1, float omb1, float b2,
-                           float omb2, float eps, float c1, float c2,
-                           void* stream) {
+                           const void* block_start, const void* bc,
+                           int n_leaves, int n_blocks, int chunk, float lr,
+                           float b1, float omb1, float b2, float omb2,
+                           float eps, void* stream) {
   if (n_leaves < 1 || n_blocks < 1 || chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Hyper h{lr, b1, omb1, b2, omb2, eps, c1, c2};
+  Hyper h{lr, b1, omb1, b2, omb2, eps};
   adam_kernel<<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(ptrs), static_cast<const int64_t*>(gptrs),
       static_cast<const int64_t*>(sizes),
       static_cast<const int32_t*>(block_leaf),
-      static_cast<const int64_t*>(block_start), n_leaves, chunk, h);
+      static_cast<const int64_t*>(block_start), static_cast<const float*>(bc),
+      n_leaves, chunk, h);
   return static_cast<int>(cudaGetLastError());
 }

@@ -136,7 +136,9 @@ def library():
     lib.maavss_pgenc_train_bwd_scratch.argtypes = [i] * 4
     lib.maavss_pgenc_train_bwd_scratch.restype = ctypes.c_longlong
     f = ctypes.c_float
-    lib.maavss_adam.argtypes = [p] * 5 + [i, i, i] + [f] * 8 + [p]
+    # tables, [c1, c2], n_leaves, n_blocks, chunk, lr, b1, 1 - b1, b2, 1 - b2,
+    # eps, stream
+    lib.maavss_adam.argtypes = [p] * 6 + [i, i, i] + [f] * 6 + [p]
     lib.maavss_adam.restype = i
     ll = ctypes.c_longlong
     # ..., geometry, (nblk, chunk,) IO dtype, stream

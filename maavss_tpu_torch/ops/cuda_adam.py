@@ -11,19 +11,28 @@ in this order, fp32:
 with the bias corrections c1 = 1 - b1^count, c2 = 1 - b2^count taken by the
 caller after the count increment. Both versions update m, v and p in place.
 
+The optimizer keeps count and [c1, c2] as fp32 tensors on the leaves'
+device and advances them with `device_bias_corrections`, torch ops that a
+CUDA graph captures, so a replayed step reads its own step's corrections;
+`bias_corrections` is the same formula on the host, for the tests.
+
 `adam_multi_tensor` runs every leaf in ONE launch on CUDA tensors, from an
 `AdamTable` (device tables of the leaves' pointers, sizes and block map,
-built once: the parameters and moments never move). A leaf whose gradient
-is None is updated with g = 0, as optax does. On CPU tensors it runs the
-plain version leaf by leaf. There is no fallback from the kernel on the
-card.
+built once: the parameters and moments never move); the kernel reads
+[c1, c2] from device memory. A leaf whose gradient is None is updated with
+g = 0, as optax does. On CPU tensors it runs the plain version leaf by
+leaf. There is no fallback from the kernel on the card.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
+
+# a bias correction: a Python float, or a 0-d fp32 tensor on the leaves'
+# device (an element of the optimizer's [c1, c2])
+Scalar = Union[float, torch.Tensor]
 
 # elements per block of the kernel; a multiple of 4 keeps every block's
 # start 16-byte aligned inside a leaf
@@ -31,10 +40,14 @@ _CHUNK = 8192
 
 
 def adam_update_plain(g: Optional[torch.Tensor], m: torch.Tensor,
-                      v: torch.Tensor, p: torch.Tensor, c1: float, c2: float,
-                      lr: float, b1: float, b2: float, eps: float) -> None:
+                      v: torch.Tensor, p: torch.Tensor, c1: Scalar,
+                      c2: Scalar, lr: float, b1: float, b2: float,
+                      eps: float) -> None:
     """One leaf, in place: the fallback formula of
-    maavss_tpu/ops/pallas_adam.py:82-89. g None is g = 0."""
+    maavss_tpu/ops/pallas_adam.py:82-89. g None is g = 0. With c1 and c2
+    as device tensors both divisions are true divisions on the card (a
+    Python float divisor there becomes a multiply by its reciprocal), as
+    the kernel's are."""
     if g is None:
         g = torch.zeros_like(p)
     gd = g.to(m.dtype)
@@ -52,7 +65,7 @@ def _in_dtype(x: float, dtype: torch.dtype) -> float:
 
 def adam_update_low(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
                     vs: Sequence[torch.Tensor], ps: Sequence[torch.Tensor],
-                    c1: float, c2: float, lr: float, b1: float, b2: float,
+                    c1: Scalar, c2: Scalar, lr: float, b1: float, b2: float,
                     eps: float) -> None:
     """The formula of `adam_update_plain` over leaves of one dtype below
     float32 (the bf16 LSTM leaves under --dtype bfloat16, with moments of
@@ -60,11 +73,13 @@ def adam_update_low(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
     it there: every constant takes the moments' dtype first (b1, 1 - b1,
     b2, 1 - b2, lr and eps as JAX's weak-typed scalars, c1 and c2 by
     `astype`) and each operation rounds to it. One multi-tensor call an
-    operation over all the leaves."""
+    operation over all the leaves. c1 and c2 may be 0-d device tensors,
+    rounded there."""
     dtype = ms[0].dtype
-    b1r, k1, b2r, k2, c1, c2, lr, eps = (
-        _in_dtype(x, dtype) for x in (b1, 1.0 - b1, b2, 1.0 - b2, c1, c2, lr,
-                                      eps))
+    b1r, k1, b2r, k2, lr, eps = (
+        _in_dtype(x, dtype) for x in (b1, 1.0 - b1, b2, 1.0 - b2, lr, eps))
+    c1, c2 = (c.to(dtype) if isinstance(c, torch.Tensor) else
+              _in_dtype(c, dtype) for c in (c1, c2))
     gd = [g.to(dtype) for g in gs]
     torch._foreach_mul_(ms, b1r)
     torch._foreach_add_(ms, torch._foreach_mul(gd, k1))
@@ -85,7 +100,9 @@ class AdamTable:
     """Device tables of the kernel for a fixed list of (m, v, p) leaves:
     pointers [3, n] (rows m, v, p), sizes [n], and the block map (leaf,
     first element) of every block. The gradient pointers are a separate
-    [n] table, re-sent when they change."""
+    [n] table, re-sent when they change, until `freeze()`: a CUDA graph
+    that captured the launch reads that table, so from then on a moved
+    gradient raises."""
 
     def __init__(self, ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                  ps: Sequence[torch.Tensor]):
@@ -119,6 +136,14 @@ class AdamTable:
         self.block_start = torch.tensor(start_of, dtype=i64, device=device)
         self._gkey = None
         self.gptrs = None
+        self.frozen = False
+
+    def freeze(self) -> None:
+        """Keep the current gradient table for good (see the class)."""
+        if self.gptrs is None:
+            raise RuntimeError("adam kernel: no gradient table to freeze "
+                               "yet; take one step first")
+        self.frozen = True
 
     def grad_table(self, grads: Sequence[Optional[torch.Tensor]]
                    ) -> torch.Tensor:
@@ -131,6 +156,11 @@ class AdamTable:
                                  "shape on the leaves' device")
         key = tuple(0 if g is None else g.data_ptr() for g in grads)
         if key != self._gkey:
+            if self.frozen:
+                raise RuntimeError(
+                    "adam kernel: a gradient moved after a CUDA graph "
+                    "captured the optimizer; zero gradients in place "
+                    "(FusedAdam.zero_grad), never set them to None")
             self.gptrs = torch.tensor(key, dtype=torch.int64,
                                       device=self.device)
             self._gkey = key
@@ -139,23 +169,30 @@ class AdamTable:
 
 def adam_multi_tensor(grads: Sequence[Optional[torch.Tensor]],
                       ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
-                      ps: Sequence[torch.Tensor], c1: float, c2: float,
+                      ps: Sequence[torch.Tensor], bc: torch.Tensor,
                       lr: float, b1: float, b2: float, eps: float,
                       table: Optional[AdamTable] = None,
                       backend: str = "auto") -> None:
-    """Every leaf, in place. backend 'auto': the kernel for CUDA leaves (one
-    launch, through `table`, built here when None), the plain version for
-    CPU leaves. 'kernel': the kernel, and a CPU leaf raises."""
+    """Every leaf, in place, with the bias corrections `bc` = [c1, c2], a
+    float32 tensor of 2 on the leaves' device (the kernel reads it there;
+    `device_bias_corrections` makes it). backend 'auto': the kernel for
+    CUDA leaves (one launch, through `table`, built here when None), the
+    plain version for CPU leaves. 'kernel': the kernel, and a CPU leaf
+    raises."""
     if backend not in ("auto", "kernel"):
         raise ValueError(f"unknown adam backend {backend!r} (auto|kernel)")
     if not ps[0].is_cuda:
         if backend == "kernel":
             raise RuntimeError("the CUDA adam kernel needs CUDA tensors")
         for g, m, v, p in zip(grads, ms, vs, ps):
-            adam_update_plain(g, m, v, p, c1, c2, lr, b1, b2, eps)
+            adam_update_plain(g, m, v, p, bc[0], bc[1], lr, b1, b2, eps)
         return
     if table is None:
         table = AdamTable(ms, vs, ps)
+    if (bc.dtype != torch.float32 or bc.shape != (2,)
+            or bc.device != table.device or not bc.is_contiguous()):
+        raise ValueError("adam kernel: the bias corrections must be a "
+                         "contiguous float32 [c1, c2] on the leaves' device")
     gptrs = table.grad_table(grads)
     from maavss_tpu_torch.ops import _build
 
@@ -163,8 +200,8 @@ def adam_multi_tensor(grads: Sequence[Optional[torch.Tensor]],
     _build.launch("maavss_adam", table.device, (
         table.ptrs.data_ptr(), gptrs.data_ptr(), table.sizes.data_ptr(),
         table.block_leaf.data_ptr(), table.block_start.data_ptr(),
-        table.n, table.n_blocks, _CHUNK, lr, b1, 1.0 - b1, b2, 1.0 - b2,
-        eps, c1, c2))
+        bc.data_ptr(), table.n, table.n_blocks, _CHUNK, lr, b1, 1.0 - b1,
+        b2, 1.0 - b2, eps))
     adam_multi_tensor.launches += 1
 
 
@@ -173,7 +210,15 @@ adam_multi_tensor.launches = 0
 
 def bias_corrections(count: int, b1: float, b2: float) -> List[float]:
     """c1 = 1 - b1^count, c2 = 1 - b2^count in fp32, as
-    maavss_tpu/train/fused_adam.py:52-54 computes them."""
+    maavss_tpu/train/fused_adam.py:52-54 computes them, on the host."""
     c = torch.tensor(float(count), dtype=torch.float32)
     return [float(1.0 - torch.tensor(b, dtype=torch.float32) ** c)
             for b in (b1, b2)]
+
+
+def device_bias_corrections(count: torch.Tensor, betas: torch.Tensor
+                            ) -> torch.Tensor:
+    """[c1, c2] = 1 - [b1, b2]^count as one fp32 tensor on their device:
+    `bias_corrections`' ops on tensors (`count` a 0-d fp32 tensor, `betas`
+    the fp32 [b1, b2]), no host value read, so a CUDA graph captures it."""
+    return 1.0 - torch.pow(betas, count)

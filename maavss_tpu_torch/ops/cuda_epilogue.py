@@ -71,6 +71,9 @@ APPLY_WINDOWS = 4  # adjacent windows a thread of apply's vector path takes
 # 1 % of each other on an H100: tools/k5_probe_torch.py)
 APPLY_ROW_STEPS = 1
 _COUNTERS = {}  # device -> bwd reduce's per-channel int32 counters, kept 0
+# counters that a larger allocation replaced: a captured CUDA graph may
+# still hold their address, so they are never freed
+_RETIRED = []
 
 
 def _chan(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -230,9 +233,13 @@ def apply_plan(shape, itemsize: int, y_addr: int, out_addr: int,
 
 def _counters(device, c: int) -> torch.Tensor:
     """bwd reduce's per-channel counters on `device`: zeros that each call
-    leaves zero."""
+    leaves zero. A train step's first (eager) call allocates them, before a
+    CUDA graph captures the step (train/cuda_graph.py); a later, larger
+    allocation keeps the one it replaces alive in `_RETIRED`."""
     cnt = _COUNTERS.get(device)
     if cnt is None or cnt.numel() < c:
+        if cnt is not None:
+            _RETIRED.append(cnt)
         cnt = torch.zeros(max(c, 64), dtype=torch.int32, device=device)
         _COUNTERS[device] = cnt
     return cnt

@@ -4,7 +4,12 @@ one formula).
 
 The optimizer keeps `count` and, per parameter, the moments `m` and `v`;
 `step()` increments count, takes the bias corrections in fp32 and updates
-every parameter and its moments in place:
+every parameter and its moments in place. The count and the corrections
+[c1, c2] (`bc`) live on the parameters' device as fp32 tensors, advanced by
+torch ops (`device_bias_corrections`), so the same step runs eagerly or
+captured in a CUDA graph with the same bits, and no step reads a host value
+the graph would freeze; `count` the attribute is the host's copy, a Python
+int:
 
 - kernel 'pallas' (the JAX flag's name): ONE launch of the fused CUDA kernel
   over all float32 leaves (ops/cuda_adam.py); a CPU parameter raises. The
@@ -36,7 +41,7 @@ from maavss_tpu_torch.ops.cuda_adam import (
     adam_multi_tensor,
     adam_update_low,
     adam_update_plain,
-    bias_corrections,
+    device_bias_corrections,
 )
 
 
@@ -61,8 +66,12 @@ class FusedAdam:
             raise ValueError("FusedAdam needs at least one parameter")
         self.lr, self.b1, self.b2, self.eps = (float(learning_rate), b1, b2,
                                                eps)
-        self.kernel = resolve_opt_kernel(kernel, self.params[0].device)
-        self.count = 0
+        device = self.params[0].device
+        self.kernel = resolve_opt_kernel(kernel, device)
+        self._count = torch.zeros((), dtype=torch.float32, device=device)
+        self._betas = torch.tensor([b1, b2], dtype=torch.float32).to(device)
+        self.bc = device_bias_corrections(self._count, self._betas)
+        self._host_count = 0
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
         # the kernel's leaves (float32) and the plain formula's (below it)
@@ -72,29 +81,61 @@ class FusedAdam:
                      if p.dtype != torch.float32]
         self._table = None
 
+    @property
+    def count(self) -> int:
+        """Steps taken (the host's copy of the device count)."""
+        return self._host_count
+
+    @count.setter
+    def count(self, n: int) -> None:
+        self._host_count = int(n)
+        self._count.fill_(float(n))
+
+    @property
+    def count_tensor(self) -> torch.Tensor:
+        """The count as the steps read it: a 0-d fp32 tensor on the
+        parameters' device."""
+        return self._count
+
+    def note_steps(self, n: int) -> None:
+        """Add n to the host's count alone: steps that a CUDA-graph replay
+        took on the device (n < 0 takes back a capture's, which ran
+        nothing)."""
+        self._host_count += n
+
+    def freeze_grad_table(self) -> None:
+        """Pin the kernel's gradient table (`AdamTable.freeze`) once a CUDA
+        graph is to capture the update; nothing to pin on the plain
+        formula."""
+        if self._table is not None:
+            self._table.freeze()
+
     @torch.no_grad()
     def step(self) -> None:
-        self.count += 1
-        c1, c2 = bias_corrections(self.count, self.b1, self.b2)
-        hyper = (c1, c2, self.lr, self.b1, self.b2, self.eps)
+        self._host_count += 1
+        self._count.add_(1.0)
+        self.bc = device_bias_corrections(self._count, self._betas)
+        hyper = (self.lr, self.b1, self.b2, self.eps)
         if self.kernel != "pallas":
             for i in self._f32:
                 p = self.params[i]
-                adam_update_plain(p.grad, self.m[i], self.v[i], p, *hyper)
+                adam_update_plain(p.grad, self.m[i], self.v[i], p,
+                                  self.bc[0], self.bc[1], *hyper)
         elif self._f32:
             ms, vs, ps = ([col[i] for i in self._f32]
                           for col in (self.m, self.v, self.params))
             if self._table is None and ps[0].is_cuda:
                 self._table = AdamTable(ms, vs, ps)
-            adam_multi_tensor([p.grad for p in ps], ms, vs, ps, *hyper,
-                              table=self._table, backend="kernel")
+            adam_multi_tensor([p.grad for p in ps], ms, vs, ps, self.bc,
+                              *hyper, table=self._table, backend="kernel")
         for dtype in {self.params[i].dtype for i in self._low}:
             idx = [i for i in self._low if self.params[i].dtype == dtype]
             ps = [self.params[i] for i in idx]
             adam_update_low([p.grad if p.grad is not None else
                              torch.zeros_like(p) for p in ps],
                             [self.m[i] for i in idx],
-                            [self.v[i] for i in idx], ps, *hyper)
+                            [self.v[i] for i in idx], ps, self.bc[0],
+                            self.bc[1], *hyper)
 
     def zero_grad(self) -> None:
         """Zero every existing gradient in place (the kernel's gradient

@@ -19,6 +19,11 @@ model. The initialisation:
 `--dtype` picks the compute dtype (`compute_dtype`): float32, or bfloat16
 with flax's mixed-precision semantics (models/layers.py).
 
+`resolve_noise_schedule` (--noise_schedule) and `stack_batches` (the
+[K, B, ...] dispatch batches of --steps_per_dispatch) are the counterparts
+of maavss_tpu/train/setup.py:resolve_noise_schedule and make_stream's
+`stacked`.
+
 The numbers differ from a flax init with the same seed (different
 generators); `convert.from_flax` carries a flax init across exactly.
 """
@@ -26,8 +31,9 @@ generators); `convert.from_flax` carries a flax init across exactly.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -75,18 +81,67 @@ def check_supported(cfg: RunConfig, train: bool = False,
             (cfg.microbatch > 1, f"--microbatch {cfg.microbatch}",
              "M7-rest" if frames else "M3-rest"),
             (cfg.remat, "--remat", "M3-rest"),
-            (bool(cfg.noise_schedule), "--noise_schedule", "M3-rest"),
             (cfg.lr_schedule != "constant",
              f"--lr_schedule {cfg.lr_schedule}", "M3-rest (LR schedules)"),
-            (cfg.steps_per_dispatch > 1,
-             f"--steps_per_dispatch {cfg.steps_per_dispatch}",
-             "M5 (CUDA graphs)"),
             (cfg.fused_opt, "--fused_opt", "queue 1, 'Not carried'"),
         ]
     for missing, flag, item in todo:
         if missing:
             raise NotImplementedError(
                 f"{flag} is not ported to maavss_tpu_torch yet (ROADMAP {item})")
+
+
+def resolve_noise_schedule(cfg: RunConfig):
+    """--noise_schedule: None (constant --noise_scalar, reference parity —
+    av_dataset.py:217-220 applies a flat noise_std) or a step -> noise-std
+    float over the run's total optimizer steps (a copy of
+    maavss_tpu/train/setup.py:resolve_noise_schedule):
+
+      linear:<start>:<end>   straight-line anneal start -> end
+      cosine:<start>:<end>   half-cosine anneal start -> end
+
+    The trainer evaluates it on the host once a dispatch, at the global
+    step, and hands the value to the train step, which takes it as a 0-d
+    device tensor (train/steps.py); eval and the separators keep
+    cfg.noise_scalar."""
+    spec = cfg.noise_schedule
+    if not spec:
+        return None
+    try:
+        kind, start_s, end_s = spec.split(":")
+        start, end = float(start_s), float(end_s)
+    except ValueError:
+        raise SystemExit(
+            f"bad --noise_schedule {spec!r}: want linear:<start>:<end> "
+            "or cosine:<start>:<end>")
+    total = max(cfg.epochs * cfg.steps_per_epoch - 1, 1)
+    if kind == "linear":
+        return lambda step: start + (end - start) * min(step, total) / total
+    if kind == "cosine":
+        return lambda step: end + (start - end) * 0.5 * (
+            1.0 + math.cos(math.pi * min(step, total) / total))
+    raise SystemExit(
+        f"bad --noise_schedule {spec!r}: unknown kind {kind!r} "
+        "(linear|cosine)")
+
+
+def stack_batches(batches: Sequence[Mapping]) -> Dict:
+    """K batches -> one dispatch batch, each leaf stacked on a new leading
+    axis [K, B, ...] (make_stream's `stacked`,
+    maavss_tpu/train/setup.py:320-325): numpy leaves (audio, uint8 frames,
+    float16 phasegram rows) stay numpy in their dtype, tensor leaves are
+    stacked with torch.stack."""
+    keys = list(batches[0])
+    if any(list(b) != keys for b in batches):
+        raise ValueError("stack_batches: the batches hold different keys")
+    out = {}
+    for key in keys:
+        leaves = [b[key] for b in batches]
+        if any(isinstance(x, torch.Tensor) for x in leaves):
+            out[key] = torch.stack([torch.as_tensor(x) for x in leaves])
+        else:
+            out[key] = np.stack([np.asarray(x) for x in leaves])
+    return out
 
 
 def _check_mask_head(cfg: RunConfig) -> None:

@@ -3,8 +3,8 @@ train step (counterpart of maavss_tpu/train/steps.py:make_fusion_step,
 make_fusion_eval and make_frames_step, with their helpers).
 
 `make_fusion_step(model, cfg)` returns `step(state, batch, mode,
-generator=None) -> (state, metrics)`, the whole per-step pipeline on the
-model's device:
+generator=None, noise=None) -> (state, metrics)`, the whole per-step
+pipeline on the model's device:
 
     raw audio / frames -> STFT + noise + normalisation + phasegram rows
     -> windowed forward / backward with gradient accumulation
@@ -33,22 +33,33 @@ inactive input is multiplied by 0, as the reference zeroes its tensors. The
 metrics are those of `_watch_metrics` plus loss, a_loss and v_loss (the
 mean over windows), as 0-d tensors on the device.
 
+`noise` is the additive-noise std of the step (`_noise_resolver`): by
+default cfg.noise_scalar as a Python float, or under --noise_schedule a
+0-d fp32 tensor on the device (the JAX step's traced scalar,
+maavss_tpu/train/steps.py:_jit_step), which the trainer sets per dispatch
+from `resolve_noise_schedule`.
+
+`k_steps > 1` (default cfg.steps_per_dispatch, --steps_per_dispatch)
+returns instead `kstep(state, batches, mode, generator=None, noise=None)`:
+K full optimizer steps over batches stacked [K, B, ...], metrics stacked
+[K], one CUDA-graph replay a dispatch on the card (train/cuda_graph.py,
+the counterpart of maavss_tpu/train/steps.py:_multistep).
+
 `make_frames_step(model, cfg)` is the frames model's window-mode step: each
 of the num_seq windows encodes its num_frames raw frames and predicts the
 middle frame's hops_per_frame STFT columns (untrimmed, F = fft_len/2 + 1)
 and that attention frame; one `.backward()` per window, as the fusion scan
 step.
 
-Not ported yet, and raising NotImplementedError: `--microbatch > 1`,
-`--remat`, `--noise_schedule` (ROADMAP M3-rest), `--frames_encode full` and
-`--frames_halo` (M7-rest) and `--steps_per_dispatch > 1` (ROADMAP M5, CUDA
-graphs).
+Not ported yet, and raising NotImplementedError: `--microbatch > 1` and
+`--remat` (ROADMAP M3-rest), `--frames_encode full` and `--frames_halo`
+(M7-rest).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -60,10 +71,14 @@ from maavss_tpu_torch.models.shape_plan import (
 )
 from maavss_tpu_torch.ops.phasegram import phasegram_cumsum, phasegram_window
 from maavss_tpu_torch.ops.stft import stft_features
+from maavss_tpu_torch.train.cuda_graph import make_k_step
 from maavss_tpu_torch.train.setup import check_supported
 from maavss_tpu_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
+# an additive-noise std: a Python float (constant, 0.0 draws nothing) or a
+# 0-d fp32 tensor on the step's device (always draws)
+Noise = Union[float, torch.Tensor]
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -131,21 +146,23 @@ def frames_f32(frames: torch.Tensor) -> torch.Tensor:
 
 def _prep_stft_pair(audio: torch.Tensor, cfg: RunConfig,
                     generator: Optional[torch.Generator], trim_end: bool,
-                    max_norm: bool, noise_scalar: Optional[float] = None
+                    max_norm: bool, noise_scalar: Optional[Noise] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """audio [B, S] -> (x_stft, y_stft) [B, 2, T, F]: STFT ((magnitude,
     phase) features under --use_polar), optional per-example max-norm,
     then the additive-noise input x = y + noise * noise_scalar with the
     noise drawn from `generator`
-    (maavss_tpu/train/steps.py:294-321). A noise_scalar of 0 draws nothing:
-    x is then y, as the JAX step's y + 0 * noise is."""
+    (maavss_tpu/train/steps.py:294-321). A float noise_scalar of 0 draws
+    nothing: x is then y, as the JAX step's y + 0 * noise is. A 0-d tensor
+    always draws, whatever its value, as the JAX step's traced scalar
+    does; it gives the bits of the same value as a float."""
     if noise_scalar is None:
         noise_scalar = cfg.noise_scalar
     y = stft_features(audio, cfg.fft_len, cfg.hop, normalized=cfg.normalize_fft,
                       trim_end=trim_end, polar=cfg.use_polar)
     if max_norm:
         y = norm_per_example(y)
-    if noise_scalar == 0.0:
+    if not isinstance(noise_scalar, torch.Tensor) and noise_scalar == 0.0:
         return y, y
     noise = torch.randn(y.shape, generator=generator, dtype=y.dtype,
                         device=y.device)
@@ -184,6 +201,41 @@ def _masks(mode: int, objective_zeros: bool
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _noise_resolver(cfg: RunConfig, device):
+    """`noise -> Noise` for a train step of `cfg` on `device`: a given
+    tensor stands; without --noise_schedule a float stands and None is
+    cfg.noise_scalar; under it the value becomes a 0-d fp32 tensor on the
+    device, None that of cfg.noise_scalar (made once, as the JAX step's
+    cached default)."""
+    cache = []
+
+    def resolve(noise: Optional[Noise]) -> Noise:
+        if isinstance(noise, torch.Tensor):
+            return noise
+        if not cfg.noise_schedule:
+            return cfg.noise_scalar if noise is None else float(noise)
+        if noise is not None:
+            return torch.full((), float(noise), dtype=torch.float32,
+                              device=device)
+        if not cache:
+            cache.append(torch.full((), float(cfg.noise_scalar),
+                                    dtype=torch.float32, device=device))
+        return cache[0]
+
+    return resolve
+
+
+def _dispatch(step, cfg: RunConfig, k_steps: Optional[int], device):
+    """`step`, or for k_steps (default cfg.steps_per_dispatch) > 1 its
+    K-step dispatch (train/cuda_graph.py)."""
+    k = cfg.steps_per_dispatch if k_steps is None else int(k_steps)
+    if k < 1:
+        raise ValueError(f"k_steps / --steps_per_dispatch must be >= 1, got "
+                         f"{k}")
+    return make_k_step(step, k, device, bool(cfg.noise_schedule),
+                       cfg.noise_scalar)
 
 
 def _fusion_full_geometry(model, cfg: RunConfig) -> Tuple[int, int, int]:
@@ -251,12 +303,14 @@ def _windows(full: torch.Tensor, ns: int, hop: int, width: int
 
 
 def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
-                     device="cuda"):
+                     device="cuda", k_steps: Optional[int] = None):
     """Train step for the fusion model over `batch = {'audio': [B, S_total],
     'frames': [B, T_total, p, p]}` or, under --pgram_cache, `{'audio',
     'pgram': [B, T_total, p^2] float16}` (numpy arrays or tensors; moved to
     `device`), T_total = num_frames + num_seq frames at phasegram
-    resolution. `window_mode` defaults to cfg.window_mode.
+    resolution. `window_mode` defaults to cfg.window_mode; `k_steps`
+    (default cfg.steps_per_dispatch) > 1 returns the K-step dispatch of the
+    module docstring.
 
     With cfg.fusion_encode 'full' the step is the full-encode step
     (maavss_tpu/train/steps.py:493-618), whatever the window mode: both
@@ -284,12 +338,14 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
                          "(window|full)")
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
     coeff = cfg.loss_coeff
+    step_noise = _noise_resolver(cfg, device)
 
-    def prep(batch, generator):
+    def prep(batch, generator, noise):
         batch = _to_device(batch, device)
         x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
                                          trim_end=True,
-                                         max_norm=cfg.normalize_output_fft)
+                                         max_norm=cfg.normalize_output_fft,
+                                         noise_scalar=step_noise(noise))
         return x_full, y_full, _pflat_from_batch(batch, cfg)
 
     def losses(state, xs, ys, y_pg, masks):
@@ -305,9 +361,10 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
         return state, metrics
 
     def step_scan(state: TrainState, batch, mode: int,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None,
+                  noise: Optional[Noise] = None):
         state.model.train()
-        x_full, y_full, p_flat = prep(batch, generator)
+        x_full, y_full, p_flat = prep(batch, generator, noise)
         masks = _masks(mode, cfg.objective_zeros)
         state.zero_grad()
         macc = {k: torch.zeros((), device=x_full.device)
@@ -324,9 +381,10 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
         return finish(state, macc)
 
     def step_vectorized(state: TrainState, batch, mode: int,
-                        generator: Optional[torch.Generator] = None):
+                        generator: Optional[torch.Generator] = None,
+                        noise: Optional[Noise] = None):
         state.model.train()
-        x_full, y_full, p_flat = prep(batch, generator)
+        x_full, y_full, p_flat = prep(batch, generator, noise)
         masks = _masks(mode, cfg.objective_zeros)
 
         def fold(full):
@@ -350,9 +408,10 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
         loss_impl = fullenc_loss_impl()
 
         def step_full(state: TrainState, batch, mode: int,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      noise: Optional[Noise] = None):
             state.model.train()
-            x_full, y_full, p_flat = prep(batch, generator)
+            x_full, y_full, p_flat = prep(batch, generator, noise)
             a_mask, v_mask, ya_mask, _ = _masks(mode, cfg.objective_zeros)
             state.zero_grad()
             # encode exactly the span the windows cover: a longer tail would
@@ -382,30 +441,36 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
                                   "a_loss": a_loss.detach(),
                                   "v_loss": v_loss.detach()})
 
-        return step_full
-    return step_vectorized if window_mode == "vectorized" else step_scan
+        return _dispatch(step_full, cfg, k_steps, device)
+    return _dispatch(step_vectorized if window_mode == "vectorized"
+                     else step_scan, cfg, k_steps, device)
 
 
-def make_frames_step(model, cfg: RunConfig, device="cuda"):
+def make_frames_step(model, cfg: RunConfig, device="cuda",
+                     k_steps: Optional[int] = None):
     """Train step for the frames model over `batch = {'audio': [B, S_total],
     'frames': [B, T_total, H, W]}` (raw attention frames at the model's
     framesize, uint8 or float in [0, 1]; numpy arrays or tensors, moved to
-    `device`), window mode: `step(state, batch, mode, generator=None) ->
-    (state, metrics)`, metrics as `make_fusion_step`'s
-    (maavss_tpu/train/steps.py:782-949 with --frames_encode window and
-    --microbatch 1)."""
+    `device`), window mode: `step(state, batch, mode, generator=None,
+    noise=None) -> (state, metrics)`, metrics and `noise` as
+    `make_fusion_step`'s (maavss_tpu/train/steps.py:782-949 with
+    --frames_encode window and --microbatch 1); `k_steps` > 1 returns the
+    K-step dispatch."""
     check_supported(cfg, train=True, frames=True)
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
     coeff = cfg.loss_coeff
     mid = (ns - 1) // 2  # train_avse_frames.py:105 in the reference
+    step_noise = _noise_resolver(cfg, device)
 
     def step(state: TrainState, batch, mode: int,
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Noise] = None):
         state.model.train()
         batch = _to_device(batch, device)
         x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
                                          trim_end=False,
-                                         max_norm=cfg.normalize_output_fft)
+                                         max_norm=cfg.normalize_output_fft,
+                                         noise_scalar=step_noise(noise))
         frames = frames_f32(batch["frames"]).unsqueeze(2)  # [B,T,1,H,W]
         a_in, v_in, ya_mask, yv_mask = _masks(mode, cfg.objective_zeros)
         state.zero_grad()
@@ -428,7 +493,7 @@ def make_frames_step(model, cfg: RunConfig, device="cuda"):
         state.apply_gradients()
         return state, macc
 
-    return step
+    return _dispatch(step, cfg, k_steps, device)
 
 
 def make_fusion_eval(model, cfg: RunConfig, device="cuda"):

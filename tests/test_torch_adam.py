@@ -132,15 +132,16 @@ def test_multi_tensor_takes_plain_path_on_cpu():
     mr, vr = [torch.zeros_like(p) for p in ps], [torch.zeros_like(p)
                                                  for p in ps]
     adam_multi_tensor.launches = 0
-    adam_multi_tensor(grads, ms, vs, ps, 0.1, 0.001, LR, B1, B2, EPS)
+    adam_multi_tensor(grads, ms, vs, ps, torch.tensor([0.1, 0.001]), LR, B1,
+                      B2, EPS)
     for g, m, v, p in zip(grads, mr, vr, ref):
         adam_update_plain(g, m, v, p, 0.1, 0.001, LR, B1, B2, EPS)
     for a, b in zip(ps + ms + vs, ref + mr + vr):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert adam_multi_tensor.launches == 0
     with pytest.raises(RuntimeError, match="CUDA"):
-        adam_multi_tensor(grads, ms, vs, ps, 0.1, 0.001, LR, B1, B2, EPS,
-                          backend="kernel")
+        adam_multi_tensor(grads, ms, vs, ps, torch.tensor([0.1, 0.001]), LR,
+                          B1, B2, EPS, backend="kernel")
 
 
 def test_bias_corrections_match_fused_adam():
@@ -166,8 +167,8 @@ def test_kernel_matches_plain_on_card():
     table = AdamTable(ms, vs, ps)
     for count in (1, 2, 3):
         c1, c2 = bias_corrections(count, B1, B2)
-        adam_multi_tensor(grads, ms, vs, ps, c1, c2, LR, B1, B2, EPS,
-                          table=table, backend="kernel")
+        adam_multi_tensor(grads, ms, vs, ps, torch.tensor([c1, c2]).cuda(),
+                          LR, B1, B2, EPS, table=table, backend="kernel")
         for g, m, v, p in zip(grads, mr, vr, ref):
             adam_update_plain(g, m, v, p, c1, c2, LR, B1, B2, EPS)
     for a, b in zip(ps + ms + vs, ref + mr + vr):

@@ -1,8 +1,8 @@
 """tools/bench_torch.py, the port's counterpart of bench.py, on the CPU:
 its measure function at a tiny geometry (2 windows of 2 steps, the plain
 versions), the JSON line's keys against bench.py's, the variables the port
-lacks raising by their ROADMAP labels, and the refusal to time anything
-without a card."""
+lacks raising by their ROADMAP labels, MULTISTEP accepted, and the refusal
+to time anything without a card."""
 
 import ast
 import json
@@ -69,7 +69,6 @@ def test_line_records_the_fusion_defaults(line):
 
 
 @pytest.mark.parametrize("env, label", [
-    (dict(MAAVSS_BENCH_MULTISTEP="2"), "M5 (CUDA graphs)"),
     (dict(MAAVSS_BENCH_MICROBATCH="2"), "M3-rest"),
     (dict(MAAVSS_BENCH_MICROBATCH="2", MAAVSS_BENCH_REGIME="frames"),
      "M7-rest"),
@@ -84,6 +83,18 @@ def test_unported_variables_raise_by_label(env, label):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         bench_torch.bench_config(env, 2, TINY)
     assert label in str(err.value)
+
+
+def test_multistep_config_is_accepted():
+    """MAAVSS_BENCH_MULTISTEP=K (--steps_per_dispatch, ported) configures K
+    steps a dispatch (tests/test_torch_multistep.py runs it)."""
+    cfg, regime, _ = bench_torch.bench_config(
+        dict(MAAVSS_BENCH_MULTISTEP="2"), 2, TINY)
+    assert (cfg.steps_per_dispatch, regime) == (2, "fusion")
+    cfg, _, _ = bench_torch.bench_config(
+        dict(MAAVSS_BENCH_MULTISTEP="4", MAAVSS_BENCH_REGIME="frames"), 2,
+        TINY)
+    assert cfg.steps_per_dispatch == 4
 
 
 def test_config_follows_bench_py_defaults():

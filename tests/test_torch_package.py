@@ -81,7 +81,8 @@ def test_port_imports_without_jax():
         "'maavss_tpu_torch.train.fused_adam', 'maavss_tpu_torch.train.state', "
         "'maavss_tpu_torch.train.steps', 'maavss_tpu_torch.data.synthetic', "
         "'maavss_tpu_torch.ops.cuda_epilogue', "
-        "'maavss_tpu_torch.models.fusion_frames'}\n"
+        "'maavss_tpu_torch.models.fusion_frames', "
+        "'maavss_tpu_torch.train.cuda_graph', 'maavss_tpu_torch.ops.counters'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -231,8 +232,8 @@ def test_new_wrappers_count_no_launch_on_cpu():
     y, mu, var, yc = pgenc_train(x, w2, *vecs)
     pgenc_bwd(x, w2, yc, *vecs[1:], mu, var, torch.ones_like(y))
     p = [torch.randn(5, generator=g)]
-    adam_multi_tensor([None], [torch.zeros(5)], [torch.zeros(5)], p, 0.1,
-                      0.001, 1e-3, 0.9, 0.999, 1e-8)
+    adam_multi_tensor([None], [torch.zeros(5)], [torch.zeros(5)], p,
+                      torch.tensor([0.1, 0.001]), 1e-3, 0.9, 0.999, 1e-8)
     assert [c.launches for c in counters] == [0, 0, 0, 0]
 
 

@@ -61,6 +61,7 @@ from maavss_tpu_torch.train.setup import (
     build_fusion,
     build_fusion_state,
     check_supported,
+    stack_batches,
 )
 from maavss_tpu_torch.train.state import create_train_state
 from maavss_tpu_torch.train.steps import make_fusion_eval, make_fusion_step
@@ -240,8 +241,7 @@ def test_eval_matches_jax(jax_setup):
 
 
 @pytest.mark.parametrize("flags", [
-    dict(microbatch=2), dict(remat=True), dict(noise_schedule="linear:0.1:0"),
-    dict(lr_schedule="cosine"), dict(steps_per_dispatch=2),
+    dict(microbatch=2), dict(remat=True), dict(lr_schedule="cosine"),
     dict(fused_opt=True),
 ])
 def test_unported_train_flags_raise(flags):
@@ -252,17 +252,26 @@ def test_unported_train_flags_raise(flags):
         build_fusion_state(cfg, 2, "cpu")
 
 
-@pytest.mark.parametrize("flags", [dict(fusion_encode="full")])
+@pytest.mark.parametrize("flags", [
+    dict(fusion_encode="full"), dict(noise_schedule="linear:0.1:0"),
+    dict(steps_per_dispatch=2),
+])
 def test_ported_train_flags_take_a_step(flags):
     """Flags that no longer raise: the model and state build and take one
-    CPU step (tests/test_torch_fullenc.py holds the step against JAX)."""
+    CPU step, or under --steps_per_dispatch one stacked dispatch
+    (tests/test_torch_fullenc.py and tests/test_torch_multistep.py hold
+    them against JAX)."""
     cfg = RunConfig(**GEOMETRY).replace(**flags)
     check_supported(cfg, train=True)
     model, state = build_fusion_state(cfg, cfg.batch_size, "cpu",
                                       torch.Generator().manual_seed(0))
+    k = cfg.steps_per_dispatch
     batch = synthetic_av_batch(cfg, cfg.batch_size, seed=3)
+    if k > 1:
+        batch = stack_batches([batch] * k)
     state, m = make_fusion_step(model, cfg, device="cpu")(state, batch, 2)
-    assert state.step == 1 and np.isfinite(float(m["loss"]))
+    assert state.step == k and m["loss"].numel() == (k if k > 1 else 1)
+    assert np.all(np.isfinite(m["loss"].numpy()))
 
 
 def test_build_fusion_state_pairs_model_and_state():

@@ -17,10 +17,16 @@ MAAVSS_BENCH_MICROBATCH (1), MAAVSS_BENCH_MULTISTEP (1), MAAVSS_BENCH_REMAT
 MAAVSS_BENCH_OPT_KERNEL; MAAVSS_LSTM and MAAVSS_FULLENC_LOSS reach the model
 and step as in the JAX package. The model is built at the default RunConfig's
 widths with seeded random weights; one synthetic batch (seed 0) is moved to
-the device once and reused; mode 2. After 5 warm-up steps it times
+the device once and reused; mode 2. After 5 warm-up dispatches it times
 MAAVSS_BENCH_WINDOWS windows of MAAVSS_BENCH_STEPS steps, each closed by
 torch.cuda.synchronize() and a host fetch of the last step's loss, and
 reports the median window, the spread and the windows.
+
+MAAVSS_BENCH_MULTISTEP=K (--steps_per_dispatch) runs K optimizer steps a
+dispatch, one CUDA-graph replay on the card (train/cuda_graph.py; the first
+warm-up dispatch captures it), over K stacked copies of the batch, as
+bench.py:167-217 does: MAAVSS_BENCH_STEPS must be a multiple of K, a window
+is STEPS / K dispatches, and `kernels` stays per optimizer step.
 
 MAAVSS_BENCH_DTYPE defaults to bfloat16, as bench.py's does
 (bench.py:233): the number of record is the bf16 step;
@@ -31,10 +37,10 @@ Where it differs from bench.py (also listed under `differs_from_bench_py`
 in its JSON line):
 - MAAVSS_BENCH_OPT_KERNEL defaults to auto, so K3 (csrc/adam.cu) runs;
   xla is the plain formula.
-- MAAVSS_BENCH_MULTISTEP > 1, MAAVSS_BENCH_MICROBATCH > 1,
-  MAAVSS_BENCH_REMAT=1 and MAAVSS_BENCH_FUSED_OPT=1 raise by their ROADMAP
-  labels (check_supported); MAAVSS_BENCH_UNROLL has no counterpart (K1 runs
-  the recurrence in one launch) and is not read.
+- MAAVSS_BENCH_MICROBATCH > 1, MAAVSS_BENCH_REMAT=1 and
+  MAAVSS_BENCH_FUSED_OPT=1 raise by their ROADMAP labels (check_supported);
+  MAAVSS_BENCH_UNROLL has no counterpart (K1 runs the recurrence in one
+  launch) and is not read.
 - vs_baseline divides by benchmarks/baseline_pin.json (read as plain JSON);
   no fresh torch-CPU leg runs, so vs_baseline_fresh is null.
 - stft_impl, mask_impl and epilogue name the route the port takes (its
@@ -45,9 +51,10 @@ Its JSON line carries bench.py's keys and the torch and CUDA versions, the
 card's name and power limit (nvidia-smi), peak device memory, the median
 step's ms, and `kernels`: each hand-written kernel's launches per step over
 the timed windows, from the wrappers' counters (no profiler runs in them).
-`--profile` adds one step under torch.profiler after the windows
-(`profile`: device busy, idle share, launches, top kernels, and the host
-ops' self time, in all and for the top ops).
+`--profile` adds one dispatch (one step, or K under MULTISTEP) under
+torch.profiler after the windows (`profile`: device busy, idle share,
+launches, top kernels, and the host ops' self time, in all and for the top
+ops; `steps` the optimizer steps it covers).
 
 `--device cpu` runs the plain versions on the CPU, for the tests only: its
 value is then named av_clips_per_sec_cpu_plain, not a device metric. On
@@ -68,6 +75,7 @@ from typing import Dict, Mapping, Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+from maavss_tpu_torch.ops.counters import kernel_counters  # noqa: E402
 PIN = os.path.join(ROOT, "benchmarks", "baseline_pin.json")
 WARMUP = 5
 MODE = 2
@@ -77,8 +85,9 @@ EPILOGUE_KERNELS = ("partials_kernel", "stats_combine_kernel",
                     "bwd_combine_kernel", "dy_kernel")
 DIFFERS = (
     "MAAVSS_BENCH_OPT_KERNEL defaults to auto (K3; xla is the plain formula)",
-    "MULTISTEP > 1, MICROBATCH > 1, REMAT=1 and FUSED_OPT=1 raise by their "
-    "ROADMAP labels; UNROLL is not read",
+    "MICROBATCH > 1, REMAT=1 and FUSED_OPT=1 raise by their ROADMAP "
+    "labels; UNROLL is not read",
+    "MULTISTEP=K replays one CUDA graph of K steps a dispatch",
     "windows closed by torch.cuda.synchronize() and a host fetch of the loss",
     "vs_baseline from benchmarks/baseline_pin.json; no fresh torch-CPU leg",
     "stft_impl, mask_impl and epilogue name the route the port takes",
@@ -87,39 +96,6 @@ DIFFERS = (
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-def kernel_counters():
-    """{name: (object, attribute)} of every hand-written kernel's launch
-    counter: each wrapper adds one where it launches its kernel."""
-    from maavss_tpu_torch.ops import cuda_complex as cc
-    from maavss_tpu_torch.ops import cuda_epilogue as ep
-    from maavss_tpu_torch.ops.cuda_adam import adam_multi_tensor
-    from maavss_tpu_torch.ops.cuda_lstm import (
-        lstm_recurrence,
-        lstm_recurrence_bwd,
-    )
-    from maavss_tpu_torch.ops.cuda_mask_head import mask_head_apply
-    from maavss_tpu_torch.ops.cuda_pgenc import (
-        pgenc_bwd,
-        pgenc_layer,
-        pgenc_train,
-    )
-    from maavss_tpu_torch.ops.stft import stft_features
-
-    counters = {
-        "lstm_fwd": lstm_recurrence, "lstm_bwd": lstm_recurrence_bwd,
-        "pgenc_train": pgenc_train, "pgenc_bwd": pgenc_bwd,
-        "pgenc_eval": pgenc_layer, "adam": adam_multi_tensor,
-        "stft_feat": stft_features, "mask_head": mask_head_apply,
-        "mask_mul": cc.mask_mul, "magphase": cc.magphase_fwd,
-        "polar": cc.polar_spectrum_fwd, "epilogue_stats": ep.epilogue_stats,
-        "epilogue_apply": ep.epilogue_apply,
-        "epilogue_bwd_reduce": ep.epilogue_bwd_reduce,
-        "epilogue_bwd_dy": ep.epilogue_bwd_dy}
-    out = {name: (fn, "launches") for name, fn in counters.items()}
-    out["mask_head_bwd"] = (mask_head_apply, "bwd_launches")
-    return out
 
 
 def smi() -> Optional[Dict[str, str]]:
@@ -175,8 +151,9 @@ def _kernel_name(key: str) -> str:
     return m.group(1) if m else key
 
 
-def profile_step(fn) -> Dict:
-    """One call of `fn` under torch.profiler, after the timed windows:
+def profile_step(fn, steps: int = 1) -> Dict:
+    """One call of `fn` (a dispatch of `steps` optimizer steps) under
+    torch.profiler, after the timed windows:
     device busy ms (CUDA kernel time summed), the host-clock wall ms of the
     same window, the device's idle share, kernel launches, the 12 kernels
     with the most device time, and on the host the ops' self time summed
@@ -204,7 +181,7 @@ def profile_step(fn) -> Dict:
     host_top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]
     epi = [e for e in kernels if _kernel_name(e.key) in EPILOGUE_KERNELS]
     epi_ms = sum(e.device_time_total for e in epi) / 1e3
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
             "launches": sum(e.count for e in kernels),
             "top": [{"kernel": e.key[:80], "ms": e.device_time_total / 1e3,
@@ -227,6 +204,7 @@ def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
     returns the JSON line's fields (without the baseline ones). With
     `profile` (on the card), one more step runs after the windows under
     torch.profiler (`profile_step`)."""
+    import numpy as np
     import torch
 
     from maavss_tpu_torch.data.synthetic import (
@@ -253,6 +231,10 @@ def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg, regime, window_mode = bench_config(env, batch_size, geometry)
+    k_steps = cfg.steps_per_dispatch
+    if steps % k_steps:
+        raise SystemExit(f"MAAVSS_BENCH_STEPS={steps} must be a multiple "
+                         f"of MAAVSS_BENCH_MULTISTEP={k_steps}")
     init = torch.Generator().manual_seed(cfg.seed)
     if regime == "frames":
         _, state = build_frames_state(cfg, batch_size, device=dev,
@@ -267,11 +249,17 @@ def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
         batch = synthetic_av_batch(cfg, batch_size, seed=0)
         if cfg.pgram_cache:
             batch = with_pgram_rows(batch, dev)
+    if k_steps > 1:
+        batch = {k: np.stack([v] * k_steps) for k, v in batch.items()}
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     noise = torch.Generator(device=dev).manual_seed(0)
     log(f"bench_torch: regime={regime} batch={batch_size} "
         f"fusion_encode={cfg.fusion_encode} pgram={cfg.pgram_cache} "
-        f"device={dev}")
+        f"multistep={k_steps} device={dev}")
+
+    def last_loss(metrics) -> float:
+        # stacked [K] metrics under MULTISTEP: the last step's loss
+        return float(metrics["loss"].reshape(-1)[-1])
 
     def sync():
         if on_card:
@@ -282,17 +270,17 @@ def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
     for _ in range(warmup):
         state, metrics = step(state, batch, MODE, noise)
     sync()
-    float(metrics["loss"])
+    last_loss(metrics)
     counters = kernel_counters()
     for obj, attr in counters.values():
         setattr(obj, attr, 0)
     window_cps = []
     for w in range(windows):
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(steps // k_steps):
             state, metrics = step(state, batch, MODE, noise)
         sync()
-        loss = float(metrics["loss"])  # the host fetch closes the window
+        loss = last_loss(metrics)  # the host fetch closes the window
         dt = time.perf_counter() - t0
         window_cps.append(batch_size * steps / dt)
         log(f"bench_torch: window {w}: {window_cps[-1]:.1f} clips/s "
@@ -304,7 +292,8 @@ def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
     route = "kernel" if on_card else "plain"
     prof = None
     if profile and on_card:
-        prof = profile_step(lambda: step(state, batch, MODE, noise))
+        prof = profile_step(lambda: step(state, batch, MODE, noise),
+                            k_steps)
     return {
         "metric": ("av_clips_per_sec_per_chip" if on_card
                    else "av_clips_per_sec_cpu_plain"),
@@ -315,7 +304,7 @@ def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
         "step_ms": batch_size / med * 1e3,
         "batch": batch_size, "steps": steps, "warmup": warmup,
         "n_windows": windows, "mode": MODE, "dtype": cfg.dtype,
-        "regime": regime, "window_mode": window_mode, "multistep": 1,
+        "regime": regime, "window_mode": window_mode, "multistep": k_steps,
         "pgram_cache": cfg.pgram_cache,
         "lstm": env.get("MAAVSS_LSTM", "auto"),
         "microbatch": cfg.microbatch, "fused_opt": cfg.fused_opt,

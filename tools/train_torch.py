@@ -13,8 +13,18 @@ plain PyTorch versions on the CPU), then takes `-s` steps of
 the frames become their float16 phasegram rows, `with_pgram_rows`;
 `--fusion_encode full` takes the full-encode step). Prints
 one JSON line per step (loss, a_loss, v_loss, grad_norm, ms), then a final
-line with the steps, the mean step time over the steps after the first (the
-first builds the kernels) and clips/s.
+line with the steps, the mean step time over the steps after the first
+dispatch (the first builds the kernels, and under --steps_per_dispatch
+captures the CUDA graph) and clips/s.
+
+`--steps_per_dispatch K` stacks K batches a dispatch (`stack_batches`) and
+runs them as one K-step dispatch (one CUDA-graph replay on the card); `-s`
+must be a multiple of K, as the JAX Trainer requires of steps_per_epoch.
+Each optimizer step still prints its own line, its ms the dispatch's over
+K. `--noise_schedule linear:<start>:<end>` (or cosine) anneals the
+additive noise: the host evaluates the schedule at the global step before
+each dispatch, as maavss_tpu/train/trainer.py does, and the K steps of a
+dispatch share that value.
 
 Usage: python tools/train_torch.py [--model fusion|frames] [-s 3]
        [--device cuda] [model flags...]
@@ -28,6 +38,8 @@ Usage: python tools/train_torch.py [--model fusion|frames] [-s 3]
       --num_frames 2 --num_seq 2 -a 4 --fft_len 64 --framesize 24 -lr 1e-3
   `--dtype bfloat16` trains in bf16 (flax's mixed precision, as the JAX
   package's --dtype bfloat16), with every other flag.
+  python tools/train_torch.py -s 8 --steps_per_dispatch 4
+      --noise_schedule linear:0.1:0.0
 """
 
 from __future__ import annotations
@@ -59,10 +71,18 @@ def main(argv=None) -> None:
     from maavss_tpu_torch.train.setup import (
         build_frames_state,
         build_fusion_state,
+        resolve_noise_schedule,
+        stack_batches,
     )
     from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
 
     cfg = model_args(rest)
+    k = max(1, cfg.steps_per_dispatch)
+    if cfg.steps_per_epoch % k:
+        raise ValueError(
+            f"steps_per_epoch={cfg.steps_per_epoch} must be a multiple of "
+            f"steps_per_dispatch={k}")
+    noise_fn = resolve_noise_schedule(cfg)
     device = torch.device(own.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_torch: CUDA is not available (pass --device "
@@ -85,23 +105,35 @@ def main(argv=None) -> None:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    times = []
-    for i in range(cfg.steps_per_epoch):
+    def make_batch(i):
         batch = synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i,
                                    frame_size=frame_size)
         if cfg.pgram_cache and not frames_model:
             batch = with_pgram_rows(batch, device)
+        return batch
+
+    times = []
+    for i in range(0, cfg.steps_per_epoch, k):
+        if k > 1:
+            batch = stack_batches([make_batch(i + j) for j in range(k)])
+        else:
+            batch = make_batch(i)
+        noise = None if noise_fn is None else noise_fn(state.step)
         sync()
         t0 = time.perf_counter()
-        state, metrics = step(state, batch, 2, generator)
+        state, metrics = step(state, batch, 2, generator, noise=noise)
         sync()
-        ms = (time.perf_counter() - t0) * 1e3
-        times.append(ms)
-        line = {"step": state.step, "ms": ms}
-        line.update({k: float(metrics[k]) for k in
-                     ("loss", "a_loss", "v_loss", "grad_norm")})
-        print(json.dumps(line), flush=True)
-    steady = times[1:] or times
+        ms = (time.perf_counter() - t0) * 1e3 / k
+        host = {key: metrics[key].reshape(-1).tolist() for key in
+                ("loss", "a_loss", "v_loss", "grad_norm")}
+        for j in range(k):
+            line = {"step": state.step - k + j + 1, "ms": ms}
+            if noise is not None:
+                line["noise"] = noise
+            line.update({key: v[j] for key, v in host.items()})
+            print(json.dumps(line), flush=True)
+            times.append(ms)
+    steady = times[k:] or times
     mean_ms = sum(steady) / len(steady)
     print(json.dumps({
         "steps": len(times), "mean_step_ms": mean_ms,
@@ -110,7 +142,8 @@ def main(argv=None) -> None:
                    if device.type == "cuda" else "cpu"),
         "model": own.model, "window_mode": cfg.window_mode,
         "fusion_encode": cfg.fusion_encode, "pgram_cache": cfg.pgram_cache,
-        "batch": cfg.batch_size, "dtype": cfg.dtype}),
+        "batch": cfg.batch_size, "dtype": cfg.dtype,
+        "steps_per_dispatch": k, "noise_schedule": cfg.noise_schedule}),
         flush=True)
 
 
