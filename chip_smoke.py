@@ -176,6 +176,32 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    cases and the fp32 frames case run again with the default algorithms
    at the train gates, the fusion ones timed eager against graphed in
    turns with peak memory and one profile each.
+33. frames_full: --frames_encode full --frames_halo 1 --microbatch 2 on
+   the full-width frames flagship (batch 8), 3 steps in fp32 and in bf16
+   with every kernel against the plain versions from one state_dict under
+   the frames_train and bf16_train gates, exact launch counts per step
+   (each K5 kernel 2 x microbatch, K1-fwd and K1-bwd microbatch, K3 and the
+   STFT once); the duplicated-chunk identity (two equal halves: microbatch
+   2 gives microbatch 1's loss and parameters); frames_full_slice, one HTTP
+   request of 8 rows to a full-encode frames daemon against the plain
+   separator batch at relative L2 1e-4.
+34. fusion_microbatch: --microbatch 2 on the fusion flagship, 3
+   full-encode steps on float16 rows at batch 8 and one scan window step
+   at batch 16 (chunks of 8 rows), kernels
+   against the plain versions under the train gates, K1 and K2 microbatch
+   times the step's launches; the scan step at batch 8 (chunks of 4 rows,
+   where v_fc1.bias's step-1 gradient, rms 2.2e-9, fails the train gates)
+   with K2 on both sides under the train gates, and the kernels against
+   the plain versions with the spread of the plain step whose two
+   encoders run in fp64, rounded once to fp32.
+35. frames_tuned: the tuned frames configuration (batch 256, full encode,
+   microbatch 2, bf16): K5's four kernels at its stage-0 and stage-1
+   shapes and K1-fwd and K1-bwd at its folded rows (B 512, T 16) against
+   their plain versions, timed (the kernels line's *_tuned entries); two
+   K = 2 graphed dispatches against 4 eager steps bit for bit under
+   cuDNN's deterministic algorithms, then timed with peak memory; K5 on an
+   fp32 y of 2.95e9 values (fp32 full encode at batch 256, microbatch 1),
+   past 2^31, against the plain versions in slices.
 
 Every phase that drives a train step or a serving batch counts the STFT
 kernel's launches exactly (one a step or a batch; none in stft_route) and
@@ -218,7 +244,8 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # dense bf16 products on the tensor cores (bf16 in, fp32 sums): the rate of
 # the JAX kernels' bf16 x bf16 -> fp32 dots, a second bound for the bf16
-# K1 and K2 lines (the kernels here compute in fp32)
+# K1 and K2 lines (the kernels here compute in fp32) and the bound of the
+# bf16 K1 entries at the tuned frames shapes (`_k1_at`)
 BF16_TC_FLOP_PER_S = 989e12
 ADAM_EPS = 1e-8  # the optimizer's eps (train/fused_adam.py)
 
@@ -453,7 +480,8 @@ def lstm_phase():
             bnd = bound_ms(*work)
             fp32 = dtype == torch.float32
             tc = None if fp32 else bound_ms(*work, BF16_TC_FLOP_PER_S)
-            lib_ms = cudnn_lstm_ms(xws, whs) if fp32 else None
+            # cuDNN's bf16 LSTM at the full-encode rows of batch 256
+            lib_ms = cudnn_lstm_ms(xws, whs) if fp32 or b == 1024 else None
             dev_ms, host_ms = split_ms(kernel) if fp32 else (None, None)
             # the serving path's launch: no gate activations written
             eval_dev_ms = split_ms(lambda: lstm_recurrence(
@@ -486,15 +514,17 @@ def cudnn_lstm_ms(xws, whs, d_in: int = 512):
 
 
 def _cudnn_lstm(xws, whs, d_in):
+    """cuDNN's nn.LSTM in the dtype of `xws`, with `whs` as weight_hh."""
     import torch
 
     b, t_len, four_h = xws[0].shape
+    dtype = xws[0].dtype
     lstm = torch.nn.LSTM(d_in, four_h // 4, bias=False, batch_first=True,
-                         bidirectional=True).cuda()
+                         bidirectional=True).cuda().to(dtype)
     with torch.no_grad():
         lstm.weight_hh_l0.copy_(whs[0].T)
         lstm.weight_hh_l0_reverse.copy_(whs[1].T)
-    return lstm, torch.randn(b, t_len, d_in, device="cuda")
+    return lstm, torch.randn(b, t_len, d_in, device="cuda", dtype=dtype)
 
 
 def cudnn_lstm_bwd_ms(xws, whs, dys, d_in: int = 512):
@@ -508,7 +538,7 @@ def cudnn_lstm_bwd_ms(xws, whs, dys, d_in: int = 512):
     lstm, x = _cudnn_lstm(xws, whs, d_in)
     x.requires_grad_(True)
     out, _ = lstm(x)
-    dy = torch.cat([d.float() for d in dys], dim=-1)
+    dy = torch.cat([d.to(out.dtype) for d in dys], dim=-1)
     leaves = (x, lstm.weight_hh_l0, lstm.weight_hh_l0_reverse)
     return cuda_ms(lambda: torch.autograd.grad(out, leaves, dy,
                                                retain_graph=True))
@@ -742,8 +772,9 @@ def lstm_bwd_phase():
                 n_bytes, 2 * t_len * 2 * 2 * b * h * 4 * h,
                 BF16_TC_FLOP_PER_S)
             lib_ms = dev_ms = host_ms = split_us = None
-            if fp32:
+            if fp32 or b == 1024:  # cuDNN's bf16 LSTM at B = 1024 too
                 lib_ms = cudnn_lstm_bwd_ms(xws, whs, dys)
+            if fp32:
                 dev_ms, host_ms = split_ms(kernel)
                 split_us = {k: v for k, v in kernel_us(kernel).items()
                             if k.startswith("lstm_bwd")}
@@ -2130,11 +2161,14 @@ def frames_train_phase(steps: int = 3):
     return want
 
 
-def frames_slice_phase():
-    """The full-width frames model (seeded random weights, eval mode)
-    behind the HTTP server: 6 requests of 1..8 rows of uint8 frames at
-    256^2, checked against the plain separator (the LSTM scan) at relative
-    L2 1e-4. Eval mode runs K1-fwd and no K5."""
+def frames_slice_phase(label="frames_slice", rows_list=(1, 8, 3, 5, 2, 7),
+                       **flags):
+    """The full-width frames model (seeded random weights, eval mode; cfg
+    `flags` over the defaults) behind the HTTP server: requests of
+    `rows_list` rows of uint8 frames at 256^2, checked against the plain
+    separator (the LSTM scan) at relative L2 1e-4. Eval mode runs K1-fwd
+    once a window and no K5; under --frames_encode full the trunk runs once
+    a batch (not a kernel of the port)."""
     import numpy as np
     import torch
 
@@ -2154,7 +2188,7 @@ def frames_slice_phase():
     from maavss_tpu_torch.train.setup import build_frames_model
 
     batch, tol = 8, 1e-4
-    cfg = RunConfig(batch_size=batch)
+    cfg = RunConfig(batch_size=batch, **flags)
     model = build_frames_model(cfg, batch, generator=torch.Generator()
                                .manual_seed(cfg.seed))
     ref = build_frames_model(cfg, batch, generator=torch.Generator()
@@ -2164,7 +2198,7 @@ def frames_slice_phase():
     serve = make_serving_fn(model, cfg, frames_model=True)
     serve_ref = _plain_k4(make_serving_fn(ref, cfg, frames_model=True))
     a_spec, v_spec = serving_input_specs(cfg, batch, frames_model=True)
-    rows_list = [1, 8, 3, 5, 2, 7]
+    rows_list = list(rows_list)
     requests = [random_serving_inputs(cfg, rows, frames_model=True,
                                       seed=200 + i)
                 for i, rows in enumerate(rows_list)]
@@ -2197,13 +2231,13 @@ def frames_slice_phase():
     batches = stats["batches"]
     if launches != [batches * cfg.num_seq, 0, 0, 0, 0, batches] \
             or batches < 1:
-        raise SystemExit(f"frames serving launches {launches} for "
+        raise SystemExit(f"{label} launches {launches} for "
                          f"{batches} batches of {cfg.num_seq} windows")
     worst = 0.0
     for (audio, frames), out in zip(requests, responses):
         rows = audio.shape[0]
         if out.shape != audio.shape or not np.all(np.isfinite(out)):
-            raise SystemExit(f"bad frames response {out.shape}")
+            raise SystemExit(f"{label}: bad response {out.shape}")
         pad_a = np.zeros(a_spec.shape, a_spec.dtype)
         pad_v = np.zeros(v_spec.shape, v_spec.dtype)
         pad_a[:rows], pad_v[:rows] = audio, frames
@@ -2211,16 +2245,16 @@ def frames_slice_phase():
                         torch.from_numpy(pad_v).cuda())[:rows].cpu().numpy()
         worst = max(worst, _rel_l2(out, exp))
     if worst > tol:
-        raise SystemExit(f"frames served audio vs plain separator rel L2 "
-                         f"{worst} > {tol}")
+        raise SystemExit(f"{label}: served audio vs plain separator rel "
+                         f"L2 {worst} > {tol}")
     lat = sorted(lat_ms)
-    phase("frames_slice", requests=len(requests), rows=rows_list,
+    phase(label, **flags, requests=len(requests), rows=rows_list,
           batches=batches, rel_l2_vs_plain=worst, tol=tol,
           p50_ms=statistics.median(lat),
           p90_ms=lat[min(len(lat) - 1, int(0.9 * len(lat)))],
           direct_batch8_ms=direct_ms, direct_batch8_plain_ms=direct_plain_ms,
           lstm_launches=launches[0], stft_launches=launches[5])
-    return {"stft": launches[5]}
+    return {"lstm_fwd": launches[0], "stft": launches[5]}
 
 
 def frames_golden_phase():
@@ -3005,20 +3039,13 @@ def _grab_step1_grads(state, model):
     return grads
 
 
-def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
-                           kernel_features=False):
-    """The step-1 gradients of the plain versions once more, from `ref`'s
-    state_dict, on `batch` with its rows in reverse order and with the
-    batch statistics of every TorchBatchNorm summed in fp64: the same
-    gradients in exact arithmetic, every sum over the batch (weight
-    gradients, the loss) taken in another fp32 order, and the statistics,
-    whose E[x^2] - E[x]^2 cancels digits, without their fp32 rounding. How
-    far these stand from the plain versions' is how far the rounding of one
-    correct fp32 step moves its gradients."""
-    import numpy as np
+def _plain_twin(cfg, ref, frames_model, k2_plain=True,
+                kernel_features=False):
+    """(model, state, grads, step): the plain versions once more, from
+    `ref`'s state_dict (as `_train_pair` builds them), with the dict that
+    their next update fills with the step-1 gradients (`_grab_step1_grads`)."""
     import torch
 
-    from maavss_tpu_torch.models import layers
     from maavss_tpu_torch.train import setup
     from maavss_tpu_torch.train.state import create_train_state
     from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
@@ -3035,6 +3062,27 @@ def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
         alt, plain_cfg, device="cuda"), kernel_features)
     if frames_model:
         step = _plain_k5(step)
+    return alt, alt_state, grads, step
+
+
+def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
+                           kernel_features=False):
+    """The step-1 gradients of the plain versions once more, from `ref`'s
+    state_dict, on `batch` with its rows in reverse order and with the
+    batch statistics of every TorchBatchNorm summed in fp64 (under
+    --microbatch the rows reversed within each chunk): the same
+    gradients in exact arithmetic, every sum over the batch (weight
+    gradients, the loss) taken in another fp32 order, and the statistics,
+    whose E[x^2] - E[x]^2 cancels digits, without their fp32 rounding. How
+    far these stand from the plain versions' is how far the rounding of one
+    correct fp32 step moves its gradients."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.models import layers
+
+    _, alt_state, grads, step = _plain_twin(cfg, ref, frames_model, k2_plain,
+                                            kernel_features)
 
     def bn_fp64(self, x):
         bn = self.BatchNorm_0
@@ -3050,11 +3098,17 @@ def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
         mul = bn.weight * torch.rsqrt(var + self.EPS)
         return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
 
+    def reverse_rows(v):
+        # within each --microbatch chunk, so that every chunk's BatchNorm
+        # sees the same rows
+        v = np.asarray(v)
+        chunks = v.reshape((cfg.microbatch, -1) + v.shape[1:])
+        return np.ascontiguousarray(chunks[:, ::-1].reshape(v.shape))
+
     bn_fp32 = layers.TorchBatchNorm.forward
     layers.TorchBatchNorm.forward = bn_fp64
     try:
-        step(alt_state, {k: np.ascontiguousarray(v[::-1])
-                         for k, v in batch.items()}, 2)
+        step(alt_state, {k: reverse_rows(v) for k, v in batch.items()}, 2)
     finally:
         layers.TorchBatchNorm.forward = bn_fp32
     torch.cuda.synchronize()
@@ -3062,7 +3116,8 @@ def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
 
 
 def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
-                 alt_grads, grad_rms_max=None, fed_by_gradient=False):
+                 alt_grads, grad_rms_max=None, fed_by_gradient=False,
+                 params_only=False):
     """The leaves after step 1, kernels (`model`) against plain (`ref`):
     each at relative L2 `tol` (enc_tol None: the fusion model, whose conv
     biases that feed a train-mode BatchNorm move within lr of each other)
@@ -3087,12 +3142,17 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
     sum, and where that noise reaches Adam's eps the two steps can move it
     apart by up to 2 lr, Adam's first step in opposite directions) and
     differs by more than lr may also pass by its gradient.
-    Returns the worst relative L2s and the leaves that passed by their
-    gradients."""
+    With `params_only`, the parameters alone (not BatchNorm's running
+    statistics). Returns the worst relative L2s and the leaves that passed
+    by their gradients."""
     import torch
 
     fed = set() if enc_tol is not None else set(model.bn_fed_biases())
-    sd, sd_ref = model.state_dict(), ref.state_dict()
+    if params_only:
+        sd, sd_ref = ({n: p.detach() for n, p in m.named_parameters()}
+                      for m in (model, ref))
+    else:
+        sd, sd_ref = model.state_dict(), ref.state_dict()
     worst = {"step1_worst_rel_l2": 0.0}
     if enc_tol is None:
         worst["step1_worst_bn_fed_bias_abs"] = 0.0
@@ -4097,17 +4157,20 @@ def _bf16_ratio(what, got, want, want32, ratio):
     return near / base
 
 
-def k5_bf16_phase():
-    """K5's four kernels on a bf16 y [B, C, T, H, W] (out, sel, g and dy in
-    bf16, every sum and BN expression in fp32) against their plain versions
-    at K5_SHAPES, gaussian and tied data (y rounded to 0.25: bf16 holds the
-    grid exactly, and about a third of the windows tie), and stats, apply
-    and bwd dy on a y one element into its storage (2-byte aligned: one
-    value a load). Gates: mu, var, rstd, dgamma, dbeta and k as the fp32
-    phase's (fp32 sums); sel exact; the tie routing exact (bwd dy with k = 0
-    is nonzero only where the gradient is routed: the same elements);
-    out and dy within one bf16 rounding (one ulp, relative 2^-7; dy also
-    1e-3 of its largest entry). Times on the gaussian data; bounds in bf16 bytes."""
+def _one_rounding(what, got, want, atol=0.0):
+    """Raise unless `got` is within one bf16 rounding (relative 2^-7) plus
+    `atol` of `want`; returns the largest difference."""
+    err = (got.float() - want.float()).abs()
+    if not bool((err <= atol + 2.0 ** -7 * want.float().abs()).all()):
+        raise SystemExit(f"{what}: {err.max().item()} past one bf16 "
+                         f"rounding")
+    return err.max().item()
+
+
+def _k5_bf16_check(where, y, gamma, beta, g_out, g_mu, g_var):
+    """K5's four kernels on a bf16 y against their plain versions under
+    k5_bf16_phase's gates; returns the errors by kernel and the kernels'
+    results (mu, var, rstd, out, sel, (dgamma, dbeta, k), dy)."""
     import torch
 
     from maavss_tpu_torch.ops.cuda_epilogue import (
@@ -4121,54 +4184,140 @@ def k5_bf16_phase():
         epilogue_stats_plain,
     )
 
+    mu, var, rstd = epilogue_stats(y)
+    for n, a, b in zip(("mu", "var", "rstd"), (mu, var, rstd),
+                       epilogue_stats_plain(y)):
+        _rel_check(f"K5 bf16 stats {n} {where}", a, b, 1e-5)
+    out, sel = epilogue_apply(y, gamma, beta, mu, rstd)
+    out_p, sel_p = epilogue_apply_plain(y, gamma, beta, mu, rstd)
+    torch.cuda.synchronize()
+    if out.dtype != torch.bfloat16 or not torch.equal(sel, sel_p):
+        raise SystemExit(f"K5 bf16 apply: sel differs at {where}")
+    errs = {"stats": 0.0,
+            "apply": _one_rounding(f"K5 bf16 out {where}", out, out_p)}
+    del out_p, sel_p
+    red = epilogue_bwd_reduce(g_out, sel, gamma, beta, mu, rstd, g_mu, g_var)
+    red_p = epilogue_bwd_reduce_plain(g_out, sel, gamma, beta, mu, rstd,
+                                      g_mu, g_var)
+    errs["bwd_reduce"] = max(
+        _rel_check(f"K5 bf16 bwd reduce {n} {where}", a, b, 1e-4)
+        for n, a, b in zip(("dgamma", "dbeta", "k"), red, red_p))
+    dy = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd, red[2])
+    dy_p = epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu, rstd,
+                                 red[2])
+    errs["bwd_dy"] = _one_rounding(f"K5 bf16 dy {where}", dy, dy_p,
+                                   1e-3 * dy_p.float().abs().max().item())
+    del dy_p
+    _k5_reduce_bits(where, (g_out, sel, gamma, beta, mu, rstd, g_mu, g_var))
+    k0 = torch.zeros_like(red[2])
+    hit = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd, k0) != 0
+    hit_p = epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu, rstd,
+                                  k0) != 0
+    if not torch.equal(hit, hit_p):
+        raise SystemExit(f"K5 bf16 tie routing differs at {where}")
+    return errs, (mu, var, rstd, out, sel, red, dy)
+
+
+def _k5_calls(y, gamma, beta, g_out, g_mu, g_var, res):
+    """{K5 kernel name: (kernel call, plain call)} on these inputs, and the
+    bytes and operations of each kernel's bound ({name: bytes}, {name:
+    operations}). `res` is the kernels' results on these inputs (mu, var,
+    rstd, out, sel, (dgamma, dbeta, k), dy)."""
+    from maavss_tpu_torch.ops.cuda_epilogue import (
+        epilogue_apply,
+        epilogue_apply_plain,
+        epilogue_bwd_dy,
+        epilogue_bwd_dy_plain,
+        epilogue_bwd_reduce,
+        epilogue_bwd_reduce_plain,
+        epilogue_stats,
+        epilogue_stats_plain,
+    )
+
+    mu, var, rstd, out, sel, red, dy = res
+    calls = {
+        "stats": (lambda: epilogue_stats(y),
+                  lambda: epilogue_stats_plain(y)),
+        "apply": (lambda: epilogue_apply(y, gamma, beta, mu, rstd),
+                  lambda: epilogue_apply_plain(y, gamma, beta, mu, rstd)),
+        "bwd_reduce": (
+            lambda: epilogue_bwd_reduce(g_out, sel, gamma, beta, mu, rstd,
+                                        g_mu, g_var),
+            lambda: epilogue_bwd_reduce_plain(g_out, sel, gamma, beta, mu,
+                                              rstd, g_mu, g_var)),
+        "bwd_dy": (
+            lambda: epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd,
+                                    red[2]),
+            lambda: epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu,
+                                          rstd, red[2])),
+    }
+    n_el, c = y.numel(), y.shape[1]
+    moved = {"stats": nbytes(y, mu, var, rstd),
+             "apply": nbytes(y, out, sel) + 4 * 4 * c,
+             "bwd_reduce": nbytes(g_out, sel) + 12 * 4 * c,
+             "bwd_dy": nbytes(y, g_out, sel, dy) + 8 * 4 * c}
+    ops = {"stats": 3 * n_el, "apply": 9 * n_el // 4,
+           "bwd_reduce": 8 * n_el // 4, "bwd_dy": 10 * n_el}
+    return calls, moved, ops
+
+
+def _k5_time(rep, y, gamma, beta, g_out, g_mu, g_var, res):
+    """Add to `rep` (by kernel name) each K5 kernel's and plain version's
+    times on these inputs (CUDA events; the device and host split), the
+    bytes and operations of its bound, and for stats torch.var_mean's
+    time (the biased per-channel statistics in one PyTorch call). `res` is
+    the kernels' results on these inputs."""
+    import torch
+
+    calls, moved, ops = _k5_calls(y, gamma, beta, g_out, g_mu, g_var, res)
+    for n, (kernel, plain) in calls.items():
+        dev_ms, host_ms = split_ms(kernel)
+        r = rep[n]
+        r["ms"] += cuda_ms(kernel)
+        r["plain_ms"] += cuda_ms(plain)
+        r["device_ms"] += dev_ms
+        r["host_ms"] += host_ms
+        r["bytes"] += moved[n]
+        r["flops"] += ops[n]
+    rep["stats"]["library_ms"] += cuda_ms(lambda: torch.var_mean(
+        y, dim=(0, 2, 3, 4), correction=0))
+
+
+def _k5_rep():
+    """An empty K5 record: the sums `_k5_time` adds to, by kernel."""
+    rep = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0,
+                   device_ms=0.0, host_ms=0.0)
+           for n in ("stats", "apply", "bwd_reduce", "bwd_dy")}
+    rep["stats"]["library_ms"] = 0.0
+    return rep
+
+
+def _k5_finish(rep):
+    """`rep` with each kernel's bound from its summed bytes and operations,
+    and library_ms None where there is no library call."""
+    for r in rep.values():
+        r["bound"] = bound_ms(r["bytes"], r["flops"])
+        r.setdefault("library_ms", None)
+    return rep
+
+
+def k5_bf16_phase():
+    """K5's four kernels on a bf16 y [B, C, T, H, W] (out, sel, g and dy in
+    bf16, every sum and BN expression in fp32) against their plain versions
+    at K5_SHAPES, gaussian and tied data (y rounded to 0.25: bf16 holds the
+    grid exactly, and about a third of the windows tie), and stats, apply
+    and bwd dy on a y one element into its storage (2-byte aligned: one
+    value a load). Gates: mu, var, rstd, dgamma, dbeta and k as the fp32
+    phase's (fp32 sums); sel exact; the tie routing exact (bwd dy with k = 0
+    is nonzero only where the gradient is routed: the same elements);
+    out and dy within one bf16 rounding (one ulp, relative 2^-7; dy also
+    1e-3 of its largest entry). Times on the gaussian data; bounds in bf16 bytes."""
+    import torch
+
     bf16 = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(16)
     names = ("stats", "apply", "bwd_reduce", "bwd_dy")
-    rep = {n: dict(err=0.0, ms=0.0, plain_ms=0.0, bytes=0, flops=0,
-                   device_ms=0.0, host_ms=0.0) for n in names}
-    rep["stats"]["library_ms"] = 0.0
-
-    def one_rounding(what, got, want, atol=0.0):
-        err = (got.float() - want.float()).abs()
-        if not bool((err <= atol + 2.0 ** -7 * want.float().abs()).all()):
-            raise SystemExit(f"{what}: {err.max().item()} past one bf16 "
-                             f"rounding")
-        return err.max().item()
-
-    def check(where, y, gamma, beta, g_out, g_mu, g_var):
-        mu, var, rstd = epilogue_stats(y)
-        for n, a, b in zip(("mu", "var", "rstd"), (mu, var, rstd),
-                           epilogue_stats_plain(y)):
-            _rel_check(f"K5 bf16 stats {n} {where}", a, b, 1e-5)
-        out, sel = epilogue_apply(y, gamma, beta, mu, rstd)
-        out_p, sel_p = epilogue_apply_plain(y, gamma, beta, mu, rstd)
-        torch.cuda.synchronize()
-        if out.dtype != bf16 or not torch.equal(sel, sel_p):
-            raise SystemExit(f"K5 bf16 apply: sel differs at {where}")
-        errs = {"stats": 0.0,
-                "apply": one_rounding(f"K5 bf16 out {where}", out, out_p)}
-        red = epilogue_bwd_reduce(g_out, sel, gamma, beta, mu, rstd, g_mu,
-                                  g_var)
-        red_p = epilogue_bwd_reduce_plain(g_out, sel, gamma, beta, mu, rstd,
-                                          g_mu, g_var)
-        errs["bwd_reduce"] = max(
-            _rel_check(f"K5 bf16 bwd reduce {n} {where}", a, b, 1e-4)
-            for n, a, b in zip(("dgamma", "dbeta", "k"), red, red_p))
-        dy = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd, red[2])
-        dy_p = epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu, rstd,
-                                     red[2])
-        errs["bwd_dy"] = one_rounding(
-            f"K5 bf16 dy {where}", dy, dy_p,
-            1e-3 * dy_p.float().abs().max().item())
-        _k5_reduce_bits(where, (g_out, sel, gamma, beta, mu, rstd, g_mu,
-                                g_var))
-        k0 = torch.zeros_like(red[2])
-        hit = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd, k0) != 0
-        hit_p = epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu, rstd,
-                                      k0) != 0
-        if not torch.equal(hit, hit_p):
-            raise SystemExit(f"K5 bf16 tie routing differs at {where}")
-        return errs, (mu, var, rstd, out, sel, red, dy)
+    rep = _k5_rep()
 
     for stage, shape in enumerate(K5_SHAPES):
         for ties in (False, True):
@@ -4177,7 +4326,8 @@ def k5_bf16_phase():
                 y = torch.round(y * 4.0) / 4.0
             y, g_out = y.to(bf16), g_out.to(bf16)
             where = f"stage {stage} {'ties' if ties else 'gaussian'}"
-            errs, res = check(where, y, gamma, beta, g_out, g_mu, g_var)
+            errs, res = _k5_bf16_check(where, y, gamma, beta, g_out, g_mu,
+                                       g_var)
             for n in names:
                 rep[n]["err"] = max(rep[n]["err"], errs[n])
             y4 = y.float().view(shape[:3] + (shape[3] // 2, 2,
@@ -4191,55 +4341,17 @@ def k5_bf16_phase():
                 yo = _at_offset(y)
                 if yo.data_ptr() % 4 == 0:
                     raise SystemExit("K5 bf16 unaligned check: y aligned")
-                check(f"{where} y at an odd offset", yo, gamma, beta, g_out,
-                      g_mu, g_var)
+                _k5_bf16_check(f"{where} y at an odd offset", yo, gamma,
+                               beta, g_out, g_mu, g_var)
                 phase("k5_bf16_unaligned", where=where,
                       y_offset_bytes=yo.data_ptr() % 16)
             if ties:
                 continue
-            mu, var, rstd, out, sel, red, dy = res
-            calls = {
-                "stats": (lambda: epilogue_stats(y),
-                          lambda: epilogue_stats_plain(y)),
-                "apply": (lambda: epilogue_apply(y, gamma, beta, mu, rstd),
-                          lambda: epilogue_apply_plain(y, gamma, beta, mu,
-                                                       rstd)),
-                "bwd_reduce": (
-                    lambda: epilogue_bwd_reduce(g_out, sel, gamma, beta, mu,
-                                                rstd, g_mu, g_var),
-                    lambda: epilogue_bwd_reduce_plain(g_out, sel, gamma, beta,
-                                                      mu, rstd, g_mu, g_var)),
-                "bwd_dy": (
-                    lambda: epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu,
-                                            rstd, red[2]),
-                    lambda: epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta,
-                                                  mu, rstd, red[2])),
-            }
-            n_el, c = y.numel(), shape[1]
-            moved = {"stats": nbytes(y, mu, var, rstd),
-                     "apply": nbytes(y, out, sel) + 4 * 4 * c,
-                     "bwd_reduce": nbytes(g_out, sel) + 12 * 4 * c,
-                     "bwd_dy": nbytes(y, g_out, sel, dy) + 8 * 4 * c}
-            ops = {"stats": 3 * n_el, "apply": 9 * n_el // 4,
-                   "bwd_reduce": 8 * n_el // 4, "bwd_dy": 10 * n_el}
-            for n in names:
-                ms, plain_ms = cuda_ms(calls[n][0]), cuda_ms(calls[n][1])
-                dev_ms, host_ms = split_ms(calls[n][0])
-                r = rep[n]
-                r["ms"] += ms
-                r["plain_ms"] += plain_ms
-                r["device_ms"] += dev_ms
-                r["host_ms"] += host_ms
-                r["bytes"] += moved[n]
-                r["flops"] += ops[n]
-            rep["stats"]["library_ms"] += cuda_ms(lambda: torch.var_mean(
-                y, dim=(0, 2, 3, 4), correction=0))
-    edges = _k5_edges(bf16, one_rounding)
+            _k5_time(rep, y, gamma, beta, g_out, g_mu, g_var, res)
+    edges = _k5_edges(bf16, _one_rounding)
     for n, err in edges.items():
         rep[n]["err"] = max(rep[n]["err"], err)
-    for n in names:
-        rep[n]["bound"] = bound_ms(rep[n]["bytes"], rep[n]["flops"])
-        rep[n].setdefault("library_ms", None)
+    _k5_finish(rep)
     phase("k5_epilogue_bf16", shapes=[list(s) for s in K5_SHAPES],
           **{n: {k: v for k, v in r.items() if k not in ("bytes", "flops")}
              for n, r in rep.items()},
@@ -4745,11 +4857,16 @@ def _graph_train_gates(label, d, state, ref_state, got, ref_metrics, lr):
     return rel, worst
 
 
-def _graph_case(label, frames_model, cfg, exact: bool):
-    """One case of the graphs phase (see graphs_phase); `exact`: with
-    cuDNN's deterministic algorithms, bit for bit, else cuDNN's default
-    ones, at the train gates, then timed and profiled. Returns its record
-    and the graphed dispatches' launches by counter name."""
+def _graph_case(label, frames_model, cfg, exact: bool, k: int = GRAPH_K,
+                dispatches: int = GRAPH_DISPATCHES, timed=None,
+                profiled: bool = True):
+    """One case of the graphs phase (see graphs_phase) of `dispatches`
+    dispatches of `k` steps; `exact`: with cuDNN's deterministic
+    algorithms, bit for bit, else cuDNN's default ones, at the train gates.
+    `timed` (default: the fusion cases with the default algorithms): then
+    timed, eager steps against dispatches in turns, with peak memory, and
+    with `profiled` profiled. Returns its record and the graphed
+    dispatches' launches by counter name."""
     import torch
 
     from maavss_tpu_torch.data.synthetic import (
@@ -4760,7 +4877,8 @@ def _graph_case(label, frames_model, cfg, exact: bool):
     from maavss_tpu_torch.train import setup
     from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
 
-    k = GRAPH_K
+    if timed is None:
+        timed = not exact and not frames_model
     torch.backends.cudnn.deterministic = exact
     if frames_model:
         build, make = setup.build_frames_state, make_frames_step
@@ -4779,12 +4897,12 @@ def _graph_case(label, frames_model, cfg, exact: bool):
     frame_size = cfg.framesize if frames_model else None
     batches = [synthetic_av_batch(cfg, cfg.batch_size, seed=i,
                                   frame_size=frame_size)
-               for i in range(k * GRAPH_DISPATCHES)]
+               for i in range(k * dispatches)]
     if cfg.pgram_cache:
         batches = [with_pgram_rows(b, "cuda") for b in batches]
     dispatches = [{key: torch.from_numpy(v).cuda() for key, v in
                    setup.stack_batches(batches[d * k:(d + 1) * k]).items()}
-                  for d in range(GRAPH_DISPATCHES)]
+                  for d in range(dispatches)]
     del batches
     noise_fn = setup.resolve_noise_schedule(cfg)
     counters = kernel_counters()
@@ -4838,7 +4956,7 @@ def _graph_case(label, frames_model, cfg, exact: bool):
                 f"{[float(m['loss']) for m in ref_metrics]}")
     if kstep.captures != 1:
         raise SystemExit(f"graphs {label}: {kstep.captures} captures over "
-                         f"{GRAPH_DISPATCHES} dispatches, want 1")
+                         f"{len(dispatches)} dispatches, want 1")
     if noise_fn is not None and len(set(noises)) < 2:
         raise SystemExit(f"graphs {label}: noise values {noises} do not "
                          f"change")
@@ -4847,14 +4965,16 @@ def _graph_case(label, frames_model, cfg, exact: bool):
                fusion_encode=None if frames_model else cfg.fusion_encode,
                window_mode=cfg.window_mode, mask_head=cfg.mask_head,
                use_polar=cfg.use_polar, noise=noises if noise_fn else
-               cfg.noise_scalar, k=k, dispatches=GRAPH_DISPATCHES,
+               cfg.noise_scalar, k=k, dispatches=len(dispatches),
+               frames_encode=cfg.frames_encode if frames_model else None,
+               microbatch=cfg.microbatch,
                captures=kstep.captures, cudnn_deterministic=exact,
                bit_equal=bit_equal,
                launches_per_step={n: c for n, c in per_step.items() if c})
     if not exact:
         out.update(loss_rel_diff=max(g[0] for g in gates),
                    params_of_adam_bound=max(g[1] for g in gates))
-    if not exact and not frames_model:
+    if timed:
         last = dispatches[-1]
 
         def eager():
@@ -4889,8 +5009,9 @@ def _graph_case(label, frames_model, cfg, exact: bool):
             step_ms=times, peak_memory_bytes=peaks,
             clips_per_s={n: cfg.batch_size / (min(t) / 1e3)
                          for n, t in times.items()})
-        for name, fn in (("eager", eager), ("graphed", graphed)):
-            profile_phase(f"graphs_profile_{label}_{name}", fn, calls=1)
+        if profiled:
+            for name, fn in (("eager", eager), ("graphed", graphed)):
+                profile_phase(f"graphs_profile_{label}_{name}", fn, calls=1)
     torch.backends.cudnn.deterministic = False
     return out, totals
 
@@ -4987,6 +5108,512 @@ def graphs_phase():
     return by_dtype
 
 
+# --frames_encode full, --frames_halo and --microbatch (frames_full,
+# fusion_microbatch, frames_tuned)
+FRAMES_FULL = dict(frames_encode="full", frames_halo=1, microbatch=2)
+# the JAX package's tuned frames configuration (its bench's frames regime at
+# BATCH=256 MICROBATCH=2 FRAMES_ENCODE=full, in bf16)
+TUNED = dict(batch_size=256, frames_encode="full", microbatch=2,
+             dtype="bfloat16")
+TUNED_K = 2  # optimizer steps a graphed dispatch in frames_tuned
+# the batch rows each slice of the plain K5 chain takes at the tuned and
+# the wide shapes (the plain chain's fp32 temporaries of the whole tensor
+# would not fit beside the kernels' results)
+K5_SLICE_ROWS = 16
+# stage 0 of the fp32 full-encode trunk at batch 256 and --microbatch 1:
+# 2.95e9 values, past 2^31
+K5_WIDE_SHAPE = (256, 16, 11, 256, 256)
+K5_NAMES = ("epilogue_stats", "epilogue_apply", "epilogue_bwd_reduce",
+            "epilogue_bwd_dy")
+
+
+def _frames_full_want(mb):
+    """Launches of one full-encode frames step at --microbatch mb: each K5
+    kernel 2 mb (stages 0 and 1 of each chunk's one trunk pass), K1-fwd and
+    K1-bwd mb (the heads once a chunk), K3 and the STFT once."""
+    return dict(lstm_fwd=mb, lstm_bwd=mb, adam=1, stft=1,
+                **{n: 2 * mb for n in K5_NAMES})
+
+
+def _duplicated_chunks(cfg):
+    """JAX's duplicated-chunk identity (tests/test_frames_fullseq.py:89-96)
+    at full width, kernels on both sides: a batch of two equal halves gives
+    at --microbatch 2 the step-1 loss of --microbatch 1 within 1e-5
+    relative (each chunk's BatchNorm sees the whole batch's statistics) and
+    the parameters within `_step1_close`'s frames gates (parameters only:
+    the running statistics take two updates against one by design)."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.train.setup import build_frames_state
+    from maavss_tpu_torch.train.steps import make_frames_step
+
+    half = synthetic_av_batch(cfg, cfg.batch_size // 2, seed=cfg.seed + 9,
+                              frame_size=cfg.framesize)
+    batch = {k: np.concatenate([v, v]) for k, v in half.items()}
+    runs, alt = {}, None
+    for mb in (1, 2):
+        c = cfg.replace(microbatch=mb)
+        model, state = build_frames_state(
+            c, c.batch_size, device="cuda",
+            generator=torch.Generator().manual_seed(c.seed))
+        if mb == 1:
+            alt = _reordered_step1_grads(c, model, batch, True)
+        grads = _grab_step1_grads(state, model)
+        state, m = make_frames_step(model, c, device="cuda")(state, batch, 2)
+        runs[mb] = (model, grads, float(m["loss"]))
+    rel = abs(runs[2][2] - runs[1][2]) / abs(runs[1][2])
+    if rel > 1e-5:
+        raise SystemExit(f"frames_full duplicated chunks: losses {runs[2][2]}"
+                         f" (mb 2) vs {runs[1][2]} (mb 1), rel {rel}")
+    worst = _step1_close("frames_full duplicated chunks", runs[2][0],
+                         runs[1][0], runs[2][1], runs[1][1],
+                         cfg.learning_rate, 1e-4, 2e-3, alt,
+                         params_only=True)
+    return dict(loss_mb2=runs[2][2], loss_mb1=runs[1][2], loss_rel_diff=rel,
+                **worst)
+
+
+def _launches(out):
+    """Each kernel's launches over a `_train_vs_plain` run."""
+    return {n: c * out["steps"] for n, c in out["launches_per_step"].items()}
+
+
+def frames_full_phase():
+    """--frames_encode full --frames_halo 1 --microbatch 2 on the full-width
+    frames flagship (framesize 256, batch 8, mode 2, noise_scalar 0): 3
+    train steps with every kernel against the plain versions from one
+    state_dict, in fp32 under the frames train gates (`_train_vs_plain`,
+    lr 1e-3) and in bf16 under the bf16 gates (`_bf16_train_vs_plain`, lr
+    1e-4); exact launch counts per step (`_frames_full_want`); the
+    duplicated-chunk identity (`_duplicated_chunks`); then one HTTP request
+    of 8 rows to a full-encode frames daemon, held against the plain
+    full-encode separator batch at relative L2 1e-4 (frames_full_slice).
+    Returns the launches by kernel of the fp32 and bf16 steps and of the
+    served batch."""
+    from maavss_tpu_torch.config import RunConfig
+
+    os.environ.pop("MAAVSS_S2D_MIN_HW", None)  # the default, 128
+    cfg = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=1e-3,
+                    **FRAMES_FULL)
+    want = _frames_full_want(cfg.microbatch)
+    fp32 = _train_vs_plain("frames_full fp32", cfg, True, want)
+    bf16, _ = _bf16_train_vs_plain(
+        "frames_full bf16", cfg.replace(dtype="bfloat16",
+                                        learning_rate=1e-4), True, want)
+    dup = _duplicated_chunks(cfg)
+    phase("frames_full", **FRAMES_FULL, fp32=fp32, bf16=bf16,
+          duplicated_chunks=dup)
+    served = frames_slice_phase("frames_full_slice", rows_list=(8,),
+                                frames_encode="full")
+    return _launches(fp32), _launches(bf16), served
+
+
+def _pre_activations(linear):
+    """A list that every later forward of `linear` appends its output to
+    (the pre-activation of the LeakyReLU that follows it)."""
+    outs = []
+    linear.register_forward_hook(
+        lambda mod, args, out: outs.append(out.detach()))
+    return outs
+
+
+def _fp64_encoders_step1_grads(cfg, ref, batch, kernel_features):
+    """The plain versions' step-1 gradients once more, from `ref`'s
+    state_dict, with both encoders (the phasegram encoder, the stack K2
+    replaces, and the STFT encoder: conv, train-mode BatchNorm, activation)
+    computed in fp64 and rounded once to fp32 at their outputs and their
+    parameters' gradients: a more exact fp32 step. How far these stand from
+    the plain versions' is how far a rounding-sized change of the latents
+    moves the step's gradients. Returns the gradients and v_fc1's outputs
+    (`_pre_activations`)."""
+    import torch
+
+    from maavss_tpu_torch.models import layers
+
+    alt, alt_state, grads, step = _plain_twin(cfg, ref, False,
+                                              kernel_features=kernel_features)
+    outs = _pre_activations(alt.v_fc1)
+
+    def fp64(enc):
+        def forward(x):
+            x = x.double()
+            for spec, (conv_name, bn) in zip(enc.specs, enc.names):
+                conv = getattr(enc, conv_name)
+                if spec.transpose:
+                    raise SystemExit("fp64 encoders: a transposed conv")
+                bias = None if conv.bias is None else conv.bias.double()
+                x = conv._conv_forward(x, conv.weight.double(), bias)
+                if bn is not None:
+                    p = getattr(enc, bn).BatchNorm_0
+                    mean = x.mean(dim=(0, 2, 3))
+                    var = torch.clamp((x * x).mean(dim=(0, 2, 3))
+                                      - mean * mean, min=0.0)
+                    mul = p.weight.double() * torch.rsqrt(var + 1e-5)
+                    x = ((x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+                         + p.bias.double().view(1, -1, 1, 1))
+                x = layers.activate(x, spec.act, torch.float64)
+            return x.float()
+        return forward
+
+    for enc in (alt.phasegram_encoder, alt.stft_encoder):
+        enc.forward = fp64(enc)  # BatchNorm's running statistics unused
+    step(alt_state, batch, 2)
+    torch.cuda.synchronize()
+    return grads, outs
+
+
+def _k2_witness(cfg, want):
+    """The scan step of `cfg` (mode 2, on the STFT kernel's features on
+    both sides), where the kernels against the plain versions fail the
+    train gates on v_fc1's leaves (step-1 gradient rms 2.2e-9 for the
+    bias), held by two witnesses that the gap is K2's rounding carried
+    across a kink, and no kernel fault: (1) with K2 on both sides, every
+    other kernel against its plain version under the train gates
+    (`_train_vs_plain`, one step, exact launches); (2) the kernel step
+    against the plain step under `_step1_close`, whose spread is that of
+    the plain step with both encoders in fp64 (`_fp64_encoders_step1_grads`):
+    each leaf at relative L2 1e-4, or its gradient within twice that
+    spread and each element within Adam's step of the gradients'
+    difference; the losses at 1e-4. Reported beside: the reversed-rows
+    spread, and how many of v_fc1's outputs (the visual head's LeakyReLU
+    input) change sign against the plain step's, in the kernel step and in
+    the fp64 one."""
+    import torch
+
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+
+    what = f"fusion_microbatch scan b{cfg.batch_size}"
+    shared = _train_vs_plain(f"{what} K2 on both sides", cfg, False, want,
+                             steps=1, k2_plain=False, kernel_features=True)
+    model, state, step, ref, ref_state, ref_step = _train_pair(
+        cfg, False, True, kernel_features=True)
+    batch = synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed)
+    grads, ref_grads = (_grab_step1_grads(st, m)
+                        for st, m in ((state, model), (ref_state, ref)))
+    exact, exact_outs = _fp64_encoders_step1_grads(cfg, ref, batch, True)
+    rows = _reordered_step1_grads(cfg, ref, batch, False, True, True)
+    outs, ref_outs = _pre_activations(model.v_fc1), _pre_activations(
+        ref.v_fc1)
+    _, m = step(state, batch, 2)
+    _, rm = ref_step(ref_state, batch, 2)
+    torch.cuda.synchronize()
+    loss, ref_loss = float(m["loss"]), float(rm["loss"])
+    if abs(loss - ref_loss) > 1e-4 * abs(ref_loss):
+        raise SystemExit(f"{what}: loss {loss} vs plain {ref_loss}")
+
+    def flips(got):
+        return sum(int(((a > 0) != (b > 0)).sum().item())
+                   for a, b in zip(got, ref_outs))
+
+    kinks = dict(kernels=flips(outs), fp64_encoders=flips(exact_outs),
+                 of=sum(o.numel() for o in ref_outs))
+    phase("fusion_microbatch_witness", batch=cfg.batch_size,
+          v_fc1_sign_flips=kinks)
+    worst = _step1_close(f"{what} (spread: fp64 encoders)", model, ref,
+                         grads, ref_grads, cfg.learning_rate, 1e-4, None,
+                         exact)
+
+    def rel_l2(a, b):
+        return (torch.linalg.vector_norm(a - b)
+                / torch.linalg.vector_norm(b)).item()
+
+    for leaf in worst["step1_passed_by_gradient"]:
+        leaf["reversed_rows_spread"] = rel_l2(rows[leaf["leaf"]],
+                                              ref_grads[leaf["leaf"]])
+    return dict(batch=cfg.batch_size, loss=loss, plain_loss=ref_loss,
+                k2_on_both_sides={k: v for k, v in shared.items()
+                                  if k.startswith("step1")},
+                v_fc1_sign_flips=kinks, vs_plain=worst)
+
+
+def fusion_microbatch_phase():
+    """--microbatch 2 on the full-width fusion flagship (mode 2, lr 1e-3,
+    noise 0): 3 steps of --fusion_encode full --pgram_cache at batch 8 (the
+    bench's regime; both sides on the STFT kernel's features, as
+    fullenc_train) and one scan window step at batch 16 (chunks of 8 rows,
+    the train phase's batch), each with every kernel against the plain
+    versions from one state_dict under the train gates
+    (`_train_vs_plain`); exact launch counts per step: K1 and K2 mb times
+    the step's at --microbatch 1, K3 and the STFT once. A scan step of
+    4-row chunks fails those gates with or without --microbatch, by
+    conditioning, not by a kernel (tools/fusion_step1_probe_torch.py
+    --batch 4: v_fc1.bias, whose step-1 gradient has an rms of 2.2e-9,
+    under Adam's eps, moves 3.8e-4 relative with K2 in place of ConvStack
+    and 0.45 for a 1e-7 relative change of the visual input; PERF.md
+    §7): the scan step at batch 8 is held by `_k2_witness`."""
+    from maavss_tpu_torch.config import RunConfig
+
+    mb = 2
+    per_chunk = ("lstm_fwd", "lstm_bwd", "pgenc_train", "pgenc_bwd")
+    cfg = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=1e-3,
+                    fusion_encode="full", pgram_cache=True, microbatch=mb)
+    full = _train_vs_plain(
+        "fusion_microbatch full", cfg, False,
+        {n: c * mb if n in per_chunk else c
+         for n, c in _fullenc_want().items()}, kernel_features=True)
+    ns = cfg.num_seq
+    scan_want = dict(lstm_fwd=ns * mb, lstm_bwd=ns * mb,
+                     pgenc_train=10 * ns * mb, pgenc_bwd=10 * ns * mb,
+                     adam=1, stft=1)
+    scan_cfg = cfg.replace(fusion_encode="window", pgram_cache=False)
+    scan = _train_vs_plain("fusion_microbatch scan",
+                           scan_cfg.replace(batch_size=16), False, scan_want,
+                           steps=1)
+    witness = _k2_witness(scan_cfg, scan_want)
+    phase("fusion_microbatch", microbatch=mb, full=full, scan=scan,
+          scan_b8=witness)
+    return {n: _launches(full)[n] + _launches(scan)[n]
+            for n in full["launches_per_step"]}
+
+
+def _k5_sliced(where, y, gamma, beta, g_out, g_mu, g_var, timed):
+    """K5's four kernels on the whole of y against their plain versions:
+    stats and bwd reduce (sums over the batch) on the whole, apply and bwd
+    dy (per element, given the kernels' per-channel results) on slices of
+    K5_SLICE_ROWS batch rows, under k5_epilogue's gates (fp32) or
+    k5_epilogue_bf16's (bf16). With `timed`, a record as `_k5_time`'s,
+    the plain apply's and bwd dy's ms summed over the slices. Returns the
+    record (or None) and the errors by kernel."""
+    import torch
+
+    from maavss_tpu_torch.ops.cuda_epilogue import (
+        epilogue_apply,
+        epilogue_apply_plain,
+        epilogue_bwd_dy,
+        epilogue_bwd_dy_plain,
+        epilogue_bwd_reduce,
+        epilogue_bwd_reduce_plain,
+        epilogue_stats,
+        epilogue_stats_plain,
+    )
+
+    bf16 = y.dtype == torch.bfloat16
+    mu, var, rstd = epilogue_stats(y)
+    for n, a, b in zip(("mu", "var", "rstd"), (mu, var, rstd),
+                       epilogue_stats_plain(y)):
+        _rel_check(f"{where} stats {n}", a, b, 1e-5)
+    out, sel = epilogue_apply(y, gamma, beta, mu, rstd)
+    red = epilogue_bwd_reduce(g_out, sel, gamma, beta, mu, rstd, g_mu, g_var)
+    errs = {"stats": 0.0, "apply": 0.0, "bwd_dy": 0.0, "bwd_reduce": max(
+        _rel_check(f"{where} bwd reduce {n}", a, b, 1e-4)
+        for n, a, b in zip(("dgamma", "dbeta", "k"), red,
+                           epilogue_bwd_reduce_plain(g_out, sel, gamma, beta,
+                                                     mu, rstd, g_mu, g_var)))}
+    dy = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd, red[2])
+    rows = range(0, y.shape[0], K5_SLICE_ROWS)
+    plain = {"apply": 0.0, "bwd_dy": 0.0}
+    for r in rows:
+        part = slice(r, r + K5_SLICE_ROWS)
+        ys, gs, ss = y[part], g_out[part], sel[part]
+
+        def apply_plain():
+            return epilogue_apply_plain(ys, gamma, beta, mu, rstd)
+
+        def dy_plain():
+            return epilogue_bwd_dy_plain(ys, gs, ss, gamma, beta, mu, rstd,
+                                         red[2])
+
+        out_p, sel_p = apply_plain()
+        if not torch.equal(sel[part], sel_p):
+            raise SystemExit(f"{where} apply: sel differs in rows {r}+")
+        dy_p = dy_plain()
+        at = f"{where} rows {r}+"
+        if bf16:
+            errs["apply"] = max(errs["apply"], _one_rounding(
+                f"{at} out", out[part], out_p))
+            errs["bwd_dy"] = max(errs["bwd_dy"], _one_rounding(
+                f"{at} dy", dy[part], dy_p,
+                1e-3 * dy_p.float().abs().max().item()))
+        else:
+            errs["apply"] = max(errs["apply"], _rel_check(
+                f"{at} out", out[part], out_p, 1e-5))
+            errs["bwd_dy"] = max(errs["bwd_dy"], check_close(
+                f"{at} dy", dy[part], dy_p, 1e-4, 1e-4, scale_atol=True))
+        del out_p, sel_p, dy_p
+        if timed:
+            plain["apply"] += cuda_ms(apply_plain, reps=1, iters=3)
+            plain["bwd_dy"] += cuda_ms(dy_plain, reps=1, iters=3)
+    if not timed:
+        return None, errs
+    rep = _k5_rep()
+    calls, moved, ops = _k5_calls(y, gamma, beta, g_out, g_mu, g_var,
+                                  (mu, var, rstd, out, sel, red, dy))
+    for n in ("stats", "bwd_reduce"):  # sums over the batch: whole
+        plain[n] = cuda_ms(calls[n][1], reps=3, iters=3)
+    for n, (call, _) in calls.items():
+        r = rep[n]
+        r["ms"] = cuda_ms(call, reps=3, iters=5)
+        r["device_ms"], r["host_ms"] = split_ms(call, reps=3, iters=5)
+        r["plain_ms"], r["bytes"], r["flops"] = plain[n], moved[n], ops[n]
+        r["err"] = errs[n]
+    rep["stats"]["library_ms"] = cuda_ms(lambda: torch.var_mean(
+        y, dim=(0, 2, 3, 4), correction=0), reps=3, iters=5)
+    return _k5_finish(rep), errs
+
+
+def _k1_at(b, t_len, dtype, g):
+    """K1-fwd and K1-bwd (both directions, H 256) against their plain
+    versions at (b, t_len) in `dtype`, under k1_lstm's and k1_bwd's gates,
+    timed with their plain versions and cuDNN's nn.LSTM forward and
+    backward in the same dtype. The bound takes the operations at the rate
+    of their operands' type: in bf16 the tensor cores' (`bound`; the fp32
+    rate's beside, `bound_fp32_rate`). Returns the (forward, backward)
+    records."""
+    import torch
+
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        lstm_recurrence,
+        lstm_recurrence_bwd,
+        lstm_recurrence_bwd_plain,
+        lstm_recurrence_plain,
+    )
+
+    h, rev, fp32 = 256, [False, True], dtype == torch.float32
+    tol = 1e-5 if fp32 else 2.0 ** -7
+    xws, whs, dys = _k1_inputs(b, t_len, dtype, g, h)
+    where = f"K1 B={b} T={t_len} {dtype}"
+
+    def fwd():
+        return lstm_recurrence(xws, whs, rev, backend="kernel")
+
+    def fwd_plain():
+        return [lstm_recurrence_plain(x, w, r)
+                for x, w, r in zip(xws, whs, rev)]
+
+    got = fwd()
+    err_f = 0.0
+    for outs, refs in zip(got, fwd_plain()):
+        for a, w in zip(outs, refs):
+            err_f = max(err_f, check_close(f"{where} fwd", a, w, 1e-5, tol))
+    yss, css, actss = ([o[i] for o in got] for i in range(3))
+
+    def bwd():
+        return lstm_recurrence_bwd(actss, whs, yss, css, dys, rev,
+                                   backend="kernel")
+
+    def bwd_plain():
+        return [lstm_recurrence_bwd_plain(*a) for a in
+                zip(actss, whs, yss, css, dys, rev)]
+
+    grads = bwd()
+    err_b = 0.0
+    for (dxw, dwh), (dxw_r, dwh_r) in zip(grads, bwd_plain()):
+        err_b = max(err_b, check_close(f"{where} dxw", dxw, dxw_r, tol, tol,
+                                       scale_atol=not fp32),
+                    check_close(f"{where} dW_h", dwh, dwh_r,
+                                1e-4 if fp32 else tol,
+                                1e-4 if fp32 else tol, scale_atol=True))
+    recs = []
+    for err, kernel, plain, n_bytes, flops, lib in (
+            (err_f, fwd, fwd_plain,
+             2 * (nbytes(xws[0], whs[0]) + nbytes(got[0][0], got[0][1])),
+             2 * t_len * 2 * b * h * 4 * h, cudnn_lstm_ms),
+            (err_b, bwd, bwd_plain,
+             2 * (nbytes(xws[0], whs[0], yss[0], css[0], dys[0])
+                  + nbytes(*grads[0])),
+             2 * t_len * 2 * 2 * b * h * 4 * h,
+             lambda x, w: cudnn_lstm_bwd_ms(x, w, dys))):
+        dev_ms, host_ms = split_ms(kernel)
+        recs.append(dict(err=err, ms=cuda_ms(kernel),
+                         plain_ms=cuda_ms(plain, reps=3, iters=5),
+                         device_ms=dev_ms, host_ms=host_ms,
+                         bound=bound_ms(n_bytes, flops, FP32_FLOP_PER_S
+                                        if fp32 else BF16_TC_FLOP_PER_S),
+                         bound_fp32_rate=bound_ms(n_bytes, flops),
+                         library_ms=lib(xws, whs)))
+    return recs
+
+
+def _wide_k5_check():
+    """K5 on fp32 y of K5_WIDE_SHAPE (2.95e9 values: every index past 2^31
+    on the stats, apply, bwd reduce and bwd dy paths) against the plain
+    versions sliced as `_k5_sliced`; the apply plan's scalar path is held
+    at K5_EDGES in k5_epilogue."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    shape = K5_WIDE_SHAPE
+    c = shape[1]
+    y = torch.randn(shape, device="cuda", generator=g)
+    g_out = torch.randn(shape[:3] + (shape[3] // 2, shape[4] // 2),
+                        device="cuda", generator=g)
+    gamma = 0.8 * torch.randn(c, device="cuda", generator=g)
+    gamma[: c // 3] = -gamma[: c // 3].abs() - 0.1
+    beta = 0.3 * torch.randn(c, device="cuda", generator=g)
+    g_mu, g_var = (torch.randn(c, device="cuda", generator=g)
+                   for _ in range(2))
+    _, errs = _k5_sliced(f"K5 fp32 {list(shape)}", y, gamma, beta, g_out,
+                         g_mu, g_var, timed=False)
+    return dict(shape=list(shape), values=y.numel(),
+                past_2_31=y.numel() > 2 ** 31,
+                **{f"max_abs_err_{n}": e for n, e in errs.items()})
+
+
+def frames_tuned_phase():
+    """The tuned frames configuration (TUNED: batch 256, --frames_encode
+    full, --microbatch 2, bf16) at full width. First its kernels at its
+    shapes against their plain versions, timed (the `kernels` line's
+    *_tuned entries): K5's four at stages 0 and 1 of a chunk's trunk, y
+    [128, 16, 11, 256, 256] and [128, 32, 11, 128, 128] bf16
+    (`_k5_sliced`), and K1-fwd and K1-bwd at the chunk's folded rows, B =
+    128 x num_seq = 512, T = 16 latent channels, bf16 (`_k1_at`). Then
+    `_graph_case` on the configuration: two dispatches of TUNED_K steps
+    (the first runs eagerly and captures, the second replays) against
+    2 TUNED_K eager steps of a twin from one state_dict, bit for bit under
+    cuDNN's deterministic algorithms, launches TUNED_K times the eager
+    step's; then eager steps and dispatches timed in turns (those
+    algorithms), ms a step, clips/s, peak memory allocated and reserved
+    with both models resident, launches a step. Last, `_wide_k5_check`.
+    Returns the K5 and K1 records and the graphed launches by kernel."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+
+    os.environ.pop("MAAVSS_S2D_MIN_HW", None)  # the default, 128
+    cfg = RunConfig(**TUNED)
+    rows = cfg.batch_size // cfg.microbatch
+    t_enc = cfg.num_frames + cfg.num_seq - 1
+    g = torch.Generator(device="cuda").manual_seed(20)
+    k5 = None
+    for stage, (ch, hw) in enumerate(((16, 256), (32, 128))):
+        shape = (rows, ch, t_enc, hw, hw)
+        y, gamma, beta, g_out, g_mu, g_var = _k5_inputs(shape, g, False)
+        y, g_out = y.to(torch.bfloat16), g_out.to(torch.bfloat16)
+        rep, _ = _k5_sliced(f"K5 bf16 tuned stage {stage}", y, gamma, beta,
+                            g_out, g_mu, g_var, timed=True)
+        phase("frames_tuned_k5", stage=stage, shape=list(shape),
+              **{n: {k: v for k, v in r.items() if k not in ("bytes",
+                                                              "flops")}
+                 for n, r in rep.items()})
+        if k5 is None:
+            k5 = rep
+        else:  # the two stages' sums, as k5_epilogue's records
+            for n, r in rep.items():
+                for key in ("ms", "plain_ms", "device_ms", "host_ms",
+                            "bytes", "flops"):
+                    k5[n][key] += r[key]
+                k5[n]["err"] = max(k5[n]["err"], r["err"])
+                if r["library_ms"] is not None:
+                    k5[n]["library_ms"] += r["library_ms"]
+        del y, gamma, beta, g_out, g_mu, g_var, rep
+    _k5_finish(k5)  # the bounds of the two stages' summed work
+    b_rows = rows * cfg.num_seq
+    k1 = _k1_at(b_rows, 16, torch.bfloat16, g)
+    phase("frames_tuned_k1", B=b_rows, T=16, H=256, dtype="bfloat16",
+          fwd=k1[0], bwd=k1[1])
+    torch.cuda.empty_cache()
+    graph, totals = _graph_case("frames_tuned_b256_bf16", True, cfg,
+                                exact=True, k=TUNED_K, dispatches=2,
+                                timed=True, profiled=False)
+    torch.cuda.empty_cache()
+    wide = _wide_k5_check()
+    phase("frames_tuned", **TUNED, graph=graph, k5_wide=wide)
+    torch.cuda.empty_cache()
+    return k5, k1, totals
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -5033,9 +5660,17 @@ def main() -> None:
     route_launches, magphase_rep = stft_route_phase()
     graphs = graphs_phase()
     g32, g16 = graphs["float32"], graphs["bfloat16"]
+    full32, full16, full_serve = frames_full_phase()
+    fusion_mb = fusion_microbatch_phase()
+    k5_tuned, k1_tuned, tuned = frames_tuned_phase()
 
     def graphed(name, dtypes=(g32, g16)):
         return sum(g.get(name, 0) for g in dtypes)
+
+    def newer(name, runs=(full32, full16, full_serve, fusion_mb)):
+        """Launches of `name` in the --frames_encode full and --microbatch
+        phases."""
+        return sum(r.get(name, 0) for r in runs)
 
     if any(m in sys.modules for m in ("jax", "flax", "ml_dtypes",
                                       "maavss_tpu")):
@@ -5046,7 +5681,8 @@ def main() -> None:
         kernel_entry("lstm_fwd", "lstm_fwd.cu",
                      "maavss_tpu/ops/pallas_lstm.py:80",
                      serve["lstm"] + fullenc_serve["lstm_fwd"]
-                     + graphed("lstm_fwd"), k1),
+                     + frames_serve["lstm_fwd"] + graphed("lstm_fwd")
+                     + newer("lstm_fwd"), k1),
         kernel_entry("pgenc_eval", "pgenc_eval.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:171",
                      serve["pgenc"] + fullenc_serve["pgenc_eval"],
@@ -5054,11 +5690,11 @@ def main() -> None:
         kernel_entry("lstm_bwd", "lstm_bwd.cu",
                      "maavss_tpu/ops/pallas_lstm.py:105",
                      train["lstm_bwd"] + fullenc["lstm_bwd"]
-                     + graphed("lstm_bwd"), k1b),
+                     + graphed("lstm_bwd") + newer("lstm_bwd"), k1b),
         kernel_entry("pgenc_train", "pgenc_train.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:137",
                      train["pgenc_train"] + fullenc["pgenc_train"]
-                     + graphed("pgenc_train"),
+                     + graphed("pgenc_train") + newer("pgenc_train"),
                      dict(err=k2t["fwd_err"], ms=k2t["fwd_ms"],
                           plain_ms=k2t["fwd_plain_ms"], bound=k2t["fwd_bound"],
                           device_ms=k2t["fwd_device_ms"],
@@ -5066,17 +5702,19 @@ def main() -> None:
         kernel_entry("pgenc_bwd", "pgenc_train.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:184",
                      train["pgenc_bwd"] + fullenc["pgenc_bwd"]
-                     + graphed("pgenc_bwd"),
+                     + graphed("pgenc_bwd") + newer("pgenc_bwd"),
                      dict(err=k2t["bwd_err"], ms=k2t["bwd_ms"],
                           plain_ms=k2t["bwd_plain_ms"], bound=k2t["bwd_bound"],
                           device_ms=k2t["bwd_device_ms"],
                           host_ms=k2t["bwd_host_ms"], library_ms=None)),
         kernel_entry("adam", "adam.cu", "maavss_tpu/ops/pallas_adam.py:49",
-                     train["adam"] + fullenc["adam"] + graphed("adam"), k3),
+                     train["adam"] + fullenc["adam"] + graphed("adam")
+                     + newer("adam"), k3),
         *(kernel_entry(f"epilogue_{n}", "epilogue.cu",
                        f"maavss_tpu/ops/pallas_epilogue.py:{line}",
                        frames[f"epilogue_{n}"]
-                       + graphed(f"epilogue_{n}", (g32,)), k5[n])
+                       + graphed(f"epilogue_{n}", (g32,))
+                       + full32[f"epilogue_{n}"], k5[n])
           for n, line in (("stats", 141), ("apply", 159),
                           ("bwd_reduce", 183), ("bwd_dy", 206))),
         kernel_entry("mask_head", "mask_head.cu",
@@ -5094,14 +5732,15 @@ def main() -> None:
                      + fullenc_serve["stft"] + frames["stft"]
                      + frames_serve["stft"] + mask_train["stft"]
                      + mask_serve["stft"] + polar["stft"]
-                     + graphed("stft_feat"), stft),
+                     + graphed("stft_feat") + newer("stft"), stft),
         kernel_entry("polar", "spectral.cu",
                      "maavss_tpu/ops/pallas_kernels.py:143", polar["polar"],
                      k4["polar"]),
         *(kernel_entry(f"epilogue_{n}_bf16", "epilogue.cu",
                        f"maavss_tpu/ops/pallas_epilogue.py:{line}",
                        bf16_launches[f"epilogue_{n}"]
-                       + graphed(f"epilogue_{n}", (g16,)), k5_bf16[n])
+                       + graphed(f"epilogue_{n}", (g16,))
+                       + full16[f"epilogue_{n}"], k5_bf16[n])
           for n, line in (("stats", 141), ("apply", 159),
                           ("bwd_reduce", 183), ("bwd_dy", 206))),
         kernel_entry("mask_mul", "spectral.cu",
@@ -5110,6 +5749,18 @@ def main() -> None:
         kernel_entry("magphase", "spectral.cu",
                      "maavss_tpu/ops/pallas_kernels.py:101",
                      route_launches["magphase"], magphase_rep),
+        # the tuned frames configuration's shapes (frames_tuned)
+        *(kernel_entry(f"epilogue_{n}_bf16_tuned", "epilogue.cu",
+                       f"maavss_tpu/ops/pallas_epilogue.py:{line}",
+                       tuned[f"epilogue_{n}"], k5_tuned[n])
+          for n, line in (("stats", 141), ("apply", 159),
+                          ("bwd_reduce", 183), ("bwd_dy", 206))),
+        kernel_entry("lstm_fwd_bf16_tuned", "lstm_fwd.cu",
+                     "maavss_tpu/ops/pallas_lstm.py:80", tuned["lstm_fwd"],
+                     k1_tuned[0]),
+        kernel_entry("lstm_bwd_bf16_tuned", "lstm_bwd.cu",
+                     "maavss_tpu/ops/pallas_lstm.py:105", tuned["lstm_bwd"],
+                     k1_tuned[1]),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

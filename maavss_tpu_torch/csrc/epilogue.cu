@@ -253,13 +253,26 @@ struct BwdArgs {
   const float* g_var;
 };
 
+// The normalised selected value xhat = (s - mu) * rstd and the BatchNorm
+// output o = gamma * xhat + beta the backward reads LeakyReLU's slope from,
+// each operation rounded on its own as the plain version writes them (no
+// contraction into an FMA): where o rounds to within an ulp of 0, its sign
+// and so the slope that scales the gradient are then the plain version's.
+__device__ __forceinline__ float bn_xhat(float s, float mu, float rstd) {
+  return __fmul_rn(__fsub_rn(s, mu), rstd);
+}
+
+__device__ __forceinline__ float bn_out(float xhat, float gm, float bt) {
+  return __fadd_rn(__fmul_rn(gm, xhat), bt);
+}
+
 // (dsel, dsel * xhat) of one pooled element added to (s1, s2), from its
 // g and sel and the channel's gamma, beta, mu, rstd.
 __device__ __forceinline__ void bwd_acc(float g, float s, float gm, float bt,
                                         float mu, float rstd, float& s1,
                                         float& s2) {
-  const float xhat = (s - mu) * rstd;
-  const float o = gm * xhat + bt;
+  const float xhat = bn_xhat(s, mu, rstd);
+  const float o = bn_out(xhat, gm, bt);
   const float dsel = g * (o >= 0.0f ? 1.0f : kSlope);
   s1 += dsel;
   s2 += dsel * xhat;
@@ -542,8 +555,7 @@ dy_kernel(const T* __restrict__ y, const T* __restrict__ g,
   const float rstd = aff.rstd[c];
   const float gm = aff.gamma[c];
   const float s = to_f(sel[idx]);
-  const float xhat_sel = (s - mu) * rstd;
-  const float o = gm * xhat_sel + aff.beta[c];
+  const float o = bn_out(bn_xhat(s, mu, rstd), gm, aff.beta[c]);
   const float dsg = to_f(g[idx]) * (o >= 0.0f ? 1.0f : kSlope) * gm;
   const float k0 = k[c], k1 = k[C + c], k2 = k[2 * C + c], k3 = k[3 * C + c];
   const float2 r0 = load_pair(y + win.in_off, vec);

@@ -47,7 +47,7 @@ def make_serving_fn(model, cfg: RunConfig, frames_model: bool = False):
     [B, T_total, p^2] under --pgram_cache, and raw uint8 frames
     [B, T_total, framesize, framesize] for the frames model."""
     serve_cfg = cfg.replace(noise_scalar=0.0)
-    check_supported(serve_cfg, frames=frames_model)
+    check_supported(serve_cfg)
     windows = separate_frames_windows if frames_model else separate_windows
     visual_key = "pgram" if (cfg.pgram_cache and not frames_model) \
         else "frames"
@@ -68,7 +68,7 @@ def serving_input_specs(cfg: RunConfig, batch: int, frames_model: bool = False
     rows [batch, T_total, p^2] under --pgram_cache, and uint8 frames at
     framesize for the frames model (its wire format, converted on the
     device, maavss_tpu/exp/export.py:83-92)."""
-    check_supported(cfg, frames=frames_model)
+    check_supported(cfg)
     t_total = cfg.num_frames + cfg.num_seq
     s_total = cfg.hop * cfg.hops_per_frame * t_total
     audio = TensorSpec((batch, s_total), np.dtype(np.float32))

@@ -1,6 +1,6 @@
 """Separation + SI-SDR evaluation (counterpart of
 maavss_tpu/train/infer.py:make_separator and make_frames_separator, window
-mode and, for the fusion model, --fusion_encode full).
+mode and --fusion_encode / --frames_encode full).
 
 The fusion separator runs the fusion model over every sliding window of a
 clip (a Python loop in place of `lax.scan`), overlap-averages the predicted
@@ -12,7 +12,8 @@ input is frames or, where the batch holds `pgram`, precomputed phasegram
 rows (--pgram_cache). The frames separator runs the frames model over every
 window and writes each window's predicted middle-frame columns into the
 mixture's untrimmed spectrogram (columns no window predicts keep the
-mixture), then resynthesizes. Feature preparation is the train step's
+mixture), then resynthesizes; under --frames_encode full its visual trunk
+runs once over the clip's frames, as the full-encode train step's does. Feature preparation is the train step's
 `_prep_stft_pair`, as in the JAX package; under --use_polar the features
 are (magnitude, phase), averaged and stitched as such, and resynthesized
 through the polar kernel. Under --dtype bfloat16 the model's bf16 outputs
@@ -100,7 +101,10 @@ def separate_frames_windows(model, cfg: RunConfig,
     (uint8, or float in [0, 1])} -> (separated audio [B, S], the model's
     input features x_full [B, 2, T, F], F = fft_len/2 + 1). The model runs
     in eval mode (its mode is restored afterwards), as the JAX separator
-    applies it with train=False."""
+    applies it with train=False. Under --frames_encode full the visual
+    trunk runs once over all T_total frames of the request and window j
+    reads latent frames j .. j + num_frames (served clips carry no halo),
+    as maavss_tpu/train/infer.py:53-67 does."""
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
     mid = (ns - 1) // 2
     audio = batch["audio"]
@@ -111,9 +115,16 @@ def separate_frames_windows(model, cfg: RunConfig,
     was_training = model.training
     model.eval()
     try:
+        if cfg.frames_encode == "full":
+            v_lat = model.encode_frames(frames.transpose(1, 2))  # [B,C,T,S]
         for j in range(ns):
-            x_v = frames[:, j:j + nf].transpose(1, 2)  # [B,1,nf,H,W]
-            yh_mid, _, _ = model(x_full[:, :, j * a:(j + nf) * a], x_v)
+            xs = x_full[:, :, j * a:(j + nf) * a]
+            if cfg.frames_encode == "full":
+                yh_mid, _, _ = model.forward_with_visual_latent(
+                    xs, v_lat[:, :, j:j + nf])
+            else:
+                x_v = frames[:, j:j + nf].transpose(1, 2)  # [B,1,nf,H,W]
+                yh_mid, _, _ = model(xs, x_v)
             yh_full[:, :, (j + mid) * a:(j + mid + 1) * a] = yh_mid.to(
                 yh_full.dtype)
     finally:
@@ -131,7 +142,7 @@ def make_separator(model, cfg: RunConfig, frames_model: bool = False):
     the frames; raw [B, T_total, H, W] frames for the frames model);
     returns audio_out, audio_in, si_sdr, si_sdr_noisy and si_sdr_gain like
     the JAX separator."""
-    check_supported(cfg, frames=frames_model)
+    check_supported(cfg)
     windows = separate_frames_windows if frames_model else separate_windows
 
     @torch.inference_mode()
@@ -154,6 +165,6 @@ def make_separator(model, cfg: RunConfig, frames_model: bool = False):
 
 
 def make_frames_separator(model, cfg: RunConfig):
-    """The frames model's separator (maavss_tpu/train/infer.py:26-96,
-    window mode): `make_separator(model, cfg, frames_model=True)`."""
+    """The frames model's separator (maavss_tpu/train/infer.py:26-96):
+    `make_separator(model, cfg, frames_model=True)`."""
     return make_separator(model, cfg, frames_model=True)

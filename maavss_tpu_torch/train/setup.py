@@ -59,27 +59,19 @@ def compute_dtype(cfg: RunConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def check_supported(cfg: RunConfig, train: bool = False,
-                    frames: bool = False) -> None:
+def check_supported(cfg: RunConfig, train: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every option
     the port does not implement yet; `train=True` adds the train step's
-    flags, `frames=True` the frames model's options."""
+    flags. Both families share them: the frames family's own options
+    (--frames_encode, --frames_halo) are ported."""
     todo = [
         (cfg.rnn_cell != "lstm", f"--rnn_cell {cfg.rnn_cell}", "M2"),
         (cfg.compress_audio, "--compress_audio", "M9 (ops/audio.py)"),
         (cfg.attn_diff, "--attn_diff", "M4"),
         (cfg.dtype not in _DTYPES, f"--dtype {cfg.dtype}", "M5 (float16)"),
     ]
-    if frames:
-        todo += [
-            (cfg.frames_encode != "window",
-             f"--frames_encode {cfg.frames_encode}", "M7-rest"),
-            (cfg.frames_halo > 0, "--frames_halo", "M7-rest"),
-        ]
     if train:
         todo += [
-            (cfg.microbatch > 1, f"--microbatch {cfg.microbatch}",
-             "M7-rest" if frames else "M3-rest"),
             (cfg.remat, "--remat", "M3-rest"),
             (cfg.lr_schedule != "constant",
              f"--lr_schedule {cfg.lr_schedule}", "M3-rest (LR schedules)"),
@@ -225,7 +217,7 @@ def build_frames_model(cfg: RunConfig, batch_size: int,
     eval mode. With --mask_head the mask multiplies the middle frame of
     the window, (num_seq - 1) // 2, as the train step picks it."""
     _check_mask_head(cfg)
-    check_supported(cfg, frames=True)
+    check_supported(cfg)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     frame_size = frame_size or cfg.framesize
@@ -247,7 +239,7 @@ def build_frames_state(cfg: RunConfig, batch_size: int,
                        ) -> Tuple[AVFusionFramesModel, TrainState]:
     """(frames model, train state) on `device`: `build_frames_model` and
     Adam with the --opt_kernel gate; the model is left in train mode."""
-    check_supported(cfg, train=True, frames=True)
+    check_supported(cfg, train=True)
     model = build_frames_model(cfg, batch_size, frame_size, latent_channels,
                                device, generator)
     return model, create_train_state(model, cfg, device)

@@ -45,21 +45,27 @@ K full optimizer steps over batches stacked [K, B, ...], metrics stacked
 [K], one CUDA-graph replay a dispatch on the card (train/cuda_graph.py,
 the counterpart of maavss_tpu/train/steps.py:_multistep).
 
-`make_frames_step(model, cfg)` is the frames model's window-mode step: each
-of the num_seq windows encodes its num_frames raw frames and predicts the
-middle frame's hops_per_frame STFT columns (untrimmed, F = fft_len/2 + 1)
-and that attention frame; one `.backward()` per window, as the fusion scan
-step.
+`make_frames_step(model, cfg)` is the frames model's step. In window mode
+each of the num_seq windows encodes its num_frames raw frames and predicts
+the middle frame's hops_per_frame STFT columns (untrimmed, F = fft_len/2 +
+1) and that attention frame; one `.backward()` per window, as the fusion
+scan step. Under --frames_encode full the visual trunk runs once over the
+clip and the heads once over the B * num_seq latent windows (--frames_halo
+k real context frames on each side).
 
-Not ported yet, and raising NotImplementedError: `--microbatch > 1` and
-`--remat` (ROADMAP M3-rest), `--frames_encode full` and `--frames_halo`
-(M7-rest).
+`--microbatch M` (`_microbatch_accumulate`, both families, every step
+variant) runs the step's gradient pass over M sequential chunks of the
+batch and divides the summed gradients by M before the one optimizer
+update.
+
+Not ported yet, and raising NotImplementedError: `--remat` (ROADMAP
+M3-rest).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -302,6 +308,54 @@ def _windows(full: torch.Tensor, ns: int, hop: int, width: int
     return st.reshape((-1,) + st.shape[2:])
 
 
+def _loss_metrics(loss, a_loss, v_loss) -> Metrics:
+    return {"loss": loss.detach(), "a_loss": a_loss.detach(),
+            "v_loss": v_loss.detach()}
+
+
+def _microbatch_accumulate(state: TrainState, mb: int,
+                           leaves: Tuple[torch.Tensor, ...],
+                           chunk_pass: Callable[..., Metrics]
+                           ) -> Tuple[TrainState, Metrics]:
+    """The gradient pass and the one optimizer update of a train step,
+    over `mb` sequential chunks under --microbatch (counterpart of
+    maavss_tpu/train/steps.py:_microbatch_accumulate): zero the gradients,
+    run `chunk_pass(*chunk)`, one chunk's forward and backward(s) into
+    `.grad` returning its loss metrics, over the chunks of `leaves` (views
+    of B / mb rows along dim 0, in order), and divide the summed gradients
+    by mb once, at the end, as JAX sums the chunks' gradients and then
+    divides (scaling each chunk's loss by 1/mb instead rounds otherwise,
+    at mb = 3 and on the bf16 LSTM leaves). The metrics are the mean over
+    chunks, then `_watch_metrics` of the divided gradients. BatchNorm's
+    running statistics carry chunk to chunk, as they carry window to
+    window; its batch statistics, and the phasegram's global max-norm, are
+    then per chunk: the JAX step's documented deviation. With mb == 1 the
+    chunk is the batch."""
+    b = leaves[0].shape[0]
+    if b % mb:
+        raise ValueError(f"batch size {b} not divisible by microbatch {mb}")
+    state.zero_grad()
+    if mb == 1:
+        metrics = chunk_pass(*leaves)
+    else:
+        rows = b // mb
+        for i in range(mb):
+            m = chunk_pass(*(t[i * rows:(i + 1) * rows] for t in leaves))
+            m = {k: v / mb for k, v in m.items()}
+            # JAX sums from 0, and 0 + x is exact: the same bits
+            metrics = m if i == 0 else {k: metrics[k] + v
+                                        for k, v in m.items()}
+        by_dtype: Dict[torch.dtype, list] = {}
+        for p in state.model.parameters():
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            torch._foreach_div_(grads, mb)
+    metrics.update(_watch_metrics(state.model))
+    state.apply_gradients()
+    return state, metrics
+
+
 def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
                      device="cuda", k_steps: Optional[int] = None):
     """Train step for the fusion model over `batch = {'audio': [B, S_total],
@@ -338,6 +392,7 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
                          "(window|full)")
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
     coeff = cfg.loss_coeff
+    mb = max(1, int(cfg.microbatch))
     step_noise = _noise_resolver(cfg, device)
 
     def prep(batch, generator, noise):
@@ -355,18 +410,7 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
         v_loss = mse(yh_v, y_pg)
         return a_loss + coeff * v_loss, a_loss, v_loss
 
-    def finish(state, metrics) -> Tuple[TrainState, Metrics]:
-        metrics.update(_watch_metrics(state.model))
-        state.apply_gradients()
-        return state, metrics
-
-    def step_scan(state: TrainState, batch, mode: int,
-                  generator: Optional[torch.Generator] = None,
-                  noise: Optional[Noise] = None):
-        state.model.train()
-        x_full, y_full, p_flat = prep(batch, generator, noise)
-        masks = _masks(mode, cfg.objective_zeros)
-        state.zero_grad()
+    def scan_pass(state, masks, x_full, y_full, p_flat):
         macc = {k: torch.zeros((), device=x_full.device)
                 for k in ("loss", "a_loss", "v_loss")}
         for j in range(ns):
@@ -378,72 +422,66 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
             for k, v in (("loss", loss), ("a_loss", a_loss),
                          ("v_loss", v_loss)):
                 macc[k] = macc[k] + v.detach() / ns
-        return finish(state, macc)
+        return macc
 
-    def step_vectorized(state: TrainState, batch, mode: int,
-                        generator: Optional[torch.Generator] = None,
-                        noise: Optional[Noise] = None):
-        state.model.train()
-        x_full, y_full, p_flat = prep(batch, generator, noise)
-        masks = _masks(mode, cfg.objective_zeros)
-
-        def fold(full):
-            wins = torch.stack([full[:, :, j * a:(j + nf) * a]
-                                for j in range(ns)], dim=1)  # [B, ns, ...]
-            return wins.reshape((-1,) + wins.shape[2:])
-
+    def vectorized_pass(state, masks, x_full, y_full, p_flat):
         # per-window phasegram finishing keeps per-window normalization
         pg_wins = torch.stack([phasegram_window(p_flat[:, j:j + nf])
                                for j in range(ns)], dim=1)
         y_pg = pg_wins.reshape((-1,) + pg_wins.shape[2:])
-        state.zero_grad()
-        loss, a_loss, v_loss = losses(state, fold(x_full), fold(y_full), y_pg,
+        loss, a_loss, v_loss = losses(state, _windows(x_full, ns, a, nf * a),
+                                      _windows(y_full, ns, a, nf * a), y_pg,
                                       masks)
         loss.backward()
-        return finish(state, {"loss": loss.detach(), "a_loss": a_loss.detach(),
-                              "v_loss": v_loss.detach()})
+        return _loss_metrics(loss, a_loss, v_loss)
+
+    def full_pass(state, masks, x_full, y_full, p_flat):
+        a_mask, v_mask, ya_mask, _ = masks
+        # encode exactly the span the windows cover: a longer tail would
+        # leak context into the last window's conv pad and shift the
+        # BatchNorm statistics
+        pg_full = phasegram_window(p_flat[:, :nf + ns - 1])
+        a_lat, v_lat = state.model.encode_both(
+            x_full[:, :, :(nf + ns - 1) * a] * a_mask, pg_full * v_mask)
+        yh_a, yh_v, _ = state.model.heads_from_latents(
+            _windows(a_lat, ns, hop_a, t_win),
+            _windows(v_lat, ns, hop_v, t_win),
+            _windows(x_full, ns, a, nf * a) * a_mask)
+        if loss_impl == "slice":
+            yh_aw = yh_a.reshape((-1, ns) + yh_a.shape[1:])
+            yh_vw = yh_v.reshape((-1, ns) + yh_v.shape[1:])
+            a_loss = sum(mse(yh_aw[:, j],
+                             y_full[:, :, j * a:(j + nf) * a] * ya_mask)
+                         for j in range(ns)) / ns
+            v_loss = sum(mse(yh_vw[:, j], pg_full[:, :, j:j + nf])
+                         for j in range(ns)) / ns
+        else:
+            a_loss = mse(yh_a, _windows(y_full, ns, a, nf * a) * ya_mask)
+            v_loss = mse(yh_v, _windows(pg_full, ns, 1, nf))
+        loss = a_loss + coeff * v_loss
+        loss.backward()
+        return _loss_metrics(loss, a_loss, v_loss)
 
     if cfg.fusion_encode == "full":
         hop_a, hop_v, t_win = _fusion_full_geometry(model, cfg)
         loss_impl = fullenc_loss_impl()
+        chunk_pass = full_pass
+    else:
+        chunk_pass = (vectorized_pass if window_mode == "vectorized"
+                      else scan_pass)
 
-        def step_full(state: TrainState, batch, mode: int,
-                      generator: Optional[torch.Generator] = None,
-                      noise: Optional[Noise] = None):
-            state.model.train()
-            x_full, y_full, p_flat = prep(batch, generator, noise)
-            a_mask, v_mask, ya_mask, _ = _masks(mode, cfg.objective_zeros)
-            state.zero_grad()
-            # encode exactly the span the windows cover: a longer tail would
-            # leak context into the last window's conv pad and shift the
-            # BatchNorm statistics
-            pg_full = phasegram_window(p_flat[:, :nf + ns - 1])
-            a_lat, v_lat = state.model.encode_both(
-                x_full[:, :, :(nf + ns - 1) * a] * a_mask, pg_full * v_mask)
-            yh_a, yh_v, _ = state.model.heads_from_latents(
-                _windows(a_lat, ns, hop_a, t_win),
-                _windows(v_lat, ns, hop_v, t_win),
-                _windows(x_full, ns, a, nf * a) * a_mask)
-            if loss_impl == "slice":
-                yh_aw = yh_a.reshape((-1, ns) + yh_a.shape[1:])
-                yh_vw = yh_v.reshape((-1, ns) + yh_v.shape[1:])
-                a_loss = sum(mse(yh_aw[:, j],
-                                 y_full[:, :, j * a:(j + nf) * a] * ya_mask)
-                             for j in range(ns)) / ns
-                v_loss = sum(mse(yh_vw[:, j], pg_full[:, :, j:j + nf])
-                             for j in range(ns)) / ns
-            else:
-                a_loss = mse(yh_a, _windows(y_full, ns, a, nf * a) * ya_mask)
-                v_loss = mse(yh_v, _windows(pg_full, ns, 1, nf))
-            loss = a_loss + coeff * v_loss
-            loss.backward()
-            return finish(state, {"loss": loss.detach(),
-                                  "a_loss": a_loss.detach(),
-                                  "v_loss": v_loss.detach()})
+    def step(state: TrainState, batch, mode: int,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Noise] = None):
+        # the STFT pair and the phasegram rows over the whole batch, then
+        # the passes over its microbatches
+        state.model.train()
+        masks = _masks(mode, cfg.objective_zeros)
+        return _microbatch_accumulate(
+            state, mb, prep(batch, generator, noise),
+            lambda *chunk: chunk_pass(state, masks, *chunk))
 
-        return _dispatch(step_full, cfg, k_steps, device)
-    return _dispatch(step_vectorized if window_mode == "vectorized"
-                     else step_scan, cfg, k_steps, device)
+    return _dispatch(step, cfg, k_steps, device)
 
 
 def make_frames_step(model, cfg: RunConfig, device="cuda",
@@ -451,29 +489,45 @@ def make_frames_step(model, cfg: RunConfig, device="cuda",
     """Train step for the frames model over `batch = {'audio': [B, S_total],
     'frames': [B, T_total, H, W]}` (raw attention frames at the model's
     framesize, uint8 or float in [0, 1]; numpy arrays or tensors, moved to
-    `device`), window mode: `step(state, batch, mode, generator=None,
-    noise=None) -> (state, metrics)`, metrics and `noise` as
-    `make_fusion_step`'s (maavss_tpu/train/steps.py:782-949 with
-    --frames_encode window and --microbatch 1); `k_steps` > 1 returns the
-    K-step dispatch."""
-    check_supported(cfg, train=True, frames=True)
+    `device`): `step(state, batch, mode, generator=None, noise=None) ->
+    (state, metrics)`, metrics and `noise` as `make_fusion_step`'s
+    (maavss_tpu/train/steps.py:782-949); `k_steps` > 1 returns the K-step
+    dispatch.
+
+    --frames_encode window: each of the num_seq windows runs the model on
+    its num_frames frames, with one `.backward()` of loss / num_seq a
+    window. --frames_encode full (make_full_loss,
+    maavss_tpu/train/steps.py:838-904): the visual trunk runs once, in
+    train mode, over the first num_frames + num_seq - 1 + 2 * halo frames
+    (--frames_halo k: the synthetic and dataset clips extend by 2k
+    frames, and window j starts at frame halo + j); the num_seq latent
+    windows, their STFT input windows and their middle-frame targets fold
+    into B * num_seq rows, example-major, the heads run once over them and
+    one `.backward()` of the loss (not divided by num_seq) follows. It
+    deviates from window mode by design, as the JAX step documents:
+    interior windows see real neighbour frames through the temporal conv
+    padding, and BatchNorm's statistics are one update in the trunk and one
+    in the heads a step, not num_seq; at num_seq 1 the two modes agree.
+    --microbatch runs either over the batch's chunks
+    (`_microbatch_accumulate`)."""
+    check_supported(cfg, train=True)
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
     coeff = cfg.loss_coeff
     mid = (ns - 1) // 2  # train_avse_frames.py:105 in the reference
+    mb = max(1, int(cfg.microbatch))
+    encode = cfg.frames_encode
+    if encode not in ("window", "full"):
+        raise ValueError(f"unknown frames_encode {encode!r} (window|full)")
+    halo = int(cfg.frames_halo)
+    if halo and encode != "full":
+        raise ValueError("--frames_halo needs --frames_encode full (window "
+                         "mode already zero-pads each window's own edges)")
+    if halo < 0:
+        raise ValueError(f"--frames_halo must be >= 0, got {halo}")
     step_noise = _noise_resolver(cfg, device)
 
-    def step(state: TrainState, batch, mode: int,
-             generator: Optional[torch.Generator] = None,
-             noise: Optional[Noise] = None):
-        state.model.train()
-        batch = _to_device(batch, device)
-        x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
-                                         trim_end=False,
-                                         max_norm=cfg.normalize_output_fft,
-                                         noise_scalar=step_noise(noise))
-        frames = frames_f32(batch["frames"]).unsqueeze(2)  # [B,T,1,H,W]
-        a_in, v_in, ya_mask, yv_mask = _masks(mode, cfg.objective_zeros)
-        state.zero_grad()
+    def window_pass(state, masks, frames, x_full, y_full):
+        a_in, v_in, ya_mask, yv_mask = masks
         macc = {k: torch.zeros((), device=x_full.device)
                 for k in ("loss", "a_loss", "v_loss")}
         for j in range(ns):
@@ -489,9 +543,43 @@ def make_frames_step(model, cfg: RunConfig, device="cuda",
             for k, v in (("loss", loss), ("a_loss", a_loss),
                          ("v_loss", v_loss)):
                 macc[k] = macc[k] + v.detach() / ns
-        macc.update(_watch_metrics(state.model))
-        state.apply_gradients()
-        return state, macc
+        return macc
+
+    def full_pass(state, masks, frames, x_full, y_full):
+        a_in, v_in, ya_mask, yv_mask = masks
+        # exactly the frames the windows and their halos cover: a longer
+        # tail would leak context into the last window's conv pad and shift
+        # the BatchNorm statistics
+        x_v = frames[:, :nf + ns - 1 + 2 * halo].transpose(1, 2)
+        v_lat = state.model.encode_frames(x_v * v_in)  # [B,C,T,S]
+        first = halo + mid
+        yv = frames[:, first:first + ns]  # [B,ns,1,H,W]
+        yh_a, yh_v, _ = state.model.forward_with_visual_latent(
+            _windows(x_full[:, :, halo * a:], ns, a, nf * a) * a_in,
+            _windows(v_lat[:, :, halo:], ns, 1, nf))
+        a_loss = mse(yh_a, _windows(y_full[:, :, first * a:], ns, a, a)
+                     * ya_mask)
+        v_loss = mse(yh_v, yv.reshape((-1,) + yv.shape[2:]) * yv_mask)
+        loss = a_loss + coeff * v_loss
+        loss.backward()
+        return _loss_metrics(loss, a_loss, v_loss)
+
+    chunk_pass = full_pass if encode == "full" else window_pass
+
+    def step(state: TrainState, batch, mode: int,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Noise] = None):
+        state.model.train()
+        batch = _to_device(batch, device)
+        x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
+                                         trim_end=False,
+                                         max_norm=cfg.normalize_output_fft,
+                                         noise_scalar=step_noise(noise))
+        frames = frames_f32(batch["frames"]).unsqueeze(2)  # [B,T,1,H,W]
+        masks = _masks(mode, cfg.objective_zeros)
+        return _microbatch_accumulate(
+            state, mb, (frames, x_full, y_full),
+            lambda *chunk: chunk_pass(state, masks, *chunk))
 
     return _dispatch(step, cfg, k_steps, device)
 

@@ -30,6 +30,9 @@ from maavss_tpu_torch.ops.cuda_adam import (
 )
 from maavss_tpu_torch.train.fused_adam import FusedAdam
 from maavss_tpu_torch.train.state import make_optimizer
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 ATOL, RTOL = 1e-7, 1e-6
 LR, B1, B2, EPS = 1e-3, 0.9, 0.999, 1e-8

@@ -13,6 +13,9 @@ import sys
 import pytest
 
 from tools import bench_torch
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(num_frames=4, num_seq=4, hops_per_frame=4, fft_len=64, p_size=16,
@@ -69,20 +72,35 @@ def test_line_records_the_fusion_defaults(line):
 
 
 @pytest.mark.parametrize("env, label", [
-    (dict(MAAVSS_BENCH_MICROBATCH="2"), "M3-rest"),
-    (dict(MAAVSS_BENCH_MICROBATCH="2", MAAVSS_BENCH_REGIME="frames"),
-     "M7-rest"),
+    (dict(MAAVSS_BENCH_REMAT="1", MAAVSS_BENCH_MICROBATCH="2"), "M3-rest"),
+    (dict(MAAVSS_BENCH_REMAT="1", MAAVSS_BENCH_REGIME="frames"), "M3-rest"),
     (dict(MAAVSS_BENCH_REMAT="1"), "M3-rest"),
     (dict(MAAVSS_BENCH_FUSED_OPT="1"), "Not carried"),
     (dict(MAAVSS_BENCH_DTYPE="float16"), "M5 (float16)"),
     (dict(MAAVSS_BENCH_RNN="gru"), "M2"),
-    (dict(MAAVSS_BENCH_FRAMES_ENCODE="full", MAAVSS_BENCH_REGIME="frames"),
-     "M7-rest"),
+    (dict(MAAVSS_BENCH_RNN="none", MAAVSS_BENCH_REGIME="frames"), "M2"),
 ])
 def test_unported_variables_raise_by_label(env, label):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         bench_torch.bench_config(env, 2, TINY)
     assert label in str(err.value)
+
+
+@pytest.mark.parametrize("env", [
+    dict(MAAVSS_BENCH_MICROBATCH="2"),
+    dict(MAAVSS_BENCH_MICROBATCH="2", MAAVSS_BENCH_REGIME="frames"),
+    dict(MAAVSS_BENCH_FRAMES_ENCODE="full", MAAVSS_BENCH_FRAMES_HALO="1",
+         MAAVSS_BENCH_REGIME="frames"),
+])
+def test_ported_variables_configure(env):
+    """MICROBATCH, FRAMES_ENCODE and FRAMES_HALO are ported: the config
+    carries them (tests/test_torch_frames_full.py and
+    tests/test_torch_microbatch.py run the steps)."""
+    cfg, _, _ = bench_torch.bench_config(env, 2, TINY)
+    assert cfg.microbatch == int(env.get("MAAVSS_BENCH_MICROBATCH", "1"))
+    assert cfg.frames_encode == env.get("MAAVSS_BENCH_FRAMES_ENCODE",
+                                        "window")
+    assert cfg.frames_halo == int(env.get("MAAVSS_BENCH_FRAMES_HALO", "0"))
 
 
 def test_multistep_config_is_accepted():

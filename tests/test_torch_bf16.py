@@ -132,6 +132,9 @@ from maavss_tpu_torch.train.steps import (
     make_fusion_step,
     make_frames_step,
 )
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures",
                       "torch_port_bf16_golden.npz")

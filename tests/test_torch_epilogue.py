@@ -38,6 +38,9 @@ from maavss_tpu_torch.ops.cuda_epilogue import (
     fused_bn_pool_leaky,
     fused_bn_pool_leaky_plain,
 )
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 SHAPE = (2, 3, 8, 12)  # B, T, H, W
 

@@ -56,6 +56,9 @@ from maavss_tpu_torch.train.setup import (
     check_supported,
 )
 from maavss_tpu_torch.train.steps import make_frames_step
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 GEOMETRY = dict(num_frames=2, num_seq=2, hops_per_frame=4, fft_len=64,
                 framesize=24, batch_size=2, noise_scalar=0.0)
@@ -274,9 +277,7 @@ def test_serving_fn_specs_and_payloads_match_jax(fused_env):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (dict(frames_encode="full"), "M7-rest"),
-    (dict(frames_encode="full", frames_halo=1), "M7-rest"),
-    (dict(microbatch=2), "M7-rest"), (dict(remat=True), "M3-rest"),
+    (dict(remat=True), "M3-rest"),
     (dict(attn_diff=True), "M4"), (dict(rnn_cell="gru"), "M2"),
     (dict(rnn_cell="none"), "M2"), (dict(dtype="float16"), "M5"),
 ])
@@ -285,11 +286,28 @@ def test_unported_frames_flags_raise(flags, item):
     naming its ROADMAP item, from the check, build_frames_state and the step."""
     cfg = RunConfig(**GEOMETRY).replace(**flags)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        check_supported(cfg, train=True, frames=True)
+        check_supported(cfg, train=True)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         build_frames_state(cfg, 2, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         make_frames_step(None, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("flags", [
+    dict(frames_encode="full"), dict(frames_encode="full", frames_halo=1),
+    dict(microbatch=2),
+])
+def test_ported_frames_flags_take_a_step(fused_env, flags):
+    """Frames options that no longer raise: the state builds and takes one
+    CPU step (tests/test_torch_frames_full.py holds them against JAX)."""
+    cfg = RunConfig(**GEOMETRY).replace(**flags)
+    check_supported(cfg, train=True)
+    model, state = build_frames_state(cfg, 2, latent_channels=LATENT,
+                                      device="cpu")
+    batch = synthetic_av_batch(cfg, 2, seed=3, frame_size=24)
+    assert batch["frames"].shape[1] == 4 + 2 * cfg.frames_halo
+    state, m = make_frames_step(model, cfg, device="cpu")(state, batch, 2)
+    assert state.step == 1 and np.isfinite(float(m["loss"]))
 
 
 @pytest.mark.parametrize("build", [build_frames_model, build_frames_state],

@@ -45,6 +45,9 @@ from maavss_tpu_torch.convert import flatten_tree, from_flax, to_flax
 from maavss_tpu_torch.ops.cuda_epilogue import epilogue_stats
 from maavss_tpu_torch.train.setup import build_frames_state
 from maavss_tpu_torch.train.steps import make_frames_step
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 GEOMETRY = dict(num_frames=2, num_seq=2, hops_per_frame=4, fft_len=64,
                 framesize=24, learning_rate=1e-3, batch_size=4,

@@ -20,6 +20,9 @@ from maavss_tpu.ops.windows import hamming_window as j_hamming
 from maavss_tpu_torch.ops import image, metrics, phasegram
 from maavss_tpu_torch.ops import stft as t_stft
 from maavss_tpu_torch.ops.windows import hamming_window
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 # the package's ops/__init__ re-exports the function `stft` under the
 # module's name

@@ -21,6 +21,9 @@ from maavss_tpu_torch.data.synthetic import synthetic_av_batch, with_pgram_rows
 from maavss_tpu_torch.models.fusion import AVFusionModel
 from maavss_tpu_torch.train.setup import build_fusion, build_fusion_state
 from maavss_tpu_torch.train.steps import make_fusion_step
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,
              fc_size=256, batch_size=2)

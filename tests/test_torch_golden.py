@@ -31,6 +31,9 @@ from maavss_tpu_torch.convert import (
 )
 from maavss_tpu_torch.exp.export import make_serving_fn, random_serving_inputs
 from maavss_tpu_torch.train.setup import build_fusion
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures",
                       "torch_port_golden.npz")

@@ -82,6 +82,9 @@ from maavss_tpu_torch.train import steps as port_steps
 from maavss_tpu_torch.train.infer import make_separator
 from maavss_tpu_torch.train.setup import build_fusion, build_fusion_state
 from maavss_tpu_torch.train.steps import make_fusion_step
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 TOL = 1e-6
 # the fusion window, the frames middle-frame columns (F odd), two leading axes

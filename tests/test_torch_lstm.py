@@ -29,6 +29,9 @@ from maavss_tpu_torch.ops.cuda_lstm import (
     lstm_recurrence_bwd_plain,
     lstm_recurrence_plain,
 )
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 ATOL = 1e-5
 B, T, D, H = 2, 5, 24, 256  # H is the fusion model's fixed 256

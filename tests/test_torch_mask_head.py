@@ -31,6 +31,9 @@ from maavss_tpu.ops import pallas_kernels as pk
 from maavss_tpu_torch.convert import from_flax
 from maavss_tpu_torch.ops import cuda_complex as cc
 from maavss_tpu_torch.ops import cuda_mask_head as cmh
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 TOL = 1e-5
 # name: (M, K, clip T, window rows, T, F, bias)

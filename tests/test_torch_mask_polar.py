@@ -65,6 +65,9 @@ from maavss_tpu_torch.train.setup import (
     build_fusion,
     build_fusion_state,
 )
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 FUSION = dict(num_frames=4, num_seq=4, hops_per_frame=4, fft_len=64,
               p_size=16, latent_chan=8, fc_size=256, learning_rate=1e-3,

@@ -50,6 +50,9 @@ from maavss_tpu_torch.train.fused_adam import FusedAdam
 from maavss_tpu_torch.train.state import create_train_state
 from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
 from tools import bench_torch, train_torch
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 # tests/test_torch_train_step.py's geometry, loss tolerance in mode 2 and
 # parameter tolerance
@@ -146,10 +149,10 @@ def test_k_step_tracks_jax_multistep():
         assert rel <= PARAM_RTOL, (path, rel)
 
 
-def _port_pair(kind, monkeypatch, **flags):
-    """(cfg, (state, step), (twin state, K-step dispatch), batches) of
+def _port_pair(kind, monkeypatch, k=K, **flags):
+    """(cfg, (state, step), (twin state, k-step dispatch), batches) of
     `kind` on the CPU: a model from its seed and a twin from its
-    state_dict, and K synthetic batches."""
+    state_dict, and k synthetic batches."""
     if kind == "frames":
         monkeypatch.setenv("MAAVSS_S2D_MIN_HW", "8")
         cfg = RunConfig(**FRAMES).replace(**flags)
@@ -169,11 +172,11 @@ def _port_pair(kind, monkeypatch, **flags):
                              generator=torch.Generator().manual_seed(1))
     twin.load_state_dict(model.state_dict())
     batches = [synthetic_av_batch(cfg, cfg.batch_size, seed=i, frame_size=fs)
-               for i in range(K)]
+               for i in range(k)]
     if cfg.pgram_cache:
         batches = [with_pgram_rows(b) for b in batches]
     return (cfg, (state, make(model, cfg, device="cpu")),
-            (twin_state, make(twin, cfg, device="cpu", k_steps=K)), batches)
+            (twin_state, make(twin, cfg, device="cpu", k_steps=k)), batches)
 
 
 def _assert_same_state(a, b):
@@ -186,10 +189,13 @@ def _assert_same_state(a, b):
     assert (a.step, a.tx.count) == (b.step, b.tx.count)
 
 
-@pytest.mark.parametrize("kind", ["vectorized", "scan", "full", "frames"])
-def test_k_step_equals_sequential_steps(kind, monkeypatch):
-    cfg, (state, step), (k_state, kstep), batches = _port_pair(kind,
-                                                               monkeypatch)
+@pytest.mark.parametrize("kind, flags, k", [
+    ("vectorized", {}, K), ("scan", {}, K), ("full", {}, K), ("frames", {}, K),
+    ("frames", dict(frames_encode="full", microbatch=2), 2),
+], ids=["vectorized", "scan", "full", "frames", "frames-full-mb2"])
+def test_k_step_equals_sequential_steps(kind, flags, k, monkeypatch):
+    cfg, (state, step), (k_state, kstep), batches = _port_pair(
+        kind, monkeypatch, k, **flags)
     assert cfg.noise_scalar == 0.1
     g1, g2 = (torch.Generator().manual_seed(5) for _ in range(2))
     seq = []
@@ -200,7 +206,7 @@ def test_k_step_equals_sequential_steps(kind, monkeypatch):
     for key in seq[0]:
         assert torch.equal(got[key], torch.stack([m[key] for m in seq])), key
     _assert_same_state(state, k_state)
-    assert k_state.step == K and torch.equal(g1.get_state(), g2.get_state())
+    assert k_state.step == k and torch.equal(g1.get_state(), g2.get_state())
 
 
 def test_noise_tensor_and_schedule_dispatch(monkeypatch):

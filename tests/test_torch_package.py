@@ -55,6 +55,9 @@ from maavss_tpu_torch.train.setup import (
     build_frames_state,
     build_fusion,
 )
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,

@@ -35,6 +35,9 @@ from maavss_tpu_torch.ops.cuda_pgenc import (
     plan_of,
     train_grid,
 )
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 ATOL = 2e-5
 # the fusion flagship's encoder layers (C, Co, S); R = batch * frames rows:

@@ -39,6 +39,9 @@ from maavss_tpu_torch.ops.cuda_pgenc import (
     pgenc_train,
     pgenc_train_plain,
 )
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 ATOL = 2e-5
 GRAD_RTOL = 1e-4

@@ -20,6 +20,9 @@ from maavss_tpu_torch.exp.serving import (
     SeparationServer,
 )
 from maavss_tpu_torch.train.setup import build_fusion
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,
              fc_size=256, batch_size=2)

@@ -31,6 +31,9 @@ import jax.numpy as jnp
 
 from maavss_tpu_torch.ops import cuda_complex as cc
 from maavss_tpu_torch.ops import stft as t_stft
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 j_stft = importlib.import_module("maavss_tpu.ops.stft")
 # (fft_len, hop, samples): the tests' geometry and the flagship's

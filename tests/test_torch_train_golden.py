@@ -47,6 +47,9 @@ from maavss_tpu_torch.convert import (
 from maavss_tpu_torch.data.synthetic import synthetic_av_batch
 from maavss_tpu_torch.train.setup import build_fusion_state
 from maavss_tpu_torch.train.steps import make_fusion_step
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures",
                       "torch_port_train_golden.npz")

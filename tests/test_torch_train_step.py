@@ -65,6 +65,9 @@ from maavss_tpu_torch.train.setup import (
 )
 from maavss_tpu_torch.train.state import create_train_state
 from maavss_tpu_torch.train.steps import make_fusion_eval, make_fusion_step
+from tests.test_torch_workers import share_cores
+
+share_cores()
 
 GEOMETRY = dict(num_frames=4, num_seq=4, hops_per_frame=4, fft_len=64,
                 p_size=16, latent_chan=8, fc_size=256, learning_rate=1e-3,
@@ -241,8 +244,7 @@ def test_eval_matches_jax(jax_setup):
 
 
 @pytest.mark.parametrize("flags", [
-    dict(microbatch=2), dict(remat=True), dict(lr_schedule="cosine"),
-    dict(fused_opt=True),
+    dict(remat=True), dict(lr_schedule="cosine"), dict(fused_opt=True),
 ])
 def test_unported_train_flags_raise(flags):
     cfg = RunConfig(**GEOMETRY).replace(**flags)
@@ -254,13 +256,13 @@ def test_unported_train_flags_raise(flags):
 
 @pytest.mark.parametrize("flags", [
     dict(fusion_encode="full"), dict(noise_schedule="linear:0.1:0"),
-    dict(steps_per_dispatch=2),
+    dict(steps_per_dispatch=2), dict(microbatch=2),
 ])
 def test_ported_train_flags_take_a_step(flags):
     """Flags that no longer raise: the model and state build and take one
     CPU step, or under --steps_per_dispatch one stacked dispatch
-    (tests/test_torch_fullenc.py and tests/test_torch_multistep.py hold
-    them against JAX)."""
+    (tests/test_torch_fullenc.py, tests/test_torch_multistep.py and
+    tests/test_torch_microbatch.py hold them against JAX)."""
     cfg = RunConfig(**GEOMETRY).replace(**flags)
     check_supported(cfg, train=True)
     model, state = build_fusion_state(cfg, cfg.batch_size, "cpu",

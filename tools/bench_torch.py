@@ -37,8 +37,8 @@ Where it differs from bench.py (also listed under `differs_from_bench_py`
 in its JSON line):
 - MAAVSS_BENCH_OPT_KERNEL defaults to auto, so K3 (csrc/adam.cu) runs;
   xla is the plain formula.
-- MAAVSS_BENCH_MICROBATCH > 1, MAAVSS_BENCH_REMAT=1 and
-  MAAVSS_BENCH_FUSED_OPT=1 raise by their ROADMAP labels (check_supported);
+- MAAVSS_BENCH_REMAT=1 and MAAVSS_BENCH_FUSED_OPT=1 raise by their
+  ROADMAP labels (check_supported);
   MAAVSS_BENCH_UNROLL has no counterpart (K1 runs the recurrence in one
   launch) and is not read.
 - vs_baseline divides by benchmarks/baseline_pin.json (read as plain JSON);
@@ -47,8 +47,10 @@ in its JSON line):
   kernels on the card, their plain versions on the CPU), which reads no
   variable for them.
 
-Its JSON line carries bench.py's keys and the torch and CUDA versions, the
-card's name and power limit (nvidia-smi), peak device memory, the median
+Its JSON line carries bench.py's keys (microbatch, frames_encode and
+frames_halo among them: the values it ran) and the torch and CUDA versions,
+the card's name and power limit (nvidia-smi), peak device memory allocated
+and reserved, the median
 step's ms, and `kernels`: each hand-written kernel's launches per step over
 the timed windows, from the wrappers' counters (no profiler runs in them).
 `--profile` adds one dispatch (one step, or K under MULTISTEP) under
@@ -85,8 +87,8 @@ EPILOGUE_KERNELS = ("partials_kernel", "stats_combine_kernel",
                     "bwd_combine_kernel", "dy_kernel")
 DIFFERS = (
     "MAAVSS_BENCH_OPT_KERNEL defaults to auto (K3; xla is the plain formula)",
-    "MICROBATCH > 1, REMAT=1 and FUSED_OPT=1 raise by their ROADMAP "
-    "labels; UNROLL is not read",
+    "REMAT=1 and FUSED_OPT=1 raise by their ROADMAP labels; UNROLL is not "
+    "read",
     "MULTISTEP=K replays one CUDA graph of K steps a dispatch",
     "windows closed by torch.cuda.synchronize() and a host fetch of the loss",
     "vs_baseline from benchmarks/baseline_pin.json; no fresh torch-CPU leg",
@@ -140,7 +142,7 @@ def bench_config(env: Mapping[str, str], batch_size: int,
         opt_kernel=env.get("MAAVSS_BENCH_OPT_KERNEL", "auto"),
         fused_opt=env.get("MAAVSS_BENCH_FUSED_OPT", "0") == "1",
         steps_per_dispatch=int(env.get("MAAVSS_BENCH_MULTISTEP", "1")))
-    check_supported(cfg, train=True, frames=frames)
+    check_supported(cfg, train=True)
     return cfg, regime, window_mode
 
 
@@ -320,6 +322,8 @@ def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
         "kernels": kernels, "profile": prof,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if on_card else None),
+        "peak_reserved_bytes": (torch.cuda.max_memory_reserved(dev)
+                                if on_card else None),
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "device": {"platform": "gpu" if on_card else "cpu",
                    "kind": (torch.cuda.get_device_name(dev) if on_card

@@ -3,14 +3,15 @@
 between the kernels and the plain versions, on the card.
 
     python3 tools/fusion_step1_probe_torch.py [--tree DIR]
-        [--fusion_encode full] [--pgram_cache]
+        [--fusion_encode full] [--pgram_cache] [--batch 8] [--microbatch 1]
 
 `--tree` runs the checkout at DIR (its package and its chip_smoke.py's
 helpers; default: this one), so that a parent commit unpacked into a
 git-ignored directory and the change can be probed in one call. From one
 state_dict (the flagship, batch 8, scan windows, mode 2, lr 1e-3, noise 0:
 chip_smoke.py's train phase; `--fusion_encode full --pgram_cache` its
-fullenc_train phase, on float16 rows), one step with every kernel, one with
+fullenc_train phase, on float16 rows; `--batch` and `--microbatch` set
+the batch and its chunks), one step with every kernel, one with
 the plain versions and one more plain step on the batch in reverse row
 order with fp64 BatchNorm statistics (chip_smoke._reordered_step1_grads:
 the rounding of one correct fp32 step). More plain steps split what the
@@ -57,6 +58,8 @@ def main() -> None:
     ap.add_argument("--fusion_encode", default="window",
                     choices=("window", "full"))
     ap.add_argument("--pgram_cache", action="store_true")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--microbatch", type=int, default=1)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -78,9 +81,9 @@ def main() -> None:
         raise SystemExit(f"imported {cs.__file__}, not {tree}")
     cs.device_phase()
     lr = 1e-3
-    cfg = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=lr,
-                    fusion_encode=args.fusion_encode,
-                    pgram_cache=args.pgram_cache)
+    cfg = RunConfig(batch_size=args.batch, noise_scalar=0.0,
+                    learning_rate=lr, fusion_encode=args.fusion_encode,
+                    pgram_cache=args.pgram_cache, microbatch=args.microbatch)
     model, state, step, ref, ref_state, ref_step = cs._train_pair(cfg, False)
     batch = synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed)
     if cfg.pgram_cache:
@@ -150,7 +153,9 @@ def main() -> None:
                                 - 1e-6 * (b.abs() + lr)).max().item()})
     for row in sorted(rows, key=lambda d: -d["param_rel_l2"])[:8]:
         print(json.dumps({"tree": os.path.relpath(tree, ROOT),
-                          "fusion_encode": cfg.fusion_encode, **row}),
+                          "fusion_encode": cfg.fusion_encode,
+                          "batch": cfg.batch_size,
+                          "microbatch": cfg.microbatch, **row}),
               flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

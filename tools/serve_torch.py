@@ -15,7 +15,8 @@ into batches of `--batch_size` rows, and serves:
 maavss_tpu_torch.convert.save_npz; without it the weights are a seeded
 init (--seed). `--fusion_encode full` serves the full-encode separator.
 `--model` picks the fusion model (default) or the frames
-model (latent width 16, frames at --framesize). `--dtype bfloat16` serves
+model (latent width 16, frames at --framesize; `--frames_encode full`
+serves its full-encode separator). `--dtype bfloat16` serves
 the bf16 model (the replies keep their wire dtypes). The CUDA kernels build
 at startup, through a warm-up call.
 

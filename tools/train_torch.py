@@ -11,7 +11,10 @@ plain PyTorch versions on the CPU), then takes `-s` steps of
 (audio + visual; the mode curriculum comes with the trainer) on
 `synthetic_av_batch` batches seeded `--seed + step` (under --pgram_cache
 the frames become their float16 phasegram rows, `with_pgram_rows`;
-`--fusion_encode full` takes the full-encode step). Prints
+`--fusion_encode full` takes the full-encode step; `--frames_encode full`
+and `--frames_halo k` the frames model's, on clips of num_frames +
+num_seq + 2k frames; `--microbatch M` splits each batch into M chunks
+before the one update). Prints
 one JSON line per step (loss, a_loss, v_loss, grad_norm, ms), then a final
 line with the steps, the mean step time over the steps after the first
 dispatch (the first builds the kernels, and under --steps_per_dispatch
@@ -36,6 +39,8 @@ Usage: python tools/train_torch.py [--model fusion|frames] [-s 3]
       --fusion_encode full --pgram_cache
   python tools/train_torch.py --model frames --device cpu -s 3 -b 2
       --num_frames 2 --num_seq 2 -a 4 --fft_len 64 --framesize 24 -lr 1e-3
+  python tools/train_torch.py --model frames -s 3 -b 8 --dtype bfloat16
+      --frames_encode full --frames_halo 1 --microbatch 2
   `--dtype bfloat16` trains in bf16 (flax's mixed precision, as the JAX
   package's --dtype bfloat16), with every other flag.
   python tools/train_torch.py -s 8 --steps_per_dispatch 4
@@ -142,6 +147,8 @@ def main(argv=None) -> None:
                    if device.type == "cuda" else "cpu"),
         "model": own.model, "window_mode": cfg.window_mode,
         "fusion_encode": cfg.fusion_encode, "pgram_cache": cfg.pgram_cache,
+        "frames_encode": cfg.frames_encode, "frames_halo": cfg.frames_halo,
+        "microbatch": cfg.microbatch,
         "batch": cfg.batch_size, "dtype": cfg.dtype,
         "steps_per_dispatch": k, "noise_schedule": cfg.noise_schedule}),
         flush=True)
