@@ -33,15 +33,19 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    versions and autograd through the plain forward; dcbias exactly 0; the
    backward reads the forward's yc and leaves it as it was, two calls give
    the same bits, and a retain_graph double backward repeats; the forward
-   holds k2_pgenc's bit checks at R 64 (y, mu, var, yc).
+   holds k2_pgenc's bit checks at R 64 (y, mu, var, yc). At R 2816 cuDNN's
+   ten convs alone (F.conv2d) and their aten.convolution_backward (dx and
+   dW, the conv's part of K2-bwd) are timed beside, in fp32 and bf16.
    k2_gate: K2's forward kernels, correctness only, at C=3 -> Co=5, R in
    {1, 3, 17, 2048, 8192}, S in {2, 6, 4098}, fp32 and bf16; the 10
    layers at R 2048 and 8192 (the bit checks at 8192); a cooperative grid
    over the resident blocks is refused.
 7. k3_adam (K3, fused Adam): 3 steps over the flagship's parameter leaves
-   against the plain formula, the count and the bias corrections [c1, c2]
-   on the card (the kernel reads them through a pointer; held against the
-   host formula); torch.optim.Adam(fused=True) timed beside it.
+   against the plain formula, at a constant rate and again under
+   --lr_schedule cosine, the count and the step's [c1, c2, lr] on the card
+   (the kernel reads them through a pointer; held against the host
+   formula and the schedule); timed at both rates;
+   torch.optim.Adam(fused=True) timed beside it.
 8. slice: the full-width fusion model (seeded random weights) behind the
    HTTP SeparationServer on 127.0.0.1; 8 requests of 1..8 rows checked
    against the direct separator built from the plain versions; request
@@ -202,6 +206,32 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    cuDNN's deterministic algorithms, then timed with peak memory; K5 on an
    fp32 y of 2.95e9 values (fp32 full encode at batch 256, microbatch 1),
    past 2^31, against the plain versions in slices.
+36. trainer (train/trainer.py, in a temporary directory, the stores built
+   there by build_synthetic_store): trainer_fusion, the flagship (the
+   default RunConfig, scan windows) on a store at p_size 64, 2 epochs x 4
+   steps at batch 8, val_steps 2, 'cycle', kernels against the plain
+   versions from one state, each its own Trainer: losses and val losses
+   within 1e-4, the BN-fed conv biases within Adam's bound a step and
+   then synchronised (K2's, gradient exactly 0, never moved), the records,
+   both epoch checkpoints and every step's and eval batch's launches
+   exactly; trainer_resume, under cuDNN's
+   deterministic algorithms at --steps_per_dispatch 2: a SIGTERM from a
+   media_fn at step 6, every restored tensor perturbed, -c --cp_load_opt
+   into the same captured state: equal to the checkpoint bit for bit, the
+   first replay equal to two eager steps of a fresh state loaded from it,
+   and two runs of the sequence writing equal records; trainer_record,
+   the bench's configuration (batch 256, full encode, rows from disk that
+   tools/save_phasegrams_torch.py writes, bf16) under warmup_cosine: a
+   graphed K = 4 run equal to an eager one bit for bit with one capture
+   while the rate changes every step, then the trainer's clips/s over 3
+   windows of 32 steps on a warmed stream (median and spread), the host's
+   batch times (PhaseTimer) and the idle share of 4 dispatches profiled
+   through exp/profiling.trace beside tools/bench_torch.py's measure;
+   trainer_frames, the frames family at framesize 256 (fit_torch.py's
+   path), batch 8, 2 steps, 'random01', kernels against plain at the
+   frames gates: records, launches, and every leaf after the run (the BN
+   shifts ahead of a train-mode BN within Adam's bound a step and then
+   synchronised). Its launches are added to the kernels line.
 
 Every phase that drives a train step or a serving batch counts the STFT
 kernel's launches exactly (one a step or a batch; none in stft_route) and
@@ -227,6 +257,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -576,18 +607,39 @@ def _k2_contract(where, call, args):
     return first
 
 
-def conv_library_ms(x, w2, cbias):
+def _conv_nchw(x, w2, dtype):
+    """K2's layer as cuDNN takes it: x [C, R, S] -> the NCHW input
+    [R, C, 1, S] and w2 [Co, 9 C] -> the weight [Co, C, 1, 9], in dtype."""
+    c = x.shape[0]
+    xr = x.to(dtype).permute(1, 0, 2).unsqueeze(2).contiguous()
+    weight = w2.to(dtype).reshape(-1, 9, c).permute(0, 2, 1).unsqueeze(2)
+    return xr, weight.contiguous()
+
+
+def conv_library_ms(x, w2, cbias, dtype=None):
     """cuDNN's F.conv2d (TF32 off, with bias) of the layer's conv alone, on
-    the NCHW view [R, C, 1, S]: a yardstick of K2's conv without BN or
-    tanh."""
+    the NCHW view [R, C, 1, S], in `dtype` (default float32): a yardstick
+    of K2's conv without BN or tanh."""
+    import torch
     import torch.nn.functional as F
 
-    c, r, s = x.shape
-    xr = x.float().permute(1, 0, 2).unsqueeze(2).contiguous()
-    weight = w2.float().reshape(-1, 9, c).permute(0, 2, 1).unsqueeze(2)
-    weight = weight.contiguous()
-    return cuda_ms(lambda: F.conv2d(xr, weight, cbias, stride=(1, 2),
-                                    padding=(0, 4)))
+    dtype = dtype or torch.float32
+    xr, weight = _conv_nchw(x, w2, dtype)
+    return cuda_ms(lambda: F.conv2d(xr, weight, cbias.to(dtype),
+                                    stride=(1, 2), padding=(0, 4)))
+
+
+def conv_bwd_library_ms(x, w2, dy, dtype):
+    """cuDNN's `aten.convolution_backward` of the layer's conv alone (dx
+    and dW, no bias, TF32 off) in `dtype`: a yardstick of K2-bwd's conv
+    part, without the BN backward."""
+    import torch
+
+    xr, weight = _conv_nchw(x, w2, dtype)
+    go = dy.to(dtype).permute(1, 0, 2).unsqueeze(2).contiguous()
+    return cuda_ms(lambda: torch.ops.aten.convolution_backward(
+        go, xr, weight, None, [1, 2], [0, 4], [1, 1], False, [0, 0], 1,
+        [True, True, False]))
 
 
 def pgenc_phase():
@@ -666,18 +718,19 @@ def pgenc_phase():
 
 
 def profile_phase(label: str, fn, calls: int = 3, watch=()):
-    """Where `calls` calls of `fn` spend their time: torch.profiler's CUDA
-    kernel events summed by kernel name, against the host-clock wall time
-    of the same window (the device's idle share). The 14 largest kernels
-    are listed, and every kernel whose name contains a `watch` string.
-    Returns {kernel name: launches}."""
+    """Where `calls` calls of `fn` spend their time, under the port's
+    exp/profiling.trace (torch.profiler; its Chrome trace into a temporary
+    directory): CUDA kernel events summed by kernel
+    name, against the host-clock wall time of the same window (the device's
+    idle share). The 14 largest kernels are listed, and every kernel whose
+    name contains a `watch` string. Returns {kernel name: launches}."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from maavss_tpu_torch.exp.profiling import trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as d, trace(d) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -919,7 +972,8 @@ def pgenc_train_phase():
                                     "fwd_bytes", "fwd_flops", "bwd_bytes",
                                     "bwd_flops", "fwd_device_ms",
                                     "fwd_host_ms", "bwd_device_ms",
-                                    "bwd_host_ms", "conv_library_ms")}
+                                    "bwd_host_ms", "conv_library_ms",
+                                    "conv_bwd_library_ms")}
             s = cfg.p_size ** 2
             for i, sp in enumerate(specs):
                 c, co = sp.in_ch, sp.out_ch
@@ -1014,7 +1068,12 @@ def pgenc_train_phase():
                 if fp32:
                     split["bwd_kernel_us"] = kernel_us(bwd)
                     split["fwd_kernel_us"] = kernel_us(fwd)
-                    tot["conv_library_ms"] += conv_library_ms(x, w2, cb)
+                if fp32 or r == 256 * span:
+                    tot["conv_library_ms"] += conv_library_ms(x, w2, cb,
+                                                              dtype)
+                if r == 256 * span:
+                    tot["conv_bwd_library_ms"] += conv_bwd_library_ms(
+                        x, w2, dy, dtype)
                 conv_flops = 2 * co * 9 * c * r * (s // 2)
                 tot["fwd_bytes"] += nbytes(x, w2, y, mu, var) + 3 * 4 * co
                 tot["fwd_flops"] += conv_flops
@@ -1045,6 +1104,7 @@ def pgenc_train_phase():
                   bwd_device_ms=tot["bwd_device_ms"] or None,
                   bwd_host_ms=tot["bwd_host_ms"] or None,
                   conv_library_ms=tot["conv_library_ms"] or None,
+                  conv_bwd_library_ms=tot["conv_bwd_library_ms"] or None,
                   fwd_bound_ms=tot["fwd_bound"][0],
                   fwd_bound_by=tot["fwd_bound"][1], bwd_ms=tot["bwd_ms"],
                   bwd_plain_ms=tot["bwd_plain_ms"],
@@ -1212,16 +1272,25 @@ def _at_offset(t):
     return view
 
 
+ADAM_SCHEDULE_STEPS = 10  # the cosine horizon of k3_adam's scheduled run
+
+
 def adam_phase(steps: int = 3):
     """K3 over the flagship's parameter leaves (shapes from build_fusion),
     the decoders' leaves without a gradient as on the train path, from
     seeded g, m and v: `steps` steps against the plain formula, m, v and p
     at 1e-6 absolute + 1e-5 relative (the same fp32 formula; the compiler
-    may contract a multiply-add into an fma). The count lives on the card,
-    as the optimizer keeps it: both sides read the bias corrections [c1, c2]
-    that `device_bias_corrections` makes there (the kernel through its
-    pointer), and those are held against the host formula
-    (`bias_corrections`): the powers b^count within 2 fp32 ulp."""
+    may contract a multiply-add into an fma), first at a constant rate,
+    then under --lr_schedule cosine (a horizon of ADAM_SCHEDULE_STEPS
+    steps), from the same start. The count lives on the card, as the
+    optimizer keeps it: both sides read the step's [c1, c2, lr] that
+    `device_bias_corrections` and the schedule make there (the kernel
+    through its pointer; the plain formula takes a constant rate as the
+    Python float, a schedule's as the 0-d tensor bc[2]), and [c1, c2] are
+    held against the host formula (`bias_corrections`): the powers b^count
+    within 2 fp32 ulp; the scheduled rate against the schedule on the
+    host's count within 1e-6 relative. The kernel is timed at both rates
+    (the same launch: only the value of bc[2] differs)."""
     import torch
 
     from maavss_tpu_torch.config import RunConfig
@@ -1233,67 +1302,98 @@ def adam_phase(steps: int = 3):
         device_bias_corrections,
     )
     from maavss_tpu_torch.train.setup import build_fusion
+    from maavss_tpu_torch.train.state import cosine_decay_schedule
 
     model = build_fusion(RunConfig(), 8, "cuda")
     named = list(model.named_parameters())
     g = torch.Generator(device="cuda").manual_seed(5)
-    ps = [p.detach().clone() for _, p in named]
+    ps0 = [p.detach().clone() for _, p in named]
     grads = [None if "decoder" in n else
              torch.randn(p.shape, device="cuda", generator=g) * 1e-3
              for n, p in named]
-    ms = [torch.randn(p.shape, device="cuda", generator=g) * 1e-4 for p in ps]
-    vs = [torch.rand(p.shape, device="cuda", generator=g) * 1e-6 for p in ps]
-    ref = [[t.clone() for t in col] for col in (ms, vs, ps)]
+    ms0 = [torch.randn(p.shape, device="cuda", generator=g) * 1e-4
+           for p in ps0]
+    vs0 = [torch.rand(p.shape, device="cuda", generator=g) * 1e-6
+           for p in ps0]
     lr, b1, b2, eps = 1e-3, 0.9, 0.999, 1e-8
-    table = AdamTable(ms, vs, ps)
-    count = torch.zeros((), dtype=torch.float32, device="cuda")
+    sched = cosine_decay_schedule(lr, ADAM_SCHEDULE_STEPS)
     betas = torch.tensor([b1, b2], dtype=torch.float32).cuda()
-    err = bc_ulps = 0.0
-    for step in range(1, steps + 1):
-        count.add_(1.0)
-        bc = device_bias_corrections(count, betas)
-        host = torch.tensor(bias_corrections(step, b1, b2))
-        # in ulps of the powers b^count (1 - c is exact for b^count >= 1/2)
-        ulp = torch.finfo(torch.float32).eps * (1.0 - host)
-        bc_ulps = max(bc_ulps, ((bc.cpu() - host).abs() / ulp).max().item())
-        if bc_ulps > 2:
-            raise SystemExit(f"K3 step {step}: device [c1, c2] {bc.tolist()} "
-                             f"vs host {host.tolist()}: {bc_ulps} ulp")
-        adam_multi_tensor(grads, ms, vs, ps, bc, lr, b1, b2, eps,
-                          table=table, backend="kernel")
-        for gr, m, v, p in zip(grads, *ref):
-            adam_update_plain(gr, m, v, p, bc[0], bc[1], lr, b1, b2, eps)
-        torch.cuda.synchronize()
-        for name, got_col, want_col in zip("mvp", (ms, vs, ps), ref):
-            for a, b_ in zip(got_col, want_col):
-                err = max(err, check_close(f"K3 {name} step {step}", a, b_,
-                                           1e-6, 1e-5))
-    bc = device_bias_corrections(count + 1.0, betas)
-    ms_k = cuda_ms(lambda: adam_multi_tensor(
-        grads, ms, vs, ps, bc, lr, b1, b2, eps, table=table,
-        backend="kernel"), reps=5, iters=10)
+    err = bc_ulps = lr_rel = 0.0
+    for scheduled in (False, True):
+        ms, vs, ps = ([t.clone() for t in col] for col in (ms0, vs0, ps0))
+        ref = [[t.clone() for t in col] for col in (ms0, vs0, ps0)]
+        table = AdamTable(ms, vs, ps)
+        count = torch.zeros((), dtype=torch.float32, device="cuda")
+        bc = torch.zeros(3, dtype=torch.float32, device="cuda")
+        bc[2].fill_(lr)
+        for step in range(1, steps + 1):
+            if scheduled:
+                bc[2].copy_(sched(count))
+                want = float(sched(torch.tensor(float(step - 1))))
+                lr_rel = max(lr_rel, abs(bc[2].item() - want) / want)
+                if lr_rel > 1e-6:
+                    raise SystemExit(f"K3 step {step}: device rate "
+                                     f"{bc[2].item()} vs host {want}")
+            count.add_(1.0)
+            bc[:2].copy_(device_bias_corrections(count, betas))
+            host = torch.tensor(bias_corrections(step, b1, b2))
+            # in ulps of the powers b^count (1 - c is exact for b^count >=
+            # 1/2)
+            ulp = torch.finfo(torch.float32).eps * (1.0 - host)
+            bc_ulps = max(bc_ulps,
+                          ((bc[:2].cpu() - host).abs() / ulp).max().item())
+            if bc_ulps > 2:
+                raise SystemExit(f"K3 step {step}: device [c1, c2] "
+                                 f"{bc[:2].tolist()} vs host "
+                                 f"{host.tolist()}: {bc_ulps} ulp")
+            adam_multi_tensor(grads, ms, vs, ps, bc, b1, b2, eps,
+                              table=table, backend="kernel")
+            rate = bc[2] if scheduled else lr
+            for gr, m, v, p in zip(grads, *ref):
+                adam_update_plain(gr, m, v, p, bc[0], bc[1], rate, b1, b2,
+                                  eps)
+            torch.cuda.synchronize()
+            what = "cosine" if scheduled else "constant"
+            for name, got_col, want_col in zip("mvp", (ms, vs, ps), ref):
+                for a, b_ in zip(got_col, want_col):
+                    err = max(err, check_close(
+                        f"K3 {what} {name} step {step}", a, b_, 1e-6, 1e-5))
+        bc[:2].copy_(device_bias_corrections(count + 1.0, betas))
 
-    def plain():
-        for gr, m, v, p in zip(grads, *ref):
-            adam_update_plain(gr, m, v, p, bc[0], bc[1], lr, b1, b2, eps)
+        def launch():
+            adam_multi_tensor(grads, ms, vs, ps, bc, b1, b2, eps,
+                              table=table, backend="kernel")
 
-    plain_ms = cuda_ms(plain, reps=3, iters=3)
-    lib_params = [p.clone().requires_grad_(True) for p in ps]
-    for p, gr in zip(lib_params, grads):
-        p.grad = torch.zeros_like(p) if gr is None else gr.clone()
-    opt = torch.optim.Adam(lib_params, lr=lr, eps=eps, fused=True)
-    library_ms = cuda_ms(opt.step, reps=5, iters=10)
-    dev_ms, host_ms = split_ms(lambda: adam_multi_tensor(
-        grads, ms, vs, ps, bc, lr, b1, b2, eps, table=table,
-        backend="kernel"), iters=10)
-    n = sum(p.numel() for p in ps)
+        if scheduled:
+            sched_ms = cuda_ms(launch, reps=5, iters=10)
+            sched_dev, sched_host = split_ms(launch, iters=10)
+            sched_rate = bc[2].item()
+            continue
+        ms_k = cuda_ms(launch, reps=5, iters=10)
+
+        def plain():
+            for gr, m, v, p in zip(grads, *ref):
+                adam_update_plain(gr, m, v, p, bc[0], bc[1], lr, b1, b2, eps)
+
+        plain_ms = cuda_ms(plain, reps=3, iters=3)
+        lib_params = [p.clone().requires_grad_(True) for p in ps]
+        for p, gr in zip(lib_params, grads):
+            p.grad = torch.zeros_like(p) if gr is None else gr.clone()
+        opt = torch.optim.Adam(lib_params, lr=lr, eps=eps, fused=True)
+        library_ms = cuda_ms(opt.step, reps=5, iters=10)
+        del lib_params, opt
+        dev_ms, host_ms = split_ms(launch, iters=10)
+    n = sum(p.numel() for p in ps0)
     n_grad = sum(gr.numel() for gr in grads if gr is not None)
     bnd = bound_ms(4 * (6 * n + n_grad), 12 * n)
-    phase("k3_adam", leaves=len(ps), params=n, params_with_grad=n_grad,
+    phase("k3_adam", leaves=len(ps0), params=n, params_with_grad=n_grad,
           steps=steps, max_abs_err=err, atol=1e-6, rtol=1e-5,
-          bias_corrections="device", bc_max_ulps_vs_host=bc_ulps, ms=ms_k,
+          bias_corrections="device", bc_max_ulps_vs_host=bc_ulps,
+          lr_on_device="bc[2]", cosine_rate_rel_vs_host=lr_rel, ms=ms_k,
           plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd[0],
-          bound_by=bnd[1], device_ms=dev_ms, host_ms=host_ms)
+          bound_by=bnd[1], device_ms=dev_ms, host_ms=host_ms,
+          cosine_ms=sched_ms, cosine_device_ms=sched_dev,
+          cosine_host_ms=sched_host, cosine_rate_timed=sched_rate)
     return dict(err=err, ms=ms_k, plain_ms=plain_ms, bound=bnd,
                 library_ms=library_ms, device_ms=dev_ms, host_ms=host_ms)
 
@@ -2011,7 +2111,8 @@ def _plain_k5(fn):
     return run
 
 
-def _frames_params_close(model, ref, tol: float, enc_tol: float):
+def _frames_params_close(model, ref, tol: float, enc_tol: float,
+                         what: str = "frames train: after step 1"):
     """Every state_dict leaf of `model` against `ref` after one step:
     relative L2 <= tol, the visual encoder's <= enc_tol. Those are
     ill-conditioned at full width: the frames are flat over most of their
@@ -2022,12 +2123,12 @@ def _frames_params_close(model, ref, tol: float, enc_tol: float):
     kernels to ~1e-6 (tools/frames_grad_probe.py measures both). enc_tol is
     the JAX package's own tolerance between its fused epilogue and XLA's
     unfused tail on the encoder's gradients
-    (tests/test_pallas_epilogue.py:176-178). Returns the worst relative L2
-    (encoder, rest)."""
+    (tests/test_pallas_epilogue.py:176-178). Every leaf past its gate is
+    named. Returns the worst relative L2 (encoder, rest)."""
     import torch
 
     sd, sd_ref = model.state_dict(), ref.state_dict()
-    worst = [0.0, 0.0]
+    worst, bad = [0.0, 0.0], []
     for k, v in sd.items():
         a, b = v.float(), sd_ref[k].float()
         enc = k.startswith("visual_encoder.")
@@ -2035,7 +2136,9 @@ def _frames_params_close(model, ref, tol: float, enc_tol: float):
                / torch.linalg.vector_norm(b).clamp(min=1e-12)).item()
         worst[1 - enc] = max(worst[1 - enc], rel)
         if rel > (enc_tol if enc else tol):
-            raise SystemExit(f"frames train: {k} rel L2 {rel} after step 1")
+            bad.append(f"{k} rel L2 {rel}")
+    if bad:
+        raise SystemExit(f"{what}: " + "; ".join(bad))
     return worst
 
 
@@ -2769,14 +2872,13 @@ def _kernel_names(fn):
     CUDA activities, as profile_phase traces."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from maavss_tpu_torch.exp.profiling import trace
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as d, trace(d) as prof:
         fn()
-        torch.cuda.synchronize()
     names = set()
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.count:
@@ -5614,6 +5716,721 @@ def frames_tuned_phase():
     return k5, k1, totals
 
 
+# ------------------------------------------------------------ the trainer
+
+TRAINER_WALL = ("ts", "clips_per_sec_per_chip")  # host clock: not compared
+TRAINER_LOSSES = ("loss", "a_loss", "v_loss")
+TRAINER_RECORD = dict(batch_size=256, fusion_encode="full", pgram_cache=True,
+                      dtype="bfloat16", lr_schedule="warmup_cosine",
+                      epochs=1, steps_per_epoch=16, val_steps=0)
+TRAINER_RECORD_K = 4  # --steps_per_dispatch of the number of record's run
+# the trainer's rate: windows of graphed steps on a warmed stream
+TRAINER_WINDOWS, TRAINER_WINDOW_STEPS = 3, 32
+
+
+def _launch_counts():
+    from maavss_tpu_torch.ops.counters import kernel_counters
+
+    return {n: getattr(o, a) for n, (o, a) in kernel_counters().items()}
+
+
+class _Launches:
+    """A step or eval function that records each call's kernel launches
+    (the wrappers' counters' growth) in `calls`, and adds them to
+    `totals`."""
+
+    def __init__(self, fn, totals):
+        self.fn, self.totals, self.calls = fn, totals, []
+
+    def __call__(self, *args, **kwargs):
+        before = _launch_counts()
+        out = self.fn(*args, **kwargs)
+        grown = {n: c - before[n] for n, c in _launch_counts().items()
+                 if c != before[n]}
+        self.calls.append(grown)
+        for n, c in grown.items():
+            self.totals[n] = self.totals.get(n, 0) + c
+        return out
+
+
+def _plain_fn(fn, k5=False):
+    """A plain step or eval as the Trainer calls it (keyword noise): `fn`
+    under _plain_k4 (and _plain_k5)."""
+    plain = _plain_k4(fn)
+    if k5:
+        plain = _plain_k5(plain)
+
+    def run(*args, **kwargs):
+        return plain(*args, *kwargs.values())
+    return run
+
+
+def _records(cfg, name):
+    path = os.path.join(cfg.log_dir, name, "metrics.jsonl")
+    with open(path) as f:
+        return [{k: v for k, v in json.loads(line).items()
+                 if k not in TRAINER_WALL} for line in f]
+
+
+def _records_close(what, got, want, rtol, keys=TRAINER_LOSSES, wide=()):
+    """Each record of `got` against `want` (same steps, kinds and modes):
+    `keys` at relative `rtol`, the keys of `wide` at their own (key ->
+    rtol); returns the worst relative difference."""
+    if len(got) != len(want):
+        raise SystemExit(f"{what}: {len(got)} records vs {len(want)}")
+    worst = 0.0
+    for a, b in zip(got, want):
+        for k in ("step", "mode", "epoch"):
+            if a.get(k) != b.get(k):
+                raise SystemExit(f"{what}: record {a} vs plain {b}")
+        for k in list(keys) + ["val_loss"] + list(wide):
+            if k not in b:
+                continue
+            if not math.isfinite(a[k]):
+                raise SystemExit(f"{what}: {k} {a[k]} at step {a['step']}")
+            rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+            tol = dict(wide).get(k, rtol)
+            if rel > tol:
+                raise SystemExit(f"{what}: {k} {a[k]} vs plain {b[k]} at "
+                                 f"step {a['step']}: rel {rel} > {tol}")
+            worst = max(worst, rel)
+    return worst
+
+
+def _check_calls(what, calls, want):
+    for i, got in enumerate(calls):
+        if got != want:
+            raise SystemExit(f"{what} call {i + 1}: launches {got} != {want}")
+
+
+def _trainer_store(root, cfg, frame_size, n_videos, seconds):
+    from maavss_tpu_torch.data.synthetic import build_synthetic_store
+
+    out = os.path.join(root, f"store-{frame_size}")
+    build_synthetic_store(out, cfg, n_videos=n_videos, seconds=seconds,
+                          frame_size=frame_size)
+    return out
+
+
+def _trainer_dataset(cfg, root, clip_len):
+    from maavss_tpu_torch.data.dataset import AVDataset, split_train_val
+    from maavss_tpu_torch.train.setup import load_pgram_store, load_stores
+
+    ds = AVDataset(cfg, *load_stores(cfg), clip_len,
+                   cache_dir=os.path.join(root, "clipcache"),
+                   pgrams=load_pgram_store(cfg))
+    return ds, split_train_val(len(ds), cfg.split, cfg.seed)
+
+
+def _fit(cfg, ds, split, step, state, name, eval_fn=None, **kwargs):
+    """One Trainer run from the store's streams; returns the Trainer."""
+    import torch
+
+    from maavss_tpu_torch.train.setup import make_stream
+    from maavss_tpu_torch.train.trainer import Trainer
+
+    tr, va = split
+    trainer = Trainer(cfg, step, state, run_name=name, eval_fn=eval_fn,
+                      **kwargs)
+    trainer.fit(make_stream(cfg, ds, tr, cfg.seed,
+                            stack=cfg.steps_per_dispatch),
+                make_stream(cfg, ds, va, cfg.seed + 1))
+    torch.cuda.synchronize()
+    return trainer
+
+
+def _adam_step_bound(t: int, b1: float, b2: float) -> float:
+    """The most, in units of lr, that Adam's bias-corrected step t moves an
+    element (eps -> 0), over every gradient history: m_hat / sqrt(v_hat) is
+    a weighted sum of g_1..g_t over the root of another, at most
+    sqrt(sum_i w_i^2 / u_i) by Cauchy-Schwarz (1 at t = 1, 1.0013 at 2)."""
+    w = [(1 - b1) * b1 ** (t - i) / (1 - b1 ** t) for i in range(1, t + 1)]
+    u = [(1 - b2) * b2 ** (t - i) / (1 - b2 ** t) for i in range(1, t + 1)]
+    return math.sqrt(sum(a * a / c for a, c in zip(w, u)))
+
+
+def _synced_leaves(what, model, ref, names, tx, step, ref_step):
+    """A kernel step and a plain step (each a Trainer's step function) for
+    leaves that two implementations legitimately move apart by Adam's
+    elementwise bound each way: a BatchNorm-fed conv bias (true gradient
+    0) or a BatchNorm shift ahead of another train-mode BatchNorm (a
+    near-total cancellation), where rounding noise reaches Adam's eps.
+    After plain step t those leaves must lie within twice
+    `_adam_step_bound(t)` lr (`tx`'s rate and betas; 1e-6 of the value and
+    of lr for rounding) of the kernel step's, and then take the kernel
+    step's values, so the difference never compounds and every other leaf
+    is held at its own gate. Returns the two steps and a one-element list
+    of the largest difference seen."""
+    import torch
+
+    lr = tx.lr  # a constant rate
+    kernel_vals, worst = [], [0.0]
+
+    def kernel_step(*args, **kwargs):
+        out = step(*args, **kwargs)
+        params = dict(model.named_parameters())
+        kernel_vals.append({n: params[n].detach().clone() for n in names})
+        return out
+
+    def plain_step(*args, **kwargs):
+        out = ref_step(*args, **kwargs)
+        t = len(ref_step.calls)
+        bound = 2 * lr * _adam_step_bound(t, tx.b1, tx.b2) * 1.0001
+        params = dict(ref.named_parameters())
+        with torch.no_grad():
+            for n, want in kernel_vals[t - 1].items():
+                d = (params[n] - want).abs()
+                worst[0] = max(worst[0], d.max().item())
+                excess = (d - bound - 1e-6 * (want.abs() + lr)).max().item()
+                if excess > 0:
+                    raise SystemExit(f"{what}: {n} {d.max().item()} from the "
+                                     f"kernels' at step {t}, past Adam's "
+                                     f"bound {bound} by {excess}")
+                params[n].copy_(want)
+        return out
+    return kernel_step, plain_step, worst
+
+
+def _trainer_fusion(root, totals):
+    """The fusion flagship (the default RunConfig: window mode, scan) through
+    the Trainer, 2 epochs x 4 steps at batch 8, val_steps 2, 'cycle' every
+    epoch, with every kernel against the plain versions from one state
+    (each its own Trainer, one store, one noise seed): per-step losses and
+    val losses within 1e-4 relative; the records, the epoch checkpoints
+    and the launches of every step and eval batch exactly. The conv biases
+    that feed a train-mode BatchNorm (true gradient 0: K2's exact 0 against
+    the plain side's rounding noise, which Adam turns into +-lr) are held
+    within Adam's bound each step and then synchronised to the kernels'
+    (`_synced_leaves`), as the CPU tests re-sync what float noise drives
+    (ROADMAP §3); the kernel side's K2 biases, whose gradient is exactly 0,
+    must end where they began with Adam's m and v still 0. Modes 0 and 1
+    zero one encoder, whose gradients are then float noise (ROADMAP §3),
+    and 'cycle' reaches mode 2 only in a third epoch: parameters are held
+    in mode 2 by the train phase, not here."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.train import setup, trainer as trainer_mod
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_fusion_eval, make_fusion_step
+
+    cfg = RunConfig(batch_size=8, epochs=2, steps_per_epoch=4, val_steps=2,
+                    mode_freq=1, cb_freq=1, log_dir=os.path.join(root, "runs"))
+    store = _trainer_store(root, cfg, cfg.p_size, 12, 4.0)
+    cfg = cfg.replace(data_path=store)
+    ds, split = _trainer_dataset(cfg, root, cfg.num_frames + cfg.num_seq)
+    model, state = setup.build_fusion_state(
+        cfg, cfg.batch_size, "cuda", torch.Generator().manual_seed(cfg.seed))
+    plain_cfg = _plain_cfg(cfg, False)
+    ref = setup.build_fusion(plain_cfg, cfg.batch_size, "cuda",
+                             torch.Generator().manual_seed(cfg.seed + 1))
+    ref.load_state_dict(model.state_dict())
+    ref.lstm.backend = "scan"
+    ref_state = create_train_state(ref, plain_cfg, "cuda")
+    step = _Launches(make_fusion_step(model, cfg), totals)
+    ev = _Launches(make_fusion_eval(model, cfg), totals)
+    plain_totals = {}
+    ref_step = _Launches(_plain_fn(make_fusion_step(ref, plain_cfg)),
+                         plain_totals)
+    # the conv biases that feed a train-mode BatchNorm: true gradient 0,
+    # rounding noise on the plain side that Adam turns into +-lr a step;
+    # the eval's running statistics then carry the difference (1.1e-4 of a
+    # val loss at lr 1e-5, NVIDIA H100)
+    fed = list(model.bn_fed_biases())
+    kernel_step, plain_step, fed_diff = _synced_leaves(
+        "trainer fusion", model, ref, fed, state.tx, step, ref_step)
+    # K2's (the phasegram encoder's) return exactly 0: Adam from m = v = 0
+    # never moves them
+    k2_fed = [n for n in fed if n.startswith("phasegram_encoder.")]
+    names = [n for n, _ in model.named_parameters()]
+    params = dict(model.named_parameters())
+    k2_start = {n: params[n].detach().clone() for n in k2_fed}
+    ref_ev = _Launches(_plain_fn(make_fusion_eval(ref, plain_cfg)),
+                       plain_totals)
+    saves = []
+    real_save = trainer_mod.save_checkpoint
+
+    def save(cp_dir, name, st, epoch=0, loss=0.0):
+        saves.append((name, int(epoch), int(st.step)))
+        return real_save(cp_dir, name, st, epoch, loss)
+
+    trainer_mod.save_checkpoint = save
+    try:
+        t0 = time.perf_counter()
+        _fit(cfg.replace(cp_dir=os.path.join(root, "cp")), ds, split,
+             kernel_step, state, "fusion", ev)
+        fit_s = time.perf_counter() - t0
+        _fit(cfg.replace(cp_dir=os.path.join(root, "cp-plain")), ds, split,
+             plain_step, ref_state, "fusion_plain", ref_ev)
+    finally:
+        trainer_mod.save_checkpoint = real_save
+    if any(plain_totals.values()):
+        raise SystemExit(f"the plain trainer launched kernels: "
+                         f"{plain_totals}")
+    for n in k2_fed:
+        i = names.index(n)
+        if not (torch.equal(params[n], k2_start[n])
+                and not state.tx.m[i].any() and not state.tx.v[i].any()):
+            raise SystemExit(f"trainer fusion: K2's BN-fed bias {n} moved "
+                             f"(its gradient is exactly 0)")
+    got, want = _records(cfg, "fusion"), _records(cfg, "fusion_plain")
+    worst = _records_close("trainer fusion", got, want, 1e-4)
+    steps = [r for r in got if "loss" in r]
+    vals = [r for r in got if "val_loss" in r]
+    if ([r["step"] for r in steps] != list(range(1, 9))
+            or [r["mode"] for r in steps] != [0] * 4 + [1] * 4
+            or [r["epoch"] for r in vals] != [0, 1]):
+        raise SystemExit(f"trainer fusion records: {got}")
+    if saves != [("fusion", 0, 4), ("fusion", 1, 8), ("fusion_plain", 0, 4),
+                 ("fusion_plain", 1, 8)]:
+        raise SystemExit(f"trainer fusion checkpoints: {saves}")
+    saved = torch.load(os.path.join(root, "cp", "fusion.ckpt.pt"),
+                       weights_only=True)
+    if (saved["epoch"], saved["step"], saved["opt"]["count"]) != (1, 8, 8):
+        raise SystemExit("trainer fusion: the last checkpoint holds epoch "
+                         f"{saved['epoch']} step {saved['step']}")
+    ns, layers = cfg.num_seq, len(model.phasegram_encoder.specs)
+    want_step = {"lstm_fwd": ns, "lstm_bwd": ns, "pgenc_train": ns * layers,
+                 "pgenc_bwd": ns * layers, "adam": 1, "stft_feat": 1}
+    want_eval = {"lstm_fwd": ns, "pgenc_eval": ns * layers, "stft_feat": 1}
+    _check_calls("trainer fusion step", step.calls, want_step)
+    _check_calls("trainer fusion eval", ev.calls, want_eval)
+    phase("trainer_fusion", batch=cfg.batch_size, epochs=cfg.epochs,
+          steps_per_epoch=cfg.steps_per_epoch, val_steps=cfg.val_steps,
+          mode_schedule="cycle", lr=cfg.learning_rate,
+          noise_scalar=cfg.noise_scalar, clips=len(ds),
+          losses=[r["loss"] for r in steps],
+          plain_losses=[r["loss"] for r in want if "loss" in r],
+          val_losses=[r["val_loss"] for r in vals],
+          worst_rel_vs_plain=worst, tol=1e-4, checkpoints=saves[:2],
+          bn_fed_biases=len(fed), bn_fed_max_abs_diff=fed_diff[0],
+          k2_bn_fed_biases_unmoved=len(k2_fed), launches_per_step=want_step,
+          launches_per_val_batch=want_eval, fit_s=fit_s)
+    return cfg, ds, split
+
+
+def _snapshot(state):
+    """Copies of every tensor a load restores: the state_dict, m, v and the
+    device count."""
+    return ({k: v.detach().clone() for k, v in
+             state.model.state_dict().items()},
+            [t.clone() for t in state.tx.m], [t.clone() for t in state.tx.v],
+            state.tx.count_tensor.clone())
+
+
+def _equal_to_checkpoint(what, state, saved):
+    """Every parameter, buffer, m, v and the device count of `state` equal
+    the checkpoint's bit for bit."""
+    import torch
+
+    names = [n for n, _ in state.model.named_parameters()]
+    pairs = [(k, v, saved["model"][k])
+             for k, v in state.model.state_dict().items()]
+    pairs += [(f"m {n}", t, saved["opt"]["m"][n])
+              for n, t in zip(names, state.tx.m)]
+    pairs += [(f"v {n}", t, saved["opt"]["v"][n])
+              for n, t in zip(names, state.tx.v)]
+    for k, a, b in pairs:
+        if not torch.equal(a.cpu(), b):
+            raise SystemExit(f"{what}: {k} differs from the checkpoint")
+    count = saved["opt"]["count"]
+    if (state.tx.count != count or float(state.tx.count_tensor) != count
+            or state.step != saved["step"]):
+        raise SystemExit(f"{what}: count {state.tx.count} / "
+                         f"{float(state.tx.count_tensor)}, step "
+                         f"{state.step} vs {count}, {saved['step']}")
+
+
+def _resume_sequence(cfg, ds, split, root, tag, totals, check=False):
+    """The signal-and-resume sequence at --steps_per_dispatch 2: a run that
+    a SIGTERM (sent from a media_fn at global step 6, during epoch 1)
+    stops with a checkpoint; every restored tensor perturbed; then -c
+    --cp_load_opt into the same state, step (its graphs captured) and
+    generator, to the end. With `check`: after the load every tensor
+    equals the checkpoint bit for bit, and the first dispatch after it (a
+    graph replay) equals two eager steps of a fresh state loaded from the
+    same checkpoint, bit for bit. Returns both runs' records."""
+    import signal
+
+    import torch
+
+    from maavss_tpu_torch.exp.checkpoint import (
+        latest_checkpoint,
+        load_checkpoint,
+    )
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.steps import make_fusion_eval, make_fusion_step
+
+    cfg = cfg.replace(steps_per_dispatch=2, cp_dir=os.path.join(root, tag),
+                      log_dir=os.path.join(root, f"runs-{tag}"))
+    model, state = setup.build_fusion_state(
+        cfg, cfg.batch_size, "cuda", torch.Generator().manual_seed(cfg.seed))
+    kstep = make_fusion_step(model, cfg)
+    ev = make_fusion_eval(model, cfg)
+    gen = torch.Generator(device="cuda")
+
+    def media(st, batch, generator, global_step):
+        if global_step == 6:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    first = _fit(cfg, ds, split, _Launches(kstep, totals), state, "seq", ev,
+                 media_fn=media, generator=gen)
+    if first._preempted != signal.SIGTERM or state.step != 6:
+        raise SystemExit(f"resume {tag}: the SIGTERM run stopped at step "
+                         f"{state.step}")
+    saved_path = latest_checkpoint(cfg.cp_dir)
+    saved = torch.load(saved_path, weights_only=True)
+    with torch.no_grad():
+        for t in list(state.model.state_dict().values()) + state.tx.m \
+                + state.tx.v:
+            if t.is_floating_point():
+                t.add_(0.5)
+    state.tx.count = 99
+    state.step = 99
+    out = {}
+    recorder = _Launches(kstep, totals)
+
+    def first_dispatch(st, batch, mode, generator, noise=None):
+        if not out:
+            out["batch"] = {k: v.copy() for k, v in batch.items()}
+            out["mode"] = mode
+        res = recorder(st, batch, mode, generator, noise=noise)
+        if "metrics" not in out:
+            out["metrics"] = {k: v.clone() for k, v in res[1].items()}
+            out["after"] = _snapshot(st)
+        return res
+
+    from maavss_tpu_torch.train.trainer import Trainer
+
+    rcfg = cfg.replace(c=True, cp_load_opt=True)
+    resumed = Trainer(rcfg, first_dispatch, state, run_name="seq_resumed",
+                      eval_fn=ev, generator=gen)
+    if check:
+        _equal_to_checkpoint("resume into a captured state", state, saved)
+    if resumed.epoch != 1 or resumed.mode != 0:
+        raise SystemExit(f"resume {tag}: epoch {resumed.epoch} mode "
+                         f"{resumed.mode}, want 1 and 0 (JAX's quirks)")
+    captures = kstep.captures
+    tr, va = split
+    resumed.fit(setup.make_stream(rcfg, ds, tr, rcfg.seed, stack=2),
+                setup.make_stream(rcfg, ds, va, rcfg.seed + 1))
+    torch.cuda.synchronize()
+    if kstep.captures != captures:
+        raise SystemExit(f"resume {tag}: the resumed run captured again")
+    if check:
+        # a fresh state loaded from the same checkpoint, two eager steps
+        _, twin = setup.build_fusion_state(
+            cfg, cfg.batch_size, "cuda",
+            torch.Generator().manual_seed(cfg.seed + 1))
+        load_checkpoint(cfg.cp_dir, twin, auto=False, path=saved_path,
+                        load_opt=True)
+        _equal_to_checkpoint("resume into a fresh state", twin, saved)
+        eager = make_fusion_step(twin.model, cfg, k_steps=1)
+        tgen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+        metrics = []
+        for j in range(2):
+            twin, m = eager(twin, {k: v[j] for k, v in out["batch"].items()},
+                            out["mode"], tgen)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        for k, v in out["metrics"].items():
+            if not torch.equal(v, torch.stack([m[k] for m in metrics])):
+                raise SystemExit(f"resume: the first replay's {k} "
+                                 f"{v.tolist()} vs eager "
+                                 f"{[float(m[k]) for m in metrics]}")
+        sd, mm, vv, count = out["after"]
+        after = _snapshot(twin)
+        for k, a in sd.items():
+            if not torch.equal(a, after[0][k]):
+                raise SystemExit(f"resume: {k} after the first replay "
+                                 f"differs from the eager steps'")
+        for a, b in zip(mm + vv + [count], after[1] + after[2] + [after[3]]):
+            if not torch.equal(a, b):
+                raise SystemExit("resume: Adam's state after the first "
+                                 "replay differs from the eager steps'")
+    return _records(cfg, "seq") + _records(rcfg, "seq_resumed")
+
+
+def _trainer_resume(cfg, ds, split, root, totals):
+    """The resume checks of `_resume_sequence`, under cuDNN's deterministic
+    algorithms, and the same sequence run twice: equal records."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [_resume_sequence(cfg, ds, split, root, f"seq{i}", totals,
+                                 check=i == 0) for i in range(2)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if runs[0] != runs[1]:
+        raise SystemExit("resume: two runs of the signal-and-resume "
+                         "sequence wrote different records")
+    steps = [r["step"] for r in runs[0] if "loss" in r]
+    if steps != list(range(1, 7)) + list(range(7, 11)) or not any(
+            r.get("preempted") for r in runs[0]):
+        raise SystemExit(f"resume records: steps {steps}")
+    phase("trainer_resume", steps_per_dispatch=2, sigterm_at_step=6,
+          resumed_at_epoch=1, records=len(runs[0]), step_records=steps,
+          restored_bit_for_bit=True, first_replay_equals_eager=True,
+          two_sequences_equal=True)
+
+
+def _trainer_record(root, totals):
+    """The number of record's configuration (TRAINER_RECORD, batch 256)
+    through the Trainer, from the store's phasegram rows, which
+    tools/save_phasegrams_torch.py builds on the card first (held against
+    phasegram_cumsum of the frames within float16's rounding). Under
+    cuDNN's deterministic algorithms an eager run (K = 1) and a graphed
+    run (K = TRAINER_RECORD_K) from one state write the same records bit
+    for bit, with one capture while the rate changes every step. Then,
+    with cuDNN's default algorithms, on a stream whose prefetch thread is
+    already running, TRAINER_WINDOWS windows of TRAINER_WINDOW_STEPS
+    graphed steps (every dispatch a replay), each a Trainer's fit closed by
+    a synchronize, give the trainer's clips/s on the host's clock (median
+    and spread) and the host's batch time (PhaseTimer); one more epoch the
+    card's idle share over its 4 dispatches (exp/profiling.trace via
+    profile_phase), and tools/bench_torch.py measures the same
+    configuration."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.dataset import Subset, batches
+    from maavss_tpu_torch.data.frame_shards import FrameShardStore
+    from maavss_tpu_torch.exp.profiling import PhaseTimer
+    from maavss_tpu_torch.ops.phasegram import phasegram_cumsum
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.steps import make_fusion_step
+    from tools import bench_torch, save_phasegrams_torch
+
+    cfg = RunConfig(**TRAINER_RECORD, log_dir=os.path.join(root, "runs"),
+                    cp_dir=os.path.join(root, "cp-record"), no_save=True)
+    # the fusion trainer's store, its frames at p_size
+    cfg = cfg.replace(data_path=os.path.join(root, f"store-{cfg.p_size}"))
+    t0 = time.perf_counter()
+    out = save_phasegrams_torch.build_pgram_store(cfg.data_path, cfg.p_size)
+    rows_s = time.perf_counter() - t0
+    frames = FrameShardStore(os.path.join(cfg.data_path, "frames"))
+    rows = FrameShardStore(out)
+    rows_err = 0.0
+    for v in range(len(frames)):
+        idx = np.arange(frames.num_frames(v))
+        fr = torch.from_numpy(frames.read(v, idx)).cuda().float() / 255.0
+        want = phasegram_cumsum(fr[None])[0].cpu()
+        got = torch.from_numpy(rows.read(v, idx).astype(np.float32))
+        rows_err = max(rows_err, (got - want).abs().max().item())
+    if rows_err > 2.0 ** -12:  # values in [-1/2, 1/2]: half a float16 ulp
+        raise SystemExit(f"phasegram rows off by {rows_err}")
+    ds, split = _trainer_dataset(cfg, root, cfg.num_frames + cfg.num_seq)
+
+    def state_pair():
+        return setup.build_fusion_state(
+            cfg, cfg.batch_size, "cuda",
+            torch.Generator().manual_seed(cfg.seed))
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        rates = {}
+        runs = {}
+        for k in (1, TRAINER_RECORD_K):
+            kcfg = cfg.replace(steps_per_dispatch=k)
+            model, state = state_pair()
+            step = make_fusion_step(model, kcfg)
+            seen = rates.setdefault(k, [])
+
+            def rated(st, batch, mode, generator, noise=None, _s=step,
+                      _seen=seen):
+                res = _s(st, batch, mode, generator, noise=noise)
+                _seen.append((st.step, st.tx.bc[2].item()))
+                return res
+
+            trainer = _fit(kcfg, ds, split, _Launches(rated, totals), state,
+                           f"record_k{k}", mode_schedule="fixed")
+            runs[k] = (_records(kcfg, f"record_k{k}"), step, model, state,
+                       trainer.generator)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    eager, graphed = runs[1][0], runs[TRAINER_RECORD_K][0]
+    kstep = runs[TRAINER_RECORD_K][1]
+    if eager != graphed or len(graphed) != cfg.steps_per_epoch:
+        raise SystemExit("record: the graphed run's records differ from the "
+                         "eager run's")
+    by_step = dict(rates[1])
+    if (kstep.captures != 1 or any(by_step[n] != r for n, r in
+                                   rates[TRAINER_RECORD_K])
+            or len(set(by_step.values())) != len(by_step)):
+        raise SystemExit(f"record: captures {kstep.captures}, rates eager "
+                         f"{rates[1]} graphed {rates[TRAINER_RECORD_K]}")
+    del runs[1]
+    torch.cuda.empty_cache()
+    _, kstep, model, state, gen = runs[TRAINER_RECORD_K]
+    kcfg = cfg.replace(steps_per_dispatch=TRAINER_RECORD_K)
+    timer = PhaseTimer()
+    tr, va = split
+
+    def timed(it):
+        while True:
+            with timer.phase("batch_wait"):
+                b = next(it)
+            yield b
+
+    from maavss_tpu_torch.train.trainer import Trainer
+
+    stream = setup.make_stream(kcfg, ds, tr, kcfg.seed,
+                               stack=TRAINER_RECORD_K)
+    next(stream)  # the prefetch thread running before the first window
+    stream = timed(stream)
+    wcfg = kcfg.replace(steps_per_epoch=TRAINER_WINDOW_STEPS)
+    window_rates = []
+    for w in range(TRAINER_WINDOWS):
+        steady = Trainer(wcfg, _Launches(kstep, totals), state,
+                         run_name=f"record_steady{w}", mode_schedule="fixed",
+                         generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steady.fit(stream)
+        torch.cuda.synchronize()
+        window_rates.append(wcfg.batch_size * wcfg.steps_per_epoch
+                            / (time.perf_counter() - t0))
+    clips_per_s = statistics.median(window_rates)
+    produce = PhaseTimer()
+    src = batches(Subset(ds, tr), kcfg.batch_size, seed=kcfg.seed)
+    for _ in range(8):
+        with produce.phase("batch_build"):
+            group = [next(src) for _ in range(TRAINER_RECORD_K)]
+        with produce.phase("stack"):
+            setup.stack_batches(group)
+    profiled = Trainer(kcfg, _Launches(kstep, totals), state,
+                       run_name="record_profiled", mode_schedule="fixed",
+                       generator=gen)
+    it = setup.make_stream(kcfg, ds, tr, kcfg.seed + 2,
+                           stack=TRAINER_RECORD_K)
+    next(it)  # the stream's prefetch thread running before the window
+    profile_phase("trainer_record_profile", lambda: profiled.fit(it),
+                  calls=1)
+    if kstep.captures != 1:
+        raise SystemExit("record: the steady runs captured again")
+    del model, state, kstep, runs, steady, profiled, gen
+    torch.cuda.empty_cache()
+    bench = bench_torch.measure(
+        cfg.batch_size, steps=4 * TRAINER_RECORD_K, windows=3,
+        env={"MAAVSS_BENCH_MULTISTEP": str(TRAINER_RECORD_K)})
+    host = {**timer.summary(), **produce.summary()}
+    phase("trainer_record", **TRAINER_RECORD,
+          steps_per_dispatch=TRAINER_RECORD_K, clips=len(ds),
+          pgram_rows_s=rows_s, pgram_rows_max_abs_err=rows_err,
+          graphed_equals_eager=True, captures=1,
+          rates=[r for _, r in rates[1]],
+          trainer_clips_per_s=clips_per_s,
+          trainer_clips_per_s_windows=window_rates,
+          trainer_spread=(max(window_rates) - min(window_rates)) / clips_per_s,
+          trainer_window_steps=TRAINER_WINDOW_STEPS,
+          bench_clips_per_s=bench["value"], bench_spread=bench.get("spread"),
+          host_s_per_dispatch_wait=host["time_batch_wait"],
+          host_s_per_batch_build=host["time_batch_build"]
+          / TRAINER_RECORD_K,
+          host_s_per_dispatch_stack=host["time_stack"],
+          graphed_step_ms_trainer=1e3 * kcfg.batch_size / clips_per_s)
+
+
+def _trainer_frames(root, totals):
+    """The frames family through the Trainer (tools/fit_torch.py --model
+    frames: clips of num_frames + num_seq frames, the frame size read from
+    the store, latent width 16, no eval), framesize 256, batch 8, 1 epoch x
+    2 steps, 'random01' (mode 2 first, as JAX starts it), every kernel
+    against the plain versions from one state: the records' losses and
+    norms at 1e-4 relative, the visual encoder's gradient norms at 2e-3
+    (frames_train's encoder gate: near-total cancellations at full width),
+    the launches of every step exactly, and after the run every leaf as
+    frames_train holds it (`_frames_params_close`: the encoder's at 2e-3,
+    the rest at 1e-4). The encoder's BatchNorm shifts ahead of the next
+    stage's train-mode BatchNorm have near-zero gradients that Adam turns
+    into +-lr either way (one read 2.25e-3 relative L2 after 2 steps at
+    lr 1e-5, NVIDIA H100): those are held within Adam's bound each step
+    and synchronised (`_synced_leaves`), as the fusion phase holds its
+    BatchNorm-fed conv biases."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_frames_step
+
+    os.environ.pop("MAAVSS_S2D_MIN_HW", None)  # the default, 128
+    cfg = RunConfig(batch_size=8, epochs=1, steps_per_epoch=2, val_steps=0,
+                    cb_freq=1, log_dir=os.path.join(root, "runs"),
+                    cp_dir=os.path.join(root, "cp-frames"))
+    store = _trainer_store(root, cfg, 256, 3, 2.0)
+    cfg = cfg.replace(data_path=store)
+    ds, split = _trainer_dataset(
+        cfg, root, cfg.num_frames + cfg.num_seq + 2 * cfg.frames_halo)
+    frame_size = ds[0]["frames"].shape[-1]
+    model, state = setup.build_frames_state(
+        cfg, cfg.batch_size, frame_size,
+        generator=torch.Generator().manual_seed(cfg.seed))
+    plain_cfg = _plain_cfg(cfg, True)
+    ref = setup.build_frames_model(plain_cfg, cfg.batch_size, frame_size,
+                                   generator=torch.Generator().manual_seed(
+                                       cfg.seed + 1))
+    ref.load_state_dict(model.state_dict())
+    ref.lstm.backend = "scan"
+    ref_state = create_train_state(ref, plain_cfg, "cuda")
+    step = _Launches(make_frames_step(model, cfg), totals)
+    plain_totals = {}
+    ref_step = _Launches(_plain_fn(make_frames_step(ref, plain_cfg), k5=True),
+                         plain_totals)
+    # stages 0-3's shifts each feed the next stage's conv and BatchNorm
+    shifts = [f"visual_encoder.TorchBatchNorm_{i}.BatchNorm_0.bias"
+              for i in range(len(model.visual_encoder.stages) - 1)]
+    kernel_step, plain_step, shift_diff = _synced_leaves(
+        "trainer frames", model, ref, shifts, state.tx, step, ref_step)
+    _fit(cfg, ds, split, kernel_step, state, "frames",
+         mode_schedule="random01")
+    _fit(cfg.replace(cp_dir=os.path.join(root, "cp-frames-plain")), ds,
+         split, plain_step, ref_state, "frames_plain",
+         mode_schedule="random01")
+    if any(plain_totals.values()):
+        raise SystemExit(f"the plain frames trainer launched kernels: "
+                         f"{plain_totals}")
+    leaves = _frames_params_close(model, ref, 1e-4, 2e-3,
+                                  what="trainer frames: after the run")
+    got, want = _records(cfg, "frames"), _records(cfg, "frames_plain")
+    enc = ("grad_norm", "grad_norm/visual_encoder")
+    norms = [k for k in want[0] if k.startswith(("grad_norm", "param_norm"))
+             and k not in enc]
+    worst = _records_close("trainer frames", got, want, 1e-4,
+                           keys=TRAINER_LOSSES + tuple(norms),
+                           wide={k: 2e-3 for k in enc})
+    ns = cfg.num_seq
+    want_step = {"lstm_fwd": ns, "lstm_bwd": ns, "adam": 1, "stft_feat": 1,
+                 **{f"epilogue_{n}": 2 * ns for n in
+                    ("stats", "apply", "bwd_reduce", "bwd_dy")}}
+    _check_calls("trainer frames step", step.calls, want_step)
+    phase("trainer_frames", batch=cfg.batch_size, framesize=frame_size,
+          latent=16, steps=cfg.steps_per_epoch, mode_schedule="random01",
+          modes=[r["mode"] for r in got], losses=[r["loss"] for r in got],
+          plain_losses=[r["loss"] for r in want], worst_rel_vs_plain=worst,
+          leaves_worst_rel_l2_encoder=leaves[0],
+          leaves_worst_rel_l2_rest=leaves[1], bn_shifts=len(shifts),
+          bn_shift_max_abs_diff=shift_diff[0], launches_per_step=want_step)
+
+
+def trainer_phase():
+    """The trainer (train/trainer.py) on the main paths, in a temporary
+    directory: `_trainer_fusion`, `_trainer_resume`, `_trainer_record` and
+    `_trainer_frames`. Returns the kernels' launches in its runs with the
+    kernels (the plain runs launch none), by counter name."""
+    totals = {}
+    with tempfile.TemporaryDirectory(prefix="maavss_trainer_") as root:
+        t0 = time.perf_counter()
+        cfg, ds, split = _trainer_fusion(root, totals)
+        _trainer_resume(cfg, ds, split, root, totals)
+        _trainer_record(root, totals)
+        _trainer_frames(root, totals)
+        phase("trainer", launches=totals, s=time.perf_counter() - t0)
+    return totals
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -5663,6 +6480,7 @@ def main() -> None:
     full32, full16, full_serve = frames_full_phase()
     fusion_mb = fusion_microbatch_phase()
     k5_tuned, k1_tuned, tuned = frames_tuned_phase()
+    trainer = trainer_phase()
 
     def graphed(name, dtypes=(g32, g16)):
         return sum(g.get(name, 0) for g in dtypes)
@@ -5671,6 +6489,11 @@ def main() -> None:
         """Launches of `name` in the --frames_encode full and --microbatch
         phases."""
         return sum(r.get(name, 0) for r in runs)
+
+    def fit(name):
+        """Launches of `name` (its kernel_counters name) in the trainer
+        phase's runs."""
+        return trainer.get(name, 0)
 
     if any(m in sys.modules for m in ("jax", "flax", "ml_dtypes",
                                       "maavss_tpu")):
@@ -5682,19 +6505,21 @@ def main() -> None:
                      "maavss_tpu/ops/pallas_lstm.py:80",
                      serve["lstm"] + fullenc_serve["lstm_fwd"]
                      + frames_serve["lstm_fwd"] + graphed("lstm_fwd")
-                     + newer("lstm_fwd"), k1),
+                     + newer("lstm_fwd") + fit("lstm_fwd"), k1),
         kernel_entry("pgenc_eval", "pgenc_eval.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:171",
-                     serve["pgenc"] + fullenc_serve["pgenc_eval"],
-                     dict(k2, library_ms=None)),
+                     serve["pgenc"] + fullenc_serve["pgenc_eval"]
+                     + fit("pgenc_eval"), dict(k2, library_ms=None)),
         kernel_entry("lstm_bwd", "lstm_bwd.cu",
                      "maavss_tpu/ops/pallas_lstm.py:105",
                      train["lstm_bwd"] + fullenc["lstm_bwd"]
-                     + graphed("lstm_bwd") + newer("lstm_bwd"), k1b),
+                     + graphed("lstm_bwd") + newer("lstm_bwd")
+                     + fit("lstm_bwd"), k1b),
         kernel_entry("pgenc_train", "pgenc_train.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:137",
                      train["pgenc_train"] + fullenc["pgenc_train"]
-                     + graphed("pgenc_train") + newer("pgenc_train"),
+                     + graphed("pgenc_train") + newer("pgenc_train")
+                     + fit("pgenc_train"),
                      dict(err=k2t["fwd_err"], ms=k2t["fwd_ms"],
                           plain_ms=k2t["fwd_plain_ms"], bound=k2t["fwd_bound"],
                           device_ms=k2t["fwd_device_ms"],
@@ -5702,19 +6527,21 @@ def main() -> None:
         kernel_entry("pgenc_bwd", "pgenc_train.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:184",
                      train["pgenc_bwd"] + fullenc["pgenc_bwd"]
-                     + graphed("pgenc_bwd") + newer("pgenc_bwd"),
+                     + graphed("pgenc_bwd") + newer("pgenc_bwd")
+                     + fit("pgenc_bwd"),
                      dict(err=k2t["bwd_err"], ms=k2t["bwd_ms"],
                           plain_ms=k2t["bwd_plain_ms"], bound=k2t["bwd_bound"],
                           device_ms=k2t["bwd_device_ms"],
                           host_ms=k2t["bwd_host_ms"], library_ms=None)),
         kernel_entry("adam", "adam.cu", "maavss_tpu/ops/pallas_adam.py:49",
                      train["adam"] + fullenc["adam"] + graphed("adam")
-                     + newer("adam"), k3),
+                     + newer("adam") + fit("adam"), k3),
         *(kernel_entry(f"epilogue_{n}", "epilogue.cu",
                        f"maavss_tpu/ops/pallas_epilogue.py:{line}",
                        frames[f"epilogue_{n}"]
                        + graphed(f"epilogue_{n}", (g32,))
-                       + full32[f"epilogue_{n}"], k5[n])
+                       + full32[f"epilogue_{n}"] + fit(f"epilogue_{n}"),
+                       k5[n])
           for n, line in (("stats", 141), ("apply", 159),
                           ("bwd_reduce", 183), ("bwd_dy", 206))),
         kernel_entry("mask_head", "mask_head.cu",
@@ -5732,7 +6559,8 @@ def main() -> None:
                      + fullenc_serve["stft"] + frames["stft"]
                      + frames_serve["stft"] + mask_train["stft"]
                      + mask_serve["stft"] + polar["stft"]
-                     + graphed("stft_feat") + newer("stft"), stft),
+                     + graphed("stft_feat") + newer("stft")
+                     + fit("stft_feat"), stft),
         kernel_entry("polar", "spectral.cu",
                      "maavss_tpu/ops/pallas_kernels.py:143", polar["polar"],
                      k4["polar"]),

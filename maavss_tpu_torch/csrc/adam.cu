@@ -7,9 +7,12 @@
 //   v' = b2 * v + (1 - b2) * g^2
 //   p' = p - lr * (m' / c1) / (sqrt(v' / c2) + eps)
 // with c1 = 1 - b1^count, c2 = 1 - b2^count computed by the caller after the
-// count increment and read from device memory (`bc` = [c1, c2]), so that a
-// CUDA graph that captured the launch reads each replay's values; the
-// launch's arguments never change from step to step. m, v and p are updated
+// count increment, and the step's learning rate lr (a constant, or a
+// schedule's value at the count before the increment), all three read from
+// device memory (`bc` = [c1, c2, lr]), so that a CUDA graph that captured
+// the launch reads each replay's values; the launch's arguments never
+// change from step to step. (The TPU kernel takes lr as a Python constant,
+// which is why the JAX package refuses an LR schedule with it.) m, v and p are updated
 // in place (the TPU kernel aliases
 // them to its outputs). A leaf without a gradient (null g pointer) is updated
 // with g = 0, as optax does; its moments then decay.
@@ -37,14 +40,15 @@ namespace {
 constexpr int kThreads = 256;
 
 struct Hyper {
-  float lr, b1, omb1, b2, omb2, eps;
+  float b1, omb1, b2, omb2, eps;
 };
 
 __device__ __forceinline__ void adam_one(float g, float& m, float& v, float& p,
-                                         const Hyper& h, float c1, float c2) {
+                                         const Hyper& h, float c1, float c2,
+                                         float lr) {
   m = h.b1 * m + h.omb1 * g;
   v = h.b2 * v + h.omb2 * (g * g);
-  p = p - h.lr * (m / c1) / (sqrtf(v / c2) + h.eps);
+  p = p - lr * (m / c1) / (sqrtf(v / c2) + h.eps);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -53,7 +57,7 @@ adam_kernel(const int64_t* __restrict__ ptrs, const int64_t* __restrict__ gptrs,
             const int32_t* __restrict__ block_leaf,
             const int64_t* __restrict__ block_start,
             const float* __restrict__ bc, int n_leaves, int chunk, Hyper h) {
-  const float c1 = bc[0], c2 = bc[1];
+  const float c1 = bc[0], c2 = bc[1], lr = bc[2];
   const int leaf = block_leaf[blockIdx.x];
   const int64_t start = block_start[blockIdx.x];
   const int64_t size = sizes[leaf];
@@ -77,10 +81,10 @@ adam_kernel(const int64_t* __restrict__ ptrs, const int64_t* __restrict__ gptrs,
       float4 pp = *reinterpret_cast<float4*>(p + e);
       float4 gg = g ? *reinterpret_cast<const float4*>(g + e)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
-      adam_one(gg.x, mm.x, vv.x, pp.x, h, c1, c2);
-      adam_one(gg.y, mm.y, vv.y, pp.y, h, c1, c2);
-      adam_one(gg.z, mm.z, vv.z, pp.z, h, c1, c2);
-      adam_one(gg.w, mm.w, vv.w, pp.w, h, c1, c2);
+      adam_one(gg.x, mm.x, vv.x, pp.x, h, c1, c2, lr);
+      adam_one(gg.y, mm.y, vv.y, pp.y, h, c1, c2, lr);
+      adam_one(gg.z, mm.z, vv.z, pp.z, h, c1, c2, lr);
+      adam_one(gg.w, mm.w, vv.w, pp.w, h, c1, c2, lr);
       *reinterpret_cast<float4*>(m + e) = mm;
       *reinterpret_cast<float4*>(v + e) = vv;
       *reinterpret_cast<float4*>(p + e) = pp;
@@ -89,7 +93,7 @@ adam_kernel(const int64_t* __restrict__ ptrs, const int64_t* __restrict__ gptrs,
   }
   for (int64_t e = i + threadIdx.x; e < end; e += blockDim.x) {
     float mm = m[e], vv = v[e], pp = p[e];
-    adam_one(g ? g[e] : 0.0f, mm, vv, pp, h, c1, c2);
+    adam_one(g ? g[e] : 0.0f, mm, vv, pp, h, c1, c2, lr);
     m[e] = mm;
     v[e] = vv;
     p[e] = pp;
@@ -102,18 +106,19 @@ adam_kernel(const int64_t* __restrict__ ptrs, const int64_t* __restrict__ gptrs,
 // [n_leaves] (0 = no gradient); sizes: device int64 [n_leaves]; block_leaf
 // (int32) and block_start (int64): device [n_blocks], block i updates
 // elements [block_start[i], block_start[i] + chunk) of leaf block_leaf[i];
-// bc: device fp32 [2], the bias corrections [c1, c2] of this step. Every
-// leaf is fp32 and contiguous. Returns the cudaError_t of the launch.
+// bc: device fp32 [3], the bias corrections [c1, c2] and the learning rate
+// of this step. Every leaf is fp32 and contiguous. Returns the cudaError_t
+// of the launch.
 extern "C" int maavss_adam(const void* ptrs, const void* gptrs,
                            const void* sizes, const void* block_leaf,
                            const void* block_start, const void* bc,
-                           int n_leaves, int n_blocks, int chunk, float lr,
-                           float b1, float omb1, float b2, float omb2,
-                           float eps, void* stream) {
+                           int n_leaves, int n_blocks, int chunk, float b1,
+                           float omb1, float b2, float omb2, float eps,
+                           void* stream) {
   if (n_leaves < 1 || n_blocks < 1 || chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Hyper h{lr, b1, omb1, b2, omb2, eps};
+  Hyper h{b1, omb1, b2, omb2, eps};
   adam_kernel<<<n_blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(ptrs), static_cast<const int64_t*>(gptrs),
       static_cast<const int64_t*>(sizes),

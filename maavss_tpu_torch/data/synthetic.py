@@ -1,13 +1,14 @@
-"""Synthetic audio-visual batches (a copy of the numpy generators of
+"""Synthetic audio-visual batches and the on-disk synthetic store (a copy of
+the numpy generators and `build_synthetic_store` of
 maavss_tpu/data/synthetic.py:22-115, pinned to the original by
-tests/test_torch_package.py).
+tests/test_torch_package.py and tests/test_torch_data.py).
 
 Harmonic sine-sweep audio paired with a moving Gaussian blob whose position
 follows the audio envelope, so audio and visual streams are correlated.
-Host-side numpy, deterministic per seed. `with_pgram_rows` turns a batch's
-frames into --pgram_cache phasegram rows. The on-disk synthetic store
-(`build_synthetic_store`) and the phasegram store come with the trainer
-(ROADMAP M6).
+Host-side numpy, deterministic per seed. `build_synthetic_store` writes the
+same streams as an ingested tree (frame shards, wavs, audio memmap) for
+`--data_path synthetic`; `with_pgram_rows` turns a batch's frames into
+--pgram_cache phasegram rows.
 """
 
 from __future__ import annotations
@@ -60,6 +61,43 @@ def moving_blob_frames(
             cy = pos[ti] * size
             out[b, ti] = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sigma**2))
     return out
+
+
+def build_synthetic_store(out_dir: str, cfg: RunConfig, n_videos: int = 3,
+                          seconds: float = 2.0, frame_size: int = None,
+                          seed: int = 0):
+    """Write a complete synthetic on-disk dataset (frame shards + wavs +
+    audio memmap) and return (FrameShardStore, AudioMemmap).
+
+    This is the CI stand-in for an ingested MUSICES tree: same storage
+    contract the ingest tool produces, no video files needed (SURVEY.md §4).
+    """
+    import os
+
+    from maavss_tpu_torch.data.audio_memmap import build_audio_memmap, AudioMemmap
+    from maavss_tpu_torch.data.frame_shards import FrameShardStore, write_frame_shard
+    from maavss_tpu_torch.data.wavio import write_wav
+
+    fs = frame_size or cfg.p_size
+    fps = cfg.framerate
+    n_frames = int(seconds * fps)
+    n_samples = int(seconds * cfg.samplerate)
+    frames_dir = os.path.join(out_dir, "frames")
+    audio_dir = os.path.join(out_dir, "audio")
+    os.makedirs(audio_dir, exist_ok=True)
+    wavs = []
+    for v in range(n_videos):
+        audio = sine_sweep_audio(seed + v, 1, n_samples, cfg.samplerate)[0]
+        env = audio[: (n_samples // n_frames) * n_frames]
+        env = np.sqrt((env.reshape(n_frames, -1) ** 2).mean(-1))[None]
+        frames = moving_blob_frames(seed + v, 1, n_frames, fs, envelope=env)[0]
+        write_frame_shard(frames_dir, f"vid{v:03d}",
+                          (frames * 255).astype(np.uint8), fps, source="synthetic")
+        wav = os.path.join(audio_dir, f"vid{v:03d}.wav")
+        write_wav(wav, audio, cfg.samplerate)
+        wavs.append(wav)
+    build_audio_memmap(wavs, audio_dir, samplerate=cfg.samplerate)
+    return FrameShardStore(frames_dir), AudioMemmap(audio_dir)
 
 
 def synthetic_av_batch(cfg: RunConfig, batch: int, seed: int = 0,

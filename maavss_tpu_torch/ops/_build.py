@@ -138,7 +138,7 @@ def library():
     f = ctypes.c_float
     # tables, [c1, c2], n_leaves, n_blocks, chunk, lr, b1, 1 - b1, b2, 1 - b2,
     # eps, stream
-    lib.maavss_adam.argtypes = [p] * 6 + [i, i, i] + [f] * 6 + [p]
+    lib.maavss_adam.argtypes = [p] * 6 + [i, i, i] + [f] * 5 + [p]
     lib.maavss_adam.restype = i
     ll = ctypes.c_longlong
     # ..., geometry, (nblk, chunk,) IO dtype, stream

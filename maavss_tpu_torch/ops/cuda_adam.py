@@ -11,17 +11,19 @@ in this order, fp32:
 with the bias corrections c1 = 1 - b1^count, c2 = 1 - b2^count taken by the
 caller after the count increment. Both versions update m, v and p in place.
 
-The optimizer keeps count and [c1, c2] as fp32 tensors on the leaves'
-device and advances them with `device_bias_corrections`, torch ops that a
-CUDA graph captures, so a replayed step reads its own step's corrections;
-`bias_corrections` is the same formula on the host, for the tests.
+The optimizer keeps count and the step's [c1, c2, lr] as fp32 tensors on
+the leaves' device and advances them with torch ops that a CUDA graph
+captures (`device_bias_corrections`, and a schedule's rate from the count,
+train/state.py), so a replayed step reads its own step's corrections and
+rate; `bias_corrections` is the same formula on the host, for the tests.
 
 `adam_multi_tensor` runs every leaf in ONE launch on CUDA tensors, from an
 `AdamTable` (device tables of the leaves' pointers, sizes and block map,
 built once: the parameters and moments never move); the kernel reads
-[c1, c2] from device memory. A leaf whose gradient is None is updated with
-g = 0, as optax does. On CPU tensors it runs the plain version leaf by
-leaf. There is no fallback from the kernel on the card.
+[c1, c2, lr] from device memory, so no value that changes from step to
+step is an argument of the launch. A leaf whose gradient is None is
+updated with g = 0, as optax does. On CPU tensors it runs the plain
+version leaf by leaf. There is no fallback from the kernel on the card.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
-# a bias correction: a Python float, or a 0-d fp32 tensor on the leaves'
-# device (an element of the optimizer's [c1, c2])
+# a bias correction or a rate: a Python float, or a 0-d fp32 tensor on the
+# leaves' device (an element of the optimizer's [c1, c2, lr])
 Scalar = Union[float, torch.Tensor]
 
 # elements per block of the kernel; a multiple of 4 keeps every block's
@@ -41,13 +43,14 @@ _CHUNK = 8192
 
 def adam_update_plain(g: Optional[torch.Tensor], m: torch.Tensor,
                       v: torch.Tensor, p: torch.Tensor, c1: Scalar,
-                      c2: Scalar, lr: float, b1: float, b2: float,
+                      c2: Scalar, lr: Scalar, b1: float, b2: float,
                       eps: float) -> None:
     """One leaf, in place: the fallback formula of
     maavss_tpu/ops/pallas_adam.py:82-89. g None is g = 0. With c1 and c2
     as device tensors both divisions are true divisions on the card (a
     Python float divisor there becomes a multiply by its reciprocal), as
-    the kernel's are."""
+    the kernel's are. lr a Python float (a constant rate) or a 0-d fp32
+    tensor (a schedule's, `FusedAdam.bc[2]`): the same fp32 product."""
     if g is None:
         g = torch.zeros_like(p)
     gd = g.to(m.dtype)
@@ -65,7 +68,7 @@ def _in_dtype(x: float, dtype: torch.dtype) -> float:
 
 def adam_update_low(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
                     vs: Sequence[torch.Tensor], ps: Sequence[torch.Tensor],
-                    c1: Scalar, c2: Scalar, lr: float, b1: float, b2: float,
+                    c1: Scalar, c2: Scalar, lr: Scalar, b1: float, b2: float,
                     eps: float) -> None:
     """The formula of `adam_update_plain` over leaves of one dtype below
     float32 (the bf16 LSTM leaves under --dtype bfloat16, with moments of
@@ -73,13 +76,14 @@ def adam_update_low(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
     it there: every constant takes the moments' dtype first (b1, 1 - b1,
     b2, 1 - b2, lr and eps as JAX's weak-typed scalars, c1 and c2 by
     `astype`) and each operation rounds to it. One multi-tensor call an
-    operation over all the leaves. c1 and c2 may be 0-d device tensors,
-    rounded there."""
+    operation over all the leaves. c1, c2 and lr may be 0-d device tensors,
+    rounded there (a schedule's rate: optax's `scale_by_schedule` casts the
+    step size to the update's dtype)."""
     dtype = ms[0].dtype
-    b1r, k1, b2r, k2, lr, eps = (
-        _in_dtype(x, dtype) for x in (b1, 1.0 - b1, b2, 1.0 - b2, lr, eps))
-    c1, c2 = (c.to(dtype) if isinstance(c, torch.Tensor) else
-              _in_dtype(c, dtype) for c in (c1, c2))
+    b1r, k1, b2r, k2, eps = (
+        _in_dtype(x, dtype) for x in (b1, 1.0 - b1, b2, 1.0 - b2, eps))
+    c1, c2, lr = (c.to(dtype) if isinstance(c, torch.Tensor) else
+                  _in_dtype(c, dtype) for c in (c1, c2, lr))
     gd = [g.to(dtype) for g in gs]
     torch._foreach_mul_(ms, b1r)
     torch._foreach_add_(ms, torch._foreach_mul(gd, k1))
@@ -170,29 +174,29 @@ class AdamTable:
 def adam_multi_tensor(grads: Sequence[Optional[torch.Tensor]],
                       ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                       ps: Sequence[torch.Tensor], bc: torch.Tensor,
-                      lr: float, b1: float, b2: float, eps: float,
+                      b1: float, b2: float, eps: float,
                       table: Optional[AdamTable] = None,
                       backend: str = "auto") -> None:
-    """Every leaf, in place, with the bias corrections `bc` = [c1, c2], a
-    float32 tensor of 2 on the leaves' device (the kernel reads it there;
-    `device_bias_corrections` makes it). backend 'auto': the kernel for
-    CUDA leaves (one launch, through `table`, built here when None), the
-    plain version for CPU leaves. 'kernel': the kernel, and a CPU leaf
-    raises."""
+    """Every leaf, in place, with `bc` = [c1, c2, lr], the step's bias
+    corrections and learning rate, a float32 tensor of 3 on the leaves'
+    device (the kernel reads it there; `FusedAdam.bc`). backend 'auto':
+    the kernel for CUDA leaves (one launch, through `table`, built here
+    when None), the plain version for CPU leaves. 'kernel': the kernel, and
+    a CPU leaf raises."""
     if backend not in ("auto", "kernel"):
         raise ValueError(f"unknown adam backend {backend!r} (auto|kernel)")
     if not ps[0].is_cuda:
         if backend == "kernel":
             raise RuntimeError("the CUDA adam kernel needs CUDA tensors")
         for g, m, v, p in zip(grads, ms, vs, ps):
-            adam_update_plain(g, m, v, p, bc[0], bc[1], lr, b1, b2, eps)
+            adam_update_plain(g, m, v, p, bc[0], bc[1], bc[2], b1, b2, eps)
         return
     if table is None:
         table = AdamTable(ms, vs, ps)
-    if (bc.dtype != torch.float32 or bc.shape != (2,)
+    if (bc.dtype != torch.float32 or bc.shape != (3,)
             or bc.device != table.device or not bc.is_contiguous()):
-        raise ValueError("adam kernel: the bias corrections must be a "
-                         "contiguous float32 [c1, c2] on the leaves' device")
+        raise ValueError("adam kernel: [c1, c2, lr] must be a contiguous "
+                         "float32 tensor of 3 on the leaves' device")
     gptrs = table.grad_table(grads)
     from maavss_tpu_torch.ops import _build
 
@@ -200,7 +204,7 @@ def adam_multi_tensor(grads: Sequence[Optional[torch.Tensor]],
     _build.launch("maavss_adam", table.device, (
         table.ptrs.data_ptr(), gptrs.data_ptr(), table.sizes.data_ptr(),
         table.block_leaf.data_ptr(), table.block_start.data_ptr(),
-        bc.data_ptr(), table.n, table.n_blocks, _CHUNK, lr, b1, 1.0 - b1,
+        bc.data_ptr(), table.n, table.n_blocks, _CHUNK, b1, 1.0 - b1,
         b2, 1.0 - b2, eps))
     adam_multi_tensor.launches += 1
 

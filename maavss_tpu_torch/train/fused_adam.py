@@ -3,13 +3,19 @@ maavss_tpu/train/fused_adam.py:pallas_adam and of optax.adam, which share
 one formula).
 
 The optimizer keeps `count` and, per parameter, the moments `m` and `v`;
-`step()` increments count, takes the bias corrections in fp32 and updates
-every parameter and its moments in place. The count and the corrections
-[c1, c2] (`bc`) live on the parameters' device as fp32 tensors, advanced by
-torch ops (`device_bias_corrections`), so the same step runs eagerly or
-captured in a CUDA graph with the same bits, and no step reads a host value
-the graph would freeze; `count` the attribute is the host's copy, a Python
-int:
+`step()` takes the learning rate, increments count, takes the bias
+corrections in fp32 and updates every parameter and its moments in place.
+The count and the step's [c1, c2, lr] (`bc`, one fp32 buffer of 3) live on
+the parameters' device, advanced in place by torch ops
+(`device_bias_corrections`; a schedule's rate from the count before the
+increment, as optax's `scale_by_schedule` reads it: step n takes
+`schedule(n - 1)`), so the same step runs eagerly or captured in a CUDA
+graph with the same bits, and no step reads a host value the graph would
+freeze; `count` the attribute is the host's copy, a Python int. A constant
+rate stays the Python float it was given on the plain formula's leaves (a
+weak-typed scalar, as in JAX); under a schedule those leaves read `bc[2]`,
+the fp32 leaves as it is and the leaves below fp32 rounded to their dtype,
+as optax's `scale_by_schedule` casts the step size to each update's dtype:
 
 - kernel 'pallas' (the JAX flag's name): ONE launch of the fused CUDA kernel
   over all float32 leaves (ops/cuda_adam.py); a CPU parameter raises. The
@@ -32,7 +38,7 @@ never reaches) is updated with g = 0, as optax does with its zero gradient;
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Callable, Iterable, List, Union
 
 import torch
 
@@ -56,21 +62,27 @@ def resolve_opt_kernel(kernel: str, device) -> str:
 
 
 class FusedAdam:
-    """Adam over `params` (a list of tensors, updated in place)."""
+    """Adam over `params` (a list of tensors, updated in place);
+    `learning_rate` a float or a schedule (train/state.py:resolve_lr)."""
 
-    def __init__(self, params: Iterable[torch.Tensor], learning_rate: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 kernel: str = "auto"):
+    def __init__(self, params: Iterable[torch.Tensor],
+                 learning_rate: Union[float, Callable], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, kernel: str = "auto"):
         self.params: List[torch.Tensor] = list(params)
         if not self.params:
             raise ValueError("FusedAdam needs at least one parameter")
-        self.lr, self.b1, self.b2, self.eps = (float(learning_rate), b1, b2,
-                                               eps)
+        self.schedule = learning_rate if callable(learning_rate) else None
+        self.lr = (None if self.schedule is not None
+                   else float(learning_rate))
+        self.b1, self.b2, self.eps = b1, b2, eps
         device = self.params[0].device
         self.kernel = resolve_opt_kernel(kernel, device)
         self._count = torch.zeros((), dtype=torch.float32, device=device)
         self._betas = torch.tensor([b1, b2], dtype=torch.float32).to(device)
-        self.bc = device_bias_corrections(self._count, self._betas)
+        # [c1, c2, lr] of the last step, rewritten in place every step
+        self.bc = torch.zeros(3, dtype=torch.float32, device=device)
+        if self.schedule is None:
+            self.bc[2].fill_(self.lr)
         self._host_count = 0
         self.m = [torch.zeros_like(p) for p in self.params]
         self.v = [torch.zeros_like(p) for p in self.params]
@@ -113,9 +125,12 @@ class FusedAdam:
     @torch.no_grad()
     def step(self) -> None:
         self._host_count += 1
+        if self.schedule is not None:
+            self.bc[2].copy_(self.schedule(self._count))
         self._count.add_(1.0)
-        self.bc = device_bias_corrections(self._count, self._betas)
-        hyper = (self.lr, self.b1, self.b2, self.eps)
+        self.bc[:2].copy_(device_bias_corrections(self._count, self._betas))
+        hyper = (self.bc[2] if self.schedule is not None else self.lr,
+                 self.b1, self.b2, self.eps)
         if self.kernel != "pallas":
             for i in self._f32:
                 p = self.params[i]
@@ -127,7 +142,8 @@ class FusedAdam:
             if self._table is None and ps[0].is_cuda:
                 self._table = AdamTable(ms, vs, ps)
             adam_multi_tensor([p.grad for p in ps], ms, vs, ps, self.bc,
-                              *hyper, table=self._table, backend="kernel")
+                              *hyper[1:], table=self._table,
+                              backend="kernel")
         for dtype in {self.params[i].dtype for i in self._low}:
             idx = [i for i in self._low if self.params[i].dtype == dtype]
             ps = [self.params[i] for i in idx]

@@ -22,7 +22,10 @@ with flax's mixed-precision semantics (models/layers.py).
 `resolve_noise_schedule` (--noise_schedule) and `stack_batches` (the
 [K, B, ...] dispatch batches of --steps_per_dispatch) are the counterparts
 of maavss_tpu/train/setup.py:resolve_noise_schedule and make_stream's
-`stacked`.
+`stacked`. The data plumbing of the entry tools, `resolve_data_root`,
+`load_stores`, `load_pgram_store`, `make_stream` and `run_name`, is that of
+maavss_tpu/train/setup.py:63-122, 284-318 and 352-355, with its exits word
+for word.
 
 The numbers differ from a flax init with the same seed (different
 generators); `convert.from_flax` carries a flax init across exactly.
@@ -31,6 +34,8 @@ generators); `convert.from_flax` carries a flax init across exactly.
 from __future__ import annotations
 
 import math
+import os
+import time
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +43,9 @@ import torch
 from torch import nn
 
 from maavss_tpu_torch.config import RunConfig
+from maavss_tpu_torch.data.audio_memmap import AudioMemmap
+from maavss_tpu_torch.data.dataset import AVDataset, Subset, batches, prefetch
+from maavss_tpu_torch.data.frame_shards import FrameShardStore
 from maavss_tpu_torch.models.fusion import AVFusionModel, resolve_pgenc_kernel
 from maavss_tpu_torch.models.fusion_frames import AVFusionFramesModel
 from maavss_tpu_torch.models.layers import LSTM
@@ -73,8 +81,6 @@ def check_supported(cfg: RunConfig, train: bool = False) -> None:
     if train:
         todo += [
             (cfg.remat, "--remat", "M3-rest"),
-            (cfg.lr_schedule != "constant",
-             f"--lr_schedule {cfg.lr_schedule}", "M3-rest (LR schedules)"),
             (cfg.fused_opt, "--fused_opt", "queue 1, 'Not carried'"),
         ]
     for missing, flag, item in todo:
@@ -243,3 +249,97 @@ def build_frames_state(cfg: RunConfig, batch_size: int,
     model = build_frames_model(cfg, batch_size, frame_size, latent_channels,
                                device, generator)
     return model, create_train_state(model, cfg, device)
+
+
+def resolve_data_root(cfg: RunConfig) -> str:
+    """The on-disk store root for cfg.data_path ('synthetic[:N]' resolves to
+    its per-geometry fixture directory)."""
+    if cfg.data_path.startswith("synthetic"):
+        return os.path.join("data", f"synthetic-p{cfg.p_size}")
+    return cfg.data_path
+
+
+def load_stores(cfg: RunConfig, frames_dir: str = "frames",
+                audio_dir: str = "audio",
+                ) -> Tuple[Optional[FrameShardStore], Optional[AudioMemmap]]:
+    """Open the ingested data stores under cfg.data_path.
+
+    `--data_path synthetic[:N]` builds an on-the-fly synthetic store (no
+    MUSICES download needed) under ./data/synthetic-p<p_size>, N videos
+    (default 4) of 2 s, frames at p_size: the CI/smoke path.
+    """
+    if cfg.autocontrast:
+        # the reference applies autocontrast inside its on-the-fly attention
+        # extraction (av_dataset.py:318-319); here attention is precomputed
+        # offline, so a train-time flag would silently do nothing
+        raise SystemExit(
+            "--autocontrast acts during attention extraction, which happens "
+            "at ingest here: pass it to save_attn_videos.py instead")
+    if cfg.data_path.startswith("synthetic"):
+        from maavss_tpu_torch.data.synthetic import build_synthetic_store
+
+        n = int(cfg.data_path.split(":", 1)[1]) if ":" in cfg.data_path else 4
+        # one store per frame size so geometry changes never alias
+        out = resolve_data_root(cfg)
+        frames_path = os.path.join(out, "frames")
+        audio_path = os.path.join(out, "audio")
+        if not os.path.exists(os.path.join(frames_path, "meta.json")):
+            build_synthetic_store(out, cfg, n_videos=n, seconds=2.0,
+                                  frame_size=cfg.p_size)
+        return FrameShardStore(frames_path), AudioMemmap(audio_path)
+
+    frames_path = os.path.join(cfg.data_path, frames_dir)
+    audio_path = os.path.join(cfg.data_path, audio_dir)
+    frames = FrameShardStore(frames_path) if os.path.isdir(frames_path) else None
+    audio = AudioMemmap(audio_path) if os.path.isdir(audio_path) else None
+    if frames is None and audio is None:
+        raise SystemExit(
+            f"no ingested data under {cfg.data_path} (expected {frames_dir}/ "
+            f"and {audio_dir}/ from tools/ingest.py) — or pass "
+            f"--data_path synthetic for the built-in fixture dataset")
+    return frames, audio
+
+
+def load_pgram_store(cfg: RunConfig) -> Optional[FrameShardStore]:
+    """Open the precomputed-phasegram shard store when --pgram_cache is set
+    (fusion regimes; build with tools/save_phasegrams_torch.py, or the JAX
+    package's save_phasegrams.py: the same layout). None when the flag is
+    off; a clear SystemExit when the flag is set but the store is
+    missing, JAX's message naming the port's tool."""
+    if not cfg.pgram_cache:
+        return None
+    d = os.path.join(resolve_data_root(cfg), f"pgrams-p{cfg.p_size}")
+    if not os.path.exists(os.path.join(d, "meta.json")):
+        raise SystemExit(
+            f"--pgram_cache set but no store at {d} — build it once with: "
+            f"python tools/save_phasegrams_torch.py --data_path "
+            f"{cfg.data_path} --p_size {cfg.p_size}")
+    return FrameShardStore(d)
+
+
+def make_stream(cfg: RunConfig, dataset, indices=None, seed: int = 0,
+                stack: int = 1):
+    """Batch stream for a train/val split (maavss_tpu/train/setup.py:
+    make_stream, without its mesh, ROADMAP M11): the Python pipeline,
+    `batches` in a `prefetch` thread that only builds numpy batches (the
+    steps copy them to the device on the main thread). `stack > 1` groups
+    that many consecutive batches into one [K, B, ...] dispatch batch
+    (`stack_batches`, --steps_per_dispatch). --native_loader on an AV
+    dataset, where the JAX package takes its C++ loader, raises."""
+    if cfg.native_loader and isinstance(dataset, AVDataset) \
+            and dataset.mode == "av":
+        raise NotImplementedError(
+            "--native_loader is not ported to maavss_tpu_torch yet (ROADMAP "
+            "M6-rest (native loader))")
+    ds = dataset if indices is None else Subset(dataset, indices)
+    it = prefetch(batches(ds, cfg.batch_size, seed=seed))
+    if stack > 1:
+        def stacked(src):
+            while True:
+                yield stack_batches([next(src) for _ in range(stack)])
+        it = stacked(it)
+    return it
+
+
+def run_name(prefix: str, cfg: RunConfig) -> str:
+    return f"{prefix}-{time.strftime('%Y%m%d-%H%M%S')}-s{cfg.seed}"

@@ -121,8 +121,12 @@ def test_kernel_gate():
                          (dict(flat=True), "fused_opt")):
         with pytest.raises(NotImplementedError, match=item):
             make_optimizer(t, LR, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(t, lambda step: LR)
+    # a schedule builds with every kernel choice: K3 reads the rate from
+    # [c1, c2, lr] on the card (tests/test_torch_lr_schedule.py)
+    for kernel in ("auto", "xla", "pallas"):
+        sched = make_optimizer(t, lambda count: count * 0.0 + LR,
+                               kernel=kernel)
+        assert sched.schedule is not None and sched.lr is None
 
 
 def test_multi_tensor_takes_plain_path_on_cpu():
@@ -135,7 +139,7 @@ def test_multi_tensor_takes_plain_path_on_cpu():
     mr, vr = [torch.zeros_like(p) for p in ps], [torch.zeros_like(p)
                                                  for p in ps]
     adam_multi_tensor.launches = 0
-    adam_multi_tensor(grads, ms, vs, ps, torch.tensor([0.1, 0.001]), LR, B1,
+    adam_multi_tensor(grads, ms, vs, ps, torch.tensor([0.1, 0.001, LR]), B1,
                       B2, EPS)
     for g, m, v, p in zip(grads, mr, vr, ref):
         adam_update_plain(g, m, v, p, 0.1, 0.001, LR, B1, B2, EPS)
@@ -143,7 +147,7 @@ def test_multi_tensor_takes_plain_path_on_cpu():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert adam_multi_tensor.launches == 0
     with pytest.raises(RuntimeError, match="CUDA"):
-        adam_multi_tensor(grads, ms, vs, ps, torch.tensor([0.1, 0.001]), LR,
+        adam_multi_tensor(grads, ms, vs, ps, torch.tensor([0.1, 0.001, LR]),
                           B1, B2, EPS, backend="kernel")
 
 
@@ -170,8 +174,9 @@ def test_kernel_matches_plain_on_card():
     table = AdamTable(ms, vs, ps)
     for count in (1, 2, 3):
         c1, c2 = bias_corrections(count, B1, B2)
-        adam_multi_tensor(grads, ms, vs, ps, torch.tensor([c1, c2]).cuda(),
-                          LR, B1, B2, EPS, table=table, backend="kernel")
+        adam_multi_tensor(grads, ms, vs, ps,
+                          torch.tensor([c1, c2, LR]).cuda(), B1, B2, EPS,
+                          table=table, backend="kernel")
         for g, m, v, p in zip(grads, mr, vr, ref):
             adam_update_plain(g, m, v, p, c1, c2, LR, B1, B2, EPS)
     for a, b in zip(ps + ms + vs, ref + mr + vr):

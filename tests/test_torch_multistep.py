@@ -284,7 +284,8 @@ def test_device_count_equals_host_bias_corrections():
         adam_update_low(grads[3:], mr[3:], vr[3:], ref[3:], c1, c2, LR, 0.9,
                         0.999, 1e-8)
         assert opt.count == count
-        assert opt.bc.tolist() == [c1, c2]
+        # [c1, c2, lr]: the constant rate as its fp32 rounding
+        assert opt.bc.tolist() == [c1, c2, float(torch.tensor(LR))]
         for a, b in zip(ps + opt.m + opt.v, ref + mr + vr):
             assert torch.equal(a, b)
 

@@ -56,6 +56,7 @@ from maavss_tpu_torch.train.setup import (
     build_fusion,
 )
 from tests.test_torch_workers import share_cores
+from tools import fit_torch, save_phasegrams_torch
 
 share_cores()
 
@@ -65,27 +66,33 @@ SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and tools/bench_torch.py with the modules
-    it reaches, load in a fresh process without jax, ml_dtypes (which the
-    card's machine lacks) or maavss_tpu."""
+    """Every module of the port, and tools/bench_torch.py, fit_torch.py and
+    save_phasegrams_torch.py with the modules they reach, load in a fresh
+    process without jax, ml_dtypes (which the card's machine lacks) or
+    maavss_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import maavss_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages("
         "maavss_tpu_torch.__path__, 'maavss_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "from tools import bench_torch\n"
+        "from tools import bench_torch, fit_torch, save_phasegrams_torch\n"
         "bench_torch.kernel_counters(); bench_torch.bench_config({}, 8)\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'ml_dtypes', 'maavss_tpu') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 29, names\n"
+        "assert len(names) >= 44, names\n"
         "new = {'maavss_tpu_torch.ops.cuda_adam', "
         "'maavss_tpu_torch.train.fused_adam', 'maavss_tpu_torch.train.state', "
         "'maavss_tpu_torch.train.steps', 'maavss_tpu_torch.data.synthetic', "
         "'maavss_tpu_torch.ops.cuda_epilogue', "
         "'maavss_tpu_torch.models.fusion_frames', "
-        "'maavss_tpu_torch.train.cuda_graph', 'maavss_tpu_torch.ops.counters'}\n"
+        "'maavss_tpu_torch.train.cuda_graph', 'maavss_tpu_torch.ops.counters',"
+        " 'maavss_tpu_torch.data.wavio', 'maavss_tpu_torch.data.frame_shards',"
+        " 'maavss_tpu_torch.data.audio_memmap',"
+        " 'maavss_tpu_torch.data.clip_index', 'maavss_tpu_torch.data.dataset',"
+        " 'maavss_tpu_torch.exp.metrics', 'maavss_tpu_torch.exp.checkpoint',"
+        " 'maavss_tpu_torch.exp.profiling', 'maavss_tpu_torch.train.trainer'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -236,7 +243,7 @@ def test_new_wrappers_count_no_launch_on_cpu():
     pgenc_bwd(x, w2, yc, *vecs[1:], mu, var, torch.ones_like(y))
     p = [torch.randn(5, generator=g)]
     adam_multi_tensor([None], [torch.zeros(5)], [torch.zeros(5)], p,
-                      torch.tensor([0.1, 0.001]), 1e-3, 0.9, 0.999, 1e-8)
+                      torch.tensor([0.1, 0.001, 1e-3]), 0.9, 0.999, 1e-8)
     assert [c.launches for c in counters] == [0, 0, 0, 0]
 
 
@@ -294,7 +301,8 @@ def test_entry_points_default_to_cuda():
     for fn in (build_fusion, port_setup.build_fusion_state,
                port_state.create_train_state, port_steps.make_fusion_step,
                port_steps.make_fusion_eval, build_frames_model,
-               build_frames_state, port_steps.make_frames_step):
+               build_frames_state, port_steps.make_frames_step,
+               fit_torch.fit, save_phasegrams_torch.build_pgram_store):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__name__
     if not torch.cuda.is_available():
@@ -302,12 +310,17 @@ def test_entry_points_default_to_cuda():
             build_fusion(port_config.RunConfig(**SMALL), 2)
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["CUDA_VISIBLE_DEVICES"] = ""
-        for argv in (["-s", "1"], ["--model", "frames", "-s", "1"]):
-            out = subprocess.run([sys.executable, "tools/train_torch.py",
-                                  *argv], cwd=ROOT, env=env,
-                                 capture_output=True, text=True, timeout=120)
-            assert out.returncode != 0
-            assert "CUDA is not available" in out.stderr
+        for tool, argv in (
+                ("train_torch.py", ["-s", "1"]),
+                ("train_torch.py", ["--model", "frames", "-s", "1"]),
+                ("fit_torch.py", ["--data_path", "synthetic"]),
+                ("fit_torch.py", ["--model", "frames"]),
+                ("save_phasegrams_torch.py", ["--data_path", "synthetic"])):
+            out = subprocess.run([sys.executable, f"tools/{tool}", *argv],
+                                 cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=120)
+            assert out.returncode != 0, tool
+            assert "CUDA is not available" in out.stderr, tool
 
 
 def _run_chip_smoke(cwd):

@@ -244,7 +244,7 @@ def test_eval_matches_jax(jax_setup):
 
 
 @pytest.mark.parametrize("flags", [
-    dict(remat=True), dict(lr_schedule="cosine"), dict(fused_opt=True),
+    dict(remat=True), dict(fused_opt=True),
 ])
 def test_unported_train_flags_raise(flags):
     cfg = RunConfig(**GEOMETRY).replace(**flags)
@@ -257,12 +257,14 @@ def test_unported_train_flags_raise(flags):
 @pytest.mark.parametrize("flags", [
     dict(fusion_encode="full"), dict(noise_schedule="linear:0.1:0"),
     dict(steps_per_dispatch=2), dict(microbatch=2),
+    dict(lr_schedule="cosine"),
 ])
 def test_ported_train_flags_take_a_step(flags):
     """Flags that no longer raise: the model and state build and take one
     CPU step, or under --steps_per_dispatch one stacked dispatch
-    (tests/test_torch_fullenc.py, tests/test_torch_multistep.py and
-    tests/test_torch_microbatch.py hold them against JAX)."""
+    (tests/test_torch_fullenc.py, tests/test_torch_multistep.py,
+    tests/test_torch_microbatch.py and tests/test_torch_lr_schedule.py hold
+    them against JAX)."""
     cfg = RunConfig(**GEOMETRY).replace(**flags)
     check_supported(cfg, train=True)
     model, state = build_fusion_state(cfg, cfg.batch_size, "cpu",

@@ -155,7 +155,8 @@ def _kernel_name(key: str) -> str:
 
 def profile_step(fn, steps: int = 1) -> Dict:
     """One call of `fn` (a dispatch of `steps` optimizer steps) under
-    torch.profiler, after the timed windows:
+    exp/profiling.trace (torch.profiler; its Chrome trace in a temporary
+    directory), after the timed windows:
     device busy ms (CUDA kernel time summed), the host-clock wall ms of the
     same window, the device's idle share, kernel launches, the 12 kernels
     with the most device time, and on the host the ops' self time summed
@@ -163,13 +164,15 @@ def profile_step(fn, steps: int = 1) -> Dict:
     the 12 ops with the most of it (`host_top`, each with its calls);
     `epilogue`: K5's kernels, their device ms and share of the busy time,
     and each by name (with its template arguments) and launches."""
+    import tempfile
+
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from maavss_tpu_torch.exp.profiling import trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tempfile.TemporaryDirectory() as log_dir, trace(log_dir) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
