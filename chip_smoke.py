@@ -120,7 +120,9 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 22. k4_stft (the one-launch STFT frontend, magphase fused in): against
    stft_features_plain at fft_len 64, 256 and 2048, trim on and off,
    normalized on and off, (re, im) and polar, on gaussian, zero and DC-only
-   audio, phases compared wrapped; torch.stft timed beside.
+   audio, phases compared wrapped; torch.stft timed beside. Each route's
+   kernels from a CUDA graph of one call (the kernel route one node, the
+   STFT kernel; the plain route cuFFT's r2c) and from the profiler.
 23. mask_train: --mask_head on the fusion and frames flagships, 3 steps
    each against the plain versions (the gates of phases 10 and 17, exact
    launch counts per step: the fused head once forward and once backward a
@@ -232,6 +234,26 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    frames gates: records, launches, and every leaf after the run (the BN
    shifts ahead of a train-mode BN within Adam's bound a step and then
    synchronised). Its launches are added to the kernels line.
+37. eval_plane (the evaluation plane and the model options a checkpoint
+   can carry, in a temporary working directory; nothing caught): evaluate
+   (tools/evaluate_torch.py) on the fusion flagship at batch 8 over 2
+   validation batches and the frames flagship (framesize 256) at batch 4
+   over 1, each from a checkpoint with seeded random BatchNorm
+   statistics, with every kernel and with the plain versions: every
+   clip's SI-SDR within 1e-3 dB, audio_out within 1e-4 relative L2, exact
+   launches, the example wavs read back; separate
+   (tools/separate_torch.py) on a 10 s two-channel wav (26 tiles), audio
+   only and with a 256 px frame store resized to p_size 64, the written
+   wavs within 1e-4; --rnn_cell gru, --rnn_cell none, --attn_diff and
+   --compress_audio on both flagships (fp32, batch 8, noise 0): 2 train
+   steps (losses within 1e-4) and one separator batch against the plain
+   versions, exact launches (no K1 under gru and none), the fusion step
+   with the LSTM, GRU and mixer timed in turns; one bf16 gru step under
+   the bf16 gates and a K = 2 graphed gru dispatch bit for bit; the
+   quality curve (tools/quality_curve_torch.py) on the committed anchor's
+   recipe for 100 steps at --eval_every 50, the anchor enforced on the
+   card: its records, train steps/s and eval seconds. Its launches are
+   added to the kernels line.
 
 Every phase that drives a train step or a serving batch counts the STFT
 kernel's launches exactly (one a step or a batch; none in stft_route) and
@@ -2866,10 +2888,12 @@ def _wrapped_phase_err(ph, ph_ref, mag_ref):
         (d[keep].abs().max().item() if bool(keep.any()) else 0.0)
 
 
-def _kernel_names(fn):
+def _kernel_names(fn, attempts: int = 1, until=bool):
     """The names (namespace, template arguments and parameters cut) of the
     device kernels one call of `fn` runs, from torch.profiler with CPU and
-    CUDA activities, as profile_phase traces."""
+    CUDA activities, as profile_phase traces. The profiler can drop device
+    events: a profile whose names fail `until` is taken again, up to
+    `attempts` profiles. Returns (names, profiles taken)."""
     import torch
     from torch.autograd import DeviceType
 
@@ -2877,14 +2901,52 @@ def _kernel_names(fn):
 
     fn()
     torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d, trace(d) as prof:
+    for attempt in range(1, attempts + 1):
+        with tempfile.TemporaryDirectory() as d, trace(d) as prof:
+            fn()
+        names = set()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.count:
+                name = re.search(r"(\w+)(<[^(]*)?\(", e.key)
+                names.add(name.group(1) if name else e.key[:40])
+        if until(names):
+            break
+    return names, attempt
+
+
+def _graph_nodes(fn):
+    """The nodes of a CUDA graph that captures one call of `fn` (two calls
+    first on the capture's stream), read from the CUDA runtime's DOT dump
+    of the graph (cudaGraphDebugDotPrint), not from the profiler: a list
+    of (node type, kernel's mangled name or None)."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-    names = set()
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.count:
-            name = re.search(r"(\w+)(<[^(]*)?\(", e.key)
-            names.add(name.group(1) if name else e.key[:40])
-    return names
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        err = ctypes.CDLL("libcudart.so.12").cudaGraphDebugDotPrint(
+            ctypes.c_void_p(graph.raw_cuda_graph()), path.encode(),
+            ctypes.c_uint(1))  # cudaGraphDebugDotFlagsVerbose
+        if err:
+            raise SystemExit(f"cudaGraphDebugDotPrint returned {err}")
+        with open(path) as f:
+            dot = f.read()
+    nodes = []
+    for label in re.findall(r'label="\{(.*?)"\];', dot, re.S):
+        kind = re.match(r"\w+", label).group(0)
+        name = re.search(r"\(topoId: \d+\) \| (\S+?)\\<", label)
+        nodes.append((kind, name.group(1) if name else None))
+    return nodes
 
 
 def _no_rfft_kernels(what, counts):
@@ -3032,22 +3094,45 @@ def k4_stft_phase():
                 phase("k4_stft", fft_len=n, hop=hop, samples=samples,
                       batch=8, **fields)
     rep["bound"] = bound_ms(rep["bytes"], rep["flops"])
-    # the profile names of each route's device kernels: the plain route's
-    # rfft is a cuFFT kernel named *fft*r2c* (what _no_rfft_kernels reads);
-    # the kernel route runs no other kernel (its one launch a call is the
-    # wrapper's count; late in a long process the profiler may list no
-    # kernel for it at all)
+    # which device kernels each route runs. From a CUDA graph of one call:
+    # the kernel route is one node, the STFT kernel; the plain route runs
+    # cuFFT's real-to-complex transform and not the STFT kernel. From the
+    # profiler (whose names _no_rfft_kernels reads): the plain route's
+    # rfft is named *fft*r2c*, and the kernel route lists no other kernel.
+    # The profiler drops device events at times (once every event of both
+    # routes), so the plain route's profile is taken up to 3 times.
     audio = torch.randn(8, 66 * 96, device="cuda", generator=g)
-    routes = {name: sorted(_kernel_names(lambda fn=fn: fn(audio, 256, 66)))
-              for name, fn in (("kernel", stft_features),
-                               ("plain", stft_features_plain))}
-    if (not set(routes["kernel"]) <= {"stft_feat_kernel"}
-            or not any("fft" in k.lower() and "r2c" in k.lower()
-                       for k in routes["plain"])):
-        raise SystemExit(f"k4_stft: device kernels by route {routes}")
+
+    def r2c(names):
+        return any("fft" in k.lower() and "r2c" in k.lower() for k in names)
+
+    routes, profiles, graphs = {}, {}, {}
+    for name, fn, until, attempts in (
+            ("kernel", stft_features, bool, 1),
+            ("plain", stft_features_plain, r2c, 3)):
+        call = lambda fn=fn: fn(audio, 256, 66)  # noqa: E731
+        names, profiles[name] = _kernel_names(call, attempts, until)
+        routes[name] = sorted(names)
+        graphs[name] = _graph_nodes(call)
+    kernel_nodes = graphs["kernel"]
+    plain_names = [n for kind, n in graphs["plain"] if kind == "KERNEL"]
+    if (len(kernel_nodes) != 1 or kernel_nodes[0][0] != "KERNEL"
+            or "stft_feat_kernel" not in (kernel_nodes[0][1] or "")
+            or not r2c(plain_names)
+            or any("stft_feat_kernel" in n for n in plain_names)):
+        raise SystemExit(f"k4_stft: graph nodes by route {graphs}")
+    if not set(routes["kernel"]) <= {"stft_feat_kernel"} or not r2c(
+            routes["plain"]):
+        raise SystemExit(f"k4_stft: device kernels by route {routes} "
+                         f"(profiles taken {profiles})")
+    graph_nodes = {"kernel": kernel_nodes,
+                   "plain": dict(nodes=len(graphs["plain"]),
+                                 kernels=len(plain_names),
+                                 r2c=[n for n in plain_names if r2c([n])])}
     phase("k4_stft_checks", geometries=[list(x) for x in K4_STFT],
           data=["gaussian", "zeros", "dc"], tol_rel_l2=tol,
           phase_tol_weighted=1e-5, **worst, device_kernels=routes,
+          profiles_taken=profiles, graph_nodes=graph_nodes,
           main={k: v for k, v in rep.items() if k not in ("bytes", "flops")})
     return rep
 
@@ -6431,6 +6516,572 @@ def trainer_phase():
     return totals
 
 
+# the evaluation plane (eval_plane)
+EVAL_DB_TOL, EVAL_AUDIO_RTOL = 1e-3, 1e-4
+EVAL_OPTIONS = (dict(rnn_cell="gru"), dict(rnn_cell="none"),
+                dict(attn_diff=True), dict(compress_audio=True))
+QC_STEPS, QC_EVAL_EVERY = 100, 50
+QC_ARGS = ["--data_path", "synthetic:8", "-b", "32", "-lr", "1e-3"]
+
+
+class _Recorded:
+    """`maavss_tpu_torch.train.infer.make_separator` replaced, while in use,
+    by one whose separators record each call's outputs (si_sdr and
+    audio_out, on the host) in `calls`, and the host clock's start and
+    seconds of each call, the card synchronised before and after, in
+    `starts` and `seconds`; `last` is the last call's separator and
+    arguments, and `ms()` its time by CUDA events over repeated calls."""
+
+    def __init__(self):
+        self.calls, self.starts, self.seconds = [], [], []
+
+    def __enter__(self):
+        import torch
+
+        from maavss_tpu_torch.train import infer
+
+        self.kept = make = infer.make_separator
+
+        def recording(*args, **kwargs):
+            separate = make(*args, **kwargs)
+
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = separate(*a, **k)
+                torch.cuda.synchronize()
+                self.starts.append(t0)
+                self.seconds.append(time.perf_counter() - t0)
+                self.last = (separate, a, k)
+                self.calls.append({key: out[key].detach().float().cpu()
+                                   for key in ("si_sdr", "audio_out")})
+                return out
+            return run
+
+        infer.make_separator = recording
+        return self
+
+    def __exit__(self, *exc):
+        from maavss_tpu_torch.train import infer
+
+        infer.make_separator = self.kept
+
+    def ms(self, wrap=None):
+        """The last call's separator timed on its arguments, under `wrap`
+        (`_plain_env` for a plain run's)."""
+        separate, a, k = self.last
+        fn = wrap(separate) if wrap else separate
+        return cuda_ms(lambda: fn(*a, **k), reps=3, iters=3)
+
+
+def _plain_env(fn):
+    """`fn` under _plain_k4 and with MAAVSS_LSTM=scan (the LSTM's plain
+    recurrence in the models an entry point builds itself)."""
+    plain = _plain_k4(fn)
+
+    def run(*args):
+        kept = os.environ.get("MAAVSS_LSTM")
+        os.environ["MAAVSS_LSTM"] = "scan"
+        try:
+            return plain(*args)
+        finally:
+            if kept is None:
+                os.environ.pop("MAAVSS_LSTM")
+            else:
+                os.environ["MAAVSS_LSTM"] = kept
+    return run
+
+
+def _grown(before):
+    """The kernel launches since `before` (a `_launch_counts()`), by name,
+    those that grew."""
+    return {n: c - before[n] for n, c in _launch_counts().items()
+            if c != before[n]}
+
+
+def _separations_close(what, got, want):
+    """Per call, every clip's SI-SDR within EVAL_DB_TOL dB and audio_out
+    within EVAL_AUDIO_RTOL relative L2; returns the worst of each."""
+    if len(got) != len(want) or not got:
+        raise SystemExit(f"{what}: {len(got)} separator calls against "
+                         f"{len(want)}")
+    db, rel = 0.0, 0.0
+    for g, w in zip(got, want):
+        if not bool(g["si_sdr"].isfinite().all()):
+            raise SystemExit(f"{what}: SI-SDR {g['si_sdr'].tolist()}")
+        db = max(db, (g["si_sdr"] - w["si_sdr"]).abs().max().item())
+        rel = max(rel, _rel_l2(g["audio_out"], w["audio_out"]))
+    if db > EVAL_DB_TOL or rel > EVAL_AUDIO_RTOL:
+        raise SystemExit(f"{what}: SI-SDR {db} dB apart (gate "
+                         f"{EVAL_DB_TOL}), audio_out {rel} rel L2 (gate "
+                         f"{EVAL_AUDIO_RTOL})")
+    return db, rel
+
+
+def _eval_checkpoint(cfg, frames_model, frame_size, name):
+    """A checkpoint of the flagship of `cfg`, seeded, its BatchNorm running
+    statistics seeded random (every BatchNorm matters), written with
+    exp/checkpoint.save_checkpoint; returns cfg reading it."""
+    import torch
+
+    from maavss_tpu_torch.exp.checkpoint import save_checkpoint
+    from maavss_tpu_torch.train import setup
+
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if frames_model:
+        model, state = setup.build_frames_state(cfg, cfg.batch_size,
+                                                frame_size, device="cuda",
+                                                generator=gen)
+    else:
+        model, state = setup.build_fusion_state(cfg, cfg.batch_size, "cuda",
+                                                gen)
+    g = torch.Generator().manual_seed(cfg.seed + 5)
+    with torch.no_grad():
+        for n, buf in model.named_buffers():
+            if n.endswith("running_mean"):
+                buf.copy_(torch.randn(buf.shape, generator=g) * 0.2)
+            elif n.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
+    path = save_checkpoint(cfg.cp_dir, name, state)
+    del model, state
+    return cfg.replace(checkpoint=path)
+
+
+def _eval_tool(what, cfg, kind, want):
+    """tools/evaluate_torch.py's evaluate with every kernel and with the
+    plain versions (ConvStack, the LSTM scan, K4's), from one checkpoint:
+    the separators' outputs close (`_separations_close`), the kernel run's
+    launches exactly `want`, the plain run's none, the JSON lines alike,
+    and the example wavs read back: two pairs, the output the first two
+    clips' audio_out through 16-bit PCM."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.data.wavio import read_wav
+    from tools.evaluate_torch import evaluate
+
+    plain_cfg = cfg.replace(pgenc_kernel="xla", log_dir=cfg.log_dir + "_plain")
+    with _Recorded() as got:
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        summary = evaluate(cfg, kind, "cuda")
+        seconds = time.perf_counter() - t0
+        launches = _grown(before)
+    with _Recorded() as want_calls:
+        before = _launch_counts()
+        plain = _plain_env(evaluate)(plain_cfg, kind, "cuda")
+        if _grown(before):
+            raise SystemExit(f"{what}: the plain run launched "
+                             f"{_grown(before)}")
+    if launches != want:
+        raise SystemExit(f"{what}: launches {launches} != {want}")
+    db, rel = _separations_close(what, got.calls, want_calls.calls)
+    if summary["n_clips"] != plain["n_clips"] or abs(
+            summary["si_sdr_mean"] - plain["si_sdr_mean"]) > EVAL_DB_TOL:
+        raise SystemExit(f"{what}: {summary} against plain {plain}")
+    for b in range(2):
+        out, sr = read_wav(os.path.join(summary["wav_dir"],
+                                        f"example_{b + 1}_output.wav"))
+        ref, sr2 = read_wav(os.path.join(summary["wav_dir"],
+                                         f"example_{b + 1}_ground_truth.wav"))
+        sent = np.clip(got.calls[0]["audio_out"][b].numpy(), -1.0, 1.0)
+        if (sr, sr2) != (cfg.samplerate,) * 2 or out.shape != (
+                1, sent.shape[-1]) or ref.shape != out.shape or np.abs(
+                out[0] - sent).max() > 2.0 / 32767:
+            raise SystemExit(f"{what}: example {b + 1} wavs {out.shape}, "
+                             f"{ref.shape} at {sr}, {sr2} Hz")
+    torch.cuda.synchronize()
+    return dict(batch=cfg.batch_size, batches=len(got.calls),
+                batch_ms=got.ms(), plain_batch_ms=want_calls.ms(_plain_env),
+                si_sdr_mean=summary["si_sdr_mean"],
+                plain_si_sdr_mean=plain["si_sdr_mean"],
+                n_clips=summary["n_clips"], si_sdr_max_diff_db=db,
+                audio_out_rel_l2=rel, launches=launches, wall_s=seconds,
+                first_calls_ms=[1e3 * t for t in got.seconds])
+
+
+def _separate_tool(what, cfg, wav, frames_dir, want_per_batch, out_dir):
+    """tools/separate_torch.py's separate_file on `wav` with every kernel
+    and with the plain versions, from one checkpoint: the written wavs
+    within EVAL_AUDIO_RTOL relative L2, the kernel run's launches
+    `want_per_batch` times its batches."""
+    from maavss_tpu_torch.data.wavio import read_wav
+    from tools.separate_torch import separate_file
+
+    outs, runs = {}, {}
+    for label, fn, c, wrap in (
+            ("kernels", separate_file, cfg, None),
+            ("plain", _plain_env(separate_file),
+             cfg.replace(pgenc_kernel="xla"), _plain_env)):
+        path = os.path.join(out_dir, f"{label}.wav")
+        with _Recorded() as rec:
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            summary = fn(c, wav, path, frames_dir, wav, "cuda", False)
+            runs[label] = dict(summary, wall_s=time.perf_counter() - t0,
+                               separator_s=sum(rec.seconds),
+                               batches=len(rec.calls),
+                               launches=_grown(before),
+                               batch_ms=rec.ms(wrap))
+        outs[label], _ = read_wav(path)
+    k, p = runs["kernels"], runs["plain"]
+    want = {n: c * k["batches"] for n, c in want_per_batch.items()}
+    if k["launches"] != want or p["launches"]:
+        raise SystemExit(f"{what}: launches {k['launches']} (want {want}), "
+                         f"plain {p['launches']}")
+    rel = _rel_l2(outs["kernels"], outs["plain"])
+    if rel > EVAL_AUDIO_RTOL or abs(k["si_sdr"] - p["si_sdr"]) > EVAL_DB_TOL:
+        raise SystemExit(f"{what}: wavs {rel} rel L2 apart, SI-SDR "
+                         f"{k['si_sdr']} against {p['si_sdr']}")
+    seconds_of_audio = k["n_samples"] / k["sr"]
+    return dict(tiles=k["tiles"], batches=k["batches"],
+                seconds_of_audio=seconds_of_audio, wav_rel_l2=rel,
+                si_sdr=k["si_sdr"], plain_si_sdr=p["si_sdr"],
+                launches=k["launches"], wall_s=k["wall_s"],
+                plain_wall_s=p["wall_s"], separator_s=k["separator_s"],
+                batch_ms=k["batch_ms"], plain_batch_ms=p["batch_ms"],
+                s_per_s_audio=k["batch_ms"] * k["batches"] / 1e3
+                / seconds_of_audio,
+                plain_s_per_s_audio=p["batch_ms"] * p["batches"] / 1e3
+                / seconds_of_audio)
+
+
+def _option_pair(cfg, frames_model):
+    """(model, ref, plain cfg): the flagship of `cfg` with every kernel and
+    its plain twin from the same state_dict (`_train_pair`'s plain
+    versions)."""
+    import copy
+
+    import torch
+
+    from maavss_tpu_torch.train import setup
+
+    plain_cfg = _plain_cfg(cfg, frames_model)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    if frames_model:
+        model = setup.build_frames_model(cfg, cfg.batch_size, device="cuda",
+                                         generator=gen)
+        ref = copy.deepcopy(model)
+    else:
+        model = setup.build_fusion(cfg, cfg.batch_size, "cuda", gen)
+        ref = setup.build_fusion(plain_cfg, cfg.batch_size, "cuda",
+                                 torch.Generator().manual_seed(cfg.seed + 1))
+    ref.load_state_dict(model.state_dict())
+    ref.lstm.backend = "scan"
+    return model, ref, plain_cfg
+
+
+def _option_case(what, cfg, frames_model, pair, steps=2):
+    """`steps` train steps (mode 2) of the flagship of `cfg` with every
+    kernel against the plain versions, from one state_dict (`pair`, synced
+    again and given fresh optimizer states): losses within 1e-4 relative;
+    then one separator batch of each from one state_dict: every clip's
+    SI-SDR within EVAL_DB_TOL dB, audio_out within EVAL_AUDIO_RTOL. The
+    launches of each kernel step and of the batch, by name; the plain
+    side launches none. Returns the record, the kernel step, its state and
+    a batch (for timing)."""
+    import torch
+
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.train.infer import make_separator
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
+
+    model, ref, plain_cfg = pair
+    plain_cfg = plain_cfg.replace(**{k: getattr(cfg, k) for k in (
+        "rnn_cell", "attn_diff", "compress_audio")})
+    ref.load_state_dict(model.state_dict())
+    make = make_frames_step if frames_model else make_fusion_step
+    state = create_train_state(model, cfg, "cuda")
+    ref_state = create_train_state(ref, plain_cfg, "cuda")
+    step = make(model, cfg, device="cuda")
+    ref_step = _plain_k4(make(ref, plain_cfg, device="cuda"))
+    if frames_model:
+        ref_step = _plain_k5(ref_step)
+    frame_size = cfg.framesize if frames_model else None
+    batches = [synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i,
+                                  frame_size=frame_size)
+               for i in range(steps + 1)]
+    losses, ref_losses, step_launches = [], [], None
+    for batch in batches[:steps]:
+        before = _launch_counts()
+        state, m = step(state, batch, 2)
+        torch.cuda.synchronize()
+        launched = _grown(before)
+        if step_launches not in (None, launched):
+            raise SystemExit(f"{what}: step launches {launched} != "
+                             f"{step_launches}")
+        step_launches = launched
+        before = _launch_counts()
+        ref_state, rm = ref_step(ref_state, batch, 2)
+        if _grown(before):
+            raise SystemExit(f"{what}: the plain step launched "
+                             f"{_grown(before)}")
+        losses.append(float(m["loss"]))
+        ref_losses.append(float(rm["loss"]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if rel > 1e-4 or not all(map(math.isfinite, losses)):
+        raise SystemExit(f"{what}: losses {losses} against plain "
+                         f"{ref_losses} (rel {rel} > 1e-4)")
+    ref.load_state_dict(model.state_dict())
+    sep_batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in batches[steps].items()}
+    before = _launch_counts()
+    got = make_separator(model, cfg, frames_model)(sep_batch)
+    torch.cuda.synchronize()
+    sep_launches = _grown(before)
+    before = _launch_counts()
+    want = _plain_k4(make_separator(ref, plain_cfg, frames_model))(sep_batch)
+    if _grown(before):
+        raise SystemExit(f"{what}: the plain separator launched "
+                         f"{_grown(before)}")
+    db, audio_rel = _separations_close(
+        what, *([{k: out[k].float().cpu() for k in ("si_sdr", "audio_out")}]
+                for out in (got, want)))
+    return dict(losses=losses, plain_losses=ref_losses, loss_rel_diff=rel,
+                si_sdr=got["si_sdr"].tolist(), si_sdr_max_diff_db=db,
+                audio_out_rel_l2=audio_rel, launches_per_step=step_launches,
+                launches_per_batch=sep_launches), (step, state, batches[0])
+
+
+def _want_step(cfg, frames_model):
+    """Each kernel's launches in a window-mode train step of the flagship
+    of `cfg` (K1 none under --rnn_cell gru|none)."""
+    ns = cfg.num_seq
+    k1 = ns if cfg.rnn_cell == "lstm" else 0
+    want = dict(lstm_fwd=k1, lstm_bwd=k1, adam=1, stft_feat=1)
+    if frames_model:
+        want.update({f"epilogue_{n}": 2 * ns for n in (
+            "stats", "apply", "bwd_reduce", "bwd_dy")})
+    else:
+        want.update(pgenc_train=10 * ns, pgenc_bwd=10 * ns)
+    return {n: c for n, c in want.items() if c}
+
+
+def _want_batch(cfg, frames_model):
+    """Each kernel's launches in a window-mode separator batch."""
+    ns = cfg.num_seq
+    want = dict(lstm_fwd=ns if cfg.rnn_cell == "lstm" else 0, stft_feat=1,
+                pgenc_eval=0 if frames_model else 10 * ns)
+    return {n: c for n, c in want.items() if c}
+
+
+def _option_cases(totals):
+    """--rnn_cell gru, --rnn_cell none, --attn_diff and --compress_audio on
+    both flagships at full width, fp32, batch 8, noise 0 (`_option_case`);
+    the fusion step with the LSTM, the GRU and the mixer timed in turns;
+    one bf16 --rnn_cell gru step under the bf16 gates (full encode, rows)
+    and one K = 2 graphed --rnn_cell gru dispatch against 2 eager steps bit
+    for bit under cuDNN's deterministic algorithms (the graphs phase's
+    case, twice)."""
+    from maavss_tpu_torch.config import RunConfig
+
+    os.environ.pop("MAAVSS_S2D_MIN_HW", None)  # the default, 128
+    cases, timed = {}, {}
+
+    def run(label, cfg, frames_model, pair):
+        rec, kernel_step = _option_case(f"eval_plane {label}", cfg,
+                                        frames_model, pair)
+        for what, want in (("launches_per_step",
+                            _want_step(cfg, frames_model)),
+                           ("launches_per_batch",
+                            _want_batch(cfg, frames_model))):
+            if rec[what] != want:
+                raise SystemExit(f"eval_plane {label}: {what} {rec[what]} "
+                                 f"!= {want}")
+        for n, c in rec["launches_per_step"].items():
+            totals[n] = totals.get(n, 0) + 2 * c
+        for n, c in rec["launches_per_batch"].items():
+            totals[n] = totals.get(n, 0) + c
+        cases[label] = rec
+        return kernel_step
+
+    for frames_model in (False, True):
+        family = "frames" if frames_model else "fusion"
+        pairs = {}
+        for option in EVAL_OPTIONS:
+            cfg = RunConfig(batch_size=8, noise_scalar=0.0, **option)
+            if cfg.rnn_cell not in pairs:  # one pair at a time resident
+                pairs = {cfg.rnn_cell: _option_pair(cfg, frames_model)}
+            (key, value), = option.items()
+            label = f"{family}_{key}" + (f"_{value}" if key == "rnn_cell"
+                                         else "")
+            kernel_step = run(label, cfg, frames_model, pairs[cfg.rnn_cell])
+            if not frames_model and key == "rnn_cell":
+                timed[value] = kernel_step
+        del pairs
+    cfg = RunConfig(batch_size=8, noise_scalar=0.0)
+    timed["lstm"] = run("fusion_rnn_cell_lstm", cfg, False,
+                        _option_pair(cfg, False))
+    step_ms = {}
+    for cell in ("lstm", "gru", "none", "none", "gru", "lstm"):
+        fn, st, b = timed[cell]
+        step_ms.setdefault(cell, []).append(
+            cuda_ms(lambda: fn(st, b, 2), reps=3, iters=1))
+    cases["fusion_step_ms"] = step_ms
+    del timed
+    bf16_cfg = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=1e-4,
+                         dtype="bfloat16", rnn_cell="gru",
+                         fusion_encode="full", pgram_cache=True)
+    bf16, _ = _bf16_train_vs_plain(
+        "eval_plane gru bf16", bf16_cfg, False,
+        dict(pgenc_train=10, pgenc_bwd=10, adam=1, stft=1), steps=1)
+    for n, c in (("pgenc_train", 10), ("pgenc_bwd", 10), ("adam", 1),
+                 ("stft_feat", 1)):
+        totals[n] = totals.get(n, 0) + c
+    cases["fusion_gru_bf16"] = bf16
+    graph, graph_totals = _graph_case(
+        "gru_b8", False, RunConfig(batch_size=8, rnn_cell="gru",
+                                   fusion_encode="full", pgram_cache=True),
+        exact=True, k=2, dispatches=2, timed=False)
+    for n, c in graph_totals.items():
+        totals[n] = totals.get(n, 0) + c
+    cases["fusion_gru_graphed"] = graph
+    return cases
+
+
+def _quality_curve_run(root):
+    """tools/quality_curve_torch.py on the anchor's recipe (the fusion
+    flagship, --data_path synthetic:8 -b 32, lr 1e-3) for QC_STEPS steps at
+    --eval_every QC_EVAL_EVERY, the committed anchor enforced (the tool
+    exits on a drift or another batch hash; nothing relabelled): its
+    records, the train steps/s (the loop's wall time less its evals) and
+    the eval seconds, the launches of its run."""
+    import json as _json
+
+    from maavss_tpu_torch.config import model_args
+    from maavss_tpu_torch.train import steps as port_steps
+    from tools import quality_curve_torch as qc
+
+    out = os.path.join(root, "quality_curve.jsonl")
+    starts = []
+    make = port_steps.make_fusion_step
+
+    def timed_step_maker(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def run(*a, **k):
+            starts.append(time.perf_counter())
+            return step(*a, **k)
+        return run
+
+    port_steps.make_fusion_step = timed_step_maker
+    try:
+        with _Recorded() as rec:
+            before = _launch_counts()
+            summary = qc.quality_curve(model_args(QC_ARGS), "fusion",
+                                       QC_STEPS, QC_EVAL_EVERY, 2, out,
+                                       device="cuda")
+            launches = _grown(before)
+    finally:
+        port_steps.make_fusion_step = make
+    with open(out) as f:
+        records = [_json.loads(line) for line in f]
+    if [r["step"] for r in records] != [0, 50, 100, 100] or any(
+            r.get("anchor_drift") for r in records):
+        raise SystemExit(f"quality curve records {records}")
+    if len(rec.seconds) != 2 * len(records) or len(starts) != QC_STEPS:
+        raise SystemExit(f"quality curve: {len(rec.seconds)} separator "
+                         f"calls, {len(starts)} steps")
+    # the loop: the first step's start to the final record's first eval
+    # batch, less the evals inside it (2 batches a record, each timed
+    # between two synchronisations)
+    train_s = rec.starts[-2] - starts[0] - sum(rec.seconds[2:-2])
+    return dict(records=records, steps=QC_STEPS, eval_every=QC_EVAL_EVERY,
+                train_steps_per_s=QC_STEPS / train_s,
+                eval_s=rec.seconds, summary=summary, launches=launches)
+
+
+def eval_plane_phase():
+    """The evaluation plane and the model options a checkpoint can carry,
+    at full width, in a temporary working directory (its synthetic stores,
+    checkpoints, wavs and records); every kernel against its plain version
+    from one checkpoint or state_dict:
+
+    - evaluate (tools/evaluate_torch.py): the fusion flagship (the default
+      RunConfig) at batch 8 over 2 validation batches, and the frames
+      flagship (framesize 256) at batch 4 over 1, each from a checkpoint
+      with seeded random BatchNorm statistics (`_eval_tool`); ms per batch;
+    - separate (tools/separate_torch.py): a 10 s two-channel wav (26 tiles,
+      4 batches of 8, the last padded), audio only and with the 256 px
+      frame store resized to p_size 64 (`_separate_tool`); seconds of
+      separator per second of audio;
+    - the options (`_option_cases`);
+    - the quality curve (`_quality_curve_run`) with the committed anchor
+      enforced on the card's generator.
+
+    Returns the kernels' launches in the runs with the kernels."""
+    import numpy as np
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.synthetic import build_synthetic_store
+    from maavss_tpu_torch.data.wavio import write_wav
+
+    totals = {}
+
+    def add(launches, times=1):
+        for n, c in launches.items():
+            totals[n] = totals.get(n, 0) + times * c
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="maavss_eval_") as root:
+        os.chdir(root)
+        try:
+            t0 = time.perf_counter()
+            # stores of their own: the quality curve's recipe builds
+            # ./data/synthetic-p64 with 8 videos
+            fusion = RunConfig(batch_size=8, val_steps=2, cp_dir="cp",
+                               log_dir="runs_fusion",
+                               data_path=os.path.join(root, "store64"))
+            build_synthetic_store(fusion.data_path, fusion, n_videos=4,
+                                  seconds=2.0, frame_size=fusion.p_size)
+            fusion = _eval_checkpoint(fusion, False, None, "eval_fusion")
+            frames_store = os.path.join(root, "store256")
+            build_synthetic_store(frames_store, fusion, n_videos=2,
+                                  seconds=2.0, frame_size=256)
+            frames = RunConfig(batch_size=4, val_steps=1, cp_dir="cp",
+                               log_dir="runs_frames", data_path=frames_store)
+            frames = _eval_checkpoint(frames, True, 256, "eval_frames")
+            ev = {"fusion": _eval_tool(
+                "eval_plane evaluate fusion", fusion, "fusion",
+                {n: 2 * c for n, c in _want_batch(fusion, False).items()}),
+                "frames": _eval_tool("eval_plane evaluate frames", frames,
+                                     "frames", _want_batch(frames, True))}
+            add(ev["fusion"]["launches"])
+            add(ev["frames"]["launches"])
+            phase("eval_plane_evaluate", **ev)
+
+            n = 10 * fusion.samplerate
+            t = np.arange(n) / fusion.samplerate
+            rng = np.random.default_rng(3)
+            clean = 0.4 * np.sin(2 * np.pi * 330.0 * t)
+            mix = np.stack([clean + 0.2 * rng.standard_normal(n),
+                            clean - 0.2 * rng.standard_normal(n)])
+            write_wav("mix.wav", mix.astype(np.float32), fusion.samplerate)
+            sep = {}
+            for label, fdir in (("audio_only", None), ("frame_store",
+                                os.path.join(frames_store, "frames"))):
+                sep[label] = _separate_tool(
+                    f"eval_plane separate {label}", fusion, "mix.wav", fdir,
+                    _want_batch(fusion, False), root)
+                add(sep[label]["launches"])
+            if sep["audio_only"]["tiles"] != 26:
+                raise SystemExit(f"separate: {sep['audio_only']['tiles']} "
+                                 f"tiles, want 26")
+            phase("eval_plane_separate", **sep)
+
+            options = _option_cases(totals)
+            phase("eval_plane_options", **options)
+
+            curve = _quality_curve_run(root)
+            add(curve["launches"])
+            phase("eval_plane_quality_curve", **curve)
+            phase("eval_plane", launches=totals, s=time.perf_counter() - t0)
+        finally:
+            os.chdir(cwd)
+    return totals
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -6481,6 +7132,7 @@ def main() -> None:
     fusion_mb = fusion_microbatch_phase()
     k5_tuned, k1_tuned, tuned = frames_tuned_phase()
     trainer = trainer_phase()
+    evalp = eval_plane_phase()
 
     def graphed(name, dtypes=(g32, g16)):
         return sum(g.get(name, 0) for g in dtypes)
@@ -6492,8 +7144,8 @@ def main() -> None:
 
     def fit(name):
         """Launches of `name` (its kernel_counters name) in the trainer
-        phase's runs."""
-        return trainer.get(name, 0)
+        and eval_plane phases' runs."""
+        return trainer.get(name, 0) + evalp.get(name, 0)
 
     if any(m in sys.modules for m in ("jax", "flax", "ml_dtypes",
                                       "maavss_tpu")):
@@ -6562,8 +7214,8 @@ def main() -> None:
                      + graphed("stft_feat") + newer("stft")
                      + fit("stft_feat"), stft),
         kernel_entry("polar", "spectral.cu",
-                     "maavss_tpu/ops/pallas_kernels.py:143", polar["polar"],
-                     k4["polar"]),
+                     "maavss_tpu/ops/pallas_kernels.py:143",
+                     polar["polar"] + fit("polar"), k4["polar"]),
         *(kernel_entry(f"epilogue_{n}_bf16", "epilogue.cu",
                        f"maavss_tpu/ops/pallas_epilogue.py:{line}",
                        bf16_launches[f"epilogue_{n}"]

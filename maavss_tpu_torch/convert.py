@@ -16,7 +16,10 @@ benchmarks/torch_baseline.py:89-148), path component by component:
 - `BatchNorm_0/scale|bias` -> `BatchNorm_0.weight|bias`; batch_stats
   `mean|var` -> `running_mean|running_var`
 - LSTM `w_i` [D,4H] / `w_h` [H,4H] are kept in flax's layout: the recurrence
-  kernel reads w_h as [H,4H], row k holding the four gates' weights of h[k]
+  kernel reads w_h as [H,4H], row k holding the four gates' weights of h[k];
+  so are the GRU's (--rnn_cell gru) `w_i` [D,3H] / `w_h` [H,3H], gate
+  columns (r, z, n); the ParallelMixer's (--rnn_cell none)
+  `lstm/Dense_0/kernel` is a Dense kernel like any other
 - every `bias` maps 1:1
 
 The phasegram kernel stack's w2 [Co, 9*Cin] is not stored: the module

@@ -7,11 +7,15 @@ maavss_tpu/exp/checkpoint.py:55-149, in PyTorch's idiom).
   buffers) and the optimizer's count, m and v (by parameter name),
   overwriting the run's previous checkpoint like the reference's single
   `<name>.pt` (utilities.py:165-204);
-- `latest_checkpoint(cp_dir)`: the newest `.ckpt.pt` by mtime (`-c`);
+- `latest_checkpoint(cp_dir)`: the newest `.ckpt.pt`, or the JAX
+  package's `.ckpt.pkl`, by mtime (`-c`);
 - `load_checkpoint(..., auto, path, load_opt)` -> (state, epoch), the
   optimizer's count and moments only under `load_opt`
   (utilities.py:193-197); nothing found prints the reference's message and
-  returns (state, 0);
+  returns (state, 0). A JAX `.ckpt.pkl` (its pickle backend:
+  params, batch_stats, step, epoch and the optax state) loads through
+  `convert.from_flax`; its Adam count and moments are the optax
+  ScaleByAdamState's;
 - `save_model` / `load_model`: the parameters alone (utilities.py:165-169).
   `load_model` also reads the JAX package's pickle-backend file
   (`<path>.params.pkl`, a numpy tree) through `convert.from_flax`, so a
@@ -36,6 +40,7 @@ import torch
 from maavss_tpu_torch.convert import from_flax
 
 SUFFIX = ".ckpt.pt"
+JAX_SUFFIX = ".ckpt.pkl"
 MODEL_SUFFIX = ".params.pt"
 
 
@@ -73,11 +78,12 @@ def save_checkpoint(cp_dir: str, name: str, state, epoch: int = 0,
 
 
 def latest_checkpoint(cp_dir: str) -> Optional[str]:
-    """Newest `.ckpt.pt` in cp_dir by mtime (utilities.py:199-204)."""
+    """Newest `.ckpt.pt` or `.ckpt.pkl` in cp_dir by mtime
+    (utilities.py:199-204)."""
     if not os.path.isdir(cp_dir):
         return None
     candidates = [os.path.join(cp_dir, d) for d in os.listdir(cp_dir)
-                  if d.endswith(SUFFIX)
+                  if d.endswith((SUFFIX, JAX_SUFFIX))
                   and os.path.isfile(os.path.join(cp_dir, d))]
     if not candidates:
         return None
@@ -110,7 +116,10 @@ def load_checkpoint(cp_dir: str, state, auto: bool = True,
         print("checkpoint not found, aborting cp load")  # utilities.py:183
         return state, 0
     print(f"loading model checkpoint from {target}")
-    saved = torch.load(target, map_location="cpu", weights_only=True)
+    if target.endswith(JAX_SUFFIX):
+        saved = _jax_checkpoint(target, load_opt)
+    else:
+        saved = torch.load(target, map_location="cpu", weights_only=True)
     _copy_into("checkpoint model", state.model.state_dict(keep_vars=True),
                saved["model"])
     state.step = int(saved["step"])
@@ -124,6 +133,36 @@ def load_checkpoint(cp_dir: str, state, auto: bool = True,
     return state, int(saved["epoch"])
 
 
+def _adam_state(node):
+    """The one ScaleByAdamState (count, mu, nu) in an optax state tree."""
+    if isinstance(node, _OptaxState):
+        if type(node).__name__ == "ScaleByAdamState":
+            return [node.fields]
+        node = node.fields
+    if isinstance(node, (tuple, list)):
+        return [s for n in node for s in _adam_state(n)]
+    return []
+
+
+def _jax_checkpoint(path: str, load_opt: bool) -> Dict[str, Any]:
+    """A JAX `.ckpt.pkl` in the form of the port's payload: the model's
+    state_dict from params and batch_stats, the step and epoch, and under
+    `load_opt` Adam's count and moments by parameter name."""
+    with open(path, "rb") as f:
+        tree = _NumpyTreeUnpickler(f, optax=True).load()
+    saved = {"epoch": int(tree["epoch"]), "step": int(tree["step"]),
+             "model": from_flax(tree["params"], tree["batch_stats"])}
+    if load_opt:
+        adam = _adam_state(tree["opt_state"])
+        if len(adam) != 1:
+            raise ValueError(f"{path}: {len(adam)} Adam states in the "
+                             "optimizer state, want 1")
+        count, mu, nu = adam[0]
+        saved["opt"] = {"count": int(count), "m": from_flax(mu),
+                        "v": from_flax(nu)}
+    return saved
+
+
 def save_model(path: str, model: torch.nn.Module) -> str:
     """Whole-model save, the parameters only (reference save_model parity):
     `<path>.params.pt`."""
@@ -134,14 +173,31 @@ def save_model(path: str, model: torch.nn.Module) -> str:
     return path
 
 
+class _OptaxState:
+    """An optax state node of a JAX checkpoint, unpickled without optax:
+    its class name and its fields in order."""
+
+    def __new__(cls, *fields):
+        obj = super().__new__(cls)
+        obj.fields = fields
+        return obj
+
+
 class _NumpyTreeUnpickler(pickle.Unpickler):
-    """The JAX package's pickle-backend file holds numpy arrays in dicts;
-    a flax FrozenDict, where one occurs, comes back as a plain dict, so no
-    jax or flax is imported to read it."""
+    """The JAX package's pickle-backend files hold numpy arrays in dicts;
+    a flax FrozenDict, where one occurs, comes back as a plain dict, and
+    with `optax` an optax state node as an `_OptaxState` of that name, so
+    no jax, flax or optax is imported to read them."""
+
+    def __init__(self, f, optax: bool = False):
+        super().__init__(f)
+        self.optax = optax
 
     def find_class(self, module, name):
         if module.startswith("flax") and name == "FrozenDict":
             return dict
+        if self.optax and module.split(".")[0] == "optax":
+            return type(name, (_OptaxState,), {})
         if module.split(".")[0] not in ("numpy", "builtins", "collections"):
             raise pickle.UnpicklingError(
                 f"load_model: {module}.{name} is not part of a numpy tree")

@@ -13,7 +13,9 @@ maps a flax checkpoint onto `state_dict()` leaf by leaf:
   tree as a `ConvStack` of the same specs, so `--pgenc_kernel` is a pure
   compute switch, and runs every layer through `ops/cuda_pgenc.py`.
 - `LSTM` keeps flax's `w_i` [D,4H] and `w_h` [H,4H] (gate columns i,f,g,o):
-  the recurrence kernel reads w_h in that layout.
+  the recurrence kernel reads w_h in that layout. `GRU` keeps `w_i` [D,3H]
+  and `w_h` [H,3H] (r, z, n) and `ParallelMixer` its `Dense_0`: the trees
+  of --rnn_cell gru and none.
 - `frames_conv3d_stage` is one stage of the frames model's visual encoder on
   the direct path: conv3d, then BatchNorm, the max pool and LeakyReLU(0.01),
   or in train mode, where `epilogue_eligible` admits the stage, the fused
@@ -22,9 +24,9 @@ maps a flax checkpoint onto `state_dict()` leaf by leaf:
 The compute dtype (`dtype`, --dtype; float32 or bfloat16) follows flax's
 mixed precision: conv and dense parameters stay fp32 and are cast per call
 (`conv`, `dense`); BatchNorm computes in fp32 and casts its output; the
-LSTM's w_i and w_h are parameters of the compute dtype itself, as flax
-creates them (maavss_tpu/models/layers.py:693-697). In float32 every
-helper is the plain module call.
+LSTM's and GRU's w_i and w_h are parameters of the compute dtype itself,
+as flax creates them (maavss_tpu/models/layers.py:693-697). In float32
+every helper is the plain module call.
 """
 
 from __future__ import annotations
@@ -391,14 +393,91 @@ class BiLSTM(nn.Module):
         return torch.cat([ys_f, ys_b], dim=-1)
 
 
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """sigmoid as XLA expands it below float32, 1 / (1 + exp(-x)) with
+    every op rounded to x's dtype; torch.sigmoid in float32."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+class GRU(nn.Module):
+    """One GRU direction (maavss_tpu/models/layers.py:740-795): w_i [D,3H]
+    and w_h [H,3H] in flax's layout, gate columns in torch's order (r, z,
+    n), parameters of the compute dtype, as flax creates them. The input
+    projection x @ w_i is one matmul over all steps; the recurrence is the
+    plain per-step loop of the JAX package's `lax.scan` (the JAX package
+    has no GRU kernel), h carried in the compute dtype and every gate op
+    rounded to it, the reset gate multiplying the recurrent candidate term
+    h @ W_hn."""
+
+    def __init__(self, in_features: int, hidden: int,
+                 dtype: torch.dtype = torch.float32, reverse: bool = False):
+        super().__init__()
+        self.hidden = hidden
+        self.reverse = reverse
+        self.w_i = nn.Parameter(torch.empty(in_features, 3 * hidden,
+                                            dtype=dtype))
+        self.w_h = nn.Parameter(torch.empty(hidden, 3 * hidden, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xw = torch.matmul(x.to(self.w_i.dtype), self.w_i)
+        h = xw.new_zeros(xw.shape[0], self.hidden)
+        ys = [None] * xw.shape[1]
+        order = range(xw.shape[1])
+        for t in (reversed(order) if self.reverse else order):
+            xr, xz, xn = xw[:, t].chunk(3, dim=-1)
+            hr, hz, hn = torch.matmul(h, self.w_h).chunk(3, dim=-1)
+            r = _sigmoid(xr + hr)
+            z = _sigmoid(xz + hz)
+            n = torch.tanh(xn + r * hn)
+            h = (1.0 - z) * n + z * h
+            ys[t] = h
+        return torch.stack(ys, dim=1)
+
+
+class BiGRU(nn.Module):
+    """Bidirectional GRU without biases: [B,T,D] -> [B,T,2H], the forward
+    and reverse passes concatenated (maavss_tpu/models/layers.py:819-836,
+    --rnn_cell gru)."""
+
+    def __init__(self, in_features: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fwd = GRU(in_features, hidden, dtype)
+        self.bwd = GRU(in_features, hidden, dtype, reverse=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.fwd(x), self.bwd(x)], dim=-1)
+
+
+class ParallelMixer(nn.Module):
+    """The recurrence-free stand-in (--rnn_cell none,
+    maavss_tpu/models/layers.py:839-855): one dense projection without a
+    bias to the same [B,T,2H] output, no temporal mixing. `Dense_0` is
+    flax's auto-name, so the converter maps `lstm/Dense_0/kernel`."""
+
+    def __init__(self, in_features: int, hidden: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Dense_0 = nn.Linear(in_features, 2 * hidden, bias=False)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(self.Dense_0, x, self.dtype)
+
+
 def make_birnn(cell: str, in_features: int, hidden: int,
                dtype: torch.dtype = torch.float32) -> nn.Module:
-    """Bidirectional recurrence of the fusion core. Only 'lstm' (reference
-    parity) is ported; 'gru' and 'none' are ROADMAP M2."""
+    """Bidirectional recurrence of the fusion core
+    (maavss_tpu/models/layers.py:858-873): 'lstm' (reference parity, K1),
+    'gru' (BiGRU) or 'none' (ParallelMixer). The model registers it as
+    `lstm` whatever the cell, as flax names it, so each cell has one
+    parameter tree."""
     if cell == "lstm":
         return BiLSTM(in_features, hidden, dtype=dtype)
-    if cell in ("gru", "none"):
-        raise NotImplementedError(
-            f"--rnn_cell {cell} is not ported yet (ROADMAP M2: GRU/BiGRU, "
-            "ParallelMixer)")
+    if cell == "gru":
+        return BiGRU(in_features, hidden, dtype=dtype)
+    if cell == "none":
+        return ParallelMixer(in_features, hidden, dtype=dtype)
     raise ValueError(f"unknown rnn cell {cell!r} (lstm|gru|none)")

@@ -16,9 +16,13 @@ mixture), then resynthesizes; under --frames_encode full its visual trunk
 runs once over the clip's frames, as the full-encode train step's does. Feature preparation is the train step's
 `_prep_stft_pair`, as in the JAX package; under --use_polar the features
 are (magnitude, phase), averaged and stitched as such, and resynthesized
-through the polar kernel. Under --dtype bfloat16 the model's bf16 outputs
-are cast to the features' fp32 before the overlap-add or the stitch, so
-the average, the polar kernel and the iSTFT run in fp32
+through the polar kernel. The visual input is `_vis_frames` (their
+temporal difference under --attn_diff). Under --compress_audio the model
+sees the compressed clip's features while the SI-SDR reference stays
+`batch['audio']`, uncompressed, as in the JAX package
+(maavss_tpu/train/infer.py:90, 197). Under --dtype bfloat16 the model's
+bf16 outputs are cast to the features' fp32 before the overlap-add or the
+stitch, so the average, the polar kernel and the iSTFT run in fp32
 (maavss_tpu/train/infer.py:67,77,161).
 """
 
@@ -37,8 +41,8 @@ from maavss_tpu_torch.train.steps import (
     _fusion_full_geometry,
     _pflat_from_batch,
     _prep_stft_pair,
+    _vis_frames,
     _windows,
-    frames_f32,
 )
 
 
@@ -110,7 +114,7 @@ def separate_frames_windows(model, cfg: RunConfig,
     audio = batch["audio"]
     x_full, _ = _prep_stft_pair(audio, cfg, generator, trim_end=False,
                                 max_norm=cfg.normalize_output_fft)
-    frames = frames_f32(batch["frames"]).unsqueeze(2)  # [B,T,1,H,W]
+    frames = _vis_frames(batch, cfg).unsqueeze(2)  # [B,T,1,H,W]
     yh_full = x_full.clone()
     was_training = model.training
     model.eval()
@@ -135,6 +139,31 @@ def separate_frames_windows(model, cfg: RunConfig,
     return yh_audio, x_full
 
 
+def _input_audio(cfg: RunConfig, x_full: torch.Tensor, length: int,
+                 frames_model: bool) -> torch.Tensor:
+    """The separator's noisy input features resynthesized: the audio its
+    `si_sdr_noisy` scores."""
+    return istft_features(x_full, cfg.fft_len, cfg.hop,
+                          normalized=cfg.normalize_fft,
+                          trim_end=not frames_model, polar=cfg.use_polar,
+                          length=length)
+
+
+def noisy_si_sdr(cfg: RunConfig, audio: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 frames_model: bool = False) -> torch.Tensor:
+    """The separator's `si_sdr_noisy` [B] of `audio` [B, S] without a
+    model: the input features drawn from `generator` as the separator
+    draws them, resynthesized and scored against `audio`. It does not
+    depend on the weights (the eval anchor of
+    tools/quality_curve_torch.py)."""
+    x_full, _ = _prep_stft_pair(audio, cfg, generator,
+                                trim_end=not frames_model,
+                                max_norm=cfg.normalize_output_fft)
+    return si_sdr(_input_audio(cfg, x_full, audio.shape[-1], frames_model),
+                  audio)
+
+
 def make_separator(model, cfg: RunConfig, frames_model: bool = False):
     """`separate(batch, generator=None) -> dict` over batch =
     {'audio': [B, S_total], 'frames': [B, T_total, p, p]} tensors on the
@@ -150,11 +179,7 @@ def make_separator(model, cfg: RunConfig, frames_model: bool = False):
                  ) -> Dict[str, torch.Tensor]:
         audio = batch["audio"]
         yh_audio, x_full = windows(model, cfg, batch, generator)
-        x_audio = istft_features(x_full, cfg.fft_len, cfg.hop,
-                                 normalized=cfg.normalize_fft,
-                                 trim_end=not frames_model,
-                                 polar=cfg.use_polar,
-                                 length=audio.shape[-1])
+        x_audio = _input_audio(cfg, x_full, audio.shape[-1], frames_model)
         sdr_out = si_sdr(yh_audio, audio)
         sdr_in = si_sdr(x_audio, audio)
         return {"audio_out": yh_audio, "audio_in": x_audio,

@@ -11,9 +11,9 @@ model. The initialisation:
 - conv (2-D and 3-D), transposed-conv and dense kernels: lecun-normal
   (variance 1/fan_in, normal truncated at two standard deviations, flax's
   rescaled stddev); biases zero;
-- LSTM w_i / w_h: U(-1/sqrt(H), 1/sqrt(H)), drawn in fp32 and rounded to
-  the parameters' dtype, so a bfloat16 model holds its float32 twin's
-  weights rounded;
+- LSTM and GRU w_i / w_h: U(-1/sqrt(H), 1/sqrt(H)), drawn in fp32 and
+  rounded to the parameters' dtype, so a bfloat16 model holds its float32
+  twin's weights rounded;
 - BatchNorm: scale 1, bias 0, running mean 0, running variance 1.
 
 `--dtype` picks the compute dtype (`compute_dtype`): float32, or bfloat16
@@ -48,7 +48,7 @@ from maavss_tpu_torch.data.dataset import AVDataset, Subset, batches, prefetch
 from maavss_tpu_torch.data.frame_shards import FrameShardStore
 from maavss_tpu_torch.models.fusion import AVFusionModel, resolve_pgenc_kernel
 from maavss_tpu_torch.models.fusion_frames import AVFusionFramesModel
-from maavss_tpu_torch.models.layers import LSTM
+from maavss_tpu_torch.models.layers import GRU, LSTM
 from maavss_tpu_torch.train.state import TrainState, create_train_state
 
 # flax's truncated_normal initializer rescales so the truncated
@@ -71,11 +71,9 @@ def check_supported(cfg: RunConfig, train: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every option
     the port does not implement yet; `train=True` adds the train step's
     flags. Both families share them: the frames family's own options
-    (--frames_encode, --frames_halo) are ported."""
+    (--frames_encode, --frames_halo) are ported, and so are --rnn_cell
+    gru|none, --attn_diff and --compress_audio."""
     todo = [
-        (cfg.rnn_cell != "lstm", f"--rnn_cell {cfg.rnn_cell}", "M2"),
-        (cfg.compress_audio, "--compress_audio", "M9 (ops/audio.py)"),
-        (cfg.attn_diff, "--attn_diff", "M4"),
         (cfg.dtype not in _DTYPES, f"--dtype {cfg.dtype}", "M5 (float16)"),
     ]
     if train:
@@ -167,7 +165,7 @@ def init_flax_like(model: nn.Module, generator: torch.Generator) -> None:
             _lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
         elif isinstance(mod, nn.Linear):
             _lecun_normal_(mod.weight, mod.in_features, generator)
-        elif isinstance(mod, LSTM):
+        elif isinstance(mod, (LSTM, GRU)):
             bound = 1.0 / math.sqrt(mod.hidden)
             for w in (mod.w_i, mod.w_h):
                 w.copy_(torch.empty(w.shape).uniform_(-bound, bound,

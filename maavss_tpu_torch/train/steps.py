@@ -75,6 +75,7 @@ from maavss_tpu_torch.models.shape_plan import (
     plan_phasegram_encoder,
     plan_stft_encoder_fusion,
 )
+from maavss_tpu_torch.ops.audio import contrast
 from maavss_tpu_torch.ops.phasegram import phasegram_cumsum, phasegram_window
 from maavss_tpu_torch.ops.stft import stft_features
 from maavss_tpu_torch.train.cuda_graph import make_k_step
@@ -150,12 +151,28 @@ def frames_f32(frames: torch.Tensor) -> torch.Tensor:
     return frames
 
 
+def attn_diff_frames(frames: torch.Tensor) -> torch.Tensor:
+    """--attn_diff: the attention frames' difference along the frame axis 1
+    with a zero first frame (maavss_tpu/train/steps.py:128-136, the
+    reference's intended op), [B, T, ...] -> [B, T, ...]."""
+    d = torch.diff(frames, dim=1)
+    return torch.cat([torch.zeros_like(d[:, :1]), d], dim=1)
+
+
+def _vis_frames(batch, cfg: RunConfig) -> torch.Tensor:
+    """The batch's raw attention frames as float32 [0, 1], then their
+    temporal difference under --attn_diff."""
+    frames = frames_f32(batch["frames"])
+    return attn_diff_frames(frames) if cfg.attn_diff else frames
+
+
 def _prep_stft_pair(audio: torch.Tensor, cfg: RunConfig,
                     generator: Optional[torch.Generator], trim_end: bool,
                     max_norm: bool, noise_scalar: Optional[Noise] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """audio [B, S] -> (x_stft, y_stft) [B, 2, T, F]: STFT ((magnitude,
-    phase) features under --use_polar), optional per-example max-norm,
+    """audio [B, S] -> (x_stft, y_stft) [B, 2, T, F]: the SoX contrast
+    under --compress_audio (ops/audio.py), STFT ((magnitude, phase)
+    features under --use_polar), optional per-example max-norm,
     then the additive-noise input x = y + noise * noise_scalar with the
     noise drawn from `generator`
     (maavss_tpu/train/steps.py:294-321). A float noise_scalar of 0 draws
@@ -164,6 +181,8 @@ def _prep_stft_pair(audio: torch.Tensor, cfg: RunConfig,
     does; it gives the bits of the same value as a float."""
     if noise_scalar is None:
         noise_scalar = cfg.noise_scalar
+    if cfg.compress_audio:
+        audio = contrast(audio)
     y = stft_features(audio, cfg.fft_len, cfg.hop, normalized=cfg.normalize_fft,
                       trim_end=trim_end, polar=cfg.use_polar)
     if max_norm:
@@ -179,7 +198,8 @@ def _pflat_from_batch(batch, cfg: RunConfig) -> torch.Tensor:
     """Per-frame phasegram cumsum rows [B, T, p^2]
     (maavss_tpu/train/steps.py:145-159): precomputed --pgram_cache rows
     (`batch['pgram']`, float16, cast to fp32 where they lie) or computed
-    from the raw frames."""
+    from the raw frames (`_vis_frames`). --attn_diff with precomputed rows
+    raises the JAX package's ValueError."""
     if "pgram" in batch:
         if cfg.attn_diff:
             raise ValueError(
@@ -187,7 +207,7 @@ def _pflat_from_batch(batch, cfg: RunConfig) -> torch.Tensor:
                 "the phasegram fft2, which precomputed --pgram_cache rows "
                 "skip; drop one of the two flags")
         return batch["pgram"].to(torch.float32)
-    frames = frames_f32(batch["frames"])
+    frames = _vis_frames(batch, cfg)
     resize = None if frames.shape[-1] == cfg.p_size else (cfg.p_size,
                                                           cfg.p_size)
     return phasegram_cumsum(frames, resize=resize)
@@ -575,7 +595,7 @@ def make_frames_step(model, cfg: RunConfig, device="cuda",
                                          trim_end=False,
                                          max_norm=cfg.normalize_output_fft,
                                          noise_scalar=step_noise(noise))
-        frames = frames_f32(batch["frames"]).unsqueeze(2)  # [B,T,1,H,W]
+        frames = _vis_frames(batch, cfg).unsqueeze(2)  # [B,T,1,H,W]
         masks = _masks(mode, cfg.objective_zeros)
         return _microbatch_accumulate(
             state, mb, (frames, x_full, y_full),

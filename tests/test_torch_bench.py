@@ -77,8 +77,6 @@ def test_line_records_the_fusion_defaults(line):
     (dict(MAAVSS_BENCH_REMAT="1"), "M3-rest"),
     (dict(MAAVSS_BENCH_FUSED_OPT="1"), "Not carried"),
     (dict(MAAVSS_BENCH_DTYPE="float16"), "M5 (float16)"),
-    (dict(MAAVSS_BENCH_RNN="gru"), "M2"),
-    (dict(MAAVSS_BENCH_RNN="none", MAAVSS_BENCH_REGIME="frames"), "M2"),
 ])
 def test_unported_variables_raise_by_label(env, label):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
@@ -101,6 +99,19 @@ def test_ported_variables_configure(env):
     assert cfg.frames_encode == env.get("MAAVSS_BENCH_FRAMES_ENCODE",
                                         "window")
     assert cfg.frames_halo == int(env.get("MAAVSS_BENCH_FRAMES_HALO", "0"))
+
+
+@pytest.mark.parametrize("env", [
+    dict(MAAVSS_BENCH_RNN="gru"),
+    dict(MAAVSS_BENCH_RNN="none", MAAVSS_BENCH_REGIME="frames"),
+])
+def test_rnn_variable_configures(env):
+    """MAAVSS_BENCH_RNN (bench.py:64) is ported: --rnn_cell gru|none
+    passes the same check and the config carries it
+    (tests/test_torch_rnn_options.py runs the steps)."""
+    cfg, regime, _ = bench_torch.bench_config(env, 2, TINY)
+    assert cfg.rnn_cell == env["MAAVSS_BENCH_RNN"]
+    assert regime == env.get("MAAVSS_BENCH_REGIME", "fusion")
 
 
 def test_multistep_config_is_accepted():

@@ -277,9 +277,7 @@ def test_serving_fn_specs_and_payloads_match_jax(fused_env):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (dict(remat=True), "M3-rest"),
-    (dict(attn_diff=True), "M4"), (dict(rnn_cell="gru"), "M2"),
-    (dict(rnn_cell="none"), "M2"), (dict(dtype="float16"), "M5"),
+    (dict(remat=True), "M3-rest"), (dict(dtype="float16"), "M5"),
 ])
 def test_unported_frames_flags_raise(flags, item):
     """Each frames option not ported yet raises NotImplementedError
@@ -295,11 +293,13 @@ def test_unported_frames_flags_raise(flags, item):
 
 @pytest.mark.parametrize("flags", [
     dict(frames_encode="full"), dict(frames_encode="full", frames_halo=1),
-    dict(microbatch=2),
+    dict(microbatch=2), dict(attn_diff=True), dict(rnn_cell="gru"),
+    dict(rnn_cell="none"),
 ])
 def test_ported_frames_flags_take_a_step(fused_env, flags):
     """Frames options that no longer raise: the state builds and takes one
-    CPU step (tests/test_torch_frames_full.py holds them against JAX)."""
+    CPU step (tests/test_torch_frames_full.py holds them against JAX,
+    tests/test_torch_rnn_options.py --attn_diff and --rnn_cell gru|none)."""
     cfg = RunConfig(**GEOMETRY).replace(**flags)
     check_supported(cfg, train=True)
     model, state = build_frames_state(cfg, 2, latent_channels=LATENT,

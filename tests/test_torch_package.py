@@ -56,7 +56,13 @@ from maavss_tpu_torch.train.setup import (
     build_fusion,
 )
 from tests.test_torch_workers import share_cores
-from tools import fit_torch, save_phasegrams_torch
+from tools import (
+    evaluate_torch,
+    fit_torch,
+    quality_curve_torch,
+    save_phasegrams_torch,
+    separate_torch,
+)
 
 share_cores()
 
@@ -66,8 +72,9 @@ SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,
 
 
 def test_port_imports_without_jax():
-    """Every module of the port, and tools/bench_torch.py, fit_torch.py and
-    save_phasegrams_torch.py with the modules they reach, load in a fresh
+    """Every module of the port, and tools/bench_torch.py, fit_torch.py,
+    save_phasegrams_torch.py, evaluate_torch.py, separate_torch.py and
+    quality_curve_torch.py with the modules they reach, load in a fresh
     process without jax, ml_dtypes (which the card's machine lacks) or
     maavss_tpu."""
     code = (
@@ -77,11 +84,13 @@ def test_port_imports_without_jax():
         "maavss_tpu_torch.__path__, 'maavss_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "from tools import bench_torch, fit_torch, save_phasegrams_torch\n"
+        "from tools import evaluate_torch, quality_curve_torch, "
+        "separate_torch\n"
         "bench_torch.kernel_counters(); bench_torch.bench_config({}, 8)\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'ml_dtypes', 'maavss_tpu') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 44, names\n"
+        "assert len(names) >= 46, names\n"
         "new = {'maavss_tpu_torch.ops.cuda_adam', "
         "'maavss_tpu_torch.train.fused_adam', 'maavss_tpu_torch.train.state', "
         "'maavss_tpu_torch.train.steps', 'maavss_tpu_torch.data.synthetic', "
@@ -92,7 +101,8 @@ def test_port_imports_without_jax():
         " 'maavss_tpu_torch.data.audio_memmap',"
         " 'maavss_tpu_torch.data.clip_index', 'maavss_tpu_torch.data.dataset',"
         " 'maavss_tpu_torch.exp.metrics', 'maavss_tpu_torch.exp.checkpoint',"
-        " 'maavss_tpu_torch.exp.profiling', 'maavss_tpu_torch.train.trainer'}\n"
+        " 'maavss_tpu_torch.exp.profiling', 'maavss_tpu_torch.train.trainer',"
+        " 'maavss_tpu_torch.ops.audio', 'maavss_tpu_torch.exp.viz'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -302,7 +312,9 @@ def test_entry_points_default_to_cuda():
                port_state.create_train_state, port_steps.make_fusion_step,
                port_steps.make_fusion_eval, build_frames_model,
                build_frames_state, port_steps.make_frames_step,
-               fit_torch.fit, save_phasegrams_torch.build_pgram_store):
+               fit_torch.fit, save_phasegrams_torch.build_pgram_store,
+               evaluate_torch.evaluate, separate_torch.separate_file,
+               quality_curve_torch.quality_curve):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__name__
     if not torch.cuda.is_available():
@@ -315,7 +327,12 @@ def test_entry_points_default_to_cuda():
                 ("train_torch.py", ["--model", "frames", "-s", "1"]),
                 ("fit_torch.py", ["--data_path", "synthetic"]),
                 ("fit_torch.py", ["--model", "frames"]),
-                ("save_phasegrams_torch.py", ["--data_path", "synthetic"])):
+                ("save_phasegrams_torch.py", ["--data_path", "synthetic"]),
+                ("evaluate_torch.py", ["--data_path", "synthetic"]),
+                ("evaluate_torch.py", ["--model", "frames"]),
+                ("separate_torch.py", ["--audio", "missing.wav", "--out",
+                                       "unwritten.wav"]),
+                ("quality_curve_torch.py", ["--steps", "1"])):
             out = subprocess.run([sys.executable, f"tools/{tool}", *argv],
                                  cwd=ROOT, env=env, capture_output=True,
                                  text=True, timeout=120)
