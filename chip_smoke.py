@@ -254,6 +254,31 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    recipe for 100 steps at --eval_every 50, the anchor enforced on the
    card: its records, train steps/s and eval seconds. Its launches are
    added to the kernels line.
+38. regimes (the staged-training regimes) on the fusion flagship
+   (batch 8, scan windows, noise 0, lr 1e-3): the STFT autoencoder step,
+   the phasegram autoencoder step (K2-train and K2-bwd once a layer), the
+   staged AV step (FUSION_SUBNETS trainable, K3 over their fp32 leaves
+   alone) and the middle-frame step, with the fusion step beside: 3 steps
+   each with every kernel against the plain versions from one state_dict
+   under the train gates, exact launches a step, the frozen leaves
+   unchanged bit for bit on both sides, kernel and plain step times in
+   turns; the two autoencoder evals (the STFT kernel; K2-eval once a
+   layer) against the plain versions; AVFusionModelConv at the flagship's
+   shapes, K1 against the LSTM scan (eval and train forwards, the w_h
+   gradients, within 1e-4); the staged step and the phasegram autoencoder
+   as K = 3 graphed dispatches bit for bit under cuDNN's deterministic
+   algorithms. Its launches are added to the kernels line.
+39. remat (--remat): the fusion flagship's scan step and the
+   frames flagship's window step (batch 8) under --remat, every kernel
+   against the plain versions (both under --remat) for 3 steps under the
+   train gates, each forward kernel in a checkpointed window launching
+   twice (K1-fwd, K2-train, K5's stats and apply); each against its
+   --remat-less step, both with every kernel, bit for bit under cuDNN's
+   deterministic algorithms (running statistics included), with both
+   peak memories and step times, the fusion case under both
+   MAAVSS_REMAT_POLICY values (full and dots); a graphed K = 3 --remat
+   fusion dispatch under each policy bit for bit. Its launches are added
+   to the kernels line.
 
 Every phase that drives a train step or a serving batch counts the STFT
 kernel's launches exactly (one a step or a batch; none in stft_route) and
@@ -272,6 +297,7 @@ work is timed, and `host_ms` their enqueue time on the host clock
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3174,12 +3200,16 @@ def _plain_cfg(cfg, frames_model: bool, k2_plain: bool = True):
 
 
 def _train_pair(cfg, frames_model: bool, k2_plain: bool = True,
-                kernel_features: bool = False):
+                kernel_features: bool = False, make_step=None,
+                trainable=None):
     """(model, state, step, ref, ref_state, ref_step) at batch 8: the
     flagship of `cfg` with every kernel, and the plain versions from the same
     state_dict (ConvStack unless `k2_plain` is False, the LSTM scan, the
     plain Adam formula, K5's and K4's plain versions; the STFT kernel's
-    features on both sides with `kernel_features`)."""
+    features on both sides with `kernel_features`). `make_step` (default
+    the family's train step) is the step factory of train/steps.py to run;
+    `trainable` (top-level module prefixes) the staged freeze of both
+    optimizers."""
     import torch
 
     from maavss_tpu_torch.train import setup
@@ -3188,19 +3218,22 @@ def _train_pair(cfg, frames_model: bool, k2_plain: bool = True,
 
     if frames_model:
         build_state, build = setup.build_frames_state, setup.build_frames_model
-        make_step = make_frames_step
+        make_step = make_step or make_frames_step
+        extra = {}
     else:
         build_state, build = setup.build_fusion_state, setup.build_fusion
-        make_step = make_fusion_step
+        make_step = make_step or make_fusion_step
+        extra = dict(trainable=trainable)
     plain_cfg = _plain_cfg(cfg, frames_model, k2_plain)
     model, state = build_state(cfg, cfg.batch_size, device="cuda",
                                generator=torch.Generator().manual_seed(
-                                   cfg.seed))
+                                   cfg.seed), **extra)
     ref = build(plain_cfg, cfg.batch_size, device="cuda",
                 generator=torch.Generator().manual_seed(cfg.seed + 1))
     ref.load_state_dict(model.state_dict())
     ref.lstm.backend = "scan"
-    ref_state = create_train_state(ref, plain_cfg, "cuda")
+    ref_state = create_train_state(ref, plain_cfg, "cuda",
+                                   trainable=trainable)
     ref_step = _plain_k4(make_step(ref, plain_cfg, device="cuda"),
                          kernel_features)
     if frames_model:
@@ -3227,7 +3260,7 @@ def _grab_step1_grads(state, model):
 
 
 def _plain_twin(cfg, ref, frames_model, k2_plain=True,
-                kernel_features=False):
+                kernel_features=False, make_step=None, trainable=None):
     """(model, state, grads, step): the plain versions once more, from
     `ref`'s state_dict (as `_train_pair` builds them), with the dict that
     their next update fills with the step-1 gradients (`_grab_step1_grads`)."""
@@ -3243,17 +3276,21 @@ def _plain_twin(cfg, ref, frames_model, k2_plain=True,
                 generator=torch.Generator().manual_seed(0))
     alt.load_state_dict(ref.state_dict())
     alt.lstm.backend = "scan"
-    alt_state = create_train_state(alt, plain_cfg, "cuda")
+    alt_state = create_train_state(alt, plain_cfg, "cuda",
+                                   trainable=trainable)
     grads = _grab_step1_grads(alt_state, alt)
-    step = _plain_k4((make_frames_step if frames_model else make_fusion_step)(
-        alt, plain_cfg, device="cuda"), kernel_features)
+    make_step = make_step or (make_frames_step if frames_model
+                              else make_fusion_step)
+    step = _plain_k4(make_step(alt, plain_cfg, device="cuda"),
+                     kernel_features)
     if frames_model:
         step = _plain_k5(step)
     return alt, alt_state, grads, step
 
 
 def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
-                           kernel_features=False):
+                           kernel_features=False, make_step=None,
+                           trainable=None):
     """The step-1 gradients of the plain versions once more, from `ref`'s
     state_dict, on `batch` with its rows in reverse order and with the
     batch statistics of every TorchBatchNorm summed in fp64 (under
@@ -3269,7 +3306,8 @@ def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
     from maavss_tpu_torch.models import layers
 
     _, alt_state, grads, step = _plain_twin(cfg, ref, frames_model, k2_plain,
-                                            kernel_features)
+                                            kernel_features, make_step,
+                                            trainable)
 
     def bn_fp64(self, x):
         bn = self.BatchNorm_0
@@ -3401,7 +3439,8 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
 
 def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
                     k2_plain=True, kernel_features=False, profile=None,
-                    fed_by_gradient=False):
+                    fed_by_gradient=False, make_step=None, trainable=None,
+                    time_plain=False):
     """`steps` steps of the flagship of `cfg` (mode 2) with every kernel
     against the plain versions from one state_dict: exact launch counts per
     step (`want`, by counter name; the plain run launches none but K2's
@@ -3411,7 +3450,10 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
     --pgram_cache their float16 phasegram rows. Then the step times, in
     turns, of the kernel step and of each (label, fn, state) of `timed`, and
     with `profile` a torch.profiler breakdown of one kernel step under that
-    label."""
+    label. `make_step` and `trainable` as `_train_pair` takes them; under
+    `trainable` every frozen leaf must end the steps on both sides with
+    the bits it started with. `time_plain` times the plain step in the
+    same turns."""
     import torch
 
     from maavss_tpu_torch.data.synthetic import (
@@ -3421,7 +3463,10 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
 
     lr, tol, enc_tol = cfg.learning_rate, 1e-4, 2e-3
     model, state, step, ref, ref_state, ref_step = _train_pair(
-        cfg, frames_model, k2_plain, kernel_features)
+        cfg, frames_model, k2_plain, kernel_features, make_step, trainable)
+    frozen = ({n: p.detach().clone() for (n, p), t in zip(
+        model.named_parameters(), state.tx.trainable) if not t}
+        if trainable else {})
     names, counters = _frames_counters() if frames_model \
         else _fusion_counters()
     want = {n: want.get(n, 0) for n in names}
@@ -3443,7 +3488,8 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
     grads = [_grab_step1_grads(st, mod) for st, mod in ((state, model),
                                                          (ref_state, ref))]
     alt_grads = _reordered_step1_grads(cfg, ref, batches[0], frames_model,
-                                       k2_plain, kernel_features)
+                                       k2_plain, kernel_features, make_step,
+                                       trainable)
     for i, batch in enumerate(batches):
         state, m, launches = run(step, state, batch)
         if launches != want:
@@ -3468,9 +3514,16 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
     if max(rel) > tol or not all(map(math.isfinite, losses)):
         raise SystemExit(f"{what} losses {losses} vs plain {ref_losses}: "
                          f"rel {rel} > {tol}")
+    moved = [n for mod in (model, ref) for n, p in mod.named_parameters()
+             if n in frozen and not torch.equal(p.detach(), frozen[n])]
+    if moved:
+        raise SystemExit(f"{what}: frozen leaves moved in {steps} steps: "
+                         f"{moved[:8]} ({len(moved)} in all)")
     times = {}
     turns = (("kernels", step, state),) + tuple(timed)
-    for _ in range(2 if timed else 1):
+    if time_plain:
+        turns += (("plain", ref_step, ref_state),)
+    for _ in range(2 if len(turns) > 1 else 1):
         for label, fn, st in turns:
             times.setdefault(label, []).append(
                 cuda_ms(lambda: fn(st, batches[0], 2), reps=3, iters=1))
@@ -3480,6 +3533,9 @@ def _train_vs_plain(what, cfg, frames_model, want, steps=3, timed=(),
     out = dict(batch=cfg.batch_size, mode=2, lr=lr, steps=steps,
                losses=losses, plain_losses=ref_losses, loss_rel_diff=max(rel),
                tol=tol, launches_per_step=want, **worst)
+    if trainable:
+        out.update(trainable=list(trainable), frozen_leaves=len(frozen),
+                   frozen_unchanged=True)
     for label, ms in times.items():
         key = "step_ms" if label == "kernels" else f"{label}_step_ms"
         out[key] = ms
@@ -5015,7 +5071,8 @@ def _graph_state_diff(state, ref_state):
     for col, a_list, b_list in (("m", state.tx.m, ref_state.tx.m),
                                 ("v", state.tx.v, ref_state.tx.v)):
         bad += [f"adam.{col}.{n}" for n, a, b in zip(names, a_list, b_list)
-                if not torch.equal(a, b)]
+                if (a is None) != (b is None)
+                or (a is not None and not torch.equal(a, b))]
     if not torch.equal(state.tx.count_tensor, ref_state.tx.count_tensor):
         bad.append("adam.count (device)")
     if (state.tx.count, state.step) != (ref_state.tx.count, ref_state.step):
@@ -5046,14 +5103,16 @@ def _graph_train_gates(label, d, state, ref_state, got, ref_metrics, lr):
 
 def _graph_case(label, frames_model, cfg, exact: bool, k: int = GRAPH_K,
                 dispatches: int = GRAPH_DISPATCHES, timed=None,
-                profiled: bool = True):
+                profiled: bool = True, build=None, make=None):
     """One case of the graphs phase (see graphs_phase) of `dispatches`
     dispatches of `k` steps; `exact`: with cuDNN's deterministic
     algorithms, bit for bit, else cuDNN's default ones, at the train gates.
     `timed` (default: the fusion cases with the default algorithms): then
     timed, eager steps against dispatches in turns, with peak memory, and
-    with `profiled` profiled. Returns its record and the graphed
-    dispatches' launches by counter name."""
+    with `profiled` profiled. `build` (cfg, batch, device, generator) ->
+    (model, state) and `make` (a step factory of train/steps.py) replace
+    the family's. Returns its record and the graphed dispatches' launches
+    by counter name."""
     import torch
 
     from maavss_tpu_torch.data.synthetic import (
@@ -5068,9 +5127,11 @@ def _graph_case(label, frames_model, cfg, exact: bool, k: int = GRAPH_K,
         timed = not exact and not frames_model
     torch.backends.cudnn.deterministic = exact
     if frames_model:
-        build, make = setup.build_frames_state, make_frames_step
+        build = build or setup.build_frames_state
+        make = make or make_frames_step
     else:
-        build, make = setup.build_fusion_state, make_fusion_step
+        build = build or setup.build_fusion_state
+        make = make or make_fusion_step
     model, state = build(cfg, cfg.batch_size, device="cuda",
                          generator=torch.Generator().manual_seed(cfg.seed))
     ref, ref_state = build(cfg, cfg.batch_size, device="cuda",
@@ -7082,6 +7143,375 @@ def eval_plane_phase():
     return totals
 
 
+# the staged-training regimes (regimes) and --remat (remat)
+REGIME_LR = 1e-3
+REMAT_STEPS = 3
+
+
+def _regime_cases():
+    """(label, step factory, trainable prefixes, launches a step) of the
+    regimes phase on the fusion flagship (scan windows, num_seq 4, the
+    phasegram encoder's 10 layers)."""
+    from maavss_tpu_torch.train import steps
+    from maavss_tpu_torch.train.setup import FUSION_SUBNETS
+
+    ns, layers = 4, FULLENC_LAYERS
+    scan = dict(lstm_fwd=ns, lstm_bwd=ns, pgenc_train=ns * layers,
+                pgenc_bwd=ns * layers, adam=1, stft=1)
+    return (
+        ("fusion", steps.make_fusion_step, None, scan),
+        ("audio_ae", steps.make_audio_ae_step, None, dict(adam=1, stft=1)),
+        ("visual_ae", steps.make_visual_ae_step, None,
+         dict(pgenc_train=layers, pgenc_bwd=layers, adam=1)),
+        ("staged_av", steps.make_fusion_step, FUSION_SUBNETS, scan),
+        ("middle", steps.make_fusion_middle_step, None, scan),
+    )
+
+
+def _regime_eval(label, make_eval, want):
+    """One eval batch of an autoencoder regime with every kernel against
+    the plain versions from one state_dict: the loss within 1e-4
+    relative, the launches exactly `want`, the plain side none; the two
+    timed in turns."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.ops.counters import kernel_counters
+
+    cfg = RunConfig(batch_size=8, noise_scalar=0.0)
+    model, state, _, ref, ref_state, _ = _train_pair(cfg, False)
+    evaluate = make_eval(model, cfg, device="cuda")
+    ref_eval = _plain_k4(make_eval(ref, cfg, device="cuda"))
+    batch = synthetic_av_batch(cfg, cfg.batch_size, seed=5)
+    counters = kernel_counters()
+
+    def run(fn, st):
+        for o, a in counters.values():
+            setattr(o, a, 0)
+        out = fn(st, batch, 2)
+        torch.cuda.synchronize()
+        return out, {n: getattr(o, a) for n, (o, a) in counters.items()
+                     if getattr(o, a)}
+
+    got, launches = run(evaluate, state)
+    ref_out, ref_launches = run(ref_eval, ref_state)
+    if launches != want or ref_launches:
+        raise SystemExit(f"regimes {label}: launches {launches} (want "
+                         f"{want}), plain {ref_launches}")
+    rel = abs(float(got["loss"]) - float(ref_out["loss"])) / abs(
+        float(ref_out["loss"]))
+    if rel > 1e-4 or not math.isfinite(float(got["loss"])):
+        raise SystemExit(f"regimes {label}: loss {float(got['loss'])} vs "
+                         f"plain {float(ref_out['loss'])} (rel {rel})")
+    times = {"kernels": [], "plain": []}
+    for _ in range(2):
+        times["kernels"].append(cuda_ms(lambda: evaluate(state, batch, 2),
+                                        reps=3, iters=2))
+        times["plain"].append(cuda_ms(lambda: ref_eval(ref_state, batch, 2),
+                                      reps=3, iters=2))
+    phase("regimes_eval", case=label, batch=cfg.batch_size,
+          loss=float(got["loss"]), plain_loss=float(ref_out["loss"]),
+          loss_rel_diff=rel, launches=launches, eval_ms=times["kernels"],
+          plain_eval_ms=times["plain"])
+    return launches
+
+
+def _fusion_conv_check():
+    """AVFusionModelConv at the fusion flagship's shapes (batch 8, seeded
+    weights): K1 against the LSTM scan from one state_dict, the eval and
+    train-mode forwards within 1e-4 relative L2 (the train forward also
+    its running statistics), one backward of the outputs' squares: the
+    BiLSTM's w_h gradients within 1e-4; K1-fwd once a forward, K1-bwd once
+    a backward."""
+    import torch
+
+    from maavss_tpu_torch.models.fusion_conv import AVFusionModelConv
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        lstm_recurrence,
+        lstm_recurrence_bwd,
+    )
+    from maavss_tpu_torch.train.setup import init_flax_like
+
+    stft, pgram = (8, 2, 64, 128), (8, 1, 8, 64 * 64)
+    model = AVFusionModelConv(stft, pgram)
+    init_flax_like(model, torch.Generator().manual_seed(0))
+    ref = AVFusionModelConv(stft, pgram)
+    ref.load_state_dict(model.state_dict())
+    model.cuda()
+    ref.cuda()
+    ref.lstm.backend = "scan"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x_a = torch.randn(stft, device="cuda", generator=g)
+    x_v = torch.randn(pgram, device="cuda", generator=g)
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm(a - b)
+                / torch.linalg.vector_norm(b).clamp(min=1e-12)).item()
+
+    out, launches = {}, {}
+    for train in (False, True):
+        for m in (model, ref):
+            m.train(train)
+            m.zero_grad(set_to_none=True)
+        lstm_recurrence.launches = lstm_recurrence_bwd.launches = 0
+        got = model(x_a, x_v)
+        want = ref(x_a, x_v)
+        if train:
+            sum(o.square().mean() for o in got).backward()
+            sum(o.square().mean() for o in want).backward()
+        torch.cuda.synchronize()
+        mode = "train" if train else "eval"
+        launches[mode] = dict(lstm_fwd=lstm_recurrence.launches,
+                              lstm_bwd=lstm_recurrence_bwd.launches)
+        out[mode] = max(rel(a.detach(), b.detach())
+                        for a, b in zip(got, want))
+        if train:
+            out["w_h_grad"] = max(
+                rel(getattr(model.lstm, d).w_h.grad,
+                    getattr(ref.lstm, d).w_h.grad) for d in ("fwd", "bwd"))
+            out["running_stats"] = max(
+                rel(a, b) for (n, a), (_, b) in zip(
+                    model.named_buffers(), ref.named_buffers())
+                if n.endswith(("running_mean", "running_var")))
+    want_launches = {"eval": dict(lstm_fwd=1, lstm_bwd=0),
+                     "train": dict(lstm_fwd=1, lstm_bwd=1)}
+    if launches != want_launches or max(out.values()) > 1e-4:
+        raise SystemExit(f"regimes fusion_conv: rel L2 {out}, launches "
+                         f"{launches} (want {want_launches})")
+    phase("regimes_fusion_conv", stft=list(stft), pgram=list(pgram),
+          params=sum(p.numel() for p in model.parameters()),
+          rel_l2=out, launches=launches)
+    return {k: launches["eval"][k] + launches["train"][k]
+            for k in ("lstm_fwd", "lstm_bwd")}
+
+
+def regimes_phase():
+    """The staged-training regimes on the fusion flagship (the default
+    RunConfig at batch 8, scan windows, noise 0, lr 1e-3, mode 2): the STFT
+    autoencoder step (train_audio_net.py), the phasegram autoencoder step
+    (train_visual_net.py), the staged AV step (train_av_net.py: only
+    FUSION_SUBNETS trainable, K3 over their fp32 leaves alone) and the
+    middle-frame step, and the fusion step beside them: 3 steps each with
+    every kernel against the plain versions from one state_dict under the
+    train phase's gates, exact launches a step, the frozen leaves unchanged
+    bit for bit on both sides; kernel and plain steps timed in turns; the
+    two autoencoder evals (`_regime_eval`); AVFusionModelConv
+    (`_fusion_conv_check`); the staged step and the phasegram autoencoder
+    as K = 3 graphed dispatches bit for bit against eager steps under
+    cuDNN's deterministic algorithms. Returns each kernel's launches."""
+    import functools
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.train import setup, steps
+
+    t0 = time.perf_counter()
+    cfg = RunConfig(batch_size=8, noise_scalar=0.0,
+                    learning_rate=REGIME_LR)
+    totals = {}
+
+    def add(launches, times=1):
+        for n, c in launches.items():
+            totals[n] = totals.get(n, 0) + c * times
+
+    cases = {}
+    for label, make, trainable, want in _regime_cases():
+        # the BN-fed conv biases' gradients are rounding noise that Adam
+        # turns into +-lr: the STFT kernel's features against cuFFT's
+        # (2e-7) can move them 2 lr apart (the audio AE trains nothing
+        # else), so such a bias may pass by its gradient
+        out = _train_vs_plain(f"regimes {label}", cfg, False, want,
+                              make_step=make, trainable=trainable,
+                              time_plain=True, fed_by_gradient=True)
+        add(want, out["steps"])
+        cases[label] = out["step_ms"]
+        phase("regimes_case", case=label, **out)
+    layers = FULLENC_LAYERS
+    add(_regime_eval("audio_ae_eval", steps.make_audio_ae_eval,
+                     dict(stft_feat=1)))
+    add(_regime_eval("visual_ae_eval", steps.make_visual_ae_eval,
+                     dict(pgenc_eval=layers)))
+    add(_fusion_conv_check())
+    staged = functools.partial(setup.build_fusion_state,
+                               trainable=setup.FUSION_SUBNETS)
+    graphs = []
+    for label, build, make in (
+            ("staged_av_b8", staged, steps.make_fusion_step),
+            ("visual_ae_b8", None, steps.make_visual_ae_step)):
+        out, launched = _graph_case(label, False, RunConfig(batch_size=8),
+                                    True, build=build, make=make)
+        add(launched)
+        graphs.append(label)
+        phase("regimes_graph", **out)
+    phase("regimes", cases=list(cases), step_ms=cases, graphs=graphs,
+          launches=totals, seconds=round(time.perf_counter() - t0, 1))
+    return _by_counter(totals)
+
+
+def _by_counter(totals):
+    """Launches keyed by kernel_counters names (`stft` is `stft_feat`)."""
+    out = {}
+    for n, c in totals.items():
+        key = "stft_feat" if n == "stft" else n
+        out[key] = out.get(key, 0) + c
+    return out
+
+
+@contextlib.contextmanager
+def _remat_policy(policy):
+    """MAAVSS_REMAT_POLICY set to `policy` while the block builds its
+    steps (a step factory reads it once), then restored."""
+    old = os.environ.get("MAAVSS_REMAT_POLICY")
+    os.environ["MAAVSS_REMAT_POLICY"] = policy
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MAAVSS_REMAT_POLICY")
+        else:
+            os.environ["MAAVSS_REMAT_POLICY"] = old
+
+
+def _remat_bits(label, cfg, frames_model, doubled, policy="full"):
+    """--remat under MAAVSS_REMAT_POLICY=`policy` against the plain step,
+    both with every kernel, from one state_dict, REMAT_STEPS steps under
+    cuDNN's deterministic algorithms: equal bit for bit (metrics,
+    parameters, BatchNorm's running statistics, Adam's m, v and count);
+    each step's launches are the plain step's with the kernels in
+    `doubled` (the forward kernels inside a checkpointed region) twice;
+    peak memory allocated in one step of each and their step times in
+    turns."""
+    import torch
+
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.ops.counters import kernel_counters
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
+
+    torch.backends.cudnn.deterministic = True
+    if frames_model:
+        build, make = setup.build_frames_state, make_frames_step
+    else:
+        build, make = setup.build_fusion_state, make_fusion_step
+    _, state = build(cfg, cfg.batch_size, device="cuda",
+                     generator=torch.Generator().manual_seed(cfg.seed))
+    rcfg = cfg.replace(remat=True)
+    _, rstate = build(rcfg, cfg.batch_size, device="cuda",
+                      generator=torch.Generator().manual_seed(cfg.seed + 1))
+    rstate.model.load_state_dict(state.model.state_dict())
+    step = make(state.model, cfg, device="cuda")
+    with _remat_policy(policy):
+        rstep = make(rstate.model, rcfg, device="cuda")
+    frame_size = cfg.framesize if frames_model else None
+    batches = [synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i,
+                                  frame_size=frame_size)
+               for i in range(REMAT_STEPS)]
+    counters = kernel_counters()
+
+    def run(fn, st, batch):
+        for o, a in counters.values():
+            setattr(o, a, 0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st, m = fn(st, batch, 2)
+        torch.cuda.synchronize()
+        return st, m, {n: getattr(o, a) for n, (o, a) in counters.items()
+                       if getattr(o, a)}, torch.cuda.max_memory_allocated()
+
+    peaks = {"plain": 0, "remat": 0}
+    launches = None
+    for i, batch in enumerate(batches):
+        state, m, plain_launches, peak = run(step, state, batch)
+        peaks["plain"] = max(peaks["plain"], peak)
+        rstate, rm, launches, rpeak = run(rstep, rstate, batch)
+        peaks["remat"] = max(peaks["remat"], rpeak)
+        want = {n: c * (2 if n in doubled else 1)
+                for n, c in plain_launches.items()}
+        if launches != want:
+            raise SystemExit(f"remat {label} {policy} step {i + 1}: "
+                             f"launches {launches}, want {want} (the plain "
+                             f"step's with {sorted(doubled)} twice)")
+        bad = [k for k in m if not torch.equal(m[k], rm[k])]
+        bad += _graph_state_diff(rstate, state)
+        if bad:
+            raise SystemExit(f"remat {label} {policy} step {i + 1} differs "
+                             f"from the plain step in {bad[:12]} "
+                             f"({len(bad)} in all)")
+    times = {"plain": [], "remat": []}
+    for _ in range(2):
+        times["plain"].append(cuda_ms(lambda: step(state, batches[0], 2),
+                                      reps=3, iters=1))
+        times["remat"].append(cuda_ms(lambda: rstep(rstate, batches[0], 2),
+                                      reps=3, iters=1))
+    torch.backends.cudnn.deterministic = False
+    phase("remat_bits", case=label, batch=cfg.batch_size,
+          steps=REMAT_STEPS, bit_equal=True, cudnn_deterministic=True,
+          launches_per_step=launches, doubled=sorted(doubled),
+          peak_allocated_bytes=peaks, step_ms=times, policy=policy)
+    return {n: c * REMAT_STEPS for n, c in launches.items()}
+
+
+def remat_phase():
+    """--remat (train/steps.py:_train_apply, torch.utils.checkpoint around
+    each window's forward): the fusion flagship's scan step (batch 8) and
+    the frames flagship's window step (framesize 256, batch 8), each
+    (a) with every kernel against the plain versions, both under --remat,
+    from one state_dict, 3 steps under the train gates, exact launches
+    (each forward kernel twice a window: K1-fwd and K2-train, or K1-fwd
+    and K5's stats and apply; the backward kernels, K3 and the STFT once);
+    (b) against the plain --remat-less step, both with every kernel, bit
+    for bit under cuDNN's deterministic algorithms, running statistics
+    included, with the peak memory and step time of both
+    (`_remat_bits`), and the fusion case again under
+    MAAVSS_REMAT_POLICY=dots (selective checkpointing); and graphed K = 3
+    --remat fusion dispatches, one a policy, bit for bit against eager
+    steps. Returns each kernel's launches."""
+    from maavss_tpu_torch.config import RunConfig
+
+    t0 = time.perf_counter()
+    os.environ.pop("MAAVSS_S2D_MIN_HW", None)  # the default, 128
+    totals = {}
+
+    def add(launches, times=1):
+        for n, c in launches.items():
+            totals[n] = totals.get(n, 0) + c * times
+
+    ns, layers = 4, FULLENC_LAYERS
+    fusion = RunConfig(batch_size=8, noise_scalar=0.0,
+                       learning_rate=REGIME_LR)
+    frames = RunConfig(batch_size=8, noise_scalar=0.0,
+                       learning_rate=REGIME_LR)
+    want = dict(lstm_fwd=2 * ns, lstm_bwd=ns, pgenc_train=2 * ns * layers,
+                pgenc_bwd=ns * layers, adam=1, stft=1)
+    out = _train_vs_plain("remat fusion", fusion.replace(remat=True), False,
+                          want)
+    add(want, out["steps"])
+    phase("remat_vs_plain", case="fusion_scan_b8", **out)
+    want = dict(lstm_fwd=2 * ns, lstm_bwd=ns, adam=1, stft=1,
+                epilogue_stats=4 * ns, epilogue_apply=4 * ns,
+                epilogue_bwd_reduce=2 * ns, epilogue_bwd_dy=2 * ns)
+    out = _train_vs_plain("remat frames", frames.replace(remat=True), True,
+                          want)
+    add(want, out["steps"])
+    phase("remat_vs_plain", case="frames_window_b8", **out)
+    for policy in ("full", "dots"):
+        add(_remat_bits("fusion_scan_b8", fusion, False,
+                        {"lstm_fwd", "pgenc_train"}, policy))
+    add(_remat_bits("frames_window_b8", frames, True,
+                    {"lstm_fwd", "epilogue_stats", "epilogue_apply"}))
+    for policy in ("full", "dots"):
+        with _remat_policy(policy):
+            out, launched = _graph_case(
+                f"remat_{policy}_scan_b8", False,
+                RunConfig(batch_size=8, remat=True), True)
+        add(launched)
+        phase("remat_graph", policy=policy, **out)
+    phase("remat", launches=totals,
+          seconds=round(time.perf_counter() - t0, 1))
+    return _by_counter(totals)
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -7133,6 +7563,8 @@ def main() -> None:
     k5_tuned, k1_tuned, tuned = frames_tuned_phase()
     trainer = trainer_phase()
     evalp = eval_plane_phase()
+    regimes = regimes_phase()
+    remat = remat_phase()
 
     def graphed(name, dtypes=(g32, g16)):
         return sum(g.get(name, 0) for g in dtypes)
@@ -7143,9 +7575,10 @@ def main() -> None:
         return sum(r.get(name, 0) for r in runs)
 
     def fit(name):
-        """Launches of `name` (its kernel_counters name) in the trainer
-        and eval_plane phases' runs."""
-        return trainer.get(name, 0) + evalp.get(name, 0)
+        """Launches of `name` (its kernel_counters name) in the trainer,
+        eval_plane, regimes and remat phases' runs."""
+        return (trainer.get(name, 0) + evalp.get(name, 0)
+                + regimes.get(name, 0) + remat.get(name, 0))
 
     if any(m in sys.modules for m in ("jax", "flax", "ml_dtypes",
                                       "maavss_tpu")):

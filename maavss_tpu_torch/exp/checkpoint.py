@@ -15,7 +15,9 @@ maavss_tpu/exp/checkpoint.py:55-149, in PyTorch's idiom).
   returns (state, 0). A JAX `.ckpt.pkl` (its pickle backend:
   params, batch_stats, step, epoch and the optax state) loads through
   `convert.from_flax`; its Adam count and moments are the optax
-  ScaleByAdamState's;
+  ScaleByAdamState's (the trainable leaves' alone under the staged
+  freeze's multi_transform, as the port's own checkpoint of a staged run
+  keeps them);
 - `save_model` / `load_model`: the parameters alone (utilities.py:165-169).
   `load_model` also reads the JAX package's pickle-backend file
   (`<path>.params.pkl`, a numpy tree) through `convert.from_flax`, so a
@@ -61,10 +63,17 @@ def _payload(state, epoch: int, loss: float) -> Dict[str, Any]:
         "model": {k: v.detach().cpu()
                   for k, v in state.model.state_dict().items()},
         "opt": {"count": int(state.tx.count),
-                "m": {n: t.detach().cpu() for n, t in zip(names, state.tx.m)},
-                "v": {n: t.detach().cpu()
-                      for n, t in zip(names, state.tx.v)}},
+                "m": _moments(names, state.tx.m, cpu=True),
+                "v": _moments(names, state.tx.v, cpu=True)},
     }
+
+
+def _moments(names, moments, cpu: bool = False) -> Dict[str, torch.Tensor]:
+    """{name: moment} of the leaves that keep moments: every leaf's under
+    Adam, the trainable leaves' under the staged freeze, none under
+    SGD."""
+    return {n: (t.detach().cpu() if cpu else t)
+            for n, t in zip(names, moments) if t is not None}
 
 
 def save_checkpoint(cp_dir: str, name: str, state, epoch: int = 0,
@@ -125,41 +134,69 @@ def load_checkpoint(cp_dir: str, state, auto: bool = True,
     state.step = int(saved["step"])
     if load_opt:
         names = _param_names(state)
-        _copy_into("checkpoint m", dict(zip(names, state.tx.m)),
+        _copy_into("checkpoint m", _moments(names, state.tx.m),
                    saved["opt"]["m"])
-        _copy_into("checkpoint v", dict(zip(names, state.tx.v)),
+        _copy_into("checkpoint v", _moments(names, state.tx.v),
                    saved["opt"]["v"])
         state.tx.count = int(saved["opt"]["count"])
     return state, int(saved["epoch"])
 
 
-def _adam_state(node):
-    """The one ScaleByAdamState (count, mu, nu) in an optax state tree."""
+def _opt_states(node, kind: str):
+    """Every optax state node of class `kind` in an optax state tree (the
+    chain's tuples, multi_transform's dict of masked states)."""
     if isinstance(node, _OptaxState):
-        if type(node).__name__ == "ScaleByAdamState":
+        if type(node).__name__ == kind:
             return [node.fields]
         node = node.fields
+    if isinstance(node, Mapping):
+        node = list(node.values())
     if isinstance(node, (tuple, list)):
-        return [s for n in node for s in _adam_state(n)]
+        return [s for n in node for s in _opt_states(n, kind)]
     return []
+
+
+def _unmasked(tree):
+    """A moment tree without optax's MaskedNode leaves: under the staged
+    freeze (optax.multi_transform) the frozen leaves keep no moments."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            v = _unmasked(v)
+            if v:
+                out[k] = v
+        elif not (isinstance(v, _OptaxState)
+                  and type(v).__name__ == "MaskedNode"):
+            out[k] = v
+    return out
 
 
 def _jax_checkpoint(path: str, load_opt: bool) -> Dict[str, Any]:
     """A JAX `.ckpt.pkl` in the form of the port's payload: the model's
     state_dict from params and batch_stats, the step and epoch, and under
-    `load_opt` Adam's count and moments by parameter name."""
+    `load_opt` the optimizer's count and Adam's moments by parameter name:
+    those of its one ScaleByAdamState (optax.adam, optax.adamw, or either
+    inside the staged freeze's multi_transform, whose frozen leaves hold
+    no moments), or none under optax.sgd, whose count is its schedule's,
+    else the step."""
     with open(path, "rb") as f:
         tree = _NumpyTreeUnpickler(f, optax=True).load()
     saved = {"epoch": int(tree["epoch"]), "step": int(tree["step"]),
              "model": from_flax(tree["params"], tree["batch_stats"])}
     if load_opt:
-        adam = _adam_state(tree["opt_state"])
-        if len(adam) != 1:
+        adam = _opt_states(tree["opt_state"], "ScaleByAdamState")
+        if len(adam) > 1:
             raise ValueError(f"{path}: {len(adam)} Adam states in the "
-                             "optimizer state, want 1")
-        count, mu, nu = adam[0]
-        saved["opt"] = {"count": int(count), "m": from_flax(mu),
-                        "v": from_flax(nu)}
+                             "optimizer state, want at most 1")
+        if adam:
+            count, mu, nu = adam[0]
+            saved["opt"] = {"count": int(count),
+                            "m": from_flax(_unmasked(mu)),
+                            "v": from_flax(_unmasked(nu))}
+        else:
+            sched = _opt_states(tree["opt_state"], "ScaleByScheduleState")
+            count = int(sched[0][0]) if sched else saved["step"]
+            saved["opt"] = {"count": count, "m": {}, "v": {}}
     return saved
 
 
@@ -209,7 +246,13 @@ def load_model(path: str, model: torch.nn.Module) -> torch.nn.Module:
     `<path>.params.pt`, or the JAX package's `<path>.params.pkl` (a flax
     params tree of numpy arrays, converted by `from_flax`). The buffers
     (BatchNorm's running statistics) are not part of either file and stay
-    as they are. Returns `model`."""
+    as they are. Returns `model`. An orbax directory (the JAX package's
+    default backend) raises."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"load_model: {path} is an orbax directory, which "
+            "maavss_tpu_torch does not read yet (ROADMAP M6-rest (orbax)); "
+            "save with MAAVSS_CKPT_BACKEND=pkl")
     if path.endswith(".pkl"):
         with open(path, "rb") as f:
             tree = _NumpyTreeUnpickler(f).load()

@@ -31,6 +31,7 @@ every helper is the plain module call.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional, Sequence
 
@@ -170,10 +171,32 @@ class TorchBatchNorm(nn.Module):
         return out.to(self.dtype)
 
 
+# > 0 while a --remat backward recomputes a forward (`running_stats_frozen`)
+_STATS_FROZEN = [0]
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """No running-statistics update inside: the context of a --remat
+    recompute (train/steps.py:_train_apply), whose forward must not apply
+    the 0.9 / 0.1 update a second time (flax's remat takes batch_stats from
+    the first forward alone). A process-wide count, not a thread-local: on
+    CUDA the recompute runs on autograd's device thread while the caller
+    waits in backward()."""
+    _STATS_FROZEN[0] += 1
+    try:
+        yield
+    finally:
+        _STATS_FROZEN[0] -= 1
+
+
 @torch.no_grad()
 def update_running_stats(bn: _BatchNormEval, mean: torch.Tensor,
                          var: torch.Tensor) -> None:
-    """flax's running update: 0.9 * running + 0.1 * batch (biased var)."""
+    """flax's running update: 0.9 * running + 0.1 * batch (biased var);
+    nothing under `running_stats_frozen`."""
+    if _STATS_FROZEN[0]:
+        return
     m = TorchBatchNorm.MOMENTUM
     bn.running_mean.copy_(m * bn.running_mean + (1.0 - m) * mean.detach())
     bn.running_var.copy_(m * bn.running_var + (1.0 - m) * var.detach())

@@ -232,3 +232,15 @@ def istft_features(feats: torch.Tensor, fft_len: int, hop: int,
         if trim_end:
             spec = F.pad(spec, (0, 1))
     return istft(spec, fft_len, hop, normalized=normalized, length=length)
+
+
+def add_noise(x: torch.Tensor, noise_std,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Denoising objective input: x + N(0, 1) * noise_std
+    (maavss_tpu/ops/stft.py:add_noise, av_dataset.py:217-220 in the
+    reference), the normal draw from `generator` (the default generator of
+    x's device when None) in x's dtype and shape; `noise_std` a Python
+    float or a 0-d tensor on x's device."""
+    noise = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                        device=x.device)
+    return x + noise * noise_std

@@ -1,6 +1,8 @@
-"""Adam with optax's semantics over a module's parameters (counterpart of
-maavss_tpu/train/fused_adam.py:pallas_adam and of optax.adam, which share
-one formula).
+"""The port's optimizers, with optax's semantics over a module's
+parameters: Adam (counterpart of maavss_tpu/train/fused_adam.py:pallas_adam
+and of optax.adam, which share one formula), AdamW (optax.adamw) and SGD
+(optax.sgd without momentum), each with the staged `trainable` freeze
+(optax.multi_transform with set_to_zero, `_Optimizer`).
 
 The optimizer keeps `count` and, per parameter, the moments `m` and `v`;
 `step()` takes the learning rate, increments count, takes the bias
@@ -38,12 +40,13 @@ never reaches) is updated with g = 0, as optax does with its zero gradient;
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Union
+from typing import Callable, Iterable, List, Optional, Sequence, Union
 
 import torch
 
 from maavss_tpu_torch.ops.cuda_adam import (
     AdamTable,
+    _in_dtype,
     adam_multi_tensor,
     adam_update_low,
     adam_update_plain,
@@ -61,37 +64,44 @@ def resolve_opt_kernel(kernel: str, device) -> str:
     return kernel
 
 
-class FusedAdam:
-    """Adam over `params` (a list of tensors, updated in place);
-    `learning_rate` a float or a schedule (train/state.py:resolve_lr)."""
+class _Optimizer:
+    """What every optimizer of the port shares: the parameters, the
+    trainable mask, the learning rate (a float or a schedule), the count on
+    the parameters' device and its host copy, and [c1, c2, lr] (`bc`).
+
+    `trainable` (one bool a parameter, default all) is the staged freeze of
+    maavss_tpu/train/state.py:make_optimizer, optax.multi_transform with
+    set_to_zero for the frozen leaves: a frozen leaf is never written, and
+    keeps no moments (its m and v are None); its gradient is still
+    computed and zeroed, as the JAX step computes every gradient."""
 
     def __init__(self, params: Iterable[torch.Tensor],
-                 learning_rate: Union[float, Callable], b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8, kernel: str = "auto"):
+                 learning_rate: Union[float, Callable],
+                 trainable: Optional[Sequence[bool]] = None):
         self.params: List[torch.Tensor] = list(params)
         if not self.params:
-            raise ValueError("FusedAdam needs at least one parameter")
+            raise ValueError(f"{type(self).__name__} needs at least one "
+                             "parameter")
+        if trainable is None:
+            trainable = [True] * len(self.params)
+        self.trainable = [bool(t) for t in trainable]
+        if len(self.trainable) != len(self.params):
+            raise ValueError(f"trainable has {len(self.trainable)} entries "
+                             f"for {len(self.params)} parameters")
+        if not any(self.trainable):
+            raise ValueError("the trainable mask freezes every parameter")
         self.schedule = learning_rate if callable(learning_rate) else None
         self.lr = (None if self.schedule is not None
                    else float(learning_rate))
-        self.b1, self.b2, self.eps = b1, b2, eps
         device = self.params[0].device
-        self.kernel = resolve_opt_kernel(kernel, device)
         self._count = torch.zeros((), dtype=torch.float32, device=device)
-        self._betas = torch.tensor([b1, b2], dtype=torch.float32).to(device)
         # [c1, c2, lr] of the last step, rewritten in place every step
         self.bc = torch.zeros(3, dtype=torch.float32, device=device)
         if self.schedule is None:
             self.bc[2].fill_(self.lr)
         self._host_count = 0
-        self.m = [torch.zeros_like(p) for p in self.params]
-        self.v = [torch.zeros_like(p) for p in self.params]
-        # the kernel's leaves (float32) and the plain formula's (below it)
-        self._f32 = [i for i, p in enumerate(self.params)
-                     if p.dtype == torch.float32]
-        self._low = [i for i, p in enumerate(self.params)
-                     if p.dtype != torch.float32]
-        self._table = None
+        self.m: List[Optional[torch.Tensor]] = [None] * len(self.params)
+        self.v: List[Optional[torch.Tensor]] = [None] * len(self.params)
 
     @property
     def count(self) -> int:
@@ -116,6 +126,98 @@ class FusedAdam:
         self._host_count += n
 
     def freeze_grad_table(self) -> None:
+        """Pin what a CUDA graph capturing the update must keep; nothing
+        to pin on the plain formulas."""
+
+    def _advance(self) -> None:
+        """count += 1, a schedule's rate into bc[2] from the count before
+        the increment, as optax's `scale_by_schedule` reads it."""
+        self._host_count += 1
+        if self.schedule is not None:
+            self.bc[2].copy_(self.schedule(self._count))
+        self._count.add_(1.0)
+
+    def _rate(self):
+        return self.bc[2] if self.schedule is not None else self.lr
+
+    def zero_grad(self) -> None:
+        """Zero every existing gradient in place (the kernel's gradient
+        table then keeps its pointers), one multi-tensor call per dtype;
+        None stays None."""
+        by_dtype = {}
+        for p in self.params:
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            torch._foreach_zero_(grads)
+
+
+def _scaled_rate(rate, dtype: torch.dtype, sign: float = 1.0):
+    """sign * rate in `dtype`: a Python float rounded to it (a weak-typed
+    scalar in JAX), a device tensor cast to it (optax's
+    `scale_by_schedule`)."""
+    if isinstance(rate, torch.Tensor):
+        return (rate * sign).to(dtype)
+    return _in_dtype(sign * rate, dtype)
+
+
+class SGD(_Optimizer):
+    """optax.sgd without momentum (maavss_tpu/train/state.py:112, main.py:61
+    in the reference): p + g * (-lr), the update in the gradient's dtype,
+    over the trainable leaves; a leaf without a gradient stays where it is,
+    as p + 0 does. Plain torch ops on every device."""
+
+    @torch.no_grad()
+    def step(self) -> None:
+        self._advance()
+        rate = self._rate()
+        for p, train in zip(self.params, self.trainable):
+            if train and p.grad is not None:
+                p.add_((p.grad * _scaled_rate(rate, p.grad.dtype, -1.0))
+                       .to(p.dtype))
+
+
+class FusedAdam(_Optimizer):
+    """Adam over `params` (a list of tensors, updated in place);
+    `learning_rate` a float or a schedule (train/state.py:resolve_lr);
+    `trainable` the staged freeze (`_Optimizer`). Under the freeze the
+    kernel runs over the trainable float32 leaves alone, in one launch:
+    the JAX package refuses its Pallas Adam with a mask
+    (maavss_tpu/train/setup.py:208-210) because optax's mask wraps
+    `update()` and its fused apply bypasses it; here the mask is the list
+    of leaves the kernel's table is built from, so that reason does not
+    hold.
+
+    `weight_decay` > 0 is optax.adamw (decoupled: the update
+    m_hat / (sqrt(v_hat) + eps) + weight_decay * p, times -lr), plain torch
+    ops on every device; the kernel takes Adam alone, so 'pallas' then
+    raises and 'auto' is the plain formula."""
+
+    def __init__(self, params: Iterable[torch.Tensor],
+                 learning_rate: Union[float, Callable], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, kernel: str = "auto",
+                 trainable: Optional[Sequence[bool]] = None,
+                 weight_decay: float = 0.0):
+        super().__init__(params, learning_rate, trainable)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = float(weight_decay)
+        device = self.params[0].device
+        if self.weight_decay:
+            if kernel == "pallas":
+                raise ValueError("--opt_kernel pallas supports adam only")
+            kernel = "xla"
+        self.kernel = resolve_opt_kernel(kernel, device)
+        self._betas = torch.tensor([b1, b2], dtype=torch.float32).to(device)
+        live = [i for i, t in enumerate(self.trainable) if t]
+        for i in live:
+            self.m[i] = torch.zeros_like(self.params[i])
+            self.v[i] = torch.zeros_like(self.params[i])
+        # the kernel's leaves (float32) and the plain formula's (below it)
+        self._f32 = [i for i in live if self.params[i].dtype == torch.float32]
+        self._low = [i for i in live if self.params[i].dtype != torch.float32]
+        self._table = None
+
+    def freeze_grad_table(self) -> None:
         """Pin the kernel's gradient table (`AdamTable.freeze`) once a CUDA
         graph is to capture the update; nothing to pin on the plain
         formula."""
@@ -124,13 +226,15 @@ class FusedAdam:
 
     @torch.no_grad()
     def step(self) -> None:
-        self._host_count += 1
-        if self.schedule is not None:
-            self.bc[2].copy_(self.schedule(self._count))
-        self._count.add_(1.0)
+        self._advance()
         self.bc[:2].copy_(device_bias_corrections(self._count, self._betas))
-        hyper = (self.bc[2] if self.schedule is not None else self.lr,
-                 self.b1, self.b2, self.eps)
+        hyper = (self._rate(), self.b1, self.b2, self.eps)
+        if self.weight_decay:
+            for i in self._f32 + self._low:
+                p = self.params[i]
+                _adamw_update(p.grad, self.m[i], self.v[i], p, self.bc[0],
+                              self.bc[1], *hyper, self.weight_decay)
+            return
         if self.kernel != "pallas":
             for i in self._f32:
                 p = self.params[i]
@@ -153,13 +257,21 @@ class FusedAdam:
                             [self.v[i] for i in idx], ps, self.bc[0],
                             self.bc[1], *hyper)
 
-    def zero_grad(self) -> None:
-        """Zero every existing gradient in place (the kernel's gradient
-        table then keeps its pointers), one multi-tensor call per dtype;
-        None stays None."""
-        by_dtype = {}
-        for p in self.params:
-            if p.grad is not None:
-                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-        for grads in by_dtype.values():
-            torch._foreach_zero_(grads)
+
+def _adamw_update(g: Optional[torch.Tensor], m: torch.Tensor,
+                  v: torch.Tensor, p: torch.Tensor, c1, c2, lr, b1: float,
+                  b2: float, eps: float, weight_decay: float) -> None:
+    """One leaf of optax.adamw, in place, in optax's order:
+    scale_by_adam's moments and m_hat / (sqrt(v_hat) + eps), then
+    add_decayed_weights (+ weight_decay * p), then the rate (* -lr), added
+    to p. g None is g = 0. The rate takes the update's dtype
+    (`_scaled_rate`)."""
+    dtype = p.dtype
+    if g is None:
+        g = torch.zeros_like(p)
+    gd = g.to(m.dtype)
+    m.copy_(b1 * m + (1.0 - b1) * gd)
+    v.copy_(b2 * v + (1.0 - b2) * (gd * gd))
+    u = (m / c1.to(m.dtype)) / (torch.sqrt(v / c2.to(m.dtype)) + eps)
+    u = u + weight_decay * p
+    p.add_((u * _scaled_rate(lr, u.dtype, -1.0)).to(dtype))

@@ -51,6 +51,10 @@ from maavss_tpu_torch.models.fusion_frames import AVFusionFramesModel
 from maavss_tpu_torch.models.layers import GRU, LSTM
 from maavss_tpu_torch.train.state import TrainState, create_train_state
 
+# the staged AV stage's trainable subnets (train_av_net.py: the fusion
+# core and heads; both autoencoders frozen)
+FUSION_SUBNETS = ("lstm", "fc1", "fc2", "a_fc1", "v_fc1")
+
 # flax's truncated_normal initializer rescales so the truncated
 # distribution has the requested variance
 _TRUNC_STD = 0.87962566103423978
@@ -72,13 +76,12 @@ def check_supported(cfg: RunConfig, train: bool = False) -> None:
     the port does not implement yet; `train=True` adds the train step's
     flags. Both families share them: the frames family's own options
     (--frames_encode, --frames_halo) are ported, and so are --rnn_cell
-    gru|none, --attn_diff and --compress_audio."""
+    gru|none, --attn_diff, --compress_audio and --remat."""
     todo = [
         (cfg.dtype not in _DTYPES, f"--dtype {cfg.dtype}", "M5 (float16)"),
     ]
     if train:
         todo += [
-            (cfg.remat, "--remat", "M3-rest"),
             (cfg.fused_opt, "--fused_opt", "queue 1, 'Not carried'"),
         ]
     for missing, flag, item in todo:
@@ -200,13 +203,19 @@ def build_fusion(cfg: RunConfig, batch_size: int, device="cuda",
 
 
 def build_fusion_state(cfg: RunConfig, batch_size: int, device="cuda",
-                       generator: Optional[torch.Generator] = None
+                       generator: Optional[torch.Generator] = None,
+                       trainable: Optional[Sequence[str]] = None,
+                       optimizer: str = "adam"
                        ) -> Tuple[AVFusionModel, TrainState]:
-    """(model, train state) for `cfg` on `device`: `build_fusion` and Adam
-    with the --opt_kernel gate; the model is left in train mode."""
+    """(model, train state) for `cfg` on `device`: `build_fusion` and the
+    optimizer (adam, sgd or adamw) with the --opt_kernel gate, every leaf
+    trainable or, with `trainable` (top-level module prefixes, e.g.
+    FUSION_SUBNETS), those alone (maavss_tpu/train/setup.py:238-259); the
+    model is left in train mode."""
     check_supported(cfg, train=True)
     model = build_fusion(cfg, batch_size, device, generator)
-    return model, create_train_state(model, cfg, device)
+    return model, create_train_state(model, cfg, device, optimizer,
+                                     trainable)
 
 
 def build_frames_model(cfg: RunConfig, batch_size: int,

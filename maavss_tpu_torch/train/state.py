@@ -12,18 +12,20 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
 from maavss_tpu_torch.config import RunConfig
-from maavss_tpu_torch.train.fused_adam import FusedAdam
+from maavss_tpu_torch.train.fused_adam import SGD, FusedAdam
+
+Optimizer = Union[FusedAdam, SGD]
 
 
 @dataclasses.dataclass
 class TrainState:
     model: torch.nn.Module
-    tx: FusedAdam
+    tx: Optimizer
     step: int = 0
 
     def zero_grad(self) -> None:
@@ -100,39 +102,76 @@ def resolve_lr(cfg: RunConfig) -> LearningRate:
     raise SystemExit(f"unknown --lr_schedule {cfg.lr_schedule}")
 
 
-def make_optimizer(params: Sequence[torch.Tensor],
-                   learning_rate: LearningRate,
+def trainable_labels(names: Sequence[str],
+                     trainable_prefixes: Sequence[str]) -> List[bool]:
+    """One bool a parameter name: trainable when its top-level module name
+    equals or starts with one of the prefixes (the rule of
+    maavss_tpu/train/state.py:trainable_labels, on the names
+    `named_parameters()` gives, whose first component is flax's top-level
+    key: lstm, fc1, stft_encoder, ...)."""
+    def hit(name: str) -> bool:
+        top = name.split(".", 1)[0]
+        return any(top == p or top.startswith(p) for p in trainable_prefixes)
+
+    return [hit(n) for n in names]
+
+
+def make_optimizer(params: Sequence, learning_rate: LearningRate,
                    name: str = "adam",
                    trainable: Optional[Sequence[str]] = None,
-                   flat: bool = False, kernel: str = "auto") -> FusedAdam:
-    """Adam (the reference default, train.py:55) with the optimizer-kernel
-    gate of maavss_tpu/train/setup.py:191-213: 'auto' is the fused kernel
-    for CUDA parameters and the plain formula for CPU ones, 'xla' the plain
-    formula, 'pallas' the kernel (a CPU parameter then raises at the first
-    step). A schedule runs with every kernel choice: the JAX package
-    refuses one with its Pallas Adam, which bakes a scalar learning rate
-    (maavss_tpu/train/state.py:78-82), but K3 reads the rate from the card
-    (`FusedAdam`), so that reason does not hold here."""
-    if name != "adam":
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported to maavss_tpu_torch yet "
-            "(ROADMAP M3-rest: sgd/adamw)")
-    if trainable is not None:
-        raise NotImplementedError(
-            "staged trainable-prefix training is not ported to "
-            "maavss_tpu_torch yet (ROADMAP M3-rest: the staged freeze)")
+                   flat: bool = False, kernel: str = "auto"
+                   ) -> Optimizer:
+    """Adam (the reference default, train.py:55), SGD (main.py:61) or AdamW
+    (optax's defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4), as
+    maavss_tpu/train/state.py:make_optimizer builds them, with the
+    optimizer-kernel gate of maavss_tpu/train/setup.py:191-213: 'auto' is
+    the fused kernel for CUDA parameters and the plain formula for CPU
+    ones, 'xla' the plain formula, 'pallas' the kernel (a CPU parameter
+    then raises at the first step), Adam's alone: sgd and adamw are plain
+    torch ops and 'pallas' with either raises. `params` is a list of
+    (name, tensor) pairs (`named_parameters()`), whose names `trainable`
+    (a sequence of top-level module prefixes, the staged freeze:
+    `trainable_labels`) reads.
+
+    Two refusals of the JAX package are lifted, because their reasons do
+    not hold for the port's optimizer: a schedule with the Pallas Adam,
+    which bakes a scalar learning rate there (maavss_tpu/train/state.py:
+    78-82), where K3 reads the rate from the card; and the trainable mask
+    with the Pallas Adam (setup.py:208-210), which optax's mask wraps
+    around update() and the fused apply bypasses, where the port's kernel
+    runs over the trainable leaves' table (`FusedAdam`)."""
+    names = [n for n, _ in params]
+    tensors = [t for _, t in params]
+    if kernel not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown opt_kernel {kernel!r} (auto|xla|pallas)")
     if flat:
         raise NotImplementedError(
             "--fused_opt is a TPU flat-buffer variant of the same Adam and "
             "is not carried (ROADMAP queue 1, 'Not carried')")
-    return FusedAdam(params, learning_rate, kernel=kernel)
+    if kernel == "pallas" and name != "adam":
+        raise ValueError("--opt_kernel pallas supports adam only")
+    mask = None if trainable is None else trainable_labels(names, trainable)
+    if name == "adam":
+        return FusedAdam(tensors, learning_rate, kernel=kernel,
+                         trainable=mask)
+    if name == "adamw":
+        return FusedAdam(tensors, learning_rate, kernel=kernel,
+                         trainable=mask, weight_decay=1e-4)
+    if name == "sgd":
+        return SGD(tensors, learning_rate, trainable=mask)
+    raise ValueError(f"unknown optimizer {name}")
 
 
 def create_train_state(model: torch.nn.Module, cfg: RunConfig,
-                       device="cuda", optimizer: str = "adam") -> TrainState:
-    """Move `model` to `device`, put it in train mode and give it Adam with
-    cfg's learning rate and --opt_kernel gate."""
+                       device="cuda", optimizer: str = "adam",
+                       trainable: Optional[Sequence[str]] = None
+                       ) -> TrainState:
+    """Move `model` to `device`, put it in train mode and give it the
+    optimizer `optimizer` (adam, sgd or adamw) with cfg's learning rate and
+    --opt_kernel gate; `trainable` (top-level module prefixes) freezes the
+    other leaves."""
     model.to(device).train()
-    tx = make_optimizer(list(model.parameters()), resolve_lr(cfg), optimizer,
-                        flat=cfg.fused_opt, kernel=cfg.opt_kernel)
+    tx = make_optimizer(list(model.named_parameters()), resolve_lr(cfg),
+                        optimizer, trainable=trainable, flat=cfg.fused_opt,
+                        kernel=cfg.opt_kernel)
     return TrainState(model=model, tx=tx)

@@ -58,16 +58,29 @@ variant) runs the step's gradient pass over M sequential chunks of the
 batch and divides the summed gradients by M before the one optimizer
 update.
 
-Not ported yet, and raising NotImplementedError: `--remat` (ROADMAP
-M3-rest).
+`--remat` (`_train_apply`) wraps the same forwards as the JAX step's
+`_train_apply` / `_apply_remat` (each window's model call, the full-encode
+encoders and heads) in `torch.utils.checkpoint`: the backward recomputes
+their activations instead of holding them, with the same bits.
+
+The pretraining regimes (`make_audio_ae_step` / `make_audio_ae_eval`, the
+STFT autoencoder of train_audio_net.py and train_autoencoder.py;
+`make_visual_ae_step` / `make_visual_ae_eval`, the phasegram autoencoder
+of train_visual_net.py) and the middle-frame objective
+(`make_fusion_middle_step`) are the JAX package's factories of the same
+names (maavss_tpu/train/steps.py:717-775, 956-988, 1040-1105); the staged
+AV stage (train_av_net.py) is `make_fusion_step` on a state whose
+optimizer freezes both autoencoders (train/state.py:make_optimizer).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.models.shape_plan import (
@@ -75,9 +88,14 @@ from maavss_tpu_torch.models.shape_plan import (
     plan_phasegram_encoder,
     plan_stft_encoder_fusion,
 )
+from maavss_tpu_torch.models.layers import running_stats_frozen
 from maavss_tpu_torch.ops.audio import contrast
-from maavss_tpu_torch.ops.phasegram import phasegram_cumsum, phasegram_window
-from maavss_tpu_torch.ops.stft import stft_features
+from maavss_tpu_torch.ops.phasegram import (
+    phasegram_cumsum,
+    phasegram_window,
+    video_phasegram,
+)
+from maavss_tpu_torch.ops.stft import add_noise, stft_features
 from maavss_tpu_torch.train.cuda_graph import make_k_step
 from maavss_tpu_torch.train.setup import check_supported
 from maavss_tpu_torch.train.state import TrainState
@@ -137,6 +155,83 @@ def _norms(tensors):
     return out
 
 
+def remat_policy() -> str:
+    """$MAAVSS_REMAT_POLICY, what a --remat forward saves for its backward
+    (maavss_tpu/train/steps.py:_train_apply): 'full' (the default) saves
+    the region's inputs alone and recomputes everything; 'dots' also
+    keeps the outputs of the matmuls and convolutions
+    (`_dot_ops`) and recomputes the rest: BatchNorm, activations,
+    reshapes and the hand-written kernels, whose launches no policy sees
+    (a ctypes launch is no aten op)."""
+    policy = os.environ.get("MAAVSS_REMAT_POLICY", "full")
+    if policy not in ("full", "dots"):
+        raise ValueError(f"MAAVSS_REMAT_POLICY={policy!r} (full|dots)")
+    return policy
+
+
+def _dot_ops():
+    """The aten ops whose outputs 'dots' saves: JAX's
+    dots_with_no_batch_dims_saveable keeps dot_general and conv outputs."""
+    aten = torch.ops.aten
+    return {aten.mm.default, aten.addmm.default, aten.bmm.default,
+            aten.baddbmm.default, aten.convolution.default,
+            aten._convolution.default}
+
+
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def _remat_contexts(policy: str):
+    """(forward context, recompute context) of a checkpointed region: the
+    recompute updates no BatchNorm running statistics
+    (`running_stats_frozen`; the first forward did), and under 'dots'
+    both carry the selective-checkpoint policy."""
+    if policy == "full":
+        return contextlib.nullcontext(), running_stats_frozen()
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    dots = _dot_ops()
+
+    def save_dots(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in dots
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    fwd, rec = create_selective_checkpoint_contexts(save_dots)
+    return fwd, _entered(rec, running_stats_frozen())
+
+
+def _train_apply(fn: Callable, remat: bool) -> Callable:
+    """`fn` (a train-mode forward: module and tensors in, tensors out), or
+    under --remat `fn` checkpointed (maavss_tpu/train/steps.py:
+    _train_apply, _apply_remat): torch.utils.checkpoint without
+    re-entrance, with `remat_policy()`'s save policy read here, once. The
+    backward recomputes the region: its kernels launch a second time, into
+    tensors that their autograd Functions save anew; BatchNorm's running
+    statistics are updated by the first forward alone. No RNG state is
+    saved (`preserve_rng_state=False`, which keeps the step capturable in
+    a CUDA graph): the step draws its noise before any forward, and no
+    region draws anything, so the recompute reproduces the first
+    forward's bits."""
+    if not remat:
+        return fn
+    policy = remat_policy()
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=lambda: _remat_contexts(policy))
+
+    return run
+
+
 def norm_per_example(feats: torch.Tensor) -> torch.Tensor:
     """Per-example max-abs STFT normalization (--normalize_output_fft)."""
     m = torch.amax(torch.abs(feats) + 1e-7, dim=tuple(range(1, feats.ndim)),
@@ -189,9 +284,7 @@ def _prep_stft_pair(audio: torch.Tensor, cfg: RunConfig,
         y = norm_per_example(y)
     if not isinstance(noise_scalar, torch.Tensor) and noise_scalar == 0.0:
         return y, y
-    noise = torch.randn(y.shape, generator=generator, dtype=y.dtype,
-                        device=y.device)
-    return y + noise * noise_scalar, y
+    return add_noise(y, noise_scalar, generator), y
 
 
 def _pflat_from_batch(batch, cfg: RunConfig) -> torch.Tensor:
@@ -376,6 +469,30 @@ def _microbatch_accumulate(state: TrainState, mb: int,
     return state, metrics
 
 
+def _method(name: str) -> Callable:
+    """(model, *tensors) -> model.<name>(*tensors): a forward that
+    `_train_apply` can checkpoint with the module as an argument."""
+    return lambda model, *args: getattr(model, name)(*args)
+
+
+def _fusion_prep(cfg: RunConfig, device):
+    """`prep(batch, generator, noise) -> (x_full, y_full, p_flat)` of the
+    fusion steps: the batch on the device, the STFT pair over the whole
+    clip (trimmed, --normalize_output_fft, the step's noise) and the
+    per-frame phasegram rows."""
+    step_noise = _noise_resolver(cfg, device)
+
+    def prep(batch, generator, noise):
+        batch = _to_device(batch, device)
+        x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
+                                         trim_end=True,
+                                         max_norm=cfg.normalize_output_fft,
+                                         noise_scalar=step_noise(noise))
+        return x_full, y_full, _pflat_from_batch(batch, cfg)
+
+    return prep
+
+
 def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
                      device="cuda", k_steps: Optional[int] = None):
     """Train step for the fusion model over `batch = {'audio': [B, S_total],
@@ -413,19 +530,15 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
     a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
     coeff = cfg.loss_coeff
     mb = max(1, int(cfg.microbatch))
-    step_noise = _noise_resolver(cfg, device)
-
-    def prep(batch, generator, noise):
-        batch = _to_device(batch, device)
-        x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
-                                         trim_end=True,
-                                         max_norm=cfg.normalize_output_fft,
-                                         noise_scalar=step_noise(noise))
-        return x_full, y_full, _pflat_from_batch(batch, cfg)
+    prep = _fusion_prep(cfg, device)
+    apply = _train_apply(_method("__call__"), cfg.remat)
+    encode = _train_apply(_method("encode_both"), cfg.remat)
+    heads = _train_apply(_method("heads_from_latents"),
+                         cfg.remat)
 
     def losses(state, xs, ys, y_pg, masks):
         a_mask, v_mask, ya_mask, _ = masks
-        yh_a, yh_v, _ = state.model(xs * a_mask, y_pg * v_mask)
+        yh_a, yh_v, _ = apply(state.model, xs * a_mask, y_pg * v_mask)
         a_loss = mse(yh_a, ys * ya_mask)
         v_loss = mse(yh_v, y_pg)
         return a_loss + coeff * v_loss, a_loss, v_loss
@@ -461,10 +574,11 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
         # leak context into the last window's conv pad and shift the
         # BatchNorm statistics
         pg_full = phasegram_window(p_flat[:, :nf + ns - 1])
-        a_lat, v_lat = state.model.encode_both(
-            x_full[:, :, :(nf + ns - 1) * a] * a_mask, pg_full * v_mask)
-        yh_a, yh_v, _ = state.model.heads_from_latents(
-            _windows(a_lat, ns, hop_a, t_win),
+        a_lat, v_lat = encode(
+            state.model, x_full[:, :, :(nf + ns - 1) * a] * a_mask,
+            pg_full * v_mask)
+        yh_a, yh_v, _ = heads(
+            state.model, _windows(a_lat, ns, hop_a, t_win),
             _windows(v_lat, ns, hop_v, t_win),
             _windows(x_full, ns, a, nf * a) * a_mask)
         if loss_impl == "slice":
@@ -545,6 +659,10 @@ def make_frames_step(model, cfg: RunConfig, device="cuda",
     if halo < 0:
         raise ValueError(f"--frames_halo must be >= 0, got {halo}")
     step_noise = _noise_resolver(cfg, device)
+    apply = _train_apply(_method("__call__"), cfg.remat)
+    encode_trunk = _train_apply(_method("encode_frames"), cfg.remat)
+    heads = _train_apply(_method("forward_with_visual_latent"),
+                         cfg.remat)
 
     def window_pass(state, masks, frames, x_full, y_full):
         a_in, v_in, ya_mask, yv_mask = masks
@@ -555,7 +673,7 @@ def make_frames_step(model, cfg: RunConfig, device="cuda",
             y_v = frames[:, j + mid]  # [B,1,H,W]
             xs = x_full[:, :, j * a:(j + nf) * a]
             ys = y_full[:, :, (j + mid) * a:(j + mid + 1) * a]
-            yh_a, yh_v, _ = state.model(xs * a_in, x_v * v_in)
+            yh_a, yh_v, _ = apply(state.model, xs * a_in, x_v * v_in)
             a_loss = mse(yh_a, ys * ya_mask)
             v_loss = mse(yh_v, y_v * yv_mask)
             loss = a_loss + coeff * v_loss
@@ -571,10 +689,11 @@ def make_frames_step(model, cfg: RunConfig, device="cuda",
         # tail would leak context into the last window's conv pad and shift
         # the BatchNorm statistics
         x_v = frames[:, :nf + ns - 1 + 2 * halo].transpose(1, 2)
-        v_lat = state.model.encode_frames(x_v * v_in)  # [B,C,T,S]
+        v_lat = encode_trunk(state.model, x_v * v_in)  # [B,C,T,S]
         first = halo + mid
         yv = frames[:, first:first + ns]  # [B,ns,1,H,W]
-        yh_a, yh_v, _ = state.model.forward_with_visual_latent(
+        yh_a, yh_v, _ = heads(
+            state.model,
             _windows(x_full[:, :, halo * a:], ns, a, nf * a) * a_in,
             _windows(v_lat[:, :, halo:], ns, 1, nf))
         a_loss = mse(yh_a, _windows(y_full[:, :, first * a:], ns, a, a)
@@ -638,6 +757,188 @@ def make_fusion_eval(model, cfg: RunConfig, device="cuda"):
                              ("a_loss", a_loss), ("v_loss", v_loss)):
                     out[k] = out[k] + v
             return {k: v / ns for k, v in out.items()}
+        finally:
+            state.model.train(was_training)
+
+    return evaluate
+
+
+def make_fusion_middle_step(model, cfg: RunConfig, device="cuda",
+                            k_steps: Optional[int] = None):
+    """The fusion model with the middle-frame objective
+    (maavss_tpu/train/steps.py:make_fusion_middle_step, experiments/train.py:
+    148-181 in the reference): the scan window step of `make_fusion_step`,
+    each window's loss comparing only the middle frame's hops_per_frame
+    STFT columns (of the prediction and of the clean window) and its one
+    phasegram row; the model predicts the whole window, as the JAX
+    package's does. The inputs are masked by mode (no objective masks);
+    --microbatch and --remat apply; `k_steps` > 1 returns the K-step
+    dispatch."""
+    check_supported(cfg, train=True)
+    a, nf, ns = cfg.hops_per_frame, cfg.num_frames, cfg.num_seq
+    coeff = cfg.loss_coeff
+    mid = (ns - 1) // 2
+    lo, hi = mid * a, (mid + 1) * a
+    mb = max(1, int(cfg.microbatch))
+    prep = _fusion_prep(cfg, device)
+    apply = _train_apply(_method("__call__"), cfg.remat)
+
+    def window_pass(state, masks, x_full, y_full, p_flat):
+        a_mask, v_mask = masks
+        macc = {k: torch.zeros((), device=x_full.device)
+                for k in ("loss", "a_loss", "v_loss")}
+        for j in range(ns):
+            y_pg = phasegram_window(p_flat[:, j:j + nf])
+            xs = x_full[:, :, j * a:(j + nf) * a]
+            ys_mid = y_full[:, :, j * a + lo:j * a + hi]
+            yh_a, yh_v, _ = apply(state.model, xs * a_mask, y_pg * v_mask)
+            a_loss = mse(yh_a[:, :, lo:hi], ys_mid)
+            v_loss = mse(yh_v[:, :, mid], y_pg[:, :, mid])
+            loss = a_loss + coeff * v_loss
+            (loss / ns).backward()
+            for k, v in (("loss", loss), ("a_loss", a_loss),
+                         ("v_loss", v_loss)):
+                macc[k] = macc[k] + v.detach() / ns
+        return macc
+
+    def step(state: TrainState, batch, mode: int,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Noise] = None):
+        state.model.train()
+        masks = _masks(mode, False)[:2]
+        return _microbatch_accumulate(
+            state, mb, prep(batch, generator, noise),
+            lambda *chunk: window_pass(state, masks, *chunk))
+
+    return _dispatch(step, cfg, k_steps, device)
+
+
+def _ae_update(state: TrainState, loss: torch.Tensor, audio: bool
+               ) -> Tuple[TrainState, Metrics]:
+    """One autoencoder step's backward and optimizer update: the metrics
+    of the JAX AE steps (loss, and a_loss or v_loss the same, the other
+    0) and `_watch_metrics`."""
+    state.zero_grad()
+    loss.backward()
+    loss = loss.detach()
+    zero = torch.zeros((), device=loss.device)
+    metrics = {"loss": loss, "a_loss": loss if audio else zero,
+               "v_loss": zero if audio else loss}
+    metrics.update(_watch_metrics(state.model))
+    state.apply_gradients()
+    return state, metrics
+
+
+def _audio_ae_pair(batch, cfg: RunConfig, device, generator, trim_end,
+                   noise_scalar=None):
+    audio = torch.as_tensor(batch["audio"]).to(device)
+    return _prep_stft_pair(audio, cfg, generator, trim_end=trim_end,
+                           max_norm=cfg.normalize_fft,
+                           noise_scalar=noise_scalar)
+
+
+def make_audio_ae_step(model, cfg: RunConfig, device="cuda",
+                       trim_end: bool = True,
+                       k_steps: Optional[int] = None):
+    """STFT-autoencoder step over `batch = {'audio': [B, samples]}` (other
+    leaves are ignored): the denoising pair (--normalize_fft max-norm, the
+    step's noise, --noise_schedule as the fusion step takes it), then
+    `audio_ae_forward` in train mode and the mse against the clean STFT
+    (maavss_tpu/train/steps.py:make_audio_ae_step; the regimes of
+    train_audio_net.py and train_autoencoder.py). `mode` is ignored;
+    `k_steps` > 1 returns the K-step dispatch."""
+    check_supported(cfg, train=True)
+    step_noise = _noise_resolver(cfg, device)
+
+    def step(state: TrainState, batch, mode: int,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Noise] = None):
+        del mode
+        state.model.train()
+        x, y = _audio_ae_pair(batch, cfg, device, generator, trim_end,
+                              step_noise(noise))
+        return _ae_update(state, mse(state.model.audio_ae_forward(x), y),
+                          audio=True)
+
+    return _dispatch(step, cfg, k_steps, device)
+
+
+def make_audio_ae_eval(model, cfg: RunConfig, device="cuda",
+                       trim_end: bool = True):
+    """Validation of the STFT-autoencoder regimes (train_audio_net.py:
+    139-162): the pair at cfg.noise_scalar, `audio_ae_forward` with the
+    running statistics, the mse. `evaluate(state, batch, mode,
+    generator=None) -> {loss, a_loss, v_loss}`; the model's mode is
+    restored afterwards."""
+    check_supported(cfg)
+
+    @torch.no_grad()
+    def evaluate(state: TrainState, batch, mode: int,
+                 generator: Optional[torch.Generator] = None) -> Metrics:
+        del mode
+        was_training = state.model.training
+        state.model.eval()
+        try:
+            x, y = _audio_ae_pair(batch, cfg, device, generator, trim_end)
+            loss = mse(state.model.audio_ae_forward(x), y)
+            return {"loss": loss, "a_loss": loss,
+                    "v_loss": torch.zeros((), device=loss.device)}
+        finally:
+            state.model.train(was_training)
+
+    return evaluate
+
+
+def _ae_phasegram(batch, cfg: RunConfig, device) -> torch.Tensor:
+    """The clip's whole phasegram [B, 1, T, p^2] from its raw attention
+    frames (`_vis_frames`), resized to p_size where the frames differ."""
+    frames = _vis_frames({"frames": torch.as_tensor(batch["frames"])
+                          .to(device)}, cfg)
+    resize = None if frames.shape[-1] == cfg.p_size else (cfg.p_size,
+                                                          cfg.p_size)
+    return video_phasegram(frames, resize=resize)
+
+
+def make_visual_ae_step(model, cfg: RunConfig, device="cuda",
+                        k_steps: Optional[int] = None):
+    """Phasegram-autoencoder step over `batch = {'frames': [B, T, p, p]}`
+    (other leaves are ignored): the clip's phasegram, `visual_ae_forward`
+    in train mode (the phasegram encoder's K2-train and K2-bwd on the
+    card) and the mse against its input (maavss_tpu/train/steps.py:
+    make_visual_ae_step; train_visual_net.py and train_3d_conv_net.py).
+    It draws no noise: `mode`, `generator` and `noise` are ignored;
+    `k_steps` > 1 returns the K-step dispatch."""
+    check_supported(cfg, train=True)
+
+    def step(state: TrainState, batch, mode: int,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[Noise] = None):
+        del mode, generator, noise
+        state.model.train()
+        y_pg = _ae_phasegram(batch, cfg, device)
+        return _ae_update(state, mse(state.model.visual_ae_forward(y_pg),
+                                     y_pg), audio=False)
+
+    return _dispatch(step, cfg, k_steps, device)
+
+
+def make_visual_ae_eval(model, cfg: RunConfig, device="cuda"):
+    """Validation of the phasegram-autoencoder regime (train_visual_net.py:
+    112-139): `visual_ae_forward` with the running statistics (K2-eval on
+    the card), the mse against its input."""
+    check_supported(cfg)
+
+    @torch.no_grad()
+    def evaluate(state: TrainState, batch, mode: int,
+                 generator: Optional[torch.Generator] = None) -> Metrics:
+        del mode, generator
+        was_training = state.model.training
+        state.model.eval()
+        try:
+            y_pg = _ae_phasegram(batch, cfg, device)
+            loss = mse(state.model.visual_ae_forward(y_pg), y_pg)
+            return {"loss": loss, "v_loss": loss,
+                    "a_loss": torch.zeros((), device=loss.device)}
         finally:
             state.model.train(was_training)
 

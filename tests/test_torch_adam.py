@@ -28,7 +28,7 @@ from maavss_tpu_torch.ops.cuda_adam import (
     adam_update_plain,
     bias_corrections,
 )
-from maavss_tpu_torch.train.fused_adam import FusedAdam
+from maavss_tpu_torch.train.fused_adam import SGD, FusedAdam
 from maavss_tpu_torch.train.state import make_optimizer
 from tests.test_torch_workers import share_cores
 
@@ -83,7 +83,7 @@ def test_optimizer_matches_jax(reference):
     pj = jax.tree_util.tree_map(jnp.asarray, params)
     state = tx.init(pj)
     tensors = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
-    opt = make_optimizer(list(tensors.values()), LR)
+    opt = make_optimizer(list(tensors.items()), LR)
     assert isinstance(opt, FusedAdam) and opt.kernel == "xla"
     for g in grads:
         gj = jax.tree_util.tree_map(jnp.asarray, g)
@@ -105,22 +105,32 @@ def test_optimizer_matches_jax(reference):
 
 
 def test_kernel_gate():
-    t = [torch.zeros(3, requires_grad=True)]
+    t = [("fc1.weight", torch.zeros(3, requires_grad=True))]
     assert make_optimizer(t, LR, kernel="auto").kernel == "xla"
     assert make_optimizer(t, LR, kernel="xla").kernel == "xla"
     opt = make_optimizer(t, LR, kernel="pallas")
     assert opt.kernel == "pallas"
-    t[0].grad = torch.ones(3)
+    t[0][1].grad = torch.ones(3)
     with pytest.raises(RuntimeError, match="CUDA"):
         opt.step()  # the kernel on a CPU parameter raises
     with pytest.raises(ValueError):
         make_optimizer(t, LR, kernel="fused")
-    for kwargs, item in ((dict(name="sgd"), "sgd"),
-                         (dict(name="adamw"), "adamw"),
-                         (dict(trainable=["fc1"]), "staged"),
-                         (dict(flat=True), "fused_opt")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_optimizer(t, LR, **kwargs)
+    # sgd, adamw and the staged freeze build (tests/test_torch_optim.py
+    # holds them against optax); the kernel takes Adam alone
+    assert isinstance(make_optimizer(t, LR, name="sgd"), SGD)
+    adamw = make_optimizer(t, LR, name="adamw")
+    assert adamw.weight_decay == 1e-4 and adamw.kernel == "xla"
+    for name in ("sgd", "adamw"):
+        with pytest.raises(ValueError, match="adam only"):
+            make_optimizer(t, LR, name=name, kernel="pallas")
+    staged = make_optimizer(t, LR, trainable=["fc1"], kernel="pallas")
+    assert staged.trainable == [True] and staged.kernel == "pallas"
+    # the mask reads the names: a leaf outside the prefixes is frozen
+    two = t + [("lstm.w_h", torch.zeros(2, requires_grad=True))]
+    mask = make_optimizer(two, LR, trainable=["fc1"]).trainable
+    assert mask == [True, False]
+    with pytest.raises(NotImplementedError, match="fused_opt"):
+        make_optimizer(t, LR, flat=True)
     # a schedule builds with every kernel choice: K3 reads the rate from
     # [c1, c2, lr] on the card (tests/test_torch_lr_schedule.py)
     for kernel in ("auto", "xla", "pallas"):

@@ -72,9 +72,6 @@ def test_line_records_the_fusion_defaults(line):
 
 
 @pytest.mark.parametrize("env, label", [
-    (dict(MAAVSS_BENCH_REMAT="1", MAAVSS_BENCH_MICROBATCH="2"), "M3-rest"),
-    (dict(MAAVSS_BENCH_REMAT="1", MAAVSS_BENCH_REGIME="frames"), "M3-rest"),
-    (dict(MAAVSS_BENCH_REMAT="1"), "M3-rest"),
     (dict(MAAVSS_BENCH_FUSED_OPT="1"), "Not carried"),
     (dict(MAAVSS_BENCH_DTYPE="float16"), "M5 (float16)"),
 ])
@@ -82,6 +79,20 @@ def test_unported_variables_raise_by_label(env, label):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         bench_torch.bench_config(env, 2, TINY)
     assert label in str(err.value)
+
+
+@pytest.mark.parametrize("env", [
+    dict(MAAVSS_BENCH_REMAT="1", MAAVSS_BENCH_MICROBATCH="2"),
+    dict(MAAVSS_BENCH_REMAT="1", MAAVSS_BENCH_REGIME="frames"),
+    dict(MAAVSS_BENCH_REMAT="1"),
+])
+def test_remat_variable_configures(env):
+    """MAAVSS_BENCH_REMAT is ported: the config carries --remat and passes
+    the check (tests/test_torch_remat.py runs the steps)."""
+    cfg, regime, _ = bench_torch.bench_config(env, 2, TINY)
+    assert cfg.remat
+    assert regime == env.get("MAAVSS_BENCH_REGIME", "fusion")
+    assert cfg.microbatch == int(env.get("MAAVSS_BENCH_MICROBATCH", "1"))
 
 
 @pytest.mark.parametrize("env", [

@@ -277,7 +277,7 @@ def test_serving_fn_specs_and_payloads_match_jax(fused_env):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (dict(remat=True), "M3-rest"), (dict(dtype="float16"), "M5"),
+    (dict(dtype="float16"), "M5"),
 ])
 def test_unported_frames_flags_raise(flags, item):
     """Each frames option not ported yet raises NotImplementedError
@@ -294,7 +294,7 @@ def test_unported_frames_flags_raise(flags, item):
 @pytest.mark.parametrize("flags", [
     dict(frames_encode="full"), dict(frames_encode="full", frames_halo=1),
     dict(microbatch=2), dict(attn_diff=True), dict(rnn_cell="gru"),
-    dict(rnn_cell="none"),
+    dict(rnn_cell="none"), dict(remat=True),
 ])
 def test_ported_frames_flags_take_a_step(fused_env, flags):
     """Frames options that no longer raise: the state builds and takes one

@@ -134,10 +134,11 @@ def test_schedule_refusal_lifted():
         jax_make_optimizer(jax_resolve_lr(jcfg), "adam", kernel="pallas")
     cfg = RunConfig(lr_schedule="cosine", **HORIZON)
     for kernel in ("auto", "pallas", "xla"):
-        tx = make_optimizer([torch.zeros(4)], resolve_lr(cfg), kernel=kernel)
+        tx = make_optimizer([("w", torch.zeros(4))], resolve_lr(cfg),
+                            kernel=kernel)
         assert callable(tx.schedule) and tx.bc.shape == (3,)
     with pytest.raises(NotImplementedError, match="Not carried"):
-        make_optimizer([torch.zeros(4)], resolve_lr(cfg), flat=True)
+        make_optimizer([("w", torch.zeros(4))], resolve_lr(cfg), flat=True)
     g = torch.ones(4)
     m, v, p = torch.zeros(4), torch.zeros(4), torch.zeros(4)
     adam_multi_tensor([g], [m], [v], [p], torch.tensor([0.1, 0.001, 0.0]),

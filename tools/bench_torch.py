@@ -37,8 +37,9 @@ Where it differs from bench.py (also listed under `differs_from_bench_py`
 in its JSON line):
 - MAAVSS_BENCH_OPT_KERNEL defaults to auto, so K3 (csrc/adam.cu) runs;
   xla is the plain formula.
-- MAAVSS_BENCH_REMAT=1 and MAAVSS_BENCH_FUSED_OPT=1 raise by their
-  ROADMAP labels (check_supported);
+- MAAVSS_BENCH_FUSED_OPT=1 raises by its ROADMAP label
+  (check_supported); MAAVSS_BENCH_REMAT=1 runs the step under --remat
+  (MAAVSS_REMAT_POLICY as the JAX package reads it);
   MAAVSS_BENCH_UNROLL has no counterpart (K1 runs the recurrence in one
   launch) and is not read.
 - vs_baseline divides by benchmarks/baseline_pin.json (read as plain JSON);
@@ -87,8 +88,7 @@ EPILOGUE_KERNELS = ("partials_kernel", "stats_combine_kernel",
                     "bwd_combine_kernel", "dy_kernel")
 DIFFERS = (
     "MAAVSS_BENCH_OPT_KERNEL defaults to auto (K3; xla is the plain formula)",
-    "REMAT=1 and FUSED_OPT=1 raise by their ROADMAP labels; UNROLL is not "
-    "read",
+    "FUSED_OPT=1 raises by its ROADMAP label; UNROLL is not read",
     "MULTISTEP=K replays one CUDA graph of K steps a dispatch",
     "windows closed by torch.cuda.synchronize() and a host fetch of the loss",
     "vs_baseline from benchmarks/baseline_pin.json; no fresh torch-CPU leg",
@@ -224,6 +224,7 @@ def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
         fullenc_loss_impl,
         make_frames_step,
         make_fusion_step,
+        remat_policy,
     )
 
     env = os.environ if env is None else env
@@ -321,7 +322,8 @@ def measure(batch_size: int = 256, steps: int = 50, windows: int = 3,
         "fullenc_loss_resolved": (fullenc_loss_impl()
                                   if cfg.fusion_encode == "full"
                                   and regime == "fusion" else None),
-        "mask_head": cfg.mask_head, "remat": False,
+        "mask_head": cfg.mask_head, "remat": cfg.remat,
+        "remat_policy": remat_policy() if cfg.remat else None,
         "kernels": kernels, "profile": prof,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if on_card else None),
