@@ -279,6 +279,31 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    MAAVSS_REMAT_POLICY values (full and dots); a graphed K = 3 --remat
    fusion dispatch under each policy bit for bit. Its launches are added
    to the kernels line.
+40. legacy (main.py's raw-FFT family; no hand-written kernel): the
+   DataGenerator on a synthetic store of 256^2 frames (batch 4, x_fft [4,
+   2, 2112], frames [4, 1, 8, 256, 256]), AVSEModel (274 M parameters) and
+   tools/train_legacy_torch.py's SGD step at lr 1e-2, 3 steps on the card
+   against the CPU from one state_dict (losses within 1e-4 relative;
+   Dense_2's pre-activations and the gradient at v_out within 1e-4 of
+   their largest value each step, the entries whose pre-activation has
+   another sign on the card counted; every leaf within 1e-4 of its
+   largest value elementwise, but for Dense_2's entries of the flipped
+   units, reported beside), the step's ms and a profile;
+   ops/fft_legacy's process_fft and inference_to_audio on the card
+   against the CPU on the generator's audio (1e-5); one
+   AVModelSTFT forward, train_ae forward and backward at (4, 2, 48, 128),
+   (4, 1, 6, 64, 64), card against CPU (outputs and running statistics
+   within 1e-4 of their largest value, each gradient within 1e-4 of its
+   layer's largest plus twice the CPU's fp32 rounding against float64).
+41. features (offline feature extraction; no hand-written kernel): the
+   ViT-S/8 of tests/fixtures/dino_golden.npz against the fixture;
+   VideoAttention over 64 frames of 256^2, two against the CPU port, ms a
+   frame beside the fp32 bound (chip_smoke._vit_flops) and a profile;
+   flow_magnitude over 64 frames of a 256^2 moving blob against the CPU,
+   ms and a profile; tools/save_attn_videos_torch.py end to end on a
+   store of two 32-frame grayscale videos and one 64-frame RGB video,
+   with the shards read back; tools/flow_torch.py's flow_frames over the
+   RGB video, card against CPU, and its ms.
 
 Every phase that drives a train step or a serving batch counts the STFT
 kernel's launches exactly (one a step or a batch; none in stft_route) and
@@ -7512,6 +7537,414 @@ def remat_phase():
     return _by_counter(totals)
 
 
+# the legacy raw-FFT family (legacy) and offline feature extraction
+# (features): no hand-written kernel; cuDNN, cuBLAS and cuFFT calls
+LEGACY_BATCH, LEGACY_LR = 4, 1e-2
+LEGACY_STFT = ((4, 2, 48, 128), (4, 1, 6, 64, 64), 4)
+DINO_GOLDEN = os.path.join(ROOT, "tests", "fixtures", "dino_golden.npz")
+DINO_SEED = 20260819  # tests/fixtures/dino_golden.npz's weights
+
+
+def _legacy_stft_check():
+    """AVModelSTFT (train_autoencoder.py's model) at the JAX package's
+    test geometry, batch 4: one train-mode forward and train_ae forward,
+    then the backward of sum(out * cot) over the forward's outputs, on the
+    card against the CPU from one state_dict. Outputs and running
+    statistics within 1e-4 of their largest value; each gradient within
+    1e-4 of its layer's largest plus twice the CPU fp32 gradient's
+    rounding against a float64 CPU run (the BN-fed biases' gradients are
+    rounding). Returns the largest errors (outputs and statistics in
+    absolute terms) and the card's ms."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.models.layers import TorchBatchNorm
+    from maavss_tpu_torch.models.legacy import AVModelSTFT
+    from maavss_tpu_torch.train.setup import init_flax_like
+
+    dev = torch.device("cuda")
+    stft, vid, alpha = LEGACY_STFT
+    g = np.random.default_rng(0)
+    xa = torch.from_numpy(g.standard_normal(stft).astype(np.float32))
+    xv = torch.from_numpy(g.random(vid).astype(np.float32))
+    ref = AVModelSTFT(stft, vid, alpha)
+    init_flax_like(ref, torch.Generator().manual_seed(0))
+    ref.train()
+    ref64 = copy.deepcopy(ref).double()
+    for mod in ref64.modules():
+        if isinstance(mod, TorchBatchNorm):
+            mod.dtype = torch.float64
+    model = copy.deepcopy(ref).to(dev)
+    cots = None
+
+    def run(m, x_a, x_v):
+        nonlocal cots
+        outs = m(x_a, x_v)
+        ae = m(x_a, x_v, train_ae=True)
+        if cots is None:
+            cots = [torch.from_numpy(g.standard_normal(o.shape).astype(
+                np.float32)) for o in outs]
+        sum((o * c.to(o)).sum() for o, c in zip(outs, cots)).backward()
+        return [o.detach().cpu() for o in outs + ae]
+
+    want = run(ref, xa, xv)
+    run(ref64, xa.double(), xv.double())
+    got = run(model, xa.to(dev), xv.to(dev))
+    out_err = max(check_close(f"legacy AVModelSTFT output {i}", a, b, 1e-4,
+                              0, scale_atol=True)
+                  for i, (a, b) in enumerate(zip(got, want)))
+    ref_buffers = dict(ref.named_buffers())
+    stats_err = max(check_close(f"legacy AVModelSTFT {k}", b.cpu(),
+                                ref_buffers[k], 1e-4, 0, scale_atol=True)
+                    for k, b in model.named_buffers() if "running" in k)
+    named, named64 = dict(ref.named_parameters()), dict(ref64.named_parameters())
+    scale = {}
+    for k, p in named.items():
+        layer = k.rsplit(".", 1)[0]
+        scale[layer] = max(scale.get(layer, 0.0), p.grad.abs().max().item())
+    grad_err = 0.0
+    for k, p in model.named_parameters():
+        err = (p.grad.cpu() - named[k].grad).abs().max().item()
+        rounding = (named[k].grad.double() - named64[k].grad).abs().max().item()
+        allowed = 1e-4 * scale[k.rsplit(".", 1)[0]] + 2 * rounding
+        if not err <= allowed:
+            raise SystemExit(f"legacy AVModelSTFT d {k}: {err} over {allowed}")
+        grad_err = max(grad_err, err / allowed)
+    x_a, x_v = xa.to(dev), xv.to(dev)
+
+    def fwd_bwd():
+        outs = model(x_a, x_v)
+        sum((o * c.to(o)).sum() for o, c in zip(outs, cots)).backward()
+
+    return dict(out_err=out_err, stats_err=stats_err,
+                grad_err_of_allowed=grad_err,
+                fwd_bwd_ms=cuda_ms(fwd_bwd, reps=5, iters=2))
+
+
+def _dense2_recorder(model, records):
+    """A forward hook on `model.Dense_2` (v_out's layer, LeakyReLU after
+    it) that appends, for each call, its pre-activation and, by a tensor
+    hook, the loss's gradient with respect to it, both on the CPU."""
+    def hook(mod, inp, out):
+        rec = {"pre": out.detach().float().cpu()}
+        out.register_hook(lambda g: rec.__setitem__("dpre", g.detach().cpu()))
+        records.append(rec)
+
+    return model.Dense_2.register_forward_hook(hook)
+
+
+def _legacy_flips(card, cpu):
+    """Card against CPU, step by step, at Dense_2's pre-activation p and
+    the gradient g of the loss with respect to LeakyReLU's output (dpre
+    over the slope, 1 where p > 0, else 0.3). On the units that no earlier
+    step flipped: p and g within 1e-4 of their largest value elementwise.
+    A flip is an entry whose p has another sign on the card: there only
+    the slope differs, so the units' bias and weight rows move apart by
+    0.7 lr g. Returns (flips a step, the largest |p| at a flip over the
+    largest |p|, the largest p and g errors over their largest value,
+    the mask of units flipped at some step)."""
+    import torch
+
+    from maavss_tpu_torch.models.legacy import LEAKY_SLOPE
+
+    flipped = torch.zeros(card[0]["pre"].shape[1], dtype=torch.bool)
+    counts, flip_p, p_err, g_err = [], 0.0, 0.0, 0.0
+    for s, (c, r) in enumerate(zip(card, cpu)):
+        keep = ~flipped
+        pc, pr = c["pre"][:, keep], r["pre"][:, keep]
+        gc = c["dpre"][:, keep] / torch.where(pc > 0, 1.0, LEAKY_SLOPE)
+        gr = r["dpre"][:, keep] / torch.where(pr > 0, 1.0, LEAKY_SLOPE)
+        p_err = max(p_err, _rel_max(f"legacy step {s} Dense_2 pre-activation",
+                                    pc, pr, 1e-4))
+        g_err = max(g_err, _rel_max(f"legacy step {s} d v_out", gc, gr, 1e-4))
+        flip = (pc > 0) != (pr > 0)
+        counts.append(int(flip.sum()))
+        if counts[-1]:
+            flip_p = max(flip_p, (pr.abs()[flip].max()
+                                  / pr.abs().max()).item())
+        flipped[keep.nonzero()[:, 0][flip.any(0)]] = True
+    return counts, flip_p, p_err, g_err, flipped
+
+
+def _rel_max(what, got, want, tol):
+    """Raise unless max|got - want| <= tol * max|want|; return the ratio."""
+    err = ((got.double() - want.double()).abs().max()
+           / want.double().abs().max().clamp(min=1e-30)).item()
+    if not err <= tol:
+        raise SystemExit(f"{what}: max error {err} of the largest value "
+                         f"over {tol}")
+    return err
+
+
+def _legacy_fft_check(audio):
+    """ops/fft_legacy on the card against the CPU on the generator's
+    audio [B, S]: `process_fft` rectangular and polar (real/imag and
+    magnitude within 1e-5 of their largest value; phases as wrapped
+    differences times the magnitude, within 1e-5 of the largest
+    magnitude), and `inference_to_audio` of each back to audio within
+    1e-5 of its largest value. The generator runs this FFT on the host;
+    this is its card check. Returns the largest errors and the card's ms
+    of one process_fft."""
+    import math
+
+    import torch
+
+    from maavss_tpu_torch.ops.fft_legacy import inference_to_audio, process_fft
+
+    dev = torch.device("cuda")
+    x = torch.from_numpy(audio)
+    x_dev = x.to(dev)
+    err = {}
+    for polar in (False, True):
+        got = process_fft(x_dev, polar=polar).cpu()
+        want = process_fft(x, polar=polar)
+        if polar:
+            err["mag"] = _rel_max("legacy fft magnitude", got[..., 0, :],
+                                  want[..., 0, :], 1e-5)
+            d = torch.remainder(got[..., 1, :] - want[..., 1, :] + math.pi,
+                                2 * math.pi) - math.pi
+            mag = want[..., 0, :]
+            err["phase"] = ((d * mag).abs().max() / mag.max()).item()
+            if not err["phase"] <= 1e-5:
+                raise SystemExit(f"legacy fft phase x magnitude: "
+                                 f"{err['phase']} of the largest magnitude")
+        else:
+            err["ri"] = _rel_max("legacy fft real/imag", got, want, 1e-5)
+        back = inference_to_audio(got.to(dev), polar=polar).cpu()
+        err[f"audio_{'polar' if polar else 'ri'}"] = _rel_max(
+            "legacy inference_to_audio", back,
+            inference_to_audio(want, polar=polar), 1e-5)
+    err["process_fft_ms"] = cuda_ms(lambda: process_fft(x_dev), reps=5,
+                                    iters=4)
+    return err
+
+
+def legacy_phase(frame_size: int = 256):
+    """The legacy raw-FFT family at main.py's geometry: `DataGenerator`
+    batches (batch 4, x_fft [4, 2, 2112], frames [4, 1, 8, 256, 256]) from
+    a synthetic store built in a temporary directory, `AVSEModel` (~272 M
+    parameters) and tools/train_legacy_torch.py's SGD step: 3 steps on the
+    card against the CPU from one state_dict at lr 1e-2. Losses within
+    1e-4 relative. Dense_2's pre-activations and the gradient at v_out
+    step by step as `_legacy_flips` holds them, with the count of sign
+    flips at LeakyReLU's kink. After the 3 steps every leaf within 1e-4 of
+    its largest value elementwise, but for Dense_2's bias entries and
+    weight rows of the flipped units, which are reported beside. Then
+    the card's step ms and a profile of 3 steps; `_legacy_fft_check` on the
+    generator's audio; and `_legacy_stft_check`."""
+    import copy
+
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.generator import DataGenerator
+    from maavss_tpu_torch.data.synthetic import build_synthetic_store
+    from maavss_tpu_torch.train.state import make_optimizer
+    from tools.train_legacy_torch import build_legacy_model, make_legacy_step
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = RunConfig(batch_size=LEGACY_BATCH, learning_rate=LEGACY_LR)
+    with tempfile.TemporaryDirectory(prefix="maavss_legacy_") as root:
+        frames, audio = build_synthetic_store(root, cfg, n_videos=2,
+                                              seconds=2.0,
+                                              frame_size=frame_size)
+        gen = DataGenerator(cfg, frames, audio, seed=cfg.seed).generator()
+        batches = [next(gen) for _ in range(3)]
+    x_fft, _, fr, clip_audio = batches[0]
+    batches = [b[:3] for b in batches]
+    n = cfg.hop * cfg.hops_per_frame * cfg.num_frames
+    if x_fft.shape != (LEGACY_BATCH, 2, n // 2) or fr.shape != (
+            LEGACY_BATCH, 1, cfg.num_frames, frame_size, frame_size):
+        raise SystemExit(f"legacy: batch shapes {x_fft.shape} {fr.shape}")
+    ref = build_legacy_model(x_fft.shape, fr.shape, cfg.seed, "cpu")
+    model = copy.deepcopy(ref).to(dev)
+    steps = [make_legacy_step(m, make_optimizer(
+        list(m.named_parameters()), cfg.learning_rate, "sgd"), cfg.loss_coeff)
+        for m in (model, ref)]
+    records = ([], [])
+    hooks = [_dense2_recorder(m, r) for m, r in zip((model, ref), records)]
+    losses, loss_err = [], 0.0
+    for b in batches:
+        got = steps[0](*(torch.from_numpy(a).to(dev) for a in b))
+        want = steps[1](*(torch.from_numpy(a) for a in b))
+        for k, w in want.items():
+            err = abs(got[k].item() - w.item()) / abs(w.item())
+            if not err <= 1e-4:
+                raise SystemExit(f"legacy step {len(losses)} {k}: "
+                                 f"{got[k].item()} against {w.item()}")
+            loss_err = max(loss_err, err)
+        losses.append(got["loss"].item())
+    for h in hooks:
+        h.remove()
+    flips, flip_p, pre_err, g_err, flipped = _legacy_flips(*records)
+    del records
+    ref_sd = ref.state_dict()
+    leaf_err, flipped_err = 0.0, 0.0
+    for k, v in model.state_dict().items():
+        v, w = v.cpu(), ref_sd[k]
+        if k.startswith("Dense_2."):
+            flipped_err = max(flipped_err, ((v[flipped] - w[flipped]).abs(
+                ).max() / w.abs().max()).item() if flipped.any() else 0.0)
+            v, w = v[~flipped], w[~flipped]
+        leaf_err = max(leaf_err, _rel_max(f"legacy leaf {k}", v, w, 1e-4))
+    on_dev = [torch.from_numpy(a).to(dev) for a in batches[0]]
+    step_ms = cuda_ms(lambda: steps[0](*on_dev), reps=5, iters=4)
+    profile_phase("legacy_profile", lambda: steps[0](*on_dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, ref, steps, on_dev
+    fft = _legacy_fft_check(clip_audio)
+    stft = _legacy_stft_check()
+    phase("legacy", batch=LEGACY_BATCH, x_fft=list(x_fft.shape),
+          frames=list(fr.shape), params=n_params, losses=losses,
+          loss_err=loss_err, dense2_flips_per_step=flips,
+          dense2_flipped_units=int(flipped.sum()),
+          flip_pre_of_largest=flip_p, dense2_pre_err=pre_err,
+          v_out_grad_err=g_err, leaf_max_err_of_largest=leaf_err,
+          flipped_units_err_of_largest=flipped_err, step_ms=step_ms,
+          fft=fft, avmodel_stft=stft, s=time.perf_counter() - t0)
+
+
+def _vit_flops(tokens: int, dim: int, depth: int, patch: int) -> float:
+    """Multiply-adds x 2 of `get_last_selfattention` on one frame: the
+    patch embedding, depth - 1 whole blocks (qkv, attention, proj, MLP:
+    24 N D^2 + 4 N^2 D) and the last block's qkv and scores."""
+    n, d = tokens, dim
+    embed = 2 * (n - 1) * d * 3 * patch * patch
+    return embed + (depth - 1) * (24 * n * d * d + 4 * n * n * d) \
+        + 6 * n * d * d + 2 * n * n * d
+
+
+def features_phase(n_frames: int = 64, size: int = 256,
+                   store_frames: int = 32):
+    """Offline feature extraction on the card. The ViT-S/8 of
+    tests/fixtures/dino_golden.npz (seeded weights, the probe held) against
+    the fixture (attention rtol 1e-4, features rtol 1e-3);
+    `VideoAttention` over `n_frames` frames of `size`^2 in one call, its
+    first two frames against the CPU port's (within 1e-4 of the maps'
+    largest value), ms a frame beside the fp32 bound, and a profile of one
+    call; `flow_magnitude` over the same number of frames of a moving
+    blob, against the CPU (relative L2 1e-4), ms and a profile;
+    tools/save_attn_videos_torch.py end to end on a store in a temporary
+    directory (two grayscale videos of `store_frames` frames and one RGB
+    video of `n_frames`), the shards read back against VideoAttention
+    (within one uint8 unit); tools/flow_torch.py's `flow_frames` over the
+    RGB video on the card against the CPU (relative L2 1e-4), and its
+    ms."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.data.frame_shards import (
+        FrameShardStore,
+        write_frame_shard,
+    )
+    from maavss_tpu_torch.data.synthetic import moving_blob_frames
+    from maavss_tpu_torch.ops import dino, flow, image
+    from tools.flow_torch import flow_frames
+    from tools.save_attn_videos_torch import save_attention
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    fix = np.load(DINO_GOLDEN)
+    sd = dino.seeded_state_dict(DINO_SEED)
+    probe = np.concatenate([v.numpy().ravel()[:16] for v in sd.values()])
+    if not np.array_equal(probe, fix["weight_probe"]):
+        raise SystemExit("features: the golden's seeded weights drifted")
+    va = dino.VideoAttention(sd, device=dev)
+    with torch.no_grad():
+        x = torch.from_numpy(fix["x"]).to(dev)
+        attn = va.model.get_last_selfattention(x).cpu().numpy()
+        feats = va.model(x).cpu().numpy()
+    np.testing.assert_allclose(attn, fix["attn"], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(feats, fix["feats"], rtol=1e-3, atol=1e-4)
+    golden_err = (float(np.abs(attn - fix["attn"]).max()),
+                  float(np.abs(feats - fix["feats"]).max()))
+
+    g = np.random.default_rng(1)
+    clip = torch.from_numpy(g.standard_normal(
+        (n_frames, 3, size, size)).astype(np.float32))
+    on_dev = clip.to(dev)
+    maps = va(on_dev)
+    want = dino.VideoAttention(sd, device="cpu")(clip[:2])
+    maps_err = check_close("features VideoAttention", maps[:2].cpu(), want,
+                           1e-4, 0, scale_atol=True)
+    vit_ms = cuda_ms(lambda: va(on_dev), reps=3, iters=1)
+    profile_phase("features_vit_profile", lambda: va(on_dev), calls=1)
+    tokens = (size // 8) ** 2 + 1
+    flops = _vit_flops(tokens, 384, 12, 8)
+    vit_bound = bound_ms(nbytes(clip) / n_frames, flops)
+
+    blob = torch.from_numpy(moving_blob_frames(2, 1, n_frames, size)[0])
+    mag = flow.flow_magnitude(blob.to(dev))
+    mag_ref = flow.flow_magnitude(blob)
+    flow_rel = _rel_l2(mag.cpu().numpy(), mag_ref.numpy())
+    if not flow_rel <= 1e-4:
+        raise SystemExit(f"features flow_magnitude: rel L2 {flow_rel}")
+    on_dev_blob = blob.to(dev)
+    flow_ms = cuda_ms(lambda: flow.flow_magnitude(on_dev_blob), reps=5,
+                      iters=4)
+    profile_phase("features_flow_profile",
+                  lambda: flow.flow_magnitude(on_dev_blob))
+
+    with tempfile.TemporaryDirectory(prefix="maavss_attn_") as root:
+        rng = np.random.default_rng(3)
+        shards = []
+        for v in range(2):
+            fr = (moving_blob_frames(v, 1, store_frames, size)[0] * 200
+                  + rng.integers(0, 56, (store_frames, size, size)))
+            shards.append(fr.astype(np.uint8))
+            write_frame_shard(os.path.join(root, "frames"), f"vid{v}",
+                              shards[-1], 30.0)
+        # an RGB video of n_frames: the tools' [T, H, W, 3] branches
+        fr = moving_blob_frames(2, 1, n_frames, size)[0][..., None] \
+            * np.array([200, 120, 60]) \
+            + rng.integers(0, 56, (n_frames, size, size, 3))
+        shards.append(fr.astype(np.uint8))
+        write_frame_shard(os.path.join(root, "frames"), "vid2", shards[-1],
+                          30.0)
+        weights = os.path.join(root, "dino.pth")
+        torch.save({"teacher": sd}, weights)
+        t_tool = time.perf_counter()
+        out = save_attention(root, weights=weights, device=dev)
+        tool_s = time.perf_counter() - t_tool
+        store = FrameShardStore(out)
+        tool_err = 0
+        for v, fr in enumerate(shards):
+            got = store.read(v, np.arange(len(fr)))
+            x = torch.from_numpy(fr).to(dev).float() / 255.0
+            x = x.permute(0, 3, 1, 2) if x.ndim == 4 \
+                else x[:, None].expand(-1, 3, -1, -1)
+            want = (np.clip(va(image.normalize_imagenet(x))[:, 0].cpu()
+                            .numpy(), 0, 1) * 255).astype(np.uint8)
+            tool_err = max(tool_err, int(np.abs(got.astype(int)
+                                                 - want.astype(int)).max()))
+            if got.shape != (len(fr), size, size) or tool_err > 1 \
+                    or store.fps(v) != 30.0:
+                raise SystemExit(f"features save_attn_videos_torch: video {v}"
+                                 f" {got.shape}, error {tool_err}")
+
+        def tool_flow(device):
+            return flow_frames(root, video=2, num_frames=n_frames,
+                               rng=np.random.default_rng(0), device=device)
+
+        (v, tool_mag), (v_ref, tool_ref) = tool_flow(dev), tool_flow("cpu")
+        tool_flow_rel = _rel_l2(tool_mag, tool_ref)
+        if v != v_ref or tool_mag.shape != (n_frames, size, size) \
+                or not tool_flow_rel <= 1e-4:
+            raise SystemExit(f"features flow_torch.flow_frames: video {v}, "
+                             f"{tool_mag.shape}, rel L2 {tool_flow_rel}")
+        tool_flow_ms = cuda_ms(lambda: tool_flow(dev), reps=3, iters=1)
+    phase("features", golden_err=golden_err, frames=n_frames, size=size,
+          maps_err=maps_err, vit_ms_per_frame=vit_ms / n_frames,
+          vit_bound_ms_per_frame=vit_bound[0], vit_bound_by=vit_bound[1],
+          vit_gflop_per_frame=flops / 1e9, flow_rel_l2=flow_rel,
+          flow_ms=flow_ms, tool_s=tool_s, tool_err=tool_err,
+          tool_flow_rel_l2=tool_flow_rel, tool_flow_ms=tool_flow_ms,
+          s=time.perf_counter() - t0)
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -7565,6 +7998,8 @@ def main() -> None:
     evalp = eval_plane_phase()
     regimes = regimes_phase()
     remat = remat_phase()
+    legacy_phase()
+    features_phase()
 
     def graphed(name, dtypes=(g32, g16)):
         return sum(g.get(name, 0) for g in dtypes)

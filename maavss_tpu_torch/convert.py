@@ -9,18 +9,26 @@ benchmarks/torch_baseline.py:89-148), path component by component:
 - `Conv_i/kernel` [kh,kw,in,out] -> `Conv_i.weight` [out,in,kh,kw]; a
   conv3d kernel [kd,kh,kw,in,out] -> [out,in,kd,kh,kw] (the frames model's
   visual encoder)
+- a conv kernel under any other name (the legacy models' `setup` lists,
+  `audio_enc_convs_0`, `feature_convs_2`, ...) maps as `Conv_i`'s does:
+  every kernel of rank 3 or more is a conv's (`from_flax` only; `to_flax`
+  maps `Conv_i` and `ConvTranspose_i` weights)
 - `ConvTranspose_i/kernel` [kh,kw,in,out] -> spatially flipped,
   `ConvTranspose_i.weight` [in,out,kh,kw] (flax's ConvTranspose is a conv of
-  the dilated input with the unflipped kernel)
+  the dilated input with the unflipped kernel); a 3-D one [kd,kh,kw,in,out]
+  -> flipped on all three spatial axes, [in,out,kd,kh,kw]
 - Dense `kernel` [in,out] -> `weight` [out,in]
-- `BatchNorm_0/scale|bias` -> `BatchNorm_0.weight|bias`; batch_stats
-  `mean|var` -> `running_mean|running_var`
+- `BatchNorm_0/scale|bias` and a LayerNorm's -> `.weight|bias`;
+  batch_stats `mean|var` -> `running_mean|running_var`
 - LSTM `w_i` [D,4H] / `w_h` [H,4H] are kept in flax's layout: the recurrence
   kernel reads w_h as [H,4H], row k holding the four gates' weights of h[k];
   so are the GRU's (--rnn_cell gru) `w_i` [D,3H] / `w_h` [H,3H], gate
   columns (r, z, n); the ParallelMixer's (--rnn_cell none)
   `lstm/Dense_0/kernel` is a Dense kernel like any other
 - every `bias` maps 1:1
+
+`dino_from_flax` maps the JAX package's DINO ViT tree onto the official
+DINO names that `ops/dino.py` uses.
 
 The phasegram kernel stack's w2 [Co, 9*Cin] is not stored: the module
 derives it from `Conv_i.weight` per call, with column k*Cin + ci, the order
@@ -90,13 +98,14 @@ def _param_leaf(parts, value: np.ndarray) -> Tuple[str, np.ndarray]:
     """(torch leaf name, torch-layout value) for one flax param leaf."""
     parent, leaf = parts[-2] if len(parts) > 1 else "", parts[-1]
     if leaf == "kernel":
+        n = value.ndim
+        spatial = tuple(range(n - 2))
         if parent.startswith("ConvTranspose_"):
-            return "weight", value[::-1, ::-1].transpose(2, 3, 0, 1)
-        if parent.startswith("Conv_"):
-            spatial = tuple(range(value.ndim - 2))
-            return "weight", value.transpose(
-                (value.ndim - 1, value.ndim - 2) + spatial)
-        if value.ndim == 2:  # Dense
+            flipped = value[(slice(None, None, -1),) * len(spatial)]
+            return "weight", flipped.transpose((n - 2, n - 1) + spatial)
+        if n >= 3:  # a conv
+            return "weight", value.transpose((n - 1, n - 2) + spatial)
+        if n == 2:  # Dense
             return "weight", value.T
         raise ValueError(f"unmapped kernel {'/'.join(parts)} {value.shape}")
     if leaf == "scale":
@@ -133,14 +142,16 @@ def _flax_leaf(parts, value: np.ndarray) -> Tuple[str, np.ndarray]:
     inverse of `_param_leaf`."""
     parent, leaf = parts[-2] if len(parts) > 1 else "", parts[-1]
     if leaf == "weight":
+        n = value.ndim
+        spatial = tuple(range(2, n))
         if parent.startswith("ConvTranspose_"):
-            return "kernel", value.transpose(2, 3, 0, 1)[::-1, ::-1]
+            kernel = value.transpose(spatial + (0, 1))
+            return "kernel", kernel[(slice(None, None, -1),) * len(spatial)]
         if parent.startswith("Conv_"):
-            spatial = tuple(range(2, value.ndim))
             return "kernel", value.transpose(spatial + (1, 0))
         if parent == "BatchNorm_0":
             return "scale", value
-        if value.ndim == 2:  # Dense
+        if n == 2:  # Dense
             return "kernel", value.T
         raise ValueError(f"unmapped weight {'.'.join(parts)} {value.shape}")
     if leaf in ("bias", "w_i", "w_h"):
@@ -166,6 +177,30 @@ def to_flax(state_dict: Mapping[str, torch.Tensor]
         leaf, arr = _flax_leaf(parts, value)
         params["/".join(parts[:-1] + [leaf])] = np.ascontiguousarray(arr)
     return unflatten_tree(params), unflatten_tree(batch_stats)
+
+
+def dino_from_flax(params: Tree) -> Dict[str, torch.Tensor]:
+    """The JAX package's DINO ViT params (`maavss_tpu/ops/dino.py:
+    VisionTransformer`, numpy) -> a state_dict under the official DINO
+    names, which `ops/dino.VisionTransformer` loads strictly: `block{i}`
+    -> `blocks.{i}`, `mlp_fc1` -> `mlp.fc1`, `patch_embed` ->
+    `patch_embed.proj`, kernels in torch's layout."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in flatten_tree(params).items():
+        parts = path.split("/")
+        if parts[0].startswith("block"):
+            parts = ["blocks", parts[0][len("block"):]] + parts[1:]
+            if parts[2].startswith("mlp_"):
+                parts[2:3] = ["mlp", parts[2][len("mlp_"):]]
+        elif parts[0] == "patch_embed":
+            parts.insert(1, "proj")
+        if len(parts) == 1:  # cls_token, pos_embed
+            name, arr = parts[0], value
+        else:
+            leaf, arr = _param_leaf(parts, value)
+            name = ".".join(parts[:-1] + [leaf])
+        out[name] = torch.tensor(np.ascontiguousarray(arr, dtype=np.float32))
+    return out
 
 
 def random_flax_tree(shapes: Mapping[str, Tuple[int, ...]], seed: int

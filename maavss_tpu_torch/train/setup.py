@@ -8,7 +8,8 @@ with flax's distributions, and returns it on `device` in eval mode;
 pair). `build_frames_model` / `build_frames_state` do the same for the frames
 model. The initialisation:
 
-- conv (2-D and 3-D), transposed-conv and dense kernels: lecun-normal
+- conv (1-D to 3-D), transposed-conv (2-D and 3-D) and dense kernels:
+  lecun-normal
   (variance 1/fan_in, normal truncated at two standard deviations, flax's
   rescaled stddev); biases zero;
 - LSTM and GRU w_i / w_h: U(-1/sqrt(H), 1/sqrt(H)), drawn in fp32 and
@@ -161,10 +162,12 @@ def init_flax_like(model: nn.Module, generator: torch.Generator) -> None:
     """Re-initialise every parameter with flax's distributions (see module
     docstring), in module order."""
     for mod in model.modules():
-        if isinstance(mod, nn.ConvTranspose2d):  # weight [in, out, kh, kw]
-            kh, kw = mod.kernel_size
-            _lecun_normal_(mod.weight, mod.weight.shape[0] * kh * kw, generator)
-        elif isinstance(mod, (nn.Conv2d, nn.Conv3d)):  # weight [out, in, k..]
+        if isinstance(mod, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
+            # weight [in, out, k..]
+            _lecun_normal_(mod.weight, mod.weight.shape[0]
+                           * math.prod(mod.kernel_size), generator)
+        elif isinstance(mod, (nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+            # weight [out, in, k..]
             _lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
         elif isinstance(mod, nn.Linear):
             _lecun_normal_(mod.weight, mod.in_features, generator)

@@ -56,12 +56,16 @@ from maavss_tpu_torch.train.setup import (
     build_fusion,
 )
 from tests.test_torch_workers import share_cores
+from maavss_tpu_torch.ops.dino import VideoAttention
 from tools import (
     evaluate_torch,
     fit_torch,
+    flow_torch,
     quality_curve_torch,
+    save_attn_videos_torch,
     save_phasegrams_torch,
     separate_torch,
+    train_legacy_torch,
 )
 
 share_cores()
@@ -73,10 +77,11 @@ SMALL = dict(num_frames=4, num_seq=4, fft_len=64, p_size=16, latent_chan=8,
 
 def test_port_imports_without_jax():
     """Every module of the port, and tools/bench_torch.py, fit_torch.py,
-    save_phasegrams_torch.py, evaluate_torch.py, separate_torch.py and
-    quality_curve_torch.py with the modules they reach, load in a fresh
-    process without jax, ml_dtypes (which the card's machine lacks) or
-    maavss_tpu."""
+    save_phasegrams_torch.py, evaluate_torch.py, separate_torch.py,
+    quality_curve_torch.py, train_legacy_torch.py,
+    save_attn_videos_torch.py and flow_torch.py with the modules they
+    reach, load in a fresh process without jax, ml_dtypes (which the
+    card's machine lacks) or maavss_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import maavss_tpu_torch\n"
@@ -86,11 +91,13 @@ def test_port_imports_without_jax():
         "from tools import bench_torch, fit_torch, save_phasegrams_torch\n"
         "from tools import evaluate_torch, quality_curve_torch, "
         "separate_torch\n"
+        "from tools import train_legacy_torch, save_attn_videos_torch, "
+        "flow_torch\n"
         "bench_torch.kernel_counters(); bench_torch.bench_config({}, 8)\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'ml_dtypes', 'maavss_tpu') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 46, names\n"
+        "assert len(names) >= 51, names\n"
         "new = {'maavss_tpu_torch.ops.cuda_adam', "
         "'maavss_tpu_torch.train.fused_adam', 'maavss_tpu_torch.train.state', "
         "'maavss_tpu_torch.train.steps', 'maavss_tpu_torch.data.synthetic', "
@@ -102,7 +109,10 @@ def test_port_imports_without_jax():
         " 'maavss_tpu_torch.data.clip_index', 'maavss_tpu_torch.data.dataset',"
         " 'maavss_tpu_torch.exp.metrics', 'maavss_tpu_torch.exp.checkpoint',"
         " 'maavss_tpu_torch.exp.profiling', 'maavss_tpu_torch.train.trainer',"
-        " 'maavss_tpu_torch.ops.audio', 'maavss_tpu_torch.exp.viz'}\n"
+        " 'maavss_tpu_torch.ops.audio', 'maavss_tpu_torch.exp.viz',"
+        " 'maavss_tpu_torch.ops.fft_legacy', 'maavss_tpu_torch.data.generator',"
+        " 'maavss_tpu_torch.models.legacy', 'maavss_tpu_torch.ops.dino',"
+        " 'maavss_tpu_torch.ops.flow'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -314,7 +324,10 @@ def test_entry_points_default_to_cuda():
                build_frames_state, port_steps.make_frames_step,
                fit_torch.fit, save_phasegrams_torch.build_pgram_store,
                evaluate_torch.evaluate, separate_torch.separate_file,
-               quality_curve_torch.quality_curve):
+               quality_curve_torch.quality_curve, train_legacy_torch.train,
+               train_legacy_torch.build_legacy_model,
+               save_attn_videos_torch.save_attention, flow_torch.flow_frames,
+               VideoAttention.__init__):
         assert inspect.signature(fn).parameters["device"].default == "cuda", \
             fn.__name__
     if not torch.cuda.is_available():
@@ -332,7 +345,10 @@ def test_entry_points_default_to_cuda():
                 ("evaluate_torch.py", ["--model", "frames"]),
                 ("separate_torch.py", ["--audio", "missing.wav", "--out",
                                        "unwritten.wav"]),
-                ("quality_curve_torch.py", ["--steps", "1"])):
+                ("quality_curve_torch.py", ["--steps", "1"]),
+                ("train_legacy_torch.py", ["--data_path", "synthetic"]),
+                ("save_attn_videos_torch.py", ["--data_path", "synthetic"]),
+                ("flow_torch.py", ["--video", "0"])):
             out = subprocess.run([sys.executable, f"tools/{tool}", *argv],
                                  cwd=ROOT, env=env, capture_output=True,
                                  text=True, timeout=120)
