@@ -82,9 +82,10 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    on float16 rows, 3 train steps), run through the kernels.
 15. bench: tools/bench_torch.py's measure function at batch 8, 2 windows of
    5 steps (its defaults otherwise: full encode, rows, bf16), once more in
-   fp32 and once at MAAVSS_BENCH_MULTISTEP=5 (one CUDA-graph replay a
-   window), each JSON line as a phase; its kernel counts per optimizer
-   step must be the full-encode step's.
+   fp32, once at MAAVSS_BENCH_MULTISTEP=5 (one CUDA-graph replay a
+   window), and at its default batch 256 graphed the same way (the export
+   phase's cost report reads its step_ms), each JSON line as a phase; its
+   kernel counts per optimizer step must be the full-encode step's.
 16. k5_epilogue (K5, the frames encoder's fused BN + 2x2 max pool +
    LeakyReLU: stats, apply, bwd reduce, bwd dy): each kernel against its
    plain version at the flagship's stage-0 and stage-1 shapes, with a third
@@ -304,6 +305,24 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    store of two 32-frame grayscale videos and one 64-frame RGB video,
    with the shards read back; tools/flow_torch.py's flow_frames over the
    RGB video, card against CPU, and its ms.
+42. export (the serving export: ops/registry.py, exp/export.py,
+   exp/artifact.py): the fusion flagship (slice's configuration) and the
+   frames flagship (frames_slice's), batch 8, fp32, each exported by
+   torch.export: the graph's registered ops equal the live serving call's
+   launches (K1-fwd 4, K2-eval 40 and the STFT once; K1-fwd 4 and the STFT
+   once), the program's call moves the counters as much and gives the live
+   audio bit for bit; torch.library.opcheck of every registered op at the
+   shapes those calls give it (all its tests at an op's first shapes,
+   schema and fake tensor at the others; mask_mul, magphase,
+   polar_spectrum and mask_head_fwd at their main paths' shapes); each
+   artifact saved and served by tools/serve_torch.py --artifact in a
+   fresh process (python -X importtime: no model code, no jax) for 3 HTTP
+   requests, each reply bitwise the live function; the live and the
+   program's calls timed (CUDA events), and the eager fusion batch's host
+   time with the registered ops against their bodies called directly,
+   in turns. Then cost_report: tools/cost_report_torch.py's
+   compile_report of the bench's step (batch 256, bf16, full encode,
+   float16 rows) with the bench phase's graphed step_ms.
 
 Every phase that drives a train step or a serving batch counts the STFT
 kernel's launches exactly (one a step or a batch; none in stft_route) and
@@ -4343,19 +4362,22 @@ def bench_phase():
     """tools/bench_torch.py's measure function in this process at batch 8,
     2 windows of 5 steps, its defaults otherwise (full encode, float16
     rows, bf16), with its profiled step, once more at
-    MAAVSS_BENCH_DTYPE=float32, and once at MAAVSS_BENCH_MULTISTEP=5 (one
-    CUDA-graph replay of 5 steps a window, its profiled dispatch): each
-    JSON line as a phase. The value must be finite and the kernels it
-    counts per optimizer step those of the full-encode step."""
+    MAAVSS_BENCH_DTYPE=float32, once at MAAVSS_BENCH_MULTISTEP=5 (one
+    CUDA-graph replay of 5 steps a window, its profiled dispatch), and at
+    its default batch 256 at MAAVSS_BENCH_MULTISTEP=5: each JSON line as a
+    phase. The value must be finite and the kernels it counts per
+    optimizer step those of the full-encode step. Returns the graphed
+    batch-256 line (the export phase's cost report reads its step_ms)."""
     from tools import bench_torch
 
     want = _fullenc_want()
     want["stft_feat"] = want.pop("stft")
-    for env in ({}, {"MAAVSS_BENCH_DTYPE": "float32"},
-                {"MAAVSS_BENCH_MULTISTEP": "5"}):
+    for batch, env in ((8, {}), (8, {"MAAVSS_BENCH_DTYPE": "float32"}),
+                       (8, {"MAAVSS_BENCH_MULTISTEP": "5"}),
+                       (256, {"MAAVSS_BENCH_MULTISTEP": "5"})):
         line = bench_torch.with_baseline(bench_torch.measure(
-            8, steps=5, windows=2, device="cuda", env=env,
-            profile="MAAVSS_BENCH_DTYPE" not in env))
+            batch, steps=5, windows=2, device="cuda", env=env,
+            profile="MAAVSS_BENCH_DTYPE" not in env and batch == 8))
         k = line["kernels"]
         if (not math.isfinite(line["value"]) or line["value"] <= 0
                 or any(k[n] != v for n, v in want.items())
@@ -4368,6 +4390,7 @@ def bench_phase():
                              f"{line['multistep']}, kernels per step {k}, "
                              f"want {want}")
         phase("bench", **line)
+    return line
 
 
 # ------------------------------------------------------------ --dtype bf16
@@ -7945,6 +7968,390 @@ def features_phase(n_frames: int = 64, size: int = 256,
           s=time.perf_counter() - t0)
 
 
+# --------------------------------------------------------- the serving export
+
+# registered op (ops/registry.py) -> its kernel's counter (ops/counters.py)
+EXPORT_COUNTERS = {"lstm_fwd": "lstm_fwd", "pgenc_eval": "pgenc_eval",
+                   "stft_feat": "stft_feat", "mask_mul": "mask_mul",
+                   "magphase": "magphase", "polar_spectrum": "polar",
+                   "mask_head_fwd": "mask_head"}
+EXPORT_BATCH = 8
+EXPORT_ROWS = (8, 3, 5)  # the HTTP requests to each artifact's daemon
+# turns of the eager batch's host time with and without the dispatcher:
+# two turns of one setting read up to 26 % apart on a busy host
+EXPORT_HOST_TURNS = 6
+
+
+def _counted(fn):
+    """(fn(), {counter: launches} of that one call, the nonzero ones)."""
+    import torch
+
+    from maavss_tpu_torch.ops.counters import kernel_counters
+
+    counters = kernel_counters()
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: getattr(o, a) for n, (o, a) in counters.items()
+                 if getattr(o, a)}
+
+
+@contextlib.contextmanager
+def _direct_ops():
+    """The wrappers call each registered op's body directly, without the
+    dispatcher: the launches as they were before registration."""
+    from maavss_tpu_torch.ops import registry
+
+    saved = dict(registry.call)
+    registry.call.update(registry.impls)
+    try:
+        yield
+    finally:
+        registry.call.update(saved)
+
+
+@contextlib.contextmanager
+def _recorded_ops(calls):
+    """Append (op name, args) of every registered-op call to `calls`."""
+    from maavss_tpu_torch.ops import registry
+
+    saved = dict(registry.call)
+
+    def recorder(name, op):
+        def call(*args):
+            calls.append((name, args))
+            return op(*args)
+        return call
+
+    registry.call.update({n: recorder(n, op) for n, op in saved.items()})
+    try:
+        yield
+    finally:
+        registry.call.update(saved)
+
+
+def _opcheck(calls):
+    """torch.library.opcheck of each recorded (op, argument shapes) on
+    fresh detached copies of its arguments: all of opcheck's tests (schema,
+    autograd registration, fake tensor, AOT dispatch with dynamic shapes)
+    at an op's first shapes, its schema and fake-tensor tests at the
+    others. Returns what ran."""
+    import torch
+
+    from maavss_tpu_torch.ops import registry
+
+    def shapes(a):
+        if isinstance(a, torch.Tensor):
+            return (tuple(a.shape), str(a.dtype))
+        if isinstance(a, (list, tuple)):
+            return tuple(shapes(x) for x in a)
+        return a
+
+    done = {}
+    for name, args in calls:
+        key = (name, shapes(args))
+        if key in done:
+            continue
+        first = all(k[0] != name for k in done)
+        fresh = torch.utils._pytree.tree_map(
+            lambda t: t.detach().clone() if isinstance(t, torch.Tensor)
+            else t, args)
+        tests = {} if first else {"test_utils": ("test_schema",
+                                                  "test_faketensor")}
+        res = torch.library.opcheck(getattr(registry.ops, name).default,
+                                    fresh, **tests)
+        if any(v not in ("SUCCESS", "SKIP") for v in res.values()):
+            raise SystemExit(f"export: opcheck {name} at {key[1]}: {res}")
+        done[key] = res
+    return [{"op": k[0], "args": str(k[1])[:160], **v}
+            for k, v in done.items()]
+
+
+def _start_daemon(path, frames_model, log_path):
+    """tools/serve_torch.py --artifact `path` on a free port, under
+    `python -X importtime` (its imports logged to `log_path`)."""
+    cmd = [sys.executable, "-X", "importtime",
+           os.path.join(ROOT, "tools", "serve_torch.py"), "--artifact", path,
+           "--model", "frames" if frames_model else "fusion",
+           "-b", str(EXPORT_BATCH), "--port", "0", "--max_wait_ms", "1"]
+    log = open(log_path, "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=log, text=True)
+    log.close()
+    return proc
+
+
+def _daemon_url(proc, timeout_s=120.0):
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout_s)
+    line = proc.stdout.readline() if ready else ""
+    if not line.startswith("{"):
+        proc.kill()
+        raise SystemExit(f"export: the artifact daemon did not start "
+                         f"(exit {proc.poll()}): {line!r}")
+    return json.loads(line)
+
+
+def _stop_daemon(proc, log_path):
+    """SIGTERM the daemon; (its shutdown line, the modules it imported)."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=60)
+    with open(log_path) as f:
+        names = [ln.rsplit("|", 1)[-1].strip() for ln in f
+                 if ln.startswith("import time:") and "|" in ln]
+    return json.loads(out.strip().splitlines()[-1]), names
+
+
+def _model_code(names):
+    """The modules among `names` that an artifact's server must not load."""
+    return sorted(n for n in names if n.split(".")[0] in ("jax", "flax")
+                  or n.startswith(("maavss_tpu_torch.models",
+                                   "maavss_tpu_torch.train",
+                                   "maavss_tpu.")) or n == "maavss_tpu")
+
+
+def _in_turns(fns, turns):
+    """{name: [fn() once a turn]} of two timings, in turns a, b, b, a, ...
+    (the host's pace drifts over a run)."""
+    a, b = fns
+    out = {a: [], b: []}
+    for turn in range(turns):
+        for name in ((a, b) if turn % 2 == 0 else (b, a)):
+            out[name].append(fns[name]())
+    return out
+
+
+def _paired_growth(xs, ys):
+    """The median over turns of x / y - 1."""
+    return statistics.median(x / y for x, y in zip(xs, ys)) - 1.0
+
+
+def _export_case(label, model, cfg, frames_model, tmp):
+    """Export one family's serving function at full width; hold the
+    program against the live function in this process. Returns (fields,
+    artifact path, live function, the registered-op calls it made, inputs,
+    live output)."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.exp.artifact import artifact_serving_fn
+    from maavss_tpu_torch.exp.export import (
+        export_separator,
+        graph_op_counts,
+        make_serving_fn,
+        random_serving_inputs,
+        save_artifact,
+    )
+
+    live = make_serving_fn(model, cfg, frames_model)
+    rng = np.random.default_rng(300)
+    audio, visual = random_serving_inputs(cfg, EXPORT_BATCH, frames_model,
+                                          seed=300)
+    if not frames_model:
+        visual = rng.uniform(0, 1, visual.shape).astype(np.float32)
+    dev = [torch.from_numpy(x).cuda() for x in (audio, visual)]
+    calls = []
+    with _recorded_ops(calls):
+        live(*dev)
+    want, deltas = _counted(lambda: live(*dev))
+    t0 = time.perf_counter()
+    program = export_separator(model, cfg, EXPORT_BATCH, frames_model)
+    export_s = time.perf_counter() - t0
+    graph = {EXPORT_COUNTERS[n]: c for n, c in
+             graph_op_counts(program).items()}
+    if graph != deltas:
+        raise SystemExit(f"export {label}: graph ops {graph} != the live "
+                         f"call's launches {deltas}")
+    art = artifact_serving_fn(program)
+    got, art_deltas = _counted(lambda: art(*dev))
+    if art_deltas != deltas:
+        raise SystemExit(f"export {label}: the program's launches "
+                         f"{art_deltas} != the live call's {deltas}")
+    if not torch.equal(got, want):
+        raise SystemExit(f"export {label}: the program's audio differs from "
+                         f"the live function's by "
+                         f"{(got - want).abs().max().item()}")
+    try:  # traced on the card, it has no CPU route to fall back to
+        art(*(x.cpu() for x in dev))
+    except (RuntimeError, NotImplementedError) as e:
+        cpu_refusal = type(e).__name__
+    else:
+        raise SystemExit(f"export {label}: the card's program ran on CPU "
+                         f"tensors")
+    t0 = time.perf_counter()
+    path = save_artifact(os.path.join(tmp, label), program, cfg,
+                         EXPORT_BATCH, frames_model)
+    save_s = time.perf_counter() - t0
+    ms = _in_turns({"live": lambda: cuda_ms(lambda: live(*dev), reps=3,
+                                            iters=2),
+                    "artifact": lambda: cuda_ms(lambda: art(*dev), reps=3,
+                                                iters=2)}, turns=2)
+    fields = dict(ops=graph, cpu_refusal=cpu_refusal, export_s=export_s,
+                  save_s=save_s,
+                  artifact_mb=os.path.getsize(path) / 2 ** 20,
+                  live_ms=ms["live"], artifact_ms=ms["artifact"],
+                  artifact_over_live=_paired_growth(ms["artifact"],
+                                                    ms["live"]))
+    return fields, path, live, calls, (audio, visual), want.cpu().numpy()
+
+
+def _serve_artifact(label, proc, log_path, live, inputs, want, cfg,
+                    frames_model):
+    """EXPORT_ROWS requests to the artifact's daemon: the full batch's
+    reply bitwise the live function's output, the others bitwise the live
+    function on their zero-padded batch."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.exp.export import random_serving_inputs
+    from maavss_tpu_torch.exp.serving import SeparationClient
+
+    info = _daemon_url(proc)
+    client = SeparationClient(info["serving"])
+    try:
+        for i, rows in enumerate(EXPORT_ROWS):
+            if rows == EXPORT_BATCH:
+                audio, visual, exp = inputs[0], inputs[1], want
+            else:
+                audio, visual = random_serving_inputs(
+                    cfg, rows, frames_model, seed=310 + i)
+                if not frames_model:
+                    visual = np.random.default_rng(310 + i).uniform(
+                        0, 1, visual.shape).astype(np.float32)
+                pad = [np.zeros((EXPORT_BATCH,) + x.shape[1:], x.dtype)
+                       for x in (audio, visual)]
+                pad[0][:rows], pad[1][:rows] = audio, visual
+                exp = live(*[torch.from_numpy(x).cuda() for x in pad])[
+                    :rows].cpu().numpy()
+            out = client.separate(audio, visual)
+            if not np.array_equal(out, exp):
+                raise SystemExit(f"export {label}: the daemon's reply to "
+                                 f"{rows} rows differs from the live "
+                                 f"function by {np.abs(out - exp).max()}")
+        health = client.get_json("/healthz")
+    finally:
+        client.close()
+    shutdown, names = _stop_daemon(proc, log_path)
+    bad = _model_code(names)
+    if bad or not names:
+        raise SystemExit(f"export {label}: the artifact's daemon loaded "
+                         f"{bad or 'no module it logged'}")
+    if health.get("sidecar", {}).get("ops") is None:
+        raise SystemExit(f"export {label}: /healthz lacks the sidecar")
+    return dict(requests=list(EXPORT_ROWS), batches=shutdown["batches"],
+                daemon_modules=len(names), daemon_device=health["device"])
+
+
+def export_phase(bench_b256):
+    """The serving export (exp/export.py, exp/artifact.py, ops/registry.py)
+    at full width: the fusion configuration of `slice_phase` and the frames
+    configuration of `frames_slice_phase`, batch 8, fp32. For each: the
+    exported graph's registered ops equal the live call's launches, the
+    program's call moves the counters by the same amounts and gives the
+    live audio bit for bit, and raises on CPU tensors; opcheck of every
+    registered op at the shapes the two live calls give it (mask_mul,
+    magphase, polar_spectrum and mask_head_fwd at their main paths'
+    shapes, which these two calls do not run); the artifact saved, then
+    served by tools/serve_torch.py --artifact in a fresh process (python
+    -X importtime: no model code loaded) for EXPORT_ROWS HTTP requests,
+    bitwise the live function; the
+    live call and the program's call timed (CUDA events), and the eager
+    fusion batch's host time with the registered ops and with their bodies
+    called directly, in turns (each reported as the median over turns of
+    the paired ratio). While the daemons start: compile_report of
+    the bench's step at batch 256 (bf16, full encode, float16 rows) with
+    the bench phase's graphed step_ms there. Returns each kernel's
+    launches here."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.ops import cuda_complex as cc
+    from maavss_tpu_torch.ops.cuda_mask_head import mask_head_fwd
+    from maavss_tpu_torch.train.setup import build_frames_model, build_fusion
+    from tools import cost_report_torch
+
+    t_phase = time.perf_counter()
+    cfg = RunConfig(batch_size=EXPORT_BATCH)
+    g = torch.Generator().manual_seed(cfg.seed)
+    fusion = build_fusion(cfg, EXPORT_BATCH, "cuda", g)
+    frames = build_frames_model(cfg, EXPORT_BATCH, generator=torch.Generator()
+                                .manual_seed(cfg.seed))
+    out, totals, calls, cases, procs = {}, {}, [], {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            # the frames artifact (417 MB) first: its daemon loads while
+            # the fusion case runs
+            for label, model, frames_model in (("frames", frames, True),
+                                               ("fusion", fusion, False)):
+                fields, path, live, rec, inputs, want = _export_case(
+                    label, model, cfg, frames_model, tmp)
+                # its daemon starts while the next case runs
+                procs[label] = _start_daemon(path, frames_model, os.path.join(
+                    tmp, f"{label}.imports"))
+                for n, c in fields["ops"].items():
+                    # the live call's and the program's counted calls
+                    totals[n] = totals.get(n, 0) + 2 * c
+                cases[label] = (fields, live, inputs, want, frames_model)
+                calls += rec
+            t0 = time.perf_counter()
+            cost = cost_report_torch.report(
+                "fusion", bench_b256["batch"], bench_b256["dtype"],
+                measured_ms=bench_b256["step_ms"])
+            cost_s = time.perf_counter() - t0
+            fusion_live, fusion_inputs = cases["fusion"][1:3]
+            dev = [torch.from_numpy(x).cuda() for x in fusion_inputs]
+
+            def host_ms(direct):
+                with _direct_ops() if direct else contextlib.nullcontext():
+                    # one batch (423 launches) at a time: more would fill
+                    # the launch queue behind split_ms' sleep
+                    return split_ms(lambda: fusion_live(*dev), reps=7,
+                                    iters=1)[1]
+
+            host = _in_turns({"registered": lambda: host_ms(False),
+                              "direct": lambda: host_ms(True)},
+                             turns=EXPORT_HOST_TURNS)
+            gk = torch.Generator(device="cuda").manual_seed(5)
+            planar = torch.randn((EXPORT_BATCH, 2, 64, 128), device="cuda",
+                                 generator=gk)
+            with _recorded_ops(calls):
+                cc.mask_mul(planar, planar.flip(0))
+                cc.magphase_fwd(torch.randn((EXPORT_BATCH, 2, 96, 2048),
+                                            device="cuda", generator=gk))
+                cc.polar_spectrum_fwd(torch.randn(
+                    (EXPORT_BATCH, 2, 96, 128), device="cuda",
+                    generator=gk), 1)
+                mask_head_fwd(*_head_inputs(EXPORT_BATCH, False, gk)[:4])
+            t0 = time.perf_counter()
+            checks = _opcheck(calls)
+            opcheck_s = time.perf_counter() - t0
+            for label, (fields, live, inputs, want, frames_model) \
+                    in cases.items():
+                served = _serve_artifact(
+                    label, procs.pop(label),
+                    os.path.join(tmp, f"{label}.imports"), live, inputs,
+                    want, cfg, frames_model)
+                out[label] = {**fields, **served}
+        finally:
+            for proc in procs.values():
+                proc.kill()
+    ops = {c["op"] for c in checks}
+    if ops != set(EXPORT_COUNTERS):
+        raise SystemExit(f"export: opcheck ran on {sorted(ops)}")
+    phase("export", **out, opcheck=len(checks), opcheck_s=opcheck_s,
+          opcheck_ops=sorted(ops),
+          host_ms_registered=host["registered"], host_ms_direct=host["direct"],
+          host_growth=_paired_growth(host["registered"], host["direct"]),
+          seconds=time.perf_counter() - t_phase)
+    phase("cost_report", seconds=cost_s, **{k: v for k, v in cost.items()
+                                              if not isinstance(v, dict)})
+    return totals
+
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -7972,7 +8379,7 @@ def main() -> None:
     fullenc = fullenc_train_phase()
     fullenc_serve = fullenc_slice_phase()
     fullenc_golden_phase()
-    bench_phase()
+    bench_b256 = bench_phase()
     k5 = k5_phase()
     frames = frames_train_phase()
     frames_serve = frames_slice_phase()
@@ -8000,6 +8407,7 @@ def main() -> None:
     remat = remat_phase()
     legacy_phase()
     features_phase()
+    exported = export_phase(bench_b256)
 
     def graphed(name, dtypes=(g32, g16)):
         return sum(g.get(name, 0) for g in dtypes)
@@ -8025,11 +8433,13 @@ def main() -> None:
                      "maavss_tpu/ops/pallas_lstm.py:80",
                      serve["lstm"] + fullenc_serve["lstm_fwd"]
                      + frames_serve["lstm_fwd"] + graphed("lstm_fwd")
-                     + newer("lstm_fwd") + fit("lstm_fwd"), k1),
+                     + newer("lstm_fwd") + fit("lstm_fwd")
+                     + exported.get("lstm_fwd", 0), k1),
         kernel_entry("pgenc_eval", "pgenc_eval.cu",
                      "maavss_tpu/ops/pallas_pgenc.py:171",
                      serve["pgenc"] + fullenc_serve["pgenc_eval"]
-                     + fit("pgenc_eval"), dict(k2, library_ms=None)),
+                     + fit("pgenc_eval") + exported.get("pgenc_eval", 0),
+                     dict(k2, library_ms=None)),
         kernel_entry("lstm_bwd", "lstm_bwd.cu",
                      "maavss_tpu/ops/pallas_lstm.py:105",
                      train["lstm_bwd"] + fullenc["lstm_bwd"]
@@ -8080,7 +8490,8 @@ def main() -> None:
                      + frames_serve["stft"] + mask_train["stft"]
                      + mask_serve["stft"] + polar["stft"]
                      + graphed("stft_feat") + newer("stft")
-                     + fit("stft_feat"), stft),
+                     + fit("stft_feat") + exported.get("stft_feat", 0),
+                     stft),
         kernel_entry("polar", "spectral.cu",
                      "maavss_tpu/ops/pallas_kernels.py:143",
                      polar["polar"] + fit("polar"), k4["polar"]),

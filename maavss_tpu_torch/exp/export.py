@@ -1,43 +1,67 @@
-"""Serving function and its input specs (counterpart of
-maavss_tpu/exp/export.py: make_serving_fn, serving_input_specs,
-random_serving_inputs).
+"""Serving function, its input specs and its `torch.export` artifact
+(counterpart of maavss_tpu/exp/export.py: make_serving_fn,
+serving_input_specs, random_serving_inputs, export_separator,
+save_artifact; the load side is exp/artifact.py).
 
 The serving function receives the mixture directly (noise_scalar forced to
-0) and returns only the separated waveform. It closes over the model, whose
-weights live on its device; there is no exported artifact yet (a
-`torch.export` artifact is ROADMAP M10). `serving_info` is what the JAX
-package's artifact sidecar records (maavss_tpu/exp/export.py:135-150), the
-compute dtype among it; the daemon serves it on /healthz.
+0) and returns only the separated waveform: `ServingModule`, the windowed
+separator of either family in eval mode under torch.no_grad.
+`export_separator` traces it with `torch.export` at a pinned batch into an
+ExportedProgram whose state is the model's weights. The kernel gates
+resolve at trace time, as the JAX module says of its own: a program traced
+on the card carries the hand-written kernels as registered ops
+(ops/registry.py) and runs on the card alone; one traced on the CPU
+carries the plain versions. `save_artifact` writes it with its JSON
+sidecar (exp/artifact.py); `serving_info` is the sidecar's description of
+the served model, the compute dtype among it, which the daemon serves on
+/healthz.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+import json
+import os
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from maavss_tpu_torch.config import RunConfig
+from maavss_tpu_torch.exp.artifact import (  # noqa: F401 (re-exported)
+    GEOMETRY_FIELDS,
+    META_SUFFIX,
+    TensorSpec,
+    artifact_path,
+    graph_op_counts,
+    load_artifact,
+    weight_shapes,
+)
 from maavss_tpu_torch.train.infer import separate_frames_windows, separate_windows
 from maavss_tpu_torch.train.setup import check_supported
 
 
-# the run-config fields the JAX artifact's sidecar records
-# (maavss_tpu/exp/export.py:43-49)
-GEOMETRY_FIELDS = (
-    "fft_len", "hop", "hops_per_frame", "num_frames", "num_seq", "p_size",
-    "framesize", "samplerate", "latent_chan", "fc_size", "use_polar",
-    "normalize_fft", "normalize_output_fft", "mask_head", "rnn_cell",
-    "pgram_cache", "frames_encode", "fusion_encode",
-)
+class ServingModule(torch.nn.Module):
+    """(audio [B, S_total], visual) -> separated audio [B, S_total]: the
+    windowed separator of `model` (held as `self.model`) with noise_scalar
+    0, under torch.no_grad; the separators run the model in eval mode."""
 
+    def __init__(self, model: torch.nn.Module, cfg: RunConfig,
+                 frames_model: bool = False):
+        super().__init__()
+        self.model = model
+        self.cfg = cfg.replace(noise_scalar=0.0)
+        check_supported(self.cfg)
+        self.windows = (separate_frames_windows if frames_model
+                        else separate_windows)
+        self.visual_key = ("pgram" if (cfg.pgram_cache and not frames_model)
+                           else "frames")
 
-class TensorSpec(NamedTuple):
-    """Shape and numpy dtype of one serving input (jax.ShapeDtypeStruct's
-    role in the JAX package)."""
-
-    shape: Tuple[int, ...]
-    dtype: np.dtype
+    def forward(self, audio: torch.Tensor, visual: torch.Tensor
+                ) -> torch.Tensor:
+        with torch.no_grad():
+            out, _ = self.windows(self.model, self.cfg,
+                                  {"audio": audio, self.visual_key: visual})
+        return out
 
 
 def make_serving_fn(model, cfg: RunConfig, frames_model: bool = False):
@@ -46,17 +70,11 @@ def make_serving_fn(model, cfg: RunConfig, frames_model: bool = False):
     [B, T_total, p, p] for the fusion model, or its float16 phasegram rows
     [B, T_total, p^2] under --pgram_cache, and raw uint8 frames
     [B, T_total, framesize, framesize] for the frames model."""
-    serve_cfg = cfg.replace(noise_scalar=0.0)
-    check_supported(serve_cfg)
-    windows = separate_frames_windows if frames_model else separate_windows
-    visual_key = "pgram" if (cfg.pgram_cache and not frames_model) \
-        else "frames"
+    module = ServingModule(model, cfg, frames_model)
 
     @torch.inference_mode()
     def serving_fn(audio: torch.Tensor, visual: torch.Tensor) -> torch.Tensor:
-        out, _ = windows(model, serve_cfg, {"audio": audio,
-                                            visual_key: visual})
-        return out
+        return module(audio, visual)
 
     return serving_fn
 
@@ -109,3 +127,45 @@ def random_serving_inputs(cfg: RunConfig, batch: int,
         visual = (rng.standard_normal(v_spec.shape) * 0.1).astype(
             v_spec.dtype)
     return audio, visual
+
+
+def export_separator(model: torch.nn.Module, cfg: RunConfig, batch: int,
+                     frames_model: bool = False
+                     ) -> torch.export.ExportedProgram:
+    """`ServingModule(model, ...)` traced by torch.export (non-strict) on
+    inputs at `serving_input_specs(cfg, batch, frames_model)`, the batch
+    pinned, on the model's device; the model is left in the mode it had."""
+    a_spec, v_spec = serving_input_specs(cfg, batch, frames_model)
+    device = next(model.parameters()).device
+    audio = torch.zeros(a_spec.shape, dtype=torch.float32, device=device)
+    visual = torch.zeros(v_spec.shape, device=device,
+                         dtype=getattr(torch, v_spec.dtype.name))
+    was_training = model.training
+    module = ServingModule(model.eval(), cfg, frames_model)
+    try:
+        return torch.export.export(module, (audio, visual), strict=False)
+    finally:
+        model.train(was_training)
+
+
+def save_artifact(path: str, program: torch.export.ExportedProgram,
+                  cfg: RunConfig, batch: int, frames_model: bool = False
+                  ) -> str:
+    """Write `<path>.pt2` (torch.export.save) and its JSON sidecar
+    (exp/artifact.py); returns the artifact's path."""
+    path = artifact_path(path)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.export.save(program, path)
+    device = next(iter(program.state_dict.values())).device
+    meta = {
+        "torch_version": torch.__version__,
+        "device": device.type,
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        **serving_info(cfg, batch, frames_model),
+        "ops": graph_op_counts(program),
+        "weights": weight_shapes(program),
+    }
+    with open(path + META_SUFFIX, "w") as f:
+        json.dump(meta, f, indent=1)
+    return path

@@ -3,8 +3,10 @@ function (counterpart of maavss_tpu/exp/serving.py).
 
 - **One executor thread owns the device.** HTTP handler threads only
   enqueue and wait; the executor thread copies request rows to the card,
-  calls the serving function (exp/export.make_serving_fn) on CUDA tensors
-  and copies the result back.
+  calls the serving function (exp/export.make_serving_fn, or an exported
+  artifact's module under torch.inference_mode,
+  exp/artifact.artifact_serving_fn) on CUDA tensors and copies the result
+  back; tools/serve_torch.py puts the artifact's sidecar on /healthz.
 - **Weights are device-resident**: the model was built or loaded on the
   device once, and the serving function closes over it.
 - **Dynamic batching with zero-padding.** The executor runs a fixed batch B

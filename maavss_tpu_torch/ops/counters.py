@@ -2,7 +2,10 @@
 
 Each kernel wrapper adds one to its counter where it launches its kernel
 (`<wrapper>.launches`, and `mask_head_apply.bwd_launches` for the fused
-head's backward). `kernel_counters()` names them all for the tools that
+head's backward). The serving path's kernels launch inside registered torch
+ops (ops/registry.py), and their counters are incremented inside those ops,
+so that the launches of an exported program (exp/export.py) are counted as
+an eager call's. `kernel_counters()` names them all for the tools that
 read them (tools/bench_torch.py, chip_smoke.py) and for the CUDA-graph
 runner (train/cuda_graph.py), which adds a captured graph's launches to
 them on every replay.

@@ -31,7 +31,10 @@ The three kernels sit behind wrappers that launch them on CUDA tensors
 contiguous; no copy is made and nothing falls back) and run the plain
 versions on CPU tensors, and that count their launches in `.launches`:
 `mask_mul(a, b, conj=False)`, `magphase_fwd(x)`,
-`polar_spectrum_fwd(x, pad_bins)`. The models' `--mask_head` runs the mask
+`polar_spectrum_fwd(x, pad_bins)`. Each launches through its registered op
+(ops/registry.py: `mask_mul`, `magphase`, `polar_spectrum`, whose bodies
+are the `*_launch` functions here), so that an exported serving program
+carries it. The models' `--mask_head` runs the mask
 product inside the head's kernel (ops/cuda_mask_head.py) and the STFT
 features run magnitude and phase inside the STFT kernel (ops/stft.py);
 these functions stay the public counterparts of the JAX ones. The
@@ -150,6 +153,16 @@ def _launch(what: str, symbol: str, inputs, extra=()) -> torch.Tensor:
     return out
 
 
+def _call(name: str, what: str, inputs, *extra) -> torch.Tensor:
+    """The registered op `name` (ops/registry.py) on planar CUDA `inputs`,
+    their layouts checked first."""
+    from maavss_tpu_torch.ops import registry
+
+    for tensor in inputs:
+        _kernel_layout(what, tensor, inputs[0].device)
+    return registry.call[name](*inputs, *extra)
+
+
 def mask_mul(a: torch.Tensor, b: torch.Tensor,
              conj: bool = False) -> torch.Tensor:
     """a * b, or a * conj(b): planar [..., 2, T, F] of one shape."""
@@ -160,12 +173,18 @@ def mask_mul(a: torch.Tensor, b: torch.Tensor,
                          f"{tuple(b.shape)} differ")
     if not a.is_cuda:
         return mask_mul_plain(a, b, conj)
-    out = _launch("mask_mul", "maavss_mask_mul", (a, b), (int(conj),))
-    mask_mul.launches += 1
-    return out
+    return _call("mask_mul", "mask_mul", (a, b), bool(conj))
 
 
 mask_mul.launches = 0
+
+
+def mask_mul_launch(a: torch.Tensor, b: torch.Tensor,
+                    conj: bool) -> torch.Tensor:
+    """The registered op `mask_mul` on CUDA: one launch."""
+    out = _launch("mask_mul", "maavss_mask_mul", (a, b), (int(conj),))
+    mask_mul.launches += 1
+    return out
 
 
 def magphase_fwd(x: torch.Tensor) -> torch.Tensor:
@@ -173,12 +192,17 @@ def magphase_fwd(x: torch.Tensor) -> torch.Tensor:
     _check_planar("magphase", x)
     if not x.is_cuda:
         return magphase_fwd_plain(x)
-    out = _launch("magphase", "maavss_magphase", (x,))
-    magphase_fwd.launches += 1
-    return out
+    return _call("magphase", "magphase", (x,))
 
 
 magphase_fwd.launches = 0
+
+
+def magphase_launch(x: torch.Tensor) -> torch.Tensor:
+    """The registered op `magphase` on CUDA: one launch."""
+    out = _launch("magphase", "maavss_magphase", (x,))
+    magphase_fwd.launches += 1
+    return out
 
 
 def polar_spectrum_fwd(x: torch.Tensor, pad_bins: int = 0) -> torch.Tensor:
@@ -189,6 +213,15 @@ def polar_spectrum_fwd(x: torch.Tensor, pad_bins: int = 0) -> torch.Tensor:
         raise ValueError(f"polar_to_spectrum: pad_bins {pad_bins} < 0")
     if not x.is_cuda:
         return polar_spectrum_fwd_plain(x, pad_bins)
+    return _call("polar_spectrum", "polar_to_spectrum", (x,), int(pad_bins))
+
+
+polar_spectrum_fwd.launches = 0
+
+
+def polar_spectrum_launch(x: torch.Tensor, pad_bins: int) -> torch.Tensor:
+    """The registered op `polar_spectrum` on CUDA: one launch of the polar
+    kernel in its spectrum form."""
     from maavss_tpu_torch.ops import _build
 
     n, bs, ps, rs = _kernel_layout("polar_to_spectrum", x, x.device)
@@ -202,9 +235,6 @@ def polar_spectrum_fwd(x: torch.Tensor, pad_bins: int = 0) -> torch.Tensor:
                    f + pad_bins))
     polar_spectrum_fwd.launches += 1
     return out
-
-
-polar_spectrum_fwd.launches = 0
 
 
 # ------------------------------------------------------- autograd Functions

@@ -21,7 +21,10 @@ direction's.
 `lstm_recurrence` and `lstm_recurrence_bwd` take one or two directions and
 run them in ONE launch of thread-block clusters on a CUDA tensor (the
 backward adds a dW_h kernel), with the geometry of `lstm_geometry`; on a CPU
-tensor they run the plain versions. There is no fallback from a kernel to
+tensor they run the plain versions. The forward launches through the
+registered op `maavss_tpu_torch::lstm_fwd` (ops/registry.py, its body
+`lstm_fwd_launch`), so that an exported serving program carries it; the
+backward is a direct launch. There is no fallback from a kernel to
 the plain version on the card: a shape the kernels do not take raises.
 `lstm_bidir` is the autograd Function over both directions: its forward
 saves (w_h, ys, cs, acts) when a gradient is wanted, its backward is the
@@ -197,11 +200,30 @@ def lstm_recurrence(xws: Sequence[torch.Tensor], w_hs: Sequence[torch.Tensor],
         raise ValueError(f"lstm kernel: xw's last axis must be 4H, got "
                          f"{four_h}")
     dtype, dev = xws[0].dtype, xws[0].device
-    geo = _kernel_geometry(xws[0], h_dim, len(xws))
     _check_tensors(xws, (b, t_len, four_h), dtype, dev, "xw [B, T, 4H]")
     _check_tensors(w_hs, (h_dim, four_h), dtype, dev, "w_h [H, 4H]")
+    lstm_geometry(b, h_dim, dtype, len(xws))  # raises on what K1 refuses
+    from maavss_tpu_torch.ops import registry
+
+    flat = registry.call["lstm_fwd"](list(xws), list(w_hs),
+                                     [bool(r) for r in reverses],
+                                     bool(save_acts))
+    per = 3 if save_acts else 2
+    return [tuple(flat[k * per:(k + 1) * per]) + (() if save_acts else (None,))
+            for k in range(len(xws))]
+
+
+def lstm_fwd_launch(xws: List[torch.Tensor], w_hs: List[torch.Tensor],
+                    reverses: List[bool], save_acts: bool
+                    ) -> List[torch.Tensor]:
+    """The registered op `lstm_fwd` on CUDA (ops/registry.py): K1-fwd's one
+    launch over checked arguments -> [ys, cs(, acts)] per direction."""
     from maavss_tpu_torch.ops import _build
 
+    b, t_len, four_h = xws[0].shape
+    h_dim = four_h // 4
+    dtype, dev = xws[0].dtype, xws[0].device
+    geo = _kernel_geometry(xws[0], h_dim, len(xws))
     outs = [(torch.empty(b, t_len, h_dim, dtype=dtype, device=dev),
              torch.empty(b, t_len, h_dim, dtype=dtype, device=dev),
              torch.empty(b, t_len, four_h, dtype=torch.float32, device=dev)
@@ -216,7 +238,7 @@ def lstm_recurrence(xws: Sequence[torch.Tensor], w_hs: Sequence[torch.Tensor],
     _build.launch("maavss_lstm_fwd", dev, (
         *args, len(xws), b, t_len, h_dim, _DTYPE_CODES[dtype], geo.rows))
     lstm_recurrence.launches += 1
-    return outs
+    return [t for out in outs for t in out if t is not None]
 
 
 lstm_recurrence.launches = 0

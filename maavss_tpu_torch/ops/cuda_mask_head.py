@@ -22,7 +22,10 @@ CUDA tensors (fp32; h and weight contiguous and 16-byte aligned with K a
 multiple of 4, bias contiguous; the STFT and the cotangent read in place
 through their (item, plane, row) strides; nothing is copied and nothing
 falls back) and count their launches in `mask_head_apply.launches` and
-`mask_head_apply.bwd_launches`. Where the STFT itself needs a gradient (no
+`mask_head_apply.bwd_launches`. The forward launches through the registered
+op `maavss_tpu_torch::mask_head_fwd` (ops/registry.py, its body
+`mask_head_fwd_launch`), so that an exported serving program carries it;
+the backward is a direct launch. Where the STFT itself needs a gradient (no
 path of the system asks for one), the forward also writes the mask and the
 backward takes d_stft through the standalone `mask_mul(g, mask,
 conj=True)`.
@@ -74,7 +77,9 @@ def mask_head_layout(h: torch.Tensor, weight: torch.Tensor,
     what they do not take: a dtype other than float32, h or weight not
     contiguous or not 16-byte aligned, K not a multiple of 4, a bias that is
     not contiguous, an STFT layout the strides cannot address, tensors not on
-    one CUDA device. A pure function of the tensors' metadata."""
+    one CUDA device. A pure function of the tensors' metadata: alignment is
+    read from the storage offset, and the launchers assert the pointers
+    (`_assert_aligned`)."""
     m, k, _, _ = _dims(h, weight, bias, stft)
     for name, x in (("h", h), ("weight", weight), ("bias", bias),
                     ("stft", stft)):
@@ -82,7 +87,9 @@ def mask_head_layout(h: torch.Tensor, weight: torch.Tensor,
             raise TypeError(f"mask_head kernel takes float32 tensors, got "
                             f"{name} {x.dtype}")
     for name, x in (("h", h), ("weight", weight)):
-        if not x.is_contiguous() or x.data_ptr() % 16:
+        # the allocator aligns every base, so the offset decides (a fake
+        # tensor under a trace has no pointer); the ops assert the pointer
+        if not x.is_contiguous() or x.storage_offset() * x.element_size() % 16:
             raise ValueError(f"mask_head kernel needs {name} contiguous and "
                              f"16-byte aligned")
     if k % 4:
@@ -128,14 +135,34 @@ def mask_head_apply_plain(h, weight, bias, stft):
 # ---------------------------------------------------------------- wrappers
 
 
+def _assert_aligned(h, weight) -> None:
+    if h.data_ptr() % 16 or weight.data_ptr() % 16:
+        raise ValueError("mask_head kernel needs h and weight 16-byte "
+                         "aligned")
+
+
 def mask_head_fwd(h, weight, bias, stft, save_mask=False):
     """(out [M, 2, T, F] contiguous, the mask or None)."""
-    m, k, t, f = _dims(h, weight, bias, stft)
+    _dims(h, weight, bias, stft)
     if _device(h, weight, bias, stft).type == "cpu":
         return mask_head_fwd_plain(h, weight, bias, stft, save_mask)
+    mask_head_layout(h, weight, bias, stft)
+    from maavss_tpu_torch.ops import registry
+
+    outs = registry.call["mask_head_fwd"](h, weight, bias, stft,
+                                          bool(save_mask))
+    return outs[0], (outs[1] if save_mask else None)
+
+
+def mask_head_fwd_launch(h, weight, bias: Optional[torch.Tensor], stft,
+                         save_mask: bool):
+    """The registered op `mask_head_fwd` on CUDA (ops/registry.py): one
+    launch -> [out] or [out, mask]."""
     from maavss_tpu_torch.ops import _build
 
+    m, k, t, f = _dims(h, weight, bias, stft)
     bs, ps, rs = mask_head_layout(h, weight, bias, stft)
+    _assert_aligned(h, weight)
     out = torch.empty((m, 2, t, f), dtype=torch.float32, device=h.device)
     mask = (torch.empty((m, 2, t, f), dtype=torch.float32, device=h.device)
             if save_mask else None)
@@ -145,7 +172,7 @@ def mask_head_fwd(h, weight, bias, stft, save_mask=False):
         rs, out.data_ptr(), None if mask is None else mask.data_ptr(), m, k,
         t, f))
     mask_head_apply.launches += 1
-    return out, mask
+    return [out] if mask is None else [out, mask]
 
 
 def mask_head_bwd(g, h, weight, stft, has_bias):
@@ -159,6 +186,7 @@ def mask_head_bwd(g, h, weight, stft, has_bias):
     from maavss_tpu_torch.ops import _build
 
     bs, ps, rs = mask_head_layout(h, weight, None, stft)
+    _assert_aligned(h, weight)
     g = cc._fit(g)
     g_lay = cc._kernel_layout("mask_head_bwd", g, h.device)
     dev = h.device

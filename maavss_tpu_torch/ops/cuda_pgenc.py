@@ -29,7 +29,11 @@ resident (`_resident_blocks`), with the batch statistics summed in its
 epilogue.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
-the plain version. There is no fallback from a kernel on the card.
+the plain version. There is no fallback from a kernel on the card. The
+eval layer launches through the registered op `maavss_tpu_torch::
+pgenc_eval` (ops/registry.py, its body `pgenc_eval_launch`), so that an
+exported serving program carries it; the train-mode kernels are direct
+launches.
 """
 
 from __future__ import annotations
@@ -257,12 +261,23 @@ def pgenc_layer(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
             raise RuntimeError("the CUDA pgenc kernel needs CUDA tensors")
         return pgenc_layer_plain(x, w2, *vecs)
     _check_kernel_args(x, w2, vecs)
-    y = _eval_launch(x, w2, vecs, pgenc_plan(c_in, r, s, w2.shape[0]))
-    pgenc_layer.launches += 1
-    return y
+    pgenc_plan(c_in, r, s, w2.shape[0])  # raises on a shape K2 refuses
+    from maavss_tpu_torch.ops import registry
+
+    return registry.call["pgenc_eval"](x, w2, *vecs)
 
 
 pgenc_layer.launches = 0
+
+
+def pgenc_eval_launch(x, w2, cbias, gamma, beta, mean, var) -> torch.Tensor:
+    """The registered op `pgenc_eval` on CUDA (ops/registry.py): K2-eval at
+    the layer's tile plan, on checked arguments -> y."""
+    c_in, r, s = x.shape
+    y = _eval_launch(x, w2, (cbias, gamma, beta, mean, var),
+                     pgenc_plan(c_in, r, s, w2.shape[0]))
+    pgenc_layer.launches += 1
+    return y
 
 
 def _eval_launch(x, w2, vecs, plan: PgencPlan) -> torch.Tensor:

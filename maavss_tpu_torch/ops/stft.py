@@ -12,8 +12,9 @@ geometry alone (`stft_route`, as `lstm_backend` picks K1's):
 - "kernel": one launch of the hand-written kernel of `csrc/stft_feat.cu`
   (window, reflect padding, a shared-memory FFT, the norm and, for polar
   features (--use_polar), magnitude and phase in its epilogue;
-  power-of-two `fft_len` from 16 to 2048, forward only), counted in
-  `stft_features.launches`;
+  power-of-two `fft_len` from 16 to 2048, forward only), through the
+  registered op `maavss_tpu_torch::stft_feat` (ops/registry.py, its body
+  `stft_feat_launch`), counted in `stft_features.launches`;
 - "fft": every other `fft_len` (`stft_features_fft`): the plain framing and
   `torch.fft.rfft` (cuFFT; the JAX package leaves its FFT to XLA too), then
   for polar features K4's standalone magphase kernel (ops/cuda_complex.py).
@@ -138,9 +139,11 @@ def stft_kernel_refusal(fft_len: int, hop: int, samples: int
 @functools.lru_cache(maxsize=None)
 def _stft_tables(fft_len: int, device: torch.device):
     """(window [N] fp32, twiddles exp(-2 pi i k / N) [N / 2, 2] fp32, the
-    window's norm as a float) on `device`: the window and its norm by the
-    plain path's own code on the same device, so the same fp32 values; the
-    twiddles rounded from fp64."""
+    window's norm as a host float) on `device`: the window and its norm by
+    the plain path's own code on the same device, so the same fp32 values;
+    the twiddles rounded from fp64. Read inside the STFT op at its first
+    launch for (fft_len, device), and cached: a trace never reads a value
+    from a device tensor."""
     window = hamming_window(fft_len, dtype=torch.float32, device=device)
     k = torch.arange(fft_len // 2, dtype=torch.float64)
     ang = -2.0 * math.pi * k / fft_len
@@ -178,8 +181,6 @@ def stft_features(audio: torch.Tensor, fft_len: int, hop: int,
     if not audio.is_cuda:
         return stft_features_plain(audio, fft_len, hop, normalized,
                                    trim_end, polar)
-    from maavss_tpu_torch.ops import _build
-
     if audio.dtype != torch.float32:
         raise TypeError(f"stft_features: the STFT kernel takes float32 "
                         f"audio, got {audio.dtype}")
@@ -191,14 +192,36 @@ def stft_features(audio: torch.Tensor, fft_len: int, hop: int,
     if stft_route(fft_len, hop, samples) == "fft":
         return stft_features_fft(audio, fft_len, hop, normalized, trim_end,
                                  polar)
-    try:
-        rows = audio.view(-1, samples)
-    except RuntimeError:
-        rows = None
-    if rows is None or (samples > 1 and rows.stride(1) != 1):
+    if _rows(audio) is None:
         raise ValueError(f"stft_features: the STFT kernel needs a contiguous "
                          f"last axis and leading axes of one stride, got "
                          f"strides {audio.stride()}")
+    from maavss_tpu_torch.ops import registry
+
+    return registry.call["stft_feat"](audio, fft_len, hop, normalized,
+                                      trim_end, polar)
+
+
+def _rows(audio: torch.Tensor) -> Optional[torch.Tensor]:
+    """audio as [rows, samples] without a copy, or None where its leading
+    axes do not collapse into one stride over a contiguous last axis."""
+    samples = audio.shape[-1]
+    try:
+        rows = audio.view(-1, samples)
+    except RuntimeError:
+        return None
+    return None if samples > 1 and rows.stride(1) != 1 else rows
+
+
+def stft_feat_launch(audio: torch.Tensor, fft_len: int, hop: int,
+                     normalized: bool, trim_end: bool, polar: bool
+                     ) -> torch.Tensor:
+    """The registered op `stft_feat` on CUDA (ops/registry.py): one launch
+    of the STFT kernel on checked audio -> features [..., 2, T, F]."""
+    from maavss_tpu_torch.ops import _build
+
+    samples = audio.shape[-1]
+    rows = _rows(audio)
     t_len = samples // hop
     f_len = fft_len // 2 if trim_end else fft_len // 2 + 1
     out = torch.empty(audio.shape[:-1] + (2, t_len, f_len),

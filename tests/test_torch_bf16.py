@@ -275,16 +275,24 @@ _MODULE_SHAPES = {"bn": (4, 8, 6, 10), "stft": (4, 2, 16, 32),
 
 
 def _module_variables(kind):
+    """A fresh copy of `_module_variables_once(kind)`."""
+    return jax.tree_util.tree_map(np.copy, _module_variables_once(kind))
+
+
+@functools.lru_cache(maxsize=None)
+def _module_variables_once(kind):
     """A flax init of the module with every BatchNorm statistic, scale and
-    shift and every conv bias random, and the LSTM's leaves bf16 values."""
+    shift and every conv bias random, and the LSTM's leaves bf16 values;
+    the init under one jit (the eager init's values, without its truncated
+    normal compiled once a kernel shape)."""
     x = jnp.zeros(_MODULE_SHAPES[kind])
     module, _ = _jax_module_fn(kind, "float32", False)
     if kind == "bn":
         x = jnp.moveaxis(x, 1, -1)
     args = (x,) if kind == "lstm" else (x, False)
     with _env(JAX_ENV):
-        flat = flatten_tree(jax.tree_util.tree_map(np.asarray, module.init(
-            jax.random.PRNGKey(1), *args)))
+        flat = flatten_tree(jax.tree_util.tree_map(np.asarray, jax.jit(
+            lambda key: module.init(key, *args))(jax.random.PRNGKey(1))))
     rng = np.random.default_rng(5)
     for path in sorted(flat):
         if path.endswith(("var", "scale")):
@@ -654,6 +662,8 @@ def _jax_step_run(family, dtype, tree, batch, steps=1):
     first moment). One compile per family and dtype."""
     key = (family, dtype)
     if key not in _JAX_RUNS:
+        # the optimizer is a static field of the state: one object a key,
+        # or every run would compile the step again
         if family == "fusion":
             cfg = JaxRunConfig(**FUSION).replace(pgenc_kernel="xla")
             model = _jax_fusion(cfg, dtype)
@@ -663,12 +673,12 @@ def _jax_step_run(family, dtype, tree, batch, steps=1):
             model = _jax_frames(cfg, dtype)
             make = jax_frames_step
         with _env(JAX_ENV):
-            _JAX_RUNS[key] = make(model, cfg)
-    step = _JAX_RUNS[key]
+            _JAX_RUNS[key] = make(model, cfg), make_optimizer(
+                FUSION["learning_rate"], "adam", kernel="pallas")
+    step, tx = _JAX_RUNS[key]
     v = _jax_tree(tree, dtype)
     state = create_train_state(
-        {"params": v["params"], "batch_stats": v["batch_stats"]},
-        make_optimizer(FUSION["learning_rate"], "adam", kernel="pallas"))
+        {"params": v["params"], "batch_stats": v["batch_stats"]}, tx)
     jbatch = {k: jnp.asarray(a) for k, a in batch.items()}
     metrics = []
     with _env(JAX_ENV):
@@ -786,14 +796,17 @@ def _jax_separate(dtype, tree, batch):
     if dtype not in _JAX_SEPS:
         jcfg = JaxRunConfig(**FUSION)
         with _env(JAX_ENV):
-            _JAX_SEPS[dtype] = jax_make_separator(_jax_fusion(jcfg, dtype),
-                                                  jcfg)
+            # one optimizer object (a static field of the state) a dtype
+            _JAX_SEPS[dtype] = (jax_make_separator(_jax_fusion(jcfg, dtype),
+                                                   jcfg),
+                                make_optimizer(FUSION["learning_rate"],
+                                               "adam"))
+    separate, tx = _JAX_SEPS[dtype]
     v = _jax_tree(tree, dtype)
     state = create_train_state(
-        {"params": v["params"], "batch_stats": v["batch_stats"]},
-        make_optimizer(FUSION["learning_rate"], "adam"))
+        {"params": v["params"], "batch_stats": v["batch_stats"]}, tx)
     with _env(JAX_ENV):
-        return np.asarray(_JAX_SEPS[dtype](
+        return np.asarray(separate(
             state, {k: jnp.asarray(a) for k, a in batch.items()},
             jax.random.PRNGKey(0))["audio_out"])
 

@@ -30,6 +30,8 @@ and tests/test_torch_frames_step.py explain; separated audio relative L2
 1e-4.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -114,9 +116,20 @@ def _jax_model(cfg, frames, mask_head, mid=None):
 
 
 def _jax_init(model, frames):
+    """A fresh copy of the model's flax init (`_jax_init_once`)."""
+    return jax.tree_util.tree_map(np.copy, _jax_init_once(model, frames))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_init_once(model, frames):
+    """model.init under one jit, once a model: the same values as the eager
+    init, which compiles a truncated normal for every kernel shape on its
+    own (25-31 s for a family's first model on the CPU)."""
     second = model.frame_shape if frames else model.pgram_shape
-    v = model.init(jax.random.PRNGKey(0), jnp.zeros(model.stft_shape),
-                   jnp.zeros(second), method=model.init_all)
+    v = jax.jit(lambda key: model.init(key, jnp.zeros(model.stft_shape),
+                                       jnp.zeros(second),
+                                       method=model.init_all))(
+        jax.random.PRNGKey(0))
     return jax.tree_util.tree_map(np.asarray, v)
 
 

@@ -79,9 +79,10 @@ def test_port_imports_without_jax():
     """Every module of the port, and tools/bench_torch.py, fit_torch.py,
     save_phasegrams_torch.py, evaluate_torch.py, separate_torch.py,
     quality_curve_torch.py, train_legacy_torch.py,
-    save_attn_videos_torch.py and flow_torch.py with the modules they
-    reach, load in a fresh process without jax, ml_dtypes (which the
-    card's machine lacks) or maavss_tpu."""
+    save_attn_videos_torch.py, flow_torch.py, export_model_torch.py,
+    serve_torch.py and cost_report_torch.py with the modules they reach,
+    load in a fresh process without jax, ml_dtypes (which the card's
+    machine lacks) or maavss_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import maavss_tpu_torch\n"
@@ -93,11 +94,13 @@ def test_port_imports_without_jax():
         "separate_torch\n"
         "from tools import train_legacy_torch, save_attn_videos_torch, "
         "flow_torch\n"
+        "from tools import export_model_torch, serve_torch, "
+        "cost_report_torch\n"
         "bench_torch.kernel_counters(); bench_torch.bench_config({}, 8)\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'ml_dtypes', 'maavss_tpu') "
         "if m in sys.modules]\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 51, names\n"
+        "assert len(names) >= 53, names\n"
         "new = {'maavss_tpu_torch.ops.cuda_adam', "
         "'maavss_tpu_torch.train.fused_adam', 'maavss_tpu_torch.train.state', "
         "'maavss_tpu_torch.train.steps', 'maavss_tpu_torch.data.synthetic', "
@@ -112,7 +115,8 @@ def test_port_imports_without_jax():
         " 'maavss_tpu_torch.ops.audio', 'maavss_tpu_torch.exp.viz',"
         " 'maavss_tpu_torch.ops.fft_legacy', 'maavss_tpu_torch.data.generator',"
         " 'maavss_tpu_torch.models.legacy', 'maavss_tpu_torch.ops.dino',"
-        " 'maavss_tpu_torch.ops.flow'}\n"
+        " 'maavss_tpu_torch.ops.flow', 'maavss_tpu_torch.ops.registry',"
+        " 'maavss_tpu_torch.exp.artifact'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -348,12 +352,31 @@ def test_entry_points_default_to_cuda():
                 ("quality_curve_torch.py", ["--steps", "1"]),
                 ("train_legacy_torch.py", ["--data_path", "synthetic"]),
                 ("save_attn_videos_torch.py", ["--data_path", "synthetic"]),
-                ("flow_torch.py", ["--video", "0"])):
+                ("flow_torch.py", ["--video", "0"]),
+                ("export_model_torch.py", ["--out", "unwritten"]),
+                ("serve_torch.py", ["--artifact", "missing.pt2"])):
             out = subprocess.run([sys.executable, f"tools/{tool}", *argv],
                                  cwd=ROOT, env=env, capture_output=True,
                                  text=True, timeout=120)
             assert out.returncode != 0, tool
             assert "CUDA is not available" in out.stderr, tool
+
+
+def test_registered_ops_have_no_cpu_kernel():
+    """The serving path's kernels are registered ops with a CUDA kernel
+    alone: called on CPU tensors they raise (the wrappers take the plain
+    versions before reaching them), and their outputs carry no gradient."""
+    from maavss_tpu_torch.ops import registry
+
+    assert set(registry.call) == set(registry.SCHEMAS) == {
+        "lstm_fwd", "pgenc_eval", "stft_feat", "mask_mul", "magphase",
+        "polar_spectrum", "mask_head_fwd"}
+    x = torch.zeros(2, 2, 4, 8)
+    with pytest.raises(NotImplementedError, match="maavss_tpu_torch::"):
+        registry.call["magphase"](x)
+    with pytest.raises(NotImplementedError, match="maavss_tpu_torch::"):
+        registry.call["stft_feat"](torch.zeros(2, 256), 64, 16, True, True,
+                                   False)
 
 
 def _run_chip_smoke(cwd):

@@ -33,6 +33,7 @@ module.
   the loaded ones.
 """
 
+import functools
 import glob
 import os
 
@@ -92,9 +93,13 @@ def _batch(cfg, seed):
 def setup_j():
     cfg = JaxRunConfig(**GEOMETRY)
     model = _jax_model(cfg)
-    variables = jax.tree_util.tree_map(np.asarray, model.init(
-        jax.random.PRNGKey(0), jnp.zeros(model.stft_shape),
-        jnp.zeros(model.pgram_shape), method=model.init_all))
+    # one jit: the eager init's values, without its truncated normal
+    # compiled once a kernel shape
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda key: model.init(key, jnp.zeros(model.stft_shape),
+                               jnp.zeros(model.pgram_shape),
+                               method=model.init_all))(
+        jax.random.PRNGKey(0)))
     return cfg, model, variables, [_batch(cfg, 11 + i) for i in range(STEPS)]
 
 
@@ -341,14 +346,23 @@ def test_middle_step_tracks_jax(setup_j, mb, mode):
 
 # --- AVFusionModelConv ------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _conv_variables(sa, sp):
+    """(flax AVFusionModelConv, its init under one jit: the eager init's
+    values, without its truncated normal compiled once a kernel shape)."""
+    model_j = JaxConv(stft_shape=sa, pgram_shape=sp, latent_channels=8,
+                      fc_size=256)
+    return model_j, jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda key: model_j.init(key, jnp.zeros(sa), jnp.zeros(sp),
+                                 method=model_j.init_all))(
+        jax.random.PRNGKey(0)))
+
+
 @pytest.mark.parametrize("train", [False, True])
 def test_fusion_conv_forward_matches_jax(train):
     sa, sp = (4, 2, 16, 32), (4, 1, 4, 256)
-    model_j = JaxConv(stft_shape=sa, pgram_shape=sp, latent_channels=8,
-                      fc_size=256)
-    variables = jax.tree_util.tree_map(np.asarray, model_j.init(
-        jax.random.PRNGKey(0), jnp.zeros(sa), jnp.zeros(sp),
-        method=model_j.init_all))
+    model_j, variables = _conv_variables(sa, sp)
+    variables = jax.tree_util.tree_map(np.copy, variables)
     rng = np.random.default_rng(5)
     x_a = rng.standard_normal(sa).astype(np.float32)
     x_v = rng.standard_normal(sp).astype(np.float32)
