@@ -323,6 +323,19 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    in turns. Then cost_report: tools/cost_report_torch.py's
    compile_report of the bench's step (batch 256, bf16, full encode,
    float16 rows) with the bench phase's graphed step_ms.
+43. parallel (--mesh_data / --mesh_model, maavss_tpu_torch/parallel/):
+   the split routes' launches (K2-train's conv and apply, K2-bwd's sums
+   and apply at the 10 layers, R 88 and 2816; K5's stats partials and
+   finish, bwd partials and finish at the stage-0/1 shapes; fp32 and
+   bf16) against their plain versions and the fused launches, timed
+   beside them; two ranks over gloo on the one card run the full-width
+   fusion full-encode step and the frames full-encode step at global
+   batch 8 (SGD), held to the one-process steps (loss 1e-4, parameters
+   rtol 5e-4 atol 1e-6, the averaged gradient 1e-3 relative L2) with
+   rank 0's launches counted (every split launch, no fused K2 and no
+   fused K5 reduction); gloo's SUM and MAX on CUDA tensors; a world-1
+   NCCL graphed K = 2 dispatch, its collectives captured, bit for bit
+   its eager steps.
 
 Every phase that drives a train step or a serving batch counts the STFT
 kernel's launches exactly (one a step or a batch; none in stft_route) and
@@ -3384,6 +3397,14 @@ def _reordered_step1_grads(cfg, ref, batch, frames_model, k2_plain=True,
     return grads
 
 
+# A BN-fed conv bias's gradient is rounding noise around a true 0: two
+# steps' draws may differ by this much of the largest gradient of the
+# bias's layer. A bias gradient that the BatchNorm does not cancel is of
+# the order of that largest gradient; the noise read up to 1.2e-3 of it
+# (the STFT encoder's Conv_0 at 2048 bins, stft_route, on an H100).
+FED_BIAS_GRAD_TOL = 1e-2
+
+
 def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
                  alt_grads, grad_rms_max=None, fed_by_gradient=False,
                  params_only=False):
@@ -3410,7 +3431,11 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
     (true gradient 0: its gradient is the rounding noise of a cancelling
     sum, and where that noise reaches Adam's eps the two steps can move it
     apart by up to 2 lr, Adam's first step in opposite directions) and
-    differs by more than lr may also pass by its gradient.
+    differs by more than lr may also pass by its gradient: the largest
+    difference of the two gradients within FED_BIAS_GRAD_TOL of the
+    largest gradient of its layer (its weight's; two draws of rounding
+    noise have no relative L2 to compare), and each element within Adam's
+    step of it.
     With `params_only`, the parameters alone (not BatchNorm's running
     statistics). Returns the worst relative L2s and the leaves that passed
     by their gradients."""
@@ -3433,6 +3458,16 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
         return (torch.linalg.vector_norm(a - b)
                 / torch.linalg.vector_norm(b).clamp(min=1e-12)).item()
 
+    def adam_excess(k, a, b):
+        """How far an element ends past Adam's first step of the
+        gradients' difference (<= 0 passes)."""
+        g, g_ref = grads[k].float(), ref_grads[k].float()
+        step_lim = torch.clamp(lr * (g - g_ref).abs()
+                               / (torch.minimum(g.abs(), g_ref.abs()) + 1e-8),
+                               max=2 * lr)
+        return ((a - b).abs() - step_lim * 1.0001
+                - 1e-6 * (b.abs() + lr)).max().item()
+
     for k, v in sd.items():
         a, b = v.float(), sd_ref[k].float()
         if k in fed:
@@ -3441,8 +3476,27 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
                 worst["step1_worst_bn_fed_bias_abs"], d)
             if d <= lr * 1.0001:
                 continue
-            if not fed_by_gradient:
+            if not fed_by_gradient or k not in grads:
                 raise SystemExit(f"{what}: {k} differs by {d} > lr {lr}")
+            # its gradient is rounding noise around 0: held by its largest
+            # difference against the largest gradient of its layer
+            layer = k.rsplit(".", 1)[0] + "."
+            scale = max(ref_grads[n].float().abs().max().item()
+                        for n in ref_grads if n.startswith(layer))
+            g_d = (grads[k].float() - ref_grads[k].float()).abs().max().item()
+            ratio = g_d / scale if scale else (0.0 if g_d == 0 else math.inf)
+            excess = adam_excess(k, a, b)
+            if not ratio <= FED_BIAS_GRAD_TOL or excess > 0:
+                raise SystemExit(f"{what}: {k} (BN-fed) differs by {d} > lr "
+                                 f"{lr}; its gradient by {g_d}, {ratio} of "
+                                 f"its layer's largest gradient (limit "
+                                 f"{FED_BIAS_GRAD_TOL}), elements past "
+                                 f"Adam's step of the gradient difference "
+                                 f"by up to {excess}")
+            by_grads.append({"leaf": k, "param_abs": d,
+                             "grad_abs_diff": g_d, "layer_grad_max": scale,
+                             "grad_diff_of_layer": ratio})
+            continue
         enc = enc_tol is not None and k.startswith("visual_encoder.")
         limit = enc_tol if enc else tol
         rel = rel_l2(a, b)
@@ -3462,11 +3516,7 @@ def _step1_close(what, model, ref, grads, ref_grads, lr, tol, enc_tol,
         g_rel = rel_l2(g, g_ref)
         spread = rel_l2(alt_grads[k].float(), g_ref)
         g_limit = max(limit, 2 * spread)
-        step_lim = torch.clamp(lr * (g - g_ref).abs()
-                               / (torch.minimum(g.abs(), g_ref.abs()) + 1e-8),
-                               max=2 * lr)
-        excess = ((a - b).abs() - step_lim * 1.0001
-                  - 1e-6 * (b.abs() + lr)).max().item()
+        excess = adam_excess(k, a, b)
         if g_rel > g_limit or excess > 0:
             raise SystemExit(f"{what}: {k} rel L2 {rel} > {limit} after step "
                              f"1; its gradient's rel L2 {g_rel} (limit "
@@ -7347,8 +7397,15 @@ def regimes_phase():
     two autoencoder evals (`_regime_eval`); AVFusionModelConv
     (`_fusion_conv_check`); the staged step and the phasegram autoencoder
     as K = 3 graphed dispatches bit for bit against eager steps under
-    cuDNN's deterministic algorithms. Returns each kernel's launches."""
+    cuDNN's deterministic algorithms. The train cases run on cuDNN's
+    default algorithms, as the trainer does: the audio AE's BN-fed conv
+    bias, whose gradient is rounding noise around a true 0 that cuDNN's
+    default fp32 weight gradient draws anew each run, passes by its
+    gradient's difference against its layer's largest gradient
+    (`_step1_close`). Returns each kernel's launches."""
     import functools
+
+    import torch
 
     from maavss_tpu_torch.config import RunConfig
     from maavss_tpu_torch.train import setup, steps
@@ -8352,6 +8409,706 @@ def export_phase(bench_b256):
     return totals
 
 
+# --mesh_data / --mesh_model (parallel/): the parallel phase
+PARALLEL_BATCH = 8  # the global batch of the two-rank steps
+PARALLEL_RANKS = 2  # data ranks on the one card (gloo)
+PARALLEL_K2_ROWS = (88, 2816)  # the full-encode span at batch 8 and 256
+PARALLEL_SPLIT_K2 = ("pgenc_train_conv", "pgenc_train_apply",
+                     "pgenc_bwd_sums", "pgenc_bwd_apply")
+PARALLEL_SPLIT_K5 = ("epilogue_stats_partials", "epilogue_stats_finish",
+                     "epilogue_bwd_partials", "epilogue_bwd_finish")
+# the equivalence gates of tools/dryrun_multichip_torch.py (SGD): loss,
+# parameters, and each leaf of the averaged gradient in relative L2
+# (`grad_gate`: a missing gradient all-reduce moves a leaf O(1); an SGD
+# update at lr 1e-3 sits near the parameters' last place, so the parameter
+# gate cannot see it), a BN-fed conv bias against its layer's largest
+# gradient; the frames visual encoder's leaves at the frames train phase's
+# encoder tolerance (`_frames_params_close`: its conv weight gradients are
+# near-total cancellations at full width)
+PARALLEL_LOSS_RTOL = 1e-4
+PARALLEL_PARAM_RTOL, PARALLEL_PARAM_ATOL = 5e-4, 1e-6
+PARALLEL_GRAD_RTOL = 1e-3
+PARALLEL_ENC_GRAD_RTOL = 2e-3
+
+
+def _rep():
+    return dict(err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0, host_ms=0.0,
+                bytes=0.0, flops=0.0, library_ms=None)
+
+
+def _slot_sums(part, slots, slot, where):
+    """A kernel's partial buffer [C, 2, slots * P] (K2) -> this slot's
+    per-channel (sum, sum of squares) [C, 2]; raises unless every other
+    slot is exactly 0 (what the all_reduce adds the other ranks' into)."""
+    c = part.shape[0]
+    per = part.shape[2] // slots
+    view = part.view(c, 2, slots, per)
+    others = [j for j in range(slots) if j != slot]
+    if bool((view[:, :, others] != 0).any()):
+        raise SystemExit(f"{where}: the partials reach another rank's slot")
+    return view[:, :, slot].sum(-1)
+
+
+def _k2_two_ranks(x, w2, cb, gamma, beta, dy, tol, gtol, where):
+    """The split K2 route as two data ranks run it, in this process: the
+    rows of x cut in halves, rank k's conv writing its partials at slot k
+    of 2 (rank 1 takes the slot offset and the row stride that one
+    process never does), the two buffers added as the all_reduce adds
+    them, each rank's apply, bwd sums and bwd apply on the joined sums.
+    Each launch is held to its plain version on the same rank's inputs,
+    and the two ranks' outputs, joined, to the one-process plain split
+    route on all the rows. Returns the largest error."""
+    import torch
+
+    from maavss_tpu_torch.ops import cuda_pgenc as pg
+
+    c, r, s = x.shape
+    rows = (slice(0, r // 2), slice(r // 2, r))
+    xs = [x[:, q].contiguous() for q in rows]
+    dys = [dy[:, q].contiguous() for q in rows]
+    ntot = r * (s // 2)
+    e = 0.0
+    ycs, parts = [], []
+    for k in range(2):
+        yc, part = pg.pgenc_train_conv(xs[k], w2, cb, 2, k)
+        pyc, ppart = pg._train_conv_plain(xs[k], w2, cb, 2, k)
+        got = _slot_sums(part, 2, k, f"split K2 conv {where} rank {k}")
+        scale = pyc.abs().sum(dim=(1, 2)).max().item()
+        e = max(e, check_close(f"split K2 conv yc {where} rank {k}", yc, pyc,
+                               1e-5, 1e-4, scale_atol=True),
+                check_close(f"split K2 conv sum {where} rank {k}", got[:, 0],
+                            ppart[:, 0, k], 1e-4 * scale, 0.0),
+                check_close(f"split K2 conv sum sq {where} rank {k}",
+                            got[:, 1], ppart[:, 1, k], 0.0, 1e-4))
+        ycs.append(yc)
+        parts.append(part)
+    joined = parts[0] + parts[1]
+    (py, pmu, pvar, _), pgr = pg.pgenc_split_plain(x, w2, cb, gamma, beta,
+                                                   dy)
+    outs = [pg.pgenc_train_apply(ycs[k], gamma, beta, joined, ntot, c,
+                                 x.dtype) for k in range(2)]
+    for k, (y, mu, var) in enumerate(outs):
+        e = max(e, check_close(f"split K2 apply y {where} rank {k}", y,
+                               py[:, rows[k]], tol, 0.0),
+                check_close(f"split K2 apply mu {where} rank {k}", mu, pmu,
+                            1e-5, 1e-4),
+                check_close(f"split K2 apply var {where} rank {k}", var,
+                            pvar, 1e-5, 1e-4))
+    mu, var = outs[0][1], outs[0][2]
+    if not (torch.equal(mu, outs[1][1]) and torch.equal(var, outs[1][2])):
+        raise SystemExit(f"split K2 apply {where}: the ranks' mu and var "
+                         "differ")
+    vecs = [pg.pgenc_bwd_sums(ycs[k], gamma, beta, mu, var, dys[k])
+            for k in range(2)]
+    sums = (vecs[0][1:3] + vecs[1][1:3]).contiguous()
+    grads = []
+    for k in range(2):
+        z, dq, lg, lb = pg._bn_bwd_terms(ycs[k], gamma, beta, mu, var,
+                                         dys[k])
+        pdx, pdw2 = pg._conv_grads_plain(xs[k], w2, pg._dyc_plain(
+            z, dq, gamma, var, sums[0], sums[1], float(ntot)))
+        dx, dw2 = pg.pgenc_bwd_apply(xs[k], w2, ycs[k], gamma, beta, mu, var,
+                                     dys[k], sums, ntot)
+        for name, a, b in (("dgamma", vecs[k][1], lg),
+                           ("dbeta", vecs[k][2], lb), ("dx", dx, pdx),
+                           ("dw2", dw2, pdw2)):
+            e = max(e, check_close(f"split K2-bwd {name} {where} rank {k}",
+                                   a, b, gtol, gtol, scale_atol=True))
+        grads.append((dx, dw2))
+    for name, a, b in (
+            ("dx", torch.cat([grads[0][0], grads[1][0]], dim=1), pgr[0]),
+            ("dw2", grads[0][1].float() + grads[1][1].float(), pgr[1]),
+            ("dgamma", sums[0], pgr[3]), ("dbeta", sums[1], pgr[4])):
+        e = max(e, check_close(f"split K2 two ranks {name} {where} vs one "
+                               "process", a, b, gtol, gtol, scale_atol=True))
+    return e
+
+
+def _parallel_k2(reps):
+    """K2's split launches at each of the 10 layers, R 88 and 2816, fp32 and
+    bf16, one process (one slot of partials): against the plain split
+    route (pgenc_split_plain) at the k2_train gates and against the fused
+    launches; then as two ranks (`_k2_two_ranks`: two slots, rank 1's
+    offset and stride); at R 88 fp32 each launch timed (`reps`, the kernels
+    line's),
+    and the split route's forward and backward beside the fused ones at
+    every (R, dtype)."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.models.shape_plan import plan_phasegram_encoder
+    from maavss_tpu_torch.ops import cuda_pgenc as pg
+
+    cfg = RunConfig()
+    specs, _ = plan_phasegram_encoder(
+        (8, 1, cfg.num_frames, cfg.p_size ** 2), cfg.latent_chan, cfg.fc_size)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for r in PARALLEL_K2_ROWS:
+        for dtype in (torch.float32, torch.bfloat16):
+            fp32 = dtype == torch.float32
+            tol = 2e-5 if fp32 else 2.0 ** -7
+            gtol = 1e-4 if fp32 else 2.0 ** -7
+            timed = fp32 and r == PARALLEL_K2_ROWS[0]
+            tot = dict(split_fwd_ms=0.0, fused_fwd_ms=0.0, split_bwd_ms=0.0,
+                       fused_bwd_ms=0.0, err=0.0)
+            s = cfg.p_size ** 2
+            for i, sp in enumerate(specs):
+                c, co = sp.in_ch, sp.out_ch
+                x, w2, cb, gamma, beta, dy = _pgenc_inputs(c, co, r, s, dtype,
+                                                           g)
+                n = r * (s // 2)
+                where = f"layer {i} R={r} {dtype}"
+
+                def conv():
+                    return pg.pgenc_train_conv(x, w2, cb, 1, 0)
+
+                yc, part = conv()
+
+                def apply():
+                    return pg.pgenc_train_apply(yc, gamma, beta, part, n, c,
+                                                dtype)
+
+                y, mu, var = apply()
+
+                def sums():
+                    return pg.pgenc_bwd_sums(yc, gamma, beta, mu, var, dy)
+
+                vec3 = sums()
+                glob = vec3[1:3].contiguous()
+
+                def bwd_apply():
+                    return pg.pgenc_bwd_apply(x, w2, yc, gamma, beta, mu,
+                                              var, dy, glob, n)
+
+                dx, dw2 = bwd_apply()
+                (py, pmu, pvar, pyc), pgr = pg.pgenc_split_plain(
+                    x, w2, cb, gamma, beta, dy)
+                fy, fmu, fvar, fyc = pg.pgenc_train(x, w2, cb, gamma, beta,
+                                                    backend="kernel")
+                fgr = pg.pgenc_bwd(x, w2, fyc, gamma, beta, fmu, fvar, dy,
+                                   backend="kernel")
+                torch.cuda.synchronize()
+                e = 0.0
+                for ref, tag in (((py, pmu, pvar, pyc), "plain"),
+                                 ((fy, fmu, fvar, fyc), "fused")):
+                    e = max(e, check_close(f"split K2 y {where} vs {tag}", y,
+                                           ref[0], tol, 0.0),
+                            check_close(f"split K2 mu {where} vs {tag}", mu,
+                                        ref[1], 1e-5, 1e-4),
+                            check_close(f"split K2 var {where} vs {tag}", var,
+                                        ref[2], 1e-5, 1e-4),
+                            check_close(f"split K2 yc {where} vs {tag}", yc,
+                                        ref[3], 1e-5, 1e-4, scale_atol=True))
+                for ref, tag in (((pgr[0], pgr[1], pgr[3], pgr[4]), "plain"),
+                                 ((fgr[0], fgr[1], fgr[3], fgr[4]), "fused")):
+                    for name, got, want in zip(
+                            ("dx", "dw2", "dgamma", "dbeta"),
+                            (dx, dw2, vec3[1], vec3[2]), ref):
+                        e = max(e, check_close(
+                            f"split K2-bwd {name} {where} vs {tag}", got,
+                            want, gtol, gtol, scale_atol=True))
+                if bool((vec3[0] != 0).any()):
+                    raise SystemExit(f"split K2-bwd dcbias not 0 at {where}")
+                e = max(e, _k2_two_ranks(x, w2, cb, gamma, beta, dy, tol,
+                                         gtol, where))
+                tot["err"] = max(tot["err"], e)
+
+                def split_fwd():
+                    yc_, part_ = pg.pgenc_train_conv(x, w2, cb, 1, 0)
+                    return pg.pgenc_train_apply(yc_, gamma, beta, part_, n, c,
+                                                dtype)
+
+                def split_bwd():
+                    v = pg.pgenc_bwd_sums(yc, gamma, beta, mu, var, dy)
+                    return pg.pgenc_bwd_apply(x, w2, yc, gamma, beta, mu, var,
+                                              dy, v[1:3].contiguous(), n)
+
+                turns = dict(
+                    split_fwd_ms=split_fwd,
+                    fused_fwd_ms=lambda: pg.pgenc_train(x, w2, cb, gamma,
+                                                        beta, backend="kernel"),
+                    split_bwd_ms=split_bwd,
+                    fused_bwd_ms=lambda: pg.pgenc_bwd(
+                        x, w2, fyc, gamma, beta, fmu, fvar, dy,
+                        backend="kernel"))
+                for key, fn in turns.items():
+                    tot[key] += cuda_ms(fn, reps=3, iters=5)
+                if timed:
+                    conv_flops = 2 * co * 9 * c * n
+                    vec = 4 * co
+                    launch = {
+                        "pgenc_train_conv": (
+                            conv, lambda: pg._train_conv_plain(x, w2, cb, 1,
+                                                               0),
+                            nbytes(x, w2, cb, yc, part), conv_flops),
+                        "pgenc_train_apply": (
+                            apply, lambda: pg._train_apply_plain(
+                                yc, gamma, beta, part, n, dtype),
+                            nbytes(yc, gamma, beta, part, y, mu, var),
+                            8 * co * n),
+                        "pgenc_bwd_sums": (
+                            sums, lambda: pg._bn_bwd_terms(yc, gamma, beta,
+                                                           mu, var, dy),
+                            nbytes(yc, dy, vec3) + 4 * vec, 12 * co * n),
+                        "pgenc_bwd_apply": (
+                            bwd_apply, lambda: pg._conv_grads_plain(
+                                x, w2, pg._dyc_plain(
+                                    *pg._bn_bwd_terms(yc, gamma, beta, mu,
+                                                      var, dy)[:2], gamma,
+                                    var, glob[0], glob[1], float(n))),
+                            nbytes(x, w2, yc, dy, glob, dx, dw2) + 4 * vec,
+                            2 * conv_flops)}
+                    for name, (fn, plain, moved, ops) in launch.items():
+                        rep = reps[name]
+                        rep["err"] = max(rep["err"], e)
+                        rep["ms"] += cuda_ms(fn, reps=3, iters=10)
+                        rep["plain_ms"] += cuda_ms(plain, reps=3, iters=5)
+                        dev, host = split_ms(fn, reps=3, iters=10)
+                        rep["device_ms"] += dev
+                        rep["host_ms"] += host
+                        rep["bytes"] += moved
+                        rep["flops"] += ops
+                s //= 2
+            phase("parallel_k2", R=r, dtype=str(dtype), layers=len(specs),
+                  max_abs_err=tot.pop("err"), **tot,
+                  split_fwd_launches_per_layer=2,
+                  split_bwd_launches_per_layer=3,
+                  fused_fwd_launches_per_layer=1,
+                  fused_bwd_launches_per_layer=2)
+
+
+def _k5_two_ranks(y, gamma, beta, g_out, g_mu, g_var, where):
+    """K5's split reductions as two data ranks run them, in this process:
+    y's batch cut in halves, rank k's partials at slot k of 2, the buffers
+    added as the all_reduce adds them, stats finish, each rank's apply,
+    bwd partials and bwd finish (dgamma and dbeta from its own slot). Each
+    launch is held to its plain version on the same rank's inputs, and
+    the joined results to the one-process plain stats and bwd reduce on
+    the whole batch. Returns the largest error."""
+    import torch
+
+    from maavss_tpu_torch.ops import cuda_epilogue as ep
+
+    b = y.shape[0]
+    rows = (slice(0, b // 2), slice(b // 2, b))
+    ys = [y[q].contiguous() for q in rows]
+    gs = [g_out[q].contiguous() for q in rows]
+    n = y.numel() // y.shape[1]
+    e = 0.0
+
+    def own(part, k, what):
+        c = part.shape[0]
+        view = part.view(c, 2, part.shape[1] // 2, 2)
+        if bool((view[:, 1 - k] != 0).any()):
+            raise SystemExit(f"{what}: the partials reach another rank's "
+                             "slot")
+        return view[:, k].sum(1)
+
+    parts, plains = [], []
+    for k in range(2):
+        part = ep.epilogue_stats_partials(ys[k], 2, k)
+        plain = ep.epilogue_stats_partials(ys[k], 2, k, plain=True)
+        what = f"split K5 stats partials {where} rank {k}"
+        got = own(part, k, what)
+        yf = ys[k].float()
+        scale = yf.abs().sum(dim=(0, 2, 3, 4)).max().item()
+        e = max(e, check_close(what + " sum", got[:, 0], plain[:, k, 0],
+                               1e-4 * scale, 0.0),
+                check_close(what + " sum sq", got[:, 1], plain[:, k, 1], 0.0,
+                            1e-4))
+        parts.append(part)
+        plains.append(plain)
+    mu, var, rstd = ep.epilogue_stats_finish(parts[0] + parts[1], n)
+    for name, a, b_ in zip(
+            ("mu", "var", "rstd"), (mu, var, rstd),
+            ep.epilogue_stats_finish(plains[0] + plains[1], n, plain=True)):
+        e = max(e, check_close(f"split K5 stats finish {name} {where}", a,
+                               b_, 1e-5, 1e-4))
+    for name, a, b_ in zip(("mu", "var", "rstd"), (mu, var, rstd),
+                           ep.epilogue_stats_plain(y)):
+        e = max(e, check_close(f"split K5 two ranks {name} {where} vs one "
+                               "process", a, b_, 1e-5, 1e-4))
+    sels = [ep.epilogue_apply(ys[k], gamma, beta, mu, rstd)[1]
+            for k in range(2)]
+    parts, plains = [], []
+    for k in range(2):
+        args = (gs[k], sels[k], gamma, beta, mu, rstd, 2, k)
+        part = ep.epilogue_bwd_partials(*args)
+        plain = ep.epilogue_bwd_partials(*args, plain=True)
+        what = f"split K5 bwd partials {where} rank {k}"
+        got = own(part, k, what)
+        for j, name in enumerate(("S1", "S2")):
+            e = max(e, check_close(f"{what} {name}", got[:, j],
+                                   plain[:, k, j], 1e-4, 1e-4,
+                                   scale_atol=True))
+        parts.append(part)
+        plains.append(plain)
+    joined, pjoined = parts[0] + parts[1], plains[0] + plains[1]
+    ntot = n
+    finished = []
+    for k in range(2):
+        got = ep.epilogue_bwd_finish(joined, 2, k, gamma, mu, g_mu, g_var,
+                                     ntot)
+        want = ep.epilogue_bwd_finish(pjoined, 2, k, gamma, mu, g_mu, g_var,
+                                      ntot, plain=True)
+        for name, a, b_ in zip(("dgamma", "dbeta", "k"), got, want):
+            e = max(e, check_close(f"split K5 bwd finish {name} {where} "
+                                   f"rank {k}", a, b_, 1e-4, 1e-4,
+                                   scale_atol=True))
+        finished.append(got)
+    if not torch.equal(finished[0][2], finished[1][2]):
+        raise SystemExit(f"split K5 bwd finish {where}: the ranks' k differ")
+    whole = ep.epilogue_bwd_reduce_plain(
+        g_out, torch.cat(sels), gamma, beta, mu, rstd, g_mu, g_var)
+    for name, a, b_ in (("dgamma", finished[0][0] + finished[1][0], whole[0]),
+                        ("dbeta", finished[0][1] + finished[1][1], whole[1]),
+                        ("k", finished[0][2], whole[2])):
+        e = max(e, check_close(f"split K5 two ranks {name} {where} vs one "
+                               "process", a, b_, 1e-4, 1e-4,
+                               scale_atol=True))
+    return e
+
+
+def _parallel_k5(reps):
+    """K5's split reductions at the stage-0 and stage-1 shapes, fp32 and
+    bf16, one process: stats partials + finish against the plain stats and
+    the fused stats kernel, bwd partials + finish against the plain bwd
+    reduce and the fused one (cotangents of mu and var included), and as
+    two ranks (`_k5_two_ranks`: two slots, rank 1's offset and stride, the
+    own-slot dgamma and dbeta); each
+    launch timed in fp32 (stages 0+1 summed, the kernels line's), the split
+    reductions beside the fused ones in both dtypes."""
+    import torch
+
+    from maavss_tpu_torch.ops import cuda_epilogue as ep
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    for dtype in (torch.float32, torch.bfloat16):
+        fp32 = dtype == torch.float32
+        tot = dict(split_stats_ms=0.0, fused_stats_ms=0.0,
+                   split_reduce_ms=0.0, fused_reduce_ms=0.0, err=0.0)
+        for stage, shape in enumerate(K5_SHAPES):
+            y, gamma, beta, g_out, g_mu, g_var = _k5_inputs(shape, g, False)
+            y, g_out = y.to(dtype), g_out.to(dtype)
+            b, c, t, h, w = shape
+            n = b * t * h * w
+            where = f"stage {stage} {dtype}"
+
+            def partials():
+                return ep.epilogue_stats_partials(y, 1, 0)
+
+            part = partials()
+
+            def finish():
+                return ep.epilogue_stats_finish(part, n)
+
+            mu, var, rstd = finish()
+            _, sel = ep.epilogue_apply(y, gamma, beta, mu, rstd)
+
+            def bpartials():
+                return ep.epilogue_bwd_partials(g_out, sel, gamma, beta, mu,
+                                                rstd, 1, 0)
+
+            bpart = bpartials()
+
+            def bfinish():
+                return ep.epilogue_bwd_finish(bpart, 1, 0, gamma, mu, g_mu,
+                                              g_var, n)
+
+            dgamma, dbeta, k = bfinish()
+            torch.cuda.synchronize()
+            e = _k5_two_ranks(y, gamma, beta, g_out, g_mu, g_var, where)
+            for ref, tag in ((ep.epilogue_stats_plain(y), "plain"),
+                             (ep.epilogue_stats(y), "fused")):
+                for name, a, b_ in zip(("mu", "var", "rstd"),
+                                       (mu, var, rstd), ref):
+                    e = max(e, check_close(f"split K5 {name} {where} vs "
+                                           f"{tag}", a, b_, 1e-5, 1e-4))
+            for ref, tag in ((ep.epilogue_bwd_reduce_plain(
+                    g_out, sel, gamma, beta, mu, rstd, g_mu, g_var), "plain"),
+                             (ep.epilogue_bwd_reduce(
+                                 g_out, sel, gamma, beta, mu, rstd, g_mu,
+                                 g_var), "fused")):
+                for name, a, b_ in zip(("dgamma", "dbeta", "k"),
+                                       (dgamma, dbeta, k), ref):
+                    e = max(e, check_close(f"split K5 {name} {where} vs "
+                                           f"{tag}", a, b_, 1e-4, 1e-4,
+                                           scale_atol=True))
+            tot["err"] = max(tot["err"], e)
+            turns = dict(
+                split_stats_ms=lambda: ep.epilogue_stats_finish(
+                    ep.epilogue_stats_partials(y, 1, 0), n),
+                fused_stats_ms=lambda: ep.epilogue_stats(y),
+                split_reduce_ms=lambda: ep.epilogue_bwd_finish(
+                    ep.epilogue_bwd_partials(g_out, sel, gamma, beta, mu,
+                                             rstd, 1, 0),
+                    1, 0, gamma, mu, g_mu, g_var, n),
+                fused_reduce_ms=lambda: ep.epilogue_bwd_reduce(
+                    g_out, sel, gamma, beta, mu, rstd, g_mu, g_var))
+            for key, fn in turns.items():
+                tot[key] += cuda_ms(fn, reps=3, iters=10)
+            if fp32:
+                launch = {
+                    "epilogue_stats_partials": (
+                        partials, lambda: ep.epilogue_stats_partials(
+                            y, 1, 0, plain=True),
+                        nbytes(y, part), 2 * y.numel()),
+                    "epilogue_stats_finish": (
+                        finish, lambda: ep.epilogue_stats_finish(
+                            part, n, plain=True),
+                        nbytes(part, mu, var, rstd), 2 * part.numel()),
+                    "epilogue_bwd_partials": (
+                        bpartials, lambda: ep.epilogue_bwd_partials(
+                            g_out, sel, gamma, beta, mu, rstd, 1, 0,
+                            plain=True),
+                        nbytes(g_out, sel, bpart) + 4 * 4 * c,
+                        8 * sel.numel()),
+                    "epilogue_bwd_finish": (
+                        bfinish, lambda: ep.epilogue_bwd_finish(
+                            bpart, 1, 0, gamma, mu, g_mu, g_var, n,
+                            plain=True),
+                        nbytes(bpart, dgamma, dbeta, k) + 4 * 4 * c,
+                        4 * bpart.numel()),
+                }
+                for name, (fn, plain, moved, ops) in launch.items():
+                    rep = reps[name]
+                    rep["err"] = max(rep["err"], e)
+                    rep["ms"] += cuda_ms(fn, reps=3, iters=10)
+                    rep["plain_ms"] += cuda_ms(plain, reps=3, iters=5)
+                    dev, host = split_ms(fn, reps=3, iters=10)
+                    rep["device_ms"] += dev
+                    rep["host_ms"] += host
+                    rep["bytes"] += moved
+                    rep["flops"] += ops
+        phase("parallel_k5", dtype=str(dtype), shapes=[list(s) for s in
+                                                      K5_SHAPES],
+              max_abs_err=tot.pop("err"), **tot,
+              split_launches=dict(stats=2, bwd_reduce=2),
+              fused_launches=dict(stats=2, bwd_reduce=1))
+
+
+def _parallel_case(family, mesh):
+    """(cfg, model, state, step, batch) of the parallel phase's step: the
+    full-width flagship of `family` at global batch PARALLEL_BATCH (fusion:
+    --fusion_encode full; frames: --frames_encode full), SGD from the seed,
+    on the card; under `mesh` the state is sharded and the batch is this
+    rank's rows."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.synthetic import synthetic_av_batch
+    from maavss_tpu_torch.parallel.mesh import shard_batch
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_frames_step, make_fusion_step
+
+    shape = {} if mesh is None else dict(mesh_data=mesh.data,
+                                         mesh_model=mesh.model)
+    init = torch.Generator().manual_seed(0)
+    if family == "frames":
+        cfg = RunConfig(batch_size=PARALLEL_BATCH, frames_encode="full",
+                        **shape)
+        model = setup.build_frames_model(cfg, PARALLEL_BATCH, device="cuda",
+                                         generator=init)
+        raw = synthetic_av_batch(cfg, PARALLEL_BATCH, seed=4,
+                                 frame_size=cfg.framesize)
+        make = make_frames_step
+    else:
+        cfg = RunConfig(batch_size=PARALLEL_BATCH, fusion_encode="full",
+                        **shape)
+        model = setup.build_fusion(cfg, PARALLEL_BATCH, "cuda", init)
+        raw = synthetic_av_batch(cfg, PARALLEL_BATCH, seed=3)
+        make = make_fusion_step
+    state = create_train_state(model, cfg, "cuda", "sgd")
+    setup.apply_mesh_model(cfg, mesh, state)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in shard_batch(raw, mesh=mesh).items()}
+    return cfg, model, state, make(model, cfg, device="cuda"), batch
+
+
+def _parallel_run(family, mesh):
+    """One step of `_parallel_case` -> (loss, {name: whole parameter and
+    whole averaged gradient on the CPU} after it, the step's launches by
+    counter)."""
+    import torch
+
+    from maavss_tpu_torch.parallel.mesh import gather_named
+    from tools.dryrun_multichip_torch import bn_fed_biases
+
+    _, model, state, step, batch = _parallel_case(family, mesh)
+    before = _launch_counts()
+    torch.cuda.synchronize()
+    state, m = step(state, batch, 2, torch.Generator(device="cuda")
+                    .manual_seed(5))
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    params = {k: v.detach().cpu().clone() for k, v in gather_named(
+        mesh, model, dict(model.named_parameters())).items()}
+    grads = {k: v.detach().cpu().clone() for k, v in gather_named(
+        mesh, model, {k: p.grad if p.grad is not None else
+                      torch.zeros_like(p)
+                      for k, p in model.named_parameters()}).items()}
+    return dict(loss=float(m["loss"]), params=params, grads=grads,
+                fed=bn_fed_biases(model),
+                launches={n: after[n] - before[n] for n in after
+                          if after[n] != before[n]})
+
+
+def _parallel_rank(rank, world, port, out, backend):
+    """A spawned rank of the parallel phase: `world` ranks on the one card
+    over `backend`. gloo, world 2: the fusion and the frames steps of
+    `_parallel_run` on this rank's rows (rank 0 saves them), and which of
+    gloo's reductions take CUDA tensors. nccl, world 1: a graphed K-step
+    dispatch (graphs' fullenc_b8 case, K 2, two dispatches) with the NCCL
+    collectives captured, bit for bit its eager steps."""
+    import torch
+    import torch.distributed as dist
+
+    from maavss_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(world, 1)
+        result = {}
+        if backend == "nccl":
+            from maavss_tpu_torch.config import RunConfig
+
+            case, totals = _graph_case(
+                "fullenc_b8_nccl", False,
+                RunConfig(batch_size=8, fusion_encode="full",
+                          pgram_cache=True), exact=True, k=2, dispatches=2,
+                timed=False, profiled=False)
+            result = dict(case=case, launches=totals)
+        else:
+            ops = {}
+            for name in ("SUM", "MAX"):
+                t = torch.full((4,), float(rank + 1), device="cuda")
+                try:
+                    dist.all_reduce(t, op=getattr(dist.ReduceOp, name))
+                    ops[name] = t.tolist()
+                except RuntimeError as err:
+                    ops[name] = f"refused: {str(err).splitlines()[0]}"
+            result["gloo_cuda_ops"] = ops
+            for family in ("fusion", "frames"):
+                result[family] = _parallel_run(family, mesh)
+        if rank == 0:
+            torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _parallel_close(what, got, want):
+    """The dryrun's gates between a sharded and a one-process step, the
+    gradient leaf for leaf (tools/dryrun_multichip_torch.py:grad_gate) ->
+    dict(loss_rel, grad_worst_rel_l2, grad_worst_leaf,
+    grad_worst_bn_fed_bias); raises past them."""
+    from tools.dryrun_multichip_torch import grad_gate
+
+    rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    if not rel < PARALLEL_LOSS_RTOL:
+        raise SystemExit(f"{what}: loss {got['loss']} vs one process "
+                         f"{want['loss']} (rel {rel:.3e})")
+    for k, ref in want["params"].items():
+        check_close(f"{what} {k}", got["params"][k], ref, PARALLEL_PARAM_ATOL,
+                    PARALLEL_PARAM_RTOL)
+    try:
+        worst = grad_gate(what, got["grads"], want["grads"], want["fed"],
+                          PARALLEL_GRAD_RTOL,
+                          ("visual_encoder.", PARALLEL_ENC_GRAD_RTOL))
+    except AssertionError as err:
+        raise SystemExit(str(err)) from None
+    return dict(loss_rel=rel, **worst)
+
+
+def parallel_phase():
+    """--mesh_data / --mesh_model on the one card (parallel/). First, in
+    this process, the split launches of K2 (`_parallel_k2`) and K5
+    (`_parallel_k5`) against their plain versions and the fused launches,
+    timed beside them. Then three spawned ranks: two over gloo on the one
+    card (NCCL refuses two ranks on one card) run the full-width fusion
+    flagship's full-encode step and the frames flagship's full-encode step
+    at global batch 8, 4 rows a rank, SGD, the step's launches counted on
+    rank 0 (the counters zeroed just before the step and read just after:
+    every split launch, and no fused K2 or fused K5 reduction); and one over
+    NCCL, world 1, runs a graphed K = 2 dispatch with the collectives
+    captured, bit for bit its eager steps. Meanwhile this process runs each
+    step in one process on the whole batch, which the two ranks' steps are
+    held to at the dryrun's gates (loss 1e-4, parameters rtol 5e-4 atol
+    1e-6, each leaf of the averaged gradient as `_parallel_close`). Returns
+    the
+    split launches' records and their launches in the two-rank run."""
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    reps = {n: _rep() for n in PARALLEL_SPLIT_K2 + PARALLEL_SPLIT_K5}
+    _parallel_k2(reps)
+    _parallel_k5(reps)
+    for rep in reps.values():
+        rep["bound"] = bound_ms(rep.pop("bytes"), rep.pop("flops"))
+    t_kernels = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {b: os.path.join(tmp, f"{b}.pt") for b in ("gloo", "nccl")}
+        ctxs = [mp.start_processes(
+            _parallel_rank, args=(world, _free_port(), outs[backend],
+                                  backend),
+            nprocs=world, join=False, start_method="spawn")
+            for backend, world in (("gloo", PARALLEL_RANKS), ("nccl", 1))]
+        want = {f: _parallel_run(f, None) for f in ("fusion", "frames")}
+        for ctx in ctxs:
+            while not ctx.join(timeout=600):
+                pass
+        got = torch.load(outs["gloo"], weights_only=False)
+        nccl = torch.load(outs["nccl"], weights_only=False)
+    gates = {}
+    for family in ("fusion", "frames"):
+        gates[family] = _parallel_close(f"parallel {family}", got[family],
+                                        want[family])
+    fusion, frames = got["fusion"]["launches"], got["frames"]["launches"]
+    want_k2 = {n: FULLENC_LAYERS for n in PARALLEL_SPLIT_K2}
+    if {n: fusion.get(n, 0) for n in want_k2} != want_k2 or \
+            fusion.get("pgenc_train") or fusion.get("pgenc_bwd"):
+        raise SystemExit(f"parallel fusion launches {fusion}: want the split "
+                         f"K2 route's {want_k2} and no fused K2")
+    want_k5 = {n: 2 for n in PARALLEL_SPLIT_K5}
+    if {n: frames.get(n, 0) for n in want_k5} != want_k5 or \
+            frames.get("epilogue_stats") or \
+            frames.get("epilogue_bwd_reduce"):
+        raise SystemExit(f"parallel frames launches {frames}: want the split "
+                         f"K5 reductions' {want_k5} and no fused ones")
+    if not nccl["case"]["bit_equal"]:
+        raise SystemExit("parallel: the NCCL graphed dispatch differs from "
+                         "its eager steps")
+    phase("parallel", ranks=PARALLEL_RANKS, backend="gloo",
+          global_batch=PARALLEL_BATCH,
+          gloo_cuda_ops=got["gloo_cuda_ops"],
+          fusion_loss=got["fusion"]["loss"],
+          fusion_loss_one_process=want["fusion"]["loss"],
+          fusion_gates=gates["fusion"],
+          frames_loss=got["frames"]["loss"],
+          frames_loss_one_process=want["frames"]["loss"],
+          frames_gates=gates["frames"],
+          grad_rtol=PARALLEL_GRAD_RTOL,
+          encoder_grad_rtol=PARALLEL_ENC_GRAD_RTOL,
+          fusion_launches=fusion, frames_launches=frames,
+          nccl_graph=nccl["case"], kernels_s=t_kernels,
+          seconds=time.perf_counter() - t0)
+    launches = {n: fusion.get(n, 0) + frames.get(n, 0)
+                for n in PARALLEL_SPLIT_K2 + PARALLEL_SPLIT_K5}
+    return reps, launches
+
 def kernel_entry(name, source, replaces, launches, rep):
     return {"name": name, "route": "cuda",
             "source": f"maavss_tpu_torch/csrc/{source}",
@@ -8408,6 +9165,7 @@ def main() -> None:
     legacy_phase()
     features_phase()
     exported = export_phase(bench_b256)
+    split, split_launches = parallel_phase()
 
     def graphed(name, dtypes=(g32, g16)):
         return sum(g.get(name, 0) for g in dtypes)
@@ -8520,6 +9278,20 @@ def main() -> None:
         kernel_entry("lstm_bwd_bf16_tuned", "lstm_bwd.cu",
                      "maavss_tpu/ops/pallas_lstm.py:105", tuned["lstm_bwd"],
                      k1_tuned[1]),
+        # the split routes under a data group (parallel phase)
+        *(kernel_entry(n, "pgenc_train.cu",
+                       f"maavss_tpu/ops/pallas_pgenc.py:{line}",
+                       split_launches[n], split[n])
+          for n, line in (("pgenc_train_conv", 137),
+                          ("pgenc_train_apply", 137),
+                          ("pgenc_bwd_sums", 184), ("pgenc_bwd_apply", 184))),
+        *(kernel_entry(n, "epilogue.cu",
+                       f"maavss_tpu/ops/pallas_epilogue.py:{line}",
+                       split_launches[n], split[n])
+          for n, line in (("epilogue_stats_partials", 141),
+                          ("epilogue_stats_finish", 141),
+                          ("epilogue_bwd_partials", 183),
+                          ("epilogue_bwd_finish", 183))),
     ]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -134,14 +134,16 @@ struct StatsOp {
 
 // Partial channel sums: grid (nblk, C). Block j of channel c sums the
 // values [j*chunk, min(n, (j+1)*chunk)) of the channel's n = B*L values,
-// value i at ((i/L)*C + c)*L + i%L, and writes partial[(c*nblk + j)*2 + 0/1].
+// value i at ((i/L)*C + c)*L + i%L, and writes
+// partial[(c*pstride + poff + j)*2 + 0/1] (pstride = nblk, poff = 0 but in
+// the split route, which leaves the other slots to other ranks).
 // VEC > 1 reads 16 bytes a load (VEC = 16 / sizeof(T)) and needs L, chunk
 // and the pointer's offset multiples of VEC (the launcher checks).
 template <int VEC, typename Op, typename T>
 __global__ void __launch_bounds__(kThreads)
 partials_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 Op op, float* __restrict__ partial, int C, long long L,
-                long long n, long long chunk, int nblk) {
+                long long n, long long chunk, int pstride, int poff) {
   __shared__ float red[2 * kThreads];
   const int c = blockIdx.y;
   const long long begin = static_cast<long long>(blockIdx.x) * chunk;
@@ -171,7 +173,8 @@ partials_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
   block_sum2(s, ss, red);
   if (threadIdx.x == 0) {
-    float* out = partial + (static_cast<size_t>(c) * nblk + blockIdx.x) * 2;
+    float* out =
+        partial + (static_cast<size_t>(c) * pstride + poff + blockIdx.x) * 2;
     out[0] = s;
     out[1] = ss;
   }
@@ -313,13 +316,17 @@ __device__ void bwd_finish(const float* partial, int nblk, int c, int C,
 // and needs L, chunk and both pointers' offsets multiples of VEC (the
 // launcher checks). The channel's last block to finish, counted in
 // count[c] (0 between launches), also runs bwd_finish and resets count[c].
-template <int VEC, typename T>
+// FINISH false (the split route) writes partial[(c*pstride + poff + j)*2 +
+// 0/1] and stops there: the sums are finished over a data group by
+// bwd_finish_kernel.
+template <int VEC, typename T, bool FINISH = true>
 __global__ void __launch_bounds__(kThreads)
 bwd_partials_kernel(const T* __restrict__ g, const T* __restrict__ sel,
                     BwdArgs args, float* partial, unsigned* count,
                     float* __restrict__ dgamma, float* __restrict__ dbeta,
                     float* __restrict__ k, int C,
-                    long long L, long long n, long long chunk, int nblk) {
+                    long long L, long long n, long long chunk, int nblk,
+                    int pstride = 0, int poff = 0) {
   __shared__ float red[64];
   __shared__ bool last;
   const int c = blockIdx.y;
@@ -354,6 +361,15 @@ bwd_partials_kernel(const T* __restrict__ g, const T* __restrict__ sel,
     s0 = seg_end;
   }
   block_sum2_shfl(s1, s2, red);
+  if constexpr (!FINISH) {
+    if (threadIdx.x == 0) {
+      float* out = partial +
+                   (static_cast<size_t>(c) * pstride + poff + blockIdx.x) * 2;
+      out[0] = s1;
+      out[1] = s2;
+    }
+    return;
+  }
   if (threadIdx.x == 0) {
     float* out = partial + (static_cast<size_t>(c) * nblk + blockIdx.x) * 2;
     out[0] = s1;
@@ -369,6 +385,44 @@ bwd_partials_kernel(const T* __restrict__ g, const T* __restrict__ sel,
   bwd_finish(partial, nblk, c, C, 4.0f * static_cast<float>(n), args, dgamma,
              dbeta, k, red);
   if (threadIdx.x == 0) count[c] = 0;
+}
+
+// The split route's finish of the backward sums, grid C: channel c's
+// partials [c][nparts][2] summed in a fixed order (every rank's, for the
+// constants k over `ntot` pooled values a channel, with the cotangents
+// g_mu and g_var already summed over the data group), and its own
+// [poff, poff + nblk) alone for dgamma and dbeta (this rank's sums; the
+// gradient all-reduce sums them).
+__global__ void __launch_bounds__(kThreads)
+bwd_finish_kernel(const float* __restrict__ partial, int nparts, int poff,
+                  int nblk, BwdArgs args, float* __restrict__ dgamma,
+                  float* __restrict__ dbeta, float* __restrict__ k, int C,
+                  float ntot) {
+  __shared__ float red[64];
+  const int c = blockIdx.x;
+  const float* p = partial + static_cast<size_t>(c) * nparts * 2;
+  float l1 = 0.0f, l2 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+  for (int j = threadIdx.x; j < nblk; j += blockDim.x) {
+    l1 += p[2 * (poff + j)];
+    l2 += p[2 * (poff + j) + 1];
+  }
+  block_sum2_shfl(l1, l2, red);
+  __syncthreads();  // warp 0 has read red
+  for (int j = threadIdx.x; j < nparts; j += blockDim.x) {
+    s1 += p[2 * j];
+    s2 += p[2 * j + 1];
+  }
+  block_sum2_shfl(s1, s2, red);
+  if (threadIdx.x == 0) {
+    const float gm = args.gamma[c];
+    dbeta[c] = l1;
+    dgamma[c] = l2;
+    k[c] = gm * s1 / ntot;
+    k[C + c] = gm * s2 / ntot;
+    k[2 * C + c] =
+        args.g_mu[c] / ntot - 2.0f * args.g_var[c] * args.mu[c] / ntot;
+    k[3 * C + c] = 2.0f * args.g_var[c] / ntot;
+  }
 }
 
 // Window geometry: pooled index -> (plane, i, j), the channel of the plane
@@ -589,23 +643,25 @@ unsigned blocks_for(long long n) {
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
+// The partials launch at slots (pstride, poff), then, with `finish`, the
+// one-block-a-channel combine over nblk partials (the fused route).
 template <typename T>
 int stats_impl(const void* y, float* pf, void* mu, void* var, void* rstd,
                int C, long long L, long long n, int nblk, long long chunk,
-               cudaStream_t s) {
+               cudaStream_t s, int pstride, int poff, bool finish) {
   constexpr int kVec = 16 / sizeof(T);
   const T* yt = static_cast<const T*>(y);
   // 16-byte loads need y 16-byte aligned and L and chunk multiples of the
   // values a load holds; otherwise one value a load
   if (aligned(y, 16) && L % kVec == 0 && chunk % kVec == 0) {
     partials_kernel<kVec, StatsOp, T><<<dim3(nblk, C), kThreads, 0, s>>>(
-        yt, nullptr, StatsOp{}, pf, C, L, n, chunk, nblk);
+        yt, nullptr, StatsOp{}, pf, C, L, n, chunk, pstride, poff);
   } else {
     partials_kernel<1, StatsOp, T><<<dim3(nblk, C), kThreads, 0, s>>>(
-        yt, nullptr, StatsOp{}, pf, C, L, n, chunk, nblk);
+        yt, nullptr, StatsOp{}, pf, C, L, n, chunk, pstride, poff);
   }
   int e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
+  if (e || !finish) return e;
   stats_combine_kernel<<<C, kThreads, 0, s>>>(
       pf, nblk, static_cast<float>(n), static_cast<float*>(mu),
       static_cast<float*>(var), static_cast<float*>(rstd));
@@ -667,6 +723,30 @@ int bwd_reduce_impl(const void* g, const void* sel, BwdArgs args, float* pf,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The split route's bwd partials: this rank's g and sel into its slots
+// (pstride, poff) of partial, no finish.
+template <typename T>
+int bwd_partials_impl(const void* g, const void* sel, BwdArgs args,
+                      float* pf, int C, long long L, long long n,
+                      long long chunk, int nblk, int pstride, int poff,
+                      cudaStream_t s) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* gt = static_cast<const T*>(g);
+  const T* st = static_cast<const T*>(sel);
+  const dim3 grid(nblk, C);
+  if (aligned(g, 16) && aligned(sel, 16) && L % kVec == 0 &&
+      chunk % kVec == 0) {
+    bwd_partials_kernel<kVec, T, false><<<grid, kThreads, 0, s>>>(
+        gt, st, args, pf, nullptr, nullptr, nullptr, nullptr, C, L, n, chunk,
+        nblk, pstride, poff);
+  } else {
+    bwd_partials_kernel<1, T, false><<<grid, kThreads, 0, s>>>(
+        gt, st, args, pf, nullptr, nullptr, nullptr, nullptr, C, L, n, chunk,
+        nblk, pstride, poff);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int dy_impl(const void* y, const void* g, const void* sel, Affine aff,
             const void* k, void* dy, long long n_pool, int C, int T_, int H,
@@ -703,9 +783,52 @@ extern "C" int maavss_epilogue_stats(const void* y, void* partial, void* mu,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(partial);
   return dtype == kBFloat16
-             ? stats_impl<bf16>(y, pf, mu, var, rstd, C, L, n, nblk, chunk, s)
+             ? stats_impl<bf16>(y, pf, mu, var, rstd, C, L, n, nblk, chunk, s,
+                                nblk, 0, true)
              : stats_impl<float>(y, pf, mu, var, rstd, C, L, n, nblk, chunk,
-                                 s);
+                                 s, nblk, 0, true);
+}
+
+// The split route of the statistics, for a data group's global batch.
+// maavss_epilogue_stats_partials: the partials of this rank's y into its
+// slots of partial [C][pstride][2], block j at poff + j (pstride >= poff +
+// nblk); one kernel. The caller fills the other slots (every rank's, by a
+// collective); maavss_epilogue_stats_finish then sums a channel's first
+// nparts partials in the fused combine's fixed order over `ntot` values
+// into mu, var, rstd; one kernel of C blocks.
+extern "C" int maavss_epilogue_stats_partials(
+    const void* y, void* partial, int B, int C, int T, int H, int W,
+    int nblk, long long chunk, int pstride, int poff, int dtype,
+    void* stream) {
+  const long long L = static_cast<long long>(T) * H * W;
+  const long long n = L * B;
+  if (bad_geometry(B, C, T, H, W) || bad_dtype(dtype) || nblk < 1 ||
+      chunk % 4 || chunk * nblk < n || C > 65535 || poff < 0 ||
+      pstride < poff + nblk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pf = static_cast<float*>(partial);
+  return dtype == kBFloat16
+             ? stats_impl<bf16>(y, pf, nullptr, nullptr, nullptr, C, L, n,
+                                nblk, chunk, s, pstride, poff, false)
+             : stats_impl<float>(y, pf, nullptr, nullptr, nullptr, C, L, n,
+                                 nblk, chunk, s, pstride, poff, false);
+}
+
+extern "C" int maavss_epilogue_stats_finish(const void* partial, int nparts,
+                                            long long ntot, void* mu,
+                                            void* var, void* rstd, int C,
+                                            void* stream) {
+  if (nparts < 1 || ntot < 1 || C < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  stats_combine_kernel<<<C, kThreads, 0, s>>>(
+      static_cast<const float*>(partial), nparts, static_cast<float>(ntot),
+      static_cast<float*>(mu), static_cast<float*>(var),
+      static_cast<float*>(rstd));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out, sel [B, C, T, H/2, W/2] from y and the per-channel gamma, beta, mu,
@@ -768,6 +891,59 @@ extern "C" int maavss_epilogue_bwd_reduce(
                                      n, chunk, nblk, s)
              : bwd_reduce_impl<float>(g, sel, args, pf, cnt, dg, db, kk, C,
                                       L, n, chunk, nblk, s);
+}
+
+// The split route of the backward reduce, for a data group's global batch.
+// maavss_epilogue_bwd_partials: the pooled-domain partial sums (S1, S2) of
+// this rank's g and sel into its slots of partial [C][pstride][2], block j
+// at poff + j (pstride >= poff + nblk); one kernel, no counter. The caller
+// fills the other slots (every rank's) and sums g_mu and g_var over the
+// group; maavss_epilogue_bwd_finish (C blocks) then forms k [4, C] from a
+// channel's first nparts partials over `ntot` pooled values, and dgamma,
+// dbeta from its own [poff, poff + nblk) alone.
+extern "C" int maavss_epilogue_bwd_partials(
+    const void* g, const void* sel, const void* gamma, const void* beta,
+    const void* mu, const void* rstd, void* partial, int B, int C, int T,
+    int H, int W, int nblk, long long chunk, int pstride, int poff, int dtype,
+    void* stream) {
+  const long long L = static_cast<long long>(T) * (H / 2) * (W / 2);
+  const long long n = L * B;
+  if (bad_geometry(B, C, T, H, W) || bad_dtype(dtype) || nblk < 1 ||
+      chunk < 1 || chunk * nblk < n || C > 65535 || poff < 0 ||
+      pstride < poff + nblk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs args{static_cast<const float*>(gamma),
+               static_cast<const float*>(beta),
+               static_cast<const float*>(mu),
+               static_cast<const float*>(rstd), nullptr, nullptr};
+  float* pf = static_cast<float*>(partial);
+  return dtype == kBFloat16
+             ? bwd_partials_impl<bf16>(g, sel, args, pf, C, L, n, chunk, nblk,
+                                       pstride, poff, s)
+             : bwd_partials_impl<float>(g, sel, args, pf, C, L, n, chunk,
+                                        nblk, pstride, poff, s);
+}
+
+extern "C" int maavss_epilogue_bwd_finish(
+    const void* partial, int nparts, int poff, int nblk, const void* gamma,
+    const void* mu, const void* g_mu, const void* g_var, void* dgamma,
+    void* dbeta, void* k, int C, long long ntot, void* stream) {
+  if (nparts < 1 || nblk < 1 || poff < 0 || poff + nblk > nparts ||
+      C < 1 || ntot < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs args{static_cast<const float*>(gamma), nullptr,
+               static_cast<const float*>(mu), nullptr,
+               static_cast<const float*>(g_mu),
+               static_cast<const float*>(g_var)};
+  bwd_finish_kernel<<<C, kThreads, 0, s>>>(
+      static_cast<const float*>(partial), nparts, poff, nblk, args,
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+      static_cast<float*>(k), C, static_cast<float>(ntot));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // dy [B, C, T, H, W] from y, g and sel [B, C, T, H/2, W/2], the per-channel

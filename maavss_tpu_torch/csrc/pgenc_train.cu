@@ -137,10 +137,14 @@ struct TrainArgs {
   T* y;
   float* mu;
   float* var;
-  float* partial;  // [Co][2][per_cb]
+  float* partial;  // [Co][2][pstride]: tile p's at poff + p
   Shape d;
   TilePlan p;
   bool vec;  // 16-byte (bf16: 8-byte) copies of x
+  int pstride;    // partials a (channel, sum) row holds
+  int poff;       // where this launch's tiles write in a row
+  int nparts;     // partials of a row the statistics sum
+  long long ntot; // values a channel's statistics cover
 };
 
 // acc += cbias; yc written; the tile's per-channel partial sums written.
@@ -189,8 +193,9 @@ __device__ void tile_sums(const TrainArgs<T>& a, const Role& t, const Tile& q,
     for (int c = 0; c < TC; ++c) {
       const int co = q.c0 + t.cg * TC + c;
       if (co >= d.Co) break;
-      part[static_cast<size_t>(2 * co) * p.per_cb + q.p] = s[c];
-      part[static_cast<size_t>(2 * co + 1) * p.per_cb + q.p] = ss[c];
+      part[static_cast<size_t>(2 * co) * a.pstride + a.poff + q.p] = s[c];
+      part[static_cast<size_t>(2 * co + 1) * a.pstride + a.poff + q.p] =
+          ss[c];
     }
     return;
   }
@@ -213,8 +218,8 @@ __device__ void tile_sums(const TrainArgs<T>& a, const Role& t, const Tile& q,
     sst += wsum[w0 + w][2 * c + 1];
   }
   const int co = q.c0 + col;
-  part[static_cast<size_t>(2 * co) * p.per_cb + q.p] = st;
-  part[static_cast<size_t>(2 * co + 1) * p.per_cb + q.p] = sst;
+  part[static_cast<size_t>(2 * co) * a.pstride + a.poff + q.p] = st;
+  part[static_cast<size_t>(2 * co + 1) * a.pstride + a.poff + q.p] = sst;
 }
 
 // The statistics of the tile's channel block from every tile's partials
@@ -248,14 +253,14 @@ __device__ void channel_stats(const TrainArgs<T>& a, const Tile& q,
   if (mine) {
     // kBatch partials in flight at once, then added in index order
     const float* ps = a.partial + static_cast<size_t>(2 * (q.c0 + c)) *
-                                      p.per_cb;
-    for (int i0 = l; i0 < p.per_cb; i0 += kBatch * lanes) {
+                                      a.pstride;
+    for (int i0 = l; i0 < a.nparts; i0 += kBatch * lanes) {
       float v[kBatch], vv[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         const int i = i0 + u * lanes;
-        v[u] = i < p.per_cb ? __ldcg(ps + i) : 0.0f;
-        vv[u] = i < p.per_cb ? __ldcg(ps + p.per_cb + i) : 0.0f;
+        v[u] = i < a.nparts ? __ldcg(ps + i) : 0.0f;
+        vv[u] = i < a.nparts ? __ldcg(ps + a.pstride + i) : 0.0f;
       }
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
@@ -285,7 +290,7 @@ __device__ void channel_stats(const TrainArgs<T>& a, const Tile& q,
     }
   }
   if (mine && l == 0) {
-    const float n = static_cast<float>(static_cast<long long>(d.R) * d.So);
+    const float n = static_cast<float>(a.ntot);
     const float m = s / n;
     const float v = ss / n - m * m;
     cmu[c] = m;
@@ -339,7 +344,14 @@ __device__ void normalise(const TrainArgs<T>& a, const Role& t, const Tile& q,
   }
 }
 
-template <typename T, int TC>
+// The phases a launch of conv_bn_train_kernel runs: the conv with the
+// tiles' partial sums, the statistics and the normalise, or both with the
+// grid barrier between (the one cooperative launch).
+constexpr int kConv = 1;
+constexpr int kApply = 2;
+constexpr int kFused = kConv | kApply;
+
+template <typename T, int TC, int PHASE>
 __global__ void __launch_bounds__(kMaxThreads)
 conv_bn_train_kernel(const TrainArgs<T> a) {
   extern __shared__ __align__(16) float smem[];
@@ -351,8 +363,8 @@ conv_bn_train_kernel(const TrainArgs<T> a) {
   const long long n = p.tiles;
   const int t0 = static_cast<int>(blockIdx.x * n / gridDim.x);
   const int t1 = static_cast<int>((blockIdx.x + 1) * n / gridDim.x);
-  float acc[TC][kTso];
-  for (int ti = t0; ti < t1; ++ti) {
+  float acc[TC][kTso] = {};
+  for (int ti = t0; ti < t1 && (PHASE & kConv); ++ti) {
     const Tile q = tile_at(p, ti);
     float cbias[TC];  // loaded while the tile stages
 #pragma unroll
@@ -366,15 +378,16 @@ conv_bn_train_kernel(const TrainArgs<T> a) {
     group_sum<TC>(smem, p, t, acc);
     tile_sums<T, TC>(a, t, q, cbias, acc, wsum);
   }
-  cg::this_grid().sync();
+  if constexpr (PHASE == kFused) cg::this_grid().sync();
   int cb = -1;
-  for (int ti = t0; ti < t1; ++ti) {
+  for (int ti = t0; ti < t1 && (PHASE & kApply); ++ti) {
     const Tile q = tile_at(p, ti);
     if (q.cb != cb) {
       channel_stats(a, q, csum, cmu, cinv, cgam, cbet);
       cb = q.cb;
     }
-    normalise<T, TC>(a, t, q, acc, ti == t1 - 1, cmu, cinv, cgam, cbet);
+    normalise<T, TC>(a, t, q, acc, PHASE == kFused && ti == t1 - 1, cmu,
+                     cinv, cgam, cbet);
   }
 }
 
@@ -398,28 +411,38 @@ struct BnChannel {
   }
 };
 
+// What a launch of bn_bwd_kernel does: the sums and dyc (the fused
+// route), the sums alone, or dyc alone from sums it is given.
+constexpr int kBnFused = 0;
+constexpr int kBnSums = 1;
+constexpr int kBnDyc = 2;
+
 // BN backward, grid (P, Co), cluster (P, 1, 1): the cluster of channel co
 // sums dq*z and dq, then writes dyc over the channel; rank 0 writes
 // vec3 [3, Co] = (0, dgamma, dbeta). Each block takes a slice of the
 // channel's n values, four at a time when `vec` (n % 4 == 0 and yc, dy
 // aligned for it). Block (0, 0) also zeroes the grads kernel's n_count tile
-// counters.
-template <typename T>
+// counters. MODE kBnSums stops once vec3 is written (and zeroes no
+// counter); MODE kBnDyc, launched without a cluster, takes the sums from
+// `sums` [2, Co] (dgamma's, then dbeta's) over `ntot` values a channel in
+// place of its own: the split route, whose sums are a data group's.
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kBnThreads)
 bn_bwd_kernel(const float* __restrict__ yc, const T* __restrict__ dy,
               const float* __restrict__ mu, const float* __restrict__ var,
               const float* __restrict__ gamma,
               const float* __restrict__ beta, float* __restrict__ dyc,
               float* __restrict__ vec3, int* __restrict__ counts,
-              int n_count, int n, int Co, bool vec) {
+              int n_count, int n, int Co, bool vec,
+              const float* __restrict__ sums, float ntot) {
   __shared__ float red[2 * kBnThreads];
   __shared__ float part[2];
   __shared__ float tot[2];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int P = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
+  // a cluster spans the blocks of one channel, in x
+  const int P = static_cast<int>(gridDim.x);
+  const int rank = static_cast<int>(blockIdx.x);
   const int co = blockIdx.y;
-  if (co == 0 && rank == 0) {
+  if (MODE != kBnSums && co == 0 && rank == 0) {
     for (int i = threadIdx.x; i < n_count; i += blockDim.x) counts[i] = 0;
   }
   const int per = ((n + P - 1) / P + 3) / 4 * 4;
@@ -431,55 +454,63 @@ bn_bwd_kernel(const float* __restrict__ yc, const T* __restrict__ dy,
   float* out = dyc + static_cast<size_t>(co) * n;
   const int step = vec ? 4 * blockDim.x : blockDim.x;
   const int first = begin + (vec ? 4 : 1) * threadIdx.x;
-  float sdg = 0.0f, sdb = 0.0f, z, dq;
+  float z, dq, dgn, dbn;
+  if constexpr (MODE == kBnDyc) {
+    dgn = sums[co] / ntot;
+    dbn = sums[Co + co] / ntot;
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    float sdg = 0.0f, sdb = 0.0f;
 #pragma unroll 4
-  for (int i = first; i < end; i += step) {
-    if (vec) {
-      const float4 yv = load4(y + i);
-      const float4 dv = load4(d + i);
-      ch.terms(yv.x, dv.x, z, dq);
-      sdg += dq * z;
-      sdb += dq;
-      ch.terms(yv.y, dv.y, z, dq);
-      sdg += dq * z;
-      sdb += dq;
-      ch.terms(yv.z, dv.z, z, dq);
-      sdg += dq * z;
-      sdb += dq;
-      ch.terms(yv.w, dv.w, z, dq);
-      sdg += dq * z;
-      sdb += dq;
-    } else {
-      ch.terms(y[i], load_f(d + i), z, dq);
-      sdg += dq * z;
-      sdb += dq;
+    for (int i = first; i < end; i += step) {
+      if (vec) {
+        const float4 yv = load4(y + i);
+        const float4 dv = load4(d + i);
+        ch.terms(yv.x, dv.x, z, dq);
+        sdg += dq * z;
+        sdb += dq;
+        ch.terms(yv.y, dv.y, z, dq);
+        sdg += dq * z;
+        sdb += dq;
+        ch.terms(yv.z, dv.z, z, dq);
+        sdg += dq * z;
+        sdb += dq;
+        ch.terms(yv.w, dv.w, z, dq);
+        sdg += dq * z;
+        sdb += dq;
+      } else {
+        ch.terms(y[i], load_f(d + i), z, dq);
+        sdg += dq * z;
+        sdb += dq;
+      }
     }
-  }
-  block_sum2(sdg, sdb, red);
-  if (threadIdx.x == 0) {
-    part[0] = sdg;
-    part[1] = sdb;
-  }
-  cluster.sync();
-  if (threadIdx.x == 0) {
-    float dg = 0.0f, db = 0.0f;
-    for (int q = 0; q < P; ++q) {
-      const float* pq = cluster.map_shared_rank(part, q);
-      dg += pq[0];
-      db += pq[1];
+    block_sum2(sdg, sdb, red);
+    if (threadIdx.x == 0) {
+      part[0] = sdg;
+      part[1] = sdb;
     }
-    tot[0] = dg;
-    tot[1] = db;
-    if (rank == 0) {
-      vec3[co] = 0.0f;
-      vec3[Co + co] = dg;
-      vec3[2 * Co + co] = db;
+    cluster.sync();
+    if (threadIdx.x == 0) {
+      float dg = 0.0f, db = 0.0f;
+      for (int q = 0; q < P; ++q) {
+        const float* pq = cluster.map_shared_rank(part, q);
+        dg += pq[0];
+        db += pq[1];
+      }
+      tot[0] = dg;
+      tot[1] = db;
+      if (rank == 0) {
+        vec3[co] = 0.0f;
+        vec3[Co + co] = dg;
+        vec3[2 * Co + co] = db;
+      }
     }
+    cluster.sync();  // no block leaves while another reads its partials
+    if constexpr (MODE == kBnSums) return;
+    const float nf = static_cast<float>(n);
+    dgn = tot[0] / nf;
+    dbn = tot[1] / nf;
   }
-  cluster.sync();  // no block leaves while another reads its partials
-  const float nf = static_cast<float>(n);
-  const float dgn = tot[0] / nf;
-  const float dbn = tot[1] / nf;
   const float ginv = ch.g * ch.inv;
 #pragma unroll 4
   for (int i = first; i < end; i += step) {
@@ -860,11 +891,12 @@ int set_smem(K kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-// Sets conv_bn_train_kernel<T, TC>'s shared memory limit, once a device.
-template <typename T, int TC>
+// Sets conv_bn_train_kernel<T, TC, PHASE>'s shared memory limit, once a
+// device.
+template <typename T, int TC, int PHASE = kFused>
 cudaError_t configure_train() {
   static std::atomic<unsigned long long> configured{0};
-  return configure(conv_bn_train_kernel<T, TC>, configured);
+  return configure(conv_bn_train_kernel<T, TC, PHASE>, configured);
 }
 
 // Blocks of conv_bn_train_kernel<T, TC> the current device keeps resident
@@ -879,7 +911,7 @@ int train_resident(int threads, int smem, int* n) {
   }
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, conv_bn_train_kernel<T, TC>, threads, smem);
+        &per_sm, conv_bn_train_kernel<T, TC, kFused>, threads, smem);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   *n = per_sm * sms;
@@ -904,7 +936,7 @@ int train_fwd(const TrainArgs<T>& a, int grid, cudaStream_t s) {
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   e = static_cast<int>(
-      cudaLaunchKernelEx(&cfg, conv_bn_train_kernel<T, TC>, a));
+      cudaLaunchKernelEx(&cfg, conv_bn_train_kernel<T, TC, kFused>, a));
   // read (and so clear) the launch's error even when refused, so that a
   // later launcher's cudaGetLastError does not see it
   const int last = static_cast<int>(cudaGetLastError());
@@ -915,6 +947,25 @@ template <typename T>
 int train_fwd(const TrainArgs<T>& a, int grid, cudaStream_t s) {
   return a.p.tc == 4 ? train_fwd<T, 4>(a, grid, s)
                      : train_fwd<T, 2>(a, grid, s);
+}
+
+// One phase of the split route (PHASE kConv or kApply), an ordinary launch
+// of one block a tile: no grid barrier, so no residency limit. The apply
+// phase stages nothing and takes no dynamic shared memory.
+template <typename T, int TC, int PHASE>
+int train_phase(const TrainArgs<T>& a, cudaStream_t s) {
+  const size_t smem = PHASE == kConv ? a.p.smem : 0;
+  int e = static_cast<int>(configure_train<T, TC, PHASE>());
+  if (e) return e;
+  conv_bn_train_kernel<T, TC, PHASE>
+      <<<a.p.tiles, a.p.threads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int PHASE>
+int train_phase(const TrainArgs<T>& a, cudaStream_t s) {
+  return a.p.tc == 4 ? train_phase<T, 4, PHASE>(a, s)
+                     : train_phase<T, 2, PHASE>(a, s);
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -1051,12 +1102,60 @@ int launch_grads(const float* dyc, const T* x, const T* w2, T* dx, T* dw2,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One launch of bn_bwd_kernel<T, MODE>, grid (P1, Co): clustered in x,
+// except kBnDyc, which exchanges nothing.
+template <typename T, int MODE>
+int bn_launch(const float* yc, const T* dy, const float* mu,
+              const float* var, const float* gamma, const float* beta,
+              float* dyc, float* vec3, int* counts, int n_count, int n,
+              int Co, const float* sums, float ntot, cudaStream_t s) {
+  const bool bn_vec =
+      n % 4 == 0 && aligned(yc, 16) && aligned(dy, 4 * sizeof(T));
+  const int P1 = std::max(1, std::min(kMaxCluster, ceil_div(n, kBnPerBlock)));
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P1, Co);
+  cfg.blockDim = dim3(kBnThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = P1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = MODE == kBnDyc ? 0 : 1;
+  int e = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, bn_bwd_kernel<T, MODE>, yc, dy, mu, var, gamma, beta, dyc, vec3,
+      counts, n_count, n, Co, bn_vec, sums, ntot));
+  if (e) return e;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grads kernel of the plan `b`, from dyc in the scratch.
+template <typename T>
+int grads_launch(const BwdPlan& b, const float* dyc, const T* x, const T* w2,
+                 T* dx, T* dw2, float* partial, int* counts, cudaStream_t s) {
+  if (b.tm2) {
+    return b.narrow ? launch_grads<T, 2, 2, 1>(dyc, x, w2, dx, dw2, partial,
+                                               counts, b, s)
+                    : launch_grads<T, 2, 4, 2>(dyc, x, w2, dx, dw2, partial,
+                                               counts, b, s);
+  }
+  return b.narrow ? launch_grads<T, 1, 2, 1>(dyc, x, w2, dx, dw2, partial,
+                                             counts, b, s)
+                  : launch_grads<T, 1, 4, 2>(dyc, x, w2, dx, dw2, partial,
+                                             counts, b, s);
+}
+
+// The train backward: bn_bwd_kernel, then the grads kernel. With `sums`
+// (the split route's second half) the BN launch writes dyc from those
+// global sums over `ntot` values; without, it forms them itself (the
+// fused route) and writes vec3.
 template <typename T>
 int train_bwd(const void* x_, const void* w2_, const float* yc,
               const float* gamma, const float* beta, const float* mu,
               const float* var, const void* dy_, void* scratch, void* dx_,
               void* dw2_, float* vec3, int C, int R, int S, int Co,
-              cudaStream_t s) {
+              const float* sums, long long ntot, cudaStream_t s) {
   const T* x = static_cast<const T*>(x_);
   const T* w2 = static_cast<const T*>(w2_);
   const T* dy = static_cast<const T*>(dy_);
@@ -1071,35 +1170,16 @@ int train_bwd(const void* x_, const void* w2_, const float* yc,
   float* partial = dyc + b.dyc_floats;
   int* counts = reinterpret_cast<int*>(partial + b.partial_floats);
   const int n = R * b.d.So;
-  const bool bn_vec = n % 4 == 0 && aligned(yc, 16) && aligned(dy, v4);
-  const int P1 = std::max(1, std::min(kMaxCluster, ceil_div(n, kBnPerBlock)));
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(P1, Co);
-  cfg.blockDim = dim3(kBnThreads);
-  cfg.stream = s;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = P1;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int e = static_cast<int>(cudaLaunchKernelEx(
-      &cfg, bn_bwd_kernel<T>, yc, dy, mu, var, gamma, beta, dyc, vec3,
-      counts, b.pw.tiles, n, Co, bn_vec));
+  const int e =
+      sums == nullptr
+          ? bn_launch<T, kBnFused>(yc, dy, mu, var, gamma, beta, dyc, vec3,
+                                   counts, b.pw.tiles, n, Co, nullptr,
+                                   static_cast<float>(n), s)
+          : bn_launch<T, kBnDyc>(yc, dy, mu, var, gamma, beta, dyc, nullptr,
+                                 counts, b.pw.tiles, n, Co, sums,
+                                 static_cast<float>(ntot), s);
   if (e) return e;
-  e = static_cast<int>(cudaGetLastError());
-  if (e) return e;
-  if (b.tm2) {
-    return b.narrow ? launch_grads<T, 2, 2, 1>(dyc, x, w2, dx, dw2, partial,
-                                               counts, b, s)
-                    : launch_grads<T, 2, 4, 2>(dyc, x, w2, dx, dw2, partial,
-                                               counts, b, s);
-  }
-  return b.narrow ? launch_grads<T, 1, 2, 1>(dyc, x, w2, dx, dw2, partial,
-                                             counts, b, s)
-                  : launch_grads<T, 1, 4, 2>(dyc, x, w2, dx, dw2, partial,
-                                             counts, b, s);
+  return grads_launch<T>(b, dyc, x, w2, dx, dw2, partial, counts, s);
 }
 
 bool bad_shape(int C, int R, int S, int Co, int dtype) {
@@ -1135,19 +1215,93 @@ extern "C" int maavss_pgenc_train_fwd(
                        static_cast<const float*>(beta)};
   float* out[4] = {static_cast<float*>(yc), static_cast<float*>(mu),
                    static_cast<float*>(var), static_cast<float*>(partial)};
+  const long long n = static_cast<long long>(R) * d.So;
   if (dtype == 0) {
     const TrainArgs<float> a{static_cast<const float*>(x),
                              static_cast<const float*>(w2), f[0], f[1], f[2],
                              out[0], static_cast<float*>(y), out[1], out[2],
-                             out[3], d, p, S % 4 == 0 && aligned(x, 16)};
+                             out[3], d, p, S % 4 == 0 && aligned(x, 16),
+                             p.per_cb, 0, p.per_cb, n};
     return train_fwd(a, grid, s);
   }
   const TrainArgs<__nv_bfloat16> a{
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w2), f[0], f[1], f[2], out[0],
       static_cast<__nv_bfloat16*>(y), out[1], out[2], out[3], d, p,
-      S % 4 == 0 && aligned(x, 8)};
+      S % 4 == 0 && aligned(x, 8), p.per_cb, 0, p.per_cb, n};
   return train_fwd(a, grid, s);
+}
+
+// The split route of the train forward, for statistics over more than
+// this launch's rows (a data group's global batch): maavss_pgenc_train_conv
+// writes yc and the tiles' per-channel partial sums into its slots of a
+// partial array [Co][2][pstride], tile p of a channel block at poff + p
+// (pstride >= poff + per_cb), with no grid barrier; the caller fills the
+// other slots (every rank's partials, by a collective), and
+// maavss_pgenc_train_apply sums a row's first `nparts` partials in the
+// fused launch's fixed order, over `ntot` values a channel, into mu and
+// var, and writes y from yc. One ordinary launch each, one block a tile;
+// the same plan as maavss_pgenc_train_fwd. cudaErrorInvalidValue for a
+// shape, plan or layout they do not take.
+extern "C" int maavss_pgenc_train_conv(
+    const void* x, const void* w2, const void* cbias, void* yc,
+    void* partial, int C, int R, int S, int Co, int dtype, int tc, int bc,
+    int br, int bs, int g, int pstride, int poff, void* stream) {
+  const Shape d{C, R, S, Co, S / 2};
+  TilePlan p;
+  if (bad_shape(C, R, S, Co, dtype) || !make_plan(d, tc, bc, br, bs, g, &p) ||
+      poff < 0 || pstride < poff + p.per_cb) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* cb = static_cast<const float*>(cbias);
+  float* ycf = static_cast<float*>(yc);
+  float* pf = static_cast<float*>(partial);
+  if (dtype == 0) {
+    const TrainArgs<float> a{static_cast<const float*>(x),
+                             static_cast<const float*>(w2), cb, nullptr,
+                             nullptr, ycf, nullptr, nullptr, nullptr, pf, d,
+                             p, S % 4 == 0 && aligned(x, 16), pstride, poff,
+                             0, 0};
+    return train_phase<float, kConv>(a, s);
+  }
+  const TrainArgs<__nv_bfloat16> a{
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w2), cb, nullptr, nullptr, ycf,
+      nullptr, nullptr, nullptr, pf, d, p, S % 4 == 0 && aligned(x, 8),
+      pstride, poff, 0, 0};
+  return train_phase<__nv_bfloat16, kConv>(a, s);
+}
+
+extern "C" int maavss_pgenc_train_apply(
+    const void* yc, const void* gamma, const void* beta, const void* partial,
+    void* y, void* mu, void* var, int C, int R, int S, int Co, int dtype,
+    int tc, int bc, int br, int bs, int g, int nparts, long long ntot,
+    void* stream) {
+  const Shape d{C, R, S, Co, S / 2};
+  TilePlan p;
+  if (bad_shape(C, R, S, Co, dtype) || !make_plan(d, tc, bc, br, bs, g, &p) ||
+      nparts < p.per_cb || ntot < static_cast<long long>(R) * d.So) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* gm = static_cast<const float*>(gamma);
+  const float* bt = static_cast<const float*>(beta);
+  float* ycf = const_cast<float*>(static_cast<const float*>(yc));
+  float* pf = const_cast<float*>(static_cast<const float*>(partial));
+  float* muf = static_cast<float*>(mu);
+  float* varf = static_cast<float*>(var);
+  if (dtype == 0) {
+    const TrainArgs<float> a{nullptr, nullptr, nullptr, gm, bt, ycf,
+                             static_cast<float*>(y), muf, varf, pf, d, p,
+                             false, nparts, 0, nparts, ntot};
+    return train_phase<float, kApply>(a, s);
+  }
+  const TrainArgs<__nv_bfloat16> a{
+      nullptr, nullptr, nullptr, gm, bt, ycf,
+      static_cast<__nv_bfloat16*>(y), muf, varf, pf, d, p, false, nparts, 0,
+      nparts, ntot};
+  return train_phase<__nv_bfloat16, kApply>(a, s);
 }
 
 // The blocks of the train forward's kernel for tc and dtype that the
@@ -1202,8 +1356,70 @@ extern "C" int maavss_pgenc_train_bwd(
   float* v3 = static_cast<float*>(vec3);
   if (dtype == 0) {
     return train_bwd<float>(x, w2, f[0], f[1], f[2], f[3], f[4], dy, scratch,
-                            dx, dw2, v3, C, R, S, Co, s);
+                            dx, dw2, v3, C, R, S, Co, nullptr, 0, s);
   }
   return train_bwd<__nv_bfloat16>(x, w2, f[0], f[1], f[2], f[3], f[4], dy,
-                                  scratch, dx, dw2, v3, C, R, S, Co, s);
+                                  scratch, dx, dw2, v3, C, R, S, Co, nullptr,
+                                  0, s);
+}
+
+// The split route of the train backward, for BatchNorm statistics over more
+// than this launch's rows. maavss_pgenc_train_bwd_sums: the BN launch's
+// per-channel sums of this launch's rows alone, into vec3 [3, Co] = (0,
+// dgamma, dbeta); one clustered launch. The caller sums vec3[1:3] over the
+// data group into `sums` [2, Co], then maavss_pgenc_train_bwd_apply writes
+// dyc from those sums over `ntot` values a channel (an unclustered BN
+// launch that also zeroes the tile counters) and runs the unchanged grads
+// kernel: dx and dw2 as maavss_pgenc_train_bwd gives them. dgamma and
+// dbeta stay this launch's own sums (the gradient all-reduce sums them).
+// scratch as maavss_pgenc_train_bwd's. Returns the first non-zero
+// cudaError_t, else 0.
+extern "C" int maavss_pgenc_train_bwd_sums(
+    const void* yc, const void* gamma, const void* beta, const void* mu,
+    const void* var, const void* dy, void* vec3, int R, int S, int Co,
+    int dtype, void* stream) {
+  if (bad_shape(1, R, S, Co, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n = R * (S / 2);
+  const float* f[5] = {static_cast<const float*>(yc),
+                       static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta),
+                       static_cast<const float*>(mu),
+                       static_cast<const float*>(var)};
+  float* v3 = static_cast<float*>(vec3);
+  if (dtype == 0) {
+    return bn_launch<float, kBnSums>(
+        f[0], static_cast<const float*>(dy), f[3], f[4], f[1], f[2], nullptr,
+        v3, nullptr, 0, n, Co, nullptr, static_cast<float>(n), s);
+  }
+  return bn_launch<__nv_bfloat16, kBnSums>(
+      f[0], static_cast<const __nv_bfloat16*>(dy), f[3], f[4], f[1], f[2],
+      nullptr, v3, nullptr, 0, n, Co, nullptr, static_cast<float>(n), s);
+}
+
+extern "C" int maavss_pgenc_train_bwd_apply(
+    const void* x, const void* w2, const void* yc, const void* gamma,
+    const void* beta, const void* mu, const void* var, const void* dy,
+    const void* sums, long long ntot, void* scratch, void* dx, void* dw2,
+    int C, int R, int S, int Co, int dtype, void* stream) {
+  if (bad_shape(C, R, S, Co, dtype) || sums == nullptr ||
+      ntot < static_cast<long long>(R) * (S / 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* f[5] = {static_cast<const float*>(yc),
+                       static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta),
+                       static_cast<const float*>(mu),
+                       static_cast<const float*>(var)};
+  const float* sm = static_cast<const float*>(sums);
+  if (dtype == 0) {
+    return train_bwd<float>(x, w2, f[0], f[1], f[2], f[3], f[4], dy, scratch,
+                            dx, dw2, nullptr, C, R, S, Co, sm, ntot, s);
+  }
+  return train_bwd<__nv_bfloat16>(x, w2, f[0], f[1], f[2], f[3], f[4], dy,
+                                  scratch, dx, dw2, nullptr, C, R, S, Co, sm,
+                                  ntot, s);
 }

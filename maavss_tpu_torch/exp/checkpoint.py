@@ -23,6 +23,14 @@ maavss_tpu/exp/checkpoint.py:55-149, in PyTorch's idiom).
   (`<path>.params.pkl`, a numpy tree) through `convert.from_flax`, so a
   model trained by either package loads into the port.
 
+Under a mesh (parallel/) every rank calls save and load: a checkpoint is
+the whole state in this one format, the split leaves and their moments
+joined over the model group (`parallel.mesh.gather_named`), written by
+rank 0 alone, so a sharded run's checkpoint loads in one process and,
+through the converter, in the JAX package; a load cuts each split leaf
+back to this rank's shard (`parallel.mesh.shard_of`). `save_model` is the
+same.
+
 Every load restores IN PLACE: it `copy_`s into the existing parameter,
 buffer, moment and count tensors and never rebinds them, because a CUDA
 graph that captured the train step (train/cuda_graph.py) holds their
@@ -40,6 +48,13 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 
 from maavss_tpu_torch.convert import from_flax
+from maavss_tpu_torch.parallel.distributed import is_main
+from maavss_tpu_torch.parallel.mesh import (
+    current,
+    gather_named,
+    model_split,
+    shard_of,
+)
 
 SUFFIX = ".ckpt.pt"
 JAX_SUFFIX = ".ckpt.pkl"
@@ -58,14 +73,33 @@ def _param_names(state) -> list:
 
 def _payload(state, epoch: int, loss: float) -> Dict[str, Any]:
     names = _param_names(state)
+    mesh, model = current(), state.model
+    whole = gather_named(mesh, model, model.state_dict())
     return {
         "epoch": int(epoch), "loss": float(loss), "step": int(state.step),
-        "model": {k: v.detach().cpu()
-                  for k, v in state.model.state_dict().items()},
+        "model": {k: v.detach().cpu() for k, v in whole.items()},
         "opt": {"count": int(state.tx.count),
-                "m": _moments(names, state.tx.m, cpu=True),
-                "v": _moments(names, state.tx.v, cpu=True)},
+                "m": _cpu(gather_named(mesh, model,
+                                       _moments(names, state.tx.m))),
+                "v": _cpu(gather_named(mesh, model,
+                                       _moments(names, state.tx.v)))},
     }
+
+
+def _cpu(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: t.detach().cpu() for k, t in tensors.items()}
+
+
+def _resharded(model, tensors: Dict[str, torch.Tensor]
+               ) -> Dict[str, torch.Tensor]:
+    """Whole leaves of a checkpoint -> this rank's shards of the leaves the
+    model holds split."""
+    split = model_split(model)
+    if not split:
+        return tensors
+    mesh = current()
+    return {k: (shard_of(t, split[k], mesh) if k in split else t)
+            for k, t in tensors.items()}
 
 
 def _moments(names, moments, cpu: bool = False) -> Dict[str, torch.Tensor]:
@@ -78,10 +112,13 @@ def _moments(names, moments, cpu: bool = False) -> Dict[str, torch.Tensor]:
 
 def save_checkpoint(cp_dir: str, name: str, state, epoch: int = 0,
                     loss: float = 0.0) -> str:
-    os.makedirs(cp_dir, exist_ok=True)
     path = os.path.join(cp_dir, name + SUFFIX)
+    payload = _payload(state, epoch, loss)  # every rank: the gathers
+    if not is_main():
+        return path
+    os.makedirs(cp_dir, exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(_payload(state, epoch, loss), tmp)
+    torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
 
@@ -129,15 +166,16 @@ def load_checkpoint(cp_dir: str, state, auto: bool = True,
         saved = _jax_checkpoint(target, load_opt)
     else:
         saved = torch.load(target, map_location="cpu", weights_only=True)
-    _copy_into("checkpoint model", state.model.state_dict(keep_vars=True),
-               saved["model"])
+    model = state.model
+    _copy_into("checkpoint model", model.state_dict(keep_vars=True),
+               _resharded(model, saved["model"]))
     state.step = int(saved["step"])
     if load_opt:
         names = _param_names(state)
         _copy_into("checkpoint m", _moments(names, state.tx.m),
-                   saved["opt"]["m"])
+                   _resharded(model, saved["opt"]["m"]))
         _copy_into("checkpoint v", _moments(names, state.tx.v),
-                   saved["opt"]["v"])
+                   _resharded(model, saved["opt"]["v"]))
         state.tx.count = int(saved["opt"]["count"])
     return state, int(saved["epoch"])
 
@@ -204,9 +242,11 @@ def save_model(path: str, model: torch.nn.Module) -> str:
     """Whole-model save, the parameters only (reference save_model parity):
     `<path>.params.pt`."""
     path = path if path.endswith(MODEL_SUFFIX) else path + MODEL_SUFFIX
+    whole = gather_named(current(), model, dict(model.named_parameters()))
+    if not is_main():
+        return path
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in model.named_parameters()},
-               path)
+    torch.save({k: v.detach().cpu() for k, v in whole.items()}, path)
     return path
 
 
@@ -259,5 +299,6 @@ def load_model(path: str, model: torch.nn.Module) -> torch.nn.Module:
         src = from_flax(tree)
     else:
         src = torch.load(path, map_location="cpu", weights_only=True)
-    _copy_into("load_model", dict(model.named_parameters()), src)
+    _copy_into("load_model", dict(model.named_parameters()),
+               _resharded(model, src))
     return model

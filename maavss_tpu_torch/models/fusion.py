@@ -17,6 +17,11 @@ mixed-precision semantics (models/layers.py). Under bfloat16 the
 to the STFT features' fp32 (maavss_tpu/models/fusion.py:203) and applied
 by K4's standalone mask product (ops/cuda_complex.py); the fused fp32 head
 (ops/cuda_mask_head.py) is the float32 route.
+
+Under --mesh_model (parallel/mesh.py:shard_model) the heads whose weights
+the rule splits, fc1, fc2, a_fc1 and v_fc1, are column-parallel
+(models/layers.py:dense), the LSTM's input projection too; the fused mask
+head takes a_fc1's weight joined over the model group (`full_param`).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from maavss_tpu_torch.models.layers import (
     ConvStack,
     KernelConvStack1x9,
     dense,
+    full_param,
     leaky,
     make_birnn,
 )
@@ -150,7 +156,7 @@ class AVFusionModel(nn.Module):
         the standalone mask product in the features' fp32."""
         fused = self.av_fusion_forward(x_a_enc, x_v_enc)
         if self.mask_head and self.dtype == torch.float32:
-            x_a_out = mask_head_apply(fused, self.a_fc1.weight,
+            x_a_out = mask_head_apply(fused, full_param(self.a_fc1, "weight"),
                                       self.a_fc1.bias, x_a)
         elif self.mask_head:
             mask = dense(self.a_fc1, fused, self.dtype).reshape(x_a.shape)

@@ -29,6 +29,10 @@ Parameter names follow the flax tree (`visual_encoder.Conv_i`,
 bfloat16 the conv3d stages run in bf16 and K5 takes their bf16 output, and
 the `--mask_head` mask is cast to fp32 for K4's standalone mask product
 (maavss_tpu/models/fusion_frames.py:284).
+
+Under --mesh_model the split heads (fc1, the 8192 x 8192 layer at full
+width, fc2, a_fc1, v_fc1) are column-parallel (models/layers.py:dense) and
+the fused mask head takes a_fc1's joined weight (`full_param`).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from maavss_tpu_torch.models.layers import (
     epilogue_eligible,
     epilogue_min_hw,
     frames_conv3d_stage,
+    full_param,
     make_birnn,
 )
 from maavss_tpu_torch.models.shape_plan import (
@@ -175,8 +180,8 @@ class AVFusionFramesModel(nn.Module):
             lo = self.mask_mid_frame * self.hops_per_frame
             x_mid = x_a[:, :, lo:lo + self.hops_per_frame]
             if self.dtype == torch.float32:
-                x_a_out = mask_head_apply(fused, self.a_fc1.weight, None,
-                                          x_mid)
+                x_a_out = mask_head_apply(
+                    fused, full_param(self.a_fc1, "weight"), None, x_mid)
             else:
                 mask = dense(self.a_fc1, fused, self.dtype).reshape(a_shape)
                 x_a_out = complex_mask_apply(x_mid, mask.to(x_a.dtype))

@@ -43,6 +43,12 @@ from maavss_tpu_torch.models.shape_plan import ConvSpec
 from maavss_tpu_torch.ops.cuda_epilogue import fused_bn_pool_leaky
 from maavss_tpu_torch.ops.cuda_lstm import lstm_bidir, lstm_recurrence_plain
 from maavss_tpu_torch.ops.cuda_pgenc import pgenc_layer, pgenc_layer_train
+from maavss_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    data_sum,
+    gather_from_model,
+)
+from maavss_tpu_torch.parallel.mesh import data_size, tp_dim
 
 
 def leaky(x: torch.Tensor, slope: float,
@@ -56,6 +62,15 @@ def leaky(x: torch.Tensor, slope: float,
     return F.leaky_relu(x, negative_slope=slope)
 
 
+def full_param(module: nn.Module, leaf: str) -> torch.Tensor:
+    """`module.<leaf>` whole: under --mesh_model a split leaf's shards
+    joined over the model group (backward: this rank's slice of the
+    gradient), else the parameter itself."""
+    w = getattr(module, leaf)
+    dim = tp_dim(module, leaf)
+    return w if dim is None else gather_from_model(w, dim)
+
+
 def dense(layer: nn.Linear, x: torch.Tensor,
           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """flax `nn.Dense(dtype=)`: below float32 the input and the fp32 kernel
@@ -63,7 +78,21 @@ def dense(layer: nn.Linear, x: torch.Tensor,
     to `dtype`, is added in `dtype` (a second rounding), as XLA runs it
     when the sum's consumer computes in `dtype` (every dense layer's here:
     an activation, or the mask head's round trip, which XLA keeps at a
-    kernel boundary)."""
+    kernel boundary).
+
+    Under --mesh_model a layer whose weight is split (parallel/mesh.py:
+    shard_model, rows [out/model, in]) is column-parallel: the product
+    with this rank's rows, the model group's pieces joined on the last
+    axis (`gather_from_model`), then the replicated bias; backward, the
+    input gradient is summed over the model group (`copy_to_model`)."""
+    if tp_dim(layer, "weight") is not None:
+        x = copy_to_model(x)
+        w = layer.weight if dtype == torch.float32 else layer.weight.to(dtype)
+        y = gather_from_model(F.linear(x.to(dtype), w), -1)
+        if layer.bias is None:
+            return y
+        return y + (layer.bias if dtype == torch.float32
+                    else layer.bias.to(dtype))
     if dtype == torch.float32:
         return layer(x)
     y = F.linear(x.to(dtype), layer.weight.to(dtype))
@@ -140,7 +169,15 @@ class TorchBatchNorm(nn.Module):
     With a `dtype` below float32 the input is upcast, statistics and the
     normalisation run in fp32 and the result is cast to `dtype` at the end,
     as flax's BatchNorm(dtype=) does (flax/linen/normalization.py:109-112,
-    212-233); the parameters and running statistics stay fp32."""
+    212-233); the parameters and running statistics stay fp32.
+
+    Under a mesh with more than one data rank the train statistics are the
+    global batch's, as GSPMD computes flax's: the per-channel sum and sum
+    of squares of this rank's rows, combined over the data group in rank
+    order (`data_sum`), over the global count, in the same
+    max(0, E[x^2] - E[x]^2) form. Autograd through `data_sum` sums the
+    two per-channel gradient terms over the group in the backward, as
+    SyncBatchNorm does."""
 
     EPS = 1e-5
     MOMENTUM = 0.9
@@ -159,9 +196,16 @@ class TorchBatchNorm(nn.Module):
             # through the statistics and one through the normalisation
             xs = x.to(torch.float32)
             axes = (0,) + tuple(range(2, x.ndim))
-            mean = xs.mean(dim=axes)
-            var = torch.clamp((xs * xs).mean(dim=axes) - mean * mean,
-                              min=0.0)
+            if data_size() > 1:
+                sums = data_sum(torch.stack([xs.sum(dim=axes),
+                                             (xs * xs).sum(dim=axes)]))
+                n = float(xs.numel() // xs.shape[1] * data_size())
+                mean = sums[0] / n
+                var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+            else:
+                mean = xs.mean(dim=axes)
+                var = torch.clamp((xs * xs).mean(dim=axes) - mean * mean,
+                                  min=0.0)
             update_running_stats(bn, mean, var)
         else:
             mean, var = bn.running_mean, bn.running_var
@@ -279,7 +323,9 @@ class KernelConvStack1x9(ConvStack):
     the conv weight per call with the column order k*Cin + ci of
     maavss_tpu/models/layers.py:205-207. Below float32 the input and w2 are
     cast to the compute dtype (maavss_tpu/models/layers.py:193,207), the
-    kernels' IO dtype."""
+    kernels' IO dtype. Under a mesh with more than one data rank the train
+    layer takes its split route (`pgenc_layer_train(split=True)`): the
+    batch statistics are the global batch's."""
 
     def __init__(self, specs: Sequence[ConvSpec],
                  dtype: torch.dtype = torch.float32):
@@ -307,7 +353,8 @@ class KernelConvStack1x9(ConvStack):
             if self.training:
                 h, mu, var = pgenc_layer_train(h, w2, conv.bias.float(),
                                                bn.weight.float(),
-                                               bn.bias.float())
+                                               bn.bias.float(),
+                                               split=data_size() > 1)
                 update_running_stats(bn, mu, var)
             else:
                 h = pgenc_layer(h, w2, conv.bias.float(), bn.weight.float(),
@@ -348,11 +395,13 @@ def frames_conv3d_stage(x: torch.Tensor, conv3d: nn.Conv3d,
     `fused` (train mode, an eligible stage) runs the tail as the fused
     epilogue instead, on the conv output in `dtype`, and updates the running
     statistics with its batch mean and biased, unclamped variance by flax's
-    rule, as maavss_tpu/models/fusion_frames.py:176-183 does."""
+    rule, as maavss_tpu/models/fusion_frames.py:176-183 does; under a mesh
+    with more than one data rank, the global batch's (its split route)."""
     y = conv(conv3d, x, dtype)
     if fused:
         stats = bn.BatchNorm_0
-        out, mu, var = fused_bn_pool_leaky(y, stats.weight, stats.bias)
+        out, mu, var = fused_bn_pool_leaky(y, stats.weight, stats.bias,
+                                           split=data_size() > 1)
         update_running_stats(stats, mu, var)
         return out
     return leaky(F.max_pool3d(bn(y), (1, pool, pool)), 0.01, dtype)
@@ -393,7 +442,12 @@ class BiLSTM(nn.Module):
     kernel launch, and its backward one more (ops/cuda_lstm.py:lstm_bidir),
     or, with backend 'scan', the plain per-step loop under autograd. Both
     carry h and c in fp32 with IO in the parameters' dtype, as the TPU
-    kernel does (maavss_tpu/ops/pallas_lstm.py:84-88)."""
+    kernel does (maavss_tpu/ops/pallas_lstm.py:84-88).
+
+    Under --mesh_model (w_i and w_h split on their gate columns) x @ w_i
+    is column-parallel and its pieces are joined over the model group, and
+    the recurrence takes the whole w_h, joined each call (`full_param`),
+    so K1 runs unchanged; w_h's gradient is this rank's slice."""
 
     def __init__(self, in_features: int, hidden: int,
                  backend: Optional[str] = None,
@@ -405,14 +459,20 @@ class BiLSTM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.fwd.w_i.dtype)
-        xw_f = torch.matmul(x, self.fwd.w_i)
-        xw_b = torch.matmul(x, self.bwd.w_i)
+        if tp_dim(self.fwd, "w_i") is not None:
+            x = copy_to_model(x)
+            xw_f = gather_from_model(torch.matmul(x, self.fwd.w_i), -1)
+            xw_b = gather_from_model(torch.matmul(x, self.bwd.w_i), -1)
+        else:
+            xw_f = torch.matmul(x, self.fwd.w_i)
+            xw_b = torch.matmul(x, self.bwd.w_i)
+        w_h_f, w_h_b = full_param(self.fwd, "w_h"), full_param(self.bwd, "w_h")
         if lstm_backend(x, self.backend) == "kernel":
-            ys_f, ys_b = lstm_bidir(xw_f, xw_b, self.fwd.w_h, self.bwd.w_h,
+            ys_f, ys_b = lstm_bidir(xw_f, xw_b, w_h_f, w_h_b,
                                     backend="kernel")
         else:
-            ys_f = lstm_recurrence_plain(xw_f, self.fwd.w_h, reverse=False)[0]
-            ys_b = lstm_recurrence_plain(xw_b, self.bwd.w_h, reverse=True)[0]
+            ys_f = lstm_recurrence_plain(xw_f, w_h_f, reverse=False)[0]
+            ys_b = lstm_recurrence_plain(xw_b, w_h_b, reverse=True)[0]
         return torch.cat([ys_f, ys_b], dim=-1)
 
 
@@ -432,7 +492,8 @@ class GRU(nn.Module):
     plain per-step loop of the JAX package's `lax.scan` (the JAX package
     has no GRU kernel), h carried in the compute dtype and every gate op
     rounded to it, the reset gate multiplying the recurrent candidate term
-    h @ W_hn."""
+    h @ W_hn. Under --mesh_model split w_i and w_h are joined each call
+    (`full_param`)."""
 
     def __init__(self, in_features: int, hidden: int,
                  dtype: torch.dtype = torch.float32, reverse: bool = False):
@@ -444,13 +505,14 @@ class GRU(nn.Module):
         self.w_h = nn.Parameter(torch.empty(hidden, 3 * hidden, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xw = torch.matmul(x.to(self.w_i.dtype), self.w_i)
+        w_i, w_h = full_param(self, "w_i"), full_param(self, "w_h")
+        xw = torch.matmul(x.to(w_i.dtype), w_i)
         h = xw.new_zeros(xw.shape[0], self.hidden)
         ys = [None] * xw.shape[1]
         order = range(xw.shape[1])
         for t in (reversed(order) if self.reverse else order):
             xr, xz, xn = xw[:, t].chunk(3, dim=-1)
-            hr, hz, hn = torch.matmul(h, self.w_h).chunk(3, dim=-1)
+            hr, hz, hn = torch.matmul(h, w_h).chunk(3, dim=-1)
             r = _sigmoid(xr + hr)
             z = _sigmoid(xz + hz)
             n = torch.tanh(xn + r * hn)

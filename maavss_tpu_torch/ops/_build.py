@@ -135,6 +135,17 @@ def library():
     lib.maavss_pgenc_train_bwd.restype = i
     lib.maavss_pgenc_train_bwd_scratch.argtypes = [i] * 4
     lib.maavss_pgenc_train_bwd_scratch.restype = ctypes.c_longlong
+    # the split route (parallel/): conv, apply; bwd sums, bwd apply
+    lib.maavss_pgenc_train_conv.argtypes = [p] * 5 + [i] * 12 + [p]
+    lib.maavss_pgenc_train_conv.restype = i
+    lib.maavss_pgenc_train_apply.argtypes = ([p] * 7 + [i] * 11
+                                             + [ctypes.c_longlong, p])
+    lib.maavss_pgenc_train_apply.restype = i
+    lib.maavss_pgenc_train_bwd_sums.argtypes = [p] * 7 + [i] * 4 + [p]
+    lib.maavss_pgenc_train_bwd_sums.restype = i
+    lib.maavss_pgenc_train_bwd_apply.argtypes = ([p] * 9 + [ctypes.c_longlong]
+                                                 + [p] * 3 + [i] * 5 + [p])
+    lib.maavss_pgenc_train_bwd_apply.restype = i
     f = ctypes.c_float
     # tables, [c1, c2], n_leaves, n_blocks, chunk, lr, b1, 1 - b1, b2, 1 - b2,
     # eps, stream
@@ -152,6 +163,19 @@ def library():
     lib.maavss_epilogue_bwd_reduce.restype = i
     lib.maavss_epilogue_bwd_dy.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.maavss_epilogue_bwd_dy.restype = i
+    # the split route (parallel/): stats partials, finish; bwd partials,
+    # finish
+    lib.maavss_epilogue_stats_partials.argtypes = ([p] * 2 + [i] * 6
+                                                   + [ll, i, i, i, p])
+    lib.maavss_epilogue_stats_partials.restype = i
+    lib.maavss_epilogue_stats_finish.argtypes = [p, i, ll] + [p] * 3 + [i, p]
+    lib.maavss_epilogue_stats_finish.restype = i
+    lib.maavss_epilogue_bwd_partials.argtypes = ([p] * 7 + [i] * 6
+                                                 + [ll, i, i, i, p])
+    lib.maavss_epilogue_bwd_partials.restype = i
+    lib.maavss_epilogue_bwd_finish.argtypes = ([p, i, i, i] + [p] * 7
+                                               + [i, ll, p])
+    lib.maavss_epilogue_bwd_finish.restype = i
     planar = [p, ll, ll, ll]  # pointer, item / plane / row strides
     lib.maavss_mask_mul.argtypes = planar * 3 + [i] * 4 + [p]
     lib.maavss_mask_mul.restype = i

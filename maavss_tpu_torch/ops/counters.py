@@ -29,8 +29,12 @@ def kernel_counters() -> Dict[str, Tuple[object, str]]:
     from maavss_tpu_torch.ops.cuda_mask_head import mask_head_apply
     from maavss_tpu_torch.ops.cuda_pgenc import (
         pgenc_bwd,
+        pgenc_bwd_apply,
+        pgenc_bwd_sums,
         pgenc_layer,
         pgenc_train,
+        pgenc_train_apply,
+        pgenc_train_conv,
     )
     from maavss_tpu_torch.ops.stft import stft_features
 
@@ -43,7 +47,15 @@ def kernel_counters() -> Dict[str, Tuple[object, str]]:
         "polar": cc.polar_spectrum_fwd, "epilogue_stats": ep.epilogue_stats,
         "epilogue_apply": ep.epilogue_apply,
         "epilogue_bwd_reduce": ep.epilogue_bwd_reduce,
-        "epilogue_bwd_dy": ep.epilogue_bwd_dy}
+        "epilogue_bwd_dy": ep.epilogue_bwd_dy,
+        # the split routes under a data group (parallel/)
+        "pgenc_train_conv": pgenc_train_conv,
+        "pgenc_train_apply": pgenc_train_apply,
+        "pgenc_bwd_sums": pgenc_bwd_sums, "pgenc_bwd_apply": pgenc_bwd_apply,
+        "epilogue_stats_partials": ep.epilogue_stats_partials,
+        "epilogue_stats_finish": ep.epilogue_stats_finish,
+        "epilogue_bwd_partials": ep.epilogue_bwd_partials,
+        "epilogue_bwd_finish": ep.epilogue_bwd_finish}
     out = {name: (fn, "launches") for name, fn in counters.items()}
     out["mask_head_bwd"] = (mask_head_apply, "bwd_launches")
     return out

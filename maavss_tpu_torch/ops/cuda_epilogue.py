@@ -38,6 +38,17 @@ channel's last block combines the partials, in one launch; it finds that
 block through per-channel counters kept per device that the kernel leaves
 0, so bwd reduce calls on one device must not run on two streams at once.
 
+Under a mesh with more than one data rank (--mesh_data, parallel/) the
+two reductions take their split route (`fused_bn_pool_leaky(split=True)`),
+so that mu, var and the backward's constants are the global batch's:
+`epilogue_stats_partials` (this rank's per-block partials into its slots),
+one all_reduce that fills every rank's slots (an exact gather),
+`epilogue_stats_finish` (mu, var, rstd from every partial in one fixed
+order); `epilogue_bwd_partials`, the same all_reduce, the cotangents of mu
+and var summed over the group, `epilogue_bwd_finish` (k from every
+partial; dgamma and dbeta from this rank's alone, which the gradient
+all-reduce sums). apply and bwd dy are unchanged.
+
 `fused_bn_pool_leaky` joins them in a `torch.autograd.Function` whose
 backward is the complete VJP of pallas_epilogue.py:_fused_bwd, the
 cotangents of mu and var included (zero in training, where the running
@@ -56,6 +67,8 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+from maavss_tpu_torch.parallel.mesh import data_slot
 
 SLOPE = 0.01
 EPS = 1e-5
@@ -353,9 +366,181 @@ def epilogue_bwd_dy(y, g, sel, gamma, beta, mu, rstd, k):
 epilogue_bwd_dy.launches = 0
 
 
-def _ops(plain: bool):
+# ------------------------------------------------------------ split route
+
+
+def _sum_slots(partial: torch.Tensor, lo: int, hi: int):
+    """[C, n, 2] -> ([C], [C]): slots lo..hi-1 added in index order."""
+    acc = partial[:, lo]
+    for j in range(lo + 1, hi):
+        acc = acc + partial[:, j]
+    return acc[:, 0], acc[:, 1]
+
+
+def epilogue_stats_partials(y: torch.Tensor, slots: int, slot: int,
+                            plain: bool = False) -> torch.Tensor:
+    """-> partial [C, slots * P, 2]: this launch's P partial (sum, sum of
+    squares) a channel (P the kernel's blocks a channel; 1 in the plain
+    version) at slot `slot`, zeros elsewhere."""
+    _check_y(y)
+    b, c, t, h, w = y.shape
+    if plain or not y.is_cuda:
+        yf = y.to(torch.float32)
+        axes = (0, 2, 3, 4)
+        partial = torch.zeros(c, slots, 2, dtype=torch.float32,
+                              device=y.device)
+        partial[:, slot, 0] = yf.sum(dim=axes)
+        partial[:, slot, 1] = (yf * yf).sum(dim=axes)
+        return partial
+    _check_kernel_args((y,), (), c)
+    nblk, chunk = _split(b * t * h * w, c, 16 // y.element_size())
+    partial = torch.zeros(c, slots * nblk, 2, dtype=torch.float32,
+                          device=y.device)
+    _launch("maavss_epilogue_stats_partials", y.device, (
+        y.data_ptr(), partial.data_ptr(), b, c, t, h, w, nblk, chunk,
+        slots * nblk, slot * nblk, _DTYPE_CODES[y.dtype]))
+    epilogue_stats_partials.launches += 1
+    return partial
+
+
+epilogue_stats_partials.launches = 0
+
+
+def epilogue_stats_finish(partial: torch.Tensor, ntot: int,
+                          plain: bool = False):
+    """-> (mu, var, rstd) [C] from every partial of `partial` [C, n, 2],
+    summed in one fixed order, over `ntot` values a channel."""
+    if plain or not partial.is_cuda:
+        s, ss = _sum_slots(partial, 0, partial.shape[1])
+        mu = s / float(ntot)
+        var = ss / float(ntot) - mu * mu
+        return mu, var, torch.rsqrt(var + EPS)
+    c, n = partial.shape[0], partial.shape[1]
+    if partial.dtype != torch.float32 or not partial.is_contiguous():
+        raise ValueError("epilogue stats finish: partial must be a "
+                         "contiguous float32 tensor")
+    mu, var, rstd = (torch.empty(c, dtype=torch.float32,
+                                 device=partial.device) for _ in range(3))
+    _launch("maavss_epilogue_stats_finish", partial.device, (
+        partial.data_ptr(), n, int(ntot), mu.data_ptr(), var.data_ptr(),
+        rstd.data_ptr(), c))
+    epilogue_stats_finish.launches += 1
+    return mu, var, rstd
+
+
+epilogue_stats_finish.launches = 0
+
+
+def epilogue_stats_split(y: torch.Tensor, plain: bool = False):
+    """-> (mu, var, rstd) of the data group's global batch: partials, one
+    all_reduce filling every rank's slots, finish."""
+    from maavss_tpu_torch.parallel.collectives import all_sum_
+
+    mesh, n, d = data_slot()
+    partial = epilogue_stats_partials(y, n, d, plain)
+    all_sum_(partial, mesh)
+    b, _, t, h, w = y.shape
+    return epilogue_stats_finish(partial, n * b * t * h * w, plain)
+
+
+def epilogue_bwd_partials(g, sel, gamma, beta, mu, rstd, slots: int,
+                          slot: int, plain: bool = False) -> torch.Tensor:
+    """-> partial [C, slots * P, 2]: this launch's P partial (S1, S2) a
+    channel at slot `slot` (the plain version: P = 1), zeros elsewhere."""
+    b, c, t, h2, w2 = sel.shape
+    if plain or not sel.is_cuda:
+        dsel, xhat, _ = _dsel(g.to(torch.float32), sel.to(torch.float32),
+                              gamma, beta, mu, rstd)
+        axes = (0, 2, 3, 4)
+        partial = torch.zeros(c, slots, 2, dtype=torch.float32,
+                              device=sel.device)
+        partial[:, slot, 0] = dsel.sum(dim=axes)
+        partial[:, slot, 1] = (dsel * xhat).sum(dim=axes)
+        return partial
+    if g.shape != sel.shape:
+        raise ValueError(f"epilogue bwd: g {tuple(g.shape)} != sel "
+                         f"{tuple(sel.shape)}")
+    _check_kernel_args((g, sel), (gamma, beta, mu, rstd), c)
+    nblk, chunk = _split(b * t * h2 * w2, c, 16 // g.element_size())
+    partial = torch.zeros(c, slots * nblk, 2, dtype=torch.float32,
+                          device=g.device)
+    _launch("maavss_epilogue_bwd_partials", g.device, (
+        g.data_ptr(), sel.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        mu.data_ptr(), rstd.data_ptr(), partial.data_ptr(), b, c, t, 2 * h2,
+        2 * w2, nblk, chunk, slots * nblk, slot * nblk,
+        _DTYPE_CODES[g.dtype]))
+    epilogue_bwd_partials.launches += 1
+    return partial
+
+
+epilogue_bwd_partials.launches = 0
+
+
+def epilogue_bwd_finish(partial: torch.Tensor, slots: int, slot: int, gamma,
+                        mu, g_mu, g_var, ntot: int, plain: bool = False):
+    """-> (dgamma, dbeta, k [4, C]): k from every partial of `partial`
+    [C, n, 2] over `ntot` values a channel (g_mu, g_var the group's summed
+    cotangents), dgamma and dbeta from slot `slot`'s partials alone (n
+    divided into `slots` equal slots, one a rank)."""
+    c, n = partial.shape[0], partial.shape[1]
+    if n % slots:
+        raise ValueError(f"epilogue bwd finish: {n} partials do not divide "
+                         f"into {slots} slots")
+    per = n // slots
+    if plain or not partial.is_cuda:
+        s1, s2 = _sum_slots(partial, 0, n)
+        l1, l2 = _sum_slots(partial, slot * per, (slot + 1) * per)
+        k = torch.stack([gamma * s1 / ntot, gamma * s2 / ntot,
+                         g_mu / ntot - 2.0 * g_var * mu / ntot,
+                         2.0 * g_var / ntot])
+        return l2, l1, k
+    for t in (gamma, mu, g_mu, g_var):
+        if t.shape != (c,) or t.dtype != torch.float32 or \
+                not t.is_contiguous() or t.device != partial.device:
+            raise ValueError("epilogue bwd finish: per-channel vectors must "
+                             f"be contiguous float32 [{c}] on partial's "
+                             "device")
+    dgamma, dbeta = (torch.empty(c, dtype=torch.float32,
+                                 device=partial.device) for _ in range(2))
+    k = torch.empty(4, c, dtype=torch.float32, device=partial.device)
+    _launch("maavss_epilogue_bwd_finish", partial.device, (
+        partial.data_ptr(), n, slot * per, per, gamma.data_ptr(),
+        mu.data_ptr(), g_mu.data_ptr(), g_var.data_ptr(), dgamma.data_ptr(),
+        dbeta.data_ptr(), k.data_ptr(), c, int(ntot)))
+    epilogue_bwd_finish.launches += 1
+    return dgamma, dbeta, k
+
+
+epilogue_bwd_finish.launches = 0
+
+
+def epilogue_bwd_reduce_split(g, sel, gamma, beta, mu, rstd, g_mu, g_var,
+                              plain: bool = False):
+    """-> (dgamma, dbeta, k) over the data group's global batch: partials,
+    one all_reduce filling every rank's slots, the cotangents of mu and
+    var summed over the group (fixed order), finish. dgamma and dbeta are
+    this rank's own sums."""
+    from maavss_tpu_torch.parallel.collectives import all_sum_, combine
+
+    mesh, n, d = data_slot()
+    partial = epilogue_bwd_partials(g, sel, gamma, beta, mu, rstd, n, d,
+                                    plain)
+    all_sum_(partial, mesh)
+    g_mv = combine(torch.stack([g_mu, g_var]), mesh)
+    b, _, t, h2, w2 = sel.shape
+    return epilogue_bwd_finish(partial, n, d, gamma, mu,
+                               g_mv[0].contiguous(), g_mv[1].contiguous(),
+                               n * 4 * b * t * h2 * w2, plain)
+
+
+def _ops(plain: bool, split: bool = False):
     """(stats, apply, bwd reduce, bwd dy): the wrappers, or the plain
-    versions on any device."""
+    versions on any device; `split`, the reductions' split routes."""
+    if split:
+        return (lambda y: epilogue_stats_split(y, plain),
+                epilogue_apply_plain if plain else epilogue_apply,
+                lambda *a: epilogue_bwd_reduce_split(*a, plain=plain),
+                epilogue_bwd_dy_plain if plain else epilogue_bwd_dy)
     if plain:
         return (epilogue_stats_plain, epilogue_apply_plain,
                 epilogue_bwd_reduce_plain, epilogue_bwd_dy_plain)
@@ -368,35 +553,35 @@ class _FusedEpilogue(torch.autograd.Function):
     custom VJP: y, sel, mu, rstd, gamma and beta are the residuals."""
 
     @staticmethod
-    def forward(ctx, y, gamma, beta, plain):
-        stats, apply, _, _ = _ops(plain)
+    def forward(ctx, y, gamma, beta, plain, split):
+        stats, apply, _, _ = _ops(plain, split)
         mu, var, rstd = stats(y)
         out, sel = apply(y, gamma, beta, mu, rstd)
         ctx.save_for_backward(y, sel, gamma, beta, mu, rstd)
-        ctx.plain = plain
+        ctx.plain, ctx.split = plain, split
         return out, mu, var
 
     @staticmethod
     def backward(ctx, g_out, g_mu, g_var):
         y, sel, gamma, beta, mu, rstd = ctx.saved_tensors
-        _, _, reduce, dy_pass = _ops(ctx.plain)
+        _, _, reduce, dy_pass = _ops(ctx.plain, ctx.split)
         g_out = g_out.contiguous()
         dgamma, dbeta, k = reduce(g_out, sel, gamma, beta, mu, rstd,
                                   g_mu.contiguous(), g_var.contiguous())
         dy = dy_pass(y, g_out, sel, gamma, beta, mu, rstd, k)
-        return dy, dgamma, dbeta, None
+        return dy, dgamma, dbeta, None, None
 
 
 def fused_bn_pool_leaky(y: torch.Tensor, gamma: torch.Tensor,
-                        beta: torch.Tensor):
+                        beta: torch.Tensor, split: bool = False):
     """Differentiable fused tail -> (out, mu, var); see the module
-    docstring."""
-    return _FusedEpilogue.apply(y, gamma, beta, False)
+    docstring. `split`: the split route (the data group's statistics)."""
+    return _FusedEpilogue.apply(y, gamma, beta, False, split)
 
 
 def fused_bn_pool_leaky_plain(y: torch.Tensor, gamma: torch.Tensor,
-                              beta: torch.Tensor):
+                              beta: torch.Tensor, split: bool = False):
     """The same function and explicit backward through the plain versions
     on any device: the reference the kernels are held against on the
     card."""
-    return _FusedEpilogue.apply(y, gamma, beta, True)
+    return _FusedEpilogue.apply(y, gamma, beta, True, split)

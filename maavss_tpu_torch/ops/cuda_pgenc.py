@@ -28,6 +28,23 @@ is one cooperative launch whose grid is at most the blocks the card keeps
 resident (`_resident_blocks`), with the batch statistics summed in its
 epilogue.
 
+Under a mesh with more than one data rank (--mesh_data, parallel/) the
+train layer takes its split route (`pgenc_layer_train(split=True)`), so
+that the statistics are the global batch's:
+
+    forward:  pgenc_train_conv  (yc and the tiles' per-channel partial
+              sums into this rank's slots), the data group's slots filled
+              by one all_reduce (parallel/collectives.py), pgenc_train_apply
+              (the partials of every rank summed in one fixed order, mu,
+              var, and y from yc)
+    backward: pgenc_bwd_sums (this rank's sums of dq*z and dq), their
+              fixed-order combine over the group, pgenc_bwd_apply (dyc
+              from the global sums, then the unchanged grads kernel);
+              dgamma and dbeta stay this rank's sums
+
+Every rank gets the same bits of mu and var. One rank keeps the fused
+launches.
+
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it runs
 the plain version. There is no fallback from a kernel on the card. The
 eval layer launches through the registered op `maavss_tpu_torch::
@@ -43,6 +60,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from maavss_tpu_torch.parallel.mesh import data_slot
 
 TAPS = 9
 PAD = 4
@@ -330,32 +349,52 @@ def pgenc_bwd_plain(x: torch.Tensor, w2: torch.Tensor, yc: torch.Tensor,
     conv: (dx, dw2, dcbias = 0, dgamma, dbeta). dx and dw2 follow the TPU
     kernel's form, an upsample of dyc with zeros, the tap matrix and the
     untap of W2^T @ upsample(dyc)."""
-    c_in, r, s = x.shape
-    c_out = w2.shape[0]
+    r, s = x.shape[1], x.shape[2]
     with torch.no_grad():
         n_total = float(r * (s // STRIDE))
-        mu_, inv = mu[:, None, None], torch.rsqrt(var + EPS)[:, None, None]
-        g_, b_ = gamma[:, None, None], beta[:, None, None]
-        z = (yc - mu_) * inv
-        out = torch.tanh(g_ * z + b_)
-        dq = dy.to(torch.float32) * (1.0 - out * out)
-        dgamma = (dq * z).sum(dim=(1, 2))
-        dbeta = dq.sum(dim=(1, 2))
-        dyc = (g_ * inv) * (dq - dbeta[:, None, None] / n_total
-                            - z * (dgamma[:, None, None] / n_total))
-        u = torch.stack([dyc, torch.zeros_like(dyc)], dim=-1).reshape(
-            c_out, r * s)
-        xp = F.pad(x.to(torch.float32), (PAD, PAD))
-        taps = torch.cat([xp[:, :, k:k + s] for k in range(TAPS)], dim=0)
-        dw2 = u @ taps.reshape(TAPS * c_in, r * s).T
-        dtaps = (w2.to(torch.float32).T @ u).reshape(TAPS, c_in, r, s)
-        dx = torch.zeros(c_in, r, s + 2 * PAD, dtype=torch.float32,
-                         device=x.device)
-        for k in range(TAPS):
-            dx[:, :, k:k + s] += dtaps[k]
-        dx = dx[:, :, PAD:PAD + s]
-    return (dx.to(x.dtype), dw2.to(w2.dtype), torch.zeros_like(gamma),
-            dgamma.to(gamma.dtype), dbeta.to(beta.dtype))
+        z, dq, dgamma, dbeta = _bn_bwd_terms(yc, gamma, beta, mu, var, dy)
+        dyc = _dyc_plain(z, dq, gamma, var, dgamma, dbeta, n_total)
+        dx, dw2 = _conv_grads_plain(x, w2, dyc)
+    return (dx, dw2, torch.zeros_like(gamma), dgamma.to(gamma.dtype),
+            dbeta.to(beta.dtype))
+
+
+def _bn_bwd_terms(yc, gamma, beta, mu, var, dy):
+    """(z, dq, dgamma, dbeta) of the BN backward, fp32: dgamma and dbeta
+    are the sums of dq*z and dq over the launch's rows."""
+    mu_, inv = mu[:, None, None], torch.rsqrt(var + EPS)[:, None, None]
+    g_, b_ = gamma[:, None, None], beta[:, None, None]
+    z = (yc - mu_) * inv
+    out = torch.tanh(g_ * z + b_)
+    dq = dy.to(torch.float32) * (1.0 - out * out)
+    return z, dq, (dq * z).sum(dim=(1, 2)), dq.sum(dim=(1, 2))
+
+
+def _dyc_plain(z, dq, gamma, var, dgamma, dbeta, n_total: float):
+    """dyc from the sums dgamma and dbeta over n_total values a channel."""
+    g_, inv = gamma[:, None, None], torch.rsqrt(var + EPS)[:, None, None]
+    return (g_ * inv) * (dq - dbeta[:, None, None] / n_total
+                         - z * (dgamma[:, None, None] / n_total))
+
+
+def _conv_grads_plain(x, w2, dyc):
+    """(dx, dw2) from dyc, in x's and w2's types: the TPU kernel's form, an
+    upsample of dyc with zeros, the tap matrix and the untap of
+    W2^T @ upsample(dyc)."""
+    c_in, r, s = x.shape
+    c_out = w2.shape[0]
+    u = torch.stack([dyc, torch.zeros_like(dyc)], dim=-1).reshape(
+        c_out, r * s)
+    xp = F.pad(x.to(torch.float32), (PAD, PAD))
+    taps = torch.cat([xp[:, :, k:k + s] for k in range(TAPS)], dim=0)
+    dw2 = u @ taps.reshape(TAPS * c_in, r * s).T
+    dtaps = (w2.to(torch.float32).T @ u).reshape(TAPS, c_in, r, s)
+    dx = torch.zeros(c_in, r, s + 2 * PAD, dtype=torch.float32,
+                     device=x.device)
+    for k in range(TAPS):
+        dx[:, :, k:k + s] += dtaps[k]
+    dx = dx[:, :, PAD:PAD + s]
+    return dx.to(x.dtype), dw2.to(w2.dtype)
 
 
 def _check_train_args(x, w2, vecs, tensors=()) -> None:
@@ -469,31 +508,261 @@ def pgenc_bwd(x: torch.Tensor, w2: torch.Tensor, yc: torch.Tensor,
 pgenc_bwd.launches = 0
 
 
+# ------------------------------------------------------------ split route
+
+
+def _train_conv_plain(x, w2, cbias, slots: int, slot: int):
+    """(yc, partial [Co, 2, slots]): the plain conv and this launch's
+    per-channel (sum, sum of squares) of yc in slot `slot`, zeros in the
+    others."""
+    yc = _conv_plain(x, w2, cbias)
+    partial = torch.zeros(w2.shape[0], 2, slots, dtype=torch.float32,
+                          device=x.device)
+    partial[:, 0, slot] = yc.sum(dim=(1, 2))
+    partial[:, 1, slot] = (yc * yc).sum(dim=(1, 2))
+    return yc, partial
+
+
+def _sum_parts(partial: torch.Tensor) -> torch.Tensor:
+    """[Co, 2, n] -> [Co, 2], the n partials added in index order."""
+    acc = partial[:, :, 0]
+    for i in range(1, partial.shape[2]):
+        acc = acc + partial[:, :, i]
+    return acc
+
+
+def _train_apply_plain(yc, gamma, beta, partial, ntot: int, dtype):
+    """(y, mu, var) from yc and every partial: mu = S / ntot, var = SS /
+    ntot - mu^2 (biased), y = tanh(gamma * (yc - mu) * rsqrt(var + eps) +
+    beta) in `dtype`."""
+    sums = _sum_parts(partial)
+    mu = sums[:, 0] / float(ntot)
+    var = sums[:, 1] / float(ntot) - mu * mu
+    inv = torch.rsqrt(var + EPS)
+    y = torch.tanh(gamma[:, None, None] * (yc - mu[:, None, None])
+                   * inv[:, None, None] + beta[:, None, None])
+    return y.to(dtype), mu, var
+
+
+def pgenc_train_conv(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
+                     slots: int, slot: int):
+    """The split route's first launch -> (yc, partial [Co, 2, slots * P]):
+    yc and this launch's P partial sums a channel (P the plan's tiles of
+    a channel block on the card, 1 in the plain version) at slot `slot`,
+    the other slots zero for the group's collective to fill."""
+    if not x.is_cuda:
+        return _train_conv_plain(x, w2, cbias, slots, slot)
+    _check_train_args(x, w2, (cbias,))
+    from maavss_tpu_torch.ops import _build
+
+    c_in, r, s = x.shape
+    c_out = w2.shape[0]
+    plan = pgenc_plan(c_in, r, s, c_out)
+    yc = torch.empty(c_out, r, s // STRIDE, dtype=torch.float32,
+                     device=x.device)
+    partial = torch.zeros(c_out, 2, slots * plan.per_cb, dtype=torch.float32,
+                          device=x.device)
+    _build.launch("maavss_pgenc_train_conv", x.device, (
+        x.data_ptr(), w2.data_ptr(), cbias.data_ptr(), yc.data_ptr(),
+        partial.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype],
+        plan.tc, plan.bc, plan.br, plan.bs, plan.g, slots * plan.per_cb,
+        slot * plan.per_cb))
+    pgenc_train_conv.launches += 1
+    return yc, partial
+
+
+pgenc_train_conv.launches = 0
+
+
+def pgenc_train_apply(yc: torch.Tensor, gamma: torch.Tensor,
+                      beta: torch.Tensor, partial: torch.Tensor, ntot: int,
+                      c_in: int, dtype: torch.dtype):
+    """The split route's second launch -> (y, mu, var): every partial of
+    `partial` (all slots filled) summed in one fixed order over `ntot`
+    values a channel, y in `dtype` from yc. `c_in` picks the plan the
+    first launch used."""
+    if not yc.is_cuda:
+        return _train_apply_plain(yc, gamma, beta, partial, ntot, dtype)
+    from maavss_tpu_torch.ops import _build
+
+    c_out, r, so = yc.shape
+    plan = pgenc_plan(c_in, r, 2 * so, c_out)
+    for t in (yc, gamma, beta, partial):
+        if t.dtype != torch.float32 or not t.is_contiguous() or \
+                t.device != yc.device:
+            raise ValueError("pgenc apply: yc, gamma, beta and partial must "
+                             "be contiguous float32 tensors on one device")
+    y = torch.empty(c_out, r, so, dtype=dtype, device=yc.device)
+    mu, var = (torch.empty(c_out, dtype=torch.float32, device=yc.device)
+               for _ in range(2))
+    _build.launch("maavss_pgenc_train_apply", yc.device, (
+        yc.data_ptr(), gamma.data_ptr(), beta.data_ptr(), partial.data_ptr(),
+        y.data_ptr(), mu.data_ptr(), var.data_ptr(), c_in, r, 2 * so, c_out,
+        _DTYPE_CODES[dtype], plan.tc, plan.bc, plan.br, plan.bs, plan.g,
+        partial.shape[2], int(ntot)))
+    pgenc_train_apply.launches += 1
+    return y, mu, var
+
+
+pgenc_train_apply.launches = 0
+
+
+def pgenc_train_split(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
+                      gamma: torch.Tensor, beta: torch.Tensor):
+    """Train-mode forward over the data group's global batch -> (y, mu,
+    var, yc): `pgenc_train_conv`, one all_reduce that fills every rank's
+    slots (an exact gather), `pgenc_train_apply`. Without a mesh, the
+    group of one."""
+    from maavss_tpu_torch.parallel.collectives import all_sum_
+
+    mesh, n, d = data_slot()
+    with torch.no_grad():
+        yc, partial = pgenc_train_conv(x, w2, cbias, n, d)
+        all_sum_(partial, mesh)
+        c_in, r, s = x.shape
+        y, mu, var = pgenc_train_apply(yc, gamma, beta, partial,
+                                       n * r * (s // STRIDE), c_in, x.dtype)
+    return y, mu, var, yc
+
+
+def pgenc_bwd_sums(yc: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   mu: torch.Tensor, var: torch.Tensor,
+                   dy: torch.Tensor) -> torch.Tensor:
+    """The split backward's first launch -> vec3 [3, Co] = (0, dgamma,
+    dbeta): this launch's sums of dq*z and dq."""
+    if not yc.is_cuda:
+        with torch.no_grad():
+            _, _, dgamma, dbeta = _bn_bwd_terms(yc, gamma, beta, mu, var, dy)
+            return torch.stack([torch.zeros_like(dgamma), dgamma, dbeta])
+    from maavss_tpu_torch.ops import _build
+
+    c_out, r, so = yc.shape
+    for t in (gamma, beta, mu, var, dy):
+        if t.device != yc.device or not t.is_contiguous():
+            raise ValueError("pgenc bwd sums: contiguous tensors on one "
+                             "CUDA device")
+    if dy.shape != yc.shape or dy.dtype not in _DTYPE_CODES:
+        raise ValueError(f"pgenc bwd sums: dy {tuple(dy.shape)} {dy.dtype}")
+    vec3 = torch.empty(3, c_out, dtype=torch.float32, device=yc.device)
+    _build.launch("maavss_pgenc_train_bwd_sums", yc.device, (
+        yc.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mu.data_ptr(),
+        var.data_ptr(), dy.data_ptr(), vec3.data_ptr(), r, 2 * so, c_out,
+        _DTYPE_CODES[dy.dtype]))
+    pgenc_bwd_sums.launches += 1
+    return vec3
+
+
+pgenc_bwd_sums.launches = 0
+
+
+def pgenc_bwd_apply(x, w2, yc, gamma, beta, mu, var, dy, sums: torch.Tensor,
+                    ntot: int):
+    """The split backward's second launch (two kernels: dyc, then the
+    grads kernel) -> (dx, dw2), dyc from `sums` [2, Co] (the data group's
+    dgamma and dbeta) over `ntot` values a channel."""
+    if not x.is_cuda:
+        with torch.no_grad():
+            z, dq, _, _ = _bn_bwd_terms(yc, gamma, beta, mu, var, dy)
+            dyc = _dyc_plain(z, dq, gamma, var, sums[0], sums[1],
+                             float(ntot))
+            return _conv_grads_plain(x, w2, dyc)
+    c_in, r, s = x.shape
+    c_out = w2.shape[0]
+    _check_train_args(x, w2, (gamma, beta, mu, var), (dy, yc))
+    if sums.shape != (2, c_out) or not sums.is_contiguous():
+        raise ValueError(f"pgenc bwd apply: sums {tuple(sums.shape)} != "
+                         f"[2, {c_out}]")
+    from maavss_tpu_torch.ops import _build
+
+    scratch = torch.empty(_bwd_scratch_bytes(c_in, r, s, c_out),
+                          dtype=torch.uint8, device=x.device)
+    dx = torch.empty_like(x)
+    dw2 = torch.empty_like(w2)
+    _build.launch("maavss_pgenc_train_bwd_apply", x.device, (
+        x.data_ptr(), w2.data_ptr(), yc.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), mu.data_ptr(), var.data_ptr(), dy.data_ptr(),
+        sums.data_ptr(), int(ntot), scratch.data_ptr(), dx.data_ptr(),
+        dw2.data_ptr(), c_in, r, s, c_out, _DTYPE_CODES[x.dtype]))
+    pgenc_bwd_apply.launches += 1
+    return dx, dw2
+
+
+pgenc_bwd_apply.launches = 0
+
+
+def pgenc_bwd_split(x, w2, yc, gamma, beta, mu, var, dy):
+    """Train-mode backward over the data group's global batch -> (dx,
+    dw2, dcbias = 0, dgamma, dbeta): `pgenc_bwd_sums`, the fixed-order
+    combine of (dgamma, dbeta) over the group, `pgenc_bwd_apply`. dgamma
+    and dbeta are this rank's own sums (the gradient all-reduce sums
+    them)."""
+    from maavss_tpu_torch.parallel.collectives import combine
+
+    mesh, n, _ = data_slot()
+    vec3 = pgenc_bwd_sums(yc, gamma, beta, mu, var, dy)
+    sums = combine(vec3[1:3].contiguous(), mesh).contiguous()
+    c_in, r, s = x.shape
+    dx, dw2 = pgenc_bwd_apply(x, w2, yc, gamma, beta, mu, var, dy, sums,
+                              n * r * (s // STRIDE))
+    return dx, dw2, vec3[0], vec3[1], vec3[2]
+
+
+def pgenc_split_plain(x, w2, cbias, gamma, beta, dy):
+    """The split route's forward and backward through the plain versions
+    on any device, under the current mesh: ((y, mu, var, yc), (dx, dw2,
+    dcbias, dgamma, dbeta)), the reference the split kernels are held
+    against."""
+    from maavss_tpu_torch.parallel.collectives import all_sum_, combine
+
+    mesh, n, d = data_slot()
+    c_in, r, s = x.shape
+    ntot = n * r * (s // STRIDE)
+    with torch.no_grad():
+        yc, partial = _train_conv_plain(x, w2, cbias, n, d)
+        all_sum_(partial, mesh)
+        y, mu, var = _train_apply_plain(yc, gamma, beta, partial, ntot,
+                                        x.dtype)
+        z, dq, dgamma, dbeta = _bn_bwd_terms(yc, gamma, beta, mu, var, dy)
+        sums = combine(torch.stack([dgamma, dbeta]), mesh)
+        dyc = _dyc_plain(z, dq, gamma, var, sums[0], sums[1], float(ntot))
+        dx, dw2 = _conv_grads_plain(x, w2, dyc)
+    return (y, mu, var, yc), (dx, dw2, torch.zeros_like(gamma), dgamma,
+                              dbeta)
+
+
 class _TrainLayer(torch.autograd.Function):
     """(x, w2, cbias, gamma, beta) -> (y, mu, var), as
     `fused_conv_bn_tanh_train`: mu and var carry no gradient; the forward's
     fp32 yc is saved as the backward's residual (read only, so a second
     backward under retain_graph reads it unchanged); the backward gives
-    (dx, dw2, zeros for cbias, dgamma, dbeta)."""
+    (dx, dw2, zeros for cbias, dgamma, dbeta). `split`: the split route
+    (the data group's statistics)."""
 
     @staticmethod
-    def forward(ctx, x, w2, cbias, gamma, beta, backend):
-        y, mu, var, yc = pgenc_train(x, w2, cbias, gamma, beta,
-                                     backend=backend)
+    def forward(ctx, x, w2, cbias, gamma, beta, backend, split):
+        if split:
+            y, mu, var, yc = pgenc_train_split(x, w2, cbias, gamma, beta)
+        else:
+            y, mu, var, yc = pgenc_train(x, w2, cbias, gamma, beta,
+                                         backend=backend)
         ctx.mark_non_differentiable(mu, var)
         ctx.save_for_backward(x, w2, yc, gamma, beta, mu, var)
-        ctx.backend = backend
+        ctx.backend, ctx.split = backend, split
         return y, mu, var
 
     @staticmethod
     def backward(ctx, dy, _dmu, _dvar):
-        grads = pgenc_bwd(*ctx.saved_tensors, dy.contiguous(),
-                          backend=ctx.backend)
-        return (*grads, None)
+        if ctx.split:
+            grads = pgenc_bwd_split(*ctx.saved_tensors, dy.contiguous())
+        else:
+            grads = pgenc_bwd(*ctx.saved_tensors, dy.contiguous(),
+                              backend=ctx.backend)
+        return (*grads, None, None)
 
 
 def pgenc_layer_train(x: torch.Tensor, w2: torch.Tensor, cbias: torch.Tensor,
                       gamma: torch.Tensor, beta: torch.Tensor,
-                      backend: str = "auto"):
-    """One fused train-mode layer, differentiable -> (y, mu, var)."""
-    return _TrainLayer.apply(x, w2, cbias, gamma, beta, backend)
+                      backend: str = "auto", split: bool = False):
+    """One fused train-mode layer, differentiable -> (y, mu, var); `split`
+    takes the split route (module docstring)."""
+    return _TrainLayer.apply(x, w2, cbias, gamma, beta, backend, split)

@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 import torch
 
 from maavss_tpu_torch.ops.image import resize_bilinear
+from maavss_tpu_torch.parallel.collectives import all_max
+from maavss_tpu_torch.parallel.mesh import data_size
 
 
 def _phase_rows(frames: torch.Tensor, resize: Optional[Tuple[int, int]],
@@ -50,7 +52,9 @@ def phasegram_window(p_flat: torch.Tensor, diff: bool = True,
                      normalize: bool = True) -> torch.Tensor:
     """Finish a phasegram from cumsum rows `[B, T, S]` -> `[B, 1, T, S]`:
     temporal diff (zero-padded first frame) + global max-abs normalization
-    (one max over the whole batch, as in the JAX package)."""
+    (one max over the whole batch, as in the JAX package; under a mesh
+    with more than one data rank, over the global batch: the max of the
+    data group's maxima)."""
     if diff:
         p_diff = torch.diff(p_flat, dim=-2)
         pg = torch.cat([torch.zeros_like(p_diff[..., 0:1, :]), p_diff],
@@ -59,7 +63,10 @@ def phasegram_window(p_flat: torch.Tensor, diff: bool = True,
         pg = p_flat
     pg = pg.unsqueeze(-3)
     if normalize:
-        pg = pg * (1.0 / torch.clamp(torch.max(torch.abs(pg)), min=1e-12))
+        peak = torch.max(torch.abs(pg))
+        if data_size() > 1:
+            peak = all_max(peak)
+        pg = pg * (1.0 / torch.clamp(peak, min=1e-12))
     return pg
 
 

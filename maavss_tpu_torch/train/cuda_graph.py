@@ -39,6 +39,15 @@ replay:
 A float noise is part of the graph (its value is part of the key); under
 --noise_schedule, or for a tensor noise, the graph reads the static scalar.
 Another generator than the captured one raises.
+
+Under a mesh (parallel/) a dispatch is still one replay: each rank
+captures its K steps with the NCCL collectives inside (the gradient
+all-reduce, the split routes' statistics), in thread-local capture mode
+so that NCCL's watchdog thread may query its events meanwhile. gloo
+cannot be captured (its CUDA collectives copy through the host), so a
+process group over gloo with CUDA tensors raises NotImplementedError
+naming "M11 (graphs over gloo)"; on CPU tensors the K steps run eagerly,
+as without a mesh.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from maavss_tpu_torch.ops.counters import kernel_counters
+from maavss_tpu_torch.parallel.mesh import current as current_mesh
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -138,6 +148,13 @@ class KStep:
         if self.device.type != "cuda":
             return _run_steps(self.step, self.k, state, batches, mode,
                               generator, noise)
+        mesh = current_mesh()
+        if mesh is not None and mesh.backend == "gloo":
+            raise NotImplementedError(
+                "--steps_per_dispatch > 1 on the card under a gloo process "
+                "group: gloo's CUDA collectives copy through the host and "
+                "cannot be captured in a CUDA graph (ROADMAP M11 (graphs "
+                "over gloo)); use NCCL, or --steps_per_dispatch 1")
         if isinstance(noise, torch.Tensor) or self.noise_schedule:
             form = "tensor"
             value = self.noise_scalar if noise is None else noise
@@ -189,7 +206,8 @@ class KStep:
         graph = torch.cuda.CUDAGraph()
         if generator is not None:
             graph.register_generator_state(generator)
-        with torch.cuda.graph(graph, stream=side):
+        capture = "global" if current_mesh() is None else "thread_local"
+        with torch.cuda.graph(graph, stream=side, capture_error_mode=capture):
             _, out = _run_steps(self.step, self.k, state, static, mode,
                                 generator, noise)
             packs = _pack(out)

@@ -24,6 +24,13 @@ sees the compressed clip's features while the SI-SDR reference stays
 bf16 outputs are cast to the features' fp32 before the overlap-add or the
 stitch, so the average, the polar kernel and the iSTFT run in fp32
 (maavss_tpu/train/infer.py:67,77,161).
+
+Under a mesh (parallel/) each rank separates its rows of the global batch
+(`parallel.mesh.shard_batch`) on its shards of the model: the phasegram's
+max-norm is the global batch's (ops/phasegram.py), the split heads are
+column-parallel (models/layers.py:dense), and the input noise is each
+row's draw from one global draw (train/steps.py:_noisy), so that every
+row's audio is the one-process separator's.
 """
 
 from __future__ import annotations

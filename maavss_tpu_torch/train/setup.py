@@ -20,6 +20,12 @@ model. The initialisation:
 `--dtype` picks the compute dtype (`compute_dtype`): float32, or bfloat16
 with flax's mixed-precision semantics (models/layers.py).
 
+`default_mesh` and `apply_mesh_model` realise --mesh_data / --mesh_model
+over the job's ranks (parallel/, the counterparts of
+maavss_tpu/train/setup.py:216-235); `check_supported` refuses a requested
+mesh that is not the world, so one process never trains a mesh it was
+asked for unsharded.
+
 `resolve_noise_schedule` (--noise_schedule) and `stack_batches` (the
 [K, B, ...] dispatch batches of --steps_per_dispatch) are the counterparts
 of maavss_tpu/train/setup.py:resolve_noise_schedule and make_stream's
@@ -50,6 +56,7 @@ from maavss_tpu_torch.data.frame_shards import FrameShardStore
 from maavss_tpu_torch.models.fusion import AVFusionModel, resolve_pgenc_kernel
 from maavss_tpu_torch.models.fusion_frames import AVFusionFramesModel
 from maavss_tpu_torch.models.layers import GRU, LSTM
+from maavss_tpu_torch.parallel import mesh as pmesh
 from maavss_tpu_torch.train.state import TrainState, create_train_state
 
 # the staged AV stage's trainable subnets (train_av_net.py: the fusion
@@ -89,6 +96,43 @@ def check_supported(cfg: RunConfig, train: bool = False) -> None:
         if missing:
             raise NotImplementedError(
                 f"{flag} is not ported to maavss_tpu_torch yet (ROADMAP {item})")
+    check_mesh(cfg)
+
+
+def check_mesh(cfg: RunConfig) -> None:
+    """--mesh_data x --mesh_model must be the job's world (the one process
+    without a process group): anything else raises ValueError rather than
+    run unsharded. --fused_opt with --mesh_model > 1 exits as the JAX
+    package's `_flat_opt` does."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    pmesh.resolve_shape(cfg.mesh_data, cfg.mesh_model, world)
+    if cfg.fused_opt and cfg.mesh_model > 1:
+        raise SystemExit("--fused_opt is incompatible with --mesh_model > 1 "
+                         "(flat moment buffers cannot tensor-shard per-leaf)")
+
+
+def default_mesh(cfg: RunConfig):
+    """The (data, model) mesh of --mesh_data / --mesh_model over the job's
+    ranks, made current (parallel/mesh.py:make_mesh), or None for one
+    process; a mesh that is not the world raises."""
+    check_mesh(cfg)
+    return pmesh.make_mesh(cfg.mesh_data, cfg.mesh_model)
+
+
+def apply_mesh_model(cfg: RunConfig, mesh, state: TrainState):
+    """Realise --mesh_model: the split leaves of a freshly made state (and
+    their Adam moments) become this rank's shards (parallel/mesh.py:
+    shard_state). Returns (state, {name: split dim}); with one model rank,
+    or no mesh, the state is left whole. A mesh whose model axis is not
+    cfg's --mesh_model raises ValueError (the state would train unsharded,
+    or split where the run asked for no split)."""
+    model = 1 if mesh is None else mesh.model
+    if cfg.mesh_model != model:
+        raise ValueError(f"--mesh_model {cfg.mesh_model} but the mesh has "
+                         f"{model} model ranks")
+    return pmesh.shard_state(mesh, state)
 
 
 def resolve_noise_schedule(cfg: RunConfig):
@@ -328,14 +372,16 @@ def load_pgram_store(cfg: RunConfig) -> Optional[FrameShardStore]:
 
 
 def make_stream(cfg: RunConfig, dataset, indices=None, seed: int = 0,
-                stack: int = 1):
+                stack: int = 1, mesh=None):
     """Batch stream for a train/val split (maavss_tpu/train/setup.py:
-    make_stream, without its mesh, ROADMAP M11): the Python pipeline,
-    `batches` in a `prefetch` thread that only builds numpy batches (the
-    steps copy them to the device on the main thread). `stack > 1` groups
-    that many consecutive batches into one [K, B, ...] dispatch batch
-    (`stack_batches`, --steps_per_dispatch). --native_loader on an AV
-    dataset, where the JAX package takes its C++ loader, raises."""
+    make_stream): the Python pipeline, `batches` in a `prefetch` thread
+    that only builds numpy batches (the steps copy them to the device on
+    the main thread). `stack > 1` groups that many consecutive batches
+    into one [K, B, ...] dispatch batch (`stack_batches`,
+    --steps_per_dispatch). With a `mesh` every rank reads the global batch
+    (one seed) and keeps its rows (parallel/mesh.py:shard_batch, the
+    --microbatch interleave included). --native_loader on an AV dataset,
+    where the JAX package takes its C++ loader, raises."""
     if cfg.native_loader and isinstance(dataset, AVDataset) \
             and dataset.mode == "av":
         raise NotImplementedError(
@@ -348,6 +394,10 @@ def make_stream(cfg: RunConfig, dataset, indices=None, seed: int = 0,
             while True:
                 yield stack_batches([next(src) for _ in range(stack)])
         it = stacked(it)
+    if mesh is not None and mesh.data > 1:
+        it = (pmesh.shard_batch(b, stacked=stack > 1,
+                                microbatch=cfg.microbatch, mesh=mesh)
+              for b in it)
     return it
 
 

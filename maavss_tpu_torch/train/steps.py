@@ -58,6 +58,16 @@ variant) runs the step's gradient pass over M sequential chunks of the
 batch and divides the summed gradients by M before the one optimizer
 update.
 
+Under a mesh (parallel/, --mesh_data / --mesh_model) each rank runs the
+step on its rows of the global batch (`parallel.mesh.shard_batch`, whose
+rows the step's noise takes from one draw over the global batch) and the
+step computes what one process would on the whole batch, as GSPMD does
+for the JAX step: BatchNorm's statistics and the phasegram's max-norm are
+the global batch's (models/layers.py, ops/phasegram.py), the gradients
+are averaged over the data group before the update, the loss metrics are
+global means, and `grad_norm` / `param_norm` count each split leaf once
+(its shards' squared norms summed over the model group).
+
 `--remat` (`_train_apply`) wraps the same forwards as the JAX step's
 `_train_apply` / `_apply_remat` (each window's model call, the full-encode
 encoders and heads) in `torch.utils.checkpoint`: the backward recomputes
@@ -96,6 +106,18 @@ from maavss_tpu_torch.ops.phasegram import (
     video_phasegram,
 )
 from maavss_tpu_torch.ops.stft import add_noise, stft_features
+from maavss_tpu_torch.parallel.collectives import (
+    allreduce_grads_,
+    combine,
+    mean_over_data,
+)
+from maavss_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
+    data_size,
+    global_rows,
+    model_size,
+    model_split,
+)
 from maavss_tpu_torch.train.cuda_graph import make_k_step
 from maavss_tpu_torch.train.setup import check_supported
 from maavss_tpu_torch.train.state import TrainState
@@ -117,11 +139,16 @@ def _watch_metrics(model: torch.nn.Module) -> Metrics:
     gives one. The per-leaf norms come from one multi-tensor call per
     dtype (`torch._foreach_norm`), not three launches per leaf. The norms
     accumulate in fp64: on the CPU, torch's fp32 norm of a 16.7 M-element
-    leaf (the frames model's fc1) is off by ~6e-4 relative."""
+    leaf (the frames model's fc1) is off by ~6e-4 relative. Under
+    --mesh_model a split leaf's squared norm is its shards' summed over the
+    model group (`_model_summed`)."""
     params, grads = [], []
+    p_split, g_split = [], []  # which entries are split leaves' shards
+    split = model_split(model) if model_size() > 1 else {}
     spans: Dict[str, list] = {}  # module -> [start, end) runs in `grads`
     for name, p in model.named_parameters():
         params.append(p.detach())
+        p_split.append(name in split)
         runs = spans.setdefault(name.split(".", 1)[0], [])
         if p.grad is not None:
             if runs and runs[-1][1] == len(grads):
@@ -129,14 +156,29 @@ def _watch_metrics(model: torch.nn.Module) -> Metrics:
             else:
                 runs.append([len(grads), len(grads) + 1])
             grads.append(p.grad)
-    p_sq = torch.stack(_norms(params)).square()
-    g_sq = torch.stack(_norms(grads)).square() if grads else p_sq[:0]
+            g_split.append(name in split)
+    p_sq = _model_summed(torch.stack(_norms(params)).square(), p_split)
+    g_sq = (_model_summed(torch.stack(_norms(grads)).square(), g_split)
+            if grads else p_sq[:0])
     m = {"grad_norm": torch.sqrt(g_sq.sum()),
          "param_norm": torch.sqrt(p_sq.sum())}
     for k, runs in spans.items():
         m[f"grad_norm/{k}"] = torch.sqrt(
             sum((g_sq[a:b].sum() for a, b in runs), g_sq[:0].sum()))
     return {k: v.float() for k, v in m.items()}
+
+
+def _model_summed(sq: torch.Tensor, split) -> torch.Tensor:
+    """Squared norms with the split leaves' entries summed over the model
+    group (in rank order): each split leaf counted once, whole."""
+    if not any(split):
+        return sq
+    parts = list(sq.unbind(0))
+    idx = [i for i, s in enumerate(split) if s]
+    summed = combine(torch.stack([parts[i] for i in idx]), axis=MODEL_AXIS)
+    for j, i in enumerate(idx):
+        parts[i] = summed[j]
+    return torch.stack(parts)
 
 
 def _norms(tensors):
@@ -261,6 +303,21 @@ def _vis_frames(batch, cfg: RunConfig) -> torch.Tensor:
     return attn_diff_frames(frames) if cfg.attn_diff else frames
 
 
+def _noisy(y: torch.Tensor, noise_scalar: Noise,
+           generator: Optional[torch.Generator],
+           microbatch: int) -> torch.Tensor:
+    """`add_noise`; under a mesh with more than one data rank the draw is
+    over the global batch and this rank keeps its rows of it (`global_rows`),
+    so that every row gets the noise one process would draw for it."""
+    rows = global_rows(y.shape[0], microbatch)
+    if rows is None:
+        return add_noise(y, noise_scalar, generator)
+    b, runs = rows
+    noise = torch.randn((b,) + tuple(y.shape[1:]), generator=generator,
+                        dtype=y.dtype, device=y.device)
+    return y + torch.cat([noise[r] for r in runs]) * noise_scalar
+
+
 def _prep_stft_pair(audio: torch.Tensor, cfg: RunConfig,
                     generator: Optional[torch.Generator], trim_end: bool,
                     max_norm: bool, noise_scalar: Optional[Noise] = None
@@ -284,7 +341,7 @@ def _prep_stft_pair(audio: torch.Tensor, cfg: RunConfig,
         y = norm_per_example(y)
     if not isinstance(noise_scalar, torch.Tensor) and noise_scalar == 0.0:
         return y, y
-    return add_noise(y, noise_scalar, generator), y
+    return _noisy(y, noise_scalar, generator, cfg.microbatch), y
 
 
 def _pflat_from_batch(batch, cfg: RunConfig) -> torch.Tensor:
@@ -443,7 +500,9 @@ def _microbatch_accumulate(state: TrainState, mb: int,
     running statistics carry chunk to chunk, as they carry window to
     window; its batch statistics, and the phasegram's global max-norm, are
     then per chunk: the JAX step's documented deviation. With mb == 1 the
-    chunk is the batch."""
+    chunk is the batch. Under a mesh the divided gradients are averaged
+    over the data group and the loss metrics are the global means
+    (`_global_update`)."""
     b = leaves[0].shape[0]
     if b % mb:
         raise ValueError(f"batch size {b} not divisible by microbatch {mb}")
@@ -464,9 +523,29 @@ def _microbatch_accumulate(state: TrainState, mb: int,
                 by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
         for grads in by_dtype.values():
             torch._foreach_div_(grads, mb)
+    return _global_update(state, metrics)
+
+
+def _global_update(state: TrainState, metrics: Metrics
+                   ) -> Tuple[TrainState, Metrics]:
+    """The end of every train step: under a mesh the gradients averaged
+    over the data group and the loss metrics (per-rank means) made global
+    means; then `_watch_metrics` and the one optimizer update."""
+    allreduce_grads_(state.model.parameters())
+    metrics = _mean_metrics(metrics)
     metrics.update(_watch_metrics(state.model))
     state.apply_gradients()
     return state, metrics
+
+
+def _mean_metrics(metrics: Metrics) -> Metrics:
+    """Per-rank means -> global means over the data group (one
+    collective); without a mesh, as they are."""
+    if data_size() == 1:
+        return metrics
+    keys = list(metrics)
+    both = mean_over_data(torch.stack([metrics[k].float() for k in keys]))
+    return {k: v.to(metrics[k].dtype) for k, v in zip(keys, both.unbind(0))}
 
 
 def _method(name: str) -> Callable:
@@ -756,7 +835,7 @@ def make_fusion_eval(model, cfg: RunConfig, device="cuda"):
                 for k, v in (("loss", a_loss + coeff * v_loss),
                              ("a_loss", a_loss), ("v_loss", v_loss)):
                     out[k] = out[k] + v
-            return {k: v / ns for k, v in out.items()}
+            return _mean_metrics({k: v / ns for k, v in out.items()})
         finally:
             state.model.train(was_training)
 
@@ -824,9 +903,7 @@ def _ae_update(state: TrainState, loss: torch.Tensor, audio: bool
     zero = torch.zeros((), device=loss.device)
     metrics = {"loss": loss, "a_loss": loss if audio else zero,
                "v_loss": zero if audio else loss}
-    metrics.update(_watch_metrics(state.model))
-    state.apply_gradients()
-    return state, metrics
+    return _global_update(state, metrics)
 
 
 def _audio_ae_pair(batch, cfg: RunConfig, device, generator, trim_end,
@@ -881,8 +958,9 @@ def make_audio_ae_eval(model, cfg: RunConfig, device="cuda",
         try:
             x, y = _audio_ae_pair(batch, cfg, device, generator, trim_end)
             loss = mse(state.model.audio_ae_forward(x), y)
-            return {"loss": loss, "a_loss": loss,
-                    "v_loss": torch.zeros((), device=loss.device)}
+            return _mean_metrics({"loss": loss, "a_loss": loss,
+                                  "v_loss": torch.zeros((),
+                                                        device=loss.device)})
         finally:
             state.model.train(was_training)
 
@@ -937,8 +1015,9 @@ def make_visual_ae_eval(model, cfg: RunConfig, device="cuda"):
         try:
             y_pg = _ae_phasegram(batch, cfg, device)
             loss = mse(state.model.visual_ae_forward(y_pg), y_pg)
-            return {"loss": loss, "v_loss": loss,
-                    "a_loss": torch.zeros((), device=loss.device)}
+            return _mean_metrics({"loss": loss, "v_loss": loss,
+                                  "a_loss": torch.zeros((),
+                                                        device=loss.device)})
         finally:
             state.model.train(was_training)
 

@@ -30,6 +30,12 @@ cfg.seed, feeds every step, eval and media call (JAX splits one PRNG key
 for each). --noise_schedule is evaluated on the host at the global step
 before each dispatch and handed to the step.
 
+Under a mesh (parallel/) every rank runs fit() on its rows of each batch
+(make_stream(mesh=)); the metrics are global, so every rank holds the same
+numbers; rank 0 alone writes the metrics and prints, and the checkpoints
+are the gathered whole state, written by rank 0 (exp/checkpoint.py), which
+every rank's save call helps gather.
+
 Quirks kept from JAX: a checkpoint saved at the end of epoch e resumes AT
 epoch e (`load_checkpoint` returns the saved epoch and fit() loops from
 it), and the mode is not saved, so 'cycle' restarts at mode 0 after a
@@ -50,8 +56,29 @@ from maavss_tpu_torch.config import RunConfig
 from maavss_tpu_torch.convert import flatten_tree, to_flax
 from maavss_tpu_torch.exp.checkpoint import load_checkpoint, save_checkpoint
 from maavss_tpu_torch.exp.metrics import Meter, MetricsLogger
+from maavss_tpu_torch.parallel.distributed import is_main
+from maavss_tpu_torch.parallel.mesh import current, gather_named
 from maavss_tpu_torch.train.setup import resolve_noise_schedule
 from maavss_tpu_torch.train.state import TrainState
+
+
+class _Quiet:
+    """The metrics logger of a rank other than 0: it writes nothing."""
+
+    def log(self, metrics, step=None) -> None:
+        del metrics, step
+
+    def log_histograms(self, hists, step=None) -> None:
+        del hists, step
+
+    def close(self) -> None:
+        pass
+
+
+def _say(text: str) -> None:
+    """print on rank 0 (or without a group)."""
+    if is_main():
+        print(text)
 
 
 def _host(metrics) -> dict:
@@ -102,6 +129,8 @@ class Trainer:
             self._mode_probs = ws / ws.sum()
             self.mode = 2  # start in AV, like 'fixed'
         self._noise_fn = resolve_noise_schedule(cfg)
+        if logger is None and not is_main():
+            logger = _Quiet()
         self.logger = logger or MetricsLogger(
             cfg.log_dir, run_name, use_wandb=cfg.wandb,
             config=dataclasses.asdict(cfg),
@@ -124,7 +153,9 @@ class Trainer:
 
     def _param_histograms(self, bins: int = 64):
         """64-bin histogram of every top-level parameter group, host-side."""
-        params, _ = to_flax(self.state.model.state_dict())
+        model = self.state.model
+        params, _ = to_flax(gather_named(current(), model,
+                                         model.state_dict()))
         hists = {}
         for k, group in params.items():
             leaves = (flatten_tree(group).values()
@@ -228,7 +259,7 @@ class Trainer:
                         step=gstep + j,
                     )
                 if pi % cfg.cb_freq == 0:
-                    print(f"epoch {pe} step {pi}/{cfg.steps_per_epoch} "
+                    _say(f"epoch {pe} step {pi}/{cfg.steps_per_epoch} "
                           f"loss {host.get('loss', float('nan')):.6f} "
                           f"mode {pmode} "
                           f"{self.meter.clips_per_sec_per_chip:.2f} "
@@ -291,7 +322,7 @@ class Trainer:
                 val_loss = float(np.mean(vals))
                 self.logger.log({"val_loss": val_loss, "epoch": e},
                                 step=global_step)
-                print(f"epoch {e} val_loss {val_loss:.6f}")
+                _say(f"epoch {e} val_loss {val_loss:.6f}")
 
             if not cfg.no_save:
                 if self.checkpoint_policy == "epoch":

@@ -78,9 +78,9 @@ def count_fused(monkeypatch):
     calls = []
     real = port_layers.fused_bn_pool_leaky
 
-    def spy(y, gamma, beta):
+    def spy(y, gamma, beta, split=False):
         calls.append(tuple(y.shape))
-        return real(y, gamma, beta)
+        return real(y, gamma, beta, split=split)
 
     monkeypatch.setattr(port_layers, "fused_bn_pool_leaky", spy)
     return calls

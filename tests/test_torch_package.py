@@ -80,9 +80,10 @@ def test_port_imports_without_jax():
     save_phasegrams_torch.py, evaluate_torch.py, separate_torch.py,
     quality_curve_torch.py, train_legacy_torch.py,
     save_attn_videos_torch.py, flow_torch.py, export_model_torch.py,
-    serve_torch.py and cost_report_torch.py with the modules they reach,
-    load in a fresh process without jax, ml_dtypes (which the card's
-    machine lacks) or maavss_tpu."""
+    serve_torch.py, cost_report_torch.py and dryrun_multichip_torch.py
+    with the modules they reach (parallel/ among them), load in a fresh
+    process without jax, ml_dtypes (which the card's machine lacks) or
+    maavss_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import maavss_tpu_torch\n"
@@ -96,6 +97,7 @@ def test_port_imports_without_jax():
         "flow_torch\n"
         "from tools import export_model_torch, serve_torch, "
         "cost_report_torch\n"
+        "from tools import dryrun_multichip_torch\n"
         "bench_torch.kernel_counters(); bench_torch.bench_config({}, 8)\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'ml_dtypes', 'maavss_tpu') "
         "if m in sys.modules]\n"
@@ -116,7 +118,10 @@ def test_port_imports_without_jax():
         " 'maavss_tpu_torch.ops.fft_legacy', 'maavss_tpu_torch.data.generator',"
         " 'maavss_tpu_torch.models.legacy', 'maavss_tpu_torch.ops.dino',"
         " 'maavss_tpu_torch.ops.flow', 'maavss_tpu_torch.ops.registry',"
-        " 'maavss_tpu_torch.exp.artifact'}\n"
+        " 'maavss_tpu_torch.exp.artifact', 'maavss_tpu_torch.parallel',"
+        " 'maavss_tpu_torch.parallel.mesh',"
+        " 'maavss_tpu_torch.parallel.distributed',"
+        " 'maavss_tpu_torch.parallel.collectives'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -269,6 +274,32 @@ def test_new_wrappers_count_no_launch_on_cpu():
     adam_multi_tensor([None], [torch.zeros(5)], [torch.zeros(5)], p,
                       torch.tensor([0.1, 0.001, 1e-3]), 0.9, 0.999, 1e-8)
     assert [c.launches for c in counters] == [0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("n_model", [1, 2, 4, 8])
+def test_shape_rule_copy_matches_jax(n_model):
+    """parallel/mesh.py:model_shard_dim is the JAX package's
+    `_leaf_model_sharding` (maavss_tpu/parallel/mesh.py:69-87) on the
+    port's layouts: a leaf the JAX rule splits on its last axis is split on
+    dim 0 of an nn.Linear weight (flax's kernel transposed) and on dim 1 of
+    w_i / w_h (kept in flax's layout); every other leaf stays whole."""
+    import types
+
+    from maavss_tpu.parallel import mesh as jax_mesh
+    from maavss_tpu_torch.parallel.mesh import model_shard_dim
+
+    mesh = jax_mesh.make_mesh(8 // n_model, n_model)
+    for shape in ((512, 2048), (2048, 128), (64, 1024), (256, 1024),
+                  (100, 96), (3, 256), (7, 64), (256, 130), (8192, 8192),
+                  (128,), (4096,), (5, 5, 2, 8), (3, 5, 5, 16, 16)):
+        leaf = types.SimpleNamespace(ndim=len(shape), shape=shape)
+        want = jax_mesh.MODEL_AXIS in tuple(
+            jax_mesh._leaf_model_sharding(mesh, leaf).spec)
+        for name, torch_shape, dim in (("fc1.weight", shape[::-1], 0),
+                                       ("lstm.fwd.w_i", shape, 1),
+                                       ("lstm.bwd.w_h", shape, 1)):
+            got = model_shard_dim(name, torch_shape, n_model)
+            assert got == (dim if want else None), (name, shape, n_model)
 
 
 @pytest.mark.parametrize("seed", [0, 5])

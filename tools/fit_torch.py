@@ -41,6 +41,14 @@ stage restores the parameters of one file (`load_model`; BatchNorm's
 running statistics start fresh) and trains the fusion core and heads
 with both autoencoders frozen.
 
+Under `torchrun --nproc_per_node N` the run is one process a rank over
+`--mesh_data` x `--mesh_model` = N ranks (parallel/, the JAX entries'
+mesh): NCCL on the card (each rank on cuda:LOCAL_RANK), gloo with
+`--device cpu`; every rank builds the seeded state, the split leaves
+become its shards (`apply_mesh_model`), reads the global batches and
+keeps its rows; rank 0 writes the metrics, checkpoints and saved model
+(the whole state). A mesh that is not the world raises.
+
 Every flag of the run config applies (`--lr_schedule`,
 `--steps_per_dispatch`, `--dtype bfloat16`, `--fusion_encode full`, ...).
 Runs on the card unless `--device cpu` is given (the plain PyTorch
@@ -62,6 +70,11 @@ Usage:
       --p_size 16 --latent_chan 8 --fc_size 256 -lr 1e-3
   python tools/fit_torch.py --model av_net --saved_model
       saved_models/<run>.params.pt ... (the same flags)
+  data x tensor parallel, 4 ranks on 4 cards (2 x 2), or on the CPU:
+  torchrun --nproc_per_node 4 tools/fit_torch.py --data_path synthetic
+      -e 2 -s 4 -b 8 --mesh_data 2 --mesh_model 2
+  torchrun --nproc_per_node 4 tools/fit_torch.py --device cpu ... (the
+      small geometry flags) -b 4 --mesh_model 2
 """
 
 from __future__ import annotations
@@ -88,10 +101,16 @@ def fit(cfg, model_name: str = "fusion", device="cuda"):
         split_train_val,
     )
     from maavss_tpu_torch.exp.checkpoint import load_model, save_model
+    from maavss_tpu_torch.parallel.distributed import (
+        initialize,
+        rank_zero_first,
+    )
     from maavss_tpu_torch.train.setup import (
         FUSION_SUBNETS,
+        apply_mesh_model,
         build_frames_state,
         build_fusion_state,
+        default_mesh,
         load_pgram_store,
         load_stores,
         make_stream,
@@ -107,12 +126,13 @@ def fit(cfg, model_name: str = "fusion", device="cuda"):
         raise NotImplementedError(
             "MAAVSS_MEDIA (the training media callback) is not ported to "
             "maavss_tpu_torch yet (ROADMAP M6-rest (media))")
-    device = torch.device(device)
+    device = initialize(device) or torch.device(device)
+    mesh = default_mesh(cfg)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     init = torch.Generator().manual_seed(cfg.seed)
-    frames, audio = load_stores(cfg)
+    frames, audio = rank_zero_first(lambda: load_stores(cfg))
     eval_fn, split, save = None, True, model_name in ("fusion", "frames",
                                                       "autoencoder")
     # (run-name prefix, mode schedule, fixed mode, checkpoint policy)
@@ -122,6 +142,7 @@ def fit(cfg, model_name: str = "fusion", device="cuda"):
         frame_size = dataset[0]["frames"].shape[-1]
         _, state = build_frames_state(cfg, cfg.batch_size, frame_size,
                                       device=device, generator=init)
+        apply_mesh_model(cfg, mesh, state)
         step = steps.make_frames_step(state.model, cfg, device=device)
         plan = ("avse-frames", cfg.mode_schedule or "random01", 2, "epoch")
     elif model_name in ("fusion", "av_net"):
@@ -132,6 +153,7 @@ def fit(cfg, model_name: str = "fusion", device="cuda"):
         _, state = build_fusion_state(
             cfg, cfg.batch_size, device, init,
             trainable=FUSION_SUBNETS if staged else None)
+        apply_mesh_model(cfg, mesh, state)
         if staged and cfg.saved_model:
             load_model(cfg.saved_model, state.model)  # train_av_net.py
         step = steps.make_fusion_step(state.model, cfg, device=device)
@@ -147,6 +169,7 @@ def fit(cfg, model_name: str = "fusion", device="cuda"):
         else:  # visual_net (train_3d_conv_net.py is the same run)
             dataset = VideoDataset(cfg, frames, cfg.num_frames)
         _, state = build_fusion_state(cfg, cfg.batch_size, device, init)
+        apply_mesh_model(cfg, mesh, state)
         if model_name == "visual_net":
             step = steps.make_visual_ae_step(state.model, cfg, device=device)
             eval_fn = steps.make_visual_ae_eval(state.model, cfg,
@@ -167,8 +190,9 @@ def fit(cfg, model_name: str = "fusion", device="cuda"):
                       mode_schedule=schedule, fixed_mode=fixed_mode,
                       checkpoint_policy=policy)
     state = trainer.fit(make_stream(cfg, dataset, tr_idx, cfg.seed,
-                                    stack=cfg.steps_per_dispatch),
-                        make_stream(cfg, dataset, va_idx, cfg.seed + 1))
+                                    stack=cfg.steps_per_dispatch, mesh=mesh),
+                        make_stream(cfg, dataset, va_idx, cfg.seed + 1,
+                                    mesh=mesh))
     if save and not cfg.no_save:
         save_model(f"saved_models/{name}", state.model)  # train.py:243-244
     return state
