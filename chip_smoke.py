@@ -161,6 +161,27 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
 30. bf16_golden: the small-geometry JAX bf16 fixture of
    tests/fixtures/torch_port_bf16_golden.npz (separator audio, 3 train
    steps) through the kernels.
+30b. fp16_kernels (--dtype float16, dtype code 2 of K1, K2 and K5:
+   __half IO, fp32 sums): K1-fwd and K1-bwd at (B, T) = (8, 8) and
+   (1024, 8); K2-eval at R 64 and K2-train / K2-bwd at R 64 and 2816 at
+   the 10 layers (the split route at two slots at R 88 and 2816); K5's
+   four kernels at stages 0 and 1, gaussian, tied and at an odd offset, at
+   K5_EDGES, and its split reductions at two slots; each against its plain
+   version in fp16 within one fp16 rounding (statistics at the fp32
+   gates), two calls bitwise equal; timed with cuDNN's fp16 nn.LSTM and
+   conv beside, bounds at the fp16 tensor-core rate.
+30c. fp16_train: the full-encode fusion step in fp16 (batch 8) against
+   the plain versions: its first step's loss and gradients, then the four
+   fp16 LSTM leaves non-finite in every element on both routes (the
+   reference's Adam in fp16, ROADMAP queue 3); the STFT and phasegram
+   autoencoder regimes over 3 steps, whose losses train while the unused
+   LSTM goes non-finite; exact launches a step.
+30d. fp16_slice: bf16_slice's HTTP daemons in fp16 (both families), each
+   family's separator against the plain one in fp16 and fp32, and each
+   family's exported fp16 serving program bitwise the live function.
+30e. fp16_golden: the small-geometry JAX fp16 fixture of
+   tests/fixtures/torch_port_fp16_golden.npz (separator audio; one train
+   step's losses and the leaves it leaves non-finite) through the kernels.
 31. stft_route: --fft_len 4096, which the STFT kernel refuses (its
    launcher is called and must refuse): the STFT goes to cuFFT and, under
    --use_polar, to the standalone magphase kernel; 3 fusion train steps and
@@ -172,7 +193,7 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    dispatch as one CUDA-graph replay against K eager steps of a twin from
    one state_dict and one noise seed (noise_scalar 0.1, mode 2), three
    dispatches (the first runs eagerly and captures, two replay), for the
-   full-encode fusion step at batch 8 (fp32, bf16) and 256 (bf16), the
+   full-encode fusion step at batch 8 (fp32, bf16, fp16) and 256 (bf16), the
    scan window step and the frames step at batch 8 (fp32, bf16), one
    --mask_head and one --use_polar step, and --noise_schedule (a new value
    a dispatch, no re-capture): with cuDNN's deterministic algorithms bit
@@ -235,6 +256,11 @@ Phases, one JSON line each, any failure exits non-zero (nothing is caught):
    frames gates: records, launches, and every leaf after the run (the BN
    shifts ahead of a train-mode BN within Adam's bound a step and then
    synchronised). Its launches are added to the kernels line.
+36b. native_media: --native_loader (the C++ batch assembler of
+   data/dataloader.cc): its rows equal the dataset's items, host seconds a
+   batch beside the Python pipeline's; a Trainer run of 3 fusion steps on
+   its stream with the MAAVSS_MEDIA callback every 2 steps, whose PNGs
+   decode and whose wavs hold the clip's samples.
 37. eval_plane (the evaluation plane and the model options a checkpoint
    can carry, in a temporary working directory; nothing caught): evaluate
    (tools/evaluate_torch.py) on the fusion flagship at batch 8 over 2
@@ -4498,19 +4524,32 @@ def _bf16_ratio(what, got, want, want32, ratio):
     return near / base
 
 
-def _one_rounding(what, got, want, atol=0.0):
-    """Raise unless `got` is within one bf16 rounding (relative 2^-7) plus
-    `atol` of `want`; returns the largest difference."""
+def _one_rounding(what, got, want, atol=0.0, ulp=2.0 ** -7,
+                  of_larger=False):
+    """Raise unless `got` is within one rounding (relative `ulp`: 2^-7 in
+    bf16, 2^-10 in fp16) plus `atol` of `want`, relative to |want| or, with
+    `of_larger` (the fp16 gates), to the larger of |got| and |want|: fp32
+    results one ulp apart that round to two neighbours across a power of
+    two lie a whole ulp of the upper binade apart, past `ulp` of the lower
+    value. Returns the largest difference."""
+    import torch
+
     err = (got.float() - want.float()).abs()
-    if not bool((err <= atol + 2.0 ** -7 * want.float().abs()).all()):
-        raise SystemExit(f"{what}: {err.max().item()} past one bf16 "
-                         f"rounding")
+    mag = want.float().abs()
+    if of_larger:
+        mag = torch.maximum(got.float().abs(), mag)
+    if not bool((err <= atol + ulp * mag).all()):
+        raise SystemExit(f"{what}: {err.max().item()} past one rounding "
+                         f"(relative {ulp})")
     return err.max().item()
 
 
-def _k5_bf16_check(where, y, gamma, beta, g_out, g_mu, g_var):
-    """K5's four kernels on a bf16 y against their plain versions under
-    k5_bf16_phase's gates; returns the errors by kernel and the kernels'
+def _k5_bf16_check(where, y, gamma, beta, g_out, g_mu, g_var,
+                   ulp=2.0 ** -7, of_larger=False, tiny=0.0):
+    """K5's four kernels on a bf16 (or fp16: `ulp` 2^-10, `of_larger`, and
+    `tiny` its spacing at 0, where its subnormals hold the small outputs)
+    y against their plain versions under k5_bf16_phase's gates
+    (`_one_rounding`); returns the errors by kernel and the kernels'
     results (mu, var, rstd, out, sel, (dgamma, dbeta, k), dy)."""
     import torch
 
@@ -4532,10 +4571,11 @@ def _k5_bf16_check(where, y, gamma, beta, g_out, g_mu, g_var):
     out, sel = epilogue_apply(y, gamma, beta, mu, rstd)
     out_p, sel_p = epilogue_apply_plain(y, gamma, beta, mu, rstd)
     torch.cuda.synchronize()
-    if out.dtype != torch.bfloat16 or not torch.equal(sel, sel_p):
-        raise SystemExit(f"K5 bf16 apply: sel differs at {where}")
+    if out.dtype != y.dtype or not torch.equal(sel, sel_p):
+        raise SystemExit(f"K5 {y.dtype} apply: sel differs at {where}")
     errs = {"stats": 0.0,
-            "apply": _one_rounding(f"K5 bf16 out {where}", out, out_p)}
+            "apply": _one_rounding(f"K5 {y.dtype} out {where}", out, out_p,
+                                   tiny, ulp, of_larger)}
     del out_p, sel_p
     red = epilogue_bwd_reduce(g_out, sel, gamma, beta, mu, rstd, g_mu, g_var)
     red_p = epilogue_bwd_reduce_plain(g_out, sel, gamma, beta, mu, rstd,
@@ -4546,8 +4586,9 @@ def _k5_bf16_check(where, y, gamma, beta, g_out, g_mu, g_var):
     dy = epilogue_bwd_dy(y, g_out, sel, gamma, beta, mu, rstd, red[2])
     dy_p = epilogue_bwd_dy_plain(y, g_out, sel, gamma, beta, mu, rstd,
                                  red[2])
-    errs["bwd_dy"] = _one_rounding(f"K5 bf16 dy {where}", dy, dy_p,
-                                   1e-3 * dy_p.float().abs().max().item())
+    errs["bwd_dy"] = _one_rounding(f"K5 {y.dtype} dy {where}", dy, dy_p,
+                                   1e-3 * dy_p.float().abs().max().item()
+                                   + tiny, ulp, of_larger)
     del dy_p
     _k5_reduce_bits(where, (g_out, sel, gamma, beta, mu, rstd, g_mu, g_var))
     k0 = torch.zeros_like(red[2])
@@ -4928,11 +4969,12 @@ def bf16_train_phase():
     return launches, mask_rep
 
 
-def bf16_slice_phase():
-    """HTTP serving in bf16 at full width: the fusion flagship with
-    --fusion_encode full --pgram_cache (float16 rows) and the frames
-    flagship (uint8 frames), 4 requests of 1..8 rows each, against the
-    plain bf16 serving function (the plain versions of K1, K2-eval and K4;
+def bf16_slice_phase(dtype="bfloat16", label="bf16_slice"):
+    """HTTP serving in bf16 (or `dtype`) at full width: the fusion
+    flagship with --fusion_encode full --pgram_cache (float16 rows) and the
+    frames flagship (uint8 frames), 4 requests of 1..8 rows each, against
+    the plain serving function in that dtype (the plain versions of K1,
+    K2-eval and K4;
     the STFT kernel's features on both sides) under BF16_SERVE_RATIO against
     the plain fp32 serving function; each batch launches K1-fwd once (fusion)
     or once a window (frames), K2-eval once a layer (fusion) and the STFT
@@ -4960,19 +5002,19 @@ def bf16_slice_phase():
     out = {}
     for family in ("fusion", "frames"):
         frames_model = family == "frames"
-        cfg = RunConfig(batch_size=batch, dtype="bfloat16")
+        cfg = RunConfig(batch_size=batch, dtype=dtype)
         if not frames_model:
             cfg = cfg.replace(fusion_encode="full", pgram_cache=True)
         build = build_frames_model if frames_model else build_fusion
         model = build(cfg, batch, device="cuda",
                       generator=torch.Generator().manual_seed(cfg.seed))
         refs = {}
-        for dtype in ("bfloat16", "float32"):
-            rcfg = cfg.replace(dtype=dtype)
+        for rdt in (dtype, "float32"):
+            rcfg = cfg.replace(dtype=rdt)
             ref = build(rcfg, batch, device="cuda")
             ref.load_state_dict(model.state_dict())
             ref.lstm.backend = "scan"
-            refs[dtype] = _plain_k2(_plain_k4(make_serving_fn(
+            refs[rdt] = _plain_k2(_plain_k4(make_serving_fn(
                 ref, rcfg, frames_model), True))
         serve = make_serving_fn(model, cfg, frames_model)
         a_spec, v_spec = serving_input_specs(cfg, batch, frames_model)
@@ -5009,8 +5051,8 @@ def bf16_slice_phase():
         finally:
             client.close()
             server.stop()
-        if health.get("compute_dtype") != "bfloat16":
-            raise SystemExit(f"bf16_slice {family}: /healthz {health}")
+        if health.get("compute_dtype") != dtype:
+            raise SystemExit(f"{label} {family}: /healthz {health}")
         batches = stats["batches"]
         want = {n: 0 for n in names}
         want.update(stft=batches,
@@ -5018,28 +5060,28 @@ def bf16_slice_phase():
         if not frames_model:
             want["pgenc_eval"] = batches * FULLENC_LAYERS
         if batches < 1 or launches != want:
-            raise SystemExit(f"bf16_slice {family} launches {launches} != "
+            raise SystemExit(f"{label} {family} launches {launches} != "
                              f"{want}")
         worst = 0.0
         for (audio, visual), got in zip(requests, responses):
             rows = audio.shape[0]
             if got.shape != audio.shape or got.dtype != np.float32 \
                     or not np.all(np.isfinite(got)):
-                raise SystemExit(f"bad bf16_slice {family} response")
+                raise SystemExit(f"bad {label} {family} response")
             pad_a = np.zeros(a_spec.shape, a_spec.dtype)
             pad_v = np.zeros(v_spec.shape, v_spec.dtype)
             pad_a[:rows], pad_v[:rows] = audio, visual
             dev = (torch.from_numpy(pad_a).cuda(),
                    torch.from_numpy(pad_v).cuda())
             want_b, want_f = (refs[d](*dev)[:rows].cpu().numpy()
-                              for d in ("bfloat16", "float32"))
-            worst = max(worst, _bf16_ratio(f"bf16_slice {family}", got,
+                              for d in (dtype, "float32"))
+            worst = max(worst, _bf16_ratio(f"{label} {family}", got,
                                            want_b, want_f, BF16_SERVE_RATIO))
         out[family] = dict(requests=len(requests), rows=rows_list,
                            batches=batches, visual=str(v_spec.dtype),
                            worst_ratio=worst, launches=launches)
         del model, refs, serve
-    phase("bf16_slice", **out)
+    phase(label, **out)
     return out
 
 
@@ -5110,6 +5152,780 @@ def bf16_golden_phase():
           launches=launches, ratio=BF16_RATIO, loss_rtol=BF16_LOSS_RTOL)
 
 
+# ------------------------------------------------------------ --dtype float16
+
+# dense fp16 products on the tensor cores, the rate of bf16's: the bound of
+# the fp16 K1 and K2 lines (the kernels compute in fp32 on the CUDA cores)
+F16_TC_FLOP_PER_S = 989e12
+FP16_ULP = 2.0 ** -10  # one fp16 rounding, relative (11 significant bits)
+FP16_TINY = 2.0 ** -24  # fp16's spacing at 0 (its subnormals)
+# kernels against the plain versions in fp16 on the card: a step's losses
+# within FP16_LOSS_RTOL of the plain step's (bf16's 5e-4 over 3 steps with
+# three bits fewer), served audio under BF16_SERVE_RATIO, as in bf16
+FP16_LOSS_RTOL = 2e-4
+# step-1 gradients (Adam's first moment) of the fp32 leaves against the
+# plain fp16 step, as a share of the plain fp16-vs-fp32 distance: the
+# fusion step's gradient moves 0.12 in relative L2 from fp32 to fp16, and
+# rounding flips of that order separate any two fp16 routes (the kernels
+# against the plain versions read 0.85 on an NVIDIA H100; the port's CPU
+# path against JAX's 1.10, tests/test_torch_fp16.py's GRAD_RATIO 2.0)
+FP16_GRAD_RATIO = 2.0
+# tests/test_torch_fp16.py's golden gates: the separator's audio within
+# MODEL_RATIO of JAX's fp16-vs-fp32 distance, the first step's losses within
+# GOLDEN_LOSS_RTOL of JAX's fp16 ones, the same non-finite leaves after it
+FP16_MODEL_RATIO, FP16_GOLDEN_LOSS_RTOL = 0.75, 1e-4
+FP16_GOLDEN = os.path.join(ROOT, "tests", "fixtures",
+                           "torch_port_fp16_golden.npz")
+# the fp16 leaves: the reference's Adam leaves them non-finite after its
+# first update (ROADMAP queue 3), and the port does the same
+FP16_LSTM_LEAVES = ("lstm.fwd.w_i", "lstm.fwd.w_h", "lstm.bwd.w_i",
+                    "lstm.bwd.w_h")
+
+
+def _fp16_k1(g):
+    """K1-fwd and K1-bwd at (B, T) = (8, 8) and (1024, 8), H 256, both
+    directions a launch, fp16 IO: ys, cs and the fp32 gate activations
+    within 1e-5 + one fp16 rounding of the plain recurrence in fp16; dxw
+    and dW_h within one rounding of the plain BPTT (plus 2^-10 of their
+    largest entry); two calls of each bitwise equal. Timed with their plain
+    versions and cuDNN's fp16 nn.LSTM forward and backward; bounds at the
+    fp16 tensor-core rate."""
+    import torch
+
+    from maavss_tpu_torch.ops.cuda_lstm import (
+        lstm_recurrence,
+        lstm_recurrence_bwd,
+        lstm_recurrence_bwd_plain,
+        lstm_recurrence_plain,
+    )
+
+    h, rev = 256, [False, True]
+    for b, t_len in ((8, 8), (1024, 8)):
+        xws, whs, dys = _k1_inputs(b, t_len, torch.float16, g, h)
+        where = f"B={b} T={t_len} float16"
+
+        def fwd():
+            return lstm_recurrence(xws, whs, rev, backend="kernel")
+
+        def fwd_plain():
+            return [lstm_recurrence_plain(x, w, r)
+                    for x, w, r in zip(xws, whs, rev)]
+
+        got, again, want = fwd(), fwd(), fwd_plain()
+        torch.cuda.synchronize()
+        _same_bits(f"K1 fp16 {where}", got, again)
+        e_f = 0.0
+        for outs, refs in zip(got, want):
+            if outs[0].dtype != torch.float16:
+                raise SystemExit(f"K1 fp16 {where}: ys is {outs[0].dtype}")
+            for a, w in zip(outs, refs):
+                e_f = max(e_f, check_close(f"K1 fp16 fwd {where}", a, w,
+                                           1e-5, FP16_ULP))
+        yss, css, actss = ([o[i] for o in got] for i in range(3))
+
+        def bwd():
+            return lstm_recurrence_bwd(actss, whs, yss, css, dys, rev,
+                                       backend="kernel")
+
+        def bwd_plain():
+            return [lstm_recurrence_bwd_plain(*a) for a in
+                    zip(actss, whs, yss, css, dys, rev)]
+
+        gb, gb2, wb = bwd(), bwd(), bwd_plain()
+        torch.cuda.synchronize()
+        _same_bits(f"K1-bwd fp16 {where}", gb, gb2)
+        e_b = 0.0
+        for (dxw, dwh), (dxw_r, dwh_r) in zip(gb, wb):
+            e_b = max(e_b, check_close(f"K1-bwd fp16 dxw {where}", dxw, dxw_r,
+                                       FP16_ULP, FP16_ULP, scale_atol=True),
+                      check_close(f"K1-bwd fp16 dW_h {where}", dwh, dwh_r,
+                                  FP16_ULP, FP16_ULP, scale_atol=True))
+        flops = 2 * t_len * 2 * b * h * 4 * h
+        moved = {"fwd": 2 * (nbytes(xws[0], whs[0])
+                             + nbytes(got[0][0], got[0][1])),
+                 "bwd": 2 * (nbytes(xws[0], whs[0], yss[0], css[0], dys[0])
+                             + nbytes(*gb[0]))}
+        rows = {}
+        for key, fn, plain, err, ops, lib in (
+                ("fwd", fwd, fwd_plain, e_f, flops,
+                 lambda: cudnn_lstm_ms(xws, whs)),
+                ("bwd", bwd, bwd_plain, e_b, 2 * flops,
+                 lambda: cudnn_lstm_bwd_ms(xws, whs, dys))):
+            dev, host = split_ms(fn)
+            bnd = bound_ms(moved[key], ops, F16_TC_FLOP_PER_S)
+            rows[key] = dict(max_abs_err=err, ms=cuda_ms(fn), device_ms=dev,
+                             host_ms=host, plain_ms=cuda_ms(plain),
+                             bound_ms=bnd[0], bound_by=bnd[1],
+                             library_ms=lib())
+        phase("k1_fp16", B=b, T=t_len, H=h, directions=2,
+              geometry=_k1_geometry(b, h), bitwise_repeat=True, atol=1e-5,
+              rtol=FP16_ULP, library="cuDNN fp16 nn.LSTM (more work: the "
+              "input projection, and backward dx through w_i, dW_i)", **rows)
+
+
+def _fp16_k2(g):
+    """K2-eval at R = 64, and K2-train's forward and K2-bwd at R = 64 and
+    2816 (a window at batch 8, the full-encode span at batch 256), each of
+    the 10 flagship layers, fp16 IO: y within 2^-10 (tanh outputs, one
+    fp16 rounding near 1), mu, var and yc as the fp32 gates (fp32 sums of
+    the same fp16 inputs), dx, dw2, dgamma and dbeta within one rounding
+    plus 2^-10 of their largest entry, dcbias exactly 0, two backward calls
+    bitwise equal and x, w2, yc, dy one element into their storage (4-byte
+    copies) held to the same gates; at R = 64 both forwards hold their
+    contract (_k2_contract). The split route at two slots (`_k2_two_ranks`)
+    at R = 88 and 2816, its four launches timed at R = 88. Times summed
+    over the layers with the plain versions and cuDNN's fp16 conv alone
+    (forward at R 64, forward and backward at R 2816); bounds at the fp16
+    tensor-core rate."""
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.models.shape_plan import plan_phasegram_encoder
+    from maavss_tpu_torch.ops import cuda_pgenc as pg
+
+    f16 = torch.float16
+    cfg = RunConfig()
+    specs, _ = plan_phasegram_encoder(
+        (8, 1, cfg.num_frames, cfg.p_size ** 2), cfg.latent_chan, cfg.fc_size)
+    span = cfg.num_frames + cfg.num_seq - 1
+    r64 = 8 * cfg.num_frames
+    for r in (r64, 8 * span, 256 * span):
+        keys = ("eval", "fwd", "bwd")
+        tot = {f"{k}_{f}": 0.0 for k in keys for f in (
+            "ms", "plain_ms", "device_ms", "host_ms", "err", "bytes",
+            "flops", "library_ms")}
+        tot["split_err"] = 0.0
+        split = {n: dict(ms=0.0, plain_ms=0.0) for n in PARALLEL_SPLIT_K2}
+        s = cfg.p_size ** 2
+        for i, sp in enumerate(specs):
+            c, co = sp.in_ch, sp.out_ch
+            x, w2, cb, gamma, beta, dy = _pgenc_inputs(c, co, r, s, f16, g)
+            where = f"layer {i} R={r} float16"
+            vecs = (cb, gamma, beta)
+            n = r * (s // 2)
+            conv_flops = 2 * co * 9 * c * n
+            if r == 8 * span:  # the split route alone at this R
+                tot["split_err"] = max(tot["split_err"], _k2_two_ranks(
+                    x, w2, cb, gamma, beta, dy, FP16_ULP, FP16_ULP, where))
+                yc, part = pg.pgenc_train_conv(x, w2, cb, 1, 0)
+                y, mu, var = pg.pgenc_train_apply(yc, gamma, beta, part, n,
+                                                  c, f16)
+                glob = pg.pgenc_bwd_sums(yc, gamma, beta, mu, var,
+                                         dy)[1:3].contiguous()
+                launch = {
+                    "pgenc_train_conv": (
+                        lambda: pg.pgenc_train_conv(x, w2, cb, 1, 0),
+                        lambda: pg._train_conv_plain(x, w2, cb, 1, 0)),
+                    "pgenc_train_apply": (
+                        lambda: pg.pgenc_train_apply(yc, gamma, beta, part,
+                                                     n, c, f16),
+                        lambda: pg._train_apply_plain(yc, gamma, beta, part,
+                                                      n, f16)),
+                    "pgenc_bwd_sums": (
+                        lambda: pg.pgenc_bwd_sums(yc, gamma, beta, mu, var,
+                                                  dy),
+                        lambda: pg._bn_bwd_terms(yc, gamma, beta, mu, var,
+                                                 dy)),
+                    "pgenc_bwd_apply": (
+                        lambda: pg.pgenc_bwd_apply(x, w2, yc, gamma, beta, mu,
+                                                   var, dy, glob, n),
+                        lambda: pg._conv_grads_plain(x, w2, pg._dyc_plain(
+                            *pg._bn_bwd_terms(yc, gamma, beta, mu, var,
+                                              dy)[:2], gamma, var, glob[0],
+                            glob[1], float(n))))}
+                for name, (fn, plain) in launch.items():
+                    split[name]["ms"] += cuda_ms(fn, reps=3, iters=10)
+                    split[name]["plain_ms"] += cuda_ms(plain, reps=3,
+                                                       iters=5)
+                s //= 2
+                continue
+            if r == r64:
+                mean = 0.1 * torch.randn(co, device="cuda", generator=g)
+                var_r = 0.5 + torch.rand(co, device="cuda", generator=g)
+                ev = (cb, gamma, beta, mean, var_r)
+                y_e, = _k2_contract(f"K2-eval fp16 {where}",
+                                    lambda *a: pg.pgenc_layer(
+                                        *a, backend="kernel"), (x, w2, *ev))
+                if y_e.dtype != f16:
+                    raise SystemExit(f"K2-eval fp16 {where}: {y_e.dtype}")
+                tot["eval_err"] = max(tot["eval_err"], check_close(
+                    f"K2-eval fp16 {where}", y_e,
+                    pg.pgenc_layer_plain(x, w2, *ev), FP16_ULP, 0.0))
+                timed = {"eval": (
+                    lambda: pg.pgenc_layer(x, w2, *ev, backend="kernel"),
+                    lambda: pg.pgenc_layer_plain(x, w2, *ev),
+                    nbytes(x, w2, y_e) + 5 * 4 * co, conv_flops,
+                    lambda: conv_library_ms(x, w2, cb, f16))}
+                y, mu, var, yc = _k2_contract(
+                    f"K2-train fp16 forward {where}",
+                    lambda *a: pg.pgenc_train(*a, backend="kernel"),
+                    (x, w2, *vecs))
+            else:
+                timed = {}
+                y, mu, var, yc = pg.pgenc_train(x, w2, *vecs, backend="kernel")
+            y_r, mu_r, var_r, yc_r = pg.pgenc_train_plain(x, w2, *vecs)
+            bwd_args = (x, w2, yc, gamma, beta, mu, var, dy)
+            grads = pg.pgenc_bwd(*bwd_args, backend="kernel")
+            grads_2 = pg.pgenc_bwd(*bwd_args, backend="kernel")
+            grads_r = pg.pgenc_bwd_plain(*bwd_args)
+            grads_u = pg.pgenc_bwd(*[_at_offset(t) if k in (0, 1, 2, 7)
+                                     else t for k, t in enumerate(bwd_args)],
+                                   backend="kernel")
+            torch.cuda.synchronize()
+            if y.dtype != f16 or grads[0].dtype != f16:
+                raise SystemExit(f"K2-train fp16 {where}: {y.dtype}, "
+                                 f"{grads[0].dtype}")
+            tot["fwd_err"] = max(
+                tot["fwd_err"],
+                check_close(f"K2-train fp16 y {where}", y, y_r, FP16_ULP, 0.0),
+                check_close(f"K2-train fp16 mu {where}", mu, mu_r, 1e-5,
+                            1e-4),
+                check_close(f"K2-train fp16 var {where}", var, var_r, 1e-5,
+                            1e-4),
+                check_close(f"K2-train fp16 yc {where}", yc, yc_r, 1e-5,
+                            1e-4, scale_atol=True))
+            if not all(torch.equal(a, b) for a, b in zip(grads, grads_2)):
+                raise SystemExit(f"K2-bwd fp16: two calls differ at {where}")
+            if bool((grads[2] != 0).any()) or bool((grads_u[2] != 0).any()):
+                raise SystemExit(f"K2-bwd fp16 dcbias not 0 at {where}")
+            for name, k in (("dx", 0), ("dw2", 1), ("dgamma", 3),
+                            ("dbeta", 4)):
+                for got, tag in ((grads, ""), (grads_u, " unaligned")):
+                    tot["bwd_err"] = max(tot["bwd_err"], check_close(
+                        f"K2-bwd fp16 {name} {where}{tag}", got[k],
+                        grads_r[k], FP16_ULP, FP16_ULP, scale_atol=True))
+            big = r == 256 * span
+            timed["fwd"] = (
+                lambda: pg.pgenc_train(x, w2, *vecs, backend="kernel"),
+                lambda: pg.pgenc_train_plain(x, w2, *vecs),
+                nbytes(x, w2, y, mu, var) + 3 * 4 * co, conv_flops,
+                (lambda: conv_library_ms(x, w2, cb, f16)) if big else None)
+            timed["bwd"] = (
+                lambda: pg.pgenc_bwd(*bwd_args, backend="kernel"),
+                lambda: pg.pgenc_bwd_plain(*bwd_args),
+                nbytes(x, w2, yc, dy, mu, var, grads[0], grads[1])
+                + 7 * 4 * co, 2 * conv_flops,
+                (lambda: conv_bwd_library_ms(x, w2, dy, f16)) if big
+                else None)
+            for key, (fn, plain, moved, ops, lib) in timed.items():
+                tot[f"{key}_ms"] += cuda_ms(fn, reps=3, iters=10)
+                tot[f"{key}_plain_ms"] += cuda_ms(plain, reps=3, iters=5)
+                dev, host = split_ms(fn, reps=3, iters=10)
+                tot[f"{key}_device_ms"] += dev
+                tot[f"{key}_host_ms"] += host
+                tot[f"{key}_bytes"] += moved
+                tot[f"{key}_flops"] += ops
+                if lib is not None:
+                    tot[f"{key}_library_ms"] += lib()
+            s //= 2
+        out = {}
+        for k in keys:
+            if not tot[f"{k}_ms"]:
+                continue
+            bnd = bound_ms(tot[f"{k}_bytes"], tot[f"{k}_flops"],
+                           F16_TC_FLOP_PER_S)
+            out[k] = {f: tot[f"{k}_{f}"] for f in (
+                "ms", "plain_ms", "device_ms", "host_ms", "err")}
+            out[k].update(bound_ms=bnd[0], bound_by=bnd[1],
+                          library_ms=tot[f"{k}_library_ms"] or None)
+        if r == 8 * span:
+            out = dict(split_two_slots_err=tot["split_err"], split=split)
+        phase("k2_fp16", R=r, layers=len(specs), **out,
+              library="cuDNN fp16 conv alone (F.conv2d with bias; "
+              "aten.convolution_backward dx and dW)")
+
+
+def _fp16_k5(g):
+    """K5's four kernels on an fp16 y at the stage-0 and stage-1 shapes,
+    gaussian and tied data, and on a y one element into its storage, under
+    k5_bf16_phase's gates at one fp16 rounding (`_k5_bf16_check`: 2^-10
+    of the larger magnitude, plus 2^-24, fp16's spacing at 0); apply and
+    bwd reduce at K5_EDGES; the split reductions at two slots
+    (`_k5_two_ranks`) and timed beside the fused ones. Times summed
+    over stages 0 and 1 (gaussian), with torch.var_mean beside stats."""
+    import torch
+
+    from maavss_tpu_torch.ops import cuda_epilogue as ep
+
+    f16 = torch.float16
+    names = ("stats", "apply", "bwd_reduce", "bwd_dy")
+    rep = _k5_rep()
+    split = dict(split_stats_ms=0.0, fused_stats_ms=0.0,
+                 split_reduce_ms=0.0, fused_reduce_ms=0.0, err=0.0)
+    for stage, shape in enumerate(K5_SHAPES):
+        for ties in (False, True):
+            y, gamma, beta, g_out, g_mu, g_var = _k5_inputs(shape, g, False)
+            if ties:
+                y = torch.round(y * 4.0) / 4.0
+            y, g_out = y.to(f16), g_out.to(f16)
+            where = f"stage {stage} {'ties' if ties else 'gaussian'} fp16"
+            errs, res = _k5_bf16_check(where, y, gamma, beta, g_out, g_mu,
+                                       g_var, FP16_ULP, True, FP16_TINY)
+            for n in names:
+                rep[n]["err"] = max(rep[n]["err"], errs[n])
+            if ties:
+                continue
+            _k5_bf16_check(f"{where} y at an odd offset", _at_offset(y),
+                           gamma, beta, g_out, g_mu, g_var, FP16_ULP, True,
+                           FP16_TINY)
+            _k5_time(rep, y, gamma, beta, g_out, g_mu, g_var, res)
+            split["err"] = max(split["err"], _k5_two_ranks(
+                y, gamma, beta, g_out, g_mu, g_var, where))
+            n = y.numel() // y.shape[1]
+            mu, _, rstd = res[:3]
+            sel = res[4]
+            for key, fn in dict(
+                    split_stats_ms=lambda: ep.epilogue_stats_finish(
+                        ep.epilogue_stats_partials(y, 1, 0), n),
+                    fused_stats_ms=lambda: ep.epilogue_stats(y),
+                    split_reduce_ms=lambda: ep.epilogue_bwd_finish(
+                        ep.epilogue_bwd_partials(g_out, sel, gamma, beta, mu,
+                                                 rstd, 1, 0),
+                        1, 0, gamma, mu, g_mu, g_var, n),
+                    fused_reduce_ms=lambda: ep.epilogue_bwd_reduce(
+                        g_out, sel, gamma, beta, mu, rstd, g_mu,
+                        g_var)).items():
+                split[key] += cuda_ms(fn, reps=3, iters=10)
+    edges = _k5_edges(f16, lambda what, a, b: _one_rounding(
+        what, a, b, FP16_TINY, FP16_ULP, True))
+    for n, err in edges.items():
+        rep[n]["err"] = max(rep[n]["err"], err)
+    _k5_finish(rep)
+    phase("k5_epilogue_fp16", shapes=[list(s) for s in K5_SHAPES],
+          **{n: {k: v for k, v in r.items() if k not in ("bytes", "flops")}
+             for n, r in rep.items()}, split_two_slots=split)
+
+
+def fp16_kernel_phase():
+    """--dtype float16's instantiations of K1, K2 and K5 (dtype code 2:
+    __half IO, fp32 sums and carries) against their plain versions in fp16
+    at the main paths' shapes, with their times (`_fp16_k1`, `_fp16_k2`,
+    `_fp16_k5`)."""
+    import torch
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(20)
+    _fp16_k1(g)
+    _fp16_k2(g)
+    _fp16_k5(g)
+    phase("fp16_kernels", seconds=round(time.perf_counter() - t0, 1))
+
+
+def _nonfinite_leaves(model):
+    """{name: non-finite elements} of the parameters that have any."""
+    import torch
+
+    return {n: int((~torch.isfinite(p)).sum()) for n, p in
+            model.named_parameters() if not bool(torch.isfinite(p).all())}
+
+
+def _fp16_step_vs_plain(what, cfg, want, totals, make_step=None, steps=1,
+                        grads=False):
+    """`steps` fp16 steps of the fusion flagship of `cfg` (mode 2) with every
+    kernel against the plain versions in fp16 (the LSTM scan, the plain
+    Adam formula, K4's plain versions; K2's kernels and the STFT kernel's
+    features on both sides, held by fp16_kernels) from one state_dict:
+    exact launches a kernel step (`want`, by counter; added to `totals`),
+    the losses within FP16_LOSS_RTOL; after step 1 every element of the
+    four fp16 LSTM leaves non-finite and every other leaf finite, on both
+    sides (the reference's Adam in fp16); with `grads`, Adam's first moment
+    of the fp32 leaves after step 1 (the BN-fed conv biases left out)
+    under FP16_GRAD_RATIO against a plain fp32 step."""
+    import torch
+
+    from maavss_tpu_torch.data.synthetic import (
+        synthetic_av_batch,
+        with_pgram_rows,
+    )
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.state import create_train_state
+    from maavss_tpu_torch.train.steps import make_fusion_step
+
+    model, state, step, ref, ref_state, ref_step = _train_pair(
+        cfg, False, k2_plain=False, kernel_features=True, make_step=make_step)
+    if grads:
+        cfg32 = _plain_cfg(cfg, False, False).replace(dtype="float32")
+        ref32 = setup.build_fusion(cfg32, cfg.batch_size, device="cuda")
+        ref32.load_state_dict(model.state_dict())
+        ref32.lstm.backend = "scan"
+        state32 = create_train_state(ref32, cfg32, "cuda")
+        step32 = _plain_k4(make_fusion_step(ref32, cfg32, device="cuda"),
+                           True)
+    step = _Launches(step, totals)
+    batches = [synthetic_av_batch(cfg, cfg.batch_size, seed=cfg.seed + i)
+               for i in range(steps)]
+    if cfg.pgram_cache:
+        batches = [with_pgram_rows(b, "cuda") for b in batches]
+    full = {n: p.numel() for n, p in model.named_parameters()
+            if n in FP16_LSTM_LEAVES}
+    losses, ref_losses, ratio = [], [], None
+    for i, batch in enumerate(batches):
+        state, m = step(state, batch, 2)
+        torch.cuda.synchronize()
+        if step.calls[-1] != want:
+            raise SystemExit(f"{what} step {i + 1}: launches "
+                             f"{step.calls[-1]} != {want}")
+        ref_state, rm = ref_step(ref_state, batch, 2)
+        losses.append(float(m["loss"]))
+        ref_losses.append(float(rm["loss"]))
+        if i:
+            continue
+        for side, mod in (("kernels", model), ("plain", ref)):
+            bad = _nonfinite_leaves(mod)
+            if bad != full:
+                raise SystemExit(f"{what} ({side}): non-finite leaves after "
+                                 f"step 1 {bad}, want {full}")
+        if grads:
+            state32, _ = step32(state32, batch, 2)
+            skip = set(model.bn_fed_biases()) | set(FP16_LSTM_LEAVES)
+            moms = [_bf16_moments(st, mod, skip, False) for st, mod in (
+                (state, model), (ref_state, ref), (state32, ref32))]
+            ratio = _bf16_ratio(f"{what} step-1 gradients of the fp32 "
+                                "leaves",
+                                *(torch.cat([d[n].flatten() for n in
+                                             sorted(moms[0])]) for d in moms),
+                                FP16_GRAD_RATIO)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    if not all(map(math.isfinite, losses + ref_losses)) \
+            or max(rel) > FP16_LOSS_RTOL:
+        raise SystemExit(f"{what} losses {losses} vs plain {ref_losses}: "
+                         f"rel {rel} > {FP16_LOSS_RTOL}")
+    return dict(batch=cfg.batch_size, steps=steps, losses=losses,
+                plain_losses=ref_losses, loss_rel_diff=max(rel),
+                step1_grad_ratio=ratio, lstm_leaves_nonfinite=full,
+                launches_per_step=want)
+
+
+def fp16_train_phase():
+    """--dtype float16 training at full width against the plain versions
+    (`_fp16_step_vs_plain`): the fusion flagship's full-encode step on
+    float16 rows (bench.py's regime, batch 8), its first step, after which
+    the reference's Adam leaves the fp16 LSTM leaves non-finite on both
+    routes; the STFT and phasegram autoencoder regimes (batch 8, lr 1e-3)
+    over 3 steps, which train while the unused LSTM goes non-finite (0/0).
+    Returns the kernel steps' launches by counter."""
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.train import steps
+
+    t0 = time.perf_counter()
+    totals = {}
+    fusion_cfg = RunConfig(batch_size=8, noise_scalar=0.0, learning_rate=1e-4,
+                           fusion_encode="full", pgram_cache=True,
+                           dtype="float16")
+    out = {"fusion_full": _fp16_step_vs_plain(
+        "fp16_train fusion", fusion_cfg,
+        dict(lstm_fwd=1, lstm_bwd=1, pgenc_train=FULLENC_LAYERS,
+             pgenc_bwd=FULLENC_LAYERS, adam=1, stft_feat=1), totals,
+        grads=True)}
+    ae_cfg = RunConfig(batch_size=8, noise_scalar=0.0,
+                       learning_rate=REGIME_LR, dtype="float16")
+    for label, make, want in (
+            ("audio_ae", steps.make_audio_ae_step, dict(adam=1, stft_feat=1)),
+            ("visual_ae", steps.make_visual_ae_step,
+             dict(pgenc_train=FULLENC_LAYERS, pgenc_bwd=FULLENC_LAYERS,
+                  adam=1))):
+        out[label] = _fp16_step_vs_plain(f"fp16_train {label}", ae_cfg, want,
+                                         totals, make_step=make, steps=3)
+    phase("fp16_train", **out, loss_rtol=FP16_LOSS_RTOL,
+          grad_ratio=FP16_GRAD_RATIO, launches=totals,
+          seconds=round(time.perf_counter() - t0, 1))
+    return totals
+
+
+def _fp16_export(label, model, cfg, frames_model):
+    """One family's fp16 serving function exported at batch EXPORT_BATCH:
+    the graph's registered ops equal the live call's launches and the
+    program's output is the live function's bit for bit. Returns (fields,
+    the launches of the two counted calls)."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.exp.artifact import artifact_serving_fn
+    from maavss_tpu_torch.exp.export import (
+        export_separator,
+        graph_op_counts,
+        make_serving_fn,
+        random_serving_inputs,
+    )
+
+    live = make_serving_fn(model, cfg, frames_model)
+    audio, visual = random_serving_inputs(cfg, EXPORT_BATCH, frames_model,
+                                          seed=310)
+    if not frames_model and not cfg.pgram_cache:
+        visual = np.random.default_rng(310).uniform(
+            0, 1, visual.shape).astype(np.float32)
+    dev = [torch.from_numpy(x).cuda() for x in (audio, visual)]
+    want, deltas = _counted(lambda: live(*dev))
+    t0 = time.perf_counter()
+    program = export_separator(model, cfg, EXPORT_BATCH, frames_model)
+    export_s = time.perf_counter() - t0
+    graph = {EXPORT_COUNTERS[n]: c for n, c in
+             graph_op_counts(program).items()}
+    if graph != deltas:
+        raise SystemExit(f"fp16 export {label}: graph ops {graph} != the "
+                         f"live call's launches {deltas}")
+    got, art_deltas = _counted(lambda: artifact_serving_fn(program)(*dev))
+    if art_deltas != deltas or not torch.equal(got, want) \
+            or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"fp16 export {label}: the program's launches "
+                         f"{art_deltas} (live {deltas}) or audio differ")
+    launched = {n: 2 * c for n, c in deltas.items()}
+    return dict(ops=graph, export_s=export_s, bitwise=True), launched
+
+
+def fp16_slice_phase():
+    """--dtype float16 serving at full width: the HTTP daemon of both
+    families (`bf16_slice_phase` in fp16: the fusion flagship's full
+    encode on float16 rows, the frames flagship on uint8 frames), each
+    family's separator (make_separator, one batch of 8 at noise 0, K1,
+    K2-eval and the STFT kernel) under BF16_SERVE_RATIO against the plain
+    separator in fp16 and fp32, and each family's exported fp16 serving
+    program bitwise against the live function (`_fp16_export`). Returns
+    the launches of the served batches, the separators and the programs'
+    and live functions' counted calls, by counter."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.synthetic import (
+        synthetic_av_batch,
+        with_pgram_rows,
+    )
+    from maavss_tpu_torch.train.infer import make_separator
+    from maavss_tpu_torch.train.setup import build_frames_model, build_fusion
+
+    t0 = time.perf_counter()
+    served = bf16_slice_phase("float16", "fp16_slice_http")
+    totals = {}
+    for fam in served.values():
+        for n, c in fam["launches"].items():
+            key = "stft_feat" if n == "stft" else n
+            totals[key] = totals.get(key, 0) + c
+    out = {}
+    for family in ("fusion", "frames"):
+        frames_model = family == "frames"
+        cfg = RunConfig(batch_size=8, noise_scalar=0.0, dtype="float16")
+        if not frames_model:
+            cfg = cfg.replace(fusion_encode="full", pgram_cache=True)
+        build = build_frames_model if frames_model else build_fusion
+        model = build(cfg, 8, device="cuda",
+                      generator=torch.Generator().manual_seed(cfg.seed))
+        fsize = cfg.framesize if frames_model else None
+        batch = synthetic_av_batch(cfg, 8, seed=41, frame_size=fsize)
+        if frames_model:
+            batch["frames"] = (batch["frames"] * 255).astype(np.uint8)
+        else:
+            batch = with_pgram_rows(batch, "cuda")
+            batch.pop("frames", None)
+        dev = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        sep = _Launches(make_separator(model, cfg, frames_model), totals)
+        got = sep(dev)["audio_out"]
+        refs = {}
+        for rdt in ("float16", "float32"):
+            rcfg = cfg.replace(dtype=rdt)
+            ref = build(rcfg, 8, device="cuda")
+            ref.load_state_dict(model.state_dict())
+            ref.lstm.backend = "scan"
+            refs[rdt] = _plain_k2(_plain_k4(make_separator(
+                ref, rcfg, frames_model), True))(dev)["audio_out"]
+        ratio = _bf16_ratio(f"fp16_slice {family} separator", got,
+                            refs["float16"], refs["float32"],
+                            BF16_SERVE_RATIO)
+        fields, launched = _fp16_export(family, model, cfg, frames_model)
+        for n, c in launched.items():
+            totals[n] = totals.get(n, 0) + c
+        out[family] = dict(separator_ratio=ratio,
+                           separator_launches=sep.calls[0], export=fields)
+        del model, refs
+    phase("fp16_slice", **out, http={f: {k: v for k, v in d.items()
+                                         if k != "launches"}
+                                     for f, d in served.items()},
+          launches=totals, seconds=round(time.perf_counter() - t0, 1))
+    return totals
+
+
+def fp16_golden_phase():
+    """The small-geometry JAX fixture tests/fixtures/
+    torch_port_fp16_golden.npz (fp16; --fusion_encode full on float16 rows,
+    the phasegram encoder as ConvStack, the JAX package's CPU path) through
+    the card's kernels (K1, K3, the STFT kernel; cuDNN and cuBLAS in fp16):
+    the separator's audio under FP16_MODEL_RATIO against the fixture's JAX
+    fp16 and fp32 audio; one train step, its losses within
+    FP16_GOLDEN_LOSS_RTOL of JAX's fp16 ones and after it the leaves JAX's
+    step left non-finite, in as many elements (tests/test_torch_fp16.py
+    holds the CPU path to the same gates). Returns the launches by
+    counter."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.convert import (
+        from_flax,
+        random_flax_tree,
+        unflatten_tree,
+    )
+    from maavss_tpu_torch.train.infer import make_separator
+    from maavss_tpu_torch.train.setup import build_fusion_state
+    from maavss_tpu_torch.train.steps import make_fusion_step
+
+    with np.load(FP16_GOLDEN) as z:
+        meta = json.loads(str(z["meta"]))
+        arrays = {k: z[k] for k in z.files if k != "meta"}
+    flat = random_flax_tree({k: tuple(v) for k, v in meta["shapes"].items()},
+                            meta["seed"])
+    for k in flat:  # the LSTM's leaves are fp16 values
+        if k.endswith(("w_i", "w_h")):
+            flat[k] = flat[k].astype(np.float16).astype(np.float32)
+    for path, total in meta["checksums"].items():
+        if not np.isclose(float(flat[path].astype(np.float64).sum()), total,
+                          rtol=1e-6, atol=1e-6):
+            raise SystemExit(f"fp16 golden weights do not regenerate: {path}")
+    tree = unflatten_tree(flat)
+    cfg = RunConfig(**meta["cfg"])
+    model, state = build_fusion_state(cfg, cfg.batch_size, "cuda")
+    model.load_state_dict(from_flax(tree["params"], tree["batch_stats"]))
+    dev = {"audio": torch.from_numpy(arrays["audio"]).cuda(),
+           "pgram": torch.from_numpy(arrays["pgram"]).cuda()}
+    totals = {}
+    got = _Launches(make_separator(model, cfg), totals)(dev)["audio_out"]
+    near = _rel_l2(got.cpu().numpy().astype(np.float64),
+                   arrays["audio_out"].astype(np.float64))
+    base = _rel_l2(arrays["audio_out"].astype(np.float64),
+                   arrays["audio_out_f32"].astype(np.float64))
+    if near > FP16_MODEL_RATIO * base:
+        raise SystemExit(f"fp16 golden audio: {near} from JAX's fp16 audio, "
+                         f"which is {base} from its fp32 audio")
+    state, m = _Launches(make_fusion_step(model, cfg, device="cuda"),
+                         totals)(state, dev, meta["mode"])
+    losses = [float(m[k]) for k in ("loss", "a_loss", "v_loss")]
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(losses, meta["losses_float16"]))
+    bad = {n.replace(".", "/"): c
+           for n, c in _nonfinite_leaves(model).items()}
+    if rel > FP16_GOLDEN_LOSS_RTOL or bad != meta["nonfinite_float16"]:
+        raise SystemExit(f"fp16 golden step: losses {losses} vs JAX "
+                         f"{meta['losses_float16']} (rel {rel}); non-finite "
+                         f"{bad} vs JAX {meta['nonfinite_float16']}")
+    if not all(totals.get(n) for n in ("lstm_fwd", "lstm_bwd", "adam",
+                                       "stft_feat")):
+        raise SystemExit(f"the fp16 golden run missed a kernel: {totals}")
+    phase("fp16_golden", cfg=meta["cfg"], audio_ratio=near / base,
+          losses=losses, jax_losses=meta["losses_float16"],
+          jax_fp32_losses=meta["losses_float32"], loss_rel_diff=rel,
+          nonfinite=bad, launches=totals, ratio=FP16_MODEL_RATIO,
+          loss_rtol=FP16_GOLDEN_LOSS_RTOL)
+    return totals
+
+
+def native_media_phase():
+    """--native_loader and MAAVSS_MEDIA's callback through the Trainer, on
+    the fusion flagship (window mode, fp32, batch 8) over a synthetic
+    store: the C++ loader's rows of a train split equal the dataset's items
+    (audio and uint8 frames), over two batches; host seconds a batch of
+    the C++ loader and of the Python pipeline (each pulled back to back
+    after its first batch); then a Trainer run of 3 steps whose train
+    stream make_stream takes from the C++ loader, with the fusion media
+    callback every 2 steps: each PNG decodes (exp/viz.png_pixels) to an
+    RGBA image of the two STFT panels and both wavs hold the clip's
+    samples. Returns the kernels' launches in the run, by counter."""
+    import numpy as np
+    import torch
+
+    from maavss_tpu_torch.config import RunConfig
+    from maavss_tpu_torch.data.dataset import Subset, batches, prefetch
+    from maavss_tpu_torch.data.native_loader import NativeAVLoader
+    from maavss_tpu_torch.data.wavio import read_wav
+    from maavss_tpu_torch.exp.viz import png_pixels
+    from maavss_tpu_torch.train import setup
+    from maavss_tpu_torch.train.steps import make_fusion_step
+    from maavss_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    totals = {}
+    with tempfile.TemporaryDirectory(prefix="maavss_native_") as root:
+        cfg = RunConfig(batch_size=8, epochs=1, steps_per_epoch=3,
+                        val_steps=1, cb_freq=2, noise_scalar=0.0,
+                        native_loader=True, no_save=True,
+                        log_dir=os.path.join(root, "runs"),
+                        cp_dir=os.path.join(root, "cp"))
+        cfg = cfg.replace(data_path=_trainer_store(root, cfg, cfg.p_size, 6,
+                                                   3.0))
+        clip_len = cfg.num_frames + cfg.num_seq
+        ds, (tr, va) = _trainer_dataset(cfg, root, clip_len)
+        items = {ds[int(i)]["audio"].tobytes(): int(i) for i in tr}
+
+        def per_batch(it, n=16):
+            next(it)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                next(it)
+            return (time.perf_counter() - t0) / n
+
+        t0 = time.perf_counter()
+        loader = NativeAVLoader(ds, cfg.batch_size, seed=cfg.seed,
+                                clip_indices=tr)
+        build_s = time.perf_counter() - t0
+        for _ in range(2):
+            b = next(loader)
+            for row in range(cfg.batch_size):
+                i = items.get(b["audio"][row].tobytes())
+                if i is None or not np.array_equal(b["frames"][row],
+                                                   ds[i]["frames"]):
+                    raise SystemExit(f"native loader: row {row} is no item "
+                                     f"of the split")
+        native_s = per_batch(loader)
+        loader.close()
+        python_s = per_batch(prefetch(batches(Subset(ds, tr),
+                                              cfg.batch_size, seed=cfg.seed)))
+        model, state = setup.build_fusion_state(
+            cfg, cfg.batch_size, "cuda",
+            torch.Generator().manual_seed(cfg.seed))
+        step = _Launches(make_fusion_step(model, cfg), totals)
+        media_dir = os.path.join(root, "media")
+        media = _Launches(setup.make_fusion_media_fn(model, cfg, media_dir),
+                          totals)
+        stream = setup.make_stream(cfg, ds, tr, cfg.seed)
+        if not isinstance(stream, NativeAVLoader):
+            raise SystemExit(f"make_stream --native_loader gave "
+                             f"{type(stream).__name__}")
+        t0 = time.perf_counter()
+        Trainer(cfg, step, state, run_name="native", media_fn=media).fit(
+            stream, setup.make_stream(cfg, ds, va, cfg.seed + 1))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        losses = [r["loss"] for r in _records(cfg, "native") if "loss" in r]
+        if len(step.calls) != 3 or len(losses) != 3 \
+                or not all(map(math.isfinite, losses)):
+            raise SystemExit(f"native loader run: {len(step.calls)} steps, "
+                             f"losses {losses}")
+        names = sorted(os.listdir(media_dir))
+        want = [f"{k}_{s:07d}.{e}" for k, e in (
+            ("audio_in", "wav"), ("audio_out", "wav"), ("stft", "png"))
+            for s in (1, 3)]
+        if names != want or len(media.calls) != 2:
+            raise SystemExit(f"media files {names}, want {want}")
+        shapes = []
+        for s in (1, 3):
+            px = png_pixels(os.path.join(media_dir, f"stft_{s:07d}.png"))
+            if px.ndim != 3 or px.shape[2] != 4 or px.shape[0] % 2 \
+                    or not bool((px[..., 3] == 255).all()):
+                raise SystemExit(f"media PNG {px.shape}")
+            shapes.append(list(px.shape))
+            for k in ("audio_in", "audio_out"):
+                wav, sr = read_wav(os.path.join(media_dir,
+                                                f"{k}_{s:07d}.wav"))
+                if sr != cfg.samplerate or wav.size != (
+                        ds.samples_per_frame * clip_len):
+                    raise SystemExit(f"media wav {k}: {wav.shape} at {sr}")
+    phase("native_media", batch=cfg.batch_size, clips=len(ds),
+          train_clips=len(tr), loader_build_s=build_s,
+          native_s_per_batch=native_s, python_s_per_batch=python_s,
+          steps=len(losses), losses=losses, fit_s=fit_s, media_files=names,
+          png_shapes=shapes, media_launches=media.calls, launches=totals,
+          seconds=round(time.perf_counter() - t_phase, 1))
+    return totals
+
+
 # ------------------------------------------------------------ CUDA graphs
 
 GRAPH_K = 3  # optimizer steps a dispatch in the graphs phase
@@ -5135,6 +5951,8 @@ def _graph_cases():
     return (
         ("fullenc_b8", False, RunConfig(batch_size=8, **full)),
         ("fullenc_b8_bf16", False, RunConfig(batch_size=8, **full, **bf16)),
+        ("fullenc_b8_fp16", False, RunConfig(batch_size=8, **full,
+                                             dtype="float16")),
         ("fullenc_b256_bf16", False,
          RunConfig(batch_size=256, **full, **bf16)),
         ("scan_b8", False, RunConfig(batch_size=8)),
@@ -5149,28 +5967,41 @@ def _graph_cases():
     )
 
 
+def _equal(a, b) -> bool:
+    """Value equality (-0.0 equals 0.0) in which a NaN equals a NaN: the
+    fp16 step leaves its LSTM leaves NaN (ROADMAP queue 3), on both sides
+    alike."""
+    import torch
+
+    if torch.equal(a, b):
+        return True
+    return (a.is_floating_point() and a.shape == b.shape
+            and a.dtype == b.dtype
+            and bool(((a == b) | (a.isnan() & b.isnan())).all()))
+
+
 def _graph_state_diff(state, ref_state):
     """Names of the leaves where two train states differ in any bit (value
-    equality: -0.0 equals 0.0): parameters, buffers (BatchNorm's running
-    statistics and counts), Adam's m, v and device count, and the host
-    counts."""
+    equality: -0.0 equals 0.0, NaN equals NaN): parameters, buffers
+    (BatchNorm's running statistics and counts), Adam's m, v and device
+    count, and the host counts."""
     import torch
 
     bad = []
     model, ref = state.model, ref_state.model
     for (n, a), (_, b) in zip(model.named_parameters(),
                               ref.named_parameters()):
-        if not torch.equal(a, b):
+        if not _equal(a, b):
             bad.append(n)
     for (n, a), (_, b) in zip(model.named_buffers(), ref.named_buffers()):
-        if not torch.equal(a, b):
+        if not _equal(a, b):
             bad.append(n)
     names = [n for n, _ in model.named_parameters()]
     for col, a_list, b_list in (("m", state.tx.m, ref_state.tx.m),
                                 ("v", state.tx.v, ref_state.tx.v)):
         bad += [f"adam.{col}.{n}" for n, a, b in zip(names, a_list, b_list)
                 if (a is None) != (b is None)
-                or (a is not None and not torch.equal(a, b))]
+                or (a is not None and not _equal(a, b))]
     if not torch.equal(state.tx.count_tensor, ref_state.tx.count_tensor):
         bad.append("adam.count (device)")
     if (state.tx.count, state.step) != (ref_state.tx.count, ref_state.step):
@@ -5286,7 +6117,7 @@ def _graph_case(label, frames_model, cfg, exact: bool, k: int = GRAPH_K,
                              f"{launched}, want {k} x {per_step}")
         for n, c in launched.items():
             totals[n] = totals.get(n, 0) + c
-        bad = [key for key in ref_metrics[0] if not torch.equal(
+        bad = [key for key in ref_metrics[0] if not _equal(
             got[key], torch.stack([m[key] for m in ref_metrics]))]
         bad += _graph_state_diff(state, ref_state)
         bit_equal = bit_equal and not bad
@@ -5414,7 +6245,7 @@ def _cudnn_wgrad_alone(calls: int = 8):
 def graphs_phase():
     """--steps_per_dispatch on the card (train/cuda_graph.py). Each case of
     `_graph_cases` (the full-encode fusion step on float16 rows at batch 8
-    in fp32 and bf16 and at batch 256 in bf16, the scan window step and
+    in fp32, bf16 and fp16 and at batch 256 in bf16, the scan window step and
     the frames step at batch 8 in fp32 and bf16, one --mask_head and one
     --use_polar full-encode step, and the full-encode step under
     --noise_schedule) builds a model from its seed and a twin from its
@@ -5433,13 +6264,15 @@ def graphs_phase():
     product's setting) at the train gates, and the fusion ones are timed
     there, eager K steps and one dispatch in turns (per-step wall ms; peak
     memory allocated and reserved, the graph's private pool in the
-    latter), with one of each profiled. Returns each kernel's launches
-    over the graphed dispatches by the bf16 and fp32 cases."""
+    latter), with one of each profiled. The fp16 full-encode case leaves
+    its LSTM leaves NaN from the first step (ROADMAP queue 3), where a NaN
+    equals a NaN (`_equal`). Returns each kernel's launches over the
+    graphed dispatches by the cases' dtype."""
     wgrad = _cudnn_wgrad_alone()
     phase("graphs_cudnn_wgrad", op="aten.convolution_backward (cuDNN, "
           "fp32 weight gradient)", x=[8, 2, 88, 128], w=[8, 2, 5, 5],
           stride=2, padding=2, **wgrad)
-    cases, by_dtype = [], {"float32": {}, "bfloat16": {}}
+    cases, by_dtype = [], {"float32": {}, "bfloat16": {}, "float16": {}}
     for exact in (True, False):
         for label, frames_model, cfg in _graph_cases():
             if not exact and label not in GRAPH_DEFAULT:
@@ -9152,13 +9985,16 @@ def main() -> None:
     bf16_launches, mask_mul_rep = bf16_train_phase()
     bf16_slice_phase()
     bf16_golden_phase()
+    fp16_kernel_phase()
+    fp16_runs = [fp16_train_phase(), fp16_slice_phase(), fp16_golden_phase()]
     route_launches, magphase_rep = stft_route_phase()
     graphs = graphs_phase()
-    g32, g16 = graphs["float32"], graphs["bfloat16"]
+    g32, g16, g16h = graphs["float32"], graphs["bfloat16"], graphs["float16"]
     full32, full16, full_serve = frames_full_phase()
     fusion_mb = fusion_microbatch_phase()
     k5_tuned, k1_tuned, tuned = frames_tuned_phase()
     trainer = trainer_phase()
+    fp16_runs.append(native_media_phase())
     evalp = eval_plane_phase()
     regimes = regimes_phase()
     remat = remat_phase()
@@ -9167,7 +10003,7 @@ def main() -> None:
     exported = export_phase(bench_b256)
     split, split_launches = parallel_phase()
 
-    def graphed(name, dtypes=(g32, g16)):
+    def graphed(name, dtypes=(g32, g16, g16h)):
         return sum(g.get(name, 0) for g in dtypes)
 
     def newer(name, runs=(full32, full16, full_serve, fusion_mb)):
@@ -9177,9 +10013,11 @@ def main() -> None:
 
     def fit(name):
         """Launches of `name` (its kernel_counters name) in the trainer,
-        eval_plane, regimes and remat phases' runs."""
+        eval_plane, regimes and remat phases' runs, and in the fp16 and
+        native_media phases' runs."""
         return (trainer.get(name, 0) + evalp.get(name, 0)
-                + regimes.get(name, 0) + remat.get(name, 0))
+                + regimes.get(name, 0) + remat.get(name, 0)
+                + sum(r.get(name, 0) for r in fp16_runs))
 
     if any(m in sys.modules for m in ("jax", "flax", "ml_dtypes",
                                       "maavss_tpu")):

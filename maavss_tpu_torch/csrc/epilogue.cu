@@ -8,7 +8,8 @@
 //   bwd reduce _bwd_reduce_kernel  (the first one in _fused_bwd)
 //   bwd dy     _bwd_dy_kernel      (the second one in _fused_bwd)
 // Same contract, on PyTorch's layout: y [B, C, T, H, W] (the conv3d output
-// as cuDNN writes it, NCDHW, H and W even) in the IO type, fp32 or bf16;
+// as cuDNN writes it, NCDHW, H and W even) in the IO type, fp32, bf16 or
+// fp16;
 // gamma, beta [C] fp32. out, sel, g and dy are in the IO type too; every sum
 // and every BN expression runs in fp32, as the TPU kernels upcast their
 // blocks (pallas_epilogue.py:151,171-176,200-203,217-242).
@@ -45,13 +46,17 @@
 //     order. No atomics: every run gives the same bits.
 //   - The channel's values are B contiguous segments of L = T*H*W values
 //     ((b*C + c)*L); a block walks its share segment by segment, 16-byte
-//     loads (4 floats or 8 bf16) where L and the chunk are multiples of
-//     that count and y is 16-byte aligned. apply and dy read a window row
-//     as one pair (a float2, or a bf16x2) where y (and dy) are aligned to
-//     two values; a view at another offset takes one value a load.
-//   - In bf16 the selection is exact: max and min compare the upcast
-//     values (bf16 -> fp32 is exact and order-preserving), sel is the
-//     selected value itself, and out and dy round once, to nearest even.
+//     loads (4 floats, or 8 bf16 or fp16) where L and the chunk are
+//     multiples of that count and y is 16-byte aligned. apply and dy read
+//     a window row as one pair (a float2, a bf16x2 or a half2) where y
+//     (and dy) are aligned to two values; a view at another offset takes
+//     one value a load.
+//   - In bf16 and fp16 the selection is exact: max and min compare the
+//     upcast values (bf16 or fp16 -> fp32 is exact and order-preserving),
+//     sel is the selected value itself, and out and dy round once, to
+//     nearest even. The BatchNorm output o whose sign picks LeakyReLU's
+//     slope is computed in fp32 from the upcast values in every IO type,
+//     as the plain version computes it.
 //   - dy runs one thread per window, the channel from the index.
 //   - apply is tiled by plane (redesigned for Hopper): a block takes a band
 //     of pooled rows of one (b, c, t) plane, so the channel, the plane's
@@ -65,11 +70,11 @@
 //     take the scalar kernel: one thread per window, the channel and
 //     offsets from the index.
 //   - bwd reduce (redesigned for Hopper) reads g and sel 16 bytes a load
-//     (8 bf16 or 4 fp32) where aligned and divisible, else one value a
-//     load; the channel's constants sit in registers; the block's sums meet
-//     by warp shuffles in a fixed order. The channel's last block to finish
-//     (found through a per-channel counter that it resets) sums the
-//     channel's partials in a fixed order: one launch, where a second
+//     (8 bf16 or fp16, or 4 fp32) where aligned and divisible, else one
+//     value a load; the channel's constants sit in registers; the block's
+//     sums meet by warp shuffles in a fixed order. The channel's last block
+//     to finish (found through a per-channel counter that it resets) sums
+//     the channel's partials in a fixed order: one launch, where a second
 //     launch of one block per channel measured 2-4 % slower on an H100.
 //
 // What bounds it on Hopper: bytes. Every pass is a stream over the conv
@@ -77,9 +82,10 @@
 // (4 B per element of y), apply reads y and writes out and sel (6 B), bwd
 // reduce reads g and sel (2 B), dy reads y, g, sel and writes dy (10 B):
 // 22 B per element of y in fp32, 2.2 GB per window at the frames flagship's
-// stages 0 and 1, 0.66 ms at 3.35 TB/s; half of that in bf16.
+// stages 0 and 1, 0.66 ms at 3.35 TB/s; half of that in bf16 and fp16.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -87,9 +93,11 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(f16 v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -98,6 +106,10 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ f16 from_f<f16>(float v) {
+  return __float2half_rn(v);
 }
 
 constexpr int kThreads = 256;
@@ -455,7 +467,7 @@ struct Affine {
 };
 
 // The two values of a window row at p (an even offset), upcast: one pair
-// load (float2, bf16x2) when `vec` (the base pointer aligned to two
+// load (float2, bf16x2, half2) when `vec` (the base pointer aligned to two
 // values), else one value a load.
 __device__ __forceinline__ float2 load_pair(const float* p, bool vec) {
   return vec ? *reinterpret_cast<const float2*>(p) : make_float2(p[0], p[1]);
@@ -464,6 +476,11 @@ __device__ __forceinline__ float2 load_pair(const float* p, bool vec) {
 __device__ __forceinline__ float2 load_pair(const bf16* p, bool vec) {
   return vec ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p))
              : make_float2(__bfloat162float(p[0]), __bfloat162float(p[1]));
+}
+
+__device__ __forceinline__ float2 load_pair(const f16* p, bool vec) {
+  return vec ? __half22float2(*reinterpret_cast<const __half2*>(p))
+             : make_float2(__half2float(p[0]), __half2float(p[1]));
 }
 
 __device__ __forceinline__ void store_pair(float* p, float a, float b,
@@ -483,6 +500,16 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b,
   } else {
     p[0] = __float2bfloat16_rn(a);
     p[1] = __float2bfloat16_rn(b);
+  }
+}
+
+__device__ __forceinline__ void store_pair(f16* p, float a, float b,
+                                           bool vec) {
+  if (vec) {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+  } else {
+    p[0] = __float2half_rn(a);
+    p[1] = __float2half_rn(b);
   }
 }
 
@@ -538,6 +565,17 @@ __device__ __forceinline__ void load_row8(const bf16* p, float (&v)[8]) {
   }
 }
 
+__device__ __forceinline__ void load_row8(const f16* p, float (&v)[8]) {
+  const uint4 a = ld16(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&a);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __half22float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+
 // 4 values to p (aligned to 4 values) as one store.
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
@@ -546,6 +584,15 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
 __device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
   const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 q;
+  q.x = *reinterpret_cast<const unsigned*>(&lo);
+  q.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = q;
+}
+
+__device__ __forceinline__ void store4(f16* p, const float (&v)[4]) {
+  const __half2 lo = __floats2half2_rn(v[0], v[1]);
+  const __half2 hi = __floats2half2_rn(v[2], v[3]);
   uint2 q;
   q.x = *reinterpret_cast<const unsigned*>(&lo);
   q.y = *reinterpret_cast<const unsigned*>(&hi);
@@ -640,8 +687,18 @@ unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
 
-constexpr int kFloat32 = 0;
-constexpr int kBFloat16 = 1;
+// The launchers' dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.
+// with_io(dtype, f) calls f(Io<T>{}) with T the code's IO type.
+template <typename T>
+struct Io {
+  using type = T;
+};
+template <typename F>
+int with_io(int dtype, F&& f) {
+  if (dtype == 0) return f(Io<float>{});
+  if (dtype == 1) return f(Io<bf16>{});
+  return f(Io<f16>{});
+}
 
 // The partials launch at slots (pstride, poff), then, with `finish`, the
 // one-block-a-channel combine over nblk partials (the fused route).
@@ -759,16 +816,16 @@ int dy_impl(const void* y, const void* g, const void* sel, Affine aff,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_dtype(int dtype) { return dtype != kFloat32 && dtype != kBFloat16; }
+bool bad_dtype(int dtype) { return dtype < 0 || dtype > 2; }
 
 }  // namespace
 
 // In every launcher, `dtype` is the IO type of y, out, sel, g and dy: 0 fp32,
-// 1 bf16. Each returns the first non-zero cudaError_t, else 0.
+// 1 bf16, 2 fp16. Each returns the first non-zero cudaError_t, else 0.
 
 // Batch statistics of y [B, C, T, H, W]: mu, var, rstd [C] fp32. partial is
 // an fp32 [C, nblk, 2] scratch; chunk * nblk >= B*T*H*W, chunk a multiple of
-// 4 (of 8 for bf16's 16-byte loads). Two kernels on `stream`.
+// 4 (of 8 for bf16's and fp16's 16-byte loads). Two kernels on `stream`.
 extern "C" int maavss_epilogue_stats(const void* y, void* partial, void* mu,
                                      void* var, void* rstd, int B, int C,
                                      int T, int H, int W, int nblk,
@@ -782,11 +839,11 @@ extern "C" int maavss_epilogue_stats(const void* y, void* partial, void* mu,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(partial);
-  return dtype == kBFloat16
-             ? stats_impl<bf16>(y, pf, mu, var, rstd, C, L, n, nblk, chunk, s,
-                                nblk, 0, true)
-             : stats_impl<float>(y, pf, mu, var, rstd, C, L, n, nblk, chunk,
-                                 s, nblk, 0, true);
+  return with_io(dtype, [&](auto io) {
+    using IO = typename decltype(io)::type;
+    return stats_impl<IO>(y, pf, mu, var, rstd, C, L, n, nblk, chunk, s, nblk,
+                          0, true);
+  });
 }
 
 // The split route of the statistics, for a data group's global batch.
@@ -809,11 +866,11 @@ extern "C" int maavss_epilogue_stats_partials(
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pf = static_cast<float*>(partial);
-  return dtype == kBFloat16
-             ? stats_impl<bf16>(y, pf, nullptr, nullptr, nullptr, C, L, n,
-                                nblk, chunk, s, pstride, poff, false)
-             : stats_impl<float>(y, pf, nullptr, nullptr, nullptr, C, L, n,
-                                 nblk, chunk, s, pstride, poff, false);
+  return with_io(dtype, [&](auto io) {
+    using IO = typename decltype(io)::type;
+    return stats_impl<IO>(y, pf, nullptr, nullptr, nullptr, C, L, n, nblk,
+                          chunk, s, pstride, poff, false);
+  });
 }
 
 extern "C" int maavss_epilogue_stats_finish(const void* partial, int nparts,
@@ -850,11 +907,11 @@ extern "C" int maavss_epilogue_apply(const void* y, const void* gamma,
              static_cast<const float*>(mu), static_cast<const float*>(rstd)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(gx, gy), block(bx, by);
-  return dtype == kBFloat16
-             ? apply_impl<bf16>(y, aff, out, sel, B, C, T, H, W, windows,
-                                pairs, grid, block, band, s)
-             : apply_impl<float>(y, aff, out, sel, B, C, T, H, W, windows,
-                                 pairs, grid, block, band, s);
+  return with_io(dtype, [&](auto io) {
+    using IO = typename decltype(io)::type;
+    return apply_impl<IO>(y, aff, out, sel, B, C, T, H, W, windows, pairs,
+                          grid, block, band, s);
+  });
 }
 
 // Pooled-domain sums of the backward: dgamma = S2, dbeta = S1 [C] and the
@@ -886,11 +943,11 @@ extern "C" int maavss_epilogue_bwd_reduce(
   float* dg = static_cast<float*>(dgamma);
   float* db = static_cast<float*>(dbeta);
   float* kk = static_cast<float*>(k);
-  return dtype == kBFloat16
-             ? bwd_reduce_impl<bf16>(g, sel, args, pf, cnt, dg, db, kk, C, L,
-                                     n, chunk, nblk, s)
-             : bwd_reduce_impl<float>(g, sel, args, pf, cnt, dg, db, kk, C,
-                                      L, n, chunk, nblk, s);
+  return with_io(dtype, [&](auto io) {
+    using IO = typename decltype(io)::type;
+    return bwd_reduce_impl<IO>(g, sel, args, pf, cnt, dg, db, kk, C, L, n,
+                               chunk, nblk, s);
+  });
 }
 
 // The split route of the backward reduce, for a data group's global batch.
@@ -919,11 +976,11 @@ extern "C" int maavss_epilogue_bwd_partials(
                static_cast<const float*>(mu),
                static_cast<const float*>(rstd), nullptr, nullptr};
   float* pf = static_cast<float*>(partial);
-  return dtype == kBFloat16
-             ? bwd_partials_impl<bf16>(g, sel, args, pf, C, L, n, chunk, nblk,
-                                       pstride, poff, s)
-             : bwd_partials_impl<float>(g, sel, args, pf, C, L, n, chunk,
-                                        nblk, pstride, poff, s);
+  return with_io(dtype, [&](auto io) {
+    using IO = typename decltype(io)::type;
+    return bwd_partials_impl<IO>(g, sel, args, pf, C, L, n, chunk, nblk,
+                                 pstride, poff, s);
+  });
 }
 
 extern "C" int maavss_epilogue_bwd_finish(
@@ -963,7 +1020,8 @@ extern "C" int maavss_epilogue_bwd_dy(const void* y, const void* g,
   Affine aff{static_cast<const float*>(gamma), static_cast<const float*>(beta),
              static_cast<const float*>(mu), static_cast<const float*>(rstd)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == kBFloat16
-             ? dy_impl<bf16>(y, g, sel, aff, k, dy, n_pool, C, T, H, W, s)
-             : dy_impl<float>(y, g, sel, aff, k, dy, n_pool, C, T, H, W, s);
+  return with_io(dtype, [&](auto io) {
+    using IO = typename decltype(io)::type;
+    return dy_impl<IO>(y, g, sel, aff, k, dy, n_pool, C, T, H, W, s);
+  });
 }

@@ -10,7 +10,7 @@
 //   dgates = [dc*g*i(1-i) | dc*c_prev*f(1-f) | dc*i*(1-g^2) | dh*tanh(c)*o(1-o)]
 //   dxw[t] = dgates;  dh_prev = dgates @ w_h^T;  dc_prev = dc * f
 //   dW_h = sum over (b, t) of h_prev^T dgates
-// with fp32 carries and sums whatever the IO type (fp32 or bf16). The
+// with fp32 carries and sums whatever the IO type (fp32, bf16 or fp16). The
 // forward direction sweeps t = T-1 .. 0 with h_prev = ys[t-1]; a reverse
 // direction (forward run t = T-1 .. 0 by indexing, csrc/lstm_fwd.cu) sweeps
 // t = 0 .. T-1 with h_prev = ys[t+1]; h_prev and c_prev are 0 at the first
@@ -28,7 +28,7 @@
 //   - the owner of a (row, unit) pair adds the NC partial sums of its
 //     dh_next in rank order, computes the pair's four dgates (acts, cs and
 //     dys of the step prefetched the step before), keeps dc in shared
-//     memory and writes dxw (and an fp32 copy of dgates for dW_h in bf16);
+//     memory and writes dxw (and an fp32 copy of dgates for dW_h below fp32);
 //   - thread k multiplies the CTA's RB x 4U dgates by row k of its slice:
 //     its share of dh_prev[:, k] over the CTA's own columns, stored as RB
 //     consecutive floats into the next receive buffer of k's owner CTA
@@ -345,9 +345,10 @@ int launch(Direction d0, Direction d1, int n_dir, int B, int T_len, int H,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. n_dir is 1 or 2; the second direction's
-// pointers are ignored when n_dir == 1. acts is the forward's fp32 [B, T, 4H];
-// dg an fp32 [B, T, 4H] buffer for dgates, dxw itself in fp32. rows is
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. n_dir is 1 or 2; the
+// second direction's pointers are ignored when n_dir == 1. acts is the
+// forward's fp32 [B, T, 4H]; dg an fp32 [B, T, 4H] buffer for dgates, dxw
+// itself in fp32. rows is
 // ops/cuda_lstm.py:lstm_geometry's; threads and shared bytes follow from
 // (H, rows). Two launches on `stream`: the sweep (clusters), then the dW_h
 // product. Returns the first non-zero cudaError_t, else 0.
@@ -359,7 +360,7 @@ extern "C" int maavss_lstm_bwd(
     int B, int T_len, int H, int dtype, int rows, void* stream) {
   lstm::Geometry g;
   if (n_dir < 1 || n_dir > 2 || B < 1 || T_len < 1 || dtype < 0 ||
-      dtype > 1 || !lstm::make_geometry(H, rows, true, &g)) {
+      dtype > 2 || !lstm::make_geometry(H, rows, true, &g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Direction d0{static_cast<const float*>(acts0), wh0, ys0, cs0, dys0, dxw0,
@@ -371,5 +372,8 @@ extern "C" int maavss_lstm_bwd(
                      : d0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(d0, d1, n_dir, B, T_len, H, g, s);
-  return launch<__nv_bfloat16>(d0, d1, n_dir, B, T_len, H, g, s);
+  if (dtype == 1) {
+    return launch<__nv_bfloat16>(d0, d1, n_dir, B, T_len, H, g, s);
+  }
+  return launch<__half>(d0, d1, n_dir, B, T_len, H, g, s);
 }

@@ -23,6 +23,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -40,16 +41,22 @@ __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float load_f(const __half* p) {
+  return __half2float(*p);
+}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+__device__ __forceinline__ void store_f(__half* p, float v) {
+  *p = __float2half_rn(v);
 }
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// Four consecutive values as floats: one 16-byte (fp32) or 8-byte (bf16)
-// load; the caller checks the alignment.
+// Four consecutive values as floats: one 16-byte (fp32) or 8-byte (bf16,
+// fp16) load; the caller checks the alignment.
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -59,6 +66,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
   const float2 a = __bfloat1622float2(lo);
   const float2 b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
 

@@ -5,7 +5,7 @@
 //   gates_t = xw[t] + h_{t-1} @ w_h        gate columns [i | f | g | o]
 //   c_t = sigmoid(f) * c_{t-1} + sigmoid(i) * tanh(g)
 //   h_t = sigmoid(o) * tanh(c_t)           h_0 = c_0 = 0
-// with an fp32 carry and fp32 sums whatever the IO type (fp32 or bf16).
+// with an fp32 carry and fp32 sums whatever the IO type (fp32, bf16 or fp16).
 // Layouts are the module's own, batch-major, so no transpose is needed
 // around the call: xw [B, T, 4H], w_h [H, 4H] (flax layout, row k holds the
 // four gates' weights of h[k]), ys and cs [B, T, H]. A reverse direction
@@ -202,9 +202,9 @@ int launch(Direction d0, Direction d1, int n_dir, int B, int T_len, int H,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. n_dir is 1 or 2; the second direction's
-// pointers are ignored when n_dir == 1. acts is fp32 [B, T, 4H], or null
-// where the gate activations are not wanted. rows is
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. n_dir is 1 or 2; the
+// second direction's pointers are ignored when n_dir == 1. acts is fp32
+// [B, T, 4H], or null where the gate activations are not wanted. rows is
 // ops/cuda_lstm.py:lstm_geometry's; threads and shared bytes follow from
 // (H, rows). One cluster launch on `stream`. Returns its cudaError_t.
 extern "C" int maavss_lstm_fwd(const void* xw0, const void* wh0, void* ys0,
@@ -215,7 +215,7 @@ extern "C" int maavss_lstm_fwd(const void* xw0, const void* wh0, void* ys0,
                                void* stream) {
   lstm::Geometry g;
   if (n_dir < 1 || n_dir > 2 || B < 1 || T_len < 1 || dtype < 0 ||
-      dtype > 1 || !lstm::make_geometry(H, rows, false, &g)) {
+      dtype > 2 || !lstm::make_geometry(H, rows, false, &g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Direction d0{xw0, wh0, ys0, cs0, static_cast<float*>(acts0), rev0};
@@ -224,7 +224,10 @@ extern "C" int maavss_lstm_fwd(const void* xw0, const void* wh0, void* ys0,
                             : d0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(d0, d1, n_dir, B, T_len, H, g, s);
-  return launch<__nv_bfloat16>(d0, d1, n_dir, B, T_len, H, g, s);
+  if (dtype == 1) {
+    return launch<__nv_bfloat16>(d0, d1, n_dir, B, T_len, H, g, s);
+  }
+  return launch<__half>(d0, d1, n_dir, B, T_len, H, g, s);
 }
 
 // How many clusters of K1's kernels the current device runs side by side,

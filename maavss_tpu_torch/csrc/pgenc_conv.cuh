@@ -27,6 +27,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -53,8 +54,15 @@ __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+__device__ __forceinline__ float load_f(const __half* p) {
+  return __half2float(*p);
+}
+__device__ __forceinline__ void store_f(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
 
-// Four consecutive values as fp32 (16-byte fp32 or 8-byte bf16 loads).
+// Four consecutive values as fp32 (16-byte fp32 or 8-byte bf16 and fp16
+// loads).
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -65,8 +73,16 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 b = __bfloat1622float2(h[1]);
   return make_float4(a.x, a.y, b.x, b.y);
 }
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+  const float2 a = __half22float2(h[0]);
+  const float2 b = __half22float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
 
-// Four consecutive values from fp32 (16-byte store) or to bf16 (8-byte).
+// Four consecutive values from fp32 (16-byte store) or to bf16 or fp16
+// (8-byte).
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -79,10 +95,19 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p,
   u.y = *reinterpret_cast<const unsigned*>(&hi);
   *reinterpret_cast<uint2*>(p) = u;
 }
+__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
+  const __half2 lo = __floats2half2_rn(v[0], v[1]);
+  const __half2 hi = __floats2half2_rn(v[2], v[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 // Stage one fp32 value of global memory into shared memory: fp32 sources
 // by cp.async (4 bytes, zero-filled when !ok), so that a thread has all its
-// copies of a stage in flight at once; bf16 sources by a load and a store.
+// copies of a stage in flight at once; bf16 and fp16 sources by a load and
+// a store.
 // cp_wait() completes the thread's copies; a __syncthreads() must follow.
 __device__ __forceinline__ void stage(float* dst, const float* src,
                                       bool ok) {
@@ -94,8 +119,13 @@ __device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src,
                                       bool ok) {
   *dst = ok ? __bfloat162float(*src) : 0.0f;
 }
-// The same for four consecutive values (16-byte cp.async; 8-byte bf16
-// loads), all in range or none; src and dst 16-byte (bf16: 8-byte) aligned.
+__device__ __forceinline__ void stage(float* dst, const __half* src,
+                                      bool ok) {
+  *dst = ok ? __half2float(*src) : 0.0f;
+}
+// The same for four consecutive values (16-byte cp.async; 8-byte bf16 and
+// fp16 loads), all in range or none; src and dst 16-byte (bf16, fp16:
+// 8-byte) aligned.
 __device__ __forceinline__ void stage4(float* dst, const float* src,
                                        bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -107,6 +137,11 @@ __device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
   *reinterpret_cast<float4*>(dst) =
       ok ? load4(src) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
+__device__ __forceinline__ void stage4(float* dst, const __half* src,
+                                       bool ok) {
+  *reinterpret_cast<float4*>(dst) =
+      ok ? load4(src) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
@@ -114,6 +149,19 @@ __device__ __forceinline__ void cp_wait() {
 
 inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// The launchers' dtype codes: 0 = float32, 1 = bfloat16, 2 = float16.
+// with_io(dtype, f) calls f(Io<T>{}) with T the code's IO type.
+template <typename T>
+struct Io {
+  using type = T;
+};
+template <typename F>
+int with_io(int dtype, F&& f) {
+  if (dtype == 0) return f(Io<float>{});
+  if (dtype == 1) return f(Io<__nv_bfloat16>{});
+  return f(Io<__half>{});
 }
 
 struct Shape {

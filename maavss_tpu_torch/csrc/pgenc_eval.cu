@@ -7,7 +7,7 @@
 //   cbias, gamma, beta, mean, var [Co] fp32  ->  y [Co, R, S/2]
 //   y[co,r,so] = tanh(gamma * (sum_{k,ci} w2[co,k*C+ci] * x[ci,r,2*so+k-4]
 //                              + cbias - mean) * rsqrt(var + 1e-5) + beta)
-// with fp32 sums and IO in x's type (fp32 or bf16).
+// with fp32 sums and IO in x's type (fp32, bf16 or fp16).
 //
 // Design: one block per tile of the register-tiled conv of pgenc_conv.cuh
 // (the tile plan is ops/cuda_pgenc.py:pgenc_plan's, the same as K2-train's
@@ -41,7 +41,7 @@ struct EvalArgs {
   T* y;
   Shape d;
   TilePlan p;
-  bool vec;  // 16-byte (bf16: 8-byte) copies of x
+  bool vec;  // 16-byte (bf16, fp16: 8-byte) copies of x
 };
 
 template <typename T, int TC>
@@ -101,10 +101,10 @@ int dispatch(const EvalArgs<T>& a, cudaStream_t s) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. (tc, bc, br, bs, g) is the tile plan of
-// ops/cuda_pgenc.py:pgenc_plan; one block per tile on `stream`. Returns
-// cudaErrorInvalidValue for a shape or plan the kernel does not take, else
-// the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. (tc, bc, br, bs, g) is the
+// tile plan of ops/cuda_pgenc.py:pgenc_plan; one block per tile on
+// `stream`. Returns cudaErrorInvalidValue for a shape or plan the kernel
+// does not take, else the launch's cudaError_t.
 extern "C" int maavss_pgenc_eval(const void* x, const void* w2,
                                  const void* cbias, const void* gamma,
                                  const void* beta, const void* mean,
@@ -114,7 +114,7 @@ extern "C" int maavss_pgenc_eval(const void* x, const void* w2,
   const Shape d{C, R, S, Co, S / 2};
   TilePlan p;
   if (C < 1 || R < 1 || Co < 1 || S < 2 || S % 2 != 0 || dtype < 0 ||
-      dtype > 1 || !make_plan(d, tc, bc, br, bs, g, &p)) {
+      dtype > 2 || !make_plan(d, tc, bc, br, bs, g, &p)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -123,16 +123,11 @@ extern "C" int maavss_pgenc_eval(const void* x, const void* w2,
                        static_cast<const float*>(beta),
                        static_cast<const float*>(mean),
                        static_cast<const float*>(var)};
-  if (dtype == 0) {
-    const EvalArgs<float> a{static_cast<const float*>(x),
-                            static_cast<const float*>(w2), f[0], f[1], f[2],
-                            f[3], f[4], static_cast<float*>(y), d, p,
-                            S % 4 == 0 && aligned(x, 16)};
+  return with_io(dtype, [&](auto io) {
+    using T = typename decltype(io)::type;
+    const EvalArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(w2),
+                        f[0], f[1], f[2], f[3], f[4], static_cast<T*>(y), d, p,
+                        S % 4 == 0 && aligned(x, 4 * sizeof(T))};
     return dispatch(a, s);
-  }
-  const EvalArgs<__nv_bfloat16> a{
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w2), f[0], f[1], f[2], f[3], f[4],
-      static_cast<__nv_bfloat16*>(y), d, p, S % 4 == 0 && aligned(x, 8)};
-  return dispatch(a, s);
+  });
 }

@@ -17,8 +17,8 @@
 //                          over the k with j+4-k even and in range
 //             dw2[co,k*C+ci] = sum_{r,so} dyc[co,r,so] * xpad[ci,r,2so+k]
 //             dcbias = 0 exactly (the bias cancels in yc - mu)
-// with fp32 sums and statistics; x, w2, y, dy, dx, dw2 in x's type (fp32 or
-// bf16).
+// with fp32 sums and statistics; x, w2, y, dy, dx, dw2 in x's type (fp32,
+// bf16 or fp16).
 //
 // Forward, one launch. The TPU kernel carries the per-channel sums across
 // its sequential grid in VMEM; Hopper's blocks run in parallel, so the
@@ -66,9 +66,9 @@
 //       order of the sums does not.
 //       Every stage is copied by cp.async, 16 bytes where the rows and the
 //       operands' alignment allow (a view at an odd offset takes 4-byte
-//       copies; bf16 operands are loaded and converted), so that a thread
-//       has all its copies of a stage in flight at once and a stage costs one
-//       memory latency.
+//       copies; bf16 and fp16 operands are loaded and converted), so that
+//       a thread has all its copies of a stage in flight at once and a
+//       stage costs one memory latency.
 //       The dx grid aims at >= 132 blocks (TM = 1 when TM = 2 gives fewer).
 //
 // What bounds it on Hopper: the work is the two products, 2*Co*9C*R*So
@@ -140,7 +140,7 @@ struct TrainArgs {
   float* partial;  // [Co][2][pstride]: tile p's at poff + p
   Shape d;
   TilePlan p;
-  bool vec;  // 16-byte (bf16: 8-byte) copies of x
+  bool vec;  // 16-byte (bf16, fp16: 8-byte) copies of x
   int pstride;    // partials a (channel, sum) row holds
   int poff;       // where this launch's tiles write in a row
   int nparts;     // partials of a row the statistics sum
@@ -536,7 +536,7 @@ bn_bwd_kernel(const float* __restrict__ yc, const T* __restrict__ dy,
 
 struct Dims {
   int C, R, S, Co, So;
-  bool vec;  // x and w2 allow 16-byte (bf16: 8-byte) loads
+  bool vec;  // x and w2 allow 16-byte (bf16, fp16: 8-byte) loads
 };
 
 // dx blocks: threads tm (pairs) x tc (groups of 4 input channels) x br
@@ -1184,7 +1184,7 @@ int train_bwd(const void* x_, const void* w2_, const float* yc,
 
 bool bad_shape(int C, int R, int S, int Co, int dtype) {
   return C < 1 || R < 1 || Co < 1 || S < 2 || S % 2 != 0 || dtype < 0 ||
-         dtype > 1;
+         dtype > 2;
 }
 
 }  // namespace
@@ -1195,7 +1195,8 @@ bool bad_shape(int C, int R, int S, int Co, int dtype) {
 // ops/cuda_pgenc.py:pgenc_plan. yc is an fp32 [Co, R, S/2] output, the
 // backward's residual; mu, var fp32 [Co] outputs; partial an fp32 scratch
 // of 2 * Co * per_cb floats (per_cb: the plan's tiles of one channel
-// block). dtype: 0 = float32, 1 = bfloat16. Returns cudaErrorInvalidValue
+// block). dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns
+// cudaErrorInvalidValue
 // for a shape, plan or grid the kernel does not take, else the launch's
 // cudaError_t.
 extern "C" int maavss_pgenc_train_fwd(
@@ -1216,20 +1217,15 @@ extern "C" int maavss_pgenc_train_fwd(
   float* out[4] = {static_cast<float*>(yc), static_cast<float*>(mu),
                    static_cast<float*>(var), static_cast<float*>(partial)};
   const long long n = static_cast<long long>(R) * d.So;
-  if (dtype == 0) {
-    const TrainArgs<float> a{static_cast<const float*>(x),
-                             static_cast<const float*>(w2), f[0], f[1], f[2],
-                             out[0], static_cast<float*>(y), out[1], out[2],
-                             out[3], d, p, S % 4 == 0 && aligned(x, 16),
-                             p.per_cb, 0, p.per_cb, n};
+  return with_io(dtype, [&](auto io) {
+    using T = typename decltype(io)::type;
+    const TrainArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(w2),
+                         f[0], f[1], f[2], out[0], static_cast<T*>(y), out[1],
+                         out[2], out[3], d, p,
+                         S % 4 == 0 && aligned(x, 4 * sizeof(T)), p.per_cb, 0,
+                         p.per_cb, n};
     return train_fwd(a, grid, s);
-  }
-  const TrainArgs<__nv_bfloat16> a{
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w2), f[0], f[1], f[2], out[0],
-      static_cast<__nv_bfloat16*>(y), out[1], out[2], out[3], d, p,
-      S % 4 == 0 && aligned(x, 8), p.per_cb, 0, p.per_cb, n};
-  return train_fwd(a, grid, s);
+  });
 }
 
 // The split route of the train forward, for statistics over more than
@@ -1257,20 +1253,14 @@ extern "C" int maavss_pgenc_train_conv(
   const float* cb = static_cast<const float*>(cbias);
   float* ycf = static_cast<float*>(yc);
   float* pf = static_cast<float*>(partial);
-  if (dtype == 0) {
-    const TrainArgs<float> a{static_cast<const float*>(x),
-                             static_cast<const float*>(w2), cb, nullptr,
-                             nullptr, ycf, nullptr, nullptr, nullptr, pf, d,
-                             p, S % 4 == 0 && aligned(x, 16), pstride, poff,
-                             0, 0};
-    return train_phase<float, kConv>(a, s);
-  }
-  const TrainArgs<__nv_bfloat16> a{
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w2), cb, nullptr, nullptr, ycf,
-      nullptr, nullptr, nullptr, pf, d, p, S % 4 == 0 && aligned(x, 8),
-      pstride, poff, 0, 0};
-  return train_phase<__nv_bfloat16, kConv>(a, s);
+  return with_io(dtype, [&](auto io) {
+    using T = typename decltype(io)::type;
+    const TrainArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(w2),
+                         cb, nullptr, nullptr, ycf, nullptr, nullptr, nullptr,
+                         pf, d, p, S % 4 == 0 && aligned(x, 4 * sizeof(T)),
+                         pstride, poff, 0, 0};
+    return train_phase<T, kConv>(a, s);
+  });
 }
 
 extern "C" int maavss_pgenc_train_apply(
@@ -1291,17 +1281,13 @@ extern "C" int maavss_pgenc_train_apply(
   float* pf = const_cast<float*>(static_cast<const float*>(partial));
   float* muf = static_cast<float*>(mu);
   float* varf = static_cast<float*>(var);
-  if (dtype == 0) {
-    const TrainArgs<float> a{nullptr, nullptr, nullptr, gm, bt, ycf,
-                             static_cast<float*>(y), muf, varf, pf, d, p,
-                             false, nparts, 0, nparts, ntot};
-    return train_phase<float, kApply>(a, s);
-  }
-  const TrainArgs<__nv_bfloat16> a{
-      nullptr, nullptr, nullptr, gm, bt, ycf,
-      static_cast<__nv_bfloat16*>(y), muf, varf, pf, d, p, false, nparts, 0,
-      nparts, ntot};
-  return train_phase<__nv_bfloat16, kApply>(a, s);
+  return with_io(dtype, [&](auto io) {
+    using T = typename decltype(io)::type;
+    const TrainArgs<T> a{nullptr, nullptr, nullptr, gm, bt, ycf,
+                         static_cast<T*>(y), muf, varf, pf, d, p, false,
+                         nparts, 0, nparts, ntot};
+    return train_phase<T, kApply>(a, s);
+  });
 }
 
 // The blocks of the train forward's kernel for tc and dtype that the
@@ -1310,18 +1296,16 @@ extern "C" int maavss_pgenc_train_apply(
 // A negative cudaError_t on failure.
 extern "C" int maavss_pgenc_train_resident(int tc, int dtype, int threads,
                                            int smem) {
-  if ((tc != 2 && tc != 4) || dtype < 0 || dtype > 1 || threads < 32 ||
+  if ((tc != 2 && tc != 4) || dtype < 0 || dtype > 2 || threads < 32 ||
       threads > kMaxThreads || smem < 0 || smem > kMaxDynSmem) {
     return -static_cast<int>(cudaErrorInvalidValue);
   }
-  int n = 0, e;
-  if (dtype == 0) {
-    e = tc == 4 ? train_resident<float, 4>(threads, smem, &n)
-                : train_resident<float, 2>(threads, smem, &n);
-  } else {
-    e = tc == 4 ? train_resident<__nv_bfloat16, 4>(threads, smem, &n)
-                : train_resident<__nv_bfloat16, 2>(threads, smem, &n);
-  }
+  int n = 0;
+  const int e = with_io(dtype, [&](auto io) {
+    using T = typename decltype(io)::type;
+    return tc == 4 ? train_resident<T, 4>(threads, smem, &n)
+                   : train_resident<T, 2>(threads, smem, &n);
+  });
   return e ? -e : n;
 }
 
@@ -1337,8 +1321,8 @@ extern "C" long long maavss_pgenc_train_bwd_scratch(int C, int R, int S,
 // and (mu, var). scratch holds maavss_pgenc_train_bwd_scratch bytes (16-byte
 // aligned); dx [C, R, S] and dw2 [Co, 9*C] in x's type; vec3 an fp32
 // [3, Co] output (dcbias = 0, dgamma, dbeta). dtype: 0 = float32,
-// 1 = bfloat16. Two kernels on `stream`. Returns the first non-zero
-// cudaError_t, else 0.
+// 1 = bfloat16, 2 = float16. Two kernels on `stream`. Returns the first
+// non-zero cudaError_t, else 0.
 extern "C" int maavss_pgenc_train_bwd(
     const void* x, const void* w2, const void* yc, const void* gamma,
     const void* beta, const void* mu, const void* var, const void* dy,
@@ -1354,13 +1338,11 @@ extern "C" int maavss_pgenc_train_bwd(
                        static_cast<const float*>(mu),
                        static_cast<const float*>(var)};
   float* v3 = static_cast<float*>(vec3);
-  if (dtype == 0) {
-    return train_bwd<float>(x, w2, f[0], f[1], f[2], f[3], f[4], dy, scratch,
-                            dx, dw2, v3, C, R, S, Co, nullptr, 0, s);
-  }
-  return train_bwd<__nv_bfloat16>(x, w2, f[0], f[1], f[2], f[3], f[4], dy,
-                                  scratch, dx, dw2, v3, C, R, S, Co, nullptr,
-                                  0, s);
+  return with_io(dtype, [&](auto io) {
+    using T = typename decltype(io)::type;
+    return train_bwd<T>(x, w2, f[0], f[1], f[2], f[3], f[4], dy, scratch, dx,
+                        dw2, v3, C, R, S, Co, nullptr, 0, s);
+  });
 }
 
 // The split route of the train backward, for BatchNorm statistics over more
@@ -1389,14 +1371,12 @@ extern "C" int maavss_pgenc_train_bwd_sums(
                        static_cast<const float*>(mu),
                        static_cast<const float*>(var)};
   float* v3 = static_cast<float*>(vec3);
-  if (dtype == 0) {
-    return bn_launch<float, kBnSums>(
-        f[0], static_cast<const float*>(dy), f[3], f[4], f[1], f[2], nullptr,
-        v3, nullptr, 0, n, Co, nullptr, static_cast<float>(n), s);
-  }
-  return bn_launch<__nv_bfloat16, kBnSums>(
-      f[0], static_cast<const __nv_bfloat16*>(dy), f[3], f[4], f[1], f[2],
-      nullptr, v3, nullptr, 0, n, Co, nullptr, static_cast<float>(n), s);
+  return with_io(dtype, [&](auto io) {
+    using T = typename decltype(io)::type;
+    return bn_launch<T, kBnSums>(f[0], static_cast<const T*>(dy), f[3], f[4],
+                                 f[1], f[2], nullptr, v3, nullptr, 0, n, Co,
+                                 nullptr, static_cast<float>(n), s);
+  });
 }
 
 extern "C" int maavss_pgenc_train_bwd_apply(
@@ -1415,11 +1395,9 @@ extern "C" int maavss_pgenc_train_bwd_apply(
                        static_cast<const float*>(mu),
                        static_cast<const float*>(var)};
   const float* sm = static_cast<const float*>(sums);
-  if (dtype == 0) {
-    return train_bwd<float>(x, w2, f[0], f[1], f[2], f[3], f[4], dy, scratch,
-                            dx, dw2, nullptr, C, R, S, Co, sm, ntot, s);
-  }
-  return train_bwd<__nv_bfloat16>(x, w2, f[0], f[1], f[2], f[3], f[4], dy,
-                                  scratch, dx, dw2, nullptr, C, R, S, Co, sm,
-                                  ntot, s);
+  return with_io(dtype, [&](auto io) {
+    using T = typename decltype(io)::type;
+    return train_bwd<T>(x, w2, f[0], f[1], f[2], f[3], f[4], dy, scratch, dx,
+                        dw2, nullptr, C, R, S, Co, sm, ntot, s);
+  });
 }

@@ -148,8 +148,9 @@ def compile_report(fn, *args: Any, peak_tflops: Optional[float] = None,
       op by op, with nothing fused and nothing cached;
     - `arithmetic_intensity`, `sol_compute_ms` and `sol_memory_ms` (the
       speed-of-light times at `peak_tflops` and `hbm_gbps`, by default the
-      H100's: 3.35 TB/s, and 67 TFLOP/s at float32 or 989 at bfloat16 on
-      the tensor cores by `compute_dtype`) and `bound`;
+      H100's: 3.35 TB/s, and 67 TFLOP/s at float32 or 989 at bfloat16 and
+      float16, the tensor cores' one rate for both, by `compute_dtype`)
+      and `bound`;
     - `argument_bytes` (the tensors among `args`, with the parameters and
       buffers of the nn.Modules among them or held by them as dataclass
       fields) and `output_bytes`;
@@ -162,7 +163,8 @@ def compile_report(fn, *args: Any, peak_tflops: Optional[float] = None,
     from torch.utils.flop_counter import FlopCounterMode
 
     if peak_tflops is None:
-        peak_tflops = (H100_BF16_TFLOPS if compute_dtype == "bfloat16"
+        peak_tflops = (H100_BF16_TFLOPS
+                       if compute_dtype in ("bfloat16", "float16")
                        else H100_FP32_TFLOPS)
     hbm_gbps = H100_HBM_GBPS if hbm_gbps is None else hbm_gbps
     args = copy.deepcopy(args)

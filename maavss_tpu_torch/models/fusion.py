@@ -11,9 +11,10 @@ the audio head predicts a complex ratio mask applied to the noisy input
 STFT instead; in the visual-only mode, whose audio input is zeroed, that
 head outputs exactly 0.
 
-`dtype` (--dtype) is the compute dtype, float32 or bfloat16, with flax's
-mixed-precision semantics (models/layers.py). Under bfloat16 the
-`--mask_head` head is JAX's own structure: `a_fc1` in bf16, the mask cast
+`dtype` (--dtype) is the compute dtype, float32, bfloat16 or float16, with
+flax's mixed-precision semantics (models/layers.py). Below float32 the
+`--mask_head` head is JAX's own structure: `a_fc1` in the compute dtype,
+the mask cast
 to the STFT features' fp32 (maavss_tpu/models/fusion.py:203) and applied
 by K4's standalone mask product (ops/cuda_complex.py); the fused fp32 head
 (ops/cuda_mask_head.py) is the float32 route.
@@ -152,8 +153,8 @@ class AVFusionModel(nn.Module):
         (ŷ_stft, ŷ_pgram, fused); heads are linear + LeakyReLU(0.3), or,
         with `mask_head`, the audio head's output is a complex ratio mask
         applied to the input STFT, in the head's own kernel
-        (ops/cuda_mask_head.py), or below float32 the bf16 `a_fc1`, then
-        the standalone mask product in the features' fp32."""
+        (ops/cuda_mask_head.py), or below float32 `a_fc1` in the compute
+        dtype, then the standalone mask product in the features' fp32."""
         fused = self.av_fusion_forward(x_a_enc, x_v_enc)
         if self.mask_head and self.dtype == torch.float32:
             x_a_out = mask_head_apply(fused, full_param(self.a_fc1, "weight"),

@@ -26,9 +26,9 @@ Parameter names follow the flax tree (`visual_encoder.Conv_i`,
 `convert.from_flax` carries a JAX checkpoint across.
 
 `dtype` (--dtype) is the compute dtype, as in the fusion model: under
-bfloat16 the conv3d stages run in bf16 and K5 takes their bf16 output, and
-the `--mask_head` mask is cast to fp32 for K4's standalone mask product
-(maavss_tpu/models/fusion_frames.py:284).
+bfloat16 or float16 the conv3d stages run in that dtype and K5 takes their
+output, and the `--mask_head` mask is cast to fp32 for K4's standalone
+mask product (maavss_tpu/models/fusion_frames.py:284).
 
 Under --mesh_model the split heads (fc1, the 8192 x 8192 layer at full
 width, fc2, a_fc1, v_fc1) are column-parallel (models/layers.py:dense) and
@@ -48,6 +48,7 @@ from maavss_tpu_torch.models.layers import (
     dense,
     epilogue_eligible,
     epilogue_min_hw,
+    excess_precision,
     frames_conv3d_stage,
     full_param,
     make_birnn,
@@ -100,10 +101,14 @@ class FramesVisualEncoder(nn.Module):
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     """sigmoid as XLA expands it, 1 / (1 + exp(-x)): below float32 the exp
-    and the sum round to x's dtype and the quotient stays fp32."""
+    and the sum round to x's dtype, and the quotient stays fp32 in
+    bfloat16 (its consumers upcast, `excess_precision`) and rounds to
+    float16 in float16."""
     if x.dtype == torch.float32:
         return torch.sigmoid(x)
-    return 1.0 / (1.0 + torch.exp(-x)).float()
+    if excess_precision(x.dtype):
+        return 1.0 / (1.0 + torch.exp(-x)).float()
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 class AVFusionFramesModel(nn.Module):
@@ -186,11 +191,12 @@ class AVFusionFramesModel(nn.Module):
                 mask = dense(self.a_fc1, fused, self.dtype).reshape(a_shape)
                 x_a_out = complex_mask_apply(x_mid, mask.to(x_a.dtype))
         else:
-            # the heads' activations end in fp32: their consumers (the loss,
-            # the separator's stitch) upcast, and XLA drops the round trip
-            # through bf16 (excess precision)
-            x_a_out = torch.tanh(dense(self.a_fc1, fused, self.dtype).float(
-            )).reshape(a_shape)
+            # in bf16 the heads' activations end in fp32: their consumers
+            # (the loss, the separator's stitch) upcast, and XLA drops the
+            # round trip through bf16 (excess precision); fp16 rounds
+            h = dense(self.a_fc1, fused, self.dtype)
+            x_a_out = torch.tanh(h.float() if excess_precision(self.dtype)
+                                 else h).reshape(a_shape)
         x_v_out = _sigmoid(dense(self.v_fc1, fused, self.dtype)).reshape(
             b, self.frame_shape[1], self.frame_shape[-2],
             self.frame_shape[-1])

@@ -21,12 +21,12 @@ maps a flax checkpoint onto `state_dict()` leaf by leaf:
   or in train mode, where `epilogue_eligible` admits the stage, the fused
   tail of `ops/cuda_epilogue.py`.
 
-The compute dtype (`dtype`, --dtype; float32 or bfloat16) follows flax's
-mixed precision: conv and dense parameters stay fp32 and are cast per call
-(`conv`, `dense`); BatchNorm computes in fp32 and casts its output; the
-LSTM's and GRU's w_i and w_h are parameters of the compute dtype itself,
-as flax creates them (maavss_tpu/models/layers.py:693-697). In float32
-every helper is the plain module call.
+The compute dtype (`dtype`, --dtype; float32, bfloat16 or float16) follows
+flax's mixed precision: conv and dense parameters stay fp32 and are cast
+per call (`conv`, `dense`); BatchNorm computes in fp32 and casts its
+output; the LSTM's and GRU's w_i and w_h are parameters of the compute
+dtype itself, as flax creates them (maavss_tpu/models/layers.py:693-697).
+In float32 every helper is the plain module call.
 """
 
 from __future__ import annotations
@@ -99,19 +99,32 @@ def dense(layer: nn.Linear, x: torch.Tensor,
     return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
+def excess_precision(dtype: torch.dtype) -> bool:
+    """Whether XLA's CPU runtime drops a round trip fp32 -> `dtype` -> fp32
+    into an upcast (excess precision, on by default), so that a chain of
+    `dtype` operations feeding an fp32 consumer runs in fp32: bfloat16.
+    float16 arithmetic stays float16, each operation rounded, and a value
+    an fp32 consumer upcasts is rounded first (the compiled HLO's
+    converts; tests/test_torch_fp16.py)."""
+    return dtype == torch.bfloat16
+
+
 def conv(layer: nn.Module, x: torch.Tensor,
          dtype: torch.dtype = torch.float32,
          to_bn: bool = False) -> torch.Tensor:
     """flax `nn.Conv` / `nn.ConvTranspose(dtype=)` on a torch Conv2d, Conv3d
     or ConvTranspose2d, with `dense`'s casts and roundings. `to_bn`: the
-    consumer is a BatchNorm, which upcasts, and XLA drops a round trip
-    fp32 -> bf16 -> fp32 into an upcast (excess precision, on by default):
-    the bias is then added in fp32 and the sum returned unrounded, and a
-    conv without a bias returns its fp32 accumulation of the bf16
-    operands' products. tests/test_torch_bf16.py holds the port's bf16
-    forwards to JAX's bit for bit with these rules."""
+    consumer is a BatchNorm, which upcasts; in bfloat16 XLA then drops the
+    round trip fp32 -> bf16 -> fp32 into an upcast (`excess_precision`):
+    the bias is added in fp32 and the sum returned unrounded, and a conv
+    without a bias returns its fp32 accumulation of the bf16 operands'
+    products. In float16 the conv's output and the bias add round to
+    float16 whatever the consumer. tests/test_torch_bf16.py and
+    test_torch_fp16.py hold the port's forwards to JAX's bit for bit with
+    these rules."""
     if dtype == torch.float32:
         return layer(x)
+    to_bn = to_bn and excess_precision(dtype)
     x, w = x.to(dtype), layer.weight.to(dtype)
     if to_bn and layer.bias is None:
         x, w = x.float(), w.float()

@@ -71,14 +71,17 @@ def adam_update_low(gs: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
                     c1: Scalar, c2: Scalar, lr: Scalar, b1: float, b2: float,
                     eps: float) -> None:
     """The formula of `adam_update_plain` over leaves of one dtype below
-    float32 (the bf16 LSTM leaves under --dtype bfloat16, with moments of
-    that dtype), in place, as maavss_tpu/ops/pallas_adam.py:82-89 computes
-    it there: every constant takes the moments' dtype first (b1, 1 - b1,
-    b2, 1 - b2, lr and eps as JAX's weak-typed scalars, c1 and c2 by
-    `astype`) and each operation rounds to it. One multi-tensor call an
+    float32 (the LSTM leaves under --dtype bfloat16 or float16, with
+    moments of that dtype), in place, as maavss_tpu/ops/pallas_adam.py:82-89
+    computes it there: every constant takes the moments' dtype first (b1,
+    1 - b1, b2, 1 - b2, lr and eps as JAX's weak-typed scalars, c1 and c2
+    by `astype`) and each operation rounds to it. One multi-tensor call an
     operation over all the leaves. c1, c2 and lr may be 0-d device tensors,
     rounded there (a schedule's rate: optax's `scale_by_schedule` casts the
-    step size to the update's dtype)."""
+    step size to the update's dtype). In float16 eps rounds to 0 and the
+    second moment of a small gradient underflows to 0, so the update
+    divides by 0 and the leaves go non-finite at the first step, as the
+    reference's do (ROADMAP queue 3); nothing here guards against it."""
     dtype = ms[0].dtype
     b1r, k1, b2r, k2, eps = (
         _in_dtype(x, dtype) for x in (b1, 1.0 - b1, b2, 1.0 - b2, eps))

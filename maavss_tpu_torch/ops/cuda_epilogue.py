@@ -4,7 +4,7 @@ encoder's eligible conv3d stages: the hand-written CUDA kernels of
 
 Counterpart of maavss_tpu/ops/pallas_epilogue.py:fused_bn_phasemax_leaky,
 on PyTorch's layout: the conv3d output y [B, C, T, H, W] (NCDHW, H and W
-even, fp32 or bf16) is read as it is, where the JAX package folds it to
+even, fp32, bf16 or fp16) is read as it is, where the JAX package folds it to
 phase-major channels first.
 
     out, mu, var = fused_bn_pool_leaky(y, gamma, beta)
@@ -55,8 +55,8 @@ cotangents of mu and var included (zero in training, where the running
 statistics take mu and var detached).
 
 y's dtype is the IO dtype of out, sel, the cotangent g and dy, as in the
-JAX kernels: a bf16 y gives bf16 out, sel and dy. Every sum and every BN
-expression runs in fp32 on the exact upcast of the IO values; out and dy
+JAX kernels: a bf16 (fp16) y gives bf16 (fp16) out, sel and dy. Every sum
+and every BN expression runs in fp32 on the exact upcast of the IO values; out and dy
 round once at the end, and sel, a selected value, is exact. mu, var, rstd,
 gamma, beta and the constants k stay fp32.
 """
@@ -76,7 +76,7 @@ EPS = 1e-5
 # the H100's 132), at least 4096 values per block
 _TARGET_BLOCKS = 1056
 _MIN_PER_BLOCK = 4096
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _THREADS = 256  # a block's threads in csrc/epilogue.cu (kThreads)
 APPLY_WINDOWS = 4  # adjacent windows a thread of apply's vector path takes
 # pooled rows each thread of apply's vector path takes, the band of a block
@@ -173,13 +173,13 @@ def _check_y(y: torch.Tensor) -> None:
 
 
 def _check_kernel_args(tensors, vecs, c: int) -> None:
-    """`tensors` (y, g, sel) share one IO dtype, float32 or bfloat16; the
-    per-channel `vecs` are float32 [C]."""
+    """`tensors` (y, g, sel) share one IO dtype, float32, bfloat16 or
+    float16; the per-channel `vecs` are float32 [C]."""
     dev = tensors[0].device
     io = tensors[0].dtype
     if io not in _DTYPE_CODES:
-        raise TypeError(f"epilogue kernel takes float32 or bfloat16 tensors, "
-                        f"got {io}")
+        raise TypeError(f"epilogue kernel takes float32, bfloat16 or float16 "
+                        f"tensors, got {io}")
     for t in tuple(tensors) + tuple(vecs):
         want = io if any(t is x for x in tensors) else torch.float32
         if t.dtype != want:
@@ -198,8 +198,8 @@ def _check_kernel_args(tensors, vecs, c: int) -> None:
 
 def _split(n: int, c: int, vec: int):
     """(blocks per channel, values per block, a multiple of `vec`, the
-    values of one 16-byte load: 4 floats, 8 bf16) for a channel sum over n
-    values: a fixed partition, so the sums are deterministic."""
+    values of one 16-byte load: 4 floats, 8 bf16 or fp16) for a channel sum
+    over n values: a fixed partition, so the sums are deterministic."""
     nblk = max(1, min(-(-_TARGET_BLOCKS // c), -(-n // _MIN_PER_BLOCK)))
     chunk = -(-n // nblk)
     chunk = -(-chunk // vec) * vec
@@ -226,7 +226,8 @@ def apply_plan(shape, itemsize: int, y_addr: int, out_addr: int,
     """The plan of `epilogue_apply` for y of `shape` [B, C, T, H, W] with
     `itemsize`-byte values at address y_addr, out and sel at theirs. The
     vector path needs W/2 a multiple of 4 (a thread's 4 windows are 8
-    values of each input row: one 16-byte load in bf16, two in fp32), y
+    values of each input row: one 16-byte load in bf16 and fp16, two in
+    fp32), y
     16-byte aligned and out and sel aligned to 4 values (one store each);
     anything else takes the scalar path."""
     b, c, t, h, w = shape

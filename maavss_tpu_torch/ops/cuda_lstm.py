@@ -10,7 +10,7 @@ VJP). Contract per direction, in the module's batch-major layout:
 
 with the input projection `xw = x @ w_i` precomputed by the caller, gate
 columns in torch order [i | f | g | o], h_0 = c_0 = 0, an fp32 carry and IO
-in xw's type (fp32 or bf16); ys and cs are [B, T, H], acts the fp32 gate
+in xw's type (fp32, bf16 or fp16); ys and cs are [B, T, H], acts the fp32 gate
 activations [B, T, 4H] = [sigmoid(i) | sigmoid(f) | tanh(g) | sigmoid(o)],
 which the backward reads in place of a recompute (the kernel writes them
 only where they are asked for, `save_acts`: None in their place else). `reverse=True` runs
@@ -38,7 +38,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 CLUSTER = 16  # CTAs per cluster, lstm_cluster.cuh's kCluster: H = 256
 # gives each 16 hidden units
@@ -91,7 +91,8 @@ def lstm_geometry(b: int, h: int, dtype: torch.dtype = torch.float32,
     dtype and ValueError for an h the kernels do not take: a multiple of 32
     in [32, H_MAX]."""
     if dtype not in _DTYPE_CODES:
-        raise TypeError(f"lstm kernel takes float32 or bfloat16, got {dtype}")
+        raise TypeError(f"lstm kernel takes float32, bfloat16 or float16, "
+                        f"got {dtype}")
     if not (32 <= h <= H_MAX and h % 32 == 0):
         raise ValueError(f"lstm kernel takes a hidden width H that is a "
                          f"multiple of 32 in [32, {H_MAX}] (its w_h slices "
@@ -313,7 +314,7 @@ def lstm_recurrence_bwd(actss: Sequence[torch.Tensor],
     for w_h in w_hs:
         dxw = torch.empty(b, t_len, 4 * h_dim, dtype=dtype, device=dev)
         # the dW_h kernel reads fp32 dgates: dxw itself in fp32, a scratch
-        # in bf16
+        # below fp32
         dg = dxw if dtype == torch.float32 else torch.empty(
             dxw.shape, dtype=torch.float32, device=dev)
         outs.append((dxw, torch.empty_like(w_h), dg))

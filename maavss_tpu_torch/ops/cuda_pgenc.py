@@ -15,9 +15,9 @@ dataflow and argument layout:
 conv(1,9) / stride 2 / zero pad 4 + BatchNorm (eps 1e-5) + tanh; w2 column
 k*C + ci holds the flax kernel[0, k, ci, co] (maavss_tpu/models/layers.py:
 205-207); the per-channel vectors are fp32; sums are fp32 and y has x's type
-(fp32 or bf16). In train mode the layer normalises with the batch mean and
-the biased batch variance E[yc^2] - E[yc]^2 over the R * S/2 outputs of each
-channel and returns them for the caller's running-statistics update; they
+(fp32, bf16 or fp16). In train mode the layer normalises with the batch mean
+and the biased batch variance E[yc^2] - E[yc]^2 over the R * S/2 outputs of
+each channel and returns them for the caller's running-statistics update; they
 carry no gradient. The train forward also returns its fp32 conv output yc,
 which the backward reads in place of recomputing the conv; the conv bias's
 gradient is exactly 0 (it cancels in yc - mu).
@@ -67,7 +67,7 @@ TAPS = 9
 PAD = 4
 STRIDE = 2
 EPS = 1e-5
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # pgenc_conv.cuh: outputs a thread holds, threads a block, output channels
 # a tile, dynamic shared bytes a block (the 232,448 of an H100 block less 4
 # KB for the kernels' static arrays)
@@ -249,8 +249,8 @@ def _check_kernel_args(x, w2, vecs) -> None:
         raise ValueError(f"pgenc kernel: w2 {tuple(w2.shape)} != "
                          f"[Co, 9*{c_in}]")
     if x.dtype not in _DTYPE_CODES or w2.dtype != x.dtype:
-        raise TypeError(f"pgenc kernel takes float32 or bfloat16 x and w2 of "
-                        f"one dtype, got {x.dtype}/{w2.dtype}")
+        raise TypeError(f"pgenc kernel takes float32, bfloat16 or float16 x "
+                        f"and w2 of one dtype, got {x.dtype}/{w2.dtype}")
     for v in vecs:
         if v.shape != (c_out,) or v.dtype != torch.float32:
             raise ValueError("pgenc kernel: cbias/gamma/beta/mean/var must be "

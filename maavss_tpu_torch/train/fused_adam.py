@@ -21,12 +21,11 @@ as optax's `scale_by_schedule` casts the step size to each update's dtype:
 
 - kernel 'pallas' (the JAX flag's name): ONE launch of the fused CUDA kernel
   over all float32 leaves (ops/cuda_adam.py); a CPU parameter raises. The
-  leaves below float32 (the LSTM's w_i and w_h under --dtype bfloat16, with
-  their bf16 moments) take the plain formula, in multi-tensor calls
-  (`adam_update_low`), as the JAX kernel's own gate sends them to its jnp
-  formula
-  (maavss_tpu/ops/pallas_adam.py:62-64,80-89): the reference's split, not
-  a fallback;
+  leaves below float32 (the LSTM's w_i and w_h under --dtype bfloat16 or
+  float16, with moments of their dtype) take the plain formula, in
+  multi-tensor calls (`adam_update_low`), as the JAX kernel's own gate
+  sends them to its jnp formula (maavss_tpu/ops/pallas_adam.py:62-64,
+  80-89): the reference's split, not a fallback;
 - kernel 'xla': the plain formula leaf by leaf for the float32 leaves, an
   explicit choice, and the same multi-tensor calls as 'pallas' for the
   leaves below float32;

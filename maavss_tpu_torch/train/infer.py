@@ -20,8 +20,8 @@ through the polar kernel. The visual input is `_vis_frames` (their
 temporal difference under --attn_diff). Under --compress_audio the model
 sees the compressed clip's features while the SI-SDR reference stays
 `batch['audio']`, uncompressed, as in the JAX package
-(maavss_tpu/train/infer.py:90, 197). Under --dtype bfloat16 the model's
-bf16 outputs are cast to the features' fp32 before the overlap-add or the
+(maavss_tpu/train/infer.py:90, 197). Under --dtype bfloat16 or float16 the
+model's outputs are cast to the features' fp32 before the overlap-add or the
 stitch, so the average, the polar kernel and the iSTFT run in fp32
 (maavss_tpu/train/infer.py:67,77,161).
 

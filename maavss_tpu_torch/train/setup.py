@@ -13,12 +13,12 @@ model. The initialisation:
   (variance 1/fan_in, normal truncated at two standard deviations, flax's
   rescaled stddev); biases zero;
 - LSTM and GRU w_i / w_h: U(-1/sqrt(H), 1/sqrt(H)), drawn in fp32 and
-  rounded to the parameters' dtype, so a bfloat16 model holds its float32
-  twin's weights rounded;
+  rounded to the parameters' dtype, so a bfloat16 or float16 model holds
+  its float32 twin's weights rounded;
 - BatchNorm: scale 1, bias 0, running mean 0, running variance 1.
 
 `--dtype` picks the compute dtype (`compute_dtype`): float32, or bfloat16
-with flax's mixed-precision semantics (models/layers.py).
+or float16 with flax's mixed-precision semantics (models/layers.py).
 
 `default_mesh` and `apply_mesh_model` realise --mesh_data / --mesh_model
 over the job's ranks (parallel/, the counterparts of
@@ -32,7 +32,8 @@ of maavss_tpu/train/setup.py:resolve_noise_schedule and make_stream's
 `stacked`. The data plumbing of the entry tools, `resolve_data_root`,
 `load_stores`, `load_pgram_store`, `make_stream` and `run_name`, is that of
 maavss_tpu/train/setup.py:63-122, 284-318 and 352-355, with its exits word
-for word.
+for word; `make_fusion_media_fn` is the fusion regime's MAAVSS_MEDIA
+callback (maavss_tpu/train/setup.py:320-349).
 
 The numbers differ from a flax init with the same seed (different
 generators); `convert.from_flax` carries a flax init across exactly.
@@ -66,32 +67,29 @@ FUSION_SUBNETS = ("lstm", "fc1", "fc2", "a_fc1", "v_fc1")
 # flax's truncated_normal initializer rescales so the truncated
 # distribution has the requested variance
 _TRUNC_STD = 0.87962566103423978
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 def compute_dtype(cfg: RunConfig) -> torch.dtype:
-    """The torch dtype of --dtype; any other than float32 and bfloat16
-    raises NotImplementedError."""
+    """The torch dtype of --dtype: float32, bfloat16 or float16; any other
+    raises ValueError."""
     if cfg.dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"--dtype {cfg.dtype} is not ported to maavss_tpu_torch yet "
-            "(ROADMAP M5 (float16))")
+        raise ValueError(f"--dtype {cfg.dtype}: the model computes in one of "
+                         f"{', '.join(_DTYPES)}")
     return _DTYPES[cfg.dtype]
 
 
 def check_supported(cfg: RunConfig, train: bool = False) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for every option
     the port does not implement yet; `train=True` adds the train step's
-    flags. Both families share them: the frames family's own options
-    (--frames_encode, --frames_halo) are ported, and so are --rnn_cell
-    gru|none, --attn_diff, --compress_audio and --remat."""
-    todo = [
-        (cfg.dtype not in _DTYPES, f"--dtype {cfg.dtype}", "M5 (float16)"),
-    ]
-    if train:
-        todo += [
-            (cfg.fused_opt, "--fused_opt", "queue 1, 'Not carried'"),
-        ]
+    flags; ValueError for a --dtype the model does not compute in. Both
+    families share them: the frames family's own options (--frames_encode,
+    --frames_halo) are ported, and so are --rnn_cell gru|none, --attn_diff,
+    --compress_audio and --remat."""
+    compute_dtype(cfg)
+    todo = [(cfg.fused_opt, "--fused_opt", "queue 1, 'Not carried'")] \
+        if train else []
     for missing, flag, item in todo:
         if missing:
             raise NotImplementedError(
@@ -380,15 +378,21 @@ def make_stream(cfg: RunConfig, dataset, indices=None, seed: int = 0,
     into one [K, B, ...] dispatch batch (`stack_batches`,
     --steps_per_dispatch). With a `mesh` every rank reads the global batch
     (one seed) and keeps its rows (parallel/mesh.py:shard_batch, the
-    --microbatch interleave included). --native_loader on an AV dataset,
-    where the JAX package takes its C++ loader, raises."""
+    --microbatch interleave included). --native_loader on an AV dataset of
+    frames takes the C++ loader (data/native_loader.py) in place of the
+    Python pipeline, as the JAX package does, and raises where it cannot be
+    built (the JAX package falls back instead); a dataset of phasegram rows
+    (--pgram_cache) stays on the Python pipeline, the C++ loader reading
+    frame shards only."""
     if cfg.native_loader and isinstance(dataset, AVDataset) \
-            and dataset.mode == "av":
-        raise NotImplementedError(
-            "--native_loader is not ported to maavss_tpu_torch yet (ROADMAP "
-            "M6-rest (native loader))")
-    ds = dataset if indices is None else Subset(dataset, indices)
-    it = prefetch(batches(ds, cfg.batch_size, seed=seed))
+            and dataset.mode == "av" and dataset.pgrams is None:
+        from maavss_tpu_torch.data.native_loader import NativeAVLoader
+
+        it = iter(NativeAVLoader(dataset, cfg.batch_size, seed=seed,
+                                 clip_indices=indices))
+    else:
+        ds = dataset if indices is None else Subset(dataset, indices)
+        it = prefetch(batches(ds, cfg.batch_size, seed=seed))
     if stack > 1:
         def stacked(src):
             while True:
@@ -399,6 +403,45 @@ def make_stream(cfg: RunConfig, dataset, indices=None, seed: int = 0,
                                 microbatch=cfg.microbatch, mesh=mesh)
               for b in it)
     return it
+
+
+def make_fusion_media_fn(model, cfg: RunConfig, out_dir: str):
+    """The fusion regime's Trainer media callback (MAAVSS_MEDIA=1,
+    maavss_tpu/train/setup.py:make_fusion_media_fn): separates the first
+    clip of the step's batch and writes the STFT target/output panels
+    (`stft_<step>.png`) and the input and separated audio
+    (`audio_in_<step>.wav`, `audio_out_<step>.wav`) under `out_dir`, the
+    reference's wandb media set (train.py:170-178)."""
+    from maavss_tpu_torch.exp.viz import (
+        save_audio,
+        save_image,
+        stft_pair_image,
+    )
+    from maavss_tpu_torch.ops.stft import stft_features
+    from maavss_tpu_torch.train.infer import make_separator
+
+    separate = make_separator(model, cfg)
+    device = next(model.parameters()).device
+
+    def media(state, batch, generator, step):
+        one = {k: torch.as_tensor(np.asarray(v)[:1]).to(device)
+               for k, v in batch.items()}
+        out = separate(one, generator)
+
+        def feats(audio):
+            return stft_features(audio, cfg.fft_len, cfg.hop,
+                                 normalized=cfg.normalize_fft,
+                                 polar=cfg.use_polar)[0].cpu().numpy()
+
+        save_image(os.path.join(out_dir, f"stft_{step:07d}.png"),
+                   stft_pair_image(feats(one["audio"]),
+                                   feats(out["audio_out"])))
+        save_audio(os.path.join(out_dir, f"audio_in_{step:07d}.wav"),
+                   one["audio"][0].cpu().numpy(), cfg.samplerate)
+        save_audio(os.path.join(out_dir, f"audio_out_{step:07d}.wav"),
+                   out["audio_out"][0].cpu().numpy(), cfg.samplerate)
+
+    return media
 
 
 def run_name(prefix: str, cfg: RunConfig) -> str:

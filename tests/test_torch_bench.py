@@ -73,12 +73,23 @@ def test_line_records_the_fusion_defaults(line):
 
 @pytest.mark.parametrize("env, label", [
     (dict(MAAVSS_BENCH_FUSED_OPT="1"), "Not carried"),
-    (dict(MAAVSS_BENCH_DTYPE="float16"), "M5 (float16)"),
 ])
 def test_unported_variables_raise_by_label(env, label):
     with pytest.raises(NotImplementedError, match="ROADMAP") as err:
         bench_torch.bench_config(env, 2, TINY)
     assert label in str(err.value)
+
+
+@pytest.mark.parametrize("regime", ["fusion", "frames"])
+def test_float16_variable_configures(regime):
+    """MAAVSS_BENCH_DTYPE=float16 (M5) is ported: the config carries it and
+    passes the check (tests/test_torch_fp16.py holds the fp16 path against
+    JAX); any other dtype than the three raises."""
+    env = dict(MAAVSS_BENCH_DTYPE="float16", MAAVSS_BENCH_REGIME=regime)
+    cfg, got, _ = bench_torch.bench_config(env, 2, TINY)
+    assert (cfg.dtype, got) == ("float16", regime)
+    with pytest.raises(ValueError, match="float64"):
+        bench_torch.bench_config(dict(MAAVSS_BENCH_DTYPE="float64"), 2, TINY)
 
 
 @pytest.mark.parametrize("env", [

@@ -10,8 +10,9 @@ package, on the CPU.
 - Over one store, `AVDataset` gives JAX's items array for array (raw
   frames, and float16 phasegram rows under --pgram_cache), and
   `make_stream` JAX's batches, unstacked and stacked [K, B, ...] (K = 2),
-  train and validation splits; --native_loader raises instead of quietly
-  taking the Python pipeline.
+  train and validation splits; --native_loader raises where its C++
+  loader cannot be built, instead of quietly taking the Python pipeline
+  (tests/test_torch_native_loader.py holds the loader itself).
 - tools/save_phasegrams_torch.py writes, in save_phasegrams.py's layout,
   the float16 rounding of the port's `phasegram_cumsum` of the frames, bit
   for bit. On broadband frames (uniform uint8 noise: the smooth blob
@@ -203,11 +204,24 @@ def test_pgram_rows_from_the_port_tool_equal_jax(store):
     assert item["pgram"].shape == (cfg.num_frames + cfg.num_seq, 16 * 16)
 
 
-def test_native_loader_raises(store):
+def test_native_loader_raises(store, tmp_path, monkeypatch):
+    """--native_loader where the C++ loader cannot be built raises instead
+    of quietly taking the Python pipeline (the JAX package falls back):
+    a build with a flag the compiler refuses, into an empty build root."""
+    from maavss_tpu_torch.data import native_loader
+    from maavss_tpu_torch.ops import _build
+
     cfg, frames, audio = _stores(RunConfig, store)
     ds = port_dataset.AVDataset(cfg, frames, audio, 6)
-    with pytest.raises(NotImplementedError, match="M6-rest"):
-        port_setup.make_stream(cfg.replace(native_loader=True), ds)
+    monkeypatch.setattr(_build, "BUILD_ROOT", str(tmp_path / "build"))
+    monkeypatch.setattr(native_loader, "CXX_FLAGS",
+                        native_loader.CXX_FLAGS + ("-fno-such-flag",))
+    native_loader.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="build failed"):
+            port_setup.make_stream(cfg.replace(native_loader=True), ds)
+    finally:
+        native_loader.library.cache_clear()
 
 
 def test_missing_stores_exit_like_jax(tmp_path, monkeypatch):

@@ -277,7 +277,7 @@ def test_serving_fn_specs_and_payloads_match_jax(fused_env):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (dict(dtype="float16"), "M5"),
+    (dict(fused_opt=True), "queue 1, 'Not carried'"),
 ])
 def test_unported_frames_flags_raise(flags, item):
     """Each frames option not ported yet raises NotImplementedError
@@ -294,12 +294,13 @@ def test_unported_frames_flags_raise(flags, item):
 @pytest.mark.parametrize("flags", [
     dict(frames_encode="full"), dict(frames_encode="full", frames_halo=1),
     dict(microbatch=2), dict(attn_diff=True), dict(rnn_cell="gru"),
-    dict(rnn_cell="none"), dict(remat=True),
+    dict(rnn_cell="none"), dict(remat=True), dict(dtype="float16"),
 ])
 def test_ported_frames_flags_take_a_step(fused_env, flags):
     """Frames options that no longer raise: the state builds and takes one
     CPU step (tests/test_torch_frames_full.py holds them against JAX,
-    tests/test_torch_rnn_options.py --attn_diff and --rnn_cell gru|none)."""
+    tests/test_torch_rnn_options.py --attn_diff and --rnn_cell gru|none,
+    tests/test_torch_fp16.py --dtype float16)."""
     cfg = RunConfig(**GEOMETRY).replace(**flags)
     check_supported(cfg, train=True)
     model, state = build_frames_state(cfg, 2, latent_channels=LATENT,

@@ -88,10 +88,12 @@ def jax_runs():
         batch_np = _batch(cfg)
         batch = jax.tree_util.tree_map(jnp.asarray, batch_np)
         step = jax_make_step(model, cfg)
+        # one optimizer object: it is a static field of the state, and a
+        # new one would compile the step again for each mode
+        tx = jax_make_optimizer(cfg.learning_rate, "adam")
         runs = {}
         for mode, n in ((2, STEPS), (0, 1), (1, 1)):
-            state = jax_create_state(variables, jax_make_optimizer(
-                cfg.learning_rate, "adam"))
+            state = jax_create_state(variables, tx)
             metrics, after1 = [], None
             for i in range(n):
                 state, m = step(state, batch, jax.random.PRNGKey(0),

@@ -101,7 +101,7 @@ def test_auto_gate_is_convstack_on_cpu():
 
 
 @pytest.mark.parametrize("flags", [
-    dict(dtype="float16"), dict(pgenc_kernel="fold"), dict(stft_fold="fold"),
+    dict(pgenc_kernel="fold"), dict(stft_fold="fold"),
 ])
 def test_unported_options_raise_at_build(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -111,14 +111,15 @@ def test_unported_options_raise_at_build(flags):
 @pytest.mark.parametrize("flags", [
     dict(fusion_encode="full"), dict(pgram_cache=True),
     dict(rnn_cell="gru"), dict(rnn_cell="none"),
-    dict(compress_audio=True), dict(attn_diff=True),
+    dict(compress_audio=True), dict(attn_diff=True), dict(dtype="float16"),
 ])
 def test_ported_options_build_and_step(flags):
     """Options that no longer raise: the model and its state build, and
     one CPU train step runs on the batch the option reads (--pgram_cache:
     float16 phasegram rows; tests/test_torch_fullenc.py holds the path
     against JAX, tests/test_torch_rnn_options.py --rnn_cell gru|none,
-    --compress_audio and --attn_diff)."""
+    --compress_audio and --attn_diff, tests/test_torch_fp16.py --dtype
+    float16)."""
     cfg = RunConfig(**SMALL).replace(**flags)
     model, state = build_fusion_state(cfg, 2, "cpu",
                                       torch.Generator().manual_seed(0))

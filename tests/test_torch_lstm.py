@@ -138,15 +138,19 @@ def test_geometry_rows_per_batch(b, rows):
 
 def test_geometry_limits():
     """H up to H_MAX = 448 fits (fewer rows per cluster there); above it,
-    or off a multiple of 32, the helper raises with the limit, and another
-    dtype raises. The kernels never take the plain version instead."""
+    or off a multiple of 32, the helper raises with the limit, and a dtype
+    other than float32, bfloat16 and float16 raises (the three IO types
+    share one geometry: w_h's slices are fp32 in shared memory). The
+    kernels never take the plain version instead."""
     geo = lstm_geometry(32, H_MAX)
     assert max(geo.fwd_smem, geo.bwd_smem) <= SMEM_MAX and geo.rows < 8
     for h in (H_MAX + 32, 512, 100, 16):
         with pytest.raises(ValueError, match=str(H_MAX)):
             lstm_geometry(8, h)
+    assert lstm_geometry(8, 256, torch.float16) == lstm_geometry(8, 256) \
+        == lstm_geometry(8, 256, torch.bfloat16)
     with pytest.raises(TypeError):
-        lstm_geometry(8, 256, torch.float16)
+        lstm_geometry(8, 256, torch.float64)
 
 
 def test_forward_saves_gate_activations_only_for_a_gradient():

@@ -121,13 +121,42 @@ def test_port_imports_without_jax():
         " 'maavss_tpu_torch.exp.artifact', 'maavss_tpu_torch.parallel',"
         " 'maavss_tpu_torch.parallel.mesh',"
         " 'maavss_tpu_torch.parallel.distributed',"
-        " 'maavss_tpu_torch.parallel.collectives'}\n"
+        " 'maavss_tpu_torch.parallel.collectives',"
+        " 'maavss_tpu_torch.data.native_loader'}\n"
         "assert new <= set(names), new - set(names)\n"
         "print(len(names))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def _after_header(path: str) -> str:
+    """A C++ source from its first #include on (its header comment off)."""
+    src = open(path).read()
+    return src[src.index("#include"):]
+
+
+@pytest.mark.parametrize("copy", ["dataloader.cc", "viz"])
+def test_copy_pinned_to_original(copy):
+    """The port's copies stay their originals: data/dataloader.cc is
+    native/dataloader.cc's code after its header comment (the port builds
+    it itself, tests/test_torch_native_loader.py); exp/viz.py's image
+    functions and media set are maavss_tpu/exp/viz.py's functions, source
+    for source (its save_image writes the PNG without matplotlib,
+    tests/test_torch_viz.py)."""
+    if copy == "dataloader.cc":
+        assert _after_header(os.path.join(
+            ROOT, "maavss_tpu_torch", "data", "dataloader.cc")) == \
+            _after_header(os.path.join(ROOT, "native", "dataloader.cc"))
+        return
+    from maavss_tpu.exp import viz as jax_viz
+    from maavss_tpu_torch.exp import viz
+
+    for name in ("_to_unit", "filmstrip", "stft_pair_image",
+                 "phasegram_image", "latent_grid", "reconstruction_callback"):
+        assert inspect.getsource(getattr(viz, name)) == \
+            inspect.getsource(getattr(jax_viz, name)), name
 
 
 @pytest.mark.parametrize("argv", [
@@ -370,6 +399,7 @@ def test_entry_points_default_to_cuda():
             build_fusion(port_config.RunConfig(**SMALL), 2)
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         env["CUDA_VISIBLE_DEVICES"] = ""
+        procs = []
         for tool, argv in (
                 ("train_torch.py", ["-s", "1"]),
                 ("train_torch.py", ["--model", "frames", "-s", "1"]),
@@ -386,11 +416,19 @@ def test_entry_points_default_to_cuda():
                 ("flow_torch.py", ["--video", "0"]),
                 ("export_model_torch.py", ["--out", "unwritten"]),
                 ("serve_torch.py", ["--artifact", "missing.pt2"])):
-            out = subprocess.run([sys.executable, f"tools/{tool}", *argv],
-                                 cwd=ROOT, env=env, capture_output=True,
-                                 text=True, timeout=120)
-            assert out.returncode != 0, tool
-            assert "CUDA is not available" in out.stderr, tool
+            # every tool started at once: each waits on its imports
+            procs.append((tool, subprocess.Popen(
+                [sys.executable, f"tools/{tool}", *argv], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        try:
+            for tool, proc in procs:
+                _, err = proc.communicate(timeout=240)
+                assert proc.returncode != 0, tool
+                assert "CUDA is not available" in err, tool
+        finally:
+            for _, proc in procs:
+                proc.kill()
+                proc.wait()
 
 
 def test_registered_ops_have_no_cpu_kernel():

@@ -24,6 +24,7 @@
   graph holds keep their addresses) and refuse a missing or extra key.
 """
 
+import glob
 import json
 import os
 import signal
@@ -486,11 +487,29 @@ def test_jax_saved_model_loads_without_jax(real_runs):
                                    atol=0, err_msg=k)
 
 
-def test_fit_tool_refuses_media(monkeypatch):
-    """tools/fit_torch.py: MAAVSS_MEDIA=1 (the JAX entries' media callback)
-    raises by its ROADMAP label instead of training without it."""
+def test_fit_tool_writes_media(tmp_path, monkeypatch):
+    """tools/fit_torch.py: MAAVSS_MEDIA=1 (train.py's media callback) on a
+    fusion run, with --native_loader: every --cb_freq steps the STFT panel
+    and the input and separated wavs of the batch's first clip under
+    <log_dir>/<run>/media/ (tests/test_torch_viz.py holds their content
+    against the JAX package's)."""
+    from maavss_tpu_torch.config import model_args
     from tools import fit_torch
 
+    monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("MAAVSS_MEDIA", "1")
-    with pytest.raises(NotImplementedError, match="M6-rest"):
-        fit_torch.fit(RunConfig(), "fusion", "cpu")
+    cfg = model_args(["--data_path", "store", "-e", "1", "-s", "4",
+                      "-v", "1", "-b", "2", "--num_frames", "4",
+                      "--fft_len", "64", "--p_size", "16", "--latent_chan",
+                      "8", "--fc_size", "256", "-lr", "1e-3", "--cb_freq",
+                      "2", "--native_loader", "--no_save"])
+    build_synthetic_store("store", cfg, n_videos=3, seconds=1.0,
+                          frame_size=16, seed=2)
+    state = fit_torch.fit(cfg, "fusion", "cpu")
+    assert state.step == 4
+    media = glob.glob(os.path.join(cfg.log_dir, "*", "media"))
+    assert len(media) == 1
+    names = sorted(os.listdir(media[0]))
+    assert names == [f"{kind}_{step:07d}.{ext}" for kind, ext in (
+        ("audio_in", "wav"), ("audio_out", "wav"), ("stft", "png"))
+        for step in (1, 3)], names

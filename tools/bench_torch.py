@@ -30,8 +30,10 @@ is STEPS / K dispatches, and `kernels` stays per optimizer step.
 
 MAAVSS_BENCH_DTYPE defaults to bfloat16, as bench.py's does
 (bench.py:233): the number of record is the bf16 step;
-MAAVSS_BENCH_DTYPE=float32 measures the fp32 step. float16 raises
-"M5 (float16)".
+MAAVSS_BENCH_DTYPE=float32 measures the fp32 step and float16 the fp16
+step (whose first update leaves the LSTM's fp16 leaves non-finite, as the
+reference's does: the bench times the steps and reads the losses, which
+go NaN from the second step; ROADMAP queue 3).
 
 Where it differs from bench.py (also listed under `differs_from_bench_py`
 in its JSON line):

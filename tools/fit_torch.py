@@ -52,8 +52,12 @@ keeps its rows; rank 0 writes the metrics, checkpoints and saved model
 Every flag of the run config applies (`--lr_schedule`,
 `--steps_per_dispatch`, `--dtype bfloat16`, `--fusion_encode full`, ...).
 Runs on the card unless `--device cpu` is given (the plain PyTorch
-versions). `MAAVSS_MEDIA=1` (the JAX entries' media callback) is not
-ported yet and raises.
+versions). `MAAVSS_MEDIA=1` adds train.py's media callback to a fusion
+run (`make_fusion_media_fn`: every --cb_freq steps the STFT panels of the
+batch's first clip and its input and separated audio, under
+`<log_dir>/<run>/media/`); the other models, like their JAX entries,
+have none. `--native_loader` assembles the frames' batches in C++
+(data/native_loader.py).
 
 Usage:
   python tools/fit_torch.py --data_path synthetic -e 2 -s 4 -b 8
@@ -113,6 +117,7 @@ def fit(cfg, model_name: str = "fusion", device="cuda"):
         default_mesh,
         load_pgram_store,
         load_stores,
+        make_fusion_media_fn,
         make_stream,
         run_name,
     )
@@ -122,10 +127,6 @@ def fit(cfg, model_name: str = "fusion", device="cuda"):
     if model_name not in MODELS:
         raise SystemExit(f"fit_torch: unknown --model {model_name!r} "
                          f"({'|'.join(MODELS)})")
-    if os.environ.get("MAAVSS_MEDIA") == "1":
-        raise NotImplementedError(
-            "MAAVSS_MEDIA (the training media callback) is not ported to "
-            "maavss_tpu_torch yet (ROADMAP M6-rest (media))")
     device = initialize(device) or torch.device(device)
     mesh = default_mesh(cfg)
     if device.type == "cuda":
@@ -186,9 +187,13 @@ def fit(cfg, model_name: str = "fusion", device="cuda"):
     name = run_name(prefix, cfg)
     tr_idx, va_idx = (split_train_val(len(dataset), cfg.split, cfg.seed)
                       if split else (None, None))
+    media_fn = None
+    if model_name == "fusion" and os.environ.get("MAAVSS_MEDIA") == "1":
+        media_fn = make_fusion_media_fn(
+            state.model, cfg, os.path.join(cfg.log_dir, name, "media"))
     trainer = Trainer(cfg, step, state, run_name=name, eval_fn=eval_fn,
                       mode_schedule=schedule, fixed_mode=fixed_mode,
-                      checkpoint_policy=policy)
+                      checkpoint_policy=policy, media_fn=media_fn)
     state = trainer.fit(make_stream(cfg, dataset, tr_idx, cfg.seed,
                                     stack=cfg.steps_per_dispatch, mesh=mesh),
                         make_stream(cfg, dataset, va_idx, cfg.seed + 1,
