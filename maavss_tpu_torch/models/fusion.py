@@ -32,6 +32,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from maavss_tpu_torch.exp.profiling import SPANS, annotate
 from maavss_tpu_torch.models.layers import (
     ConvStack,
     KernelConvStack1x9,
@@ -125,14 +126,15 @@ class AVFusionModel(nn.Module):
     def av_fusion_forward(self, x_a_enc: torch.Tensor,
                           x_v_enc: torch.Tensor) -> torch.Tensor:
         """Latents [B,C,t,s] -> fused [B,512] (avse_model.py:658-670)."""
-        x_v = x_v_enc.permute(0, 2, 1, 3)  # time-major [B,t,C,s]
-        x_a = x_a_enc.permute(0, 2, 1, 3)
-        cat = torch.cat([x_v, x_a], dim=2)  # [B,t,2C,s]
-        cat = cat.reshape(cat.shape[0], cat.shape[1], -1)
-        av = self.lstm(cat)  # [B,t,512]
-        av = av.reshape(av.shape[0], -1)
-        av = leaky(dense(self.fc1, av, self.dtype), 0.3, self.dtype)
-        return leaky(dense(self.fc2, av, self.dtype), 0.3, self.dtype)
+        with annotate(SPANS["fusion_core"]):
+            x_v = x_v_enc.permute(0, 2, 1, 3)  # time-major [B,t,C,s]
+            x_a = x_a_enc.permute(0, 2, 1, 3)
+            cat = torch.cat([x_v, x_a], dim=2)  # [B,t,2C,s]
+            cat = cat.reshape(cat.shape[0], cat.shape[1], -1)
+            av = self.lstm(cat)  # [B,t,512]
+            av = av.reshape(av.shape[0], -1)
+            av = leaky(dense(self.fc1, av, self.dtype), 0.3, self.dtype)
+            return leaky(dense(self.fc2, av, self.dtype), 0.3, self.dtype)
 
     def audio_ae_forward(self, x_a: torch.Tensor) -> torch.Tensor:
         """STFT autoencoder path (avse_model.py:676-678)."""
@@ -144,7 +146,8 @@ class AVFusionModel(nn.Module):
 
     def encode_both(self, x_a: torch.Tensor, x_v: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.stft_encoder(x_a), self.phasegram_encoder(x_v)
+        with annotate(SPANS["encoders"]):
+            return self.stft_encoder(x_a), self.phasegram_encoder(x_v)
 
     def heads_from_latents(self, x_a_enc: torch.Tensor, x_v_enc: torch.Tensor,
                            x_a: torch.Tensor
@@ -156,18 +159,20 @@ class AVFusionModel(nn.Module):
         (ops/cuda_mask_head.py), or below float32 `a_fc1` in the compute
         dtype, then the standalone mask product in the features' fp32."""
         fused = self.av_fusion_forward(x_a_enc, x_v_enc)
-        if self.mask_head and self.dtype == torch.float32:
-            x_a_out = mask_head_apply(fused, full_param(self.a_fc1, "weight"),
-                                      self.a_fc1.bias, x_a)
-        elif self.mask_head:
-            mask = dense(self.a_fc1, fused, self.dtype).reshape(x_a.shape)
-            x_a_out = complex_mask_apply(x_a, mask.to(x_a.dtype))
-        else:
-            x_a_out = leaky(dense(self.a_fc1, fused, self.dtype), 0.3,
-                            self.dtype).reshape(x_a.shape)
-        x_v_out = leaky(dense(self.v_fc1, fused, self.dtype), 0.3,
-                        self.dtype)
-        x_v_out = x_v_out.reshape((-1,) + self.pgram_shape[1:])
+        with annotate(SPANS["heads"]):
+            if self.mask_head and self.dtype == torch.float32:
+                x_a_out = mask_head_apply(
+                    fused, full_param(self.a_fc1, "weight"), self.a_fc1.bias,
+                    x_a)
+            elif self.mask_head:
+                mask = dense(self.a_fc1, fused, self.dtype).reshape(x_a.shape)
+                x_a_out = complex_mask_apply(x_a, mask.to(x_a.dtype))
+            else:
+                x_a_out = leaky(dense(self.a_fc1, fused, self.dtype), 0.3,
+                                self.dtype).reshape(x_a.shape)
+            x_v_out = leaky(dense(self.v_fc1, fused, self.dtype), 0.3,
+                            self.dtype)
+            x_v_out = x_v_out.reshape((-1,) + self.pgram_shape[1:])
         return x_a_out, x_v_out, fused
 
     def forward(self, x_a: torch.Tensor, x_v: torch.Tensor

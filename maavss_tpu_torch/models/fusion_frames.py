@@ -42,6 +42,7 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from maavss_tpu_torch.exp.profiling import SPANS, annotate
 from maavss_tpu_torch.models.layers import (
     ConvStack,
     TorchBatchNorm,
@@ -157,51 +158,59 @@ class AVFusionFramesModel(nn.Module):
                           x_v_enc: torch.Tensor) -> torch.Tensor:
         """Latents [B,C,T,S] -> fused [B,512]: the LSTM runs over the
         channel axis C (avse_model_final.py:235-251)."""
-        cat = torch.cat([x_v_enc, x_a_enc], dim=2)  # [B,C,2T,S]
-        av = self.lstm(cat.reshape(cat.shape[0], cat.shape[1], -1))
-        av = torch.tanh(dense(self.fc1, av.reshape(av.shape[0], -1),
-                              self.dtype))
-        return torch.tanh(dense(self.fc2, av, self.dtype))
+        with annotate(SPANS["fusion_core"]):
+            cat = torch.cat([x_v_enc, x_a_enc], dim=2)  # [B,C,2T,S]
+            av = self.lstm(cat.reshape(cat.shape[0], cat.shape[1], -1))
+            av = torch.tanh(dense(self.fc1, av.reshape(av.shape[0], -1),
+                                  self.dtype))
+            return torch.tanh(dense(self.fc2, av, self.dtype))
 
     def audio_ae_forward(self, x_a: torch.Tensor) -> torch.Tensor:
         return self.stft_decoder(self.stft_encoder(x_a))
 
     def encode_frames(self, x_v: torch.Tensor) -> torch.Tensor:
         """Visual trunk only: [B,1,T,H,W] -> latent [B,C,T,S]."""
-        return self.visual_encoder(x_v)
+        with annotate(SPANS["encoders"]):
+            return self.visual_encoder(x_v)
 
     def forward_with_visual_latent(self, x_a: torch.Tensor,
                                    x_v_enc: torch.Tensor
                                    ) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
-        """The heads given a visual latent [B,C,T,S]."""
-        fused = self.av_fusion_forward(self.stft_encoder(x_a), x_v_enc)
+        """The STFT encoder, fusion core and heads given a visual latent
+        [B,C,T,S]."""
+        with annotate(SPANS["encoders"]):
+            x_a_enc = self.stft_encoder(x_a)
+        fused = self.av_fusion_forward(x_a_enc, x_v_enc)
         b = x_a.shape[0]
         a_shape = (b, 2, self.hops_per_frame, self.stft_shape[-1])
-        if self.mask_head:
-            # the mask multiplies the mixture's middle-frame columns, read
-            # in place by the head's kernel (or, below float32, by the
-            # standalone mask product in the features' fp32)
-            lo = self.mask_mid_frame * self.hops_per_frame
-            x_mid = x_a[:, :, lo:lo + self.hops_per_frame]
-            if self.dtype == torch.float32:
-                x_a_out = mask_head_apply(
-                    fused, full_param(self.a_fc1, "weight"), None, x_mid)
+        with annotate(SPANS["heads"]):
+            if self.mask_head:
+                # the mask multiplies the mixture's middle-frame columns,
+                # read in place by the head's kernel (or, below float32, by
+                # the standalone mask product in the features' fp32)
+                lo = self.mask_mid_frame * self.hops_per_frame
+                x_mid = x_a[:, :, lo:lo + self.hops_per_frame]
+                if self.dtype == torch.float32:
+                    x_a_out = mask_head_apply(
+                        fused, full_param(self.a_fc1, "weight"), None, x_mid)
+                else:
+                    mask = dense(self.a_fc1, fused,
+                                 self.dtype).reshape(a_shape)
+                    x_a_out = complex_mask_apply(x_mid, mask.to(x_a.dtype))
             else:
-                mask = dense(self.a_fc1, fused, self.dtype).reshape(a_shape)
-                x_a_out = complex_mask_apply(x_mid, mask.to(x_a.dtype))
-        else:
-            # in bf16 the heads' activations end in fp32: their consumers
-            # (the loss, the separator's stitch) upcast, and XLA drops the
-            # round trip through bf16 (excess precision); fp16 rounds
-            h = dense(self.a_fc1, fused, self.dtype)
-            x_a_out = torch.tanh(h.float() if excess_precision(self.dtype)
-                                 else h).reshape(a_shape)
-        x_v_out = _sigmoid(dense(self.v_fc1, fused, self.dtype)).reshape(
-            b, self.frame_shape[1], self.frame_shape[-2],
-            self.frame_shape[-1])
+                # in bf16 the heads' activations end in fp32: their
+                # consumers (the loss, the separator's stitch) upcast, and
+                # XLA drops the round trip through bf16 (excess precision);
+                # fp16 rounds
+                h = dense(self.a_fc1, fused, self.dtype)
+                x_a_out = torch.tanh(h.float() if excess_precision(self.dtype)
+                                     else h).reshape(a_shape)
+            x_v_out = _sigmoid(dense(self.v_fc1, fused, self.dtype)).reshape(
+                b, self.frame_shape[1], self.frame_shape[-2],
+                self.frame_shape[-1])
         return x_a_out, x_v_out, fused
 
     def forward(self, x_a: torch.Tensor, x_v: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        return self.forward_with_visual_latent(x_a, self.visual_encoder(x_v))
+        return self.forward_with_visual_latent(x_a, self.encode_frames(x_v))

@@ -93,6 +93,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from maavss_tpu_torch.config import RunConfig
+from maavss_tpu_torch.exp.profiling import SPANS, annotate
 from maavss_tpu_torch.models.shape_plan import (
     conv_out,
     plan_phasegram_encoder,
@@ -506,7 +507,7 @@ def _microbatch_accumulate(state: TrainState, mb: int,
     b = leaves[0].shape[0]
     if b % mb:
         raise ValueError(f"batch size {b} not divisible by microbatch {mb}")
-    state.zero_grad()
+    _zero_grads(state)
     if mb == 1:
         metrics = chunk_pass(*leaves)
     else:
@@ -517,24 +518,35 @@ def _microbatch_accumulate(state: TrainState, mb: int,
             # JAX sums from 0, and 0 + x is exact: the same bits
             metrics = m if i == 0 else {k: metrics[k] + v
                                         for k, v in m.items()}
-        by_dtype: Dict[torch.dtype, list] = {}
-        for p in state.model.parameters():
-            if p.grad is not None:
-                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-        for grads in by_dtype.values():
-            torch._foreach_div_(grads, mb)
-    return _global_update(state, metrics)
+    return _global_update(state, metrics, mb)
 
 
-def _global_update(state: TrainState, metrics: Metrics
+def _zero_grads(state: TrainState) -> None:
+    """The start of every train step: the gradients zeroed in place, in
+    the optimizer's span."""
+    with annotate(SPANS["update"]):
+        state.zero_grad()
+
+
+def _global_update(state: TrainState, metrics: Metrics, mb: int = 1
                    ) -> Tuple[TrainState, Metrics]:
-    """The end of every train step: under a mesh the gradients averaged
-    over the data group and the loss metrics (per-rank means) made global
-    means; then `_watch_metrics` and the one optimizer update."""
-    allreduce_grads_(state.model.parameters())
-    metrics = _mean_metrics(metrics)
-    metrics.update(_watch_metrics(state.model))
-    state.apply_gradients()
+    """The end of every train step, in the optimizer's span: the
+    gradients summed over `mb` microbatch chunks divided by mb; under a
+    mesh the gradients averaged over the data group and the loss metrics
+    (per-rank means) made global means; then `_watch_metrics` and the one
+    optimizer update."""
+    with annotate(SPANS["update"]):
+        if mb > 1:
+            by_dtype: Dict[torch.dtype, list] = {}
+            for p in state.model.parameters():
+                if p.grad is not None:
+                    by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+            for grads in by_dtype.values():
+                torch._foreach_div_(grads, mb)
+        allreduce_grads_(state.model.parameters())
+        metrics = _mean_metrics(metrics)
+        metrics.update(_watch_metrics(state.model))
+        state.apply_gradients()
     return state, metrics
 
 
@@ -562,12 +574,13 @@ def _fusion_prep(cfg: RunConfig, device):
     step_noise = _noise_resolver(cfg, device)
 
     def prep(batch, generator, noise):
-        batch = _to_device(batch, device)
-        x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
-                                         trim_end=True,
-                                         max_norm=cfg.normalize_output_fft,
-                                         noise_scalar=step_noise(noise))
-        return x_full, y_full, _pflat_from_batch(batch, cfg)
+        with annotate(SPANS["frontend"]):
+            batch = _to_device(batch, device)
+            x_full, y_full = _prep_stft_pair(
+                batch["audio"], cfg, generator, trim_end=True,
+                max_norm=cfg.normalize_output_fft,
+                noise_scalar=step_noise(noise))
+            return x_full, y_full, _pflat_from_batch(batch, cfg)
 
     return prep
 
@@ -617,7 +630,10 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
 
     def losses(state, xs, ys, y_pg, masks):
         a_mask, v_mask, ya_mask, _ = masks
-        yh_a, yh_v, _ = apply(state.model, xs * a_mask, y_pg * v_mask)
+        with annotate(SPANS["frontend"]):
+            x_a, x_v = xs * a_mask, y_pg * v_mask
+        yh_a, yh_v, _ = apply(state.model, x_a, x_v)
+        del x_a, x_v  # see full_pass
         a_loss = mse(yh_a, ys * ya_mask)
         v_loss = mse(yh_v, y_pg)
         return a_loss + coeff * v_loss, a_loss, v_loss
@@ -626,7 +642,8 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
         macc = {k: torch.zeros((), device=x_full.device)
                 for k in ("loss", "a_loss", "v_loss")}
         for j in range(ns):
-            y_pg = phasegram_window(p_flat[:, j:j + nf])
+            with annotate(SPANS["frontend"]):
+                y_pg = phasegram_window(p_flat[:, j:j + nf])
             win = slice(j * a, (j + nf) * a)
             loss, a_loss, v_loss = losses(state, x_full[:, :, win],
                                           y_full[:, :, win], y_pg, masks)
@@ -638,12 +655,15 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
 
     def vectorized_pass(state, masks, x_full, y_full, p_flat):
         # per-window phasegram finishing keeps per-window normalization
-        pg_wins = torch.stack([phasegram_window(p_flat[:, j:j + nf])
-                               for j in range(ns)], dim=1)
-        y_pg = pg_wins.reshape((-1,) + pg_wins.shape[2:])
-        loss, a_loss, v_loss = losses(state, _windows(x_full, ns, a, nf * a),
+        with annotate(SPANS["frontend"]):
+            pg_wins = torch.stack([phasegram_window(p_flat[:, j:j + nf])
+                                   for j in range(ns)], dim=1)
+            y_pg = pg_wins.reshape((-1,) + pg_wins.shape[2:])
+            xs = _windows(x_full, ns, a, nf * a)
+        loss, a_loss, v_loss = losses(state, xs,
                                       _windows(y_full, ns, a, nf * a), y_pg,
                                       masks)
+        del xs  # see full_pass
         loss.backward()
         return _loss_metrics(loss, a_loss, v_loss)
 
@@ -652,14 +672,21 @@ def make_fusion_step(model, cfg: RunConfig, window_mode: Optional[str] = None,
         # encode exactly the span the windows cover: a longer tail would
         # leak context into the last window's conv pad and shift the
         # BatchNorm statistics
-        pg_full = phasegram_window(p_flat[:, :nf + ns - 1])
-        a_lat, v_lat = encode(
-            state.model, x_full[:, :, :(nf + ns - 1) * a] * a_mask,
-            pg_full * v_mask)
+        with annotate(SPANS["frontend"]):
+            pg_full = phasegram_window(p_flat[:, :nf + ns - 1])
+            x_a = x_full[:, :, :(nf + ns - 1) * a] * a_mask
+            x_v = pg_full * v_mask
+        a_lat, v_lat = encode(state.model, x_a, x_v)
+        # the frontend's outputs live no longer than a call's arguments
+        # would: the backward frees what it saved of them as it runs, and
+        # a name held to its end would raise its peak memory
+        del x_a, x_v
+        with annotate(SPANS["frontend"]):
+            x_wins = _windows(x_full, ns, a, nf * a) * a_mask
         yh_a, yh_v, _ = heads(
             state.model, _windows(a_lat, ns, hop_a, t_win),
-            _windows(v_lat, ns, hop_v, t_win),
-            _windows(x_full, ns, a, nf * a) * a_mask)
+            _windows(v_lat, ns, hop_v, t_win), x_wins)
+        del x_wins
         if loss_impl == "slice":
             yh_aw = yh_a.reshape((-1, ns) + yh_a.shape[1:])
             yh_vw = yh_v.reshape((-1, ns) + yh_v.shape[1:])
@@ -748,11 +775,14 @@ def make_frames_step(model, cfg: RunConfig, device="cuda",
         macc = {k: torch.zeros((), device=x_full.device)
                 for k in ("loss", "a_loss", "v_loss")}
         for j in range(ns):
-            x_v = frames[:, j:j + nf].transpose(1, 2)  # [B,1,nf,H,W]
+            with annotate(SPANS["frontend"]):
+                xs = x_full[:, :, j * a:(j + nf) * a] * a_in
+                # [B,1,nf,H,W]
+                x_v = frames[:, j:j + nf].transpose(1, 2) * v_in
             y_v = frames[:, j + mid]  # [B,1,H,W]
-            xs = x_full[:, :, j * a:(j + nf) * a]
             ys = y_full[:, :, (j + mid) * a:(j + mid + 1) * a]
-            yh_a, yh_v, _ = apply(state.model, xs * a_in, x_v * v_in)
+            yh_a, yh_v, _ = apply(state.model, xs, x_v)
+            del xs, x_v  # see make_fusion_step's full_pass
             a_loss = mse(yh_a, ys * ya_mask)
             v_loss = mse(yh_v, y_v * yv_mask)
             loss = a_loss + coeff * v_loss
@@ -767,14 +797,17 @@ def make_frames_step(model, cfg: RunConfig, device="cuda",
         # exactly the frames the windows and their halos cover: a longer
         # tail would leak context into the last window's conv pad and shift
         # the BatchNorm statistics
-        x_v = frames[:, :nf + ns - 1 + 2 * halo].transpose(1, 2)
-        v_lat = encode_trunk(state.model, x_v * v_in)  # [B,C,T,S]
+        with annotate(SPANS["frontend"]):
+            x_v = frames[:, :nf + ns - 1 + 2 * halo].transpose(1, 2) * v_in
+        v_lat = encode_trunk(state.model, x_v)  # [B,C,T,S]
+        del x_v  # see make_fusion_step's full_pass
         first = halo + mid
         yv = frames[:, first:first + ns]  # [B,ns,1,H,W]
-        yh_a, yh_v, _ = heads(
-            state.model,
-            _windows(x_full[:, :, halo * a:], ns, a, nf * a) * a_in,
-            _windows(v_lat[:, :, halo:], ns, 1, nf))
+        with annotate(SPANS["frontend"]):
+            xs = _windows(x_full[:, :, halo * a:], ns, a, nf * a) * a_in
+        yh_a, yh_v, _ = heads(state.model, xs,
+                              _windows(v_lat[:, :, halo:], ns, 1, nf))
+        del xs
         a_loss = mse(yh_a, _windows(y_full[:, :, first * a:], ns, a, a)
                      * ya_mask)
         v_loss = mse(yh_v, yv.reshape((-1,) + yv.shape[2:]) * yv_mask)
@@ -788,12 +821,13 @@ def make_frames_step(model, cfg: RunConfig, device="cuda",
              generator: Optional[torch.Generator] = None,
              noise: Optional[Noise] = None):
         state.model.train()
-        batch = _to_device(batch, device)
-        x_full, y_full = _prep_stft_pair(batch["audio"], cfg, generator,
-                                         trim_end=False,
-                                         max_norm=cfg.normalize_output_fft,
-                                         noise_scalar=step_noise(noise))
-        frames = _vis_frames(batch, cfg).unsqueeze(2)  # [B,T,1,H,W]
+        with annotate(SPANS["frontend"]):
+            batch = _to_device(batch, device)
+            x_full, y_full = _prep_stft_pair(
+                batch["audio"], cfg, generator, trim_end=False,
+                max_norm=cfg.normalize_output_fft,
+                noise_scalar=step_noise(noise))
+            frames = _vis_frames(batch, cfg).unsqueeze(2)  # [B,T,1,H,W]
         masks = _masks(mode, cfg.objective_zeros)
         return _microbatch_accumulate(
             state, mb, (frames, x_full, y_full),
@@ -867,10 +901,13 @@ def make_fusion_middle_step(model, cfg: RunConfig, device="cuda",
         macc = {k: torch.zeros((), device=x_full.device)
                 for k in ("loss", "a_loss", "v_loss")}
         for j in range(ns):
-            y_pg = phasegram_window(p_flat[:, j:j + nf])
-            xs = x_full[:, :, j * a:(j + nf) * a]
+            with annotate(SPANS["frontend"]):
+                y_pg = phasegram_window(p_flat[:, j:j + nf])
+                x_a = x_full[:, :, j * a:(j + nf) * a] * a_mask
+                x_v = y_pg * v_mask
             ys_mid = y_full[:, :, j * a + lo:j * a + hi]
-            yh_a, yh_v, _ = apply(state.model, xs * a_mask, y_pg * v_mask)
+            yh_a, yh_v, _ = apply(state.model, x_a, x_v)
+            del x_a, x_v  # see make_fusion_step's full_pass
             a_loss = mse(yh_a[:, :, lo:hi], ys_mid)
             v_loss = mse(yh_v[:, :, mid], y_pg[:, :, mid])
             loss = a_loss + coeff * v_loss
@@ -897,7 +934,7 @@ def _ae_update(state: TrainState, loss: torch.Tensor, audio: bool
     """One autoencoder step's backward and optimizer update: the metrics
     of the JAX AE steps (loss, and a_loss or v_loss the same, the other
     0) and `_watch_metrics`."""
-    state.zero_grad()
+    _zero_grads(state)
     loss.backward()
     loss = loss.detach()
     zero = torch.zeros((), device=loss.device)
@@ -932,8 +969,9 @@ def make_audio_ae_step(model, cfg: RunConfig, device="cuda",
              noise: Optional[Noise] = None):
         del mode
         state.model.train()
-        x, y = _audio_ae_pair(batch, cfg, device, generator, trim_end,
-                              step_noise(noise))
+        with annotate(SPANS["frontend"]):
+            x, y = _audio_ae_pair(batch, cfg, device, generator, trim_end,
+                                  step_noise(noise))
         return _ae_update(state, mse(state.model.audio_ae_forward(x), y),
                           audio=True)
 
@@ -993,7 +1031,8 @@ def make_visual_ae_step(model, cfg: RunConfig, device="cuda",
              noise: Optional[Noise] = None):
         del mode, generator, noise
         state.model.train()
-        y_pg = _ae_phasegram(batch, cfg, device)
+        with annotate(SPANS["frontend"]):
+            y_pg = _ae_phasegram(batch, cfg, device)
         return _ae_update(state, mse(state.model.visual_ae_forward(y_pg),
                                      y_pg), audio=False)
 
